@@ -288,15 +288,14 @@ def main():
           f"in a CUDA graph of {N_TIMED} calls; plain versions eager")
     x = xs[0]
     table = enc.grid.detach().to(torch.bfloat16)
-    consts = torch.from_numpy(grid_ops.level_params(spec, live)).to(dev)
     ws = [w.detach().to(torch.bfloat16) for w in net.layers]
     with torch.inference_mode():
-        feats = grid_encode_fwd(spec, table, x, live, soa=True, level_consts=consts)
+        feats = grid_encode_fwd(spec, table, x, live, soa=True)
         mlp_args = (ws, feats, net.activation, net.output_activation,
                     torch.bfloat16, torch.float32, True, False)
 
         def g_call():
-            return grid_encode_fwd(spec, table, x, live, soa=True, level_consts=consts)
+            return grid_encode_fwd(spec, table, x, live, soa=True)
 
         def m_call():
             return fused_mlp_fwd(*mlp_args)
@@ -319,7 +318,7 @@ def main():
     # Least time for the same work: each input read once, each output
     # written once, over HBM; operations over the peak of their type.
     L, F, D, C = spec.n_levels, spec.n_features_per_level, spec.n_dims, 1 << spec.n_dims
-    g_bytes = nbytes(x, table, consts, feats)
+    g_bytes = nbytes(x, table, feats) + L * grid_ops.LEVEL_FIELDS * 4  # + level constants
     # per (sample, level): x·scale + 0.5 and fract (3D), 1 − w (D), corner
     # weights C(D − 1), weighted sum 2CF
     g_flops = MAIN_BATCH * L * (4 * D + C * (D - 1) + 2 * C * F)

@@ -90,10 +90,6 @@ DEFAULT_POLICY = Policy()
 BF16_POLICY = Policy(compute_dtype=torch.bfloat16)
 
 
-def default_policy() -> Policy:
-    return DEFAULT_POLICY
-
-
 def next_multiple(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

@@ -13,7 +13,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from ...common import GridType, HashType, InterpolationType, Policy
+from ...common import (GridType, HashType, InterpolationType, Policy,
+                      resolve_device)
 from ...module import Encoding
 from ...ops import grid_ops
 from ...registry import register_encoding
@@ -59,22 +60,11 @@ class GridEncoding(Encoding):
         # the same table on every device.
         table = torch.empty(self.spec.n_params, dtype=self.policy.param_dtype)
         table.uniform_(-1e-4, 1e-4, generator=generator)
-        self.grid = nn.Parameter(table.to(device))
-        self._level_consts: Dict[Any, torch.Tensor] = {}
+        self.grid = nn.Parameter(table.to(resolve_device(device)))
 
     # SoA (feature-major) output is this encoding's native layout
     # (grid.h:1053-1055); FusedMLP consumes it directly.
     prefers_soa = True
-
-    def _consts(self, device: torch.device) -> torch.Tensor:
-        """The kernel's per-level constants on ``device``, cached per
-        (max_level, device) so that a request copies nothing to the card."""
-        key = (self.max_level, device)
-        if key not in self._level_consts:
-            live = grid_ops.live_levels(self.spec, self.max_level)
-            self._level_consts[key] = torch.from_numpy(
-                grid_ops.level_params(self.spec, live)).to(device)
-        return self._level_consts[key]
 
     def forward(self, x: torch.Tensor, soa: bool = False) -> torch.Tensor:
         table = self.grid
@@ -82,9 +72,8 @@ class GridEncoding(Encoding):
             # bf16 compute copy of the table (trainer.h:68-87), as in the
             # JAX package: the table, not only the output, is rounded.
             table = table.to(torch.bfloat16)
-        consts = self._consts(x.device) if x.is_cuda else None
         y = grid_ops.grid_encode(self.spec, table, x, max_level=self.max_level,
-                                 soa=soa, level_consts=consts)
+                                 soa=soa)
         return y.to(self.policy.compute_dtype)
 
     def hyperparams(self) -> Dict[str, Any]:

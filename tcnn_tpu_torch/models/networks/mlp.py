@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from ...common import Activation, Policy
+from ...common import Activation, Policy, resolve_device
 from ...module import Network
 from ...ops.cuda.fused_mlp import fused_mlp_plain
 from ...registry import register_network
@@ -66,6 +66,7 @@ class MLP(Network):
         self.otype = otype
         # Initialised on the CPU from the generator, so that a seed gives
         # the same weights on every device.
+        device = resolve_device(device)
         ws = []
         for i, (fi, fo) in enumerate(self._layer_dims()):
             if activation == Activation.SINE:

@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from .common import Policy, default_policy
+from .common import DEFAULT_POLICY, Policy
 
 
 class Module(nn.Module):
@@ -28,7 +28,7 @@ class Module(nn.Module):
 
     def __init__(self, policy: Optional[Policy] = None):
         super().__init__()
-        self.policy = policy or default_policy()
+        self.policy = policy or DEFAULT_POLICY
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

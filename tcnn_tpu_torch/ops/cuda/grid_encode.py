@@ -9,7 +9,7 @@ the same function in plain PyTorch, which the CPU tests and
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -53,14 +53,27 @@ def _hash_args(spec: grid_ops.GridSpec):
     return list(factors) + [0] * (4 - len(factors)), coherent_add
 
 
+_level_consts: Dict[Tuple, torch.Tensor] = {}
+
+
+def _consts(spec: grid_ops.GridSpec, live: Sequence[int],
+            device: torch.device) -> torch.Tensor:
+    """The kernel's (L, LEVEL_FIELDS) int32 level constants on ``device``,
+    cached so that a request copies nothing to the card."""
+    key = (spec, tuple(live), device)
+    if key not in _level_consts:
+        _level_consts[key] = torch.from_numpy(
+            grid_ops.level_params(spec, live)).to(device)
+    return _level_consts[key]
+
+
 def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
-                    x: torch.Tensor, live: Sequence[int], soa: bool = False,
-                    level_consts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    x: torch.Tensor, live: Sequence[int],
+                    soa: bool = False) -> torch.Tensor:
     """(B, L·F) features, or (L·F, B) with ``soa``, in ``flat``'s dtype.
 
     ``flat`` is the (n_entries·F,) table, float32 or bfloat16; ``x`` is
-    (B, D) float32.  ``level_consts`` is ``grid_ops.level_params(spec,
-    live)`` on x's device; it is built here when not given.
+    (B, D) float32.
     """
     if x.device.type == "cpu":
         return grid_encode_plain(spec, flat, x, live, soa)
@@ -85,13 +98,8 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
         raise ValueError(f"{name}: the table must be a contiguous, 16-byte "
                          "aligned flat float32 or bfloat16 tensor")
     grid_ops.check_table_size(spec, flat)
-    if level_consts is None:
-        level_consts = torch.from_numpy(grid_ops.level_params(spec, live)).to(x.device)
-    shape = (L, grid_ops.LEVEL_FIELDS)
-    if level_consts.dtype != torch.int32 or level_consts.shape != shape \
-            or not level_consts.is_contiguous():
-        raise ValueError(f"{name}: level constants must be contiguous int32 {shape}")
-    require_cuda_tensors(name, x, flat, level_consts)
+    require_cuda_tensors(name, x, flat)
+    level_consts = _consts(spec, live, x.device)
 
     B = x.shape[0]
     out = torch.empty((L * F, B) if soa else (B, L * F), dtype=flat.dtype,

@@ -326,8 +326,7 @@ def check_table_size(spec: GridSpec, flat: torch.Tensor) -> None:
 
 
 def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
-                max_level: Optional[int] = None, soa: bool = False,
-                level_consts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                max_level: Optional[int] = None, soa: bool = False) -> torch.Tensor:
     """Forward grid encoding (``tcnn_tpu/ops/grid_ops.py:1125-1297``).
 
     table: flat (n_entries·F,) or (n_entries, F), float32 or bfloat16.
@@ -336,8 +335,7 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
     in the table's dtype (JAX casts the columns to ``table.dtype``).
 
     A CUDA tensor goes through the grid-encode kernel; a CPU tensor
-    through its plain version.  ``level_consts`` is the kernel's
-    ``level_params`` table already on the device (modules cache it).
+    through its plain version.
     """
     from .cuda.grid_encode import grid_encode_fwd
 
@@ -345,5 +343,4 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"expected (B, {spec.n_dims}) input, got {tuple(x.shape)}")
     flat = table.reshape(-1)
     check_table_size(spec, flat)
-    return grid_encode_fwd(spec, flat, x, live_levels(spec, max_level),
-                           soa=soa, level_consts=level_consts)
+    return grid_encode_fwd(spec, flat, x, live_levels(spec, max_level), soa=soa)

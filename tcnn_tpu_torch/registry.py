@@ -6,7 +6,7 @@ encodings and networks; losses and optimizers arrive with training.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable
+from typing import Any, Callable, Dict
 
 
 class Registry:
@@ -31,12 +31,6 @@ class Registry:
                 f"Invalid {self.kind} name: {otype}. "
                 f"Known: {sorted(self._factories)}")
         return self._factories[key](*args, **kwargs)
-
-    def names(self) -> Iterable[str]:
-        return sorted(self._factories)
-
-    def __contains__(self, otype: str) -> bool:
-        return otype.lower() in self._factories
 
 
 encodings = Registry("encoding")

@@ -116,6 +116,26 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tcnn.create_from_config(2, 3, CONFIG)
 
 
+_GRID_CFG = {"otype": "HashGrid", "n_levels": 2, "log2_hashmap_size": 8}
+_MLP_CFG = {"otype": "FullyFusedMLP", "n_neurons": 16, "n_hidden_layers": 1}
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: tcnn.create_encoding(2, _GRID_CFG, **kw),
+    lambda **kw: tcnn.create_network(_MLP_CFG, 4, 3, **kw),
+    lambda **kw: tcnn.create_network_with_input_encoding(2, 3, _GRID_CFG, _MLP_CFG, **kw),
+    lambda **kw: tcnn.GridEncoding(2, n_levels=2, log2_hashmap_size=8, **kw),
+    lambda **kw: tcnn.MLP(4, 3, n_neurons=16, n_hidden_layers=1, **kw),
+    lambda **kw: tcnn.FusedMLP(4, 3, n_neurons=16, n_hidden_layers=1, **kw),
+], ids=["create_encoding", "create_network", "create_network_with_input_encoding",
+        "GridEncoding", "MLP", "FusedMLP"])
+def test_every_constructor_defaults_to_cuda_and_raises_without_it(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert all(p.device.type == "cpu" for p in make(device="cpu").parameters())
+
+
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, tcnn_tpu_torch, tcnn_tpu_torch.ops.cuda.grid_encode, "
             "tcnn_tpu_torch.ops.cuda.fused_mlp\n"
