@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, serves config_hash
-requests through ``model.trainer.inference`` (the port's main path),
-times the kernels and the whole inference, and prints:
+against its plain PyTorch version on the card, and drives the port's two
+paths on config_hash at full width: serving requests through
+``model.trainer.inference`` (slice 1) and training through
+``model.trainer.training_step`` and ``make_training_loop`` (slice 2),
+each with the launch counts set to 0 just before it and read just after.
+It times the kernels, a request and a training step, and prints:
 
     ... one line per phase ...
     {"kernels": [...]}                       per-kernel numbers
@@ -25,6 +28,19 @@ with TF32 off):
     atol 2e-3 (a hidden activation may round to the other bf16
     neighbour when the sum is taken in another order).
   * whole model: the bfloat16 MLP tolerance, on O(1) outputs.
+  * grid backward (table gradient): per table entry, with S = Σ|w·dy|
+    over its updates, |d| <= 2^-11·S, plus one bf16 ulp of ref for bf16
+    tables.  Both sides sum in fp32 in an arbitrary order (atomics); n
+    terms in two orders differ by at most (n − 1)·2^-24·S, and 2^-11
+    covers n up to 8192, twice what a level-0 row takes at 2^18.
+  * fused-MLP backward: every dW and dx within 1e-4 (fp32) or 2e-2
+    (bf16) of its largest magnitude: sums over the batch in another order,
+    and in bf16 a dz may round to the other neighbour.
+  * training step: the gradients of the step within the MLP-backward
+    tolerance of the plain path's on the same tensors.
+  * image fit (200 steps at 2^18 on synthetic_image(1024, 1024)): mean
+    loss of the last 10 steps below 0.2x the first step's, and PSNR of the
+    whole image above 20 dB, the floors of tests/test_trainer.py.
 """
 
 import json
@@ -37,6 +53,8 @@ import torch
 
 CONFIG = "configs/config_hash.json"
 MAIN_BATCH = 1 << 18
+FIT_STEPS = 200
+LOOP_STEPS = 100     # the timed make_training_loop call
 REQUESTS = (1 << 18, 1 << 16, 12345, 1)
 N_TIMED = 30
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
@@ -148,6 +166,72 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def compare_table_grad(got, want, scale):
+    """Max abs error of a table gradient; raises beyond 2^-11·S (+ one
+    bf16 ulp for bf16 tables), S = Σ|w·dy| per entry."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"table grad: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), "table grad: non-finite values")
+    err = (g - w).abs()
+    tol = 2.0 ** -11 * scale + 1e-30
+    if want.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(w)
+    bad = err > tol
+    check(not bool(bad.any()), f"table grad: {int(bad.sum())} entries beyond "
+          f"tolerance, max abs err {err.max().item():.3e}")
+    return err.max().item()
+
+
+def compare_mlp_grads(got, want, dtype, what):
+    """Max abs error over a list of gradients; raises beyond 1e-4 (fp32)
+    or 2e-2 (bf16) of each gradient's largest magnitude."""
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape, f"{what}[{i}]: {tuple(a.shape)} vs {tuple(b.shape)}")
+        check(bool(torch.isfinite(a.float()).all()), f"{what}[{i}]: non-finite values")
+        err = (a.float() - b.float()).abs().max().item()
+        lim = rel * b.float().abs().max().item()
+        check(err <= lim, f"{what}[{i}]: max abs err {err:.3e} beyond {lim:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def plain_loss_and_grads(model, x, target):
+    """The training loss and its gradients, by the trainer's parameter
+    names, through the plain versions of G, M, MB and GB on the same
+    tensors (the plain path of one training step)."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd_plain, fused_mlp_plain
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd_plain,
+                                                     grid_encode_plain)
+
+    enc, net, pol = model.network.encoding, model.network.network, model.network.policy
+    live = list(range(enc.spec.n_levels))
+    table = enc.grid.detach().to(pol.compute_dtype)
+    ws = [w.detach() for w in net.layers]
+    feats = grid_encode_plain(enc.spec, table, x, live, soa=True).to(pol.compute_dtype)
+    pred = fused_mlp_plain(ws, feats, net.activation, net.output_activation,
+                           pol.compute_dtype, pol.output_dtype, True, False)
+    pred = pred.float().requires_grad_()
+    loss = model.loss(pred, target)
+    (dy,) = torch.autograd.grad(loss, pred)
+    dws, dfeats = fused_mlp_bwd_plain(ws, feats, dy, net.activation,
+                                      net.output_activation, pol.compute_dtype,
+                                      True, False)
+    grads = {"encoding.grid": grid_encode_bwd_plain(enc.spec, table, x, dfeats,
+                                                    live).float()}
+    grads.update({f"network.layers.{i}": d for i, d in enumerate(dws)})
+    return loss.detach(), grads
+
+
+def plain_training_step(model, x, target):
+    """One training step through the plain versions (and the port's Adam)."""
+    loss, grads = plain_loss_and_grads(model, x, target)
+    model.optimizer.step(model.trainer.opt_state, grads, model.trainer.params())
+    return loss
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -155,9 +239,14 @@ def main():
     from tcnn_tpu_torch.common import Activation
     from tcnn_tpu_torch.ops import grid_ops
     from tcnn_tpu_torch.ops.cuda import kernels
-    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_fwd, fused_mlp_plain
-    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_fwd,
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
+                                                   fused_mlp_fwd, fused_mlp_plain)
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd,
+                                                     grid_encode_bwd_plain,
+                                                     grid_encode_fwd,
                                                      grid_encode_plain)
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+    from tcnn_tpu_torch.utils.metrics import psnr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -260,7 +349,7 @@ def main():
               f"request {i}: launch counts G={grid_encode_fwd.launches} "
               f"M={fused_mlp_fwd.launches}, expected {i + 1} each")
         answers.append(y)
-    launches = {"G": grid_encode_fwd.launches, "M": fused_mlp_fwd.launches}
+    inf_launches = {"G": grid_encode_fwd.launches, "M": fused_mlp_fwd.launches}
     for x, y in zip(xs, answers):
         check(y.shape == (x.shape[0], 3) and y.dtype == torch.float32,
               f"answer {tuple(y.shape)} {y.dtype}")
@@ -268,7 +357,7 @@ def main():
             abs_err, rel_err = compare(y, plain_inference(model, x), "model")
         print(f"request B={x.shape[0]}: ({x.shape[0]}, 3) float32, max abs err "
               f"{abs_err:.3e} vs plain path (rtol 2e-2, atol 2e-3)")
-    print(f"main-path launches: G {launches['G']}, M {launches['M']}")
+    print(f"inference-path launches: G {inf_launches['G']}, M {inf_launches['M']}")
 
     phase("slice: one DEFAULT_POLICY (fp32) request")
     model32 = create_from_config(2, 3, CONFIG, policy=DEFAULT_POLICY)
@@ -284,15 +373,148 @@ def main():
         abs_err, _ = compare(y, plain_inference(model32, x), "mlp-f32")
     print(f"fp32 request B={x.shape[0]}: max abs err {abs_err:.3e} (rtol 1e-5, atol 1e-5)")
 
-    phase(f"times at B={MAIN_BATCH}: kernels and library chain as device time "
-          f"in a CUDA graph of {N_TIMED} calls; plain versions eager")
+    phase("grid backward (GB) vs plain, config_hash geometry")
+    gb_err = 0.0
+    for batch in (MAIN_BATCH, MAIN_BATCH - 37):
+        x = torch.rand((batch, 2), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            table = enc.grid.detach().to(dtype)
+            dcols = torch.randn((spec.n_output_dims, batch), generator=gen,
+                                device=dev).to(dtype)
+            for layout, dc in (("SoA", dcols), ("AoS", dcols.t().contiguous().t())):
+                with torch.inference_mode():
+                    got = grid_encode_bwd(spec, table, x, dc, live)
+                    torch.cuda.synchronize()
+                    want = grid_encode_bwd_plain(spec, table, x, dc, live)
+                    scale = grid_encode_bwd_plain(spec, table.float(), x,
+                                                  dc.float().abs(), live)
+                abs_err = compare_table_grad(got, want, scale)
+                if dtype == torch.bfloat16:
+                    gb_err = max(gb_err, abs_err)
+                print(f"B={batch} table={str(dtype)[6:]} dcols {layout}: max abs err "
+                      f"{abs_err:.3e} (2^-11·S{' + one bf16 ulp' if dtype == torch.bfloat16 else ''})")
+
+    phase("fused-MLP backward (MB) vs plain")
+    mb_err = 0.0
+
+    def mlp_bwd_case(width, batch, dtype, soa_in=True, soa_out=False):
+        dims = [(32, width), (width, width), (width, 3)]
+        ws = [(torch.rand(d, generator=gen, device=dev) * 2 - 1)
+              * float(np.sqrt(6.0 / sum(d))) for d in dims]
+        x = torch.rand((32, batch) if soa_in else (batch, 32), generator=gen,
+                       device=dev) * 2 - 1
+        g = torch.randn((3, batch) if soa_out else (batch, 3), generator=gen, device=dev)
+        args = (ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype, soa_in, soa_out)
+        with torch.inference_mode():
+            got_dws, got_dx = fused_mlp_bwd(*args)
+            torch.cuda.synchronize()
+            want_dws, want_dx = fused_mlp_bwd_plain(*args)
+        check(got_dx.dtype == dtype, f"MB: dx dtype {got_dx.dtype}")
+        err = compare_mlp_grads([*got_dws, got_dx], [*want_dws, want_dx], dtype, "MB")
+        print(f"W={width} B={batch} {str(dtype)[6:]} in={'SoA' if soa_in else 'AoS'} "
+              f"out={'SoA' if soa_out else 'AoS'}: max abs err {err:.3e} over dW and dx "
+              f"({'2e-2' if dtype == torch.bfloat16 else '1e-4'} of each max)")
+        return err
+
+    for batch in (MAIN_BATCH, MAIN_BATCH - 37):
+        for dtype in (torch.bfloat16, torch.float32):
+            err = mlp_bwd_case(64, batch, dtype)
+            if dtype == torch.bfloat16:
+                mb_err = max(mb_err, err)
+    for width in (16, 32, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            mlp_bwd_case(width, 4133, dtype, soa_in=False, soa_out=True)
+
+    counters = {"G": grid_encode_fwd, "M": fused_mlp_fwd, "GB": grid_encode_bwd,
+                "MB": fused_mlp_bwd}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    phase("slice 2: one training step through model.trainer (BF16_POLICY), "
+          "gradients vs the plain path")
+    tmodel = create_from_config(2, 3, CONFIG, policy=BF16_POLICY)
+    with torch.no_grad():
+        tmodel.network.encoding.grid.uniform_(-1, 1, generator=gen)
+    x = torch.rand((MAIN_BATCH, 2), generator=gen, device=dev)
+    target = torch.rand((MAIN_BATCH, 3), generator=gen, device=dev)
+    loss, grads = tmodel.trainer.loss_value_and_grads(x, target)
+    want_loss, want_grads = plain_loss_and_grads(tmodel, x, target)
+    torch.cuda.synchronize()
+    check(abs(loss.item() - want_loss.item()) <= 2e-2 * abs(want_loss.item()),
+          f"step loss {loss.item()} vs plain {want_loss.item()}")
+    check(set(grads) == set(want_grads), f"gradient names {sorted(grads)}")
+    for name in grads:
+        check(grads[name].dtype == torch.float32, f"{name}: gradient dtype {grads[name].dtype}")
+        err = compare_mlp_grads([grads[name]], [want_grads[name]], torch.bfloat16, name)
+        print(f"gradient {name}: max abs err {err:.3e} vs plain path "
+              f"(max |g| {want_grads[name].abs().max().item():.3e}, 2e-2 of it)")
+    print(f"loss {loss.item():.6f}, plain path {want_loss.item():.6f}")
+
+    # The training path: counts set to 0 here, read after the fit loop.
+    torch.cuda.synchronize()
+    reset_counts()
+    step_loss = tmodel.trainer.training_step(x, target)
+    torch.cuda.synchronize()
+    check(counts() == {"G": 1, "M": 1, "GB": 1, "MB": 1},
+          f"training step launches {counts()}, expected one of each kernel")
+    check(bool(torch.isfinite(step_loss)), "training step loss is not finite")
+    print(f"training_step: loss {step_loss.item():.6f}; launches {counts()}")
+
+    phase(f"slice 2: {FIT_STEPS} steps of make_training_loop at B={MAIN_BATCH} "
+          "on synthetic_image(1024, 1024), CUDA graph replay")
+    image = synthetic_image(1024, 1024)
+    fit = create_from_config(2, 3, CONFIG, policy=BF16_POLICY)
+    sampler = ImageSampler(image, seed=0)
+    fit_loop = fit.trainer.make_training_loop(lambda i: sampler.sample_batch(MAIN_BATCH),
+                                              FIT_STEPS)
+    t0 = time.time()
+    fit_losses = fit_loop()
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    # Graph replays run the kernels without calling their wrappers: the
+    # counts hold the training step, the loop's eager warm-up step and its
+    # captured step, one launch of each kernel apiece.
+    train_launches = counts()
+    check(train_launches == {"G": 3, "M": 3, "GB": 3, "MB": 3},
+          f"training path launches {train_launches}, expected 3 of each kernel")
+    fit_losses = fit_losses.cpu()
+    check(bool(torch.isfinite(fit_losses).all()), "non-finite training loss")
+    first, last10 = float(fit_losses[0]), float(fit_losses[-10:].mean())
+    coords = sampler.full_grid_coords()
+    fit_psnr = psnr(fit.trainer.inference(coords), sampler.image.reshape(-1, 3))
+    print(f"kernels: {FIT_STEPS} steps in {fit_s:.2f} s (capture included); loss "
+          f"{first:.4f} -> {last10:.4f} (mean of the last 10, "
+          f"{last10 / first:.4f}x); PSNR {fit_psnr:.2f} dB; "
+          f"training-path launches {train_launches}")
+
+    plain = create_from_config(2, 3, CONFIG, policy=BF16_POLICY)
+    plain_sampler = ImageSampler(image, seed=0)
+    t0 = time.time()
+    plain_losses = torch.stack([plain_training_step(plain, *plain_sampler.sample_batch(MAIN_BATCH))
+                                for _ in range(FIT_STEPS)]).cpu()
+    plain_s = time.time() - t0
+    with torch.inference_mode():
+        plain_psnr = psnr(plain_inference(plain, coords), plain_sampler.image.reshape(-1, 3))
+    p_first, p_last10 = float(plain_losses[0]), float(plain_losses[-10:].mean())
+    print(f"plain versions: {FIT_STEPS} steps in {plain_s:.2f} s; loss {p_first:.4f} -> "
+          f"{p_last10:.4f} ({p_last10 / p_first:.4f}x); PSNR {plain_psnr:.2f} dB")
+    check(last10 < 0.2 * first, f"loss floor missed: {last10} >= 0.2 x {first}")
+    check(fit_psnr > 20.0, f"PSNR floor missed: {fit_psnr:.2f} dB")
+
+    phase(f"times at B={MAIN_BATCH}: kernels, library calls and whole steps as device "
+          f"time in a CUDA graph of {N_TIMED} calls; plain versions eager")
     x = xs[0]
-    table = enc.grid.detach().to(torch.bfloat16)
-    ws = [w.detach().to(torch.bfloat16) for w in net.layers]
+    bf16, relu, out_act = torch.bfloat16, net.activation, net.output_activation
+    table = enc.grid.detach().to(bf16)
+    ws = [w.detach().to(bf16) for w in net.layers]
     with torch.inference_mode():
         feats = grid_encode_fwd(spec, table, x, live, soa=True)
-        mlp_args = (ws, feats, net.activation, net.output_activation,
-                    torch.bfloat16, torch.float32, True, False)
+        mlp_args = (ws, feats, relu, out_act, bf16, torch.float32, True, False)
 
         def g_call():
             return grid_encode_fwd(spec, table, x, live, soa=True)
@@ -315,18 +537,85 @@ def main():
         m_lib_ms = graph_ms(library_chain)
         inf_device_ms, inf_ms = graph_ms(request), time_ms(request)
 
+    # The training step's parts on the same batch: the loss and its
+    # gradient, MB on that gradient, GB on MB's input gradient, Adam.
+    with torch.no_grad():
+        pred = fused_mlp_fwd(*mlp_args)
+
+    def loss_call():
+        p = pred.detach().requires_grad_()
+        return torch.autograd.grad(tmodel.loss(p, target), p)[0]
+
+    dy = loss_call()
+    with torch.inference_mode():
+        mb_args = (ws, feats, dy, relu, out_act, bf16, True, False)
+        dfeats = fused_mlp_bwd(*mb_args)[1]
+        f_in = feats.t()
+        z0 = f_in @ ws[0]
+        h0 = torch.relu(z0)
+        z1 = h0 @ ws[1]
+        h1 = torch.relu(z1)
+
+        def mb_call():
+            return fused_mlp_bwd(*mb_args)
+
+        def gb_call():
+            return grid_encode_bwd(spec, table, x, dfeats, live)
+
+        def library_bwd():   # the chain's backward on its saved activations (cuBLAS)
+            dz = dy.to(bf16)
+            dw2, dh = h1.t() @ dz, dz @ ws[2].t()
+            dz = dh * (z1 > 0)
+            dw1, dh = h0.t() @ dz, dz @ ws[1].t()
+            dz = dh * (z0 > 0)
+            return dw2, dw1, f_in.t() @ dz, dz @ ws[0].t()
+
+        mb_ms, mb_call_ms = graph_ms(mb_call), time_ms(mb_call)
+        mb_plain_ms = eager_ms(lambda: fused_mlp_bwd_plain(*mb_args))
+        mb_lib_ms = graph_ms(library_bwd)
+        gb_ms, gb_call_ms = graph_ms(gb_call), time_ms(gb_call)
+        gb_plain_ms = eager_ms(lambda: grid_encode_bwd_plain(spec, table, x, dfeats, live))
+
+    trainer = tmodel.trainer
+    _, step_grads = trainer.loss_value_and_grads(x, target)
+    loss_ms = graph_ms(loss_call)
+    adam_ms = graph_ms(lambda: tmodel.optimizer.step(trainer.opt_state, step_grads,
+                                                     trainer.params()))
+    step_ms = time_ms(lambda: trainer.training_step(x, target))
+    step_device_ms = graph_ms(lambda: trainer.training_step(x, target))
+    loop = fit.trainer.make_training_loop(lambda i: sampler.sample_batch(MAIN_BATCH),
+                                          LOOP_STEPS)   # replays fit's captured step
+    loop_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop_losses = loop()
+        torch.cuda.synchronize()
+        loop_times.append((time.perf_counter() - t0) * 1e3 / LOOP_STEPS)
+    check(bool(torch.isfinite(loop_losses).all()), "non-finite loss in the timed loop")
+    loop_step_ms = float(np.median(loop_times))
+
     # Least time for the same work: each input read once, each output
     # written once, over HBM; operations over the peak of their type.
     L, F, D, C = spec.n_levels, spec.n_features_per_level, spec.n_dims, 1 << spec.n_dims
-    g_bytes = nbytes(x, table, feats) + L * grid_ops.LEVEL_FIELDS * 4  # + level constants
+    consts_bytes = L * grid_ops.LEVEL_FIELDS * 4
+    g_bytes = nbytes(x, table, feats) + consts_bytes
     # per (sample, level): x·scale + 0.5 and fract (3D), 1 − w (D), corner
-    # weights C(D − 1), weighted sum 2CF
+    # weights C(D − 1), weighted sum 2CF (GB: w·dy and the add, also 2CF)
     g_flops = MAIN_BATCH * L * (4 * D + C * (D - 1) + 2 * C * F)
     g_bound = max(g_bytes / PEAK_BYTES, g_flops / PEAK_FP32) * 1e3
     y_bytes = MAIN_BATCH * net.n_output_dims * 4
     m_bytes = nbytes(feats, *ws) + y_bytes
     m_flops = 2 * MAIN_BATCH * sum(w.numel() for w in ws)
     m_bound = max(m_bytes / PEAK_BYTES, m_flops / PEAK_BF16) * 1e3
+    # GB: x, dcols and the level constants in, the bf16 table gradient out.
+    gb_bytes = nbytes(x, dfeats, table) + consts_bytes
+    gb_bound = max(gb_bytes / PEAK_BYTES, g_flops / PEAK_FP32) * 1e3
+    # MB: input, output gradient and weights in; input gradient and fp32 dW
+    # out.  Products: the recomputed forward, the dgrad and the wgrad chains.
+    mb_bytes = nbytes(feats, dy, *ws, dfeats) + sum(w.numel() for w in ws) * 4
+    mb_flops = 3 * m_flops
+    mb_bound = max(mb_bytes / PEAK_BYTES, mb_flops / PEAK_BF16) * 1e3
     print(f"G: {g_ms:.4f} ms on the device, {g_call_ms:.4f} ms per call with "
           f"the host's work (plain {g_plain_ms:.4f} ms, bound {g_bound:.4f} ms: "
           f"{g_bytes / 1e6:.2f} MB, {g_flops / 1e9:.3f} GFLOP fp32)")
@@ -337,6 +626,27 @@ def main():
     print(f"inference at B={MAIN_BATCH}: {inf_ms:.4f} ms per request, "
           f"{MAIN_BATCH / inf_ms * 1e3:.4e} samples/s; {inf_device_ms:.4f} ms of "
           f"device work (idle share {1 - inf_device_ms / inf_ms:.3f})")
+    print(f"GB: {gb_ms:.4f} ms on the device, {gb_call_ms:.4f} ms per call with the "
+          f"host's work (plain {gb_plain_ms:.4f} ms, bound {gb_bound:.4f} ms: "
+          f"{gb_bytes / 1e6:.2f} MB, {g_flops / 1e9:.3f} GFLOP fp32)")
+    print(f"MB: {mb_ms:.4f} ms on the device, {mb_call_ms:.4f} ms per call with the "
+          f"host's work (plain {mb_plain_ms:.4f} ms, cuBLAS chain backward "
+          f"{mb_lib_ms:.4f} ms, bound {mb_bound:.4f} ms: {mb_bytes / 1e6:.2f} MB, "
+          f"{mb_flops / 1e9:.3f} GFLOP bf16)")
+    parts = {"G": g_ms, "M": m_ms, "loss and its gradient": loss_ms, "MB": mb_ms,
+             "GB": gb_ms, "Adam": adam_ms}
+    parts["casts, gaps and the rest"] = step_device_ms - sum(parts.values())
+    print(f"training step at B={MAIN_BATCH}: {step_ms:.4f} ms eager with the host's "
+          f"work, {step_device_ms:.4f} ms of device work (idle share "
+          f"{1 - step_device_ms / step_ms:.3f}); split: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+    print(f"make_training_loop at B={MAIN_BATCH}: {loop_step_ms:.4f} ms per step "
+          f"(median of 3 calls of {LOOP_STEPS} steps), "
+          f"{MAIN_BATCH / loop_step_ms * 1e3:.4e} training samples/s, idle share "
+          f"{1 - step_device_ms / loop_step_ms:.3f}")
+
+    def bound_by(n_bytes, flops, peak):
+        return "bytes" if n_bytes / PEAK_BYTES >= flops / peak else "operations"
 
     phase("kernels")
     report = {"kernels": [
@@ -344,18 +654,33 @@ def main():
          "source": "tcnn_tpu_torch/csrc/grid_encode.cu",
          "replaces": "tcnn_tpu/ops/pallas/grid_matmul.py:861 (_gather_kernel); "
                      "tcnn_tpu/ops/pallas/grid_matmul.py:734 (_gather_kernel_xor)",
-         "launches": launches["G"], "max_abs_err": g_err, "ms": g_ms,
+         "launches": train_launches["G"], "max_abs_err": g_err, "ms": g_ms,
          "plain_ms": g_plain_ms, "bound_ms": g_bound,
-         "bound_by": "bytes" if g_bytes / PEAK_BYTES >= g_flops / PEAK_FP32 else "operations",
-         "library_ms": None},
+         "bound_by": bound_by(g_bytes, g_flops, PEAK_FP32), "library_ms": None},
         {"name": "fused_mlp_fwd", "route": "cuda",
          "source": "tcnn_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "tcnn_tpu/ops/pallas/fused_mlp.py:100 (_fwd_kernel)",
-         "launches": launches["M"], "max_abs_err": m_err, "ms": m_ms,
+         "launches": train_launches["M"], "max_abs_err": m_err, "ms": m_ms,
          "plain_ms": m_plain_ms, "bound_ms": m_bound,
-         "bound_by": "bytes" if m_bytes / PEAK_BYTES >= m_flops / PEAK_BF16 else "operations",
-         "library_ms": m_lib_ms},
+         "bound_by": bound_by(m_bytes, m_flops, PEAK_BF16), "library_ms": m_lib_ms},
+        {"name": "grid_encode_bwd", "route": "cuda",
+         "source": "tcnn_tpu_torch/csrc/grid_encode_bwd.cu",
+         "replaces": "tcnn_tpu/ops/pallas/grid_matmul.py:204 (_scatter_kernel); "
+                     "tcnn_tpu/ops/pallas/grid_matmul.py:602 (_scatter_kernel_xor)",
+         "launches": train_launches["GB"], "max_abs_err": gb_err, "ms": gb_ms,
+         "plain_ms": gb_plain_ms, "bound_ms": gb_bound,
+         "bound_by": bound_by(gb_bytes, g_flops, PEAK_FP32), "library_ms": None},
+        {"name": "fused_mlp_bwd", "route": "cuda",
+         "source": "tcnn_tpu_torch/csrc/fused_mlp_bwd.cu",
+         "replaces": "tcnn_tpu/ops/pallas/fused_mlp.py:113 (_bwd_kernel)",
+         "launches": train_launches["MB"], "max_abs_err": mb_err, "ms": mb_ms,
+         "plain_ms": mb_plain_ms, "bound_ms": mb_bound,
+         "bound_by": bound_by(mb_bytes, mb_flops, PEAK_BF16), "library_ms": mb_lib_ms},
     ]}
+    # launches: the training path's counts (this slice's main path); G and M
+    # also ran in the inference path, whose counts are kept beside them.
+    for k in report["kernels"][:2]:
+        k["launches_inference"] = inf_launches["G" if k["name"] == "grid_encode_fwd" else "M"]
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

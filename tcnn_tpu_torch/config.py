@@ -2,9 +2,8 @@
 
 PyTorch counterpart of ``tcnn_tpu/config.py``: the same JSON schema,
 ``//`` comments included.  ``create_from_config`` returns a
-``TrainableModel`` whose ``network`` and ``trainer`` are set; ``loss``
-and ``optimizer`` are built once training is ported (slice 2) and are
-``None`` until then.
+``TrainableModel``: loss, optimizer, network and the trainer that owns
+them (``tcnn_tpu/config.py:86-104``).
 """
 
 from __future__ import annotations
@@ -17,8 +16,10 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from .common import Policy, resolve_device
+from .losses import Loss, create_loss
 from .models.network_with_input_encoding import NetworkWithInputEncoding
 from .module import Encoding, Module, Network
+from .optimizers import Optimizer, create_optimizer
 from .registry import encodings as _encodings
 from .registry import networks as _networks
 from .trainer import Trainer
@@ -73,8 +74,8 @@ def create_network_with_input_encoding(
 @dataclasses.dataclass
 class TrainableModel:
     """≈ TrainableModel (config.h:46-51)."""
-    loss: Any
-    optimizer: Any
+    loss: Loss
+    optimizer: Optimizer
     network: Module          # NetworkWithInputEncoding
     trainer: Trainer
 
@@ -96,6 +97,8 @@ def create_from_config(
     """
     device = resolve_device(device)
     cfg = load_config(config)
+    loss = create_loss(cfg.get("loss", {}))
+    optimizer = create_optimizer(cfg.get("optimizer", {}))
     generator = torch.Generator().manual_seed(seed)
     model = create_network_with_input_encoding(
         n_input_dims, n_output_dims,
@@ -103,6 +106,6 @@ def create_from_config(
         cfg.get("network", {}),
         policy=policy, generator=generator, device=device,
     )
-    trainer = Trainer(model, seed=seed, policy=policy)
-    return TrainableModel(loss=None, optimizer=None, network=model,
+    trainer = Trainer(model, optimizer, loss, seed=seed, policy=policy)
+    return TrainableModel(loss=loss, optimizer=optimizer, network=model,
                           trainer=trainer)

@@ -36,47 +36,13 @@
 #include <cstdint>
 
 #include "kernels.h"
+#include "mlp_common.cuh"
 
 namespace tcnn_tpu_torch {
 namespace {
 
-constexpr int kRows = 128;       // bf16 kernel: batch rows per CTA
-constexpr int kWarps = kRows / 16;
-constexpr int kSkew = 8;         // bf16 padding per shared row (bank spread)
 constexpr int kRowsF32 = 64;     // fp32 kernel: batch rows per CTA
 constexpr int kThreadsF32 = 128;
-constexpr int kMaxSmem = 232448;
-
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
-
-// The Activation enum's order (common.py): None, ReLU, LeakyReLU,
-// Exponential, Sine, Sigmoid, Squareplus, Softplus, Tanh.
-__device__ __forceinline__ float activate(float z, int act) {
-  constexpr float kAct = 10.0f;
-  switch (act) {
-    case 1: return fmaxf(z, 0.0f);
-    case 2: return fmaxf(z, 0.0f) + 0.01f * fminf(z, 0.0f);
-    case 3: return expf(z);
-    case 4: return sinf(z);
-    case 5: return 1.0f / (1.0f + expf(-z));
-    case 6: {
-      const float xk = z * kAct;
-      return 0.5f * (xk + sqrtf(xk * xk + 4.0f)) / kAct;
-    }
-    case 7: {
-      const float xk = z * kAct;
-      const float sp = xk > 0.0f ? xk + log1pf(expf(-xk)) : log1pf(expf(xk));
-      return sp / kAct;
-    }
-    case 8: return tanhf(z);
-    default: return z;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-constexpr int kMaxLayers = 32;  // n_hidden + 1, a kernel-parameter array
 
 struct MlpArgs {
   const void* x;
@@ -91,28 +57,6 @@ struct MlpArgs {
   int soa_in, soa_out;
 };
 
-// Copies `total` elements into shared memory with kBatch independent
-// global loads in flight per thread, where a loop whose one load feeds
-// one store would wait a memory latency per element.  src(i) loads
-// element i, dst(i, v) stores it.
-constexpr int kBatch = 8;
-template <typename T, typename Src, typename Dst>
-__device__ __forceinline__ void staged_copy(int total, Src src, Dst dst) {
-  for (int base = threadIdx.x; base < total; base += kBatch * blockDim.x) {
-    T v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * blockDim.x;
-      if (i < total) v[u] = src(i);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * blockDim.x;
-      if (i < total) dst(i, v[u]);
-    }
-  }
-}
-
 // Shared memory of the bf16 kernel: the input tile (kRows x ld) and the
 // current layer's transposed weights (up to max(D_out, W) rows x ld),
 // ld = max(pad16(D_in), W) + kSkew.
@@ -124,127 +68,22 @@ inline int bf16_smem_bytes(int d_in, int d_out, int width) {
   return (kRows + wrows) * bf16_ld(d_in, width) * 2;
 }
 
-// Stages a row-major (k_real, n_real) bf16 weight matrix from global
-// memory into shared memory TRANSPOSED, dst[n * ld + k], zero-padded to
-// (K, N): a B fragment of mma.m16n8k16 is then two 32-bit loads of
-// consecutive k.  Rows of W elements move as 16-byte chunks, consecutive
-// lanes on consecutive k so the transposing stores do not collide in a
-// bank; others (the D_out-wide output layer) go element by element.
-template <int W>
-__device__ __forceinline__ void stage_weights_t(const __nv_bfloat16* __restrict__ w,
-                                                int k_real, int n_real, int K, int N,
-                                                __nv_bfloat16* dst, int ld) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  if (n_real == W && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
-    constexpr int kChunks = W / 8;  // 16-byte chunks per row
-    for (int c = threadIdx.x; c < K * kChunks; c += blockDim.x) {
-      const int k = c % K, j = c / K;
-      const uint4 v = k < k_real
-          ? __ldg(reinterpret_cast<const uint4*>(w + k * W) + j)
-          : make_uint4(0, 0, 0, 0);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) dst[(8 * j + u) * ld + k] = e[u];
-    }
-    return;
-  }
-  staged_copy<__nv_bfloat16>(
-      K * N,
-      [&](int i) {
-        const int n = i / K, k = i % K;
-        return (k < k_real && n < n_real) ? w[k * n_real + n] : zero;
-      },
-      [&](int i, __nv_bfloat16 v) { dst[(i / K) * ld + i % K] = v; });
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a · b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16
-// (col), d 16 x 8 fp32.  Lane l holds, with g = l / 4 and t = l % 4:
-//   a: {A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}
-//   b: {B[2t..2t+1][g], B[2t+8..2t+9][g]}
-//   d: {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment of n-tile j, k-step kb, from transposed weights wt.
-__device__ __forceinline__ void load_b(const __nv_bfloat16* wt, int ld, int j, int kb,
-                                       int g, int t, uint32_t* b0, uint32_t* b1) {
-  const __nv_bfloat16* p = wt + (8 * j + g) * ld + 16 * kb + 2 * t;
-  *b0 = ld32(p);
-  *b1 = ld32(p + 8);
-}
-
 template <int W, typename TOut>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_mlp_fwd_bf16_kernel(MlpArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = bf16_ld(a.d_in, W);
-  const int kin = pad16(a.d_in);
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);  // input tile
   __nv_bfloat16* wt = act + kRows * ld;                           // wt[n * ld + k]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
   const int64_t row0 = int64_t(blockIdx.x) * kRows;
-  const bool full_tile = row0 + kRows <= a.batch;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 
-  // Input tile, zero-padded to kin columns.  The common case, a full SoA
-  // tile with 16-byte aligned rows, goes in blocks of 8 features x 8
-  // samples: eight 16-byte loads (8 samples of one feature each), a
-  // transpose in registers, eight 16-byte stores (8 features of one
-  // sample each).  Storing single elements down a column instead puts all
-  // 32 lanes of a warp in one shared-memory bank.  The rest (AoS, the
-  // batch tail) goes element by element.
-  if (a.soa_in && full_tile && kin == a.d_in && a.x_stride_d % 8 == 0 &&
-      (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    constexpr int kSampleBlocks = kRows / 8;
-    for (int task = tid; task < (a.d_in / 8) * kSampleBlocks; task += blockDim.x) {
-      const int kk = task % (a.d_in / 8), j = task / (a.d_in / 8);
-      uint4 v[8];
-#pragma unroll
-      for (int f = 0; f < 8; ++f)
-        v[f] = __ldg(reinterpret_cast<const uint4*>(
-            x + (8 * kk + f) * a.x_stride_d + row0 + 8 * j));
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        alignas(16) __nv_bfloat16 row[8];
-#pragma unroll
-        for (int f = 0; f < 8; ++f) row[f] = reinterpret_cast<const __nv_bfloat16*>(&v[f])[u];
-        *reinterpret_cast<uint4*>(act + (8 * j + u) * ld + 8 * kk) =
-            *reinterpret_cast<const uint4*>(row);
-      }
-    }
-  } else {
-    staged_copy<__nv_bfloat16>(
-        kRows * kin,
-        [&](int i) {
-          const int r = a.soa_in ? i % kRows : i / kin;
-          const int k = a.soa_in ? i / kRows : i % kin;
-          const int64_t b = row0 + r;
-          return (b < a.batch && k < a.d_in) ? x[b * a.x_stride_b + k * a.x_stride_d] : zero;
-        },
-        [&](int i, __nv_bfloat16 v) {
-          const int r = a.soa_in ? i % kRows : i / kin;
-          const int k = a.soa_in ? i / kRows : i % kin;
-          act[r * ld + k] = v;
-        });
-  }
+  // Input tile, zero-padded to pad16(D_in) columns.
+  stage_input_tile(x, a.x_stride_b, a.x_stride_d, a.d_in, a.batch, row0, a.soa_in != 0,
+                   act, ld);
 
   // Each warp owns 16 rows.  Between layers its activations stay in
   // registers: an m16n8 accumulator pair (n-tiles 2kb, 2kb+1) holds
@@ -403,14 +242,6 @@ fused_mlp_fwd_f32_kernel(MlpArgs a, int width) {
     src = dst;
     dst = t;
   }
-}
-
-// Above 48 KB a kernel needs an explicit dynamic shared-memory budget.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 template <typename Kernel>

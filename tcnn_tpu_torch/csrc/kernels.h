@@ -42,4 +42,39 @@ cudaError_t fused_mlp_fwd_launch(
     bool compute_bf16, int act, int out_act, bool soa_in, bool soa_out,
     cudaStream_t stream);
 
+// Kernel GB: grid-encode backward, the table gradient (csrc/grid_encode_bwd.cu).
+//   x            (batch, n_dims) float32, contiguous
+//   dcols        element (l*F+f, b) at dcols[b*dc_stride_b + (l*F+f)*dc_stride_f],
+//                float32 or bfloat16
+//   grad         (n_params) float32 scratch: zeroed, then accumulated into
+//   out          (n_params) gradient in the table's dtype: bfloat16 (a cast of
+//                grad) or, for float32 tables, grad itself
+//   other arguments as for grid_encode_fwd_launch
+cudaError_t grid_encode_bwd_launch(
+    const float* x, const void* dcols, bool dcols_bf16, const int32_t* level_params,
+    float* grad, void* out, bool out_bf16, int64_t n_params, int64_t batch,
+    int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
+    int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add,
+    int interp, cudaStream_t stream);
+
+// Kernel MB: fused-MLP backward (csrc/fused_mlp_bwd.cu).
+//   x, weights, d_in, width, d_out, act, out_act: as for fused_mlp_fwd_launch
+//   g        element (b, j) at g[b*g_stride_b + j*g_stride_d], float32
+//   dx       element (b, d) at dx[b*dx_stride_b + d*dx_stride_d], bfloat16 or float32
+//   partials (n_ctas, total_dw) float32 scratch, total_dw = sum of the layers'
+//            fan_in * fan_out; n_ctas persistent CTAs, 1 <= n_ctas <= the number
+//            of batch tiles (128 rows for bf16 compute, 64 for float32)
+//   dw       (total_dw) float32: the layers' gradients, row-major, concatenated
+cudaError_t fused_mlp_bwd_launch(
+    const void* x, int64_t x_stride_b, int64_t x_stride_d, int d_in,
+    const void* const* weights, int n_layers, int width, int d_out,
+    const float* g, int64_t g_stride_b, int64_t g_stride_d, void* dx,
+    int64_t dx_stride_b, int64_t dx_stride_d, bool dx_bf16, float* partials,
+    int n_ctas, float* dw, int64_t batch, bool compute_bf16, int act, int out_act,
+    bool soa_in, cudaStream_t stream);
+
+// Shared memory one CTA of kernel MB needs (at most 232,448 bytes on sm_90).
+int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers,
+                             bool compute_bf16);
+
 }  // namespace tcnn_tpu_torch

@@ -62,6 +62,12 @@ class GridEncoding(Encoding):
         table.uniform_(-1e-4, 1e-4, generator=generator)
         self.grid = nn.Parameter(table.to(resolve_device(device)))
 
+    def param_layout(self) -> Dict[str, str]:
+        # The hash table is a "non-matrix" parameter: no L2, the
+        # non-matrix learning rate and lazy stepping in Adam
+        # (adam.h:76-118; tcnn_tpu/models/encodings/grid.py:76-80).
+        return {"grid": "other"}
+
     # SoA (feature-major) output is this encoding's native layout
     # (grid.h:1053-1055); FusedMLP consumes it directly.
     prefers_soa = True

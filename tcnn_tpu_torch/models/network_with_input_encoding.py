@@ -31,6 +31,12 @@ class NetworkWithInputEncoding(Module):
         self.n_input_dims = encoding.n_input_dims
         self.n_output_dims = network.n_output_dims
 
+    def param_layout(self) -> Dict[str, str]:
+        return {**{f"encoding.{n}": k
+                   for n, k in self.encoding.param_layout().items()},
+                **{f"network.{n}": k
+                   for n, k in self.network.param_layout().items()}}
+
     @property
     def _use_soa(self) -> bool:
         return (getattr(self.encoding, "prefers_soa", False)

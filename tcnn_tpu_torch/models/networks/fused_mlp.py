@@ -1,11 +1,12 @@
 """FusedMLP: the counterpart of FullyFusedMLP.
 
 PyTorch counterpart of ``tcnn_tpu/models/networks/fused_mlp.py``.  On a
-CUDA device the whole forward is one launch of kernel M
-(``ops/cuda/fused_mlp.py``) at every batch size: the JAX package's
-batch threshold for its Pallas kernel was a TPU measurement and is not
+CUDA device the whole forward is one launch of kernel M and the whole
+backward one launch of kernel MB (``ops/cuda/fused_mlp.py``,
+``FusedMLPFunction``) at every batch size: the JAX package's batch
+threshold for its Pallas kernels was a TPU measurement and is not
 carried over.  With 0 hidden layers the network is the plain single
-matmul, as in the JAX package.  Widths are restricted to
+matmul under autograd, as in the JAX package.  Widths are restricted to
 {16, 32, 64, 128} (fully_fused_mlp.cu:893-896).
 """
 
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ...common import Activation
-from ...ops.cuda.fused_mlp import SUPPORTED_WIDTHS, fused_mlp_fwd
+from ...ops.cuda.fused_mlp import SUPPORTED_WIDTHS, FusedMLPFunction
 from ...registry import register_network
 from .mlp import MLP, make_mlp
 
@@ -40,10 +41,11 @@ class FusedMLP(MLP):
                 output_soa: bool = False) -> torch.Tensor:
         if self._n_hidden_layers == 0:
             return super().forward(x, input_soa, output_soa)
-        return fused_mlp_fwd(list(self.layers), x, self.activation,
-                             self.output_activation,
-                             self.policy.compute_dtype,
-                             self.policy.output_dtype, input_soa, output_soa)
+        return FusedMLPFunction.apply(x, self.activation,
+                                      self.output_activation,
+                                      self.policy.compute_dtype,
+                                      self.policy.output_dtype, input_soa,
+                                      output_soa, *self.layers)
 
 
 # "MegakernelMLP" is the reference's legacy alias (src/network.cu:50).

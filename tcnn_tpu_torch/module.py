@@ -33,6 +33,15 @@ class Module(nn.Module):
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def param_layout(self) -> Dict[str, str]:
+        """{parameter name: "matrix" | "other"} (``tcnn_tpu/module.py:53-61``).
+
+        ``"matrix"`` marks weight matrices (L2 regularisation and the full
+        learning rate in Adam, adam.h:76-91); ``"other"`` everything else
+        (hash tables: ``non_matrix_learning_rate_factor`` and lazy
+        stepping)."""
+        return {name: "matrix" for name, _ in self.named_parameters()}
+
     def inference(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """Forward without gradient bookkeeping (≈ object.h:147)."""
         return self(x, **kwargs)

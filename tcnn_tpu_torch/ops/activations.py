@@ -38,3 +38,30 @@ def apply_activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
     if act == Activation.TANH:
         return torch.tanh(x)
     raise ValueError(f"Unsupported activation: {act}")
+
+
+def activation_derivative(x: torch.Tensor, act: Activation) -> torch.Tensor:
+    """d(act)/dx at the pre-activation ``x``, for the explicit backward of
+    the fused MLP (``tcnn_tpu/ops/activations.py:47-74``)."""
+    if act == Activation.NONE:
+        return torch.ones_like(x)
+    if act == Activation.RELU:
+        return (x > 0).to(x.dtype)
+    if act == Activation.LEAKY_RELU:
+        return torch.where(x > 0, 1.0, 0.01).to(x.dtype)
+    if act == Activation.EXPONENTIAL:
+        return torch.exp(x)
+    if act == Activation.SINE:
+        return torch.cos(x)
+    if act == Activation.SIGMOID:
+        s = torch.sigmoid(x)
+        return s * (1 - s)
+    if act == Activation.SQUAREPLUS:
+        xk = x * K_ACT
+        return 0.5 * (1.0 + xk / torch.sqrt(xk * xk + 4.0))
+    if act == Activation.SOFTPLUS:
+        return torch.sigmoid(x * K_ACT)
+    if act == Activation.TANH:
+        t = torch.tanh(x)
+        return 1 - t * t
+    raise ValueError(f"Unsupported activation: {act}")

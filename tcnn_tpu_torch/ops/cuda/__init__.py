@@ -19,7 +19,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("bindings.cpp", "grid_encode.cu", "fused_mlp.cu")
+SOURCES = ("bindings.cpp", "grid_encode.cu", "grid_encode_bwd.cu",
+           "fused_mlp.cu", "fused_mlp_bwd.cu")
 BUILD_DIR = _PKG.parent / "build" / "tcnn_tpu_torch_kernels"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
@@ -50,11 +51,3 @@ def require_cuda_tensors(name: str, *tensors: torch.Tensor) -> None:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
 
-
-def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The slice-1 kernels are forward only: a CUDA call that would need
-    a gradient raises rather than falling back to the plain path."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA backward kernels arrive with training in "
-            "slice 2; call under torch.no_grad() or torch.inference_mode()")

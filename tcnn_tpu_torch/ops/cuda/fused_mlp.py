@@ -1,23 +1,30 @@
-"""Kernel M wrapper: fused-MLP forward (``csrc/fused_mlp.cu``).
+"""Wrappers of kernels M and MB: fused-MLP forward (``csrc/fused_mlp.cu``)
+and backward (``csrc/fused_mlp_bwd.cu``), and ``FusedMLPFunction``, which
+joins them for autograd.
 
-Replaces ``tcnn_tpu/ops/pallas/fused_mlp.py::_fwd_kernel``.  A CUDA
-tensor launches the kernel; a CPU tensor takes ``fused_mlp_plain``, the
-same function in plain PyTorch (``_jnp_mlp_ref`` of the JAX package),
-which the CPU tests and ``chip_smoke.py`` hold the kernel against.
+M replaces ``tcnn_tpu/ops/pallas/fused_mlp.py::_fwd_kernel``, MB
+``::_bwd_kernel``.  A CUDA tensor launches the kernel; a CPU tensor takes
+``fused_mlp_plain`` / ``fused_mlp_bwd_plain``, the same functions in
+plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold the kernels
+against.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
-from ...common import Activation
-from ..activations import apply_activation
-from . import kernels, require_cuda_tensors, require_no_grad
+from ...common import Activation, cdiv
+from ..activations import activation_derivative, apply_activation
+from . import kernels, require_cuda_tensors
 
 SUPPORTED_WIDTHS = (16, 32, 64, 128)
-MAX_LAYERS = 32   # csrc/fused_mlp.cu: kMaxLayers
+MAX_LAYERS = 32   # csrc/mlp_common.cuh: kMaxLayers
+MAX_SMEM = 232448   # shared memory one CTA may use on sm_90
+# Kernel MB runs this many persistent CTAs per SM (at most one per batch
+# tile); each keeps its own fp32 partial of dW.
+CTAS_PER_SM = 2
 
 
 def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -43,6 +50,25 @@ def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     return y.t() if output_soa else y
 
 
+def _check_args(name: str, weights: Sequence[torch.Tensor], x: torch.Tensor,
+                compute_dtype: torch.dtype, input_soa: bool) -> Tuple[int, int]:
+    """What the kernels M and MB take; returns (D_in, D_out)."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {compute_dtype} is not supported")
+    if not 2 <= len(weights) <= MAX_LAYERS:
+        raise ValueError(f"{name}: needs 2 to {MAX_LAYERS} layers, got {len(weights)}")
+    w_in, *w_mid, w_out = weights
+    d_in, width = w_in.shape
+    if width not in SUPPORTED_WIDTHS:
+        raise ValueError(f"{name}: width {width} not in {SUPPORTED_WIDTHS}")
+    if any(w.shape != (width, width) for w in w_mid) or w_out.shape[0] != width:
+        raise ValueError(f"{name}: layer shapes {[tuple(w.shape) for w in weights]}")
+    if x.ndim != 2 or x.shape[0 if input_soa else 1] != d_in:
+        raise ValueError(f"{name}: input {tuple(x.shape)} does not match "
+                         f"D_in={d_in} (input_soa={input_soa})")
+    return d_in, w_out.shape[1]
+
+
 def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
                   activation: Activation, output_activation: Activation,
                   compute_dtype: torch.dtype = torch.bfloat16,
@@ -62,23 +88,9 @@ def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_fwd: unsupported device {x.device}")
     name = "fused_mlp_fwd"
-    require_no_grad(name, x, *weights)
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: compute dtype {compute_dtype} is not supported")
     if output_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: output dtype {output_dtype} is not supported")
-    if not 2 <= len(weights) <= MAX_LAYERS:
-        raise ValueError(f"{name}: needs 2 to {MAX_LAYERS} layers, got {len(weights)}")
-    w_in, *w_mid, w_out = weights
-    d_in, width = w_in.shape
-    d_out = w_out.shape[1]
-    if width not in SUPPORTED_WIDTHS:
-        raise ValueError(f"{name}: width {width} not in {SUPPORTED_WIDTHS}")
-    if any(w.shape != (width, width) for w in w_mid) or w_out.shape[0] != width:
-        raise ValueError(f"{name}: layer shapes {[tuple(w.shape) for w in weights]}")
-    if x.ndim != 2 or x.shape[0 if input_soa else 1] != d_in:
-        raise ValueError(f"{name}: input {tuple(x.shape)} does not match "
-                         f"D_in={d_in} (input_soa={input_soa})")
+    d_in, d_out = _check_args(name, weights, x, compute_dtype, input_soa)
 
     x = x.to(compute_dtype).contiguous()
     ws = [w.to(compute_dtype).contiguous() for w in weights]
@@ -101,3 +113,133 @@ def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
 
 
 fused_mlp_fwd.launches = 0
+
+
+def fused_mlp_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
+                        g: torch.Tensor, activation: Activation,
+                        output_activation: Activation,
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        input_soa: bool = False, output_soa: bool = False
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch version of kernel MB, step for step as _bwd_kernel
+    (fused_mlp.py:113-198 of the JAX package): the forward recomputed with
+    the rounding of ``fused_mlp_plain``; dz = g · out_act'(z_out) rounded
+    to ``compute_dtype``; per layer, from the last, dW = hᵀ dz and
+    dh = dz Wᵀ in fp32, then dz = dh · act'(z) rounded.  Returns the
+    weight gradients in fp32 and dx in x's dtype and layout.  It is not
+    autograd of ``fused_mlp_plain``, which would round elsewhere."""
+    cdt = compute_dtype
+    ws = [w.to(cdt).float() for w in weights]
+    hs = [(x.t() if input_soa else x).to(cdt).float()]   # the input of each layer
+    zs = []
+    for w in ws[:-1]:
+        zs.append(hs[-1] @ w)
+        hs.append(apply_activation(zs[-1], activation).to(cdt).float())
+    z_out = hs[-1] @ ws[-1]
+    gg = (g.t() if output_soa else g).float()
+    dz = (gg * activation_derivative(z_out, output_activation)).to(cdt).float()
+    dws = [None] * len(ws)
+    for i in range(len(ws) - 1, -1, -1):
+        if i < len(ws) - 1:
+            dz = (dh * activation_derivative(zs[i], activation)).to(cdt).float()
+        dws[i] = hs[i].t() @ dz
+        dh = dz @ ws[i].t()
+    dx = (dh.t() if input_soa else dh).to(x.dtype)
+    return dws, dx
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
+                  g: torch.Tensor, activation: Activation,
+                  output_activation: Activation,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  input_soa: bool = False, output_soa: bool = False
+                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The whole MLP backward in one kernel launch (and a small reduction).
+
+    weights, x, layouts: as for ``fused_mlp_fwd``.  g: the output gradient,
+    (B, D_out), or (D_out, B) with ``output_soa``, any strides.  Returns
+    ([dW per layer] float32, dx in x's dtype and layout).
+    """
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_plain(weights, x, g, activation, output_activation,
+                                   compute_dtype, input_soa, output_soa)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd: unsupported device {x.device}")
+    name = "fused_mlp_bwd"
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: input dtype {x.dtype} is not supported")
+    d_in, d_out = _check_args(name, weights, x, compute_dtype, input_soa)
+    B = x.shape[1] if input_soa else x.shape[0]
+    if g.shape != ((d_out, B) if output_soa else (B, d_out)):
+        raise ValueError(f"{name}: output gradient {tuple(g.shape)} does not match "
+                         f"B={B}, D_out={d_out} (output_soa={output_soa})")
+    width = weights[0].shape[1]
+    bf16 = compute_dtype == torch.bfloat16
+    smem = kernels().fused_mlp_bwd_smem_bytes(d_in, d_out, width, len(weights), bf16)
+    if smem > MAX_SMEM:
+        raise NotImplementedError(
+            f"{name}: {len(weights)} layers of width {width} need {smem} bytes of "
+            f"shared memory per CTA, more than the {MAX_SMEM} an SM offers")
+
+    xc = x.to(compute_dtype).contiguous()
+    ws = [w.to(compute_dtype).contiguous() for w in weights]
+    gf = g.float()
+    require_cuda_tensors(name, xc, gf, *ws)
+    sizes = [w.numel() for w in weights]
+    dw = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    dx = torch.empty((d_in, B) if input_soa else (B, d_in), dtype=x.dtype,
+                     device=x.device)
+    if B == 0:
+        dw.zero_()
+    else:
+        n_tiles = cdiv(B, 128 if bf16 else 64)
+        n_ctas = min(n_tiles, CTAS_PER_SM * _sm_count(x.device))
+        partials = torch.empty((n_ctas, dw.numel()), dtype=torch.float32,
+                               device=x.device)
+        xs_b, xs_d = (1, B) if input_soa else (d_in, 1)
+        gs_b, gs_d = (gf.stride(1), gf.stride(0)) if output_soa else gf.stride()
+        acts = list(Activation)
+        kernels().fused_mlp_bwd(xc, xs_b, xs_d, ws, gf, gs_b, gs_d, dx, xs_b, xs_d,
+                                partials, dw, B, acts.index(activation),
+                                acts.index(output_activation), input_soa)
+        fused_mlp_bwd.launches += 1
+    dws = [d.view(w.shape) for d, w in zip(dw.split(sizes), weights)]
+    return dws, dx
+
+
+fused_mlp_bwd.launches = 0
+
+
+class FusedMLPFunction(torch.autograd.Function):
+    """The fused MLP with its explicit backward, the counterpart of
+    ``_fused_mlp``'s custom VJP (``tcnn_tpu/ops/pallas/fused_mlp.py:228-233,
+    :276-284, :353-357``).  It saves the input and the fp32 master weights
+    and the backward recomputes the activations, as _bwd_kernel does.  The
+    weight gradients come back in fp32, the masters' dtype; dx in x's
+    dtype, computed in fp32 and cast once (:416-420).  Second derivatives
+    arrive with slice 3."""
+
+    @staticmethod
+    def forward(ctx, x, activation, output_activation, compute_dtype,
+                output_dtype, input_soa, output_soa, *weights):
+        ctx.args = (activation, output_activation, compute_dtype, input_soa,
+                    output_soa)
+        ctx.save_for_backward(x, *weights)
+        return fused_mlp_fwd(list(weights), x, activation, output_activation,
+                             compute_dtype, output_dtype, input_soa, output_soa)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "second derivatives of the fused MLP are ported in slice 3")
+        x, *weights = ctx.saved_tensors
+        act, out_act, cdt, soa_in, soa_out = ctx.args
+        dws, dx = fused_mlp_bwd(weights, x, dy, act, out_act, cdt, soa_in, soa_out)
+        dws = [d.to(w.dtype) for d, w in zip(dws, weights)]
+        return (dx if ctx.needs_input_grad[0] else None,
+                None, None, None, None, None, None, *dws)

@@ -4,9 +4,9 @@ PyTorch counterpart of ``tcnn_tpu/ops/grid_ops.py``.  The geometry
 (``make_grid_spec`` and its helpers) is a copy of the JAX package's,
 float32 math included.  ``build_indices_weights`` and
 ``interpolate_ref`` are the plain PyTorch form of the per-corner math;
-they make up the plain version of the grid-encode kernel
-(``ops/cuda/grid_encode.py``), which ``grid_encode`` launches for CUDA
-tensors.
+they make up the plain versions of the grid-encode kernels
+(``ops/cuda/grid_encode.py``), forward and backward, which
+``grid_encode`` launches for CUDA tensors through ``GridEncodeFunction``.
 
 uint32 arithmetic: the hashes and dense strides wrap at 32 bits
 (common_device.h:678-707).  PyTorch has no full uint32 arithmetic, so
@@ -325,6 +325,46 @@ def check_table_size(spec: GridSpec, flat: torch.Tensor) -> None:
             f"{spec.n_features_per_level} features)")
 
 
+class GridEncodeFunction(torch.autograd.Function):
+    """The grid encoding with its table gradient, the counterpart of
+    ``_grid_interpolate``'s custom VJP (``tcnn_tpu/ops/grid_ops.py:917-1122``).
+
+    Forward: kernel G (CUDA) or its plain version (CPU).  It saves ``x``
+    and the table, not the (L·C, B) corner indices: the backward
+    recomputes them, as the forward kernel does.  Backward: kernel GB or
+    its plain version, which accumulate in fp32 and return the gradient in
+    the table's dtype, cast once (grid_ops.py:1099-1102).  Autograd's
+    backward of ``GridEncoding``'s ``table.to(bfloat16)`` then brings a
+    bf16 gradient to the fp32 master, as in JAX; autograd would instead
+    scatter-add the bf16 gradient of ``table2d[idx]`` in bf16.  Dead
+    levels (static ``max_level``) get zero gradient.  Input gradients
+    (JAX's ``dws``) and second derivatives arrive with slice 3.
+    """
+
+    @staticmethod
+    def forward(ctx, flat, x, spec, live, soa):
+        from .cuda.grid_encode import grid_encode_fwd
+
+        ctx.spec, ctx.live, ctx.soa = spec, live, soa
+        ctx.save_for_backward(flat, x)
+        return grid_encode_fwd(spec, flat, x, live, soa=soa)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from .cuda.grid_encode import grid_encode_bwd
+
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "second derivatives of the grid encoding "
+                "(backward_backward_input) are ported in slice 3")
+        flat, x = ctx.saved_tensors
+        dflat = None
+        if ctx.needs_input_grad[0]:
+            dcols = dout if ctx.soa else dout.t()
+            dflat = grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live)
+        return dflat, None, None, None, None
+
+
 def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
                 max_level: Optional[int] = None, soa: bool = False) -> torch.Tensor:
     """Forward grid encoding (``tcnn_tpu/ops/grid_ops.py:1125-1297``).
@@ -334,13 +374,17 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
     emit zeros.  Returns (B, L·F) features, or (L·F, B) with ``soa``,
     in the table's dtype (JAX casts the columns to ``table.dtype``).
 
-    A CUDA tensor goes through the grid-encode kernel; a CPU tensor
-    through its plain version.
+    A CUDA tensor goes through the grid-encode kernels, forward and
+    backward; a CPU tensor through their plain versions.  The table
+    gradient is ported; an input gradient (``x.requires_grad``) raises.
     """
-    from .cuda.grid_encode import grid_encode_fwd
-
     if x.ndim != 2 or x.shape[1] != spec.n_dims:
         raise ValueError(f"expected (B, {spec.n_dims}) input, got {tuple(x.shape)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "input gradients of the grid encoding (JAX's dws) are ported "
+            "in slice 3")
     flat = table.reshape(-1)
     check_table_size(spec, flat)
-    return grid_encode_fwd(spec, flat, x, live_levels(spec, max_level), soa=soa)
+    return GridEncodeFunction.apply(flat, x, spec,
+                                    tuple(live_levels(spec, max_level)), soa)

@@ -1,7 +1,7 @@
 """Case-insensitive ``otype`` registries.
 
-PyTorch counterpart of ``tcnn_tpu/registry.py``.  Slice 1 registers
-encodings and networks; losses and optimizers arrive with training.
+PyTorch counterpart of ``tcnn_tpu/registry.py``: encodings, networks,
+losses and optimizers.
 """
 
 from __future__ import annotations
@@ -35,6 +35,10 @@ class Registry:
 
 encodings = Registry("encoding")
 networks = Registry("network")
+losses = Registry("loss")
+optimizers = Registry("optimizer")
 
 register_encoding = encodings.register
 register_network = networks.register
+register_loss = losses.register
+register_optimizer = optimizers.register

@@ -1,4 +1,4 @@
-"""Weight carry from the JAX package.
+"""Weight and optimizer-state carry from the JAX package.
 
 ``load_jax_params(model, params)`` copies a JAX ``state.params`` tree,
 given as numpy arrays, into the port's parameters:
@@ -8,8 +8,10 @@ given as numpy arrays, into the port's parameters:
 
 A parameter's dotted name is its path in the tree ("encoding.grid",
 "network.layers.0"): the port keeps the JAX names and layouts, so the
-copy is one to one.  Nothing here imports JAX: the tree holds numpy
-arrays (``jax.tree_util.tree_map(np.asarray, state.params)``).
+copy is one to one.  ``load_jax_opt_state(trainer, opt_state)`` does the
+same for an Adam state (``mu``, ``nu``, ``param_steps``, ``step``).
+Nothing here imports JAX: the trees hold numpy arrays
+(``jax.tree_util.tree_map(np.asarray, state.params)``).
 """
 
 from __future__ import annotations
@@ -67,3 +69,34 @@ def load_jax_params(model, params: Any) -> None:
         for p, value in pairs:
             p.copy_(torch.from_numpy(np.array(value, dtype=np.float32))
                     .to(p.dtype))
+
+
+def load_jax_opt_state(trainer, opt_state: Any) -> None:
+    """Copy a JAX Adam state into ``trainer.opt_state``.
+
+    ``opt_state`` is {"mu": tree, "nu": tree, "param_steps": tree,
+    "step": scalar} with trees shaped like the parameters, as numpy.  The
+    uint32 step counters become the port's int32 ones (they must be below
+    2^31).  Raises like ``load_jax_params``; nothing is copied unless every
+    entry matches.
+    """
+    state = trainer.opt_state
+    pairs = []
+    for key in ("mu", "nu", "param_steps"):
+        for name, dst in state[key].items():
+            value = np.asarray(_leaf(opt_state[key], name))
+            if tuple(value.shape) != tuple(dst.shape):
+                raise ValueError(f"'{key}.{name}': JAX shape {value.shape} != "
+                                 f"port shape {tuple(dst.shape)}")
+            if key == "param_steps" and value.size and value.max() >= 2 ** 31:
+                raise ValueError(f"'{key}.{name}': step counts of 2^31 or more")
+            pairs.append((dst, value))
+        n_leaves = _count_leaves(opt_state[key])
+        if n_leaves != len(state[key]):
+            raise KeyError(f"JAX '{key}' has {n_leaves} entries, the port "
+                           f"{len(state[key])}")
+    pairs.append((state["step"], np.asarray(opt_state["step"])))
+    with torch.no_grad():
+        for dst, value in pairs:
+            dst.copy_(torch.from_numpy(np.array(value).astype(
+                np.float32 if dst.is_floating_point() else np.int64)).to(dst.dtype))

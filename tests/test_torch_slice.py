@@ -97,7 +97,10 @@ def test_module_tree_mirrors_jax_params():
     assert {n: tuple(p.shape) for n, p in model.trainer.inference_params().items()} == {
         "encoding.grid": (708368,), "network.layers.0": (32, 64),
         "network.layers.1": (64, 64), "network.layers.2": (64, 3)}
-    assert model.loss is None and model.optimizer is None
+    assert isinstance(model.loss, tcnn.RelativeL2Loss)
+    assert isinstance(model.optimizer, tcnn.Adam)
+    assert model.optimizer.hyperparams()["learning_rate"] == 1e-2
+    assert model.trainer.loss is model.loss and model.trainer.optimizer is model.optimizer
     assert model.network.hyperparams()["network"]["otype"] == "FullyFusedMLP"
 
 
@@ -138,7 +141,11 @@ def test_every_constructor_defaults_to_cuda_and_raises_without_it(monkeypatch, m
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, tcnn_tpu_torch, tcnn_tpu_torch.ops.cuda.grid_encode, "
-            "tcnn_tpu_torch.ops.cuda.fused_mlp\n"
+            "tcnn_tpu_torch.ops.cuda.fused_mlp, tcnn_tpu_torch.losses, "
+            "tcnn_tpu_torch.optimizers, tcnn_tpu_torch.trainer, "
+            "tcnn_tpu_torch.utils.image, tcnn_tpu_torch.utils.metrics, "
+            "tcnn_tpu_torch.utils.jax_params, tcnn_tpu_torch.tools.kernel_ablation, "
+            "chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'tcnn_tpu' or m.startswith('tcnn_tpu.')]\n"
             "assert not bad, bad\n")
