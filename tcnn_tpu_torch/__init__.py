@@ -18,6 +18,7 @@ from .config import (TrainableModel, create_encoding, create_from_config,
                      create_network, create_network_with_input_encoding,
                      load_config)
 from .losses import L2Loss, Loss, RelativeL2Loss, create_loss
+from .models.encodings.basic import CompositeEncoding, OneBlobEncoding
 from .models.encodings.grid import GridEncoding
 from .models.network_with_input_encoding import NetworkWithInputEncoding
 from .models.networks.fused_mlp import FusedMLP
@@ -30,10 +31,11 @@ from .trainer import Trainer
 from .utils.jax_params import load_jax_opt_state, load_jax_params
 
 __all__ = [
-    "Activation", "Adam", "BF16_POLICY", "DEFAULT_POLICY", "Encoding",
-    "FusedMLP", "GridEncoding", "GridType", "HashType", "InterpolationType",
-    "L2Loss", "Loss", "MLP", "Module", "Network", "NetworkWithInputEncoding",
-    "Optimizer", "Policy", "ReductionType", "RelativeL2Loss",
+    "Activation", "Adam", "BF16_POLICY", "CompositeEncoding", "DEFAULT_POLICY",
+    "Encoding", "FusedMLP", "GridEncoding", "GridType", "HashType",
+    "InterpolationType", "L2Loss", "Loss", "MLP", "Module", "Network",
+    "NetworkWithInputEncoding", "OneBlobEncoding", "Optimizer", "Policy",
+    "ReductionType", "RelativeL2Loss",
     "TrainableModel", "Trainer", "create_encoding", "create_from_config",
     "create_loss", "create_network", "create_network_with_input_encoding",
     "create_optimizer", "load_config", "load_jax_opt_state",

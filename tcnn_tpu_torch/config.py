@@ -25,6 +25,7 @@ from .registry import networks as _networks
 from .trainer import Trainer
 
 # Imported for their registrations.
+from .models.encodings import basic as _basic_encodings  # noqa: F401
 from .models.encodings import grid as _grid_encoding  # noqa: F401
 from .models.networks import fused_mlp as _fused_mlp  # noqa: F401
 from .models.networks import mlp as _mlp  # noqa: F401

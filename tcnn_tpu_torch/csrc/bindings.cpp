@@ -16,7 +16,7 @@
 
 namespace {
 
-void grid_encode_fwd(const torch::Tensor& x, const torch::Tensor& table,
+void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& table,
                      const torch::Tensor& level_params, const torch::Tensor& out,
                      int64_t n_dims, int64_t n_features, int64_t out_stride_b,
                      int64_t out_stride_f, const std::vector<int64_t>& hash_factors,
@@ -26,7 +26,7 @@ void grid_encode_fwd(const torch::Tensor& x, const torch::Tensor& table,
   uint32_t factors[4];
   for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_fwd_launch(
-      x.data_ptr<float>(), table.data_ptr(), table.scalar_type() == at::kBFloat16,
+      x.data_ptr<float>(), x_stride_b, table.data_ptr(), table.scalar_type() == at::kBFloat16,
       level_params.data_ptr<int32_t>(), out.data_ptr(), x.size(0),
       static_cast<int>(n_dims), static_cast<int>(level_params.size(0)),
       static_cast<int>(n_features), out_stride_b, out_stride_f, factors, coherent_add,
@@ -52,7 +52,7 @@ void fused_mlp_fwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void grid_encode_bwd(const torch::Tensor& x, const torch::Tensor& dcols,
+void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& dcols,
                      const torch::Tensor& level_params, const torch::Tensor& grad,
                      const torch::Tensor& out, int64_t n_dims, int64_t n_features,
                      int64_t dc_stride_b, int64_t dc_stride_f,
@@ -63,7 +63,7 @@ void grid_encode_bwd(const torch::Tensor& x, const torch::Tensor& dcols,
   uint32_t factors[4];
   for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_launch(
-      x.data_ptr<float>(), dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16,
+      x.data_ptr<float>(), x_stride_b, dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16,
       level_params.data_ptr<int32_t>(), grad.data_ptr<float>(), out.data_ptr(),
       out.scalar_type() == at::kBFloat16, grad.numel(), x.size(0),
       static_cast<int>(n_dims), static_cast<int>(level_params.size(0)),

@@ -14,7 +14,9 @@
 // in registers, reads the 2^D table rows (one vector load per row when
 // F*sizeof(T) is 4, 8 or 16 bytes), accumulates the F features in fp32
 // and writes them in the table's dtype.  Table values are read exactly;
-// the TPU's two-term bf16 split of f32 tables is not copied.
+// the TPU's two-term bf16 split of f32 tables is not copied.  x is read
+// through a row stride, so a column slice of a wider input (the grid's
+// part of a Composite encoding) is read in place.
 //
 // Bound on the H100: at the config_hash shape (B = 2^18, 16 levels, F = 2,
 // bf16 table of 1.4 MB) the function moves about 19.4 MB to and from
@@ -58,8 +60,9 @@ template <typename T, int D, int F>
 __global__ void __launch_bounds__(kGridThreads)
 grid_encode_fwd_kernel(const float* __restrict__ x, const T* __restrict__ table,
                        const int32_t* __restrict__ level_params,
-                       T* __restrict__ out, int64_t batch, int64_t out_stride_b,
-                       int64_t out_stride_f, HashConsts hc, int interp) {
+                       T* __restrict__ out, int64_t batch, int64_t x_stride_b,
+                       int64_t out_stride_b, int64_t out_stride_f, HashConsts hc,
+                       int interp) {
   const int level = blockIdx.y;
   const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
   if (b >= batch) return;
@@ -71,7 +74,7 @@ grid_encode_fwd_kernel(const float* __restrict__ x, const T* __restrict__ table,
     for (int f = 0; f < F; ++f) o[f * out_stride_f] = from_f32<T>(0.0f);
     return;
   }
-  const LevelCorners<D> lc(lp, x + b * D, interp);
+  const LevelCorners<D> lc(lp, x + b * x_stride_b, interp);
 
   float acc[F];
 #pragma unroll
@@ -97,7 +100,7 @@ struct FwdLaunch {
   void* out;
   int64_t batch;
   int n_levels;
-  int64_t out_stride_b, out_stride_f;
+  int64_t x_stride_b, out_stride_b, out_stride_f;
   HashConsts hc;
   int interp;
   cudaStream_t stream;
@@ -107,7 +110,7 @@ struct FwdLaunch {
     const dim3 grid(unsigned((batch + kGridThreads - 1) / kGridThreads), unsigned(n_levels));
     grid_encode_fwd_kernel<T, D, F><<<grid, kGridThreads, 0, stream>>>(
         x, static_cast<const T*>(table), level_params, static_cast<T*>(out), batch,
-        out_stride_b, out_stride_f, hc, interp);
+        x_stride_b, out_stride_b, out_stride_f, hc, interp);
     return cudaSuccess;
   }
 };
@@ -115,12 +118,13 @@ struct FwdLaunch {
 }  // namespace
 
 cudaError_t grid_encode_fwd_launch(
-    const float* x, const void* table, bool table_bf16,
+    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
     const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
     const uint32_t hash_factors[4], bool coherent_add, int interp,
     cudaStream_t stream) {
-  if (batch <= 0 || n_levels <= 0 || n_levels > 65535 || interp < 0 || interp > 2)
+  if (batch <= 0 || n_levels <= 0 || n_levels > 65535 || interp < 0 || interp > 2 ||
+      x_stride_b < n_dims)
     return cudaErrorInvalidValue;
   HashConsts hc;
   for (int d = 0; d < 4; ++d) hc.factors[d] = hash_factors[d];
@@ -128,10 +132,12 @@ cudaError_t grid_encode_fwd_launch(
   if (table_bf16)
     return dispatch_df(n_dims, n_features,
                        FwdLaunch<__nv_bfloat16>{x, table, level_params, out, batch, n_levels,
-                                                out_stride_b, out_stride_f, hc, interp, stream});
+                                                x_stride_b, out_stride_b, out_stride_f, hc,
+                                                interp, stream});
   return dispatch_df(n_dims, n_features,
                      FwdLaunch<float>{x, table, level_params, out, batch, n_levels,
-                                      out_stride_b, out_stride_f, hc, interp, stream});
+                                      x_stride_b, out_stride_b, out_stride_f, hc, interp,
+                                      stream});
 }
 
 }  // namespace tcnn_tpu_torch

@@ -14,7 +14,9 @@
 namespace tcnn_tpu_torch {
 
 // Kernel G: grid-encode forward (csrc/grid_encode.cu).
-//   x            (batch, n_dims) float32, contiguous
+//   x            (batch, n_dims) float32: coordinate d of sample b at
+//                x[b*x_stride_b + d], x_stride_b >= n_dims (a column slice of a
+//                wider input is read in place)
 //   table        flat (n_entries * n_features), float32 or bfloat16
 //   level_params (n_levels, 12) int32, see ops/grid_ops.py::level_params
 //   out          element (b, l*F+f) at out[b*out_stride_b + (l*F+f)*out_stride_f],
@@ -22,7 +24,7 @@ namespace tcnn_tpu_torch {
 //   hash_factors four uint32 LCG factors; coherent_add selects the
 //                additive dim-0 hash; interp: 0 nearest, 1 linear, 2 smoothstep
 cudaError_t grid_encode_fwd_launch(
-    const float* x, const void* table, bool table_bf16,
+    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
     const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
     const uint32_t hash_factors[4], bool coherent_add, int interp,
@@ -43,7 +45,7 @@ cudaError_t fused_mlp_fwd_launch(
     cudaStream_t stream);
 
 // Kernel GB: grid-encode backward, the table gradient (csrc/grid_encode_bwd.cu).
-//   x            (batch, n_dims) float32, contiguous
+//   x, x_stride_b as for grid_encode_fwd_launch
 //   dcols        element (l*F+f, b) at dcols[b*dc_stride_b + (l*F+f)*dc_stride_f],
 //                float32 or bfloat16
 //   grad         (n_params) float32 scratch: zeroed, then accumulated into
@@ -51,9 +53,9 @@ cudaError_t fused_mlp_fwd_launch(
 //                grad) or, for float32 tables, grad itself
 //   other arguments as for grid_encode_fwd_launch
 cudaError_t grid_encode_bwd_launch(
-    const float* x, const void* dcols, bool dcols_bf16, const int32_t* level_params,
-    float* grad, void* out, bool out_bf16, int64_t n_params, int64_t batch,
-    int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
+    const float* x, int64_t x_stride_b, const void* dcols, bool dcols_bf16,
+    const int32_t* level_params, float* grad, void* out, bool out_bf16, int64_t n_params,
+    int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
     int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add,
     int interp, cudaStream_t stream);
 

@@ -221,7 +221,7 @@ class FusedMLPFunction(torch.autograd.Function):
     and the backward recomputes the activations, as _bwd_kernel does.  The
     weight gradients come back in fp32, the masters' dtype; dx in x's
     dtype, computed in fp32 and cast once (:416-420).  Second derivatives
-    arrive with slice 3."""
+    arrive with slice 4."""
 
     @staticmethod
     def forward(ctx, x, activation, output_activation, compute_dtype,
@@ -236,7 +236,7 @@ class FusedMLPFunction(torch.autograd.Function):
     def backward(ctx, dy):
         if torch.is_grad_enabled():
             raise NotImplementedError(
-                "second derivatives of the fused MLP are ported in slice 3")
+                "second derivatives of the fused MLP are ported in slice 4")
         x, *weights = ctx.saved_tensors
         act, out_act, cdt, soa_in, soa_out = ctx.args
         dws, dx = fused_mlp_bwd(weights, x, dy, act, out_act, cdt, soa_in, soa_out)

@@ -4,10 +4,15 @@
 G replaces ``tcnn_tpu/ops/pallas/grid_matmul.py::_gather_kernel`` and
 ``::_gather_kernel_xor`` (and the index build in front of them); GB
 replaces ``::_scatter_kernel`` and ``::_scatter_kernel_xor``, the table
-gradient.  A CUDA tensor launches the kernel; a CPU tensor takes
-``grid_encode_plain`` / ``grid_encode_bwd_plain``, the same functions in
-plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold the
-kernels against.
+gradient of the levels the JAX package routes to its matmul kernels, and
+``tcnn_tpu/ops/pallas/scatter.py::_weighted_kernel`` and ``::_pair_kernel``,
+the same gradient of the levels it routes to its serial kernels.  Every
+level of every grid goes to G and GB: the JAX package's per-level routing
+(``grid_ops.py::_route_levels``, ``_serial_level_groups``) weighed TPU
+costs and is not carried over.  A CUDA tensor launches the kernel; a CPU
+tensor takes ``grid_encode_plain`` / ``grid_encode_bwd_plain``, the same
+functions in plain PyTorch, which the CPU tests and ``chip_smoke.py``
+hold the kernels against.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ def _hash_args(spec: grid_ops.GridSpec):
     if spec.hash_type == HashType.RNG:
         raise NotImplementedError(
             "the Rng (pcg32) grid hash is ported with the grid options of "
-            "slice 3")
+            "slice 4")
     coherent_add = spec.hash_type == HashType.COHERENT_ADD
     factors = grid_ops.hash_factors(
         HashType.COHERENT_PRIME if coherent_add else spec.hash_type,
@@ -76,14 +81,16 @@ def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
     if spec.stochastic_interpolation:
         raise NotImplementedError(
             "stochastic interpolation is ported with the grid options of "
-            "slice 3")
+            "slice 4")
     D, F = spec.n_dims, spec.n_features_per_level
     if not 1 <= D <= 4 or not 1 <= F <= 8:
         raise ValueError(f"{name}: the kernel covers D <= 4 and F <= 8, "
                          f"got D={D}, F={F}")
-    if x.dtype != torch.float32 or x.shape != (x.shape[0], D) or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be contiguous float32 (B, {D}), got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    if x.dtype != torch.float32 or x.shape != (x.shape[0], D) or (
+            D > 1 and x.stride(1) != 1):
+        raise ValueError(f"{name}: x must be float32 (B, {D}) with unit stride "
+                         f"across its coordinates, got {x.dtype} "
+                         f"{tuple(x.shape)} strides {x.stride()}")
     if flat.dtype not in (torch.float32, torch.bfloat16) or flat.ndim != 1 \
             or not flat.is_contiguous() or flat.data_ptr() % 16:
         raise ValueError(f"{name}: the table must be a contiguous, 16-byte "
@@ -92,13 +99,19 @@ def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
     require_cuda_tensors(name, x, flat)
 
 
+def _x_row_stride(x: torch.Tensor) -> int:
+    """The kernels' row stride of x: a column slice of a wider input (a
+    Composite encoding's part) is read in place, without a copy."""
+    return x.stride(0) if x.shape[0] > 1 else x.shape[1]
+
+
 def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                     x: torch.Tensor, live: Sequence[int],
                     soa: bool = False) -> torch.Tensor:
     """(B, L·F) features, or (L·F, B) with ``soa``, in ``flat``'s dtype.
 
     ``flat`` is the (n_entries·F,) table, float32 or bfloat16; ``x`` is
-    (B, D) float32.
+    (B, D) float32 with unit stride across D, any row stride.
     """
     if x.device.type == "cpu":
         return grid_encode_plain(spec, flat, x, live, soa)
@@ -116,9 +129,9 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     if B == 0:
         return out
     stride_b, stride_f = (1, B) if soa else (L * F, 1)
-    kernels().grid_encode_fwd(x, flat, level_consts, out, spec.n_dims, F, stride_b,
-                              stride_f, factors, coherent_add,
-                              _INTERP_CODE[spec.interpolation])
+    kernels().grid_encode_fwd(x, _x_row_stride(x), flat, level_consts, out,
+                              spec.n_dims, F, stride_b, stride_f, factors,
+                              coherent_add, _INTERP_CODE[spec.interpolation])
     grid_encode_fwd.launches += 1
     return out
 
@@ -178,9 +191,10 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     if B == 0:
         return grad.zero_().to(flat.dtype)
     out = grad if flat.dtype == torch.float32 else torch.empty_like(flat)
-    kernels().grid_encode_bwd(x, dcols, level_consts, grad, out, spec.n_dims, F,
-                              dcols.stride(1), dcols.stride(0), factors,
-                              coherent_add, _INTERP_CODE[spec.interpolation])
+    kernels().grid_encode_bwd(x, _x_row_stride(x), dcols, level_consts, grad, out,
+                              spec.n_dims, F, dcols.stride(1), dcols.stride(0),
+                              factors, coherent_add,
+                              _INTERP_CODE[spec.interpolation])
     grid_encode_bwd.launches += 1
     return out
 

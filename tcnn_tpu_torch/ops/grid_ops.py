@@ -69,7 +69,7 @@ def _hash_coords(hash_type: HashType,
     if hash_type == HashType.RNG:
         raise NotImplementedError(
             "the Rng (pcg32) grid hash is ported with the grid options of "
-            "slice 3")
+            "slice 4")
     if hash_type == HashType.COHERENT_ADD:
         # dim 0 ADDED after the XOR: hash(c0+1, rest) == hash(c0, rest)+1
         # (mod 2^32), so dim-0 corner pairs are table-adjacent.
@@ -226,7 +226,7 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
     if spec.stochastic_interpolation:
         raise NotImplementedError(
             "stochastic interpolation is ported with the grid options of "
-            "slice 3")
+            "slice 4")
     B = x.shape[0]
     D = spec.n_dims
     C = 1 << D
@@ -338,7 +338,7 @@ class GridEncodeFunction(torch.autograd.Function):
     bf16 gradient to the fp32 master, as in JAX; autograd would instead
     scatter-add the bf16 gradient of ``table2d[idx]`` in bf16.  Dead
     levels (static ``max_level``) get zero gradient.  Input gradients
-    (JAX's ``dws``) and second derivatives arrive with slice 3.
+    (JAX's ``dws``) and second derivatives arrive with slice 4.
     """
 
     @staticmethod
@@ -356,7 +356,7 @@ class GridEncodeFunction(torch.autograd.Function):
         if torch.is_grad_enabled():
             raise NotImplementedError(
                 "second derivatives of the grid encoding "
-                "(backward_backward_input) are ported in slice 3")
+                "(backward_backward_input) are ported in slice 4")
         flat, x = ctx.saved_tensors
         dflat = None
         if ctx.needs_input_grad[0]:
@@ -383,7 +383,7 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError(
             "input gradients of the grid encoding (JAX's dws) are ported "
-            "in slice 3")
+            "in slice 4")
     flat = table.reshape(-1)
     check_table_size(spec, flat)
     return GridEncodeFunction.apply(flat, x, spec,

@@ -63,8 +63,8 @@ ABLATIONS = {
                          "atomicAdd(reinterpret_cast<float2*>(p), make_float2(",
                          "*reinterpret_cast<float2*>(p) = (make_float2(")],
     # GB with every level on direct atomics (no shared-memory levels).
-    "gb_no_shared_levels": [("grid_encode_bwd.cu", "if (size * F <= kSharedFloats) {",
-                             "if (false) {")],
+    "gb_no_shared_levels": [("grid_encode_bwd.cu",
+                             "if (uint64_t(size) * F <= kSharedFloats) {", "if (false) {")],
 }
 
 BATCH = 1 << 18

@@ -8,6 +8,8 @@ package's Pallas kernels in interpret mode, on the CPU.
     ``TCNN_TPU_MM_PAIRED=1`` the adjacent levels through
     ``_scatter_kernel_paired`` (and the forward through
     ``_gather_kernel_paired``, held against kernel G's plain version).
+    With ``TCNN_TPU_SCATTER=binned2`` a matmul class goes through
+    ``binned_scatter.py::_binned_kernel`` instead.
   * ``fused_mlp_bwd_plain`` (kernel MB) against
     ``_fused_mlp_bwd_kernel_call``, i.e. ``_bwd_kernel``.
 
@@ -30,11 +32,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from tcnn_tpu import common as jcommon
 from tcnn_tpu.ops import grid_ops as jops
 from tcnn_tpu.ops.pallas import fused_mlp as jfused
-from tcnn_tpu_torch.common import Activation
+from tcnn_tpu_torch.common import Activation, HashType
 from tcnn_tpu_torch.ops import grid_ops as tops
 from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd_plain
 from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd_plain,
@@ -65,8 +68,8 @@ def _bf16_ulp(a):
     return np.exp2(np.floor(np.log2(a)) - 7)
 
 
-def _grid_vjp_case(dtype, seed):
-    jspec, tspec = _interpret_spec()
+def _grid_vjp_case(dtype, seed, specs=None):
+    jspec, tspec = specs or _interpret_spec()
     B = 1024
     rng = np.random.default_rng(seed)
     table = rng.uniform(-1, 1, tspec.n_params).astype(np.float32)
@@ -130,6 +133,51 @@ def test_grid_encode_paired_kernels_equal_plain_versions(dtype, monkeypatch):
         assert (np.abs(got - want) <= _bf16_ulp(want)).all()
     else:
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_grid_encode_bwd_plain_equals_jax_binned_scatter(dtype, monkeypatch):
+    """TCNN_TPU_SCATTER=binned2: the table gradient of an unmerged matmul
+    class with an even number of 128-row hi blocks goes through
+    binned_scatter.py::_binned_kernel (row 13, kernel GB's function;
+    grid_matmul.py:1284-1291) unless a tile overflows a bucket, when it
+    takes the one-hot matmul instead.  Three 1024-row Prime hash levels
+    (no XOR pairing, one class of r_pad 1024) split their rows evenly
+    between the two halves, so no tile overflows.  The kernel rounds its
+    products as _scatter_kernel does: row 4's tolerance."""
+    from tcnn_tpu.ops.pallas import binned_scatter, grid_matmul
+
+    monkeypatch.setenv("TCNN_TPU_SCATTER", "binned2")
+    args = (2, 3, 2, 10, 64, 1.5)
+    specs = (jops.make_grid_spec(*args, hash_type=jcommon.HashType.PRIME),
+             tops.make_grid_spec(*args, hash_type=HashType.PRIME))
+    jspec, B, seed = specs[0], 1024, 14
+    meta = tuple((not lv.use_hash, lv.size, lv.offset, False) for lv in jspec.levels)
+    plan = list(jops._mm_class_plan(meta, list(range(3)), "scatter",
+                                    1 if dtype == "bfloat16" else 2, B))
+    assert plan == [([0, 1, 2], 1024, False, False)]
+    # No bucket overflow (binned_scatter.py:186-192) for the inputs of
+    # _grid_vjp_case: its table, then its x, from the same seed.
+    rng = np.random.default_rng(seed)
+    rng.uniform(-1, 1, specs[1].n_params)
+    x = rng.uniform(-0.2, 1.2, (B, 2)).astype(np.float32)
+    idx = np.asarray(jops._build_indices_weights(jspec, jnp.asarray(x), [0, 1, 2])[0])
+    local = idx.reshape(3, 4, B) - np.array([lv.offset for lv in jspec.levels])[:, None, None]
+    t = min(binned_scatter._BIN_TILE, grid_matmul.batch_tile(B))
+    c1 = (local >= 512).reshape(12, B // t, t).sum(-1)
+    assert np.maximum(c1, t - c1).max() <= binned_scatter._cap(t)
+
+    names = []
+    real_pallas_call = pl.pallas_call
+
+    def spy(*args, **kwargs):
+        names.append(kwargs.get("name"))
+        return real_pallas_call(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", spy)
+    case = _grid_vjp_case(dtype, seed, specs)
+    assert "binned_scatter" in names
+    _assert_table_grad_close(*case, dtype)
 
 
 def _weights(dims, seed):

@@ -24,6 +24,8 @@ Backward kernels:
     to the other neighbour, 2e-2 of it.
   * a whole training step: the gradients within the MB tolerance of the
     plain path's; the graph loop's losses within 1e-3 of eager steps'.
+    The same for config_btf (slice 3), whose grid reads a strided column
+    slice of its (B, 6) input in place.
 """
 
 import numpy as np
@@ -41,6 +43,7 @@ from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd,
                                                  grid_encode_bwd_plain,
                                                  grid_encode_fwd,
                                                  grid_encode_plain)
+from tcnn_tpu_torch.tools.plain_path import plain_loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -136,10 +139,10 @@ def test_slice_inference_goes_through_both_kernels(cuda, policy):
 def test_cuda_input_gradient_and_second_order_raise_slice_3(cuda):
     model = create_from_config(2, 3, "configs/config_hash.json")
     x = torch.rand((64, 2), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         model.network(x)
     y = model.network(x.detach())
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         torch.autograd.grad(y.square().sum(), list(model.network.parameters()),
                             create_graph=True)
 
@@ -210,28 +213,6 @@ def test_fused_mlp_bwd_kernel_matches_plain(cuda, width, dtype, soa_in, soa_out)
             assert err <= mlp_bwd_tol(want.float(), dtype), err
 
 
-def plain_loss_and_grads(model, x, target):
-    """The training loss and its gradients through the plain versions, on
-    the same tensors: G, M, MB and GB each replaced by its plain version."""
-    enc, net, pol = model.network.encoding, model.network.network, model.network.policy
-    live = list(range(enc.spec.n_levels))
-    table = enc.grid.detach().to(pol.compute_dtype)
-    ws = [w.detach() for w in net.layers]
-    feats = grid_encode_plain(enc.spec, table, x, live, soa=True).to(pol.compute_dtype)
-    pred = fused_mlp_plain(ws, feats, net.activation, net.output_activation,
-                           pol.compute_dtype, pol.output_dtype, True, False)
-    pred = pred.float().requires_grad_()
-    loss = model.loss(pred, target)
-    (dy,) = torch.autograd.grad(loss, pred)
-    dws, dfeats = fused_mlp_bwd_plain(ws, feats, dy, net.activation,
-                                      net.output_activation, pol.compute_dtype,
-                                      True, False)
-    dtable = grid_encode_bwd_plain(enc.spec, table, x, dfeats, live).float()
-    grads = {"network.encoding.grid": dtable}
-    grads.update({f"network.network.layers.{i}": d for i, d in enumerate(dws)})
-    return loss.detach(), grads
-
-
 @pytest.mark.parametrize("policy", [BF16_POLICY, DEFAULT_POLICY])
 def test_training_step_gradients_match_plain_path(cuda, policy):
     model = create_from_config(2, 3, "configs/config_hash.json", policy=policy)
@@ -252,7 +233,7 @@ def test_training_step_gradients_match_plain_path(cuda, policy):
     assert set(grads) == {"encoding.grid", "network.layers.0", "network.layers.1",
                           "network.layers.2"}
     for name, got in grads.items():
-        ref = want["network." + name]
+        ref = want[name]
         assert got.dtype == torch.float32 and got.shape == ref.shape
         err = float((got - ref).abs().max())
         assert err <= mlp_bwd_tol(ref, policy.compute_dtype), (name, err)
@@ -274,3 +255,134 @@ def test_graph_loop_equals_eager_steps(cuda):
     again = loop()   # the captured graph is reused
     assert again.shape == (6,) and bool(torch.isfinite(again).all())
     assert models[0].trainer.step == 12
+
+
+# -- slice 3: the config_btf path ------------------------------------------
+
+BTF_CONFIG = "configs/config_btf.json"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_kernels_read_a_strided_input_slice(cuda, dtype):
+    """G and GB on columns 0-3 of a (B, 6) tensor, read in place, against
+    the same columns made contiguous and against the plain versions."""
+    spec = grid_ops.make_grid_spec(4, 8, 2, 14, 4, 1.5, hash_type=HashType.COHERENT_ADD)
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    x6 = torch.from_numpy(rng.uniform(0, 1, (4133, 6)).astype(np.float32)).to(cuda)
+    xs, xc = x6[:, :4], x6[:, :4].contiguous()
+    assert not xs.is_contiguous()
+    live = list(range(spec.n_levels))
+    for soa in (True, False):
+        got = grid_encode_fwd(spec, flat, xs, live, soa=soa)
+        torch.cuda.synchronize()
+        assert torch.equal(got, grid_encode_fwd(spec, flat, xc, live, soa=soa))
+        assert_grid_close(got, grid_encode_plain(spec, flat, xs, live, soa=soa))
+    dfull = torch.from_numpy(rng.normal(size=(4133, 40)).astype(np.float32)).to(dtype).to(cuda)
+    dc = dfull[:, :spec.n_output_dims].t()      # MB's AoS gradient, as the model hands it
+    got = grid_encode_bwd(spec, flat, xs, dc, live)
+    torch.cuda.synchronize()
+    want = grid_encode_bwd_plain(spec, flat, xs, dc, live)
+    assert_grid_grad_close(got, want, grid_bwd_bound(spec, flat, xs, dc, live))
+    assert_grid_grad_close(grid_encode_bwd(spec, flat, xc, dc.contiguous(), live), want,
+                           grid_bwd_bound(spec, flat, xs, dc, live))
+    with pytest.raises(ValueError, match="unit stride"):
+        grid_encode_fwd(spec, flat, x6.t().contiguous().t()[:, :4], live)
+
+
+@pytest.mark.parametrize("hash_type", [HashType.COHERENT_ADD, HashType.COHERENT_PRIME])
+def test_grid_encode_bwd_at_4d_2e19_row_levels(cuda, hash_type):
+    """GB where the JAX package takes its serial routes: _pair_kernel
+    (dense and CoherentAdd levels) and _weighted_kernel (CoherentPrime
+    hashed levels), on config_btf's first levels: 65,536 and 331,776 dense
+    rows, then 2^19 hashed."""
+    spec = grid_ops.make_grid_spec(4, 4, 2, 19, 16, 1.5, hash_type=hash_type)
+    assert [lv.size for lv in spec.levels] == [65536, 331776, 524288, 524288]
+    rng = np.random.default_rng(6)
+    flat = torch.zeros(spec.n_params, dtype=torch.bfloat16, device=cuda)
+    x = torch.from_numpy(rng.uniform(0, 1, (1 << 16, 4)).astype(np.float32)).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(8, 1 << 16)).astype(np.float32))
+    dcols = dcols.to(torch.bfloat16).to(cuda)
+    live = list(range(4))
+    got = grid_encode_bwd(spec, flat, x, dcols, live)
+    torch.cuda.synchronize()
+    want = grid_encode_bwd_plain(spec, flat, x, dcols, live)
+    assert_grid_grad_close(got, want, grid_bwd_bound(spec, flat, x, dcols, live))
+    # the level wrap of the pair route: some sample's odd dim-0 corner on
+    # a level's first row while its even corner is on the level's last
+    idx, ws = grid_ops.build_indices_weights(spec, x, live)
+    idx = idx.reshape(4, 16, -1)
+    last = torch.tensor([lv.offset + lv.size - 1 for lv in spec.levels], device=cuda)
+    if hash_type == HashType.COHERENT_ADD:
+        assert bool((idx[:, 0::2, :] == last[:, None, None]).any())
+
+
+def test_fused_mlp_kernels_at_btf_width(cuda):
+    """M and MB at config_btf's 40 -> 64 x 3 -> 3, AoS input (d_in padded
+    to 48 inside the kernels)."""
+    rng = np.random.default_rng(7)
+    dims = [(40, 64), (64, 64), (64, 64), (64, 3)]
+    ws = [torch.from_numpy(rng.uniform(-1, 1, d).astype(np.float32)
+                           * np.sqrt(6.0 / sum(d))).to(cuda) for d in dims]
+    x = torch.from_numpy(rng.uniform(-1, 1, (5000, 40)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(5000, 3)).astype(np.float32)).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = (ws, x.to(dtype), Activation.RELU, Activation.NONE, dtype, torch.float32,
+                False, False)
+        got = fused_mlp_fwd(*args)
+        torch.cuda.synchronize()
+        tol = dict(rtol=2e-2, atol=2e-3) if dtype == torch.bfloat16 else \
+            dict(rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, fused_mlp_plain(*args), **tol)
+        bargs = (ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype, False, False)
+        got_dws, got_dx = fused_mlp_bwd(*bargs)
+        torch.cuda.synchronize()
+        want_dws, want_dx = fused_mlp_bwd_plain(*bargs)
+        for a, b in zip([*got_dws, got_dx], [*want_dws, want_dx]):
+            assert a.shape == b.shape
+            assert float((a.float() - b.float()).abs().max()) <= mlp_bwd_tol(b.float(), dtype)
+
+
+@pytest.mark.parametrize("policy", [BF16_POLICY, DEFAULT_POLICY])
+def test_btf_training_step_gradients_match_plain_path(cuda, policy):
+    model = create_from_config(6, 3, BTF_CONFIG, policy=policy)
+    grid = model.network.encoding.nested[0]
+    assert grid.grid.numel() == 15474688 and grid.grid.device.type == "cuda"
+    with torch.no_grad():
+        grid.grid.uniform_(-1, 1, generator=torch.Generator(cuda).manual_seed(1))
+    gen = torch.Generator(cuda).manual_seed(2)
+    x = torch.rand((5000, 6), generator=gen, device=cuda)
+    target = torch.rand((5000, 3), generator=gen, device=cuda)
+    counts = (grid_encode_fwd.launches, fused_mlp_fwd.launches,
+              grid_encode_bwd.launches, fused_mlp_bwd.launches)
+    loss, grads = model.trainer.loss_value_and_grads(x, target)
+    torch.cuda.synchronize()
+    after = (grid_encode_fwd.launches, fused_mlp_fwd.launches,
+             grid_encode_bwd.launches, fused_mlp_bwd.launches)
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1, 1]
+    want_loss, want = plain_loss_and_grads(model, x, target)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=0)
+    assert set(grads) == set(want)
+    for name, got in grads.items():
+        ref = want[name]
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        err = float((got - ref).abs().max())
+        assert err <= mlp_bwd_tol(ref, policy.compute_dtype), (name, err)
+
+
+def test_btf_graph_loop_equals_eager_steps(cuda):
+    from tcnn_tpu_torch.samples.fit_btf import batch_sampler
+
+    models = [create_from_config(6, 3, BTF_CONFIG, policy=BF16_POLICY) for _ in range(2)]
+    samplers = [batch_sampler(4096, cuda, seed=3) for _ in range(2)]
+    loop = models[0].trainer.make_training_loop(samplers[0], 6)
+    got = loop()
+    want = torch.stack([models[1].trainer.training_step(*samplers[1](i)) for i in range(6)])
+    torch.cuda.synchronize()
+    assert models[0].trainer.step == models[1].trainer.step == 6
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=0)
+    again = loop()   # the captured graph is reused
+    assert again.shape == (6,) and bool(torch.isfinite(again).all())
+    y = models[0].trainer.inference(samplers[0](0)[0])
+    assert y.shape == (4096, 3) and bool(torch.isfinite(y).all())

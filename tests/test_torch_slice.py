@@ -30,6 +30,25 @@ from tcnn_tpu_torch.utils.jax_params import load_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / "configs" / "config_hash.json")
+BTF_CONFIG = str(ROOT / "configs" / "config_btf.json")
+
+
+def small_btf_config():
+    """config_btf's structure (4-D CoherentAdd grid and OneBlob 4 bins,
+    FullyFusedMLP 64 x 3) with a 4-level grid of small tables."""
+    cfg = tcnn.load_config(BTF_CONFIG)
+    grid = {**cfg["encoding"]["nested"][0], "n_levels": 4, "log2_hashmap_size": 12,
+            "base_resolution": 4}
+    return {**cfg, "encoding": {**cfg["encoding"],
+                                "nested": [grid, cfg["encoding"]["nested"][1]]}}
+
+
+def flat_params(tree):
+    """{dotted name: numpy array} of a JAX parameter tree, the port's
+    parameter names ("encoding.0.grid", "network.layers.1")."""
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+            np.asarray(v) for path, v in leaves}
 
 
 def _jax_model(policy):
@@ -119,8 +138,38 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tcnn.create_from_config(2, 3, CONFIG)
 
 
+def test_load_jax_params_round_trips_the_composite_tree():
+    """config_btf's tree: the grid under a tuple, beside OneBlob's empty
+    entry ({"encoding": ({"grid": ...}, {}), ...})."""
+    jmodel = jtcnn.create_from_config(6, 3, small_btf_config())
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jmodel.trainer.initial_state().params)
+    assert isinstance(params["encoding"], tuple) and params["encoding"][1] == {}
+    model = tcnn.create_from_config(6, 3, small_btf_config(), device="cpu")
+    load_jax_params(model, params)
+    got = {n: p.detach().numpy() for n, p in model.network.named_parameters()}
+    want = flat_params(params)
+    assert set(got) == set(want) == {"encoding.0.grid", "network.layers.0",
+                                     "network.layers.1", "network.layers.2",
+                                     "network.layers.3"}
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name])
+
+    before = model.network.encoding.nested[0].grid.detach().clone()
+    grid = params["encoding"][0]["grid"]
+    with pytest.raises(ValueError, match="encoding.0.grid"):
+        load_jax_params(model, {**params, "encoding": ({"grid": grid[:-2]}, {})})
+    with pytest.raises(KeyError):   # the grid outside its tuple
+        load_jax_params(model, {**params, "encoding": {"grid": grid}})
+    with pytest.raises(KeyError):   # an extra leaf where OneBlob has none
+        load_jax_params(model, {**params, "encoding": ({"grid": grid}, {"w": grid[:4]})})
+    assert torch.equal(model.network.encoding.nested[0].grid, before)
+
+
 _GRID_CFG = {"otype": "HashGrid", "n_levels": 2, "log2_hashmap_size": 8}
 _MLP_CFG = {"otype": "FullyFusedMLP", "n_neurons": 16, "n_hidden_layers": 1}
+_COMPOSITE_CFG = {"otype": "Composite", "nested": [
+    {**_GRID_CFG, "n_dims_to_encode": 2}, {"otype": "OneBlob", "n_bins": 4}]}
 
 
 @pytest.mark.parametrize("make", [
@@ -130,8 +179,10 @@ _MLP_CFG = {"otype": "FullyFusedMLP", "n_neurons": 16, "n_hidden_layers": 1}
     lambda **kw: tcnn.GridEncoding(2, n_levels=2, log2_hashmap_size=8, **kw),
     lambda **kw: tcnn.MLP(4, 3, n_neurons=16, n_hidden_layers=1, **kw),
     lambda **kw: tcnn.FusedMLP(4, 3, n_neurons=16, n_hidden_layers=1, **kw),
+    lambda **kw: tcnn.create_encoding(3, _COMPOSITE_CFG, **kw),
+    lambda **kw: tcnn.OneBlobEncoding(4, 2, **kw),
 ], ids=["create_encoding", "create_network", "create_network_with_input_encoding",
-        "GridEncoding", "MLP", "FusedMLP"])
+        "GridEncoding", "MLP", "FusedMLP", "Composite", "OneBlob"])
 def test_every_constructor_defaults_to_cuda_and_raises_without_it(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -145,7 +196,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "tcnn_tpu_torch.optimizers, tcnn_tpu_torch.trainer, "
             "tcnn_tpu_torch.utils.image, tcnn_tpu_torch.utils.metrics, "
             "tcnn_tpu_torch.utils.jax_params, tcnn_tpu_torch.tools.kernel_ablation, "
-            "chip_smoke\n"
+            "tcnn_tpu_torch.models.encodings.basic, tcnn_tpu_torch.samples, "
+            "tcnn_tpu_torch.samples.fit_btf, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'tcnn_tpu' or m.startswith('tcnn_tpu.')]\n"
             "assert not bad, bad\n")

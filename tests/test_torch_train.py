@@ -10,7 +10,8 @@ Inputs come from numpy with a seed; ``load_jax_params`` and
     (about 0.6 % of values are one ulp off torch's): the table starts
     from U(±1), a trained table's scale, so that no update cancels the
     parameter it is subtracted from and magnifies that ulp.
-  * one full-width config_hash step, DEFAULT_POLICY, JAX's plain path:
+  * one full-width config_hash step, DEFAULT_POLICY, JAX's plain path
+    (and a config_btf-structured one, tests/test_torch_btf.py):
     loss rtol 1e-5; every gradient within 1e-5 relative plus 1e-6 of its
     leaf's largest magnitude (fp32 sums in another order).  Adam's first
     step moves each stepped entry by about ±lr whatever its gradient's
@@ -41,7 +42,7 @@ from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
 from tcnn_tpu_torch.utils.jax_params import load_jax_opt_state, load_jax_params
 from tcnn_tpu_torch.utils.metrics import psnr
 
-from test_torch_slice import CONFIG
+from test_torch_slice import CONFIG, flat_params
 
 
 def small_hash_config(network_otype="MLP"):
@@ -61,13 +62,6 @@ def small_hash_config(network_otype="MLP"):
 
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _flat(tree):
-    """{dotted name: numpy array} of a JAX parameter tree."""
-    return {"encoding.grid": np.asarray(tree["encoding"]["grid"]),
-            **{f"network.layers.{i}": np.asarray(w)
-               for i, w in enumerate(tree["network"]["layers"])}}
 
 
 # -- (b) losses ---------------------------------------------------------
@@ -144,20 +138,20 @@ def test_adam_steps_equal_jax_with_lazy_counters(cfg):
     for g in grads[2:]:
         opt_state, params = jmodel.optimizer.step(opt_state, g, params)
         model.optimizer.step(model.trainer.opt_state,
-                             {n: torch.from_numpy(v) for n, v in _flat(g).items()},
+                             {n: torch.from_numpy(v) for n, v in flat_params(g).items()},
                              model.trainer.params())
 
     st = model.trainer.opt_state
     assert int(st["step"]) == int(opt_state["step"]) == 5
-    steps = _flat(opt_state["param_steps"])
+    steps = flat_params(opt_state["param_steps"])
     assert (steps["encoding.grid"][:64] == 0).all() and steps["encoding.grid"].max() == 5
     for name, want in steps.items():
         np.testing.assert_array_equal(st["param_steps"][name].numpy(), want)
     for key in ("mu", "nu"):
-        for name, want in _flat(opt_state[key]).items():
+        for name, want in flat_params(opt_state[key]).items():
             np.testing.assert_allclose(st[key][name].numpy(), want, rtol=1e-6, atol=1e-12)
     got = model.trainer.params()
-    for name, want in _flat(params).items():
+    for name, want in flat_params(params).items():
         np.testing.assert_allclose(got[name].detach().numpy(), want, rtol=1e-6, atol=1e-12)
 
 
@@ -178,28 +172,35 @@ def test_update_hyperparams_takes_effect_and_rejects_unknown_keys():
 # -- (c), (d) one full-width config_hash step ----------------------------
 
 def _jax_state(model):
+    """The model's initial state with its grid table redrawn U(±1) from
+    seed 0 (the table is the leaf named "grid", under a Composite too)."""
     state = model.trainer.initial_state()
-    grid = state.params["encoding"]["grid"]
-    table = np.random.default_rng(0).uniform(-1, 1, grid.shape).astype(np.float32)
-    state.params["encoding"]["grid"] = jnp.asarray(table)
+    rng = np.random.default_rng(0)
+    state.params.update(jax.tree_util.tree_map_with_path(
+        lambda path, v: jnp.asarray(rng.uniform(-1, 1, v.shape).astype(np.float32))
+        if getattr(path[-1], "key", None) == "grid" else v, dict(state.params)))
     return state
 
 
-def _step_against_jax(policy_name, grad_tol):
+def _step_against_jax(policy_name, grad_tol, cfg=CONFIG, n_dims=2):
     jpolicy, policy = getattr(jtcnn, policy_name), getattr(tcnn, policy_name)
-    jmodel = jtcnn.create_from_config(2, 3, CONFIG, policy=jpolicy)
+    jmodel = jtcnn.create_from_config(n_dims, 3, cfg, policy=jpolicy)
     state = _jax_state(jmodel)
-    model = tcnn.create_from_config(2, 3, CONFIG, policy=policy, device="cpu")
+    model = tcnn.create_from_config(n_dims, 3, cfg, policy=policy, device="cpu")
     load_jax_params(model, _np_tree(state.params))
     rng = np.random.default_rng(3)
-    x = rng.uniform(0, 1, (1024, 2)).astype(np.float32)
+    x = rng.uniform(0, 1, (1024, n_dims)).astype(np.float32)
     t = rng.uniform(0, 1, (1024, 3)).astype(np.float32)
 
     want_loss, want_g = jmodel.trainer.loss_value_and_grads(
         state.params, jnp.asarray(x), jnp.asarray(t))
     loss, grads = model.trainer.loss_value_and_grads(torch.from_numpy(x), torch.from_numpy(t))
     np.testing.assert_allclose(float(loss), float(want_loss), rtol=grad_tol["loss"])
-    want_g = _flat(want_g)
+    # The JAX step's body (trainer.py:142-148) on these gradients: its
+    # jitted step would run the interpret-mode kernels once more.
+    _, new_params = jax.jit(jmodel.optimizer.step)(state.opt_state, want_g, state.params)
+    want_g = flat_params(want_g)
+    assert set(want_g) == set(grads)
     for name, want in want_g.items():
         got = grads[name].numpy()
         assert grads[name].dtype == torch.float32
@@ -209,10 +210,9 @@ def _step_against_jax(policy_name, grad_tol):
         assert (err <= grad_tol["rel"] * np.abs(want) + grad_tol["max"] * scale).all(), \
             (name, float(err.max()), float(scale))
 
-    new_state, _ = jmodel.trainer.training_step(state, jnp.asarray(x), jnp.asarray(t))
     model.trainer.training_step(torch.from_numpy(x), torch.from_numpy(t))
     got_p = model.trainer.params()
-    for name, want in _flat(new_state.params).items():
+    for name, want in flat_params(new_params).items():
         g = want_g[name]
         sure = np.abs(g) > grad_tol["sign"] * np.abs(g).max()
         assert sure.sum() >= 1000 or sure.mean() > 0.5
