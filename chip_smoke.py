@@ -12,8 +12,19 @@ and read just after:
     ``model.trainer.training_step`` and ``make_training_loop`` (slice 2);
   * config_btf (Composite of a 4-D CoherentAdd hash grid of 15,474,688
     parameters and OneBlob, FullyFusedMLP 64 x 3, 40 inputs): one request
-    of 2^18 and training, the same entry points (slice 3).
-It times the kernels, a request and a training step of both, and prints:
+    of 2^18 and training, the same entry points (slice 3);
+  * the SDF sample (3-D Smoothstep hash grid 8 x 2, 2^15-row tables,
+    FullyFusedMLP 64 x 2, 16 -> 1, fp32): kernels GI, GG and RS against
+    their plain versions at B = 2^18 (f32 and bf16 tables; RS also at
+    F in {1, 2, 4, 8} and as row 10's column streams), one eikonal step's
+    gradients against the plain eikonal step, and the sample's fit,
+    ``samples/fit_sdf_eikonal.main``, 500 steps at 2^14 through
+    ``create_from_config``, ``model.network`` and ``model.optimizer``: the
+    second-order main path, whose per-step launch counts of G, M, MB, GB,
+    GI, GG and RS it checks (slice 4).
+It times the kernels, a request and a training step of both, the eikonal
+step (eager, and on the device from a captured CUDA graph) and its
+kernels, and prints:
 
     ... one line per phase ...
     {"kernels": [...]}                       per-kernel numbers
@@ -73,11 +84,30 @@ with TF32 off):
     reached loss 0.246 at step 50 from a first step near 13 (a prediction
     near 0 under RelativeL2), and held-out relL2 0.2518, where a zero
     prediction scores 0.64.
+  * grid input gradient (GI) and second order (GG): each output within
+    1e-5 of its largest magnitude (fp32 sums over corners and levels in
+    another order; GG's corner rows equal); row scatter-add (RS): per
+    entry within 2^-11·S, S = Σ|g| over its updates, plus one bf16 ulp
+    for a bf16 result (fp32 atomics in any order, as GB).
+  * eikonal step: the table gradient per entry within 2^-11·S (S the
+    magnitudes of the GB and RS terms it sums), the weights' gradients
+    within 1e-4 of their largest magnitude, of the plain eikonal step's.
+    A sample whose fp32 pre-activation lies within rounding of 0 may
+    switch its ReLU in kernel MB and not in the plain version: its MB dx
+    row passes where ``relu_flip_rows`` explains it at 2^-16 of Σ|h·w|,
+    and the plain step takes the flipped row (as config_btf in bf16).
+  * SDF fit (500 steps at 2^14, the JAX sample's run): mean loss of the
+    last 10 steps below 0.05 and mean |sdf error| on 2^14 points in
+    [0.2, 0.8]^3 below 0.1.  The JAX sample on the CPU ends at loss
+    0.017435 and error 0.0675; an untrained model's loss is about 0.0997,
+    and a zero prediction's error 0.0667, so the error floor only guards
+    against divergence.
 
-The whole run takes two to three minutes on an H100, against the 1200 s
-a run may take: the kernels' build takes 44 to 79 s, and the plain
-versions' BTF fit, 150 eager steps (the kernels' fit runs 200), about
-45 s.  It prints its own time before the kernels' line.
+The whole run takes two to three minutes on an H100 (153.5 s with a 64.5 s
+build, the SDF slice's checks, fit and times included), against the
+1200 s a run may take: the plain versions' BTF fit, 150 eager steps (the
+kernels' fit runs 200), takes 30 to 45 s.  It prints its own time before
+the kernels' line.
 """
 
 import json
@@ -209,6 +239,16 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def touched_bytes(spec, x, elem):
+    """The bytes of the table rows that the batch x touches (all levels)."""
+    from tcnn_tpu_torch.ops import grid_ops
+
+    idx, _ = grid_ops.build_indices_weights(spec, x, list(range(spec.n_levels)))
+    touched = torch.zeros(spec.n_entries, dtype=torch.bool, device=x.device)
+    touched[idx.reshape(-1)] = True
+    return int(touched.sum()) * spec.n_features_per_level * elem
+
+
 def bound_by(n_bytes, flops, peak):
     return "bytes" if n_bytes / PEAK_BYTES >= flops / peak else "operations"
 
@@ -225,19 +265,20 @@ def grid_flops(spec, batch):
     return batch * L * (4 * D + C * (D - 1) + 2 * C * F)
 
 
-def compare_table_grad(got, want, scale):
-    """Max abs error of a table gradient; raises beyond 2^-11·S (+ one
-    bf16 ulp for bf16 tables), S = Σ|w·dy| per entry."""
+def compare_table_grad(got, want, scale, what="table grad"):
+    """Max abs error of a table gradient or a row scatter-add (fp32 sums in
+    any order); raises beyond 2^-11·S (+ one bf16 ulp for bf16 tables),
+    S per entry the sum of the magnitudes of its terms (Σ|w·dy|, Σ|g|)."""
     check(got.shape == want.shape and got.dtype == want.dtype,
-          f"table grad: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+          f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
     g, w = got.float(), want.float()
-    check(bool(torch.isfinite(g).all()), "table grad: non-finite values")
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite values")
     err = (g - w).abs()
     tol = 2.0 ** -11 * scale + 1e-30
     if want.dtype == torch.bfloat16:
         tol = tol + bf16_ulp(w)
     bad = err > tol
-    check(not bool(bad.any()), f"table grad: {int(bad.sum())} entries beyond "
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} entries beyond "
           f"tolerance, max abs err {err.max().item():.3e}")
     return err.max().item()
 
@@ -261,22 +302,24 @@ MAX_FLIP_ROWS = 1024   # more rows beyond the bound than switched ReLUs make
 
 
 def compare_input_grad(got, want, ws, x, g, out_act, soa_in=False, soa_out=False,
-                       what="dx"):
-    """An MLP input gradient in bf16 against the plain version's, one row
-    per sample: within 2e-2 of its largest magnitude, but for rows that
-    ``relu_flip_rows`` explains (a pre-activation lies within rounding of
-    0, and the plain version recomputed for these rows, with one or two
-    ReLUs nearest 0 flipped or none, lies within that bound).  x and g are the plain
-    version's MLP input and output gradient.  Returns (max abs err over
-    the other rows, the explained rows' sample indices, their flipped
-    variants in the rows' layout)."""
+                       what="dx", dtype=torch.bfloat16):
+    """An MLP input gradient in bf16 (or fp32) against the plain version's,
+    one row per sample: within 2e-2 (1e-4) of its largest magnitude, but
+    for rows that ``relu_flip_rows`` explains (a pre-activation lies within
+    rounding of 0: 2^-7 (2^-16) of Σ|h·w|, and the plain version recomputed
+    for these rows, with one or two ReLUs nearest 0 flipped or none, lies
+    within that bound).  x and g are the plain version's MLP input and
+    output gradient.  Returns (max abs err over the other rows, the
+    explained rows' sample indices, their flipped variants in the rows'
+    layout)."""
     from tcnn_tpu_torch.tools.plain_path import relu_flip_rows
 
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
     check(got.shape == want.shape, f"{what}: {tuple(got.shape)} vs {tuple(want.shape)}")
     check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite values")
     a, b = (got.t(), want.t()) if soa_in else (got, want)
     err = (a.float() - b.float()).abs()
-    tol = 2e-2 * b.float().abs().max().item()
+    tol = rel * b.float().abs().max().item()
     rows = (err > tol).any(dim=1).nonzero().flatten()
     check(rows.numel() <= MAX_FLIP_ROWS, f"{what}: {rows.numel()} rows beyond {tol:.3e}")
     other = err.max(dim=1).values
@@ -284,18 +327,18 @@ def compare_input_grad(got, want, ws, x, g, out_act, soa_in=False, soa_out=False
     if not rows.numel():
         return other.max().item(), rows, a[rows].float()
     explained, variants, flipped, nearest = relu_flip_rows(
-        ws, x, g, out_act, torch.bfloat16, rows, a[rows], tol, soa_in, soa_out)
+        ws, x, g, out_act, dtype, rows, a[rows], tol, soa_in, soa_out)
     for r, s, e, f, z in zip(range(10), rows.tolist(), err[rows].max(dim=1).values.tolist(),
                              flipped.tolist(), nearest.tolist()):
         fs = [f"{v:.3e}" for v in f if v == v]
         how = ("no flipped ReLU explains it" if not bool(explained[r]) else
                f"the plain row with the ReLU(s) at {', '.join(fs)} flipped matches it" if fs
                else "the plain row recomputed for these samples alone matches it")
-        print(f"{what}: sample {s} off by {e / tol * 2e-2:.3e} of the largest magnitude; "
+        print(f"{what}: sample {s} off by {e / tol * rel:.3e} of the largest magnitude; "
               f"its pre-activation nearest 0 at |z| / Σ|h·w| = {z:.3e}; {how}")
     check(bool(explained.all()), f"{what}: {int((~explained).sum())} of {rows.numel()} "
           f"rows beyond {tol:.3e} not explained by a switched ReLU")
-    print(f"{what}: {rows.numel()} of {a.shape[0]} rows beyond 2e-2 of the largest "
+    print(f"{what}: {rows.numel()} of {a.shape[0]} rows beyond {rel:g} of the largest "
           f"magnitude, each explained by a switched ReLU")
     return other.max().item(), rows, variants
 
@@ -420,10 +463,25 @@ def grid_bwd_case(spec, table, x, dc, label):
 
 def counters():
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
-    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd, grid_encode_fwd
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
+                                                     grid_encode_bwd_input, grid_encode_fwd)
+    from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add
 
     return {"G": grid_encode_fwd, "M": fused_mlp_fwd, "GB": grid_encode_bwd,
-            "MB": fused_mlp_bwd}
+            "MB": fused_mlp_bwd, "GI": grid_encode_bwd_input, "GG": grid_encode_bwd_bwd,
+            "RS": row_scatter_add}
+
+
+FIRST_ORDER = ("G", "M", "GB", "MB")
+
+
+def first_order_counts():
+    """The counts of the first-order kernels, with a check that the
+    second-order kernels GI, GG and RS were not launched."""
+    c = counts()
+    check(all(c[k] == 0 for k in ("GI", "GG", "RS")),
+          f"a first-order path launched a second-order kernel: {c}")
+    return {k: c[k] for k in FIRST_ORDER}
 
 
 def reset_counts():
@@ -433,6 +491,53 @@ def reset_counts():
 
 def counts():
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def chain_activations(ws, h):
+    """The inputs of each layer of a ReLU MLP chain, from its input h."""
+    hs = [h]
+    for w in ws[:-1]:
+        hs.append(torch.relu(hs[-1] @ w))
+    return hs
+
+
+def library_chain(ws, h):
+    """The MLP's forward as cuBLAS products, timed only as a yardstick."""
+    for w in ws[:-1]:
+        h = torch.relu(h @ w)
+    return h @ ws[-1]
+
+
+def library_bwd(ws, hs, dy):
+    """The chain's backward on its saved activations ``hs``, as cuBLAS
+    products, timed only as a yardstick."""
+    dz, dws = dy.to(ws[0].dtype), []
+    for i in range(len(ws) - 1, -1, -1):
+        dws.append(hs[i].t() @ dz)
+        dz = dz @ ws[i].t()
+        if i:
+            dz = dz * (hs[i] > 0)
+    return dws, dz
+
+
+LIBRARY = {"M": "cuBLAS chain", "MB": "cuBLAS chain backward", "RS": "index_add_"}
+
+
+def record_bounds(t, b, notes=None):
+    """Each kernel's bound from ``b`` (name: bytes moved, operations, peak
+    of their type) into ``t``, printed beside the kernel's times in ``t``:
+    device time, with the host's work where measured, plain version and
+    library call."""
+    for k, (n_bytes, flops, peak) in b.items():
+        t[f"{k} bound"] = bound_ms(n_bytes, flops, peak)
+        t[f"{k} bound by"] = bound_by(n_bytes, flops, peak)
+        kind = "bf16" if peak == PEAK_BF16 else "fp32"
+        call = (f", {t[k + ' call']:.4f} ms per call with the host's work"
+                if k + " call" in t else "")
+        lib = f", {LIBRARY[k]} {t[k + ' library']:.4f} ms" if k + " library" in t else ""
+        print(f"{k}: {t[k]:.4f} ms on the device{call} (plain {t[k + ' plain']:.4f} ms{lib}, "
+              f"bound {t[k + ' bound']:.4f} ms: {n_bytes / 1e6:.2f} MB"
+              f"{(notes or {}).get(k, '')}, {flops / 1e9:.3f} GFLOP {kind})")
 
 
 def slice_times(label, model, x, target, loop):
@@ -473,12 +578,6 @@ def slice_times(label, model, x, target, loop):
         def m_call():
             return fused_mlp_fwd(*mlp_args)
 
-        def library_chain():   # cuBLAS products, timed only as a yardstick
-            h = f_in
-            for w in ws[:-1]:
-                h = torch.relu(h @ w)
-            return h @ ws[-1]
-
         def request():
             return model.trainer.inference(x)
 
@@ -486,7 +585,7 @@ def slice_times(label, model, x, target, loop):
         t["G plain"] = eager_ms(lambda: grid_encode_plain(spec, table, xg, live, soa=soa))
         t["M"], t["M call"] = graph_ms(m_call), time_ms(m_call)
         t["M plain"] = eager_ms(lambda: fused_mlp_plain(*mlp_args))
-        t["M library"] = graph_ms(library_chain)
+        t["M library"] = graph_ms(lambda: library_chain(ws, f_in))
         t["request device"], t["request"] = graph_ms(request), time_ms(request)
         t["table copy"] = graph_ms(lambda: grid.grid.detach().to(bf16))
         t["other encodings"] = sum(graph_ms(lambda e=e, b=b, nd=nd: e(x[:, b:b + nd]))
@@ -494,11 +593,7 @@ def slice_times(label, model, x, target, loop):
                                                          getattr(enc, "slices", ()))
                                    if e is not grid)
         # the table rows this batch touches: the table bytes G must read
-        idx, _ = grid_ops.build_indices_weights(spec, xg, live)
-        touched = torch.zeros(spec.n_entries, dtype=torch.bool, device=x.device)
-        touched[idx.reshape(-1)] = True
-        g_table_bytes = int(touched.sum()) * spec.n_features_per_level * table.element_size()
-        del idx, touched
+        g_table_bytes = touched_bytes(spec, xg, table.element_size())
 
     # The training step's parts on the same batch: the loss and its
     # gradient, MB on that gradient, GB on MB's input gradient, Adam.
@@ -515,10 +610,7 @@ def slice_times(label, model, x, target, loop):
         dfeats = fused_mlp_bwd(*mb_args)[1]
         cols = slice(col, col + spec.n_output_dims)
         dcols = dfeats[cols] if soa else dfeats[:, cols].t()
-        hs, zs = [f_in], []
-        for w in ws[:-1]:
-            zs.append(hs[-1] @ w)
-            hs.append(torch.relu(zs[-1]))
+        hs = chain_activations(ws, f_in)
 
         def mb_call():
             return fused_mlp_bwd(*mb_args)
@@ -526,18 +618,9 @@ def slice_times(label, model, x, target, loop):
         def gb_call():
             return grid_encode_bwd(spec, table, xg, dcols, live)
 
-        def library_bwd():   # the chain's backward on its saved activations (cuBLAS)
-            dz, dws = dy.to(bf16), []
-            for i in range(len(ws) - 1, -1, -1):
-                dws.append(hs[i].t() @ dz)
-                dz = dz @ ws[i].t()
-                if i:
-                    dz = dz * (zs[i - 1] > 0)
-            return dws, dz
-
         t["MB"], t["MB call"] = graph_ms(mb_call), time_ms(mb_call)
         t["MB plain"] = eager_ms(lambda: fused_mlp_bwd_plain(*mb_args))
-        t["MB library"] = graph_ms(library_bwd)
+        t["MB library"] = graph_ms(lambda: library_bwd(ws, hs, dy))
         t["GB"], t["GB call"] = graph_ms(gb_call), time_ms(gb_call)
         t["GB plain"] = eager_ms(lambda: grid_encode_bwd_plain(spec, table, xg, dcols, live))
 
@@ -572,18 +655,7 @@ def slice_times(label, model, x, target, loop):
     # out.  Products: the recomputed forward, the dgrad and the wgrad chains.
     b["MB"] = (nbytes(feats, dy, *ws, dfeats) + sum(w.numel() for w in ws) * 4,
                3 * m_flops, PEAK_BF16)
-    for k, (n_bytes, flops, peak) in b.items():
-        t[f"{k} bound"] = bound_ms(n_bytes, flops, peak)
-        t[f"{k} bound by"] = bound_by(n_bytes, flops, peak)
-        kind = "bf16" if peak == PEAK_BF16 else "fp32"
-        lib = (f", cuBLAS {'chain' if k == 'M' else 'chain backward'} {t[k + ' library']:.4f} ms"
-               if k + " library" in t else "")
-        extra = (f" with {g_table_bytes / 1e6:.2f} MB of touched table rows" if k == "G"
-                 else "")
-        print(f"{k}: {t[k]:.4f} ms on the device, {t[k + ' call']:.4f} ms per call with "
-              f"the host's work (plain {t[k + ' plain']:.4f} ms{lib}, bound "
-              f"{t[k + ' bound']:.4f} ms: {n_bytes / 1e6:.2f} MB{extra}, "
-              f"{flops / 1e9:.3f} GFLOP {kind})")
+    record_bounds(t, b, {"G": f" with {g_table_bytes / 1e6:.2f} MB of touched table rows"})
     parts = {k: t[k] for k in ("G", "M", "table copy")}
     if others:
         parts["other encodings"] = t["other encodings"]
@@ -605,26 +677,31 @@ def slice_times(label, model, x, target, loop):
     return t
 
 
-KERNELS = {   # report name: (source, timing key)
-    "grid_encode_fwd": ("tcnn_tpu_torch/csrc/grid_encode.cu", "G"),
-    "fused_mlp_fwd": ("tcnn_tpu_torch/csrc/fused_mlp.cu", "M"),
-    "grid_encode_bwd": ("tcnn_tpu_torch/csrc/grid_encode_bwd.cu", "GB"),
-    "fused_mlp_bwd": ("tcnn_tpu_torch/csrc/fused_mlp_bwd.cu", "MB"),
+KERNELS = {   # timing key: (report name, source)
+    "G": ("grid_encode_fwd", "tcnn_tpu_torch/csrc/grid_encode.cu"),
+    "M": ("fused_mlp_fwd", "tcnn_tpu_torch/csrc/fused_mlp.cu"),
+    "GB": ("grid_encode_bwd", "tcnn_tpu_torch/csrc/grid_encode_bwd.cu"),
+    "MB": ("fused_mlp_bwd", "tcnn_tpu_torch/csrc/fused_mlp_bwd.cu"),
+    "GI": ("grid_encode_bwd_input", "tcnn_tpu_torch/csrc/grid_encode_bwd_input.cu"),
+    "GG": ("grid_encode_bwd_bwd", "tcnn_tpu_torch/csrc/grid_encode_bwd_bwd.cu"),
+    "RS": ("row_scatter", "tcnn_tpu_torch/csrc/row_scatter.cu"),
 }
 
 
-def report_entries(suffix, t, replaces, launches, errors, inference_launches):
-    """The {"kernels": [...]} entries of one path: launches from its main
-    path's run, numbers from ``slice_times``."""
+def report_entries(suffix, t, replaces, launches, errors, extra=None):
+    """The {"kernels": [...]} entries of one path, one per kernel in
+    ``replaces`` (timing key: the TPU kernel it replaces): launches from
+    its main path's run, numbers from its timing (``slice_times``,
+    ``sdf_slice``), and each field of ``extra`` (field: {key: value})."""
     out = []
-    for name, (source, k) in KERNELS.items():
+    for k, replaced in replaces.items():
+        name, source = KERNELS[k]
         entry = {"name": name + suffix, "route": "cuda", "source": source,
-                 "replaces": replaces[k], "launches": launches[k],
+                 "replaces": replaced, "launches": launches[k],
                  "max_abs_err": errors[k], "ms": t[k], "plain_ms": t[k + " plain"],
                  "bound_ms": t[k + " bound"], "bound_by": t[k + " bound by"],
                  "library_ms": t.get(k + " library")}
-        if k in inference_launches:
-            entry["launches_inference"] = inference_launches[k]
+        entry.update({field: v[k] for field, v in (extra or {}).items() if k in v})
         out.append(entry)
     return out
 
@@ -681,8 +758,7 @@ def config_hash_slices(gen, dev):
     phase("slice: config_hash requests through model.trainer.inference (BF16_POLICY)")
     xs = [torch.rand((b, 2), generator=gen, device=dev) for b in REQUESTS]
     torch.cuda.synchronize()
-    grid_encode_fwd.launches = 0
-    fused_mlp_fwd.launches = 0
+    reset_counts()
     answers = []
     for i, x in enumerate(xs):
         y = model.trainer.inference(x)
@@ -691,7 +767,7 @@ def config_hash_slices(gen, dev):
               f"request {i}: launch counts G={grid_encode_fwd.launches} "
               f"M={fused_mlp_fwd.launches}, expected {i + 1} each")
         answers.append(y)
-    inf_launches = {"G": grid_encode_fwd.launches, "M": fused_mlp_fwd.launches}
+    inf_launches = first_order_counts()
     for x, y in zip(xs, answers):
         check(y.shape == (x.shape[0], 3) and y.dtype == torch.float32,
               f"answer {tuple(y.shape)} {y.dtype}")
@@ -754,7 +830,7 @@ def config_hash_slices(gen, dev):
     reset_counts()
     step_loss = tmodel.trainer.training_step(x, target)
     torch.cuda.synchronize()
-    check(counts() == {"G": 1, "M": 1, "GB": 1, "MB": 1},
+    check(first_order_counts() == {"G": 1, "M": 1, "GB": 1, "MB": 1},
           f"training step launches {counts()}, expected one of each kernel")
     check(bool(torch.isfinite(step_loss)), "training step loss is not finite")
     print(f"training_step: loss {step_loss.item():.6f}; launches {counts()}")
@@ -773,7 +849,7 @@ def config_hash_slices(gen, dev):
     # Graph replays run the kernels without calling their wrappers: the
     # counts hold the training step, the loop's eager warm-up step and its
     # captured step, one launch of each kernel apiece.
-    train_launches = counts()
+    train_launches = first_order_counts()
     check(train_launches == {"G": 3, "M": 3, "GB": 3, "MB": 3},
           f"training path launches {train_launches}, expected 3 of each kernel")
     fit_losses = fit_losses.cpu()
@@ -813,7 +889,8 @@ def config_hash_slices(gen, dev):
     # launches: the training path's counts (slice 2's main path); G and M
     # also ran in the inference path, whose counts are kept beside them.
     return report_entries("", t, replaces, train_launches,
-                          {"G": g_err, "M": m_err, "GB": gb_err, "MB": mb_err}, inf_launches)
+                          {"G": g_err, "M": m_err, "GB": gb_err, "MB": mb_err},
+                          {"launches_inference": {k: inf_launches[k] for k in ("G", "M")}})
 
 
 def config_btf_slice(gen, dev):
@@ -901,7 +978,7 @@ def config_btf_slice(gen, dev):
     reset_counts()
     y = btf.trainer.inference(x6)
     torch.cuda.synchronize()
-    inf_launches = counts()
+    inf_launches = first_order_counts()
     check(inf_launches == {"G": 1, "M": 1, "GB": 0, "MB": 0},
           f"config_btf request launches {inf_launches}, expected G and M once")
     check(y.shape == (MAIN_BATCH, 3) and y.dtype == torch.float32, f"answer {tuple(y.shape)}")
@@ -918,7 +995,7 @@ def config_btf_slice(gen, dev):
     reset_counts()
     step_loss = btf.trainer.training_step(x6, target)
     torch.cuda.synchronize()
-    check(counts() == {"G": 1, "M": 1, "GB": 1, "MB": 1},
+    check(first_order_counts() == {"G": 1, "M": 1, "GB": 1, "MB": 1},
           f"training step launches {counts()}, expected one of each kernel")
     check(bool(torch.isfinite(step_loss)), "training step loss is not finite")
     print(f"training_step: loss {step_loss.item():.6f}; launches {counts()}")
@@ -931,7 +1008,7 @@ def config_btf_slice(gen, dev):
     fit_losses = fit_loop()
     torch.cuda.synchronize()
     fit_s = time.time() - t0
-    train_launches = counts()   # the step, the loop's warm-up and its capture
+    train_launches = first_order_counts()   # the step, the loop's warm-up and its capture
     check(train_launches == {"G": 3, "M": 3, "GB": 3, "MB": 3},
           f"training path launches {train_launches}, expected 3 of each kernel")
     fit_losses = fit_losses.cpu()
@@ -972,7 +1049,317 @@ def config_btf_slice(gen, dev):
         "MB": "tcnn_tpu/ops/pallas/fused_mlp.py:113 (_bwd_kernel)"}
     return report_entries(" (config_btf)", t, replaces, train_launches,
                           {"G": g_err, "M": m_err, "GB": max(gb_err, gb_prime_err),
-                           "MB": mb_err}, {k: inf_launches[k] for k in ("G", "M")})
+                           "MB": mb_err},
+                          {"launches_inference": {k: inf_launches[k] for k in ("G", "M")}})
+
+
+SDF_FIT_STEPS = 500          # the JAX sample's default run: 500 steps at 2^14
+SDF_FIT_BATCH_POW = 14
+SDF_LOSS_FLOOR = 0.05        # see the docstring: JAX 0.017435, a zero model 0.1
+SDF_ERROR_FLOOR = 0.1        # JAX 0.0675, a zero prediction 0.0667
+
+
+def compare_rel(got, want, rel, what):
+    """Max abs error; raises beyond ``rel`` of want's largest magnitude (a
+    zero ``want`` needs a zero ``got``)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite values")
+    err = (got.float() - want.float()).abs().max().item()
+    lim = rel * want.float().abs().max().item()
+    check(err <= lim, f"{what}: max abs err {err:.3e} beyond {lim:.3e}")
+    return err
+
+
+def sdf_flip_explained_bwd(net, xs, xv):
+    """MB's plain version for the plain eikonal step, its two calls (the
+    surface term, then x_vol) held row by row against kernel MB's input
+    gradients in the kernel step (G, M and MB on the same x, as the step
+    computes them), and each row that a switched fp32 ReLU explains
+    (``compare_input_grad``) replaced by its flipped variant: at 2^18
+    samples a pre-activation may lie within fp32 rounding of 0, and the
+    switch moves that sample's whole share of the table gradient."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
+                                                   fused_mlp_fwd)
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_fwd
+
+    enc, mlp = net.encoding, net.network
+    spec, ws = enc.spec, [w.detach() for w in mlp.layers]
+    args = (mlp.activation, mlp.output_activation, torch.float32)
+    live = list(range(spec.n_levels))
+    kernel_dx = []
+    with torch.no_grad():
+        for x, surface in ((xs, True), (xv, False)):
+            feats = grid_encode_fwd(spec, enc.grid.detach(), x, live, soa=True)
+            y = fused_mlp_fwd(ws, feats, *args, torch.float32, True, False)
+            dy = y * (2.0 / x.shape[0]) if surface else torch.ones_like(y)
+            kernel_dx.append(fused_mlp_bwd(ws, feats, dy, *args, True, False)[1])
+
+    def bwd(weights, x, g, act, out_act, cdt, soa_in, soa_out):
+        dws, dx = fused_mlp_bwd_plain(weights, x, g, act, out_act, cdt, soa_in, soa_out)
+        got = kernel_dx.pop(0)
+        _, rows, variants = compare_input_grad(got, dx, weights, x, g, out_act, soa_in,
+                                               soa_out, "eikonal step MB dx", cdt)
+        dx = dx.clone()
+        dx.t()[rows] = variants.to(dx.dtype)
+        return dws, dx
+
+    return bwd
+
+
+def sdf_slice(gen, dev):
+    """Slice 4, second order: kernels GI, GG and RS against their plain
+    versions at the SDF sample's geometry, one eikonal step's gradients
+    against the plain eikonal step, the sample's fit (the main path), and
+    the times of the step and its kernels.  Returns the report entries."""
+    from tcnn_tpu_torch import Policy, create_from_config
+    from tcnn_tpu_torch.common import HashType, InterpolationType
+    from tcnn_tpu_torch.ops import grid_ops
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_bwd_plain,
+                                                   fused_mlp_bwd_plain, fused_mlp_fwd,
+                                                   fused_mlp_plain)
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (
+        grid_encode_bwd, grid_encode_bwd_bwd, grid_encode_bwd_bwd_plain,
+        grid_encode_bwd_input, grid_encode_bwd_input_plain, grid_encode_bwd_plain,
+        grid_encode_fwd, grid_encode_plain)
+    from tcnn_tpu_torch.ops.cuda.scatter import (row_scatter_add, row_scatter_add_plain,
+                                                 scatter_add_cols)
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.tools.plain_path import plain_sdf_loss_and_grads
+
+    model = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
+    net, opt = model.network, model.optimizer
+    enc, mlp = net.encoding, net.network
+    spec = enc.spec
+    live = list(range(spec.n_levels))
+    check(spec.n_dims == 3 and spec.n_levels == 8 and spec.n_features_per_level == 2
+          and spec.interpolation == InterpolationType.SMOOTHSTEP
+          and spec.hash_type == HashType.COHERENT_PRIME,
+          f"SDF grid: {spec.n_dims}-D, {spec.n_levels} levels, {spec.interpolation}")
+    check([tuple(w.shape) for w in mlp.layers] == mlp_dims(16, 64, 2, d_out=1),
+          f"SDF MLP {[tuple(w.shape) for w in mlp.layers]}")
+    print(f"SDF model: {net.n_params()} parameters, grid of {spec.n_entries} rows "
+          f"({sum(not lv.use_hash for lv in spec.levels)} dense levels), fp32 policy")
+    with torch.no_grad():   # O(1) features, as in the other slices' checks
+        enc.grid.uniform_(-1, 1, generator=gen)
+    B = MAIN_BATCH
+    F, D = spec.n_features_per_level, spec.n_dims
+
+    phase(f"SDF geometry: GI, GG and RS vs plain at B={B}, f32 and bf16 tables")
+    x = torch.rand((B, D), generator=gen, device=dev) * 0.9 + 0.05
+    ddx = torch.randn((B, D), generator=gen, device=dev)
+    err = {"GI": 0.0, "GG": 0.0, "RS": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = enc.grid.detach().to(dtype)
+        dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev).to(dtype)
+        with torch.inference_mode():
+            got = grid_encode_bwd_input(spec, table, x, dcols, live)
+            torch.cuda.synchronize()
+            e_gi = compare_rel(got, grid_encode_bwd_input_plain(spec, table, x, dcols, live),
+                               1e-5, "GI dx")
+            got = grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live)
+            torch.cuda.synchronize()
+            want = grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live)
+            check(torch.equal(got.rows, want.rows), "GG: corner rows differ from plain")
+            e_gg = max(compare_rel(a, b, 1e-5, f"GG {n}") for n, a, b in
+                       zip(("d_dcols", "d_x", "g"), got[:2] + got[3:], want[:2] + want[3:]))
+            rs = row_scatter_add(got.rows, got.g, spec.n_entries, dtype)
+            torch.cuda.synchronize()
+            scale = row_scatter_add_plain(want.rows, want.g.abs(), spec.n_entries)
+            e_rs = compare_table_grad(rs, row_scatter_add_plain(want.rows, want.g,
+                                                                spec.n_entries, dtype),
+                                      scale, "RS")
+        if dtype == torch.float32:
+            err = {"GI": e_gi, "GG": e_gg, "RS": e_rs}
+        print(f"table={str(dtype)[6:]}: GI max abs err {e_gi:.3e}, GG {e_gg:.3e} (1e-5 of "
+              f"each output's max; corner rows equal), RS on GG's {got.rows.numel()} "
+              f"updates {e_rs:.3e} (2^-11·S{' + one bf16 ulp' if dtype == torch.bfloat16 else ''})")
+
+    phase("RS vs plain: F in {1, 2, 4, 8} on random rows; row 10's column streams")
+    for f in (1, 2, 4, 8):
+        m, n_rows = 1 << 22, 1 << 16
+        idx = torch.randint(0, n_rows, (m,), generator=gen, device=dev, dtype=torch.int32)
+        g = torch.randn((m, f), generator=gen, device=dev)
+        with torch.inference_mode():
+            scale = row_scatter_add_plain(idx, g.abs(), n_rows)
+            want = row_scatter_add_plain(idx, g, n_rows)
+            e_rows = compare_table_grad(row_scatter_add(idx, g, n_rows), want, scale,
+                                        f"RS F={f}")
+            streams = g.t().contiguous()   # F separate (M,) streams, read with strides (1, M)
+            e_cols = compare_table_grad(scatter_add_cols(idx, streams, n_rows), want, scale,
+                                        f"RS cols F={f}")
+        print(f"F={f}, {m} updates into {n_rows} rows: max abs err {e_rows:.3e}, as column "
+              f"streams {e_cols:.3e} (2^-11·S)")
+
+    phase(f"slice 4: one eikonal step at B={B}, gradients vs the plain eikonal step")
+    xs, xv = sdf.sample_points(gen, B, dev)
+    reset_counts()
+    loss, grads = sdf.loss_and_grads(net, xs, xv)
+    torch.cuda.synchronize()
+    step_launches = counts()
+    want_loss, want, scale = plain_sdf_loss_and_grads(
+        net, xs, xv, table_scale=True, mlp_bwd=sdf_flip_explained_bwd(net, xs, xv))
+    check(abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item()),
+          f"eikonal loss {loss.item()} vs plain {want_loss.item()}")
+    check(set(grads) == set(want), f"gradient names {sorted(grads)}")
+    for name in grads:
+        if name == "encoding.grid":   # GB's and RS's atomics: per entry 2^-11·S
+            ratio = (grads[name] - want[name]).abs() / (2.0 ** -11 * scale + 1e-30)
+            for i in ratio.topk(3).indices.tolist():   # the entries nearest their bound
+                level = max(l for l, lv in enumerate(spec.levels) if lv.offset * F <= i)
+                print(f"table entry {i} (level {level}): {grads[name][i].item():.6e} vs "
+                      f"{want[name][i].item():.6e}, S {scale[i].item():.3e}, "
+                      f"{ratio[i].item():.3e} of its bound")
+            e, how = compare_table_grad(grads[name], want[name], scale), "2^-11·S per entry"
+        else:
+            e, how = compare_rel(grads[name], want[name], 1e-4, name), "1e-4 of its max"
+        print(f"gradient {name}: max abs err {e:.3e} vs the plain step (max |g| "
+              f"{want[name].abs().max().item():.3e}; {how})")
+    print(f"loss {loss.item():.6f}, plain {want_loss.item():.6f}; launches {step_launches}")
+    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 2, "GI": 1, "GG": 1, "RS": 1}
+    check(step_launches == per_step, f"eikonal step launches {step_launches}, "
+          f"expected {per_step}")
+
+    phase(f"slice 4: the SDF sample's fit through create_from_config, model.network and "
+          f"model.optimizer, {SDF_FIT_STEPS} steps at 2^{SDF_FIT_BATCH_POW}")
+    torch.cuda.synchronize()
+    reset_counts()
+    fit = sdf.main(["fit_sdf_eikonal", str(SDF_FIT_STEPS), str(SDF_FIT_BATCH_POW)])
+    torch.cuda.synchronize()
+    fit_launches = counts()
+    expect = {k: v * SDF_FIT_STEPS for k, v in per_step.items()}
+    expect["G"] += 1   # the evaluation's request
+    expect["M"] += 1
+    check(fit_launches == expect, f"SDF fit launches {fit_launches}, expected {expect}")
+    losses = fit["losses"]
+    check(bool(torch.isfinite(losses).all()), "non-finite SDF loss")
+    last10 = float(losses[-10:].mean())
+    print(f"fit: loss {float(losses[0]):.6f} -> {last10:.6f} (mean of the last 10), mean "
+          f"|sdf error| {fit['sdf_error']:.4f}, {fit['seconds']:.2f} s; launches {fit_launches} "
+          f"(per step {per_step}, and G and M once for the evaluation)")
+    check(last10 < SDF_LOSS_FLOOR, f"SDF loss floor missed: {last10} >= {SDF_LOSS_FLOOR}")
+    check(fit["sdf_error"] < SDF_ERROR_FLOOR,
+          f"SDF error floor missed: {fit['sdf_error']} >= {SDF_ERROR_FLOOR}")
+
+    phase(f"slice 4 times at B={B}: the eikonal step and its kernels, device time in a "
+          f"CUDA graph of {N_TIMED} calls; plain versions eager")
+    opt_state = opt.init(dict(net.named_parameters()), net.param_layout())
+    t = {}
+
+    def step_call():
+        return sdf.step(net, opt, opt_state, xs, xv)
+
+    t["step"] = time_ms(step_call)
+    t["step device"] = graph_ms(step_call)
+    relu, none, f32 = mlp.activation, mlp.output_activation, torch.float32
+    table = enc.grid.detach()
+    ws = [w.detach() for w in mlp.layers]
+    with torch.no_grad():   # tensors the MLP's second order can differentiate
+        fs = grid_encode_fwd(spec, table, xs, live, soa=True)
+        fv = grid_encode_fwd(spec, table, xv, live, soa=True)
+        ys = fused_mlp_fwd(ws, fs, relu, none, f32, f32, True, False)
+        dys = ys * (2.0 / B)
+        ones = torch.ones_like(ys)
+        dfs = fused_mlp_bwd(ws, fs, dys, relu, none, f32, True, False)[1]
+        dfv = fused_mlp_bwd(ws, fv, ones, relu, none, f32, True, False)[1]
+        gx = grid_encode_bwd_input(spec, table, xv, dfv, live)
+    gxr = gx.clone().requires_grad_()
+    (dgx,) = torch.autograd.grad(sdf.EIKONAL_WEIGHT * sdf.eikonal_loss(gxr), gxr)
+    with torch.no_grad():   # tensors the MLP's second order can differentiate
+        bb = grid_encode_bwd_bwd(spec, table, xv, dfv, dgx, live)
+    calls = {
+        "G": (lambda: grid_encode_fwd(spec, table, xs, live, soa=True),
+              lambda: grid_encode_plain(spec, table, xs, live, soa=True)),
+        "M": (lambda: fused_mlp_fwd(ws, fs, relu, none, f32, f32, True, False),
+              lambda: fused_mlp_plain(ws, fs, relu, none, f32, f32, True, False)),
+        "MB": (lambda: fused_mlp_bwd(ws, fs, dys, relu, none, f32, True, False),
+               lambda: fused_mlp_bwd_plain(ws, fs, dys, relu, none, f32, True, False)),
+        "GB": (lambda: grid_encode_bwd(spec, table, xs, dfs, live),
+               lambda: grid_encode_bwd_plain(spec, table, xs, dfs, live)),
+        "GI": (lambda: grid_encode_bwd_input(spec, table, xv, dfv, live),
+               lambda: grid_encode_bwd_input_plain(spec, table, xv, dfv, live)),
+        "GG": (lambda: grid_encode_bwd_bwd(spec, table, xv, dfv, dgx, live),
+               lambda: grid_encode_bwd_bwd_plain(spec, table, xv, dfv, dgx, live)),
+        "RS": (lambda: row_scatter_add(bb.rows, bb.g, spec.n_entries),
+               lambda: row_scatter_add_plain(bb.rows, bb.g, spec.n_entries)),
+    }
+    rs_acc = torch.zeros((spec.n_entries, F), device=dev)
+    hs = chain_activations(ws, fs.t())
+    library = {"M": lambda: library_chain(ws, fs.t()),
+               "MB": lambda: library_bwd(ws, hs, dys),
+               # one PyTorch call computing RS's function: index_add_ into zeros
+               "RS": lambda: rs_acc.zero_().index_add_(0, bb.rows, bb.g)}
+    with torch.no_grad():   # tensors the MLP's second order can differentiate
+        # the first-order kernels at the SDF shapes (fp32, one output)
+        err["G"] = compare(calls["G"][0](), calls["G"][1](), "grid-f32")[0]
+        err["M"] = compare(calls["M"][0](), calls["M"][1](), "mlp-f32")[0]
+        (got_dws, got_dx), (want_dws, want_dx) = calls["MB"][0](), calls["MB"][1]()
+        err["MB"] = compare_mlp_grads([*got_dws, got_dx], [*want_dws, want_dx], f32, "MB")
+        err["GB"] = compare_table_grad(calls["GB"][0](), calls["GB"][1](),
+                                       grid_encode_bwd_plain(spec, table, xs, dfs.abs(), live))
+        print("at the step's tensors: " + ", ".join(f"{k} max abs err {err[k]:.3e}"
+                                                    for k in ("G", "M", "MB", "GB"))
+              + " (fp32 bounds of the config_hash checks)")
+        for k, (kernel, plain) in calls.items():
+            t[k] = graph_ms(kernel)
+            t[k + " plain"] = eager_ms(plain)
+            if k in library:
+                t[k + " library"] = graph_ms(library[k])
+        t["MLP second order"] = graph_ms(lambda: fused_mlp_bwd_bwd_plain(
+            ws, fv, ones, bb.d_dcols, [None] * len(ws), relu, none, f32, f32, True, False))
+    grads = sdf.loss_and_grads(net, xs, xv)[1]
+    t["Adam"] = graph_ms(lambda: opt.step(opt_state, grads, dict(net.named_parameters())))
+
+    consts = spec.n_levels * grid_ops.LEVEL_FIELDS * 4
+    tb = touched_bytes(spec, xs, 4)
+    tbv = touched_bytes(spec, xv, 4)
+    L, C = spec.n_levels, 1 << D
+    m_flops = 2 * B * sum(w.numel() for w in ws)
+    corner = 4 * D + C * (D - 1)      # per (sample, level): positions and weights
+    b = {
+        "G": (nbytes(xs, fs) + tb + consts, grid_flops(spec, B), PEAK_FP32),
+        "M": (nbytes(fs, *ws, ys), m_flops, PEAK_FP32),
+        "MB": (nbytes(fs, dys, *ws, dfs) + sum(w.numel() for w in ws) * 4, 3 * m_flops,
+               PEAK_FP32),
+        "GB": (nbytes(xs, dfs, table) + consts, grid_flops(spec, B), PEAK_FP32),
+        # GI: per corner the row's dot with dcols (2F), d w / dx (D·D), dx += (2D)
+        "GI": (nbytes(xv, dfv, gx) + tbv + consts,
+               B * L * (corner + C * (2 * F + D * D + 2 * D)), PEAK_FP32),
+        # GG: per corner d w / dx (D·D), w' (2D), d dcols (2F), the Hessian
+        # times ddx (D·D·D + D·D), the row's dot (2F), dx (2D), g (F)
+        "GG": (nbytes(xv, dgx, dfv, *[u for u in bb]) + tbv + consts,
+               B * L * (corner + C * (D * D + 2 * D + 2 * F + D ** 3 + D * D + 2 * F + 2 * D
+                                      + F)), PEAK_FP32),
+        "RS": (nbytes(bb.rows, bb.g) + spec.n_params * 4, bb.g.numel(), PEAK_FP32),
+    }
+    record_bounds(t, b)
+    parts = {k + (" x2" if per_step[k] == 2 else ""): per_step[k] * t[k] for k in calls}
+    parts["MLP second order (torch ops)"] = t["MLP second order"]
+    parts["Adam"] = t["Adam"]
+    parts["loss, casts, gaps and the rest"] = t["step device"] - sum(parts.values())
+    print(f"eikonal step at B={B}: {t['step']:.4f} ms eager with the host's work, "
+          f"{t['step device']:.4f} ms of device work (idle share "
+          f"{1 - t['step device'] / t['step']:.3f}); split: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+    print(f"(rows, g) round trip of GG and RS: {nbytes(bb.rows, bb.g) / 1e6:.1f} MB each way")
+
+    replaces = {
+        "G": "tcnn_tpu/ops/pallas/grid_matmul.py:734 (_gather_kernel_xor); "
+             "tcnn_tpu/ops/pallas/grid_matmul.py:861 (_gather_kernel)",
+        "M": "tcnn_tpu/ops/pallas/fused_mlp.py:100 (_fwd_kernel)",
+        "MB": "tcnn_tpu/ops/pallas/fused_mlp.py:113 (_bwd_kernel)",
+        "GB": "tcnn_tpu/ops/pallas/grid_matmul.py:602 (_scatter_kernel_xor); "
+              "tcnn_tpu/ops/pallas/grid_matmul.py:204 (_scatter_kernel)",
+        "GI": "none (jnp): tcnn_tpu/ops/grid_ops.py:1104 (_finish_interp_bwd) and "
+              "autodiff of tcnn_tpu/ops/grid_ops.py:476 (_build_indices_weights)",
+        "GG": "none (jnp): autodiff of tcnn_tpu/ops/grid_ops.py:1094 "
+              "(_finish_interp_bwd) and of tcnn_tpu/ops/grid_ops.py:476",
+        "RS": "tcnn_tpu/ops/pallas/scatter.py:106 (_scatter_kernel); "
+              "tcnn_tpu/ops/pallas/scatter.py:187 (_scatter_cols_kernel)"}
+    # launches: the fit's counts (the main path); per step, the eikonal
+    # step's counts measured above
+    return report_entries(" (sdf)", t, replaces, fit_launches, err,
+                          {"launches_per_step": step_launches})
 
 
 def main():
@@ -1000,7 +1387,8 @@ def main():
     kernels()
     print(f"kernels built from tcnn_tpu_torch/csrc in {time.time() - t0:.1f} s")
 
-    report = {"kernels": config_hash_slices(gen, dev) + config_btf_slice(gen, dev)}
+    report = {"kernels": config_hash_slices(gen, dev) + config_btf_slice(gen, dev)
+              + sdf_slice(gen, dev)}
     phase("kernels")
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps(report))

@@ -94,6 +94,68 @@ void fused_mlp_bwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void grid_encode_bwd_input(const torch::Tensor& x, int64_t x_stride_b,
+                           const torch::Tensor& table, const torch::Tensor& dcols,
+                           const torch::Tensor& level_params, const torch::Tensor& dx,
+                           int64_t n_dims, int64_t n_features, int64_t dc_stride_b,
+                           int64_t dc_stride_f, const std::vector<int64_t>& hash_factors,
+                           bool coherent_add, int64_t interp) {
+  TORCH_CHECK(hash_factors.size() == 4, "grid_encode_bwd_input: four hash factors");
+  const c10::cuda::CUDAGuard guard(x.device());
+  uint32_t factors[4];
+  for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_input_launch(
+      x.data_ptr<float>(), x_stride_b, table.data_ptr(), table.scalar_type() == at::kBFloat16,
+      dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(),
+      dx.data_ptr<float>(), x.size(0), static_cast<int>(n_dims),
+      static_cast<int>(level_params.size(0)), static_cast<int>(n_features), dc_stride_b,
+      dc_stride_f, factors, coherent_add, static_cast<int>(interp),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// An optional output: an undefined tensor (None in Python) passes null.
+template <typename T>
+T* optional_ptr(const c10::optional<torch::Tensor>& t) {
+  return t.has_value() && t->defined() ? t->data_ptr<T>() : nullptr;
+}
+
+void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& table,
+                         const torch::Tensor& dcols, const torch::Tensor& ddx,
+                         const torch::Tensor& level_params,
+                         const c10::optional<torch::Tensor>& d_dcols,
+                         const c10::optional<torch::Tensor>& d_x,
+                         const c10::optional<torch::Tensor>& rows,
+                         const c10::optional<torch::Tensor>& g, int64_t n_dims,
+                         int64_t n_features, int64_t dc_stride_b, int64_t dc_stride_f,
+                         const std::vector<int64_t>& hash_factors, bool coherent_add,
+                         int64_t interp) {
+  TORCH_CHECK(hash_factors.size() == 4, "grid_encode_bwd_bwd: four hash factors");
+  const c10::cuda::CUDAGuard guard(x.device());
+  uint32_t factors[4];
+  for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_bwd_launch(
+      x.data_ptr<float>(), x_stride_b, table.data_ptr(), table.scalar_type() == at::kBFloat16,
+      dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16, ddx.data_ptr<float>(),
+      level_params.data_ptr<int32_t>(), optional_ptr<float>(d_dcols), optional_ptr<float>(d_x),
+      optional_ptr<int32_t>(rows), optional_ptr<float>(g), x.size(0), static_cast<int>(n_dims),
+      static_cast<int>(level_params.size(0)), static_cast<int>(n_features), dc_stride_b,
+      dc_stride_f, factors, coherent_add, static_cast<int>(interp),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void row_scatter(const torch::Tensor& idx, const torch::Tensor& g, int64_t g_stride_i,
+                 int64_t g_stride_k, int64_t n_features, const torch::Tensor& acc,
+                 const torch::Tensor& out, int64_t n_rows) {
+  const c10::cuda::CUDAGuard guard(acc.device());
+  C10_CUDA_CHECK(tcnn_tpu_torch::row_scatter_launch(
+      idx.data_ptr<int32_t>(), g.data_ptr<float>(), g_stride_i, g_stride_k, idx.numel(),
+      static_cast<int>(n_features), acc.data_ptr<float>(), out.data_ptr(),
+      out.scalar_type() == at::kBFloat16, n_rows, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 int64_t fused_mlp_bwd_smem_bytes(int64_t d_in, int64_t d_out, int64_t width,
                                  int64_t n_layers, bool compute_bf16) {
   return tcnn_tpu_torch::fused_mlp_bwd_smem_bytes(
@@ -108,6 +170,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fused_mlp_fwd", &fused_mlp_fwd, "fused-MLP forward (kernel M)");
   m.def("grid_encode_bwd", &grid_encode_bwd, "grid-encode backward (kernel GB)");
   m.def("fused_mlp_bwd", &fused_mlp_bwd, "fused-MLP backward (kernel MB)");
+  m.def("grid_encode_bwd_input", &grid_encode_bwd_input,
+        "grid-encode input gradient (kernel GI)");
+  m.def("grid_encode_bwd_bwd", &grid_encode_bwd_bwd, "grid-encode second order (kernel GG)");
+  m.def("row_scatter", &row_scatter, "row scatter-add (kernel RS)");
   m.def("fused_mlp_bwd_smem_bytes", &fused_mlp_bwd_smem_bytes,
         "shared memory of one kernel-MB CTA");
 }

@@ -1,7 +1,9 @@
 // Index and weight arithmetic shared by the grid kernels G
-// (grid_encode.cu, forward) and GB (grid_encode_bwd.cu, backward), so
-// that the backward scatters to exactly the rows, with exactly the
-// weights, that the forward gathered from.
+// (grid_encode.cu, forward), GB (grid_encode_bwd.cu, backward), GI
+// (grid_encode_bwd_input.cu, the input gradient) and GG
+// (grid_encode_bwd_bwd.cu, second order), so that every backward reads and
+// scatters exactly the rows, with exactly the weights, that the forward
+// gathered from.
 //
 // Hazards handled here:
 //  * fused multiply-add: pos = x*scale + 0.5 must round twice, like the
@@ -12,12 +14,18 @@
 //  * out-of-range rows: idx % size + offset stays inside the table only if
 //    the table has the spec's size; the Python wrappers check that, since
 //    these kernels, unlike jnp.take, do not clamp.
+//  * weight derivatives: floor has zero derivative, so d fract / dx is the
+//    level's f32 scale; the per-dim derivatives are the closed forms of
+//    Linear (1, 0) and Smoothstep (6f(1-f), 6-12f), times scale and scale^2,
+//    where the JAX package differentiates f*f*(3-2f) by autodiff: the two
+//    agree to fp32 rounding, not bit for bit.  Nearest has zero derivative.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace tcnn_tpu_torch {
 namespace {
@@ -57,6 +65,55 @@ __device__ __forceinline__ float interp_weight(float f, int interp) {
   return f > 0.5f ? 1.0f : 0.0f;                                 // Nearest
 }
 
+// First and second derivative of interp_weight in f.
+__device__ __forceinline__ void interp_derivatives(float f, int interp, float& d1, float& d2) {
+  if (interp == 1) {                                             // Linear
+    d1 = 1.0f;
+    d2 = 0.0f;
+  } else if (interp == 2) {                                      // Smoothstep
+    d1 = 6.0f * f * (1.0f - f);
+    d2 = 6.0f - 12.0f * f;
+  } else {                                                       // Nearest
+    d1 = 0.0f;
+    d2 = 0.0f;
+  }
+}
+
+// The F features of one table row, as fp32.
+template <typename T, int F>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, float (&v)[F]) {
+  constexpr int kBytes = F * int(sizeof(T));
+  if constexpr (kBytes == 4 || kBytes == 8 || kBytes == 16) {
+    using V = std::conditional_t<kBytes == 4, unsigned int,
+                                 std::conditional_t<kBytes == 8, uint2, uint4>>;
+    const V raw = __ldg(reinterpret_cast<const V*>(p));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = to_f32(e[f]);
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = to_f32(p[f]);
+  }
+}
+
+// Row `row` of a float32 or bfloat16 table whose dtype is known only at run
+// time (kernels GI and GG: one instance serves both).
+template <int F>
+__device__ __forceinline__ void load_row_any(const void* table, bool bf16, uint32_t row,
+                                             float (&v)[F]) {
+  if (bf16)
+    load_row<__nv_bfloat16, F>(static_cast<const __nv_bfloat16*>(table) + int64_t(row) * F, v);
+  else
+    load_row<float, F>(static_cast<const float*>(table) + int64_t(row) * F, v);
+}
+
+// Element i of a float32 or bfloat16 array whose dtype is known only at
+// run time.
+__device__ __forceinline__ float load_any(const void* p, bool bf16, int64_t i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
 // One sample's cell and per-dim weights on one level, and from them the
 // table row and interpolation weight of each of its 2^D corners.
 template <int D>
@@ -68,6 +125,9 @@ struct LevelCorners {
   uint64_t magic;
   uint32_t cell[D];
   float w1[D];
+  // d w1 / dx and d2 w1 / dx2 per dim (kernels GI and GG; G and GB leave
+  // them unused and the compiler drops them).
+  float dw1[D], d2w1[D];
 
   __device__ __forceinline__ LevelCorners(const int32_t* level_params, const float* xb,
                                           int interp)
@@ -83,7 +143,11 @@ struct LevelCorners {
       const float pos = __fadd_rn(__fmul_rn(xb[d], scale), 0.5f);
       const float cf = floorf(pos);
       cell[d] = uint32_t(int(cf));
-      w1[d] = interp_weight(__fsub_rn(pos, cf), interp);
+      const float f = __fsub_rn(pos, cf);
+      w1[d] = interp_weight(f, interp);
+      interp_derivatives(f, interp, dw1[d], d2w1[d]);
+      dw1[d] *= scale;
+      d2w1[d] *= scale * scale;
     }
   }
 
@@ -93,6 +157,52 @@ struct LevelCorners {
     for (int d = 1; d < D; ++d)
       w = __fmul_rn(w, ((c >> d) & 1) ? w1[d] : __fsub_rn(1.0f, w1[d]));
     return w;
+  }
+
+  // Corner c's factor of dim d, and its first and second derivative in x_d.
+  __device__ __forceinline__ float factor(int c, int d) const {
+    return ((c >> d) & 1) ? w1[d] : 1.0f - w1[d];
+  }
+  __device__ __forceinline__ float dfactor(int c, int d) const {
+    return ((c >> d) & 1) ? dw1[d] : -dw1[d];
+  }
+  __device__ __forceinline__ float d2factor(int c, int d) const {
+    return ((c >> d) & 1) ? d2w1[d] : -d2w1[d];
+  }
+
+  // g[d] = d w_c / dx_d: the product rule over the dims.
+  __device__ __forceinline__ void weight_grad(int c, float (&g)[D]) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float p = dfactor(c, d);
+#pragma unroll
+      for (int e = 0; e < D; ++e)
+        if (e != d) p *= factor(c, e);
+      g[d] = p;
+    }
+  }
+
+  // out[e] = sum_d d2 w_c / dx_d dx_e * v[d]: the Hessian of corner c's
+  // weight times v.  The mixed terms d != e are nonzero for Linear too.
+  __device__ __forceinline__ void weight_hess_vec(int c, const float (&v)[D],
+                                                  float (&out)[D]) const {
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+      float s = d2factor(c, e) * v[e];
+#pragma unroll
+      for (int f = 0; f < D; ++f)
+        if (f != e) s *= factor(c, f);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if (d == e) continue;
+        float p = dfactor(c, d) * dfactor(c, e) * v[d];
+#pragma unroll
+        for (int f = 0; f < D; ++f)
+          if (f != d && f != e) p *= factor(c, f);
+        s += p;
+      }
+      out[e] = s;
+    }
   }
 
   __device__ __forceinline__ uint32_t row(int c, const HashConsts& hc) const {
@@ -115,6 +225,14 @@ struct LevelCorners {
     return fastmod(h, magic, size) + offset;
   }
 };
+
+// dst = bf16(src), the one cast of an fp32 gradient buffer to a bf16 table.
+__global__ void __launch_bounds__(kGridThreads)
+cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+                    int64_t n) {
+  const int64_t i = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
+  if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
+}
 
 // Template dispatch over the runtime (D, F) of a launch: calls
 // Launch::template run<D, F>() for D in 1..4 and F in 1..8.

@@ -31,30 +31,12 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "grid_common.cuh"
 #include "kernels.h"
 
 namespace tcnn_tpu_torch {
 namespace {
-
-// The F features of one table row, as fp32.
-template <typename T, int F>
-__device__ __forceinline__ void load_row(const T* __restrict__ p, float (&v)[F]) {
-  constexpr int kBytes = F * int(sizeof(T));
-  if constexpr (kBytes == 4 || kBytes == 8 || kBytes == 16) {
-    using V = std::conditional_t<kBytes == 4, unsigned int,
-                                 std::conditional_t<kBytes == 8, uint2, uint4>>;
-    const V raw = __ldg(reinterpret_cast<const V*>(p));
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int f = 0; f < F; ++f) v[f] = to_f32(e[f]);
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) v[f] = to_f32(p[f]);
-  }
-}
 
 template <typename T, int D, int F>
 __global__ void __launch_bounds__(kGridThreads)

@@ -144,13 +144,6 @@ grid_encode_bwd_kernel(const float* __restrict__ x, const TG* __restrict__ dcols
   }
 }
 
-__global__ void __launch_bounds__(kGridThreads)
-cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
-                    int64_t n) {
-  const int64_t i = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
-  if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
-}
-
 template <typename TG>
 struct BwdLaunch {
   const float* x;

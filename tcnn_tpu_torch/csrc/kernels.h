@@ -75,6 +75,43 @@ cudaError_t fused_mlp_bwd_launch(
     int n_ctas, float* dw, int64_t batch, bool compute_bf16, int act, int out_act,
     bool soa_in, cudaStream_t stream);
 
+// Kernel GI: grid-encode input gradient (csrc/grid_encode_bwd_input.cu).
+//   x, x_stride_b, level_params, hash_factors, coherent_add, interp: as for
+//                grid_encode_fwd_launch
+//   table        flat (n_entries * n_features), float32 or bfloat16 (table_bf16)
+//   dcols        as for grid_encode_bwd_launch, float32 or bfloat16 (dcols_bf16)
+//   dx           (batch, n_dims) float32, contiguous: written, not accumulated
+cudaError_t grid_encode_bwd_input_launch(
+    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
+    const void* dcols, bool dcols_bf16, const int32_t* level_params, float* dx,
+    int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
+    int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add, int interp,
+    cudaStream_t stream);
+
+// Kernel GG: grid-encode second order (csrc/grid_encode_bwd_bwd.cu).
+//   x, table, dcols and the rest: as for grid_encode_bwd_input_launch
+//   ddx          (batch, n_dims) float32, contiguous: the cotangent of GI's dx
+//   d_dcols      (n_levels * n_features, batch) float32 SoA, or null
+//   d_x          (batch, n_dims) float32, or null
+//   rows, g      (n_live * 2^n_dims * batch) int32 and (.., n_features) float32,
+//                n_live the levels marked live, in (live level, corner, sample)
+//                order; both or neither
+cudaError_t grid_encode_bwd_bwd_launch(
+    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
+    const void* dcols, bool dcols_bf16, const float* ddx, const int32_t* level_params,
+    float* d_dcols, float* d_x, int32_t* rows, float* g, int64_t batch, int n_dims,
+    int n_levels, int n_features, int64_t dc_stride_b, int64_t dc_stride_f,
+    const uint32_t hash_factors[4], bool coherent_add, int interp, cudaStream_t stream);
+
+// Kernel RS: row scatter-add (csrc/row_scatter.cu).
+//   idx          (m) int32 rows; rows outside [0, n_rows) are skipped
+//   g            element (i, k) at g[i*g_stride_i + k*g_stride_k], float32
+//   acc          (n_rows * n_features) float32 scratch: zeroed, then accumulated
+//   out          the result: bfloat16 (a cast of acc) or acc itself
+cudaError_t row_scatter_launch(const int32_t* idx, const float* g, int64_t g_stride_i,
+                               int64_t g_stride_k, int64_t m, int n_features, float* acc,
+                               void* out, bool out_bf16, int64_t n_rows, cudaStream_t stream);
+
 // Shared memory one CTA of kernel MB needs (at most 232,448 bytes on sm_90).
 int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers,
                              bool compute_bf16);

@@ -2,7 +2,10 @@
 
 PyTorch counterpart of ``tcnn_tpu/models/encodings/grid.py``.  The
 table is one flat (n_entries·F,) ``nn.Parameter`` named ``grid``, the
-JAX layout, initialised U(±1e-4) (grid.h:1059-1062).
+JAX layout, initialised U(±1e-4) (grid.h:1059-1062).  Gradients flow to
+the table and, where x requires one, to x, and can be differentiated once
+more (``ops/grid_ops.py``: ``GridEncodeFunction``,
+``GridEncodeBackwardFunction``).
 """
 
 from __future__ import annotations

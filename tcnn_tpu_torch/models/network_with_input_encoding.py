@@ -5,7 +5,10 @@ PyTorch counterpart of
 two submodules ``encoding`` and ``network``, which mirror the JAX tree
 {"encoding": ..., "network": ...}.  When the encoding prefers SoA
 output and the network accepts SoA input, the (L·F, B) features flow
-straight from the grid kernel into the MLP kernel with no transpose.
+straight from the grid kernel into the MLP kernel with no transpose, and
+the gradients back the same way: the MLP's input gradient, in the SoA
+layout, is the grid's output gradient, for the table and, where x needs
+one, for x (kernel GI), to second order under ``create_graph``.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``tcnn_tpu/models/networks/fused_mlp.py``.  On a
 CUDA device the whole forward is one launch of kernel M and the whole
 backward one launch of kernel MB (``ops/cuda/fused_mlp.py``,
-``FusedMLPFunction``) at every batch size: the JAX package's batch
+``FusedMLPFunction``; its second order through
+``FusedMLPBackwardFunction``) at every batch size: the JAX package's batch
 threshold for its Pallas kernels was a TPU measurement and is not
 carried over.  With 0 hidden layers the network is the plain single
 matmul under autograd, as in the JAX package.  Widths are restricted to

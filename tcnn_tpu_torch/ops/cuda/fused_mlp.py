@@ -1,6 +1,7 @@
 """Wrappers of kernels M and MB: fused-MLP forward (``csrc/fused_mlp.cu``)
-and backward (``csrc/fused_mlp_bwd.cu``), and ``FusedMLPFunction``, which
-joins them for autograd.
+and backward (``csrc/fused_mlp_bwd.cu``), and ``FusedMLPFunction`` and
+``FusedMLPBackwardFunction``, which join them for autograd, second order
+included.
 
 M replaces ``tcnn_tpu/ops/pallas/fused_mlp.py::_fwd_kernel``, MB
 ``::_bwd_kernel``.  A CUDA tensor launches the kernel; a CPU tensor takes
@@ -11,7 +12,7 @@ against.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -214,32 +215,102 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
 fused_mlp_bwd.launches = 0
 
 
+def fused_mlp_bwd_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
+                            g: torch.Tensor, ct_dx: Optional[torch.Tensor],
+                            ct_dws: Sequence[Optional[torch.Tensor]],
+                            activation: Activation, output_activation: Activation,
+                            compute_dtype: torch.dtype, output_dtype: torch.dtype,
+                            input_soa: bool = False, output_soa: bool = False):
+    """The backward of the MLP backward: given the cotangents of its
+    outputs (dx and each dW; None for none), the gradients of
+    ⟨(dx, dW), (ct_dx, ct_dW)⟩ in x, g and the weights.  Autograd of the
+    autograd of ``fused_mlp_plain``, as the JAX package derives
+    ``_fused_mlp_bwd_op``'s VJP from ``_jnp_mlp_ref``
+    (``tcnn_tpu/ops/pallas/fused_mlp.py:334-347``): products by
+    ``torch.matmul`` outside any kernel.  Returns (d_x, d_g, [d_W]), None
+    where a gradient is zero by construction."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_()
+        gg = g.detach().requires_grad_()
+        ws = [w.detach().requires_grad_() for w in weights]
+        y = fused_mlp_plain(ws, xx, activation, output_activation, compute_dtype,
+                            output_dtype, input_soa, output_soa)
+        first = torch.autograd.grad(y, [xx, *ws], grad_outputs=gg.to(y.dtype),
+                                    create_graph=True)
+        pairs = [(f, c.to(f.dtype)) for f, c in zip(first, (ct_dx, *ct_dws))
+                 if c is not None and f.requires_grad]
+        if not pairs:
+            return None, None, [None] * len(ws)
+        d_x, d_g, *d_ws = torch.autograd.grad(
+            [f for f, _ in pairs], [xx, gg, *ws], grad_outputs=[c for _, c in pairs],
+            allow_unused=True)
+    return d_x, d_g, d_ws
+
+
 class FusedMLPFunction(torch.autograd.Function):
     """The fused MLP with its explicit backward, the counterpart of
     ``_fused_mlp``'s custom VJP (``tcnn_tpu/ops/pallas/fused_mlp.py:228-233,
     :276-284, :353-357``).  It saves the input and the fp32 master weights
     and the backward recomputes the activations, as _bwd_kernel does.  The
     weight gradients come back in fp32, the masters' dtype; dx in x's
-    dtype, computed in fp32 and cast once (:416-420).  Second derivatives
-    arrive with slice 4."""
+    dtype, computed in fp32 and cast once (:416-420).  Under
+    ``create_graph`` the backward is ``FusedMLPBackwardFunction``, so it
+    can be differentiated once more."""
 
     @staticmethod
     def forward(ctx, x, activation, output_activation, compute_dtype,
                 output_dtype, input_soa, output_soa, *weights):
-        ctx.args = (activation, output_activation, compute_dtype, input_soa,
-                    output_soa)
+        ctx.set_materialize_grads(False)   # no gradient in, no kernel launched
+        ctx.args = (activation, output_activation, compute_dtype, output_dtype,
+                    input_soa, output_soa)
         ctx.save_for_backward(x, *weights)
         return fused_mlp_fwd(list(weights), x, activation, output_activation,
                              compute_dtype, output_dtype, input_soa, output_soa)
 
     @staticmethod
     def backward(ctx, dy):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "second derivatives of the fused MLP are ported in slice 4")
+        if dy is None:   # one None per input: x, the six flags, the weights
+            return (None,) * (6 + len(ctx.saved_tensors))
         x, *weights = ctx.saved_tensors
-        act, out_act, cdt, soa_in, soa_out = ctx.args
-        dws, dx = fused_mlp_bwd(weights, x, dy, act, out_act, cdt, soa_in, soa_out)
-        dws = [d.to(w.dtype) for d, w in zip(dws, weights)]
+        act, out_act, cdt, odt, soa_in, soa_out = ctx.args
+        if torch.is_grad_enabled():
+            dx, *dws = FusedMLPBackwardFunction.apply(x, dy, *ctx.args, *weights)
+        else:
+            dws, dx = fused_mlp_bwd(weights, x, dy, act, out_act, cdt, soa_in, soa_out)
+            dws = [d.to(w.dtype) for d, w in zip(dws, weights)]
         return (dx if ctx.needs_input_grad[0] else None,
                 None, None, None, None, None, None, *dws)
+
+
+class FusedMLPBackwardFunction(torch.autograd.Function):
+    """The MLP backward ``(x, g, W) → (dx, dW)`` as a differentiable
+    function, the counterpart of ``_fused_mlp_bwd_op``
+    (``tcnn_tpu/ops/pallas/fused_mlp.py:307-350``).  Forward: kernel MB.
+    Backward: ``fused_mlp_bwd_bwd_plain``, autograd of autograd of the
+    plain chain, which recomputes the activations: like
+    ``FusedMLPFunction`` it saves only x, g and the weights (x is the
+    forward's own tensor, not a second copy).  A third derivative raises
+    ``NotImplementedError`` (ROADMAP.md)."""
+
+    @staticmethod
+    def forward(ctx, x, g, activation, output_activation, compute_dtype,
+                output_dtype, input_soa, output_soa, *weights):
+        ctx.set_materialize_grads(False)
+        ctx.args = (activation, output_activation, compute_dtype, output_dtype,
+                    input_soa, output_soa)
+        ctx.save_for_backward(x, g, *weights)
+        dws, dx = fused_mlp_bwd(list(weights), x, g, activation, output_activation,
+                                compute_dtype, input_soa, output_soa)
+        return (dx, *[d.to(w.dtype) for d, w in zip(dws, weights)])
+
+    @staticmethod
+    def backward(ctx, ct_dx, *ct_dws):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "third derivatives of the fused MLP are not ported (ROADMAP.md Queue 1)")
+        x, g, *weights = ctx.saved_tensors
+        act, out_act, cdt, odt, soa_in, soa_out = ctx.args
+        d_x, d_g, d_ws = fused_mlp_bwd_bwd_plain(weights, x, g, ct_dx, ct_dws, act,
+                                                 out_act, cdt, odt, soa_in, soa_out)
+        return (d_x, d_g.to(g.dtype) if d_g is not None else None,
+                None, None, None, None, None, None, *d_ws)

@@ -1,5 +1,7 @@
 """Wrappers of kernels G and GB: grid-encode forward
-(``csrc/grid_encode.cu``) and backward (``csrc/grid_encode_bwd.cu``).
+(``csrc/grid_encode.cu``) and backward (``csrc/grid_encode_bwd.cu``), and
+of kernels GI, the input gradient (``csrc/grid_encode_bwd_input.cu``), and
+GG, second order (``csrc/grid_encode_bwd_bwd.cu``).
 
 G replaces ``tcnn_tpu/ops/pallas/grid_matmul.py::_gather_kernel`` and
 ``::_gather_kernel_xor`` (and the index build in front of them); GB
@@ -9,15 +11,18 @@ gradient of the levels the JAX package routes to its matmul kernels, and
 the same gradient of the levels it routes to its serial kernels.  Every
 level of every grid goes to G and GB: the JAX package's per-level routing
 (``grid_ops.py::_route_levels``, ``_serial_level_groups``) weighed TPU
-costs and is not carried over.  A CUDA tensor launches the kernel; a CPU
-tensor takes ``grid_encode_plain`` / ``grid_encode_bwd_plain``, the same
-functions in plain PyTorch, which the CPU tests and ``chip_smoke.py``
-hold the kernels against.
+costs and is not carried over.  GI and GG have no TPU kernel: the JAX
+package forms both in jnp (``_finish_interp_bwd`` and autodiff of
+``_build_indices_weights``).  A CUDA tensor launches the kernel; a CPU
+tensor takes ``grid_encode_plain``, ``grid_encode_bwd_plain``,
+``grid_encode_bwd_input_plain`` or ``grid_encode_bwd_bwd_plain``, the same
+functions in plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold
+the kernels against.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,8 +57,8 @@ def grid_encode_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
 def _hash_args(spec: grid_ops.GridSpec):
     if spec.hash_type == HashType.RNG:
         raise NotImplementedError(
-            "the Rng (pcg32) grid hash is ported with the grid options of "
-            "slice 4")
+            "the Rng (pcg32) grid hash is ported with the grid options "
+            "(ROADMAP.md Queue 1 item 7, slice 5)")
     coherent_add = spec.hash_type == HashType.COHERENT_ADD
     factors = grid_ops.hash_factors(
         HashType.COHERENT_PRIME if coherent_add else spec.hash_type,
@@ -77,11 +82,11 @@ def _consts(spec: grid_ops.GridSpec, live: Sequence[int],
 
 def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
                 x: torch.Tensor) -> None:
-    """What the kernels G and GB take; raises on anything else."""
+    """What the grid kernels take; raises on anything else."""
     if spec.stochastic_interpolation:
         raise NotImplementedError(
-            "stochastic interpolation is ported with the grid options of "
-            "slice 4")
+            "stochastic interpolation is ported with the grid options "
+            "(ROADMAP.md Queue 1 item 7, slice 5)")
     D, F = spec.n_dims, spec.n_features_per_level
     if not 1 <= D <= 4 or not 1 <= F <= 8:
         raise ValueError(f"{name}: the kernel covers D <= 4 and F <= 8, "
@@ -200,3 +205,170 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
 
 
 grid_encode_bwd.launches = 0
+
+
+def _check_dcols(name: str, spec: grid_ops.GridSpec, x: torch.Tensor,
+                 dcols: torch.Tensor) -> None:
+    L, F, B = spec.n_levels, spec.n_features_per_level, x.shape[0]
+    if dcols.shape != (L * F, B) or dcols.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dcols must be float32 or bfloat16 ({L * F}, {B}), "
+                         f"got {dcols.dtype} {tuple(dcols.shape)}")
+    require_cuda_tensors(name, x, dcols)
+
+
+def _live_dcols(spec: grid_ops.GridSpec, dcols: torch.Tensor,
+                live: Sequence[int]) -> torch.Tensor:
+    """The live levels' rows of the (L·F, B) dcols, in fp32, as (L_live, F, B)."""
+    F = spec.n_features_per_level
+    rows = torch.tensor([l * F + f for l in live for f in range(F)], device=dcols.device)
+    return dcols.index_select(0, rows).float().reshape(len(live), F, -1)
+
+
+def _corner_features(spec: grid_ops.GridSpec, flat: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """(L, C, B, F) fp32 table rows at the corners ``idx`` (L, C·B)."""
+    F = spec.n_features_per_level
+    L = idx.shape[0]
+    return flat.reshape(-1, F)[idx.reshape(-1)].float().reshape(L, 1 << spec.n_dims, -1, F)
+
+
+def grid_encode_bwd_input_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
+                                x: torch.Tensor, dcols: torch.Tensor,
+                                live: Sequence[int]) -> torch.Tensor:
+    """Plain PyTorch version of kernel GI: dx[b, d] = Σ_l Σ_c ∂w_c/∂x_d ·
+    Σ_k table[row_c, k] · dcols[l·F+k, b], in fp32 (the JAX package's
+    ``dws`` of ``_finish_interp_bwd``, grid_ops.py:1104-1119, carried
+    through ``_build_indices_weights``' derivative).  Returns (B, D)
+    float32; dead levels add nothing."""
+    B, D = x.shape
+    dx = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+    if live and B:
+        idx, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1)
+        feats = _corner_features(spec, flat, idx)                     # (L, C, B, F)
+        dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]  # (L, 1, B, F)
+        val = (feats * dy).sum(-1)                                    # (L, C, B)
+        dx = (dws.reshape(*val.shape, D) * val[..., None]).sum((0, 1))
+    return dx
+
+
+def grid_encode_bwd_input(spec: grid_ops.GridSpec, flat: torch.Tensor,
+                          x: torch.Tensor, dcols: torch.Tensor,
+                          live: Sequence[int]) -> torch.Tensor:
+    """(B, D) float32 input gradient of the grid encoding (kernel GI).
+
+    ``flat`` is the (n_entries·F,) table, float32 or bfloat16, ``x`` the
+    (B, D) float32 input (unit stride across D, any row stride), ``dcols``
+    the (L·F, B) SoA output gradient, float32 or bfloat16, any strides.
+    """
+    if x.device.type == "cpu":
+        return grid_encode_bwd_input_plain(spec, flat, x, dcols, live)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_bwd_input: unsupported device {x.device}")
+    name = "grid_encode_bwd_input"
+    _check_args(name, spec, flat, x)
+    _check_dcols(name, spec, x, dcols)
+    level_consts = _consts(spec, live, x.device)
+    factors, coherent_add = _hash_args(spec)
+    B, D = x.shape
+    dx = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return dx
+    kernels().grid_encode_bwd_input(x, _x_row_stride(x), flat, dcols, level_consts, dx,
+                                    D, spec.n_features_per_level, dcols.stride(1),
+                                    dcols.stride(0), factors, coherent_add,
+                                    _INTERP_CODE[spec.interpolation])
+    grid_encode_bwd_input.launches += 1
+    return dx
+
+
+grid_encode_bwd_input.launches = 0
+
+
+class BwdBwd(NamedTuple):
+    """The outputs of kernel GG (or its plain version); None where not asked for."""
+    d_dcols: Optional[torch.Tensor]   # (L·F, B) float32 SoA, zero rows for dead levels
+    d_x: Optional[torch.Tensor]       # (B, D) float32
+    rows: Optional[torch.Tensor]      # (L_live·C·B,) int32 table rows
+    g: Optional[torch.Tensor]         # (L_live·C·B, F) float32 updates of those rows
+
+
+def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
+                              x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
+                              live: Sequence[int], need_dcols: bool = True,
+                              need_x: bool = True, need_rows: bool = True) -> BwdBwd:
+    """Plain PyTorch version of kernel GG, the backward of the input
+    gradient given its cotangent ``ddx`` (B, D).  With w'_c = Σ_d
+    ∂w_c/∂x_d · ddx_d per (level, corner, sample):
+      d_dcols[l·F+k, b] = Σ_c w'_c · table[row_c, k];
+      d_x[b, e] = Σ_{l,c,k} Σ_d ∂²w_c/∂x_d∂x_e · ddx_d · table[row_c, k] · dcols[l·F+k, b];
+      rows, g: the corner rows and g = w'_c · dcols[l·F:(l+1)·F, b], whose
+      scatter-add (kernel RS) is the table gradient.
+    All in fp32; (rows, g) in (live level, corner, sample) order."""
+    B, D = x.shape
+    F, C, L = spec.n_features_per_level, 1 << spec.n_dims, len(live)
+    dev = x.device
+    d_dcols = (torch.zeros((spec.n_levels * F, B), dtype=torch.float32, device=dev)
+               if need_dcols else None)
+    d_x = torch.zeros((B, D), dtype=torch.float32, device=dev) if need_x else None
+    rows = torch.zeros(L * C * B, dtype=torch.int32, device=dev) if need_rows else None
+    g = torch.zeros((L * C * B, F), dtype=torch.float32, device=dev) if need_rows else None
+    if not (live and B):
+        return BwdBwd(d_dcols, d_x, rows, g)
+    idx, _, dws, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2)
+    v = ddx.float()
+    wp = (dws * v[None]).sum(-1).reshape(L, C, B)               # w'_c
+    feats = _corner_features(spec, flat, idx)                    # (L, C, B, F)
+    dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]  # (L, 1, B, F)
+    if need_dcols:
+        live_rows = torch.tensor([l * F + f for l in live for f in range(F)], device=dev)
+        dd = (wp[..., None] * feats).sum(1)                      # (L, B, F)
+        d_dcols.index_copy_(0, live_rows, dd.permute(0, 2, 1).reshape(L * F, B))
+    if need_x:
+        val = (feats * dy).sum(-1)                               # (L, C, B)
+        hv = (d2ws * v[None, :, :, None]).sum(-2).reshape(L, C, B, D)
+        d_x = (hv * val[..., None]).sum((0, 1))
+    if need_rows:
+        rows = idx.reshape(-1).to(torch.int32)
+        g = (wp[..., None] * dy).reshape(L * C * B, F)
+    return BwdBwd(d_dcols, d_x, rows, g)
+
+
+def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tensor,
+                        dcols: torch.Tensor, ddx: torch.Tensor, live: Sequence[int],
+                        need_dcols: bool = True, need_x: bool = True,
+                        need_rows: bool = True) -> BwdBwd:
+    """Kernel GG: see ``grid_encode_bwd_bwd_plain``.  ``flat``, ``x`` and
+    ``dcols`` as for ``grid_encode_bwd_input``; ``ddx`` (B, D) float32."""
+    if x.device.type == "cpu":
+        return grid_encode_bwd_bwd_plain(spec, flat, x, dcols, ddx, live, need_dcols,
+                                         need_x, need_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_bwd_bwd: unsupported device {x.device}")
+    name = "grid_encode_bwd_bwd"
+    _check_args(name, spec, flat, x)
+    _check_dcols(name, spec, x, dcols)
+    B, D = x.shape
+    if ddx.shape != (B, D):
+        raise ValueError(f"{name}: ddx must be ({B}, {D}), got {tuple(ddx.shape)}")
+    ddx = ddx.float().contiguous()
+    require_cuda_tensors(name, x, ddx)
+    level_consts = _consts(spec, live, x.device)
+    factors, coherent_add = _hash_args(spec)
+    F, C, L = spec.n_features_per_level, 1 << D, len(live)
+    dev = x.device
+    out = BwdBwd(
+        torch.empty((spec.n_levels * F, B), dtype=torch.float32, device=dev)
+        if need_dcols else None,
+        torch.empty((B, D), dtype=torch.float32, device=dev) if need_x else None,
+        torch.empty(L * C * B, dtype=torch.int32, device=dev) if need_rows else None,
+        torch.empty((L * C * B, F), dtype=torch.float32, device=dev) if need_rows else None)
+    if B == 0:
+        return out
+    kernels().grid_encode_bwd_bwd(x, _x_row_stride(x), flat, dcols, ddx, level_consts,
+                                  *out, D, F, dcols.stride(1), dcols.stride(0), factors,
+                                  coherent_add, _INTERP_CODE[spec.interpolation])
+    grid_encode_bwd_bwd.launches += 1
+    return out
+
+
+grid_encode_bwd_bwd.launches = 0

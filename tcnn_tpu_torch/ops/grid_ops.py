@@ -68,8 +68,8 @@ def _hash_coords(hash_type: HashType,
     (grid_hash, common_device.h:678-691)."""
     if hash_type == HashType.RNG:
         raise NotImplementedError(
-            "the Rng (pcg32) grid hash is ported with the grid options of "
-            "slice 4")
+            "the Rng (pcg32) grid hash is ported with the grid options "
+            "(ROADMAP.md Queue 1 item 7, slice 5)")
     if hash_type == HashType.COHERENT_ADD:
         # dim 0 ADDED after the XOR: hash(c0+1, rest) == hash(c0, rest)+1
         # (mod 2^32), so dim-0 corner pairs are table-adjacent.
@@ -208,6 +208,16 @@ def _interp_weight(f: torch.Tensor, interp: InterpolationType) -> torch.Tensor:
     raise ValueError(f"bad interpolation {interp}")
 
 
+def _interp_derivatives(f: torch.Tensor, interp: InterpolationType):
+    """First and second derivative of ``_interp_weight`` in f: Linear 1
+    and 0, Smoothstep 6f(1 − f) and 6 − 12f, Nearest 0 and 0."""
+    if interp == InterpolationType.LINEAR:
+        return torch.ones_like(f), torch.zeros_like(f)
+    if interp == InterpolationType.SMOOTHSTEP:
+        return 6.0 * f * (1.0 - f), 6.0 - 12.0 * f
+    return torch.zeros_like(f), torch.zeros_like(f)
+
+
 def live_levels(spec: GridSpec, max_level: Optional[int]) -> List[int]:
     """Levels below the static ``max_level`` cutoff (grid.h:69-92)."""
     return [li for li in range(spec.n_levels)
@@ -215,18 +225,26 @@ def live_levels(spec: GridSpec, max_level: Optional[int]) -> List[int]:
 
 
 def build_indices_weights(spec: GridSpec, x: torch.Tensor,
-                          live: Sequence[int]):
+                          live: Sequence[int], order: int = 0):
     """Corner row indices and interpolation weights of the live levels.
 
     Same layout as the JAX package's ``_build_indices_weights``:
       idx: (L, C·B) int64 whole-table rows (level offsets folded in),
            corner-major within a level.
       ws:  (L·C, B) float32 corner weights, row l·C + c.
+    With ``order`` 1 or 2 it also returns the weights' derivatives in x:
+      dws:  (L·C, B, D) ∂w/∂x_d;
+      d2ws: (L·C, B, D, D) ∂²w/∂x_d∂x_e (order 2).
+    They come from the closed-form per-dim derivatives (floor has zero
+    derivative, so d fract/dx is the level's scale) by the product rule
+    over the dims, as kernels GI and GG compute them, not from autograd;
+    JAX differentiates ``f*f*(3 − 2f)`` by autodiff, which rounds
+    differently.
     """
     if spec.stochastic_interpolation:
         raise NotImplementedError(
-            "stochastic interpolation is ported with the grid options of "
-            "slice 4")
+            "stochastic interpolation is ported with the grid options "
+            "(ROADMAP.md Queue 1 item 7, slice 5)")
     B = x.shape[0]
     D = spec.n_dims
     C = 1 << D
@@ -236,7 +254,7 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
     scales = torch.tensor([lv.scale for lv in levels], dtype=torch.float32,
                           device=x.device).reshape(L, 1)
 
-    cells, w1s = [], []
+    cells, w1s, dw1s, d2w1s = [], [], [], []
     for d in range(D):
         # Two roundings, like JAX's separate multiply and add: a fused
         # multiply-add would move samples near a cell border.
@@ -245,14 +263,36 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
         # (uint32)(int)floorf: negatives wrap exactly like CUDA.
         cells.append(cf.to(torch.int64) & _U32)
         w1s.append(_interp_weight(pos - cf, spec.interpolation))
+        if order:
+            d1, d2 = _interp_derivatives(pos - cf, spec.interpolation)
+            dw1s.append(d1 * scales)
+            d2w1s.append(d2 * scales * scales)
 
-    ws = []
-    for c in range(C):
-        w = w1s[0] if bits[c, 0] else 1.0 - w1s[0]
-        for d in range(1, D):
-            w = w * (w1s[d] if bits[c, d] else 1.0 - w1s[d])
-        ws.append(w)
-    ws = torch.stack(ws, dim=1).reshape(L * C, B)
+    def factor(c, d):   # corner c's factor of dim d, (L, B)
+        return w1s[d] if bits[c, d] else 1.0 - w1s[d]
+
+    def dfactor(c, d, k):   # its k-th derivative in x_d
+        df = (dw1s, d2w1s)[k - 1][d]
+        return df if bits[c, d] else -df
+
+    def product(c, derivs):   # Π_d of corner c's factors, dim d derived derivs[d] times
+        w = None
+        for d in range(D):
+            f = dfactor(c, d, derivs[d]) if derivs[d] else factor(c, d)
+            w = f if w is None else w * f
+        return w
+
+    ws = torch.stack([product(c, [0] * D) for c in range(C)], dim=1).reshape(L * C, B)
+    out = [ws]
+    if order >= 1:
+        out.append(torch.stack(
+            [torch.stack([product(c, [int(d == e) for d in range(D)]) for e in range(D)], -1)
+             for c in range(C)], dim=1).reshape(L * C, B, D))
+    if order >= 2:
+        out.append(torch.stack(
+            [torch.stack([torch.stack([product(c, [int(d == e) + int(d == f) for d in range(D)])
+                                       for f in range(D)], -1) for e in range(D)], -2)
+             for c in range(C)], dim=1).reshape(L * C, B, D, D))
 
     rows = []
     for p, lv in enumerate(levels):
@@ -270,7 +310,7 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
             corner_idx.append(h % lv.size + lv.offset)
         rows.append(torch.stack(corner_idx, dim=0))   # (C, B)
     idx = torch.stack(rows, dim=0).reshape(L, C * B)
-    return idx, ws
+    return (idx, *out)
 
 
 def interpolate_ref(flat: torch.Tensor, idx: torch.Tensor, ws: torch.Tensor,
@@ -326,43 +366,116 @@ def check_table_size(spec: GridSpec, flat: torch.Tensor) -> None:
 
 
 class GridEncodeFunction(torch.autograd.Function):
-    """The grid encoding with its table gradient, the counterpart of
+    """The grid encoding with its gradients, the counterpart of
     ``_grid_interpolate``'s custom VJP (``tcnn_tpu/ops/grid_ops.py:917-1122``).
 
     Forward: kernel G (CUDA) or its plain version (CPU).  It saves ``x``
     and the table, not the (L·C, B) corner indices: the backward
-    recomputes them, as the forward kernel does.  Backward: kernel GB or
-    its plain version, which accumulate in fp32 and return the gradient in
-    the table's dtype, cast once (grid_ops.py:1099-1102).  Autograd's
-    backward of ``GridEncoding``'s ``table.to(bfloat16)`` then brings a
-    bf16 gradient to the fp32 master, as in JAX; autograd would instead
-    scatter-add the bf16 gradient of ``table2d[idx]`` in bf16.  Dead
-    levels (static ``max_level``) get zero gradient.  Input gradients
-    (JAX's ``dws``) and second derivatives arrive with slice 4.
+    recomputes them, as the forward kernel does.  Backward: kernel GB for
+    the table gradient, which accumulates in fp32 and returns the gradient
+    in the table's dtype, cast once (grid_ops.py:1099-1102), and kernel GI
+    for the input gradient (JAX's ``dws`` carried to x), only when x needs
+    one.  Autograd's backward of ``GridEncoding``'s ``table.to(bfloat16)``
+    then brings a bf16 gradient to the fp32 master, as in JAX; autograd
+    would instead scatter-add the bf16 gradient of ``table2d[idx]`` in
+    bf16.  Dead levels (static ``max_level``) get zero gradient.  Under
+    ``create_graph`` the backward is ``GridEncodeBackwardFunction``, so the
+    gradients can be differentiated once more.
     """
 
     @staticmethod
     def forward(ctx, flat, x, spec, live, soa):
         from .cuda.grid_encode import grid_encode_fwd
 
+        ctx.set_materialize_grads(False)   # no gradient in, no kernel launched
         ctx.spec, ctx.live, ctx.soa = spec, live, soa
         ctx.save_for_backward(flat, x)
         return grid_encode_fwd(spec, flat, x, live, soa=soa)
 
     @staticmethod
     def backward(ctx, dout):
-        from .cuda.grid_encode import grid_encode_bwd
+        from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
+
+        if dout is None:
+            return None, None, None, None, None
+        flat, x = ctx.saved_tensors
+        dcols = dout if ctx.soa else dout.t()
+        need_table, need_x = ctx.needs_input_grad[:2]
+        if torch.is_grad_enabled():
+            dflat, dx = GridEncodeBackwardFunction.apply(flat, x, dcols, ctx.spec,
+                                                         ctx.live, need_table, need_x)
+        else:
+            dflat = (grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live)
+                     if need_table else None)
+            dx = (grid_encode_bwd_input(ctx.spec, flat, x, dcols, ctx.live)
+                  if need_x else None)
+        return dflat, dx, None, None, None
+
+
+class GridEncodeBackwardFunction(torch.autograd.Function):
+    """The grid's first-order backward as a differentiable function,
+    ``(flat, x, dcols) → (dflat, dx)``: the reference bindings' two-Function
+    pattern (SURVEY.md §3.4, modules.py:107-160).
+
+    Forward: kernel GB for dflat and kernel GI for dx, each only where
+    asked.  Backward, from the cotangents (ct_dflat, ct_dx), every block
+    JAX's autodiff gives:
+      * ct_dx through kernel GG (d dcols, d x) and kernel RS, the
+        scatter-add of GG's (rows, g): the table gradient of the input
+        gradient (the transpose of JAX's corner re-gather,
+        grid_ops.py:1110-1111);
+      * ct_dflat through kernel G with ct_dflat as the table (d dcols) and
+        kernel GI with ct_dflat as the table (d x): ``_scatter_weighted_bwd``'s
+        math (scatter.py:528-550).
+    dflat does not depend on the table.  A third derivative raises
+    ``NotImplementedError`` (ROADMAP.md).
+    """
+
+    @staticmethod
+    def forward(ctx, flat, x, dcols, spec, live, need_table, need_x):
+        from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
+
+        ctx.set_materialize_grads(False)
+        ctx.spec, ctx.live = spec, live
+        ctx.save_for_backward(flat, x, dcols)
+        dflat = grid_encode_bwd(spec, flat, x, dcols, live) if need_table else None
+        dx = grid_encode_bwd_input(spec, flat, x, dcols, live) if need_x else None
+        return dflat, dx
+
+    @staticmethod
+    def backward(ctx, ct_dflat, ct_dx):
+        from .cuda.grid_encode import (grid_encode_bwd_bwd, grid_encode_bwd_input,
+                                       grid_encode_fwd)
+        from .cuda.scatter import row_scatter_add
 
         if torch.is_grad_enabled():
             raise NotImplementedError(
-                "second derivatives of the grid encoding "
-                "(backward_backward_input) are ported in slice 4")
-        flat, x = ctx.saved_tensors
-        dflat = None
-        if ctx.needs_input_grad[0]:
-            dcols = dout if ctx.soa else dout.t()
-            dflat = grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live)
-        return dflat, None, None, None, None
+                "third derivatives of the grid encoding are not ported "
+                "(ROADMAP.md Queue 1)")
+        flat, x, dcols = ctx.saved_tensors
+        spec, live = ctx.spec, ctx.live
+        need_table, need_x, need_dcols = ctx.needs_input_grad[:3]
+        d_flat = d_x = d_dcols = None
+        if ct_dx is not None:
+            gg = grid_encode_bwd_bwd(spec, flat, x, dcols, ct_dx, live,
+                                     need_dcols=need_dcols, need_x=need_x,
+                                     need_rows=need_table)
+            d_dcols, d_x = gg.d_dcols, gg.d_x
+            if need_table:
+                d_flat = row_scatter_add(gg.rows, gg.g, spec.n_entries, flat.dtype)
+        if ct_dflat is not None:
+            u = ct_dflat.contiguous()
+            if u.data_ptr() % 16:   # the grid kernels read 16-byte aligned tables
+                u = u.clone()
+            if need_dcols:
+                du = grid_encode_fwd(spec, u, x, live, soa=True).float()
+                d_dcols = du if d_dcols is None else d_dcols + du
+            if need_x:
+                du = grid_encode_bwd_input(spec, u, x, dcols, live)
+                d_x = du if d_x is None else d_x + du
+        if d_dcols is not None:
+            d_dcols = d_dcols.to(dcols.dtype)
+        return d_flat, d_x, d_dcols, None, None, None, None
 
 
 def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
@@ -374,16 +487,13 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
     emit zeros.  Returns (B, L·F) features, or (L·F, B) with ``soa``,
     in the table's dtype (JAX casts the columns to ``table.dtype``).
 
-    A CUDA tensor goes through the grid-encode kernels, forward and
-    backward; a CPU tensor through their plain versions.  The table
-    gradient is ported; an input gradient (``x.requires_grad``) raises.
+    A CUDA tensor goes through the grid kernels, forward, backward and
+    second order; a CPU tensor through their plain versions.  Gradients
+    flow to the table and, where x requires one, to x; both can be
+    differentiated once more (``create_graph``).
     """
     if x.ndim != 2 or x.shape[1] != spec.n_dims:
         raise ValueError(f"expected (B, {spec.n_dims}) input, got {tuple(x.shape)}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "input gradients of the grid encoding (JAX's dws) are ported "
-            "in slice 4")
     flat = table.reshape(-1)
     check_table_size(spec, flat)
     return GridEncodeFunction.apply(flat, x, spec,

@@ -1,8 +1,10 @@
 """The plain path of a model: its forward and one training step's gradients
 through the plain PyTorch versions of kernels G, M, MB and GB, on the
-tensors the model holds.  ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
-hold the kernel path (``model.trainer``) against it on the card; on the
-CPU the wrappers take these same plain versions.
+tensors the model holds, and the SDF sample's eikonal step through those
+and the plain versions of GI, GG and RS (``plain_sdf_loss_and_grads``).
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernel path
+(``model.trainer``, ``samples/fit_sdf_eikonal.py``) against it on the
+card; on the CPU the wrappers take these same plain versions.
 
 Handles a grid alone (SoA features, config_hash) and a concatenating
 Composite of grids and parameter-free encodings (AoS features in the
@@ -20,8 +22,12 @@ import torch
 
 from ..common import Activation
 from ..ops.activations import activation_derivative
-from ..ops.cuda.fused_mlp import fused_mlp_bwd_plain, fused_mlp_plain
-from ..ops.cuda.grid_encode import grid_encode_bwd_plain, grid_encode_plain
+from ..ops.cuda.fused_mlp import (fused_mlp_bwd_bwd_plain, fused_mlp_bwd_plain,
+                                  fused_mlp_plain)
+from ..ops.cuda.grid_encode import (grid_encode_bwd_bwd_plain, grid_encode_bwd_input_plain,
+                                    grid_encode_bwd_plain, grid_encode_plain)
+from ..ops.cuda.scatter import row_scatter_add_plain
+from ..ops.grid_ops import live_levels
 
 
 def grid_parts(model, x: torch.Tensor) -> List[tuple]:
@@ -123,10 +129,80 @@ def plain_training_step(model, x: torch.Tensor, target: torch.Tensor) -> torch.T
     return loss
 
 
+def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
+                             table_scale: bool = False, mlp_bwd=fused_mlp_bwd_plain):
+    """The SDF sample's loss, mean f(x_surf)² + 0.1 · the eikonal loss of
+    ∇x f(x_vol), and its gradients by parameter name, for ``net`` a grid
+    alone feeding a fused MLP (``samples/fit_sdf_eikonal.py``).  Each
+    kernel of the step is replaced by its plain version, in the order the
+    kernel path runs them: the surface term through G, M, MB and GB; the
+    input gradient through G, MB and GI; its backward through GG, RS, MB's
+    second order and GB.  With ``table_scale`` it also returns S, per
+    table entry the sum of the magnitudes of the terms its gradient sums
+    (the scale of that sum's rounding in another order).  ``mlp_bwd`` is
+    MB's plain version, called for the surface term, then for x_vol; a
+    caller may substitute rows that a switched ReLU explains."""
+    from ..samples.fit_sdf_eikonal import EIKONAL_WEIGHT, eikonal_loss
+
+    enc, mlp, pol = net.encoding, net.network, net.policy
+    spec, cdt, odt = enc.spec, pol.compute_dtype, pol.output_dtype
+    live = live_levels(spec, enc.max_level)
+    table = enc.grid.detach().to(cdt)
+    ws = [w.detach() for w in mlp.layers]
+    act, out_act = mlp.activation, mlp.output_activation
+    B = x_surf.shape[0]
+
+    def features(x):
+        return grid_encode_plain(spec, table, x, live, soa=True).to(cdt)
+
+    def output_grad(y):   # a gradient in column 0 of the (B, D_out) output
+        dy = torch.zeros_like(y)
+        dy[:, 0] = y[:, 0]
+        return dy
+
+    # the surface term: G, M, MB, GB
+    fs = features(x_surf)
+    ys = fused_mlp_plain(ws, fs, act, out_act, cdt, odt, True, False).float()
+    surf = torch.mean(ys[:, 0] ** 2)
+    dws, dfs = mlp_bwd(ws, fs, output_grad(ys) * (2.0 / B), act, out_act, cdt, True, False)
+    dtable = grid_encode_bwd_plain(spec, table, x_surf, dfs, live).float()
+    scale = (grid_encode_bwd_plain(spec, table, x_surf, dfs.abs(), live).float()
+             if table_scale else None)
+    # the input gradient at x_vol: G, MB, GI
+    fv = features(x_vol)
+    ones = output_grad(torch.ones((B, mlp.n_output_dims), device=x_vol.device))
+    _, dfv = mlp_bwd(ws, fv, ones, act, out_act, cdt, True, False)
+    gx = grid_encode_bwd_input_plain(spec, table, x_vol, dfv, live).requires_grad_()
+    with torch.enable_grad():
+        eik = eikonal_loss(gx)
+        (ddx,) = torch.autograd.grad(EIKONAL_WEIGHT * eik, gx)
+    # its backward: GG and RS (the table), MB's second order (the
+    # weights and the features), GB (the table again, unless the features'
+    # gradient vanishes: it does for ReLU layers, piecewise linear in x)
+    bb = grid_encode_bwd_bwd_plain(spec, table, x_vol, dfv, ddx, live, need_x=False)
+    dtable = dtable + row_scatter_add_plain(bb.rows, bb.g, spec.n_entries)
+    if table_scale:
+        scale = scale + row_scatter_add_plain(bb.rows, bb.g.abs(), spec.n_entries)
+    d_fv, _, dws2 = fused_mlp_bwd_bwd_plain(ws, fv, ones, bb.d_dcols.to(dfv.dtype),
+                                            [None] * len(ws), act, out_act, cdt, odt,
+                                            True, False)
+    if d_fv is not None:
+        dtable = dtable + grid_encode_bwd_plain(spec, table, x_vol, d_fv, live).float()
+        if table_scale:
+            scale = scale + grid_encode_bwd_plain(spec, table, x_vol, d_fv.abs(), live).float()
+    grads = {"encoding.grid": dtable}
+    grads.update({f"network.layers.{i}": a + b for i, (a, b) in enumerate(zip(dws, dws2))})
+    loss = (surf + EIKONAL_WEIGHT * eik).detach()
+    return (loss, grads, scale) if table_scale else (loss, grads)
+
+
 # Flipped ReLUs may lie this far from 0, relative to Σ|h·w| of their
 # pre-activation: one bf16 ulp of the terms' magnitude, as far as z moves
-# when each input of its layer rounds to its other bf16 neighbour.
+# when each input of its layer rounds to its other bf16 neighbour.  In
+# fp32 compute, 2^-16: a sum of 64 fp32 products in another order moves z
+# by up to 64·2^-24 = 2^-18 of Σ|h·w|, with a factor 4 of margin.
 FLIP_NEAR = 2.0 ** -7
+FLIP_NEAR_F32 = 2.0 ** -16
 FLIP_CANDIDATES = 6
 
 
@@ -144,7 +220,8 @@ def relu_flip_rows(weights: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Te
     after it by less than their rounding.  A row is explained when some
     variant lies within ``tol`` of ``got_rows`` (the other side's rows,
     (len(rows), D_in)) in every entry, and the sample has a pre-activation
-    within ``FLIP_NEAR`` of 0 (by |z| / Σ|h·w|), each flipped one included.
+    near 0 (by |z| / Σ|h·w|: within ``FLIP_NEAR`` for a bf16
+    ``compute_dtype``, ``FLIP_NEAR_F32`` for fp32), each flipped one included.
     The variant with nothing flipped can match where the full batch's
     plain row does not: a product over fewer rows may sum in another
     order, and that alone moves such a pre-activation across 0.
@@ -154,6 +231,7 @@ def relu_flip_rows(weights: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Te
     pre-activations (n, 2), NaN where none, and of the pre-activation
     nearest 0 (n,))."""
     cdt, n = compute_dtype, rows.numel()
+    near = FLIP_NEAR if cdt == torch.bfloat16 else FLIP_NEAR_F32
     ws = [w.to(cdt).float() for w in weights]
     h = (x.t() if input_soa else x)[rows].to(cdt).float()
     gg = (g.t() if output_soa else g)[rows].float()
@@ -169,11 +247,11 @@ def relu_flip_rows(weights: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Te
                        for c in combinations(range(FLIP_CANDIDATES), k)]
     masks = torch.cat([(z > 0).float() for z in zs], dim=1)        # (n, L·W)
     flips = torch.zeros((len(variants), n, masks.shape[1]), device=masks.device)
-    ok_near = (near_val[:, 0] <= FLIP_NEAR)[None].repeat(len(variants), 1)
+    ok_near = (near_val[:, 0] <= near)[None].repeat(len(variants), 1)
     for v, cand in enumerate(variants):
         for c in cand:
             flips[v].scatter_(1, near_idx[:, c:c + 1], 1.0)
-            ok_near[v] &= near_val[:, c] <= FLIP_NEAR
+            ok_near[v] &= near_val[:, c] <= near
     m = (masks[None] - flips).abs()                                # (V, n, L·W)
     dz = (gg * activation_derivative(z_out, output_activation)).to(cdt).float()
     dz = dz[None].expand(len(variants), -1, -1)

@@ -26,6 +26,16 @@ Backward kernels:
     plain path's; the graph loop's losses within 1e-3 of eager steps'.
     The same for config_btf (slice 3), whose grid reads a strided column
     slice of its (B, 6) input in place.
+
+Second order (slice 4):
+  * grid input gradient (GI) and second order (GG): each output within
+    1e-5 of its largest magnitude (fp32 sums over corners and levels in
+    another order; for bf16 tables both read the same bf16 values);
+  * row scatter-add (RS): per entry within 2^-11 of S = Σ|g| over its
+    updates (fp32 atomics in any order), plus one bf16 ulp for bf16 output;
+  * the SDF sample's eikonal step: the table gradient per entry within
+    2^-11 of S = Σ|terms| (GB's and RS's atomics), the weights' gradients
+    within 1e-4 of their largest magnitude, of the plain eikonal step's.
 """
 
 import numpy as np
@@ -40,10 +50,16 @@ from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd,
                                                fused_mlp_bwd_plain,
                                                fused_mlp_fwd, fused_mlp_plain)
 from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd,
+                                                 grid_encode_bwd_bwd,
+                                                 grid_encode_bwd_bwd_plain,
+                                                 grid_encode_bwd_input,
+                                                 grid_encode_bwd_input_plain,
                                                  grid_encode_bwd_plain,
                                                  grid_encode_fwd,
                                                  grid_encode_plain)
-from tcnn_tpu_torch.tools.plain_path import plain_loss_and_grads
+from tcnn_tpu_torch.ops.cuda.scatter import (row_scatter_add, row_scatter_add_plain,
+                                             scatter_add_cols)
+from tcnn_tpu_torch.tools.plain_path import plain_loss_and_grads, plain_sdf_loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -137,14 +153,25 @@ def test_slice_inference_goes_through_both_kernels(cuda, policy):
 
 
 def test_cuda_input_gradient_and_second_order_raise_slice_3(cuda):
+    """Input gradients and second derivatives run on the card since slice
+    4, through kernels GI, GG and RS; a third derivative raises."""
     model = create_from_config(2, 3, "configs/config_hash.json")
     x = torch.rand((64, 2), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        model.network(x)
-    y = model.network(x.detach())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        torch.autograd.grad(y.square().sum(), list(model.network.parameters()),
-                            create_graph=True)
+    counts = (grid_encode_bwd_input.launches, grid_encode_bwd_bwd.launches,
+              row_scatter_add.launches)
+    (gx,) = torch.autograd.grad(model.network(x).square().sum(), x, create_graph=True)
+    params = list(model.network.parameters())
+    grads = torch.autograd.grad(gx.square().sum(), params, retain_graph=True)
+    torch.cuda.synchronize()
+    after = (grid_encode_bwd_input.launches, grid_encode_bwd_bwd.launches,
+             row_scatter_add.launches)
+    # GI twice: for gx, and in the second pass back through the features
+    # (the loss's output gradient 2y depends on x), whose x part
+    # autograd.grad(..., params) then drops
+    assert [a - b for a, b in zip(after, counts)] == [2, 1, 1]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch.autograd.grad(gx.square().sum(), params, create_graph=True)
 
 
 def grid_bwd_bound(spec, flat, x, dcols, live):
@@ -386,3 +413,107 @@ def test_btf_graph_loop_equals_eager_steps(cuda):
     assert again.shape == (6,) and bool(torch.isfinite(again).all())
     y = models[0].trainer.inference(samplers[0](0)[0])
     assert y.shape == (4096, 3) and bool(torch.isfinite(y).all())
+
+
+# -- slice 4: second order ---------------------------------------------------
+
+
+def assert_rel_close(got, want, rel):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = float(want.float().abs().max())
+    assert scale > 0
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("case", GRID_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_input_gradient_and_second_order_kernels_match_plain(cuda, case, dtype):
+    """GI and GG against their plain versions, every live-level set of
+    test_grid_encode_bwd_kernel_matches_plain; dcols SoA and AoS-as-SoA."""
+    D, F, hm, base, scale, gtype, htype, interp = case
+    spec = grid_ops.make_grid_spec(D, 8, F, hm, base, scale, grid_type=gtype,
+                                   hash_type=htype, interpolation=interp)
+    rng = np.random.default_rng(8)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    x = torch.from_numpy(rng.uniform(0.02, 0.98, (4133, D)).astype(np.float32)).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(8 * F, 4133)).astype(np.float32))
+    dcols = dcols.to(dtype).to(cuda)
+    ddx = torch.from_numpy(rng.normal(size=(4133, D)).astype(np.float32)).to(cuda)
+    for live in (list(range(spec.n_levels)), [0, 1, 2]):
+        for dc in (dcols, dcols.t().contiguous().t()):
+            got = grid_encode_bwd_input(spec, flat, x, dc, live)
+            torch.cuda.synchronize()
+            want = grid_encode_bwd_input_plain(spec, flat, x, dc, live)
+            if interp == InterpolationType.NEAREST:
+                assert bool((got == 0).all()) and bool((want == 0).all())
+            else:
+                assert_rel_close(got, want, 1e-5)
+            got = grid_encode_bwd_bwd(spec, flat, x, dc, ddx, live)
+            torch.cuda.synchronize()
+            want = grid_encode_bwd_bwd_plain(spec, flat, x, dc, ddx, live)
+            assert torch.equal(got.rows, want.rows)
+            for a, b in zip((got.d_dcols, got.d_x, got.g), (want.d_dcols, want.d_x, want.g)):
+                if interp == InterpolationType.NEAREST or (
+                        b is want.d_x and interp == InterpolationType.LINEAR and D == 1):
+                    assert float(a.abs().max()) == float(b.abs().max()) == 0
+                else:
+                    assert_rel_close(a, b, 1e-5)
+
+
+def assert_scatter_close(got, want, scale):
+    err = (got.float() - want.float()).abs()
+    tol = 2.0 ** -11 * scale + 1e-30
+    if want.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(want)
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 8])
+def test_row_scatter_kernel_matches_plain(cuda, f):
+    """RS on random rows (a few out of range), g contiguous, g as the
+    transpose of F column streams (row 10), and a bf16 result."""
+    rng = np.random.default_rng(f)
+    n_rows, m = 5000, 200003
+    idx = torch.from_numpy(rng.integers(-3, n_rows + 3, m).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(m, f)).astype(np.float32)).to(cuda)
+    scale = row_scatter_add_plain(idx, g.abs(), n_rows)
+    want = row_scatter_add_plain(idx, g, n_rows)
+    got = row_scatter_add(idx, g, n_rows)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n_rows * f,) and got.dtype == torch.float32
+    assert_scatter_close(got, want, scale)
+    streams = g.t().contiguous()
+    assert_scatter_close(scatter_add_cols(idx, streams, n_rows), want, scale)
+    bf = row_scatter_add(idx, g, n_rows, torch.bfloat16)
+    assert bf.dtype == torch.bfloat16
+    assert_scatter_close(bf, row_scatter_add_plain(idx, g, n_rows, torch.bfloat16), scale)
+
+
+def test_sdf_eikonal_step_matches_plain_step(cuda):
+    """The SDF sample's step at full width (3-D HashGrid 8 x 2, 2^15 rows,
+    FullyFusedMLP 64 x 2, fp32), B = 2^14, against the plain eikonal step;
+    it launches GI, GG and RS once each."""
+    from tcnn_tpu_torch import Policy
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+
+    model = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
+    with torch.no_grad():
+        model.network.encoding.grid.uniform_(-1, 1, generator=torch.Generator(cuda).manual_seed(4))
+    xs, xv = sdf.sample_points(torch.Generator(cuda).manual_seed(5), 1 << 14, cuda)
+    counts = (grid_encode_bwd_input.launches, grid_encode_bwd_bwd.launches,
+              row_scatter_add.launches)
+    loss, grads = sdf.loss_and_grads(model.network, xs, xv)
+    torch.cuda.synchronize()
+    after = (grid_encode_bwd_input.launches, grid_encode_bwd_bwd.launches,
+             row_scatter_add.launches)
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1]
+    want_loss, want, scale = plain_sdf_loss_and_grads(model.network, xs, xv, table_scale=True)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=0)
+    assert set(grads) == set(want)
+    for name, got in grads.items():
+        if name == "encoding.grid":
+            assert_scatter_close(got, want[name], scale)
+        else:
+            assert_rel_close(got, want[name], 1e-4)

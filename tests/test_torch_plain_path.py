@@ -7,8 +7,11 @@ against on the card.
     to the last bit, for config_hash and a config_btf-structured model.
   * ``relu_flip_rows`` finds a fused-MLP input-gradient row that differs
     from the plain one by a switched ReLU near 0, only while that ReLU's
-    pre-activation lies within the bound, and no row that differs in
-    another way.
+    pre-activation lies within the bound of its compute dtype
+    (``FLIP_NEAR`` for bf16, ``FLIP_NEAR_F32`` for fp32), and no row that
+    differs in another way.  Rows are held within 2e-2 (bf16) or 1e-4
+    (fp32) of the gradient's largest magnitude, as ``chip_smoke.py`` holds
+    them.
 """
 
 import numpy as np
@@ -20,8 +23,9 @@ from tcnn_tpu_torch.common import Activation
 from tcnn_tpu_torch.ops.activations import activation_derivative
 from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd_plain
 from tcnn_tpu_torch.tools import plain_path
-from tcnn_tpu_torch.tools.plain_path import (FLIP_NEAR, grid_parts, plain_inference,
-                                             plain_loss_and_grads, relu_flip_rows)
+from tcnn_tpu_torch.tools.plain_path import (FLIP_NEAR, FLIP_NEAR_F32, grid_parts,
+                                             plain_inference, plain_loss_and_grads,
+                                             relu_flip_rows)
 
 from test_torch_slice import CONFIG, small_btf_config
 
@@ -88,6 +92,12 @@ def _flipped_bwd(ws, x, g, dtype, sample, layer, unit):
     return dh.to(x.dtype), zs, hs
 
 
+def _bounds(dtype):
+    """(the row tolerance relative to the largest magnitude, the flip
+    bound) of a compute dtype."""
+    return (2e-2, FLIP_NEAR) if dtype == torch.bfloat16 else (1e-4, FLIP_NEAR_F32)
+
+
 def _nearest_zero(ws, zs, hs, dtype):
     """Per sample, (layer, unit, |z| / Σ|h·w|) of the pre-activation
     nearest 0."""
@@ -100,14 +110,15 @@ def _nearest_zero(ws, zs, hs, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_relu_flip_rows_finds_a_switched_relu(dtype):
+    rel, bound = _bounds(dtype)
     ws, x, g = _mlp(dtype)
     _, want = fused_mlp_bwd_plain(ws, x, g, Activation.RELU, Activation.NONE, dtype)
-    tol = 2e-2 * float(want.float().abs().max())
+    tol = rel * float(want.float().abs().max())
     _, zs, hs = _flipped_bwd(ws, x, g, dtype, 0, -1, 0)
     layer, unit, near = _nearest_zero(ws, zs, hs, dtype)
     # the sample whose nearest-zero ReLU, flipped, moves its row the most
     best = None
-    for s in torch.nonzero(near <= FLIP_NEAR).flatten()[:64].tolist():
+    for s in torch.nonzero(near <= bound).flatten()[:64].tolist():
         got, _, _ = _flipped_bwd(ws, x, g, dtype, s, int(layer[s]), int(unit[s]))
         off = float((got[s].float() - want[s].float()).abs().max())
         if best is None or off > best[1]:
@@ -119,24 +130,31 @@ def test_relu_flip_rows_finds_a_switched_relu(dtype):
         ws, x, g, Activation.NONE, dtype, rows, got[rows], tol)
     assert bool(explained.all())
     assert float((variants[0] - got[s].float()).abs().max()) <= tol
-    assert 0 < float(flipped[0, 0]) <= FLIP_NEAR and bool(flipped[0, 1].isnan())
+    assert 0 < float(flipped[0, 0]) <= bound and bool(flipped[0, 1].isnan())
     assert float(nearest[0]) <= float(flipped[0, 0])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_relu_flip_rows_rejects_rows_wrong_in_another_way(dtype):
+    """Rows of samples with a pre-activation within the flip bound, so
+    that only the comparison of the rows can reject them."""
+    rel, bound = _bounds(dtype)
     ws, x, g = _mlp(dtype)
     _, want = fused_mlp_bwd_plain(ws, x, g, Activation.RELU, Activation.NONE, dtype)
-    tol = 2e-2 * float(want.float().abs().max())
-    big = want.float().abs().max(dim=1).values.argsort(descending=True)[:4]
+    tol = rel * float(want.float().abs().max())
+    _, zs, hs = _flipped_bwd(ws, x, g, dtype, 0, -1, 0)
+    near_zero = torch.nonzero(_nearest_zero(ws, zs, hs, dtype)[2] <= bound).flatten()
+    mags = want[near_zero].float().abs().max(dim=1).values
+    big = near_zero[mags.argsort(descending=True)[:4]]
     wrong = torch.stack([torch.zeros_like(want[big[0]]),     # a row left unwritten
                          want[big[2]],                       # another sample's row
                          want[big[2]] * 1.5,                 # a row scaled
                          want[big[3]].roll(1)])              # a row shifted by a column
     rows = torch.stack([big[0], big[1], big[2], big[3]])
     assert bool(((wrong.float() - want[rows].float()).abs() > tol).any(dim=1).all())
-    explained, _, flipped, _ = relu_flip_rows(ws, x, g, Activation.NONE, dtype, rows, wrong,
-                                              tol)
+    explained, _, flipped, nearest = relu_flip_rows(ws, x, g, Activation.NONE, dtype, rows,
+                                                    wrong, tol)
+    assert bool((nearest <= bound).all())
     assert not bool(explained.any())
     assert bool(flipped.isnan().all())
 
@@ -160,3 +178,32 @@ def test_relu_flip_rows_flips_only_near_zero(monkeypatch):
     assert bool(explained.all()) and float(nearest[0]) == float(near[s])
     monkeypatch.setattr(plain_path, "FLIP_NEAR", float(flipped[0, 0]) / 2)
     assert not bool(relu_flip_rows(**kw)[0].any())
+
+
+def test_relu_flip_rows_fp32_flips_only_within_its_bound(monkeypatch):
+    """In fp32 a switched ReLU whose |z| / Σ|h·w| lies beyond
+    ``FLIP_NEAR_F32`` (but within bf16's ``FLIP_NEAR``) explains nothing;
+    with the bound moved out to that ratio it explains the row."""
+    dtype = torch.float32
+    rel, bound = _bounds(dtype)
+    ws, x, g = _mlp(dtype)
+    _, want = fused_mlp_bwd_plain(ws, x, g, Activation.RELU, Activation.NONE, dtype)
+    tol = rel * float(want.float().abs().max())
+    _, zs, hs = _flipped_bwd(ws, x, g, dtype, 0, -1, 0)
+    layer, unit, near = _nearest_zero(ws, zs, hs, dtype)
+    beyond = torch.nonzero((near > 4 * bound) & (near <= FLIP_NEAR)).flatten()
+    for s in beyond.tolist():
+        got, _, _ = _flipped_bwd(ws, x, g, dtype, s, int(layer[s]), int(unit[s]))
+        if float((got[s].float() - want[s].float()).abs().max()) > tol:
+            break
+    else:
+        pytest.fail("no flip beyond the fp32 bound moves its row beyond the tolerance")
+    rows = torch.tensor([s])
+    kw = dict(weights=ws, x=x, g=g, output_activation=Activation.NONE,
+              compute_dtype=dtype, rows=rows, got_rows=got[rows], tol=tol)
+    explained, _, flipped, nearest = relu_flip_rows(**kw)
+    assert not bool(explained.any()) and bool(flipped.isnan().all())
+    assert float(nearest[0]) == pytest.approx(float(near[s]), rel=1e-4)   # another sum order
+    assert float(nearest[0]) > bound
+    monkeypatch.setattr(plain_path, "FLIP_NEAR_F32", float(nearest[0]))
+    assert bool(relu_flip_rows(**kw)[0].all())
