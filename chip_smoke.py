@@ -24,7 +24,9 @@ and read just after:
     GI, GG and RS it checks (slice 4).
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
-kernels, and prints:
+kernels, checks that two launches of kernel MB on the same inputs give
+the same dW bits (SDF and config_btf shapes, both compute dtypes), and
+prints:
 
     ... one line per phase ...
     {"kernels": [...]}                       per-kernel numbers
@@ -130,10 +132,11 @@ PLAIN_BTF_STEPS = 150   # the plain versions' BTF fit: reaches the floors with m
 BTF_LOSS_RATIO = 0.05
 BTF_REL_FLOOR = 0.35
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
-# FLOP/s, fp32 FLOP/s outside the tensor cores.
+# FLOP/s, fp32 FLOP/s outside the tensor cores (the FMA units).
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+UNIT = {PEAK_BF16: "bf16 tensor cores", PEAK_FP32: "fp32 FMA"}
 
 
 def check(cond, msg):
@@ -531,13 +534,12 @@ def record_bounds(t, b, notes=None):
     for k, (n_bytes, flops, peak) in b.items():
         t[f"{k} bound"] = bound_ms(n_bytes, flops, peak)
         t[f"{k} bound by"] = bound_by(n_bytes, flops, peak)
-        kind = "bf16" if peak == PEAK_BF16 else "fp32"
         call = (f", {t[k + ' call']:.4f} ms per call with the host's work"
                 if k + " call" in t else "")
         lib = f", {LIBRARY[k]} {t[k + ' library']:.4f} ms" if k + " library" in t else ""
         print(f"{k}: {t[k]:.4f} ms on the device{call} (plain {t[k + ' plain']:.4f} ms{lib}, "
               f"bound {t[k + ' bound']:.4f} ms: {n_bytes / 1e6:.2f} MB"
-              f"{(notes or {}).get(k, '')}, {flops / 1e9:.3f} GFLOP {kind})")
+              f"{(notes or {}).get(k, '')}, {flops / 1e9:.3f} GFLOP on the {UNIT[peak]})")
 
 
 def slice_times(label, model, x, target, loop):
@@ -1316,6 +1318,8 @@ def sdf_slice(gen, dev):
     L, C = spec.n_levels, 1 << D
     m_flops = 2 * B * sum(w.numel() for w in ws)
     corner = 4 * D + C * (D - 1)      # per (sample, level): positions and weights
+    # M and MB in fp32 run plain fp32 FMA (csrc/fused_mlp.cu, fused_mlp_bwd.cu):
+    # their products are bounded at the FMA units' peak.
     b = {
         "G": (nbytes(xs, fs) + tb + consts, grid_flops(spec, B), PEAK_FP32),
         "M": (nbytes(fs, *ws, ys), m_flops, PEAK_FP32),
@@ -1362,6 +1366,35 @@ def sdf_slice(gen, dev):
                           {"launches_per_step": step_launches})
 
 
+def mb_determinism(gen, dev):
+    """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
+    1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
+    in both compute dtypes: dW and dx must be equal bit for bit (each dW
+    element has one owner thread, every sum a fixed order)."""
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd
+
+    phase(f"MB determinism: two launches at B={MAIN_BATCH}, dW compared bit for bit")
+    for label, dims, soa in (("sdf", mlp_dims(16, 64, 2, d_out=1), True),
+                             ("config_btf", mlp_dims(40, 64, 3), False)):
+        ws = random_mlp(gen, dev, dims)
+        x = torch.rand((dims[0][0], MAIN_BATCH) if soa else (MAIN_BATCH, dims[0][0]),
+                       generator=gen, device=dev) * 2 - 1
+        g = torch.randn((MAIN_BATCH, dims[-1][1]), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype, soa, False)
+            with torch.inference_mode():
+                first_dws, first_dx = fused_mlp_bwd(*args)
+                again_dws, again_dx = fused_mlp_bwd(*args)
+                torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(first_dws, again_dws)]
+            check(all(same) and torch.equal(first_dx, again_dx),
+                  f"MB determinism {label} {dtype}: dW layers equal {same}, dx equal "
+                  f"{torch.equal(first_dx, again_dx)}")
+            print(f"MB determinism: {label} {str(dtype)[6:]}: {len(same)} dW layers and dx "
+                  f"bit-identical across two launches")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1389,6 +1422,7 @@ def main():
 
     report = {"kernels": config_hash_slices(gen, dev) + config_btf_slice(gen, dev)
               + sdf_slice(gen, dev)}
+    mb_determinism(gen, dev)
     phase("kernels")
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps(report))

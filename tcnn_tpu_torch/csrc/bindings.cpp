@@ -75,22 +75,25 @@ void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Te
 void fused_mlp_bwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_d,
                    const std::vector<torch::Tensor>& weights, const torch::Tensor& g,
                    int64_t g_stride_b, int64_t g_stride_d, const torch::Tensor& dx,
-                   int64_t dx_stride_b, int64_t dx_stride_d, const torch::Tensor& partials,
-                   const torch::Tensor& dw, int64_t batch, int64_t act, int64_t out_act,
-                   bool soa_in) {
+                   int64_t dx_stride_b, int64_t dx_stride_d, const torch::Tensor& dw,
+                   int64_t batch, int64_t act, int64_t out_act, bool soa_in) {
   const c10::cuda::CUDAGuard guard(x.device());
   std::vector<const void*> ptrs;
   for (const auto& w : weights) ptrs.push_back(w.data_ptr());
   const auto& w_in = weights.front();
+  torch::Tensor partials;   // the CTAs' partial dW, sized by the launcher
   C10_CUDA_CHECK(tcnn_tpu_torch::fused_mlp_bwd_launch(
       x.data_ptr(), x_stride_b, x_stride_d, static_cast<int>(w_in.size(0)), ptrs.data(),
       static_cast<int>(weights.size()), static_cast<int>(w_in.size(1)),
       static_cast<int>(weights.back().size(1)), g.data_ptr<float>(), g_stride_b,
       g_stride_d, dx.data_ptr(), dx_stride_b, dx_stride_d,
-      dx.scalar_type() == at::kBFloat16, partials.data_ptr<float>(),
-      static_cast<int>(partials.size(0)), dw.data_ptr<float>(), batch,
-      x.scalar_type() == at::kBFloat16, static_cast<int>(act), static_cast<int>(out_act),
-      soa_in, c10::cuda::getCurrentCUDAStream()));
+      dx.scalar_type() == at::kBFloat16,
+      [&](int64_t n) {
+        partials = torch::empty({n}, dw.options());
+        return partials.data_ptr<float>();
+      },
+      dw.data_ptr<float>(), batch, x.scalar_type() == at::kBFloat16, static_cast<int>(act),
+      static_cast<int>(out_act), soa_in, c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -157,10 +160,12 @@ void row_scatter(const torch::Tensor& idx, const torch::Tensor& g, int64_t g_str
 }
 
 int64_t fused_mlp_bwd_smem_bytes(int64_t d_in, int64_t d_out, int64_t width,
-                                 int64_t n_layers, bool compute_bf16) {
+                                 int64_t n_layers, bool compute_bf16, int64_t act,
+                                 int64_t out_act) {
   return tcnn_tpu_torch::fused_mlp_bwd_smem_bytes(
       static_cast<int>(d_in), static_cast<int>(d_out), static_cast<int>(width),
-      static_cast<int>(n_layers), compute_bf16);
+      static_cast<int>(n_layers), compute_bf16, static_cast<int>(act),
+      static_cast<int>(out_act));
 }
 
 }  // namespace

@@ -16,20 +16,27 @@
 // as _fwd_kernel does (fused_mlp.py:104-110).  The output layer writes
 // D_out columns to device memory in AoS or SoA order, in the output dtype.
 //
-// fp32 compute (DEFAULT_POLICY): plain fp32 FMA loops, no TF32.  One CTA
-// per 64-row tile, 128 threads; thread t owns row t % 64 and every other
-// 16-column chunk of the layer's outputs; activations ping-pong between
-// two shared-memory buffers.
+// fp32 compute (DEFAULT_POLICY): plain fp32 FMA, no TF32.  Persistent
+// CTAs of 128 threads, as many as the occupancy calculator puts on the
+// card, walk 64-row tiles; each stages every layer's weights into shared
+// memory once (per layer and tile where they do not fit) and copies the
+// next tile's input by cp.async while the current one computes (SoA input
+// with 16-byte aligned rows).  Activations live feature-major in shared
+// memory; each product is register-tiled (mlp_common.cuh: f32_product): a
+// thread owns a 4-row x W/8-column block and per k loads one float4 of
+// activations and W/8 weights for 4·W/8 FMAs.  3xTF32 on the tensor cores
+// (mlp_common.cuh: kTf32x3) was measured and set aside; fused_mlp_bwd.cu
+// says why.
 //
-// Bound on the H100: at the config_hash shape (B = 2^18, 32 -> 64 -> 64
-// -> 3) the function reads 16 MB of bf16 input and writes 3 MB of fp32
-// output: about 5.7 us at 3.35 TB/s, against 3.3 GFLOP, 3.4 us at the
-// 989 TFLOP/s bf16 peak.  So it is bound by device memory.  The design
-// reads each input once, keeps every activation on chip and stores only
-// the D_out real columns.  Each CTA stages its input tile and, layer by
-// layer, the weights (14 KB per tile at 64 x 2, from L2) in 16-byte
-// chunks.  wgmma, TMA and a persistent tile loop that stages the weights
-// once per SM are later work.
+// Bound on the H100.  At the config_hash shape (B = 2^18, 32 -> 64 -> 64
+// -> 3, bf16) the function reads 16 MB of bf16 input and writes 3 MB of
+// fp32 output: about 5.7 us at 3.35 TB/s, against 3.3 GFLOP, 3.4 us at the
+// 989 TFLOP/s bf16 peak: bound by device memory.  The bf16 design reads
+// each input once, keeps every activation on chip and stores only the
+// D_out real columns; each CTA stages its input tile and, layer by layer,
+// the weights (14 KB per tile at 64 x 2, from L2) in 16-byte chunks.  At
+// the SDF shape (16 -> 64 x 2 -> 1, fp32) 2.7 GFLOP of fp32 FMA take
+// 41 us at 67 TFLOP/s against 18 MB, 5 us: bound by the FMA units.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -40,9 +47,6 @@
 
 namespace tcnn_tpu_torch {
 namespace {
-
-constexpr int kRowsF32 = 64;     // fp32 kernel: batch rows per CTA
-constexpr int kThreadsF32 = 128;
 
 struct MlpArgs {
   const void* x;
@@ -55,6 +59,7 @@ struct MlpArgs {
   int64_t batch;
   int act, out_act;
   int soa_in, soa_out;
+  int y_bf16;  // the fp32 kernel's output dtype, a flag (one instance per width)
 };
 
 // Shared memory of the bf16 kernel: the input tile (kRows x ld) and the
@@ -165,83 +170,132 @@ fused_mlp_fwd_bf16_kernel(MlpArgs a) {
   }
 }
 
-template <typename TOut>
-__global__ void __launch_bounds__(kThreadsF32)
-fused_mlp_fwd_f32_kernel(MlpArgs a, int width) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ka = a.d_in > width ? a.d_in : width;
-  const int ldf = ka + 1;  // odd: rows of a warp fall in distinct banks
-  float* buf0 = reinterpret_cast<float*>(smem);
-  float* buf1 = buf0 + kRowsF32 * ldf;
-  float* wbuf = buf1 + kRowsF32 * ldf;
+// Shared memory of the fp32 kernel, float offsets: the input tile (two
+// buffers where they fit: the next tile arrives while this one computes),
+// two ping-pong activation tiles, and the weights: all layers, resident
+// for the CTA's whole walk over tiles, where they fit; else one layer at a
+// time, staged per tile.
+struct F32FwdLayout {
+  int x0, x1, h0, h1, w;
+  int n_xbuf, resident, bytes;
+};
 
-  const int tid = threadIdx.x;
-  const int r = tid % kRowsF32, part = tid / kRowsF32;
-  const int n_parts = kThreadsF32 / kRowsF32;
-  const int64_t row0 = int64_t(blockIdx.x) * kRowsF32;
+__host__ __device__ inline int f32_fan_in(int l, int d_in, int width) {
+  return l == 0 ? d_in : width;
+}
+// Columns of layer l, and the row stride of its weights in shared memory.
+__host__ __device__ inline int f32_fan_out(int l, int n_layers, int width, int d_out) {
+  return l == n_layers - 1 ? d_out : width;
+}
+__host__ __device__ inline int f32_w_ld(int l, int n_layers, int width, int d_out) {
+  return f32_ldw(f32_fan_out(l, n_layers, width, d_out));
+}
+
+inline F32FwdLayout f32_fwd_layout(int d_in, int d_out, int width, int n_layers) {
+  F32FwdLayout s{};
+  const int xf = pad4(d_in) * kLdF32, hf = width * kLdF32;
+  int all = 0, one = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int f = f32_fan_in(l, d_in, width) * f32_w_ld(l, n_layers, width, d_out);
+    all += f;
+    one = f > one ? f : one;
+  }
+  const int base = xf + 2 * hf;
+  s.resident = (base + all) * 4 <= kMaxSmem;
+  const int wf = s.resident ? all : one;
+  s.n_xbuf = (base + xf + wf) * 4 <= kMaxSmem ? 2 : 1;
+  s.x0 = 0;
+  s.x1 = s.n_xbuf == 2 ? xf : 0;
+  s.h0 = s.n_xbuf * xf;
+  s.h1 = s.h0 + hf;
+  s.w = s.h1 + hf;
+  s.bytes = (s.w + wf) * 4;
+  return s;
+}
+
+// fp32 compute: persistent CTAs of kThreadsF32 threads walk the 64-row
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...  Per layer each thread
+// computes a 4-row x W/8-column block by f32_product (mlp_common.cuh) and
+// stores act(z) feature-major for the next layer.
+template <int W>
+__global__ void __launch_bounds__(kThreadsF32, 2)
+fused_mlp_fwd_f32_kernel(MlpArgs a, F32FwdLayout s) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* xb[2] = {sm + s.x0, sm + s.x1};
+  float* hb[2] = {sm + s.h0, sm + s.h1};
+  float* wsm = sm + s.w;
+  const int L = a.n_layers, d_in = a.d_in;
+  const int64_t n_tiles = (a.batch + kRowsF32 - 1) / kRowsF32;
   const float* x = static_cast<const float*>(a.x);
+  const int rg = f32_rg();
 
-  staged_copy<float>(
-      kRowsF32 * a.d_in,
-      [&](int i) {
-        const int rr = a.soa_in ? i % kRowsF32 : i / a.d_in;
-        const int k = a.soa_in ? i / kRowsF32 : i % a.d_in;
-        const int64_t b = row0 + rr;
-        return b < a.batch ? x[b * a.x_stride_b + k * a.x_stride_d] : 0.0f;
-      },
-      [&](int i, float v) {
-        const int rr = a.soa_in ? i % kRowsF32 : i / a.d_in;
-        const int k = a.soa_in ? i / kRowsF32 : i % a.d_in;
-        buf0[rr * ldf + k] = v;
-      });
+  // Features [D_in, pad4(D_in)) of the input tiles stay zero.
+  for (int i = threadIdx.x; i < (pad4(d_in) - d_in) * kLdF32; i += blockDim.x)
+    xb[0][d_in * kLdF32 + i] = xb[1][d_in * kLdF32 + i] = 0.0f;
+  const auto stage_w = [&](int l, float* dst) {
+    const int n = f32_fan_out(l, L, W, a.d_out);
+    stage_rowmajor<float>(static_cast<const float*>(a.w[l]), f32_fan_in(l, d_in, W), n,
+                          f32_fan_in(l, d_in, W), padc(n), dst, f32_w_ld(l, L, W, a.d_out));
+  };
+  if (s.resident) {
+    int off = 0;
+    for (int l = 0; l < L; ++l) {
+      stage_w(l, wsm + off);
+      off += f32_fan_in(l, d_in, W) * f32_w_ld(l, L, W, a.d_out);
+    }
+  }
 
-  float* src = buf0;
-  float* dst = buf1;
-  for (int layer = 0; layer < a.n_layers; ++layer) {
-    const bool last = layer == a.n_layers - 1;
-    const int k_real = layer == 0 ? a.d_in : width;
-    const int n_real = last ? a.d_out : width;
-    const float* w = static_cast<const float*>(a.w[layer]);
-    const int N = pad16(n_real);
-
-    __syncthreads();  // previous weights consumed, src rows written
-    staged_copy<float>(
-        k_real * N,
-        [&](int i) {
-          const int n = i % N;
-          return n < n_real ? w[(i / N) * n_real + n] : 0.0f;
-        },
-        [&](int i, float v) { wbuf[i] = v; });
-    __syncthreads();
-
-    for (int n0 = part * 16; n0 < N; n0 += 16 * n_parts) {
-      float acc[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] = 0.0f;
-      for (int k = 0; k < k_real; ++k) {
-        const float h = src[r * ldf + k];
-        const float* wk = wbuf + k * N + n0;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) acc[j] = fmaf(h, wk[j], acc[j]);
+  const auto stage_x = [&](int64_t tile, float* dst) {
+    stage_f32_tile(x, a.x_stride_b, a.x_stride_d, d_in, a.batch, tile * kRowsF32, dst);
+  };
+  walk_tiles(n_tiles, s.n_xbuf, xb, stage_x, [&](int64_t tile, const float* xt, bool) {
+    const int64_t row0 = tile * kRowsF32;
+    const float* in = xt;
+    int off = 0;
+    for (int l = 0; l < L; ++l) {
+      const int k_real = f32_fan_in(l, d_in, W), ld = f32_w_ld(l, L, W, a.d_out);
+      const float* wl = wsm + off;
+      if (s.resident) {
+        off += k_real * ld;
+      } else {
+        __syncthreads();  // the previous layer's weights are read, its outputs written
+        stage_w(l, wsm);
+        __syncthreads();
       }
+      if (l < L - 1) {
+        float acc[4][W / kColGroups];
+        f32_product<W / kColGroups, false, true>(in, 0, wl, ld, k_real, 0, acc);
+        float* out = hb[l % 2];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int n = n0 + j;
-        if (n >= n_real) continue;
-        if (!last) {
-          dst[r * ldf + n] = activate(acc[j], a.act);
-        } else {
-          const int64_t b = row0 + r;
-          if (b < a.batch)
-            store(static_cast<TOut*>(a.y) + b * a.y_stride_b + n * a.y_stride_d,
-                  activate(acc[j], a.out_act));
-        }
+        for (int j = 0; j < W / kColGroups; ++j)
+          *reinterpret_cast<float4*>(out + ((W / kColGroups) * f32_cg() + j) * kLdF32 + 4 * rg) =
+              make_float4(activate(acc[0][j], a.act), activate(acc[1][j], a.act),
+                          activate(acc[2][j], a.act), activate(acc[3][j], a.act));
+        in = out;
+        if (s.resident) __syncthreads();  // the next layer reads these activations
+      } else {
+        f32_product_cols<false, true>(in, 0, wl, ld, k_real, padc(a.d_out), [&](int c, auto& acc) {
+          constexpr int TC = sizeof(acc[0]) / sizeof(float);
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            if (c + j >= a.d_out) continue;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int64_t b = row0 + 4 * rg + i;
+              if (b >= a.batch) continue;
+              const int64_t e = b * a.y_stride_b + (c + j) * a.y_stride_d;
+              const float v = activate(acc[i][j], a.out_act);
+              if (a.y_bf16)
+                store(static_cast<__nv_bfloat16*>(a.y) + e, v);
+              else
+                store(static_cast<float*>(a.y) + e, v);
+            }
+          }
+        });
       }
     }
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
+  });
 }
 
 template <typename Kernel>
@@ -266,17 +320,23 @@ cudaError_t launch_bf16(const MlpArgs& a, int width, cudaStream_t stream) {
   }
 }
 
-template <typename TOut>
 cudaError_t launch_f32(const MlpArgs& a, int width, cudaStream_t stream) {
-  const dim3 grid(unsigned((a.batch + kRowsF32 - 1) / kRowsF32));
-  const int ka = a.d_in > width ? a.d_in : width;
-  const int nw = pad16(a.d_out) > width ? pad16(a.d_out) : width;
-  const int smem = (2 * kRowsF32 * (ka + 1) + ka * nw) * 4;
-  auto kernel = fused_mlp_fwd_f32_kernel<TOut>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreadsF32, smem, stream>>>(a, width);
-  return cudaSuccess;
+  const F32FwdLayout s = f32_fwd_layout(a.d_in, a.d_out, width, a.n_layers);
+  const auto run = [&](auto kernel) {
+    int ctas = 0;
+    const cudaError_t err = persistent_ctas(kernel, kThreadsF32, s.bytes,
+                                            (a.batch + kRowsF32 - 1) / kRowsF32, &ctas);
+    if (err != cudaSuccess) return err;
+    kernel<<<ctas, kThreadsF32, s.bytes, stream>>>(a, s);
+    return cudaSuccess;
+  };
+  switch (width) {
+    case 16: return run(fused_mlp_fwd_f32_kernel<16>);
+    case 32: return run(fused_mlp_fwd_f32_kernel<32>);
+    case 64: return run(fused_mlp_fwd_f32_kernel<64>);
+    case 128: return run(fused_mlp_fwd_f32_kernel<128>);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -305,11 +365,11 @@ cudaError_t fused_mlp_fwd_launch(
   a.out_act = out_act;
   a.soa_in = soa_in ? 1 : 0;
   a.soa_out = soa_out ? 1 : 0;
+  a.y_bf16 = y_bf16 ? 1 : 0;
   if (compute_bf16)
     return y_bf16 ? launch_bf16<__nv_bfloat16>(a, width, stream)
                   : launch_bf16<float>(a, width, stream);
-  return y_bf16 ? launch_f32<__nv_bfloat16>(a, width, stream)
-                : launch_f32<float>(a, width, stream);
+  return launch_f32(a, width, stream);
 }
 
 }  // namespace tcnn_tpu_torch

@@ -10,6 +10,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <functional>
 
 namespace tcnn_tpu_torch {
 
@@ -63,17 +64,18 @@ cudaError_t grid_encode_bwd_launch(
 //   x, weights, d_in, width, d_out, act, out_act: as for fused_mlp_fwd_launch
 //   g        element (b, j) at g[b*g_stride_b + j*g_stride_d], float32
 //   dx       element (b, d) at dx[b*dx_stride_b + d*dx_stride_d], bfloat16 or float32
-//   partials (n_ctas, total_dw) float32 scratch, total_dw = sum of the layers'
-//            fan_in * fan_out; n_ctas persistent CTAs, 1 <= n_ctas <= the number
-//            of batch tiles (128 rows for bf16 compute, 64 for float32)
+//   scratch  scratch(n) returns n floats of device memory for the CTAs'
+//            partial dW, n = the launch's CTA count x total_dw, total_dw = sum
+//            of the layers' fan_in * fan_out; in use until the work enqueued
+//            on `stream` has run (a stream-ordered allocator's memory)
 //   dw       (total_dw) float32: the layers' gradients, row-major, concatenated
 cudaError_t fused_mlp_bwd_launch(
     const void* x, int64_t x_stride_b, int64_t x_stride_d, int d_in,
     const void* const* weights, int n_layers, int width, int d_out,
     const float* g, int64_t g_stride_b, int64_t g_stride_d, void* dx,
-    int64_t dx_stride_b, int64_t dx_stride_d, bool dx_bf16, float* partials,
-    int n_ctas, float* dw, int64_t batch, bool compute_bf16, int act, int out_act,
-    bool soa_in, cudaStream_t stream);
+    int64_t dx_stride_b, int64_t dx_stride_d, bool dx_bf16,
+    const std::function<float*(int64_t)>& scratch, float* dw, int64_t batch,
+    bool compute_bf16, int act, int out_act, bool soa_in, cudaStream_t stream);
 
 // Kernel GI: grid-encode input gradient (csrc/grid_encode_bwd_input.cu).
 //   x, x_stride_b, level_params, hash_factors, coherent_add, interp: as for
@@ -112,8 +114,9 @@ cudaError_t row_scatter_launch(const int32_t* idx, const float* g, int64_t g_str
                                int64_t g_stride_k, int64_t m, int n_features, float* acc,
                                void* out, bool out_bf16, int64_t n_rows, cudaStream_t stream);
 
-// Shared memory one CTA of kernel MB needs (at most 232,448 bytes on sm_90).
-int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers,
-                             bool compute_bf16);
+// The shared memory of one kernel-MB CTA for a shape and the activations
+// (more than 232,448 bytes: the shape does not fit).
+int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,
+                             int act, int out_act);
 
 }  // namespace tcnn_tpu_torch

@@ -16,16 +16,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ...common import Activation, cdiv
+from ...common import Activation
 from ..activations import activation_derivative, apply_activation
 from . import kernels, require_cuda_tensors
 
 SUPPORTED_WIDTHS = (16, 32, 64, 128)
 MAX_LAYERS = 32   # csrc/mlp_common.cuh: kMaxLayers
 MAX_SMEM = 232448   # shared memory one CTA may use on sm_90
-# Kernel MB runs this many persistent CTAs per SM (at most one per batch
-# tile); each keeps its own fp32 partial of dW.
-CTAS_PER_SM = 2
 
 
 def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -149,10 +146,6 @@ def fused_mlp_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     return dws, dx
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
                   g: torch.Tensor, activation: Activation,
                   output_activation: Activation,
@@ -180,7 +173,10 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
                          f"B={B}, D_out={d_out} (output_soa={output_soa})")
     width = weights[0].shape[1]
     bf16 = compute_dtype == torch.bfloat16
-    smem = kernels().fused_mlp_bwd_smem_bytes(d_in, d_out, width, len(weights), bf16)
+    acts = list(Activation)
+    act, out_act = acts.index(activation), acts.index(output_activation)
+    smem = kernels().fused_mlp_bwd_smem_bytes(d_in, d_out, width, len(weights), bf16, act,
+                                              out_act)
     if smem > MAX_SMEM:
         raise NotImplementedError(
             f"{name}: {len(weights)} layers of width {width} need {smem} bytes of "
@@ -197,16 +193,10 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
     if B == 0:
         dw.zero_()
     else:
-        n_tiles = cdiv(B, 128 if bf16 else 64)
-        n_ctas = min(n_tiles, CTAS_PER_SM * _sm_count(x.device))
-        partials = torch.empty((n_ctas, dw.numel()), dtype=torch.float32,
-                               device=x.device)
         xs_b, xs_d = (1, B) if input_soa else (d_in, 1)
         gs_b, gs_d = (gf.stride(1), gf.stride(0)) if output_soa else gf.stride()
-        acts = list(Activation)
         kernels().fused_mlp_bwd(xc, xs_b, xs_d, ws, gf, gs_b, gs_d, dx, xs_b, xs_d,
-                                partials, dw, B, acts.index(activation),
-                                acts.index(output_activation), input_soa)
+                                dw, B, act, out_act, input_soa)
         fused_mlp_bwd.launches += 1
     dws = [d.view(w.shape) for d, w in zip(dw.split(sizes), weights)]
     return dws, dx

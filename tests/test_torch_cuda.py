@@ -59,7 +59,8 @@ from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd,
                                                  grid_encode_plain)
 from tcnn_tpu_torch.ops.cuda.scatter import (row_scatter_add, row_scatter_add_plain,
                                              scatter_add_cols)
-from tcnn_tpu_torch.tools.plain_path import plain_loss_and_grads, plain_sdf_loss_and_grads
+from tcnn_tpu_torch.tools.plain_path import (plain_loss_and_grads, plain_sdf_loss_and_grads,
+                                             relu_flip_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -517,3 +518,140 @@ def test_sdf_eikonal_step_matches_plain_step(cuda):
             assert_scatter_close(got, want[name], scale)
         else:
             assert_rel_close(got, want[name], 1e-4)
+
+
+# -- the redesigned fused-MLP kernels: geometry, depth, determinism ---------
+
+SDF_DIMS = [(16, 64), (64, 64), (64, 1)]
+BTF_DIMS = [(40, 64), (64, 64), (64, 64), (64, 3)]
+
+
+def mlp_inputs(cuda, dims, batch, seed, soa_in):
+    rng = np.random.default_rng(seed)
+    ws = [torch.from_numpy(rng.uniform(-1, 1, d).astype(np.float32)
+                           * np.sqrt(6.0 / sum(d))).to(cuda) for d in dims]
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, dims[0][0])).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(batch, dims[-1][1])).astype(np.float32)).to(cuda)
+    return ws, (x.t().contiguous() if soa_in else x), g
+
+
+def assert_dx_close(got, want, ws, x, g, dtype, soa_in):
+    """MB's dx within the MB tolerance of the plain version's, but for bf16
+    rows that a switched ReLU explains (``relu_flip_rows``, as
+    ``chip_smoke.py`` holds config_btf's dx): a hidden pre-activation
+    within one bf16 ulp of 0 may switch when a sum upstream rounds the
+    other way, which moves that sample's whole row."""
+    tol = mlp_bwd_tol(want.float(), dtype)
+    a, b = (got.t(), want.t()) if soa_in else (got, want)
+    rows = ((a.float() - b.float()).abs() > tol).any(dim=1).nonzero().flatten()
+    if dtype == torch.float32 or not rows.numel():
+        assert not rows.numel(), f"{rows.numel()} dx rows beyond {tol:.3e}"
+        return
+    explained = relu_flip_rows(ws, x, g, Activation.NONE, dtype, rows, a[rows], tol,
+                               soa_in)[0]
+    assert bool(explained.all()), f"{int((~explained).sum())} of {rows.numel()} dx rows " \
+                                  f"beyond {tol:.3e} not explained by a switched ReLU"
+
+
+def check_m_and_mb(cuda, dims, batch, dtype, seed=11, soa_in=True):
+    """M and MB against their plain versions at the stated tolerances,
+    ReLU hidden layers."""
+    ws, x, g = mlp_inputs(cuda, dims, batch, seed, soa_in)
+    relu, none = Activation.RELU, Activation.NONE
+    args = (ws, x.to(dtype), relu, none, dtype, torch.float32, soa_in, False)
+    got = fused_mlp_fwd(*args)
+    torch.cuda.synchronize()
+    tol = dict(rtol=2e-2, atol=2e-3) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, fused_mlp_plain(*args), **tol)
+    bargs = (ws, x.to(dtype), g, relu, none, dtype, soa_in, False)
+    got_dws, got_dx = fused_mlp_bwd(*bargs)
+    torch.cuda.synchronize()
+    want_dws, want_dx = fused_mlp_bwd_plain(*bargs)
+    for a, b in zip(got_dws, want_dws):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a - b).abs().max()) <= mlp_bwd_tol(b, dtype)
+    assert got_dx.shape == want_dx.shape and got_dx.dtype == want_dx.dtype
+    assert_dx_close(got_dx, want_dx, ws, x.to(dtype), g, dtype, soa_in)
+
+
+# Batch rows of one tile of kernel MB and of M's fp32 path
+# (csrc/mlp_common.cuh: kRows, kRowsF32).
+TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", ["one row", "below one tile", "4133"] + [
+    f"tiles just {side} {k} CTAs per SM" for k in (1, 2, 3, 4) for side in ("below", "above")])
+def test_fused_mlp_kernels_at_batch_edges(cuda, dtype, edge):
+    """At the SDF shape: B = 1, B inside one tile, B = 4133, and a tile
+    count one below and one above the CTA count of k CTAs on every SM, for
+    each k the occupancy calculator may give the persistent kernels (so
+    that some CTAs walk two tiles, the last one ragged, or the grid is cut
+    to the tiles)."""
+    rows, n_sms = TILE_ROWS[dtype], torch.cuda.get_device_properties(cuda).multi_processor_count
+    if edge.startswith("tiles"):
+        side, k = edge.split()[2], int(edge.split()[3])
+        batch = (k * n_sms + (1 if side == "above" else -1)) * rows - 3
+    else:
+        batch = {"one row": 1, "below one tile": rows - 5, "4133": 4133}[edge]
+    check_m_and_mb(cuda, SDF_DIMS, batch, dtype)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,width,n_hidden", [
+    (F32, 128, 8), (F32, 128, 3), (F32, 128, 2), (F32, 64, 8), (F32, 64, 1), (F32, 16, 1),
+    (BF16, 128, 8), (BF16, 128, 3), (BF16, 128, 2), (BF16, 64, 1), (BF16, 16, 1)])
+def test_fused_mlp_kernels_at_depth(cuda, dtype, width, n_hidden):
+    """Depths whose weights do not stay resident (staged per layer and
+    tile, dW added in device memory) and n_hidden = 1, ReLU hidden layers.
+    M takes every depth; where one CTA of MB needs more shared memory than
+    an SM has (the per-layer activations of width 128 at depth 8), MB
+    raises.  bf16 stops at depth 3 (non-resident at width 128): over eight
+    bf16 layers a hidden value rounded to the other bf16 neighbour
+    compounds beyond the bf16 bound in M's output too, so depth 8 is held
+    in fp32, and in bf16 only MB's refusal is checked."""
+    from tcnn_tpu_torch.ops.cuda import kernels
+
+    dims = [(32, width)] + [(width, width)] * (n_hidden - 1) + [(width, 3)]
+    relu = list(Activation).index(Activation.RELU)
+    smem = kernels().fused_mlp_bwd_smem_bytes(32, 3, width, len(dims),
+                                              dtype == torch.bfloat16, relu, 0)
+    if smem > 232448:
+        ws, x, g = mlp_inputs(cuda, dims, 4133, 12, False)
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            fused_mlp_bwd(ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype)
+        assert (width, n_hidden) == (128, 8)
+        if dtype == torch.float32:
+            args = (ws, x, Activation.RELU, Activation.NONE, dtype, torch.float32)
+            torch.testing.assert_close(fused_mlp_fwd(*args), fused_mlp_plain(*args),
+                                       rtol=1e-5, atol=1e-5)
+        return
+    check_m_and_mb(cuda, dims, 4133, dtype, seed=width + n_hidden, soa_in=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_kernels_after_a_smaller_shape_of_one_instance(cuda, dtype):
+    """One kernel instance at a shape that needs more shared memory, then
+    at one that needs less, then at the first again: the launchers keep
+    their occupancy per shape, and each launch sets the instance's
+    shared-memory budget anew (a budget left by the smaller shape made the
+    launch at the larger one fail)."""
+    for dims in (SDF_DIMS, [(16, 64), (64, 1)], SDF_DIMS):
+        check_m_and_mb(cuda, dims, 4133, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [SDF_DIMS, BTF_DIMS], ids=["sdf", "config_btf"])
+def test_fused_mlp_bwd_is_bit_identical_across_launches(cuda, dtype, dims):
+    """Each dW element has one owner thread and every sum a fixed order:
+    two launches on the same inputs give the same bits."""
+    ws, x, g = mlp_inputs(cuda, dims, 1 << 16, 13, dims is SDF_DIMS)
+    args = (ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype, dims is SDF_DIMS,
+            False)
+    first_dws, first_dx = fused_mlp_bwd(*args)
+    again_dws, again_dx = fused_mlp_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first_dws, again_dws))
+    assert torch.equal(first_dx, again_dx)

@@ -22,6 +22,7 @@ from tcnn_tpu_torch import FusedMLP, MLP, create_network
 from tcnn_tpu_torch.common import BF16_POLICY, Activation
 from tcnn_tpu_torch.ops.activations import apply_activation
 from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_fwd
+from tcnn_tpu_torch.tools import kernel_ablation
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
        "bfloat16": dict(rtol=2e-2, atol=2e-3)}
@@ -147,3 +148,15 @@ def test_bf16_policy_rounds_between_layers():
                                jcommon.Activation.RELU, jcommon.Activation.NONE,
                                jnp.bfloat16, jnp.float32, False)
     np.testing.assert_allclose(got, np.asarray(want), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("name", sorted(kernel_ablation.ABLATIONS))
+def test_kernel_ablations_patch_the_current_sources(tmp_path, name):
+    """Each ablation of tools/kernel_ablation.py finds its text in the
+    kernel sources (its copy raises otherwise): the tool stays runnable
+    on the card as the kernels change."""
+    patches = kernel_ablation.ABLATIONS[name]
+    root = kernel_ablation._copy(tmp_path, name, patches)
+    for fname, old, new in patches:
+        text = (root / "tcnn_tpu_torch" / "csrc" / fname).read_text()
+        assert old not in text or old in new, (name, fname)
