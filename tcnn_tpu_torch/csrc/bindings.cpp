@@ -53,20 +53,23 @@ void fused_mlp_fwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_
 }
 
 void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& dcols,
-                     const torch::Tensor& level_params, const torch::Tensor& grad,
+                     const torch::Tensor& level_params, const torch::Tensor& items,
+                     const std::vector<int64_t>& groups, const torch::Tensor& grad,
                      const torch::Tensor& out, int64_t n_dims, int64_t n_features,
                      int64_t dc_stride_b, int64_t dc_stride_f,
                      const std::vector<int64_t>& hash_factors, bool coherent_add,
                      int64_t interp) {
   TORCH_CHECK(hash_factors.size() == 4, "grid_encode_bwd: four hash factors");
+  TORCH_CHECK(groups.size() % 4 == 0, "grid_encode_bwd: four fields per launch group");
   const c10::cuda::CUDAGuard guard(x.device());
   uint32_t factors[4];
   for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  const std::vector<int32_t> g(groups.begin(), groups.end());
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_launch(
       x.data_ptr<float>(), x_stride_b, dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16,
-      level_params.data_ptr<int32_t>(), grad.data_ptr<float>(), out.data_ptr(),
-      out.scalar_type() == at::kBFloat16, grad.numel(), x.size(0),
-      static_cast<int>(n_dims), static_cast<int>(level_params.size(0)),
+      level_params.data_ptr<int32_t>(), items.data_ptr<int32_t>(), g.data(),
+      static_cast<int>(g.size() / 4), grad.data_ptr<float>(), out.data_ptr(),
+      out.scalar_type() == at::kBFloat16, grad.numel(), static_cast<int>(n_dims),
       static_cast<int>(n_features), dc_stride_b, dc_stride_f, factors, coherent_add,
       static_cast<int>(interp), c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

@@ -126,8 +126,11 @@ __device__ __forceinline__ void write_partial(const BwdArgs& a, const float* dws
 
 // act'(z) bits of a hidden layer (kFast): W/2 per thread, in words.
 __host__ __device__ constexpr int mask_words(int width) { return (width / 2 + 31) / 32; }
+// A tile of `rows` rows runs one warp per 16 rows.
+__host__ __device__ constexpr int bf16_threads(int rows) { return rows / 16 * 32; }
 
 struct Bf16Layout {
+  int rows;                   // of a tile: kRows, or 64 where 128 rows do not fit
   int ldx, ldh, ldz, ldo;     // elements per row: input tile, h_k / dz_k, z_k (fp32), dz_out
   int x0, x1, hz, hz_bytes;   // byte offsets; hz_bytes per hidden layer
   int mask, dzo, w, dw;
@@ -139,17 +142,18 @@ __host__ __device__ inline int bf16_w_cols(const BwdArgs& a, int l) {
   return l == a.n_layers - 1 ? pad16(a.d_out) : a.width;
 }
 
-inline Bf16Layout bf16_layout(const BwdArgs& a, bool fast) {
+inline Bf16Layout bf16_layout(const BwdArgs& a, bool fast, int rows) {
   Bf16Layout s{};
   const int L = a.n_layers, W = a.width;
+  s.rows = rows;
   s.ldx = pad16(a.d_in) + kSkew;
   s.ldh = W + kSkew;
   s.ldz = W + 4;  // ≡ 4 (mod 32) words: conflict-free transposed reads
   s.ldo = pad16(a.d_out) + kSkew;
-  const int xb = kRows * s.ldx * 2;
-  s.hz_bytes = fast ? kRows * s.ldh * 2 : kRows * s.ldz * 4;
-  const int maskb = fast ? (L - 1) * mask_words(W) * kWarps * 32 * 4 : 0;
-  const int dzob = kRows * s.ldo * 2;
+  const int xb = rows * s.ldx * 2;
+  s.hz_bytes = fast ? rows * s.ldh * 2 : rows * s.ldz * 4;
+  const int maskb = fast ? (L - 1) * mask_words(W) * bf16_threads(rows) * 4 : 0;
+  const int dzob = rows * s.ldo * 2;
   int64_t wall = 0, wone = 0;
   for (int l = 0; l < L; ++l) {
     const int64_t b = int64_t(bf16_w_rows(a, l)) * (bf16_w_cols(a, l) + kSkew) * 2;
@@ -173,12 +177,12 @@ inline Bf16Layout bf16_layout(const BwdArgs& a, bool fast) {
   return s;
 }
 
-// The weight gradient of one layer over the tile's 128 rows,
-// dW[m][n] += Σ_r h[r][m] · dz[r][n], shared among the warps by 16 x 16
-// blocks; part is the layer's block of the CTA's partial dW (shared or
-// device memory).  a_frag(k0, m0, af) yields the A fragment of hᵀ at rows
-// [k0, k0+16) of the tile and columns [m0, m0+16) of h.
-template <typename AFrag>
+// The weight gradient of one layer over the tile's R rows,
+// dW[m][n] += Σ_r h[r][m] · dz[r][n], shared among the R / 16 warps by
+// 16 x 16 blocks; part is the layer's block of the CTA's partial dW (shared
+// or device memory).  a_frag(k0, m0, af) yields the A fragment of hᵀ at
+// rows [k0, k0+16) of the tile and columns [m0, m0+16) of h.
+template <int R, typename AFrag>
 __device__ __forceinline__ void wgrad_bf16(const BwdArgs& a, int layer, AFrag a_frag,
                                            const __nv_bfloat16* dz, int ldd, float* part,
                                            bool first) {
@@ -186,11 +190,11 @@ __device__ __forceinline__ void wgrad_bf16(const BwdArgs& a, int layer, AFrag a_
   const int g = lane / 4, t = lane % 4;
   const int fan_in = fan_in_of(a, layer), fan_out = fan_out_of(a, layer);
   const int n_mt = pad16(fan_in) / 16, n_np = pad16(fan_out) / 16;
-  for (int u = warp; u < n_mt * n_np; u += kWarps) {
+  for (int u = warp; u < n_mt * n_np; u += R / 16) {
     const int mt = u / n_np, np = u % n_np;
     float c[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
-    for (int kb = 0; kb < kRows / 16; ++kb) {
+    for (int kb = 0; kb < R / 16; ++kb) {
       uint32_t af[4], b[4];
       a_frag(16 * kb, 16 * mt, af);
       load_b_pair(dz, ldd, 16 * kb, 16 * np, b);
@@ -241,9 +245,10 @@ __device__ __forceinline__ void store_frags(const uint32_t (&f)[KB][4], __nv_bfl
 // to width 64, at most 128 registers, so that two CTAs fit on an SM where
 // their shared memory does (config_hash: left to itself ptxas took 168
 // and the kernel ran at one CTA per SM, 0.17 in place of 0.13 ms on an
-// H100).
-template <int W, bool kFast>
-__global__ void __launch_bounds__(kWarps * 32, W <= 64 ? 2 : 1)
+// H100).  R: rows of a tile, one warp per 16 (kRows; 64 at width 128 where
+// the hidden layers of 128 rows exceed kMaxSmem, bwd_tile_rows).
+template <int W, bool kFast, int R>
+__global__ void __launch_bounds__(R * 2, W <= 64 ? 2 : 1)
 fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* xb[2] = {reinterpret_cast<__nv_bfloat16*>(smem + s.x0),
@@ -262,7 +267,7 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
   const int g = lane / 4, t = lane % 4;
   const int r0 = warp * 16 + g;  // this lane's rows: r0 and r0 + 8
   const int L = a.n_layers, d_in = a.d_in, kin = pad16(a.d_in);
-  const int64_t n_tiles = (a.batch + kRows - 1) / kRows;
+  const int64_t n_tiles = (a.batch + R - 1) / R;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
   constexpr int NT = W / 8;    // n-tiles of a hidden layer
   constexpr int KB = W / 16;   // k-steps of a product fed by a hidden layer
@@ -286,24 +291,24 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
   const bool async_x = !a.soa_in && a.x_stride_d == 1 && a.x_stride_b == d_in && d_in % 8 == 0 &&
                        (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const auto stage_x = [&](int64_t tile, __nv_bfloat16* dst) {
-    const int64_t row0 = tile * kRows;
-    if (async_x && row0 + kRows <= a.batch) {
+    const int64_t row0 = tile * R;
+    if (async_x && row0 + R <= a.batch) {
       const int chunks = d_in / 8;
-      for (int c = tid; c < kRows * chunks; c += blockDim.x) {
+      for (int c = tid; c < R * chunks; c += blockDim.x) {
         const int r = c / chunks, q = c % chunks;
         cp_async16(dst + r * s.ldx + 8 * q, x + (row0 + r) * d_in + 8 * q);
       }
       cp_async_commit();
     } else {
-      stage_input_tile(x, a.x_stride_b, a.x_stride_d, d_in, a.batch, row0, a.soa_in != 0, dst,
-                       s.ldx);
+      stage_input_tile<R>(x, a.x_stride_b, a.x_stride_d, d_in, a.batch, row0, a.soa_in != 0,
+                          dst, s.ldx);
     }
   };
 
   // Columns [D_in, pad16(D_in)) of the input tiles stay zero.
   if (kin > d_in) {
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-    for (int i = tid; i < kRows * (kin - d_in); i += blockDim.x) {
+    for (int i = tid; i < R * (kin - d_in); i += blockDim.x) {
       const int r = i / (kin - d_in), c = d_in + i % (kin - d_in);
       xb[0][r * s.ldx + c] = xb[1][r * s.ldx + c] = zero;
     }
@@ -313,7 +318,7 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
 
   walk_tiles(n_tiles, s.n_xbuf, xb, stage_x, [&](int64_t tile, const __nv_bfloat16* xs,
                                                   bool first) {
-    const int64_t row0 = tile * kRows;
+    const int64_t row0 = tile * R;
     float acc[NT][4];        // a layer's outputs for this warp's 16 rows
     uint32_t afrag[KB][4];   // the same, as A fragments of the next product
 
@@ -376,7 +381,7 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
               if (act_grad<true>(acc[j][i], a.act) != 0.0f)
                 bits[(4 * j + i) / 32] |= 1u << ((4 * j + i) % 32);
 #pragma unroll
-          for (int w = 0; w < MW; ++w) mask[(layer * MW + w) * (kWarps * 32) + tid] = bits[w];
+          for (int w = 0; w < MW; ++w) mask[(layer * MW + w) * (R * 2) + tid] = bits[w];
         } else {
           float* z = z_buf(layer);
 #pragma unroll
@@ -434,7 +439,7 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
     // Output layer: wgrad from h_{L-1}; dgrad with W_out (resident, or
     // still staged from the forward).
     {
-      wgrad_bf16(a, L - 1, h_frag(L - 1), dzo, s.ldo, part + dw_offset(a, L - 1), first);
+      wgrad_bf16<R>(a, L - 1, h_frag(L - 1), dzo, s.ldo, part + dw_offset(a, L - 1), first);
       const __nv_bfloat16* wl = w_at(L - 1);
       const int ld = w_ld(L - 1);
 #pragma unroll
@@ -458,7 +463,7 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
       if constexpr (kFast) {
         uint32_t bits[MW];
 #pragma unroll
-        for (int w = 0; w < MW; ++w) bits[w] = mask[(layer * MW + w) * (kWarps * 32) + tid];
+        for (int w = 0; w < MW; ++w) bits[w] = mask[(layer * MW + w) * (R * 2) + tid];
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -495,7 +500,7 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
         const auto x_frag = [&](int k0, int m0, uint32_t(&af)[4]) {
           load_a_trans(xs, s.ldx, k0, m0, af);
         };
-        wgrad_bf16(a, 0, x_frag, dz, s.ldh, part, first);
+        wgrad_bf16<R>(a, 0, x_frag, dz, s.ldh, part, first);
         // dx = dz_1 · W_inᵀ in fp32, only the real rows and columns stored.
         for (int p = 0; p < kin / 16; ++p) {
           float c[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
@@ -516,7 +521,7 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
             }
         }
       } else {
-        wgrad_bf16(a, layer, h_frag(layer), dz, s.ldh, part + dw_offset(a, layer), first);
+        wgrad_bf16<R>(a, layer, h_frag(layer), dz, s.ldh, part + dw_offset(a, layer), first);
         // dh = dz_k · W_kᵀ
 #pragma unroll
         for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
@@ -542,37 +547,41 @@ fused_mlp_bwd_bf16_kernel(BwdArgs a, Bf16Layout s) {
 // fp32 kernel
 // ---------------------------------------------------------------------------
 
-// Float offsets of the fp32 kernel's shared memory: input tiles of
-// pad8(D_in) features (two where they fit), z_k or h_k of each hidden layer and then dz_k in its place
-// (feature-major, W x kLdF32), dz_out (padc(D_out) x kLdF32), weights W_l
-// (fan_in x ld) and W_lᵀ (fan_out x padc(fan_in)) of every layer, and dW,
-// or one layer's staging buffer where those do not fit.
+// Float offsets of the fp32 kernel's shared memory for tiles of `rows`
+// rows (kRowsF32, or 32 where 64 rows do not fit): input tiles of
+// pad8(D_in) features (two where they fit), z_k or h_k of each hidden
+// layer and then dz_k in its place (feature-major, W x f32_ld(rows)),
+// dz_out (padc(D_out) x f32_ld(rows)), weights W_l (fan_in x ld) and W_lᵀ
+// (fan_out x padc(fan_in)) of every layer, and dW, or one layer's staging
+// buffer where those do not fit.
 struct F32BwdLayout {
+  int rows;
   int x0, x1, z, dzo, w, dw;
   int n_xbuf, resident, bytes;
 };
 
-__host__ __device__ inline int f32_w_ld(const BwdArgs& a, int l) {
-  return f32_ldw(fan_out_of(a, l));
+__host__ __device__ inline int f32_w_ld(const BwdArgs& a, int l, int rows) {
+  return f32_ldw(fan_out_of(a, l), rows);
 }
-__host__ __device__ inline int f32_wt_ld(const BwdArgs& a, int l) {
-  return f32_ldw(fan_in_of(a, l));
+__host__ __device__ inline int f32_wt_ld(const BwdArgs& a, int l, int rows) {
+  return f32_ldw(fan_in_of(a, l), rows);
 }
-__host__ __device__ inline int f32_w_floats(const BwdArgs& a, int l) {
-  return fan_in_of(a, l) * f32_w_ld(a, l);
+__host__ __device__ inline int f32_w_floats(const BwdArgs& a, int l, int rows) {
+  return fan_in_of(a, l) * f32_w_ld(a, l, rows);
 }
-__host__ __device__ inline int f32_wt_floats(const BwdArgs& a, int l) {
-  return fan_out_of(a, l) * f32_wt_ld(a, l);
+__host__ __device__ inline int f32_wt_floats(const BwdArgs& a, int l, int rows) {
+  return fan_out_of(a, l) * f32_wt_ld(a, l, rows);
 }
 
-inline F32BwdLayout f32_layout(const BwdArgs& a) {
+inline F32BwdLayout f32_layout(const BwdArgs& a, int rows) {
   F32BwdLayout s{};
-  const int L = a.n_layers;
-  const int64_t xf = ((a.d_in + 7) / 8 * 8) * kLdF32, zf = int64_t(a.width) * kLdF32;
-  const int64_t dzof = padc(a.d_out) * kLdF32;
+  const int L = a.n_layers, ld = f32_ld(rows);
+  s.rows = rows;
+  const int64_t xf = ((a.d_in + 7) / 8 * 8) * ld, zf = int64_t(a.width) * ld;
+  const int64_t dzof = padc(a.d_out, rows) * ld;
   int64_t wall = 0, wone = 0;
   for (int l = 0; l < L; ++l) {
-    const int64_t w = f32_w_floats(a, l), wt = f32_wt_floats(a, l);
+    const int64_t w = f32_w_floats(a, l, rows), wt = f32_wt_floats(a, l, rows);
     wall += w + wt;
     wone = w > wone ? w : wone;
     wone = wt > wone ? wt : wone;
@@ -595,29 +604,32 @@ inline F32BwdLayout f32_layout(const BwdArgs& a) {
 
 // kFast (None, ReLU): the forward stores h_k = act(z_k); act'(z_k) is
 // read back from h_k (ReLU: h > 0 exactly where z > 0).  Otherwise it
-// stores z_k and applies act() as it reads.
-template <int W, bool kFast>
+// stores z_k and applies act() as it reads.  R: rows of a tile (kRowsF32;
+// 32 at width 128 where the hidden layers of 64 rows exceed kMaxSmem,
+// bwd_tile_rows).
+template <int W, bool kFast, int R>
 __global__ void __launch_bounds__(kThreadsF32, 2)
 fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
+  constexpr int LD = f32_ld(R), CG = f32_col_groups(R);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   float* xb[2] = {sm + s.x0, sm + s.x1};
   float* dzo = sm + s.dzo;
   float* wsm = sm + s.w;
   float* dws = sm + s.dw;
-  const auto zt = [&](int l) { return sm + s.z + l * W * kLdF32; };
+  const auto zt = [&](int l) { return sm + s.z + l * W * LD; };
 
-  const int L = a.n_layers, d_in = a.d_in, rg = f32_rg();
-  const int64_t n_tiles = (a.batch + kRowsF32 - 1) / kRowsF32;
+  const int L = a.n_layers, d_in = a.d_in, rg = f32_rg<R>();
+  const int64_t n_tiles = (a.batch + R - 1) / R;
   const float* x = static_cast<const float*>(a.x);
   float* part = s.resident ? dws : a.partials + blockIdx.x * a.total_dw;
 
   const auto stage_w = [&](int l, float* dst) {
     stage_rowmajor<float>(static_cast<const float*>(a.w[l]), fan_in_of(a, l), fan_out_of(a, l),
-                          fan_in_of(a, l), padc(fan_out_of(a, l)), dst, f32_w_ld(a, l));
+                          fan_in_of(a, l), padc(fan_out_of(a, l), R), dst, f32_w_ld(a, l, R));
   };
   const auto stage_wt = [&](int l, float* dst) {   // dst[n * ld + m] = W[m][n]
-    const int fi = fan_in_of(a, l), fo = fan_out_of(a, l), ld = f32_wt_ld(a, l);
+    const int fi = fan_in_of(a, l), fo = fan_out_of(a, l), ld = f32_wt_ld(a, l, R);
     const float* w = static_cast<const float*>(a.w[l]);
     staged_copy<float>(
         fo * ld, [&](int i) { const int n = i / ld, m = i % ld; return m < fi ? w[m * fo + n] : 0.0f; },
@@ -626,13 +638,13 @@ fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
   const auto w_at = [&](int l, bool transposed) -> float* {
     if (!s.resident) return wsm;
     int off = 0;
-    for (int j = 0; j < l; ++j) off += f32_w_floats(a, j) + f32_wt_floats(a, j);
-    return wsm + off + (transposed ? f32_w_floats(a, l) : 0);
+    for (int j = 0; j < l; ++j) off += f32_w_floats(a, j, R) + f32_wt_floats(a, j, R);
+    return wsm + off + (transposed ? f32_w_floats(a, l, R) : 0);
   };
 
   // Features [D_in, pad8(D_in)) of the input tiles stay zero (f32_wgrad reads them).
-  for (int i = threadIdx.x; i < ((d_in + 7) / 8 * 8 - d_in) * kLdF32; i += blockDim.x)
-    xb[0][d_in * kLdF32 + i] = xb[1][d_in * kLdF32 + i] = 0.0f;
+  for (int i = threadIdx.x; i < ((d_in + 7) / 8 * 8 - d_in) * LD; i += blockDim.x)
+    xb[0][d_in * LD + i] = xb[1][d_in * LD + i] = 0.0f;
   if (s.resident)
     for (int l = 0; l < L; ++l) {
       stage_w(l, w_at(l, false));
@@ -640,10 +652,10 @@ fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
     }
 
   const auto stage_x = [&](int64_t tile, float* dst) {
-    stage_f32_tile(x, a.x_stride_b, a.x_stride_d, d_in, a.batch, tile * kRowsF32, dst);
+    stage_f32_tile<R>(x, a.x_stride_b, a.x_stride_d, d_in, a.batch, tile * R, dst);
   };
   walk_tiles(n_tiles, s.n_xbuf, xb, stage_x, [&](int64_t tile, const float* xt, bool first) {
-    const int64_t row0 = tile * kRowsF32;
+    const int64_t row0 = tile * R;
 
     // -- forward: h_k (or z_k) of every hidden layer, dz of the output ---
     for (int l = 0; l < L; ++l) {
@@ -654,20 +666,20 @@ fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
         __syncthreads();
       }
       const float* in = l == 0 ? xt : zt(l - 1);
-      const int k_real = fan_in_of(a, l), ld = f32_w_ld(a, l);
+      const int k_real = fan_in_of(a, l), ld = f32_w_ld(a, l, R);
       if (l < L - 1) {
-        float acc[4][W / kColGroups];
+        float acc[4][W / CG];
         if (l > 0)   // h_l, or act() of the stored z_{l-1}
-          f32_product<W / kColGroups, !kFast, kFast>(in, a.act, wl, ld, k_real, 0, acc);
+          f32_product<W / CG, !kFast, kFast, R>(in, a.act, wl, ld, k_real, 0, acc);
         else
-          f32_product<W / kColGroups, false, kFast>(in, a.act, wl, ld, k_real, 0, acc);
+          f32_product<W / CG, false, kFast, R>(in, a.act, wl, ld, k_real, 0, acc);
         float* out = zt(l);
 #pragma unroll
-        for (int j = 0; j < W / kColGroups; ++j) {
+        for (int j = 0; j < W / CG; ++j) {
           float v[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) v[i] = kFast ? act_fn<true>(acc[i][j], a.act) : acc[i][j];
-          *reinterpret_cast<float4*>(out + ((W / kColGroups) * f32_cg() + j) * kLdF32 + 4 * rg) =
+          *reinterpret_cast<float4*>(out + ((W / CG) * f32_cg<R>() + j) * LD + 4 * rg) =
               make_float4(v[0], v[1], v[2], v[3]);
         }
       } else {
@@ -684,10 +696,10 @@ fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
                   ? a.g[b * a.g_stride_b + n * a.g_stride_d] : 0.0f;
               d[i] = gv * act_grad<kFast>(acc[i][j], a.out_act);
             }
-            *reinterpret_cast<float4*>(dzo + n * kLdF32 + 4 * rg) = make_float4(d[0], d[1], d[2], d[3]);
+            *reinterpret_cast<float4*>(dzo + n * LD + 4 * rg) = make_float4(d[0], d[1], d[2], d[3]);
           }
         };
-        f32_product_cols<!kFast, kFast>(in, a.act, wl, ld, k_real, padc(a.d_out), epi);   // l >= 1
+        f32_product_cols<!kFast, kFast, R>(in, a.act, wl, ld, k_real, padc(a.d_out, R), epi);   // l >= 1
       }
       if (s.resident) __syncthreads();  // the next layer reads these outputs
     }
@@ -704,8 +716,9 @@ fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
       }
       float* pw = part + dw_offset(a, l);
       if (l == 0) {
-        f32_wgrad<false, kFast>(xt, a.act, dz, fan_in, fan_out, pw, first);
-        f32_product_cols<false, kFast>(dz, a.act, wt, f32_wt_ld(a, 0), fan_out, padc(d_in),
+        f32_wgrad<R, false, kFast>(xt, a.act, dz, fan_in, fan_out, pw, first);
+        f32_product_cols<false, kFast, R>(dz, a.act, wt, f32_wt_ld(a, 0, R), fan_out,
+                                          padc(d_in, R),
                                        [&](int c, auto& acc) {
           constexpr int TC = sizeof(acc[0]) / sizeof(float);
 #pragma unroll
@@ -718,16 +731,16 @@ fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
         });
         if (!s.resident) __syncthreads();  // the staging buffer is free again
       } else {
-        f32_wgrad<!kFast, kFast>(zt(l - 1), a.act, dz, fan_in, fan_out, pw, first);
-        float acc[4][W / kColGroups];
-        f32_product<W / kColGroups, false, kFast>(dz, a.act, wt, f32_wt_ld(a, l), fan_out, 0,
+        f32_wgrad<R, !kFast, kFast>(zt(l - 1), a.act, dz, fan_in, fan_out, pw, first);
+        float acc[4][W / CG];
+        f32_product<W / CG, false, kFast, R>(dz, a.act, wt, f32_wt_ld(a, l, R), fan_out, 0,
                                                   acc);
         __syncthreads();  // every thread is done reading h_l (z_{l-1}) and the weights
         // dz_{l-1} = dh · act'(z_{l-1}), in place of h_l (z_{l-1})
         float* zp = zt(l - 1);
 #pragma unroll
-        for (int j = 0; j < W / kColGroups; ++j) {
-          float4* p = reinterpret_cast<float4*>(zp + ((W / kColGroups) * f32_cg() + j) * kLdF32 + 4 * rg);
+        for (int j = 0; j < W / CG; ++j) {
+          float4* p = reinterpret_cast<float4*>(zp + ((W / CG) * f32_cg<R>() + j) * LD + 4 * rg);
           const float4 z = *p;
           *p = make_float4(acc[0][j] * act_grad<kFast>(z.x, a.act),
                            acc[1][j] * act_grad<kFast>(z.y, a.act),
@@ -755,31 +768,6 @@ sum_partials_kernel(const float* __restrict__ partials, int n_parts, int64_t tot
   dw[i] = sum;
 }
 
-// fn(kernel) with the instance that runs these arguments.
-template <typename Fn>
-cudaError_t with_kernel(const BwdArgs& a, bool compute_bf16, Fn fn) {
-  const bool fast = fast_instance(a);
-#define TCNN_MB_CASE(K, W) \
-  case W: return fast ? fn(K<W, true>) : fn(K<W, false>);
-  if (compute_bf16) {
-    switch (a.width) {
-      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 16)
-      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 32)
-      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 64)
-      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 128)
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  switch (a.width) {
-    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 16)
-    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 32)
-    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 64)
-    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef TCNN_MB_CASE
-}
-
 // The arguments of one shape, as far as the layouts need them.
 BwdArgs shape_args(int d_in, int d_out, int width, int n_layers, int act, int out_act) {
   BwdArgs a{};
@@ -794,15 +782,61 @@ BwdArgs shape_args(int d_in, int d_out, int width, int n_layers, int act, int ou
   return a;
 }
 
-int smem_bytes(const BwdArgs& a, bool compute_bf16) {
-  return compute_bf16 ? bf16_layout(a, fast_instance(a)).bytes : f32_layout(a).bytes;
+// Shared memory of one CTA at tiles of `rows` rows.
+int smem_bytes(const BwdArgs& a, bool compute_bf16, int rows) {
+  return compute_bf16 ? bf16_layout(a, fast_instance(a), rows).bytes : f32_layout(a, rows).bytes;
+}
+
+// Rows of a tile: kRows (bf16) or kRowsF32 (fp32), or half as many at
+// width 128 where the full tile's hidden layers exceed kMaxSmem.  Every
+// layer's h_k (or z_k) of a tile stays in shared memory, so the tile's
+// rows bound the depth: the 128 -> 128 x 5 -> 3 MLP of
+// configs/config_oneblob.json needs 260,096 bytes in bf16 and 276,608 in
+// fp32 at the full tile, 164,864 and 196,864 at half of it.  Only width
+// 128 has half-tile instances.
+int bwd_tile_rows(const BwdArgs& a, bool compute_bf16) {
+  const int full = compute_bf16 ? kRows : kRowsF32;
+  return a.width == 128 && smem_bytes(a, compute_bf16, full) > kMaxSmem ? full / 2 : full;
+}
+
+// fn(kernel) with the instance that runs these arguments at tiles of `rows` rows.
+template <typename Fn>
+cudaError_t with_kernel(const BwdArgs& a, bool compute_bf16, int rows, Fn fn) {
+  const bool fast = fast_instance(a);
+#define TCNN_MB_CASE(K, W, R) \
+  case W: return fast ? fn(K<W, true, R>) : fn(K<W, false, R>);
+  if (rows != (compute_bf16 ? kRows : kRowsF32)) {
+    if (a.width != 128) return cudaErrorInvalidValue;
+    return compute_bf16 ? (fast ? fn(fused_mlp_bwd_bf16_kernel<128, true, kRows / 2>)
+                                : fn(fused_mlp_bwd_bf16_kernel<128, false, kRows / 2>))
+                        : (fast ? fn(fused_mlp_bwd_f32_kernel<128, true, kRowsF32 / 2>)
+                                : fn(fused_mlp_bwd_f32_kernel<128, false, kRowsF32 / 2>));
+  }
+  if (compute_bf16) {
+    switch (a.width) {
+      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 16, kRows)
+      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 32, kRows)
+      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 64, kRows)
+      TCNN_MB_CASE(fused_mlp_bwd_bf16_kernel, 128, kRows)
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (a.width) {
+    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 16, kRowsF32)
+    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 32, kRowsF32)
+    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 64, kRowsF32)
+    TCNN_MB_CASE(fused_mlp_bwd_f32_kernel, 128, kRowsF32)
+    default: return cudaErrorInvalidValue;
+  }
+#undef TCNN_MB_CASE
 }
 
 }  // namespace
 
 int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,
                              int act, int out_act) {
-  return smem_bytes(shape_args(d_in, d_out, width, n_layers, act, out_act), compute_bf16);
+  const BwdArgs a = shape_args(d_in, d_out, width, n_layers, act, out_act);
+  return smem_bytes(a, compute_bf16, bwd_tile_rows(a, compute_bf16));
 }
 
 cudaError_t fused_mlp_bwd_launch(
@@ -814,9 +848,9 @@ cudaError_t fused_mlp_bwd_launch(
     bool compute_bf16, int act, int out_act, bool soa_in, cudaStream_t stream) {
   if (batch <= 0 || n_layers < 2 || n_layers > kMaxLayers || d_in < 1 || d_out < 1)
     return cudaErrorInvalidValue;
-  const int64_t tile = compute_bf16 ? kRows : kRowsF32;
-  const int64_t n_tiles = (batch + tile - 1) / tile;
   BwdArgs a = shape_args(d_in, d_out, width, n_layers, act, out_act);
+  const int rows = bwd_tile_rows(a, compute_bf16);
+  const int64_t n_tiles = (batch + rows - 1) / rows;
   a.x = x;
   a.x_stride_b = x_stride_b;
   a.x_stride_d = x_stride_d;
@@ -831,12 +865,12 @@ cudaError_t fused_mlp_bwd_launch(
   a.batch = batch;
   a.soa_in = soa_in ? 1 : 0;
 
-  const int threads = compute_bf16 ? kWarps * 32 : kThreadsF32;
-  const Bf16Layout sb = compute_bf16 ? bf16_layout(a, fast_instance(a)) : Bf16Layout{};
-  const F32BwdLayout sf = compute_bf16 ? F32BwdLayout{} : f32_layout(a);
+  const int threads = compute_bf16 ? bf16_threads(rows) : kThreadsF32;
+  const Bf16Layout sb = compute_bf16 ? bf16_layout(a, fast_instance(a), rows) : Bf16Layout{};
+  const F32BwdLayout sf = compute_bf16 ? F32BwdLayout{} : f32_layout(a, rows);
   const int smem = compute_bf16 ? sb.bytes : sf.bytes;
   int n_ctas = 0;
-  const cudaError_t err = with_kernel(a, compute_bf16, [&](auto kernel) {
+  const cudaError_t err = with_kernel(a, compute_bf16, rows, [&](auto kernel) {
     const cudaError_t e = persistent_ctas(kernel, threads, smem, n_tiles, &n_ctas);
     if (e != cudaSuccess) return e;
     a.partials = scratch(n_ctas * a.total_dw);

@@ -12,13 +12,13 @@
 // for every sample b, live level l and corner c, accumulated in fp32 and
 // cast once to the table's dtype (grid_ops.py:1099-1102 of the JAX
 // package).  On the TPU a scatter had to be a one-hot matmul per level;
-// here it is the CUDA original's kernel_grid_backward (grid.h:214-320):
-// one thread per (sample, level) recomputes the corner rows and weights
+// here, as in the CUDA original's kernel_grid_backward (grid.h:214-320),
+// a thread per (sample, level) recomputes the corner rows and weights
 // exactly as kernel G does (grid_common.cuh: the same __fmul_rn/__fadd_rn
 // rounding, fastmod and (uint32)(int)floorf), so the gradient lands on the
-// rows the forward read, and adds w*dy into an fp32 buffer with atomics
-// (one float2 atomic per corner for F = 2, float4 for F = 4).  Each
-// product w*dy is exact fp32; the TPU's bf16 rounding of every product
+// rows the forward read, and adds w*dy into an fp32 sum with atomics, in
+// shared memory first wherever the level fits (below).  Each product w*dy
+// is exact fp32; the TPU's bf16 rounding of every product
 // (_scatter_kernel at one value pass, grid_matmul.py:238-240) is not
 // copied.  The sum order of the atomics varies from run to run, so the
 // result is not bit-reproducible; a row that nothing touches stays an
@@ -35,135 +35,249 @@
 // fix-up here: each corner's row is computed on its own, and the additive
 // hash taken mod the level size already lands there.  Indices: a corner's
 // row is a uint32 (a level holds at most 2^31 rows, grid_ops.py), its
-// element offset row * F is formed in 64 bits, the shared-memory test
-// size * F in 64 bits, and a level is dense only where its spec says so
-// (a 2^19-row 4-D level is hashed: its dense stride would exceed it).
+// element offset row * F is formed in 64 bits, and a level is dense only
+// where its spec says so (a 2^19-row 4-D level is hashed: its dense
+// stride would exceed it).
 //
 // Bound on the H100: at the config_hash shape (B = 2^18, 16 levels, F = 2,
 // bf16 table) the function reads x (2.1 MB) and dcols (16.8 MB) and writes
 // the 1.4 MB bf16 gradient: 20.3 MB, 6.1 us at 3.35 TB/s (the 2.8 MB fp32
-// buffer it zeroes and reads back is its own, 5.7 MB more).  Its float2
-// atomics land in L2; on the coarse dense levels (level 0 has 256 rows
-// taking 2^20 updates) they contend for the same addresses, so levels of
-// at most kSharedFloats values are first summed per CTA in shared memory.
-// At the config_btf shape (4-D, B = 2^18, 16 levels of up to 2^19 rows,
-// 15.47 M values) the 2^26 float2 atomics scatter at random into a 62 MB
-// fp32 buffer, more than the 50 MB L2, and no level takes the
-// shared-memory path (PERF.md has its time, about 57x its bound).
+// buffer it zeroes and reads back is its own, 5.7 MB more).  The design
+// before this one ran one thread per (sample, level) and one float2
+// atomic per corner wherever a level held more than 4096 values, 13.9 M
+// of them per launch at config_hash, at 36x that bound; the coarse dense
+// levels' rows took thousands of updates each, which serialise in L2.
+//
+// The wrapper's plan (ops/cuda/grid_encode.py::gb_plan) cuts each live
+// level into work items (level, rows [row_lo, row_lo + n_rows), samples
+// [b0, b1)), all run by one launch, the longest first.  A window item's
+// CTA holds its rows in dynamic shared memory (up to the 227 KB an sm_90
+// CTA may take), adds w*dy of every corner of its samples that lands
+// there with shared atomics, and flushes the window with one global
+// atomic per touched group of values (scatter_common.cuh, shared with
+// kernel RS); its chunk of samples is sized so that a row takes several
+// updates per CTA.  A direct item adds each corner with one global atomic,
+// two dim-0 neighbours on rows r, r + 1 (r even, F = 2: CoherentAdd pairs
+// and dense levels) with one float4.  Only the levels whose rows take
+// many updates over the batch are windowed (GB_MIN_HITS): measured on an
+// H100, windows for every level that fits were slower than direct atomics
+// on the fine levels, whose rows take 32 updates each at config_hash
+// (PERF.md, tools/kernel_ablation.py); in one launch the SMs sum the
+// coarse levels' windows while the L2 takes the fine levels' atomics.  A
+// level of more than one CTA's window (32,768 rows x 2 fp32 is 256 KB)
+// may be cut into two parts, either two CTAs that each take every sample
+// and skip the other's rows, or (kClusterParts) a 2-CTA cluster that
+// shares the samples and adds into the other CTA's window through
+// distributed shared memory, measured 2.2x slower.  Each thread issues
+// the loads of kUnroll samples before it uses them.  config_btf's levels
+// (65,536 rows and more, about 8 updates per row) are all direct.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "grid_common.cuh"
 #include "kernels.h"
+#include "scatter_common.cuh"
 
 namespace tcnn_tpu_torch {
 namespace {
 
+constexpr int kBwdThreads = 512;
+constexpr int kUnroll = 4;       // samples whose loads a thread issues at once
+constexpr int kItemFields = 5;   // level, row_lo, n_rows (0: direct), b0, b1
+// Two-part levels as 2-CTA clusters sharing their samples through
+// distributed shared memory (true), or as two CTAs that each take every
+// sample and skip the other's rows (false); the plan's GB_CLUSTER_PARTS
+// (ops/cuda/grid_encode.py) says the same.
+constexpr bool kClusterParts = false;
+
 template <int F>
 __device__ __forceinline__ void add_row(float* p, float w, const float (&dy)[F]) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(__fmul_rn(w, dy[0]), __fmul_rn(w, dy[1])));
-  } else if constexpr (F == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(__fmul_rn(w, dy[0]), __fmul_rn(w, dy[1]), __fmul_rn(w, dy[2]),
-                          __fmul_rn(w, dy[3])));
-  } else
-#endif
-  {
+  constexpr int V = scatter_vec(F);
 #pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(p + f, __fmul_rn(w, dy[f]));
+  for (int q = 0; q < F / V; ++q) {
+    float v[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[u] = __fmul_rn(w, dy[q * V + u]);
+    global_add<V>(p + q * V, v);
   }
 }
 
-template <typename TG, int F>
-__device__ __forceinline__ void load_dy(const TG* dcols, int64_t b, int level,
-                                        int64_t dc_stride_b, int64_t dc_stride_f,
-                                        float (&dy)[F]) {
-  const TG* d = dcols + b * dc_stride_b + int64_t(level) * F * dc_stride_f;
+struct BwdParams {
+  const float* x;
+  const void* dcols;
+  const int32_t* level_params;
+  const int32_t* items;   // this launch's items, kItemFields each
+  float* grad;
+  int64_t x_stride_b, dc_stride_b, dc_stride_f;
+  HashConsts hc;
+  int interp;
+};
+
+// fn(x_b, dy_b) for the samples b = from, from + stride, ... below b1, with
+// the coordinates and output gradients of kUnroll samples loaded before
+// any of them is used: a thread keeps kUnroll samples' loads in flight,
+// where one sample at a time waits a memory latency per sample.
+template <typename TG, int D, int F, typename Fn>
+__device__ __forceinline__ void for_samples(const BwdParams& a, int level, int64_t from,
+                                            int64_t b1, int64_t stride, Fn fn) {
+  const TG* dcols = static_cast<const TG*>(a.dcols) + int64_t(level) * F * a.dc_stride_f;
+  for (int64_t b = from; b < b1; b += kUnroll * stride) {
+    float xs[kUnroll][D], dy[kUnroll][F];
 #pragma unroll
-  for (int f = 0; f < F; ++f) dy[f] = to_f32(d[f * dc_stride_f]);
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t bu = b + u * stride;
+      if (bu >= b1) break;
+#pragma unroll
+      for (int d = 0; d < D; ++d) xs[u][d] = __ldg(a.x + bu * a.x_stride_b + d);
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        dy[u][f] = to_f32(__ldg(dcols + bu * a.dc_stride_b + f * a.dc_stride_f));
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (b + u * stride < b1) fn(xs[u], dy[u]);
+  }
 }
 
-// A level of at most kSharedFloats gradient values (size * F) is summed per
-// CTA in shared memory over a chunk of kSharedChunk samples, then added to
-// the fp32 buffer once per nonzero value: the coarse dense levels' rows
-// take thousands of updates each, and direct atomics on them contend.
-constexpr int kSharedFloats = 4096;   // 16 KB
-constexpr int kSharedChunk = 4096;
+// One work item per CTA (per 2-CTA cluster with P = 2: two consecutive
+// items, the two parts of one level and chunk, rank r owning item r's rows).
+template <typename TG, int D, int F, int P>
+__global__ void __launch_bounds__(kBwdThreads)
+grid_encode_bwd_kernel(BwdParams a) {
+  extern __shared__ float win[];
+  constexpr int C = 1 << D;
+  int rank = 0;
+  if constexpr (P > 1) rank = int(cooperative_groups::this_cluster().block_rank());
+  const int32_t* it = a.items + int64_t(blockIdx.x) * kItemFields;
+  const int level = it[0];
+  const uint32_t row_lo = uint32_t(it[1]), n_rows = uint32_t(it[2]);
+  const int64_t b0 = it[3], b1 = it[4];
+  const int32_t* lp = a.level_params + level * kLevelFields;
+  const uint32_t offset = uint32_t(lp[2]);
 
-template <typename TG, int D, int F>
-__global__ void __launch_bounds__(kGridThreads)
-grid_encode_bwd_kernel(const float* __restrict__ x, const TG* __restrict__ dcols,
-                       const int32_t* __restrict__ level_params, float* __restrict__ grad,
-                       int64_t batch, int64_t x_stride_b, int64_t dc_stride_b,
-                       int64_t dc_stride_f, HashConsts hc, int interp) {
-  __shared__ float acc[kSharedFloats];
-  const int level = blockIdx.y;
-  const int32_t* lp = level_params + level * kLevelFields;
-  if (lp[4] == 0) return;  // at or above max_level: zero gradient
-  float dy[F];
-
-  const uint32_t size = uint32_t(lp[1]), offset = uint32_t(lp[2]);
-  if (uint64_t(size) * F <= kSharedFloats) {
-    const int64_t b0 = int64_t(blockIdx.x) * kSharedChunk;
-    if (b0 >= batch) return;  // the level's chunks are covered by fewer CTAs
-    const int n = int(size) * F;
-    for (int i = threadIdx.x; i < n; i += kGridThreads) acc[i] = 0.0f;
-    __syncthreads();
-    const int64_t b1 = b0 + kSharedChunk < batch ? b0 + kSharedChunk : batch;
-    for (int64_t b = b0 + threadIdx.x; b < b1; b += kGridThreads) {
-      load_dy(dcols, b, level, dc_stride_b, dc_stride_f, dy);
-      const LevelCorners<D> lc(lp, x + b * x_stride_b, interp);
+  if (n_rows == 0) {  // direct: one global atomic per corner
+    for_samples<TG, D, F>(a, level, b0 + threadIdx.x, b1, kBwdThreads,
+                          [&](const float (&xb)[D], const float (&dy)[F]) {
+      const LevelCorners<D> lc(lp, xb, a.interp);
 #pragma unroll
-      for (int c = 0; c < (1 << D); ++c) {
-        const float w = lc.weight(c);
-        if (w == 0.0f) continue;
-        float* p = acc + (lc.row(c, hc) - offset) * F;
-#pragma unroll
-        for (int f = 0; f < F; ++f) atomicAdd(p + f, __fmul_rn(w, dy[f]));
+      for (int c = 0; c < C; c += 2) {
+        const float w0 = lc.weight(c), w1 = lc.weight(c + 1);
+        const uint32_t r0 = lc.row(c, a.hc), r1 = lc.row(c + 1, a.hc);
+        if constexpr (F == 2) {
+          if (r1 == r0 + 1 && (r0 & 1) == 0) {  // one 16-byte atomic for the pair
+            if (w0 != 0.0f || w1 != 0.0f) {
+              const float v[4] = {__fmul_rn(w0, dy[0]), __fmul_rn(w0, dy[1]),
+                                  __fmul_rn(w1, dy[0]), __fmul_rn(w1, dy[1])};
+              global_add<4>(a.grad + int64_t(r0) * 2, v);
+            }
+            continue;
+          }
+        }
+        if (w0 != 0.0f) add_row<F>(a.grad + int64_t(r0) * F, w0, dy);
+        if (w1 != 0.0f) add_row<F>(a.grad + int64_t(r1) * F, w1, dy);
       }
-    }
-    __syncthreads();
-    float* g = grad + int64_t(offset) * F;
-    for (int i = threadIdx.x; i < n; i += kGridThreads)
-      if (acc[i] != 0.0f) atomicAdd(g + i, acc[i]);
+    });
     return;
   }
 
-  const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
-  if (b >= batch) return;
-  load_dy(dcols, b, level, dc_stride_b, dc_stride_f, dy);
-  const LevelCorners<D> lc(lp, x + b * x_stride_b, interp);
-#pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    const float w = lc.weight(c);
-    if (w != 0.0f) add_row<F>(grad + int64_t(lc.row(c, hc)) * F, w, dy);
+  // Window: this CTA's rows [row_lo, row_lo + n_rows) of the level; with a
+  // cluster, the item's rows run from rank 0's row_lo over both windows.
+  uint32_t lo = row_lo, span = n_rows, own = n_rows;
+  if constexpr (P > 1) {
+    const int32_t* first = it - rank * kItemFields;
+    lo = uint32_t(first[1]);
+    own = uint32_t(first[2]);   // rows per rank but the last
+    span = own * (P - 1) + uint32_t(first[(P - 1) * kItemFields + 2]);
   }
+  window_zero(win, int(n_rows) * F);
+  if constexpr (P > 1)
+    cooperative_groups::this_cluster().sync();
+  else
+    __syncthreads();
+  for_samples<TG, D, F>(a, level, b0 + rank * kBwdThreads + threadIdx.x, b1, P * kBwdThreads,
+                        [&](const float (&xb)[D], const float (&dy)[F]) {
+    const LevelCorners<D> lc(lp, xb, a.interp);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float w = lc.weight(c);
+      if (w == 0.0f) continue;
+      const uint32_t r = lc.row(c, a.hc) - offset - lo;   // wraps above span below lo
+      if (r >= span) continue;
+      float* p;
+      if constexpr (P > 1) {
+        const uint32_t owner = r / own;
+        p = cooperative_groups::this_cluster().map_shared_rank(win, int(owner)) +
+            (r - owner * own) * F;
+      } else {
+        p = win + r * F;
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) window_add(p + f, __fmul_rn(w, dy[f]));
+    }
+  });
+  if constexpr (P > 1)
+    cooperative_groups::this_cluster().sync();
+  else
+    __syncthreads();
+  window_flush<scatter_vec(F)>(win, int(n_rows) * F,
+                               a.grad + (int64_t(offset) + row_lo) * F);
+}
+
+template <typename TG, int D, int F, int P>
+cudaError_t launch_items(const BwdParams& a, int n_items, int smem, cudaStream_t stream) {
+  const auto kernel = grid_encode_bwd_kernel<TG, D, F, P>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  if constexpr (P == 1) {
+    kernel<<<n_items, kBwdThreads, smem, stream>>>(a);
+  } else {
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = dim3(unsigned(n_items));
+    cfg.blockDim = dim3(kBwdThreads);
+    cfg.dynamicSmemBytes = size_t(smem);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = P;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
 }
 
 template <typename TG>
 struct BwdLaunch {
-  const float* x;
-  const void* dcols;
-  const int32_t* level_params;
-  float* grad;
-  int64_t batch;
-  int n_levels;
-  int64_t x_stride_b, dc_stride_b, dc_stride_f;
-  HashConsts hc;
-  int interp;
+  BwdParams a;
+  const int32_t* groups;   // host: (first item, items, window bytes, parts) per launch
+  int n_groups;
   cudaStream_t stream;
 
   template <int D, int F>
   cudaError_t run() const {
-    const dim3 grid(unsigned((batch + kGridThreads - 1) / kGridThreads), unsigned(n_levels));
-    grid_encode_bwd_kernel<TG, D, F><<<grid, kGridThreads, 0, stream>>>(
-        x, static_cast<const TG*>(dcols), level_params, grad, batch, x_stride_b,
-        dc_stride_b, dc_stride_f, hc, interp);
-    return cudaGetLastError();
+    for (int i = 0; i < n_groups; ++i) {
+      const int32_t* g = groups + 4 * i;
+      BwdParams p = a;
+      p.items = a.items + int64_t(g[0]) * kItemFields;
+      cudaError_t err;
+      if constexpr (kClusterParts) {
+        err = g[3] == 2 ? launch_items<TG, D, F, 2>(p, g[1], g[2], stream)
+                        : launch_items<TG, D, F, 1>(p, g[1], g[2], stream);
+      } else {   // the plan's GB_CLUSTER_PARTS and kClusterParts must agree
+        err = g[3] == 2 ? cudaErrorInvalidValue : launch_items<TG, D, F, 1>(p, g[1], g[2], stream);
+      }
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
   }
 };
 
@@ -171,28 +285,28 @@ struct BwdLaunch {
 
 cudaError_t grid_encode_bwd_launch(
     const float* x, int64_t x_stride_b, const void* dcols, bool dcols_bf16,
-    const int32_t* level_params, float* grad, void* out, bool out_bf16, int64_t n_params,
-    int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
-    int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add,
-    int interp, cudaStream_t stream) {
-  if (batch <= 0 || n_params <= 0 || n_levels <= 0 || n_levels > 65535 || interp < 0 ||
-      interp > 2 || x_stride_b < n_dims || (!out_bf16 && out != grad))
+    const int32_t* level_params, const int32_t* items, const int32_t* groups, int n_groups,
+    float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
+    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[4],
+    bool coherent_add, int interp, cudaStream_t stream) {
+  if (n_params <= 0 || n_groups < 0 || interp < 0 || interp > 2 || x_stride_b < n_dims ||
+      (!out_bf16 && out != grad))
     return cudaErrorInvalidValue;
+  for (int i = 0; i < n_groups; ++i)
+    if (groups[4 * i + 1] <= 0 || groups[4 * i + 2] < 0 || groups[4 * i + 2] > kWindowMaxBytes ||
+        (groups[4 * i + 3] != 1 && groups[4 * i + 3] != 2) || groups[4 * i + 1] % groups[4 * i + 3])
+      return cudaErrorInvalidValue;
   HashConsts hc;
   for (int d = 0; d < 4; ++d) hc.factors[d] = hash_factors[d];
   hc.coherent_add = coherent_add ? 1 : 0;
+  const BwdParams a{x, dcols, level_params, items, grad, x_stride_b, dc_stride_b, dc_stride_f,
+                    hc, interp};
 
   cudaError_t err = cudaMemsetAsync(grad, 0, size_t(n_params) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
-  err = dcols_bf16
-      ? dispatch_df(n_dims, n_features,
-                    BwdLaunch<__nv_bfloat16>{x, dcols, level_params, grad, batch, n_levels,
-                                             x_stride_b, dc_stride_b, dc_stride_f, hc, interp,
-                                             stream})
-      : dispatch_df(n_dims, n_features,
-                    BwdLaunch<float>{x, dcols, level_params, grad, batch, n_levels,
-                                     x_stride_b, dc_stride_b, dc_stride_f, hc, interp,
-                                     stream});
+  err = dcols_bf16 ? dispatch_df(n_dims, n_features,
+                                 BwdLaunch<__nv_bfloat16>{a, groups, n_groups, stream})
+                   : dispatch_df(n_dims, n_features, BwdLaunch<float>{a, groups, n_groups, stream});
   if (err != cudaSuccess || !out_bf16) return err;
   cast_to_bf16_kernel<<<unsigned((n_params + kGridThreads - 1) / kGridThreads), kGridThreads,
                         0, stream>>>(grad, static_cast<__nv_bfloat16*>(out), n_params);

@@ -49,16 +49,22 @@ cudaError_t fused_mlp_fwd_launch(
 //   x, x_stride_b as for grid_encode_fwd_launch
 //   dcols        element (l*F+f, b) at dcols[b*dc_stride_b + (l*F+f)*dc_stride_f],
 //                float32 or bfloat16
+//   items        (n_items, 5) int32 on the device, the work of
+//                ops/cuda/grid_encode.py::gb_plan: per item (level, row_lo,
+//                n_rows, b0, b1), a window of rows [row_lo, row_lo + n_rows)
+//                of the level (n_rows = 0: direct atomics) over samples [b0, b1)
+//   groups       host, 4 int32 per launch: (first item, items, window bytes,
+//                parts: 2 where consecutive item pairs are one level's two halves)
 //   grad         (n_params) float32 scratch: zeroed, then accumulated into
 //   out          (n_params) gradient in the table's dtype: bfloat16 (a cast of
 //                grad) or, for float32 tables, grad itself
 //   other arguments as for grid_encode_fwd_launch
 cudaError_t grid_encode_bwd_launch(
     const float* x, int64_t x_stride_b, const void* dcols, bool dcols_bf16,
-    const int32_t* level_params, float* grad, void* out, bool out_bf16, int64_t n_params,
-    int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
-    int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add,
-    int interp, cudaStream_t stream);
+    const int32_t* level_params, const int32_t* items, const int32_t* groups, int n_groups,
+    float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
+    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[4],
+    bool coherent_add, int interp, cudaStream_t stream);
 
 // Kernel MB: fused-MLP backward (csrc/fused_mlp_bwd.cu).
 //   x, weights, d_in, width, d_out, act, out_act: as for fused_mlp_fwd_launch

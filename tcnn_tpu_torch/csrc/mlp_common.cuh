@@ -169,7 +169,7 @@ __device__ __forceinline__ void stage_weights_t(const __nv_bfloat16* __restrict_
       [&](int i, __nv_bfloat16 v) { dst[(i / K) * ld + i % K] = v; });
 }
 
-// Stages a kRows-row bf16 input tile into shared memory as act[r * ld + k],
+// Stages an R-row bf16 input tile into shared memory as act[r * ld + k],
 // zero-padded to pad16(d_in) columns; rows past the batch are zeros.
 // Element (b, k) of x is x[b * stride_b + k * stride_d].  The common
 // case, a full SoA tile with 16-byte aligned rows, goes in blocks of 8
@@ -178,17 +178,18 @@ __device__ __forceinline__ void stage_weights_t(const __nv_bfloat16* __restrict_
 // one sample each).  Storing single elements down a column instead puts
 // all 32 lanes of a warp in one shared-memory bank.  The rest (AoS, the
 // batch tail) goes element by element.
+template <int R = kRows>
 __device__ __forceinline__ void stage_input_tile(const __nv_bfloat16* __restrict__ x,
                                                  int64_t stride_b, int64_t stride_d,
                                                  int d_in, int64_t batch, int64_t row0,
                                                  bool soa_in, __nv_bfloat16* act, int ld) {
   const int tid = threadIdx.x;
   const int kin = pad16(d_in);
-  const bool full_tile = row0 + kRows <= batch;
+  const bool full_tile = row0 + R <= batch;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
   if (soa_in && full_tile && kin == d_in && stride_d % 8 == 0 &&
       (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    constexpr int kSampleBlocks = kRows / 8;
+    constexpr int kSampleBlocks = R / 8;
     for (int task = tid; task < (d_in / 8) * kSampleBlocks; task += blockDim.x) {
       const int kk = task % (d_in / 8), j = task / (d_in / 8);
       uint4 v[8];
@@ -206,16 +207,16 @@ __device__ __forceinline__ void stage_input_tile(const __nv_bfloat16* __restrict
     }
   } else {
     staged_copy<__nv_bfloat16>(
-        kRows * kin,
+        R * kin,
         [&](int i) {
-          const int r = soa_in ? i % kRows : i / kin;
-          const int k = soa_in ? i / kRows : i % kin;
+          const int r = soa_in ? i % R : i / kin;
+          const int k = soa_in ? i / R : i % kin;
           const int64_t b = row0 + r;
           return (b < batch && k < d_in) ? x[b * stride_b + k * stride_d] : zero;
         },
         [&](int i, __nv_bfloat16 v) {
-          const int r = soa_in ? i % kRows : i / kin;
-          const int k = soa_in ? i / kRows : i % kin;
+          const int r = soa_in ? i % R : i / kin;
+          const int k = soa_in ? i / R : i % kin;
           act[r * ld + k] = v;
         });
   }
@@ -347,8 +348,9 @@ __device__ __forceinline__ void stage_rowmajor(const T* __restrict__ src, int ro
 // ---------------------------------------------------------------------------
 // fp32 building blocks of kernels M and MB.
 //
-// A tile is kRowsF32 batch rows, kThreadsF32 threads.  Activations live in
-// shared memory feature-major, a[k * kLdF32 + r], so that four consecutive
+// A tile is R = kRowsF32 batch rows (32 in MB's deep width-128 layouts),
+// kThreadsF32 threads.  Activations live in shared memory feature-major,
+// a[k * f32_ld(R) + r], so that four consecutive
 // rows are one 16-byte load.  In a product, thread (rg, cg) owns rows
 // 4rg..4rg+3 and a group of TC consecutive columns; kColGroups groups
 // cover kColGroups·TC columns.
@@ -362,32 +364,42 @@ __device__ __forceinline__ void stage_rowmajor(const T* __restrict__ src, int ro
 // ---------------------------------------------------------------------------
 
 constexpr bool kTf32x3 = false;   // measured slower (PERF.md)
-constexpr int kRowsF32 = 64;
+constexpr int kRowsF32 = 64;       // rows of a tile; MB takes 32 where 64 does not fit
 constexpr int kThreadsF32 = 128;   // 4 warps (256 measured slower, PERF.md)
-constexpr int kColGroups = kThreadsF32 / (kRowsF32 / 4);
+
+// The geometry of a tile of `rows` batch rows (64, or 32): rows / 4 row
+// groups of 4 rows, kThreadsF32 / (rows / 4) column groups.
+__host__ __device__ constexpr int f32_col_groups(int rows) { return kThreadsF32 / (rows / 4); }
 // Floats per feature row of a tile: ≡ 8 (mod 32) words spreads the mma
 // operand loads over the banks, ≡ 4 the FMA weight gradient's.
-constexpr int kLdF32 = kRowsF32 + (kTf32x3 ? 8 : 4);
+__host__ __device__ constexpr int f32_ld(int rows) { return rows + (kTf32x3 ? 8 : 4); }
+constexpr int kColGroups = f32_col_groups(kRowsF32);
+constexpr int kLdF32 = f32_ld(kRowsF32);
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
-// Columns of a product come in multiples of kColGroups (one per group).
-__host__ __device__ constexpr int padc(int n) {
-  return (n + kColGroups - 1) / kColGroups * kColGroups;
+// Columns of a product come in multiples of the column groups (one per group).
+__host__ __device__ constexpr int padc(int n, int rows = kRowsF32) {
+  return (n + f32_col_groups(rows) - 1) / f32_col_groups(rows) * f32_col_groups(rows);
 }
 // Row stride of n-column fp32 weights in shared memory; for the mma loads
 // ≡ 8 (mod 32) words where n is a multiple of 32.
-__host__ __device__ constexpr int f32_ldw(int n) { return padc(n) + (kTf32x3 ? 8 : 0); }
-
-// 16 row groups x kColGroups column groups: warp w covers rg in
-// [8(w%2), 8(w%2)+8) and cg in [4(w/2), 4(w/2)+4); lane l at rg
-// 8(w%2) + l/4, cg 4(w/2) + l%4 for the mma fragments (3xTF32), else at
-// rg 8(w%2) + l%8, cg 4(w/2) + l/8 (a quarter-warp's FMA activation
-// loads cover 128 contiguous bytes, its weight loads are broadcasts).
-__device__ __forceinline__ int f32_rg() {
-  return (threadIdx.x / 32 % 2) * 8 + (kTf32x3 ? threadIdx.x % 32 / 4 : threadIdx.x % 8);
+__host__ __device__ constexpr int f32_ldw(int n, int rows = kRowsF32) {
+  return padc(n, rows) + (kTf32x3 ? 8 : 0);
 }
+
+// R / 4 row groups x f32_col_groups(R) column groups.  At R = 64 warp w
+// covers rg in [8(w%2), 8(w%2)+8) and cg in [4(w/2), 4(w/2)+4), at R = 32
+// rg in [0, 8) and cg in [4w, 4w+4); lane l at rg 8(w%(R/32)) + l/4,
+// cg 4(w/(R/32)) + l%4 for the mma fragments (3xTF32), else at rg
+// 8(w%(R/32)) + l%8, cg 4(w/(R/32)) + l/8 (a quarter-warp's FMA activation
+// loads cover 128 contiguous bytes, its weight loads are broadcasts).
+template <int R = kRowsF32>
+__device__ __forceinline__ int f32_rg() {
+  return (threadIdx.x / 32 % (R / 32)) * 8 + (kTf32x3 ? threadIdx.x % 32 / 4 : threadIdx.x % 8);
+}
+template <int R = kRowsF32>
 __device__ __forceinline__ int f32_cg() {
-  return (threadIdx.x / 64) * 4 + (kTf32x3 ? threadIdx.x % 4 : threadIdx.x % 32 / 8);
+  return (threadIdx.x / 32 / (R / 32)) * 4 + (kTf32x3 ? threadIdx.x % 4 : threadIdx.x % 32 / 8);
 }
 
 // v = p[0..N), or zeros where !ok; p 4·N-byte aligned up to 16.
@@ -450,14 +462,14 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big
 // TC·cg + j and TC·cg + j + TC/2.  So per k-step of 8 a lane reads its A
 // values as two float4 (rows 4rg..4rg+3 at k and k + 4) and its B values
 // as two runs of TC/2 consecutive floats; k past K reads as 0.
-template <int TC, bool kActA, bool kFast>
+template <int TC, bool kActA, bool kFast, int R>
 __device__ __forceinline__ void f32_product_tc(const float* __restrict__ A, int act,
                                                const float* __restrict__ B, int ldb, int K,
                                                int c0, float (&acc)[4][TC]) {
-  constexpr int NN = TC / 2;
+  constexpr int NN = TC / 2, LD = f32_ld(R);
   const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const float* ap = A + 4 * f32_rg();
-  const float* bp = B + c0 + TC * (f32_cg() - t + g / 2) + NN * (g % 2);  // column of mma col g
+  const float* ap = A + 4 * f32_rg<R>();
+  const float* bp = B + c0 + TC * (f32_cg<R>() - t + g / 2) + NN * (g % 2);  // column of mma col g
   float c[2][NN][4];
 #pragma unroll
   for (int u = 0; u < 2; ++u)
@@ -469,7 +481,7 @@ __device__ __forceinline__ void f32_product_tc(const float* __restrict__ A, int 
     float a[2][4], b[2][NN];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      load_vec<4>(ap + k[h] * kLdF32, k[h] < K, a[h]);
+      load_vec<4>(ap + k[h] * LD, k[h] < K, a[h]);
       load_vec<NN>(bp + k[h] * ldb, k[h] < K, b[h]);
       if (kActA) {
 #pragma unroll
@@ -498,18 +510,18 @@ __device__ __forceinline__ void f32_product_tc(const float* __restrict__ A, int 
 
 // acc[i][j] = Σ_{k<K} act(A[k][4rg+i]) · B[k][c0 + TC·cg + j]: in 3xTF32
 // (f32_product_tc) where kTf32x3 and TC is even, else each sum in k order
-// by fmaf.  A feature-major (kLdF32 floats per feature), the activation
-// applied to each element read when kActA; B row-major, ldb floats per
-// row, a multiple of 4.
-template <int TC, bool kActA, bool kFast>
+// by fmaf.  A feature-major (f32_ld(R) floats per feature, R rows), the
+// activation applied to each element read when kActA; B row-major, ldb
+// floats per row, a multiple of 4.
+template <int TC, bool kActA, bool kFast, int R = kRowsF32>
 __device__ __forceinline__ void f32_product(const float* __restrict__ A, int act,
                                             const float* __restrict__ B, int ldb, int K,
                                             int c0, float (&acc)[4][TC]) {
   if constexpr (kTf32x3 && TC % 2 == 0) {
-    f32_product_tc<TC, kActA, kFast>(A, act, B, ldb, K, c0, acc);
+    f32_product_tc<TC, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
     return;
   }
-  const int r = 4 * f32_rg(), c = c0 + TC * f32_cg();
+  const int r = 4 * f32_rg<R>(), c = c0 + TC * f32_cg<R>();
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -517,7 +529,7 @@ __device__ __forceinline__ void f32_product(const float* __restrict__ A, int act
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     float av[4], b[TC];
-    load_vec<4>(A + k * kLdF32 + r, true, av);
+    load_vec<4>(A + k * f32_ld(R) + r, true, av);
     if (kActA) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) av[i] = act_fn<kFast>(av[i], act);
@@ -530,36 +542,37 @@ __device__ __forceinline__ void f32_product(const float* __restrict__ A, int act
   }
 }
 
-// f32_product over C columns (a multiple of kColGroups) in chunks of 8, 4,
-// 2 and 1 columns per group, for widths that are not a template parameter
-// (D_in, D_out); epi(c, acc) receives each chunk's block, this thread's
-// columns from c.
-template <bool kActA, bool kFast, typename Epi>
+// f32_product over C columns (a multiple of the column groups) in chunks
+// of 8, 4, 2 and 1 columns per group, for widths that are not a template
+// parameter (D_in, D_out); epi(c, acc) receives each chunk's block, this
+// thread's columns from c.
+template <bool kActA, bool kFast, int R = kRowsF32, typename Epi>
 __device__ __forceinline__ void f32_product_cols(const float* __restrict__ A, int act,
                                                  const float* __restrict__ B, int ldb, int K,
                                                  int C, Epi epi) {
+  constexpr int CG = f32_col_groups(R);
   for (int c0 = 0; c0 < C;) {
     const int rem = C - c0;
-    if (rem >= 8 * kColGroups) {
+    if (rem >= 8 * CG) {
       float acc[4][8];
-      f32_product<8, kActA, kFast>(A, act, B, ldb, K, c0, acc);
-      epi(c0 + 8 * f32_cg(), acc);
-      c0 += 8 * kColGroups;
-    } else if (rem >= 4 * kColGroups) {
+      f32_product<8, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
+      epi(c0 + 8 * f32_cg<R>(), acc);
+      c0 += 8 * CG;
+    } else if (rem >= 4 * CG) {
       float acc[4][4];
-      f32_product<4, kActA, kFast>(A, act, B, ldb, K, c0, acc);
-      epi(c0 + 4 * f32_cg(), acc);
-      c0 += 4 * kColGroups;
-    } else if (rem >= 2 * kColGroups) {
+      f32_product<4, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
+      epi(c0 + 4 * f32_cg<R>(), acc);
+      c0 += 4 * CG;
+    } else if (rem >= 2 * CG) {
       float acc[4][2];
-      f32_product<2, kActA, kFast>(A, act, B, ldb, K, c0, acc);
-      epi(c0 + 2 * f32_cg(), acc);
-      c0 += 2 * kColGroups;
+      f32_product<2, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
+      epi(c0 + 2 * f32_cg<R>(), acc);
+      c0 += 2 * CG;
     } else {
       float acc[4][1];
-      f32_product<1, kActA, kFast>(A, act, B, ldb, K, c0, acc);
-      epi(c0 + f32_cg(), acc);
-      c0 += kColGroups;
+      f32_product<1, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
+      epi(c0 + f32_cg<R>(), acc);
+      c0 += CG;
     }
   }
 }
@@ -578,22 +591,23 @@ __device__ __forceinline__ void accumulate(float* p, float c, bool first) {
 // 16-row chunk the mma k indices t and t + 4 are rows 4t + 2s and
 // 4t + 2s + 1: a lane reads the A and B values of both k-steps as one
 // float4 per dW row or column, and a quarter-warp's float4 loads fall in
-// distinct banks (kLdF32 ≡ 8 mod 32).  Rows m ≥ M and n ≥ N read as 0.
-template <bool kActA, bool kFast, int NG>
+// distinct banks (f32_ld(R) ≡ 8 mod 32).  Rows m ≥ M and n ≥ N read as 0.
+template <bool kActA, bool kFast, int NG, int R>
 __device__ __forceinline__ void f32_wgrad_tc(const float* __restrict__ A, int act,
                                              const float* __restrict__ D, int M, int N,
                                              float* dw, bool first) {
+  constexpr int LD = f32_ld(R);
   const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
   const int n_mt = (M + 15) / 16, n_units = n_mt * ((N + 8 * NG - 1) / (8 * NG));
   const auto col = [](int q) { return 2 * (q % 4) + q / 4; };
   for (int unit = threadIdx.x / 32; unit < n_units; unit += kThreadsF32 / 32) {
     const int m = 16 * (unit % n_mt) + 2 * g, n0 = 8 * NG * (unit / n_mt);
-    const float* ap[2] = {A + m * kLdF32 + 4 * t, A + (m + 1) * kLdF32 + 4 * t};
+    const float* ap[2] = {A + m * LD + 4 * t, A + (m + 1) * LD + 4 * t};
     float c[NG][4];
 #pragma unroll
     for (int j = 0; j < NG; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
 #pragma unroll 2
-    for (int r0 = 0; r0 < kRowsF32; r0 += 16) {
+    for (int r0 = 0; r0 < R; r0 += 16) {
       float a[2][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -612,7 +626,7 @@ __device__ __forceinline__ void f32_wgrad_tc(const float* __restrict__ A, int ac
       for (int j = 0; j < NG; ++j) {
         const int n = n0 + 8 * j + col(g);
         float d[4];
-        load_vec<4>(D + n * kLdF32 + r0 + 4 * t, n < N, d);
+        load_vec<4>(D + n * LD + r0 + 4 * t, n < N, d);
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
           uint32_t bb[2], bs[2];
@@ -642,20 +656,21 @@ __device__ __forceinline__ void f32_wgrad_tc(const float* __restrict__ A, int ac
 // share a block, each summing an interleaved share of the rows, and a
 // fixed xor-shuffle tree adds their sums, so the result does not depend on
 // scheduling.  Every dW element has one owner: no atomics.
-template <bool kActA, bool kFast, int T = 4>   // 8 x 8 measured slower (PERF.md)
+template <int R, bool kActA, bool kFast, int T = 4>   // 8 x 8 measured slower (PERF.md)
 __device__ __forceinline__ void f32_wgrad(const float* __restrict__ A, int act,
                                           const float* __restrict__ D, int M, int N,
                                           float* dw, bool first) {
   if constexpr (kTf32x3) {
     if (N <= 8)
-      f32_wgrad_tc<kActA, kFast, 1>(A, act, D, M, N, dw, first);
+      f32_wgrad_tc<kActA, kFast, 1, R>(A, act, D, M, N, dw, first);
     else
-      f32_wgrad_tc<kActA, kFast, 4>(A, act, D, M, N, dw, first);
+      f32_wgrad_tc<kActA, kFast, 4, R>(A, act, D, M, N, dw, first);
     return;
   }
+  constexpr int LD = f32_ld(R);
   const int mq = (M + 7) / 8 * 8 / T, nq = (N + 7) / 8 * 8 / T, slots = mq * nq;
   int S = 1;
-  while (S < kRowsF32 / 4 && slots * S * 2 <= kThreadsF32) S *= 2;
+  while (S < R / 4 && slots * S * 2 <= kThreadsF32) S *= 2;
   const int s = threadIdx.x % S, per = kThreadsF32 / S;
   for (int base = 0; base < slots; base += per) {
     const int slot = base + threadIdx.x / S;
@@ -666,17 +681,17 @@ __device__ __forceinline__ void f32_wgrad(const float* __restrict__ A, int act,
     for (int i = 0; i < T; ++i)
 #pragma unroll
       for (int j = 0; j < T; ++j) acc[i][j] = 0.0f;
-    for (int c = s; c < kRowsF32 / 4; c += S) {
+    for (int c = s; c < R / 4; c += S) {
       float av[T][4], dv[T][4];
 #pragma unroll
       for (int i = 0; i < T; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(A + (mi + mq * i) * kLdF32 + 4 * c);
+        const float4 v = *reinterpret_cast<const float4*>(A + (mi + mq * i) * LD + 4 * c);
         av[i][0] = v.x; av[i][1] = v.y; av[i][2] = v.z; av[i][3] = v.w;
         if (kActA) {
 #pragma unroll
           for (int u = 0; u < 4; ++u) av[i][u] = act_fn<kFast>(av[i][u], act);
         }
-        const float4 d = *reinterpret_cast<const float4*>(D + (ni + nq * i) * kLdF32 + 4 * c);
+        const float4 d = *reinterpret_cast<const float4*>(D + (ni + nq * i) * LD + 4 * c);
         dv[i][0] = d.x; dv[i][1] = d.y; dv[i][2] = d.z; dv[i][3] = d.w;
       }
 #pragma unroll
@@ -703,36 +718,38 @@ __device__ __forceinline__ void f32_wgrad(const float* __restrict__ A, int act,
   }
 }
 
-// Stages a kRowsF32-row fp32 input tile feature-major, xt[k * kLdF32 + r]
+// Stages an R-row fp32 input tile feature-major, xt[k * f32_ld(R) + r]
 // (rows past the batch zero).  Element (b, k) of x is x[b * stride_b +
 // k * stride_d].  A full SoA tile with 16-byte aligned feature rows goes by
 // cp.async and completes at the caller's cp_async_wait_all; the rest (AoS,
 // the batch tail) goes element by element with plain stores.
+template <int R = kRowsF32>
 __device__ __forceinline__ void stage_f32_tile(const float* __restrict__ x, int64_t stride_b,
                                                int64_t stride_d, int d_in, int64_t batch,
                                                int64_t row0, float* xt) {
-  if (stride_b == 1 && stride_d % 4 == 0 && row0 + kRowsF32 <= batch &&
+  constexpr int LD = f32_ld(R);
+  if (stride_b == 1 && stride_d % 4 == 0 && row0 + R <= batch &&
       (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    constexpr int kChunks = kRowsF32 / 4;
+    constexpr int kChunks = R / 4;
     for (int c = threadIdx.x; c < d_in * kChunks; c += blockDim.x) {
       const int k = c / kChunks, q = c % kChunks;
-      cp_async16(xt + k * kLdF32 + 4 * q, x + k * stride_d + row0 + 4 * q);
+      cp_async16(xt + k * LD + 4 * q, x + k * stride_d + row0 + 4 * q);
     }
     cp_async_commit();
     return;
   }
   staged_copy<float>(
-      kRowsF32 * d_in,
+      R * d_in,
       [&](int i) {
-        const int r = stride_b == 1 ? i % kRowsF32 : i / d_in;
-        const int k = stride_b == 1 ? i / kRowsF32 : i % d_in;
+        const int r = stride_b == 1 ? i % R : i / d_in;
+        const int k = stride_b == 1 ? i / R : i % d_in;
         const int64_t b = row0 + r;
         return b < batch ? x[b * stride_b + k * stride_d] : 0.0f;
       },
       [&](int i, float v) {
-        const int r = stride_b == 1 ? i % kRowsF32 : i / d_in;
-        const int k = stride_b == 1 ? i / kRowsF32 : i % d_in;
-        xt[k * kLdF32 + r] = v;
+        const int r = stride_b == 1 ? i % R : i / d_in;
+        const int k = stride_b == 1 ? i / R : i % d_in;
+        xt[k * LD + r] = v;
       });
 }
 

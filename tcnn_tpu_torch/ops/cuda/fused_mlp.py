@@ -146,6 +146,18 @@ def fused_mlp_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     return dws, dx
 
 
+def _max_hidden(d_in: int, d_out: int, width: int, bf16: bool, act: int,
+                out_act: int) -> int:
+    """The most hidden layers whose kernel-MB layout fits in MAX_SMEM at
+    these widths and activations (every hidden h_k of a tile stays in
+    shared memory, csrc/fused_mlp_bwd.cu: bwd_tile_rows)."""
+    n = 1
+    while n + 2 <= MAX_LAYERS and kernels().fused_mlp_bwd_smem_bytes(
+            d_in, d_out, width, n + 2, bf16, act, out_act) <= MAX_SMEM:
+        n += 1
+    return n
+
+
 def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
                   g: torch.Tensor, activation: Activation,
                   output_activation: Activation,
@@ -180,7 +192,10 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
     if smem > MAX_SMEM:
         raise NotImplementedError(
             f"{name}: {len(weights)} layers of width {width} need {smem} bytes of "
-            f"shared memory per CTA, more than the {MAX_SMEM} an SM offers")
+            f"shared memory per CTA, more than the {MAX_SMEM} an SM offers; at "
+            f"{d_in} -> {width} -> {d_out}, {activation.value}, {compute_dtype}, kernel MB "
+            f"takes at most {_max_hidden(d_in, d_out, width, bf16, act, out_act)} hidden "
+            f"layers")
 
     xc = x.to(compute_dtype).contiguous()
     ws = [w.to(compute_dtype).contiguous() for w in weights]

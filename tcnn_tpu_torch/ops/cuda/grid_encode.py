@@ -22,8 +22,9 @@ the kernels against.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ...common import HashType, InterpolationType
@@ -58,7 +59,7 @@ def _hash_args(spec: grid_ops.GridSpec):
     if spec.hash_type == HashType.RNG:
         raise NotImplementedError(
             "the Rng (pcg32) grid hash is ported with the grid options "
-            "(ROADMAP.md Queue 1 item 7, slice 5)")
+            "(ROADMAP.md Queue 1 item 7)")
     coherent_add = spec.hash_type == HashType.COHERENT_ADD
     factors = grid_ops.hash_factors(
         HashType.COHERENT_PRIME if coherent_add else spec.hash_type,
@@ -86,7 +87,7 @@ def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
     if spec.stochastic_interpolation:
         raise NotImplementedError(
             "stochastic interpolation is ported with the grid options "
-            "(ROADMAP.md Queue 1 item 7, slice 5)")
+            "(ROADMAP.md Queue 1 item 7)")
     D, F = spec.n_dims, spec.n_features_per_level
     if not 1 <= D <= 4 or not 1 <= F <= 8:
         raise ValueError(f"{name}: the kernel covers D <= 4 and F <= 8, "
@@ -169,6 +170,99 @@ def grid_encode_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     return dflat.reshape(-1).to(flat.dtype)
 
 
+# Kernel GB's plan (csrc/grid_encode_bwd.cu).  A CTA may hold a window of
+# GB_WINDOW_BYTES of one level's fp32 gradient rows in shared memory (the
+# 232,448 bytes of an sm_90 CTA, less what the kernel declares itself); a
+# level of up to GB_MAX_PARTS windows whose rows take GB_MIN_HITS updates
+# or more over the batch (B·C / rows, C corners per sample) is cut into that
+# many parts, the others go to direct atomics.  A window item takes a chunk
+# of samples such that each of its rows takes about GB_REUSE updates,
+# GB_MIN_CHUNK samples at least; a direct item GB_DIRECT_CHUNK samples.
+# All items run in one launch, the longest first, so that an SM sums
+# windows in shared memory while the L2 takes other CTAs' direct atomics;
+# with GB_CLUSTER_PARTS (and kClusterParts in the kernel) a two-part
+# level's halves run as 2-CTA clusters, in a launch of their own.  Each
+# value was chosen by measurement on an H100 (PERF.md, the ablations of
+# tools/kernel_ablation.py): at config_hash every level windowed took
+# 0.2981 ms, windows from 64, 128, 256, 512 and 1024 updates per row
+# 0.2123, 0.1888, 0.1593, 0.1633 and 0.1934 ms, every level direct 0.2892.
+GB_WINDOW_BYTES = 232448 - 1024
+GB_MAX_PARTS = 2
+GB_MIN_HITS = 256
+GB_REUSE = 8
+GB_MIN_CHUNK = 4096
+GB_DIRECT_CHUNK = 2048
+GB_CLUSTER_PARTS = False
+
+
+class GbPlan(NamedTuple):
+    """Kernel GB's work: ``items`` (n, 5) int32, per item (level, row_lo,
+    n_rows, b0, b1), a window of rows [row_lo, row_lo + n_rows) of the
+    level (n_rows 0: direct atomics) over samples [b0, b1); ``groups``, per
+    launch (first item, items, window bytes, parts), parts 2 where
+    consecutive item pairs are the two halves of one level and chunk, run
+    as 2-CTA clusters."""
+    items: np.ndarray
+    groups: Tuple[Tuple[int, int, int, int], ...]
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def gb_plan(spec: grid_ops.GridSpec, live: Sequence[int], batch: int) -> GbPlan:
+    """Kernel GB's work items and launches for ``batch`` samples (see the
+    GB_ constants): every (live level, sample) is in one item per part of
+    its level, every row of a windowed level in one part."""
+    F, C = spec.n_features_per_level, 1 << spec.n_dims
+    cap = GB_WINDOW_BYTES // (4 * F)            # rows one window holds
+    singles, pairs, direct = [], [], []
+    for l in live:
+        size = spec.levels[l].size
+        parts = -(-size // cap)
+        if parts > GB_MAX_PARTS or batch * C < GB_MIN_HITS * size:
+            direct += [(l, 0, 0, b0, min(batch, b0 + GB_DIRECT_CHUNK))
+                       for b0 in range(0, batch, GB_DIRECT_CHUNK)]
+            continue
+        rows = -(-size // parts)
+        chunk = max(GB_MIN_CHUNK, _pow2_at_least(-(-GB_REUSE * size // C)))
+        for b0 in range(0, batch, chunk):
+            b1 = min(batch, b0 + chunk)
+            its = [(l, p * rows, min(rows, size - p * rows), b0, b1) for p in range(parts)]
+            if parts == 2 and GB_CLUSTER_PARTS:
+                pairs.append(its)
+            else:
+                singles += its
+    # the longest items first (samples, then window), so that the short
+    # ones fill in behind them
+    singles = sorted(singles + direct, key=lambda it: (it[4] - it[3], it[2]), reverse=True)
+    items, groups = [], []
+    for its, parts in (([it for pair in pairs for it in pair], 2), (singles, 1)):
+        if not its:
+            continue
+        window = max(-(-n * F * 4 // 16) * 16 for _, _, n, _, _ in its)
+        groups.append((len(items), len(its), window, parts))
+        items.extend(its)
+    return GbPlan(np.asarray(items, np.int32).reshape(-1, 5), tuple(groups))
+
+
+_gb_plans: Dict[Tuple, Tuple[torch.Tensor, List[int]]] = {}
+
+
+def _gb_plan_on(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
+                device: torch.device) -> Tuple[torch.Tensor, List[int]]:
+    """``gb_plan``'s items on ``device`` and its groups as a flat list,
+    cached so that a training step copies nothing to the card."""
+    key = (spec, tuple(live), batch, device)
+    if key not in _gb_plans:
+        plan = gb_plan(spec, live, batch)
+        items = torch.from_numpy(plan.items.reshape(-1)).to(device)
+        if items.numel() == 0:   # a valid pointer for a launch with no items
+            items = torch.zeros(5, dtype=torch.int32, device=device)
+        _gb_plans[key] = (items, [v for g in plan.groups for v in g])
+    return _gb_plans[key]
+
+
 def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                     x: torch.Tensor, dcols: torch.Tensor,
                     live: Sequence[int]) -> torch.Tensor:
@@ -176,7 +270,10 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
 
     ``dcols`` is the output gradient in the SoA layout (L·F, B), float32 or
     bfloat16, any strides (the transpose of an AoS gradient is taken as
-    it is); ``flat`` and ``x`` as for ``grid_encode_fwd``.
+    it is); ``flat`` and ``x`` as for ``grid_encode_fwd``.  Levels whose
+    rows fit in one or two CTAs' shared memory are summed there
+    (``gb_plan``), the others by direct atomics: by design, not as a
+    fallback.
     """
     if x.device.type == "cpu":
         return grid_encode_bwd_plain(spec, flat, x, dcols, live)
@@ -190,14 +287,17 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
         raise ValueError(f"{name}: dcols must be float32 or bfloat16 ({L * F}, {B}), "
                          f"got {dcols.dtype} {tuple(dcols.shape)}")
     require_cuda_tensors(name, x, dcols)
+    if B >= 2 ** 31:
+        raise ValueError(f"{name}: {B} samples exceed the plan's int32 sample indices")
     level_consts = _consts(spec, live, x.device)
+    items, groups = _gb_plan_on(spec, live, B, x.device)
     factors, coherent_add = _hash_args(spec)
     grad = torch.empty(flat.numel(), dtype=torch.float32, device=x.device)
     if B == 0:
         return grad.zero_().to(flat.dtype)
     out = grad if flat.dtype == torch.float32 else torch.empty_like(flat)
-    kernels().grid_encode_bwd(x, _x_row_stride(x), dcols, level_consts, grad, out,
-                              spec.n_dims, F, dcols.stride(1), dcols.stride(0),
+    kernels().grid_encode_bwd(x, _x_row_stride(x), dcols, level_consts, items, groups, grad,
+                              out, spec.n_dims, F, dcols.stride(1), dcols.stride(0),
                               factors, coherent_add,
                               _INTERP_CODE[spec.interpolation])
     grid_encode_bwd.launches += 1

@@ -69,7 +69,7 @@ def _hash_coords(hash_type: HashType,
     if hash_type == HashType.RNG:
         raise NotImplementedError(
             "the Rng (pcg32) grid hash is ported with the grid options "
-            "(ROADMAP.md Queue 1 item 7, slice 5)")
+            "(ROADMAP.md Queue 1 item 7)")
     if hash_type == HashType.COHERENT_ADD:
         # dim 0 ADDED after the XOR: hash(c0+1, rest) == hash(c0, rest)+1
         # (mod 2^32), so dim-0 corner pairs are table-adjacent.
@@ -244,7 +244,7 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
     if spec.stochastic_interpolation:
         raise NotImplementedError(
             "stochastic interpolation is ported with the grid options "
-            "(ROADMAP.md Queue 1 item 7, slice 5)")
+            "(ROADMAP.md Queue 1 item 7)")
     B = x.shape[0]
     D = spec.n_dims
     C = 1 << D
@@ -365,6 +365,24 @@ def check_table_size(spec: GridSpec, flat: torch.Tensor) -> None:
             f"{spec.n_features_per_level} features)")
 
 
+def _engine_will_use(t: torch.Tensor) -> bool:
+    """Whether the backward pass now running uses a gradient for ``t``.
+
+    ``ctx.needs_input_grad`` says only that ``t`` requires one: under
+    ``torch.autograd.grad(y, x)`` (``Module.input_gradient``, the first
+    derivative of an eikonal step) the table's gradient would be computed
+    and thrown away.  The engine knows which nodes it will run; PyTorch
+    exposes that only through the private
+    ``torch._C._will_engine_execute_node`` (the query behind
+    ``torch.autograd.graph.register_multi_grad_hook``), pinned by
+    ``tests/test_torch_second_order.py::test_engine_node_query_pinned``.
+    It refuses a leaf under ``autograd.grad``, so ``grid_encode`` hands the
+    functions a view of the table, never the leaf itself."""
+    if t.grad_fn is None:   # a leaf: cannot be asked, assume the gradient is used
+        return True
+    return torch._C._will_engine_execute_node(t.grad_fn)
+
+
 class GridEncodeFunction(torch.autograd.Function):
     """The grid encoding with its gradients, the counterpart of
     ``_grid_interpolate``'s custom VJP (``tcnn_tpu/ops/grid_ops.py:917-1122``).
@@ -400,7 +418,8 @@ class GridEncodeFunction(torch.autograd.Function):
             return None, None, None, None, None
         flat, x = ctx.saved_tensors
         dcols = dout if ctx.soa else dout.t()
-        need_table, need_x = ctx.needs_input_grad[:2]
+        need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
+        need_x = ctx.needs_input_grad[1]
         if torch.is_grad_enabled():
             dflat, dx = GridEncodeBackwardFunction.apply(flat, x, dcols, ctx.spec,
                                                          ctx.live, need_table, need_x)
@@ -454,7 +473,8 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
                 "(ROADMAP.md Queue 1)")
         flat, x, dcols = ctx.saved_tensors
         spec, live = ctx.spec, ctx.live
-        need_table, need_x, need_dcols = ctx.needs_input_grad[:3]
+        need_x, need_dcols = ctx.needs_input_grad[1:3]
+        need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         d_flat = d_x = d_dcols = None
         if ct_dx is not None:
             gg = grid_encode_bwd_bwd(spec, flat, x, dcols, ct_dx, live,

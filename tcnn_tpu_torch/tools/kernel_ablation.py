@@ -1,23 +1,31 @@
-"""Where the time of kernels GB, M and MB goes, on the card.
+"""Where the time of kernels GB, RS, M and MB goes, on the card.
 
-    python3 -m tcnn_tpu_torch.tools.kernel_ablation [--out DIR]
+    python3 -m tcnn_tpu_torch.tools.kernel_ablation [--out DIR] [--only PREFIX ...]
+    python3 -m tcnn_tpu_torch.tools.kernel_ablation --atomics   # no card needed
 
 At B = 2^18 with random inputs from a seed it times, as device time in a
 CUDA graph of 30 calls:
   * GB, M and MB at the config_hash shapes (BF16_POLICY), M and MB in fp32
     at the SDF sample's MLP (16 -> 64 x 2 -> 1) and at config_hash's
-    (32 -> 64 x 2 -> 3), SoA input, and in bf16 at config_btf's
-    (40 -> 64 x 3 -> 3, AoS input);
+    (32 -> 64 x 2 -> 3), SoA input, in bf16 at config_btf's
+    (40 -> 64 x 3 -> 3, AoS input), and in both dtypes at
+    config_oneblob's (128 -> 128 x 5 -> 3, AoS input);
+  * GB at the SDF step's shape (3-D, fp32 table, surface points) and at
+    config_btf's (4-D CoherentAdd, 2^19-row levels, bf16 table), and RS
+    on the eikonal step's (rows, g) from kernel GG;
   * GB over no level (its zeroing and cast) and one level at a time;
   * the same kernels in ablated copies of the package: ``DIR/<name>``
     holds a copy of ``tcnn_tpu_torch`` with one source patch
-    (``ABLATIONS``), built in its own process, all copies at once.  An
+    (``ABLATIONS``; ``--only`` keeps those whose names start with a
+    prefix given), built in its own process, all copies at once.  An
     ablated kernel may compute a wrong result by design; only its time is
     read, and for the fp32 MLPs it is checked (``fp32_check``) at the
     tolerances of ``chip_smoke.py``.
 Every number is printed beside the card's name and power limit.  Needs
 one CUDA device; DIR defaults to ``build/ablations`` at the checkout's
-root.
+root.  ``--atomics`` instead counts, on the CPU, the global atomics one
+launch of GB and of RS issues at B = 2^18 on the inputs ``chip_smoke.py``
+times them on, in this design and in the one before it (``atomic_counts``).
 """
 
 from __future__ import annotations
@@ -35,10 +43,13 @@ _PKG = Path(__file__).resolve().parents[1]
 
 _FAST = "  return a.act <= 1 && a.out_act <= 1;"
 
-# name: [(source file, text, replacement)]
+_GB_PLAN = "../ops/cuda/grid_encode.py"
+
+# name: [(source file under csrc/, or a path from there, text, replacement)]
 ABLATIONS = {
     # MB without its weight gradient (the dgrad chain and dx stay).
-    "mb_no_wgrad": [("fused_mlp_bwd.cu", " wgrad_bf16(a,", " if (a.batch < 0) wgrad_bf16(a,"),
+    "mb_no_wgrad": [("fused_mlp_bwd.cu", " wgrad_bf16<R>(a,",
+                     " if (a.batch < 0) wgrad_bf16<R>(a,"),
                     ("fused_mlp_bwd.cu", "        f32_wgrad<",
                      "        if (a.batch < 0) f32_wgrad<")],
     # M and MB with the switch over every activation inlined at each call
@@ -92,15 +103,74 @@ ABLATIONS = {
                          "constexpr int kThreadsF32 = 256;")],
     # MB's fp32 weight gradient in 8 x 8 register blocks (16 float4 loads
     # per 256 FMAs) in place of 4 x 4 (8 per 64).
-    "f32_wgrad_8x8": [("mlp_common.cuh", "template <bool kActA, bool kFast, int T = 4>",
-                       "template <bool kActA, bool kFast, int T = 8>")],
-    # GB with plain stores in place of its float2 atomics.
-    "gb_plain_stores": [("grid_encode_bwd.cu",
-                         "atomicAdd(reinterpret_cast<float2*>(p), make_float2(",
-                         "*reinterpret_cast<float2*>(p) = (make_float2(")],
-    # GB with every level on direct atomics (no shared-memory levels).
-    "gb_no_shared_levels": [("grid_encode_bwd.cu",
-                             "if (uint64_t(size) * F <= kSharedFloats) {", "if (false) {")],
+    "f32_wgrad_8x8": [("mlp_common.cuh", "template <int R, bool kActA, bool kFast, int T = 4>",
+                       "template <int R, bool kActA, bool kFast, int T = 8>")],
+    # GB and RS with plain stores and adds in place of their atomics, global
+    # (float2, float4) and shared (what contention costs).
+    "gb_plain_stores": [
+        ("scatter_common.cuh",
+         "    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));",
+         "    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);"),
+        ("scatter_common.cuh",
+         "    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));",
+         "    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);"),
+        ("scatter_common.cuh", "float v) { atomicAdd(p, v); }", "float v) { *p += v; }")],
+    # GB with every level on direct atomics (no shared-memory windows).
+    "gb_no_shared_levels": [(_GB_PLAN, "GB_MAX_PARTS = 2", "GB_MAX_PARTS = 0")],
+    # GB with windows for every level that fits in two CTAs, and for levels
+    # whose rows take 64, 128, 512 or 1024 updates or more over the batch,
+    # in place of 256.
+    "gb_hits_0": [(_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 0")],
+    "gb_hits_64": [(_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 64")],
+    "gb_hits_128": [(_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 128")],
+    "gb_hits_512": [(_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 512")],
+    "gb_hits_1024": [(_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 1024")],
+    # GB's two-part levels as 2-CTA clusters in distributed shared memory,
+    # every level that fits windowed (at 256 no level of the repo's grids
+    # takes two parts).
+    "gb_cluster_parts": [("grid_encode_bwd.cu", "constexpr bool kClusterParts = false;",
+                          "constexpr bool kClusterParts = true;"),
+                         (_GB_PLAN, "GB_CLUSTER_PARTS = False", "GB_CLUSTER_PARTS = True"),
+                         (_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 0")],
+    # GB's sample loop one sample at a time (no loads issued ahead).
+    "gb_unroll_1": [("grid_encode_bwd.cu", "constexpr int kUnroll = 4;",
+                     "constexpr int kUnroll = 1;")],
+    # GB's window chunks sized for 2, 4 and 16 updates per row in place of 8.
+    "gb_reuse_2": [(_GB_PLAN, "GB_REUSE = 8", "GB_REUSE = 2")],
+    "gb_reuse_4": [(_GB_PLAN, "GB_REUSE = 8", "GB_REUSE = 4")],
+    "gb_reuse_16": [(_GB_PLAN, "GB_REUSE = 8", "GB_REUSE = 16")],
+    # GB's direct items of 8192 samples in place of 2048.
+    "gb_direct_chunk_8192": [(_GB_PLAN, "GB_DIRECT_CHUNK = 2048", "GB_DIRECT_CHUNK = 8192")],
+    # GB's windows at most 110 KB (two CTAs per SM; 32,768-row levels at F
+    # = 2 in three parts) in place of the whole 227 KB, every level that
+    # fits windowed.
+    "gb_window_110k": [(_GB_PLAN, "GB_WINDOW_BYTES = 232448 - 1024",
+                        "GB_WINDOW_BYTES = 110 * 1024"),
+                       (_GB_PLAN, "GB_MAX_PARTS = 2", "GB_MAX_PARTS = 3"),
+                       (_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 0")],
+    # GB's direct path without its 16-byte atomics for dim-0 pairs.
+    "gb_no_pair_atomics": [("grid_encode_bwd.cu", "if (r1 == r0 + 1 && (r0 & 1) == 0) {",
+                            "if (false) {")],
+    # Every grid row folded into the first 2^20 (8 MB of fp32 at F = 2):
+    # GB's direct atomics at config_btf then land in a buffer that the
+    # 50 MB L2 holds, the same number of them at the same rate of
+    # issue.  If config_btf's GB runs much faster so, the 62 MB buffer's
+    # misses in L2 set its pace; if not, the atomics' rate does.  (Results
+    # wrong by design.)
+    "gb_btf_l2_resident": [("grid_common.cuh", "    return fastmod(h, magic, size) + offset;",
+                            "    return (fastmod(h, magic, size) + offset) & 0xFFFFFu;")],
+    # RS without its shared-memory window (every chunk on direct atomics).
+    "rs_no_window": [("row_scatter.cu", "  if (span <= window_floats) {", "  if (false) {")],
+    # RS with chunks of 4096, 16,384 and 32,768 updates in place of 8192.
+    "rs_chunk_4096": [("row_scatter.cu", "constexpr int kRsPerThread = 16;",
+                       "constexpr int kRsPerThread = 8;")],
+    "rs_chunk_16384": [("row_scatter.cu", "constexpr int kRsPerThread = 16;",
+                        "constexpr int kRsPerThread = 32;")],
+    "rs_chunk_32768": [("row_scatter.cu", "constexpr int kRsPerThread = 16;",
+                        "constexpr int kRsPerThread = 64;")],
+    # RS with a 200 KB window (one CTA per SM) in place of 96 KB.
+    "rs_window_200k": [("row_scatter.cu", "constexpr int kRsWindowBytes = 96 * 1024;",
+                        "constexpr int kRsWindowBytes = 200 * 1024;")],
 }
 
 BATCH = 1 << 18
@@ -138,8 +208,12 @@ def time_kernels(config: str, full: bool) -> dict:
     """Times GB, M and MB of the ``tcnn_tpu_torch`` on ``sys.path``."""
     from tcnn_tpu_torch import BF16_POLICY, create_from_config
     from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch import Policy
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
-    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd, grid_encode_fwd
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
+                                                     grid_encode_fwd)
+    from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -165,7 +239,9 @@ def time_kernels(config: str, full: bool) -> dict:
         for label, dims, soa, cdt in (
                 ("sdf", [(16, 64), (64, 64), (64, 1)], True, torch.float32),
                 ("config_hash", [(32, 64), (64, 64), (64, 3)], True, torch.float32),
-                ("config_btf", [(40, 64), (64, 64), (64, 64), (64, 3)], False, torch.bfloat16)):
+                ("config_btf", [(40, 64), (64, 64), (64, 64), (64, 3)], False, torch.bfloat16),
+                ("config_oneblob", [(128, 128)] * 5 + [(128, 3)], False, torch.bfloat16),
+                ("config_oneblob", [(128, 128)] * 5 + [(128, 3)], False, torch.float32)):
             ws_ = [(torch.rand(d, generator=gen, device=dev) * 2 - 1) * (6.0 / sum(d)) ** 0.5
                    for d in dims]
             x_ = torch.rand((dims[0][0], BATCH) if soa else (BATCH, dims[0][0]),
@@ -176,8 +252,31 @@ def time_kernels(config: str, full: bool) -> dict:
                                                               torch.float32, soa, False))
             out[f"MB {kind}"] = graph_ms(lambda: fused_mlp_bwd(ws_, x_, g_, relu, none, cdt,
                                                                soa, False))
-            if cdt == torch.float32:
+            if cdt == torch.float32 and label != "config_oneblob":
                 out[f"check {kind}"] = fp32_check(ws_, x_, g_, soa)
+
+        # GB at the SDF step (surface points, fp32) and at config_btf (bf16),
+        # RS on the eikonal step's (rows, g)
+        smodel = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
+        sspec = smodel.network.encoding.spec
+        slive = list(range(sspec.n_levels))
+        stable = (torch.rand(sspec.n_params, generator=gen, device=dev) * 2 - 1)
+        xs, xv = sdf.sample_points(gen, BATCH, dev)
+        sdc = torch.randn((sspec.n_output_dims, BATCH), generator=gen, device=dev)
+        out["GB sdf"] = graph_ms(lambda: grid_encode_bwd(sspec, stable, xs, sdc, slive))
+        ddx = torch.randn((BATCH, 3), generator=gen, device=dev)
+        bb = grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive, need_dcols=False,
+                                 need_x=False)
+        out["RS sdf"] = graph_ms(lambda: row_scatter_add(bb.rows, bb.g, sspec.n_entries))
+        btf = create_from_config(6, 3, str(Path(config).parent / "config_btf.json"),
+                                 policy=BF16_POLICY)
+        bspec = btf.network.encoding.nested[0].spec
+        blive = list(range(bspec.n_levels))
+        btable = torch.zeros(bspec.n_params, dtype=torch.bfloat16, device=dev)
+        bx = torch.rand((BATCH, 6), generator=gen, device=dev)[:, :4]
+        bdc = torch.randn((BATCH, 40), generator=gen, device=dev).to(torch.bfloat16)
+        bdc = bdc[:, :bspec.n_output_dims].t()
+        out["GB config_btf"] = graph_ms(lambda: grid_encode_bwd(bspec, btable, bx, bdc, blive))
         if full:
             out["GB no level"] = graph_ms(lambda: grid_encode_bwd(spec, table, x, dfeats, []))
             for lv in live:
@@ -219,13 +318,91 @@ def fp32_check(ws, x, g, soa: bool) -> str:
             f"{rows.numel()} of {a.shape[0]} ({explained} explained by a switched ReLU)")
 
 
+def atomic_counts(batch: int = BATCH, seed: int = 0) -> dict:
+    """Global atomics of one launch of GB (config_hash, the SDF step's
+    surface points, config_btf) and of RS (the eikonal step's (rows, g)),
+    counted from the kernels' code on inputs drawn as ``chip_smoke.py``
+    draws them: each a float2 (float4 at F = 4, scalar at F = 1, as
+    ``scatter_vec``) unless said otherwise.
+
+      GB, the design before this one (one thread per sample and level):
+        a level of at most 4096 values was summed per 4096-sample chunk in
+        shared memory and flushed with one scalar atomic per nonzero value;
+        any other level took one atomic per corner of nonzero weight.
+      GB now (``gb_plan``): a window item flushes one atomic per row that
+        its samples touched; a direct item one per corner, one float4 for
+        two dim-0 neighbours on rows r, r + 1 with r even (F = 2).
+      RS before: one atomic per update; now: per chunk of 8192 updates
+        (csrc/row_scatter.cu) one per distinct row where the chunk's row
+        range fits the 96 KB window, else one per update."""
+    import torch
+
+    from ..ops.cuda.grid_encode import gb_plan
+    from ..ops.grid_ops import build_indices_weights
+    from .. import Policy, create_from_config
+    from ..samples import fit_sdf_eikonal as sdf
+
+    gen = torch.Generator().manual_seed(seed)
+    configs = _PKG.parent / "configs"
+    cases = {
+        "config_hash": (create_from_config(2, 3, str(configs / "config_hash.json"),
+                                           device="cpu").network.encoding.spec,
+                        torch.rand((batch, 2), generator=gen)),
+        "sdf": (create_from_config(3, 1, sdf.CONFIG, policy=Policy(),
+                                   device="cpu").network.encoding.spec,
+                sdf.sample_points(gen, batch, "cpu")[0]),
+        "config_btf": (create_from_config(6, 3, str(configs / "config_btf.json"),
+                                          device="cpu").network.encoding.nested[0].spec,
+                       torch.rand((batch, 4), generator=gen)),
+    }
+    out = {}
+    for name, (spec, x) in cases.items():
+        F, C = spec.n_features_per_level, 1 << spec.n_dims
+        before = after = 0
+        plan = gb_plan(spec, list(range(spec.n_levels)), batch)
+        for li, lv in enumerate(spec.levels):
+            idx, ws = build_indices_weights(spec, x, [li])
+            rows, live = idx.reshape(C, batch), ws.reshape(C, batch) != 0
+            if lv.size * F <= 4096:
+                for b0 in range(0, batch, 4096):
+                    before += F * int(torch.unique(rows[:, b0:b0 + 4096][live[:, b0:b0 + 4096]]).numel())
+            else:
+                before += int(live.sum()) * max(1, F // 4 if F % 4 == 0 else F // 2 if F % 2 == 0 else F)
+            for _, lo, n, b0, b1 in plan.items[plan.items[:, 0] == li].tolist():
+                r, ok = rows[:, b0:b1] - lv.offset, live[:, b0:b1]
+                if n:
+                    ok = ok & (r >= lo) & (r < lo + n)
+                    after += int(torch.unique(r[ok]).numel())
+                elif F == 2:   # pairs of corners c, c + 1 (dim 0)
+                    r0, r1 = r[0::2], r[1::2]
+                    pair = (r1 == r0 + 1) & (r0 % 2 == 0) & (ok[0::2] | ok[1::2])
+                    after += int(pair.sum()) + int((ok[0::2] & ~pair).sum()) + int(
+                        (ok[1::2] & ~pair).sum())
+                else:
+                    after += int(ok.sum())
+            del idx, ws, rows, live
+        out[f"GB {name}"] = (before, after)
+    # RS on GG's level-major rows at the SDF grid (x_vol)
+    spec, _ = cases["sdf"]
+    xv = sdf.sample_points(torch.Generator().manual_seed(seed + 1), batch, "cpu")[1]
+    idx, _ = build_indices_weights(spec, xv, list(range(spec.n_levels)))
+    rows = idx.reshape(-1)
+    after = 0
+    for i0 in range(0, rows.numel(), 8192):
+        r = rows[i0:i0 + 8192]
+        span = int(r.max() - r.min() + 1)
+        after += int(torch.unique(r).numel()) if span * 2 <= 96 * 1024 // 4 else r.numel()
+    out["RS sdf"] = (rows.numel(), after)
+    return out
+
+
 def _copy(out_dir: Path, name: str, patches) -> Path:
     root = out_dir / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_PKG, root / "tcnn_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     for fname, old, new in patches:
-        src = root / "tcnn_tpu_torch" / "csrc" / fname
+        src = (root / "tcnn_tpu_torch" / "csrc" / fname).resolve()
         text = src.read_text()
         if old not in text:
             raise RuntimeError(f"ablation {name}: {old!r} not in {fname}")
@@ -250,7 +427,16 @@ def _child(args) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=str(_PKG.parent / "build" / "ablations"))
+    parser.add_argument("--only", nargs="*", default=None,
+                        help="run the ablations whose names start with one of these")
+    parser.add_argument("--atomics", action="store_true",
+                        help="count GB's and RS's global atomics on the CPU and stop")
     args = parser.parse_args()
+    if args.atomics:
+        for what, (before, after) in atomic_counts().items():
+            print(f"{what}: {before} global atomics per launch before, {after} now "
+                  f"(B = {BATCH}, atomic_counts)")
+        return
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -258,24 +444,31 @@ def main() -> None:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     config = str(_PKG.parent / "configs" / "config_hash.json")
     out_dir = Path(args.out)
-    roots = {name: _copy(out_dir, name, patches) for name, patches in ABLATIONS.items()}
+    roots = {name: _copy(out_dir, name, patches) for name, patches in ABLATIONS.items()
+             if args.only is None or name.startswith(tuple(args.only))}
     builds = {name: _run(root, "build") for name, root in roots.items()}
-    results = {"tree": time_kernels(config, full=True)}   # builds the tree's kernels meanwhile
-    for name, proc in builds.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"ablation {name}: build failed")
+    print(f"# {smi}; device ms per call at B = {BATCH}: config_hash at BF16_POLICY unless "
+          f"labelled", flush=True)
+
+    def show(variant, times):
+        for what, v in times.items():
+            print(f"{variant}: {what}: {v:.4f} ms" if isinstance(v, float) else
+                  f"{variant}: {what}: {v}", flush=True)
+
+    show("tree", time_kernels(config, full=True))   # builds the tree's kernels meanwhile
+    failed = []
     for name, root in roots.items():
+        if builds[name].wait() != 0:
+            failed.append(f"{name} (build)")
+            continue
         proc = _run(root, "time", config, stdout=subprocess.PIPE, text=True)
         stdout, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"ablation {name}: timing failed")
-        results[name] = json.loads(stdout.strip().splitlines()[-1])
-    print(f"# {smi}; device ms per call at B = {BATCH}: config_hash at BF16_POLICY unless "
-          f"labelled")
-    for variant, times in results.items():
-        for what, v in times.items():
-            print(f"{variant}: {what}: {v:.4f} ms" if isinstance(v, float) else
-                  f"{variant}: {what}: {v}")
+            failed.append(f"{name} (timing)")
+            continue
+        show(name, json.loads(stdout.strip().splitlines()[-1]))
+    if failed:
+        raise RuntimeError(f"ablations failed: {', '.join(failed)}")
 
 
 if __name__ == "__main__":

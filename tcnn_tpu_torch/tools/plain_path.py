@@ -6,11 +6,14 @@ and the plain versions of GI, GG and RS (``plain_sdf_loss_and_grads``).
 (``model.trainer``, ``samples/fit_sdf_eikonal.py``) against it on the
 card; on the CPU the wrappers take these same plain versions.
 
-Handles a grid alone (SoA features, config_hash) and a concatenating
+Handles a grid alone (SoA features, config_hash), a concatenating
 Composite of grids and parameter-free encodings (AoS features in the
-compute dtype, config_btf).  ``relu_flip_rows`` names the samples whose
+compute dtype, config_btf) and a parameter-free encoding alone (AoS,
+config_oneblob).  ``relu_flip_rows`` names the samples whose
 fused-MLP input gradient differs from the plain one by a ReLU that lies
-within rounding of 0 and switched.
+within rounding of 0 and switched; ``rounding_flip_rows`` the rows of a
+deep bf16 MLP's output that a hidden value rounded to its other bf16
+neighbour, where it lies on a rounding boundary, explains.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from ..ops.grid_ops import live_levels
 def grid_parts(model, x: torch.Tensor) -> List[tuple]:
     """(parameter-name prefix, grid encoding, its input, first feature
     column) of each grid of the model's encoding: the encoding itself, or
-    the nested grids of a Composite."""
+    the nested grids of a Composite; none for another encoding."""
     enc = model.network.encoding
     if hasattr(enc, "spec"):
         return [("encoding.", enc, x, 0)]
+    if not hasattr(enc, "nested"):
+        return []
     parts, col = [], 0
     for i, (e, (begin, nd)) in enumerate(zip(enc.nested, enc.slices)):
         if hasattr(e, "spec"):
@@ -58,6 +63,8 @@ def plain_features(model, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
 
     if hasattr(enc, "spec"):
         return grid(enc, x, True), True
+    if not hasattr(enc, "nested"):   # parameter-free, plain PyTorch in the model too
+        return enc(x).to(cdt), False
     parts = [grid(e, x[:, b:b + nd], False) if hasattr(e, "spec") else e(x[:, b:b + nd])
              for e, (b, nd) in zip(enc.nested, enc.slices)]
     return torch.cat([p.to(cdt) for p in parts], dim=1), False
@@ -194,6 +201,70 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     grads.update({f"network.layers.{i}": a + b for i, (a, b) in enumerate(zip(dws, dws2))})
     loss = (surf + EIKONAL_WEIGHT * eik).detach()
     return (loss, grads, scale) if table_scale else (loss, grads)
+
+
+# A sum of n fp32 products taken in another order moves by at most
+# n·2^-24 of Σ|h·w| (first order); at the widths of the repo (n <= 128),
+# 2^-17, and a factor 2 of margin.  A bf16 hidden value whose fp32
+# pre-activation lies this near a rounding midpoint may round either way
+# in two correct sums.
+SUM_SLACK = 2.0 ** -16
+
+
+def _bf16_other(r: torch.Tensor, rounded: torch.Tensor) -> torch.Tensor:
+    """For r >= 0 and its bf16 rounding, the bf16 neighbour of ``rounded``
+    on r's side (above it where r equals it): the other value r may round
+    to.  Bits of non-negative bf16 values grow with the value."""
+    bits = rounded.to(torch.bfloat16).view(torch.int16)
+    step = torch.where(r < rounded, -1, 1).to(torch.int16)
+    return (bits + step).view(torch.bfloat16).float()
+
+
+def rounding_flip_rows(weights: Sequence[torch.Tensor], x: torch.Tensor,
+                       rows: torch.Tensor, got_rows: torch.Tensor, tol: torch.Tensor,
+                       input_soa: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Which rows of a bf16 ReLU MLP's output (``fused_mlp_plain``, output
+    activation None, fp32 output) another correct rounding explains.
+
+    Over several bf16 layers a hidden value whose fp32 pre-activation lies
+    on a rounding boundary rounds either way in two correct sums, and the
+    sample's whole output row moves.  For each sample in ``rows`` the plain
+    forward is rerun for these rows alone, as it is and with one or two of
+    its ``FLIP_CANDIDATES`` hidden values nearest a bf16 rounding midpoint
+    (by distance / Σ|h·w|, all layers) rounded to their other neighbour,
+    each flipped one within ``SUM_SLACK``.  A row is explained when some
+    variant lies within ``tol`` (its (n, D_out) bound) of ``got_rows`` in
+    every entry.  Returns (explained (n,) bool, the distance of each
+    sample's hidden value nearest a midpoint (n,))."""
+    cdt, n = torch.bfloat16, rows.numel()
+    ws = [w.to(cdt).float() for w in weights]
+    h0 = (x.t() if input_soa else x)[rows].to(cdt).float()
+    h, dists = h0, []
+    for w in ws[:-1]:
+        r = torch.relu(h @ w)
+        down = r.to(cdt).float()
+        mid = (down + _bf16_other(r, down)) / 2
+        d = (r - mid).abs() / (h.abs() @ w.abs()).clamp_min(1e-30)
+        dists.append(torch.where(r > 0, d, torch.full_like(d, float("inf"))))
+        h = down
+    near_val, near_idx = torch.cat(dists, dim=1).topk(FLIP_CANDIDATES, dim=1, largest=False)
+    variants = [()] + [c for k in (1, 2) for c in combinations(range(FLIP_CANDIDATES), k)]
+    width = ws[0].shape[1]
+    flips = torch.zeros((len(variants), n, width * (len(ws) - 1)), dtype=torch.bool,
+                        device=h0.device)
+    ok = torch.ones((len(variants), n), dtype=torch.bool, device=h0.device)
+    for v, cand in enumerate(variants):
+        for c in cand:
+            flips[v].scatter_(1, near_idx[:, c:c + 1], True)
+            ok[v] &= near_val[:, c] <= SUM_SLACK
+    h = h0[None].expand(len(variants), -1, -1)
+    for i, w in enumerate(ws[:-1]):
+        r = torch.relu(h @ w)
+        down = r.to(cdt).float()
+        h = torch.where(flips[..., i * width:(i + 1) * width], _bf16_other(r, down), down)
+    y = h @ ws[-1]
+    match = ((y - got_rows.float()[None]).abs() <= tol[None]).all(dim=2) & ok
+    return match.any(dim=0), near_val[:, 0]
 
 
 # Flipped ReLUs may lie this far from 0, relative to Σ|h·w| of their

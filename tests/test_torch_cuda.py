@@ -600,15 +600,25 @@ def test_fused_mlp_kernels_at_batch_edges(cuda, dtype, edge):
 F32, BF16 = torch.float32, torch.bfloat16
 
 
+# The most hidden layers of width 128 that kernel MB takes at 32 -> 128 ->
+# 3, ReLU (csrc/fused_mlp_bwd.cu, at half tiles): fp32 holds per hidden
+# layer 128 x 36 floats, beside 18,112 floats of input, dz_out and one
+# layer's weights, (232,448 / 4 - 18,112) / 4,608 = 8.7; bf16 holds
+# 18,432 bytes (h_k and its act' bits), beside 43,008, 10.3.
+MAX_HIDDEN_128 = {F32: 8, BF16: 10}
+
+
 @pytest.mark.parametrize("dtype,width,n_hidden", [
     (F32, 128, 8), (F32, 128, 3), (F32, 128, 2), (F32, 64, 8), (F32, 64, 1), (F32, 16, 1),
-    (BF16, 128, 8), (BF16, 128, 3), (BF16, 128, 2), (BF16, 64, 1), (BF16, 16, 1)])
+    (BF16, 128, 11), (BF16, 128, 3), (BF16, 128, 2), (BF16, 64, 1), (BF16, 16, 1),
+    (F32, 128, 9)])
 def test_fused_mlp_kernels_at_depth(cuda, dtype, width, n_hidden):
     """Depths whose weights do not stay resident (staged per layer and
     tile, dW added in device memory) and n_hidden = 1, ReLU hidden layers.
-    M takes every depth; where one CTA of MB needs more shared memory than
-    an SM has (the per-layer activations of width 128 at depth 8), MB
-    raises.  bf16 stops at depth 3 (non-resident at width 128): over eight
+    M takes every depth; width 128 beyond depth 4 runs MB at half tiles,
+    and where one CTA of MB needs more shared memory than an SM has even
+    so (fp32 beyond depth 8, bf16 beyond 10), MB raises, stating its
+    limit.  bf16 stops at depth 3 (non-resident at width 128): over eight
     bf16 layers a hidden value rounded to the other bf16 neighbour
     compounds beyond the bf16 bound in M's output too, so depth 8 is held
     in fp32, and in bf16 only MB's refusal is checked."""
@@ -620,9 +630,10 @@ def test_fused_mlp_kernels_at_depth(cuda, dtype, width, n_hidden):
                                               dtype == torch.bfloat16, relu, 0)
     if smem > 232448:
         ws, x, g = mlp_inputs(cuda, dims, 4133, 12, False)
-        with pytest.raises(NotImplementedError, match="shared memory"):
+        limit = MAX_HIDDEN_128[dtype]
+        with pytest.raises(NotImplementedError, match=f"at most {limit} hidden layers"):
             fused_mlp_bwd(ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype)
-        assert (width, n_hidden) == (128, 8)
+        assert width == 128 and n_hidden == limit + 1
         if dtype == torch.float32:
             args = (ws, x, Activation.RELU, Activation.NONE, dtype, torch.float32)
             torch.testing.assert_close(fused_mlp_fwd(*args), fused_mlp_plain(*args),
@@ -655,3 +666,127 @@ def test_fused_mlp_bwd_is_bit_identical_across_launches(cuda, dtype, dims):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first_dws, again_dws))
     assert torch.equal(first_dx, again_dx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [4133, (1 << 16) - 3])
+def test_fused_mlp_kernels_at_config_oneblob_shape(cuda, dtype, batch):
+    """configs/config_oneblob.json's MLP, 128 -> 128 x 5 -> 3, ReLU: MB
+    runs it at half tiles (64 rows in bf16, 32 in fp32; at full tiles it
+    needs 260,096 and 276,608 bytes), M as for every depth; dW held as at
+    the other shapes, bf16 dx rows as config_btf's (relu_flip_rows)."""
+    from tcnn_tpu_torch.ops.cuda import kernels
+
+    relu = list(Activation).index(Activation.RELU)
+    bf16 = dtype == torch.bfloat16
+    assert kernels().fused_mlp_bwd_smem_bytes(128, 3, 128, 6, bf16, relu, 0) == (
+        164864 if bf16 else 196864)
+    check_m_and_mb(cuda, [(128, 128)] * 5 + [(128, 3)], batch, dtype, seed=batch % 97,
+                   soa_in=False)
+
+
+# Kernel RS's geometry (csrc/row_scatter.cu): updates per CTA and the
+# fp32 values of a CTA's window.
+RS_CHUNK = 8192
+RS_WINDOW_FLOATS = 96 * 1024 // 4
+
+
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["one row", "window - 1 row", "window", "window + 1 row",
+                                  "wide unsorted", "out of range"])
+def test_row_scatter_window_edges(cuda, f, case):
+    """RS where the redesign branches: every update of a chunk on one row;
+    chunks whose row range is one row under, exactly at and one row over
+    the shared-memory window; unsorted rows over a range wider than the
+    window; indices out of range (skipped).  Each as contiguous g, as row
+    10's column streams and with a bf16 result."""
+    rng = np.random.default_rng(7 * f + len(case))
+    win_rows = RS_WINDOW_FLOATS // f
+    n_rows = 3 * win_rows + 11
+    m = 3 * RS_CHUNK + 5   # three full chunks and a ragged one
+    if case == "one row":
+        idx = np.full(m, 17)
+    elif case.startswith("window"):
+        span = win_rows + {"window - 1 row": -1, "window": 0, "window + 1 row": 1}[case]
+        lo = rng.integers(0, n_rows - span, m // RS_CHUNK + 1)
+        idx = np.concatenate([rng.permutation(np.concatenate(
+            [[l, l + span - 1], rng.integers(l, l + span, RS_CHUNK - 2)])) for l in lo])[:m]
+    elif case == "wide unsorted":
+        idx = rng.integers(0, n_rows, m)
+    else:
+        idx = rng.integers(-n_rows, 2 * n_rows, m)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(m, f)).astype(np.float32)).to(cuda)
+    scale = row_scatter_add_plain(idx, g.abs(), n_rows)
+    want = row_scatter_add_plain(idx, g, n_rows)
+    got = row_scatter_add(idx, g, n_rows)
+    torch.cuda.synchronize()
+    assert_scatter_close(got, want, scale)
+    assert_scatter_close(scatter_add_cols(idx, g.t().contiguous(), n_rows), want, scale)
+    bf = row_scatter_add(idx, g, n_rows, torch.bfloat16)
+    assert_scatter_close(bf, row_scatter_add_plain(idx, g, n_rows, torch.bfloat16), scale)
+    untouched = scale == 0
+    assert bool((got[untouched] == 0).all()) and bool((bf[untouched] == 0).all())
+
+
+@pytest.mark.parametrize("D", [2, 3, 4])
+@pytest.mark.parametrize("F", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_encode_bwd_at_32768_row_levels(cuda, monkeypatch, D, F, dtype):
+    """GB where its plan branches: hashed levels of 32,768 rows, two
+    windows each at F = 2 (256 KB of fp32), direct atomics at F = 4, and
+    the coarse levels in one window; B = 2^16, every level that fits
+    windowed (GB_MIN_HITS 0).  Rows no sample touches stay exact zeros."""
+    from tcnn_tpu_torch.ops.cuda import grid_encode as ge
+    from tcnn_tpu_torch.ops.cuda.grid_encode import gb_plan
+
+    monkeypatch.setattr(ge, "GB_MIN_HITS", 0)
+    monkeypatch.setattr(ge, "_gb_plans", {})
+    spec = grid_ops.make_grid_spec(D, 8, F, 15, 8, 2.0)
+    assert spec.levels[-1].size == 32768
+    live = list(range(spec.n_levels))
+    items = gb_plan(spec, live, 1 << 16).items
+    fine = items[items[:, 0] == spec.n_levels - 1]
+    assert set(fine[:, 2].tolist()) == ({16384} if F == 2 else {0})
+    rng = np.random.default_rng(D * F)
+    x = torch.from_numpy(rng.uniform(0, 1, (1 << 16, D)).astype(np.float32)).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(8 * F, 1 << 16)).astype(np.float32))
+    dcols = dcols.to(dtype).to(cuda)
+    flat = torch.zeros(spec.n_params, dtype=dtype, device=cuda)
+    got = grid_encode_bwd(spec, flat, x, dcols, live)
+    torch.cuda.synchronize()
+    scale = grid_bwd_bound(spec, flat, x, dcols, live)
+    assert_grid_grad_close(got, grid_encode_bwd_plain(spec, flat, x, dcols, live), scale)
+    assert bool((got[scale == 0] == 0).all())
+
+
+@pytest.mark.parametrize("fit", ["exactly", "one row over"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_encode_bwd_at_the_window_limit(cuda, monkeypatch, fit, dtype):
+    """A level of exactly one window's rows, and one row more (then cut in
+    two parts), with GB's window shrunk to the finest level of a 3-D
+    Smoothstep grid (the SDF sample's geometry at 2^12-row tables); and
+    dead levels (static max_level) left at exact zeros."""
+    from tcnn_tpu_torch.ops.cuda import grid_encode as ge
+
+    spec = grid_ops.make_grid_spec(3, 8, 2, 12, 4, 1.5,
+                                   interpolation=InterpolationType.SMOOTHSTEP)
+    size = max(lv.size for lv in spec.levels)
+    rows = size if fit == "exactly" else size - 1
+    monkeypatch.setattr(ge, "GB_WINDOW_BYTES", rows * 2 * 4)
+    monkeypatch.setattr(ge, "GB_MIN_HITS", 0)
+    monkeypatch.setattr(ge, "_gb_plans", {})
+    rng = np.random.default_rng(3)
+    B = 20000
+    x = torch.from_numpy(rng.uniform(0, 1, (B, 3)).astype(np.float32)).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(16, B)).astype(np.float32)).to(dtype).to(cuda)
+    flat = torch.zeros(spec.n_params, dtype=dtype, device=cuda)
+    for live in (list(range(8)), list(range(5))):
+        items = ge.gb_plan(spec, live, B).items
+        split = any(spec.levels[lv].size > rows for lv in live)
+        assert bool((items[:, 1] > 0).any()) == split == (fit != "exactly")
+        got = grid_encode_bwd(spec, flat, x, dcols, live)
+        torch.cuda.synchronize()
+        scale = grid_bwd_bound(spec, flat, x, dcols, live)
+        assert_grid_grad_close(got, grid_encode_bwd_plain(spec, flat, x, dcols, live), scale)
+        assert bool((got[scale == 0] == 0).all())

@@ -161,7 +161,7 @@ def test_indices_and_weights_equal_jax(case):
 
 def test_rng_hash_waits_for_slice_3():
     _, tspec = _specs(2, 4, 2, 6, 8, 2.0, hash_type=tcommon.HashType.RNG)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7, slice 5"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 7\)"):
         tops.grid_encode(tspec, torch.zeros(tspec.n_params), torch.rand(8, 2))
 
 

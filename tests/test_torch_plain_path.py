@@ -4,7 +4,8 @@ against on the card.
 
   * On the CPU the model's own path takes the same plain versions, so the
     trainer's loss and gradients, and its answers, equal the plain path's
-    to the last bit, for config_hash and a config_btf-structured model.
+    to the last bit, for config_hash, a config_btf-structured model and
+    config_oneblob (a parameter-free encoding alone).
   * ``relu_flip_rows`` finds a fused-MLP input-gradient row that differs
     from the plain one by a switched ReLU near 0, only while that ReLU's
     pre-activation lies within the bound of its compute dtype
@@ -12,6 +13,9 @@ against on the card.
     differs in another way.  Rows are held within 2e-2 (bf16) or 1e-4
     (fp32) of the gradient's largest magnitude, as ``chip_smoke.py`` holds
     them.
+  * ``rounding_flip_rows`` explains a deep bf16 MLP's output row computed
+    with a hidden value on a rounding boundary rounded the other way, and
+    no row moved otherwise.
 """
 
 import numpy as np
@@ -33,6 +37,9 @@ from test_torch_slice import CONFIG, small_btf_config
 def _model(which, policy):
     if which == "config_hash":
         model = tcnn.create_from_config(2, 3, CONFIG, policy=policy, device="cpu")
+    elif which == "config_oneblob":
+        model = tcnn.create_from_config(2, 3, CONFIG.replace("config_hash", "config_oneblob"),
+                                        policy=policy, device="cpu")
     else:
         model = tcnn.create_from_config(6, 3, small_btf_config(), policy=policy,
                                         device="cpu")
@@ -47,7 +54,7 @@ def _model(which, policy):
     return model, x, target
 
 
-@pytest.mark.parametrize("which", ["config_hash", "config_btf"])
+@pytest.mark.parametrize("which", ["config_hash", "config_btf", "config_oneblob"])
 @pytest.mark.parametrize("policy", [tcnn.BF16_POLICY, tcnn.DEFAULT_POLICY],
                          ids=["bf16", "fp32"])
 def test_plain_path_equals_the_model_on_the_cpu(which, policy):
@@ -207,3 +214,43 @@ def test_relu_flip_rows_fp32_flips_only_within_its_bound(monkeypatch):
     assert float(nearest[0]) > bound
     monkeypatch.setattr(plain_path, "FLIP_NEAR_F32", float(nearest[0]))
     assert bool(relu_flip_rows(**kw)[0].all())
+
+
+def test_rounding_flip_rows_explains_another_rounding_only():
+    """``rounding_flip_rows`` at config_oneblob's MLP (128 -> 128 x 5 -> 3,
+    bf16): an output row computed with the hidden value nearest a bf16
+    rounding midpoint rounded the other way is explained, within a bound
+    far below the change; the plain row itself is (no flip); a row moved
+    by anything else is not."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_plain
+    from tcnn_tpu_torch.tools.plain_path import (SUM_SLACK, _bf16_other,
+                                                 rounding_flip_rows)
+
+    rng = np.random.default_rng(9)
+    dims = [(128, 128)] * 5 + [(128, 3)]
+    ws = [torch.from_numpy(rng.uniform(-1, 1, d).astype(np.float32) * np.sqrt(6 / sum(d)))
+          for d in dims]
+    x = torch.from_numpy(rng.uniform(-1, 1, (512, 128)).astype(np.float32))
+    bf16 = torch.bfloat16
+    y = fused_mlp_plain(ws, x, Activation.RELU, Activation.NONE, bf16, torch.float32)
+    # the other rounding of the first layer's value nearest a midpoint
+    wb = [w.to(bf16).float() for w in ws]
+    h0 = x.to(bf16).float()
+    r = torch.relu(h0 @ wb[0])
+    down = r.to(bf16).float()
+    near = (r - (down + _bf16_other(r, down)) / 2).abs() / (h0.abs() @ wb[0].abs())
+    near[r == 0] = float("inf")
+    s, u = divmod(int(near.argmin()), 128)
+    assert float(near[s, u]) <= SUM_SLACK
+    h = down[s:s + 1].clone()
+    h[0, u] = _bf16_other(r[s:s + 1], down[s:s + 1])[0, u]
+    for w in wb[1:-1]:
+        h = torch.relu(h @ w).to(bf16).float()
+    variant = h @ wb[-1]
+    moved = float((variant - y[s]).abs().max())
+    assert moved > 0
+    tol = torch.full((1, 3), moved / 4)
+    rows = torch.tensor([s])
+    assert bool(rounding_flip_rows(ws, x, rows, variant, tol)[0].all())
+    assert bool(rounding_flip_rows(ws, x, rows, y[s:s + 1], tol)[0].all())
+    assert not bool(rounding_flip_rows(ws, x, rows, y[s:s + 1] + 4 * moved, tol)[0].any())

@@ -344,9 +344,9 @@ def _spy_plain(monkeypatch, names):
 def test_plain_sdf_step_equals_model_step_and_launch_counts(monkeypatch):
     """The plain eikonal step of tools/plain_path.py equals the model's
     step bit for bit on the CPU, where the model runs the same plain
-    versions; and the model's step runs G, M and MB twice, GB twice (the
-    surface term, and the table gradient of the first-order call, which
-    the step discards), GI, GG and RS once each."""
+    versions; and the model's step runs G, M and MB twice, GB once (the
+    surface term: the first-order call's table gradient, which the step
+    would discard, is not computed), GI, GG and RS once each."""
     model = tcnn.create_from_config(3, 1, SDF_SMALL, policy=tcnn.Policy(), device="cpu")
     with torch.no_grad():
         model.network.encoding.grid.uniform_(-1, 1, generator=torch.Generator().manual_seed(13))
@@ -362,8 +362,65 @@ def test_plain_sdf_step_equals_model_step_and_launch_counts(monkeypatch):
     # fused_mlp_plain: the two forwards and the recompute inside MB's
     # differentiable backward
     assert calls == {"grid_encode_plain": 2, "fused_mlp_plain": 3, "fused_mlp_bwd_plain": 2,
-                     "grid_encode_bwd_plain": 2, "grid_encode_bwd_input_plain": 1,
+                     "grid_encode_bwd_plain": 1, "grid_encode_bwd_input_plain": 1,
                      "grid_encode_bwd_bwd_plain": 1, "row_scatter_add_plain": 1}
+
+
+def test_input_gradient_launches_no_table_gradient(monkeypatch):
+    """``Module.input_gradient`` asks autograd for x's gradient alone: the
+    grid's backward runs GI and no GB (the engine would drop the table's
+    gradient), and the answer equals the one with GB forced."""
+    model = tcnn.create_from_config(3, 1, SDF_SMALL, policy=tcnn.Policy(), device="cpu")
+    net = model.network
+    with torch.no_grad():
+        net.encoding.grid.uniform_(-1, 1, generator=torch.Generator().manual_seed(16))
+    x = sdf.sample_points(torch.Generator().manual_seed(17), 256, "cpu")[1]
+    calls = _spy_plain(monkeypatch, ["grid_encode_bwd_plain", "grid_encode_bwd_input_plain"])
+    dx = net.input_gradient(x, 0)
+    assert calls == {"grid_encode_bwd_plain": 0, "grid_encode_bwd_input_plain": 1}
+    monkeypatch.setattr(tops, "_engine_will_use", lambda t: True)
+    assert torch.equal(net.input_gradient(x, 0), dx)
+    assert calls == {"grid_encode_bwd_plain": 1, "grid_encode_bwd_input_plain": 2}
+
+
+@pytest.mark.parametrize("ask", ["x", "table", "leaf", "both", "backward", "backward_x"])
+def test_engine_node_query_pinned(ask):
+    """The private ``torch._C._will_engine_execute_node`` behind
+    ``ops/grid_ops.py::_engine_will_use``: inside a backward it tells
+    whether the engine runs the table's node, for the table view that
+    ``grid_encode`` hands the autograd functions (a leaf cannot be asked
+    under ``autograd.grad``).  The table's gradient is computed exactly
+    when it is asked for, and then equals the plain one."""
+    spec = tops.make_grid_spec(2, 3, 2, 8, 4, 1.5)
+    gen = torch.Generator().manual_seed(18)
+    leaf = torch.nn.Parameter(torch.rand(spec.n_params, generator=gen) * 2 - 1)
+    table = leaf * 1.0   # a non-leaf table, as a policy's cast makes it
+    x = torch.rand((64, 2), generator=gen).requires_grad_()
+    seen = []
+    real = tops._engine_will_use
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tops, "_engine_will_use", lambda t: seen.append(real(t)) or seen[-1])
+        y = tops.grid_encode(spec, table, x).sum()
+        if ask == "x":
+            torch.autograd.grad(y, x)
+        elif ask == "table":
+            (g,) = torch.autograd.grad(y, table)
+        elif ask == "leaf":
+            (g,) = torch.autograd.grad(y, leaf)
+        elif ask == "both":
+            _, g = torch.autograd.grad(y, [x, leaf])
+        elif ask == "backward":
+            y.backward()
+            g = leaf.grad
+        else:
+            y.backward(inputs=[x])
+    used = ask not in ("x", "backward_x")
+    assert seen == [used]
+    if used:
+        want = tgrid.grid_encode_bwd_plain(spec, table.detach(), x.detach(),
+                                           torch.ones((spec.n_output_dims, 64)),
+                                           list(range(spec.n_levels)))
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
 
 
 def test_first_order_paths_run_no_second_order_kernel(monkeypatch):

@@ -11,7 +11,8 @@ Inputs come from numpy with a seed; ``load_jax_params`` and
     from U(±1), a trained table's scale, so that no update cancels the
     parameter it is subtracted from and magnifies that ulp.
   * one full-width config_hash step, DEFAULT_POLICY, JAX's plain path
-    (and a config_btf-structured one, tests/test_torch_btf.py):
+    (and a config_btf-structured one, tests/test_torch_btf.py, and one of
+    configs/config_oneblob.json, OneBlob into a 128 x 5 MLP):
     loss rtol 1e-5; every gradient within 1e-5 relative plus 1e-6 of its
     leaf's largest magnitude (fp32 sums in another order).  Adam's first
     step moves each stepped entry by about ±lr whatever its gradient's
@@ -28,6 +29,8 @@ Inputs come from numpy with a seed; ``load_jax_params`` and
     where |g| exceeds that tolerance, so that both gradients have the same
     sign.
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -223,6 +226,14 @@ def _step_against_jax(policy_name, grad_tol, cfg=CONFIG, n_dims=2):
 def test_full_width_fp32_training_step_equals_jax():
     _step_against_jax("DEFAULT_POLICY",
                       {"loss": 1e-5, "rel": 1e-5, "max": 1e-6, "sign": 1e-5})
+
+
+def test_config_oneblob_training_step_equals_jax():
+    """configs/config_oneblob.json (OneBlob of 64 bins, FullyFusedMLP
+    128 x 5): one fp32 step, the tolerances of the config_hash step."""
+    _step_against_jax("DEFAULT_POLICY",
+                      {"loss": 1e-5, "rel": 1e-5, "max": 1e-6, "sign": 1e-5},
+                      cfg=str(Path(CONFIG).parent / "config_oneblob.json"), n_dims=2)
 
 
 def test_full_width_bf16_training_step_equals_jax_kernels(monkeypatch):
