@@ -4,17 +4,24 @@
 // runs through every layer with the weights resident on chip and no
 // activation ever written to device memory.
 //
-// bf16 compute (the BF16_POLICY path): one CTA per 128-row batch tile,
-// 8 warps, warp w owning rows [16w, 16w+16).  The tile's input is staged
-// in shared memory as bf16, zero-padded to a multiple of 16 columns (the
-// batch tail is masked: rows past the batch are zeros and never stored).
-// Each layer's weights are staged transposed in shared memory, then every
-// warp runs mma.sync m16n8k16 bf16 products with fp32 accumulation over
-// its rows.  The activations never leave registers: the accumulators of
-// one layer are, element for element, the A fragments of the next, so the
-// activation is applied in fp32 and the result rounded to bf16 in place,
-// as _fwd_kernel does (fused_mlp.py:104-110).  The output layer writes
-// D_out columns to device memory in AoS or SoA order, in the output dtype.
+// bf16 compute (the BF16_POLICY path): persistent CTAs (persistent_ctas,
+// mlp_common.cuh) of 8 warps walk 128-row tiles; warp w owns 16 rows of
+// each, one m16 tile.  Each CTA stages every layer's
+// weights, row-major, into shared memory once, where they fit (every
+// configuration of the repo, config_oneblob's 128 -> 128 x 5 -> 3 in
+// 180 KB), else one layer per tile between barriers.  Each warp holds its
+// own input slice (bf16, zero-padded to a multiple of 16 features; rows
+// past the batch are zeros and never stored), copied by cp.async as soon
+// as its first layer has read the one before, so that it lands while the
+// hidden layers compute; with resident weights nothing else is shared and
+// no barrier separates tiles.  Products are mma.sync m16n8k16 bf16 with
+// fp32 accumulation; A fragments of the input by ldmatrix (transposed for
+// SoA input), B fragments by ldmatrix.trans of the row-major weights.  The
+// activations never leave registers: the accumulators of one layer are,
+// element for element, the A fragments of the next, so the activation is
+// applied in fp32 and the result rounded to bf16 in place, as _fwd_kernel
+// does (fused_mlp.py:104-110).  The output layer writes D_out columns to
+// device memory in AoS or SoA order, in the output dtype.
 //
 // fp32 compute (DEFAULT_POLICY): plain fp32 FMA, no TF32.  Persistent
 // CTAs of 128 threads, as many as the occupancy calculator puts on the
@@ -31,11 +38,13 @@
 // Bound on the H100.  At the config_hash shape (B = 2^18, 32 -> 64 -> 64
 // -> 3, bf16) the function reads 16 MB of bf16 input and writes 3 MB of
 // fp32 output: about 5.7 us at 3.35 TB/s, against 3.3 GFLOP, 3.4 us at the
-// 989 TFLOP/s bf16 peak: bound by device memory.  The bf16 design reads
-// each input once, keeps every activation on chip and stores only the
-// D_out real columns; each CTA stages its input tile and, layer by layer,
-// the weights (14 KB per tile at 64 x 2, from L2) in 16-byte chunks.  At
-// the SDF shape (16 -> 64 x 2 -> 1, fp32) 2.7 GFLOP of fp32 FMA take
+// 989 TFLOP/s bf16 peak: bound by device memory.  At config_oneblob's
+// 128 -> 128 x 5 -> 3, 43 GFLOP take 44 us at that peak against 70 MB,
+// 21 us: bound by the tensor cores, which mma.sync reaches only in part
+// (wgmma alone issues at the full rate).  The bf16 design reads each input
+// once, keeps every activation on chip, stores only the D_out real
+// columns and reads the weights from shared memory, staged once per CTA.
+// At the SDF shape (16 -> 64 x 2 -> 1, fp32) 2.7 GFLOP of fp32 FMA take
 // 41 us at 67 TFLOP/s against 18 MB, 5 us: bound by the FMA units.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,110 +71,220 @@ struct MlpArgs {
   int y_bf16;  // the fp32 kernel's output dtype, a flag (one instance per width)
 };
 
-// Shared memory of the bf16 kernel: the input tile (kRows x ld) and the
-// current layer's transposed weights (up to max(D_out, W) rows x ld),
-// ld = max(pad16(D_in), W) + kSkew.
-__host__ __device__ constexpr int bf16_ld(int d_in, int width) {
-  return (pad16(d_in) > width ? pad16(d_in) : width) + kSkew;
-}
-inline int bf16_smem_bytes(int d_in, int d_out, int width) {
-  const int wrows = pad16(d_out) > width ? pad16(d_out) : width;
-  return (kRows + wrows) * bf16_ld(d_in, width) * 2;
+// Threads of a bf16 CTA: a warp per 16 rows of a tile.
+constexpr int kBf16FwdThreads = kRows / 16 * 32;
+
+// Shared memory of the bf16 kernel, bytes: one input slice per warp (its
+// 16 rows, row-major for AoS input, feature-major for SoA), then the
+// weights: every layer, resident for the CTA's whole walk, where they fit;
+// else one layer at a time, staged per tile.  Where even one layer and the
+// slices do not fit, the CTA runs fewer warps.
+struct Bf16FwdLayout {
+  int warps;              // per CTA; a tile is warps · 16 rows
+  int ldx, x_bytes;       // elements per row of a warp's slice, bytes of a slice
+  int w, resident, bytes;
+};
+
+// Layer l's weights in shared memory, row-major: .x = pad16(fan_in) rows
+// of .y = n + kSkew elements, n = W (pad16(D_out) for the output layer).
+__host__ __device__ inline int2 bf16_w_shape(int l, int n_layers, int d_in, int d_out,
+                                             int width) {
+  const int k = pad16(l == 0 ? d_in : width);
+  const int n = l == n_layers - 1 ? pad16(d_out) : width;
+  return make_int2(k, n + kSkew);
 }
 
+inline Bf16FwdLayout bf16_fwd_layout(int d_in, int d_out, int width, int n_layers, bool soa_in) {
+  Bf16FwdLayout s{};
+  const int kin = pad16(d_in);
+  s.ldx = soa_in ? 16 + kSkew : kin + kSkew;
+  s.x_bytes = (soa_in ? kin : 16) * s.ldx * 2;
+  int64_t all = 0, one = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int2 sh = bf16_w_shape(l, n_layers, d_in, d_out, width);
+    const int64_t b = int64_t(sh.x) * sh.y * 2;
+    all += b;
+    one = b > one ? b : one;
+  }
+  s.warps = kBf16FwdThreads / 32;
+  while (s.warps > 1 && int64_t(s.warps) * s.x_bytes + one > kMaxSmem) s.warps /= 2;
+  s.w = s.warps * s.x_bytes;
+  s.resident = s.w + all <= kMaxSmem;
+  const int64_t bytes = s.w + (s.resident ? all : one);
+  s.bytes = bytes > kMaxSmem ? kMaxSmem + 1 : int(bytes);
+  return s;
+}
+
+// bf16 compute: persistent CTAs walk the tiles blockIdx.x, blockIdx.x +
+// gridDim.x, ...; warp w owns rows [16·w, 16·(w+1)) of each tile and runs
+// them through every layer alone: its input slice is its own, the
+// resident weights are read-only, so no barrier separates tiles.  The
+// warp copies its rows of the next tile into its slice by cp.async as
+// soon as its first layer has read the current ones; they land while the
+// hidden layers compute.  Per layer, mma.sync m16n8k16 with fp32
+// accumulation; the accumulators of one layer are, element for element,
+// the A fragments of the next (activation in fp32, rounded to bf16 in
+// place: fused_mlp.py:104-110 of the JAX package).
 template <int W, typename TOut>
-__global__ void __launch_bounds__(kWarps * 32)
-fused_mlp_fwd_bf16_kernel(MlpArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = bf16_ld(a.d_in, W);
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);  // input tile
-  __nv_bfloat16* wt = act + kRows * ld;                           // wt[n * ld + k]
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int64_t row0 = int64_t(blockIdx.x) * kRows;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-
-  // Input tile, zero-padded to pad16(D_in) columns.
-  stage_input_tile(x, a.x_stride_b, a.x_stride_d, a.d_in, a.batch, row0, a.soa_in != 0,
-                   act, ld);
-
-  // Each warp owns 16 rows.  Between layers its activations stay in
-  // registers: an m16n8 accumulator pair (n-tiles 2kb, 2kb+1) holds
-  // exactly the A fragment of k-step kb of the next layer, so the
-  // activation is applied in fp32 and the result rounded to bf16 in place
-  // (fused_mlp.py:104-110 of the JAX package: fp32 accumulate, activation
-  // in fp32, cast to the compute dtype between layers).
+__global__ void __launch_bounds__(kBf16FwdThreads)
+fused_mlp_fwd_bf16_kernel(MlpArgs a, Bf16FwdLayout s) {
   constexpr int NT = W / 8;    // n-tiles of a hidden layer
   constexpr int KB = W / 16;   // k-steps of a layer fed by a hidden layer
-  float acc[NT][4];
-  uint32_t afrag[KB][4];
-  const __nv_bfloat16* arow = act + (warp * 16 + g) * ld + 2 * t;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + warp * s.x_bytes);
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + s.w);
+  const int L = a.n_layers, d_in = a.d_in, kin = pad16(d_in);
+  const int64_t rows_cta = int64_t(s.warps) * 16;
+  const int64_t n_tiles = (a.batch + rows_cta - 1) / rows_cta;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
+  const bool soa = a.soa_in != 0;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 
-  for (int layer = 0; layer < a.n_layers; ++layer) {
-    const bool last = layer == a.n_layers - 1;
-    const int k_real = layer == 0 ? a.d_in : W;
-    const int n_real = last ? a.d_out : W;
-    const int K = pad16(k_real), N = last ? (n_real + 7) / 8 * 8 : W;
-
-    __syncthreads();  // the input tile is written; the old weights are read
-    stage_weights_t<W>(static_cast<const __nv_bfloat16*>(a.w[layer]), k_real, n_real, K,
-                       N, wt, ld);
-    __syncthreads();
-
-    if (!last) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-      if (layer == 0) {
-        for (int kb = 0; kb < K / 16; ++kb) {
-          const uint32_t af[4] = {ld32(arow + 16 * kb), ld32(arow + 8 * ld + 16 * kb),
-                                  ld32(arow + 16 * kb + 8), ld32(arow + 8 * ld + 16 * kb + 8)};
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            uint32_t b0, b1;
-            load_b(wt, ld, j, kb, g, t, &b0, &b1);
-            mma_bf16(acc[j], af, b0, b1);
-          }
+  const auto stage_w = [&](int l, __nv_bfloat16* dst) {
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(a.w[l]);
+    const int k_real = l == 0 ? d_in : W, n_real = l == L - 1 ? a.d_out : W;
+    const int n = l == L - 1 ? pad16(a.d_out) : W;
+    stage_rowmajor<__nv_bfloat16>(src, k_real, n_real, pad16(k_real), n, dst,
+                                  bf16_w_shape(l, L, d_in, a.d_out, W).y);
+  };
+  // This warp's rows [row0, row0 + 16) of the input into its slice: by
+  // 16-byte cp.async for whole rows of 16-byte aligned data (done at the
+  // next cp_async_wait_all), else element by element, zeros past the batch.
+  const bool async_x =
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+      (soa ? a.x_stride_b == 1 && a.x_stride_d % 8 == 0
+           : a.x_stride_d == 1 && a.x_stride_b % 8 == 0 && d_in % 8 == 0);
+  const auto stage_x = [&](int64_t row0) {
+    if (async_x && row0 + 16 <= a.batch) {
+      if (soa) {
+        for (int c = lane; c < d_in * 2; c += 32) {
+          const int k = c / 2, q = c % 2;
+          cp_async16(xs + k * s.ldx + 8 * q, x + k * a.x_stride_d + row0 + 8 * q);
         }
       } else {
+        for (int c = lane; c < 16 * (d_in / 8); c += 32) {
+          const int r = c / (d_in / 8), q = c % (d_in / 8);
+          cp_async16(xs + r * s.ldx + 8 * q, x + (row0 + r) * a.x_stride_b + 8 * q);
+        }
+      }
+      cp_async_commit();
+      return;
+    }
+    const int total = 16 * kin;
+    for (int base = lane; base < total; base += 32 * kBatch) {
+      __nv_bfloat16 v[kBatch];
 #pragma unroll
-        for (int kb = 0; kb < KB; ++kb) {
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + 32 * u, r = soa ? i % 16 : i / kin, k = soa ? i / 16 : i % kin;
+        const int64_t b = row0 + r;
+        v[u] = (i < total && b < a.batch && k < d_in) ? x[b * a.x_stride_b + k * a.x_stride_d]
+                                                       : zero;
+      }
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            uint32_t b0, b1;
-            load_b(wt, ld, j, kb, g, t, &b0, &b1);
-            mma_bf16(acc[j], afrag[kb], b0, b1);
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + 32 * u, r = soa ? i % 16 : i / kin, k = soa ? i / 16 : i % kin;
+        if (i < total) xs[soa ? k * s.ldx + r : r * s.ldx + k] = v[u];
+      }
+    }
+  };
+
+  // The slice's padding (features [D_in, pad16(D_in))) stays zero.
+  for (int i = lane; i < s.x_bytes / 16; i += 32)
+    reinterpret_cast<uint4*>(xs)[i] = make_uint4(0, 0, 0, 0);
+  __syncwarp();
+  if (s.resident) {
+    int off = 0;
+    for (int l = 0; l < L; ++l) {
+      stage_w(l, wsm + off);
+      const int2 sh = bf16_w_shape(l, L, d_in, a.d_out, W);
+      off += sh.x * sh.y;
+    }
+  }
+  int64_t tile = blockIdx.x;
+  if (tile < n_tiles) stage_x(tile * rows_cta + warp * 16);
+  __syncthreads();  // the resident weights are staged
+
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int64_t row0 = tile * rows_cta + warp * 16;
+    cp_async_wait_all();
+    __syncwarp();  // this warp's rows have landed
+    float acc[NT][4];
+    uint32_t afrag[KB][4];
+    const __nv_bfloat16* wl = wsm;
+    for (int layer = 0; layer < L; ++layer) {
+      const int2 sh = bf16_w_shape(layer, L, d_in, a.d_out, W);
+      const int ld = sh.y;
+      if (!s.resident) {
+        __syncthreads();  // every warp is done with the previous weights
+        stage_w(layer, wsm);
+        __syncthreads();
+      }
+      if (layer < L - 1) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+        if (layer == 0) {
+          for (int kb = 0; kb < kin / 16; ++kb) {
+            uint32_t af[4];
+            if (soa)
+              load_a_trans(xs, s.ldx, 16 * kb, 0, af);
+            else
+              ldsm_x4(xs + (lane % 16) * s.ldx + 16 * kb + 8 * (lane / 16), af);
+#pragma unroll
+            for (int p = 0; p < W / 16; ++p) {
+              uint32_t b[4];
+              load_b_pair(wl, ld, 16 * kb, 16 * p, b);
+              mma_bf16(acc[2 * p], af, b[0], b[1]);
+              mma_bf16(acc[2 * p + 1], af, b[2], b[3]);
+            }
           }
-        }
-      }
+          __syncwarp();  // every lane has read the slice: the next tile may land in it
+          if (tile + gridDim.x < n_tiles) stage_x((tile + gridDim.x) * rows_cta + warp * 16);
+        } else {
 #pragma unroll
-      for (int kb = 0; kb < KB; ++kb) {
-        afrag[kb][0] = pack_bf16(activate(acc[2 * kb][0], a.act), activate(acc[2 * kb][1], a.act));
-        afrag[kb][1] = pack_bf16(activate(acc[2 * kb][2], a.act), activate(acc[2 * kb][3], a.act));
-        afrag[kb][2] = pack_bf16(activate(acc[2 * kb + 1][0], a.act),
-                                 activate(acc[2 * kb + 1][1], a.act));
-        afrag[kb][3] = pack_bf16(activate(acc[2 * kb + 1][2], a.act),
-                                 activate(acc[2 * kb + 1][3], a.act));
-      }
-    } else {
-      // Output layer: one n-tile at a time; only the real columns leave.
-      for (int j = 0; j < N / 8; ++j) {
-        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int kb = 0; kb < KB; ++kb)
+#pragma unroll
+            for (int p = 0; p < W / 16; ++p) {
+              uint32_t b[4];
+              load_b_pair(wl, ld, 16 * kb, 16 * p, b);
+              mma_bf16(acc[2 * p], afrag[kb], b[0], b[1]);
+              mma_bf16(acc[2 * p + 1], afrag[kb], b[2], b[3]);
+            }
+        }
 #pragma unroll
         for (int kb = 0; kb < KB; ++kb) {
-          uint32_t b0, b1;
-          load_b(wt, ld, j, kb, g, t, &b0, &b1);
-          mma_bf16(c, afrag[kb], b0, b1);
+          const float(&lo)[4] = acc[2 * kb];
+          const float(&hi)[4] = acc[2 * kb + 1];
+          afrag[kb][0] = pack_bf16(activate(lo[0], a.act), activate(lo[1], a.act));
+          afrag[kb][1] = pack_bf16(activate(lo[2], a.act), activate(lo[3], a.act));
+          afrag[kb][2] = pack_bf16(activate(hi[0], a.act), activate(hi[1], a.act));
+          afrag[kb][3] = pack_bf16(activate(hi[2], a.act), activate(hi[3], a.act));
         }
+      } else {
+        // Output layer: 16 columns at a time; only the real ones leave.
+        for (int p = 0; p < pad16(a.d_out) / 16; ++p) {
+          float c[2][4] = {};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int64_t b = row0 + warp * 16 + g + 8 * (i / 2);
-          const int n = 8 * j + 2 * t + i % 2;
-          if (b < a.batch && n < a.d_out)
-            store(static_cast<TOut*>(a.y) + b * a.y_stride_b + n * a.y_stride_d,
-                  activate(c[i], a.out_act));
+          for (int kb = 0; kb < KB; ++kb) {
+            uint32_t b[4];
+            load_b_pair(wl, ld, 16 * kb, 16 * p, b);
+            mma_bf16(c[0], afrag[kb], b[0], b[1]);
+            mma_bf16(c[1], afrag[kb], b[2], b[3]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int64_t b = row0 + g + 8 * (i / 2);
+              const int n = 16 * p + 8 * h + 2 * t + i % 2;
+              if (b < a.batch && n < a.d_out)
+                store(static_cast<TOut*>(a.y) + b * a.y_stride_b + n * a.y_stride_d,
+                      activate(c[h][i], a.out_act));
+            }
         }
       }
+      if (s.resident) wl += sh.x * ld;
     }
   }
 }
@@ -298,24 +417,28 @@ fused_mlp_fwd_f32_kernel(MlpArgs a, F32FwdLayout s) {
   });
 }
 
-template <typename Kernel>
-cudaError_t launch_with_smem(Kernel kernel, dim3 grid, int threads, int smem,
-                             cudaStream_t stream, const MlpArgs& a) {
-  const cudaError_t err = allow_smem(kernel, smem);
+template <int W, typename TOut>
+cudaError_t launch_bf16_width(const MlpArgs& a, cudaStream_t stream) {
+  const Bf16FwdLayout s = bf16_fwd_layout(a.d_in, a.d_out, W, a.n_layers, a.soa_in != 0);
+  if (s.bytes > kMaxSmem) return cudaErrorInvalidValue;
+  const auto kernel = fused_mlp_fwd_bf16_kernel<W, TOut>;
+  const int threads = s.warps * 32;
+  const int64_t rows = int64_t(s.warps) * 16;
+  int ctas = 0;
+  const cudaError_t err =
+      persistent_ctas(kernel, threads, s.bytes, (a.batch + rows - 1) / rows, &ctas);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(a);
+  kernel<<<ctas, threads, s.bytes, stream>>>(a, s);
   return cudaSuccess;
 }
 
 template <typename TOut>
 cudaError_t launch_bf16(const MlpArgs& a, int width, cudaStream_t stream) {
-  const dim3 grid(unsigned((a.batch + kRows - 1) / kRows));
-  const int smem = bf16_smem_bytes(a.d_in, a.d_out, width);
   switch (width) {
-    case 16: return launch_with_smem(fused_mlp_fwd_bf16_kernel<16, TOut>, grid, kWarps * 32, smem, stream, a);
-    case 32: return launch_with_smem(fused_mlp_fwd_bf16_kernel<32, TOut>, grid, kWarps * 32, smem, stream, a);
-    case 64: return launch_with_smem(fused_mlp_fwd_bf16_kernel<64, TOut>, grid, kWarps * 32, smem, stream, a);
-    case 128: return launch_with_smem(fused_mlp_fwd_bf16_kernel<128, TOut>, grid, kWarps * 32, smem, stream, a);
+    case 16: return launch_bf16_width<16, TOut>(a, stream);
+    case 32: return launch_bf16_width<32, TOut>(a, stream);
+    case 64: return launch_bf16_width<64, TOut>(a, stream);
+    case 128: return launch_bf16_width<128, TOut>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

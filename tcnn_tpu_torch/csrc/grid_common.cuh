@@ -114,6 +114,17 @@ __device__ __forceinline__ float load_any(const void* p, bool bf16, int64_t i) {
               : static_cast<const float*>(p)[i];
 }
 
+// Corner c's interpolation weight from the per-dim weights w1: the
+// product over d of w1[d] or 1 - w1[d], in the order d = 0 .. D-1.
+template <int D>
+__device__ __forceinline__ float corner_weight(const float (&w1)[D], int c) {
+  float w = (c & 1) ? w1[0] : __fsub_rn(1.0f, w1[0]);
+#pragma unroll
+  for (int d = 1; d < D; ++d)
+    w = __fmul_rn(w, ((c >> d) & 1) ? w1[d] : __fsub_rn(1.0f, w1[d]));
+  return w;
+}
+
 // One sample's cell and per-dim weights on one level, and from them the
 // table row and interpolation weight of each of its 2^D corners.
 template <int D>
@@ -151,13 +162,7 @@ struct LevelCorners {
     }
   }
 
-  __device__ __forceinline__ float weight(int c) const {
-    float w = (c & 1) ? w1[0] : __fsub_rn(1.0f, w1[0]);
-#pragma unroll
-    for (int d = 1; d < D; ++d)
-      w = __fmul_rn(w, ((c >> d) & 1) ? w1[d] : __fsub_rn(1.0f, w1[d]));
-    return w;
-  }
+  __device__ __forceinline__ float weight(int c) const { return corner_weight<D>(w1, c); }
 
   // Corner c's factor of dim d, and its first and second derivative in x_d.
   __device__ __forceinline__ float factor(int c, int d) const {
@@ -223,6 +228,44 @@ struct LevelCorners {
           h += (cell[d] + ((c >> d) & 1)) * uint32_t(lp[6 + d]);
     }
     return fastmod(h, magic, size) + offset;
+  }
+
+  // Every corner's row at once, equal to row(c) for each c: dim d adds
+  // two terms, one per bit of the corner, and corner c combines the
+  // terms of its bits (xor for the hashes' products, + for CoherentAdd's
+  // dim 0 and the dense strides), so 2^D corners cost 2D multiplies in
+  // place of D·2^D.  pow2: the level's size is a power of two, where
+  // h % size is a mask.
+  __device__ __forceinline__ void rows(const HashConsts& hc, bool pow2,
+                                       uint32_t (&r)[1 << D]) const {
+    uint32_t term[D][2];
+    const bool add0 = !use_hash || hc.coherent_add;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      uint32_t f;
+      if (use_hash)
+        f = (d == 0 && hc.coherent_add) ? 1u : hc.factors[d];
+      else
+        f = ((stride_mask >> d) & 1) ? uint32_t(lp[6 + d]) : 0u;
+      term[d][0] = cell[d] * f;
+      term[d][1] = (cell[d] + 1) * f;
+    }
+    // hi[j]: the combined terms of dims 1 .. D-1 for the corners 2j, 2j + 1.
+    uint32_t hi[1 << (D - 1)];
+    hi[0] = 0;
+#pragma unroll
+    for (int d = 1; d < D; ++d)
+#pragma unroll
+      for (int j = 0; j < (1 << (d - 1)); ++j) {
+        const uint32_t h = hi[j];
+        hi[j] = use_hash ? h ^ term[d][0] : h + term[d][0];
+        hi[j | (1 << (d - 1))] = use_hash ? h ^ term[d][1] : h + term[d][1];
+      }
+#pragma unroll
+    for (int c = 0; c < (1 << D); ++c) {
+      const uint32_t h = add0 ? hi[c >> 1] + term[0][c & 1] : hi[c >> 1] ^ term[0][c & 1];
+      r[c] = (pow2 ? h & (size - 1) : fastmod(h, magic, size)) + offset;
+    }
   }
 };
 

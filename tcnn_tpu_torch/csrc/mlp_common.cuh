@@ -17,7 +17,6 @@ namespace tcnn_tpu_torch {
 namespace {
 
 constexpr int kRows = 128;       // bf16 kernels: batch rows per CTA
-constexpr int kWarps = kRows / 16;
 constexpr int kSkew = 8;         // bf16 padding per shared row (bank spread)
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxLayers = 32;   // n_hidden + 1, a kernel-parameter array
@@ -136,39 +135,6 @@ __device__ __forceinline__ void staged_copy(int total, Src src, Dst dst) {
   }
 }
 
-// Stages a row-major (k_real, n_real) bf16 weight matrix from global
-// memory into shared memory TRANSPOSED, dst[n * ld + k], zero-padded to
-// (K, N): a B fragment of mma.m16n8k16 is then two 32-bit loads of
-// consecutive k.  Rows of W elements move as 16-byte chunks, consecutive
-// lanes on consecutive k so the transposing stores do not collide in a
-// bank; others (the D_out-wide output layer) go element by element.
-template <int W>
-__device__ __forceinline__ void stage_weights_t(const __nv_bfloat16* __restrict__ w,
-                                                int k_real, int n_real, int K, int N,
-                                                __nv_bfloat16* dst, int ld) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  if (n_real == W && N == W && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
-    constexpr int kChunks = W / 8;  // 16-byte chunks per row
-    for (int c = threadIdx.x; c < K * kChunks; c += blockDim.x) {
-      const int k = c % K, j = c / K;
-      const uint4 v = k < k_real
-          ? __ldg(reinterpret_cast<const uint4*>(w + k * W) + j)
-          : make_uint4(0, 0, 0, 0);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) dst[(8 * j + u) * ld + k] = e[u];
-    }
-    return;
-  }
-  staged_copy<__nv_bfloat16>(
-      K * N,
-      [&](int i) {
-        const int n = i / K, k = i % K;
-        return (k < k_real && n < n_real) ? w[k * n_real + n] : zero;
-      },
-      [&](int i, __nv_bfloat16 v) { dst[(i / K) * ld + i % K] = v; });
-}
-
 // Stages an R-row bf16 input tile into shared memory as act[r * ld + k],
 // zero-padded to pad16(d_in) columns; rows past the batch are zeros.
 // Element (b, k) of x is x[b * stride_b + k * stride_d].  The common
@@ -243,14 +209,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment of n-tile j, k-step kb, from transposed weights wt.
-__device__ __forceinline__ void load_b(const __nv_bfloat16* wt, int ld, int j, int kb,
-                                       int g, int t, uint32_t* b0, uint32_t* b1) {
-  const __nv_bfloat16* p = wt + (8 * j + g) * ld + 16 * kb + 2 * t;
-  *b0 = ld32(p);
-  *b1 = ld32(p + 8);
 }
 
 // Four 8 x 8 bf16 blocks of a row-major shared-memory matrix, each
@@ -792,18 +750,19 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
 // The launch geometry of a persistent kernel of `threads` threads and
 // `smem` dynamic bytes over n_tiles tiles: as many CTAs as the occupancy
 // calculator puts on the card, at most one per tile (each CTA then owns
-// one at least).  The card's count is asked once per kernel, shared-memory
-// size and device; the kernel's shared-memory budget is set on every call,
-// since another size of the same kernel may have set it lower since.
+// one at least).  The card's count is asked once per kernel, block size,
+// shared-memory size and device; the kernel's shared-memory budget is set
+// on every call, since another size of the same kernel may have set it
+// lower since.
 template <typename Kernel>
 cudaError_t persistent_ctas(Kernel kernel, int threads, int smem, int64_t n_tiles, int* ctas) {
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int>, int> on_card;
+  static std::map<std::tuple<const void*, int, int, int>, int> on_card;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), smem, dev);
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), threads, smem, dev);
   const std::lock_guard<std::mutex> lock(mu);
   auto it = on_card.find(key);
   if (it == on_card.end()) {

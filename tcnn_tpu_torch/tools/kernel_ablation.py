@@ -1,10 +1,15 @@
-"""Where the time of kernels GB, RS, M and MB goes, on the card.
+"""Where the time of kernels G, GB, GI, GG, RS, M and MB goes, on the card.
 
     python3 -m tcnn_tpu_torch.tools.kernel_ablation [--out DIR] [--only PREFIX ...]
+                                                   [--baseline ROOT]
+    python3 -m tcnn_tpu_torch.tools.kernel_ablation --steps ROUNDS --baseline ROOT
     python3 -m tcnn_tpu_torch.tools.kernel_ablation --atomics   # no card needed
+    python3 -m tcnn_tpu_torch.tools.kernel_ablation --sectors   # no card needed
 
 At B = 2^18 with random inputs from a seed it times, as device time in a
 CUDA graph of 30 calls:
+  * G at the config_hash, config_btf (4-D, strided input, AoS output) and
+    SDF (fp32 table) shapes, and GI and GG at the SDF step's;
   * GB, M and MB at the config_hash shapes (BF16_POLICY), M and MB in fp32
     at the SDF sample's MLP (16 -> 64 x 2 -> 1) and at config_hash's
     (32 -> 64 x 2 -> 3), SoA input, in bf16 at config_btf's
@@ -21,18 +26,31 @@ CUDA graph of 30 calls:
     ablated kernel may compute a wrong result by design; only its time is
     read, and for the fp32 MLPs it is checked (``fp32_check``) at the
     tolerances of ``chip_smoke.py``.
+``--baseline ROOT`` also times the ``tcnn_tpu_torch`` of another checkout
+at ROOT (say, the parent commit unpacked by ``git archive`` into a
+directory ``.gitignore`` lists) with this file's timing code, in the same
+call, as the variant ``baseline``, and says which outputs of the
+deterministic kernels (G, GI, GG, M, MB's dW) have the same bits in both.
+``--steps ROUNDS`` instead times whole steps of this checkout and of ROOT
+in turn, ROUNDS runs each (``compare_steps``): ``chip_smoke.py``'s
+config_hash step (on the device, eager, its parts alone, the loop) and
+its SDF eikonal step (on the device, eager).
 Every number is printed beside the card's name and power limit.  Needs
 one CUDA device; DIR defaults to ``build/ablations`` at the checkout's
 root.  ``--atomics`` instead counts, on the CPU, the global atomics one
 launch of GB and of RS issues at B = 2^18 on the inputs ``chip_smoke.py``
-times them on, in this design and in the one before it (``atomic_counts``).
+times them on, in this design and in the one before it (``atomic_counts``);
+``--sectors`` the 32-byte table sectors one launch of G requests
+(``sector_counts``).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -44,6 +62,155 @@ _PKG = Path(__file__).resolve().parents[1]
 _FAST = "  return a.act <= 1 && a.out_act <= 1;"
 
 _GB_PLAN = "../ops/cuda/grid_encode.py"
+
+_M_LAUNCH = "  kernel<<<ctas, threads, s.bytes, stream>>>(a, s);"
+_M_RESIDENT = "  s.resident = s.w + all <= kMaxSmem;"
+_G_SAMPLES = "constexpr int kSamples = 2;"
+_G_REGS = "constexpr int kLoadRegs = 48;"
+_G_ROWS = "    lc.rows(hc, pow2, rows[s]);"
+_G_ROWS_IN_FULL = "#pragma unroll\n    for (int c = 0; c < C; ++c) rows[s][c] = lc.row(c, hc);"
+
+# Kernel M's bf16 weights staged TRANSPOSED and each B fragment read by two
+# 32-bit loads (the layout before ldmatrix.trans), for ``m_no_ldmatrix``.
+_M_TRANSPOSED_HELPERS = r"""// Stages a row-major (k_real, n_real) bf16 weight matrix from global
+// memory into shared memory TRANSPOSED, dst[n * ld + k], zero-padded to
+// (K, N): a B fragment of mma.m16n8k16 is then two 32-bit loads of
+// consecutive k.  Rows of W elements move as 16-byte chunks, consecutive
+// lanes on consecutive k so the transposing stores do not collide in a
+// bank; others (the D_out-wide output layer) go element by element.
+template <int W>
+__device__ __forceinline__ void stage_weights_t(const __nv_bfloat16* __restrict__ w,
+                                                int k_real, int n_real, int K, int N,
+                                                __nv_bfloat16* dst, int ld) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  if (n_real == W && N == W && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
+    constexpr int kChunks = W / 8;  // 16-byte chunks per row
+    for (int c = threadIdx.x; c < K * kChunks; c += blockDim.x) {
+      const int k = c % K, j = c / K;
+      const uint4 v = k < k_real
+          ? __ldg(reinterpret_cast<const uint4*>(w + k * W) + j)
+          : make_uint4(0, 0, 0, 0);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) dst[(8 * j + u) * ld + k] = e[u];
+    }
+    return;
+  }
+  staged_copy<__nv_bfloat16>(
+      K * N,
+      [&](int i) {
+        const int n = i / K, k = i % K;
+        return (k < k_real && n < n_real) ? w[k * n_real + n] : zero;
+      },
+      [&](int i, __nv_bfloat16 v) { dst[(i / K) * ld + i % K] = v; });
+}
+
+// The B fragment of n-tile j, k-step kb, from transposed weights wt.
+__device__ __forceinline__ void load_b(const __nv_bfloat16* wt, int ld, int j, int kb,
+                                       int g, int t, uint32_t* b0, uint32_t* b1) {
+  const __nv_bfloat16* p = wt + (8 * j + g) * ld + 16 * kb + 2 * t;
+  *b0 = ld32(p);
+  *b1 = ld32(p + 8);
+}
+
+"""
+_M_NO_LDMATRIX = [
+    ("fused_mlp.cu", "// bf16 compute: persistent CTAs walk the tiles",
+     _M_TRANSPOSED_HELPERS + "// bf16 compute: persistent CTAs walk the tiles"),
+    ("fused_mlp.cu", "  return make_int2(k, n + kSkew);", "  return make_int2(n, k + kSkew);"),
+    ("fused_mlp.cu", "stage_rowmajor<__nv_bfloat16>(src, k_real, n_real, pad16(k_real), n, dst,",
+     "stage_weights_t<W>(src, k_real, n_real, pad16(k_real), n, dst,"),
+    ("fused_mlp.cu", "load_b_pair(wl, ld, 16 * kb, 16 * p, b);",
+     "load_b(wl, ld, 2 * p, kb, g, t, &b[0], &b[1]); "
+     "load_b(wl, ld, 2 * p + 1, kb, g, t, &b[2], &b[3]);"),
+]
+
+
+def _g_pair_loads(unit: int) -> list:
+    """Kernel G with the dim-0 pair loads: corners 2p and 2p + 1 (dim-0
+    neighbours) by one ``unit``-byte load of the unit holding row 2p, and a
+    load of row 2p + 1 only where it lies in another unit (checked on the
+    rows computed: a CoherentPrime pair shares a unit only from an even
+    cell, a dense or CoherentAdd pair not across a unit's end or the
+    level's wrap); for 2-, 4- and 8-byte rows (``sector_counts`` counts
+    their sectors)."""
+    unit_rows = r"""
+template <typename T, int F>
+__host__ __device__ constexpr int unit_rows() {
+  constexpr int rb = row_bytes<T, F>();
+  return ((rb == 2 || rb == 4 || rb == 8) && 2 * rb <= kPairUnit) ? kPairUnit / rb : 0;
+}
+"""
+    unit_loads = r"""using PairUnit = std::conditional_t<kPairUnit == 16, uint4, uint2>;
+__device__ __forceinline__ uint32_t unit_word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+__device__ __forceinline__ uint32_t unit_word(const uint2& u, int i) { return i ? u.y : u.x; }
+
+// Row `pos` of a unit of (kPairUnit / row_bytes) rows, as fp32.
+template <typename T, int F>
+__device__ __forceinline__ void unit_row(const PairUnit& u, int pos, float (&v)[F]) {
+  constexpr int rb = row_bytes<T, F>();
+  uint2 w;
+  if constexpr (rb == 8) {
+    w = make_uint2(unit_word(u, 2 * pos), unit_word(u, 2 * pos + 1));
+  } else {
+    w.x = unit_word(u, rb == 4 ? pos : pos >> 1);
+    if (rb == 2) w.x >>= 16 * (pos & 1);
+    w.y = 0;
+  }
+  const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+  for (int f = 0; f < F; ++f) v[f] = to_f32(e[f]);
+}
+
+"""
+    pairs = r"""  constexpr int U = unit_rows<T, F>();
+  if constexpr (U > 0) {
+    PairUnit unit[S][C / 2];
+    RawRow<T, F> lone[S][C / 2];
+    // Per pair: the two rows' places in the unit (bits 0-3, 4-7) and
+    // whether row 2p + 1 lies in it (bit 8).
+    uint32_t where[S][C / 2];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int p = 0; p < C / 2; ++p) {
+        const uint32_t r0 = rows[s][2 * p], r1 = rows[s][2 * p + 1];
+        const bool shared = r0 / U == r1 / U;
+        unit[s][p] = __ldg(reinterpret_cast<const PairUnit*>(table) + r0 / U);
+        if (!shared) lone[s][p].load(table + int64_t(r1) * F);
+        where[s][p] = r0 % U | (r1 % U) << 4 | uint32_t(shared) << 8;
+      }
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const uint32_t wp = where[s][c / 2];
+        float v[F];
+        if ((c & 1) && !(wp >> 8))
+          lone[s][c / 2].get(v);
+        else
+          unit_row<T, F>(unit[s][c / 2], int((c & 1) ? (wp >> 4) & 15 : wp & 15), v);
+        const float w = corner_weight<D>(w1[s], c);
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[s][f] = __fadd_rn(acc[s][f], __fmul_rn(w, v[f]));
+      }
+    return;
+  }
+"""
+    row_bytes = "__host__ __device__ constexpr int row_bytes() { return F * int(sizeof(T)); }\n"
+    return [
+        ("grid_encode.cu", row_bytes,
+         row_bytes + f"constexpr int kPairUnit = {unit};\n" + unit_rows),
+        ("grid_encode.cu", "  constexpr int n = kLoadRegs / ((1 << D) * words);",
+         "  constexpr int n = kLoadRegs / (unit_rows<T, F>() ? (1 << (D - 1)) * "
+         "(kPairUnit / 4 + words) : (1 << D) * words);"),
+        ("grid_encode.cu", "// One level for S samples:",
+         unit_loads + "// One level for S samples:"),
+        ("grid_encode.cu", "  RawRow<T, F> raw[S][C];\n", pairs + "  RawRow<T, F> raw[S][C];\n"),
+    ]
+
 
 # name: [(source file under csrc/, or a path from there, text, replacement)]
 ABLATIONS = {
@@ -159,6 +326,47 @@ ABLATIONS = {
     # wrong by design.)
     "gb_btf_l2_resident": [("grid_common.cuh", "    return fastmod(h, magic, size) + offset;",
                             "    return (fastmod(h, magic, size) + offset) & 0xFFFFFu;")],
+    # M's bf16 path with one CTA per tile in place of persistent CTAs.
+    "m_not_persistent": [("fused_mlp.cu", _M_LAUNCH,
+                          "  ctas = int((a.batch + rows - 1) / rows);\n" + _M_LAUNCH)],
+    # M's bf16 path persistent, but staging every layer's weights per tile.
+    "m_weights_per_tile": [("fused_mlp.cu", _M_RESIDENT, "  s.resident = false;")],
+    # M's bf16 path with its weights transposed and B fragments by two
+    # 32-bit loads each, in place of ldmatrix.trans.
+    "m_no_ldmatrix": _M_NO_LDMATRIX,
+    # The first design's bf16 choices together: one CTA per tile, weights
+    # per tile, transposed, two 32-bit loads per B fragment.
+    "m_first_design": [("fused_mlp.cu", _M_LAUNCH,
+                        "  ctas = int((a.batch + rows - 1) / rows);\n" + _M_LAUNCH),
+                       ("fused_mlp.cu", _M_RESIDENT, "  s.resident = false;"),
+                       *_M_NO_LDMATRIX],
+    # G with the dim-0 pair loads: corners c, c|1 by one 16-byte (8-byte)
+    # load where their rows share its unit.
+    "g_pair_loads": _g_pair_loads(16),
+    "g_pair_loads_8": _g_pair_loads(8),
+    # G computing each corner's row in full (LevelCorners::row: D
+    # multiplies and the 64-bit modulo per corner).
+    "g_no_per_dim_terms": [("grid_encode.cu", _G_ROWS, _G_ROWS_IN_FULL)],
+    # G with 1 and 4 samples per thread, at most, in place of 2 (4 with
+    # twice the registers for loads in flight).
+    "g_samples_1": [("grid_encode.cu", _G_SAMPLES, "constexpr int kSamples = 1;")],
+    "g_samples_4": [("grid_encode.cu", _G_SAMPLES, "constexpr int kSamples = 4;"),
+                    ("grid_encode.cu", _G_REGS, "constexpr int kLoadRegs = 96;")],
+    # G with one level per thread for AoS output too (each warp store then
+    # writes F values into 32 sectors, which the L2 merges).
+    "g_aos_one_level": [("grid_encode.cu", "constexpr bool kAosSectors = true;",
+                         "constexpr bool kAosSectors = false;")],
+    # The first design's choices together: one sample per thread, every
+    # row in full (each row loaded alone, one level per thread, as now).
+    "g_first_design": [("grid_encode.cu", _G_ROWS, _G_ROWS_IN_FULL),
+                       ("grid_encode.cu", _G_SAMPLES, "constexpr int kSamples = 1;")],
+    # Every grid row G reads folded into the first 2^20 (4 MB of config_btf's
+    # bf16 table, which the L2 holds whole): if G at config_btf runs much
+    # faster so, misses in the L2 set its pace.  (Results wrong by design.)
+    "g_btf_l2_resident": [("grid_common.cuh",
+                           "      r[c] = (pow2 ? h & (size - 1) : fastmod(h, magic, size)) + offset;",
+                           "      r[c] = ((pow2 ? h & (size - 1) : fastmod(h, magic, size)) + offset)"
+                           " & 0xFFFFFu;")],
     # RS without its shared-memory window (every chunk on direct atomics).
     "rs_no_window": [("row_scatter.cu", "  if (span <= window_floats) {", "  if (false) {")],
     # RS with chunks of 4096, 16,384 and 32,768 updates in place of 8192.
@@ -204,14 +412,23 @@ def graph_ms(fn, n=N_CALLS, reps=5):
     return sorted(times)[reps // 2]
 
 
+def _bits(t: torch.Tensor) -> str:
+    """A digest of a tensor's bytes: two runs of deterministic kernels on
+    the same inputs (another checkout's, ``--baseline``) compare by it."""
+    return hashlib.sha1(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                        .tobytes()).hexdigest()[:16]
+
+
 def time_kernels(config: str, full: bool) -> dict:
-    """Times GB, M and MB of the ``tcnn_tpu_torch`` on ``sys.path``."""
+    """Times G, GB, GI, GG, RS, M and MB of the ``tcnn_tpu_torch`` on
+    ``sys.path``; entries ``bits ...`` hold digests of the outputs of the
+    deterministic kernels (G, GI, GG, M, MB's dW)."""
     from tcnn_tpu_torch import BF16_POLICY, create_from_config
     from tcnn_tpu_torch.common import Activation
     from tcnn_tpu_torch import Policy
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
     from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
-                                                     grid_encode_fwd)
+                                                     grid_encode_bwd_input, grid_encode_fwd)
     from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add
     from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
 
@@ -230,6 +447,8 @@ def time_kernels(config: str, full: bool) -> dict:
         mb_args = (ws, feats, dy, net.activation, net.output_activation, torch.bfloat16,
                    True, False)
         dfeats = fused_mlp_bwd(*mb_args)[1]
+        out["G"] = graph_ms(lambda: grid_encode_fwd(spec, table, x, live, soa=True))
+        out["bits G"] = _bits(feats)
         out["GB"] = graph_ms(lambda: grid_encode_bwd(spec, table, x, dfeats, live))
         out["M"] = graph_ms(lambda: fused_mlp_fwd(ws, feats, net.activation,
                                                   net.output_activation, torch.bfloat16,
@@ -250,6 +469,10 @@ def time_kernels(config: str, full: bool) -> dict:
             kind = f"{str(cdt)[6:]}, {label}"
             out[f"M {kind}"] = graph_ms(lambda: fused_mlp_fwd(ws_, x_, relu, none, cdt,
                                                               torch.float32, soa, False))
+            out[f"bits M {kind}"] = _bits(fused_mlp_fwd(ws_, x_, relu, none, cdt, torch.float32,
+                                                        soa, False))
+            out[f"bits MB {kind}"] = _bits(torch.cat([d.reshape(-1) for d in fused_mlp_bwd(
+                ws_, x_, g_, relu, none, cdt, soa, False)[0]]))
             out[f"MB {kind}"] = graph_ms(lambda: fused_mlp_bwd(ws_, x_, g_, relu, none, cdt,
                                                                soa, False))
             if cdt == torch.float32 and label != "config_oneblob":
@@ -263,8 +486,16 @@ def time_kernels(config: str, full: bool) -> dict:
         stable = (torch.rand(sspec.n_params, generator=gen, device=dev) * 2 - 1)
         xs, xv = sdf.sample_points(gen, BATCH, dev)
         sdc = torch.randn((sspec.n_output_dims, BATCH), generator=gen, device=dev)
+        out["G sdf"] = graph_ms(lambda: grid_encode_fwd(sspec, stable, xs, slive, soa=True))
+        out["bits G sdf"] = _bits(grid_encode_fwd(sspec, stable, xs, slive, soa=True))
         out["GB sdf"] = graph_ms(lambda: grid_encode_bwd(sspec, stable, xs, sdc, slive))
         ddx = torch.randn((BATCH, 3), generator=gen, device=dev)
+        out["GI sdf"] = graph_ms(lambda: grid_encode_bwd_input(sspec, stable, xv, sdc, slive))
+        out["GG sdf"] = graph_ms(lambda: grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive))
+        out["bits GI sdf"] = _bits(grid_encode_bwd_input(sspec, stable, xv, sdc, slive))
+        gg = grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive)
+        out["bits GG sdf"] = _bits(torch.cat([t.reshape(-1).float() for t in
+                                              (gg.d_dcols, gg.g) if t is not None]))
         bb = grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive, need_dcols=False,
                                  need_x=False)
         out["RS sdf"] = graph_ms(lambda: row_scatter_add(bb.rows, bb.g, sspec.n_entries))
@@ -274,10 +505,18 @@ def time_kernels(config: str, full: bool) -> dict:
         blive = list(range(bspec.n_levels))
         btable = torch.zeros(bspec.n_params, dtype=torch.bfloat16, device=dev)
         bx = torch.rand((BATCH, 6), generator=gen, device=dev)[:, :4]
+        gtable = (torch.rand(bspec.n_params, generator=gen, device=dev) * 2 - 1).to(btable.dtype)
+        out["G config_btf"] = graph_ms(lambda: grid_encode_fwd(bspec, gtable, bx, blive))
+        out["bits G config_btf"] = _bits(grid_encode_fwd(bspec, gtable, bx, blive))
         bdc = torch.randn((BATCH, 40), generator=gen, device=dev).to(torch.bfloat16)
         bdc = bdc[:, :bspec.n_output_dims].t()
         out["GB config_btf"] = graph_ms(lambda: grid_encode_bwd(bspec, btable, bx, bdc, blive))
         if full:
+            for lv in blive:
+                level = bspec.levels[lv]
+                out[f"G config_btf level {lv} ({level.size} rows, "
+                    f"{'hashed' if level.use_hash else 'dense'})"] = graph_ms(
+                        lambda: grid_encode_fwd(bspec, gtable, bx, [lv]))
             out["GB no level"] = graph_ms(lambda: grid_encode_bwd(spec, table, x, dfeats, []))
             for lv in live:
                 level = spec.levels[lv]
@@ -396,6 +635,172 @@ def atomic_counts(batch: int = BATCH, seed: int = 0) -> dict:
     return out
 
 
+WARP = 32
+PAIR_ROW_BYTES = (2, 4, 8)   # the rows _g_pair_loads pairs (its unit_rows)
+
+
+def _distinct_per_warp(sectors: torch.Tensor, valid: torch.Tensor) -> int:
+    """Σ over (load, warp) of the distinct sectors the warp's lanes touch.
+    sectors, valid: (K, B, n) per load k, sample b (a lane) and the n
+    sectors one lane's load touches; a warp is 32 consecutive samples."""
+    K, B, n = sectors.shape
+    pad = (-B) % WARP
+    sec = torch.where(valid, sectors, torch.full_like(sectors, -1))
+    sec = torch.nn.functional.pad(sec, (0, 0, 0, pad), value=-1).reshape(K, -1, WARP * n)
+    sec = sec.sort(dim=-1).values
+    new = torch.ones_like(sec, dtype=torch.bool)
+    new[..., 1:] = sec[..., 1:] != sec[..., :-1]
+    return int((new & (sec >= 0)).sum())
+
+
+def table_sectors(rows: torch.Tensor, row_bytes: int, paired: bool) -> int:
+    """The 32-byte table sectors that kernel G's loads of one level request,
+    counted per warp-wide load (32 consecutive samples; a sector that
+    several lanes of one load touch counts once).  rows: (2^D, B) flat
+    table rows, corner c on row c (corners c and c ^ 1 differ in dim 0
+    only); row_bytes: F times the table's element size.
+
+    One load per corner (``paired`` false, or rows of other sizes than 2,
+    4 and 8 bytes): a row's sectors (two where it straddles a boundary).
+    Pair loads (the ablation ``g_pair_loads``): per pair of corners
+    2p, 2p + 1, one 16-byte load of the unit holding row 2p, and one load
+    of row 2p + 1 by the lanes where it lies in another unit."""
+    r = rows.long()
+    if not paired or row_bytes not in PAIR_ROW_BYTES:
+        lo, hi = r * row_bytes // 32, (r * row_bytes + row_bytes - 1) // 32
+        return _distinct_per_warp(torch.stack([lo, hi], -1),
+                                  torch.stack([torch.ones_like(lo, dtype=torch.bool),
+                                               hi != lo], -1))
+    per_unit = 16 // row_bytes
+    r0, r1 = r[0::2], r[1::2]
+    shared = r0 // per_unit == r1 // per_unit
+    unit_sector = (r0 // per_unit * 16 // 32).unsqueeze(-1)
+    lone_sector = (r1 * row_bytes // 32).unsqueeze(-1)
+    return (_distinct_per_warp(unit_sector, torch.ones_like(unit_sector, dtype=torch.bool))
+            + _distinct_per_warp(lone_sector, ~shared.unsqueeze(-1)))
+
+
+def sector_counts(batch: int = BATCH, seed: int = 0) -> dict:
+    """Table sectors of one launch of G at config_hash, config_btf and the
+    SDF step (surface points), on inputs drawn as ``chip_smoke.py`` draws
+    them and the tables' dtypes there (bf16, bf16, fp32): (one load per
+    corner, as G loads them; with the pair loads of ``g_pair_loads``),
+    ``table_sectors`` summed over the levels."""
+    from ..ops.grid_ops import build_indices_weights
+    from .. import Policy, create_from_config
+    from ..samples import fit_sdf_eikonal as sdf
+
+    gen = torch.Generator().manual_seed(seed)
+    configs = _PKG.parent / "configs"
+    cases = {
+        "config_hash": (create_from_config(2, 3, str(configs / "config_hash.json"),
+                                           device="cpu").network.encoding.spec,
+                        torch.rand((batch, 2), generator=gen), 2),
+        "config_btf": (create_from_config(6, 3, str(configs / "config_btf.json"),
+                                          device="cpu").network.encoding.nested[0].spec,
+                       torch.rand((batch, 4), generator=gen), 2),
+        "sdf": (create_from_config(3, 1, sdf.CONFIG, policy=Policy(),
+                                   device="cpu").network.encoding.spec,
+                sdf.sample_points(gen, batch, "cpu")[0], 4),
+    }
+    out = {}
+    for name, (spec, x, elem) in cases.items():
+        C, row_bytes = 1 << spec.n_dims, spec.n_features_per_level * elem
+        before = after = 0
+        for li in range(spec.n_levels):
+            rows = build_indices_weights(spec, x, [li])[0].reshape(C, batch)
+            before += table_sectors(rows, row_bytes, paired=False)
+            after += table_sectors(rows, row_bytes, paired=True)
+        out[f"G {name}"] = (before, after)
+    return out
+
+
+STEP_PARTS = ("G", "M", "table copy", "loss", "MB", "GB", "Adam")   # chip_smoke.py's split
+
+
+def time_steps() -> dict:
+    """The whole steps ``chip_smoke.py`` times, by its own timing code
+    (loaded from the checkout this file lies in), of the ``tcnn_tpu_torch``
+    on ``sys.path``: config_hash's training step on the device and eager,
+    its parts alone on the step's tensors (``slice_times``) and what the
+    step holds beyond them, make_training_loop per step; the SDF eikonal
+    step on the device and eager.  Inputs from seed 0, as chip_smoke.py
+    draws them."""
+    import importlib.util
+
+    from tcnn_tpu_torch import BF16_POLICY, Policy, create_from_config
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", _PKG.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    config = str(_PKG.parent / "configs" / "config_hash.json")
+    model = create_from_config(2, 3, config, policy=BF16_POLICY)
+    with torch.no_grad():
+        model.network.encoding.grid.uniform_(-1, 1, generator=gen)
+    x = torch.rand((BATCH, 2), generator=gen, device=dev)
+    target = torch.rand((BATCH, 3), generator=gen, device=dev)
+    fit = create_from_config(2, 3, config, policy=BF16_POLICY)
+    sampler = ImageSampler(synthetic_image(1024, 1024), seed=0)
+    loop = fit.trainer.make_training_loop(lambda i: sampler.sample_batch(BATCH),
+                                          smoke.LOOP_STEPS)
+    loop()   # captures the step, as chip_smoke.py's fit has before its timed calls
+    t = smoke.slice_times("config_hash", model, x, target, loop)
+    out = {f"config_hash {k}": t[k] for k in ("step device", "step", "loop step") + STEP_PARTS}
+    out["config_hash rest"] = t["step device"] - sum(t[k] for k in STEP_PARTS)
+
+    sdf_model = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
+    net, opt = sdf_model.network, sdf_model.optimizer
+    with torch.no_grad():
+        net.encoding.grid.uniform_(-1, 1, generator=gen)
+    xs, xv = sdf.sample_points(gen, BATCH, dev)
+    opt_state = opt.init(dict(net.named_parameters()), net.param_layout())
+
+    def step():
+        return sdf.step(net, opt, opt_state, xs, xv)
+
+    out["sdf step"] = smoke.time_ms(step)
+    out["sdf step device"] = smoke.graph_ms(step)
+    return out
+
+
+def step_order(rounds: int) -> list:
+    """The order of ``--steps``'s runs: baseline, tree, tree, baseline, ...
+    so that each side runs as often first as second in a pair."""
+    return [side for r in range(rounds)
+            for side in (("baseline", "tree") if r % 2 == 0 else ("tree", "baseline"))]
+
+
+def compare_steps(rounds: int, baseline: Path, smi: str) -> None:
+    """``time_steps`` of this checkout ("tree") and of ``baseline`` in
+    turn (``step_order``), each run in a process of its own, and the
+    median of each number per side."""
+    roots = {"tree": _PKG.parent, "baseline": baseline}
+    builds = {side: _run(root, "build") for side, root in roots.items()}
+    failed = [side for side, proc in builds.items() if proc.wait() != 0]
+    if failed:
+        raise RuntimeError(f"steps: build of {', '.join(failed)} failed")
+    order = step_order(rounds)
+    print(f"# {smi}; ms at B = {BATCH}; runs in the order {', '.join(order)}", flush=True)
+    runs = {side: [] for side in roots}
+    for i, side in enumerate(order):
+        proc = _run(roots[side], "steps", stdout=subprocess.PIPE, text=True)
+        stdout, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"steps: run {i} ({side}) failed:\n{stdout[-4000:]}")
+        times = json.loads(stdout.strip().splitlines()[-1])
+        runs[side].append(times)
+        print(f"run {i} {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()),
+              flush=True)
+    for k in runs["tree"][0]:
+        med = {side: statistics.median(r[k] for r in runs[side]) for side in runs}
+        print(f"median of {rounds}: {k}: tree {med['tree']:.4f} ms, baseline "
+              f"{med['baseline']:.4f} ms ({med['tree'] / med['baseline'] - 1:+.2%})", flush=True)
+
+
 def _copy(out_dir: Path, name: str, patches) -> Path:
     root = out_dir / name
     shutil.rmtree(root, ignore_errors=True)
@@ -411,15 +816,21 @@ def _copy(out_dir: Path, name: str, patches) -> Path:
 
 
 def _run(root: Path, *args: str, **kw):
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "from tcnn_tpu_torch.tools.kernel_ablation import _child; _child(sys.argv[2:])")
-    return subprocess.Popen([sys.executable, "-c", code, str(root), *args], **kw)
+    """This file's ``_child`` in a process whose ``tcnn_tpu_torch`` is the
+    one under ``root`` (this file is loaded by its path, so that a
+    baseline checkout is timed by this timing code)."""
+    code = ("import sys, importlib.util as u; sys.path.insert(0, sys.argv[1]); "
+            "spec = u.spec_from_file_location('kernel_ablation_tool', sys.argv[2]); "
+            "m = u.module_from_spec(spec); spec.loader.exec_module(m); m._child(sys.argv[3:])")
+    return subprocess.Popen([sys.executable, "-c", code, str(root), __file__, *args], **kw)
 
 
 def _child(args) -> None:
     if args[0] == "build":
         from tcnn_tpu_torch.ops.cuda import kernels
         kernels()
+    elif args[0] == "steps":
+        print(json.dumps(time_steps()))
     else:
         print(json.dumps(time_kernels(args[1], full=False)))
 
@@ -429,23 +840,44 @@ def main() -> None:
     parser.add_argument("--out", default=str(_PKG.parent / "build" / "ablations"))
     parser.add_argument("--only", nargs="*", default=None,
                         help="run the ablations whose names start with one of these")
+    parser.add_argument("--baseline", default=None,
+                        help="a checkout whose tcnn_tpu_torch is timed as 'baseline'")
     parser.add_argument("--atomics", action="store_true",
                         help="count GB's and RS's global atomics on the CPU and stop")
+    parser.add_argument("--sectors", action="store_true",
+                        help="count G's table sectors on the CPU and stop")
+    parser.add_argument("--steps", type=int, default=0, metavar="ROUNDS",
+                        help="time chip_smoke.py's config_hash and SDF steps of the tree "
+                             "and --baseline in turn, ROUNDS pairs, and stop")
     args = parser.parse_args()
     if args.atomics:
         for what, (before, after) in atomic_counts().items():
             print(f"{what}: {before} global atomics per launch before, {after} now "
                   f"(B = {BATCH}, atomic_counts)")
         return
+    if args.sectors:
+        for what, (before, after) in sector_counts().items():
+            print(f"{what}: {before} table sectors per launch, one load per corner; {after} "
+                  f"with dim-0 pair loads (B = {BATCH}, sector_counts)")
+        return
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.baseline and not (Path(args.baseline) / "tcnn_tpu_torch").is_dir():
+        sys.exit(f"kernel_ablation: no tcnn_tpu_torch under {args.baseline}")
+    if args.steps:
+        if not args.baseline:
+            sys.exit("kernel_ablation: --steps needs --baseline")
+        compare_steps(args.steps, Path(args.baseline).resolve(), smi)
+        return
     config = str(_PKG.parent / "configs" / "config_hash.json")
     out_dir = Path(args.out)
     roots = {name: _copy(out_dir, name, patches) for name, patches in ABLATIONS.items()
              if args.only is None or name.startswith(tuple(args.only))}
+    if args.baseline:
+        roots = {"baseline": Path(args.baseline).resolve(), **roots}
     builds = {name: _run(root, "build") for name, root in roots.items()}
     print(f"# {smi}; device ms per call at B = {BATCH}: config_hash at BF16_POLICY unless "
           f"labelled", flush=True)
@@ -454,8 +886,9 @@ def main() -> None:
         for what, v in times.items():
             print(f"{variant}: {what}: {v:.4f} ms" if isinstance(v, float) else
                   f"{variant}: {what}: {v}", flush=True)
+        return times
 
-    show("tree", time_kernels(config, full=True))   # builds the tree's kernels meanwhile
+    tree = show("tree", time_kernels(config, full=True))   # builds the others meanwhile
     failed = []
     for name, root in roots.items():
         if builds[name].wait() != 0:
@@ -466,7 +899,13 @@ def main() -> None:
         if proc.returncode != 0:
             failed.append(f"{name} (timing)")
             continue
-        show(name, json.loads(stdout.strip().splitlines()[-1]))
+        times = show(name, json.loads(stdout.strip().splitlines()[-1]))
+        if name == "baseline":
+            for what, v in tree.items():
+                if what.startswith("bits "):
+                    print(f"tree vs baseline: {what[5:]}: "
+                          f"{'the same bits' if times.get(what) == v else 'different bits'}",
+                          flush=True)
     if failed:
         raise RuntimeError(f"ablations failed: {', '.join(failed)}")
 

@@ -790,3 +790,201 @@ def test_grid_encode_bwd_at_the_window_limit(cuda, monkeypatch, fit, dtype):
         scale = grid_bwd_bound(spec, flat, x, dcols, live)
         assert_grid_grad_close(got, grid_encode_bwd_plain(spec, flat, x, dcols, live), scale)
         assert bool((got[scale == 0] == 0).all())
+
+
+# -- the redesigned kernels M (bf16 path) and G ------------------------------
+
+# (width, n_hidden, d_in): every width, depths from 1 to the deepest M
+# takes (csrc/mlp_common.cuh: kMaxLayers = 32 layers), config_oneblob's
+# 128 -> 128 x 5 -> 3 (weights resident) and the first width-128 depth
+# whose weights are staged per layer and tile; input widths that take the
+# 16-byte cp.async copies (multiples of 8) and some that do not.
+M_BF16_SHAPES = [(16, 1, 3), (16, 31, 19), (32, 2, 32), (32, 31, 32), (64, 3, 40),
+                 (64, 31, 40), (128, 1, 128), (128, 2, 64), (128, 5, 128), (128, 6, 128),
+                 (128, 31, 128)]
+M_LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+def m_chain_of_shallow(ws, x, soa_in, out_dtype, soa_out):
+    """The same MLP as a chain of launches of at most six layers: every
+    piece but the last ends in a hidden layer (ReLU, bf16 output), which
+    M computes with the same products, activation and rounding as the
+    hidden layer of the deep launch, so the chain's output has the deep
+    launch's bits."""
+    relu, bf16 = Activation.RELU, torch.bfloat16
+    h, i, first = x, 0, True
+    while len(ws) - i >= 7:
+        h = fused_mlp_fwd(ws[i:i + 5], h, relu, relu, bf16, bf16, soa_in and first, False)
+        i, first = i + 5, False
+    return fused_mlp_fwd(ws[i:], h, relu, Activation.NONE, bf16, out_dtype, soa_in and first,
+                         soa_out)
+
+
+@pytest.mark.parametrize("shape", M_BF16_SHAPES, ids=lambda s: f"{s[2]}-{s[0]}x{s[1]}")
+@pytest.mark.parametrize("batch", [1, 127, 12345, 1 << 18])
+@pytest.mark.parametrize("soa_in,soa_out", M_LAYOUTS)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_bf16_kernel_coverage(cuda, shape, batch, soa_in, soa_out, out_dtype):
+    """Kernel M's bf16 path at every width and layout, both output dtypes,
+    batch tails and depths.  Up to five hidden layers against the plain
+    version within the bf16 tolerance, rows beyond it passing only where
+    ``rounding_flip_rows`` explains them (as chip_smoke.py holds
+    config_oneblob); deeper, where roundings to the other bf16 neighbour
+    compound beyond any bound of the plain version, bit for bit against
+    the same MLP as a chain of shallow launches (``m_chain_of_shallow``),
+    whose pieces the shallow cases hold against the plain version."""
+    from tcnn_tpu_torch.tools.plain_path import rounding_flip_rows
+
+    width, n_hidden, d_in = shape
+    dims = [(d_in, width)] + [(width, width)] * (n_hidden - 1) + [(width, 3)]
+    ws, x, _ = mlp_inputs(cuda, dims, batch, width + n_hidden + batch % 7, soa_in)
+    xb = x.to(torch.bfloat16)
+    args = (ws, xb, Activation.RELU, Activation.NONE, torch.bfloat16, out_dtype, soa_in, soa_out)
+    got = fused_mlp_fwd(*args)
+    torch.cuda.synchronize()
+    assert got.shape == ((3, batch) if soa_out else (batch, 3)) and got.dtype == out_dtype
+    assert bool(torch.isfinite(got.float()).all())
+    if n_hidden > 5:
+        assert torch.equal(got, m_chain_of_shallow(ws, xb, soa_in, out_dtype, soa_out))
+        return
+    want = fused_mlp_plain(*args)
+    a, b = (got.t(), want.t()) if soa_out else (got, want)
+    err = (a.float() - b.float()).abs()
+    tol = 2e-2 * b.float().abs() + 2e-3
+    rows = (err > tol).any(dim=1).nonzero().flatten()
+    if rows.numel():
+        explained = rounding_flip_rows(ws, xb, rows, a[rows].float(), tol[rows], soa_in)[0]
+        assert bool(explained.all()), f"{int((~explained).sum())} of {rows.numel()} rows " \
+                                      "beyond the bf16 bound not explained by another rounding"
+
+
+def test_fused_mlp_bf16_layout(cuda):
+    """Kernel M's bf16 path takes the input and output widths it took
+    before its weights stayed resident (up to 432 inputs at width 128, 784
+    at width 16, 600 outputs), running fewer warps a CTA where the warps'
+    input slices and one layer's weights need it; config_oneblob's
+    resident weights and the staged-per-layer depth after it are held by
+    ``test_fused_mlp_bf16_kernel_coverage``."""
+    for d_in, d_out, width in ((432, 3, 128), (784, 3, 16), (592, 3, 64), (32, 600, 128)):
+        ws, x, _ = mlp_inputs(cuda, [(d_in, width), (width, width), (width, d_out)], 999, 3,
+                              False)
+        args = (ws, x.to(torch.bfloat16), Activation.RELU, Activation.NONE, torch.bfloat16,
+                torch.float32)
+        torch.testing.assert_close(fused_mlp_fwd(*args), fused_mlp_plain(*args), rtol=2e-2,
+                                   atol=2e-3)
+
+
+G_HASHES = [HashType.COHERENT_PRIME, HashType.COHERENT_ADD, HashType.PRIME]
+
+
+def corner_order_sum(spec, flat, x, live):
+    """Kernel G's arithmetic in torch ops: per live level and feature, the
+    sum over corners 0 .. 2^D - 1 in order, each term w·v and each sum one
+    fp32 rounding (separate multiply and add kernels), cast to the table's
+    dtype; (L·F, B), zero rows for dead levels.  The plain version's
+    ``sum(dim=1)`` may take the corners in another order on the card."""
+    F, C, B = spec.n_features_per_level, 1 << spec.n_dims, x.shape[0]
+    idx, ws = grid_ops.build_indices_weights(spec, x, live)
+    rows = idx.reshape(len(live), C, B)
+    ws = ws.reshape(len(live), C, B)
+    table = flat.reshape(-1, F).float()
+    acc = torch.zeros((len(live), B, F), device=x.device)
+    for c in range(C):
+        acc = acc + ws[:, c, :, None] * table[rows[:, c]]
+    out = torch.zeros((spec.n_levels, F, B), device=x.device)
+    out[list(live)] = acc.permute(0, 2, 1)
+    return out.reshape(-1, B).to(flat.dtype)
+
+
+def assert_grid_sum_close(got, want, n_dims):
+    """G against the plain version where their fp32 corner sums run in
+    different orders: one bf16 ulp (or rtol 1e-5 for fp32 tables) plus the
+    sums' own error, (2^D + 2D)·2^-24 of Σ|w·v| <= 1 for U(±1) tables, that
+    a value the terms cancel to near 0 carries (chip_smoke.py's bound at
+    config_btf)."""
+    atol = ((1 << n_dims) + 2 * n_dims) * 2.0 ** -24
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        bound = bf16_ulp(want) + atol
+    else:
+        bound = 1e-5 * want.abs() + atol
+    worst = int((err / bound).argmax())
+    assert bool((err <= bound).all()), (float(want.flatten()[worst]),
+                                        float(got.flatten()[worst]))
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid,hash_type", [(GridType.HASH, h) for h in G_HASHES]
+                         + [(GridType.DENSE, HashType.COHERENT_PRIME)])
+def test_grid_encode_kernel_every_level_kind(cuda, D, F, dtype, grid, hash_type):
+    """Kernel G at every D, F, table dtype and level kind (dense levels,
+    whose dim-0 corner pairs lie on rows r, r + 1; CoherentAdd on r, r + 1
+    mod a power of two; CoherentPrime on r, r ^ 1 from an even cell,
+    elsewhere from an odd one), its rows from per-dim terms, with cells on
+    both sides of 0 and of the grid's end (x in [-0.3, 1.3]), a strided
+    input and an odd batch, every level live and all but the first three
+    dead (zeros), SoA and AoS output (levels grouped by sector where the
+    level count allows, 8 levels, and one by one where it does not, 4):
+    bit for bit against its own sum order in torch ops
+    (``corner_order_sum``), and against the plain version within the bound
+    of two sum orders."""
+    n_levels = 8 if grid == GridType.HASH else 4   # dense 4-D levels grow as res^4
+    spec = grid_ops.make_grid_spec(D, n_levels, F, 12, 4, 1.7, grid_type=grid,
+                                   hash_type=hash_type)
+    rng = np.random.default_rng(D * 100 + F)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    wide = torch.from_numpy(rng.uniform(-0.3, 1.3, (5003, D + 2)).astype(np.float32)).to(cuda)
+    x = wide[:, 1:1 + D]
+    cell0 = torch.floor(x[:, 0] * spec.levels[-1].scale + 0.5).long()
+    assert bool((cell0 % 2 == 0).any()) and bool((cell0 % 2 == 1).any())
+    for live in (list(range(spec.n_levels)), [0, 1, 2]):
+        for soa in (True, False):
+            got = grid_encode_fwd(spec, flat, x, live, soa=soa)
+            torch.cuda.synchronize()
+            want = grid_encode_plain(spec, flat, x, live, soa=soa)
+            assert got.shape == want.shape and got.dtype == want.dtype == dtype
+            assert torch.equal(got if soa else got.t(), corner_order_sum(spec, flat, x, live))
+            assert_grid_sum_close(got, want, D)
+            if live == [0, 1, 2]:
+                dead = (got if soa else got.t())[3 * F:]
+                assert not bool(dead.any())
+
+
+def test_grid_encode_kernel_at_the_level_wrap(cuda):
+    """The 4-D dense levels of make_grid_spec(4, 4, 2, 12, 4, 1.5) with x in
+    [-0.2, 1.2]: corners past the grid's end wrap to the level's first
+    rows, where the dim-0 pair does not share a unit (the JAX package's
+    pair route differs there, ROADMAP Queue 3; the port follows the plain
+    version)."""
+    spec = grid_ops.make_grid_spec(4, 4, 2, 12, 4, 1.5)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.uniform(-0.2, 1.2, (4133, 4)).astype(np.float32)).to(cuda)
+    idx, _ = grid_ops.build_indices_weights(spec, x, [0])
+    rows = idx.reshape(16, -1) - spec.levels[0].offset
+    assert bool(((rows[1::2] == 0) & (rows[0::2] == spec.levels[0].size - 1)).any())
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+        flat = flat.to(dtype).to(cuda)
+        live = list(range(spec.n_levels))
+        got = grid_encode_fwd(spec, flat, x, live)
+        assert torch.equal(got.t(), corner_order_sum(spec, flat, x, live))
+        assert_grid_sum_close(got, grid_encode_plain(spec, flat, x, live), 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_encode_kernel_is_bit_identical_to_plain_at_config_hash(cuda, dtype):
+    """At config_hash's grid (2-D, CoherentPrime, F = 2) G sums each
+    sample's four corners in the plain version's order and rounding: the
+    same bits (chip_smoke.py's max_abs_err 0.0)."""
+    model = create_from_config(2, 3, "configs/config_hash.json", policy=BF16_POLICY)
+    spec = model.network.encoding.spec
+    rng = np.random.default_rng(23)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    x = torch.from_numpy(rng.uniform(0, 1, ((1 << 16) + 5, 2)).astype(np.float32)).to(cuda)
+    live = list(range(spec.n_levels))
+    assert torch.equal(grid_encode_fwd(spec, flat, x, live, soa=True),
+                       grid_encode_plain(spec, flat, x, live, soa=True))

@@ -150,6 +150,13 @@ def test_bf16_policy_rounds_between_layers():
     np.testing.assert_allclose(got, np.asarray(want), **TOL["bfloat16"])
 
 
+def test_kernel_ablation_step_order_alternates():
+    """``kernel_ablation --steps`` runs the two checkouts in pairs that
+    alternate which one runs first, so that neither always follows the
+    other."""
+    assert kernel_ablation.step_order(4) == ["baseline", "tree", "tree", "baseline"] * 2
+
+
 @pytest.mark.parametrize("name", sorted(kernel_ablation.ABLATIONS))
 def test_kernel_ablations_patch_the_current_sources(tmp_path, name):
     """Each ablation of tools/kernel_ablation.py finds its text in the
