@@ -28,7 +28,19 @@ and read just after:
     second-order main path, whose per-step launch counts of G, M, MB, GB,
     GI, GG and RS it checks (slice 4; GB once a step, and none in
     ``Module.input_gradient``: a table gradient the engine would drop is
-    not computed).  RS is also held on the eikonal step's own (rows, g).
+    not computed).  RS is also held on the eikonal step's own (rows, g);
+  * the NeRF field sample (slice 8: a 3-D HashGrid of 12 levels x 2,
+    2^17-row tables, into a FullyFusedMLP 64 x 1, 24 -> 16; a Composite of
+    Identity and SphericalHarmonics into a FullyFusedMLP 64 x 2, 31 -> 3,
+    Sigmoid; BF16_POLICY): G and GB under per-sample level masks, and M
+    and MB at the two nets' shapes, against their plain versions at the
+    sample's 2^12 rays x 48 samples = 196,608 points; one training step's
+    gradients of both nets against the plain path's; a step's launches (G
+    1, M 2, GB 1, MB 2); the sample's fit, ``samples/fit_nerf_field.main``
+    at its defaults (400 steps, coarse-to-fine over the first 100), the
+    main path, with a PSNR floor; then the image sample,
+    ``samples/mlp_learning_an_image.main``, 100 steps into a temporary
+    directory.
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -53,7 +65,8 @@ with TF32 off):
     1.43e-6: 16 corner terms, each a product of 4 weights, with the
     weights summing to 1 and the U(±1) table bounding each term by 1;
     where the terms cancel to a value near 0, that error is many bf16
-    ulps of it.  config_hash keeps the bound of one ulp, which it meets.
+    ulps of it.  config_hash keeps the bound of one ulp, which it meets;
+    the NeRF grid (3-D) takes config_btf's with D = 3, 8.3e-7.
   * fused MLP, float32: rtol 1e-5, atol 1e-5; bfloat16: rtol 2e-2,
     atol 2e-3 (a hidden activation may round to the other bf16
     neighbour when the sum is taken in another order).  At config_oneblob's
@@ -122,14 +135,25 @@ with TF32 off):
     and a zero prediction's error 0.0667, so the error floor only guards
     against divergence.
 
-The whole run takes three to four minutes on an H100 (204.3 s with a
-123.7 s build, the SDF slice's checks, fit and times included), against
-the 1200 s a run may take: the plain versions' BTF fit, 150 eager steps
-(the kernels' fit runs 200), takes 30 to 45 s.  It prints its own time
-before the kernels' line.
+  * NeRF: masked G and GB at the grid bounds above (the plain version
+    multiplies the masked pairs' weights by 0, as the JAX package does;
+    the kernels skip them: a masked pair's output is an exact 0, and a row
+    only masked pairs touch gets no update); M and MB at the MLP bounds,
+    bf16 dx rows as config_btf's; the step's gradients within 2e-2 of each
+    one's largest magnitude of the plain path's (``plain_nerf_loss_and_grads``).
+    The fit: eval PSNR above ``NERF_PSNR_FLOOR``, the JAX sample's CPU run
+    at the same settings (fp32) less 3 dB.  The image sample: PSNR above
+    20 dB after 100 steps.
+
+The whole run takes about four minutes on an H100, against the 1200 s a
+run may take: the build of the seven kernels took 93 to 155 s, the
+plain versions' BTF fit, 150 eager steps (the kernels' fit runs 200), 30
+to 45 s, the NeRF fit 4 to 5 s.  It prints its own time before the
+kernels' line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -442,11 +466,12 @@ def compare_mlp_rows(got, want, ws, x, soa_in, what):
     return err.max().item(), (err / w.abs().clamp_min(1e-6)).max().item()
 
 
-def mlp_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, rounding=False):
+def mlp_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, rounding=False,
+             out_act=None):
     """Kernel M against its plain version; returns the max abs error.  With
     ``rounding`` (config_oneblob's six layers) a bf16 row beyond the bound
     passes where the plain version's rounding explains it
-    (``compare_mlp_rows``)."""
+    (``compare_mlp_rows``).  ``out_act``: the output activation (None)."""
     from tcnn_tpu_torch.common import Activation
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_fwd, fused_mlp_plain
 
@@ -454,7 +479,7 @@ def mlp_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, rounding=
     d_in = dims[0][0]
     x = torch.rand((d_in, batch) if soa_in else (batch, d_in), generator=gen,
                    device=dev) * 2 - 1
-    args = (ws, x.to(dtype), Activation.RELU, Activation.NONE, dtype,
+    args = (ws, x.to(dtype), Activation.RELU, out_act or Activation.NONE, dtype,
             torch.float32, soa_in, soa_out)
     with torch.inference_mode():
         got = fused_mlp_fwd(*args)
@@ -472,7 +497,8 @@ def mlp_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, rounding=
     return abs_err
 
 
-def mlp_bwd_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, flips=False):
+def mlp_bwd_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, flips=False,
+                 out_act=None):
     """Kernel MB against its plain version; returns the max abs error.
     With ``flips`` (config_btf) a bf16 dx row beyond the bound passes where
     a switched ReLU explains it (``compare_input_grad``)."""
@@ -480,11 +506,12 @@ def mlp_bwd_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, flips
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_bwd_plain
 
     ws = random_mlp(gen, dev, dims)
-    d_in = dims[0][0]
+    d_in, d_out = dims[0][0], dims[-1][1]
+    out_act = out_act or Activation.NONE
     x = torch.rand((d_in, batch) if soa_in else (batch, d_in), generator=gen,
                    device=dev) * 2 - 1
-    g = torch.randn((3, batch) if soa_out else (batch, 3), generator=gen, device=dev)
-    args = (ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype, soa_in, soa_out)
+    g = torch.randn((d_out, batch) if soa_out else (batch, d_out), generator=gen, device=dev)
+    args = (ws, x.to(dtype), g, Activation.RELU, out_act, dtype, soa_in, soa_out)
     with torch.inference_mode():
         got_dws, got_dx = fused_mlp_bwd(*args)
         torch.cuda.synchronize()
@@ -492,7 +519,7 @@ def mlp_bwd_case(gen, dev, dims, batch, dtype, soa_in=True, soa_out=False, flips
     check(got_dx.dtype == dtype, f"MB: dx dtype {got_dx.dtype}")
     if flips and dtype == torch.bfloat16:
         err = max(compare_mlp_grads(got_dws, want_dws, dtype, "MB"),
-                  compare_input_grad(got_dx, want_dx, ws, args[1], g, Activation.NONE,
+                  compare_input_grad(got_dx, want_dx, ws, args[1], g, out_act,
                                      soa_in, soa_out, "MB dx")[0])
     else:
         err = compare_mlp_grads([*got_dws, got_dx], [*want_dws, want_dx], dtype, "MB")
@@ -561,11 +588,12 @@ def chain_activations(ws, h):
     return hs
 
 
-def library_chain(ws, h):
-    """The MLP's forward as cuBLAS products, timed only as a yardstick."""
+def library_chain(ws, h, out=None):
+    """The MLP's forward as cuBLAS products (and ``out``, the output
+    activation), timed only as a yardstick."""
     for w in ws[:-1]:
         h = torch.relu(h @ w)
-    return h @ ws[-1]
+    return h @ ws[-1] if out is None else out(h @ ws[-1])
 
 
 def library_bwd(ws, hs, dy):
@@ -1573,6 +1601,295 @@ def sdf_slice(gen, dev):
                           {"launches_per_step": step_launches})
 
 
+# The NeRF sample (slice 8): samples/fit_nerf_field.py at its defaults.  The
+# JAX sample's run at those settings (`python samples/fit_nerf_field.py` on
+# the CPU, fp32 policy: 400 steps of 2^12 rays x 48 samples, 128^2 render)
+# read eval PSNR 36.89 dB (mse 0.000205); the floor is 3 dB below it.
+NERF_PSNR_JAX = 36.89
+NERF_PSNR_FLOOR = NERF_PSNR_JAX - 3.0
+NERF_RAYS, NERF_SAMPLES = 1 << 12, 48
+NERF_BATCH = NERF_RAYS * NERF_SAMPLES   # 196,608 field points a step
+NERF_STEPS = 400
+IMAGE_STEPS = 100
+IMAGE_PSNR_FLOOR = 20.0
+
+
+def live_pairs(spec, frac):
+    """The (sample, level) pairs that the per-sample fractions ``frac`` keep."""
+    from tcnn_tpu_torch.ops import grid_ops
+
+    return int(grid_ops.level_mask(spec, list(range(spec.n_levels)), frac).sum())
+
+
+def touched_rows_live(spec, x, frac):
+    """The table rows that the live (sample, level) pairs touch: the rows G
+    must read."""
+    from tcnn_tpu_torch.ops import grid_ops
+
+    L, C = spec.n_levels, 1 << spec.n_dims
+    idx, _ = grid_ops.build_indices_weights(spec, x, list(range(L)))
+    keep = grid_ops.level_mask(spec, list(range(L)), frac).bool()          # (L, B)
+    rows = idx.reshape(L, C, -1)[keep[:, None, :].expand(-1, C, -1)]
+    touched = torch.zeros(spec.n_entries, dtype=torch.bool, device=x.device)
+    touched[rows] = True
+    return int(touched.sum())
+
+
+def nerf_slice(gen, dev):
+    """Slice 8, the instant-ngp NeRF field (samples/fit_nerf_field.py,
+    BF16_POLICY): masked G and GB, and M and MB at the two nets' shapes,
+    against their plain versions at the sample's 196,608 points; one
+    training step's gradients (both nets) against the plain path's; the
+    launches of a step; the sample's fit at its defaults (the main path)
+    with its PSNR floor; and the times.  Returns the report entries."""
+    from tcnn_tpu_torch import BF16_POLICY, create_optimizer
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops import grid_ops
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
+                                                   fused_mlp_fwd, fused_mlp_plain)
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_plain,
+                                                     grid_encode_fwd, grid_encode_plain)
+    from tcnn_tpu_torch.samples import fit_nerf_field as nf
+    from tcnn_tpu_torch.tools.plain_path import plain_nerf_loss_and_grads
+
+    d_net, c_net = nf.build_model(BF16_POLICY, torch.Generator().manual_seed(0), dev)
+    spec = d_net.encoding.spec
+    d_dims, c_dims = mlp_dims(24, 64, 1, d_out=16), mlp_dims(31, 64, 2)
+    check([tuple(w.shape) for w in d_net.network.layers] == d_dims
+          and [tuple(w.shape) for w in c_net.network.layers] == c_dims
+          and spec.n_dims == 3 and spec.n_levels == 12,
+          f"NeRF nets {[tuple(w.shape) for w in d_net.network.layers]}, "
+          f"{[tuple(w.shape) for w in c_net.network.layers]}")
+    B, L, F = NERF_BATCH, spec.n_levels, spec.n_features_per_level
+    live = list(range(L))
+    print(f"NeRF density net: {d_net.n_params()} parameters, grid of {spec.n_entries} rows "
+          f"({sum(not lv.use_hash for lv in spec.levels)} dense levels); colour net "
+          f"{c_net.n_params()}; B = {NERF_RAYS} rays x {NERF_SAMPLES} samples = {B}")
+
+    phase(f"NeRF: masked G and GB vs plain at B={B}, per-sample fractions over [0, 1]")
+    x = torch.rand((B, 3), generator=gen, device=dev)
+    frac = torch.rand(B, generator=gen, device=dev)
+    on = torch.rand(B, generator=gen, device=dev) < 1 / 3   # a third on the level boundaries
+    frac[on] = torch.randint(0, L + 1, (int(on.sum()),), generator=gen, device=dev).float() / L
+    keep = grid_ops.level_mask(spec, live, frac).bool()
+    sum_atol = ((1 << spec.n_dims) + 2 * spec.n_dims) * 2.0 ** -24   # as at config_btf
+    err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        table = (torch.rand(spec.n_params, generator=gen, device=dev) * 2 - 1).to(dtype)
+        dcols = torch.randn((L * F, B), generator=gen, device=dev).to(dtype)
+        with torch.inference_mode():
+            e_g = 0.0
+            for soa in (True, False):
+                got = grid_encode_fwd(spec, table, x, live, soa=soa, level_frac=frac)
+                torch.cuda.synchronize()
+                want = grid_encode_plain(spec, table, x, live, soa=soa, level_frac=frac)
+                e_g = max(e_g, compare(got, want, "grid-bf16" if dtype == torch.bfloat16
+                                       else "grid-f32", atol=sum_atol)[0])
+                cols = (got if soa else got.t()).reshape(L, F, B)
+                check(not bool(cols[~keep[:, None, :].expand(-1, F, -1)].any()),
+                      "G wrote a nonzero value for a masked (sample, level)")
+            got = grid_encode_bwd(spec, table, x, dcols, live, level_frac=frac)
+            torch.cuda.synchronize()
+            want = grid_encode_bwd_plain(spec, table, x, dcols, live, level_frac=frac)
+            scale = grid_encode_bwd_plain(spec, table.float(), x, dcols.float().abs(), live,
+                                          level_frac=frac)
+            e_gb = compare_table_grad(got, want, scale, "GB masked")
+            check(not bool(got[scale == 0].any()), "GB updated a row only masked pairs touch")
+        if dtype == torch.bfloat16:
+            err.update({"G": e_g, "GB": e_gb})
+        bound = f"one bf16 ulp + {sum_atol:.3e}" if dtype == torch.bfloat16 else "rtol 1e-5"
+        print(f"table={str(dtype)[6:]}: G max abs err {e_g:.3e} ({bound}; SoA and AoS; masked "
+              f"pairs exact zeros), GB {e_gb:.3e} (2^-11·S); {int(keep.sum())} of {L * B} "
+              f"(sample, level) pairs live")
+
+    phase(f"NeRF: M and MB vs plain at 24 -> 64 -> 16 (SoA in) and 31 -> 64 x 2 -> 3 "
+          f"(Sigmoid, AoS in), B={B}")
+    sig = Activation.SIGMOID
+    err_d, err_c = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        e = (mlp_case(gen, dev, d_dims, B, dtype, soa_in=True),
+             mlp_bwd_case(gen, dev, d_dims, B, dtype, soa_in=True, flips=True),
+             mlp_case(gen, dev, c_dims, B, dtype, soa_in=False, out_act=sig),
+             mlp_bwd_case(gen, dev, c_dims, B, dtype, soa_in=False, flips=True, out_act=sig))
+        if dtype == torch.bfloat16:
+            err_d, err_c = {"M": e[0], "MB": e[1]}, {"M": e[2], "MB": e[3]}
+
+    phase("NeRF: one training step (BF16_POLICY, frac 0.5: six of twelve levels live), "
+          "gradients of both nets vs the plain path; launches per step")
+    rays_o, rays_d = nf.sample_rays(gen, NERF_RAYS, dev)
+    jitter = torch.rand((NERF_RAYS, NERF_SAMPLES), generator=gen, device=dev)
+    loss, grads = nf.loss_and_grads(d_net, c_net, rays_o, rays_d, NERF_SAMPLES, jitter, 0.5)
+    want_loss, want = plain_nerf_loss_and_grads(d_net, c_net, rays_o, rays_d, NERF_SAMPLES,
+                                                jitter, 0.5)
+    torch.cuda.synchronize()
+    check(abs(loss.item() - want_loss.item()) <= 2e-2 * abs(want_loss.item()),
+          f"NeRF step loss {loss.item()} vs plain {want_loss.item()}")
+    check(set(grads) == set(want), f"NeRF gradient names {sorted(grads)}")
+    for name in grads:
+        e = compare_mlp_grads([grads[name]], [want[name]], torch.bfloat16, name)
+        print(f"gradient {name}: max abs err {e:.3e} vs plain path (max |g| "
+              f"{want[name].abs().max().item():.3e}, 2e-2 of it)")
+    print(f"loss {loss.item():.6f}, plain path {want_loss.item():.6f}")
+    opt = create_optimizer(nf.OPTIMIZER)
+    opt_state = opt.init(*nf.params_and_layout(d_net, c_net))
+    torch.cuda.synchronize()
+    reset_counts()
+    step_loss = nf.step(d_net, c_net, opt, opt_state, rays_o, rays_d, NERF_SAMPLES, jitter, 0.5)
+    torch.cuda.synchronize()
+    per_step = first_order_counts()
+    check(per_step == {"G": 1, "M": 2, "GB": 1, "MB": 2},
+          f"NeRF step launches {per_step}, expected G 1, M 2, GB 1, MB 2")
+    check(bool(torch.isfinite(step_loss)), "NeRF step loss is not finite")
+    print(f"launches per step: {per_step}")
+
+    phase(f"NeRF: the sample's fit, fit_nerf_field.main at its defaults ({NERF_STEPS} steps "
+          f"of {NERF_RAYS} rays x {NERF_SAMPLES} samples, 128^2 render), the main path")
+    reset_counts()
+    fit = nf.main(["fit_nerf_field"])
+    torch.cuda.synchronize()
+    fit_launches = first_order_counts()
+    # each step G, GB once and M, MB twice; the evaluation render (one chunk
+    # of 2^14 rays) G once and M twice
+    want_launches = {"G": NERF_STEPS + 1, "M": 2 * NERF_STEPS + 2, "GB": NERF_STEPS,
+                     "MB": 2 * NERF_STEPS}
+    check(fit_launches == want_launches, f"NeRF fit launches {fit_launches}, expected "
+          f"{want_launches}")
+    losses = fit["losses"]
+    check(bool(torch.isfinite(losses).all()), "non-finite NeRF loss")
+    print(f"fit: {NERF_STEPS} steps in {fit['seconds']:.2f} s ({fit['seconds'] / NERF_STEPS * 1e3:.3f} "
+          f"ms a step, eager); loss {float(losses[:10].mean()):.6f} (first 10) -> "
+          f"{float(losses[-10:].mean()):.6f} (last 10); eval PSNR {fit['psnr']:.2f} dB "
+          f"(floor {NERF_PSNR_FLOOR:.2f}: the JAX sample's {NERF_PSNR_JAX} dB on the CPU, "
+          f"fp32, less 3 dB); launches {fit_launches}")
+    check(fit["psnr"] > NERF_PSNR_FLOOR,
+          f"NeRF PSNR floor missed: {fit['psnr']:.2f} dB <= {NERF_PSNR_FLOOR:.2f}")
+
+    phase(f"NeRF times at B={B}: G and GB at the fractions the fit issues (1.0, and 0.5 "
+          f"while it warms up), M and MB of both nets (device time in a CUDA graph of "
+          f"{N_TIMED} calls), the step eager")
+    bf16, relu = torch.bfloat16, Activation.RELU
+    table = d_net.encoding.grid.detach().to(bf16)
+    wd = [w.detach().to(bf16) for w in d_net.network.layers]
+    wc = [w.detach().to(bf16) for w in c_net.network.layers]
+    pts = torch.rand((B, 3), generator=gen, device=dev)
+    dirs = torch.randn((B, 3), generator=gen, device=dev)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    # fit_nerf_field gives every sample of a step one fraction (coarse_to_fine):
+    # (i + 1) / 100 at step i < 100, 1.0 for the other 300 steps
+    fracs = {f: nf.per_sample_frac(f, B, dev) for f in (1.0, 0.5)}
+    t_g = {f: {} for f in fracs}
+    t_d, t_c = {}, {}
+    consts = L * grid_ops.LEVEL_FIELDS * 4
+    pair_flops = grid_flops(spec, 1) // L   # per (sample, level)
+    with torch.inference_mode():
+        feats = grid_encode_fwd(spec, table, pts, live, soa=True, level_frac=fracs[1.0])
+        h = fused_mlp_fwd(wd, feats, relu, Activation.NONE, bf16, torch.float32, True, False)
+        cfeat = c_net.encoding(nf.density_heads(h, dirs)[1])
+        dh = torch.randn((B, 16), generator=gen, device=dev)   # a gradient into h
+        dy_c = torch.randn((B, 3), generator=gen, device=dev)
+        dcols = fused_mlp_bwd(wd, feats, dh, relu, Activation.NONE, bf16, True, False)[1]
+        g_args, gb_args = (spec, table, pts, live), (spec, table, pts, dcols, live)
+        for f, fv in fracs.items():
+            t = t_g[f]
+            t["G"] = graph_ms(lambda: grid_encode_fwd(*g_args, soa=True, level_frac=fv))
+            t["G plain"] = eager_ms(lambda: grid_encode_plain(*g_args, soa=True, level_frac=fv))
+            t["GB"] = graph_ms(lambda: grid_encode_bwd(*gb_args, level_frac=fv))
+            t["GB plain"] = eager_ms(lambda: grid_encode_bwd_plain(*gb_args, level_frac=fv))
+            # Only the live (sample, level) pairs read table rows (G) or
+            # output gradients (GB) and compute; G still writes its whole
+            # output, GB its whole bf16 table gradient.
+            n_live, rows = live_pairs(spec, fv), touched_rows_live(spec, pts, fv)
+            print(f"frac {f}:")
+            record_bounds(t, {
+                "G": (nbytes(pts, fv, feats) + rows * F * 2 + consts, n_live * pair_flops,
+                      PEAK_FP32),
+                "GB": (nbytes(pts, fv, table) + n_live * F * 2 + consts, n_live * pair_flops,
+                       PEAK_FP32)},
+                {"G": f" with {rows * F * 2 / 1e6:.2f} MB of table rows the {n_live} live "
+                      f"pairs touch",
+                 "GB": f", {n_live} of {L * B} (sample, level) pairs live"})
+        no_mask = {"G": graph_ms(lambda: grid_encode_fwd(*g_args, soa=True)),
+                   "GB": graph_ms(lambda: grid_encode_bwd(*gb_args))}
+        for t, ws, x_in, soa, out_act, dy in (
+                (t_d, wd, feats, True, Activation.NONE, dh),
+                (t_c, wc, cfeat, False, sig, dy_c)):
+            m_args = (ws, x_in, relu, out_act, bf16, torch.float32, soa, False)
+            mb_args = (ws, x_in, dy, relu, out_act, bf16, soa, False)
+            f_in = x_in.t() if soa else x_in
+            out = torch.sigmoid if out_act == sig else None
+            t["M"] = graph_ms(lambda: fused_mlp_fwd(*m_args))
+            t["M plain"] = eager_ms(lambda: fused_mlp_plain(*m_args))
+            t["M library"] = graph_ms(lambda: library_chain(ws, f_in, out))
+            t["MB"] = graph_ms(lambda: fused_mlp_bwd(*mb_args))
+            t["MB plain"] = eager_ms(lambda: fused_mlp_bwd_plain(*mb_args))
+            hs = chain_activations(ws, f_in)
+            t["MB library"] = graph_ms(lambda: library_bwd(ws, hs, dy))
+            dx = fused_mlp_bwd(*mb_args)[1]
+            m_flops = 2 * B * sum(w.numel() for w in ws)
+            record_bounds(t, {
+                "M": (nbytes(x_in, *ws) + B * ws[-1].shape[1] * 4, m_flops, PEAK_BF16),
+                "MB": (nbytes(x_in, dy, *ws, dx) + sum(w.numel() for w in ws) * 4,
+                       3 * m_flops, PEAK_BF16)})
+    print(f"without a mask: G {no_mask['G']:.4f} ms, GB {no_mask['GB']:.4f} ms (frac 1.0: "
+          f"{t_g[1.0]['G']:.4f}, {t_g[1.0]['GB']:.4f})")
+    opt = create_optimizer(nf.OPTIMIZER)
+    opt_state = opt.init(*nf.params_and_layout(d_net, c_net))
+    t_step = time_ms(lambda: nf.step(d_net, c_net, opt, opt_state, rays_o, rays_d, NERF_SAMPLES,
+                                     jitter, 0.5), n=20)
+    t_step_full = time_ms(lambda: nf.step(d_net, c_net, opt, opt_state, rays_o, rays_d,
+                                          NERF_SAMPLES, jitter, 1.0), n=20)
+    # Not timed in a CUDA graph: autograd's backward of torch.cumprod (the
+    # render's transmittance) reads a value back from the device, which
+    # capture refuses; the eager step waits for the device there too.
+    kernels_ms = {f: t_g[f]["G"] + t_g[f]["GB"] + t_d["M"] + t_d["MB"] + t_c["M"] + t_c["MB"]
+                  for f in fracs}
+    print(f"NeRF step at B={B}, frac 1.0 (300 of the fit's 400 steps): {t_step_full:.4f} ms "
+          f"eager with the host's work ({B / t_step_full * 1e3:.4e} field points/s), the six "
+          f"kernels alone {kernels_ms[1.0]:.4f} ms of it: G {t_g[1.0]['G']:.4f}, GB "
+          f"{t_g[1.0]['GB']:.4f}, M {t_d['M']:.4f} + {t_c['M']:.4f}, MB {t_d['MB']:.4f} + "
+          f"{t_c['MB']:.4f}; frac 0.5: {t_step:.4f} ms, kernels {kernels_ms[0.5]:.4f} ms")
+    mlp = {"M": "tcnn_tpu/ops/pallas/fused_mlp.py:100 (_fwd_kernel)",
+           "MB": "tcnn_tpu/ops/pallas/fused_mlp.py:113 (_bwd_kernel)"}
+    grid = {"G": "tcnn_tpu/ops/pallas/grid_matmul.py:861 (_gather_kernel)",
+            "GB": "tcnn_tpu/ops/pallas/grid_matmul.py:204 (_scatter_kernel)"}
+    per = {"launches_per_step": per_step}
+    return (report_entries(" (nerf, frac 1.0)", t_g[1.0], grid, fit_launches, err, per)
+            + report_entries(" (nerf, frac 0.5)", t_g[0.5], grid, fit_launches, err, per)
+            + report_entries(" (nerf density 24-64-16)", t_d, mlp, fit_launches, err_d, per)
+            + report_entries(" (nerf colour 31-64x2-3 sigmoid)", t_c, mlp, fit_launches,
+                             err_c, per))
+
+
+def image_sample_slice():
+    """The image sample, samples/mlp_learning_an_image.py's loop on
+    make_training_loop (config_hash, BF16_POLICY, 2^18 samples a step,
+    synthetic_image(1024, 1024)), 100 steps into a temporary directory,
+    with a PSNR floor."""
+    import tempfile
+
+    from tcnn_tpu_torch.samples import mlp_learning_an_image as img
+
+    phase(f"image sample: mlp_learning_an_image.main, {IMAGE_STEPS} steps into a temporary "
+          f"directory")
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_counts()
+        out = img.main(["mlp_learning_an_image", "none", CONFIG, str(IMAGE_STEPS)],
+                       out_dir=out_dir)
+        torch.cuda.synchronize()
+        launches = first_order_counts()
+        dumps = sorted(os.listdir(out_dir))
+    # the loop's eager warm-up step and its capture; three inferences of the
+    # whole 1024^2 image (steps 10, 100 and the end) in chunks of 2^18
+    want = {"G": 2 + 3 * 4, "M": 2 + 3 * 4, "GB": 2, "MB": 2}
+    check(launches == want, f"image sample launches {launches}, expected {want}")
+    check(bool(torch.isfinite(out["losses"]).all()), "non-finite image sample loss")
+    check(len(dumps) == 2, f"image sample dumps {dumps}")
+    print(f"image sample: {IMAGE_STEPS} steps in {out['seconds']:.2f} s; PSNR at "
+          f"{', '.join(f'{k}: {v:.2f}' for k, v in out['psnr_at'].items())} dB, final "
+          f"{out['psnr']:.2f} dB (floor {IMAGE_PSNR_FLOOR}); dumps {dumps}; launches {launches}")
+    check(out["psnr"] > IMAGE_PSNR_FLOOR, f"image sample PSNR floor missed: {out['psnr']:.2f}")
+
+
 def mb_determinism(gen, dev):
     """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
     1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
@@ -1628,7 +1945,8 @@ def main():
     print(f"kernels built from tcnn_tpu_torch/csrc in {time.time() - t0:.1f} s")
 
     report = {"kernels": config_hash_slices(gen, dev) + config_btf_slice(gen, dev)
-              + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev)}
+              + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev) + nerf_slice(gen, dev)}
+    image_sample_slice()
     mb_determinism(gen, dev)
     phase("kernels")
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all")

@@ -18,7 +18,10 @@ from .config import (TrainableModel, create_encoding, create_from_config,
                      create_network, create_network_with_input_encoding,
                      load_config)
 from .losses import L2Loss, Loss, RelativeL2Loss, create_loss
-from .models.encodings.basic import CompositeEncoding, OneBlobEncoding
+from .models.encodings.basic import (CompositeEncoding, EmptyEncoding,
+                                     FrequencyEncoding, IdentityEncoding,
+                                     OneBlobEncoding, SphericalHarmonicsEncoding,
+                                     TriangleWaveEncoding)
 from .models.encodings.grid import GridEncoding
 from .models.network_with_input_encoding import NetworkWithInputEncoding
 from .models.networks.fused_mlp import FusedMLP
@@ -32,10 +35,11 @@ from .utils.jax_params import load_jax_opt_state, load_jax_params
 
 __all__ = [
     "Activation", "Adam", "BF16_POLICY", "CompositeEncoding", "DEFAULT_POLICY",
-    "Encoding", "FusedMLP", "GridEncoding", "GridType", "HashType",
-    "InterpolationType", "L2Loss", "Loss", "MLP", "Module", "Network",
-    "NetworkWithInputEncoding", "OneBlobEncoding", "Optimizer", "Policy",
-    "ReductionType", "RelativeL2Loss",
+    "EmptyEncoding", "Encoding", "FrequencyEncoding", "FusedMLP", "GridEncoding",
+    "GridType", "HashType", "IdentityEncoding", "InterpolationType", "L2Loss",
+    "Loss", "MLP", "Module", "Network", "NetworkWithInputEncoding",
+    "OneBlobEncoding", "Optimizer", "Policy", "ReductionType", "RelativeL2Loss",
+    "SphericalHarmonicsEncoding", "TriangleWaveEncoding",
     "TrainableModel", "Trainer", "create_encoding", "create_from_config",
     "create_loss", "create_network", "create_network_with_input_encoding",
     "create_optimizer", "load_config", "load_jax_opt_state",

@@ -16,7 +16,14 @@
 
 namespace {
 
-void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& table,
+// An optional tensor: an undefined tensor (None in Python) passes null.
+template <typename T>
+T* optional_ptr(const c10::optional<torch::Tensor>& t) {
+  return t.has_value() && t->defined() ? t->data_ptr<T>() : nullptr;
+}
+
+void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b,
+                     const c10::optional<torch::Tensor>& level_frac, const torch::Tensor& table,
                      const torch::Tensor& level_params, const torch::Tensor& out,
                      int64_t n_dims, int64_t n_features, int64_t out_stride_b,
                      int64_t out_stride_f, const std::vector<int64_t>& hash_factors,
@@ -26,8 +33,9 @@ void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Te
   uint32_t factors[4];
   for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_fwd_launch(
-      x.data_ptr<float>(), x_stride_b, table.data_ptr(), table.scalar_type() == at::kBFloat16,
-      level_params.data_ptr<int32_t>(), out.data_ptr(), x.size(0),
+      x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), table.data_ptr(),
+      table.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(), out.data_ptr(),
+      x.size(0),
       static_cast<int>(n_dims), static_cast<int>(level_params.size(0)),
       static_cast<int>(n_features), out_stride_b, out_stride_f, factors, coherent_add,
       static_cast<int>(interp), c10::cuda::getCurrentCUDAStream()));
@@ -52,7 +60,8 @@ void fused_mlp_fwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& dcols,
+void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b,
+                     const c10::optional<torch::Tensor>& level_frac, const torch::Tensor& dcols,
                      const torch::Tensor& level_params, const torch::Tensor& items,
                      const std::vector<int64_t>& groups, const torch::Tensor& grad,
                      const torch::Tensor& out, int64_t n_dims, int64_t n_features,
@@ -66,8 +75,9 @@ void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Te
   for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   const std::vector<int32_t> g(groups.begin(), groups.end());
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_launch(
-      x.data_ptr<float>(), x_stride_b, dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16,
-      level_params.data_ptr<int32_t>(), items.data_ptr<int32_t>(), g.data(),
+      x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), dcols.data_ptr(),
+      dcols.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(),
+      static_cast<int>(level_params.size(0)), items.data_ptr<int32_t>(), g.data(),
       static_cast<int>(g.size() / 4), grad.data_ptr<float>(), out.data_ptr(),
       out.scalar_type() == at::kBFloat16, grad.numel(), static_cast<int>(n_dims),
       static_cast<int>(n_features), dc_stride_b, dc_stride_f, factors, coherent_add,
@@ -101,6 +111,7 @@ void fused_mlp_bwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_
 }
 
 void grid_encode_bwd_input(const torch::Tensor& x, int64_t x_stride_b,
+                           const c10::optional<torch::Tensor>& level_frac,
                            const torch::Tensor& table, const torch::Tensor& dcols,
                            const torch::Tensor& level_params, const torch::Tensor& dx,
                            int64_t n_dims, int64_t n_features, int64_t dc_stride_b,
@@ -111,19 +122,14 @@ void grid_encode_bwd_input(const torch::Tensor& x, int64_t x_stride_b,
   uint32_t factors[4];
   for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_input_launch(
-      x.data_ptr<float>(), x_stride_b, table.data_ptr(), table.scalar_type() == at::kBFloat16,
-      dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(),
+      x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), table.data_ptr(),
+      table.scalar_type() == at::kBFloat16, dcols.data_ptr(),
+      dcols.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(),
       dx.data_ptr<float>(), x.size(0), static_cast<int>(n_dims),
       static_cast<int>(level_params.size(0)), static_cast<int>(n_features), dc_stride_b,
       dc_stride_f, factors, coherent_add, static_cast<int>(interp),
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
-// An optional output: an undefined tensor (None in Python) passes null.
-template <typename T>
-T* optional_ptr(const c10::optional<torch::Tensor>& t) {
-  return t.has_value() && t->defined() ? t->data_ptr<T>() : nullptr;
 }
 
 void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& table,

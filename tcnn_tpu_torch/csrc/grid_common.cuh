@@ -8,7 +8,8 @@
 // Hazards handled here:
 //  * fused multiply-add: pos = x*scale + 0.5 must round twice, like the
 //    JAX package's separate multiply and add, or a sample near a cell
-//    border changes cell.  __fmul_rn/__fadd_rn are never contracted.
+//    border changes cell.  __fmul_rn/__fadd_rn are never contracted.  The
+//    same holds for the per-sample level cutoff (level_threshold).
 //  * uint32 arithmetic wraps natively; negative coordinates go through
 //    (uint32_t)(int)floorf, as in grid_ops.py:508-510.
 //  * out-of-range rows: idx % size + offset stays inside the table only if
@@ -48,6 +49,16 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The per-sample level cutoff of the coarse-to-fine mask (grid.h:69-92;
+// tcnn_tpu/ops/grid_ops.py:1221-1224): a sample with level fraction frac
+// keeps level l iff float(l) < frac * n_levels + 1e-3.  Rounded after the
+// product and after the sum, as JAX computes it: __fmul_rn/__fadd_rn keep
+// nvcc from contracting the two into one fused multiply-add, which would
+// move a threshold that lies on a level boundary (frac = k / n_levels).
+__device__ __forceinline__ float level_threshold(float frac, int n_levels) {
+  return __fadd_rn(__fmul_rn(frac, float(n_levels)), 1e-3f);
 }
 
 // h % size without a division (Lemire, Kaser & Kurz, 2019): exact for

@@ -42,6 +42,17 @@
 //
 // The index and weight arithmetic, and the hazards it handles, are in
 // grid_common.cuh, shared with the backward kernel GB.
+//
+// Coarse-to-fine (kMask, a separate instance: without a mask the code is
+// the unmasked design's, bit for bit and in time; one instance testing
+// the mask at run time read 5 % slower at the SDF shape, PERF.md): with
+// per-sample level fractions frac (the CUDA original's max_level_gpu,
+// grid.h:69-92; the JAX package's grid_ops.py:1215-1228), sample b keeps
+// level l iff float(l) < frac[b]*n_levels + 1e-3, the threshold rounded
+// after the product and after the sum (level_threshold), as JAX computes
+// it.  A masked (sample, level) issues no table load and is written as 0,
+// in either layout: its accumulator stays 0, so AoS sector stores carry
+// zeros in its place.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -105,9 +116,11 @@ struct RawRow {
 
 // One level for S samples: every row of every corner first, then every
 // load, then the fp32 sums over corners 0 .. 2^D-1 in order (the plain
-// version's order).
-template <typename T, int D, int F, int S>
+// version's order).  With kMask, a sample not `live` on the level loads
+// nothing and keeps acc.
+template <typename T, int D, int F, int S, bool kMask>
 __device__ __forceinline__ void encode_level(const int32_t* lp, const float (&xv)[S][D],
+                                             const bool (&live)[S],
                                              const T* __restrict__ table, const HashConsts& hc,
                                              int interp, float (&acc)[S][F]) {
   constexpr int C = 1 << D;
@@ -125,9 +138,11 @@ __device__ __forceinline__ void encode_level(const int32_t* lp, const float (&xv
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
-    for (int c = 0; c < C; ++c) raw[s][c].load(table + int64_t(rows[s][c]) * F);
+    for (int c = 0; c < C; ++c)
+      if (!kMask || live[s]) raw[s][c].load(table + int64_t(rows[s][c]) * F);
 #pragma unroll
-  for (int s = 0; s < S; ++s)
+  for (int s = 0; s < S; ++s) {
+    if (kMask && !live[s]) continue;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       float v[F];
@@ -136,6 +151,7 @@ __device__ __forceinline__ void encode_level(const int32_t* lp, const float (&xv
 #pragma unroll
       for (int f = 0; f < F; ++f) acc[s][f] = __fadd_rn(acc[s][f], __fmul_rn(w, v[f]));
     }
+  }
 }
 
 // Levels per thread where the output is AoS: as many as fill a 32-byte
@@ -164,10 +180,12 @@ __device__ __forceinline__ uint32_t packed_word(const T (&v)[N], int k) {
 // 32 consecutive samples of an SoA row; with G levels of AoS output
 // (``sectors``: rows 32-byte aligned, every group full) the two lanes of a
 // pair of samples swap halves so that each 16-byte store of a warp fills
-// whole sectors.
-template <typename T, int D, int F, int G>
+// whole sectors.  With kMask, level_frac holds the samples' level
+// fractions.
+template <typename T, int D, int F, int G, bool kMask>
 __global__ void __launch_bounds__(kGridThreads)
-grid_encode_fwd_kernel(const float* __restrict__ x, const T* __restrict__ table,
+grid_encode_fwd_kernel(const float* __restrict__ x, const float* __restrict__ level_frac,
+                       const T* __restrict__ table,
                        const int32_t* __restrict__ level_params, int n_levels,
                        T* __restrict__ out, int64_t batch, int64_t x_stride_b,
                        int64_t out_stride_b, int64_t out_stride_f, HashConsts hc,
@@ -175,11 +193,14 @@ grid_encode_fwd_kernel(const float* __restrict__ x, const T* __restrict__ table,
   constexpr int S = samples_per_thread<T, F, D>();
   const int64_t b0 = int64_t(blockIdx.x) * (kGridThreads * S) + threadIdx.x;
   float xv[S][D];
+  float thr[S];   // kMask: the levels below thr[s] are sample s's
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int64_t b = b0 + int64_t(s) * kGridThreads;
 #pragma unroll
     for (int d = 0; d < D; ++d) xv[s][d] = b < batch ? x[b * x_stride_b + d] : 0.0f;
+    if constexpr (kMask)
+      thr[s] = b < batch ? level_threshold(level_frac[b], n_levels) : 0.0f;
   }
   T res[S][G * F];
 #pragma unroll
@@ -191,8 +212,13 @@ grid_encode_fwd_kernel(const float* __restrict__ x, const T* __restrict__ table,
 #pragma unroll
       for (int f = 0; f < F; ++f) acc[s][f] = 0.0f;
     // Below max_level; above it (and past the last level) zeros.
-    if (level < n_levels && level_params[level * kLevelFields + 4] != 0)
-      encode_level<T, D, F, S>(level_params + level * kLevelFields, xv, table, hc, interp, acc);
+    if (level < n_levels && level_params[level * kLevelFields + 4] != 0) {
+      bool live[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) live[s] = !kMask || float(level) < thr[s];
+      encode_level<T, D, F, S, kMask>(level_params + level * kLevelFields, xv, live, table, hc,
+                                      interp, acc);
+    }
 #pragma unroll
     for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -243,6 +269,7 @@ grid_encode_fwd_kernel(const float* __restrict__ x, const T* __restrict__ table,
 template <typename T>
 struct FwdLaunch {
   const float* x;
+  const float* level_frac;   // null: no per-sample mask
   const void* table;
   const int32_t* level_params;
   void* out;
@@ -257,9 +284,16 @@ struct FwdLaunch {
   cudaError_t launch(bool sectors) const {
     constexpr int64_t per_cta = int64_t(kGridThreads) * samples_per_thread<T, F, D>();
     const dim3 grid(unsigned((batch + per_cta - 1) / per_cta), unsigned((n_levels + G - 1) / G));
-    grid_encode_fwd_kernel<T, D, F, G><<<grid, kGridThreads, 0, stream>>>(
-        x, static_cast<const T*>(table), level_params, n_levels, static_cast<T*>(out), batch,
-        x_stride_b, out_stride_b, out_stride_f, hc, interp, sectors);
+    if (level_frac)
+      grid_encode_fwd_kernel<T, D, F, G, true><<<grid, kGridThreads, 0, stream>>>(
+          x, level_frac, static_cast<const T*>(table), level_params, n_levels,
+          static_cast<T*>(out), batch, x_stride_b, out_stride_b, out_stride_f, hc, interp,
+          sectors);
+    else
+      grid_encode_fwd_kernel<T, D, F, G, false><<<grid, kGridThreads, 0, stream>>>(
+          x, nullptr, static_cast<const T*>(table), level_params, n_levels,
+          static_cast<T*>(out), batch, x_stride_b, out_stride_b, out_stride_f, hc, interp,
+          sectors);
     return cudaSuccess;
   }
 
@@ -278,8 +312,8 @@ struct FwdLaunch {
 }  // namespace
 
 cudaError_t grid_encode_fwd_launch(
-    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
-    const int32_t* level_params, void* out, int64_t batch, int n_dims,
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
+    bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
     const uint32_t hash_factors[4], bool coherent_add, int interp,
     cudaStream_t stream) {
@@ -291,11 +325,11 @@ cudaError_t grid_encode_fwd_launch(
   hc.coherent_add = coherent_add ? 1 : 0;
   if (table_bf16)
     return dispatch_df(n_dims, n_features,
-                       FwdLaunch<__nv_bfloat16>{x, table, level_params, out, batch, n_levels,
-                                                x_stride_b, out_stride_b, out_stride_f, hc,
-                                                interp, stream});
+                       FwdLaunch<__nv_bfloat16>{x, level_frac, table, level_params, out, batch,
+                                                n_levels, x_stride_b, out_stride_b,
+                                                out_stride_f, hc, interp, stream});
   return dispatch_df(n_dims, n_features,
-                     FwdLaunch<float>{x, table, level_params, out, batch, n_levels,
+                     FwdLaunch<float>{x, level_frac, table, level_params, out, batch, n_levels,
                                       x_stride_b, out_stride_b, out_stride_f, hc, interp,
                                       stream});
 }

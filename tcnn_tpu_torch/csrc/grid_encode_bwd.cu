@@ -71,6 +71,13 @@
 // distributed shared memory, measured 2.2x slower.  Each thread issues
 // the loads of kUnroll samples before it uses them.  config_btf's levels
 // (65,536 rows and more, about 8 updates per row) are all direct.
+//
+// Coarse-to-fine: with per-sample level fractions (null: none), a sample
+// whose level is masked (grid_common.cuh: level_threshold, the forward's
+// cutoff) issues no update at all, neither a direct atomic nor a window
+// add, so a window sums only live samples' terms.  Its x and output
+// gradient are loaded all the same, with the others of its kUnroll group.
+// The plan (gb_plan) is the same with or without a mask.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -107,6 +114,8 @@ __device__ __forceinline__ void add_row(float* p, float w, const float (&dy)[F])
 
 struct BwdParams {
   const float* x;
+  const float* level_frac;   // null: no per-sample mask
+  int n_levels;
   const void* dcols;
   const int32_t* level_params;
   const int32_t* items;   // this launch's items, kItemFields each
@@ -119,13 +128,15 @@ struct BwdParams {
 // fn(x_b, dy_b) for the samples b = from, from + stride, ... below b1, with
 // the coordinates and output gradients of kUnroll samples loaded before
 // any of them is used: a thread keeps kUnroll samples' loads in flight,
-// where one sample at a time waits a memory latency per sample.
+// where one sample at a time waits a memory latency per sample.  Only for
+// the samples that keep the level.
 template <typename TG, int D, int F, typename Fn>
 __device__ __forceinline__ void for_samples(const BwdParams& a, int level, int64_t from,
                                             int64_t b1, int64_t stride, Fn fn) {
   const TG* dcols = static_cast<const TG*>(a.dcols) + int64_t(level) * F * a.dc_stride_f;
   for (int64_t b = from; b < b1; b += kUnroll * stride) {
     float xs[kUnroll][D], dy[kUnroll][F];
+    bool live[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t bu = b + u * stride;
@@ -135,10 +146,12 @@ __device__ __forceinline__ void for_samples(const BwdParams& a, int level, int64
 #pragma unroll
       for (int f = 0; f < F; ++f)
         dy[u][f] = to_f32(__ldg(dcols + bu * a.dc_stride_b + f * a.dc_stride_f));
+      live[u] = !a.level_frac ||
+                float(level) < level_threshold(__ldg(a.level_frac + bu), a.n_levels);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (b + u * stride < b1) fn(xs[u], dy[u]);
+      if (b + u * stride < b1 && live[u]) fn(xs[u], dy[u]);
   }
 }
 
@@ -284,13 +297,14 @@ struct BwdLaunch {
 }  // namespace
 
 cudaError_t grid_encode_bwd_launch(
-    const float* x, int64_t x_stride_b, const void* dcols, bool dcols_bf16,
-    const int32_t* level_params, const int32_t* items, const int32_t* groups, int n_groups,
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* dcols,
+    bool dcols_bf16, const int32_t* level_params, int n_levels, const int32_t* items,
+    const int32_t* groups, int n_groups,
     float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
     int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[4],
     bool coherent_add, int interp, cudaStream_t stream) {
-  if (n_params <= 0 || n_groups < 0 || interp < 0 || interp > 2 || x_stride_b < n_dims ||
-      (!out_bf16 && out != grad))
+  if (n_params <= 0 || n_groups < 0 || n_levels <= 0 || interp < 0 || interp > 2 ||
+      x_stride_b < n_dims || (!out_bf16 && out != grad))
     return cudaErrorInvalidValue;
   for (int i = 0; i < n_groups; ++i)
     if (groups[4 * i + 1] <= 0 || groups[4 * i + 2] < 0 || groups[4 * i + 2] > kWindowMaxBytes ||
@@ -299,8 +313,8 @@ cudaError_t grid_encode_bwd_launch(
   HashConsts hc;
   for (int d = 0; d < 4; ++d) hc.factors[d] = hash_factors[d];
   hc.coherent_add = coherent_add ? 1 : 0;
-  const BwdParams a{x, dcols, level_params, items, grad, x_stride_b, dc_stride_b, dc_stride_f,
-                    hc, interp};
+  const BwdParams a{x, level_frac, n_levels, dcols, level_params, items, grad,
+                    x_stride_b, dc_stride_b, dc_stride_f, hc, interp};
 
   cudaError_t err = cudaMemsetAsync(grad, 0, size_t(n_params) * sizeof(float), stream);
   if (err != cudaSuccess) return err;

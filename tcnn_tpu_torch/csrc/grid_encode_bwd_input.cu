@@ -16,7 +16,9 @@
 // rule.  x and dcols are read through strides (dcols SoA (L*F, B), or the
 // transpose of an AoS gradient), the table and dcols as float32 or
 // bfloat16 (a run-time flag, so one instance per (D, F) serves all four
-// dtype pairs).  Dead levels (at or above max_level) add nothing.
+// dtype pairs).  Dead levels (at or above max_level) add nothing, nor do
+// the levels a sample's coarse-to-fine mask drops (level_frac, as in
+// kernels G and GB: grid_common.cuh's level_threshold; null, no mask).
 //
 // Bound on the H100: it reads x, dcols and the table rows the batch
 // touches and writes dx.  At the SDF sample's shape (3-D, 8 levels, F = 2,
@@ -36,7 +38,8 @@ namespace {
 
 template <int D, int F>
 __global__ void __launch_bounds__(kGridThreads)
-grid_encode_bwd_input_kernel(const float* __restrict__ x, const void* __restrict__ table,
+grid_encode_bwd_input_kernel(const float* __restrict__ x, const float* __restrict__ level_frac,
+                             const void* __restrict__ table,
                              bool table_bf16, const void* __restrict__ dcols, bool dcols_bf16,
                              const int32_t* __restrict__ level_params, float* __restrict__ dx,
                              int64_t batch, int n_levels, int64_t x_stride_b,
@@ -45,13 +48,16 @@ grid_encode_bwd_input_kernel(const float* __restrict__ x, const void* __restrict
   const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
   if (b >= batch) return;
   const float* xb = x + b * x_stride_b;
+  // the levels below thr are the sample's (every level without a mask)
+  const float thr = level_frac ? level_threshold(level_frac[b], n_levels)
+                               : __int_as_float(0x7f800000);
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.0f;
 
   for (int level = 0; level < n_levels; ++level) {
     const int32_t* lp = level_params + level * kLevelFields;
-    if (lp[4] == 0) continue;  // at or above max_level
+    if (lp[4] == 0 || !(float(level) < thr)) continue;  // at or above max_level, or masked
     float dy[F];
 #pragma unroll
     for (int k = 0; k < F; ++k)
@@ -76,6 +82,7 @@ grid_encode_bwd_input_kernel(const float* __restrict__ x, const void* __restrict
 
 struct BwdInputLaunch {
   const float* x;
+  const float* level_frac;
   const void* table;
   bool table_bf16;
   const void* dcols;
@@ -93,7 +100,7 @@ struct BwdInputLaunch {
   cudaError_t run() const {
     const unsigned grid = unsigned((batch + kGridThreads - 1) / kGridThreads);
     grid_encode_bwd_input_kernel<D, F><<<grid, kGridThreads, 0, stream>>>(
-        x, table, table_bf16, dcols, dcols_bf16, level_params, dx, batch, n_levels,
+        x, level_frac, table, table_bf16, dcols, dcols_bf16, level_params, dx, batch, n_levels,
         x_stride_b, dc_stride_b, dc_stride_f, hc, interp);
     return cudaGetLastError();
   }
@@ -102,9 +109,9 @@ struct BwdInputLaunch {
 }  // namespace
 
 cudaError_t grid_encode_bwd_input_launch(
-    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
-    const void* dcols, bool dcols_bf16, const int32_t* level_params, float* dx,
-    int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
+    bool table_bf16, const void* dcols, bool dcols_bf16, const int32_t* level_params,
+    float* dx, int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
     int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add, int interp,
     cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || interp < 0 || interp > 2 || x_stride_b < n_dims)
@@ -113,9 +120,9 @@ cudaError_t grid_encode_bwd_input_launch(
   for (int d = 0; d < 4; ++d) hc.factors[d] = hash_factors[d];
   hc.coherent_add = coherent_add ? 1 : 0;
   return dispatch_df(n_dims, n_features,
-                     BwdInputLaunch{x, table, table_bf16, dcols, dcols_bf16, level_params, dx,
-                                    batch, n_levels, x_stride_b, dc_stride_b, dc_stride_f, hc,
-                                    interp, stream});
+                     BwdInputLaunch{x, level_frac, table, table_bf16, dcols, dcols_bf16,
+                                    level_params, dx, batch, n_levels, x_stride_b, dc_stride_b,
+                                    dc_stride_f, hc, interp, stream});
 }
 
 }  // namespace tcnn_tpu_torch

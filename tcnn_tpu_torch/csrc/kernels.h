@@ -18,6 +18,9 @@ namespace tcnn_tpu_torch {
 //   x            (batch, n_dims) float32: coordinate d of sample b at
 //                x[b*x_stride_b + d], x_stride_b >= n_dims (a column slice of a
 //                wider input is read in place)
+//   level_frac   (batch) float32 per-sample level fractions, or null: sample b
+//                keeps level l iff l < level_frac[b] * n_levels + 1e-3
+//                (grid_common.cuh: level_threshold); masked levels are 0
 //   table        flat (n_entries * n_features), float32 or bfloat16
 //   level_params (n_levels, 12) int32, see ops/grid_ops.py::level_params
 //   out          element (b, l*F+f) at out[b*out_stride_b + (l*F+f)*out_stride_f],
@@ -25,8 +28,8 @@ namespace tcnn_tpu_torch {
 //   hash_factors four uint32 LCG factors; coherent_add selects the
 //                additive dim-0 hash; interp: 0 nearest, 1 linear, 2 smoothstep
 cudaError_t grid_encode_fwd_launch(
-    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
-    const int32_t* level_params, void* out, int64_t batch, int n_dims,
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
+    bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
     const uint32_t hash_factors[4], bool coherent_add, int interp,
     cudaStream_t stream);
@@ -46,7 +49,9 @@ cudaError_t fused_mlp_fwd_launch(
     cudaStream_t stream);
 
 // Kernel GB: grid-encode backward, the table gradient (csrc/grid_encode_bwd.cu).
-//   x, x_stride_b as for grid_encode_fwd_launch
+//   x, x_stride_b, level_frac as for grid_encode_fwd_launch: a masked
+//                (sample, level) adds nothing
+//   n_levels     the rows of level_params
 //   dcols        element (l*F+f, b) at dcols[b*dc_stride_b + (l*F+f)*dc_stride_f],
 //                float32 or bfloat16
 //   items        (n_items, 5) int32 on the device, the work of
@@ -60,8 +65,9 @@ cudaError_t fused_mlp_fwd_launch(
 //                grad) or, for float32 tables, grad itself
 //   other arguments as for grid_encode_fwd_launch
 cudaError_t grid_encode_bwd_launch(
-    const float* x, int64_t x_stride_b, const void* dcols, bool dcols_bf16,
-    const int32_t* level_params, const int32_t* items, const int32_t* groups, int n_groups,
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* dcols,
+    bool dcols_bf16, const int32_t* level_params, int n_levels, const int32_t* items,
+    const int32_t* groups, int n_groups,
     float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
     int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[4],
     bool coherent_add, int interp, cudaStream_t stream);
@@ -84,15 +90,15 @@ cudaError_t fused_mlp_bwd_launch(
     bool compute_bf16, int act, int out_act, bool soa_in, cudaStream_t stream);
 
 // Kernel GI: grid-encode input gradient (csrc/grid_encode_bwd_input.cu).
-//   x, x_stride_b, level_params, hash_factors, coherent_add, interp: as for
-//                grid_encode_fwd_launch
+//   x, x_stride_b, level_frac, level_params, hash_factors, coherent_add, interp:
+//                as for grid_encode_fwd_launch
 //   table        flat (n_entries * n_features), float32 or bfloat16 (table_bf16)
 //   dcols        as for grid_encode_bwd_launch, float32 or bfloat16 (dcols_bf16)
 //   dx           (batch, n_dims) float32, contiguous: written, not accumulated
 cudaError_t grid_encode_bwd_input_launch(
-    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
-    const void* dcols, bool dcols_bf16, const int32_t* level_params, float* dx,
-    int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
+    bool table_bf16, const void* dcols, bool dcols_bf16, const int32_t* level_params,
+    float* dx, int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
     int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add, int interp,
     cudaStream_t stream);
 

@@ -1,16 +1,19 @@
-"""Parameter-free and composite encodings: OneBlob and Composite.
+"""Parameter-free and composite encodings.
 
-PyTorch counterpart of ``tcnn_tpu/models/encodings/basic.py`` (OneBlob
-:118-156, Composite :264-356, their registrations :371-386), the
-encodings of ``configs/config_btf.json``: a 4-D hash grid on the first
-dims and OneBlob on the rest.  Both are plain PyTorch on every device:
-the JAX package wrote no kernel for them (they fuse into neighbouring
-ops under XLA), and on the card their cost beside the grid and the MLP
-is a few elementwise launches.
+PyTorch counterpart of ``tcnn_tpu/models/encodings/basic.py``: Identity
+(:32-53), Frequency (:56-87), TriangleWave (:90-115), OneBlob (:118-156),
+SphericalHarmonics (:167-238), Empty (:241-262), Composite (:264-356) and
+their registrations with the NRC / OneBlobFrequency alias (:359-399).
+They are plain PyTorch on every device, the JAX package's jnp operations
+in the same order: the JAX package wrote no kernel for them (they fuse
+into neighbouring ops under XLA), and on the card their cost beside the
+grid and the MLP is a few elementwise launches.  Each output has its
+input's dtype, as in JAX.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -18,6 +21,78 @@ import torch
 from ...common import Policy, ReductionType, resolve_device
 from ...module import Encoding
 from ...registry import register_encoding
+
+
+class _Elementwise(Encoding):
+    """An encoding without parameters: the device only fixes the contract
+    (``None`` means ``cuda`` and raises without one)."""
+
+    def __init__(self, n_dims_to_encode: int, n_output_dims: int,
+                 policy: Optional[Policy] = None, device=None):
+        super().__init__(policy)
+        resolve_device(device)
+        self.n_input_dims = n_dims_to_encode
+        self.n_output_dims = n_output_dims
+
+
+class IdentityEncoding(_Elementwise):
+    """y = x · scale + offset (identity.h:45-85)."""
+
+    def __init__(self, n_dims_to_encode: int, scale: float = 1.0, offset: float = 0.0,
+                 policy: Optional[Policy] = None, device=None):
+        super().__init__(n_dims_to_encode, n_dims_to_encode, policy, device)
+        self.scale = float(scale)
+        self.offset = float(offset)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale + self.offset
+
+    def hyperparams(self) -> Dict[str, Any]:
+        return {"otype": "Identity", "scale": self.scale, "offset": self.offset}
+
+
+class FrequencyEncoding(_Elementwise):
+    """NeRF positional encoding (frequency.h:45-103): per input dim d and
+    frequency k, out[d·2F + 2k] = sin(2^k π x_d) and out[d·2F + 2k + 1] =
+    cos(2^k π x_d), dim-major as in the reference."""
+
+    def __init__(self, n_frequencies: int, n_dims_to_encode: int,
+                 policy: Optional[Policy] = None, device=None):
+        super().__init__(n_dims_to_encode, n_dims_to_encode * int(n_frequencies) * 2,
+                         policy, device)
+        self.n_frequencies = int(n_frequencies)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # 2^k exactly, made on x's device (no copy from the host)
+        freqs = torch.exp2(torch.arange(self.n_frequencies, dtype=x.dtype, device=x.device))
+        phase = x[..., :, None] * freqs * math.pi               # (B, D, F)
+        out = torch.stack([torch.sin(phase), torch.cos(phase)], dim=-1)
+        return out.reshape(x.shape[0], self.n_output_dims)
+
+    def hyperparams(self) -> Dict[str, Any]:
+        return {"otype": "Frequency", "n_frequencies": self.n_frequencies}
+
+
+class TriangleWaveEncoding(_Elementwise):
+    """Triangle-wave encoding (triangle_wave.h:46-109; the NRC paper): per
+    dim d and frequency k, v = x_d·2^(k−1) + k/4 and out = |frac(v) − 0.5|·4 − 1."""
+
+    def __init__(self, n_frequencies: int, n_dims_to_encode: int,
+                 policy: Optional[Policy] = None, device=None):
+        super().__init__(n_dims_to_encode, n_dims_to_encode * int(n_frequencies),
+                         policy, device)
+        self.n_frequencies = int(n_frequencies)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ks = torch.arange(self.n_frequencies, dtype=x.dtype, device=x.device)
+        scaled = x[..., :, None] * torch.pow(2.0, ks - 1.0)   # (B, D, F)
+        val = scaled + ks * 0.25
+        frac = val - torch.floor(val)
+        out = torch.abs(frac - 0.5) * 4.0 - 1.0
+        return out.reshape(x.shape[0], self.n_output_dims)
+
+    def hyperparams(self) -> Dict[str, Any]:
+        return {"otype": "TriangleWave", "n_frequencies": self.n_frequencies}
 
 
 def _quartic_cdf(x: torch.Tensor, inv_radius: float) -> torch.Tensor:
@@ -30,7 +105,7 @@ def _quartic_cdf(x: torch.Tensor, inv_radius: float) -> torch.Tensor:
                        + 0.5, 0.0, 1.0)
 
 
-class OneBlobEncoding(Encoding):
+class OneBlobEncoding(_Elementwise):
     """OneBlob encoding with wraparound (oneblob.h:98-127).
 
     out[d, k] = C((k+1)/n − x_d) − C(k/n − x_d) with
@@ -42,11 +117,8 @@ class OneBlobEncoding(Encoding):
 
     def __init__(self, n_bins: int, n_dims_to_encode: int,
                  policy: Optional[Policy] = None, device=None):
-        super().__init__(policy)
-        resolve_device(device)   # no parameters, but the same contract
+        super().__init__(n_dims_to_encode, n_dims_to_encode * int(n_bins), policy, device)
         self.n_bins = int(n_bins)
-        self.n_input_dims = n_dims_to_encode
-        self.n_output_dims = n_dims_to_encode * self.n_bins
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = self.n_bins
@@ -58,6 +130,90 @@ class OneBlobEncoding(Encoding):
 
     def hyperparams(self) -> Dict[str, Any]:
         return {"otype": "OneBlob", "n_bins": self.n_bins}
+
+
+def _double_factorial(n: int) -> float:
+    r = 1.0
+    while n > 1:
+        r *= n
+        n -= 2
+    return r
+
+
+class SphericalHarmonicsEncoding(_Elementwise):
+    """Real spherical harmonics of a direction (spherical_harmonics.h:63-98;
+    the polynomials of common_device.h:339-418).
+
+    The input is 3-D in [0, 1]^3, mapped to v = 2u − 1 in [−1, 1]^3; the
+    output is degree² coefficients, i = l(l+1) + m, Condon-Shortley phase
+    included.  Evaluated, as in the JAX package, by the associated-Legendre
+    recurrence in the same order of operations (basic.py:199-234), not by
+    the reference's generated polynomials: both agree on the unit sphere,
+    which is SH's contract.  Autograd gives the gradient that
+    common_device.h:420-629 writes by hand.
+    """
+
+    def __init__(self, degree: int, n_dims_to_encode: int = 3,
+                 policy: Optional[Policy] = None, device=None):
+        if n_dims_to_encode != 3:
+            raise ValueError("SphericalHarmonics requires 3 input dims")
+        if not 1 <= degree <= 8:
+            raise ValueError(f"SH degree must be in [1, 8], got {degree}")
+        super().__init__(3, int(degree) ** 2, policy, device)
+        self.degree = int(degree)
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        x = v[:, 0] * 2.0 - 1.0
+        y = v[:, 1] * 2.0 - 1.0
+        z = v[:, 2] * 2.0 - 1.0
+        L = self.degree
+        # A_m = Re((x+iy)^m), B_m = Im((x+iy)^m): sin^m(θ)·{cos, sin}(mφ)
+        A = [torch.ones_like(x)]
+        B = [torch.zeros_like(x)]
+        for m in range(1, L):
+            a_prev, b_prev = A[m - 1], B[m - 1]
+            A.append(x * a_prev - y * b_prev)
+            B.append(x * b_prev + y * a_prev)
+        # Semi-normalised associated Legendre P̂_l^m = P_l^m / sin^m(θ), a
+        # polynomial in z, with the Condon-Shortley phase.
+        P: Dict[tuple, torch.Tensor] = {}
+        for m in range(0, L):
+            pmm = ((-1.0) ** m) * _double_factorial(2 * m - 1)
+            P[(m, m)] = torch.full_like(z, pmm) if m > 0 else torch.ones_like(z)
+            if m + 1 < L:
+                P[(m + 1, m)] = z * (2 * m + 1) * P[(m, m)]
+            for l in range(m + 2, L):
+                P[(l, m)] = ((2 * l - 1) * z * P[(l - 1, m)]
+                             - (l + m - 1) * P[(l - 2, m)]) / (l - m)
+        outs: List[Optional[torch.Tensor]] = [None] * (L * L)
+        for l in range(L):
+            for m in range(0, l + 1):
+                k = math.sqrt((2 * l + 1) / (4 * math.pi)
+                              * math.factorial(l - m) / math.factorial(l + m))
+                if m == 0:
+                    outs[l * (l + 1)] = k * P[(l, 0)]
+                else:
+                    sk = math.sqrt(2.0) * k
+                    outs[l * (l + 1) + m] = sk * A[m] * P[(l, m)]
+                    outs[l * (l + 1) - m] = sk * B[m] * P[(l, m)]
+        return torch.stack(outs, dim=-1)
+
+    def hyperparams(self) -> Dict[str, Any]:
+        return {"otype": "SphericalHarmonics", "degree": self.degree}
+
+
+class EmptyEncoding(_Elementwise):
+    """Consumes its inputs and emits nothing (empty.h:46-90): useful inside
+    Composite to drop dimensions."""
+
+    def __init__(self, n_dims_to_encode: int, policy: Optional[Policy] = None, device=None):
+        super().__init__(n_dims_to_encode, 0, policy, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.new_zeros((x.shape[0], 0))
+
+    def hyperparams(self) -> Dict[str, Any]:
+        return {"otype": "Empty"}
 
 
 class CompositeEncoding(Encoding):
@@ -156,10 +312,44 @@ class CompositeEncoding(Encoding):
 
 
 register_encoding(
+    ["Identity", "Linear"],
+    lambda n_dims, cfg, policy=None, device=None, **kw: IdentityEncoding(
+        n_dims, cfg.get("scale", 1.0), cfg.get("offset", 0.0), policy=policy, device=device))
+register_encoding(
+    ["Frequency", "PositionalEncoding", "NeRFEncoding"],
+    lambda n_dims, cfg, policy=None, device=None, **kw: FrequencyEncoding(
+        cfg.get("n_frequencies", 12), n_dims, policy=policy, device=device))
+register_encoding(
+    "TriangleWave",
+    lambda n_dims, cfg, policy=None, device=None, **kw: TriangleWaveEncoding(
+        cfg.get("n_frequencies", 12), n_dims, policy=policy, device=device))
+register_encoding(
     "OneBlob",
     lambda n_dims, cfg, policy=None, device=None, **kw: OneBlobEncoding(
         cfg.get("n_bins", 16), n_dims, policy=policy, device=device))
 register_encoding(
+    ["SphericalHarmonics", "SH"],
+    lambda n_dims, cfg, policy=None, device=None, **kw: SphericalHarmonicsEncoding(
+        cfg.get("degree", 4), n_dims, policy=policy, device=device))
+register_encoding(
+    ["Empty", "Zero", "None"],
+    lambda n_dims, cfg, policy=None, device=None, **kw: EmptyEncoding(
+        n_dims, policy=policy, device=device))
+register_encoding(
     "Composite",
     lambda n_dims, cfg, **kw: CompositeEncoding(
         cfg["nested"], n_dims, cfg.get("reduction", "Concatenation"), **kw))
+
+
+def _nrc(n_dims, cfg, **kw):
+    """The NRC / OneBlobFrequency alias (src/encoding.cu:70-100): TriangleWave
+    on the first 3 dims, OneBlob on the next 5, Identity on the rest."""
+    return CompositeEncoding(
+        [{"n_dims_to_encode": 3, "otype": "TriangleWave",
+          "n_frequencies": cfg.get("n_frequencies", 12)},
+         {"n_dims_to_encode": 5, "otype": "OneBlob", "n_bins": cfg.get("n_bins", 4)},
+         {"otype": "Identity"}],
+        n_dims, **kw)
+
+
+register_encoding(["NRC", "OneBlobFrequency"], _nrc)

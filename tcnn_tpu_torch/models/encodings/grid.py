@@ -75,14 +75,20 @@ class GridEncoding(Encoding):
     # (grid.h:1053-1055); FusedMLP consumes it directly.
     prefers_soa = True
 
-    def forward(self, x: torch.Tensor, soa: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, soa: bool = False,
+                max_level_per_element: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``max_level_per_element``: optional (B,) level fractions, the
+        per-sample coarse-to-fine mask (grid.h:69-92;
+        ``tcnn_tpu/models/encodings/grid.py:103-118``): sample b uses the
+        levels l < frac[b]·n_levels + 1e-3, on the device with kernels G and
+        GB (``ops/grid_ops.py::grid_encode``)."""
         table = self.grid
         if self.policy.compute_dtype == torch.bfloat16:
             # bf16 compute copy of the table (trainer.h:68-87), as in the
             # JAX package: the table, not only the output, is rounded.
             table = table.to(torch.bfloat16)
         y = grid_ops.grid_encode(self.spec, table, x, max_level=self.max_level,
-                                 soa=soa)
+                                 soa=soa, max_level_per_element=max_level_per_element)
         return y.to(self.policy.compute_dtype)
 
     def hyperparams(self) -> Dict[str, Any]:

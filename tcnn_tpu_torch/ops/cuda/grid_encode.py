@@ -17,7 +17,9 @@ package forms both in jnp (``_finish_interp_bwd`` and autodiff of
 tensor takes ``grid_encode_plain``, ``grid_encode_bwd_plain``,
 ``grid_encode_bwd_input_plain`` or ``grid_encode_bwd_bwd_plain``, the same
 functions in plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold
-the kernels against.
+the kernels against.  G, GB and GI take optional per-sample level fractions
+(``level_frac``, the coarse-to-fine mask of ``grid_ops.level_mask``); GG
+takes none.
 """
 
 from __future__ import annotations
@@ -37,16 +39,18 @@ _INTERP_CODE = {InterpolationType.NEAREST: 0, InterpolationType.LINEAR: 1,
 
 def grid_encode_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                       x: torch.Tensor, live: Sequence[int],
-                      soa: bool = False) -> torch.Tensor:
+                      soa: bool = False,
+                      level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (grid_ops.py:1198-1297 of the
-    JAX package): corner indices and weights, weighted gather, zero rows
-    for dead levels, cast to the table's dtype."""
+    JAX package): corner indices and weights (times the per-sample level
+    mask of ``level_frac``, as JAX multiplies them), weighted gather, zero
+    rows for dead levels, cast to the table's dtype."""
     F = spec.n_features_per_level
     B = x.shape[0]
     cols = torch.zeros((spec.n_levels * F, B), dtype=torch.float32,
                        device=x.device)
     if live:
-        idx, ws = grid_ops.build_indices_weights(spec, x, live)
+        idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac)
         live_cols = grid_ops.interpolate_ref(flat, idx, ws, F)
         rows = torch.tensor([l * F + f for l in live for f in range(F)],
                             device=x.device)
@@ -105,6 +109,18 @@ def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
     require_cuda_tensors(name, x, flat)
 
 
+def _check_frac(name: str, x: torch.Tensor, level_frac: Optional[torch.Tensor]) -> None:
+    """The per-sample level fractions the kernels take: None, or float32
+    (B,), contiguous, on x's device."""
+    if level_frac is None:
+        return
+    if level_frac.dtype != torch.float32 or level_frac.shape != (x.shape[0],) \
+            or not level_frac.is_contiguous():
+        raise ValueError(f"{name}: level_frac must be contiguous float32 ({x.shape[0]},), "
+                         f"got {level_frac.dtype} {tuple(level_frac.shape)}")
+    require_cuda_tensors(name, x, level_frac)
+
+
 def _x_row_stride(x: torch.Tensor) -> int:
     """The kernels' row stride of x: a column slice of a wider input (a
     Composite encoding's part) is read in place, without a copy."""
@@ -113,18 +129,22 @@ def _x_row_stride(x: torch.Tensor) -> int:
 
 def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                     x: torch.Tensor, live: Sequence[int],
-                    soa: bool = False) -> torch.Tensor:
+                    soa: bool = False,
+                    level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, L·F) features, or (L·F, B) with ``soa``, in ``flat``'s dtype.
 
     ``flat`` is the (n_entries·F,) table, float32 or bfloat16; ``x`` is
-    (B, D) float32 with unit stride across D, any row stride.
+    (B, D) float32 with unit stride across D, any row stride;
+    ``level_frac`` None or the (B,) float32 per-sample level fractions
+    (``grid_ops.level_mask``): a masked (sample, level) is written as 0.
     """
     if x.device.type == "cpu":
-        return grid_encode_plain(spec, flat, x, live, soa)
+        return grid_encode_plain(spec, flat, x, live, soa, level_frac)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_fwd: unsupported device {x.device}")
     name = "grid_encode_fwd"
     _check_args(name, spec, flat, x)
+    _check_frac(name, x, level_frac)
     level_consts = _consts(spec, live, x.device)
     factors, coherent_add = _hash_args(spec)
     F, L = spec.n_features_per_level, spec.n_levels
@@ -135,7 +155,7 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     if B == 0:
         return out
     stride_b, stride_f = (1, B) if soa else (L * F, 1)
-    kernels().grid_encode_fwd(x, _x_row_stride(x), flat, level_consts, out,
+    kernels().grid_encode_fwd(x, _x_row_stride(x), level_frac, flat, level_consts, out,
                               spec.n_dims, F, stride_b, stride_f, factors,
                               coherent_add, _INTERP_CODE[spec.interpolation])
     grid_encode_fwd.launches += 1
@@ -147,19 +167,21 @@ grid_encode_fwd.launches = 0
 
 def grid_encode_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                           x: torch.Tensor, dcols: torch.Tensor,
-                          live: Sequence[int]) -> torch.Tensor:
+                          live: Sequence[int],
+                          level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel GB: the table gradient
     dflat[idx_c(b, l)·F + f] += w_c(b, l) · dcols[l·F+f, b] over every
     sample, live level and corner, each product and the sum in fp32
     (``index_add_``), cast once to ``flat``'s dtype
     (grid_ops.py:1099-1102 of the JAX package).  ``dcols`` is the
-    (L·F, B) SoA output gradient; dead levels get zero gradient."""
+    (L·F, B) SoA output gradient; dead levels, and the (sample, level)
+    pairs ``level_frac`` masks, add nothing."""
     F = spec.n_features_per_level
     B = x.shape[0]
     dflat = torch.zeros((spec.n_entries, F), dtype=torch.float32,
                         device=x.device)
     if live and B:
-        idx, ws = grid_ops.build_indices_weights(spec, x, live)
+        idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac)
         L = len(live)
         C = ws.shape[0] // L
         rows = torch.tensor([l * F + f for l in live for f in range(F)],
@@ -265,22 +287,25 @@ def _gb_plan_on(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
 
 def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                     x: torch.Tensor, dcols: torch.Tensor,
-                    live: Sequence[int]) -> torch.Tensor:
+                    live: Sequence[int],
+                    level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(n_entries·F,) table gradient in ``flat``'s dtype.
 
     ``dcols`` is the output gradient in the SoA layout (L·F, B), float32 or
     bfloat16, any strides (the transpose of an AoS gradient is taken as
-    it is); ``flat`` and ``x`` as for ``grid_encode_fwd``.  Levels whose
+    it is); ``flat``, ``x`` and ``level_frac`` as for ``grid_encode_fwd``:
+    a masked (sample, level) issues no update.  Levels whose
     rows fit in one or two CTAs' shared memory are summed there
     (``gb_plan``), the others by direct atomics: by design, not as a
     fallback.
     """
     if x.device.type == "cpu":
-        return grid_encode_bwd_plain(spec, flat, x, dcols, live)
+        return grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_bwd: unsupported device {x.device}")
     name = "grid_encode_bwd"
     _check_args(name, spec, flat, x)
+    _check_frac(name, x, level_frac)
     F, L = spec.n_features_per_level, spec.n_levels
     B = x.shape[0]
     if dcols.shape != (L * F, B) or dcols.dtype not in (torch.float32, torch.bfloat16):
@@ -296,7 +321,8 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     if B == 0:
         return grad.zero_().to(flat.dtype)
     out = grad if flat.dtype == torch.float32 else torch.empty_like(flat)
-    kernels().grid_encode_bwd(x, _x_row_stride(x), dcols, level_consts, items, groups, grad,
+    kernels().grid_encode_bwd(x, _x_row_stride(x), level_frac, dcols, level_consts, items,
+                              groups, grad,
                               out, spec.n_dims, F, dcols.stride(1), dcols.stride(0),
                               factors, coherent_add,
                               _INTERP_CODE[spec.interpolation])
@@ -334,16 +360,18 @@ def _corner_features(spec: grid_ops.GridSpec, flat: torch.Tensor,
 
 def grid_encode_bwd_input_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                                 x: torch.Tensor, dcols: torch.Tensor,
-                                live: Sequence[int]) -> torch.Tensor:
+                                live: Sequence[int],
+                                level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel GI: dx[b, d] = Σ_l Σ_c ∂w_c/∂x_d ·
     Σ_k table[row_c, k] · dcols[l·F+k, b], in fp32 (the JAX package's
     ``dws`` of ``_finish_interp_bwd``, grid_ops.py:1104-1119, carried
     through ``_build_indices_weights``' derivative).  Returns (B, D)
-    float32; dead levels add nothing."""
+    float32; dead levels, and masked (sample, level) pairs, add nothing."""
     B, D = x.shape
     dx = torch.zeros((B, D), dtype=torch.float32, device=x.device)
     if live and B:
-        idx, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1)
+        idx, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1,
+                                                     level_frac=level_frac)
         feats = _corner_features(spec, flat, idx)                     # (L, C, B, F)
         dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]  # (L, 1, B, F)
         val = (feats * dy).sum(-1)                                    # (L, C, B)
@@ -353,27 +381,31 @@ def grid_encode_bwd_input_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
 
 def grid_encode_bwd_input(spec: grid_ops.GridSpec, flat: torch.Tensor,
                           x: torch.Tensor, dcols: torch.Tensor,
-                          live: Sequence[int]) -> torch.Tensor:
+                          live: Sequence[int],
+                          level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, D) float32 input gradient of the grid encoding (kernel GI).
 
     ``flat`` is the (n_entries·F,) table, float32 or bfloat16, ``x`` the
     (B, D) float32 input (unit stride across D, any row stride), ``dcols``
-    the (L·F, B) SoA output gradient, float32 or bfloat16, any strides.
+    the (L·F, B) SoA output gradient, float32 or bfloat16, any strides,
+    ``level_frac`` as for ``grid_encode_fwd``.
     """
     if x.device.type == "cpu":
-        return grid_encode_bwd_input_plain(spec, flat, x, dcols, live)
+        return grid_encode_bwd_input_plain(spec, flat, x, dcols, live, level_frac)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_bwd_input: unsupported device {x.device}")
     name = "grid_encode_bwd_input"
     _check_args(name, spec, flat, x)
     _check_dcols(name, spec, x, dcols)
+    _check_frac(name, x, level_frac)
     level_consts = _consts(spec, live, x.device)
     factors, coherent_add = _hash_args(spec)
     B, D = x.shape
     dx = torch.empty((B, D), dtype=torch.float32, device=x.device)
     if B == 0:
         return dx
-    kernels().grid_encode_bwd_input(x, _x_row_stride(x), flat, dcols, level_consts, dx,
+    kernels().grid_encode_bwd_input(x, _x_row_stride(x), level_frac, flat, dcols,
+                                    level_consts, dx,
                                     D, spec.n_features_per_level, dcols.stride(1),
                                     dcols.stride(0), factors, coherent_add,
                                     _INTERP_CODE[spec.interpolation])

@@ -224,8 +224,22 @@ def live_levels(spec: GridSpec, max_level: Optional[int]) -> List[int]:
             if max_level is None or li < max_level]
 
 
+def level_mask(spec: GridSpec, live: Sequence[int],
+               level_frac: torch.Tensor) -> torch.Tensor:
+    """(L_live, B) float32 per-sample level mask of the coarse-to-fine
+    schedule (``tcnn_tpu/ops/grid_ops.py:1215-1228``; the CUDA original's
+    ``max_level_gpu``, grid.h:69-92): live level l is kept for sample b iff
+    ``float(l) < frac[b]·n_levels + 1e-3``, the product rounded to fp32 and
+    then the sum, as in JAX (two kernels, never a fused multiply-add)."""
+    thr = level_frac.to(torch.float32).reshape(1, -1) * float(spec.n_levels) + 1e-3
+    lvl = torch.tensor(list(live), dtype=torch.float32,
+                       device=level_frac.device).reshape(-1, 1)
+    return (lvl < thr).to(torch.float32)
+
+
 def build_indices_weights(spec: GridSpec, x: torch.Tensor,
-                          live: Sequence[int], order: int = 0):
+                          live: Sequence[int], order: int = 0,
+                          level_frac: Optional[torch.Tensor] = None):
     """Corner row indices and interpolation weights of the live levels.
 
     Same layout as the JAX package's ``_build_indices_weights``:
@@ -239,7 +253,10 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
     derivative, so d fract/dx is the level's scale) by the product rule
     over the dims, as kernels GI and GG compute them, not from autograd;
     JAX differentiates ``f*f*(3 − 2f)`` by autodiff, which rounds
-    differently.
+    differently.  With ``level_frac`` (B,) the weights and their
+    derivatives of a masked (sample, level) are multiplied by 0
+    (``level_mask``), as JAX multiplies its ``ws``: the sample's output,
+    table gradient and input gradient on that level are zero.
     """
     if spec.stochastic_interpolation:
         raise NotImplementedError(
@@ -283,7 +300,9 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
         return w
 
     ws = torch.stack([product(c, [0] * D) for c in range(C)], dim=1).reshape(L * C, B)
-    out = [ws]
+    mask = (level_mask(spec, live, level_frac).repeat_interleave(C, dim=0)
+            if level_frac is not None else None)
+    out = [ws if mask is None else ws * mask]
     if order >= 1:
         out.append(torch.stack(
             [torch.stack([product(c, [int(d == e) for d in range(D)]) for e in range(D)], -1)
@@ -293,6 +312,8 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
             [torch.stack([torch.stack([product(c, [int(d == e) + int(d == f) for d in range(D)])
                                        for f in range(D)], -1) for e in range(D)], -2)
              for c in range(C)], dim=1).reshape(L * C, B, D, D))
+    if mask is not None:
+        out[1:] = [o * mask.reshape(L * C, B, *[1] * (o.ndim - 2)) for o in out[1:]]
 
     rows = []
     for p, lv in enumerate(levels):
@@ -396,39 +417,41 @@ class GridEncodeFunction(torch.autograd.Function):
     one.  Autograd's backward of ``GridEncoding``'s ``table.to(bfloat16)``
     then brings a bf16 gradient to the fp32 master, as in JAX; autograd
     would instead scatter-add the bf16 gradient of ``table2d[idx]`` in
-    bf16.  Dead levels (static ``max_level``) get zero gradient.  Under
+    bf16.  Dead levels (static ``max_level``) get zero gradient, and so do
+    the (sample, level) pairs that the per-sample mask ``frac`` drops (its
+    (B,) level fractions go to every kernel, forward and backward).  Under
     ``create_graph`` the backward is ``GridEncodeBackwardFunction``, so the
     gradients can be differentiated once more.
     """
 
     @staticmethod
-    def forward(ctx, flat, x, spec, live, soa):
+    def forward(ctx, flat, x, spec, live, soa, frac):
         from .cuda.grid_encode import grid_encode_fwd
 
         ctx.set_materialize_grads(False)   # no gradient in, no kernel launched
         ctx.spec, ctx.live, ctx.soa = spec, live, soa
-        ctx.save_for_backward(flat, x)
-        return grid_encode_fwd(spec, flat, x, live, soa=soa)
+        ctx.save_for_backward(flat, x, frac)
+        return grid_encode_fwd(spec, flat, x, live, soa=soa, level_frac=frac)
 
     @staticmethod
     def backward(ctx, dout):
         from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
 
         if dout is None:
-            return None, None, None, None, None
-        flat, x = ctx.saved_tensors
+            return None, None, None, None, None, None
+        flat, x, frac = ctx.saved_tensors
         dcols = dout if ctx.soa else dout.t()
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         need_x = ctx.needs_input_grad[1]
         if torch.is_grad_enabled():
             dflat, dx = GridEncodeBackwardFunction.apply(flat, x, dcols, ctx.spec,
-                                                         ctx.live, need_table, need_x)
+                                                         ctx.live, need_table, need_x, frac)
         else:
-            dflat = (grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live)
+            dflat = (grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac)
                      if need_table else None)
-            dx = (grid_encode_bwd_input(ctx.spec, flat, x, dcols, ctx.live)
+            dx = (grid_encode_bwd_input(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac)
                   if need_x else None)
-        return dflat, dx, None, None, None
+        return dflat, dx, None, None, None, None
 
 
 class GridEncodeBackwardFunction(torch.autograd.Function):
@@ -447,18 +470,21 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
         kernel GI with ct_dflat as the table (d x): ``_scatter_weighted_bwd``'s
         math (scatter.py:528-550).
     dflat does not depend on the table.  A third derivative raises
-    ``NotImplementedError`` (ROADMAP.md).
+    ``NotImplementedError`` (ROADMAP.md), and so does a second one under a
+    per-sample level mask (kernel GG takes none: ROADMAP.md Queue 1 item 7).
     """
 
     @staticmethod
-    def forward(ctx, flat, x, dcols, spec, live, need_table, need_x):
+    def forward(ctx, flat, x, dcols, spec, live, need_table, need_x, frac):
         from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
 
         ctx.set_materialize_grads(False)
-        ctx.spec, ctx.live = spec, live
+        ctx.spec, ctx.live, ctx.masked = spec, live, frac is not None
         ctx.save_for_backward(flat, x, dcols)
-        dflat = grid_encode_bwd(spec, flat, x, dcols, live) if need_table else None
-        dx = grid_encode_bwd_input(spec, flat, x, dcols, live) if need_x else None
+        dflat = (grid_encode_bwd(spec, flat, x, dcols, live, level_frac=frac)
+                 if need_table else None)
+        dx = (grid_encode_bwd_input(spec, flat, x, dcols, live, level_frac=frac)
+              if need_x else None)
         return dflat, dx
 
     @staticmethod
@@ -471,6 +497,11 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
             raise NotImplementedError(
                 "third derivatives of the grid encoding are not ported "
                 "(ROADMAP.md Queue 1)")
+        if ctx.masked:
+            raise NotImplementedError(
+                "second derivatives of the grid encoding under max_level_per_element "
+                "are not ported: kernel GG takes no per-sample level mask "
+                "(ROADMAP.md Queue 1 item 7)")
         flat, x, dcols = ctx.saved_tensors
         spec, live = ctx.spec, ctx.live
         need_x, need_dcols = ctx.needs_input_grad[1:3]
@@ -495,16 +526,21 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
                 d_x = du if d_x is None else d_x + du
         if d_dcols is not None:
             d_dcols = d_dcols.to(dcols.dtype)
-        return d_flat, d_x, d_dcols, None, None, None, None
+        return d_flat, d_x, d_dcols, None, None, None, None, None
 
 
 def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
-                max_level: Optional[int] = None, soa: bool = False) -> torch.Tensor:
+                max_level: Optional[int] = None, soa: bool = False,
+                max_level_per_element: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward grid encoding (``tcnn_tpu/ops/grid_ops.py:1125-1297``).
 
     table: flat (n_entries·F,) or (n_entries, F), float32 or bfloat16.
     x: (B, D) coordinates.  Levels at or above the static ``max_level``
-    emit zeros.  Returns (B, L·F) features, or (L·F, B) with ``soa``,
+    emit zeros.  ``max_level_per_element``: optional (B,) level fractions,
+    the coarse-to-fine mask of ``level_mask`` (sample b keeps level l iff
+    l < frac[b]·n_levels + 1e-3), composed with ``max_level``; a masked
+    (sample, level) emits zeros and gets zero table and input gradients.
+    Returns (B, L·F) features, or (L·F, B) with ``soa``,
     in the table's dtype (JAX casts the columns to ``table.dtype``).
 
     A CUDA tensor goes through the grid kernels, forward, backward and
@@ -516,5 +552,12 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"expected (B, {spec.n_dims}) input, got {tuple(x.shape)}")
     flat = table.reshape(-1)
     check_table_size(spec, flat)
+    frac = max_level_per_element
+    if frac is not None:
+        frac = frac.reshape(-1)
+        if frac.shape[0] != x.shape[0]:
+            raise ValueError(f"max_level_per_element has {frac.shape[0]} entries "
+                             f"for {x.shape[0]} samples")
+        frac = frac.to(device=x.device, dtype=torch.float32).contiguous()
     return GridEncodeFunction.apply(flat, x, spec,
-                                    tuple(live_levels(spec, max_level)), soa)
+                                    tuple(live_levels(spec, max_level)), soa, frac)

@@ -30,7 +30,8 @@ CUDA graph of 30 calls:
 at ROOT (say, the parent commit unpacked by ``git archive`` into a
 directory ``.gitignore`` lists) with this file's timing code, in the same
 call, as the variant ``baseline``, and says which outputs of the
-deterministic kernels (G, GI, GG, M, MB's dW) have the same bits in both.
+deterministic kernels (G, GI, GG, M, MB's dW), and GB's on inputs whose
+sums are exact in any order, have the same bits in both.
 ``--steps ROUNDS`` instead times whole steps of this checkout and of ROOT
 in turn, ROUNDS runs each (``compare_steps``): ``chip_smoke.py``'s
 config_hash step (on the device, eager, its parts alone, the loop) and
@@ -422,10 +423,12 @@ def _bits(t: torch.Tensor) -> str:
 def time_kernels(config: str, full: bool) -> dict:
     """Times G, GB, GI, GG, RS, M and MB of the ``tcnn_tpu_torch`` on
     ``sys.path``; entries ``bits ...`` hold digests of the outputs of the
-    deterministic kernels (G, GI, GG, M, MB's dW)."""
+    deterministic kernels (G, GI, GG, M, MB's dW) and of GB's on inputs
+    whose sums are exact."""
     from tcnn_tpu_torch import BF16_POLICY, create_from_config
     from tcnn_tpu_torch.common import Activation
     from tcnn_tpu_torch import Policy
+    from tcnn_tpu_torch.ops import grid_ops
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
     from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
                                                      grid_encode_bwd_input, grid_encode_fwd)
@@ -450,6 +453,15 @@ def time_kernels(config: str, full: bool) -> dict:
         out["G"] = graph_ms(lambda: grid_encode_fwd(spec, table, x, live, soa=True))
         out["bits G"] = _bits(feats)
         out["GB"] = graph_ms(lambda: grid_encode_bwd(spec, table, x, dfeats, live))
+        # GB on inputs whose sums are exact in fp32 in any order (integer
+        # scales, x in 1/16ths, dcols in 1/4ths, rows below 2^22 of
+        # 1/(4·16^2)): atomics in any order give these bits
+        espec = grid_ops.make_grid_spec(2, 6, 2, 12, 4, 2.0)
+        ex = torch.randint(0, 17, (1 << 14, 2), generator=gen, device=dev).float() / 16
+        edc = torch.randint(-4, 5, (12, 1 << 14), generator=gen, device=dev).float() / 4
+        etable = torch.zeros(espec.n_params, device=dev)
+        out["bits GB exact"] = _bits(grid_encode_bwd(espec, etable, ex, edc,
+                                                     list(range(espec.n_levels))))
         out["M"] = graph_ms(lambda: fused_mlp_fwd(ws, feats, net.activation,
                                                   net.output_activation, torch.bfloat16,
                                                   torch.float32, True, False))

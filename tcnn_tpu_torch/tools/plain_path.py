@@ -1,9 +1,12 @@
 """The plain path of a model: its forward and one training step's gradients
 through the plain PyTorch versions of kernels G, M, MB and GB, on the
-tensors the model holds, and the SDF sample's eikonal step through those
-and the plain versions of GI, GG and RS (``plain_sdf_loss_and_grads``).
+tensors the model holds, the SDF sample's eikonal step through those
+and the plain versions of GI, GG and RS (``plain_sdf_loss_and_grads``),
+and the NeRF sample's step, two nets and a per-sample level mask
+(``plain_nerf_loss_and_grads``).
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernel path
-(``model.trainer``, ``samples/fit_sdf_eikonal.py``) against it on the
+(``model.trainer``, ``samples/fit_sdf_eikonal.py``,
+``samples/fit_nerf_field.py``) against it on the
 card; on the CPU the wrappers take these same plain versions.
 
 Handles a grid alone (SoA features, config_hash), a concatenating
@@ -201,6 +204,76 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     grads.update({f"network.layers.{i}": a + b for i, (a, b) in enumerate(zip(dws, dws2))})
     loss = (surf + EIKONAL_WEIGHT * eik).detach()
     return (loss, grads, scale) if table_scale else (loss, grads)
+
+
+def plain_nerf_field_grads(density_net, color_net, x: torch.Tensor, d: torch.Tensor,
+                           max_level_frac, loss_of) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The NeRF sample's field (``samples/fit_nerf_field.py::model_field``)
+    at points x viewed from d, a loss ``loss_of(sigma, rgb)`` of it, and the
+    loss's gradients by the sample's parameter names, with each kernel of
+    the step replaced by its plain version: G (with the per-sample level
+    mask) and M of the density net, M of the colour net, then MB of the
+    colour net, whose input gradient autograd carries through the
+    Composite encoding into the density net's output, MB of the density
+    net and GB.  What lies between the kernels (the heads, the encodings,
+    ``loss_of``) runs under autograd, as on the kernel path."""
+    from ..samples.fit_nerf_field import density_heads, per_sample_frac
+
+    denc, dmlp, cmlp, pol = density_net.encoding, density_net.network, color_net.network, \
+        density_net.policy
+    cdt, odt, spec = pol.compute_dtype, pol.output_dtype, denc.spec
+    live = live_levels(spec, denc.max_level)
+    table = denc.grid.detach().to(cdt)
+    frac = (per_sample_frac(max_level_frac, x.shape[0], x.device)
+            if max_level_frac is not None else None)
+    wd = [w.detach() for w in dmlp.layers]
+    wc = [w.detach() for w in cmlp.layers]
+    feats = grid_encode_plain(spec, table, x, live, soa=True, level_frac=frac).to(cdt)
+    h = fused_mlp_plain(wd, feats, dmlp.activation, dmlp.output_activation, cdt, odt, True,
+                        False).requires_grad_()
+    with torch.enable_grad():
+        sigma, color_in = density_heads(h, d)
+        cfeat = color_net.encoding(color_in)
+        y = fused_mlp_plain(wc, cfeat.detach(), cmlp.activation, cmlp.output_activation, cdt,
+                            odt, False, False).requires_grad_()
+        loss = loss_of(sigma, y.float())
+        dh, dy = torch.autograd.grad(loss, [h, y], retain_graph=True)
+        dwc, dcfeat = fused_mlp_bwd_plain(wc, cfeat.detach(), dy, cmlp.activation,
+                                          cmlp.output_activation, cdt, False, False)
+        (dh_color,) = torch.autograd.grad(cfeat, h, dcfeat.to(cfeat.dtype))
+    dwd, dfeats = fused_mlp_bwd_plain(wd, feats, dh + dh_color, dmlp.activation,
+                                      dmlp.output_activation, cdt, True, False)
+    grads = {"density.encoding.grid": grid_encode_bwd_plain(spec, table, x, dfeats, live,
+                                                            level_frac=frac).float()}
+    grads.update({f"density.network.layers.{i}": g for i, g in enumerate(dwd)})
+    grads.update({f"color.network.layers.{i}": g for i, g in enumerate(dwc)})
+    return loss.detach(), grads
+
+
+def plain_nerf_loss_and_grads(density_net, color_net, rays_o: torch.Tensor,
+                              rays_d: torch.Tensor, n_samples: int, jitter=None,
+                              max_level_frac=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The NeRF sample's training loss (``loss_fn``) and its gradients
+    through the plain versions (``plain_nerf_field_grads``), on the same
+    rays and jitter."""
+    from ..samples.fit_nerf_field import render, true_field
+
+    pts = {}
+
+    def record(x, d):   # the sample points render hands the field
+        pts["x"], pts["d"] = x, d
+        return x.new_zeros(x.shape[0]), x.new_zeros((x.shape[0], 3))
+
+    with torch.no_grad():
+        gt = render(lambda x, d: true_field(x), rays_o, rays_d, n_samples)
+        render(record, rays_o, rays_d, n_samples, jitter)
+
+    def loss_of(sigma, rgb):
+        pred = render(lambda x, d: (sigma, rgb), rays_o, rays_d, n_samples, jitter)
+        return torch.mean((pred - gt) ** 2)
+
+    return plain_nerf_field_grads(density_net, color_net, pts["x"], pts["d"], max_level_frac,
+                                  loss_of)
 
 
 # A sum of n fp32 products taken in another order moves by at most

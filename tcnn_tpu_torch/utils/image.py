@@ -1,21 +1,79 @@
-"""Synthetic image and on-device pixel sampling for the image-fit workloads.
+"""Image IO, the synthetic image and on-device pixel sampling for the
+image-fit workloads.
 
-PyTorch counterpart of ``tcnn_tpu/utils/image.py:84-244`` (the
-reference's texture sampler, samples/mlp_learning_an_image.cu:101-160).
-``synthetic_image`` is a copy of the JAX package's numpy function, so both
-packages fit the same picture (the committed
-``benchmarks/data/fixture.png`` is its 1024 × 1024 render).  Loading
-image files waits for a later slice: it needs PIL.
+PyTorch counterpart of ``tcnn_tpu/utils/image.py`` (the reference's
+texture sampler, samples/mlp_learning_an_image.cu:101-160, and the image
+helpers of its scripts/common.py).  ``synthetic_image`` is a copy of the
+JAX package's numpy function, so both packages fit the same picture (the
+committed ``benchmarks/data/fixture.png`` is its 1024 × 1024 render).
+Image files are read and written as the JAX package does, on the host in
+numpy: with PIL where it is installed, else imageio, else ``load_image``
+raises (``bench_image`` then falls back to ``synthetic_image``) and
+``write_image`` fails on the import of imageio.  No image codec is
+written here.
 """
 
 from __future__ import annotations
 
+import os
+import struct
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..common import resolve_device
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def load_image(path: str) -> np.ndarray:
+    """An image file as float32 (H, W, 3) in [0, 1] (``load_image``,
+    image.py:21-44): PIL if available, else imageio, else RuntimeError."""
+    try:
+        from PIL import Image
+
+        return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    except ImportError:
+        pass
+    try:
+        import imageio.v2 as imageio
+
+        img = np.asarray(imageio.imread(path), np.float32)
+        if img.max() > 1.0:
+            img = img / 255.0
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
+        return img[..., :3]
+    except ImportError as e:
+        raise RuntimeError(
+            "No image library available (PIL/imageio); use synthetic_image()") from e
+
+
+def bench_image() -> Tuple[np.ndarray, str]:
+    """The sample's fixture image and a short name of where it came from
+    (``bench_image``, image.py:47-81), the first that loads of:
+
+      1. ``$TCNN_TPU_BENCH_IMAGE`` (any readable image path; the reference
+         checkout's photo, for instance);
+      2. the repo's committed ``benchmarks/data/fixture.png`` (a 1024 ×
+         1024 render of :func:`synthetic_image`);
+      3. :func:`synthetic_image` (1024, 1024) in memory, which is where a
+         host without PIL and imageio ends.
+    """
+    candidates = []
+    env = os.environ.get("TCNN_TPU_BENCH_IMAGE")
+    if env:
+        candidates.append((env, os.path.basename(env)))
+    candidates.append((os.path.join(_REPO, "benchmarks", "data", "fixture.png"),
+                       "fixture.png"))
+    for path, name in candidates:
+        if os.path.exists(path):
+            try:
+                return load_image(path), name
+            except Exception:
+                continue
+    return synthetic_image(1024, 1024), "synthetic-1024"
 
 
 def synthetic_image(height: int = 512, width: int = 512,
@@ -146,3 +204,101 @@ class ImageSampler:
         u = (xs.float() + 0.5) / self.width
         v = (ys.float() + 0.5) / self.height
         return torch.stack([u.reshape(-1), v.reshape(-1)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# scripts/common.py's colour-space conversions and its fp16 ``.bin`` format
+# (common.py:52-91; image.py:254-339), on numpy arrays on the host.
+# ---------------------------------------------------------------------------
+
+
+def srgb_to_linear(img: np.ndarray) -> np.ndarray:
+    """Inverse sRGB gamma (common.py:52-54)."""
+    img = np.asarray(img, np.float32)
+    return np.where(img > 0.04045, np.power((img + 0.055) / 1.055, 2.4), img / 12.92)
+
+
+def linear_to_srgb(img: np.ndarray) -> np.ndarray:
+    """sRGB gamma (common.py:56-58)."""
+    img = np.asarray(img, np.float32)
+    return np.where(img > 0.0031308,
+                    1.055 * np.power(np.maximum(img, 0.0), 1.0 / 2.4) - 0.055,
+                    12.92 * img)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image as LINEAR float32 (H, W, C).  ``.bin`` is the reference's
+    raw format (an (h, w) int32 header, then h·w·4 fp16 values, already
+    linear); any other file is decoded and converted sRGB → linear, with
+    alpha premultiplied where a 4th channel is present."""
+    if os.path.splitext(path)[1] == ".bin":
+        with open(path, "rb") as f:
+            data = f.read()
+        h, w = struct.unpack("ii", data[:8])
+        return (np.frombuffer(data, np.float16, count=h * w * 4, offset=8)
+                .astype(np.float32).reshape(h, w, 4))
+    img = _read_image_u8(path)
+    if img.shape[2] == 4:
+        img = img.copy()
+        img[..., :3] = srgb_to_linear(img[..., :3]) * img[..., 3:4]
+        return img
+    return srgb_to_linear(img)
+
+
+def write_image(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write a LINEAR float32 (H, W, C) image: ``.bin`` as raw fp16 padded
+    to 4 channels; any other extension un-premultiplies alpha, converts
+    linear → sRGB and quantises to 8 bits (PIL, else imageio)."""
+    img = np.asarray(img, np.float32)
+    if os.path.splitext(path)[1] == ".bin":
+        if img.shape[2] < 4:
+            pad = np.ones(img.shape[:2] + (4 - img.shape[2],), np.float32)
+            img = np.concatenate([img, pad], axis=2)
+        with open(path, "wb") as f:
+            f.write(struct.pack("ii", img.shape[0], img.shape[1]))
+            f.write(img.astype(np.float16).tobytes())
+        return
+    if img.shape[2] == 4:
+        img = img.copy()
+        a = img[..., 3:4]
+        img[..., :3] = linear_to_srgb(
+            np.divide(img[..., :3], a, out=np.zeros_like(img[..., :3]), where=a != 0))
+    else:
+        img = linear_to_srgb(img)
+    _write_image_u8(path, img, quality)
+
+
+def _read_image_u8(path: str) -> np.ndarray:
+    """Decode to float32 (H, W, C) in [0, 1], alpha kept."""
+    try:
+        from PIL import Image
+
+        arr = np.asarray(Image.open(path), np.float32) / 255.0
+    except ImportError:
+        import imageio.v2 as imageio
+
+        arr = np.asarray(imageio.imread(path), np.float32)
+        if arr.max() > 1.0:
+            arr = arr / 255.0
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
+
+
+def _write_image_u8(path: str, img: np.ndarray, quality: int) -> None:
+    u8 = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".jpg", ".jpeg") and u8.ndim == 3 and u8.shape[2] > 3:
+        u8 = u8[:, :, :3]
+    if u8.shape[2] == 1:
+        u8 = u8[:, :, 0]
+    try:
+        from PIL import Image
+
+        Image.fromarray(u8).save(
+            path, **({"quality": quality, "subsampling": 0}
+                     if ext in (".jpg", ".jpeg") else {}))
+    except ImportError:
+        import imageio.v2 as imageio
+
+        imageio.imwrite(path, u8)

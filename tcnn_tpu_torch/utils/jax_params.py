@@ -47,12 +47,13 @@ def _count_leaves(tree: Any) -> int:
 
 
 def load_jax_params(model, params: Any) -> None:
-    """Copy ``params`` into ``model`` (a TrainableModel or a module).
+    """Copy ``params`` into ``model``: a TrainableModel (its network) or a
+    module, such as one NetworkWithInputEncoding of a model of several.
 
     Raises ValueError on any shape mismatch and KeyError on a missing or
     an extra entry; nothing is copied unless every entry matches.
     """
-    module = getattr(model, "network", model)
+    module = model if isinstance(model, torch.nn.Module) else model.network
     named = dict(module.named_parameters())
     pairs = []
     for name, p in named.items():

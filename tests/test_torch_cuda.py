@@ -535,7 +535,7 @@ def mlp_inputs(cuda, dims, batch, seed, soa_in):
     return ws, (x.t().contiguous() if soa_in else x), g
 
 
-def assert_dx_close(got, want, ws, x, g, dtype, soa_in):
+def assert_dx_close(got, want, ws, x, g, dtype, soa_in, out_act=Activation.NONE):
     """MB's dx within the MB tolerance of the plain version's, but for bf16
     rows that a switched ReLU explains (``relu_flip_rows``, as
     ``chip_smoke.py`` holds config_btf's dx): a hidden pre-activation
@@ -547,23 +547,26 @@ def assert_dx_close(got, want, ws, x, g, dtype, soa_in):
     if dtype == torch.float32 or not rows.numel():
         assert not rows.numel(), f"{rows.numel()} dx rows beyond {tol:.3e}"
         return
-    explained = relu_flip_rows(ws, x, g, Activation.NONE, dtype, rows, a[rows], tol,
+    explained = relu_flip_rows(ws, x, g, out_act, dtype, rows, a[rows], tol,
                                soa_in)[0]
     assert bool(explained.all()), f"{int((~explained).sum())} of {rows.numel()} dx rows " \
                                   f"beyond {tol:.3e} not explained by a switched ReLU"
 
 
-def check_m_and_mb(cuda, dims, batch, dtype, seed=11, soa_in=True):
+def check_m_and_mb(cuda, dims, batch, dtype, seed=11, soa_in=True, out_act=Activation.NONE,
+                   soa_out=False):
     """M and MB against their plain versions at the stated tolerances,
     ReLU hidden layers."""
     ws, x, g = mlp_inputs(cuda, dims, batch, seed, soa_in)
-    relu, none = Activation.RELU, Activation.NONE
-    args = (ws, x.to(dtype), relu, none, dtype, torch.float32, soa_in, False)
+    if soa_out:
+        g = g.t().contiguous()
+    relu = Activation.RELU
+    args = (ws, x.to(dtype), relu, out_act, dtype, torch.float32, soa_in, soa_out)
     got = fused_mlp_fwd(*args)
     torch.cuda.synchronize()
     tol = dict(rtol=2e-2, atol=2e-3) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, fused_mlp_plain(*args), **tol)
-    bargs = (ws, x.to(dtype), g, relu, none, dtype, soa_in, False)
+    bargs = (ws, x.to(dtype), g, relu, out_act, dtype, soa_in, soa_out)
     got_dws, got_dx = fused_mlp_bwd(*bargs)
     torch.cuda.synchronize()
     want_dws, want_dx = fused_mlp_bwd_plain(*bargs)
@@ -571,7 +574,9 @@ def check_m_and_mb(cuda, dims, batch, dtype, seed=11, soa_in=True):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert float((a - b).abs().max()) <= mlp_bwd_tol(b, dtype)
     assert got_dx.shape == want_dx.shape and got_dx.dtype == want_dx.dtype
-    assert_dx_close(got_dx, want_dx, ws, x.to(dtype), g, dtype, soa_in)
+    if soa_out:   # relu_flip_rows takes g as the plain version does
+        g = g.t()
+    assert_dx_close(got_dx, want_dx, ws, x.to(dtype), g, dtype, soa_in, out_act)
 
 
 # Batch rows of one tile of kernel MB and of M's fp32 path
@@ -988,3 +993,203 @@ def test_grid_encode_kernel_is_bit_identical_to_plain_at_config_hash(cuda, dtype
     live = list(range(spec.n_levels))
     assert torch.equal(grid_encode_fwd(spec, flat, x, live, soa=True),
                        grid_encode_plain(spec, flat, x, live, soa=True))
+
+
+# -- the NeRF field (slice 8): the per-sample level mask, the MLPs' shapes ----
+
+NERF_BATCH = 4096 * 48   # the sample's 2^12 rays x 48 samples a step
+
+
+def masked_corner_order_sum(spec, flat, x, live, frac):
+    """``corner_order_sum`` with the per-sample mask: G's arithmetic, the
+    masked (sample, level) pairs adding nothing."""
+    F, C, B = spec.n_features_per_level, 1 << spec.n_dims, x.shape[0]
+    idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=frac)
+    rows, ws = idx.reshape(len(live), C, B), ws.reshape(len(live), C, B)
+    table = flat.reshape(-1, F).float()
+    acc = torch.zeros((len(live), B, F), device=x.device)
+    for c in range(C):
+        acc = acc + ws[:, c, :, None] * table[rows[:, c]]
+    out = torch.zeros((spec.n_levels, F, B), device=x.device)
+    out[list(live)] = acc.permute(0, 2, 1)
+    return out.reshape(-1, B).to(flat.dtype)
+
+
+def spread_fractions(rng, n, n_levels):
+    """Per-sample level fractions over [0, 1], a third of them on the level
+    boundaries k / n_levels (0 and 1 included)."""
+    frac = rng.uniform(0, 1, n).astype(np.float32)
+    on = rng.random(n) < 1 / 3
+    frac[on] = (rng.integers(0, n_levels + 1, int(on.sum())) / n_levels).astype(np.float32)
+    return frac
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid,hash_type", [(GridType.HASH, h) for h in G_HASHES]
+                         + [(GridType.DENSE, HashType.COHERENT_PRIME),
+                            (GridType.TILED, HashType.COHERENT_PRIME)])
+def test_grid_kernels_with_a_per_sample_mask_match_plain(cuda, D, F, dtype, grid, hash_type):
+    """G, GB and GI with per-sample level fractions spread over [0, 1] (a
+    third on the level boundaries), at every D, F, table dtype and level
+    kind, all levels live and the static cutoff at 3 on top: G bit for bit
+    against its own corner order with the masked pairs left out, in both
+    layouts (8 levels of AoS bf16 F = 2 take the whole-sector stores, a
+    masked level inside a sector), masked pairs exact zeros; GB and GI
+    against their masked plain versions within the bounds of the unmasked
+    tests, a table row only masked samples touch an exact zero."""
+    n_levels = 8 if grid != GridType.DENSE else 4
+    spec = grid_ops.make_grid_spec(D, n_levels, F, 12, 4, 1.7, grid_type=grid,
+                                   hash_type=hash_type)
+    rng = np.random.default_rng(D * 1000 + F * 10 + int(dtype == torch.bfloat16))
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    B = 5003
+    x = torch.from_numpy(rng.uniform(-0.3, 1.3, (B, D)).astype(np.float32)).to(cuda)
+    frac = torch.from_numpy(spread_fractions(rng, B, n_levels)).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(n_levels * F, B)).astype(np.float32))
+    dcols = dcols.to(dtype).to(cuda)
+    check_masked_grid_kernels(cuda, spec, flat, x, frac, dcols)
+
+
+def check_masked_grid_kernels(cuda, spec, flat, x, frac, dcols):
+    """G, GB and GI under the mask ``frac``, all levels live and the static
+    cutoff at 3 on top, held as ``test_grid_kernels_with_a_per_sample_mask_match_plain``
+    says."""
+    n_levels, F, D, B = spec.n_levels, spec.n_features_per_level, spec.n_dims, x.shape[0]
+    keep = (torch.arange(n_levels, device=cuda)[:, None].float()
+            < frac[None, :] * float(n_levels) + 1e-3)            # (L, B)
+    for live in (list(range(n_levels)), [0, 1, 2]):
+        dead = ~keep.clone()
+        dead[len(live):] = True
+        for soa in (True, False):
+            got = grid_encode_fwd(spec, flat, x, live, soa=soa, level_frac=frac)
+            torch.cuda.synchronize()
+            cols = got if soa else got.t()
+            assert torch.equal(cols, masked_corner_order_sum(spec, flat, x, live, frac))
+            assert_grid_sum_close(got, grid_encode_plain(spec, flat, x, live, soa=soa,
+                                                         level_frac=frac), D)
+            assert not bool(cols.reshape(n_levels, F, B)[dead[:, None, :].expand(-1, F, -1)]
+                            .any())
+        got = grid_encode_bwd(spec, flat, x, dcols, live, level_frac=frac)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac=frac)
+        scale = grid_encode_bwd_plain(spec, flat.float(), x, dcols.float().abs(), live,
+                                      level_frac=frac)
+        assert_grid_grad_close(got, want, scale)
+        assert bool((got[scale == 0] == 0).all())
+        gi = grid_encode_bwd_input(spec, flat, x, dcols, live, level_frac=frac)
+        torch.cuda.synchronize()
+        assert_rel_close(gi, grid_encode_bwd_input_plain(spec, flat, x, dcols, live,
+                                                         level_frac=frac), 1e-5)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_kernels_with_a_mask_shared_by_runs_of_samples(cuda, D, dtype):
+    """G, GB and GI where runs of 512 consecutive samples share one level
+    fraction, as the NeRF sample gives one to every sample of a step: whole
+    warps skip a level that none of their samples keeps, next to warps
+    that run it (the fractions on the level boundaries and between them)."""
+    spec = grid_ops.make_grid_spec(D, 8, 2, 12, 4, 1.7)
+    rng = np.random.default_rng(D * 7 + int(dtype == torch.bfloat16))
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    B = 8 * 512 + 77
+    x = torch.from_numpy(rng.uniform(-0.3, 1.3, (B, D)).astype(np.float32)).to(cuda)
+    runs = np.concatenate([np.arange(9) / 8, rng.uniform(0, 1, 1)]).astype(np.float32)
+    frac = torch.from_numpy(np.repeat(rng.permutation(runs), 512)[:B]).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(8 * 2, B)).astype(np.float32)).to(dtype).to(cuda)
+    check_masked_grid_kernels(cuda, spec, flat, x, frac, dcols)
+
+
+def exact_sum_inputs(cuda, D, F, B, seed):
+    """A grid and inputs whose every sum is exact in fp32 in any order: the
+    scales 2^l · 4 − 1 are integers, x is a multiple of 1/16 and dcols of
+    1/4, so each weight is a multiple of 1/16^D, each product w·dy of
+    1/(4·16^D), and each table row's sum stays below 2^(24 − 2 − 4D)."""
+    spec = grid_ops.make_grid_spec(D, 6, F, 12, 4, 2.0)
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, 17, (B, D)) / 16).astype(np.float32)
+    dc = (rng.integers(-4, 5, (6 * F, B)) / 4).astype(np.float32)
+    return spec, torch.from_numpy(x).to(cuda), torch.from_numpy(dc).to(cuda)
+
+
+@pytest.mark.parametrize("D,F", [(2, 2), (3, 2), (3, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_kernels_without_a_mask_keep_their_bits(cuda, D, F, dtype):
+    """Without a mask G and GB run the code they ran before the mask came:
+    G equals its corner order (``corner_order_sum``) bit for bit, as the
+    unmasked design did, and with a mask that keeps every level it equals
+    it too; GB on inputs whose sums are exact in any order equals
+    the plain version bit for bit, which any correct order of the atomics
+    gives (``tools/kernel_ablation.py --baseline`` compares both with
+    another checkout's package)."""
+    spec, x, dc = exact_sum_inputs(cuda, D, F, 3001, seed=D + F)
+    rng = np.random.default_rng(D * F)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    live = list(range(spec.n_levels))
+    ones = torch.ones(x.shape[0], device=cuda)
+    for soa in (True, False):
+        got = grid_encode_fwd(spec, flat, x, live, soa=soa)
+        assert torch.equal(got if soa else got.t(), corner_order_sum(spec, flat, x, live))
+        assert torch.equal(got, grid_encode_fwd(spec, flat, x, live, soa=soa, level_frac=ones))
+    dtable = torch.zeros_like(flat)
+    got = grid_encode_bwd(spec, dtable, x, dc.to(dtype), live)
+    torch.cuda.synchronize()
+    assert torch.equal(got, grid_encode_bwd_plain(spec, dtable, x, dc.to(dtype), live))
+    assert torch.equal(got, grid_encode_bwd(spec, dtable, x, dc.to(dtype), live,
+                                            level_frac=ones))
+
+
+NERF_MLPS = {"density 24 -> 64 -> 16": ([(24, 64), (64, 16)], Activation.NONE),
+             "colour 31 -> 64 x 2 -> 3, Sigmoid": ([(31, 64), (64, 64), (64, 3)],
+                                                   Activation.SIGMOID)}
+
+
+@pytest.mark.parametrize("shape", sorted(NERF_MLPS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("soa_in,soa_out", [(True, False), (False, False), (False, True)])
+@pytest.mark.parametrize("batch", [1, 127, 12345, NERF_BATCH])
+def test_fused_mlp_kernels_at_the_nerf_shapes(cuda, shape, dtype, soa_in, soa_out, batch):
+    """M and MB at the NeRF sample's two MLPs: one hidden layer and 16
+    outputs (the density net, SoA grid features in), and 31 inputs, off
+    the aligned input paths (async_x, 16-byte rows), with a Sigmoid output
+    (the colour net, AoS in); both dtypes and layouts, at batch edges up to
+    the sample's 196,608 points."""
+    dims, out_act = NERF_MLPS[shape]
+    check_m_and_mb(cuda, dims, batch, dtype, seed=batch % 89, soa_in=soa_in, out_act=out_act,
+                   soa_out=soa_out)
+
+
+def test_fused_mlp_dx_into_a_strided_slice(cuda):
+    """The NeRF path's colour-net input is (h[:, 1:] of the density net's
+    (B, 16) output, view direction): MB's 31-column dx flows back through
+    the Composite into that strided slice, and the density net's MB takes
+    it; the whole chain against the plain versions
+    (``plain_nerf_field_grads``), at the fp32 policy and MB's fp32
+    tolerance, 1e-4 of each gradient's largest magnitude.  (In bf16 a
+    density-net ReLU that rounding switches moves a sample's whole dx row,
+    and at 4133 samples a table entry takes few updates: chip_smoke.py
+    holds the bf16 step on the sample's own loss at 196,608 points.)"""
+    from tcnn_tpu_torch.samples import fit_nerf_field as nf
+
+    d_net, c_net = nf.build_model(DEFAULT_POLICY, torch.Generator().manual_seed(3), cuda)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(0, 1, (4133, 3)).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.normal(size=(4133, 3)).astype(np.float32)).to(cuda)
+    v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
+    from tcnn_tpu_torch.tools.plain_path import plain_nerf_field_grads
+
+    def loss_of(sigma, rgb):
+        return (sigma * 0.01).sum() + (rgb * torch.arange(1, 4, device=cuda)).sum()
+
+    sigma, rgb = nf.model_field(d_net, c_net, x, v, 0.6)
+    params, _ = nf.params_and_layout(d_net, c_net)
+    grads = dict(zip(params, torch.autograd.grad(loss_of(sigma, rgb), list(params.values()))))
+    _, want = plain_nerf_field_grads(d_net, c_net, x, v, 0.6, loss_of)
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        assert_rel_close(g, want[name], 1e-4)

@@ -197,7 +197,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "tcnn_tpu_torch.utils.image, tcnn_tpu_torch.utils.metrics, "
             "tcnn_tpu_torch.utils.jax_params, tcnn_tpu_torch.tools.kernel_ablation, "
             "tcnn_tpu_torch.models.encodings.basic, tcnn_tpu_torch.samples, "
-            "tcnn_tpu_torch.samples.fit_btf, chip_smoke\n"
+            "tcnn_tpu_torch.samples.fit_btf, tcnn_tpu_torch.samples.fit_nerf_field, "
+            "tcnn_tpu_torch.samples.mlp_learning_an_image, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'tcnn_tpu' or m.startswith('tcnn_tpu.')]\n"
             "assert not bad, bad\n")
