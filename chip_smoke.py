@@ -40,7 +40,25 @@ and read just after:
     at its defaults (400 steps, coarse-to-fine over the first 100), the
     main path, with a PSNR floor; then the image sample,
     ``samples/mlp_learning_an_image.main``, 100 steps into a temporary
-    directory.
+    directory;
+  * save, load and serve (slice 9, config_hash at BF16_POLICY and
+    B = 2^18): 200 steps of EMA(Adam) through ``make_training_loop`` (PSNR
+    floor 20 dB with the EMA weights, which must differ from the raw
+    ones); the CUDA original's snapshot through the port's msgpack codec
+    into a fresh model (inference bits equal); ``serialize`` /
+    ``deserialize`` and ``save_checkpoint`` / ``restore_checkpoint`` into
+    fresh trainers (inference bits equal, the next step's gradients as
+    below); a serving bundle at buckets 2^10, 2^14, 2^16, 2^18 loaded on
+    the card (one warm-up request and one capture per bucket: G and M 5
+    times each; requests of 1 to 2^18 rows replay a graph and equal
+    ``Trainer.inference`` bit for bit); ``export_train_step`` /
+    ``load_train_step``, 10 steps against ``training_step``; and SGD,
+    Novograd, Average, Batched, Lookahead, ExponentialDecay, Composite and
+    Shampoo at config_hash: one optimizer step on the card against the
+    same step on the CPU, 20 replayed steps against 20 eager ones
+    (Shampoo: ``make_training_loop`` refuses, and whether
+    ``torch.linalg.eigh`` can be captured is tried in a process of its
+    own), and each optimizer step's time.
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -144,12 +162,28 @@ with TF32 off):
     The fit: eval PSNR above ``NERF_PSNR_FLOOR``, the JAX sample's CPU run
     at the same settings (fp32) less 3 dB.  The image sample: PSNR above
     20 dB after 100 steps.
+  * slice 9: a restored trainer's next step: the loss and the weights'
+    gradients bit for bit (G, M and MB are deterministic), the table
+    gradient within GB's bound 2^-11·S; the exported step's and the
+    replayed optimizer steps' losses within 1e-3 relative of eager
+    ``training_step``s' (as tests/test_torch_cuda.py's graph loop), their
+    step counters and ExponentialDecay's factor equal; one optimizer
+    step on the card against the CPU's: step counters equal, every float
+    leaf within rtol 1e-5 plus 1e-6 of its largest magnitude (fp32
+    elementwise operations; the CPU tests' bound against JAX), Shampoo
+    rtol 1e-4 plus 1e-5 (matrix products in fp32; the step compared is
+    t = 3, no refresh).  Shampoo's roots refreshed at t = 10 against
+    float64 roots of the same matrices within ``root_error_bound``: n·ε·‖S‖
+    of backward error in the eigensolver moves the root by at most
+    ¼·λ_min(S)^(−5/4) times it (float32 roots of cuSOLVER and LAPACK
+    differ by 1e-2 on these matrices).  Served requests against the plain
+    path: the whole-model bf16 tolerance.
 
 The whole run takes about four minutes on an H100, against the 1200 s a
 run may take: the build of the seven kernels took 93 to 155 s, the
 plain versions' BTF fit, 150 eager steps (the kernels' fit runs 200), 30
-to 45 s, the NeRF fit 4 to 5 s.  It prints its own time before the
-kernels' line.
+to 45 s, the NeRF fit 4 to 5 s, the slice-9 phase about 15 s.  It prints
+its own time before the kernels' line.
 """
 
 import json
@@ -977,7 +1011,7 @@ def config_hash_slices(gen, dev):
     # also ran in the inference path, whose counts are kept beside them.
     return report_entries("", t, replaces, train_launches,
                           {"G": g_err, "M": m_err, "GB": gb_err, "MB": mb_err},
-                          {"launches_inference": {k: inf_launches[k] for k in ("G", "M")}})
+                          {"launches_inference": {k: inf_launches[k] for k in ("G", "M")}}), t
 
 
 def config_btf_slice(gen, dev):
@@ -1890,6 +1924,379 @@ def image_sample_slice():
     check(out["psnr"] > IMAGE_PSNR_FLOOR, f"image sample PSNR floor missed: {out['psnr']:.2f}")
 
 
+# -- slice 9: save, load and serve -----------------------------------------
+
+SERVE_BUCKETS = (1 << 10, 1 << 14, 1 << 16, 1 << 18)
+SERVE_REQUESTS = (1, 1000, 1 << 14, 100000, 1 << 18)
+TRAIN_STEP_STEPS = 10
+LOOP_CHECK_STEPS = 20
+EMA_DECAY = 0.99
+OPT_STEP_TOL = {"fp32": (1e-5, 1e-6), "Shampoo": (1e-4, 1e-5)}
+
+
+def new_optimizers(adam):
+    """Each optimizer of slice 9 at config_hash, with periods short enough
+    for 20 steps to cross them: Batched's (4), Lookahead's (6),
+    ExponentialDecay's boundaries (5, 12, 19), Average's ring (8)."""
+    return {
+        "SGD": {"otype": "SGD", "learning_rate": 1e-1},
+        "Novograd": {"otype": "Novograd", "learning_rate": 1e-2},
+        "Average": {"otype": "Average", "n_samples": 8, "nested": adam},
+        "Batched": {"otype": "Batched", "batch_size_multiplier": 4, "nested": adam},
+        "Lookahead": {"otype": "Lookahead", "alpha": 0.5, "n_steps": 6, "nested": adam},
+        "ExponentialDecay": {"otype": "ExponentialDecay", "decay_base": 0.5,
+                             "decay_start": 5, "decay_end": 19, "decay_interval": 7,
+                             "nested": adam},
+        "Composite": {"otype": "Composite", "nested": [
+            adam, {"otype": "SGD", "learning_rate": 1e-1, "params": "other"}]},
+        "Shampoo": {"otype": "Shampoo", "learning_rate": 1e-2},
+    }
+
+
+def leaves_close(got, want, tol, what):
+    """Integer leaves equal; float leaves within rtol plus atol·(largest
+    magnitude of the leaf); returns the largest relative error."""
+    from tcnn_tpu_torch.optimizers.base import named_leaves
+
+    rtol, scale = tol
+    worst = 0.0
+    g, w = list(named_leaves(got)), list(named_leaves(want))
+    check([n for n, _ in g] == [n for n, _ in w], f"{what}: leaf names differ")
+    for (name, a), (_, b) in zip(g, w):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{what} {name}: shape or dtype")
+        if not b.is_floating_point():
+            check(torch.equal(a, b), f"{what} {name}: integer leaves differ")
+            continue
+        err = (a - b).abs()
+        lim = rtol * b.abs() + scale * max(b.abs().max().item(), 1e-30)
+        check(not bool((err > lim).any()), f"{what} {name}: max abs err "
+              f"{err.max().item():.3e} beyond rtol {rtol:g} + {scale:g} of the largest")
+        worst = max(worst, (err / b.abs().max().clamp_min(1e-30)).max().item())
+    return worst
+
+
+def table_grad_scale(model, x, target):
+    """The step's table gradient's S = Σ|w·dy| per entry (GB's atomic
+    bound), from the MLP input gradient of the kernel path."""
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd_plain
+
+    enc, net = model.network.encoding, model.network.network
+    with torch.enable_grad():
+        feats = enc(x, soa=True).detach().requires_grad_()
+        (dcols,) = torch.autograd.grad(model.loss(net(feats, input_soa=True).float(), target),
+                                       feats)
+    table = enc.grid.detach()
+    with torch.inference_mode():
+        return grid_encode_bwd_plain(enc.spec, table, x, dcols.float().abs(),
+                                     list(range(enc.spec.n_levels)))
+
+
+def check_next_step(label, trainer, original, x, target, scale):
+    """One further step's gradients of a restored trainer against the
+    original's: the loss bits equal, the weights' gradients bit for bit
+    (G, M and MB are deterministic), the table's within GB's atomic bound
+    plus one bf16 ulp (GB's fp32 sum is cast once to the bf16 table copy's
+    type, and a sum that differs in its last bit may round to the other
+    neighbour; the cast back to the fp32 master is exact)."""
+    loss, grads = trainer.loss_value_and_grads(x, target)
+    want_loss, want = original.loss_value_and_grads(x, target)
+    check(torch.equal(loss, want_loss), f"{label}: next-step loss {loss.item()} vs "
+          f"{want_loss.item()}")
+    for name, g in grads.items():
+        if name == "encoding.grid":
+            check(torch.equal(g, g.to(torch.bfloat16).float()), f"{label}: {name} "
+                  "gradient is not the bf16 copy's")
+            err = compare_table_grad(g.to(torch.bfloat16), want[name].to(torch.bfloat16),
+                                     scale, f"{label} {name}")
+        else:
+            check(torch.equal(g, want[name]), f"{label}: {name} gradient bits differ")
+            err = 0.0
+        print(f"{label}: next step {name} gradient max abs err {err:.3e}")
+
+
+def save_load_serve_slice(gen, dev, t_hash):
+    """Slice 9 on config_hash: EMA(Adam) training, the snapshot,
+    serialize and checkpoint round trips, serving from a bundle with a
+    graph per bucket, the exported training step, and each new
+    optimizer on the card; returns the serving kernels' report entries."""
+    import tempfile
+    import types
+
+    from tcnn_tpu_torch import BF16_POLICY, create_from_config, load_config, serving
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_fwd
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_fwd
+    from tcnn_tpu_torch.optimizers.base import named_leaves
+    from tcnn_tpu_torch.tools.plain_path import plain_inference
+    from tcnn_tpu_torch.utils import checkpoint, cuda_export, cuda_import, msgpack
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+    from tcnn_tpu_torch.utils.metrics import psnr
+
+    base = load_config(CONFIG)
+    ema_cfg = {**base, "optimizer": {"otype": "EMA", "decay": EMA_DECAY,
+                                     "nested": base["optimizer"]}}
+    phase(f"slice 9: config_hash with EMA(Adam) (decay {EMA_DECAY}), {FIT_STEPS} steps of "
+          f"make_training_loop at B={MAIN_BATCH} on synthetic_image(1024, 1024)")
+    fit = create_from_config(2, 3, ema_cfg, policy=BF16_POLICY)
+    sampler = ImageSampler(synthetic_image(1024, 1024), seed=0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    losses = fit.trainer.make_training_loop(lambda i: sampler.sample_batch(MAIN_BATCH),
+                                            FIT_STEPS)()
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    train_launches = first_order_counts()
+    check(train_launches == {"G": 2, "M": 2, "GB": 2, "MB": 2},
+          f"EMA training path launches {train_launches}, expected 2 of each (warm-up, capture)")
+    losses = losses.cpu()
+    check(bool(torch.isfinite(losses).all()), "non-finite EMA training loss")
+    coords = sampler.full_grid_coords()
+    ema_psnr = psnr(fit.trainer.inference(coords), sampler.image.reshape(-1, 3))
+    with torch.inference_mode():
+        raw_psnr = psnr(fit.network.inference(coords), sampler.image.reshape(-1, 3))
+    x = torch.rand((MAIN_BATCH, 2), generator=gen, device=dev)
+    target = torch.rand((MAIN_BATCH, 3), generator=gen, device=dev)
+    y_ema = fit.trainer.inference(x)
+    with torch.inference_mode():
+        y_raw = fit.network.inference(x)
+    print(f"EMA(Adam): {FIT_STEPS} steps in {fit_s:.2f} s; loss {float(losses[0]):.4f} -> "
+          f"{float(losses[-10:].mean()):.4f}; PSNR {ema_psnr:.2f} dB with the EMA weights, "
+          f"{raw_psnr:.2f} dB with the raw ones; launches {train_launches}")
+    check(ema_psnr > 20.0, f"EMA PSNR floor missed: {ema_psnr:.2f} dB")
+    check(not torch.equal(y_ema, y_raw), "EMA inference equals the raw parameters' inference")
+
+    phase("slice 9: snapshot export -> the port's msgpack codec -> import_params on the card")
+    snap = msgpack.unpackb(msgpack.packb(cuda_export.export_snapshot(fit.trainer)))
+    fresh = create_from_config(2, 3, CONFIG, policy=BF16_POLICY, seed=5)
+    cuda_import.import_params(fresh.network, snap)
+    check(torch.equal(fresh.trainer.inference(x), y_raw),
+          "snapshot round trip: inference bits differ from the raw parameters'")
+    print(f"snapshot: {snap['n_params']} params, {len(msgpack.packb(snap))} msgpack bytes; "
+          f"inference bits equal at B={MAIN_BATCH}")
+
+    phase("slice 9: serialize -> deserialize and save_checkpoint -> restore_checkpoint")
+    t0 = time.time()
+    data = json.loads(json.dumps(fit.trainer.serialize()))
+    ser_s = time.time() - t0
+    by_ser = create_from_config(2, 3, ema_cfg, policy=BF16_POLICY, seed=6)
+    t0 = time.time()
+    by_ser.trainer.deserialize(data)
+    deser_s = time.time() - t0
+    by_ckpt = create_from_config(2, 3, ema_cfg, policy=BF16_POLICY, seed=7)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        checkpoint.save_checkpoint(os.path.join(d, "ck"), fit.trainer)
+        save_s = time.time() - t0
+        t0 = time.time()
+        checkpoint.restore_checkpoint(os.path.join(d, "ck"), like=by_ckpt.trainer)
+        restore_s = time.time() - t0
+    scale = table_grad_scale(fit, x, target)
+    for label, restored in (("deserialized", by_ser), ("checkpoint", by_ckpt)):
+        check(restored.trainer.step == fit.trainer.step, f"{label}: step")
+        check(torch.equal(restored.trainer.inference(x), y_ema),
+              f"{label}: inference bits differ from the trained trainer's")
+        check_next_step(label, restored.trainer, fit.trainer, x, target, scale)
+    print(f"serialize {ser_s:.2f} s ({len(json.dumps(data)) / 1e6:.1f} MB of JSON), "
+          f"deserialize {deser_s:.2f} s; save_checkpoint {save_s:.2f} s, restore "
+          f"{restore_s:.2f} s; both restored trainers give the inference bits")
+
+    phase(f"slice 9: serving bundle at buckets {SERVE_BUCKETS}, loaded on the card")
+    bundle = serving.export_inference(fit.trainer, batch_sizes=SERVE_BUCKETS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    srv = serving.load_inference(bundle)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    capture_launches = first_order_counts()
+    want = {"G": len(SERVE_BUCKETS) + 1, "M": len(SERVE_BUCKETS) + 1, "GB": 0, "MB": 0}
+    check(capture_launches == want, f"serving capture launches {capture_launches}, expected "
+          f"{want} (one warm-up request, then one capture per bucket)")
+    serve_errs = {}
+    for b in SERVE_REQUESTS:
+        xb = torch.rand((b, 2), generator=gen, device=dev)
+        before = counts()
+        got = srv(xb)
+        torch.cuda.synchronize()
+        check(counts() == before, f"a served request of {b} rows called a kernel wrapper: "
+              "a request must replay its bucket's graph")
+        check(torch.equal(got, fit.trainer.inference(xb)),
+              f"served request of {b} rows: bits differ from Trainer.inference")
+        with torch.inference_mode():
+            plain = plain_inference(types.SimpleNamespace(network=srv.model), xb)
+        serve_errs[b] = compare(got, plain, "model")[0]
+        print(f"request of {b} rows (bucket {srv.bucket_for(b)}): bits of "
+              f"Trainer.inference; max abs err {serve_errs[b]:.3e} vs the plain path "
+              f"(rtol 2e-2, atol 2e-3)")
+    print(f"bundle {len(bundle) / 1e6:.2f} MB; load_inference {load_s:.2f} s (build of the "
+          f"model and {len(SERVE_BUCKETS)} graphs); launches at capture {capture_launches}")
+    serve_t = {}
+    for b in SERVE_BUCKETS:
+        xb = torch.rand((b, 2), generator=gen, device=dev)
+        replay = srv._graphs[b].graph.replay
+        serve_t[b] = {"request": time_ms(lambda: srv(xb)), "device": time_ms(replay),
+                      "inference": time_ms(lambda: fit.trainer.inference(xb)),
+                      "inference device": graph_ms(lambda: fit.trainer.inference(xb))}
+        v = serve_t[b]
+        print(f"bucket {b}: served request {v['request']:.4f} ms with the host's work, "
+              f"graph replay {v['device']:.4f} ms; Trainer.inference {v['inference']:.4f} ms, "
+              f"{v['inference device']:.4f} ms of device work")
+    top = SERVE_BUCKETS[-1]
+    print(f"served samples/s at {top}: {top / serve_t[top]['request'] * 1e3:.4e} "
+          f"(Trainer.inference {top / serve_t[top]['inference'] * 1e3:.4e})")
+
+    phase(f"slice 9: export_train_step at B={MAIN_BATCH} -> load_train_step, "
+          f"{TRAIN_STEP_STEPS} steps against training_step")
+    step = serving.load_train_step(serving.export_train_step(fit.trainer, MAIN_BATCH))
+    live = create_from_config(2, 3, ema_cfg, policy=BF16_POLICY, seed=8)
+    state = fit.trainer.serialize()
+    live.trainer.deserialize(state)
+    batches = [sampler.sample_batch(MAIN_BATCH) for _ in range(TRAIN_STEP_STEPS)]
+    t0 = time.time()
+    got = []
+    for xb, tb in batches:
+        state, loss = step(state, xb, tb)
+        got.append(loss)
+    got = torch.stack(got)
+    torch.cuda.synchronize()
+    aot_s = time.time() - t0
+    want_l = torch.stack([live.trainer.training_step(xb, tb) for xb, tb in batches])
+    torch.cuda.synchronize()
+    rel = ((got - want_l).abs() / want_l.abs()).max().item()
+    check(rel <= 1e-3, f"exported step losses {got.tolist()} vs {want_l.tolist()}")
+    check(state["step"] == live.trainer.step, "exported step count")
+    print(f"exported step: {TRAIN_STEP_STEPS} steps in {aot_s:.2f} s (the trainer dict "
+          f"read and written each step); losses within {rel:.2e} of training_step's "
+          f"(rtol 1e-3; GB's atomics)")
+
+    phase("slice 9: each new optimizer on the card: a step against the CPU's, "
+          f"{LOOP_CHECK_STEPS} replayed steps against eager ones, the optimizer's step time")
+    opt_t = {}
+    adam_model = create_from_config(2, 3, CONFIG, policy=BF16_POLICY)
+    _, adam_grads = adam_model.trainer.loss_value_and_grads(x, target)
+    opt_t["Adam"] = graph_ms(lambda: adam_model.optimizer.step(
+        adam_model.trainer.opt_state, adam_grads, adam_model.trainer.params()))
+    for name, ocfg in new_optimizers(base["optimizer"]).items():
+        cfg = {**base, "optimizer": ocfg}
+        card = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+        for xb, tb in batches[:2]:
+            card.trainer.training_step(xb, tb)
+        cpu = create_from_config(2, 3, cfg, policy=BF16_POLICY, device="cpu")
+        with torch.no_grad():
+            for (_, dst), (_, src) in zip(named_leaves(cpu.trainer.params()),
+                                          named_leaves(card.trainer.params())):
+                dst.copy_(src.cpu())
+            for (_, dst), (_, src) in zip(named_leaves(cpu.trainer.opt_state),
+                                          named_leaves(card.trainer.opt_state)):
+                dst.copy_(src.cpu())
+        _, grads = card.trainer.loss_value_and_grads(x, target)
+        card.optimizer.step(card.trainer.opt_state, grads, card.trainer.params())
+        cpu.optimizer.step(cpu.trainer.opt_state, {n: g.cpu() for n, g in grads.items()},
+                           cpu.trainer.params())
+        torch.cuda.synchronize()
+        tol = OPT_STEP_TOL["Shampoo" if name == "Shampoo" else "fp32"]
+        err = max(leaves_close(card.trainer.params(), cpu.trainer.params(), tol, name),
+                  leaves_close(card.trainer.opt_state, cpu.trainer.opt_state, tol, name))
+        line = f"{name}: one step on the card vs the CPU, max rel err {err:.2e} (rtol {tol[0]:g})"
+        if name == "Shampoo":
+            roots = shampoo_roots_against_f64(card, batches)
+            opt_t[name] = eager_ms(lambda: card.optimizer.step(
+                card.trainer.opt_state, grads, card.trainer.params()))
+            loop_model = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+            try:
+                loop_model.trainer.make_training_loop(lambda i: batches[0], 2)()
+                refused = ""
+            except RuntimeError as e:
+                refused = str(e)
+            check("cannot be captured" in refused,
+                  f"Shampoo: make_training_loop did not refuse capture ({refused!r})")
+            print(f"{line}; roots refreshed at t = 10 against float64 roots of the same "
+                  f"matrices: largest error / bound {roots:.3e}; step {opt_t[name]:.4f} ms "
+                  f"eager; make_training_loop refuses: {refused!r}; eigh under capture: "
+                  f"{eigh_capture_outcome()}")
+            continue
+        opt_t[name] = graph_ms(lambda: card.optimizer.step(
+            card.trainer.opt_state, grads, card.trainer.params()))
+        pair = [create_from_config(2, 3, cfg, policy=BF16_POLICY) for _ in range(2)]
+        it = iter(range(LOOP_CHECK_STEPS))
+        replayed = pair[0].trainer.make_training_loop(
+            lambda i: batches[i % len(batches)], LOOP_CHECK_STEPS)()
+        eager = torch.stack([pair[1].trainer.training_step(*batches[i % len(batches)])
+                             for i in it])
+        torch.cuda.synchronize()
+        rel = ((replayed - eager).abs() / eager.abs()).max().item()
+        check(rel <= 1e-3, f"{name}: replayed losses {replayed.tolist()} vs eager "
+              f"{eager.tolist()}")
+        ints = [(n, a, b) for (n, a), (_, b) in zip(named_leaves(pair[0].trainer.opt_state),
+                                                    named_leaves(pair[1].trainer.opt_state))
+                if not b.is_floating_point() or n.endswith("factor")]
+        for n, a, b in ints:
+            check(torch.equal(a, b), f"{name}: replayed state {n} differs from eager")
+        print(f"{line}; {LOOP_CHECK_STEPS} replayed steps' losses within {rel:.2e} of eager "
+              f"(rtol 1e-3), counters and factors equal ({len(ints)} leaves); step "
+              f"{opt_t[name]:.4f} ms on the device")
+    print("optimizer step alone at config_hash, device ms (Shampoo eager): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in opt_t.items()))
+
+    # The serving path's kernels: G and M as the bucket graphs launch them
+    # (config_hash at B = 2^18, timed in config_hash's slice on the same
+    # shapes), launched once per bucket at capture and once in the warm-up.
+    replaces = {
+        "G": "tcnn_tpu/ops/pallas/grid_matmul.py:861 (_gather_kernel)",
+        "M": "tcnn_tpu/ops/pallas/fused_mlp.py:100 (_fwd_kernel)"}
+    return report_entries(" (serving graphs)", t_hash, replaces, capture_launches,
+                          {"G": serve_errs[top], "M": serve_errs[top]},
+                          {"served_request_ms": {k: serve_t[top]["request"] for k in replaces},
+                           "served_replay_ms": {k: serve_t[top]["device"] for k in replaces}})
+
+
+def shampoo_roots_against_f64(model, batches):
+    """Steps a Shampoo model on to t = 10, a root refresh, and holds each
+    refreshed root against the float64 root of the same matrix within
+    ``root_error_bound`` (float32 eigh's error, which is large where a
+    matrix spans 10^5 in eigenvalue); returns the largest error / bound."""
+    from tcnn_tpu_torch.optimizers.shampoo import inverse_4th_root_psd, root_error_bound
+
+    opt = model.optimizer
+    for xb, tb in batches[int(model.trainer.opt_state["step"]):10]:
+        model.trainer.training_step(xb, tb)
+    check(int(model.trainer.opt_state["step"]) == 10, "Shampoo: not at t = 10")
+    worst = 0.0
+    for name, st in model.trainer.opt_state["mat"].items():
+        for k in ("L", "R") if st else ():
+            want = inverse_4th_root_psd(st[k].double(), opt.identity_strength)
+            err = (st[k + "_root"].double() - want).abs().max().item()
+            bound = root_error_bound(st[k], opt.identity_strength)
+            check(err <= bound, f"Shampoo {name} {k}_root: error {err:.3e} beyond {bound:.3e}")
+            worst = max(worst, err / bound)
+    return worst
+
+
+EIGH_CAPTURE = """
+import torch
+a = torch.eye(64, device="cuda") * 2
+torch.linalg.eigh(a)
+torch.cuda.synchronize()
+graph = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(graph):
+        torch.linalg.eigh(a)
+    print("captured")
+except RuntimeError as e:
+    print("refused: " + str(e).splitlines()[0][:200])
+"""
+
+
+def eigh_capture_outcome():
+    """Whether torch.linalg.eigh of a 64 x 64 matrix can be captured in a
+    CUDA graph, tried in a process of its own (a failed capture may leave
+    its context unusable): the evidence for Shampoo's refusal."""
+    out = subprocess.run([sys.executable, "-c", EIGH_CAPTURE], capture_output=True,
+                         text=True, timeout=300)
+    return (out.stdout.strip() or f"exit {out.returncode}: {out.stderr.strip()[-200:]}")
+
+
 def mb_determinism(gen, dev):
     """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
     1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
@@ -1944,8 +2351,10 @@ def main():
     kernels()
     print(f"kernels built from tcnn_tpu_torch/csrc in {time.time() - t0:.1f} s")
 
-    report = {"kernels": config_hash_slices(gen, dev) + config_btf_slice(gen, dev)
-              + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev) + nerf_slice(gen, dev)}
+    hash_entries, hash_times = config_hash_slices(gen, dev)
+    report = {"kernels": hash_entries + config_btf_slice(gen, dev)
+              + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev) + nerf_slice(gen, dev)
+              + save_load_serve_slice(gen, dev, hash_times)}
     image_sample_slice()
     mb_determinism(gen, dev)
     phase("kernels")

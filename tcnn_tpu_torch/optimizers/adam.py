@@ -19,18 +19,19 @@ State, by parameter name: fp32 ``mu`` and ``nu`` and the step counters
 JAX keeps uint32: PyTorch has few uint32 operations, and int32 holds
 2^31 − 1 steps.  Every update is in place, into the state and into
 scratch buffers made at ``init``, so a step allocates nothing (except
-with decay or AdaBound on) and can be captured in a CUDA graph.  The
+with decay or AdaBound on, or under a tensor ``lr_scale``) and can be
+captured in a CUDA graph.  The
 operations run in the JAX package's order, so the results agree to
 float32 rounding.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from .base import Optimizer, Params, State, weight_decay
+from .base import Optimizer, Params, ParamTree, State, step_scalar, weight_decay
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
 
@@ -63,10 +64,10 @@ class Adam(Optimizer):
         self.optimize_matrix = bool(optimize_matrix_params)
         self.optimize_non_matrix = bool(optimize_non_matrix_params)
         self.clipping_magnitude = float(clipping_magnitude)
-        self._layout: Dict[str, str] = {}
+        self._layout: Optional[Dict[str, str]] = None
         self._scratch: Dict[str, Dict[str, torch.Tensor]] = {}
 
-    def init(self, params: Params, layout: Dict[str, str]) -> State:
+    def init(self, params: Params, layout: Dict[str, str], device=None) -> State:
         if set(layout) != set(params):
             raise ValueError(f"layout names {sorted(layout)} != parameter "
                              f"names {sorted(params)}")
@@ -77,19 +78,20 @@ class Adam(Optimizer):
                 "b": torch.empty_like(p, dtype=torch.float32),
                 "upd": torch.empty_like(p, dtype=torch.bool)}
             for n, p in params.items()}
-        any_p = next(iter(params.values()))
         return {
-            "mu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
-            "nu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
-            "param_steps": {n: torch.zeros_like(p, dtype=torch.int32)
-                            for n, p in params.items()},
-            "step": torch.zeros((), dtype=torch.int32, device=any_p.device),
+            "mu": ParamTree({n: torch.zeros_like(p, dtype=torch.float32)
+                             for n, p in params.items()}),
+            "nu": ParamTree({n: torch.zeros_like(p, dtype=torch.float32)
+                             for n, p in params.items()}),
+            "param_steps": ParamTree({n: torch.zeros_like(p, dtype=torch.int32)
+                                      for n, p in params.items()}),
+            "step": step_scalar(params, device),
         }
 
     @torch.no_grad()
     def step(self, state: State, grads: Params, params: Params,
-             lr_scale: float = 1.0) -> None:
-        if not self._layout:
+             lr_scale=1.0) -> None:
+        if self._layout is None:
             raise RuntimeError("Adam.step called before init(params, layout)")
         state["step"].add_(1)
         if self.adabound:

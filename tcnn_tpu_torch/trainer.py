@@ -13,6 +13,8 @@ steps taken.
     JAX package's ``lax.scan`` loops: on the card they replay one captured
     CUDA graph per step (the reference's graph replay, trainer.h:176-183),
     copying each batch into the graph's static input buffers first.
+  * ``serialize`` / ``deserialize`` write and read the JAX package's
+    trainer dict (``utils/serialization.py``; trainer.h:275-315).
 """
 
 from __future__ import annotations
@@ -134,6 +136,8 @@ class Trainer:
     def _run_loop(self, batch_fn: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
                   n_steps: int) -> torch.Tensor:
         x, target = batch_fn(0)
+        if x.device.type == "cuda" and not self.optimizer.capturable:
+            raise RuntimeError(f"make_training_loop: {self.optimizer.capture_error}")
         losses = torch.empty(n_steps, dtype=torch.float32, device=x.device)
         if x.device.type != "cuda":
             # The caller asked for the CPU: the same steps, eagerly.
@@ -169,7 +173,9 @@ class Trainer:
         on the host).  Returns ``loop() -> losses``, an (n_steps,) tensor on
         the device.  On the card the first call captures a step in a CUDA
         graph (its warm-up is the loop's first step) and every other step
-        replays it; with ``device="cpu"`` the steps run eagerly.
+        replays it; with ``device="cpu"`` the steps run eagerly.  An
+        optimizer whose step cannot be captured (Shampoo) raises on the
+        card.
         """
         return lambda: self._run_loop(sample_fn, n_steps)
 
@@ -217,3 +223,17 @@ class Trainer:
         if "loss" in cfg:
             self.loss.update_hyperparams(cfg["loss"])
         self._graphs.clear()
+
+    # -- checkpointing ------------------------------------------------
+    def serialize(self, serialize_optimizer: bool = True) -> Dict[str, Any]:
+        """The JAX package's trainer dict (``utils/serialization.py``)."""
+        from .utils import serialization
+
+        return serialization.serialize_trainer(self, serialize_optimizer)
+
+    def deserialize(self, data: Dict[str, Any]) -> None:
+        """Loads a trainer dict of either package into this trainer's
+        parameters, optimizer state and step, in place."""
+        from .utils import serialization
+
+        serialization.deserialize_trainer(self, data)

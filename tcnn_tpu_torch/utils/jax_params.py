@@ -9,7 +9,7 @@ given as numpy arrays, into the port's parameters:
 A parameter's dotted name is its path in the tree ("encoding.grid",
 "network.layers.0"): the port keeps the JAX names and layouts, so the
 copy is one to one.  ``load_jax_opt_state(trainer, opt_state)`` does the
-same for an Adam state (``mu``, ``nu``, ``param_steps``, ``step``).
+same for the state of any optimizer, leaf by leaf in JAX's flatten order.
 Nothing here imports JAX: the trees hold numpy arrays
 (``jax.tree_util.tree_map(np.asarray, state.params)``).
 """
@@ -72,32 +72,37 @@ def load_jax_params(model, params: Any) -> None:
                     .to(p.dtype))
 
 
-def load_jax_opt_state(trainer, opt_state: Any) -> None:
-    """Copy a JAX Adam state into ``trainer.opt_state``.
+def _np_leaves(tree: Any) -> list:
+    """The leaves of a numpy tree in ``jax.tree_util``'s flatten order:
+    dict keys sorted, lists and tuples in order, None empty."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _np_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _np_leaves(v)]
+    return [] if tree is None else [np.asarray(tree)]
 
-    ``opt_state`` is {"mu": tree, "nu": tree, "param_steps": tree,
-    "step": scalar} with trees shaped like the parameters, as numpy.  The
-    uint32 step counters become the port's int32 ones (they must be below
-    2^31).  Raises like ``load_jax_params``; nothing is copied unless every
-    entry matches.
+
+def load_jax_opt_state(trainer, opt_state: Any) -> None:
+    """Copy a JAX optimizer state, of any optimizer of the package
+    (wrappers and Composite included), into ``trainer.opt_state``.
+
+    ``opt_state`` is the JAX state as numpy (``jax.tree_util.tree_map(
+    np.asarray, state.opt_state)``); its leaves are matched to the port's
+    in JAX's flatten order (``optimizers.base.named_leaves``).  The uint32
+    step counters become the port's int32 ones (they must be below 2^31).
+    Raises KeyError on another number of leaves and ValueError on a shape
+    mismatch; nothing is copied unless every leaf matches.
     """
-    state = trainer.opt_state
-    pairs = []
-    for key in ("mu", "nu", "param_steps"):
-        for name, dst in state[key].items():
-            value = np.asarray(_leaf(opt_state[key], name))
-            if tuple(value.shape) != tuple(dst.shape):
-                raise ValueError(f"'{key}.{name}': JAX shape {value.shape} != "
-                                 f"port shape {tuple(dst.shape)}")
-            if key == "param_steps" and value.size and value.max() >= 2 ** 31:
-                raise ValueError(f"'{key}.{name}': step counts of 2^31 or more")
-            pairs.append((dst, value))
-        n_leaves = _count_leaves(opt_state[key])
-        if n_leaves != len(state[key]):
-            raise KeyError(f"JAX '{key}' has {n_leaves} entries, the port "
-                           f"{len(state[key])}")
-    pairs.append((state["step"], np.asarray(opt_state["step"])))
-    with torch.no_grad():
-        for dst, value in pairs:
-            dst.copy_(torch.from_numpy(np.array(value).astype(
-                np.float32 if dst.is_floating_point() else np.int64)).to(dst.dtype))
+    from ..optimizers.base import named_leaves
+    from .serialization import copy_leaves
+
+    dst = list(named_leaves(trainer.opt_state))
+    src = _np_leaves(opt_state)
+    if len(src) != len(dst):
+        raise KeyError(f"the JAX state has {len(src)} leaves, the port's "
+                       f"{len(dst)}: {[n for n, _ in dst]}")
+    for (name, t), v in zip(dst, src):
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"'{name}': JAX shape {v.shape} != port shape "
+                             f"{tuple(t.shape)}")
+    copy_leaves(dst, src)

@@ -1,0 +1,124 @@
+"""Trainer (de)serialization.
+
+PyTorch counterpart of ``tcnn_tpu/utils/serialization.py:29-126`` (the
+reference's Trainer::serialize, trainer.h:275-315): the same
+JSON-compatible dict, so that a file written by either package loads in
+the other.
+
+    {"otype": "Trainer", "n_params": N, "params_type": "float",
+     "params": {"treedef": str, "leaves": [{"__ndarray__": base64 .npy}]},
+     "optimizer": {"treedef": str, "leaves": [...]},
+     "step": s, "hyperparams": {"model", "loss", "optimizer"}}
+
+The leaves are in ``jax.tree_util``'s flatten order of the JAX parameter
+and optimizer-state trees (``optimizers.base.named_leaves``); integer
+leaves (step counters) are written as uint32, JAX's type.  Like the JAX
+reader, the port's reads only the leaves, checks their count and
+shapes, and casts them to its own types; ``treedef`` here lists the
+leaves' paths.
+"""
+
+from __future__ import annotations
+
+import base64
+import io
+import json
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..optimizers.base import jax_order, named_leaves
+
+
+def _encode_array(x) -> Dict[str, Any]:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        x = x.numpy().astype(np.uint32) if not x.is_floating_point() else x.numpy()
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(x), allow_pickle=False)
+    return {"__ndarray__": base64.b64encode(buf.getvalue()).decode("ascii")}
+
+
+def _decode_array(d: Dict[str, Any]) -> np.ndarray:
+    return np.load(io.BytesIO(base64.b64decode(d["__ndarray__"])), allow_pickle=False)
+
+
+def tree_to_json(named: Sequence[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
+    """(path, tensor) leaves in JAX's order → {"treedef", "leaves"}."""
+    return {"treedef": "leaves: " + ", ".join(p for p, _ in named),
+            "leaves": [_encode_array(t) for _, t in named]}
+
+
+def tree_from_json(data: Dict[str, Any], like: Sequence[Tuple[str, torch.Tensor]]
+                   ) -> List[np.ndarray]:
+    """The leaves of ``data`` as numpy arrays, checked against ``like``'s
+    count and shapes."""
+    leaves = [_decode_array(d) for d in data["leaves"]]
+    if len(leaves) != len(like):
+        raise ValueError(f"checkpoint has {len(leaves)} leaves, model expects {len(like)}")
+    for got, (path, want) in zip(leaves, like):
+        if tuple(got.shape) != tuple(want.shape):
+            raise ValueError(f"checkpoint leaf {path} shape {got.shape} != model "
+                             f"{tuple(want.shape)}")
+    return leaves
+
+
+def copy_leaves(dst: Sequence[Tuple[str, torch.Tensor]], src: Sequence[np.ndarray]) -> None:
+    """Copies numpy leaves into tensors in place, to each tensor's type;
+    int32 counters take uint32 values below 2^31 only."""
+    for (path, t), v in zip(dst, src):
+        v = np.asarray(v)
+        if not t.is_floating_point() and v.size and int(v.max()) >= 2 ** 31:
+            raise ValueError(f"'{path}': step counts of 2^31 or more")
+    with torch.no_grad():
+        for (_, t), v in zip(dst, src):
+            v = np.array(v, dtype=np.float32 if t.is_floating_point() else np.int64)
+            t.copy_(torch.from_numpy(v).to(t.dtype))
+
+
+def param_leaves(trainer) -> List[Tuple[str, torch.Tensor]]:
+    params = trainer.params()
+    return [(n, params[n]) for n in jax_order(params)]
+
+
+def serialize_trainer(trainer, serialize_optimizer: bool = True) -> Dict[str, Any]:
+    """≈ Trainer::serialize (trainer.h:275-288)."""
+    data: Dict[str, Any] = {
+        "otype": "Trainer",
+        "n_params": trainer.n_params(),
+        "params_type": "float",
+        "params": tree_to_json(param_leaves(trainer)),
+        "step": int(trainer.step),
+        "hyperparams": {
+            "model": trainer.model.hyperparams(),
+            "loss": trainer.loss.hyperparams(),
+            "optimizer": trainer.optimizer.hyperparams(),
+        },
+    }
+    if serialize_optimizer:
+        data["optimizer"] = tree_to_json(list(named_leaves(trainer.opt_state)))
+    return data
+
+
+def deserialize_trainer(trainer, data: Dict[str, Any]) -> None:
+    """≈ Trainer::deserialize (trainer.h:290-315), into ``trainer`` in
+    place; nothing is copied unless every leaf matches."""
+    like = param_leaves(trainer)
+    leaves = tree_from_json(data["params"], like)
+    if "optimizer" in data:
+        opt_like = list(named_leaves(trainer.opt_state))
+        leaves += tree_from_json(data["optimizer"], opt_like)
+        like += opt_like
+    copy_leaves(like, leaves)
+    trainer.step = int(data.get("step", 0))
+
+
+def save(path: str, data: Dict[str, Any]) -> None:
+    with open(path, "w") as f:
+        json.dump(data, f)
+
+
+def load(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)

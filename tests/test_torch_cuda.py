@@ -1193,3 +1193,166 @@ def test_fused_mlp_dx_into_a_strided_slice(cuda):
     assert set(grads) == set(want)
     for name, g in grads.items():
         assert_rel_close(g, want[name], 1e-4)
+
+
+# -- slice 9: serving graphs, optimizers on the card --------------------------
+
+HASH_CONFIG = "configs/config_hash.json"
+_ADAM = {"otype": "Adam", "learning_rate": 1e-2, "beta2": 0.99, "epsilon": 1e-15,
+         "l2_reg": 1e-6}
+CARD_OPTIMIZERS = {
+    "SGD": {"otype": "SGD", "learning_rate": 1e-1},
+    "Novograd": {"otype": "Novograd", "learning_rate": 1e-2},
+    "EMA": {"otype": "EMA", "decay": 0.9, "nested": _ADAM},
+    "Average": {"otype": "Average", "n_samples": 8, "nested": _ADAM},
+    "Batched": {"otype": "Batched", "batch_size_multiplier": 4, "nested": _ADAM},
+    "Lookahead": {"otype": "Lookahead", "alpha": 0.5, "n_steps": 6, "nested": _ADAM},
+    "ExponentialDecay": {"otype": "ExponentialDecay", "decay_base": 0.5, "decay_start": 5,
+                         "decay_end": 19, "decay_interval": 7, "nested": _ADAM},
+    "Composite": {"otype": "Composite", "nested": [
+        _ADAM, {"otype": "SGD", "learning_rate": 1e-1, "params": "other"}]},
+    "Shampoo": {"otype": "Shampoo", "learning_rate": 1e-2},
+}
+
+
+def _hash_config(opt):
+    from tcnn_tpu_torch import load_config
+
+    return {**load_config(HASH_CONFIG), "optimizer": opt}
+
+
+def _image_batches(n, batch=4096):
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    sampler = ImageSampler(synthetic_image(128, 128), seed=1)
+    return [sampler.sample_batch(batch) for _ in range(n)]
+
+
+@pytest.mark.parametrize("policy", [BF16_POLICY, DEFAULT_POLICY])
+def test_serving_graphs_match_inference_and_the_plain_path(cuda, policy):
+    """Each bucket's graph replay equals ``Trainer.inference`` bit for bit
+    (G and M compute each row alone) and the plain path within the model
+    tolerance; a bundle written on the CPU serves the same on the card."""
+    import types
+
+    from tcnn_tpu_torch import serving
+    from tcnn_tpu_torch.tools.plain_path import plain_inference
+
+    model = create_from_config(2, 3, HASH_CONFIG, policy=policy)
+    with torch.no_grad():
+        model.network.encoding.grid.uniform_(-1, 1, generator=torch.Generator(cuda).manual_seed(0))
+    def launches():
+        return fused_mlp_fwd.launches, grid_encode_fwd.launches
+
+    before = launches()
+    srv = serving.load_inference(serving.export_inference(model.trainer,
+                                                          batch_sizes=(64, 1024, 4133)))
+    after = launches()
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 4)   # warm-up, 3 captures
+    cpu_model = create_from_config(2, 3, HASH_CONFIG, policy=policy, device="cpu")
+    cpu_model.trainer.deserialize(model.trainer.serialize())
+    from_cpu = serving.load_inference(serving.export_inference(cpu_model.trainer,
+                                                               batch_sizes=(4133,)))
+    assert from_cpu.platforms == ("cpu",) and srv.platforms == ("cuda",)
+    gen = torch.Generator(cuda).manual_seed(1)
+    tol = (2e-2, 2e-3) if policy is BF16_POLICY else (1e-5, 1e-5)
+    for b in (1, 63, 64, 65, 1000, 1024, 4133):
+        x = torch.rand((b, 2), generator=gen, device=cuda)
+        before = launches()
+        got, got_cpu_bundle = srv(x), from_cpu(x)
+        assert launches() == before   # requests replay graphs: no wrapper call
+        assert torch.equal(got, model.trainer.inference(x)), b
+        assert torch.equal(got_cpu_bundle, got), b
+        want = plain_inference(types.SimpleNamespace(network=srv.model), x)
+        torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("name", list(CARD_OPTIMIZERS))
+def test_optimizer_step_on_the_card_matches_the_cpu(cuda, name):
+    """One step with the same parameters, gradients and state (after two
+    steps): counters equal, every float leaf within rtol 1e-5 plus 1e-6 of
+    its largest magnitude (Shampoo 1e-4 plus 1e-5: fp32 matrix products).
+    Shampoo's roots, refreshed on the card at t = 10, against float64 roots
+    of the same matrices within ``root_error_bound``."""
+    from tcnn_tpu_torch.optimizers.base import named_leaves
+    from tcnn_tpu_torch.optimizers.shampoo import inverse_4th_root_psd, root_error_bound
+
+    cfg = _hash_config(CARD_OPTIMIZERS[name])
+    card = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+    for x, t in _image_batches(2):
+        card.trainer.training_step(x, t)
+    cpu = create_from_config(2, 3, cfg, policy=BF16_POLICY, device="cpu")
+    cpu.trainer.deserialize(card.trainer.serialize())
+    x, t = _image_batches(1)[0]
+    _, grads = card.trainer.loss_value_and_grads(x, t)
+    card.optimizer.step(card.trainer.opt_state, grads, card.trainer.params())
+    cpu.optimizer.step(cpu.trainer.opt_state, {n: g.cpu() for n, g in grads.items()},
+                       cpu.trainer.params())
+    rtol, scale = (1e-4, 1e-5) if name == "Shampoo" else (1e-5, 1e-6)
+    for tree in ("params", "opt_state"):
+        a = card.trainer.params() if tree == "params" else card.trainer.opt_state
+        b = cpu.trainer.params() if tree == "params" else cpu.trainer.opt_state
+        for (n, ga), (_, gb) in zip(named_leaves(a), named_leaves(b)):
+            ga = ga.detach().cpu()
+            if not gb.is_floating_point():
+                assert torch.equal(ga, gb), n
+            else:
+                gb = gb.detach()
+                torch.testing.assert_close(ga, gb, rtol=rtol,
+                                           atol=scale * float(gb.abs().max()) + 1e-30)
+    if name == "Shampoo":
+        for x, t in _image_batches(10)[3:]:
+            card.trainer.training_step(x, t)
+        assert int(card.trainer.opt_state["step"]) == 10
+        for st in card.trainer.opt_state["mat"].values():
+            for k in ("L", "R") if st else ():
+                want = inverse_4th_root_psd(st[k].double(), 0.01)
+                err = float((st[k + "_root"].double() - want).abs().max())
+                assert err <= root_error_bound(st[k], 0.01), (k, err)
+
+
+@pytest.mark.parametrize("name", [n for n in CARD_OPTIMIZERS if n != "Shampoo"])
+def test_optimizer_graph_loop_equals_eager_steps(cuda, name):
+    """20 replayed steps against 20 eager ones cross every period and
+    boundary of the configs above: the losses within 1e-3 relative (GB's
+    atomics), the step counters and ExponentialDecay's factor equal."""
+    from tcnn_tpu_torch.optimizers.base import named_leaves
+
+    cfg = _hash_config(CARD_OPTIMIZERS[name])
+    pair = [create_from_config(2, 3, cfg, policy=BF16_POLICY) for _ in range(2)]
+    batches = _image_batches(20)
+    got = pair[0].trainer.make_training_loop(lambda i: batches[i], 20)()
+    want = torch.stack([pair[1].trainer.training_step(x, t) for x, t in batches])
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=0)
+    for (n, a), (_, b) in zip(named_leaves(pair[0].trainer.opt_state),
+                              named_leaves(pair[1].trainer.opt_state)):
+        if not b.is_floating_point() or n.endswith("factor"):
+            assert torch.equal(a, b), n
+
+
+def test_shampoo_loop_refuses_capture_on_the_card(cuda):
+    model = create_from_config(2, 3, _hash_config(CARD_OPTIMIZERS["Shampoo"]),
+                               policy=BF16_POLICY)
+    x, t = _image_batches(1)[0]
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        model.trainer.make_training_loop(lambda i: (x, t), 2)()
+    assert bool(torch.isfinite(model.trainer.training_step(x, t)))
+
+
+def test_exported_train_step_replays_on_the_card(cuda):
+    from tcnn_tpu_torch import serving
+
+    cfg = _hash_config(CARD_OPTIMIZERS["EMA"])
+    model = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+    live = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+    step = serving.load_train_step(serving.export_train_step(model.trainer, 4096))
+    state = model.trainer.serialize()
+    live.trainer.deserialize(state)
+    batches = _image_batches(6)
+    got = []
+    for x, t in batches:
+        state, loss = step(state, x, t)
+        got.append(loss)
+    want = torch.stack([live.trainer.training_step(x, t) for x, t in batches])
+    torch.testing.assert_close(torch.stack(got), want, rtol=1e-3, atol=0)
+    assert state["step"] == live.trainer.step == 6
