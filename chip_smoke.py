@@ -58,7 +58,20 @@ and read just after:
     same step on the CPU, 20 replayed steps against 20 eager ones
     (Shampoo: ``make_training_loop`` refuses, and whether
     ``torch.linalg.eigh`` can be captured is tried in a process of its
-    own), and each optimizer step's time.
+    own), and each optimizer step's time;
+  * tiny-cuda-nn's torch modules (slice 10, ``bindings.torch_interop``,
+    fp32): a ``NetworkWithInputEncoding`` at config_hash's full width,
+    B = 2^18, its forward, ``params.grad`` and input gradient against the
+    plain path (launches G, M, GB, MB, GI once each); the SDF sample's
+    eikonal step through a ``NetworkWithInputEncoding`` at the SDF grid
+    against the plain eikonal step (double backward: GI, GG and RS, and
+    no GB under ``torch.autograd.grad(y, x)``); ``Encoding(dtype=
+    torch.float16)``; a pickle round trip; the ported image sample,
+    ``samples/mlp_learning_an_image_pytorch.main`` at the JAX sample's
+    settings (1000 eager steps of 2^14 pixels, ``torch.optim.Adam``), the
+    main path, with a PSNR floor; and the binding's eager step at 2^18
+    beside ``make_training_loop``'s on the same model (``slice_times`` in
+    fp32).
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -162,12 +175,25 @@ with TF32 off):
     The fit: eval PSNR above ``NERF_PSNR_FLOOR``, the JAX sample's CPU run
     at the same settings (fp32) less 3 dB.  The image sample: PSNR above
     20 dB after 100 steps.
+  * slice 10, the bindings at config_hash (fp32): the output within the
+    fp32 MLP bound, the table gradient per entry within 2^-11·S, the
+    weights' gradients within 1e-4 of their largest magnitude, the input
+    gradient within 1e-4 of its largest magnitude (it sums kernel MB's dx,
+    held within 1e-4), MB dx rows that a switched fp32 ReLU explains taken
+    flipped, as in the eikonal step; the eikonal step through the bindings
+    at the eikonal step's bounds; the fp16 encoding within one fp16 ulp of
+    the plain fp32 output; the pickled module's output bit for bit; the
+    image sample's PSNR@1000 at or above ``IMAGE_PT_PSNR_FLOOR``, the JAX
+    sample's CPU run at the same settings less 3 dB.
   * slice 9: a restored trainer's next step: the loss and the weights'
     gradients bit for bit (G, M and MB are deterministic), the table
     gradient within GB's bound 2^-11·S; the exported step's and the
     replayed optimizer steps' losses within 1e-3 relative of eager
     ``training_step``s' (as tests/test_torch_cuda.py's graph loop), their
-    step counters and ExponentialDecay's factor equal; one optimizer
+    step counters and ExponentialDecay's factor equal, but for a lazy
+    counter's entries whose recorded gradients differ between the runs
+    (GB's atomics), where each run's counter is the count its own
+    gradients give (``tools/replay_check.py``); one optimizer
     step on the card against the CPU's: step counters equal, every float
     leaf within rtol 1e-5 plus 1e-6 of its largest magnitude (fp32
     elementwise operations; the CPU tests' bound against JAX), Shampoo
@@ -182,8 +208,10 @@ with TF32 off):
 The whole run takes about four minutes on an H100, against the 1200 s a
 run may take: the build of the seven kernels took 93 to 155 s, the
 plain versions' BTF fit, 150 eager steps (the kernels' fit runs 200), 30
-to 45 s, the NeRF fit 4 to 5 s, the slice-9 phase about 15 s.  It prints
-its own time before the kernels' line.
+to 45 s, the NeRF fit 4 to 5 s, the slice-9 phase about 15 s, the
+slice-10 phase (which prints its own time) about 8 s; the whole 196.5 to
+245 s with a 96 to 129 s build (H100 80GB HBM3, 700 W).  It prints its
+own time before the kernels' line.
 """
 
 import json
@@ -666,7 +694,9 @@ def slice_times(label, model, x, target, loop):
     MB and GB on the tensors the model hands them (device time in a CUDA
     graph, per call with the host's work, plain versions eager, cuBLAS
     yardsticks), a request, the step's parts, the step and ``loop()``;
-    and each kernel's bound.  Prints them and returns them by name."""
+    and each kernel's bound, in the model's compute dtype (bf16 or fp32:
+    M and MB on the tensor cores or the FMA units).  Prints them and
+    returns them by name."""
     from tcnn_tpu_torch.ops import grid_ops
     from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
                                                    fused_mlp_fwd, fused_mlp_plain)
@@ -683,14 +713,15 @@ def slice_times(label, model, x, target, loop):
     soa = enc is grid   # a grid alone hands the MLP SoA features
     others = [e for e in getattr(enc, "nested", ()) if e is not grid]
     live = list(range(spec.n_levels))
-    bf16, relu, out_act = torch.bfloat16, net.activation, net.output_activation
-    table = grid.grid.detach().to(bf16)
-    ws = [w.detach().to(bf16) for w in net.layers]
+    cdt, relu, out_act = model.network.policy.compute_dtype, net.activation, net.output_activation
+    mlp_peak = PEAK_BF16 if cdt == torch.bfloat16 else PEAK_FP32
+    table = grid.grid.detach().to(cdt)
+    ws = [w.detach().to(cdt) for w in net.layers]
     t = {}
     with torch.inference_mode():
         feats = enc(x, soa=True) if soa else enc(x)   # the MLP's input
         gfeats = grid_encode_fwd(spec, table, xg, live, soa=soa)
-        mlp_args = (ws, feats, relu, out_act, bf16, torch.float32, soa, False)
+        mlp_args = (ws, feats, relu, out_act, cdt, torch.float32, soa, False)
         f_in = feats.t() if soa else feats
 
         def g_call():
@@ -708,7 +739,7 @@ def slice_times(label, model, x, target, loop):
         t["M plain"] = eager_ms(lambda: fused_mlp_plain(*mlp_args))
         t["M library"] = graph_ms(lambda: library_chain(ws, f_in))
         t["request device"], t["request"] = graph_ms(request), time_ms(request)
-        t["table copy"] = graph_ms(lambda: grid.grid.detach().to(bf16))
+        t["table copy"] = graph_ms(lambda: grid.grid.detach().to(cdt))
         t["other encodings"] = sum(graph_ms(lambda e=e, b=b, nd=nd: e(x[:, b:b + nd]))
                                    for e, (b, nd) in zip(getattr(enc, "nested", ()),
                                                          getattr(enc, "slices", ()))
@@ -727,7 +758,7 @@ def slice_times(label, model, x, target, loop):
 
     dy = loss_call()
     with torch.inference_mode():
-        mb_args = (ws, feats, dy, relu, out_act, bf16, soa, False)
+        mb_args = (ws, feats, dy, relu, out_act, cdt, soa, False)
         dfeats = fused_mlp_bwd(*mb_args)[1]
         cols = slice(col, col + spec.n_output_dims)
         dcols = dfeats[cols] if soa else dfeats[:, cols].t()
@@ -769,13 +800,13 @@ def slice_times(label, model, x, target, loop):
     b = {"G": (nbytes(xg, gfeats) + g_table_bytes + consts_bytes,
                grid_flops(spec, MAIN_BATCH), PEAK_FP32)}
     m_flops = 2 * MAIN_BATCH * sum(w.numel() for w in ws)
-    b["M"] = (nbytes(feats, *ws) + MAIN_BATCH * net.n_output_dims * 4, m_flops, PEAK_BF16)
+    b["M"] = (nbytes(feats, *ws) + MAIN_BATCH * net.n_output_dims * 4, m_flops, mlp_peak)
     # GB: x, dcols and the level constants in, the bf16 table gradient out.
     b["GB"] = (nbytes(xg, dcols, table) + consts_bytes, b["G"][1], PEAK_FP32)
     # MB: input, output gradient and weights in; input gradient and fp32 dW
     # out.  Products: the recomputed forward, the dgrad and the wgrad chains.
     b["MB"] = (nbytes(feats, dy, *ws, dfeats) + sum(w.numel() for w in ws) * 4,
-               3 * m_flops, PEAK_BF16)
+               3 * m_flops, mlp_peak)
     record_bounds(t, b, {"G": f" with {g_table_bytes / 1e6:.2f} MB of touched table rows"})
     parts = {k: t[k] for k in ("G", "M", "table copy")}
     if others:
@@ -2028,6 +2059,8 @@ def save_load_serve_slice(gen, dev, t_hash):
     from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_fwd
     from tcnn_tpu_torch.optimizers.base import named_leaves
     from tcnn_tpu_torch.tools.plain_path import plain_inference
+    from tcnn_tpu_torch.tools.replay_check import (counter_mismatches, nested_interval,
+                                                   record_gradients)
     from tcnn_tpu_torch.utils import checkpoint, cuda_export, cuda_import, msgpack
     from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
     from tcnn_tpu_torch.utils.metrics import psnr
@@ -2219,23 +2252,28 @@ def save_load_serve_slice(gen, dev, t_hash):
         opt_t[name] = graph_ms(lambda: card.optimizer.step(
             card.trainer.opt_state, grads, card.trainer.params()))
         pair = [create_from_config(2, 3, cfg, policy=BF16_POLICY) for _ in range(2)]
-        it = iter(range(LOOP_CHECK_STEPS))
+        rec = [record_gradients(m.trainer, LOOP_CHECK_STEPS) for m in pair]
         replayed = pair[0].trainer.make_training_loop(
             lambda i: batches[i % len(batches)], LOOP_CHECK_STEPS)()
         eager = torch.stack([pair[1].trainer.training_step(*batches[i % len(batches)])
-                             for i in it])
+                             for i in range(LOOP_CHECK_STEPS)])
         torch.cuda.synchronize()
         rel = ((replayed - eager).abs() / eager.abs()).max().item()
         check(rel <= 1e-3, f"{name}: replayed losses {replayed.tolist()} vs eager "
               f"{eager.tolist()}")
-        ints = [(n, a, b) for (n, a), (_, b) in zip(named_leaves(pair[0].trainer.opt_state),
-                                                    named_leaves(pair[1].trainer.opt_state))
-                if not b.is_floating_point() or n.endswith("factor")]
-        for n, a, b in ints:
-            check(torch.equal(a, b), f"{name}: replayed state {n} differs from eager")
+        check([int(i) for _, i in rec] == [LOOP_CHECK_STEPS] * 2,
+              f"{name}: recorded {[int(i) for _, i in rec]} steps' gradients")
+        n_ints = sum(1 for n, t in named_leaves(pair[1].trainer.opt_state)
+                     if not t.is_floating_point() or n.endswith("factor"))
+        failed, odd = counter_mismatches(pair[0].trainer.opt_state, pair[1].trainer.opt_state,
+                                         rec[0][0], rec[1][0],
+                                         nested_interval(pair[0].optimizer))
+        check(not failed, f"{name}: replayed state differs from eager: {failed}; {odd}")
         print(f"{line}; {LOOP_CHECK_STEPS} replayed steps' losses within {rel:.2e} of eager "
-              f"(rtol 1e-3), counters and factors equal ({len(ints)} leaves); step "
-              f"{opt_t[name]:.4f} ms on the device")
+              f"(rtol 1e-3), counters and factors equal ({n_ints} leaves"
+              + (f"; but for {len(odd)} lazy counter entries, each its own gradients' "
+                 f"count: {odd}" if odd else "")
+              + f"); step {opt_t[name]:.4f} ms on the device")
     print("optimizer step alone at config_hash, device ms (Shampoo eager): "
           + ", ".join(f"{k} {v:.4f}" for k, v in opt_t.items()))
 
@@ -2297,6 +2335,261 @@ def eigh_capture_outcome():
     return (out.stdout.strip() or f"exit {out.returncode}: {out.stderr.strip()[-200:]}")
 
 
+# -- slice 10: the tinycudann torch modules ---------------------------------
+
+# The JAX sample through the JAX bindings (`python
+# samples/mlp_learning_an_image_pytorch.py none 1000` on the CPU: fp32,
+# 1000 steps of 2^14 pixels of benchmarks/data/fixture.png) read PSNR@1000
+# 40.95 dB; the floor is 3 dB below it.
+IMAGE_PT_PSNR_JAX = 40.95
+IMAGE_PT_PSNR_FLOOR = IMAGE_PT_PSNR_JAX - 3.0
+IMAGE_PT_STEPS = 1000
+IMAGE_PT_BATCH_POW = 14
+
+
+def relative_l2(pred, target):
+    """The image sample's manual relative L2 (the original torch sample's)."""
+    return ((pred - target) ** 2 / (pred.detach() ** 2 + 0.01)).mean()
+
+
+def leaves_of(module, flat):
+    """{parameter name: its part of a binding module's flat vector}."""
+    return {leaf.name: v for leaf, v in zip(module._leaves, module._split(flat))}
+
+
+def binding_first_order(m, x, target):
+    """One forward and backward of the binding ``m`` (a grid into a fused
+    MLP, fp32) on x, the relative L2 against target, against its plain
+    path on the same tensors: the output within the fp32 MLP bound,
+    params.grad leaf by leaf (the table per entry within 2^-11·S, the
+    weights within 1e-4 of their largest magnitude) and the input
+    gradient within 1e-4 of its largest magnitude (it sums kernel MB's
+    dx, itself within 1e-4).  MB's dx rows that a switched fp32 ReLU
+    explains take their flipped variants on the plain side, as in the
+    eikonal step.  Returns the launches and the errors by kernel."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
+                                                   fused_mlp_fwd, fused_mlp_plain)
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd_input_plain,
+                                                     grid_encode_bwd_plain, grid_encode_fwd,
+                                                     grid_encode_plain)
+
+    enc, net = m.native.encoding, m.native.network
+    spec, live = enc.spec, list(range(enc.spec.n_levels))
+    xg = x.clone().requires_grad_()
+    m.params.grad = None
+    reset_counts()
+    y = m(xg)
+    relative_l2(y, target).backward()
+    torch.cuda.synchronize()
+    launches = counts()
+
+    f32, relu, none = torch.float32, net.activation, net.output_activation
+    table = enc.grid.detach()
+    ws = [w.detach() for w in net.layers]
+    with torch.no_grad():
+        feats = grid_encode_plain(spec, table, x, live, soa=True)
+        y_plain = fused_mlp_plain(ws, feats, relu, none, f32, f32, True, False)
+        k_feats = grid_encode_fwd(spec, table, x, live, soa=True)
+        k_y = fused_mlp_fwd(ws, k_feats, relu, none, f32, f32, True, False)
+    dy, k_dy = (torch.autograd.grad(relative_l2(p.requires_grad_(), target), p)[0]
+                for p in (y_plain.clone(), k_y.clone()))
+    with torch.no_grad():
+        dws, dfeats = fused_mlp_bwd_plain(ws, feats, dy, relu, none, f32, True, False)
+        k_dx = fused_mlp_bwd(ws, k_feats, k_dy, relu, none, f32, True, False)[1]
+    _, rows, variants = compare_input_grad(k_dx, dfeats, ws, feats, dy, none, soa_in=True,
+                                           what="binding MB dx", dtype=f32)
+    dfeats = dfeats.clone()
+    dfeats.t()[rows] = variants
+    with torch.no_grad():
+        dtable = grid_encode_bwd_plain(spec, table, x, dfeats, live)
+        scale = grid_encode_bwd_plain(spec, table, x, dfeats.abs(), live)
+        dx = grid_encode_bwd_input_plain(spec, table, x, dfeats, live)
+    grads = leaves_of(m, m.params.grad)
+    err = {"M": compare(y.detach(), y_plain, "mlp-f32")[0],
+           "GB": compare_table_grad(grads["encoding.grid"], dtable, scale, "binding table grad"),
+           "MB": compare_mlp_grads([grads[f"network.layers.{i}"] for i in range(len(ws))], dws,
+                                   f32, "binding weight grads"),
+           "GI": compare_rel(xg.grad, dx, 1e-4, "binding input grad")}
+    with torch.no_grad():
+        err["G"] = compare(k_feats, feats, "grid-f32")[0]
+    print(f"binding first order at B={x.shape[0]}: output max abs err {err['M']:.3e} "
+          f"(1e-5·|ref| + 1e-5), table grad {err['GB']:.3e} (2^-11·S), weight grads "
+          f"{err['MB']:.3e} (1e-4 of their max), input grad {err['GI']:.3e} (1e-4 of its max); "
+          f"{rows.numel()} MB dx rows explained by a switched ReLU; launches {launches}")
+    return launches, err
+
+
+def bindings_slice(gen, dev):
+    """Slice 10: tiny-cuda-nn's torch modules (``bindings.torch_interop``)
+    on the card.  A NetworkWithInputEncoding at config_hash's full width
+    (fp32, B = 2^18): forward and first order against the plain path; the
+    SDF sample's eikonal step through a NetworkWithInputEncoding at its
+    grid (double backward: GI, GG, RS; no GB under ``autograd.grad(y,
+    x)``) against the plain eikonal step; ``Encoding(dtype=float16)``;
+    a pickle round trip; the ported image sample at the JAX sample's
+    settings, the main path, with a PSNR floor; and the binding's eager
+    step beside ``make_training_loop``'s on the same model.  Returns the
+    report entries."""
+    import pickle
+    import tempfile
+
+    from tcnn_tpu_torch import DEFAULT_POLICY, create_from_config, load_config
+    from tcnn_tpu_torch.bindings import torch_interop as ti
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_plain
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.samples import mlp_learning_an_image_pytorch as img_pt
+    from tcnn_tpu_torch.tools.plain_path import plain_sdf_loss_and_grads
+
+    t_slice = time.time()
+    cfg = load_config(CONFIG)
+    m = ti.NetworkWithInputEncoding(2, 3, cfg["encoding"], cfg["network"])
+    enc, net = m.native.encoding, m.native.network
+    spec = enc.spec
+    check(spec.n_dims == 2 and spec.n_levels == 16 and spec.n_features_per_level == 2
+          and max(lv.size for lv in spec.levels) == 1 << 15
+          and [tuple(w.shape) for w in net.layers] == mlp_dims(32, 64, 2),
+          f"binding at config_hash: {spec.n_dims}-D, {spec.n_levels} levels, "
+          f"{[tuple(w.shape) for w in net.layers]}")
+    with torch.no_grad():   # O(1) features, as in the other slices' checks
+        leaves_of(m, m.params)["encoding.grid"].uniform_(-1, 1, generator=gen)
+    print(f"{m}: {m.params.numel()} parameters in one flat fp32 vector, "
+          f"leaves {[leaf.name for leaf in m._leaves]}")
+    B = MAIN_BATCH
+    x = torch.rand((B, 2), generator=gen, device=dev)
+    target = torch.rand((B, 3), generator=gen, device=dev)
+
+    phase(f"slice 10: bindings NetworkWithInputEncoding at config_hash (fp32), B={B}: "
+          f"forward, params.grad and the input gradient vs the plain path")
+    launches, err = binding_first_order(m, x, target)
+    want = {"G": 1, "M": 1, "GB": 1, "MB": 1, "GI": 1, "GG": 0, "RS": 0}
+    check(launches == want, f"binding first-order launches {launches}, expected {want}")
+
+    phase(f"slice 10: the SDF sample's eikonal step through bindings "
+          f"NetworkWithInputEncoding at B={B}, vs the plain eikonal step")
+    s = ti.NetworkWithInputEncoding(3, 1, sdf.CONFIG["encoding"], sdf.CONFIG["network"])
+    with torch.no_grad():
+        leaves_of(s, s.params)["encoding.grid"].uniform_(-1, 1, generator=gen)
+    xs, xv = sdf.sample_points(gen, B, dev)
+    xg = xv.clone().requires_grad_()
+    reset_counts()
+    (dydx,) = torch.autograd.grad(s(xg).sum(), xg)
+    torch.cuda.synchronize()
+    ig_launches = counts()
+    want = {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0}
+    check(ig_launches == want, f"binding autograd.grad(y, x) launches {ig_launches}: "
+          f"expected {want} (no GB: the table gradient would be thrown away)")
+    check(dydx.shape == (B, 3) and bool(torch.isfinite(dydx).all()), "binding input gradient")
+    reset_counts()
+    loss = sdf.loss_fn(s, xs, xv)[0]
+    loss.backward()
+    torch.cuda.synchronize()
+    step_launches = counts()
+    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 1}
+    check(step_launches == per_step, f"binding eikonal step launches {step_launches}, "
+          f"expected {per_step}")
+    want_loss, want, scale = plain_sdf_loss_and_grads(
+        s.native, xs, xv, table_scale=True, mlp_bwd=sdf_flip_explained_bwd(s.native, xs, xv))
+    check(abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item()),
+          f"binding eikonal loss {loss.item()} vs plain {want_loss.item()}")
+    grads = leaves_of(s, s.params.grad)
+    check(set(grads) == set(want), f"binding gradient names {sorted(grads)}")
+    for name in grads:
+        if name == "encoding.grid":
+            e, how = compare_table_grad(grads[name], want[name], scale), "2^-11·S per entry"
+        else:
+            e, how = compare_rel(grads[name], want[name], 1e-4, name), "1e-4 of its max"
+        print(f"binding eikonal gradient {name}: max abs err {e:.3e} vs the plain step "
+              f"({how})")
+    print(f"binding eikonal step: loss {loss.item():.6f}, plain {want_loss.item():.6f}; "
+          f"launches {step_launches}; autograd.grad(y, x) alone {ig_launches}")
+
+    phase("slice 10: Encoding(dtype=torch.float16) at config_hash's grid; a pickle round trip")
+    e16 = ti.Encoding(2, cfg["encoding"], dtype=torch.float16)
+    with torch.no_grad():
+        e16.params.copy_(leaves_of(m, m.params)["encoding.grid"])
+        reset_counts()
+        y16 = e16(x)
+        torch.cuda.synchronize()
+        enc_launches = counts()
+        ref = grid_encode_plain(spec, enc.grid.detach(), x, list(range(spec.n_levels)))
+    check(enc_launches["G"] == 1 and sum(enc_launches.values()) == 1,
+          f"Encoding launches {enc_launches}")
+    check(y16.dtype == torch.float16 and y16.shape == ref.shape, f"Encoding output "
+          f"{y16.dtype} {tuple(y16.shape)}")
+    ulp16 = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -14))) - 10)
+    e_half = (y16.float() - ref).abs()
+    check(bool((e_half <= ulp16).all()), f"Encoding fp16: {int((e_half > ulp16).sum())} "
+          f"values beyond one fp16 ulp of the plain fp32 output")
+    with torch.no_grad():
+        y0 = m(x)
+        m2 = pickle.loads(pickle.dumps(m))
+        check(m2.params.device == m.params.device and torch.equal(m2(x), y0),
+              "pickle round trip: output bits differ")
+    print(f"Encoding fp16: max abs err {e_half.max().item():.3e} (one fp16 ulp of the plain "
+          f"fp32 output); pickle round trip: output equal bit for bit")
+
+    phase(f"slice 10: the image sample through the bindings, mlp_learning_an_image_pytorch."
+          f"main, {IMAGE_PT_STEPS} steps at 2^{IMAGE_PT_BATCH_POW} into a temporary directory")
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        reset_counts()
+        out = img_pt.main(["mlp_learning_an_image_pytorch", "none", str(IMAGE_PT_STEPS),
+                           str(IMAGE_PT_BATCH_POW)], out_dir=out_dir)
+        torch.cuda.synchronize()
+        sample_launches = counts()
+        dumps = sorted(os.listdir(out_dir))
+    n_dumps = len(out["psnr_at"])
+    want = {"G": IMAGE_PT_STEPS + n_dumps, "M": IMAGE_PT_STEPS + n_dumps, "GB": IMAGE_PT_STEPS,
+            "MB": IMAGE_PT_STEPS, "GI": 0, "GG": 0, "RS": 0}
+    check(sample_launches == want, f"image sample (bindings) launches {sample_launches}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(out["losses"]).all()), "non-finite loss in the bindings sample")
+    psnr_end = out["psnr_at"].get(IMAGE_PT_STEPS, float("nan"))
+    print(f"bindings image sample: {IMAGE_PT_STEPS} steps in {out['seconds']:.2f} s "
+          f"({out['seconds'] / IMAGE_PT_STEPS * 1e3:.4f} ms per eager step); PSNR "
+          + ", ".join(f"@{k}: {v:.2f}" for k, v in out["psnr_at"].items())
+          + f" dB (floor {IMAGE_PT_PSNR_FLOOR:.2f}); dumps {dumps}; launches {sample_launches}")
+    check(psnr_end >= IMAGE_PT_PSNR_FLOOR,
+          f"bindings image sample PSNR floor missed: {psnr_end:.2f} < {IMAGE_PT_PSNR_FLOOR:.2f}")
+
+    phase(f"slice 10 times at B={B}: the binding's eager step (forward, relative L2, "
+          f"backward, torch.optim.Adam) beside make_training_loop's on the same model")
+    opt = torch.optim.Adam(m.parameters(), lr=0.01)
+
+    def binding_step():
+        opt.zero_grad()
+        loss = relative_l2(m(x), target)
+        loss.backward()
+        opt.step()
+        return loss
+
+    t_bind = time_ms(binding_step)
+    model = create_from_config(2, 3, CONFIG, policy=DEFAULT_POLICY)
+    with torch.no_grad():
+        native = dict(m.native.named_parameters())
+        for name, p in model.network.named_parameters():
+            p.copy_(native[name])
+    loop = model.trainer.make_training_loop(lambda i: (x, target), LOOP_STEPS)
+    t = slice_times("config_hash fp32 (the bindings' model)", model, x, target, loop)
+    print(f"binding eager step at B={B}: {t_bind:.4f} ms (median of {N_TIMED}, CUDA events); "
+          f"the trainer on the same model (config_hash's RelativeL2 and Adam, fp32): "
+          f"make_training_loop {t['loop step']:.4f} ms per step, eager training_step "
+          f"{t['step']:.4f} ms, {t['step device']:.4f} ms of device work")
+    print(f"slice 10: {time.time() - t_slice:.1f} s")
+    replaces = {
+        "G": "tcnn_tpu/ops/pallas/grid_matmul.py:861 (_gather_kernel); "
+             "tcnn_tpu/ops/pallas/grid_matmul.py:734 (_gather_kernel_xor)",
+        "M": "tcnn_tpu/ops/pallas/fused_mlp.py:100 (_fwd_kernel)",
+        "GB": "tcnn_tpu/ops/pallas/grid_matmul.py:602 (_scatter_kernel_xor); "
+              "tcnn_tpu/ops/pallas/grid_matmul.py:204 (_scatter_kernel)",
+        "MB": "tcnn_tpu/ops/pallas/fused_mlp.py:113 (_bwd_kernel)"}
+    # launches: the sample's counts (slice 10's main path); the first-order
+    # and eikonal checks' counts beside them
+    return report_entries(" (bindings)", t, replaces, sample_launches, err,
+                          {"launches_first_order": launches,
+                           "launches_eikonal_step": step_launches})
+
+
 def mb_determinism(gen, dev):
     """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
     1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
@@ -2354,7 +2647,7 @@ def main():
     hash_entries, hash_times = config_hash_slices(gen, dev)
     report = {"kernels": hash_entries + config_btf_slice(gen, dev)
               + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev) + nerf_slice(gen, dev)
-              + save_load_serve_slice(gen, dev, hash_times)}
+              + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)}
     image_sample_slice()
     mb_determinism(gen, dev)
     phase("kernels")

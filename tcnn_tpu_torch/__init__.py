@@ -37,7 +37,7 @@ from .registry import (register_encoding, register_loss, register_network,
                        register_optimizer)
 from . import serving
 from .trainer import Trainer
-from .utils.jax_params import load_jax_opt_state, load_jax_params
+from .utils.jax_params import load_jax_flat_params, load_jax_opt_state, load_jax_params
 
 __all__ = [
     "Activation", "Adam", "Average", "BF16_POLICY", "Batched", "Composite",
@@ -51,6 +51,6 @@ __all__ = [
     "SphericalHarmonicsEncoding", "TriangleWaveEncoding", "TrainableModel", "Trainer",
     "VarianceLoss", "create_encoding", "create_from_config", "create_loss",
     "create_network", "create_network_with_input_encoding", "create_optimizer",
-    "load_config", "load_jax_opt_state", "load_jax_params", "register_encoding",
-    "register_loss", "register_network", "register_optimizer", "serving",
+    "load_config", "load_jax_flat_params", "load_jax_opt_state", "load_jax_params",
+    "register_encoding", "register_loss", "register_network", "register_optimizer", "serving",
 ]

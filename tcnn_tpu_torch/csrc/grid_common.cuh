@@ -108,7 +108,7 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, float (&v)[F])
 }
 
 // Row `row` of a float32 or bfloat16 table whose dtype is known only at run
-// time (kernels GI and GG: one instance serves both).
+// time (kernel GG: one instance serves both).
 template <int F>
 __device__ __forceinline__ void load_row_any(const void* table, bool bf16, uint32_t row,
                                              float (&v)[F]) {

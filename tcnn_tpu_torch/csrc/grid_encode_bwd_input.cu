@@ -8,23 +8,41 @@
 // _build_indices_weights (:476-523) for d w / dx.  The CUDA original's
 // counterpart is kernel_grid_backward_input (grid.h:893).
 //
-// Design: one thread per sample, looping over the levels in order, so the
-// sum over levels and corners is taken in one fixed order and the result
-// is deterministic (no atomics).  The corner rows and weights come from
-// LevelCorners (grid_common.cuh), exactly as kernel G computes them, and
-// d w_c / dx_d from its per-dim closed-form derivatives by the product
-// rule.  x and dcols are read through strides (dcols SoA (L*F, B), or the
-// transpose of an AoS gradient), the table and dcols as float32 or
-// bfloat16 (a run-time flag, so one instance per (D, F) serves all four
-// dtype pairs).  Dead levels (at or above max_level) add nothing, nor do
-// the levels a sample's coarse-to-fine mask drops (level_frac, as in
-// kernels G and GB: grid_common.cuh's level_threshold; null, no mask).
-//
 // Bound on the H100: it reads x, dcols and the table rows the batch
 // touches and writes dx.  At the SDF sample's shape (3-D, 8 levels, F = 2,
 // B = 2^18, f32 table of 0.87 MB) that is 3.1 + 16.8 + 0.9 + 3.1 MB, about
 // 7 us at 3.35 TB/s; like G, its 2^24 random row reads hit a table that
-// stays in the 50 MB L2, so the corner arithmetic and the L2 bound it.
+// stays in the 50 MB L2, so the latency of those reads and the corner
+// arithmetic bound it.
+//
+// Design (kernel G's, grid_encode.cu, carried over to the sum over levels):
+//  * a thread takes one sample and walks the levels in order, so that the
+//    sum over levels and corners is taken in one fixed order (levels in
+//    order, corners 0 .. 2^D-1, features in order) and dx is
+//    deterministic, with no atomics;
+//  * per level, every row first (LevelCorners::rows, from per-dim terms),
+//    then every load (the 2^D rows and the F cotangents), then the sums:
+//    all of a level's loads are in flight together;
+//  * the table's and the cotangent's dtypes are template parameters, so
+//    the loads carry no dtype test;
+//  * the threads of a warp walk the same level at the same time, so a
+//    level's constants are one broadcast load per warp;
+//  * at most 64 registers a thread where its loads in flight allow
+//    (min_ctas): 32 warps an SM, every one with a level's loads in flight.
+// Measured on the H100 (PERF.md, tools/kernel_ablation.py): two samples a
+// thread, four, one level a warp (eight warps summing in shared memory),
+// and CTAs of 256 to 1024 threads walking the levels in lockstep were no
+// faster; the kernel issues about as many instructions per (sample,
+// level) as G, and its table rows missing in L1 cost about a third of its
+// time (rows folded into 4096: 0.0310 against 0.0461 ms).
+// The sums are those of the first design (one corner's load at a time),
+// in the same order with the same expressions, so dx keeps its bits.  x
+// and dcols are read through strides (dcols SoA (L*F, B), or the
+// transpose of an AoS gradient).  Dead levels (at or above max_level) add
+// nothing, nor do the levels a sample's coarse-to-fine mask drops
+// (level_frac, as in kernels G and GB: grid_common.cuh's level_threshold;
+// null, no mask), tested at run time: a level the sample does not keep
+// loads nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -36,40 +54,58 @@
 namespace tcnn_tpu_torch {
 namespace {
 
+// CTAs per SM the launch bounds ask the register allocator for: 4 (at most
+// 64 registers a thread, 1024 threads an SM) where a thread's rows in
+// flight take at most 16 floats; 1 where they take more, so that the loads
+// in flight are not spilled.
 template <int D, int F>
-__global__ void __launch_bounds__(kGridThreads)
+__host__ __device__ constexpr int min_ctas() {
+  return (1 << D) * F <= 16 ? 4 : 1;
+}
+
+// Thread (blockIdx.x, threadIdx.x) takes sample b.  T: the table's element
+// type; TD: the cotangent's.
+template <typename T, typename TD, int D, int F>
+__global__ void __launch_bounds__(kGridThreads, min_ctas<D, F>())
 grid_encode_bwd_input_kernel(const float* __restrict__ x, const float* __restrict__ level_frac,
-                             const void* __restrict__ table,
-                             bool table_bf16, const void* __restrict__ dcols, bool dcols_bf16,
+                             const T* __restrict__ table, const TD* __restrict__ dcols,
                              const int32_t* __restrict__ level_params, float* __restrict__ dx,
                              int64_t batch, int n_levels, int64_t x_stride_b,
                              int64_t dc_stride_b, int64_t dc_stride_f, HashConsts hc,
                              int interp) {
+  constexpr int C = 1 << D;
   const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
   if (b >= batch) return;
-  const float* xb = x + b * x_stride_b;
-  // the levels below thr are the sample's (every level without a mask)
-  const float thr = level_frac ? level_threshold(level_frac[b], n_levels)
-                               : __int_as_float(0x7f800000);
+  float xv[D];
   float acc[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    xv[d] = x[b * x_stride_b + d];
+    acc[d] = 0.0f;
+  }
+  // The levels below thr are the sample's: every level, or its mask's.
+  const float thr = level_frac ? level_threshold(level_frac[b], n_levels)
+                               : __int_as_float(0x7f800000);
 
   for (int level = 0; level < n_levels; ++level) {
     const int32_t* lp = level_params + level * kLevelFields;
-    if (lp[4] == 0 || !(float(level) < thr)) continue;  // at or above max_level, or masked
+    if (lp[4] == 0 || !(float(level) < thr)) continue;   // at or above max_level, or masked
+    const bool pow2 = (uint32_t(lp[1]) & (uint32_t(lp[1]) - 1)) == 0;
+    LevelCorners<D> lc(lp, xv, interp);
+    uint32_t rows[C];
+    lc.rows(hc, pow2, rows);
     float dy[F];
+    float t[C][F];
 #pragma unroll
     for (int k = 0; k < F; ++k)
-      dy[k] = load_any(dcols, dcols_bf16, b * dc_stride_b + int64_t(level * F + k) * dc_stride_f);
-    const LevelCorners<D> lc(lp, xb, interp);
+      dy[k] = to_f32(dcols[b * dc_stride_b + int64_t(level * F + k) * dc_stride_f]);
 #pragma unroll
-    for (int c = 0; c < (1 << D); ++c) {
-      float t[F];
-      load_row_any<F>(table, table_bf16, lc.row(c, hc), t);
+    for (int c = 0; c < C; ++c) load_row<T, F>(table + int64_t(rows[c]) * F, t[c]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
       float val = 0.0f;
 #pragma unroll
-      for (int k = 0; k < F; ++k) val += t[k] * dy[k];
+      for (int k = 0; k < F; ++k) val += t[c][k] * dy[k];
       float g[D];
       lc.weight_grad(c, g);
 #pragma unroll
@@ -96,13 +132,23 @@ struct BwdInputLaunch {
   int interp;
   cudaStream_t stream;
 
+  template <typename T, typename TD, int D, int F>
+  cudaError_t launch() const {
+    const unsigned grid = unsigned((batch + kGridThreads - 1) / kGridThreads);
+    grid_encode_bwd_input_kernel<T, TD, D, F><<<grid, kGridThreads, 0, stream>>>(
+        x, level_frac, static_cast<const T*>(table), static_cast<const TD*>(dcols),
+        level_params, dx, batch, n_levels, x_stride_b, dc_stride_b, dc_stride_f, hc, interp);
+    return cudaGetLastError();
+  }
+
+  template <typename T, int D, int F>
+  cudaError_t launch_t() const {
+    return dcols_bf16 ? launch<T, __nv_bfloat16, D, F>() : launch<T, float, D, F>();
+  }
+
   template <int D, int F>
   cudaError_t run() const {
-    const unsigned grid = unsigned((batch + kGridThreads - 1) / kGridThreads);
-    grid_encode_bwd_input_kernel<D, F><<<grid, kGridThreads, 0, stream>>>(
-        x, level_frac, table, table_bf16, dcols, dcols_bf16, level_params, dx, batch, n_levels,
-        x_stride_b, dc_stride_b, dc_stride_f, hc, interp);
-    return cudaGetLastError();
+    return table_bf16 ? launch_t<__nv_bfloat16, D, F>() : launch_t<float, D, F>();
   }
 };
 

@@ -15,13 +15,20 @@ from ..common import Activation
 K_ACT = 10.0
 
 
-def apply_activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
+def apply_activation(x: torch.Tensor, act: Activation,
+                     graph_in_x: bool = True) -> torch.Tensor:
+    """``act(x)``.  ReLU and LeakyReLU take their derivative at 0 from the
+    side below, as ``activation_derivative`` and the kernels do (z > 0).
+    With ``graph_in_x`` their derivative stays a function of x
+    (``torch.relu``), so a second derivative gives x a gradient of zeros,
+    as JAX does; without it the derivative is a constant mask, and a
+    second derivative builds no graph of zeros through it (x gets none)."""
     if act == Activation.NONE:
         return x
     if act == Activation.RELU:
-        return torch.clamp_min(x, 0)
+        return torch.relu(x) if graph_in_x else torch.where(x > 0, x, 0.0)
     if act == Activation.LEAKY_RELU:
-        return torch.clamp_min(x, 0) + 0.01 * torch.clamp_max(x, 0)
+        return F.leaky_relu(x, 0.01) if graph_in_x else torch.where(x > 0, x, 0.01 * x)
     if act == Activation.EXPONENTIAL:
         return torch.exp(x)
     if act == Activation.SINE:
@@ -65,3 +72,4 @@ def activation_derivative(x: torch.Tensor, act: Activation) -> torch.Tensor:
         t = torch.tanh(x)
         return 1 - t * t
     raise ValueError(f"Unsupported activation: {act}")
+

@@ -30,7 +30,7 @@ def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     output_dtype: torch.dtype = torch.float32,
                     input_soa: bool = False,
-                    output_soa: bool = False) -> torch.Tensor:
+                    output_soa: bool = False, graph_in_x: bool = True) -> torch.Tensor:
     """The bias-free chain y = out_act(act(act(x W_0) W_1 ...) W_out).
 
     Operands are rounded to ``compute_dtype``, each product is summed in
@@ -38,13 +38,14 @@ def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     are exact in fp32), the activation runs in fp32 and the result is
     rounded to ``compute_dtype`` between layers, as in _fwd_kernel.  On a
     CUDA device the caller disables TF32 where this is a reference.
+    ``graph_in_x``: as ``apply_activation``'s.
     """
     h = (x.t() if input_soa else x).to(compute_dtype)
     for w in weights[:-1]:
         z = h.float() @ w.to(compute_dtype).float()
-        h = apply_activation(z, activation).to(compute_dtype)
+        h = apply_activation(z, activation, graph_in_x).to(compute_dtype)
     z = h.float() @ weights[-1].to(compute_dtype).float()
-    y = apply_activation(z, output_activation).to(output_dtype)
+    y = apply_activation(z, output_activation, graph_in_x).to(output_dtype)
     return y.t() if output_soa else y
 
 
@@ -232,14 +233,16 @@ def fused_mlp_bwd_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     autograd of ``fused_mlp_plain``, as the JAX package derives
     ``_fused_mlp_bwd_op``'s VJP from ``_jnp_mlp_ref``
     (``tcnn_tpu/ops/pallas/fused_mlp.py:334-347``): products by
-    ``torch.matmul`` outside any kernel.  Returns (d_x, d_g, [d_W]), None
-    where a gradient is zero by construction."""
+    ``torch.matmul`` outside any kernel.  ReLU's derivative is taken as a
+    constant mask (``graph_in_x=False``), so the zero second derivative
+    builds no products of zeros.  Returns (d_x, d_g, [d_W]), None where a
+    gradient is zero by construction."""
     with torch.enable_grad():
         xx = x.detach().requires_grad_()
         gg = g.detach().requires_grad_()
         ws = [w.detach().requires_grad_() for w in weights]
         y = fused_mlp_plain(ws, xx, activation, output_activation, compute_dtype,
-                            output_dtype, input_soa, output_soa)
+                            output_dtype, input_soa, output_soa, graph_in_x=False)
         first = torch.autograd.grad(y, [xx, *ws], grad_outputs=gg.to(y.dtype),
                                     create_graph=True)
         pairs = [(f, c.to(f.dtype)) for f, c in zip(first, (ct_dx, *ct_dws))
@@ -294,15 +297,21 @@ class FusedMLPBackwardFunction(torch.autograd.Function):
     Backward: ``fused_mlp_bwd_bwd_plain``, autograd of autograd of the
     plain chain, which recomputes the activations: like
     ``FusedMLPFunction`` it saves only x, g and the weights (x is the
-    forward's own tensor, not a second copy).  A third derivative raises
-    ``NotImplementedError`` (ROADMAP.md)."""
+    forward's own tensor, not a second copy).  Where x's gradient is zero
+    by construction (a ReLU MLP's dx does not depend on x) it is returned
+    as zeros, as JAX's VJP gives them, except into a grid encoding's
+    backward, which would launch kernels GB and GI to add nothing.  A
+    third derivative raises ``NotImplementedError`` (ROADMAP.md)."""
 
     @staticmethod
     def forward(ctx, x, g, activation, output_activation, compute_dtype,
                 output_dtype, input_soa, output_soa, *weights):
+        from ..grid_ops import GridEncodeFunction
+
         ctx.set_materialize_grads(False)
         ctx.args = (activation, output_activation, compute_dtype, output_dtype,
                     input_soa, output_soa)
+        ctx.x_from_grid = isinstance(x.grad_fn, GridEncodeFunction._backward_cls)
         ctx.save_for_backward(x, g, *weights)
         dws, dx = fused_mlp_bwd(list(weights), x, g, activation, output_activation,
                                 compute_dtype, input_soa, output_soa)
@@ -317,5 +326,7 @@ class FusedMLPBackwardFunction(torch.autograd.Function):
         act, out_act, cdt, odt, soa_in, soa_out = ctx.args
         d_x, d_g, d_ws = fused_mlp_bwd_bwd_plain(weights, x, g, ct_dx, ct_dws, act,
                                                  out_act, cdt, odt, soa_in, soa_out)
+        if d_x is None and ctx.needs_input_grad[0] and not ctx.x_from_grid:
+            d_x = torch.zeros_like(x)
         return (d_x, d_g.to(g.dtype) if d_g is not None else None,
                 None, None, None, None, None, None, *d_ws)

@@ -9,7 +9,8 @@
 At B = 2^18 with random inputs from a seed it times, as device time in a
 CUDA graph of 30 calls:
   * G at the config_hash, config_btf (4-D, strided input, AoS output) and
-    SDF (fp32 table) shapes, and GI and GG at the SDF step's;
+    SDF (fp32 table) shapes, and GI and GG at the SDF step's (GI also on
+    a bf16 table and cotangent, and under per-sample level masks);
   * GB, M and MB at the config_hash shapes (BF16_POLICY), M and MB in fp32
     at the SDF sample's MLP (16 -> 64 x 2 -> 1) and at config_hash's
     (32 -> 64 x 2 -> 3), SoA input, in bf16 at config_btf's
@@ -69,6 +70,7 @@ _M_RESIDENT = "  s.resident = s.w + all <= kMaxSmem;"
 _G_SAMPLES = "constexpr int kSamples = 2;"
 _G_REGS = "constexpr int kLoadRegs = 48;"
 _G_ROWS = "    lc.rows(hc, pow2, rows[s]);"
+_GI_CTAS = "  return (1 << D) * F <= 16 ? 4 : 1;"
 _G_ROWS_IN_FULL = "#pragma unroll\n    for (int c = 0; c < C; ++c) rows[s][c] = lc.row(c, hc);"
 
 # Kernel M's bf16 weights staged TRANSPOSED and each B fragment read by two
@@ -368,6 +370,13 @@ ABLATIONS = {
                            "      r[c] = (pow2 ? h & (size - 1) : fastmod(h, magic, size)) + offset;",
                            "      r[c] = ((pow2 ? h & (size - 1) : fastmod(h, magic, size)) + offset)"
                            " & 0xFFFFFu;")],
+    # GI without its register cap (as many registers as the compiler takes).
+    "gi_no_register_cap": [("grid_encode_bwd_input.cu", _GI_CTAS, "  return 1;")],
+    # GI's table rows folded into the first 4096, which L1 holds: what its
+    # misses in L1 cost.  (Results wrong by design.)
+    "gi_rows_in_l1": [("grid_encode_bwd_input.cu",
+                       "load_row<T, F>(table + int64_t(rows[c]) * F, t[c]);",
+                       "load_row<T, F>(table + int64_t(rows[c] & 0xFFFu) * F, t[c]);")],
     # RS without its shared-memory window (every chunk on direct atomics).
     "rs_no_window": [("row_scatter.cu", "  if (span <= window_floats) {", "  if (false) {")],
     # RS with chunks of 4096, 16,384 and 32,768 updates in place of 8192.
@@ -505,6 +514,15 @@ def time_kernels(config: str, full: bool) -> dict:
         out["GI sdf"] = graph_ms(lambda: grid_encode_bwd_input(sspec, stable, xv, sdc, slive))
         out["GG sdf"] = graph_ms(lambda: grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive))
         out["bits GI sdf"] = _bits(grid_encode_bwd_input(sspec, stable, xv, sdc, slive))
+        # GI on a bf16 table and cotangent, and under a per-sample level mask
+        hb, hdc = stable.to(torch.bfloat16), sdc.to(torch.bfloat16)
+        frac = torch.rand(BATCH, generator=gen, device=dev)
+        out["GI sdf bf16"] = graph_ms(lambda: grid_encode_bwd_input(sspec, hb, xv, hdc, slive))
+        out["bits GI sdf bf16"] = _bits(grid_encode_bwd_input(sspec, hb, xv, hdc, slive))
+        out["GI sdf masked"] = graph_ms(lambda: grid_encode_bwd_input(
+            sspec, stable, xv, sdc, slive, level_frac=frac))
+        out["bits GI sdf masked"] = _bits(grid_encode_bwd_input(sspec, stable, xv, sdc, slive,
+                                                                level_frac=frac))
         gg = grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive)
         out["bits GG sdf"] = _bits(torch.cat([t.reshape(-1).float() for t in
                                               (gg.d_dcols, gg.g) if t is not None]))

@@ -9,7 +9,9 @@ given as numpy arrays, into the port's parameters:
 A parameter's dotted name is its path in the tree ("encoding.grid",
 "network.layers.0"): the port keeps the JAX names and layouts, so the
 copy is one to one.  ``load_jax_opt_state(trainer, opt_state)`` does the
-same for the state of any optimizer, leaf by leaf in JAX's flatten order.
+same for the state of any optimizer, leaf by leaf in JAX's flatten order,
+and ``load_jax_flat_params(module, flat)`` for the one flat vector of a
+binding module (``bindings.torch_interop``).
 Nothing here imports JAX: the trees hold numpy arrays
 (``jax.tree_util.tree_map(np.asarray, state.params)``).
 """
@@ -70,6 +72,20 @@ def load_jax_params(model, params: Any) -> None:
         for p, value in pairs:
             p.copy_(torch.from_numpy(np.array(value, dtype=np.float32))
                     .to(p.dtype))
+
+
+def load_jax_flat_params(module, flat: np.ndarray) -> None:
+    """Copy the JAX bindings' flat parameter vector (``tcnn_tpu.bindings.
+    torch_interop``'s ``params``, as numpy) into the ``params`` of one of
+    the port's binding modules (``bindings.torch_interop``): both lay out
+    the leaves in ``jax.tree_util`` flatten order.  Raises ValueError on a
+    vector of another length; nothing is copied then."""
+    value = np.asarray(flat, dtype=np.float32)
+    n = module.params.numel()
+    if value.shape != (n,):
+        raise ValueError(f"flat params of shape {value.shape}, the module has ({n},)")
+    with torch.no_grad():
+        module.params.copy_(torch.from_numpy(value.copy()))
 
 
 def _np_leaves(tree: Any) -> list:
