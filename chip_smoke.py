@@ -71,7 +71,22 @@ and read just after:
     settings (1000 eager steps of 2^14 pixels, ``torch.optim.Adam``), the
     main path, with a PSNR floor; and the binding's eager step at 2^18
     beside ``make_training_loop``'s on the same model (``slice_times`` in
-    fp32).
+    fp32);
+  * slice 11, what the port once refused: config_hash with ``"hash":
+    "Rng"`` and ``"stochastic_interpolation": true`` (BF16_POLICY, 2^18): G,
+    GB, GI and GG (Rng, each kernel's run-time-D instance) and GB
+    (stochastic, JAX's uniforms) against their plain versions, 200 steps
+    of ``make_training_loop`` (the loss falls; PSNR above 20 dB) and an
+    input gradient's second order, the main path, and the step beside
+    config_hash's; the SDF model's eikonal step with a per-sample fraction
+    of 0.5 (GG masked) against the same step through the plain versions;
+    5- and 7-D grids through G, GB, GI and GG, and a 7-D eikonal step
+    on each of 20 draws of weights and points;
+    kernel MB at 128 x 12 hidden layers (two launches, M at their
+    boundary) in both dtypes and three training steps with that MLP per
+    policy; ``torch.func.jvp`` and ``jacrev`` (4 rows' outputs) of
+    config_hash's network at 2^18 against the same transforms of the plain
+    versions, and a training step's launches after them.
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -205,12 +220,26 @@ with TF32 off):
     differ by 1e-2 on these matrices).  Served requests against the plain
     path: the whole-model bf16 tolerance.
 
+  * slice 11: the grid kernels at the bounds above (GI, GG within 1e-5 of
+    each output's largest magnitude, GB and RS per entry within 2^-11·S);
+    a stochastic level's gradient sums to its cotangents' sum (1e-5 of
+    Σ|dy|); the eikonal steps' losses at 1e-4 relative and gradients
+    within 1e-4 of each largest magnitude; MB 128 x 12 in fp32 at the MB
+    bounds, in bf16 dW within 2e-2 of each largest magnitude and dx
+    within 2e-2 in relative L2 norm (over twelve layers a hidden value
+    that rounds the other way, or a ReLU it switches, moves whole rows
+    beyond what ``relu_flip_rows`` explains); jvp's output at the fp32
+    MLP bound and its tangent, and jacrev, within 1e-4 of their largest
+    magnitude (fp32 sums over corners, levels and samples in another
+    order).
+
 The whole run takes about four minutes on an H100, against the 1200 s a
 run may take: the build of the seven kernels took 93 to 155 s, the
 plain versions' BTF fit, 150 eager steps (the kernels' fit runs 200), 30
 to 45 s, the NeRF fit 4 to 5 s, the slice-9 phase about 15 s, the
-slice-10 phase (which prints its own time) about 8 s; the whole 196.5 to
-245 s with a 96 to 129 s build (H100 80GB HBM3, 700 W).  It prints its
+slice-10 phase (which prints its own time) about 8 s, slice 11 about
+three minutes (MB 128 x 12 in fp32 most of it); the whole 196.5 to 245 s
+with a 96 to 129 s build before slice 11 (H100 80GB HBM3, 700 W).  It prints its
 own time before the kernels' line.
 """
 
@@ -1355,14 +1384,14 @@ def compare_rel(got, want, rel, what):
     return err
 
 
-def sdf_flip_explained_bwd(net, xs, xv):
+def sdf_flip_explained_bwd(net, xs, xv, frac=None):
     """MB's plain version for the plain eikonal step, its two calls (the
     surface term, then x_vol) held row by row against kernel MB's input
-    gradients in the kernel step (G, M and MB on the same x, as the step
-    computes them), and each row that a switched fp32 ReLU explains
-    (``compare_input_grad``) replaced by its flipped variant: at 2^18
-    samples a pre-activation may lie within fp32 rounding of 0, and the
-    switch moves that sample's whole share of the table gradient."""
+    gradients in the kernel step (G, M and MB on the same x and per-sample
+    level fractions, as the step computes them), and each row that a
+    switched fp32 ReLU explains (``compare_input_grad``) replaced by its
+    flipped variant: a pre-activation may lie within fp32 rounding of 0,
+    and the switch moves that sample's whole share of the table gradient."""
     from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
                                                    fused_mlp_fwd)
     from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_fwd
@@ -1374,7 +1403,7 @@ def sdf_flip_explained_bwd(net, xs, xv):
     kernel_dx = []
     with torch.no_grad():
         for x, surface in ((xs, True), (xv, False)):
-            feats = grid_encode_fwd(spec, enc.grid.detach(), x, live, soa=True)
+            feats = grid_encode_fwd(spec, enc.grid.detach(), x, live, soa=True, level_frac=frac)
             y = fused_mlp_fwd(ws, feats, *args, torch.float32, True, False)
             dy = y * (2.0 / x.shape[0]) if surface else torch.ones_like(y)
             kernel_dx.append(fused_mlp_bwd(ws, feats, dy, *args, True, False)[1])
@@ -2590,6 +2619,593 @@ def bindings_slice(gen, dev):
                            "launches_eikonal_step": step_launches})
 
 
+# Slice 11: what the port once refused and the JAX package computes.
+RNG_STEPS = 200
+WIDE_BATCH = {5: 1 << 15, 7: 1 << 13}   # 2^D corners a sample: smaller batches at 5 and 7 dims
+WIDE_EIKONAL_DRAWS = 20                  # 7-D eikonal steps, each on its own weights and points
+DEEP_HIDDEN = 12                         # FullyFusedMLP 128 wide: MB in two launches
+JACREV_ROWS = 4                          # jacrev of the first rows' outputs at 2^18
+REPLACES_G = ("tcnn_tpu/ops/pallas/grid_matmul.py:861 (_gather_kernel); "
+              "tcnn_tpu/ops/pallas/grid_matmul.py:734 (_gather_kernel_xor)")
+REPLACES_GB = ("tcnn_tpu/ops/pallas/grid_matmul.py:204 (_scatter_kernel); "
+               "tcnn_tpu/ops/pallas/grid_matmul.py:602 (_scatter_kernel_xor); "
+               "tcnn_tpu/ops/pallas/scatter.py:392 (_weighted_kernel)")
+REPLACES_GI = ("none (jnp): tcnn_tpu/ops/grid_ops.py:1104 (_finish_interp_bwd) and "
+               "autodiff of tcnn_tpu/ops/grid_ops.py:476 (_build_indices_weights)")
+REPLACES_GG = ("none (jnp): autodiff of tcnn_tpu/ops/grid_ops.py:1094 "
+               "(_finish_interp_bwd) and of tcnn_tpu/ops/grid_ops.py:476")
+REPLACES_MB = "tcnn_tpu/ops/pallas/fused_mlp.py:113 (_bwd_kernel)"
+
+
+def rng_hash_ops(spec, x, picks=None):
+    """Integer operations of the Rng hashes the batch x needs: per hashed
+    (sample, level, corner), 7 per set bit of the corner's 64-bit step (two
+    64-bit products and an add, in 32-bit multiply-adds) and 12 for the
+    step and the output.  ``picks`` (L, B): one corner per (sample, level),
+    stochastic interpolation's, the only one GB hashes."""
+    D, nbits, ops = spec.n_dims, 64 // spec.n_dims, 0
+    for l, lv in enumerate(spec.levels):
+        if not lv.use_hash:
+            continue
+        pos = x * np.float32(lv.scale) + 0.5
+        cells = torch.floor(pos).long() & 0xFFFFFFFF
+        for c in range(1 << D):
+            step = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+            for d in range(D):
+                step ^= ((cells[:, d] + ((c >> d) & 1)) & 0xFFFFFFFF) << (d * nbits)
+            bits = sum(((step >> j) & 1) for j in range(64))
+            keep = 1 if picks is None else (picks[l] == c).long()
+            ops += int(((7 * bits + 12) * keep).sum())
+    return ops
+
+
+def corner_flops(spec, batch):
+    """Per (sample, level): positions and weights (kernels GI, GG)."""
+    D, C = spec.n_dims, 1 << spec.n_dims
+    return batch * spec.n_levels * (4 * D + C * (D - 1))
+
+
+def gi_flops(spec, batch):
+    """GI: per corner the row's dot with dcols (2F), d w / dx (D·D), dx += (2D)."""
+    D, C, F = spec.n_dims, 1 << spec.n_dims, spec.n_features_per_level
+    return corner_flops(spec, batch) + batch * spec.n_levels * C * (2 * F + D * D + 2 * D)
+
+
+def gg_flops(spec, batch):
+    """GG: per corner d w / dx (D·D), w' (2D), d dcols (2F), the Hessian times
+    ddx (D^3 + D·D), the row's dot (2F), dx (2D), g (F)."""
+    D, C, F = spec.n_dims, 1 << spec.n_dims, spec.n_features_per_level
+    return corner_flops(spec, batch) + batch * spec.n_levels * C * (
+        2 * D * D + 4 * D + 5 * F + D ** 3)
+
+
+def plain_net(net, params, x):
+    """The model's forward through the plain versions, as a function of its
+    parameters (torch operations: torch.func and autograd differentiate it
+    to any order)."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_plain
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_plain
+
+    enc, mlp, pol = net.encoding, net.network, net.policy
+    spec, cdt = enc.spec, pol.compute_dtype
+    feats = grid_encode_plain(spec, params["encoding.grid"].to(cdt), x,
+                              list(range(spec.n_levels)), soa=True).to(cdt)
+    return fused_mlp_plain([params[f"network.layers.{i}"] for i in range(len(mlp.layers))],
+                           feats, mlp.activation, mlp.output_activation, cdt, pol.output_dtype,
+                           input_soa=True)
+
+
+def eikonal_grads(f, params, xs, xv):
+    """The SDF sample's loss (surface term and eikonal term) of the function
+    f and its gradients in ``params``."""
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+
+    xv = xv.detach().requires_grad_()
+    surf = torch.mean(f(xs)[:, 0] ** 2)
+    (gx,) = torch.autograd.grad(f(xv)[:, 0].sum(), xv, create_graph=True)
+    loss = surf + sdf.EIKONAL_WEIGHT * sdf.eikonal_loss(gx)
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def check_eikonal_step(net, xs, xv, frac, what):
+    """One eikonal step through the kernels (the main path: counts set to 0
+    before it, read after) against the same step through the plain versions
+    (``plain_sdf_loss_and_grads``, MB's rows that a switched ReLU explains
+    substituted, as in slice 4): loss at 1e-4 relative, the table gradient
+    per entry within 2^-11·S (GB's and RS's atomics), every weight gradient
+    within 1e-4 of its largest magnitude (fp32).  Returns the step's
+    launches."""
+    from tcnn_tpu_torch.tools.plain_path import plain_sdf_loss_and_grads
+
+    names = [n for n, _ in net.named_parameters()]
+    kw = {} if frac is None else {"max_level_per_element": frac}
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, grads = eikonal_grads(lambda x: net(x, **kw), list(net.parameters()), xs, xv)
+    torch.cuda.synchronize()
+    launches = counts()
+    want_loss, want, scale = plain_sdf_loss_and_grads(
+        net, xs, xv, table_scale=True, mlp_bwd=sdf_flip_explained_bwd(net, xs, xv, frac),
+        level_frac=frac)
+    check(abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item()),
+          f"{what}: loss {loss.item()} vs plain {want_loss.item()}")
+    check(sorted(want) == sorted(names), f"{what}: gradient names {sorted(want)}")
+    hows = []
+    for n, g in zip(names, grads):
+        if n == "encoding.grid":
+            e = compare_table_grad(g, want[n], scale, f"{what} {n}")
+            ratio = ((g - want[n]).abs() / (2.0 ** -11 * scale + 1e-30)).max().item()
+            hows.append(f"table {ratio:.3e} of its bound 2^-11·S")
+        else:
+            e = compare_rel(g, want[n], 1e-4, f"{what} {n}")
+            hows.append(f"{n.split('.', 1)[1]} {e / want[n].abs().max().item():.3e}")
+    print(f"{what}: loss {loss.item():.6f}, plain {want_loss.item():.6f}; gradients: "
+          f"{', '.join(hows)} (weights 1e-4 of their max); launches {launches}")
+    expect = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 1}
+    check(launches == expect, f"{what}: launches {launches}, expected {expect}")
+    return launches
+
+
+def grid_kernel_checks(spec, table, x, dcols, ddx, frac=None, label=""):
+    """G, GB, GI and GG (and RS on GG's rows) against their plain versions:
+    G at the grid bounds (bf16 tables with the fp32 sum's own error), GB and
+    RS per entry within 2^-11·S, GI and GG within 1e-5 of each output's
+    largest magnitude, GG's rows equal.  Returns each kernel's max abs err."""
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (
+        grid_encode_bwd, grid_encode_bwd_bwd, grid_encode_bwd_bwd_plain, grid_encode_bwd_input,
+        grid_encode_bwd_input_plain, grid_encode_bwd_plain, grid_encode_fwd, grid_encode_plain)
+    from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add, row_scatter_add_plain
+
+    live = list(range(spec.n_levels))
+    D, bf16 = spec.n_dims, table.dtype == torch.bfloat16
+    err = {}
+    with torch.inference_mode():
+        e = 0.0
+        for soa in (True, False):
+            got = grid_encode_fwd(spec, table, x, live, soa=soa, level_frac=frac)
+            torch.cuda.synchronize()
+            want = grid_encode_plain(spec, table, x, live, soa=soa, level_frac=frac)
+            e = max(e, compare(got, want, "grid-bf16" if bf16 else "grid-f32",
+                               atol=((1 << D) + 2 * D) * 2.0 ** -24 if bf16 else 0.0)[0])
+        err["G"] = e
+        got = grid_encode_bwd(spec, table, x, dcols, live, level_frac=frac)
+        torch.cuda.synchronize()
+        err["GB"] = compare_table_grad(
+            got, grid_encode_bwd_plain(spec, table, x, dcols, live, level_frac=frac),
+            grid_encode_bwd_plain(spec, table.float(), x, dcols.float().abs(), live,
+                                  level_frac=frac), f"GB {label}")
+        got = grid_encode_bwd_input(spec, table, x, dcols, live, level_frac=frac)
+        torch.cuda.synchronize()
+        err["GI"] = compare_rel(got, grid_encode_bwd_input_plain(spec, table, x, dcols, live,
+                                                                 level_frac=frac),
+                                1e-5, f"GI {label}")
+        got = grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live, level_frac=frac)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, level_frac=frac)
+        check(torch.equal(got.rows, want.rows), f"GG {label}: corner rows differ from plain")
+        err["GG"] = max(compare_rel(a, b, 1e-5, f"GG {label} {n}") for n, a, b in
+                        zip(("d_dcols", "d_x", "g"), got[:2] + got[3:], want[:2] + want[3:]))
+        rs = row_scatter_add(got.rows, got.g, spec.n_entries, table.dtype)
+        torch.cuda.synchronize()
+        err["RS"] = compare_table_grad(
+            rs, row_scatter_add_plain(want.rows, want.g, spec.n_entries, table.dtype),
+            row_scatter_add_plain(want.rows, want.g.abs(), spec.n_entries), f"RS {label}")
+    print(f"{label} table={str(table.dtype)[6:]}: max abs err G {err['G']:.3e}, GB "
+          f"{err['GB']:.3e}, GI {err['GI']:.3e}, GG {err['GG']:.3e}, RS {err['RS']:.3e}")
+    return err
+
+
+def time_grid_kernels(spec, table, x, dcols, ddx, t, keys, frac=None, u_bytes=0, picks=None):
+    """Device times of G, GB, GI and GG (those in ``keys``: timing key ->
+    kernel) on these inputs, their plain versions' and their bounds into t."""
+    from tcnn_tpu_torch.ops import grid_ops
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (
+        grid_encode_bwd, grid_encode_bwd_bwd, grid_encode_bwd_bwd_plain, grid_encode_bwd_input,
+        grid_encode_bwd_input_plain, grid_encode_bwd_plain, grid_encode_fwd, grid_encode_plain)
+
+    live, B = list(range(spec.n_levels)), x.shape[0]
+    calls = {
+        "G": (lambda: grid_encode_fwd(spec, table, x, live, soa=True, level_frac=frac),
+              lambda: grid_encode_plain(spec, table, x, live, soa=True, level_frac=frac)),
+        "GB": (lambda: grid_encode_bwd(spec, table, x, dcols, live, level_frac=frac),
+               lambda: grid_encode_bwd_plain(spec, table, x, dcols, live, level_frac=frac)),
+        "GI": (lambda: grid_encode_bwd_input(spec, table, x, dcols, live, level_frac=frac),
+               lambda: grid_encode_bwd_input_plain(spec, table, x, dcols, live,
+                                                   level_frac=frac)),
+        "GG": (lambda: grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live, level_frac=frac),
+               lambda: grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live,
+                                                 level_frac=frac))}
+    consts = spec.n_levels * grid_ops.LEVEL_FIELDS * 4
+    touched = touched_bytes(spec, x, table.element_size())
+    keep = 1.0 if frac is None else float(
+        (torch.arange(spec.n_levels, device=x.device)[:, None].float()
+         < frac[None] * float(spec.n_levels) + 1e-3).float().mean())
+    rng = rng_hash_ops(spec, x) if spec.hash_type.value == "Rng" else 0
+    rng_ops = {k: rng for k in ("G", "GI", "GG")}
+    rng_ops["GB"] = rng if picks is None else rng_hash_ops(spec, x, picks)
+    with torch.inference_mode():
+        outs = {k: calls[k][0]() for k in keys.values()}
+        b = {"G": (nbytes(x, outs.get("G", x[:0])) + touched + consts,
+                   keep * (grid_flops(spec, B) + rng), PEAK_FP32),
+             "GB": (nbytes(x, dcols, table) + consts + u_bytes,
+                    keep * (grid_flops(spec, B) + rng_ops["GB"]), PEAK_FP32),
+             "GI": (nbytes(x, dcols, outs.get("GI", x[:0])) + touched + consts,
+                    keep * (gi_flops(spec, B) + rng), PEAK_FP32),
+             "GG": (nbytes(x, ddx, dcols, *[o for o in outs.get("GG", ()) if o is not None])
+                    + touched + consts, keep * (gg_flops(spec, B) + rng), PEAK_FP32)}
+        for key, k in keys.items():
+            t[key] = graph_ms(calls[k][0])
+            t[key + " plain"] = eager_ms(calls[k][1])
+            t[key + " bound"] = bound_ms(*b[k])
+            t[key + " bound by"] = bound_by(*b[k])
+            print(f"{key}: {t[key]:.4f} ms on the device (plain {t[key + ' plain']:.4f} ms, "
+                  f"bound {t[key + ' bound']:.4f} ms: {b[k][0] / 1e6:.2f} MB, "
+                  f"{b[k][1] / 1e9:.3f} G operations on the fp32 units"
+                  f"{f', {rng_ops[k] / 1e9:.3f} G of them Rng hashing' if rng else ''})")
+
+
+def entries(t, items, launches, errors, extra=None):
+    """Report entries: items = [(timing key, kernel, replaces)]."""
+    out = []
+    for key, k, replaced in items:
+        name, source = KERNELS[k]
+        entry = {"name": f"{name} ({key.split(' ', 1)[1]})", "route": "cuda",
+                 "source": source, "replaces": replaced, "launches": launches[k],
+                 "max_abs_err": errors[key], "ms": t[key], "plain_ms": t[key + " plain"],
+                 "bound_ms": t[key + " bound"], "bound_by": t[key + " bound by"],
+                 "library_ms": t.get(key + " library")}
+        entry.update(extra or {})
+        out.append(entry)
+    return out
+
+
+def rng_stochastic_slice(gen, dev, hash_times):
+    """config_hash with ``"hash": "Rng"`` and ``"stochastic_interpolation":
+    true`` at BF16_POLICY and B = 2^18: G, GB, GI and GG (Rng) and GB
+    (stochastic) against their plain versions, 200 steps of
+    ``make_training_loop`` (a captured graph; the loss falls) and an input
+    gradient's second order on the trained model, the main path; the times
+    and the step's device time beside config_hash's."""
+    import dataclasses
+    import json
+    import re
+
+    from tcnn_tpu_torch import BF16_POLICY, create_from_config
+    from tcnn_tpu_torch.common import HashType
+    from tcnn_tpu_torch.ops import grid_ops
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+    from tcnn_tpu_torch.utils.metrics import psnr
+
+    cfg = json.loads(re.sub(r"//[^\n]*", "", open(CONFIG).read()))
+    cfg["encoding"] = {**cfg["encoding"], "hash": "Rng", "stochastic_interpolation": True}
+    model = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+    enc = model.network.encoding
+    spec = enc.spec
+    check(spec.hash_type == HashType.RNG and spec.stochastic_interpolation,
+          f"grid {spec.hash_type}, stochastic {spec.stochastic_interpolation}")
+    det = dataclasses.replace(spec, stochastic_interpolation=False)
+    with torch.no_grad():
+        enc.grid.uniform_(-1, 1, generator=gen)
+    B, live = MAIN_BATCH, list(range(spec.n_levels))
+    print(f"config_hash with Rng and stochastic interpolation: {spec.n_entries} rows, "
+          f"{sum(lv.use_hash for lv in spec.levels)} hashed levels")
+
+    phase(f"slice 11: G, GB, GI and GG (Rng) and GB (stochastic) vs plain, B={B}")
+    x = torch.rand((B, 2), generator=gen, device=dev)
+    ddx = torch.randn((B, 2), generator=gen, device=dev)
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = enc.grid.detach().to(dtype)
+        dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev).to(dtype)
+        e = grid_kernel_checks(det, table, x, dcols, ddx, label="Rng")
+        e_st = grid_kernel_checks(spec, table, x, dcols, ddx, label="Rng, stochastic")["GB"]
+        if dtype == torch.bfloat16:
+            err.update({f"{k} Rng": v for k, v in e.items()})
+            err["GB Rng, stochastic"] = e_st
+    # each (sample, level) puts its whole cotangent on one corner: a level's
+    # gradient sums to the sum of its cotangents (fp32, the sums' own error)
+    dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev)
+    with torch.inference_mode():
+        g = grid_encode_bwd(spec, enc.grid.detach(), x, dcols, live).reshape(-1, 2)
+        for l, lv in enumerate(spec.levels):
+            got = g[lv.offset:lv.offset + lv.size].double().sum(0)
+            want = dcols[2 * l:2 * l + 2].double().sum(1)
+            check(bool(((got - want).abs() <= 1e-5 * dcols[2 * l:2 * l + 2].abs().sum(1)).all()),
+                  f"stochastic GB: level {l} sums {got.tolist()}, cotangents {want.tolist()}")
+    print("stochastic GB: every level's gradient sums to its cotangents' sum")
+
+    phase(f"slice 11: {RNG_STEPS} steps of make_training_loop at B={B} (Rng, stochastic), "
+          "CUDA graph replay, then an input gradient's second order: the main path")
+    image = synthetic_image(1024, 1024)
+    sampler = ImageSampler(image, seed=0)
+    torch.cuda.synchronize()
+    reset_counts()
+    loop = model.trainer.make_training_loop(lambda i: sampler.sample_batch(B), RNG_STEPS)
+    losses = loop()
+    torch.cuda.synchronize()
+    xg = torch.rand((B, 2), generator=gen, device=dev).requires_grad_()
+    (gx,) = torch.autograd.grad(model.network(xg).float().square().sum(), xg, create_graph=True)
+    second = torch.autograd.grad(gx.square().sum(), list(model.network.parameters()))
+    torch.cuda.synchronize()
+    launches = counts()
+    # the loop's warm-up and captured steps (G, M, GB and MB twice), then the
+    # forward (G and M), the input gradient (MB, GI) and its backward (GG and
+    # RS; the features' second pass: MB, GB and GI once more)
+    check(launches["G"] == launches["M"] == 3 and launches["GB"] >= 2 and launches["MB"] >= 3
+          and launches["GI"] >= 1 and launches["GG"] == 1 and launches["RS"] == 1,
+          f"launches {launches}")
+    check(all(bool(torch.isfinite(s).all()) for s in second), "non-finite second order")
+    losses = losses.cpu()
+    check(bool(torch.isfinite(losses).all()), "non-finite training loss")
+    first, last10 = float(losses[0]), float(losses[-10:].mean())
+    fit_psnr = psnr(model.trainer.inference(sampler.full_grid_coords()),
+                    sampler.image.reshape(-1, 3))
+    print(f"loss {first:.4f} -> {last10:.4f} (mean of the last 10, {last10 / first:.4f}x); "
+          f"PSNR {fit_psnr:.2f} dB; launches {launches}")
+    check(last10 < 0.2 * first, f"loss floor missed: {last10} >= 0.2 x {first}")
+    check(fit_psnr > 20.0, f"PSNR floor missed: {fit_psnr:.2f} dB")
+
+    phase(f"slice 11 times at B={B} (bf16 table): G, GI, GG (Rng), GB (stochastic), step")
+    t = {}
+    table = enc.grid.detach().to(torch.bfloat16)
+    dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev).to(torch.bfloat16)
+    _, ws = grid_ops.build_indices_weights(spec, x, live, scatter=True)
+    picks = ws.reshape(spec.n_levels, 4, B).argmax(dim=1)
+    time_grid_kernels(det, table, x, dcols, ddx, t,
+                      {"G Rng": "G", "GI Rng": "GI", "GG Rng": "GG"})
+    time_grid_kernels(spec, table, x, dcols, ddx, t, {"GB Rng, stochastic": "GB"},
+                      u_bytes=spec.n_levels * B * 4, picks=picks)
+    # the step as the loop replays it (its captured graph): CUDA events
+    # around RNG_STEPS replays
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loop()
+    end.record()
+    end.synchronize()
+    t["step device"] = start.elapsed_time(end) / RNG_STEPS
+    print(f"training step at B={B}: {t['step device']:.4f} ms per replayed step with the Rng "
+          f"hash and stochastic interpolation; config_hash's {hash_times['loop step']:.4f} ms "
+          f"per replayed step ({hash_times['step device']:.4f} ms of device work) in this run")
+    items = [("G Rng", "G", REPLACES_G), ("GB Rng, stochastic", "GB", REPLACES_GB),
+             ("GI Rng", "GI", REPLACES_GI), ("GG Rng", "GG", REPLACES_GG)]
+    return entries(t, items, launches, err, {"step_ms": t["step device"],
+                                             "config_hash_step_ms": hash_times["loop step"]})
+
+
+def masked_sdf_slice(gen, dev):
+    """The SDF sample's grid and MLP at B = 2^18 with per-sample level
+    fractions: GG under the mask against its plain version (fractions 0.5
+    and spread over [0, 1]), the masked eikonal step (the main path)
+    against the same step through the plain versions, GG's times."""
+    from tcnn_tpu_torch import Policy, create_from_config
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+
+    model = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
+    net = model.network
+    spec = net.encoding.spec
+    with torch.no_grad():
+        net.encoding.grid.uniform_(-1, 1, generator=gen)
+    B = MAIN_BATCH
+    phase(f"slice 11: GG (and G, GB, GI) under a per-sample level mask, SDF geometry, B={B}")
+    x = torch.rand((B, 3), generator=gen, device=dev) * 0.9 + 0.05
+    ddx = torch.randn((B, 3), generator=gen, device=dev)
+    half = torch.full((B,), 0.5, device=dev)
+    spread = torch.rand(B, generator=gen, device=dev)
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = net.encoding.grid.detach().to(dtype)
+        dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev).to(dtype)
+        for frac, what in ((half, "fraction 0.5"), (spread, "fractions in [0, 1]")):
+            e = grid_kernel_checks(spec, table, x, dcols, ddx, frac, f"masked, {what}")
+            if dtype == torch.float32 and frac is half:
+                err["GG masked"] = e["GG"]
+
+    phase(f"slice 11: the eikonal step at B={B} with a per-sample fraction of 0.5")
+    xs, xv = sdf.sample_points(gen, B, dev)
+    launches = check_eikonal_step(net, xs, xv, half, "masked eikonal step")
+    t = {}
+    table = net.encoding.grid.detach()
+    dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev)
+    time_grid_kernels(spec, table, xv, dcols, ddx, t, {"GG masked": "GG"}, frac=half)
+    return entries(t, [("GG masked", "GG", REPLACES_GG)], launches, err)
+
+
+def torch_func_slice(gen, dev):
+    """torch.func.jvp and jacrev of the config_hash network (fp32 policy) at
+    B = 2^18 through the kernels against the same transforms of the plain
+    versions (torch operations), and the reverse-mode launches after them."""
+    from tcnn_tpu_torch import DEFAULT_POLICY, create_from_config
+
+    model = create_from_config(2, 3, CONFIG, policy=DEFAULT_POLICY)
+    net = model.network
+    with torch.no_grad():
+        net.encoding.grid.uniform_(-1, 1, generator=gen)
+    names = [n for n, _ in net.named_parameters()]
+    params = {n: p.detach() for n, p in net.named_parameters()}
+    B = MAIN_BATCH
+    phase(f"slice 11: torch.func.jvp of the config_hash network at B={B}, in x and in "
+          f"every parameter at once, against the plain versions")
+    x = torch.rand((B, 2), generator=gen, device=dev)
+    tx = torch.randn((B, 2), generator=gen, device=dev)
+    tp = {n: torch.randn(p.shape, generator=gen, device=dev) for n, p in params.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    y, t = torch.func.jvp(lambda p, v: torch.func.functional_call(net, p, (v,)),
+                          (params, x), (tp, tx))
+    torch.cuda.synchronize()
+    jvp_launches = counts()
+    check(jvp_launches == {"G": 2, "M": 1, "GB": 0, "MB": 0, "GI": 0, "GG": 1, "RS": 0},
+          f"jvp launches {jvp_launches}: expected G for the primal and the table tangent, "
+          f"GG for the input tangent, M, and no backward kernel")
+    y_p, t_p = torch.func.jvp(lambda p, v: plain_net(net, p, v), (params, x), (tp, tx))
+    e_y = compare(y, y_p, "mlp-f32")[0]
+    e_t = compare_rel(t, t_p, 1e-4, "jvp tangent")
+    print(f"jvp: output max abs err {e_y:.3e} (rtol 1e-5, atol 1e-5), tangent {e_t:.3e} "
+          f"(1e-4 of its max); launches {jvp_launches}")
+
+    phase(f"slice 11: torch.func.jacrev of the first {JACREV_ROWS} rows' outputs at B={B}, "
+          "in x and in the table")
+    reset_counts()
+    jx = torch.func.jacrev(lambda v: torch.func.functional_call(net, params, (v,))[:JACREV_ROWS])(x)
+    jt = torch.func.jacrev(lambda g: torch.func.functional_call(
+        net, {**params, "encoding.grid": g}, (x,))[:JACREV_ROWS])(params["encoding.grid"])
+    torch.cuda.synchronize()
+    jac_launches = counts()
+    jx_p = torch.func.jacrev(lambda v: plain_net(net, params, v)[:JACREV_ROWS])(x)
+    jt_p = torch.func.jacrev(lambda g: plain_net(net, {**params, "encoding.grid": g},
+                                                 x)[:JACREV_ROWS])(params["encoding.grid"])
+    e_x = compare_rel(jx, jx_p, 1e-4, "jacrev in x")
+    e_g = compare_rel(jt, jt_p, 1e-4, "jacrev in the table")
+    print(f"jacrev {tuple(jx.shape)} in x: max abs err {e_x:.3e}; {tuple(jt.shape)} in the "
+          f"table: {e_g:.3e} (1e-4 of each max); launches {jac_launches}")
+
+    phase("slice 11: reverse mode after torch.func: one training step's launches")
+    target = torch.rand((B, 3), generator=gen, device=dev)
+    reset_counts()
+    loss = model.trainer.training_step(x, target)
+    torch.cuda.synchronize()
+    check(first_order_counts() == {"G": 1, "M": 1, "GB": 1, "MB": 1},
+          f"training step launches {counts()}, expected one of each kernel")
+    check(bool(torch.isfinite(loss)), "training step loss is not finite")
+    print(f"training_step: loss {loss.item():.6f}; launches {counts()}")
+
+
+def wide_grid_slice(gen, dev):
+    """5- and 7-D hash grids: G, GB, GI and GG (each kernel's one
+    run-time-D instance) against their plain versions, a second-order
+    eikonal step of a 7-D NetworkWithInputEncoding against the plain
+    versions on each of ``WIDE_EIKONAL_DRAWS`` draws of weights and points
+    (the main path; the report takes the first draw's launches), and the
+    7-D kernels' times."""
+    from tcnn_tpu_torch import Policy, create_network_with_input_encoding
+    from tcnn_tpu_torch.common import HashType
+    from tcnn_tpu_torch.ops import grid_ops
+
+    err, t, timed = {}, {}, None
+    for D in (5, 7):
+        B = WIDE_BATCH[D]
+        phase(f"slice 11: a {D}-D hash grid, G, GB, GI and GG vs plain at B={B}")
+        for hash_type in (HashType.COHERENT_PRIME, HashType.RNG):
+            spec = grid_ops.make_grid_spec(D, 4, 2, 15, 4, 1.5, hash_type=hash_type,
+                                           interpolation=grid_ops.InterpolationType.SMOOTHSTEP)
+            x = torch.rand((B, D), generator=gen, device=dev) * 0.9 + 0.05
+            ddx = torch.randn((B, D), generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                table = (torch.rand(spec.n_params, generator=gen, device=dev) * 2 - 1).to(dtype)
+                dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev).to(dtype)
+                label = f"{D}-D {hash_type.value}"
+                e = grid_kernel_checks(spec, table, x, dcols, ddx, label=label)
+                e2 = grid_kernel_checks(spec, table, x, dcols, ddx,
+                                        torch.rand(B, generator=gen, device=dev),
+                                        label + " masked")
+                if D == 7 and hash_type == HashType.COHERENT_PRIME and dtype == torch.float32:
+                    err.update({f"{k} 7-D": max(e[k], e2[k]) for k in ("G", "GB", "GI", "GG")})
+                    timed = (spec, table, x, dcols, ddx)
+    phase(f"slice 11: the 7-D kernels' times at B={WIDE_BATCH[7]} (fp32 table, CoherentPrime)")
+    time_grid_kernels(*timed, t, {"G 7-D": "G", "GB 7-D": "GB", "GI 7-D": "GI", "GG 7-D": "GG"})
+    B = WIDE_BATCH[7]
+    phase(f"slice 11: the eikonal step of a 7-D NetworkWithInputEncoding at B={B}, "
+          f"{WIDE_EIKONAL_DRAWS} draws of weights and points")
+    runs = []
+    for seed in range(WIDE_EIKONAL_DRAWS):   # at 2^13 a ReLU switches in about one draw of ten
+        net = create_network_with_input_encoding(
+            7, 1, {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+                   "log2_hashmap_size": 15, "base_resolution": 4, "per_level_scale": 1.5,
+                   "interpolation": "Smoothstep"},
+            {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2,
+             "activation": "ReLU", "output_activation": "None"}, policy=Policy(),
+            generator=torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            net.encoding.grid.uniform_(-1, 1, generator=gen)
+        xs = torch.rand((B, 7), generator=gen, device=dev) * 0.9 + 0.05
+        xv = torch.rand((B, 7), generator=gen, device=dev) * 0.9 + 0.05
+        runs.append(check_eikonal_step(net, xs, xv, None, f"7-D eikonal step, draw {seed}"))
+    items = [(f"{k} 7-D", k, r) for k, r in (("G", REPLACES_G), ("GB", REPLACES_GB),
+                                             ("GI", REPLACES_GI), ("GG", REPLACES_GG))]
+    return entries(t, items, runs[0], err)
+
+
+def deep_mlp_slice(gen, dev):
+    """Kernel MB at width 128 with 12 hidden layers (two launches, kernel M
+    at their boundary), bf16 and fp32, against the plain version at
+    B = 2^18: fp32 every dW and dx within 1e-4 of its largest magnitude;
+    bf16 every dW within 2e-2 of its largest magnitude and dx within 2e-2 in
+    relative L2 norm (a hidden value that rounds to the other bf16
+    neighbour, or a ReLU it switches, moves a whole dx row, and over twelve
+    layers such rows are more than ``relu_flip_rows`` explains; the per-row
+    bound holds at six layers, config_oneblob).  Then three training steps
+    of config_hash with that MLP, the main path, and the times."""
+    import json
+    import re
+
+    from tcnn_tpu_torch import BF16_POLICY, DEFAULT_POLICY, create_from_config
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_bwd_plain
+
+    B, dims = MAIN_BATCH, mlp_dims(32, 128, DEEP_HIDDEN)
+    relu, none = Activation.RELU, Activation.NONE
+    err, t = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = f"MB 128 x {DEEP_HIDDEN}, {str(dtype)[6:]}"
+        phase(f"slice 11: {key} vs plain at B={B}")
+        ws = random_mlp(gen, dev, dims)
+        x = (torch.rand((B, 32), generator=gen, device=dev) * 2 - 1).to(dtype)
+        g = torch.randn((B, 3), generator=gen, device=dev)
+        with torch.inference_mode():
+            before = fused_mlp_bwd.launches
+            got_dws, got_dx = fused_mlp_bwd(ws, x, g, relu, none, dtype)
+            torch.cuda.synchronize()
+            n_launches = fused_mlp_bwd.launches - before
+            want_dws, want_dx = fused_mlp_bwd_plain(ws, x, g, relu, none, dtype)
+        check(n_launches == 2, f"{key}: {n_launches} launches of MB, expected 2")
+        if dtype == torch.float32:
+            e = compare_mlp_grads([*got_dws, got_dx], [*want_dws, want_dx], dtype, key)
+            how = "every dW and dx within 1e-4 of its max"
+        else:
+            e = compare_mlp_grads(got_dws, want_dws, dtype, key)
+            rel = ((got_dx.float() - want_dx.float()).norm() / want_dx.float().norm()).item()
+            check(rel <= 2e-2, f"{key}: dx relative L2 error {rel:.3e} beyond 2e-2")
+            how = f"dW within 2e-2 of each max; dx relative L2 error {rel:.3e} (2e-2)"
+        err[key] = e
+        print(f"{key}: max abs err {e:.3e} ({how}); {n_launches} launches of MB")
+        hs = chain_activations([w.to(dtype) for w in ws], x)
+        with torch.inference_mode():
+            t[key] = graph_ms(lambda: fused_mlp_bwd(ws, x, g, relu, none, dtype))
+            t[key + " plain"] = eager_ms(lambda: fused_mlp_bwd_plain(ws, x, g, relu, none,
+                                                                     dtype))
+            t[key + " library"] = graph_ms(lambda: library_bwd([w.to(dtype) for w in ws],
+                                                               hs, g))
+        m_flops = 2 * B * sum(w.numel() for w in ws)
+        n_bytes = nbytes(x, g, *[w.to(dtype) for w in ws], x) + sum(w.numel() for w in ws) * 4
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+        t[key + " bound"] = bound_ms(n_bytes, 3 * m_flops, peak)
+        t[key + " bound by"] = bound_by(n_bytes, 3 * m_flops, peak)
+        print(f"{key}: {t[key]:.4f} ms on the device with the boundary's kernel M (plain "
+              f"{t[key + ' plain']:.4f} ms, cuBLAS chain backward {t[key + ' library']:.4f} "
+              f"ms, bound {t[key + ' bound']:.4f} ms: {n_bytes / 1e6:.2f} MB, "
+              f"{3 * m_flops / 1e9:.3f} GFLOP on the {UNIT[peak]})")
+    phase(f"slice 11: three training steps of config_hash with a FullyFusedMLP 128 x "
+          f"{DEEP_HIDDEN} at B={B}, both policies: the main path")
+    cfg = json.loads(re.sub(r"//[^\n]*", "", open(CONFIG).read()))
+    cfg["network"] = {**cfg["network"], "n_neurons": 128, "n_hidden_layers": DEEP_HIDDEN}
+    xb = torch.rand((B, 2), generator=gen, device=dev)
+    target = torch.rand((B, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    for policy in (DEFAULT_POLICY, BF16_POLICY):
+        model = create_from_config(2, 3, cfg, policy=policy)
+        step_losses = [float(model.trainer.training_step(xb, target)) for _ in range(3)]
+        check(all(np.isfinite(step_losses)), f"deep MLP losses {step_losses}")
+    torch.cuda.synchronize()
+    launches = first_order_counts()
+    check(launches == {"G": 6, "M": 12, "GB": 6, "MB": 12},
+          f"deep MLP launches {launches}: expected per step G and GB once, M and MB twice")
+    print(f"six steps (three per policy): launches {launches}, last losses {step_losses}")
+    items = [(k, "MB", REPLACES_MB) for k in err]
+    return entries(t, items, {"MB": launches["MB"]}, err)
+
+
 def mb_determinism(gen, dev):
     """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
     1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
@@ -2647,7 +3263,10 @@ def main():
     hash_entries, hash_times = config_hash_slices(gen, dev)
     report = {"kernels": hash_entries + config_btf_slice(gen, dev)
               + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev) + nerf_slice(gen, dev)
-              + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)}
+              + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)
+              + rng_stochastic_slice(gen, dev, hash_times) + masked_sdf_slice(gen, dev)
+              + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)}
+    torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)
     phase("kernels")

@@ -27,17 +27,17 @@ void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b,
                      const torch::Tensor& level_params, const torch::Tensor& out,
                      int64_t n_dims, int64_t n_features, int64_t out_stride_b,
                      int64_t out_stride_f, const std::vector<int64_t>& hash_factors,
-                     bool coherent_add, int64_t interp) {
-  TORCH_CHECK(hash_factors.size() == 4, "grid_encode_fwd: four hash factors");
+                     int64_t hash_kind, int64_t interp) {
+  TORCH_CHECK(hash_factors.size() == 7, "grid_encode_fwd: seven hash factors");
   const c10::cuda::CUDAGuard guard(x.device());
-  uint32_t factors[4];
-  for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  uint32_t factors[7];
+  for (int d = 0; d < 7; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_fwd_launch(
       x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), table.data_ptr(),
       table.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(), out.data_ptr(),
       x.size(0),
       static_cast<int>(n_dims), static_cast<int>(level_params.size(0)),
-      static_cast<int>(n_features), out_stride_b, out_stride_f, factors, coherent_add,
+      static_cast<int>(n_features), out_stride_b, out_stride_f, factors, static_cast<int>(hash_kind),
       static_cast<int>(interp), c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -66,13 +66,13 @@ void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b,
                      const std::vector<int64_t>& groups, const torch::Tensor& grad,
                      const torch::Tensor& out, int64_t n_dims, int64_t n_features,
                      int64_t dc_stride_b, int64_t dc_stride_f,
-                     const std::vector<int64_t>& hash_factors, bool coherent_add,
-                     int64_t interp) {
-  TORCH_CHECK(hash_factors.size() == 4, "grid_encode_bwd: four hash factors");
+                     const std::vector<int64_t>& hash_factors, int64_t hash_kind,
+                     int64_t interp, const c10::optional<torch::Tensor>& u) {
+  TORCH_CHECK(hash_factors.size() == 7, "grid_encode_bwd: seven hash factors");
   TORCH_CHECK(groups.size() % 4 == 0, "grid_encode_bwd: four fields per launch group");
   const c10::cuda::CUDAGuard guard(x.device());
-  uint32_t factors[4];
-  for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  uint32_t factors[7];
+  for (int d = 0; d < 7; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   const std::vector<int32_t> g(groups.begin(), groups.end());
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_launch(
       x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), dcols.data_ptr(),
@@ -80,8 +80,9 @@ void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b,
       static_cast<int>(level_params.size(0)), items.data_ptr<int32_t>(), g.data(),
       static_cast<int>(g.size() / 4), grad.data_ptr<float>(), out.data_ptr(),
       out.scalar_type() == at::kBFloat16, grad.numel(), static_cast<int>(n_dims),
-      static_cast<int>(n_features), dc_stride_b, dc_stride_f, factors, coherent_add,
-      static_cast<int>(interp), c10::cuda::getCurrentCUDAStream()));
+      static_cast<int>(n_features), dc_stride_b, dc_stride_f, factors, static_cast<int>(hash_kind),
+      static_cast<int>(interp), optional_ptr<float>(u), x.size(0),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -116,23 +117,24 @@ void grid_encode_bwd_input(const torch::Tensor& x, int64_t x_stride_b,
                            const torch::Tensor& level_params, const torch::Tensor& dx,
                            int64_t n_dims, int64_t n_features, int64_t dc_stride_b,
                            int64_t dc_stride_f, const std::vector<int64_t>& hash_factors,
-                           bool coherent_add, int64_t interp) {
-  TORCH_CHECK(hash_factors.size() == 4, "grid_encode_bwd_input: four hash factors");
+                           int64_t hash_kind, int64_t interp) {
+  TORCH_CHECK(hash_factors.size() == 7, "grid_encode_bwd_input: seven hash factors");
   const c10::cuda::CUDAGuard guard(x.device());
-  uint32_t factors[4];
-  for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  uint32_t factors[7];
+  for (int d = 0; d < 7; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_input_launch(
       x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), table.data_ptr(),
       table.scalar_type() == at::kBFloat16, dcols.data_ptr(),
       dcols.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(),
       dx.data_ptr<float>(), x.size(0), static_cast<int>(n_dims),
       static_cast<int>(level_params.size(0)), static_cast<int>(n_features), dc_stride_b,
-      dc_stride_f, factors, coherent_add, static_cast<int>(interp),
+      dc_stride_f, factors, static_cast<int>(hash_kind), static_cast<int>(interp),
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch::Tensor& table,
+void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b,
+                         const c10::optional<torch::Tensor>& level_frac, const torch::Tensor& table,
                          const torch::Tensor& dcols, const torch::Tensor& ddx,
                          const torch::Tensor& level_params,
                          const c10::optional<torch::Tensor>& d_dcols,
@@ -140,19 +142,20 @@ void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b, const torch
                          const c10::optional<torch::Tensor>& rows,
                          const c10::optional<torch::Tensor>& g, int64_t n_dims,
                          int64_t n_features, int64_t dc_stride_b, int64_t dc_stride_f,
-                         const std::vector<int64_t>& hash_factors, bool coherent_add,
+                         const std::vector<int64_t>& hash_factors, int64_t hash_kind,
                          int64_t interp) {
-  TORCH_CHECK(hash_factors.size() == 4, "grid_encode_bwd_bwd: four hash factors");
+  TORCH_CHECK(hash_factors.size() == 7, "grid_encode_bwd_bwd: seven hash factors");
   const c10::cuda::CUDAGuard guard(x.device());
-  uint32_t factors[4];
-  for (int d = 0; d < 4; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  uint32_t factors[7];
+  for (int d = 0; d < 7; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_bwd_bwd_launch(
-      x.data_ptr<float>(), x_stride_b, table.data_ptr(), table.scalar_type() == at::kBFloat16,
+      x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), table.data_ptr(),
+      table.scalar_type() == at::kBFloat16,
       dcols.data_ptr(), dcols.scalar_type() == at::kBFloat16, ddx.data_ptr<float>(),
       level_params.data_ptr<int32_t>(), optional_ptr<float>(d_dcols), optional_ptr<float>(d_x),
       optional_ptr<int32_t>(rows), optional_ptr<float>(g), x.size(0), static_cast<int>(n_dims),
       static_cast<int>(level_params.size(0)), static_cast<int>(n_features), dc_stride_b,
-      dc_stride_f, factors, coherent_add, static_cast<int>(interp),
+      dc_stride_f, factors, static_cast<int>(hash_kind), static_cast<int>(interp),
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

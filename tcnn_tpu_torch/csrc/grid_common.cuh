@@ -32,12 +32,115 @@ namespace tcnn_tpu_torch {
 namespace {
 
 constexpr int kGridThreads = 256;
-constexpr int kLevelFields = 12;  // ops/grid_ops.py::level_params
+constexpr int kLevelFields = 15;  // ops/grid_ops.py::level_params
+constexpr int kMaxDims = 7;       // the seven hash primes (common_device.h:646-664)
 
+// The hash of a hashed level: the XOR of coordinate x prime products
+// (Prime, CoherentPrime, ReversedPrime), CoherentAdd's dim 0 added after
+// the XOR, or Rng, the pcg32 skip-ahead (rng != 0, pcg32_hash below).  A
+// run-time argument of every grid kernel, not a template parameter.  The
+// 1- to 4-D instances (LevelCorners) take the prime hashes; an Rng grid
+// runs each kernel's one run-time-D instance (WideCorners), which hashes
+// each corner in full: pcg32 is not XOR-linear, so the per-dim terms of
+// LevelCorners::rows do not apply, and the instances of the prime hashes
+// carry no code of it (their build and their bits stay as they were).
 struct HashConsts {
-  uint32_t factors[4];
+  uint32_t factors[kMaxDims];
   int coherent_add;
+  int rng;
 };
+
+// HashType.Rng (common_device.h:678-691, pcg32.h; the port's plain version
+// and host model are ops/pcg32_hash.py): pcg32 seeded with 1337 on stream
+// 1, advanced by `step` through the LCG jump-ahead, one output.  The
+// jump-ahead's 64 (multiplier, increment) pairs depend on the stream
+// alone: pair j is applied where bit j of step is set
+// (ops/pcg32_hash.py::advance_constants, checked against these constants
+// by tests/test_torch_rng_grid.py).
+__constant__ uint64_t kPcgMult[64] = {
+    0x5851f42d4c957f2dull, 0x685f98a2018fade9ull, 0xfb4d3ae39272be11ull,
+    0xb59dda5f38413d21ull, 0x8d5e2ddc895abe41ull, 0x96481983e5188c81ull,
+    0x4425ebbf6f4d5901ull, 0x8980d00b878bb201ull, 0x02078e0dd6db6401ull,
+    0x659acb4fecc6c801ull, 0xaa1421b9d5cd9001ull, 0x88f21a239c9b2001ull,
+    0x469c6146fd364001ull, 0x1dd8088d0a6c8001ull, 0x7fa1b91654d90001ull,
+    0x52ae921da9b20001ull, 0x902da3ff53640001ull, 0xb4bd470ea6c80001ull,
+    0x04028a5d4d900001ull, 0xba2505ba9b200001ull, 0x7cc9cf7536400001ull,
+    0x1b92aeea6c800001ull, 0xbf219dd4d9000001ull, 0x9e343ba9b2000001ull,
+    0xbc2c775364000001ull, 0x7768eea6c8000001ull, 0xeb11dd4d90000001ull,
+    0xc723ba9b20000001ull, 0x5247753640000001ull, 0xb48eea6c80000001ull,
+    0xa91dd4d900000001ull, 0x523ba9b200000001ull, 0xa477536400000001ull,
+    0x48eea6c800000001ull, 0x91dd4d9000000001ull, 0x23ba9b2000000001ull,
+    0x4775364000000001ull, 0x8eea6c8000000001ull, 0x1dd4d90000000001ull,
+    0x3ba9b20000000001ull, 0x7753640000000001ull, 0xeea6c80000000001ull,
+    0xdd4d900000000001ull, 0xba9b200000000001ull, 0x7536400000000001ull,
+    0xea6c800000000001ull, 0xd4d9000000000001ull, 0xa9b2000000000001ull,
+    0x5364000000000001ull, 0xa6c8000000000001ull, 0x4d90000000000001ull,
+    0x9b20000000000001ull, 0x3640000000000001ull, 0x6c80000000000001ull,
+    0xd900000000000001ull, 0xb200000000000001ull, 0x6400000000000001ull,
+    0xc800000000000001ull, 0x9000000000000001ull, 0x2000000000000001ull,
+    0x4000000000000001ull, 0x8000000000000001ull, 0x0000000000000001ull,
+    0x0000000000000001ull,
+};
+__constant__ uint64_t kPcgPlus[64] = {
+    0x0000000000000003ull, 0x08f5dc87e5c07d8aull, 0x6321e2d2c0df0224ull,
+    0xcfa27e6a8f4cde88ull, 0xf889c5f699c3f610ull, 0xa5f6430626c55020ull,
+    0x21c2a9dfbb043040ull, 0x64a0ecb22e0ea080ull, 0xc5e75b7f2d364100ull,
+    0xabf2b96726d08200ull, 0xfbbc643dbf310400ull, 0x61514a9b44a20800ull,
+    0x1cc260c5a2441000ull, 0x75700847a8882000ull, 0x4dcdef80e1104000ull,
+    0x3f597ac802208000ull, 0xadda64a904410000ull, 0x19da85b608820000ull,
+    0x388bfcfc11040000ull, 0xe673c03822080000ull, 0xb256997044100000ull,
+    0x7a6996e088200000ull, 0x4bc4bdc110400000ull, 0xf34fbb8220800000ull,
+    0x55b8770441000000ull, 0x67d4ee0882000000ull, 0xc139dc1104000000ull,
+    0x48b3b82208000000ull, 0xaa67704410000000ull, 0xb8cee08820000000ull,
+    0x019dc11040000000ull, 0x433b822080000000ull, 0x8677044100000000ull,
+    0x0cee088200000000ull, 0x19dc110400000000ull, 0x33b8220800000000ull,
+    0x6770441000000000ull, 0xcee0882000000000ull, 0x9dc1104000000000ull,
+    0x3b82208000000000ull, 0x7704410000000000ull, 0xee08820000000000ull,
+    0xdc11040000000000ull, 0xb822080000000000ull, 0x7044100000000000ull,
+    0xe088200000000000ull, 0xc110400000000000ull, 0x8220800000000000ull,
+    0x0441000000000000ull, 0x0882000000000000ull, 0x1104000000000000ull,
+    0x2208000000000000ull, 0x4410000000000000ull, 0x8820000000000000ull,
+    0x1040000000000000ull, 0x2080000000000000ull, 0x4100000000000000ull,
+    0x8200000000000000ull, 0x0400000000000000ull, 0x0800000000000000ull,
+    0x1000000000000000ull, 0x2000000000000000ull, 0x4000000000000000ull,
+    0x8000000000000000ull,
+};
+constexpr uint64_t kPcgState0 = 0x4cfa1d1cde85af8full;
+
+// The launchers' hash arguments: seven factors and the kind, 0 for the
+// prime products, 1 CoherentAdd, 2 Rng (ops/cuda/grid_encode.py::_hash_args).
+inline HashConsts make_hash_consts(const uint32_t hash_factors[kMaxDims], int hash_kind) {
+  HashConsts hc;
+  for (int d = 0; d < kMaxDims; ++d) hc.factors[d] = hash_factors[d];
+  hc.coherent_add = hash_kind == 1 ? 1 : 0;
+  hc.rng = hash_kind == 2 ? 1 : 0;
+  return hc;
+}
+
+// Kept out of line: the hash's 64-bit loop stays out of the instances'
+// hot code, which other hashes run.
+__device__ __noinline__ uint32_t pcg32_hash(uint64_t step) {
+  uint64_t mult = 1, plus = 0;
+  for (int j = 0; j < 64 && (step >> j) != 0; ++j)
+    if ((step >> j) & 1) {
+      mult *= kPcgMult[j];
+      plus = plus * kPcgMult[j] + kPcgPlus[j];
+    }
+  const uint64_t state = mult * kPcgState0 + plus;
+  const uint32_t xorshifted = uint32_t(((state >> 18) ^ state) >> 27);
+  const uint32_t rot = uint32_t(state >> 59);
+  return (xorshifted >> rot) | (xorshifted << ((32u - rot) & 31u));
+}
+
+// Rng's 64-bit step of a corner: coordinate d XORed in at bit d * (64 / D).
+__device__ __forceinline__ uint64_t rng_step(const uint32_t (&cell)[kMaxDims], int n_dims, int c) {
+  const int nbits = 64 / n_dims;
+  uint64_t step = 0;
+#pragma unroll
+  for (int d = 0; d < kMaxDims; ++d)
+    if (d < n_dims) step ^= uint64_t(cell[d] + ((c >> d) & 1)) << (d * nbits);
+  return step;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -159,7 +262,7 @@ struct LevelCorners {
     offset = uint32_t(lp[2]);
     use_hash = lp[3] != 0;
     stride_mask = lp[5];
-    magic = (uint64_t(uint32_t(lp[11])) << 32) | uint32_t(lp[10]);
+    magic = (uint64_t(uint32_t(lp[14])) << 32) | uint32_t(lp[13]);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const float pos = __fadd_rn(__fmul_rn(xb[d], scale), 0.5f);
@@ -280,6 +383,138 @@ struct LevelCorners {
   }
 };
 
+// LevelCorners with n_dims a run-time bound up to 7: the one instance of
+// each grid kernel (its *_wide kernel) that takes 5 to 7 dims, Rng grids
+// of any dims, and (GB) stochastic interpolation.  Up to 128 corners: a
+// thread walks them in a loop, each corner's row in full (row: the prime
+// hashes' D multiplies, or Rng's pcg32), each weight and derivative as the
+// product over the dims in the order d = 0 .. D-1, as corner_weight and
+// LevelCorners compute them.  The per-dim arrays are indexed by unrolled
+// loops only, so they stay in registers.
+struct WideCorners {
+  const int32_t* lp;
+  int nd;
+  uint32_t size, offset;
+  bool use_hash;
+  int stride_mask;
+  uint64_t magic;
+  uint32_t cell[kMaxDims];
+  float w1[kMaxDims], dw1[kMaxDims], d2w1[kMaxDims];
+
+  __device__ __forceinline__ WideCorners(const int32_t* level_params, const float* xb,
+                                         int n_dims, int interp)
+      : lp(level_params), nd(n_dims) {
+    const float scale = __int_as_float(lp[0]);
+    size = uint32_t(lp[1]);
+    offset = uint32_t(lp[2]);
+    use_hash = lp[3] != 0;
+    stride_mask = lp[5];
+    magic = (uint64_t(uint32_t(lp[14])) << 32) | uint32_t(lp[13]);
+#pragma unroll
+    for (int d = 0; d < kMaxDims; ++d) {
+      cell[d] = 0;
+      w1[d] = dw1[d] = d2w1[d] = 0.0f;
+      if (d >= nd) continue;
+      const float pos = __fadd_rn(__fmul_rn(xb[d], scale), 0.5f);
+      const float cf = floorf(pos);
+      cell[d] = uint32_t(int(cf));
+      const float f = __fsub_rn(pos, cf);
+      w1[d] = interp_weight(f, interp);
+      interp_derivatives(f, interp, dw1[d], d2w1[d]);
+      dw1[d] *= scale;
+      d2w1[d] *= scale * scale;
+    }
+  }
+
+  __device__ __forceinline__ float factor(int c, int d) const {
+    return ((c >> d) & 1) ? w1[d] : 1.0f - w1[d];
+  }
+  __device__ __forceinline__ float dfactor(int c, int d) const {
+    return ((c >> d) & 1) ? dw1[d] : -dw1[d];
+  }
+  __device__ __forceinline__ float d2factor(int c, int d) const {
+    return ((c >> d) & 1) ? d2w1[d] : -d2w1[d];
+  }
+
+  __device__ __forceinline__ float weight(int c) const {
+    float w = (c & 1) ? w1[0] : __fsub_rn(1.0f, w1[0]);
+#pragma unroll
+    for (int d = 1; d < kMaxDims; ++d)
+      if (d < nd) w = __fmul_rn(w, ((c >> d) & 1) ? w1[d] : __fsub_rn(1.0f, w1[d]));
+    return w;
+  }
+
+  // The corner that takes a sample's whole table gradient under stochastic
+  // interpolation (grid.h:284-299): cell + 1 on dim d iff u < w1[d].
+  __device__ __forceinline__ int stochastic_corner(float u) const {
+    int c = 0;
+#pragma unroll
+    for (int d = 0; d < kMaxDims; ++d)
+      if (d < nd) c |= (u < w1[d] ? 1 : 0) << d;
+    return c;
+  }
+
+  // g[d] = d w_c / dx_d (d < nd).
+  __device__ __forceinline__ void weight_grad(int c, float (&g)[kMaxDims]) const {
+#pragma unroll
+    for (int d = 0; d < kMaxDims; ++d) {
+      float p = dfactor(c, d);
+#pragma unroll
+      for (int e = 0; e < kMaxDims; ++e)
+        if (e != d && e < nd) p *= factor(c, e);
+      g[d] = d < nd ? p : 0.0f;
+    }
+  }
+
+  // out[e] = sum_d d2 w_c / dx_d dx_e * v[d] (e < nd), as LevelCorners.
+  __device__ __forceinline__ void weight_hess_vec(int c, const float (&v)[kMaxDims],
+                                                  float (&out)[kMaxDims]) const {
+#pragma unroll
+    for (int e = 0; e < kMaxDims; ++e) {
+      float s = d2factor(c, e) * v[e];
+#pragma unroll
+      for (int f = 0; f < kMaxDims; ++f)
+        if (f != e && f < nd) s *= factor(c, f);
+#pragma unroll
+      for (int d = 0; d < kMaxDims; ++d) {
+        if (d == e || d >= nd) continue;
+        float p = dfactor(c, d) * dfactor(c, e) * v[d];
+#pragma unroll
+        for (int f = 0; f < kMaxDims; ++f)
+          if (f != d && f != e && f < nd) p *= factor(c, f);
+        s += p;
+      }
+      out[e] = e < nd ? s : 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ uint32_t row(int c, const HashConsts& hc) const {
+    uint32_t h = 0;
+    if (use_hash && hc.rng) {
+      h = pcg32_hash(rng_step(cell, nd, c));
+    } else if (use_hash) {
+#pragma unroll
+      for (int d = 0; d < kMaxDims; ++d) {
+        if (d >= nd) continue;
+        const uint32_t p = cell[d] + ((c >> d) & 1);
+        if (d == 0 && hc.coherent_add) continue;
+        h ^= p * hc.factors[d];
+      }
+      if (hc.coherent_add) h += cell[0] + (c & 1);
+    } else {
+#pragma unroll
+      for (int d = 0; d < kMaxDims; ++d)
+        if (d < nd && ((stride_mask >> d) & 1))
+          h += (cell[d] + ((c >> d) & 1)) * uint32_t(lp[6 + d]);
+    }
+    return fastmod(h, magic, size) + offset;
+  }
+};
+
+// Whether a launch takes its kernel's run-time-D instance: 5 to 7 dims, or
+// an Rng grid (each corner's hash in full).
+inline bool wide_instance(int n_dims, int hash_kind) { return n_dims > 4 || hash_kind == 2; }
+
 // dst = bf16(src), the one cast of an fp32 gradient buffer to a bf16 table.
 __global__ void __launch_bounds__(kGridThreads)
 cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
@@ -289,7 +524,8 @@ cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ d
 }
 
 // Template dispatch over the runtime (D, F) of a launch: calls
-// Launch::template run<D, F>() for D in 1..4 and F in 1..8.
+// Launch::template run<D, F>() for D in 1..4 and F in 1..8 (wide_instance
+// launches take each kernel's one *_wide instance, before this dispatch).
 template <typename Launch, int D>
 cudaError_t dispatch_f(int n_features, const Launch& l) {
   switch (n_features) {

@@ -43,6 +43,11 @@
 // The index and weight arithmetic, and the hazards it handles, are in
 // grid_common.cuh, shared with the backward kernel GB.
 //
+// Rng grids (pcg32, not XOR-linear: each corner's hash in full) and 5 to 7
+// dims run one instance with D, F and the table's dtype at run time
+// (grid_encode_fwd_wide_kernel, WideCorners in grid_common.cuh); the
+// instances above carry no code of either.
+//
 // Coarse-to-fine (kMask, a separate instance: without a mask the code is
 // the unmasked design's, bit for bit and in time; one instance testing
 // the mask at run time read 5 % slower at the SDF shape, PERF.md): with
@@ -309,20 +314,67 @@ struct FwdLaunch {
   }
 };
 
+// Rng grids and 5 to 7 dims (WideCorners): thread (blockIdx.x, threadIdx.x) takes one
+// sample on level blockIdx.y, its 2^D corners in a loop, each row in full
+// and loaded as it is used; F, the table's dtype and D at run time, one
+// instance.  The sum over the corners in order 0 .. 2^D-1 in fp32, as the
+// D <= 4 instances.
+__global__ void __launch_bounds__(kGridThreads)
+grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ level_frac,
+                            const void* __restrict__ table, bool bf16,
+                            const int32_t* __restrict__ level_params, int n_levels,
+                            void* __restrict__ out, int64_t batch, int n_dims, int n_features,
+                            int64_t x_stride_b, int64_t out_stride_b, int64_t out_stride_f,
+                            HashConsts hc, int interp) {
+  const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
+  const int level = blockIdx.y;
+  if (b >= batch) return;
+  const int32_t* lp = level_params + level * kLevelFields;
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const bool live = lp[4] != 0 &&
+      (!level_frac || float(level) < level_threshold(level_frac[b], n_levels));
+  if (live) {
+    const WideCorners lc(lp, x + b * x_stride_b, n_dims, interp);
+    for (int c = 0; c < (1 << n_dims); ++c) {
+      const uint32_t r = lc.row(c, hc);
+      const float w = lc.weight(c);
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+        if (f < n_features)
+          acc[f] = __fadd_rn(acc[f], __fmul_rn(w, load_any(table, bf16, int64_t(r) * n_features + f)));
+    }
+  }
+  const int64_t o = b * out_stride_b + int64_t(level) * n_features * out_stride_f;
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    if (f >= n_features) break;
+    if (bf16)
+      static_cast<__nv_bfloat16*>(out)[o + f * out_stride_f] = __float2bfloat16_rn(acc[f]);
+    else
+      static_cast<float*>(out)[o + f * out_stride_f] = acc[f];
+  }
+}
+
 }  // namespace
 
 cudaError_t grid_encode_fwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
-    const uint32_t hash_factors[4], bool coherent_add, int interp,
+    const uint32_t hash_factors[7], int hash_kind, int interp,
     cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || n_levels > 65535 || interp < 0 || interp > 2 ||
-      x_stride_b < n_dims)
+      x_stride_b < n_dims || n_dims < 1 || n_dims > kMaxDims || n_features < 1 ||
+      n_features > 8)
     return cudaErrorInvalidValue;
-  HashConsts hc;
-  for (int d = 0; d < 4; ++d) hc.factors[d] = hash_factors[d];
-  hc.coherent_add = coherent_add ? 1 : 0;
+  const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
+  if (wide_instance(n_dims, hash_kind)) {
+    const dim3 grid(unsigned((batch + kGridThreads - 1) / kGridThreads), unsigned(n_levels));
+    grid_encode_fwd_wide_kernel<<<grid, kGridThreads, 0, stream>>>(
+        x, level_frac, table, table_bf16, level_params, n_levels, out, batch, n_dims,
+        n_features, x_stride_b, out_stride_b, out_stride_f, hc, interp);
+    return cudaGetLastError();
+  }
   if (table_bf16)
     return dispatch_df(n_dims, n_features,
                        FwdLaunch<__nv_bfloat16>{x, level_frac, table, level_params, out, batch,

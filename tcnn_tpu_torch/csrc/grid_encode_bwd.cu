@@ -72,6 +72,14 @@
 // the loads of kUnroll samples before it uses them.  config_btf's levels
 // (65,536 rows and more, about 8 updates per row) are all direct.
 //
+// Stochastic interpolation (grid.h:284-299; the JAX package's ws_bwd,
+// grid_ops.py:524-535), Rng grids and 5 to 7 dims run one instance with D
+// and F at run time (grid_encode_bwd_wide_kernel, WideCorners), on the same
+// plan of windows and direct items: with the uniforms u (n_levels, B), a
+// sample puts its whole output gradient, weight 1, on the one corner that
+// is cell + 1 on dim d iff u[l, b] < w1_d.  The 1- to 4-D instances carry
+// no code of it.
+//
 // Coarse-to-fine: with per-sample level fractions (null: none), a sample
 // whose level is masked (grid_common.cuh: level_threshold, the forward's
 // cutoff) issues no update at all, neither a direct atomic nor a window
@@ -268,6 +276,60 @@ cudaError_t launch_items(const BwdParams& a, int n_items, int smem, cudaStream_t
   return cudaGetLastError();
 }
 
+// The run-time-D instance, the plan's items as the instances above take
+// them (one CTA per item, no clusters): a thread per sample of the item; a
+// window item sums its rows in shared memory and flushes them with one
+// global atomic per value, a direct item adds one global atomic per corner
+// and feature; with the uniforms u (stochastic interpolation, null: none)
+// one corner at weight 1.
+__global__ void __launch_bounds__(kBwdThreads)
+grid_encode_bwd_wide_kernel(BwdParams a, int n_dims, int n_features, bool dcols_bf16,
+                            const float* __restrict__ u, int64_t batch) {
+  extern __shared__ float win[];
+  const int32_t* it = a.items + int64_t(blockIdx.x) * kItemFields;
+  const int level = it[0];
+  const uint32_t row_lo = uint32_t(it[1]), n_rows = uint32_t(it[2]);
+  const int64_t b1 = it[4];
+  const int32_t* lp = a.level_params + level * kLevelFields;
+  const uint32_t offset = uint32_t(lp[2]);
+  if (n_rows) {
+    window_zero(win, int(n_rows) * n_features);
+    __syncthreads();
+  }
+  for (int64_t b = it[3] + threadIdx.x; b < b1; b += kBwdThreads) {
+    if (a.level_frac && !(float(level) < level_threshold(a.level_frac[b], a.n_levels)))
+      continue;
+    float dy[8];
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+      dy[f] = f < n_features
+          ? load_any(a.dcols, dcols_bf16, b * a.dc_stride_b + int64_t(level * n_features + f) * a.dc_stride_f)
+          : 0.0f;
+    const WideCorners lc(lp, a.x + b * a.x_stride_b, n_dims, a.interp);
+    const int pick = u ? lc.stochastic_corner(u[int64_t(level) * batch + b]) : -1;
+    for (int c = 0; c < (1 << n_dims); ++c) {
+      const float w = pick < 0 ? lc.weight(c) : (c == pick ? 1.0f : 0.0f);
+      if (w == 0.0f) continue;
+      const uint32_t r = lc.row(c, a.hc);
+      float* p;
+      if (n_rows) {
+        const uint32_t wr = r - offset - row_lo;   // wraps above n_rows below row_lo
+        if (wr >= n_rows) continue;
+        p = win + wr * n_features;
+      } else {
+        p = a.grad + int64_t(r) * n_features;
+      }
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+        if (f < n_features) atomicAdd(p + f, __fmul_rn(w, dy[f]));
+    }
+  }
+  if (n_rows) {
+    __syncthreads();
+    window_flush<1>(win, int(n_rows) * n_features, a.grad + (int64_t(offset) + row_lo) * n_features);
+  }
+}
+
 template <typename TG>
 struct BwdLaunch {
   BwdParams a;
@@ -301,26 +363,42 @@ cudaError_t grid_encode_bwd_launch(
     bool dcols_bf16, const int32_t* level_params, int n_levels, const int32_t* items,
     const int32_t* groups, int n_groups,
     float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
-    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[4],
-    bool coherent_add, int interp, cudaStream_t stream) {
+    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7],
+    int hash_kind, int interp, const float* u, int64_t batch, cudaStream_t stream) {
   if (n_params <= 0 || n_groups < 0 || n_levels <= 0 || interp < 0 || interp > 2 ||
-      x_stride_b < n_dims || (!out_bf16 && out != grad))
+      x_stride_b < n_dims || (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims ||
+      n_features < 1 || n_features > 8)
     return cudaErrorInvalidValue;
   for (int i = 0; i < n_groups; ++i)
     if (groups[4 * i + 1] <= 0 || groups[4 * i + 2] < 0 || groups[4 * i + 2] > kWindowMaxBytes ||
         (groups[4 * i + 3] != 1 && groups[4 * i + 3] != 2) || groups[4 * i + 1] % groups[4 * i + 3])
       return cudaErrorInvalidValue;
-  HashConsts hc;
-  for (int d = 0; d < 4; ++d) hc.factors[d] = hash_factors[d];
-  hc.coherent_add = coherent_add ? 1 : 0;
   const BwdParams a{x, level_frac, n_levels, dcols, level_params, items, grad,
-                    x_stride_b, dc_stride_b, dc_stride_f, hc, interp};
+                    x_stride_b, dc_stride_b, dc_stride_f,
+                    make_hash_consts(hash_factors, hash_kind), interp};
 
   cudaError_t err = cudaMemsetAsync(grad, 0, size_t(n_params) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
-  err = dcols_bf16 ? dispatch_df(n_dims, n_features,
-                                 BwdLaunch<__nv_bfloat16>{a, groups, n_groups, stream})
-                   : dispatch_df(n_dims, n_features, BwdLaunch<float>{a, groups, n_groups, stream});
+  if (wide_instance(n_dims, hash_kind) || u != nullptr) {
+    for (int i = 0; i < n_groups && err == cudaSuccess; ++i) {
+      const int32_t* g = groups + 4 * i;
+      if (g[3] != 1) return cudaErrorInvalidValue;   // no clusters
+      BwdParams p = a;
+      p.items = a.items + int64_t(g[0]) * kItemFields;
+      if (g[2] > 48 * 1024) {
+        err = cudaFuncSetAttribute(grid_encode_bwd_wide_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, g[2]);
+        if (err != cudaSuccess) return err;
+      }
+      grid_encode_bwd_wide_kernel<<<g[1], kBwdThreads, g[2], stream>>>(p, n_dims, n_features,
+                                                                       dcols_bf16, u, batch);
+      err = cudaGetLastError();
+    }
+  } else {
+    err = dcols_bf16 ? dispatch_df(n_dims, n_features,
+                                   BwdLaunch<__nv_bfloat16>{a, groups, n_groups, stream})
+                     : dispatch_df(n_dims, n_features, BwdLaunch<float>{a, groups, n_groups, stream});
+  }
   if (err != cudaSuccess || !out_bf16) return err;
   cast_to_bf16_kernel<<<unsigned((n_params + kGridThreads - 1) / kGridThreads), kGridThreads,
                         0, stream>>>(grad, static_cast<__nv_bfloat16*>(out), n_params);

@@ -42,7 +42,8 @@
 // nothing, nor do the levels a sample's coarse-to-fine mask drops
 // (level_frac, as in kernels G and GB: grid_common.cuh's level_threshold;
 // null, no mask), tested at run time: a level the sample does not keep
-// loads nothing.
+// loads nothing.  Rng grids and 5 to 7 dims run one instance with D at run
+// time (grid_encode_bwd_input_wide_kernel), each corner's row in full.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -116,6 +117,50 @@ grid_encode_bwd_input_kernel(const float* __restrict__ x, const float* __restric
   for (int d = 0; d < D; ++d) dx[b * D + d] = acc[d];
 }
 
+// Rng grids and 5 to 7 dims: one instance with D, F and the dtypes at run
+// time (WideCorners), the same sums in the same order, each corner's row
+// loaded as it is used.
+__global__ void __launch_bounds__(kGridThreads)
+grid_encode_bwd_input_wide_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ level_frac, const void* table,
+                                  bool table_bf16, const void* dcols, bool dcols_bf16,
+                                  const int32_t* __restrict__ level_params,
+                                  float* __restrict__ dx, int64_t batch, int n_levels,
+                                  int n_dims, int n_features, int64_t x_stride_b,
+                                  int64_t dc_stride_b, int64_t dc_stride_f, HashConsts hc,
+                                  int interp) {
+  const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
+  if (b >= batch) return;
+  float acc[kMaxDims] = {};
+  const float thr = level_frac ? level_threshold(level_frac[b], n_levels)
+                               : __int_as_float(0x7f800000);
+  for (int level = 0; level < n_levels; ++level) {
+    const int32_t* lp = level_params + level * kLevelFields;
+    if (lp[4] == 0 || !(float(level) < thr)) continue;
+    const WideCorners lc(lp, x + b * x_stride_b, n_dims, interp);
+    float dy[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      dy[k] = k < n_features
+          ? load_any(dcols, dcols_bf16, b * dc_stride_b + int64_t(level * n_features + k) * dc_stride_f)
+          : 0.0f;
+    for (int c = 0; c < (1 << n_dims); ++c) {
+      const int64_t row = int64_t(lc.row(c, hc)) * n_features;
+      float val = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < n_features) val += load_any(table, table_bf16, row + k) * dy[k];
+      float g[kMaxDims];
+      lc.weight_grad(c, g);
+#pragma unroll
+      for (int d = 0; d < kMaxDims; ++d) acc[d] += g[d] * val;
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < kMaxDims; ++d)
+    if (d < n_dims) dx[b * n_dims + d] = acc[d];
+}
+
 struct BwdInputLaunch {
   const float* x;
   const float* level_frac;
@@ -158,13 +203,19 @@ cudaError_t grid_encode_bwd_input_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const void* dcols, bool dcols_bf16, const int32_t* level_params,
     float* dx, int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
-    int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add, int interp,
+    int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind, int interp,
     cudaStream_t stream) {
-  if (batch <= 0 || n_levels <= 0 || interp < 0 || interp > 2 || x_stride_b < n_dims)
+  if (batch <= 0 || n_levels <= 0 || interp < 0 || interp > 2 || x_stride_b < n_dims ||
+      n_dims < 1 || n_dims > kMaxDims || n_features < 1 || n_features > 8)
     return cudaErrorInvalidValue;
-  HashConsts hc;
-  for (int d = 0; d < 4; ++d) hc.factors[d] = hash_factors[d];
-  hc.coherent_add = coherent_add ? 1 : 0;
+  const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
+  if (wide_instance(n_dims, hash_kind)) {
+    grid_encode_bwd_input_wide_kernel<<<unsigned((batch + kGridThreads - 1) / kGridThreads),
+                                        kGridThreads, 0, stream>>>(
+        x, level_frac, table, table_bf16, dcols, dcols_bf16, level_params, dx, batch,
+        n_levels, n_dims, n_features, x_stride_b, dc_stride_b, dc_stride_f, hc, interp);
+    return cudaGetLastError();
+  }
   return dispatch_df(n_dims, n_features,
                      BwdInputLaunch{x, level_frac, table, table_bf16, dcols, dcols_bf16,
                                     level_params, dx, batch, n_levels, x_stride_b, dc_stride_b,

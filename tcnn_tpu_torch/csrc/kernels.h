@@ -25,13 +25,15 @@ namespace tcnn_tpu_torch {
 //   level_params (n_levels, 12) int32, see ops/grid_ops.py::level_params
 //   out          element (b, l*F+f) at out[b*out_stride_b + (l*F+f)*out_stride_f],
 //                in the table's dtype
-//   hash_factors four uint32 LCG factors; coherent_add selects the
-//                additive dim-0 hash; interp: 0 nearest, 1 linear, 2 smoothstep
+//   n_dims       1 to 7 (5 to 7: the kernel's one run-time-D instance)
+//   hash_factors seven uint32 LCG factors (zero past n_dims); hash_kind: 0 the
+//                factors' XOR, 1 CoherentAdd (dim 0 added), 2 Rng (pcg32)
+//   interp       0 nearest, 1 linear, 2 smoothstep
 cudaError_t grid_encode_fwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
-    const uint32_t hash_factors[4], bool coherent_add, int interp,
+    const uint32_t hash_factors[7], int hash_kind, int interp,
     cudaStream_t stream);
 
 // Kernel M: fused-MLP forward (csrc/fused_mlp.cu).
@@ -63,14 +65,19 @@ cudaError_t fused_mlp_fwd_launch(
 //   grad         (n_params) float32 scratch: zeroed, then accumulated into
 //   out          (n_params) gradient in the table's dtype: bfloat16 (a cast of
 //                grad) or, for float32 tables, grad itself
-//   other arguments as for grid_encode_fwd_launch
+//   u            (n_levels, batch) float32 uniforms of stochastic interpolation
+//                (ops/grid_ops.py::stochastic_uniforms), or null: with them,
+//                sample b's whole gradient on level l goes to one corner, cell
+//                + 1 on dim d iff u[l, b] < w1_d
+//   other arguments as for grid_encode_fwd_launch (n_dims 5 to 7: direct
+//   items only)
 cudaError_t grid_encode_bwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* dcols,
     bool dcols_bf16, const int32_t* level_params, int n_levels, const int32_t* items,
     const int32_t* groups, int n_groups,
     float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
-    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[4],
-    bool coherent_add, int interp, cudaStream_t stream);
+    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7],
+    int hash_kind, int interp, const float* u, int64_t batch, cudaStream_t stream);
 
 // Kernel MB: fused-MLP backward (csrc/fused_mlp_bwd.cu).
 //   x, weights, d_in, width, d_out, act, out_act: as for fused_mlp_fwd_launch
@@ -90,7 +97,7 @@ cudaError_t fused_mlp_bwd_launch(
     bool compute_bf16, int act, int out_act, bool soa_in, cudaStream_t stream);
 
 // Kernel GI: grid-encode input gradient (csrc/grid_encode_bwd_input.cu).
-//   x, x_stride_b, level_frac, level_params, hash_factors, coherent_add, interp:
+//   x, x_stride_b, level_frac, level_params, hash_factors, hash_kind, interp:
 //                as for grid_encode_fwd_launch
 //   table        flat (n_entries * n_features), float32 or bfloat16 (table_bf16)
 //   dcols        as for grid_encode_bwd_launch, float32 or bfloat16 (dcols_bf16)
@@ -99,11 +106,14 @@ cudaError_t grid_encode_bwd_input_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const void* dcols, bool dcols_bf16, const int32_t* level_params,
     float* dx, int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
-    int64_t dc_stride_f, const uint32_t hash_factors[4], bool coherent_add, int interp,
+    int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind, int interp,
     cudaStream_t stream);
 
 // Kernel GG: grid-encode second order (csrc/grid_encode_bwd_bwd.cu).
-//   x, table, dcols and the rest: as for grid_encode_bwd_input_launch
+//   x, level_frac, table, dcols and the rest: as for grid_encode_bwd_input_launch;
+//                a masked (sample, level) adds nothing to d_x and writes none
+//                of d_dcols, rows and g: under a mask the caller fills them
+//                with 0, -1 (a row RS skips) and 0
 //   ddx          (batch, n_dims) float32, contiguous: the cotangent of GI's dx
 //   d_dcols      (n_levels * n_features, batch) float32 SoA, or null
 //   d_x          (batch, n_dims) float32, or null
@@ -111,11 +121,12 @@ cudaError_t grid_encode_bwd_input_launch(
 //                n_live the levels marked live, in (live level, corner, sample)
 //                order; both or neither
 cudaError_t grid_encode_bwd_bwd_launch(
-    const float* x, int64_t x_stride_b, const void* table, bool table_bf16,
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
+    bool table_bf16,
     const void* dcols, bool dcols_bf16, const float* ddx, const int32_t* level_params,
     float* d_dcols, float* d_x, int32_t* rows, float* g, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t dc_stride_b, int64_t dc_stride_f,
-    const uint32_t hash_factors[4], bool coherent_add, int interp, cudaStream_t stream);
+    const uint32_t hash_factors[7], int hash_kind, int interp, cudaStream_t stream);
 
 // Kernel RS: row scatter-add (csrc/row_scatter.cu).
 //   idx          (m) int32 rows; rows outside [0, n_rows) are skipped

@@ -17,6 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ...common import Activation
+from .. import func_rules
 from ..activations import activation_derivative, apply_activation
 from . import kernels, require_cuda_tensors
 
@@ -118,15 +119,17 @@ def fused_mlp_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
                         g: torch.Tensor, activation: Activation,
                         output_activation: Activation,
                         compute_dtype: torch.dtype = torch.bfloat16,
-                        input_soa: bool = False, output_soa: bool = False
+                        input_soa: bool = False, output_soa: bool = False,
+                        dx_dtype: Optional[torch.dtype] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Plain PyTorch version of kernel MB, step for step as _bwd_kernel
     (fused_mlp.py:113-198 of the JAX package): the forward recomputed with
     the rounding of ``fused_mlp_plain``; dz = g · out_act'(z_out) rounded
     to ``compute_dtype``; per layer, from the last, dW = hᵀ dz and
     dh = dz Wᵀ in fp32, then dz = dh · act'(z) rounded.  Returns the
-    weight gradients in fp32 and dx in x's dtype and layout.  It is not
-    autograd of ``fused_mlp_plain``, which would round elsewhere."""
+    weight gradients in fp32 and dx in x's layout and dtype (or
+    ``dx_dtype``).  It is not autograd of ``fused_mlp_plain``, which would
+    round elsewhere."""
     cdt = compute_dtype
     ws = [w.to(cdt).float() for w in weights]
     hs = [(x.t() if input_soa else x).to(cdt).float()]   # the input of each layer
@@ -143,20 +146,86 @@ def fused_mlp_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
             dz = (dh * activation_derivative(zs[i], activation)).to(cdt).float()
         dws[i] = hs[i].t() @ dz
         dh = dz @ ws[i].t()
-    dx = (dh.t() if input_soa else dh).to(x.dtype)
+    dx = (dh.t() if input_soa else dh).to(dx_dtype or x.dtype)
     return dws, dx
 
 
-def _max_hidden(d_in: int, d_out: int, width: int, bf16: bool, act: int,
-                out_act: int) -> int:
-    """The most hidden layers whose kernel-MB layout fits in MAX_SMEM at
-    these widths and activations (every hidden h_k of a tile stays in
-    shared memory, csrc/fused_mlp_bwd.cu: bwd_tile_rows)."""
-    n = 1
-    while n + 2 <= MAX_LAYERS and kernels().fused_mlp_bwd_smem_bytes(
-            d_in, d_out, width, n + 2, bf16, act, out_act) <= MAX_SMEM:
-        n += 1
-    return n
+def mb_segments(n_layers: int, fits) -> List[Tuple[int, int]]:
+    """Kernel MB's launches for a chain of ``n_layers`` layers: the whole
+    chain, where one launch takes it (``fits(0, n_layers)``), else the
+    fewest runs of consecutive layers, as even as may be and each of at
+    least two, that each fit (``fits(first, end)``).  Raises where none do."""
+    for k in range(1, n_layers // 2 + 1):
+        sizes = [n_layers // k + (i < n_layers % k) for i in range(k)]
+        ends = [sum(sizes[:i + 1]) for i in range(k)]
+        segs = list(zip([0] + ends[:-1], ends))
+        if all(fits(a, b) for a, b in segs):
+            return segs
+    raise NotImplementedError(
+        f"kernel MB fits no split of {n_layers} layers into runs of two or more")
+
+
+def fused_mlp_bwd_segmented(weights: Sequence[torch.Tensor], x: torch.Tensor,
+                            g: torch.Tensor, activation: Activation,
+                            output_activation: Activation, compute_dtype: torch.dtype,
+                            input_soa: bool, output_soa: bool,
+                            segments: Sequence[Tuple[int, int]], fwd=None, bwd=None
+                            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The MLP backward as one launch of MB per run of layers
+    (``mb_segments``), for chains whose hidden activations of one tile do
+    not fit in an SM's shared memory: the activations at the runs'
+    boundaries are kept in device memory, as the CUDA original's backward
+    reads the forward's stored activations.  Kernel M computes them,
+    h_a = act(z_{a-1}) rounded to the compute dtype over layers [0, a) run
+    by run (M with ``activation`` as its output activation and the compute
+    dtype as its output dtype: the bits the fused chain holds).  Then MB
+    runs each run from the last: the run's input is h_a, its output
+    gradient the next run's dx in fp32, and its output activation
+    ``activation`` (``output_activation`` for the last run), so that its
+    first step, dz = g · act'(z) rounded, is the fused chain's own step at
+    that layer.  ``fwd``/``bwd``: M's and MB's wrappers (the CPU tests pass
+    the plain versions)."""
+    fwd = fwd or fused_mlp_fwd
+    bwd = bwd or _fused_mlp_bwd_launch
+    L = len(weights)
+    inputs = {0: (x, input_soa)}
+    h, soa = x, input_soa
+    for a, b in segments[:-1]:
+        h = fwd(list(weights[a:b]), h, activation, activation, compute_dtype, compute_dtype,
+                soa, False)
+        soa = False
+        inputs[b] = (h, False)
+    dws: List[Optional[torch.Tensor]] = [None] * L
+    gseg, gsoa = g, output_soa
+    for a, b in reversed(segments):
+        xin, xsoa = inputs[a]
+        seg_dws, gseg = bwd(list(weights[a:b]), xin, gseg, activation,
+                            output_activation if b == L else activation, compute_dtype, xsoa,
+                            gsoa, dx_dtype=x.dtype if a == 0 else torch.float32)
+        dws[a:b] = seg_dws
+        gsoa = False
+    return dws, gseg
+
+
+def _fused_mlp_bwd_launch(weights, x, g, activation, output_activation, compute_dtype,
+                          input_soa, output_soa, dx_dtype):
+    """One launch of kernel MB; dx in ``dx_dtype``."""
+    d_in, d_out = weights[0].shape[0], weights[-1].shape[1]
+    B = x.shape[1] if input_soa else x.shape[0]
+    acts = list(Activation)
+    xc = x.to(compute_dtype).contiguous()
+    ws = [w.to(compute_dtype).contiguous() for w in weights]
+    gf = g.float()
+    require_cuda_tensors("fused_mlp_bwd", xc, gf, *ws)
+    sizes = [w.numel() for w in weights]
+    dw = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    dx = torch.empty((d_in, B) if input_soa else (B, d_in), dtype=dx_dtype, device=x.device)
+    xs_b, xs_d = (1, B) if input_soa else (d_in, 1)
+    gs_b, gs_d = (gf.stride(1), gf.stride(0)) if output_soa else gf.stride()
+    kernels().fused_mlp_bwd(xc, xs_b, xs_d, ws, gf, gs_b, gs_d, dx, xs_b, xs_d, dw, B,
+                            acts.index(activation), acts.index(output_activation), input_soa)
+    fused_mlp_bwd.launches += 1
+    return [d.view(w.shape) for d, w in zip(dw.split(sizes), weights)], dx
 
 
 def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -169,7 +238,12 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
 
     weights, x, layouts: as for ``fused_mlp_fwd``.  g: the output gradient,
     (B, D_out), or (D_out, B) with ``output_soa``, any strides.  Returns
-    ([dW per layer] float32, dx in x's dtype and layout).
+    ([dW per layer] float32, dx in x's dtype and layout).  Where one CTA's
+    share of the hidden activations exceeds an SM's shared memory (width
+    128 beyond about 10 hidden layers in bf16, 8 in fp32), the backward
+    runs as a few launches of MB over runs of layers, with kernel M
+    computing the activations at their boundaries
+    (``fused_mlp_bwd_segmented``); every shape one launch takes keeps it.
     """
     if x.device.type == "cpu":
         return fused_mlp_bwd_plain(weights, x, g, activation, output_activation,
@@ -184,38 +258,33 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
     if g.shape != ((d_out, B) if output_soa else (B, d_out)):
         raise ValueError(f"{name}: output gradient {tuple(g.shape)} does not match "
                          f"B={B}, D_out={d_out} (output_soa={output_soa})")
-    width = weights[0].shape[1]
-    bf16 = compute_dtype == torch.bfloat16
+    if B == 0:
+        return ([torch.zeros(w.shape, dtype=torch.float32, device=x.device) for w in weights],
+                torch.empty((d_in, 0) if input_soa else (0, d_in), dtype=x.dtype,
+                            device=x.device))
+    segments = mb_plan(weights, compute_dtype, activation, output_activation)
+    if len(segments) == 1:
+        return _fused_mlp_bwd_launch(weights, x, g, activation, output_activation,
+                                     compute_dtype, input_soa, output_soa, x.dtype)
+    return fused_mlp_bwd_segmented(weights, x, g, activation, output_activation,
+                                   compute_dtype, input_soa, output_soa, segments)
+
+
+def mb_plan(weights: Sequence[torch.Tensor], compute_dtype: torch.dtype,
+            activation: Activation, output_activation: Activation) -> List[Tuple[int, int]]:
+    """Kernel MB's launches for these layers (``mb_segments``), from the
+    shared memory one CTA of each run needs (the kernel's own layout)."""
+    d_in, width, d_out = weights[0].shape[0], weights[0].shape[1], weights[-1].shape[1]
+    L, bf16 = len(weights), compute_dtype == torch.bfloat16
     acts = list(Activation)
     act, out_act = acts.index(activation), acts.index(output_activation)
-    smem = kernels().fused_mlp_bwd_smem_bytes(d_in, d_out, width, len(weights), bf16, act,
-                                              out_act)
-    if smem > MAX_SMEM:
-        raise NotImplementedError(
-            f"{name}: {len(weights)} layers of width {width} need {smem} bytes of "
-            f"shared memory per CTA, more than the {MAX_SMEM} an SM offers; at "
-            f"{d_in} -> {width} -> {d_out}, {activation.value}, {compute_dtype}, kernel MB "
-            f"takes at most {_max_hidden(d_in, d_out, width, bf16, act, out_act)} hidden "
-            f"layers")
 
-    xc = x.to(compute_dtype).contiguous()
-    ws = [w.to(compute_dtype).contiguous() for w in weights]
-    gf = g.float()
-    require_cuda_tensors(name, xc, gf, *ws)
-    sizes = [w.numel() for w in weights]
-    dw = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    dx = torch.empty((d_in, B) if input_soa else (B, d_in), dtype=x.dtype,
-                     device=x.device)
-    if B == 0:
-        dw.zero_()
-    else:
-        xs_b, xs_d = (1, B) if input_soa else (d_in, 1)
-        gs_b, gs_d = (gf.stride(1), gf.stride(0)) if output_soa else gf.stride()
-        kernels().fused_mlp_bwd(xc, xs_b, xs_d, ws, gf, gs_b, gs_d, dx, xs_b, xs_d,
-                                dw, B, act, out_act, input_soa)
-        fused_mlp_bwd.launches += 1
-    dws = [d.view(w.shape) for d, w in zip(dw.split(sizes), weights)]
-    return dws, dx
+    def fits(a, b):
+        return kernels().fused_mlp_bwd_smem_bytes(
+            d_in if a == 0 else width, d_out if b == L else width, width, b - a, bf16, act,
+            out_act if b == L else act) <= MAX_SMEM
+
+    return mb_segments(L, fits)
 
 
 fused_mlp_bwd.launches = 0
@@ -255,6 +324,40 @@ def fused_mlp_bwd_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     return d_x, d_g, d_ws
 
 
+def fused_mlp_tangent_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
+                            t_x: Optional[torch.Tensor],
+                            t_ws: Sequence[Optional[torch.Tensor]], activation: Activation,
+                            output_activation: Activation, compute_dtype: torch.dtype,
+                            output_dtype: torch.dtype, input_soa: bool = False,
+                            output_soa: bool = False) -> torch.Tensor:
+    """The tangent of ``fused_mlp_plain`` at (x, W) along (t_x, t_W) (None:
+    zero), forward mode written out: t_z = t_h W + h t_W in fp32, t_h' =
+    act'(z)·t_z, each tangent rounded where its primal is (JAX's jvp of
+    ``astype`` rounds the tangent too), as ``jax.jvp`` of the JAX package's
+    XLA chain gives it (``tcnn_tpu/models/networks/fused_mlp.py:112-119``,
+    its fallback under a forward-mode trace).  Plain torch operations, so
+    ``torch.func.vmap`` runs it on batched tangents."""
+    cdt = compute_dtype
+    h = (x.t() if input_soa else x).to(cdt)
+    t = None if t_x is None else (t_x.t() if input_soa else t_x).to(cdt)
+    last = len(weights) - 1
+    for i, w in enumerate(weights):
+        wc = w.to(cdt).float()
+        z = h.float() @ wc
+        tz = None if t is None else t.float() @ wc
+        if t_ws[i] is not None:
+            tw = h.float() @ t_ws[i].to(cdt).float()
+            tz = tw if tz is None else tz + tw
+        act = output_activation if i == last else activation
+        if tz is not None:
+            t = (tz * activation_derivative(z, act)).to(output_dtype if i == last else cdt)
+        if i < last:
+            h = apply_activation(z, act).to(cdt)
+    if t is None:
+        t = torch.zeros((h.shape[0], weights[-1].shape[1]), dtype=output_dtype, device=x.device)
+    return t.t() if output_soa else t
+
+
 class FusedMLPFunction(torch.autograd.Function):
     """The fused MLP with its explicit backward, the counterpart of
     ``_fused_mlp``'s custom VJP (``tcnn_tpu/ops/pallas/fused_mlp.py:228-233,
@@ -263,17 +366,28 @@ class FusedMLPFunction(torch.autograd.Function):
     weight gradients come back in fp32, the masters' dtype; dx in x's
     dtype, computed in fp32 and cast once (:416-420).  Under
     ``create_graph`` the backward is ``FusedMLPBackwardFunction``, so it
-    can be differentiated once more."""
+    can be differentiated once more.
+
+    ``torch.func`` (the transform picks the route, never a failed launch):
+    ``jvp`` is ``fused_mlp_tangent_plain``, plain torch math, as the JAX
+    package computes the tangent in its XLA chain outside the Pallas
+    kernel (``tcnn_tpu/models/networks/fused_mlp.py:112-119``); the primal
+    stays kernel M's.  ``vmap`` (``func_rules``): a vmapped x folds into
+    the batch, one launch; vmapped weights take a launch per entry."""
 
     @staticmethod
-    def forward(ctx, x, activation, output_activation, compute_dtype,
-                output_dtype, input_soa, output_soa, *weights):
+    def forward(x, activation, output_activation, compute_dtype, output_dtype, input_soa,
+                output_soa, *weights):
+        return fused_mlp_fwd(list(weights), x, activation, output_activation, compute_dtype,
+                             output_dtype, input_soa, output_soa)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, *args = inputs[:7]
         ctx.set_materialize_grads(False)   # no gradient in, no kernel launched
-        ctx.args = (activation, output_activation, compute_dtype, output_dtype,
-                    input_soa, output_soa)
-        ctx.save_for_backward(x, *weights)
-        return fused_mlp_fwd(list(weights), x, activation, output_activation,
-                             compute_dtype, output_dtype, input_soa, output_soa)
+        ctx.args = tuple(args)
+        ctx.save_for_backward(x, *inputs[7:])
+        ctx.save_for_forward(x, *inputs[7:])
 
     @staticmethod
     def backward(ctx, dy):
@@ -289,6 +403,20 @@ class FusedMLPFunction(torch.autograd.Function):
         return (dx if ctx.needs_input_grad[0] else None,
                 None, None, None, None, None, None, *dws)
 
+    @staticmethod
+    def jvp(ctx, t_x, *tangents):
+        x, *weights = ctx.saved_tensors
+        return fused_mlp_tangent_plain(weights, x, t_x, tangents[6:], *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, x, *rest):
+        args = (x, *rest)
+        if any(d is not None for d in in_dims[7:]):
+            return func_rules.loop(FusedMLPFunction, info, in_dims, args)
+        n, soa_in, soa_out = info.batch_size, rest[4], rest[5]
+        y = FusedMLPFunction.apply(func_rules.fold(x, in_dims[0], n, 1 if soa_in else 0), *rest)
+        return func_rules.unfold(y, n, 1 if soa_out else 0), 1 if soa_out else 0
+
 
 class FusedMLPBackwardFunction(torch.autograd.Function):
     """The MLP backward ``(x, g, W) → (dx, dW)`` as a differentiable
@@ -301,21 +429,33 @@ class FusedMLPBackwardFunction(torch.autograd.Function):
     by construction (a ReLU MLP's dx does not depend on x) it is returned
     as zeros, as JAX's VJP gives them, except into a grid encoding's
     backward, which would launch kernels GB and GI to add nothing.  A
-    third derivative raises ``NotImplementedError`` (ROADMAP.md)."""
+    third derivative raises ``NotImplementedError`` (ROADMAP.md Queue 1).
+
+    ``torch.func``: ``jvp`` along (t_x, t_g, t_W) is MB on t_g (the
+    backward is linear in g: a kernel) plus the gradient in (x, W) of
+    ⟨g, J·(t_x, t_W)⟩, J·t from ``fused_mlp_tangent_plain`` and its
+    gradient by ``torch.func.vjp``, plain torch math as JAX forms it in XLA.
+    ``vmap``: a launch per entry.  dx alone would fold a vmapped x or g into
+    the batch, but MB's dW sums over the samples, and the function returns
+    it: a fold would mix the entries' dW."""
 
     @staticmethod
-    def forward(ctx, x, g, activation, output_activation, compute_dtype,
-                output_dtype, input_soa, output_soa, *weights):
-        from ..grid_ops import GridEncodeFunction
-
-        ctx.set_materialize_grads(False)
-        ctx.args = (activation, output_activation, compute_dtype, output_dtype,
-                    input_soa, output_soa)
-        ctx.x_from_grid = isinstance(x.grad_fn, GridEncodeFunction._backward_cls)
-        ctx.save_for_backward(x, g, *weights)
+    def forward(x, g, activation, output_activation, compute_dtype, output_dtype, input_soa,
+                output_soa, *weights):
         dws, dx = fused_mlp_bwd(list(weights), x, g, activation, output_activation,
                                 compute_dtype, input_soa, output_soa)
         return (dx, *[d.to(w.dtype) for d, w in zip(dws, weights)])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        from ..grid_ops import GridEncodeFunction
+
+        x, g, *args = inputs[:8]
+        ctx.set_materialize_grads(False)
+        ctx.args = tuple(args)
+        ctx.x_from_grid = isinstance(x.grad_fn, GridEncodeFunction._backward_cls)
+        ctx.save_for_backward(x, g, *inputs[8:])
+        ctx.save_for_forward(x, g, *inputs[8:])
 
     @staticmethod
     def backward(ctx, ct_dx, *ct_dws):
@@ -330,3 +470,26 @@ class FusedMLPBackwardFunction(torch.autograd.Function):
             d_x = torch.zeros_like(x)
         return (d_x, d_g.to(g.dtype) if d_g is not None else None,
                 None, None, None, None, None, None, *d_ws)
+
+    @staticmethod
+    def jvp(ctx, t_x, t_g, *tangents):
+        x, g, *weights = ctx.saved_tensors
+        act, out_act, cdt, odt, soa_in, soa_out = ctx.args
+        t_ws = tangents[6:]
+        t_dx = t_dws = None
+        if t_g is not None:
+            t_dx, *t_dws = FusedMLPBackwardFunction.apply(x, t_g, *ctx.args, *weights)
+        if t_x is not None or any(t is not None for t in t_ws):
+            def inner(xx, *ws):
+                return fused_mlp_tangent_plain(ws, xx, t_x, t_ws, act, out_act, cdt, odt,
+                                               soa_in, soa_out)
+
+            _, pullback = torch.func.vjp(inner, x, *weights)
+            h_x, *h_ws = pullback(g.to(odt))
+            t_dx = h_x if t_dx is None else t_dx + h_x
+            t_dws = h_ws if t_dws is None else [a + b for a, b in zip(t_dws, h_ws)]
+        return (t_dx.to(x.dtype), *[t.to(w.dtype) for t, w in zip(t_dws, weights)])
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return func_rules.loop(FusedMLPBackwardFunction, info, in_dims, args)

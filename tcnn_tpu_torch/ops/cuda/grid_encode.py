@@ -17,9 +17,15 @@ package forms both in jnp (``_finish_interp_bwd`` and autodiff of
 tensor takes ``grid_encode_plain``, ``grid_encode_bwd_plain``,
 ``grid_encode_bwd_input_plain`` or ``grid_encode_bwd_bwd_plain``, the same
 functions in plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold
-the kernels against.  G, GB and GI take optional per-sample level fractions
-(``level_frac``, the coarse-to-fine mask of ``grid_ops.level_mask``); GG
-takes none.
+the kernels against.  All four take optional per-sample level fractions
+(``level_frac``, the coarse-to-fine mask of ``grid_ops.level_mask``), every
+hash type and 1 to 7 dims.  Rng grids (the pcg32 hash, each corner's in
+full) and 5 to 7 dims run one instance of each kernel with D at run time
+(csrc/grid_common.cuh: WideCorners).  Under stochastic interpolation GB scatters with
+JAX's ``ws_bwd`` (``grid_ops.build_indices_weights(scatter=True)``), from
+the uniforms of ``grid_ops.stochastic_uniforms``, in that instance too; G,
+GI and GG use the ordinary weights, as JAX's forward and input gradient
+do.
 """
 
 from __future__ import annotations
@@ -59,16 +65,16 @@ def grid_encode_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     return out if soa else out.t()
 
 
+_HASH_KIND = {HashType.COHERENT_ADD: 1, HashType.RNG: 2}   # others 0: the factors' XOR
+
+
 def _hash_args(spec: grid_ops.GridSpec):
-    if spec.hash_type == HashType.RNG:
-        raise NotImplementedError(
-            "the Rng (pcg32) grid hash is ported with the grid options "
-            "(ROADMAP.md Queue 1 item 7)")
-    coherent_add = spec.hash_type == HashType.COHERENT_ADD
-    factors = grid_ops.hash_factors(
-        HashType.COHERENT_PRIME if coherent_add else spec.hash_type,
-        spec.n_dims)
-    return list(factors) + [0] * (4 - len(factors)), coherent_add
+    """The kernels' hash arguments: seven uint32 factors (zero past D; none
+    for Rng) and the kind (csrc/grid_common.cuh::make_hash_consts)."""
+    kind = _HASH_KIND.get(spec.hash_type, 0)
+    factors = [] if kind == 2 else list(grid_ops.hash_factors(
+        HashType.COHERENT_PRIME if kind == 1 else spec.hash_type, spec.n_dims))
+    return factors + [0] * (grid_ops.MAX_DIMS - len(factors)), kind
 
 
 _level_consts: Dict[Tuple, torch.Tensor] = {}
@@ -88,13 +94,9 @@ def _consts(spec: grid_ops.GridSpec, live: Sequence[int],
 def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
                 x: torch.Tensor) -> None:
     """What the grid kernels take; raises on anything else."""
-    if spec.stochastic_interpolation:
-        raise NotImplementedError(
-            "stochastic interpolation is ported with the grid options "
-            "(ROADMAP.md Queue 1 item 7)")
     D, F = spec.n_dims, spec.n_features_per_level
-    if not 1 <= D <= 4 or not 1 <= F <= 8:
-        raise ValueError(f"{name}: the kernel covers D <= 4 and F <= 8, "
+    if not 1 <= D <= grid_ops.MAX_DIMS or not 1 <= F <= 8:
+        raise ValueError(f"{name}: the kernel covers D <= {grid_ops.MAX_DIMS} and F <= 8, "
                          f"got D={D}, F={F}")
     if x.dtype != torch.float32 or x.shape != (x.shape[0], D) or (
             D > 1 and x.stride(1) != 1):
@@ -146,7 +148,7 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     _check_args(name, spec, flat, x)
     _check_frac(name, x, level_frac)
     level_consts = _consts(spec, live, x.device)
-    factors, coherent_add = _hash_args(spec)
+    factors, hash_kind = _hash_args(spec)
     F, L = spec.n_features_per_level, spec.n_levels
 
     B = x.shape[0]
@@ -157,7 +159,7 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     stride_b, stride_f = (1, B) if soa else (L * F, 1)
     kernels().grid_encode_fwd(x, _x_row_stride(x), level_frac, flat, level_consts, out,
                               spec.n_dims, F, stride_b, stride_f, factors,
-                              coherent_add, _INTERP_CODE[spec.interpolation])
+                              hash_kind, _INTERP_CODE[spec.interpolation])
     grid_encode_fwd.launches += 1
     return out
 
@@ -175,13 +177,16 @@ def grid_encode_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     (``index_add_``), cast once to ``flat``'s dtype
     (grid_ops.py:1099-1102 of the JAX package).  ``dcols`` is the
     (L·F, B) SoA output gradient; dead levels, and the (sample, level)
-    pairs ``level_frac`` masks, add nothing."""
+    pairs ``level_frac`` masks, add nothing.  w are the scatter weights,
+    stochastic interpolation's one-hot corner where the spec asks for it
+    (``build_indices_weights(scatter=True)``)."""
     F = spec.n_features_per_level
     B = x.shape[0]
     dflat = torch.zeros((spec.n_entries, F), dtype=torch.float32,
                         device=x.device)
     if live and B:
-        idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac)
+        idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac,
+                                                 scatter=True)
         L = len(live)
         C = ws.shape[0] // L
         rows = torch.tensor([l * F + f for l in live for f in range(F)],
@@ -297,7 +302,8 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     a masked (sample, level) issues no update.  Levels whose
     rows fit in one or two CTAs' shared memory are summed there
     (``gb_plan``), the others by direct atomics: by design, not as a
-    fallback.
+    fallback.  Under stochastic interpolation the kernel takes the
+    (n_levels, B) uniforms of ``grid_ops.stochastic_uniforms``.
     """
     if x.device.type == "cpu":
         return grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac)
@@ -316,16 +322,18 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
         raise ValueError(f"{name}: {B} samples exceed the plan's int32 sample indices")
     level_consts = _consts(spec, live, x.device)
     items, groups = _gb_plan_on(spec, live, B, x.device)
-    factors, coherent_add = _hash_args(spec)
+    factors, hash_kind = _hash_args(spec)
     grad = torch.empty(flat.numel(), dtype=torch.float32, device=x.device)
     if B == 0:
         return grad.zero_().to(flat.dtype)
     out = grad if flat.dtype == torch.float32 else torch.empty_like(flat)
+    u = (grid_ops.stochastic_uniforms(L, B, x.device) if spec.stochastic_interpolation
+         else None)
     kernels().grid_encode_bwd(x, _x_row_stride(x), level_frac, dcols, level_consts, items,
                               groups, grad,
                               out, spec.n_dims, F, dcols.stride(1), dcols.stride(0),
-                              factors, coherent_add,
-                              _INTERP_CODE[spec.interpolation])
+                              factors, hash_kind,
+                              _INTERP_CODE[spec.interpolation], u)
     grid_encode_bwd.launches += 1
     return out
 
@@ -399,7 +407,7 @@ def grid_encode_bwd_input(spec: grid_ops.GridSpec, flat: torch.Tensor,
     _check_dcols(name, spec, x, dcols)
     _check_frac(name, x, level_frac)
     level_consts = _consts(spec, live, x.device)
-    factors, coherent_add = _hash_args(spec)
+    factors, hash_kind = _hash_args(spec)
     B, D = x.shape
     dx = torch.empty((B, D), dtype=torch.float32, device=x.device)
     if B == 0:
@@ -407,7 +415,7 @@ def grid_encode_bwd_input(spec: grid_ops.GridSpec, flat: torch.Tensor,
     kernels().grid_encode_bwd_input(x, _x_row_stride(x), level_frac, flat, dcols,
                                     level_consts, dx,
                                     D, spec.n_features_per_level, dcols.stride(1),
-                                    dcols.stride(0), factors, coherent_add,
+                                    dcols.stride(0), factors, hash_kind,
                                     _INTERP_CODE[spec.interpolation])
     grid_encode_bwd_input.launches += 1
     return dx
@@ -427,7 +435,8 @@ class BwdBwd(NamedTuple):
 def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                               x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
                               live: Sequence[int], need_dcols: bool = True,
-                              need_x: bool = True, need_rows: bool = True) -> BwdBwd:
+                              need_x: bool = True, need_rows: bool = True,
+                              level_frac: Optional[torch.Tensor] = None) -> BwdBwd:
     """Plain PyTorch version of kernel GG, the backward of the input
     gradient given its cotangent ``ddx`` (B, D).  With w'_c = Σ_d
     ∂w_c/∂x_d · ddx_d per (level, corner, sample):
@@ -435,7 +444,11 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
       d_x[b, e] = Σ_{l,c,k} Σ_d ∂²w_c/∂x_d∂x_e · ddx_d · table[row_c, k] · dcols[l·F+k, b];
       rows, g: the corner rows and g = w'_c · dcols[l·F:(l+1)·F, b], whose
       scatter-add (kernel RS) is the table gradient.
-    All in fp32; (rows, g) in (live level, corner, sample) order."""
+    All in fp32; (rows, g) in (live level, corner, sample) order.  A
+    (sample, level) that ``level_frac`` masks has zero weight derivatives
+    (``build_indices_weights``), so it contributes nothing: zero d_dcols,
+    nothing to d_x, g = 0, and its rows are -1, which kernel RS and its
+    plain version skip (as the kernel writes them)."""
     B, D = x.shape
     F, C, L = spec.n_features_per_level, 1 << spec.n_dims, len(live)
     dev = x.device
@@ -446,7 +459,8 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     g = torch.zeros((L * C * B, F), dtype=torch.float32, device=dev) if need_rows else None
     if not (live and B):
         return BwdBwd(d_dcols, d_x, rows, g)
-    idx, _, dws, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2)
+    idx, _, dws, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2,
+                                                       level_frac=level_frac)
     v = ddx.float()
     wp = (dws * v[None]).sum(-1).reshape(L, C, B)               # w'_c
     feats = _corner_features(spec, flat, idx)                    # (L, C, B, F)
@@ -460,7 +474,11 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
         hv = (d2ws * v[None, :, :, None]).sum(-2).reshape(L, C, B, D)
         d_x = (hv * val[..., None]).sum((0, 1))
     if need_rows:
-        rows = idx.reshape(-1).to(torch.int32)
+        rows = idx.reshape(L, C, B).to(torch.int32)
+        if level_frac is not None:
+            keep = grid_ops.level_mask(spec, live, level_frac)[:, None, :] > 0
+            rows = torch.where(keep, rows, -1)
+        rows = rows.reshape(-1)
         g = (wp[..., None] * dy).reshape(L * C * B, F)
     return BwdBwd(d_dcols, d_x, rows, g)
 
@@ -468,37 +486,45 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
 def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tensor,
                         dcols: torch.Tensor, ddx: torch.Tensor, live: Sequence[int],
                         need_dcols: bool = True, need_x: bool = True,
-                        need_rows: bool = True) -> BwdBwd:
-    """Kernel GG: see ``grid_encode_bwd_bwd_plain``.  ``flat``, ``x`` and
-    ``dcols`` as for ``grid_encode_bwd_input``; ``ddx`` (B, D) float32."""
+                        need_rows: bool = True,
+                        level_frac: Optional[torch.Tensor] = None) -> BwdBwd:
+    """Kernel GG: see ``grid_encode_bwd_bwd_plain``.  ``flat``, ``x``,
+    ``dcols`` and ``level_frac`` as for ``grid_encode_bwd_input``; ``ddx``
+    (B, D) float32."""
     if x.device.type == "cpu":
         return grid_encode_bwd_bwd_plain(spec, flat, x, dcols, ddx, live, need_dcols,
-                                         need_x, need_rows)
+                                         need_x, need_rows, level_frac)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_bwd_bwd: unsupported device {x.device}")
     name = "grid_encode_bwd_bwd"
     _check_args(name, spec, flat, x)
     _check_dcols(name, spec, x, dcols)
+    _check_frac(name, x, level_frac)
     B, D = x.shape
     if ddx.shape != (B, D):
         raise ValueError(f"{name}: ddx must be ({B}, {D}), got {tuple(ddx.shape)}")
     ddx = ddx.float().contiguous()
     require_cuda_tensors(name, x, ddx)
     level_consts = _consts(spec, live, x.device)
-    factors, coherent_add = _hash_args(spec)
+    factors, hash_kind = _hash_args(spec)
     F, C, L = spec.n_features_per_level, 1 << D, len(live)
     dev = x.device
+    # under a mask the kernel writes nothing for a masked (sample, level):
+    # these fills stand (zero d_dcols and g, row -1, which RS skips)
+    fill = level_frac is not None
     out = BwdBwd(
-        torch.empty((spec.n_levels * F, B), dtype=torch.float32, device=dev)
-        if need_dcols else None,
+        (torch.zeros if fill else torch.empty)((spec.n_levels * F, B), dtype=torch.float32,
+                                               device=dev) if need_dcols else None,
         torch.empty((B, D), dtype=torch.float32, device=dev) if need_x else None,
-        torch.empty(L * C * B, dtype=torch.int32, device=dev) if need_rows else None,
-        torch.empty((L * C * B, F), dtype=torch.float32, device=dev) if need_rows else None)
+        (torch.full((L * C * B,), -1, dtype=torch.int32, device=dev) if fill else
+         torch.empty(L * C * B, dtype=torch.int32, device=dev)) if need_rows else None,
+        (torch.zeros if fill else torch.empty)((L * C * B, F), dtype=torch.float32,
+                                               device=dev) if need_rows else None)
     if B == 0:
         return out
-    kernels().grid_encode_bwd_bwd(x, _x_row_stride(x), flat, dcols, ddx, level_consts,
-                                  *out, D, F, dcols.stride(1), dcols.stride(0), factors,
-                                  coherent_add, _INTERP_CODE[spec.interpolation])
+    kernels().grid_encode_bwd_bwd(x, _x_row_stride(x), level_frac, flat, dcols, ddx,
+                                  level_consts, *out, D, F, dcols.stride(1), dcols.stride(0),
+                                  factors, hash_kind, _INTERP_CODE[spec.interpolation])
     grid_encode_bwd_bwd.launches += 1
     return out
 

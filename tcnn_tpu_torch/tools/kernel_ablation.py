@@ -55,6 +55,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -435,7 +436,7 @@ def time_kernels(config: str, full: bool) -> dict:
     deterministic kernels (G, GI, GG, M, MB's dW) and of GB's on inputs
     whose sums are exact."""
     from tcnn_tpu_torch import BF16_POLICY, create_from_config
-    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.common import Activation, HashType
     from tcnn_tpu_torch import Policy
     from tcnn_tpu_torch.ops import grid_ops
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
@@ -471,6 +472,28 @@ def time_kernels(config: str, full: bool) -> dict:
         etable = torch.zeros(espec.n_params, device=dev)
         out["bits GB exact"] = _bits(grid_encode_bwd(espec, etable, ex, edc,
                                                      list(range(espec.n_levels))))
+        # every hash type and D the kernels took before the Rng hash and the
+        # 5- to 7-D instance: G, GI and GG (deterministic) and GB on sums that
+        # are exact (x in quarters: weights of 1/4^D, dcols of 1/4, at most
+        # 256 x 2^D updates of a row below 2^(24 - 2 - 2D))
+        for ht in (HashType.PRIME, HashType.COHERENT_PRIME, HashType.REVERSED_PRIME,
+                   HashType.COHERENT_ADD):
+            for d in (1, 2, 3, 4):
+                hspec = grid_ops.make_grid_spec(d, 6, 2, 12, 4, 2.0, hash_type=ht)
+                hlive = list(range(hspec.n_levels))
+                hx = torch.randint(0, 5, (256, d), generator=gen, device=dev).float() / 4
+                hdc = torch.randint(-4, 5, (12, 256), generator=gen, device=dev).float() / 4
+                htable = torch.rand(hspec.n_params, generator=gen, device=dev) * 2 - 1
+                hdx = torch.randn((256, d), generator=gen, device=dev)
+                key = f"{ht.value} {d}-D"
+                out[f"bits G {key}"] = _bits(grid_encode_fwd(hspec, htable, hx, hlive))
+                out[f"bits GB exact {key}"] = _bits(grid_encode_bwd(
+                    hspec, torch.zeros_like(htable), hx, hdc, hlive))
+                out[f"bits GI {key}"] = _bits(grid_encode_bwd_input(hspec, htable, hx, hdc,
+                                                                    hlive))
+                hgg = grid_encode_bwd_bwd(hspec, htable, hx, hdc, hdx, hlive)
+                out[f"bits GG {key}"] = _bits(torch.cat([hgg.d_dcols.reshape(-1), hgg.d_x.reshape(-1),
+                                                         hgg.g.reshape(-1)]))
         out["M"] = graph_ms(lambda: fused_mlp_fwd(ws, feats, net.activation,
                                                   net.output_activation, torch.bfloat16,
                                                   torch.float32, True, False))
@@ -855,10 +878,18 @@ def _run(root: Path, *args: str, **kw):
     return subprocess.Popen([sys.executable, "-c", code, str(root), __file__, *args], **kw)
 
 
+def _build_seconds() -> float:
+    """Seconds the build of the ``tcnn_tpu_torch`` on ``sys.path`` takes."""
+    from tcnn_tpu_torch.ops.cuda import kernels
+
+    t0 = time.perf_counter()
+    kernels()
+    return time.perf_counter() - t0
+
+
 def _child(args) -> None:
     if args[0] == "build":
-        from tcnn_tpu_torch.ops.cuda import kernels
-        kernels()
+        print(f"{args[1]}: build {_build_seconds():.1f} s", flush=True)
     elif args[0] == "steps":
         print(json.dumps(time_steps()))
     else:
@@ -908,9 +939,10 @@ def main() -> None:
              if args.only is None or name.startswith(tuple(args.only))}
     if args.baseline:
         roots = {"baseline": Path(args.baseline).resolve(), **roots}
-    builds = {name: _run(root, "build") for name, root in roots.items()}
+    builds = {name: _run(root, "build", name) for name, root in roots.items()}
     print(f"# {smi}; device ms per call at B = {BATCH}: config_hash at BF16_POLICY unless "
           f"labelled", flush=True)
+    print(f"tree: build {_build_seconds():.1f} s (at once with the others' builds)", flush=True)
 
     def show(variant, times):
         for what, v in times.items():

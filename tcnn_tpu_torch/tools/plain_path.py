@@ -140,7 +140,8 @@ def plain_training_step(model, x: torch.Tensor, target: torch.Tensor) -> torch.T
 
 
 def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
-                             table_scale: bool = False, mlp_bwd=fused_mlp_bwd_plain):
+                             table_scale: bool = False, mlp_bwd=fused_mlp_bwd_plain,
+                             level_frac=None):
     """The SDF sample's loss, mean f(x_surf)² + 0.1 · the eikonal loss of
     ∇x f(x_vol), and its gradients by parameter name, for ``net`` a grid
     alone feeding a fused MLP (``samples/fit_sdf_eikonal.py``).  Each
@@ -151,7 +152,9 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     table entry the sum of the magnitudes of the terms its gradient sums
     (the scale of that sum's rounding in another order).  ``mlp_bwd`` is
     MB's plain version, called for the surface term, then for x_vol; a
-    caller may substitute rows that a switched ReLU explains."""
+    caller may substitute rows that a switched ReLU explains.
+    ``level_frac`` is a per-sample level fraction (B,), the same for both
+    point sets, as the model's ``max_level_per_element``."""
     from ..samples.fit_sdf_eikonal import EIKONAL_WEIGHT, eikonal_loss
 
     enc, mlp, pol = net.encoding, net.network, net.policy
@@ -163,7 +166,10 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     B = x_surf.shape[0]
 
     def features(x):
-        return grid_encode_plain(spec, table, x, live, soa=True).to(cdt)
+        return grid_encode_plain(spec, table, x, live, soa=True, level_frac=level_frac).to(cdt)
+
+    def table_grad(x, dcols):   # GB
+        return grid_encode_bwd_plain(spec, table, x, dcols, live, level_frac=level_frac).float()
 
     def output_grad(y):   # a gradient in column 0 of the (B, D_out) output
         dy = torch.zeros_like(y)
@@ -175,21 +181,22 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     ys = fused_mlp_plain(ws, fs, act, out_act, cdt, odt, True, False).float()
     surf = torch.mean(ys[:, 0] ** 2)
     dws, dfs = mlp_bwd(ws, fs, output_grad(ys) * (2.0 / B), act, out_act, cdt, True, False)
-    dtable = grid_encode_bwd_plain(spec, table, x_surf, dfs, live).float()
-    scale = (grid_encode_bwd_plain(spec, table, x_surf, dfs.abs(), live).float()
-             if table_scale else None)
+    dtable = table_grad(x_surf, dfs)
+    scale = table_grad(x_surf, dfs.abs()) if table_scale else None
     # the input gradient at x_vol: G, MB, GI
     fv = features(x_vol)
     ones = output_grad(torch.ones((B, mlp.n_output_dims), device=x_vol.device))
     _, dfv = mlp_bwd(ws, fv, ones, act, out_act, cdt, True, False)
-    gx = grid_encode_bwd_input_plain(spec, table, x_vol, dfv, live).requires_grad_()
+    gx = grid_encode_bwd_input_plain(spec, table, x_vol, dfv, live,
+                                     level_frac=level_frac).requires_grad_()
     with torch.enable_grad():
         eik = eikonal_loss(gx)
         (ddx,) = torch.autograd.grad(EIKONAL_WEIGHT * eik, gx)
     # its backward: GG and RS (the table), MB's second order (the
     # weights and the features), GB (the table again, unless the features'
     # gradient vanishes: it does for ReLU layers, piecewise linear in x)
-    bb = grid_encode_bwd_bwd_plain(spec, table, x_vol, dfv, ddx, live, need_x=False)
+    bb = grid_encode_bwd_bwd_plain(spec, table, x_vol, dfv, ddx, live, need_x=False,
+                                   level_frac=level_frac)
     dtable = dtable + row_scatter_add_plain(bb.rows, bb.g, spec.n_entries)
     if table_scale:
         scale = scale + row_scatter_add_plain(bb.rows, bb.g.abs(), spec.n_entries)
@@ -197,9 +204,9 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
                                             [None] * len(ws), act, out_act, cdt, odt,
                                             True, False)
     if d_fv is not None:
-        dtable = dtable + grid_encode_bwd_plain(spec, table, x_vol, d_fv, live).float()
+        dtable = dtable + table_grad(x_vol, d_fv)
         if table_scale:
-            scale = scale + grid_encode_bwd_plain(spec, table, x_vol, d_fv.abs(), live).float()
+            scale = scale + table_grad(x_vol, d_fv.abs())
     grads = {"encoding.grid": dtable}
     grads.update({f"network.layers.{i}": a + b for i, (a, b) in enumerate(zip(dws, dws2))})
     loss = (surf + EIKONAL_WEIGHT * eik).detach()

@@ -622,11 +622,17 @@ def test_fused_mlp_kernels_at_depth(cuda, dtype, width, n_hidden):
     tile, dW added in device memory) and n_hidden = 1, ReLU hidden layers.
     M takes every depth; width 128 beyond depth 4 runs MB at half tiles,
     and where one CTA of MB needs more shared memory than an SM has even
-    so (fp32 beyond depth 8, bf16 beyond 10), MB raises, stating its
-    limit.  bf16 stops at depth 3 (non-resident at width 128): over eight
-    bf16 layers a hidden value rounded to the other bf16 neighbour
-    compounds beyond the bf16 bound in M's output too, so depth 8 is held
-    in fp32, and in bf16 only MB's refusal is checked."""
+    so (fp32 beyond depth 8, bf16 beyond 10), MB runs as launches over runs
+    of layers (``fused_mlp_bwd_segmented``), one per run, M giving the
+    activations at their boundaries.  bf16 stops at depth 3 (non-resident
+    at width 128): over eight bf16 layers a hidden value rounded to the
+    other bf16 neighbour compounds beyond the bf16 bound in M's output too,
+    so depth 8 is held in fp32 (dx rows and dW at the MB bounds), and at
+    bf16 depth 11 dW within 2e-2 of each largest magnitude and dx within
+    2e-2 in relative L2 norm: a hidden value that rounds to the other bf16
+    neighbour, or a ReLU it switches, moves a whole dx row, and over
+    eleven layers such rows are more than a switched ReLU explains
+    (chip_smoke.py holds the same at 12 hidden layers)."""
     from tcnn_tpu_torch.ops.cuda import kernels
 
     dims = [(32, width)] + [(width, width)] * (n_hidden - 1) + [(width, 3)]
@@ -634,15 +640,26 @@ def test_fused_mlp_kernels_at_depth(cuda, dtype, width, n_hidden):
     smem = kernels().fused_mlp_bwd_smem_bytes(32, 3, width, len(dims),
                                               dtype == torch.bfloat16, relu, 0)
     if smem > 232448:
+        assert width == 128 and n_hidden == MAX_HIDDEN_128[dtype] + 1
         ws, x, g = mlp_inputs(cuda, dims, 4133, 12, False)
-        limit = MAX_HIDDEN_128[dtype]
-        with pytest.raises(NotImplementedError, match=f"at most {limit} hidden layers"):
-            fused_mlp_bwd(ws, x.to(dtype), g, Activation.RELU, Activation.NONE, dtype)
-        assert width == 128 and n_hidden == limit + 1
+        before = fused_mlp_bwd.launches
+        got_dws, got_dx = fused_mlp_bwd(ws, x.to(dtype), g, Activation.RELU, Activation.NONE,
+                                        dtype)
+        torch.cuda.synchronize()
+        assert fused_mlp_bwd.launches - before == 2
+        want_dws, want_dx = fused_mlp_bwd_plain(ws, x.to(dtype), g, Activation.RELU,
+                                                Activation.NONE, dtype)
+        for a, b in zip(got_dws, want_dws):
+            assert float((a - b).abs().max()) <= mlp_bwd_tol(b, dtype)
+        assert got_dx.dtype == dtype
         if dtype == torch.float32:
+            assert_dx_close(got_dx, want_dx, ws, x, g, dtype, False)
             args = (ws, x, Activation.RELU, Activation.NONE, dtype, torch.float32)
             torch.testing.assert_close(fused_mlp_fwd(*args), fused_mlp_plain(*args),
                                        rtol=1e-5, atol=1e-5)
+        else:
+            diff = (got_dx.float() - want_dx.float()).norm()
+            assert float(diff) <= 2e-2 * float(want_dx.float().norm())
         return
     check_m_and_mb(cuda, dims, 4133, dtype, seed=width + n_hidden, soa_in=False)
 
@@ -1534,3 +1551,169 @@ def test_binding_encoding_half_output_and_pickle_on_the_card(cuda):
     y = m(x)
     m2 = pickle.loads(pickle.dumps(m))
     assert m2.params.device == m.params.device and torch.equal(m2(x), y)
+
+
+# -- slice 11: the Rng hash, stochastic interpolation, 5 to 7 dims, GG masked,
+# torch.func --------------------------------------------------------------------
+
+def check_grid_kernels(cuda, spec, flat, x, dcols, ddx, frac=None):
+    """G, GB, GI and GG (and RS on GG's rows) against their plain versions
+    at the bounds of the unmasked tests, all levels live and the static
+    cutoff at 2; G also bit for bit against its corner order, the 5- to
+    7-D instance too (it sums the corners in the same order)."""
+    D = spec.n_dims
+    for live in (list(range(spec.n_levels)), [0, 1]):
+        for soa in (True, False):
+            got = grid_encode_fwd(spec, flat, x, live, soa=soa, level_frac=frac)
+            torch.cuda.synchronize()
+            assert torch.equal(got if soa else got.t(),
+                               masked_corner_order_sum(spec, flat, x, live, frac)
+                               if frac is not None else corner_order_sum(spec, flat, x, live))
+            assert_grid_sum_close(got, grid_encode_plain(spec, flat, x, live, soa=soa,
+                                                         level_frac=frac), D)
+        got = grid_encode_bwd(spec, flat, x, dcols, live, level_frac=frac)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac=frac)
+        scale = grid_encode_bwd_plain(spec, flat.float(), x, dcols.float().abs(), live,
+                                      level_frac=frac)
+        assert_grid_grad_close(got, want, scale)
+        assert bool((got[scale == 0] == 0).all())
+        gi = grid_encode_bwd_input(spec, flat, x, dcols, live, level_frac=frac)
+        torch.cuda.synchronize()
+        assert_rel_close(gi, grid_encode_bwd_input_plain(spec, flat, x, dcols, live,
+                                                         level_frac=frac), 1e-5)
+        gg = grid_encode_bwd_bwd(spec, flat, x, dcols, ddx, live, level_frac=frac)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_bwd_plain(spec, flat, x, dcols, ddx, live, level_frac=frac)
+        assert torch.equal(gg.rows, want.rows)
+        for a, b in zip((gg.d_dcols, gg.d_x, gg.g), (want.d_dcols, want.d_x, want.g)):
+            assert_rel_close(a, b, 1e-5)
+        rs = row_scatter_add(gg.rows, gg.g, spec.n_entries, flat.dtype)
+        torch.cuda.synchronize()
+        assert_scatter_close(rs, row_scatter_add_plain(want.rows, want.g, spec.n_entries,
+                                                       flat.dtype),
+                             row_scatter_add_plain(want.rows, want.g.abs(), spec.n_entries))
+
+
+def slice11_inputs(cuda, spec, B, seed, dtype):
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0.02, 0.98, (B, spec.n_dims)).astype(np.float32))
+    dcols = rng.normal(size=(spec.n_output_dims, B)).astype(np.float32)
+    ddx = rng.normal(size=(B, spec.n_dims)).astype(np.float32)
+    frac = spread_fractions(rng, B, spec.n_levels)
+    return (flat.to(dtype).to(cuda), x.to(cuda), torch.from_numpy(dcols).to(dtype).to(cuda),
+            torch.from_numpy(ddx).to(cuda), torch.from_numpy(frac).to(cuda))
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize("F", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_grid_kernels_with_the_rng_hash_match_plain(cuda, D, F, dtype, masked):
+    """Every grid kernel on an Rng grid (each corner's pcg32 hash in full,
+    in each kernel's run-time-D instance), Smoothstep, with and without a
+    per-sample mask; 2^4-row tables, so that every D hashes some level."""
+    spec = grid_ops.make_grid_spec(D, 4, F, 4, 4, 1.7, hash_type=HashType.RNG,
+                                   interpolation=InterpolationType.SMOOTHSTEP)
+    assert any(lv.use_hash for lv in spec.levels)
+    flat, x, dcols, ddx, frac = slice11_inputs(cuda, spec, 3001, D * 10 + F, dtype)
+    check_grid_kernels(cuda, spec, flat, x, dcols, ddx, frac if masked else None)
+
+
+@pytest.mark.parametrize("D", [5, 7])
+@pytest.mark.parametrize("F", [2, 8])
+@pytest.mark.parametrize("hash_type", [HashType.COHERENT_PRIME, HashType.COHERENT_ADD,
+                                       HashType.PRIME])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_kernels_at_five_to_seven_dims_match_plain(cuda, D, F, hash_type, dtype):
+    """The one run-time-D instance of G, GB, GI and GG (and RS after GG) at
+    5 and 7 dims, the prime hashes, masked and not, and a dense grid at 5
+    dims (Rng: test_grid_kernels_with_the_rng_hash_match_plain)."""
+    spec = grid_ops.make_grid_spec(D, 3, F, 11, 4, 1.5, hash_type=hash_type,
+                                   interpolation=InterpolationType.SMOOTHSTEP)
+    flat, x, dcols, ddx, frac = slice11_inputs(cuda, spec, 2049, D * 100 + F, dtype)
+    check_grid_kernels(cuda, spec, flat, x, dcols, ddx)
+    check_grid_kernels(cuda, spec, flat, x, dcols, ddx, frac)
+    if hash_type == HashType.PRIME and D == 5:
+        dense = grid_ops.make_grid_spec(5, 2, F, 16, 2, 1.5, grid_type=GridType.DENSE)
+        assert not any(lv.use_hash for lv in dense.levels)
+        check_grid_kernels(cuda, dense, *slice11_inputs(cuda, dense, 1025, F, dtype)[:4])
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_second_order_kernel_with_a_per_sample_mask_matches_plain(cuda, D, F, dtype):
+    """Kernel GG under a per-sample level mask (a run-time test per sample,
+    no new instance): masked pairs give zero d_dcols, nothing to d_x and
+    g = 0 at their rows."""
+    spec = grid_ops.make_grid_spec(D, 6, F, 12, 4, 1.6,
+                                   interpolation=InterpolationType.SMOOTHSTEP)
+    flat, x, dcols, ddx, frac = slice11_inputs(cuda, spec, 4133, D + 10 * F, dtype)
+    check_grid_kernels(cuda, spec, flat, x, dcols, ddx, frac)
+    gg = grid_encode_bwd_bwd(spec, flat, x, dcols, ddx, list(range(6)), level_frac=frac)
+    keep = (torch.arange(6, device=cuda)[:, None].float() < frac[None, :] * 6.0 + 1e-3)
+    assert not bool(gg.d_dcols.reshape(6, F, -1)[~keep[:, None, :].expand(-1, F, -1)].any())
+    C = 1 << D
+    g = gg.g.reshape(6, C, -1, F)
+    assert not bool(g[~keep[:, None, :, None].expand(-1, C, -1, F)].any())
+
+
+@pytest.mark.parametrize("D,F", [(2, 2), (3, 1), (4, 2), (5, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("interp", [InterpolationType.LINEAR, InterpolationType.SMOOTHSTEP])
+def test_stochastic_table_gradient_matches_plain(cuda, D, F, dtype, interp):
+    """GB under stochastic interpolation (the uniforms of
+    ``stochastic_uniforms``, one corner per (sample, level) at weight 1),
+    windows and direct atomics both (2^16 samples on 2^10-row levels,
+    which the plan windows), against the plain version; the forward and
+    GI are the deterministic grid's."""
+    import dataclasses
+
+    det = grid_ops.make_grid_spec(D, 6, F, 10, 4, 1.6, interpolation=interp)
+    spec = dataclasses.replace(det, stochastic_interpolation=True)
+    B = 1 << 16
+    flat, x, dcols, _, frac = slice11_inputs(cuda, spec, B, D + F, dtype)
+    live = list(range(spec.n_levels))
+    for fr in (None, frac):
+        got = grid_encode_bwd(spec, flat, x, dcols, live, level_frac=fr)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac=fr)
+        scale = grid_encode_bwd_plain(spec, flat.float(), x, dcols.float().abs(), live,
+                                      level_frac=fr)
+        assert_grid_grad_close(got, want, scale)
+        assert not torch.equal(got, grid_encode_bwd(det, flat, x, dcols, live, level_frac=fr))
+    assert torch.equal(grid_encode_fwd(spec, flat, x, live), grid_encode_fwd(det, flat, x, live))
+    assert torch.equal(grid_encode_bwd_input(spec, flat, x, dcols, live),
+                       grid_encode_bwd_input(det, flat, x, dcols, live))
+
+
+def test_torch_func_on_the_card_matches_the_cpu(cuda):
+    """torch.func.jvp, jacrev, jacfwd and vmap of a config_hash model (fp32)
+    on the card against the same transforms on the CPU (plain versions),
+    and jvp's reverse-mode launch counts: none of GB and MB."""
+    cfg = "configs/config_hash.json"
+    card = create_from_config(2, 3, cfg, policy=DEFAULT_POLICY)
+    cpu = create_from_config(2, 3, cfg, policy=DEFAULT_POLICY, device="cpu")
+    with torch.no_grad():
+        card.network.encoding.grid.uniform_(-1, 1)
+        for a, b in zip(cpu.network.parameters(), card.network.parameters()):
+            a.copy_(b.cpu())
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.uniform(0, 1, (4096, 2)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(4096, 2)).astype(np.float32))
+    before = (grid_encode_bwd.launches, fused_mlp_bwd.launches)
+    y, t = torch.func.jvp(card.network, (x.to(cuda),), (v.to(cuda),))
+    torch.cuda.synchronize()
+    assert (grid_encode_bwd.launches, fused_mlp_bwd.launches) == before
+    y_c, t_c = torch.func.jvp(cpu.network, (x,), (v,))
+    assert_rel_close(y.cpu(), y_c, 1e-5)
+    assert_rel_close(t.cpu(), t_c, 1e-4)
+    xs = x[:6]
+    jr = torch.func.jacrev(card.network)(xs.to(cuda))
+    assert_rel_close(jr.cpu(), torch.func.jacrev(cpu.network)(xs), 1e-4)
+    jf = torch.func.jacfwd(card.network)(xs.to(cuda))
+    assert_rel_close(jf.cpu(), jr.cpu(), 1e-4)
+    vm = torch.func.vmap(card.network)(x.to(cuda).reshape(4, 1024, 2))
+    assert_rel_close(vm.reshape(4096, 3).cpu(), cpu.network(x).detach(), 1e-5)

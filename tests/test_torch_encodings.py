@@ -236,16 +236,40 @@ def test_mask_shape_is_checked():
         tops.grid_encode(tspec, table, torch.rand(10, 2), max_level_per_element=torch.ones(9))
 
 
-def test_masked_second_order_raises():
-    """Kernel GG takes no mask: a second derivative under one raises,
-    naming the ROADMAP item."""
-    tspec = _specs("hash_2d")[1]
-    table = torch.rand(tspec.n_params, requires_grad=True)
-    x = torch.rand(16, 2, requires_grad=True)
-    y = tops.grid_encode(tspec, table, x, max_level_per_element=torch.full((16,), 0.5))
-    (dx,) = torch.autograd.grad(y.sum(), x, create_graph=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        torch.autograd.grad(dx.sum(), table)
+@pytest.mark.parametrize("interp", ["Linear", "Smoothstep"])
+def test_masked_second_order_raises(interp):
+    """A second derivative under a per-sample level mask, once refused
+    (kernel GG took no mask), now runs: the gradient of ⟨∇_x y·g, h⟩ in the
+    table and in x against JAX's ``jax.grad`` of its input gradient with the
+    same fractions (kernels GG and RS's plain versions; within 1e-5 of the
+    largest magnitude, sums over corners and levels in another order)."""
+    D, L, F, hm, base, scale, gtype = MASK_GRIDS["hash_2d"]
+    kw = dict(n_dims=D, n_levels=L, n_features_per_level=F, log2_hashmap_size=hm,
+              base_resolution=base, per_level_scale=scale)
+    jspec = jops.make_grid_spec(**kw, interpolation=jops.InterpolationType.from_string(interp))
+    tspec = tops.make_grid_spec(**kw, interpolation=tcnn.InterpolationType.from_string(interp))
+    x, frac = _mask_inputs(D, L, seed=15, batch=256)
+    rng = np.random.default_rng(16)
+    table = rng.uniform(-1, 1, jspec.n_params).astype(np.float32)
+    g = rng.normal(size=(256, jspec.n_output_dims)).astype(np.float32)
+    h = rng.normal(size=(256, D)).astype(np.float32)
+
+    def jfn(t, v):
+        gx = jax.grad(lambda u: jnp.sum(jops.grid_encode(
+            jspec, t, u, fast_scatter=False, max_level_per_element=jnp.asarray(frac))
+            * jnp.asarray(g)))(v)
+        return jnp.sum(gx * jnp.asarray(h))
+
+    want_t, want_x = jax.jit(jax.grad(jfn, argnums=(0, 1)))(jnp.asarray(table), jnp.asarray(x))
+    tt = torch.from_numpy(table).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tops.grid_encode(tspec, tt, xt, max_level_per_element=torch.from_numpy(frac))
+    (gx,) = torch.autograd.grad(y, xt, torch.from_numpy(g), create_graph=True)
+    got_t, got_x = torch.autograd.grad((gx * torch.from_numpy(h)).sum(), [tt, xt])
+    for got, want in ((got_t, want_t), (got_x, want_x)):
+        want = np.asarray(want)
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def test_network_with_input_encoding_forwards_the_mask():

@@ -160,9 +160,15 @@ def test_indices_and_weights_equal_jax(case):
 
 
 def test_rng_hash_waits_for_slice_3():
-    _, tspec = _specs(2, 4, 2, 6, 8, 2.0, hash_type=tcommon.HashType.RNG)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 7\)"):
-        tops.grid_encode(tspec, torch.zeros(tspec.n_params), torch.rand(8, 2))
+    """The Rng (pcg32) hash, once refused, now runs: the encoding of an Rng
+    grid equals JAX's plain path (tests/test_torch_rng_grid.py holds the
+    hash, the gradients and the kernel path)."""
+    jspec, tspec = _specs(2, 4, 2, 6, 8, 2.0, hash_type=tcommon.HashType.RNG)
+    table = np.random.default_rng(5).uniform(-1, 1, tspec.n_params).astype(np.float32)
+    x = _coords(64, 2, 6)
+    want = jops.grid_encode(jspec, jnp.asarray(table), jnp.asarray(x), fast_scatter=False)
+    got = tops.grid_encode(tspec, torch.from_numpy(table), torch.from_numpy(x))
+    _assert_close(got.numpy(), np.asarray(want), "float32")
 
 
 @pytest.mark.parametrize("case", INDEX_CASES, ids=lambda c: f"{c[0]}d-{c[6]}-{c[7]}-{c[8]}")

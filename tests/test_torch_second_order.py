@@ -366,6 +366,38 @@ def test_plain_sdf_step_equals_model_step_and_launch_counts(monkeypatch):
                      "grid_encode_bwd_bwd_plain": 1, "row_scatter_add_plain": 1}
 
 
+@pytest.mark.parametrize("fracs", ["half", "spread"])
+def test_plain_sdf_step_under_a_level_mask_equals_model_step(fracs):
+    """With ``level_frac`` the plain eikonal step equals, bit for bit on
+    the CPU, the step of the model called with the same per-sample
+    ``max_level_per_element`` (autograd through the loss, as
+    ``chip_smoke.py``'s masked step drives it)."""
+    model = tcnn.create_from_config(3, 1, SDF_SMALL, policy=tcnn.Policy(), device="cpu")
+    net = model.network
+    gen = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        net.encoding.grid.uniform_(-1, 1, generator=gen)
+    xs, xv = sdf.sample_points(gen, 512, "cpu")
+    frac = torch.full((512,), 0.5) if fracs == "half" else torch.rand(512, generator=gen)
+    want_loss, want = plain_sdf_loss_and_grads(net, xs, xv, level_frac=frac)
+
+    def f(x):
+        return net(x, max_level_per_element=frac)[:, 0]
+
+    xv = xv.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(f(xv).sum(), xv, create_graph=True)
+    loss = torch.mean(f(xs) ** 2) + sdf.EIKONAL_WEIGHT * sdf.eikonal_loss(gx)
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(loss, list(net.parameters()))
+    assert loss.item() == want_loss.item()
+    assert sorted(want) == sorted(names)
+    for name, g in zip(names, grads):
+        assert torch.equal(g, want[name]), name
+    # the mask bites: the unmasked plain step differs
+    assert not torch.equal(plain_sdf_loss_and_grads(net, xs, xv.detach())[1]["encoding.grid"],
+                           want["encoding.grid"])
+
+
 def test_input_gradient_launches_no_table_gradient(monkeypatch):
     """``Module.input_gradient`` asks autograd for x's gradient alone: the
     grid's backward runs GI and no GB (the engine would drop the table's
