@@ -87,6 +87,17 @@ and read just after:
     policy; ``torch.func.jvp`` and ``jacrev`` (4 rows' outputs) of
     config_hash's network at 2^18 against the same transforms of the plain
     versions, and a training step's launches after them.
+  * slice 12, parallelism: config_btf's grid row-sharded 2 ways (B = 2^18,
+    both table dtypes): G, GB, GI and GG in shard mode on each shard
+    against their plain versions, the shards' partials against the
+    unsharded kernels, and their times; then two gloo ranks on this one
+    card (``tools/parallel_check.py``), the main path: ``HybridParallel``
+    (n_model 2) training config_btf's full model (2^18, 20 steps),
+    ``DataParallel`` training config_hash (2^18, 20 steps) and the SDF
+    sample's eikonal loss under ``HybridParallel`` (2^14, 5 steps), each
+    against the same training in this process, with the ranks' launches,
+    step and collective times (one card shared by two processes: no
+    scaling figure).
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -233,6 +244,20 @@ with TF32 off):
     magnitude (fp32 sums over corners, levels and samples in another
     order).
 
+  * slice 12: each shard's G at the fp32 bound with the fp32 sum's own
+    error (its partial features are fp32: |d| <= 1e-5·|ref| + (2^D +
+    2D)·2^-24), GB, GI, GG and RS at the grid bounds above; the shards' G
+    partials summed (and rounded once to the table's dtype) against the
+    unsharded G at the grid bounds with n times that sum error; GI's
+    partials summed within 1e-5 of the largest magnitude; the shards' GB
+    per entry within 2^-11·S of the unsharded GB's block-cyclic slices; RS
+    against its plain version on GG's own (rows, g) (at 4-D, g's error
+    within 1e-5 of max |g|, summed over a row's updates, outgrows 2^-11 of
+    a row's small S).
+    Two ranks against one process: ``PARALLEL_FIRST_RTOL``,
+    ``PARALLEL_LOSS_RTOL`` and ``PARALLEL_PRED_REL`` (their comment says
+    why).
+
 The whole run takes about four minutes on an H100, against the 1200 s a
 run may take: the build of the seven kernels took 93 to 155 s, the
 plain versions' BTF fit, 150 eager steps (the kernels' fit runs 200), 30
@@ -374,13 +399,16 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def touched_bytes(spec, x, elem):
-    """The bytes of the table rows that the batch x touches (all levels)."""
+def touched_bytes(spec, x, elem, shard=None):
+    """The bytes of the table rows that the batch x touches (all levels; of
+    the shard's rows with ``shard``)."""
     from tcnn_tpu_torch.ops import grid_ops
 
-    idx, _ = grid_ops.build_indices_weights(spec, x, list(range(spec.n_levels)))
-    touched = torch.zeros(spec.n_entries, dtype=torch.bool, device=x.device)
-    touched[idx.reshape(-1)] = True
+    idx, _ = grid_ops.build_indices_weights(spec, x, list(range(spec.n_levels)), shard=shard)
+    idx = idx.reshape(-1)
+    touched = torch.zeros(spec.n_entries // (shard[1] if shard else 1), dtype=torch.bool,
+                          device=x.device)
+    touched[idx[idx >= 0]] = True
     return int(touched.sum()) * spec.n_features_per_level * elem
 
 
@@ -1382,6 +1410,19 @@ def compare_rel(got, want, rel, what):
     lim = rel * want.float().abs().max().item()
     check(err <= lim, f"{what}: max abs err {err:.3e} beyond {lim:.3e}")
     return err
+
+
+def compare_rel_sum(got, want, atol, what):
+    """Max abs error of fp32 sums; raises where |d| > 1e-5·|want| + atol
+    (``atol`` the fp32 sum's own error where its terms cancel)."""
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.float32,
+          f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    err = (got - want).abs()
+    bad = err > 1e-5 * want.abs() + atol
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements beyond tolerance, "
+          f"max abs err {err.max().item():.3e}")
+    return err.max().item()
 
 
 def sdf_flip_explained_bwd(net, xs, xv, frac=None):
@@ -2746,96 +2787,138 @@ def check_eikonal_step(net, xs, xv, frac, what):
     return launches
 
 
-def grid_kernel_checks(spec, table, x, dcols, ddx, frac=None, label=""):
+def grid_kernel_checks(spec, table, x, dcols, ddx, frac=None, label="", shard=None,
+                       rs_terms=False):
     """G, GB, GI and GG (and RS on GG's rows) against their plain versions:
     G at the grid bounds (bf16 tables with the fp32 sum's own error), GB and
     RS per entry within 2^-11·S, GI and GG within 1e-5 of each output's
-    largest magnitude, GG's rows equal.  Returns each kernel's max abs err."""
+    largest magnitude, GG's rows equal.  RS runs on kernel GG's (rows, g)
+    against the plain RS on plain GG's; S is Σ|g|, or with ``rs_terms``
+    (and in shard mode) the sound S over g's terms (``gg_term_magnitudes``),
+    and then the entries beyond 2^-11·Σ|g| are counted and printed.
+    ``shard`` (sid, n): ``table`` is rank sid's block-cyclic shard and every
+    kernel runs in shard mode (G's partial features are fp32: the fp32
+    bound with the sum's own error).  Returns each kernel's max abs err and
+    "RS beyond |g|", that count (None without ``rs_terms``)."""
     from tcnn_tpu_torch.ops.cuda.grid_encode import (
         grid_encode_bwd, grid_encode_bwd_bwd, grid_encode_bwd_bwd_plain, grid_encode_bwd_input,
         grid_encode_bwd_input_plain, grid_encode_bwd_plain, grid_encode_fwd, grid_encode_plain)
     from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add, row_scatter_add_plain
+    from tcnn_tpu_torch.tools.plain_path import gg_term_magnitudes
 
     live = list(range(spec.n_levels))
     D, bf16 = spec.n_dims, table.dtype == torch.bfloat16
+    n_rows = spec.n_entries // (shard[1] if shard else 1)
+    sum_atol = ((1 << D) + 2 * D) * 2.0 ** -24
     err = {}
     with torch.inference_mode():
         e = 0.0
         for soa in (True, False):
-            got = grid_encode_fwd(spec, table, x, live, soa=soa, level_frac=frac)
+            got = grid_encode_fwd(spec, table, x, live, soa=soa, level_frac=frac, shard=shard)
             torch.cuda.synchronize()
-            want = grid_encode_plain(spec, table, x, live, soa=soa, level_frac=frac)
-            e = max(e, compare(got, want, "grid-bf16" if bf16 else "grid-f32",
-                               atol=((1 << D) + 2 * D) * 2.0 ** -24 if bf16 else 0.0)[0])
+            want = grid_encode_plain(spec, table, x, live, soa=soa, level_frac=frac,
+                                     shard=shard)
+            if shard:
+                e = max(e, compare_rel_sum(got, want, sum_atol, f"G {label}"))
+            else:
+                e = max(e, compare(got, want, "grid-bf16" if bf16 else "grid-f32",
+                                   atol=sum_atol if bf16 else 0.0)[0])
         err["G"] = e
-        got = grid_encode_bwd(spec, table, x, dcols, live, level_frac=frac)
+        got = grid_encode_bwd(spec, table, x, dcols, live, level_frac=frac, shard=shard)
         torch.cuda.synchronize()
         err["GB"] = compare_table_grad(
-            got, grid_encode_bwd_plain(spec, table, x, dcols, live, level_frac=frac),
+            got, grid_encode_bwd_plain(spec, table, x, dcols, live, level_frac=frac,
+                                       shard=shard),
             grid_encode_bwd_plain(spec, table.float(), x, dcols.float().abs(), live,
-                                  level_frac=frac), f"GB {label}")
-        got = grid_encode_bwd_input(spec, table, x, dcols, live, level_frac=frac)
+                                  level_frac=frac, shard=shard), f"GB {label}")
+        got = grid_encode_bwd_input(spec, table, x, dcols, live, level_frac=frac, shard=shard)
         torch.cuda.synchronize()
         err["GI"] = compare_rel(got, grid_encode_bwd_input_plain(spec, table, x, dcols, live,
-                                                                 level_frac=frac),
+                                                                 level_frac=frac, shard=shard),
                                 1e-5, f"GI {label}")
-        got = grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live, level_frac=frac)
+        got = grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live, level_frac=frac,
+                                  shard=shard)
         torch.cuda.synchronize()
-        want = grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, level_frac=frac)
+        want = grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, level_frac=frac,
+                                         shard=shard)
         check(torch.equal(got.rows, want.rows), f"GG {label}: corner rows differ from plain")
         err["GG"] = max(compare_rel(a, b, 1e-5, f"GG {label} {n}") for n, a, b in
                         zip(("d_dcols", "d_x", "g"), got[:2] + got[3:], want[:2] + want[3:]))
-        rs = row_scatter_add(got.rows, got.g, spec.n_entries, table.dtype)
+        rs = row_scatter_add(got.rows, got.g, n_rows, table.dtype)
         torch.cuda.synchronize()
-        err["RS"] = compare_table_grad(
-            rs, row_scatter_add_plain(want.rows, want.g, spec.n_entries, table.dtype),
-            row_scatter_add_plain(want.rows, want.g.abs(), spec.n_entries), f"RS {label}")
+        want_rs = row_scatter_add_plain(want.rows, want.g, n_rows, table.dtype)
+        abs_g = row_scatter_add_plain(want.rows, want.g.abs(), n_rows)
+        err["RS beyond |g|"] = None
+        if rs_terms or shard:
+            terms = row_scatter_add_plain(
+                want.rows, gg_term_magnitudes(spec, x, dcols, ddx, live, frac, shard), n_rows)
+            tol = 2.0 ** -11 * abs_g + (bf16_ulp(want_rs.float()) if bf16 else 0.0)
+            err["RS beyond |g|"] = int(((rs.float() - want_rs.float()).abs() > tol).sum())
+            err["RS"] = compare_table_grad(rs, want_rs, terms, f"RS {label} (S over g's terms)")
+        else:
+            err["RS"] = compare_table_grad(rs, want_rs, abs_g, f"RS {label}")
+    beyond = err["RS beyond |g|"]
     print(f"{label} table={str(table.dtype)[6:]}: max abs err G {err['G']:.3e}, GB "
-          f"{err['GB']:.3e}, GI {err['GI']:.3e}, GG {err['GG']:.3e}, RS {err['RS']:.3e}")
+          f"{err['GB']:.3e}, GI {err['GI']:.3e}, GG {err['GG']:.3e}, RS {err['RS']:.3e}"
+          + ("" if beyond is None else f" (S over g's terms; {beyond} of {rs.numel()} "
+             f"entries beyond 2^-11·Σ|g|)"))
     return err
 
 
-def time_grid_kernels(spec, table, x, dcols, ddx, t, keys, frac=None, u_bytes=0, picks=None):
+def time_grid_kernels(spec, table, x, dcols, ddx, t, keys, frac=None, u_bytes=0, picks=None,
+                      shard=None, plain_calls=10):
     """Device times of G, GB, GI and GG (those in ``keys``: timing key ->
-    kernel) on these inputs, their plain versions' and their bounds into t."""
+    kernel) on these inputs, their plain versions' and their bounds into t.
+    With ``shard`` the kernels run in shard mode on the shard ``table``:
+    the bounds count its rows the batch touches, and the corner work of the
+    corners it holds (this run's share).  ``plain_calls``: the plain
+    versions' calls per timing."""
     from tcnn_tpu_torch.ops import grid_ops
     from tcnn_tpu_torch.ops.cuda.grid_encode import (
         grid_encode_bwd, grid_encode_bwd_bwd, grid_encode_bwd_bwd_plain, grid_encode_bwd_input,
         grid_encode_bwd_input_plain, grid_encode_bwd_plain, grid_encode_fwd, grid_encode_plain)
 
     live, B = list(range(spec.n_levels)), x.shape[0]
+    kw = {"level_frac": frac, "shard": shard}
     calls = {
-        "G": (lambda: grid_encode_fwd(spec, table, x, live, soa=True, level_frac=frac),
-              lambda: grid_encode_plain(spec, table, x, live, soa=True, level_frac=frac)),
-        "GB": (lambda: grid_encode_bwd(spec, table, x, dcols, live, level_frac=frac),
-               lambda: grid_encode_bwd_plain(spec, table, x, dcols, live, level_frac=frac)),
-        "GI": (lambda: grid_encode_bwd_input(spec, table, x, dcols, live, level_frac=frac),
-               lambda: grid_encode_bwd_input_plain(spec, table, x, dcols, live,
-                                                   level_frac=frac)),
-        "GG": (lambda: grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live, level_frac=frac),
-               lambda: grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live,
-                                                 level_frac=frac))}
+        "G": (lambda: grid_encode_fwd(spec, table, x, live, soa=True, **kw),
+              lambda: grid_encode_plain(spec, table, x, live, soa=True, **kw)),
+        "GB": (lambda: grid_encode_bwd(spec, table, x, dcols, live, **kw),
+               lambda: grid_encode_bwd_plain(spec, table, x, dcols, live, **kw)),
+        "GI": (lambda: grid_encode_bwd_input(spec, table, x, dcols, live, **kw),
+               lambda: grid_encode_bwd_input_plain(spec, table, x, dcols, live, **kw)),
+        "GG": (lambda: grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live, **kw),
+               lambda: grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, **kw))}
     consts = spec.n_levels * grid_ops.LEVEL_FIELDS * 4
-    touched = touched_bytes(spec, x, table.element_size())
+    touched = touched_bytes(spec, x, table.element_size(), shard)
+    owned = 1.0
+    if shard:   # the share of (sample, level, corner) whose row the shard holds
+        idx, _ = grid_ops.build_indices_weights(spec, x, live, shard=shard)
+        owned = float((idx >= 0).float().mean())
     keep = 1.0 if frac is None else float(
         (torch.arange(spec.n_levels, device=x.device)[:, None].float()
          < frac[None] * float(spec.n_levels) + 1e-3).float().mean())
     rng = rng_hash_ops(spec, x) if spec.hash_type.value == "Rng" else 0
     rng_ops = {k: rng for k in ("G", "GI", "GG")}
     rng_ops["GB"] = rng if picks is None else rng_hash_ops(spec, x, picks)
+    pos = B * spec.n_levels * 4 * spec.n_dims   # positions and fractions, every corner's
+
+    def ops(total):   # the corner work of the held corners
+        return pos + owned * (total - pos)
+
     with torch.inference_mode():
         outs = {k: calls[k][0]() for k in keys.values()}
         b = {"G": (nbytes(x, outs.get("G", x[:0])) + touched + consts,
-                   keep * (grid_flops(spec, B) + rng), PEAK_FP32),
+                   keep * (ops(grid_flops(spec, B)) + rng), PEAK_FP32),
              "GB": (nbytes(x, dcols, table) + consts + u_bytes,
-                    keep * (grid_flops(spec, B) + rng_ops["GB"]), PEAK_FP32),
+                    keep * (ops(grid_flops(spec, B)) + rng_ops["GB"]), PEAK_FP32),
              "GI": (nbytes(x, dcols, outs.get("GI", x[:0])) + touched + consts,
-                    keep * (gi_flops(spec, B) + rng), PEAK_FP32),
+                    keep * (ops(gi_flops(spec, B)) + rng), PEAK_FP32),
              "GG": (nbytes(x, ddx, dcols, *[o for o in outs.get("GG", ()) if o is not None])
-                    + touched + consts, keep * (gg_flops(spec, B) + rng), PEAK_FP32)}
+                    + touched + consts, keep * (ops(gg_flops(spec, B)) + rng), PEAK_FP32)}
         for key, k in keys.items():
             t[key] = graph_ms(calls[k][0])
-            t[key + " plain"] = eager_ms(calls[k][1])
+            t[key + " plain"] = eager_ms(calls[k][1], n=plain_calls)
             t[key + " bound"] = bound_ms(*b[k])
             t[key + " bound by"] = bound_by(*b[k])
             print(f"{key}: {t[key]:.4f} ms on the device (plain {t[key + ' plain']:.4f} ms, "
@@ -3206,6 +3289,192 @@ def deep_mlp_slice(gen, dev):
     return entries(t, items, {"MB": launches["MB"]}, err)
 
 
+PARALLEL_STEPS = 20        # HybridParallel (config_btf) and DataParallel (config_hash) steps
+PARALLEL_SDF_STEPS = 5     # the eikonal steps through sharded tables
+# Two ranks against one process: the first step's loss within 1e-5 relative
+# (the same parameters; the ranks' mean of means is the global mean up to
+# fp32 rounding), every later step's within 1e-2 (a gradient that rounds
+# another way moves Adam's step by ±lr where it lies near 0, so the runs
+# drift apart: on the CPU, 20 DataParallel steps of config_hash at 2^14 differed
+# by up to 2.5e-3, tools/parallel_check.py), and the trained models'
+# predictions within the whole model's bf16 rtol, 2e-2, as a relative L2 norm.
+PARALLEL_FIRST_RTOL = 1e-5
+PARALLEL_LOSS_RTOL = 1e-2
+PARALLEL_PRED_REL = 2e-2
+# The first step's reduced gradients (the optimizer's input, each table
+# gathered) against one process's, per parameter as a relative L2 norm.
+# Adam's update barely moves when a gradient is scaled, so the losses
+# cannot show a missing ÷n_model or ÷world: that puts a gradient at a
+# distance of 1 (n = 2).  The limit leaves room for bf16 gradients summed
+# in another order (one bf16 ulp is 2^-8 of an entry).
+PARALLEL_GRAD_REL = 1e-2
+
+
+def parallel_slice(gen, dev):
+    """Slice 12, parallelism.  (a) In this process: config_btf's grid
+    (4-D CoherentAdd, 16 levels, 2^19-row tables) row-sharded 2 ways, B =
+    2^18 (the gathered batch), fp32 and bf16 tables: each shard's G, GB, GI
+    and GG in shard mode against their plain versions; the shards' G and GI
+    partials summed against the unsharded kernel; the shards' GB gradients
+    against the block-cyclic slices of the unsharded GB's; the unsharded
+    kernels on the whole table, RS over GG's output under the same bound;
+    G's and GB's shard-mode times (bf16, shard 0) beside their bounds.  The
+    SDF sample's grid (3-D Smoothstep, fp32), where the main path runs GI
+    and GG in shard mode, at the eikonal job's gathered batch 2^14: each
+    shard's kernels against their plain versions, and GI's and GG's
+    shard-mode times beside their bounds.  (b) Two gloo ranks
+    on this one card (``tools/parallel_check.py``; NCCL refuses two ranks on
+    one device), the main path: ``HybridParallel`` at n_model 2 training
+    config_btf's full model (BF16_POLICY, global batch 2^18, 20 steps),
+    ``DataParallel`` training config_hash (BF16_POLICY, 2^18, 20 steps), and
+    the SDF sample's eikonal loss under ``HybridParallel`` (2^14, 5 steps,
+    GI, GG and RS in shard mode).  Each against the same training in one
+    process: the ranks' losses within ``PARALLEL_FIRST_RTOL`` of its first
+    loss and ``PARALLEL_LOSS_RTOL`` of every later one, and a model holding the ranks' gathered parameters
+    (``gather_state``) predicting within ``PARALLEL_PRED_REL`` (relative L2)
+    of its model on 2^16 held-out inputs; ``gather_state`` of the freshly
+    sharded table gives it back bit for bit; the first step's reduced
+    gradients within ``PARALLEL_GRAD_REL`` of one process's.  The ranks' step and
+    collective times are one card shared by two processes: no scaling."""
+    import tempfile
+
+    from tcnn_tpu_torch.common import HashType
+    from tcnn_tpu_torch.ops import grid_ops
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_input,
+                                                     grid_encode_bwd_plain, grid_encode_fwd)
+    from tcnn_tpu_torch.tools import parallel_check
+
+    n = 2
+    spec = grid_ops.make_grid_spec(4, 16, 2, 19, 16, 1.5, hash_type=HashType.COHERENT_ADD)
+    check(spec.n_params == BTF_GRID_PARAMS and grid_ops.shardable_levels(spec, n),
+          "config_btf's grid")
+    live = list(range(spec.n_levels))
+    sum_atol = ((1 << spec.n_dims) + 2 * spec.n_dims) * 2.0 ** -24
+    phase(f"slice 12: config_btf's grid row-sharded {n} ways, G, GB, GI and GG of each "
+          f"shard vs plain at B={MAIN_BATCH}")
+    x = torch.rand((MAIN_BATCH, 4), generator=gen, device=dev)
+    # the gathered output gradient of fp32 partial features is fp32
+    dcols = torch.randn((spec.n_output_dims, MAIN_BATCH), generator=gen, device=dev)
+    ddx = torch.randn((MAIN_BATCH, 4), generator=gen, device=dev)
+    perm = torch.from_numpy(grid_ops.block_cyclic_perm(spec, n)).to(dev)
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = (torch.rand(spec.n_params, generator=gen, device=dev) * 2 - 1).to(dtype)
+        shards = [b.clone() for b in table[perm].chunk(n)]   # fresh, aligned
+        for sid in range(n):
+            e = grid_kernel_checks(spec, shards[sid], x, dcols, ddx,
+                                   label=f"config_btf shard {sid} of {n}", shard=(sid, n))
+            for k in ("G", "GB", "GI", "GG"):
+                err[f"{k} shard"] = max(err.get(f"{k} shard", 0.0), e[k])
+        with torch.inference_mode():
+            total = sum(grid_encode_fwd(spec, b, x, live, soa=True, shard=(i, n))
+                        for i, b in enumerate(shards))
+            whole = grid_encode_fwd(spec, table, x, live, soa=True)
+            if dtype == torch.bfloat16:   # the sum rounded once, as the whole kernel's
+                e_sum = compare(total.to(dtype), whole, "grid-bf16", atol=n * sum_atol)[0]
+            else:
+                e_sum = compare_rel_sum(total, whole, n * sum_atol, "G partials' sum")
+            dx = sum(grid_encode_bwd_input(spec, b, x, dcols, live, shard=(i, n))
+                     for i, b in enumerate(shards))
+            e_dx = compare_rel(dx, grid_encode_bwd_input(spec, table, x, dcols, live), 1e-5,
+                               "GI partials' sum")
+            grads = torch.cat([grid_encode_bwd(spec, b, x, dcols, live, shard=(i, n))
+                               for i, b in enumerate(shards)])
+            whole_g = grid_encode_bwd(spec, table, x, dcols, live)
+            scale = grid_encode_bwd_plain(spec, table.float(), x, dcols.abs(), live)
+            e_gb = compare_table_grad(grads, whole_g[perm], scale[perm],
+                                      "GB shards vs the block-cyclic slices of GB")
+            torch.cuda.synchronize()
+        print(f"table={str(dtype)[6:]}: the shards' G partials summed vs G: max abs err "
+              f"{e_sum:.3e}; GI partials summed vs GI {e_dx:.3e}; the shards' GB vs the "
+              f"unsharded GB's block-cyclic slices {e_gb:.3e}")
+        # the same kernels unsharded on the whole table: RS over GG's output
+        # held to the same sound bound, and the entries beyond 2^-11·Σ|g|
+        # counted, as in shard mode
+        grid_kernel_checks(spec, table, x, dcols, ddx, label="config_btf unsharded",
+                           rs_terms=True)
+    phase(f"slice 12: shard-mode kernel times at config_btf (bf16 table, shard 0 of {n}, "
+          f"B={MAIN_BATCH}), device time in a CUDA graph")
+    t = {}
+    time_grid_kernels(spec, shards[0], x, dcols, ddx, t, {"G shard": "G", "GB shard": "GB"},
+                      shard=(0, n), plain_calls=2)
+
+    # GI and GG run in shard mode on the main path only in the eikonal job:
+    # the SDF sample's grid (3-D Smoothstep, fp32) at its gathered batch
+    from tcnn_tpu_torch import Policy, create_from_config
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+
+    sdf_spec = create_from_config(3, 1, sdf.CONFIG, policy=Policy()).network.encoding.spec
+    check(grid_ops.shardable_levels(sdf_spec, n), "the SDF grid's levels do not shard")
+    B = 1 << 14
+    phase(f"slice 12: the SDF sample's grid row-sharded {n} ways, G, GB, GI and GG of each "
+          f"shard vs plain at B={B} (the eikonal job's gathered batch), f32 table")
+    _, xv = sdf.sample_points(gen, B, dev)
+    dcols = torch.randn((sdf_spec.n_output_dims, B), generator=gen, device=dev)
+    ddx = torch.randn((B, 3), generator=gen, device=dev)
+    perm = torch.from_numpy(grid_ops.block_cyclic_perm(sdf_spec, n)).to(dev)
+    table = torch.rand(sdf_spec.n_params, generator=gen, device=dev) * 2 - 1
+    shards = [b.clone() for b in table[perm].chunk(n)]
+    err["GI shard"] = err["GG shard"] = 0.0   # their rows report this shape
+    for sid in range(n):
+        e = grid_kernel_checks(sdf_spec, shards[sid], xv, dcols, ddx,
+                               label=f"SDF shard {sid} of {n}", shard=(sid, n))
+        for k in ("GI", "GG"):
+            err[f"{k} shard"] = max(err[f"{k} shard"], e[k])
+    phase(f"slice 12: shard-mode GI and GG times at the SDF grid (f32 table, shard 0 of {n}, "
+          f"B={B}), device time in a CUDA graph")
+    time_grid_kernels(sdf_spec, shards[0], xv, dcols, ddx, t,
+                      {"GI shard": "GI", "GG shard": "GG"}, shard=(0, n))
+
+    launches = {}
+    for job, batch, steps, what in (
+            ("hybrid_btf", MAIN_BATCH, PARALLEL_STEPS,
+             "HybridParallel (n_model 2) training config_btf"),
+            ("dp_hash", MAIN_BATCH, PARALLEL_STEPS, "DataParallel training config_hash"),
+            ("eikonal_sdf", 1 << 14, PARALLEL_SDF_STEPS,
+             "the SDF sample's eikonal loss under HybridParallel (n_model 2)")):
+        phase(f"slice 12: two gloo ranks on this card: {what}, global batch {batch}, "
+              f"{steps} steps, against one process")
+        with tempfile.TemporaryDirectory() as tmp:
+            outs, ref = parallel_check.compare(job, 2, steps, batch, dev, f"{tmp}/params.pt")
+        got, want = np.asarray(outs[0]["losses"]), np.asarray(ref["losses"])
+        check(all(o["losses"] == outs[0]["losses"] for o in outs), f"{job}: ranks' losses differ")
+        check(bool(np.isfinite(got).all()), f"{job}: non-finite loss")
+        rtol = np.full(steps, PARALLEL_LOSS_RTOL)
+        rtol[0] = PARALLEL_FIRST_RTOL
+        bad = np.abs(got - want) > rtol * np.abs(want)
+        check(not bad.any(), f"{job}: losses {got.tolist()} vs one process {want.tolist()}")
+        check(ref["pred_rel"] <= PARALLEL_PRED_REL,
+              f"{job}: predictions {ref['pred_rel']:.3e} from one process's")
+        check(job == "dp_hash" or all(o["round_trip"] for o in outs),
+              f"{job}: gather_state of the sharded table is not the table")
+        worst = max(ref["grad_rel"], key=ref["grad_rel"].get)
+        check(ref["grad_rel"][worst] <= PARALLEL_GRAD_REL,
+              f"{job}: first reduced gradients {ref['grad_rel']} from one process's")
+        lc = outs[0]["launches"]
+        want_k = (("G", "GB", "M", "MB") if job != "eikonal_sdf"
+                  else ("G", "GB", "GI", "GG", "RS", "M", "MB"))
+        check(all(lc[k] >= steps for k in want_k), f"{job}: launches {lc}")
+        step_ms = [float(np.median(o["step_ms"][1:])) for o in outs]
+        coll_ms = [float(np.median(o["collective_ms"][1:])) for o in outs]
+        launches[job] = lc
+        print(f"{job}: losses {got[0]:.6f} -> {got[-1]:.6f} (one process {want[0]:.6f} -> "
+              f"{want[-1]:.6f}, max rel diff {float(np.max(np.abs(got - want) / np.abs(want))):.3e}); "
+              f"predictions rel L2 {ref['pred_rel']:.3e} (two single-process runs "
+              f"{ref['repeat_pred_rel']:.3e}); table rel L2 {ref['table_rel']:.3e} (two "
+              f"single-process runs {ref['repeat_table_rel']:.3e}); shard of "
+              f"{outs[0]['shard_numel']} table parameters; first reduced gradients rel L2 "
+              f"at most {ref['grad_rel'][worst]:.3e} ({worst})")
+        print(f"{job}: per rank, median over steps 2-{steps}: step {step_ms} ms, of it in "
+              f"collectives {coll_ms} ms (host clock, synchronised; one card shared by two "
+              f"processes, gloo: no scaling figure); launches over {steps} steps {lc}")
+    items = [("G shard", "G", REPLACES_G), ("GB shard", "GB", REPLACES_GB),
+             ("GI shard", "GI", REPLACES_GI), ("GG shard", "GG", REPLACES_GG)]
+    path_launches = {"G": launches["hybrid_btf"]["G"], "GB": launches["hybrid_btf"]["GB"],
+                     "GI": launches["eikonal_sdf"]["GI"], "GG": launches["eikonal_sdf"]["GG"]}
+    return entries(t, items, path_launches, err, {"n_shards": n})
+
+
 def mb_determinism(gen, dev):
     """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
     1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
@@ -3265,7 +3534,8 @@ def main():
               + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev) + nerf_slice(gen, dev)
               + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)
               + rng_stochastic_slice(gen, dev, hash_times) + masked_sdf_slice(gen, dev)
-              + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)}
+              + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)
+              + parallel_slice(gen, dev)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

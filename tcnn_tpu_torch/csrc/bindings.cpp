@@ -27,7 +27,7 @@ void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b,
                      const torch::Tensor& level_params, const torch::Tensor& out,
                      int64_t n_dims, int64_t n_features, int64_t out_stride_b,
                      int64_t out_stride_f, const std::vector<int64_t>& hash_factors,
-                     int64_t hash_kind, int64_t interp) {
+                     int64_t hash_kind, int64_t interp, bool sharded) {
   TORCH_CHECK(hash_factors.size() == 7, "grid_encode_fwd: seven hash factors");
   const c10::cuda::CUDAGuard guard(x.device());
   uint32_t factors[7];
@@ -38,7 +38,7 @@ void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b,
       x.size(0),
       static_cast<int>(n_dims), static_cast<int>(level_params.size(0)),
       static_cast<int>(n_features), out_stride_b, out_stride_f, factors, static_cast<int>(hash_kind),
-      static_cast<int>(interp), c10::cuda::getCurrentCUDAStream()));
+      static_cast<int>(interp), sharded, c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -67,7 +67,7 @@ void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b,
                      const torch::Tensor& out, int64_t n_dims, int64_t n_features,
                      int64_t dc_stride_b, int64_t dc_stride_f,
                      const std::vector<int64_t>& hash_factors, int64_t hash_kind,
-                     int64_t interp, const c10::optional<torch::Tensor>& u) {
+                     int64_t interp, const c10::optional<torch::Tensor>& u, bool sharded) {
   TORCH_CHECK(hash_factors.size() == 7, "grid_encode_bwd: seven hash factors");
   TORCH_CHECK(groups.size() % 4 == 0, "grid_encode_bwd: four fields per launch group");
   const c10::cuda::CUDAGuard guard(x.device());
@@ -81,7 +81,7 @@ void grid_encode_bwd(const torch::Tensor& x, int64_t x_stride_b,
       static_cast<int>(g.size() / 4), grad.data_ptr<float>(), out.data_ptr(),
       out.scalar_type() == at::kBFloat16, grad.numel(), static_cast<int>(n_dims),
       static_cast<int>(n_features), dc_stride_b, dc_stride_f, factors, static_cast<int>(hash_kind),
-      static_cast<int>(interp), optional_ptr<float>(u), x.size(0),
+      static_cast<int>(interp), optional_ptr<float>(u), x.size(0), sharded,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -117,7 +117,7 @@ void grid_encode_bwd_input(const torch::Tensor& x, int64_t x_stride_b,
                            const torch::Tensor& level_params, const torch::Tensor& dx,
                            int64_t n_dims, int64_t n_features, int64_t dc_stride_b,
                            int64_t dc_stride_f, const std::vector<int64_t>& hash_factors,
-                           int64_t hash_kind, int64_t interp) {
+                           int64_t hash_kind, int64_t interp, bool sharded) {
   TORCH_CHECK(hash_factors.size() == 7, "grid_encode_bwd_input: seven hash factors");
   const c10::cuda::CUDAGuard guard(x.device());
   uint32_t factors[7];
@@ -128,7 +128,7 @@ void grid_encode_bwd_input(const torch::Tensor& x, int64_t x_stride_b,
       dcols.scalar_type() == at::kBFloat16, level_params.data_ptr<int32_t>(),
       dx.data_ptr<float>(), x.size(0), static_cast<int>(n_dims),
       static_cast<int>(level_params.size(0)), static_cast<int>(n_features), dc_stride_b,
-      dc_stride_f, factors, static_cast<int>(hash_kind), static_cast<int>(interp),
+      dc_stride_f, factors, static_cast<int>(hash_kind), static_cast<int>(interp), sharded,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -143,7 +143,7 @@ void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b,
                          const c10::optional<torch::Tensor>& g, int64_t n_dims,
                          int64_t n_features, int64_t dc_stride_b, int64_t dc_stride_f,
                          const std::vector<int64_t>& hash_factors, int64_t hash_kind,
-                         int64_t interp) {
+                         int64_t interp, bool sharded) {
   TORCH_CHECK(hash_factors.size() == 7, "grid_encode_bwd_bwd: seven hash factors");
   const c10::cuda::CUDAGuard guard(x.device());
   uint32_t factors[7];
@@ -155,7 +155,7 @@ void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b,
       level_params.data_ptr<int32_t>(), optional_ptr<float>(d_dcols), optional_ptr<float>(d_x),
       optional_ptr<int32_t>(rows), optional_ptr<float>(g), x.size(0), static_cast<int>(n_dims),
       static_cast<int>(level_params.size(0)), static_cast<int>(n_features), dc_stride_b,
-      dc_stride_f, factors, static_cast<int>(hash_kind), static_cast<int>(interp),
+      dc_stride_f, factors, static_cast<int>(hash_kind), static_cast<int>(interp), sharded,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

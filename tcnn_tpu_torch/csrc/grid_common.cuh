@@ -15,6 +15,17 @@
 //  * out-of-range rows: idx % size + offset stays inside the table only if
 //    the table has the spec's size; the Python wrappers check that, since
 //    these kernels, unlike jnp.take, do not clamp.
+//  * shard mode (ops/grid_ops.py::sharded_tables): the table is one rank's
+//    block-cyclic shard, rows [sid*size/n, (sid+1)*size/n) of every level.
+//    A corner's row is computed exactly as unsharded, (h mod size) + the
+//    level's row base, which level_params sets to offset/n - sid*size/n
+//    (mod 2^32), so that the rank's rows land at [offset/n, offset/n +
+//    size/n) of its shard; shard_owns tests that range, unsigned, and a
+//    corner outside it (another rank's) is not read or written.  Unsharded
+//    the row base is the offset and every row passes.  The JAX package pins
+//    the even corner of a pair that straddles a block boundary
+//    (grid_ops.py:404-420) for its paired TPU kernels; these kernels take
+//    each corner on its own, so nothing is pinned.
 //  * weight derivatives: floor has zero derivative, so d fract / dx is the
 //    level's f32 scale; the per-dim derivatives are the closed forms of
 //    Linear (1, 0) and Smoothstep (6f(1-f), 6-12f), times scale and scale^2,
@@ -32,7 +43,7 @@ namespace tcnn_tpu_torch {
 namespace {
 
 constexpr int kGridThreads = 256;
-constexpr int kLevelFields = 15;  // ops/grid_ops.py::level_params
+constexpr int kLevelFields = 17;  // ops/grid_ops.py::level_params
 constexpr int kMaxDims = 7;       // the seven hash primes (common_device.h:646-664)
 
 // The hash of a hashed level: the XOR of coordinate x prime products
@@ -140,6 +151,12 @@ __device__ __forceinline__ uint64_t rng_step(const uint32_t (&cell)[kMaxDims], i
   for (int d = 0; d < kMaxDims; ++d)
     if (d < n_dims) step ^= uint64_t(cell[d] + ((c >> d) & 1)) << (d * nbits);
   return step;
+}
+
+// Whether the table (a shard, in shard mode) holds `row` of the level
+// whose constants are lp: rows [lp[15], lp[15] + lp[16]) (level_params).
+__device__ __forceinline__ bool shard_owns(const int32_t* lp, uint32_t row) {
+  return row - uint32_t(lp[15]) < uint32_t(lp[16]);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -48,6 +48,16 @@
 // (grid_encode_fwd_wide_kernel, WideCorners in grid_common.cuh); the
 // instances above carry no code of either.
 //
+// Shard mode (a sharded table: the shard's rows are in level_params,
+// grid_common.cuh) runs the run-time-D instance, with `sharded` a run-time
+// argument: a corner whose row the shard does not hold issues no load and
+// adds nothing, and the partial features are written in fp32, whatever the
+// table's dtype, so that the sum over the shards (a reduce-scatter) is
+// rounded once, as JAX sums its fp32 partials (grid_ops.py:441).  Its sums
+// are explicitly rounded, so the test cannot move the bits of the Rng grids
+// that instance serves unsharded; the 1- to 4-D instances carry no code of
+// it (a test in their corner loops read 53 % slower at config_btf, PERF.md).
+//
 // Coarse-to-fine (kMask, a separate instance: without a mask the code is
 // the unmasked design's, bit for bit and in time; one instance testing
 // the mask at run time read 5 % slower at the SDF shape, PERF.md): with
@@ -318,14 +328,14 @@ struct FwdLaunch {
 // sample on level blockIdx.y, its 2^D corners in a loop, each row in full
 // and loaded as it is used; F, the table's dtype and D at run time, one
 // instance.  The sum over the corners in order 0 .. 2^D-1 in fp32, as the
-// D <= 4 instances.
+// D <= 4 instances; in shard mode over the corners the shard holds.
 __global__ void __launch_bounds__(kGridThreads)
 grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ level_frac,
                             const void* __restrict__ table, bool bf16,
                             const int32_t* __restrict__ level_params, int n_levels,
                             void* __restrict__ out, int64_t batch, int n_dims, int n_features,
                             int64_t x_stride_b, int64_t out_stride_b, int64_t out_stride_f,
-                            HashConsts hc, int interp) {
+                            HashConsts hc, int interp, bool sharded) {
   const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
   const int level = blockIdx.y;
   if (b >= batch) return;
@@ -337,6 +347,7 @@ grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict
     const WideCorners lc(lp, x + b * x_stride_b, n_dims, interp);
     for (int c = 0; c < (1 << n_dims); ++c) {
       const uint32_t r = lc.row(c, hc);
+      if (sharded && !shard_owns(lp, r)) continue;
       const float w = lc.weight(c);
 #pragma unroll
       for (int f = 0; f < 8; ++f)
@@ -348,7 +359,7 @@ grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict
 #pragma unroll
   for (int f = 0; f < 8; ++f) {
     if (f >= n_features) break;
-    if (bf16)
+    if (bf16 && !sharded)
       static_cast<__nv_bfloat16*>(out)[o + f * out_stride_f] = __float2bfloat16_rn(acc[f]);
     else
       static_cast<float*>(out)[o + f * out_stride_f] = acc[f];
@@ -361,18 +372,18 @@ cudaError_t grid_encode_fwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
-    const uint32_t hash_factors[7], int hash_kind, int interp,
+    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded,
     cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || n_levels > 65535 || interp < 0 || interp > 2 ||
       x_stride_b < n_dims || n_dims < 1 || n_dims > kMaxDims || n_features < 1 ||
       n_features > 8)
     return cudaErrorInvalidValue;
   const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
-  if (wide_instance(n_dims, hash_kind)) {
+  if (sharded || wide_instance(n_dims, hash_kind)) {
     const dim3 grid(unsigned((batch + kGridThreads - 1) / kGridThreads), unsigned(n_levels));
     grid_encode_fwd_wide_kernel<<<grid, kGridThreads, 0, stream>>>(
         x, level_frac, table, table_bf16, level_params, n_levels, out, batch, n_dims,
-        n_features, x_stride_b, out_stride_b, out_stride_f, hc, interp);
+        n_features, x_stride_b, out_stride_b, out_stride_f, hc, interp, sharded);
     return cudaGetLastError();
   }
   if (table_bf16)

@@ -80,6 +80,14 @@
 // is cell + 1 on dim d iff u[l, b] < w1_d.  The 1- to 4-D instances carry
 // no code of it.
 //
+// Shard mode (BwdParams::sharded, run time; the shard's rows in
+// level_params, grid_common.cuh): a direct item issues no atomic for a
+// corner the shard does not hold (a dim-0 pair takes one 16-byte atomic
+// only where the shard holds both rows); a window item needs no test, since
+// the plan (gb_plan) windows rows of the shard's block only, and a corner
+// outside the window is skipped as before.  The flush lands at the window's
+// row in the shard: row base + row_lo, in uint32 arithmetic as the rows.
+//
 // Coarse-to-fine: with per-sample level fractions (null: none), a sample
 // whose level is masked (grid_common.cuh: level_threshold, the forward's
 // cutoff) issues no update at all, neither a direct atomic nor a window
@@ -131,6 +139,7 @@ struct BwdParams {
   int64_t x_stride_b, dc_stride_b, dc_stride_f;
   HashConsts hc;
   int interp;
+  bool sharded;   // the table is a shard: only the rows it holds
 };
 
 // fn(x_b, dy_b) for the samples b = from, from + stride, ... below b1, with
@@ -187,8 +196,13 @@ grid_encode_bwd_kernel(BwdParams a) {
       for (int c = 0; c < C; c += 2) {
         const float w0 = lc.weight(c), w1 = lc.weight(c + 1);
         const uint32_t r0 = lc.row(c, a.hc), r1 = lc.row(c + 1, a.hc);
+        bool o0 = true, o1 = true;
+        if (a.sharded) {
+          o0 = shard_owns(lp, r0);
+          o1 = shard_owns(lp, r1);
+        }
         if constexpr (F == 2) {
-          if (r1 == r0 + 1 && (r0 & 1) == 0) {  // one 16-byte atomic for the pair
+          if (o0 && o1 && r1 == r0 + 1 && (r0 & 1) == 0) {  // one 16-byte atomic for the pair
             if (w0 != 0.0f || w1 != 0.0f) {
               const float v[4] = {__fmul_rn(w0, dy[0]), __fmul_rn(w0, dy[1]),
                                   __fmul_rn(w1, dy[0]), __fmul_rn(w1, dy[1])};
@@ -197,8 +211,8 @@ grid_encode_bwd_kernel(BwdParams a) {
             continue;
           }
         }
-        if (w0 != 0.0f) add_row<F>(a.grad + int64_t(r0) * F, w0, dy);
-        if (w1 != 0.0f) add_row<F>(a.grad + int64_t(r1) * F, w1, dy);
+        if (w0 != 0.0f && o0) add_row<F>(a.grad + int64_t(r0) * F, w0, dy);
+        if (w1 != 0.0f && o1) add_row<F>(a.grad + int64_t(r1) * F, w1, dy);
       }
     });
     return;
@@ -244,7 +258,7 @@ grid_encode_bwd_kernel(BwdParams a) {
   else
     __syncthreads();
   window_flush<scatter_vec(F)>(win, int(n_rows) * F,
-                               a.grad + (int64_t(offset) + row_lo) * F);
+                               a.grad + int64_t(uint32_t(offset + row_lo)) * F);
 }
 
 template <typename TG, int D, int F, int P>
@@ -311,6 +325,7 @@ grid_encode_bwd_wide_kernel(BwdParams a, int n_dims, int n_features, bool dcols_
       const float w = pick < 0 ? lc.weight(c) : (c == pick ? 1.0f : 0.0f);
       if (w == 0.0f) continue;
       const uint32_t r = lc.row(c, a.hc);
+      if (a.sharded && !shard_owns(lp, r)) continue;
       float* p;
       if (n_rows) {
         const uint32_t wr = r - offset - row_lo;   // wraps above n_rows below row_lo
@@ -326,7 +341,8 @@ grid_encode_bwd_wide_kernel(BwdParams a, int n_dims, int n_features, bool dcols_
   }
   if (n_rows) {
     __syncthreads();
-    window_flush<1>(win, int(n_rows) * n_features, a.grad + (int64_t(offset) + row_lo) * n_features);
+    window_flush<1>(win, int(n_rows) * n_features,
+                    a.grad + int64_t(uint32_t(offset + row_lo)) * n_features);
   }
 }
 
@@ -364,7 +380,8 @@ cudaError_t grid_encode_bwd_launch(
     const int32_t* groups, int n_groups,
     float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
     int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7],
-    int hash_kind, int interp, const float* u, int64_t batch, cudaStream_t stream) {
+    int hash_kind, int interp, const float* u, int64_t batch, bool sharded,
+    cudaStream_t stream) {
   if (n_params <= 0 || n_groups < 0 || n_levels <= 0 || interp < 0 || interp > 2 ||
       x_stride_b < n_dims || (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims ||
       n_features < 1 || n_features > 8)
@@ -375,7 +392,7 @@ cudaError_t grid_encode_bwd_launch(
       return cudaErrorInvalidValue;
   const BwdParams a{x, level_frac, n_levels, dcols, level_params, items, grad,
                     x_stride_b, dc_stride_b, dc_stride_f,
-                    make_hash_consts(hash_factors, hash_kind), interp};
+                    make_hash_consts(hash_factors, hash_kind), interp, sharded};
 
   cudaError_t err = cudaMemsetAsync(grad, 0, size_t(n_params) * sizeof(float), stream);
   if (err != cudaSuccess) return err;

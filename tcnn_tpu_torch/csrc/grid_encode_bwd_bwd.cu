@@ -36,7 +36,11 @@
 // moved their unmasked bits at 3 dims (the compiler fused other products),
 // so they take no mask.  Rng grids
 // and 5 to 7 dims run one instance with D at run time
-// (grid_encode_bwd_bwd_wide_kernel), each corner's row in full.
+// (grid_encode_bwd_bwd_wide_kernel), each corner's row in full.  Shard mode
+// (a sharded table: grid_common.cuh, shard_owns) runs that instance's
+// kShard copy: a corner the shard does not hold loads nothing, adds nothing
+// to d_dcols or d_x, and writes row -1 (which RS skips) and g = 0; the
+// kShard = false copy keeps its code and bits.
 //
 // Bound on the H100: the writes of rows and g dominate, 201 MB, with x,
 // ddx, dcols (16.8 MB), d_dcols (16.8 MB) and d_x: about 0.07 ms at
@@ -131,7 +135,9 @@ grid_encode_bwd_bwd_kernel(const float* __restrict__ x, const void* __restrict__
 }
 
 // Rng grids and 5 to 7 dims: one instance with D, F and the dtypes at run
-// time (WideCorners), the same outputs in the same orders.
+// time (WideCorners), the same outputs in the same orders.  kShard: a
+// sharded table, only the corners it holds.
+template <bool kShard>
 __global__ void __launch_bounds__(kGridThreads)
 grid_encode_bwd_bwd_wide_kernel(const float* __restrict__ x,
                                 const float* __restrict__ level_frac, const void* table,
@@ -178,6 +184,15 @@ grid_encode_bwd_bwd_wide_kernel(const float* __restrict__ x,
     for (int c = 0; c < C; ++c) {
       const uint32_t row = lc.row(c, hc);
       const int64_t i = int64_t(slot * C + c) * batch + b;
+      if constexpr (kShard) {
+        if (!shard_owns(lp, row)) {
+          if (rows != nullptr) {
+            rows[i] = -1;
+            for (int k = 0; k < F; ++k) g[i * F + k] = 0.0f;
+          }
+          continue;
+        }
+      }
       float t[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k)
@@ -252,15 +267,17 @@ cudaError_t grid_encode_bwd_bwd_launch(
     const void* dcols, bool dcols_bf16, const float* ddx, const int32_t* level_params,
     float* d_dcols, float* d_x, int32_t* rows, float* g, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t dc_stride_b, int64_t dc_stride_f,
-    const uint32_t hash_factors[7], int hash_kind, int interp, cudaStream_t stream) {
+    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded,
+    cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || interp < 0 || interp > 2 || x_stride_b < n_dims ||
       (rows == nullptr) != (g == nullptr) || n_dims < 1 || n_dims > kMaxDims ||
       n_features < 1 || n_features > 8)
     return cudaErrorInvalidValue;
   const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
-  if (wide_instance(n_dims, hash_kind) || level_frac != nullptr) {
-    grid_encode_bwd_bwd_wide_kernel<<<unsigned((batch + kGridThreads - 1) / kGridThreads),
-                                      kGridThreads, 0, stream>>>(
+  if (sharded || wide_instance(n_dims, hash_kind) || level_frac != nullptr) {
+    const auto kernel = sharded ? grid_encode_bwd_bwd_wide_kernel<true>
+                                : grid_encode_bwd_bwd_wide_kernel<false>;
+    kernel<<<unsigned((batch + kGridThreads - 1) / kGridThreads), kGridThreads, 0, stream>>>(
         x, level_frac, table, table_bf16, dcols, dcols_bf16, ddx, level_params, d_dcols, d_x,
         rows, g, batch, n_levels, n_dims, n_features, x_stride_b, dc_stride_b, dc_stride_f,
         hc, interp);

@@ -44,6 +44,11 @@
 // null, no mask), tested at run time: a level the sample does not keep
 // loads nothing.  Rng grids and 5 to 7 dims run one instance with D at run
 // time (grid_encode_bwd_input_wide_kernel), each corner's row in full.
+// Shard mode (a sharded table: grid_common.cuh, shard_owns) runs that
+// instance's kShard copy, which adds no term for a corner the shard does
+// not hold; the 1- to 4-D instances, and the kShard = false copy, keep
+// their code and so their bits (a test in their sums could change which
+// products the compiler fuses).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -119,7 +124,8 @@ grid_encode_bwd_input_kernel(const float* __restrict__ x, const float* __restric
 
 // Rng grids and 5 to 7 dims: one instance with D, F and the dtypes at run
 // time (WideCorners), the same sums in the same order, each corner's row
-// loaded as it is used.
+// loaded as it is used.  kShard: a sharded table, only the corners it holds.
+template <bool kShard>
 __global__ void __launch_bounds__(kGridThreads)
 grid_encode_bwd_input_wide_kernel(const float* __restrict__ x,
                                   const float* __restrict__ level_frac, const void* table,
@@ -145,7 +151,11 @@ grid_encode_bwd_input_wide_kernel(const float* __restrict__ x,
           ? load_any(dcols, dcols_bf16, b * dc_stride_b + int64_t(level * n_features + k) * dc_stride_f)
           : 0.0f;
     for (int c = 0; c < (1 << n_dims); ++c) {
-      const int64_t row = int64_t(lc.row(c, hc)) * n_features;
+      const uint32_t r = lc.row(c, hc);
+      if constexpr (kShard) {
+        if (!shard_owns(lp, r)) continue;
+      }
+      const int64_t row = int64_t(r) * n_features;
       float val = 0.0f;
 #pragma unroll
       for (int k = 0; k < 8; ++k)
@@ -204,14 +214,15 @@ cudaError_t grid_encode_bwd_input_launch(
     bool table_bf16, const void* dcols, bool dcols_bf16, const int32_t* level_params,
     float* dx, int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
     int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind, int interp,
-    cudaStream_t stream) {
+    bool sharded, cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || interp < 0 || interp > 2 || x_stride_b < n_dims ||
       n_dims < 1 || n_dims > kMaxDims || n_features < 1 || n_features > 8)
     return cudaErrorInvalidValue;
   const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
-  if (wide_instance(n_dims, hash_kind)) {
-    grid_encode_bwd_input_wide_kernel<<<unsigned((batch + kGridThreads - 1) / kGridThreads),
-                                        kGridThreads, 0, stream>>>(
+  if (sharded || wide_instance(n_dims, hash_kind)) {
+    const auto kernel = sharded ? grid_encode_bwd_input_wide_kernel<true>
+                                : grid_encode_bwd_input_wide_kernel<false>;
+    kernel<<<unsigned((batch + kGridThreads - 1) / kGridThreads), kGridThreads, 0, stream>>>(
         x, level_frac, table, table_bf16, dcols, dcols_bf16, level_params, dx, batch,
         n_levels, n_dims, n_features, x_stride_b, dc_stride_b, dc_stride_f, hc, interp);
     return cudaGetLastError();

@@ -22,18 +22,21 @@ namespace tcnn_tpu_torch {
 //                keeps level l iff l < level_frac[b] * n_levels + 1e-3
 //                (grid_common.cuh: level_threshold); masked levels are 0
 //   table        flat (n_entries * n_features), float32 or bfloat16
-//   level_params (n_levels, 12) int32, see ops/grid_ops.py::level_params
+//   level_params (n_levels, 17) int32, see ops/grid_ops.py::level_params
 //   out          element (b, l*F+f) at out[b*out_stride_b + (l*F+f)*out_stride_f],
 //                in the table's dtype
 //   n_dims       1 to 7 (5 to 7: the kernel's one run-time-D instance)
 //   hash_factors seven uint32 LCG factors (zero past n_dims); hash_kind: 0 the
 //                factors' XOR, 1 CoherentAdd (dim 0 added), 2 Rng (pcg32)
 //   interp       0 nearest, 1 linear, 2 smoothstep
+//   sharded      the table is one rank's block-cyclic shard (level_params
+//                holds its rows): corners outside it contribute nothing, and
+//                out holds float32 partial features
 cudaError_t grid_encode_fwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
-    const uint32_t hash_factors[7], int hash_kind, int interp,
+    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded,
     cudaStream_t stream);
 
 // Kernel M: fused-MLP forward (csrc/fused_mlp.cu).
@@ -70,14 +73,15 @@ cudaError_t fused_mlp_fwd_launch(
 //                sample b's whole gradient on level l goes to one corner, cell
 //                + 1 on dim d iff u[l, b] < w1_d
 //   other arguments as for grid_encode_fwd_launch (n_dims 5 to 7: direct
-//   items only)
+//   items only; sharded: the items' windows lie in the shard's block)
 cudaError_t grid_encode_bwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* dcols,
     bool dcols_bf16, const int32_t* level_params, int n_levels, const int32_t* items,
     const int32_t* groups, int n_groups,
     float* grad, void* out, bool out_bf16, int64_t n_params, int n_dims, int n_features,
     int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7],
-    int hash_kind, int interp, const float* u, int64_t batch, cudaStream_t stream);
+    int hash_kind, int interp, const float* u, int64_t batch, bool sharded,
+    cudaStream_t stream);
 
 // Kernel MB: fused-MLP backward (csrc/fused_mlp_bwd.cu).
 //   x, weights, d_in, width, d_out, act, out_act: as for fused_mlp_fwd_launch
@@ -107,7 +111,7 @@ cudaError_t grid_encode_bwd_input_launch(
     bool table_bf16, const void* dcols, bool dcols_bf16, const int32_t* level_params,
     float* dx, int64_t batch, int n_dims, int n_levels, int n_features, int64_t dc_stride_b,
     int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind, int interp,
-    cudaStream_t stream);
+    bool sharded, cudaStream_t stream);
 
 // Kernel GG: grid-encode second order (csrc/grid_encode_bwd_bwd.cu).
 //   x, level_frac, table, dcols and the rest: as for grid_encode_bwd_input_launch;
@@ -119,14 +123,16 @@ cudaError_t grid_encode_bwd_input_launch(
 //   d_x          (batch, n_dims) float32, or null
 //   rows, g      (n_live * 2^n_dims * batch) int32 and (.., n_features) float32,
 //                n_live the levels marked live, in (live level, corner, sample)
-//                order; both or neither
+//                order; both or neither (sharded: a corner outside the shard
+//                writes row -1 and g = 0)
 cudaError_t grid_encode_bwd_bwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16,
     const void* dcols, bool dcols_bf16, const float* ddx, const int32_t* level_params,
     float* d_dcols, float* d_x, int32_t* rows, float* g, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t dc_stride_b, int64_t dc_stride_f,
-    const uint32_t hash_factors[7], int hash_kind, int interp, cudaStream_t stream);
+    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded,
+    cudaStream_t stream);
 
 // Kernel RS: row scatter-add (csrc/row_scatter.cu).
 //   idx          (m) int32 rows; rows outside [0, n_rows) are skipped

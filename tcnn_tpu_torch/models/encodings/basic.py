@@ -290,6 +290,12 @@ class CompositeEncoding(Encoding):
         return {f"{i}.{n}": k for i, e in enumerate(self.nested)
                 for n, k in e.param_layout().items()}
 
+    def grid_specs(self, prefix: str = "") -> Dict[str, Any]:
+        out = {}
+        for i, e in enumerate(self.nested):
+            out.update(e.grid_specs(f"{prefix}{i}."))
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = [enc(x[:, begin:begin + nd])
                 for enc, (begin, nd) in zip(self.nested, self.slices)]

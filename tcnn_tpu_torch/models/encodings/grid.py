@@ -71,6 +71,9 @@ class GridEncoding(Encoding):
         # (adam.h:76-118; tcnn_tpu/models/encodings/grid.py:76-80).
         return {"grid": "other"}
 
+    def grid_specs(self, prefix: str = "") -> Dict[str, Any]:
+        return {prefix + "grid": self.spec}
+
     # SoA (feature-major) output is this encoding's native layout
     # (grid.h:1053-1055); FusedMLP consumes it directly.
     prefers_soa = True

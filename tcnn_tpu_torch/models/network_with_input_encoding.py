@@ -40,6 +40,9 @@ class NetworkWithInputEncoding(Module):
                 **{f"network.{n}": k
                    for n, k in self.network.param_layout().items()}}
 
+    def grid_specs(self, prefix: str = "") -> Dict[str, Any]:
+        return self.encoding.grid_specs(prefix + "encoding.")
+
     @property
     def _use_soa(self) -> bool:
         return (getattr(self.encoding, "prefers_soa", False)

@@ -44,6 +44,15 @@ class Module(nn.Module):
         stepping)."""
         return {name: "matrix" for name, _ in self.named_parameters()}
 
+    def grid_specs(self, prefix: str = "") -> Dict[str, Any]:
+        """{parameter name: GridSpec} for every grid table among this
+        module's parameters (``tcnn_tpu/module.py:66``; names dotted, as
+        ``named_parameters`` gives them, where JAX gives key tuples).  The
+        parallel layer row-shards these tables
+        (``parallel.table_parallel``); modules without grid tables return
+        {}, containers merge their children's."""
+        return {}
+
     def inference(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """Forward without gradient bookkeeping (≈ object.h:147)."""
         return self(x, **kwargs)

@@ -26,6 +26,19 @@ JAX's ``ws_bwd`` (``grid_ops.build_indices_weights(scatter=True)``), from
 the uniforms of ``grid_ops.stochastic_uniforms``, in that instance too; G,
 GI and GG use the ordinary weights, as JAX's forward and input gradient
 do.
+
+Shard mode (``shard`` = (sid, n), ``grid_ops.sharded_tables``): the table
+is rank sid's block-cyclic shard of n, rows [sid·size/n, (sid+1)·size/n)
+of every level; each kernel computes every corner's row as before and
+takes only the corners whose rows the shard holds (``grid_ops.level_params``
+carries the shard's rows).  G adds no feature for another rank's corner,
+GB issues no atomic, GI adds no term to dx, GG adds nothing to d_dcols or
+d_x and writes row −1 (which RS skips) and g = 0.  Unsharded (None) every
+kernel runs as it did.  GB tests ``sharded`` at run time in its instances
+(only its direct atomics need the test: the plan's windows lie in the
+shard's block); G runs its run-time-D instance with the test, and GI and GG
+a shard copy of theirs, so that the 1- to 4-D instances of G, GI and GG
+keep their code and bits.
 """
 
 from __future__ import annotations
@@ -46,22 +59,25 @@ _INTERP_CODE = {InterpolationType.NEAREST: 0, InterpolationType.LINEAR: 1,
 def grid_encode_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                       x: torch.Tensor, live: Sequence[int],
                       soa: bool = False,
-                      level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      level_frac: Optional[torch.Tensor] = None,
+                      shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (grid_ops.py:1198-1297 of the
     JAX package): corner indices and weights (times the per-sample level
     mask of ``level_frac``, as JAX multiplies them), weighted gather, zero
-    rows for dead levels, cast to the table's dtype."""
+    rows for dead levels, cast to the table's dtype; with ``shard``, the
+    shard's fp32 partial features (cast after the sum over shards)."""
     F = spec.n_features_per_level
     B = x.shape[0]
     cols = torch.zeros((spec.n_levels * F, B), dtype=torch.float32,
                        device=x.device)
     if live:
-        idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac)
+        idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac,
+                                                 shard=shard)
         live_cols = grid_ops.interpolate_ref(flat, idx, ws, F)
         rows = torch.tensor([l * F + f for l in live for f in range(F)],
                             device=x.device)
         cols = cols.index_copy(0, rows, live_cols)
-    out = cols.to(flat.dtype)
+    out = cols if shard else cols.to(flat.dtype)
     return out if soa else out.t()
 
 
@@ -81,18 +97,33 @@ _level_consts: Dict[Tuple, torch.Tensor] = {}
 
 
 def _consts(spec: grid_ops.GridSpec, live: Sequence[int],
-            device: torch.device) -> torch.Tensor:
+            device: torch.device, shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The kernel's (L, LEVEL_FIELDS) int32 level constants on ``device``,
     cached so that a request copies nothing to the card."""
-    key = (spec, tuple(live), device)
+    key = (spec, tuple(live), device, shard)
     if key not in _level_consts:
         _level_consts[key] = torch.from_numpy(
-            grid_ops.level_params(spec, live)).to(device)
+            grid_ops.level_params(spec, live, shard)).to(device)
     return _level_consts[key]
 
 
+def _check_shard(name: str, spec: grid_ops.GridSpec,
+                 shard: Optional[Tuple[int, int]]) -> int:
+    """The shard count of ``shard`` (1: none); raises where the grid does
+    not shard so."""
+    if shard is None:
+        return 1
+    sid, n = shard
+    if not (0 <= sid < n and grid_ops.shardable_levels(spec, n)):
+        raise ValueError(f"{name}: shard {shard} of a grid with level sizes "
+                         f"{[lv.size for lv in spec.levels]}")
+    if spec.stochastic_interpolation:
+        raise NotImplementedError(f"{name}: stochastic interpolation on a sharded table")
+    return n
+
+
 def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
-                x: torch.Tensor) -> None:
+                x: torch.Tensor, shard: Optional[Tuple[int, int]] = None) -> None:
     """What the grid kernels take; raises on anything else."""
     D, F = spec.n_dims, spec.n_features_per_level
     if not 1 <= D <= grid_ops.MAX_DIMS or not 1 <= F <= 8:
@@ -107,7 +138,7 @@ def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
             or not flat.is_contiguous() or flat.data_ptr() % 16:
         raise ValueError(f"{name}: the table must be a contiguous, 16-byte "
                          "aligned flat float32 or bfloat16 tensor")
-    grid_ops.check_table_size(spec, flat)
+    grid_ops.check_table_size(spec, flat, _check_shard(name, spec, shard))
     require_cuda_tensors(name, x, flat)
 
 
@@ -132,34 +163,38 @@ def _x_row_stride(x: torch.Tensor) -> int:
 def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                     x: torch.Tensor, live: Sequence[int],
                     soa: bool = False,
-                    level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, L·F) features, or (L·F, B) with ``soa``, in ``flat``'s dtype.
+                    level_frac: Optional[torch.Tensor] = None,
+                    shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(B, L·F) features, or (L·F, B) with ``soa``, in ``flat``'s dtype
+    (with ``shard``, float32 partial features: their sum over the shards is
+    rounded once, after the reduce-scatter).
 
     ``flat`` is the (n_entries·F,) table, float32 or bfloat16; ``x`` is
     (B, D) float32 with unit stride across D, any row stride;
     ``level_frac`` None or the (B,) float32 per-sample level fractions
-    (``grid_ops.level_mask``): a masked (sample, level) is written as 0.
+    (``grid_ops.level_mask``): a masked (sample, level) is written as 0;
+    ``shard`` (sid, n) or None: see the module docstring.
     """
     if x.device.type == "cpu":
-        return grid_encode_plain(spec, flat, x, live, soa, level_frac)
+        return grid_encode_plain(spec, flat, x, live, soa, level_frac, shard)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_fwd: unsupported device {x.device}")
     name = "grid_encode_fwd"
-    _check_args(name, spec, flat, x)
+    _check_args(name, spec, flat, x, shard)
     _check_frac(name, x, level_frac)
-    level_consts = _consts(spec, live, x.device)
+    level_consts = _consts(spec, live, x.device, shard)
     factors, hash_kind = _hash_args(spec)
     F, L = spec.n_features_per_level, spec.n_levels
 
     B = x.shape[0]
-    out = torch.empty((L * F, B) if soa else (B, L * F), dtype=flat.dtype,
-                      device=x.device)
+    out = torch.empty((L * F, B) if soa else (B, L * F),
+                      dtype=torch.float32 if shard else flat.dtype, device=x.device)
     if B == 0:
         return out
     stride_b, stride_f = (1, B) if soa else (L * F, 1)
     kernels().grid_encode_fwd(x, _x_row_stride(x), level_frac, flat, level_consts, out,
                               spec.n_dims, F, stride_b, stride_f, factors,
-                              hash_kind, _INTERP_CODE[spec.interpolation])
+                              hash_kind, _INTERP_CODE[spec.interpolation], shard is not None)
     grid_encode_fwd.launches += 1
     return out
 
@@ -170,7 +205,8 @@ grid_encode_fwd.launches = 0
 def grid_encode_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                           x: torch.Tensor, dcols: torch.Tensor,
                           live: Sequence[int],
-                          level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          level_frac: Optional[torch.Tensor] = None,
+                          shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel GB: the table gradient
     dflat[idx_c(b, l)·F + f] += w_c(b, l) · dcols[l·F+f, b] over every
     sample, live level and corner, each product and the sum in fp32
@@ -179,21 +215,22 @@ def grid_encode_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     (L·F, B) SoA output gradient; dead levels, and the (sample, level)
     pairs ``level_frac`` masks, add nothing.  w are the scatter weights,
     stochastic interpolation's one-hot corner where the spec asks for it
-    (``build_indices_weights(scatter=True)``)."""
+    (``build_indices_weights(scatter=True)``).  With ``shard``, the shard's
+    rows only."""
     F = spec.n_features_per_level
     B = x.shape[0]
-    dflat = torch.zeros((spec.n_entries, F), dtype=torch.float32,
-                        device=x.device)
+    n_rows = spec.n_entries // (shard[1] if shard else 1)
+    dflat = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     if live and B:
         idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac,
-                                                 scatter=True)
+                                                 scatter=True, shard=shard)
         L = len(live)
         C = ws.shape[0] // L
         rows = torch.tensor([l * F + f for l in live for f in range(F)],
                             device=x.device)
         dy = dcols.index_select(0, rows).float().reshape(L, F, B)
         vals = ws.reshape(L, C, B, 1) * dy.permute(0, 2, 1).reshape(L, 1, B, F)
-        dflat.index_add_(0, idx.reshape(-1), vals.reshape(-1, F))
+        dflat.index_add_(0, idx.reshape(-1).clamp_min(0), vals.reshape(-1, F))
     return dflat.reshape(-1).to(flat.dtype)
 
 
@@ -237,25 +274,34 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def gb_plan(spec: grid_ops.GridSpec, live: Sequence[int], batch: int) -> GbPlan:
+def gb_plan(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
+            shard: Optional[Tuple[int, int]] = None) -> GbPlan:
     """Kernel GB's work items and launches for ``batch`` samples (see the
     GB_ constants): every (live level, sample) is in one item per part of
-    its level, every row of a windowed level in one part."""
+    its level, every row of a windowed level in one part.  With ``shard``
+    (sid, n) the windows cover the shard's block of each level, level-local
+    rows [sid·size/n, (sid+1)·size/n) (the kernel skips a corner outside
+    its window, so another rank's corners add nothing there), planned over
+    the block's size/n rows; a row's updates over the batch, which decide
+    windows and chunks, are the whole level's B·C / size."""
     F, C = spec.n_features_per_level, 1 << spec.n_dims
     cap = GB_WINDOW_BYTES // (4 * F)            # rows one window holds
+    sid, n = shard or (0, 1)
     singles, pairs, direct = [], [], []
     for l in live:
         size = spec.levels[l].size
-        parts = -(-size // cap)
+        block, lo = size // n, sid * (size // n)
+        parts = -(-block // cap)
         if parts > GB_MAX_PARTS or batch * C < GB_MIN_HITS * size:
             direct += [(l, 0, 0, b0, min(batch, b0 + GB_DIRECT_CHUNK))
                        for b0 in range(0, batch, GB_DIRECT_CHUNK)]
             continue
-        rows = -(-size // parts)
+        rows = -(-block // parts)
         chunk = max(GB_MIN_CHUNK, _pow2_at_least(-(-GB_REUSE * size // C)))
         for b0 in range(0, batch, chunk):
             b1 = min(batch, b0 + chunk)
-            its = [(l, p * rows, min(rows, size - p * rows), b0, b1) for p in range(parts)]
+            its = [(l, lo + p * rows, min(rows, block - p * rows), b0, b1)
+                   for p in range(parts)]
             if parts == 2 and GB_CLUSTER_PARTS:
                 pairs.append(its)
             else:
@@ -277,12 +323,13 @@ _gb_plans: Dict[Tuple, Tuple[torch.Tensor, List[int]]] = {}
 
 
 def _gb_plan_on(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
-                device: torch.device) -> Tuple[torch.Tensor, List[int]]:
+                device: torch.device,
+                shard: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, List[int]]:
     """``gb_plan``'s items on ``device`` and its groups as a flat list,
     cached so that a training step copies nothing to the card."""
-    key = (spec, tuple(live), batch, device)
+    key = (spec, tuple(live), batch, device, shard)
     if key not in _gb_plans:
-        plan = gb_plan(spec, live, batch)
+        plan = gb_plan(spec, live, batch, shard)
         items = torch.from_numpy(plan.items.reshape(-1)).to(device)
         if items.numel() == 0:   # a valid pointer for a launch with no items
             items = torch.zeros(5, dtype=torch.int32, device=device)
@@ -293,8 +340,10 @@ def _gb_plan_on(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
 def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                     x: torch.Tensor, dcols: torch.Tensor,
                     live: Sequence[int],
-                    level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(n_entries·F,) table gradient in ``flat``'s dtype.
+                    level_frac: Optional[torch.Tensor] = None,
+                    shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(n_entries·F,) table gradient in ``flat``'s dtype (the shard's
+    rows with ``shard``).
 
     ``dcols`` is the output gradient in the SoA layout (L·F, B), float32 or
     bfloat16, any strides (the transpose of an AoS gradient is taken as
@@ -306,11 +355,11 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     (n_levels, B) uniforms of ``grid_ops.stochastic_uniforms``.
     """
     if x.device.type == "cpu":
-        return grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac)
+        return grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac, shard)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_bwd: unsupported device {x.device}")
     name = "grid_encode_bwd"
-    _check_args(name, spec, flat, x)
+    _check_args(name, spec, flat, x, shard)
     _check_frac(name, x, level_frac)
     F, L = spec.n_features_per_level, spec.n_levels
     B = x.shape[0]
@@ -320,8 +369,8 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     require_cuda_tensors(name, x, dcols)
     if B >= 2 ** 31:
         raise ValueError(f"{name}: {B} samples exceed the plan's int32 sample indices")
-    level_consts = _consts(spec, live, x.device)
-    items, groups = _gb_plan_on(spec, live, B, x.device)
+    level_consts = _consts(spec, live, x.device, shard)
+    items, groups = _gb_plan_on(spec, live, B, x.device, shard)
     factors, hash_kind = _hash_args(spec)
     grad = torch.empty(flat.numel(), dtype=torch.float32, device=x.device)
     if B == 0:
@@ -333,7 +382,7 @@ def grid_encode_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                               groups, grad,
                               out, spec.n_dims, F, dcols.stride(1), dcols.stride(0),
                               factors, hash_kind,
-                              _INTERP_CODE[spec.interpolation], u)
+                              _INTERP_CODE[spec.interpolation], u, shard is not None)
     grid_encode_bwd.launches += 1
     return out
 
@@ -360,26 +409,30 @@ def _live_dcols(spec: grid_ops.GridSpec, dcols: torch.Tensor,
 
 def _corner_features(spec: grid_ops.GridSpec, flat: torch.Tensor,
                      idx: torch.Tensor) -> torch.Tensor:
-    """(L, C, B, F) fp32 table rows at the corners ``idx`` (L, C·B)."""
+    """(L, C, B, F) fp32 table rows at the corners ``idx`` (L, C·B); row −1
+    (another shard's corner) reads row 0."""
     F = spec.n_features_per_level
     L = idx.shape[0]
-    return flat.reshape(-1, F)[idx.reshape(-1)].float().reshape(L, 1 << spec.n_dims, -1, F)
+    return flat.reshape(-1, F)[idx.reshape(-1).clamp_min(0)].float().reshape(
+        L, 1 << spec.n_dims, -1, F)
 
 
 def grid_encode_bwd_input_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                                 x: torch.Tensor, dcols: torch.Tensor,
                                 live: Sequence[int],
-                                level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                level_frac: Optional[torch.Tensor] = None,
+                                shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel GI: dx[b, d] = Σ_l Σ_c ∂w_c/∂x_d ·
     Σ_k table[row_c, k] · dcols[l·F+k, b], in fp32 (the JAX package's
     ``dws`` of ``_finish_interp_bwd``, grid_ops.py:1104-1119, carried
     through ``_build_indices_weights``' derivative).  Returns (B, D)
-    float32; dead levels, and masked (sample, level) pairs, add nothing."""
+    float32; dead levels, masked (sample, level) pairs and, with ``shard``,
+    other ranks' corners add nothing."""
     B, D = x.shape
     dx = torch.zeros((B, D), dtype=torch.float32, device=x.device)
     if live and B:
         idx, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1,
-                                                     level_frac=level_frac)
+                                                     level_frac=level_frac, shard=shard)
         feats = _corner_features(spec, flat, idx)                     # (L, C, B, F)
         dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]  # (L, 1, B, F)
         val = (feats * dy).sum(-1)                                    # (L, C, B)
@@ -390,7 +443,8 @@ def grid_encode_bwd_input_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
 def grid_encode_bwd_input(spec: grid_ops.GridSpec, flat: torch.Tensor,
                           x: torch.Tensor, dcols: torch.Tensor,
                           live: Sequence[int],
-                          level_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          level_frac: Optional[torch.Tensor] = None,
+                          shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(B, D) float32 input gradient of the grid encoding (kernel GI).
 
     ``flat`` is the (n_entries·F,) table, float32 or bfloat16, ``x`` the
@@ -399,14 +453,14 @@ def grid_encode_bwd_input(spec: grid_ops.GridSpec, flat: torch.Tensor,
     ``level_frac`` as for ``grid_encode_fwd``.
     """
     if x.device.type == "cpu":
-        return grid_encode_bwd_input_plain(spec, flat, x, dcols, live, level_frac)
+        return grid_encode_bwd_input_plain(spec, flat, x, dcols, live, level_frac, shard)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_bwd_input: unsupported device {x.device}")
     name = "grid_encode_bwd_input"
-    _check_args(name, spec, flat, x)
+    _check_args(name, spec, flat, x, shard)
     _check_dcols(name, spec, x, dcols)
     _check_frac(name, x, level_frac)
-    level_consts = _consts(spec, live, x.device)
+    level_consts = _consts(spec, live, x.device, shard)
     factors, hash_kind = _hash_args(spec)
     B, D = x.shape
     dx = torch.empty((B, D), dtype=torch.float32, device=x.device)
@@ -416,7 +470,7 @@ def grid_encode_bwd_input(spec: grid_ops.GridSpec, flat: torch.Tensor,
                                     level_consts, dx,
                                     D, spec.n_features_per_level, dcols.stride(1),
                                     dcols.stride(0), factors, hash_kind,
-                                    _INTERP_CODE[spec.interpolation])
+                                    _INTERP_CODE[spec.interpolation], shard is not None)
     grid_encode_bwd_input.launches += 1
     return dx
 
@@ -436,7 +490,8 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                               x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
                               live: Sequence[int], need_dcols: bool = True,
                               need_x: bool = True, need_rows: bool = True,
-                              level_frac: Optional[torch.Tensor] = None) -> BwdBwd:
+                              level_frac: Optional[torch.Tensor] = None,
+                              shard: Optional[Tuple[int, int]] = None) -> BwdBwd:
     """Plain PyTorch version of kernel GG, the backward of the input
     gradient given its cotangent ``ddx`` (B, D).  With w'_c = Σ_d
     ∂w_c/∂x_d · ddx_d per (level, corner, sample):
@@ -448,7 +503,8 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     (sample, level) that ``level_frac`` masks has zero weight derivatives
     (``build_indices_weights``), so it contributes nothing: zero d_dcols,
     nothing to d_x, g = 0, and its rows are -1, which kernel RS and its
-    plain version skip (as the kernel writes them)."""
+    plain version skip (as the kernel writes them).  With ``shard``, another
+    rank's corner has zero weight derivatives, row −1 and g = 0."""
     B, D = x.shape
     F, C, L = spec.n_features_per_level, 1 << spec.n_dims, len(live)
     dev = x.device
@@ -460,7 +516,7 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     if not (live and B):
         return BwdBwd(d_dcols, d_x, rows, g)
     idx, _, dws, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2,
-                                                       level_frac=level_frac)
+                                                       level_frac=level_frac, shard=shard)
     v = ddx.float()
     wp = (dws * v[None]).sum(-1).reshape(L, C, B)               # w'_c
     feats = _corner_features(spec, flat, idx)                    # (L, C, B, F)
@@ -487,17 +543,18 @@ def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Te
                         dcols: torch.Tensor, ddx: torch.Tensor, live: Sequence[int],
                         need_dcols: bool = True, need_x: bool = True,
                         need_rows: bool = True,
-                        level_frac: Optional[torch.Tensor] = None) -> BwdBwd:
+                        level_frac: Optional[torch.Tensor] = None,
+                        shard: Optional[Tuple[int, int]] = None) -> BwdBwd:
     """Kernel GG: see ``grid_encode_bwd_bwd_plain``.  ``flat``, ``x``,
-    ``dcols`` and ``level_frac`` as for ``grid_encode_bwd_input``; ``ddx``
-    (B, D) float32."""
+    ``dcols``, ``level_frac`` and ``shard`` as for ``grid_encode_bwd_input``;
+    ``ddx`` (B, D) float32."""
     if x.device.type == "cpu":
         return grid_encode_bwd_bwd_plain(spec, flat, x, dcols, ddx, live, need_dcols,
-                                         need_x, need_rows, level_frac)
+                                         need_x, need_rows, level_frac, shard)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_bwd_bwd: unsupported device {x.device}")
     name = "grid_encode_bwd_bwd"
-    _check_args(name, spec, flat, x)
+    _check_args(name, spec, flat, x, shard)
     _check_dcols(name, spec, x, dcols)
     _check_frac(name, x, level_frac)
     B, D = x.shape
@@ -505,7 +562,7 @@ def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Te
         raise ValueError(f"{name}: ddx must be ({B}, {D}), got {tuple(ddx.shape)}")
     ddx = ddx.float().contiguous()
     require_cuda_tensors(name, x, ddx)
-    level_consts = _consts(spec, live, x.device)
+    level_consts = _consts(spec, live, x.device, shard)
     factors, hash_kind = _hash_args(spec)
     F, C, L = spec.n_features_per_level, 1 << D, len(live)
     dev = x.device
@@ -524,7 +581,8 @@ def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Te
         return out
     kernels().grid_encode_bwd_bwd(x, _x_row_stride(x), level_frac, flat, dcols, ddx,
                                   level_consts, *out, D, F, dcols.stride(1), dcols.stride(0),
-                                  factors, hash_kind, _INTERP_CODE[spec.interpolation])
+                                  factors, hash_kind, _INTERP_CODE[spec.interpolation],
+                                  shard is not None)
     grid_encode_bwd_bwd.launches += 1
     return out
 

@@ -17,13 +17,15 @@ so it is split into two 16-bit halves (``_mul_u32``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import func_rules, pcg32_hash, threefry
+from . import collectives, func_rules, pcg32_hash, threefry
 from ..common import (
     COHERENT_PRIME_HASH_FACTORS,
     GridType,
@@ -256,7 +258,7 @@ def stochastic_uniforms(n_levels: int, batch: int, device) -> torch.Tensor:
 def build_indices_weights(spec: GridSpec, x: torch.Tensor,
                           live: Sequence[int], order: int = 0,
                           level_frac: Optional[torch.Tensor] = None,
-                          scatter: bool = False):
+                          scatter: bool = False, shard: Optional[Tuple[int, int]] = None):
     """Corner row indices and interpolation weights of the live levels.
 
     Same layout as the JAX package's ``_build_indices_weights``:
@@ -282,6 +284,14 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
     d iff u < w1_d (u from ``stochastic_uniforms``, w1_d the weight of the
     upper corner on dim d, Smoothstep included), and 0 on the others.  The
     forward and the input gradient keep the ordinary weights.
+
+    ``shard`` (sid, n): the table is this rank's block-cyclic shard
+    (``sharded_tables``).  A corner whose level-local row r lies in the
+    rank's block [sid·size/n, (sid+1)·size/n) gets its row in the shard,
+    r − sid·size/n + offset/n; any other corner gets row −1 and zero
+    weights (and weight derivatives), so it contributes nothing.
+    ``interpolate_ref`` and the plain versions read row −1 as row 0, at
+    weight 0.
     """
     B = x.shape[0]
     D = spec.n_dims
@@ -339,7 +349,7 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
     if mask is not None:
         out[1:] = [o * mask.reshape(L * C, B, *[1] * (o.ndim - 2)) for o in out[1:]]
 
-    rows = []
+    rows, owned = [], []
     corner_bits = torch.from_numpy(bits).to(x.device)   # (C, D)
     for p, lv in enumerate(levels):
         # every corner at once: (C, B) coordinates per dim
@@ -351,63 +361,168 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
             for d in range(D):
                 if lv.stride_mask[d]:
                     h = (h + _mul_u32(coords[d], lv.strides[d])) & _U32
-        rows.append(h % lv.size + lv.offset)   # (C, B)
+        if shard is None:
+            rows.append(h % lv.size + lv.offset)   # (C, B)
+            continue
+        n_rows = lv.size // shard[1]
+        r = h % lv.size - shard[0] * n_rows
+        own = (r >= 0) & (r < n_rows)
+        rows.append(torch.where(own, r + lv.offset // shard[1], -1))
+        owned.append(own)
     idx = torch.stack(rows, dim=0).reshape(L, C * B)
+    if owned:
+        own = torch.stack(owned, dim=0).reshape(L * C, B).to(torch.float32)
+        out = [o * own.reshape(L * C, B, *[1] * (o.ndim - 2)) for o in out]
     return (idx, *out)
 
 
 def interpolate_ref(flat: torch.Tensor, idx: torch.Tensor, ws: torch.Tensor,
                     n_features: int) -> torch.Tensor:
-    """(L·F, B) float32 columns: Σ_c ws[l·C+c, b] · table[idx[l, c·B+b], f]."""
+    """(L·F, B) float32 columns: Σ_c ws[l·C+c, b] · table[idx[l, c·B+b], f]
+    (a row −1, a corner another shard owns, is read as row 0 at weight 0)."""
     L = idx.shape[0]
     B = ws.shape[1]
     C = ws.shape[0] // L
     table2d = flat.reshape(-1, n_features)
-    feats = table2d[idx.reshape(-1)].to(torch.float32)
+    feats = table2d[idx.reshape(-1).clamp_min(0)].to(torch.float32)
     feats = feats.reshape(L, C, B, n_features)
     cols = (feats * ws.reshape(L, C, B, 1)).sum(dim=1)     # (L, B, F)
     return cols.permute(0, 2, 1).reshape(L * n_features, B)
 
 
-LEVEL_FIELDS = 15
+LEVEL_FIELDS = 17
 MAX_DIMS = 7   # the hash primes' count (common_device.h:646-664)
 
 
-def level_params(spec: GridSpec, live: Sequence[int]) -> np.ndarray:
-    """Per-level constants of the grid kernels, (L, 15) int32:
-    scale (float32 bits), size, offset, use_hash, live, stride-mask bits,
-    seven uint32 strides (bit patterns; zero past n_dims), and the 64-bit
+def level_params(spec: GridSpec, live: Sequence[int],
+                 shard: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """Per-level constants of the grid kernels, (L, 17) int32:
+    scale (float32 bits), size, row base, use_hash, live, stride-mask bits,
+    seven uint32 strides (bit patterns; zero past n_dims), the 64-bit
     multiplier of ``h % size`` without a division,
     floor((2^64 − 1) / size) + 1 (Lemire, Kaser & Kurz, 2019), as low and
-    high words.  Dead levels (at or above ``max_level``) keep their row,
-    marked not live."""
+    high words, and the table rows the kernel holds of the level: the
+    first and their count.  Dead levels (at or above ``max_level``) keep
+    their row, marked not live.
+
+    A corner's table row is (h mod size) + row base.  Unsharded the row
+    base is the level's offset and the kernel holds all its rows (offset,
+    size).  With ``shard`` (sid, n), the block-cyclic shard of
+    ``sharded_tables``, the kernel holds rows [offset/n, offset/n + size/n)
+    of its shard, level-local rows [sid·size/n, (sid+1)·size/n), so the row
+    base is offset/n − sid·size/n (mod 2^32) and a corner is the rank's iff
+    row − offset/n < size/n, unsigned (``grid_common.cuh``: ``shard_owns``).
+    """
     if spec.n_dims > MAX_DIMS:
         raise ValueError(
             f"the grid kernels cover at most {MAX_DIMS} dims, got {spec.n_dims}")
+    sid, n = shard or (0, 1)
     out = np.zeros((spec.n_levels, LEVEL_FIELDS), np.uint32)
     live = set(live)
     for l, lv in enumerate(spec.levels):
         magic = ((2 ** 64 - 1) // lv.size + 1) % 2 ** 64
+        first, n_rows = lv.offset // n, lv.size // n
         out[l, 0] = np.float32(lv.scale).view(np.uint32)
         out[l, 1] = lv.size
-        out[l, 2] = lv.offset
+        out[l, 2] = (first - sid * n_rows) % 2 ** 32
         out[l, 3] = int(lv.use_hash)
         out[l, 4] = int(l in live)
         out[l, 5] = sum(1 << d for d, m in enumerate(lv.stride_mask) if m)
         out[l, 6:6 + spec.n_dims] = lv.strides
         out[l, 13] = magic & 0xFFFFFFFF
         out[l, 14] = magic >> 32
+        out[l, 15] = first
+        out[l, 16] = n_rows
     return out.view(np.int32)
 
 
-def check_table_size(spec: GridSpec, flat: torch.Tensor) -> None:
-    if flat.numel() != spec.n_params:
+def check_table_size(spec: GridSpec, flat: torch.Tensor, n_shards: int = 1) -> None:
+    """The table has the spec's size, or a shard's (``n_shards`` > 1)."""
+    want = spec.n_params // n_shards
+    if flat.numel() != want:
         # A wrong-size table (a stale checkpoint after a spec change) would
         # read out of range in the kernel, where jnp.take clamps.
+        shard = f" / {n_shards} shards" if n_shards > 1 else ""
         raise ValueError(
             f"table has {flat.numel()} elements but the grid spec needs "
-            f"{spec.n_params} ({spec.n_entries} rows × "
-            f"{spec.n_features_per_level} features)")
+            f"{want} ({spec.n_entries} rows × "
+            f"{spec.n_features_per_level} features{shard})")
+
+
+# -- model-parallel (row-sharded) tables (tcnn_tpu/ops/grid_ops.py:254-445) --
+#
+# Each grid table can be row-sharded over a process group in a block-cyclic
+# layout: every level splits into n equal row blocks, and rank i holds
+# block i of every level (``block_cyclic_perm`` maps the canonical flat
+# layout to this one).  Under ``sharded_tables`` a grid gathers its group's
+# batch, runs its kernels in shard mode on the local shard (a corner another
+# rank owns contributes nothing: ``level_params``), and reduce-scatters the
+# partial features, so that each rank gets its own samples' features; each
+# table row is owned by exactly one rank, so the sum is the whole table's
+# interpolation.
+
+
+class TableSharding(NamedTuple):
+    """The ``sharded_tables`` context: the process group (None: the default
+    group) and its size."""
+    group: Any
+    n_shards: int
+
+
+_TABLE_SHARDING: contextvars.ContextVar[Optional[TableSharding]] = \
+    contextvars.ContextVar("tcnn_torch_table_sharding", default=None)
+
+
+def shardable_levels(spec: GridSpec, n_shards: int) -> bool:
+    """True iff every level's row count divides ``n_shards`` ways
+    (``tcnn_tpu/ops/grid_ops.py:273``).  Hash and dense levels are 8-row
+    aligned, so 2, 4 and 8 shards qualify; Tiled levels are capped at
+    base_resolution^D after the alignment and may not."""
+    return all(lv.size % n_shards == 0 for lv in spec.levels)
+
+
+def block_cyclic_perm(spec: GridSpec, n_shards: int) -> np.ndarray:
+    """Flat-element permutation canonical → block-cyclic sharded layout
+    (``tcnn_tpu/ops/grid_ops.py:283``): ``new_flat = old_flat[perm]``;
+    shard i of the permuted table, elements [i·N/n, (i+1)·N/n), holds rows
+    [i·size/n, (i+1)·size/n) of every level, concatenated in level order.
+    ``np.argsort(perm)`` inverts it."""
+    if not shardable_levels(spec, n_shards):
+        raise ValueError(
+            f"grid not block-cyclic shardable {n_shards} ways: level "
+            f"sizes {[lv.size for lv in spec.levels]}")
+    rows = np.concatenate([
+        np.arange(lv.offset + m * (lv.size // n_shards),
+                  lv.offset + (m + 1) * (lv.size // n_shards))
+        for m in range(n_shards) for lv in spec.levels])
+    f = spec.n_features_per_level
+    return (rows[:, None] * f + np.arange(f)[None, :]).reshape(-1)
+
+
+@contextlib.contextmanager
+def sharded_tables(group, n_shards: int):
+    """Grid tables are row-sharded ``n_shards`` ways over the process group
+    ``group`` (``tcnn_tpu/ops/grid_ops.py:305-328``, where the group is a
+    mesh axis).
+
+    Under the context, ``grid_encode`` expects its table to be this rank's
+    block-cyclic shard (``block_cyclic_perm``) and its batch to be this
+    rank's slice of the group's batch: it all-gathers the batch,
+    interpolates the rows it owns for all of it and reduce-scatters the
+    partial features, so each rank gets its own samples' features.  A
+    full-size table under the context is a grid left replicated and takes
+    the ordinary path.
+
+    Gradient convention: the table gradient of a rank is the sum over the
+    group's ranks of their local losses' cotangents (the all-gather's
+    transpose), i.e. that of Σ_ranks loss_rank; divide by ``n_shards`` for
+    the group-mean loss, as ``HybridParallel``'s step does.
+    """
+    token = _TABLE_SHARDING.set(TableSharding(group, int(n_shards)))
+    try:
+        yield
+    finally:
+        _TABLE_SHARDING.reset(token)
 
 
 def _engine_will_use(t: torch.Tensor) -> bool:
@@ -480,16 +595,18 @@ class GridEncodeFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(flat, x, spec, live, soa, frac):
+    def forward(flat, x, spec, live, soa, frac, shard=None):
         from .cuda.grid_encode import grid_encode_fwd
 
-        return grid_encode_fwd(spec, _kernel_table(flat), x, live, soa=soa, level_frac=frac)
+        return grid_encode_fwd(spec, _kernel_table(flat), x, live, soa=soa, level_frac=frac,
+                               shard=shard)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        flat, x, spec, live, soa, frac = inputs
+        flat, x, spec, live, soa, frac, *shard = inputs
         ctx.set_materialize_grads(False)   # no gradient in, no kernel launched
         ctx.spec, ctx.live, ctx.soa = spec, live, soa
+        ctx.shard = shard[0] if shard else None
         ctx.save_for_backward(flat, x, frac)
         ctx.save_for_forward(flat, x, frac)
 
@@ -498,20 +615,20 @@ class GridEncodeFunction(torch.autograd.Function):
         from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
 
         if dout is None:
-            return None, None, None, None, None, None
+            return None, None, None, None, None, None, None
         flat, x, frac = ctx.saved_tensors
         dcols = dout if ctx.soa else dout.t()
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         need_x = ctx.needs_input_grad[1]
         if torch.is_grad_enabled():
-            dflat, dx = GridEncodeBackwardFunction.apply(flat, x, dcols, ctx.spec,
-                                                         ctx.live, need_table, need_x, frac)
+            dflat, dx = GridEncodeBackwardFunction.apply(flat, x, dcols, ctx.spec, ctx.live,
+                                                         need_table, need_x, frac, ctx.shard)
         else:
-            dflat = (grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac)
-                     if need_table else None)
-            dx = (grid_encode_bwd_input(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac)
-                  if need_x else None)
-        return dflat, dx, None, None, None, None
+            dflat = (grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac,
+                                     shard=ctx.shard) if need_table else None)
+            dx = (grid_encode_bwd_input(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac,
+                                        shard=ctx.shard) if need_x else None)
+        return dflat, dx, None, None, None, None, None
 
     @staticmethod
     def jvp(ctx, t_flat, t_x, *_):
@@ -531,10 +648,10 @@ class GridEncodeFunction(torch.autograd.Function):
         return t if ctx.soa else t.t()
 
     @staticmethod
-    def vmap(info, in_dims, flat, x, spec, live, soa, frac):
-        d_flat, d_x, *_, d_frac = in_dims
+    def vmap(info, in_dims, flat, x, spec, live, soa, frac, shard=None):
+        d_flat, d_x, *_, d_frac = in_dims[:6]
         if d_flat is not None:
-            return func_rules.loop(GridEncodeFunction, info, in_dims,
+            return func_rules.loop(GridEncodeFunction, info, in_dims[:6],
                                    (flat, x, spec, live, soa, frac))
         n = info.batch_size
         out = GridEncodeFunction.apply(flat, func_rules.fold(x, d_x, n, 0), spec, live, soa,
@@ -574,20 +691,21 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(flat, x, dcols, spec, live, need_table, need_x, frac):
+    def forward(flat, x, dcols, spec, live, need_table, need_x, frac, shard=None):
         from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
 
-        dflat = (grid_encode_bwd(spec, flat, x, dcols, live, level_frac=frac)
+        dflat = (grid_encode_bwd(spec, flat, x, dcols, live, level_frac=frac, shard=shard)
                  if need_table else None)
-        dx = (grid_encode_bwd_input(spec, _kernel_table(flat), x, dcols, live, level_frac=frac)
-              if need_x else None)
+        dx = (grid_encode_bwd_input(spec, _kernel_table(flat), x, dcols, live, level_frac=frac,
+                                    shard=shard) if need_x else None)
         return dflat, dx
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        flat, x, dcols, spec, live, need_table, need_x, frac = inputs
+        flat, x, dcols, spec, live, need_table, need_x, frac, *shard = inputs
         ctx.set_materialize_grads(False)
         ctx.spec, ctx.live, ctx.need = spec, live, (need_table, need_x)
+        ctx.shard = shard[0] if shard else None
         ctx.save_for_backward(flat, x, dcols, frac)
         ctx.save_for_forward(flat, x, dcols, frac)
 
@@ -600,13 +718,13 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
                 "third derivatives of the grid encoding are not ported "
                 "(ROADMAP.md Queue 1)")
         flat, x, dcols, frac = ctx.saved_tensors
-        spec, live = ctx.spec, ctx.live
+        spec, live, shard = ctx.spec, ctx.live, ctx.shard
         need_x, need_dcols = ctx.needs_input_grad[1:3]
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         d_flat = d_x = d_dcols = None
         if ct_dx is not None:
             d_dcols, d_x, d_flat = GridBwdBwdFunction.forward(
-                flat, x, dcols, ct_dx, spec, live, need_dcols, need_x, need_table, frac)
+                flat, x, dcols, ct_dx, spec, live, need_dcols, need_x, need_table, frac, shard)
         if ct_dflat is not None:
             if spec.stochastic_interpolation:
                 raise NotImplementedError(
@@ -614,14 +732,15 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
                     "cotangent is not ported")
             u = _kernel_table(ct_dflat)
             if need_dcols:
-                du = grid_encode_fwd(spec, u, x, live, soa=True, level_frac=frac).float()
+                du = grid_encode_fwd(spec, u, x, live, soa=True, level_frac=frac,
+                                     shard=shard).float()
                 d_dcols = du if d_dcols is None else d_dcols + du
             if need_x:
-                du = grid_encode_bwd_input(spec, u, x, dcols, live, level_frac=frac)
+                du = grid_encode_bwd_input(spec, u, x, dcols, live, level_frac=frac, shard=shard)
                 d_x = du if d_x is None else d_x + du
         if d_dcols is not None:
             d_dcols = d_dcols.to(dcols.dtype)
-        return d_flat, d_x, d_dcols, None, None, None, None, None
+        return d_flat, d_x, d_dcols, None, None, None, None, None, None
 
     @staticmethod
     def jvp(ctx, t_flat, t_x, t_dcols, *_):
@@ -649,7 +768,8 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
         return t_dflat, t_dx
 
     @staticmethod
-    def vmap(info, in_dims, flat, x, dcols, spec, live, need_table, need_x, frac):
+    def vmap(info, in_dims, flat, x, dcols, spec, live, need_table, need_x, frac, shard=None):
+        in_dims = in_dims[:8]
         args = (flat, x, dcols, spec, live, need_table, need_x, frac)
         if in_dims[0] is not None or need_table:
             return func_rules.loop(GridEncodeBackwardFunction, info, in_dims, args)
@@ -674,16 +794,18 @@ class GridBwdBwdFunction(torch.autograd.Function):
     derivative (ROADMAP.md Queue 1)."""
 
     @staticmethod
-    def forward(flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table, frac):
+    def forward(flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table, frac,
+                shard=None):
         from .cuda.grid_encode import grid_encode_bwd_bwd
         from .cuda.scatter import row_scatter_add
 
         if dcols is None:
             dcols = torch.zeros(1, device=x.device).expand(spec.n_output_dims, x.shape[0])
         gg = grid_encode_bwd_bwd(spec, flat, x, dcols, ddx, live, need_dcols=need_dcols,
-                                 need_x=need_x, need_rows=need_table, level_frac=frac)
-        d_flat = (row_scatter_add(gg.rows, gg.g, spec.n_entries, flat.dtype)
-                  if need_table else None)
+                                 need_x=need_x, need_rows=need_table, level_frac=frac,
+                                 shard=shard)
+        n_rows = spec.n_entries // (shard[1] if shard else 1)
+        d_flat = row_scatter_add(gg.rows, gg.g, n_rows, flat.dtype) if need_table else None
         return gg.d_dcols, gg.d_x, d_flat
 
     @staticmethod
@@ -702,7 +824,8 @@ class GridBwdBwdFunction(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table,
-             frac):
+             frac, shard=None):
+        in_dims = in_dims[:10]
         args = (flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table, frac)
         if in_dims[0] is not None or need_table:
             return func_rules.loop(GridBwdBwdFunction, info, in_dims, args)
@@ -734,11 +857,27 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
     second order; a CPU tensor through their plain versions.  Gradients
     flow to the table and, where x requires one, to x; both can be
     differentiated once more (``create_graph``).
+
+    Inside ``sharded_tables(group, n)`` with a table of 1/n of the spec's
+    size (``tcnn_tpu/ops/grid_ops.py:1180-1233``): all-gathers x (and the
+    level fractions) over the group, encodes the gathered batch on the
+    local block-cyclic shard with the kernels in shard mode, and
+    reduce-scatters the fp32 partial features (cast to the table's dtype
+    after the sum, as JAX casts its psum_scatter), so each rank gets its own
+    rows.  The backward
+    all-gathers the output gradient: the table gradient (kernel GB) is the
+    sum of every rank's cotangents; dx (kernel GI's partial) is
+    reduce-scattered.  The collectives are their own transposes
+    (``collectives``), so the second order (the eikonal loss) goes through
+    them.  Stochastic interpolation and ``torch.func`` transforms raise
+    there.  A full-size table under the context takes the ordinary path.
     """
     if x.ndim != 2 or x.shape[1] != spec.n_dims:
         raise ValueError(f"expected (B, {spec.n_dims}) input, got {tuple(x.shape)}")
     flat = table.reshape(-1)
-    check_table_size(spec, flat)
+    ctx = _TABLE_SHARDING.get()
+    sharded = ctx is not None and ctx.n_shards > 1 and flat.numel() != spec.n_params
+    check_table_size(spec, flat, ctx.n_shards if sharded else 1)
     frac = max_level_per_element
     if frac is not None:
         frac = frac.reshape(-1)
@@ -746,5 +885,27 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
             raise ValueError(f"max_level_per_element has {frac.shape[0]} entries "
                              f"for {x.shape[0]} samples")
         frac = frac.to(device=x.device, dtype=torch.float32).contiguous()
-    return GridEncodeFunction.apply(flat, x, spec,
-                                    tuple(live_levels(spec, max_level)), soa, frac)
+    live = tuple(live_levels(spec, max_level))
+    if not sharded:
+        return GridEncodeFunction.apply(flat, x, spec, live, soa, frac)
+    if spec.stochastic_interpolation:
+        raise NotImplementedError(
+            "sharded_tables does not support stochastic_interpolation "
+            "(the backward scatter weights differ from the forward's)")
+    if torch._C._are_functorch_transforms_active():
+        raise NotImplementedError(
+            "torch.func transforms do not pass through a row-sharded grid table's "
+            "collectives; gather the table (HybridParallel.gather_state) first")
+    if not shardable_levels(spec, ctx.n_shards):
+        raise ValueError(
+            f"sharded_tables({ctx.n_shards}): level sizes {[lv.size for lv in spec.levels]} "
+            f"do not all divide {ctx.n_shards} ways")
+    group = ctx.group
+    shard = (collectives.rank(group), ctx.n_shards)
+    if collectives.world(group) != ctx.n_shards:
+        raise ValueError(f"sharded_tables: {ctx.n_shards} shards on a group of "
+                         f"{collectives.world(group)} ranks")
+    x_all = collectives.all_gather(x, group)
+    frac_all = None if frac is None else collectives.all_gather(frac, group)
+    cols = GridEncodeFunction.apply(flat, x_all, spec, live, soa, frac_all, shard)
+    return collectives.reduce_scatter(cols, group, dim=1 if soa else 0).to(flat.dtype)

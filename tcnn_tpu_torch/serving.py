@@ -126,7 +126,12 @@ def export_inference(trainer, path: Optional[str] = None, *,
     """The trainer's inference function as a serving bundle: the
     inference parameters (custom weights where the optimizer has them)
     and the config that rebuilds the model, for the ascending
-    ``batch_sizes``.  Returns the bytes (also written to ``path``)."""
+    ``batch_sizes``.  Returns the bytes (also written to ``path``).  A
+    trainer holding sharded tables is refused
+    (``utils.serialization.check_replicated``)."""
+    from .utils.serialization import check_replicated
+
+    check_replicated(trainer, "export_inference")
     batch_sizes = sorted(set(int(b) for b in batch_sizes))
     if not batch_sizes or batch_sizes[0] < 1:
         raise ValueError(f"bad batch_sizes {batch_sizes}")

@@ -320,7 +320,7 @@ ABLATIONS = {
                        (_GB_PLAN, "GB_MAX_PARTS = 2", "GB_MAX_PARTS = 3"),
                        (_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 0")],
     # GB's direct path without its 16-byte atomics for dim-0 pairs.
-    "gb_no_pair_atomics": [("grid_encode_bwd.cu", "if (r1 == r0 + 1 && (r0 & 1) == 0) {",
+    "gb_no_pair_atomics": [("grid_encode_bwd.cu", "if (o0 && o1 && r1 == r0 + 1 && (r0 & 1) == 0) {",
                             "if (false) {")],
     # Every grid row folded into the first 2^20 (8 MB of fp32 at F = 2):
     # GB's direct atomics at config_btf then land in a buffer that the

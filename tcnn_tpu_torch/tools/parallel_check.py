@@ -1,0 +1,358 @@
+"""Training on two ranks of the parallel layer, against one process.
+
+    python3 -m tcnn_tpu_torch.tools.parallel_check [--steps N] [--batch B]
+
+``compare`` runs them, and the same training twice in one process, and
+compares the losses, the tables and the trained models' predictions.
+``run_ranks(world, train_job, args)`` spawns ``world`` ranks with
+``torch.multiprocessing`` (gloo, a ``file://`` rendezvous in a temporary
+directory), each on ``args["device"]``, and returns each rank's result.
+Three jobs:
+
+  * ``hybrid_btf``: configs/config_btf.json at BF16_POLICY (a Composite of
+    a 4-D CoherentAdd hash grid of 15,474,688 parameters and OneBlob,
+    FullyFusedMLP 64 x 3) under ``HybridParallel`` with n_model = world:
+    the grid table and its Adam state row-sharded, kernels G, GB in shard
+    mode, M and MB on each rank's block of the batch;
+  * ``dp_hash``: configs/config_hash.json at BF16_POLICY under
+    ``DataParallel``;
+  * ``eikonal_sdf``: the SDF sample's model and loss
+    (``samples/fit_sdf_eikonal.py``, fp32, its 3-D Smoothstep grid
+    row-sharded) under ``HybridParallel``, each step through the grid's
+    second order in shard mode (G, GB, GI, GG and RS) and the collectives'
+    transposes.
+
+Each rank draws the same global batches (``fit_btf.batch_sampler``, an
+``ImageSampler`` of ``synthetic_image(1024, 1024)``, the SDF sample's
+``sample_points``, each from a seeded generator) and trains on its
+block, eagerly; it reports the mean losses, the step's milliseconds (host
+clock around a synchronised step) and the collectives' (host clock around
+each, synchronised before and after), its kernel launches over the steps,
+whether ``gather_state`` of the freshly sharded table gives the canonical
+table back bit for bit, the first step's reduced gradients (the
+optimizer's input, tables gathered to the canonical layout: a gradient
+of the wrong scale shows there, where Adam's update would hide it), and
+the trained table gathered back to the
+canonical layout (``HybridParallel.gather_state``).  ``single_process`` trains the same
+model, from the same seed, on the same global batches in one process.
+Ranks that share one card show that the layer is right and what its
+collectives cost, not how it scales.
+"""
+
+from __future__ import annotations
+
+import pickle
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+BTF_CONFIG = "configs/config_btf.json"
+HASH_CONFIG = "configs/config_hash.json"
+SEED = 7
+TABLES = {"hybrid_btf": "encoding.0.grid", "dp_hash": "encoding.grid",
+          "eikonal_sdf": "encoding.grid"}
+
+
+def _model(job, device):
+    from .. import BF16_POLICY, Policy, create_from_config
+    from ..samples import fit_sdf_eikonal
+
+    root = Path(__file__).resolve().parents[2]
+    if job == "eikonal_sdf":
+        return create_from_config(3, 1, fit_sdf_eikonal.CONFIG, policy=Policy(), seed=SEED,
+                                  device=device)
+    n_in, cfg = (6, BTF_CONFIG) if job == "hybrid_btf" else (2, HASH_CONFIG)
+    return create_from_config(n_in, 3, str(root / cfg), policy=BF16_POLICY, seed=SEED,
+                              device=device)
+
+
+def _sampler(job, batch, device):
+    """The global batches of step 0, 1, ... (each call the next)."""
+    if job == "hybrid_btf":
+        from ..samples.fit_btf import batch_sampler
+
+        return batch_sampler(batch, device, seed=SEED)
+    if job == "eikonal_sdf":
+        from ..samples.fit_sdf_eikonal import sample_points
+
+        gen = torch.Generator(device).manual_seed(SEED)
+        return lambda i: sample_points(gen, batch, device)
+    from ..utils.image import ImageSampler, synthetic_image
+
+    sampler = ImageSampler(synthetic_image(1024, 1024), device=device, seed=SEED)
+    return lambda i: sampler.sample_batch(batch)
+
+
+def _eikonal_loss_and_grads(trainer):
+    """The SDF sample's loss (surface term and 0.1 of the eikonal term) and
+    its gradients, through the grid's second order (GI, GG, RS)."""
+    from ..samples.fit_sdf_eikonal import loss_and_grads
+
+    return lambda xs, xv: loss_and_grads(trainer.model, xs, xv)
+
+
+def _counters():
+    from ..ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+    from ..ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
+                                        grid_encode_bwd_input, grid_encode_fwd)
+    from ..ops.cuda.scatter import row_scatter_add
+
+    return {"G": grid_encode_fwd, "GB": grid_encode_bwd, "GI": grid_encode_bwd_input,
+            "GG": grid_encode_bwd_bwd, "RS": row_scatter_add, "M": fused_mlp_fwd,
+            "MB": fused_mlp_bwd}
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed_collectives(device, spent):
+    """Wraps the collectives the layer calls so that each adds its host
+    time, synchronised before and after, to ``spent[0]``."""
+    def wrap(fn):
+        def timed(*a, **k):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            _sync(device)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for name in ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", "broadcast"):
+        setattr(dist, name, wrap(getattr(dist, name)))
+
+
+def record_first_grads(trainer) -> dict:
+    """{name: gradient} that the trainer's optimizer is given at its first
+    step from now on (the step's reduced gradients on a rank), filled when
+    that step runs."""
+    seen = {}
+    step = trainer.optimizer.step
+
+    def recording(state, grads, params):
+        if not seen:
+            seen.update({n: g.detach().clone() for n, g in grads.items()})
+        return step(state, grads, params)
+
+    trainer.optimizer.step = recording
+    return seen
+
+
+def canonical_grads(dp, grads) -> dict:
+    """``grads`` as fp32 CPU tensors, each sharded table's gradient
+    gathered back to the canonical table (``HybridParallel.gather_table``;
+    every rank of a model group must call it)."""
+    sharded = getattr(dp, "sharded_names", ())
+    return {n: (dp.gather_table(n, g) if n in sharded else g).detach().float().cpu()
+            for n, g in grads.items()}
+
+
+def grad_rel(got, want) -> dict:
+    """{name: relative L2 distance of got[name] from want[name]} (the
+    absolute distance where want[name] is zero)."""
+    return {n: (_rel_l2(got[n], want[n]) if bool(want[n].any())
+                else float(torch.linalg.norm(got[n].float()))) for n in want}
+
+
+def train_job(rank, world, args):
+    """One job's steps on this rank (``hybrid_btf`` and ``eikonal_sdf``
+    under HybridParallel with n_model = world, ``dp_hash`` under
+    DataParallel)."""
+    from ..parallel import DataParallel, HybridParallel
+
+    job, device = args["job"], torch.device(args["device"])
+    model = _model(job, device)
+    trainer = model.trainer
+    name = TABLES[job]
+    if job == "dp_hash":
+        dp = DataParallel()
+        dp.replicate(trainer)
+        step = dp.make_training_step(trainer)
+        round_trip = None
+    else:
+        canonical = trainer.params()[name].detach().clone()
+        dp = HybridParallel(n_model=world, model=model)
+        dp.shard_state(trainer)
+        round_trip = bool(torch.equal(dp.gather_state(trainer)["params"][name],
+                                      canonical.cpu()))
+        step = dp.make_training_step(trainer)
+    if job == "eikonal_sdf":
+        loss_and_grads = _eikonal_loss_and_grads(trainer)
+
+        def step(xs, xv):   # the sample's step under the sharded tables
+            with dp.sharded():
+                loss, grads = loss_and_grads(xs, xv)
+            dp.reduce_gradients(loss, grads)
+            trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
+            return loss
+    first_grads = record_first_grads(trainer)
+    sample = _sampler(job, args["batch"], device)
+    spent = [0.0]
+    _timed_collectives(device, spent)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, coll_ms = [], [], []
+    for i in range(args["steps"]):
+        a, b = sample(i)
+        a, b = dp.shard_batch(a), dp.shard_batch(b)
+        _sync(device)
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        losses.append(step(a, b))
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(spent[0] * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if job == "dp_hash":
+        params = {n: p.detach().cpu() for n, p in trainer.params().items()}
+    else:
+        params = dp.gather_state(trainer)["params"]
+    grads = canonical_grads(dp, first_grads)
+    if rank == 0:
+        torch.save(params, args["params_out"])
+        torch.save(grads, args["params_out"] + ".grads")
+    return {"losses": [float(v) for v in losses], "step_ms": step_ms,
+            "collective_ms": coll_ms, "launches": launches, "n_devices": dp.n_devices,
+            "shard_numel": trainer.params()[name].numel(), "round_trip": round_trip}
+
+
+def held_out(job, device):
+    """Inputs of no training batch, where the trained models are compared."""
+    gen = torch.Generator(device).manual_seed(99)
+    n_in = {"hybrid_btf": 6, "dp_hash": 2, "eikonal_sdf": 3}[job]
+    return torch.rand((1 << 16, n_in), generator=gen, device=device) * 0.9 + 0.05
+
+
+def single_process(job, steps, batch, device):
+    """The same training in this process: (losses, the trained model, the
+    first step's gradients as fp32 CPU tensors)."""
+    model = _model(job, device)
+    trainer = model.trainer
+    first_grads = record_first_grads(trainer)
+    sample = _sampler(job, batch, device)
+    if job == "eikonal_sdf":
+        loss_and_grads = _eikonal_loss_and_grads(trainer)
+
+        def step(xs, xv):
+            loss, grads = loss_and_grads(xs, xv)
+            trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
+            return loss
+    else:
+        step = trainer.training_step
+    losses = [float(step(*sample(i))) for i in range(steps)]
+    return losses, model, canonical_grads(None, first_grads)
+
+
+def _worker(rank, world, init, fn, args, out, timeout):
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world,
+                            timeout=timedelta(seconds=timeout))
+    try:
+        res = fn(rank, world, args)
+    except BaseException:
+        res = {"__error__": traceback.format_exc()}
+    Path(out).write_bytes(pickle.dumps(res))
+    dist.destroy_process_group()
+
+
+def run_ranks(world, fn, args, timeout=600, tmp=None):
+    """``fn(rank, world, args)`` (a module-level function: the ranks import
+    it) in ``world`` spawned gloo ranks joined through a ``file://``
+    rendezvous in ``tmp`` (default a temporary directory); the ranks'
+    results.  A rank that raises, or outlives ``timeout`` seconds, fails
+    the run with its traceback."""
+    with tempfile.TemporaryDirectory(dir=tmp) as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_worker, args=(r, world, f"{tmp}/init", fn, args,
+                                                   f"{tmp}/out{r}.pkl", timeout))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        outs = []
+        for r in range(world):
+            out = Path(f"{tmp}/out{r}.pkl")
+            if not out.exists():
+                raise RuntimeError(f"rank {r} ended with code {procs[r].exitcode}, no result")
+            res = pickle.loads(out.read_bytes())
+            if "__error__" in res:
+                raise RuntimeError(f"rank {r} failed:\n{res['__error__']}")
+            outs.append(res)
+    return outs
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def compare(job, world, steps, batch, device, params_out):
+    """Both trainings, and one more in this process: the ranks' results and
+    {"losses": the single process's, "grad_rel": {name: the relative L2
+    distance of the ranks' first reduced gradient from the single
+    process's first gradient}, "table_rel": the relative L2 distance
+    of the ranks' gathered table from the single process's table,
+    "pred_rel": of the predictions on ``held_out`` of a model holding the
+    ranks' gathered parameters from the single process's, and the same two
+    between two single-process runs ("repeat_table_rel",
+    "repeat_pred_rel")}."""
+    outs = run_ranks(world, train_job, {"job": job, "device": str(device), "steps": steps,
+                                        "batch": batch, "params_out": params_out})
+    ref_losses, ref, ref_grads = single_process(job, steps, batch, device)
+    _, again, _ = single_process(job, steps, batch, device)
+    gathered = _model(job, device)
+    with torch.no_grad():
+        for n, p in gathered.trainer.params().items():
+            p.copy_(torch.load(params_out)[n])
+    name, x = TABLES[job], held_out(job, device)
+    table = {m: mod.trainer.params()[name].detach() for m, mod in
+             (("ref", ref), ("again", again), ("gathered", gathered))}
+    pred = {m: mod.trainer.inference(x) for m, mod in
+            (("ref", ref), ("again", again), ("gathered", gathered))}
+    return outs, {"losses": ref_losses,
+                  "grad_rel": grad_rel(torch.load(params_out + ".grads"), ref_grads),
+                  "table_rel": _rel_l2(table["gathered"], table["ref"]),
+                  "pred_rel": _rel_l2(pred["gathered"], pred["ref"]),
+                  "repeat_table_rel": _rel_l2(table["again"], table["ref"]),
+                  "repeat_pred_rel": _rel_l2(pred["again"], pred["ref"])}
+
+
+def main(argv=None):
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--batch", type=int, default=1 << 18)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        from ..ops.cuda import kernels
+
+        kernels()   # built here, once, and loaded by the ranks
+    for job in ("hybrid_btf", "dp_hash", "eikonal_sdf"):
+        batch = args.batch if job != "eikonal_sdf" else min(args.batch, 1 << 14)
+        with tempfile.TemporaryDirectory() as tmp:
+            outs, ref = compare(job, 2, args.steps, batch, args.device, f"{tmp}/params.pt")
+        print(json.dumps({"job": job, "rank_losses": outs[0]["losses"], **ref,
+                          "step_ms": float(np.median(outs[0]["step_ms"])),
+                          "collective_ms": float(np.median(outs[0]["collective_ms"])),
+                          "launches": outs[0]["launches"]}))
+
+
+if __name__ == "__main__":
+    main()

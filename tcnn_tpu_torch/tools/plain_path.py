@@ -3,7 +3,8 @@ through the plain PyTorch versions of kernels G, M, MB and GB, on the
 tensors the model holds, the SDF sample's eikonal step through those
 and the plain versions of GI, GG and RS (``plain_sdf_loss_and_grads``),
 and the NeRF sample's step, two nets and a per-sample level mask
-(``plain_nerf_loss_and_grads``).
+(``plain_nerf_loss_and_grads``).  ``gg_term_magnitudes`` gives the S of
+the sound bound on RS over kernel GG's output.
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernel path
 (``model.trainer``, ``samples/fit_sdf_eikonal.py``,
 ``samples/fit_nerf_field.py``) against it on the
@@ -33,6 +34,7 @@ from ..ops.cuda.fused_mlp import (fused_mlp_bwd_bwd_plain, fused_mlp_bwd_plain,
 from ..ops.cuda.grid_encode import (grid_encode_bwd_bwd_plain, grid_encode_bwd_input_plain,
                                     grid_encode_bwd_plain, grid_encode_plain)
 from ..ops.cuda.scatter import row_scatter_add_plain
+from ..ops import grid_ops
 from ..ops.grid_ops import live_levels
 
 
@@ -289,6 +291,23 @@ def plain_nerf_loss_and_grads(density_net, color_net, rays_o: torch.Tensor,
 # pre-activation lies this near a rounding midpoint may round either way
 # in two correct sums.
 SUM_SLACK = 2.0 ** -16
+
+
+def gg_term_magnitudes(spec, x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
+                       live: Sequence[int], level_frac=None, shard=None) -> torch.Tensor:
+    """(L·C·B, F), in GG's (live level, corner, sample) order: per corner
+    pair the sum of the magnitudes of the terms of GG's g, Σ_d |∂w_c/∂x_d
+    · ddx_d| · |dcols|.  Their scatter-add (plain RS) is the S of the sound
+    bound 2^-11·S on RS over kernel GG's output against plain RS over plain
+    GG's: Σ|g| is not sound where g's terms cancel."""
+    L, C, (B, _) = len(live), 1 << spec.n_dims, x.shape
+    F = spec.n_features_per_level
+    _, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1, level_frac=level_frac,
+                                               shard=shard)
+    wp = (dws.abs() * ddx.float().abs()[None]).sum(-1).reshape(L, C, B)
+    rows = torch.tensor([l * F + f for l in live for f in range(F)], device=x.device)
+    dy = dcols.float().abs()[rows].reshape(L, F, B).permute(0, 2, 1)[:, None]
+    return (wp[..., None] * dy).reshape(L * C * B, F)
 
 
 def _bf16_other(r: torch.Tensor, rounded: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,11 @@ class Trainer:
         self.seed = seed
         # Logistic output perturbation for dithering (trainer.h:114-123).
         self.perturbation_sigma = perturbation_sigma
+        # The rank's noise stream under the parallel layer (0 alone).
+        self.noise_stream = 0
+        # Set by ``parallel.HybridParallel.shard_state``: {"n_model", "rank",
+        # "model_rank"} while grid tables hold this rank's shard.
+        self.shard_info: Optional[Dict[str, int]] = None
         self.step = 0
         self.opt_state = optimizer.init(self.params(), model.param_layout())
         self._noise_gen: Optional[torch.Generator] = None
@@ -64,12 +69,21 @@ class Trainer:
         """Standard logistic noise for the output perturbation.
 
         Drawn from a generator seeded with ``seed ^ 0x5eed`` on first use,
-        so the noise of step n depends on the seed and n.  PyTorch cannot
-        reproduce JAX's random bits: tests compare statistics, or replace
-        this method to inject the same noise into both packages.
+        so the noise of step n depends on the seed and n.  Under the
+        parallel layer each rank draws its own stream: the seed is
+        ``(seed ^ 0x5eed) + noise_stream · 0x9E3779B97F4A7C15`` mod 2^63
+        (the odd constant moves the low 32 bits too, which are all that the
+        CPU generator takes), ``noise_stream`` the
+        rank's global rank (set by ``DataParallel`` and ``HybridParallel``),
+        as JAX folds the mesh position into the noise key
+        (``tcnn_tpu/parallel/mesh.py:122-123``); alone the stream is 0.
+        PyTorch cannot reproduce JAX's random bits: tests compare
+        statistics, or replace this method to inject the same noise into
+        both packages.
         """
         if self._noise_gen is None:
-            self._noise_gen = torch.Generator(device).manual_seed(self.seed ^ 0x5eed)
+            self._noise_gen = torch.Generator(device).manual_seed(
+                ((self.seed ^ 0x5eed) + self.noise_stream * 0x9E3779B97F4A7C15) % 2 ** 63)
         u = torch.rand(shape, generator=self._noise_gen, device=device)
         return torch.log(u) - torch.log1p(-u)
 
@@ -225,11 +239,14 @@ class Trainer:
         self._graphs.clear()
 
     # -- checkpointing ------------------------------------------------
-    def serialize(self, serialize_optimizer: bool = True) -> Dict[str, Any]:
-        """The JAX package's trainer dict (``utils/serialization.py``)."""
+    def serialize(self, serialize_optimizer: bool = True,
+                  state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """The JAX package's trainer dict (``utils/serialization.py``), of
+        this trainer's state or of ``state``, a canonical tree that
+        ``HybridParallel.gather_state`` returns."""
         from .utils import serialization
 
-        return serialization.serialize_trainer(self, serialize_optimizer)
+        return serialization.serialize_trainer(self, serialize_optimizer, state)
 
     def deserialize(self, data: Dict[str, Any]) -> None:
         """Loads a trainer dict of either package into this trainer's

@@ -18,9 +18,13 @@ and restored into a trainer of the same configuration in place.
         ckpt.save_step(mgr, trainer)      # no-op between intervals
     ckpt.restore_latest(mgr, like=fresh_trainer)
 
-The checkpoints hold the canonical (unsharded) table layout only:
-``check_layout_tag`` refuses any other until sharded tables come to the
-port (ROADMAP.md Queue 1 item 15).
+A trainer whose grid tables ``parallel.HybridParallel.shard_state`` has
+sharded saves and restores its own shard in place, with no gather: each
+rank writes ``state.rank<r>.pt`` (r its global rank) into the same
+directory, and restores its own file into a trainer sharded the same way.
+The block-cyclic row order is then baked into the files, so
+``check_layout_tag`` records the layout ({"n_model": n}) beside the
+checkpoints and refuses to resume under another.
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ from .serialization import param_leaves
 
 _STATE_NAME = "state.pt"
 _LAYOUT_NAME = "table_layout.json"
-CANONICAL_LAYOUT = {"n_model": 1}
 
 
 def _abs(path) -> str:
@@ -46,14 +49,11 @@ def _abs(path) -> str:
 
 def check_layout_tag(directory, layout: Dict[str, Any]) -> None:
     """Records the table layout beside the checkpoints on the first call
-    (``table_layout.json``) and refuses a different one later.  Only the
-    canonical layout, ``{"n_model": 1}``, is accepted: the port has no
-    sharded tables yet (ROADMAP.md Queue 1 item 15)."""
-    if layout != CANONICAL_LAYOUT:
-        raise ValueError(
-            f"table layout {layout} is not the canonical {CANONICAL_LAYOUT}: "
-            "tcnn_tpu_torch has no sharded grid tables yet (ROADMAP.md Queue 1 "
-            "item 15)")
+    (``table_layout.json``: {"n_model": n}, the model group's size the
+    tables were sharded over, 1 the canonical layout) and refuses a
+    different one later (``tcnn_tpu/utils/checkpoint.py:58``): resuming
+    under another n_model would restore permuted tables.  The file is
+    written whole (aside, then renamed), so ranks may call this together."""
     path = os.path.join(_abs(directory), _LAYOUT_NAME)
     if os.path.exists(path):
         with open(path) as fh:
@@ -66,8 +66,17 @@ def check_layout_tag(directory, layout: Dict[str, Any]) -> None:
                 "Use a fresh checkpoint directory or match the recorded layout.")
     else:
         os.makedirs(_abs(directory), exist_ok=True)
-        with open(path, "w") as fh:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as fh:
             json.dump(layout, fh)
+        os.replace(tmp, path)
+
+
+def state_name(trainer) -> str:
+    """The file a trainer's checkpoint is in: ``state.pt``, or under
+    sharded tables the rank's own ``state.rank<r>.pt``."""
+    info = getattr(trainer, "shard_info", None)
+    return _STATE_NAME if info is None else f"state.rank{info['rank']}.pt"
 
 
 def _contents(trainer) -> Dict[str, Any]:
@@ -81,10 +90,11 @@ def _contents(trainer) -> Dict[str, Any]:
 
 
 def save_checkpoint(path, state, *, force: bool = True) -> None:
-    """Writes the trainer ``state`` into the directory ``path``; the file
-    is complete when this returns (written aside, then renamed)."""
+    """Writes the trainer ``state`` into the directory ``path`` (its
+    ``state_name``: a sharded trainer its rank's shard); the file is
+    complete when this returns (written aside, then renamed)."""
     path = _abs(path)
-    target = os.path.join(path, _STATE_NAME)
+    target = os.path.join(path, state_name(state))
     if os.path.exists(target) and not force:
         raise FileExistsError(f"checkpoint {path} exists (force=False)")
     os.makedirs(path, exist_ok=True)
@@ -95,9 +105,10 @@ def save_checkpoint(path, state, *, force: bool = True) -> None:
 
 def restore_checkpoint(path, like):
     """Restores a ``save_checkpoint`` directory into the trainer ``like``
-    (the same configuration) in place, on its devices, and returns it.
-    Nothing is copied unless every leaf matches in path and shape."""
-    data = torch.load(os.path.join(_abs(path), _STATE_NAME), map_location="cpu",
+    (the same configuration, sharded as it was) in place, on its devices,
+    and returns it.  Nothing is copied unless every leaf matches in path and
+    shape."""
+    data = torch.load(os.path.join(_abs(path), state_name(like)), map_location="cpu",
                       weights_only=True)
     pairs = []
     for names_key, key, want in (("param_names", "params", param_leaves(like)),
@@ -121,7 +132,9 @@ def restore_checkpoint(path, like):
 class CheckpointManager:
     """Step-indexed checkpoints under one directory (``<dir>/<step>/``):
     saves on every ``save_interval_steps``-th step past the newest, and
-    keeps the newest ``max_to_keep``."""
+    keeps the newest ``max_to_keep``.  A step counts where the file asked
+    for (``state_name``: ``state.pt`` or a rank's shard) is there; a rank
+    removes only its own files of old steps."""
 
     def __init__(self, directory, max_to_keep: int = 3, save_interval_steps: int = 1):
         self.directory = _abs(directory)
@@ -129,26 +142,35 @@ class CheckpointManager:
         self.save_interval_steps = int(save_interval_steps)
         os.makedirs(self.directory, exist_ok=True)
 
-    def all_steps(self) -> List[int]:
+    def all_steps(self, name: str = _STATE_NAME) -> List[int]:
         return sorted(int(d) for d in os.listdir(self.directory)
                       if d.isdigit() and os.path.exists(
-                          os.path.join(self.directory, d, _STATE_NAME)))
+                          os.path.join(self.directory, d, name)))
 
-    def latest_step(self) -> Optional[int]:
-        steps = self.all_steps()
+    def latest_step(self, name: str = _STATE_NAME) -> Optional[int]:
+        steps = self.all_steps(name)
         return steps[-1] if steps else None
 
-    def should_save(self, step: int) -> bool:
-        latest = self.latest_step()
+    def should_save(self, step: int, name: str = _STATE_NAME) -> bool:
+        latest = self.latest_step(name)
         return (self.save_interval_steps > 0 and step % self.save_interval_steps == 0
                 and (latest is None or step > latest))
 
     def save(self, step: int, state) -> bool:
-        if not self.should_save(step):
+        name = state_name(state)
+        if not self.should_save(step, name):
             return False
         save_checkpoint(os.path.join(self.directory, str(step)), state)
-        for old in self.all_steps()[:-self.max_to_keep] if self.max_to_keep > 0 else []:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+        for old in self.all_steps(name)[:-self.max_to_keep] if self.max_to_keep > 0 else []:
+            old_dir = os.path.join(self.directory, str(old))
+            if name == _STATE_NAME:
+                shutil.rmtree(old_dir)
+                continue
+            os.remove(os.path.join(old_dir, name))
+            try:
+                os.rmdir(old_dir)   # the last rank's file removes the directory
+            except OSError:
+                pass
         return True
 
     def restore(self, step: int, like):
@@ -170,5 +192,5 @@ def save_step(manager: CheckpointManager, state, step: Optional[int] = None) -> 
 
 def restore_latest(manager: CheckpointManager, like) -> Optional[Any]:
     """Restores the newest step into ``like``; None if there is none."""
-    step = manager.latest_step()
+    step = manager.latest_step(state_name(like))
     return None if step is None else manager.restore(step, like)

@@ -60,7 +60,11 @@ def _flatten_reference_layout(model, tree: Dict[str, torch.Tensor],
 def export_snapshot(trainer, serialize_optimizer: bool = False,
                     params_type: str = "float") -> Dict[str, Any]:
     """The trainer → a reference-format snapshot dict (binary values as
-    ``bytes``; ``save_snapshot`` writes it)."""
+    ``bytes``; ``save_snapshot`` writes it).  A trainer holding sharded
+    tables is refused (``serialization.check_replicated``)."""
+    from .serialization import check_replicated
+
+    check_replicated(trainer, "export_snapshot")
     flat = _flatten_reference_layout(trainer.model, trainer.params())
     if params_type == "float":
         blob = flat.astype("<f4").tobytes()

@@ -93,8 +93,13 @@ def test_layout_tag_records_and_refuses_all_but_the_canonical_layout(tmp_path):
     ckpt.check_layout_tag(d, {"n_model": 1})      # records
     ckpt.check_layout_tag(d, {"n_model": 1})      # the same: accepted
     assert json.loads((d / "table_layout.json").read_text()) == {"n_model": 1}
-    with pytest.raises(ValueError, match="Queue 1 item 15"):
-        ckpt.check_layout_tag(d, {"n_model": 2})   # sharded tables: not yet
+    with pytest.raises(ValueError, match="permuted grid tables"):
+        ckpt.check_layout_tag(d, {"n_model": 2})   # another layout than the recorded one
+    sharded = tmp_path / "sharded"
+    ckpt.check_layout_tag(sharded, {"n_model": 2})          # a sharded layout records
+    assert json.loads((sharded / "table_layout.json").read_text()) == {"n_model": 2}
+    with pytest.raises(ValueError, match="permuted grid tables"):
+        ckpt.check_layout_tag(sharded, {"n_model": 4})
     other = tmp_path / "other"
     other.mkdir()
     (other / "table_layout.json").write_text(json.dumps({"n_model": 4}))

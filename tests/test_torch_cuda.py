@@ -59,8 +59,8 @@ from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd,
                                                  grid_encode_plain)
 from tcnn_tpu_torch.ops.cuda.scatter import (row_scatter_add, row_scatter_add_plain,
                                              scatter_add_cols)
-from tcnn_tpu_torch.tools.plain_path import (plain_loss_and_grads, plain_sdf_loss_and_grads,
-                                             relu_flip_rows)
+from tcnn_tpu_torch.tools.plain_path import (gg_term_magnitudes, plain_loss_and_grads,
+                                             plain_sdf_loss_and_grads, relu_flip_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -461,6 +461,89 @@ def test_grid_input_gradient_and_second_order_kernels_match_plain(cuda, case, dt
                     assert float(a.abs().max()) == float(b.abs().max()) == 0
                 else:
                     assert_rel_close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("case", GRID_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_grid_kernels_in_shard_mode_match_plain(cuda, case, dtype, n):
+    """G, GB, GI and GG in shard mode (each rank's block-cyclic shard of n)
+    against their plain versions at the same shard, at the bounds above;
+    GG's rows equal (-1 for another shard's corners), RS on them.  The
+    shards' G and GI partials sum to the unsharded kernel's output (within
+    the grid bounds, fp32 sums of other parts), and their GB gradients are
+    the block-cyclic slices of the unsharded gradient's rows.  G's partial
+    features are fp32 for either table dtype: within 1e-5 of the plain
+    value plus the fp32 sum's own error, (2^D + 2D)·2^-24 with U(±1) rows
+    (a shard's partial sums cancel near 0 more often than whole ones)."""
+    D, F, hm, base, scale, gtype, htype, interp = case
+    spec = grid_ops.make_grid_spec(D, 8, F, hm, base, scale, grid_type=gtype,
+                                   hash_type=htype, interpolation=interp)
+    assert grid_ops.shardable_levels(spec, n)
+    rng = np.random.default_rng(12)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    x = torch.from_numpy(rng.uniform(0.02, 0.98, (4133, D)).astype(np.float32)).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(8 * F, 4133)).astype(np.float32)).to(cuda)
+    ddx = torch.from_numpy(rng.normal(size=(4133, D)).astype(np.float32)).to(cuda)
+    perm = torch.from_numpy(grid_ops.block_cyclic_perm(spec, n)).to(cuda)
+    shards = flat[perm].chunk(n)
+    live = list(range(spec.n_levels))
+    fwd_sum = torch.zeros(8 * F, 4133, device=cuda)
+    dx_sum = torch.zeros(4133, D, device=cuda)
+    grads = []
+    sum_atol = ((1 << D) + 2 * D) * 2.0 ** -24
+    for sid in range(n):
+        t, sh = shards[sid].clone(), (sid, n)   # a fresh, 16-byte aligned table
+        for soa in (True, False):
+            got = grid_encode_fwd(spec, t, x, live, soa=soa, shard=sh)
+            torch.cuda.synchronize()
+            want = grid_encode_plain(spec, t, x, live, soa=soa, shard=sh)
+            assert got.dtype == want.dtype == torch.float32
+            assert bool(((got - want).abs() <= 1e-5 * want.abs() + sum_atol).all())
+        fwd_sum += got.t()
+        got = grid_encode_bwd(spec, t, x, dcols, live, shard=sh)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_plain(spec, t, x, dcols, live, shard=sh)
+        scale_ = grid_encode_bwd_plain(spec, t.float(), x, dcols.abs(), live, shard=sh)
+        assert_scatter_close(got, want, scale_)
+        grads.append(got)
+        got = grid_encode_bwd_input(spec, t, x, dcols, live, shard=sh)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_input_plain(spec, t, x, dcols, live, shard=sh)
+        if interp != InterpolationType.NEAREST:
+            assert_rel_close(got, want, 1e-5)
+        dx_sum += got
+        got = grid_encode_bwd_bwd(spec, t, x, dcols, ddx, live, shard=sh)
+        torch.cuda.synchronize()
+        want = grid_encode_bwd_bwd_plain(spec, t, x, dcols, ddx, live, shard=sh)
+        assert torch.equal(got.rows, want.rows)
+        assert bool((want.rows >= 0).any()) and bool((want.rows < 0).any())
+        for a, b in zip((got.d_dcols, got.d_x, got.g), (want.d_dcols, want.d_x, want.g)):
+            if interp == InterpolationType.NEAREST or (
+                    b is want.d_x and interp == InterpolationType.LINEAR and D == 1):
+                assert float(a.abs().max()) == float(b.abs().max()) == 0
+            else:
+                assert_rel_close(a, b, 1e-5)
+        # RS on GG's (rows, g) against plain RS on plain GG's, S over g's
+        # terms (Σ|g| is not sound where they cancel), as chip_smoke.py
+        rows_n = spec.n_entries // n
+        rs = row_scatter_add(got.rows, got.g, rows_n, torch.float32)
+        torch.cuda.synchronize()
+        terms = gg_term_magnitudes(spec, x, dcols, ddx, live, shard=sh)
+        assert_scatter_close(rs, row_scatter_add_plain(want.rows, want.g, rows_n),
+                             row_scatter_add_plain(want.rows, terms, rows_n))
+    whole = grid_encode_fwd(spec, flat, x, live)
+    if dtype == torch.bfloat16:   # the sum rounded once, as the whole kernel's
+        err = (fwd_sum.t().to(dtype).float() - whole.float()).abs()
+        assert bool((err <= bf16_ulp(whole) + n * sum_atol).all())
+    else:
+        assert bool(((fwd_sum.t() - whole).abs() <= 1e-5 * whole.abs() + n * sum_atol).all())
+    if interp != InterpolationType.NEAREST:
+        assert_rel_close(dx_sum, grid_encode_bwd_input(spec, flat, x, dcols, live), 1e-5)
+    whole = grid_encode_bwd(spec, flat, x, dcols, live)
+    scale_ = grid_encode_bwd_plain(spec, flat.float(), x, dcols.abs(), live)
+    assert_scatter_close(torch.cat(grads), whole[perm], scale_[perm])
 
 
 def assert_scatter_close(got, want, scale):

@@ -1,0 +1,345 @@
+"""The port's parallel layer (``tcnn_tpu_torch/parallel``) against the JAX
+package's (``tcnn_tpu/parallel``), on the CPU.
+
+The port's ranks are gloo processes (``torch_parallel_ranks``, no JAX); the
+JAX side runs on the virtual CPU devices of ``tests/conftest.py``.  Both
+start from the JAX model's initial parameters and optimizer state
+(``utils.jax_params``) and take the same numpy batches, at
+``tests/test_sharding.py``'s sizes (its config(): a 2-D hash grid of 4
+levels and 2^10 rows, an MLP 32 x 2).  One spawn of 4 ranks runs
+HybridParallel at (n_data, n_model) = (2, 2) and (1, 4) with Adam, (2, 2)
+with Shampoo, with Average(Adam) and on a Composite of two grids, a
+table-sharded inference and
+DataParallel at 4 ranks; one spawn of 2 runs DataParallel at 2, the noise
+streams of output perturbation, a sharded checkpoint round trip (n_model
+2), the layout tag, the serialization guard and ``replicate`` from ranks
+that start apart.  Each run's first reduced gradients are compared with
+JAX's one-process gradients.  The launcher runs as a module in 2 CPU
+processes, with a resume.
+
+Tolerances: HybridParallel's losses rtol 5e-4 and its gathered tables rtol
+5e-3, atol 1e-6 (JAX's own test_loss_curve_matches_single_device: fp32
+partial sums in another order, which Adam's rsqrt magnifies over steps);
+DataParallel's losses rtol 5e-4 and parameters rtol 5e-3, atol 1e-6 (the
+same); the table-sharded inference rtol 1e-5, atol 1e-6 (JAX's
+test_sharded_inference); the first reduced gradients per entry within
+1e-5 of each leaf's largest magnitude (one gradient, no optimizer).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+import tcnn_tpu as jtcnn
+from tcnn_tpu.parallel import DataParallel, HybridParallel, make_mesh
+
+import torch_parallel_ranks as ranks
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def config(opt=None):
+    return {
+        "loss": {"otype": "L2"},
+        "optimizer": opt or {"otype": "Adam", "learning_rate": 1e-2},
+        "encoding": {"otype": "HashGrid", "n_levels": 4,
+                     "n_features_per_level": 2, "log2_hashmap_size": 10,
+                     "base_resolution": 4, "per_level_scale": 1.5},
+        "network": {"otype": "MLP", "n_neurons": 32, "n_hidden_layers": 2},
+    }
+
+
+def composite_config():
+    """tests/test_sharding.py's test_composite_btf_style_grids: two 2-D hash
+    grids on a 4-D input, both tables sharded."""
+    grid = {"otype": "HashGrid", "n_dims_to_encode": 2, "n_levels": 4,
+            "n_features_per_level": 2, "log2_hashmap_size": 10,
+            "base_resolution": 4, "per_level_scale": 1.5}
+    return {"loss": {"otype": "RelativeL2"},
+            "optimizer": {"otype": "Adam", "learning_rate": 1e-2},
+            "encoding": {"otype": "Composite", "nested": [grid, dict(grid)]},
+            "network": {"otype": "MLP", "n_neurons": 32, "n_hidden_layers": 2}}
+
+
+SHAMPOO = {"otype": "Shampoo", "learning_rate": 1e-2}
+AVERAGE = {"otype": "Average", "n_samples": 3,
+           "nested": {"otype": "Adam", "learning_rate": 1e-2}}
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _named(tree):
+    """{"encoding.grid": array, "network.layers.0": ...}: a JAX tree's
+    leaves under the port's parameter names."""
+    return {".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def jax_first_grads(model, params, bs):
+    """The gradients of the training loss on the whole first global batch
+    at the initial parameters, in one process."""
+    if not bs:
+        return None
+    _, grads = model.trainer.loss_value_and_grads(params, *bs[0])
+    return _named(grads)
+
+
+def batches(seed, n, batch, n_in=2):
+    rng = np.random.default_rng(seed)
+    return [(rng.uniform(0, 1, (batch, n_in)).astype(np.float32),
+             rng.uniform(0, 1, (batch, 3)).astype(np.float32)) for _ in range(n)]
+
+
+def jax_hybrid(cfg, n_data, n_model, bs, infer=None):
+    n_in = bs[0][0].shape[1] if bs else 2
+    model = jtcnn.create_from_config(n_in, 3, cfg)
+    state0 = model.trainer.initial_state()
+    run = {"config": cfg, "n_in": n_in, "n_model": n_model, "batches": bs, "infer": infer,
+           "params": _np_tree(state0.params), "opt_state": _np_tree(state0.opt_state)}
+    hp = HybridParallel(n_model=n_model, devices=jax.devices()[:n_data * n_model], model=model)
+    state = hp.shard_state(state0)
+    step = hp.make_training_step(model.trainer)
+    losses = []
+    for x, t in bs:
+        state, loss = step(state, hp.shard_batch(x), hp.shard_batch(t))
+        losses.append(float(loss))
+    ref = {"losses": losses, "gathered": hp.gather_state(state),
+           "grads": jax_first_grads(model, state0.params, bs)}
+    if infer is not None:
+        ref["y"] = np.asarray(model.trainer.forward(state0, infer))
+    return run, ref
+
+
+def jax_data_parallel(cfg, n, bs):
+    model = jtcnn.create_from_config(2, 3, cfg)
+    state0 = model.trainer.initial_state()
+    run = {"config": cfg, "n_in": 2, "batches": bs,
+           "params": _np_tree(state0.params), "opt_state": _np_tree(state0.opt_state)}
+    dp = DataParallel(make_mesh(jax.devices()[:n]))
+    step = dp.make_training_step(model.trainer)
+    state = dp.replicate(state0)
+    losses = []
+    for x, t in bs:
+        state, loss = step(state, dp.shard_batch(x), dp.shard_batch(t))
+        losses.append(float(loss))
+    return run, {"losses": losses, "params": jax.device_get(state.params),
+                 "grads": jax_first_grads(model, state0.params, bs)}
+
+
+@pytest.fixture(scope="module")
+def four(tmp_path_factory):
+    """The 4-rank spawn and its JAX references."""
+    runs, refs = {}, {}
+    for name, cfg, shape, n_steps, b in (
+            ("adam22", config(), (2, 2), 4, 2 * 64), ("adam14", config(), (1, 4), 4, 64),
+            ("shampoo22", config(SHAMPOO), (2, 2), 3, 128),
+            ("average22", config(AVERAGE), (2, 2), 3, 128)):
+        runs[name], refs[name] = jax_hybrid(cfg, *shape, batches(len(name) + b, n_steps, b))
+    runs["composite22"], refs["composite22"] = jax_hybrid(composite_config(), 2, 2,
+                                                          batches(13, 3, 2 * 64, n_in=4))
+    infer = np.random.default_rng(1).uniform(0, 1, (4 * 32, 2)).astype(np.float32)
+    runs["infer14"], refs["infer14"] = jax_hybrid(config(), 1, 4, [], infer)
+    dp_run, dp_ref = jax_data_parallel(config(), 4, batches(4, 3, 4 * 64))
+    outs = ranks.run(4, tmp_path_factory.mktemp("parallel4"), "parallel",
+                     {"hybrid": runs, "data": {"dp4": dp_run}})
+    return outs, {**refs, "dp4": dp_ref}
+
+
+@pytest.fixture(scope="module")
+def two(tmp_path_factory):
+    """The 2-rank spawn (DataParallel, noise, checkpoints, guard)."""
+    dp_run, dp_ref = jax_data_parallel(config(), 2, batches(2, 3, 2 * 64))
+    noise_run, _ = jax_data_parallel(config(), 2, batches(7, 1, 2 * 64))
+    guard_run, _ = jax_data_parallel(config(), 2, batches(9, 1, 2 * 64))
+    guard_run["n_model"] = 2
+    tmp = tmp_path_factory.mktemp("parallel2")
+    outs = ranks.run(2, tmp, "parallel", {"hybrid": {}, "data": {"dp2": dp_run},
+                                          "noise": noise_run, "guard": guard_run,
+                                          "replicate": noise_run,
+                                          "tmp": str(tmp / "work")})
+    return outs, {"dp2": dp_ref, "replicate": noise_run}
+
+
+GRID = "encoding.grid"
+
+
+@pytest.mark.parametrize("name", ["adam22", "adam14", "shampoo22", "average22"])
+def test_hybrid_losses_and_gathered_table_match_jax(four, name):
+    outs, refs = four
+    ref = refs[name]
+    for o in outs:
+        np.testing.assert_allclose(o[name]["losses"], ref["losses"], rtol=5e-4)
+        np.testing.assert_allclose(o[name]["params"][GRID],
+                                   np.asarray(ref["gathered"].params["encoding"]["grid"]),
+                                   rtol=5e-3, atol=1e-6)
+    # the MLP stays replicated: every rank ends with the same weights
+    for k, v in outs[0][name]["params"].items():
+        for o in outs[1:]:
+            np.testing.assert_array_equal(o[name]["params"][k], v)
+
+
+@pytest.mark.parametrize("name", ["adam22", "adam14", "shampoo22", "average22"])
+def test_hybrid_shards_the_table_and_its_mirrors(four, name):
+    """The table and every optimizer leaf that mirrors it hold a 1/n_model
+    block on each rank; the MLP's leaves stay whole."""
+    outs, refs = four
+    n_model = 4 if name == "adam14" else 2
+    o = outs[0][name]
+    n = np.asarray(refs[name]["gathered"].params["encoding"]["grid"]).size
+    assert o["sharded"] == (GRID,)
+    assert o["shapes"][GRID] == (n // n_model,)
+    mirrors = {p: s for p, s in o["state_shapes"].items() if p.endswith(GRID)}
+    assert mirrors and all(s[-1] == n // n_model for s in mirrors.values())
+    if name == "average22":
+        assert mirrors["buffer." + GRID] == (3, n // n_model)
+        # the ring buffer gathers back to the canonical row order
+        np.testing.assert_allclose(o["opt"]["buffer." + GRID],
+                                   np.asarray(refs[name]["gathered"].opt_state["buffer"]
+                                              ["encoding"]["grid"]), rtol=5e-3, atol=1e-6)
+    others = {p: s for p, s in o["state_shapes"].items() if not p.endswith(GRID)}
+    assert all(n // n_model not in s[-1:] for s in others.values())
+
+
+def test_composite_shards_both_nested_tables(four):
+    """Both nested grid tables of a Composite shard (JAX's
+    test_composite_btf_style_grids), and the losses match JAX's."""
+    outs, refs = four
+    ref = refs["composite22"]
+    for o in outs:
+        assert o["composite22"]["sharded"] == ("encoding.0.grid", "encoding.1.grid")
+        np.testing.assert_allclose(o["composite22"]["losses"], ref["losses"], rtol=5e-4)
+        for i in (0, 1):
+            np.testing.assert_allclose(
+                o["composite22"]["params"][f"encoding.{i}.grid"],
+                np.asarray(ref["gathered"].params["encoding"][i]["grid"]), rtol=5e-3, atol=1e-6)
+
+
+def test_hybrid_inference_matches_jax(four):
+    outs, refs = four
+    got = np.concatenate([o["infer14"]["y"] for o in outs])
+    np.testing.assert_allclose(got, refs["infer14"]["y"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_data_parallel_matches_jax(four, two, n):
+    outs, refs = (four if n == 4 else two)
+    ref = refs[f"dp{n}"]
+    for o in outs:
+        assert o[f"dp{n}"]["n_devices"] == n
+        np.testing.assert_allclose(o[f"dp{n}"]["losses"], ref["losses"], rtol=5e-4)
+        params = o[f"dp{n}"]["params"]
+        np.testing.assert_allclose(params[GRID], np.asarray(ref["params"]["encoding"]["grid"]),
+                                   rtol=5e-3, atol=1e-6)
+        flat = jax.tree_util.tree_leaves(ref["params"]["network"])
+        mine = [params[k] for k in sorted(params) if k.startswith("network.")]
+        assert len(flat) == len(mine)
+        for a, b in zip(mine, flat):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=5e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["adam22", "adam14", "shampoo22", "average22", "composite22",
+                                  "dp4", "dp2"])
+def test_first_reduced_gradients_match_jax(four, two, name):
+    """The gradients the first step hands the optimizer (reduced over the
+    ranks, each table gathered) equal JAX's one-process gradients of the
+    whole first batch per entry, within 1e-5 of each leaf's largest
+    magnitude: a gradient of the wrong scale, which Adam's update hides,
+    fails here."""
+    outs, refs = two if name == "dp2" else four
+    want = refs[name]["grads"]
+    for o in outs:
+        got = o[name]["grads"]
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k], w, rtol=0, atol=1e-5 * np.abs(w).max(),
+                                       err_msg=k)
+
+
+def test_replicate_broadcasts_rank_zeros_state(two):
+    """Ranks that start from different parameters, optimizer state and
+    step all end with rank 0's (the JAX model's initial parameters)."""
+    outs, refs = two
+    first = outs[0]["replicate"]
+    assert first["step"] == 0
+    for o in outs[1:]:
+        assert o["replicate"]["step"] == 0
+        assert sorted(o["replicate"]["leaves"]) == sorted(first["leaves"])
+        for k, v in first["leaves"].items():
+            np.testing.assert_array_equal(o["replicate"]["leaves"][k], v, err_msg=k)
+    params = _named(refs["replicate"]["params"])
+    for k, v in params.items():
+        np.testing.assert_array_equal(first["leaves"][f"param {k}"], v, err_msg=k)
+
+
+def test_perturbation_noise_streams_differ_across_ranks_and_are_logistic(two):
+    outs, _ = two
+    a, b = (o["noise"]["noise"] for o in outs)
+    assert not np.array_equal(a, b)
+    assert ranks.logistic_ok(a) and ranks.logistic_ok(b)
+    # the perturbed step's loss differs from the unperturbed one on the same data
+    assert abs(outs[0]["noise"]["loss 0.5"] - outs[0]["noise"]["loss None"]) > 1e-6
+
+
+def test_sharded_checkpoint_round_trip_and_layout_tag(two):
+    outs, _ = two
+    for r, o in enumerate(outs):
+        g = o["guard"]
+        assert g["files"] == ["state.rank0.pt", "state.rank1.pt"]
+        assert g["restored equal"]
+        assert g["next step"][0] == g["next step"][1]
+        assert "permuted grid tables" in g["tag refuses"]
+        assert g["manager steps"] == [4, 5]   # steps 1-2 before, 3-5 saved, 2 kept
+
+
+def test_serialization_guard_then_gather_state_serializes_as_before(two):
+    outs, _ = two
+    for o in outs:
+        g = o["guard"]
+        for what in ("serialize", "export_snapshot", "export_inference"):
+            assert "gather_state" in g[f"guard {what}"], what
+        assert g["blob params equal"] and g["blob optimizer equal"] and g["blob n_params equal"]
+
+
+def test_bad_mesh_raises(four):
+    outs, _ = four
+    for o in outs:
+        assert "divisible" in o["bad mesh"]
+        assert "n_model" in o["no n_model"]
+
+
+@pytest.mark.parametrize("n_model", [1, 2])
+def test_launcher_trains_two_cpu_ranks_and_resumes(tmp_path, n_model):
+    """``python -m tcnn_tpu_torch.parallel.launch`` at 2 CPU ranks (gloo, a
+    file:// rendezvous): 4 steps with checkpoints every 2, then a second
+    run to 6 steps that resumes from step 4."""
+    ckpt = tmp_path / "ckpt"
+
+    def launch(steps, tag):
+        env = dict(os.environ, WORLD_SIZE="2", OMP_NUM_THREADS="1",
+                   PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "tcnn_tpu_torch.parallel.launch", "--device", "cpu",
+               "--init-method", f"file://{tmp_path / f'init{tag}'}", "--steps", str(steps),
+               "--batch", "1024", "--chunk", "2", "--n-model", str(n_model),
+               "--ckpt-dir", str(ckpt)]
+        procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)), cwd=REPO,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+        assert all(p.returncode == 0 for p in procs), outs
+        return outs[0]
+
+    first = launch(4, "a")
+    assert "trained 4 steps of batch 1024" in first
+    files = sorted(p.name for p in (ckpt / "4").iterdir())
+    assert files == (["state.rank0.pt", "state.rank1.pt"] if n_model == 2 else ["state.pt"])
+    second = launch(6, "b")
+    assert "resumed from step 4" in second and "trained 2 steps" in second
+    loss = float(second.rsplit("final loss ", 1)[1].split()[0])
+    assert np.isfinite(loss)
