@@ -21,7 +21,7 @@ grid's ``GridEncodeFunction`` and ``GridEncodeBackwardFunction``, the
 fused MLP's ``FusedMLPFunction`` and ``FusedMLPBackwardFunction``) give
 the first and second derivatives: on the card through kernels G and M
 forward, GB and MB backward and, under double backward
-(``torch.autograd.grad(..., create_graph=True)``), GI, GG, RS and MB's
+(``torch.autograd.grad(..., create_graph=True)``), GI, GG and MB's
 differentiable backward; on the CPU through their plain versions.  The
 views' backward (one ``split``) brings each leaf's gradient into
 ``params.grad``.  Under ``torch.autograd.grad(y, x)`` the views are not

@@ -318,27 +318,43 @@ struct LevelCorners {
     }
   }
 
-  // out[e] = sum_d d2 w_c / dx_d dx_e * v[d]: the Hessian of corner c's
-  // weight times v.  The mixed terms d != e are nonzero for Linear too.
-  __device__ __forceinline__ void weight_hess_vec(int c, const float (&v)[D],
-                                                  float (&out)[D]) const {
+  // w'_c = sum_d d w_c / dx_d * v[d], the derivative of corner c's weight
+  // along v: forward mode over the product of the per-dim factors, O(D).
+  __device__ __forceinline__ float dir_grad(int c, const float (&v)[D]) const {
+    float p = 1.0f, dp = 0.0f;
 #pragma unroll
-    for (int e = 0; e < D; ++e) {
-      float s = d2factor(c, e) * v[e];
-#pragma unroll
-      for (int f = 0; f < D; ++f)
-        if (f != e) s *= factor(c, f);
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        if (d == e) continue;
-        float p = dfactor(c, d) * dfactor(c, e) * v[d];
-#pragma unroll
-        for (int f = 0; f < D; ++f)
-          if (f != d && f != e) p *= factor(c, f);
-        s += p;
-      }
-      out[e] = s;
+    for (int d = 0; d < D; ++d) {
+      dp = dp * factor(c, d) + p * dfactor(c, d) * v[d];
+      p *= factor(c, d);
     }
+    return dp;
+  }
+
+  // dir_grad, and out[e] = sum_d d2 w_c / dx_d dx_e * v[d] (the Hessian of
+  // corner c's weight times v; the mixed terms are nonzero for Linear too),
+  // the gradient of w'_c: prefix products p, dp of the factors and their
+  // derivative along v, then suffix products s, t from the last dim down,
+  //   out[e] = (dp_e * f'_e + p_e * f''_e * v_e) * s_e + p_e * f'_e * t_e,
+  // O(D) per corner.
+  __device__ __forceinline__ float dir_grad_hess(int c, const float (&v)[D],
+                                                 float (&out)[D]) const {
+    float p[D + 1], dp[D + 1];
+    p[0] = 1.0f;
+    dp[0] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      dp[d + 1] = dp[d] * factor(c, d) + p[d] * dfactor(c, d) * v[d];
+      p[d + 1] = p[d] * factor(c, d);
+    }
+    float s = 1.0f, t = 0.0f;
+#pragma unroll
+    for (int e = D - 1; e >= 0; --e) {
+      out[e] = (dp[e] * dfactor(c, e) + p[e] * d2factor(c, e) * v[e]) * s +
+               p[e] * dfactor(c, e) * t;
+      t = dfactor(c, e) * v[e] * s + factor(c, e) * t;
+      s *= factor(c, e);
+    }
+    return dp[D];
   }
 
   __device__ __forceinline__ uint32_t row(int c, const HashConsts& hc) const {
@@ -483,26 +499,43 @@ struct WideCorners {
     }
   }
 
-  // out[e] = sum_d d2 w_c / dx_d dx_e * v[d] (e < nd), as LevelCorners.
-  __device__ __forceinline__ void weight_hess_vec(int c, const float (&v)[kMaxDims],
-                                                  float (&out)[kMaxDims]) const {
+  // dir_grad and dir_grad_hess of LevelCorners over the nd dims (out[e]
+  // = 0 for e >= nd), O(nd) per corner.
+  __device__ __forceinline__ float dir_grad(int c, const float (&v)[kMaxDims]) const {
+    float p = 1.0f, dp = 0.0f;
 #pragma unroll
-    for (int e = 0; e < kMaxDims; ++e) {
-      float s = d2factor(c, e) * v[e];
-#pragma unroll
-      for (int f = 0; f < kMaxDims; ++f)
-        if (f != e && f < nd) s *= factor(c, f);
-#pragma unroll
-      for (int d = 0; d < kMaxDims; ++d) {
-        if (d == e || d >= nd) continue;
-        float p = dfactor(c, d) * dfactor(c, e) * v[d];
-#pragma unroll
-        for (int f = 0; f < kMaxDims; ++f)
-          if (f != d && f != e && f < nd) p *= factor(c, f);
-        s += p;
-      }
-      out[e] = e < nd ? s : 0.0f;
+    for (int d = 0; d < kMaxDims; ++d) {
+      if (d >= nd) continue;
+      dp = dp * factor(c, d) + p * dfactor(c, d) * v[d];
+      p *= factor(c, d);
     }
+    return dp;
+  }
+
+  __device__ __forceinline__ float dir_grad_hess(int c, const float (&v)[kMaxDims],
+                                                 float (&out)[kMaxDims]) const {
+    float p[kMaxDims + 1], dp[kMaxDims + 1];
+    p[0] = 1.0f;
+    dp[0] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kMaxDims; ++d) {
+      const bool in = d < nd;
+      dp[d + 1] = in ? dp[d] * factor(c, d) + p[d] * dfactor(c, d) * v[d] : dp[d];
+      p[d + 1] = in ? p[d] * factor(c, d) : p[d];
+    }
+    float s = 1.0f, t = 0.0f;
+#pragma unroll
+    for (int e = kMaxDims - 1; e >= 0; --e) {
+      if (e >= nd) {
+        out[e] = 0.0f;
+        continue;
+      }
+      out[e] = (dp[e] * dfactor(c, e) + p[e] * d2factor(c, e) * v[e]) * s +
+               p[e] * dfactor(c, e) * t;
+      t = dfactor(c, e) * v[e] * s + factor(c, e) * t;
+      s *= factor(c, e);
+    }
+    return dp[kMaxDims];   // dp[d] for d > nd repeats dp[nd]
   }
 
   __device__ __forceinline__ uint32_t row(int c, const HashConsts& hc) const {

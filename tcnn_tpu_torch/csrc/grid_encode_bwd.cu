@@ -55,7 +55,7 @@
 // CTA may take), adds w*dy of every corner of its samples that lands
 // there with shared atomics, and flushes the window with one global
 // atomic per touched group of values (scatter_common.cuh, shared with
-// kernel RS); its chunk of samples is sized so that a row takes several
+// kernels RS and GG, which runs on this plan); its chunk of samples is sized so that a row takes several
 // updates per CTA.  A direct item adds each corner with one global atomic,
 // two dim-0 neighbours on rows r, r + 1 (r even, F = 2: CoherentAdd pairs
 // and dense levels) with one float4.  Only the levels whose rows take
@@ -115,18 +115,6 @@ constexpr int kItemFields = 5;   // level, row_lo, n_rows (0: direct), b0, b1
 // sample and skip the other's rows (false); the plan's GB_CLUSTER_PARTS
 // (ops/cuda/grid_encode.py) says the same.
 constexpr bool kClusterParts = false;
-
-template <int F>
-__device__ __forceinline__ void add_row(float* p, float w, const float (&dy)[F]) {
-  constexpr int V = scatter_vec(F);
-#pragma unroll
-  for (int q = 0; q < F / V; ++q) {
-    float v[V];
-#pragma unroll
-    for (int u = 0; u < V; ++u) v[u] = __fmul_rn(w, dy[q * V + u]);
-    global_add<V>(p + q * V, v);
-  }
-}
 
 struct BwdParams {
   const float* x;

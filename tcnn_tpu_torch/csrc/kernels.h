@@ -115,24 +115,25 @@ cudaError_t grid_encode_bwd_input_launch(
 
 // Kernel GG: grid-encode second order (csrc/grid_encode_bwd_bwd.cu).
 //   x, level_frac, table, dcols and the rest: as for grid_encode_bwd_input_launch;
-//                a masked (sample, level) adds nothing to d_x and writes none
-//                of d_dcols, rows and g: under a mask the caller fills them
-//                with 0, -1 (a row RS skips) and 0
+//                a masked (sample, level) adds nothing and writes 0 to d_dcols
 //   ddx          (batch, n_dims) float32, contiguous: the cotangent of GI's dx
-//   d_dcols      (n_levels * n_features, batch) float32 SoA, or null
-//   d_x          (batch, n_dims) float32, or null
-//   rows, g      (n_live * 2^n_dims * batch) int32 and (.., n_features) float32,
-//                n_live the levels marked live, in (live level, corner, sample)
-//                order; both or neither (sharded: a corner outside the shard
-//                writes row -1 and g = 0)
+//   items, groups  as for grid_encode_bwd_launch (gb_plan's items; parts 1)
+//   d_dcols      (n_levels * n_features, batch) float32 SoA, or null: written
+//                for the live levels only (the caller zeroes the others)
+//   dx_part      (n_levels, batch, n_dims) float32 scratch, the levels'
+//                partials of d_x; given with d_x or not at all
+//   d_x          (batch, n_dims) float32, or null: the live levels' partials
+//                summed in level order
+//   grad, out    the table gradient as for grid_encode_bwd_launch (n_params
+//                the table's, or the shard's, values), or both null
 cudaError_t grid_encode_bwd_bwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
-    bool table_bf16,
-    const void* dcols, bool dcols_bf16, const float* ddx, const int32_t* level_params,
-    float* d_dcols, float* d_x, int32_t* rows, float* g, int64_t batch, int n_dims,
-    int n_levels, int n_features, int64_t dc_stride_b, int64_t dc_stride_f,
-    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded,
-    cudaStream_t stream);
+    bool table_bf16, const void* dcols, bool dcols_bf16, const float* ddx,
+    const int32_t* level_params, int n_levels, const int32_t* items, const int32_t* groups,
+    int n_groups, float* d_dcols, float* dx_part, float* d_x, float* grad, void* out,
+    bool out_bf16, int64_t n_params, int64_t batch, int n_dims, int n_features,
+    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind,
+    int interp, bool sharded, cudaStream_t stream);
 
 // Kernel RS: row scatter-add (csrc/row_scatter.cu).
 //   idx          (m) int32 rows; rows outside [0, n_rows) are skipped

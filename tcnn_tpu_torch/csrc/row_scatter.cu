@@ -12,9 +12,10 @@
 // .at[].add drops those beyond the table.  The fp32 buffer is zeroed
 // first and, for a bfloat16 table, cast once at the end.
 //
-// In the port it is the table gradient of the grid's input gradient: kernel
-// GG writes (rows, g) and RS scatters them (the JAX package's transpose of
-// its corner re-gather, grid_ops.py:1110-1111).
+// No path of the port calls it: kernel GG adds the table gradient of the
+// grid's input gradient (the JAX package's transpose of its corner
+// re-gather, grid_ops.py:1110-1111) itself.  RS's checks and times use
+// GG's updates at the SDF step as (rows, g) (tools/plain_path.py).
 //
 // Bound on the H100: it reads idx and g once (12 bytes an update at F = 2)
 // and writes the table: at the SDF shape (2^24 updates, 108 k rows x 2)

@@ -1,5 +1,5 @@
-// On-chip accumulation shared by the scatter kernels RS (row_scatter.cu)
-// and GB (grid_encode_bwd.cu).
+// On-chip accumulation shared by the scatter kernels RS (row_scatter.cu),
+// GB (grid_encode_bwd.cu) and GG (grid_encode_bwd_bwd.cu).
 //
 // Both add many fp32 updates into rows of a table in device memory, and on
 // the coarse rows thousands of updates land on one address, where fp32
@@ -9,8 +9,8 @@
 // holds the row), and window_flush, which adds the window into the table
 // with one global atomic per group of V values that holds a nonzero one.
 // A row that no update reached is never written, so it stays an exact 0
-// (Adam's lazy step counters rely on that).  The two kernels differ only
-// in how an update's row and value are formed.
+// (Adam's lazy step counters rely on that).  The kernels differ only in
+// how an update's row and value are formed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +43,20 @@ __device__ __forceinline__ void global_add(float* p, const float (&v)[V]) {
 #endif
 #pragma unroll
   for (int q = 0; q < V; ++q) atomicAdd(p + q, v[q]);
+}
+
+// p[0, F) += w * dy in device memory, F / V atomics of V values
+// (scatter_vec), each product rounded once.
+template <int F>
+__device__ __forceinline__ void add_row(float* p, float w, const float (&dy)[F]) {
+  constexpr int V = scatter_vec(F);
+#pragma unroll
+  for (int q = 0; q < F / V; ++q) {
+    float v[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[u] = __fmul_rn(w, dy[q * V + u]);
+    global_add<V>(p + q * V, v);
+  }
 }
 
 // win[0, n) = 0.

@@ -9,7 +9,7 @@ carry a JAX parameter tree across one to one.
 The explicit-derivative methods ``backward_backward_input`` and
 ``input_gradient`` (``tcnn_tpu/module.py:102-136``) run autograd twice
 over the module's forward: the grid and fused-MLP functions carry their
-own second-order backward (kernels GI, GG, RS and MB).
+own second-order backward (kernels GI, GG and MB).
 """
 
 from __future__ import annotations

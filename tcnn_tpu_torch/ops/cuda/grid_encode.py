@@ -13,7 +13,8 @@ level of every grid goes to G and GB: the JAX package's per-level routing
 (``grid_ops.py::_route_levels``, ``_serial_level_groups``) weighed TPU
 costs and is not carried over.  GI and GG have no TPU kernel: the JAX
 package forms both in jnp (``_finish_interp_bwd`` and autodiff of
-``_build_indices_weights``).  A CUDA tensor launches the kernel; a CPU
+``_build_indices_weights``); GG adds its table gradient itself, on GB's
+work plan (``gb_plan``).  A CUDA tensor launches the kernel; a CPU
 tensor takes ``grid_encode_plain``, ``grid_encode_bwd_plain``,
 ``grid_encode_bwd_input_plain`` or ``grid_encode_bwd_bwd_plain``, the same
 functions in plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold
@@ -32,9 +33,9 @@ is rank sid's block-cyclic shard of n, rows [sid·size/n, (sid+1)·size/n)
 of every level; each kernel computes every corner's row as before and
 takes only the corners whose rows the shard holds (``grid_ops.level_params``
 carries the shard's rows).  G adds no feature for another rank's corner,
-GB issues no atomic, GI adds no term to dx, GG adds nothing to d_dcols or
-d_x and writes row −1 (which RS skips) and g = 0.  Unsharded (None) every
-kernel runs as it did.  GB tests ``sharded`` at run time in its instances
+GB issues no atomic, GI adds no term to dx, GG adds nothing to any of its
+outputs, whose table gradient has the shard's rows.  Unsharded (None)
+every kernel runs as it did.  GB tests ``sharded`` at run time in its instances
 (only its direct atomics need the test: the plan's windows lie in the
 shard's block); G runs its run-time-D instance with the test, and GI and GG
 a shard copy of theirs, so that the 1- to 4-D instances of G, GI and GG
@@ -257,6 +258,22 @@ GB_REUSE = 8
 GB_MIN_CHUNK = 4096
 GB_DIRECT_CHUNK = 2048
 GB_CLUSTER_PARTS = False
+# Kernel GG (csrc/grid_encode_bwd_bwd.cu) runs on gb_plan's items with
+# chunks of its own (gg_chunks): a level's samples cut into about GG_ITEMS
+# items, at least GG_THREADS samples (GG's CTA: one (sample, level) a
+# thread).  A thread's samples run one after the other, and each window
+# item flushes its rows once: measured on an H100 (PERF.md), GG at the SDF
+# fit's 2^14 samples ran 5.6x faster with one sample a thread than with 16
+# (GB's chunks), and at 2^18 16% slower, where a coarse level's 1024
+# windows each flushed the same 64 rows.
+GG_THREADS = 256
+GG_ITEMS = 64
+
+
+def gg_chunks(batch: int) -> Tuple[int, int]:
+    """Kernel GG's ``chunks`` of ``gb_plan`` for ``batch`` samples."""
+    chunk = max(GG_THREADS, _pow2_at_least(-(-batch // GG_ITEMS)))
+    return chunk, chunk
 
 
 class GbPlan(NamedTuple):
@@ -275,7 +292,8 @@ def _pow2_at_least(n: int) -> int:
 
 
 def gb_plan(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
-            shard: Optional[Tuple[int, int]] = None) -> GbPlan:
+            shard: Optional[Tuple[int, int]] = None,
+            chunks: Optional[Tuple[int, int]] = None) -> GbPlan:
     """Kernel GB's work items and launches for ``batch`` samples (see the
     GB_ constants): every (live level, sample) is in one item per part of
     its level, every row of a windowed level in one part.  With ``shard``
@@ -283,7 +301,11 @@ def gb_plan(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
     rows [sid·size/n, (sid+1)·size/n) (the kernel skips a corner outside
     its window, so another rank's corners add nothing there), planned over
     the block's size/n rows; a row's updates over the batch, which decide
-    windows and chunks, are the whole level's B·C / size."""
+    windows and chunks, are the whole level's B·C / size.  ``chunks``
+    (a direct item's samples, a window item's least samples; None:
+    GB_DIRECT_CHUNK, GB_MIN_CHUNK) size the items: kernel GG runs on the
+    same plan with ``gg_chunks``."""
+    direct_chunk, min_chunk = chunks or (GB_DIRECT_CHUNK, GB_MIN_CHUNK)
     F, C = spec.n_features_per_level, 1 << spec.n_dims
     cap = GB_WINDOW_BYTES // (4 * F)            # rows one window holds
     sid, n = shard or (0, 1)
@@ -293,11 +315,11 @@ def gb_plan(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
         block, lo = size // n, sid * (size // n)
         parts = -(-block // cap)
         if parts > GB_MAX_PARTS or batch * C < GB_MIN_HITS * size:
-            direct += [(l, 0, 0, b0, min(batch, b0 + GB_DIRECT_CHUNK))
-                       for b0 in range(0, batch, GB_DIRECT_CHUNK)]
+            direct += [(l, 0, 0, b0, min(batch, b0 + direct_chunk))
+                       for b0 in range(0, batch, direct_chunk)]
             continue
         rows = -(-block // parts)
-        chunk = max(GB_MIN_CHUNK, _pow2_at_least(-(-GB_REUSE * size // C)))
+        chunk = max(min_chunk, _pow2_at_least(-(-GB_REUSE * size // C)))
         for b0 in range(0, batch, chunk):
             b1 = min(batch, b0 + chunk)
             its = [(l, lo + p * rows, min(rows, block - p * rows), b0, b1)
@@ -323,13 +345,14 @@ _gb_plans: Dict[Tuple, Tuple[torch.Tensor, List[int]]] = {}
 
 
 def _gb_plan_on(spec: grid_ops.GridSpec, live: Sequence[int], batch: int,
-                device: torch.device,
-                shard: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, List[int]]:
+                device: torch.device, shard: Optional[Tuple[int, int]] = None,
+                chunks: Optional[Tuple[int, int]] = None
+                ) -> Tuple[torch.Tensor, List[int]]:
     """``gb_plan``'s items on ``device`` and its groups as a flat list,
     cached so that a training step copies nothing to the card."""
-    key = (spec, tuple(live), batch, device, shard)
+    key = (spec, tuple(live), batch, device, shard, chunks)
     if key not in _gb_plans:
-        plan = gb_plan(spec, live, batch, shard)
+        plan = gb_plan(spec, live, batch, shard, chunks)
         items = torch.from_numpy(plan.items.reshape(-1)).to(device)
         if items.numel() == 0:   # a valid pointer for a launch with no items
             items = torch.zeros(5, dtype=torch.int32, device=device)
@@ -482,14 +505,13 @@ class BwdBwd(NamedTuple):
     """The outputs of kernel GG (or its plain version); None where not asked for."""
     d_dcols: Optional[torch.Tensor]   # (L·F, B) float32 SoA, zero rows for dead levels
     d_x: Optional[torch.Tensor]       # (B, D) float32
-    rows: Optional[torch.Tensor]      # (L_live·C·B,) int32 table rows
-    g: Optional[torch.Tensor]         # (L_live·C·B, F) float32 updates of those rows
+    d_flat: Optional[torch.Tensor]    # (n_entries·F,) table gradient, the table's dtype
 
 
 def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                               x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
                               live: Sequence[int], need_dcols: bool = True,
-                              need_x: bool = True, need_rows: bool = True,
+                              need_x: bool = True, need_table: bool = True,
                               level_frac: Optional[torch.Tensor] = None,
                               shard: Optional[Tuple[int, int]] = None) -> BwdBwd:
     """Plain PyTorch version of kernel GG, the backward of the input
@@ -497,60 +519,89 @@ def grid_encode_bwd_bwd_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
     ∂w_c/∂x_d · ddx_d per (level, corner, sample):
       d_dcols[l·F+k, b] = Σ_c w'_c · table[row_c, k];
       d_x[b, e] = Σ_{l,c,k} Σ_d ∂²w_c/∂x_d∂x_e · ddx_d · table[row_c, k] · dcols[l·F+k, b];
-      rows, g: the corner rows and g = w'_c · dcols[l·F:(l+1)·F, b], whose
-      scatter-add (kernel RS) is the table gradient.
-    All in fp32; (rows, g) in (live level, corner, sample) order.  A
-    (sample, level) that ``level_frac`` masks has zero weight derivatives
+      d_flat[row_c·F + k] += w'_c · dcols[l·F+k, b], the ``index_add_`` of
+      the updates (rows, g) (``gg_rows_and_g``) in fp32, cast once to
+      ``flat``'s dtype.
+    A (sample, level) that ``level_frac`` masks has zero weight derivatives
     (``build_indices_weights``), so it contributes nothing: zero d_dcols,
-    nothing to d_x, g = 0, and its rows are -1, which kernel RS and its
-    plain version skip (as the kernel writes them).  With ``shard``, another
-    rank's corner has zero weight derivatives, row −1 and g = 0."""
+    nothing to d_x or d_flat.  With ``shard``, another rank's corner has
+    zero weight derivatives, and d_flat has the shard's rows."""
     B, D = x.shape
     F, C, L = spec.n_features_per_level, 1 << spec.n_dims, len(live)
     dev = x.device
+    n_rows = spec.n_entries // (shard[1] if shard else 1)
     d_dcols = (torch.zeros((spec.n_levels * F, B), dtype=torch.float32, device=dev)
                if need_dcols else None)
     d_x = torch.zeros((B, D), dtype=torch.float32, device=dev) if need_x else None
-    rows = torch.zeros(L * C * B, dtype=torch.int32, device=dev) if need_rows else None
-    g = torch.zeros((L * C * B, F), dtype=torch.float32, device=dev) if need_rows else None
-    if not (live and B):
-        return BwdBwd(d_dcols, d_x, rows, g)
-    idx, _, dws, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2,
-                                                       level_frac=level_frac, shard=shard)
-    v = ddx.float()
-    wp = (dws * v[None]).sum(-1).reshape(L, C, B)               # w'_c
-    feats = _corner_features(spec, flat, idx)                    # (L, C, B, F)
-    dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]  # (L, 1, B, F)
-    if need_dcols:
-        live_rows = torch.tensor([l * F + f for l in live for f in range(F)], device=dev)
-        dd = (wp[..., None] * feats).sum(1)                      # (L, B, F)
-        d_dcols.index_copy_(0, live_rows, dd.permute(0, 2, 1).reshape(L * F, B))
-    if need_x:
-        val = (feats * dy).sum(-1)                               # (L, C, B)
-        hv = (d2ws * v[None, :, :, None]).sum(-2).reshape(L, C, B, D)
-        d_x = (hv * val[..., None]).sum((0, 1))
-    if need_rows:
-        rows = idx.reshape(L, C, B).to(torch.int32)
-        if level_frac is not None:
-            keep = grid_ops.level_mask(spec, live, level_frac)[:, None, :] > 0
-            rows = torch.where(keep, rows, -1)
-        rows = rows.reshape(-1)
-        g = (wp[..., None] * dy).reshape(L * C * B, F)
-    return BwdBwd(d_dcols, d_x, rows, g)
+    acc = torch.zeros((n_rows, F), dtype=torch.float32, device=dev) if need_table else None
+    if live and B:
+        idx, _, dws, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2,
+                                                           level_frac=level_frac, shard=shard)
+        v = ddx.float()
+        wp = (dws * v[None]).sum(-1).reshape(L, C, B)               # w'_c
+        dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]  # (L, 1, B, F)
+        if need_dcols or need_x:
+            feats = _corner_features(spec, flat, idx)                # (L, C, B, F)
+        if need_dcols:
+            live_rows = torch.tensor([l * F + f for l in live for f in range(F)], device=dev)
+            dd = (wp[..., None] * feats).sum(1)                      # (L, B, F)
+            d_dcols.index_copy_(0, live_rows, dd.permute(0, 2, 1).reshape(L * F, B))
+        if need_x:
+            val = (feats * dy).sum(-1)                               # (L, C, B)
+            hv = (d2ws * v[None, :, :, None]).sum(-2).reshape(L, C, B, D)
+            d_x = (hv * val[..., None]).sum((0, 1))
+        if need_table:   # rows −1 (masked, another shard's) add their g = 0 to row 0
+            rows, g = gg_rows_and_g(spec, x, dcols, ddx, live, level_frac, shard, (idx, dws))
+            acc.index_add_(0, rows.clamp_min(0), g)
+    return BwdBwd(d_dcols, d_x, acc.reshape(-1).to(flat.dtype) if need_table else None)
+
+
+def gg_rows_and_g(spec: grid_ops.GridSpec, x: torch.Tensor, dcols: torch.Tensor,
+                  ddx: torch.Tensor, live: Sequence[int],
+                  level_frac: Optional[torch.Tensor] = None,
+                  shard: Optional[Tuple[int, int]] = None,
+                  built: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel GG's table-gradient updates as (rows, g): (L·C·B,) int32
+    table rows and (L·C·B, F) fp32 g = w'_c · dcols[l·F:(l+1)·F, b], in
+    (live level, corner, sample) order, w'_c = Σ_d ∂w_c/∂x_d · ddx_d.  A
+    (sample, level) that ``level_frac`` masks has rows −1 (which kernel RS
+    and its plain version skip) and g = 0; with ``shard``, so has another
+    rank's corner.  Their scatter-add is GG's d_flat
+    (``grid_encode_bwd_bwd_plain`` forms it so); kernel RS is checked and
+    timed on them.  ``built``: ``build_indices_weights``'s (idx, dws) at
+    order ≥ 1, where the caller has them."""
+    L, C, (B, _) = len(live), 1 << spec.n_dims, x.shape
+    F = spec.n_features_per_level
+    if built is None:
+        idx, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1,
+                                                     level_frac=level_frac, shard=shard)
+    else:
+        idx, dws = built
+    wp = (dws * ddx.float()[None]).sum(-1).reshape(L, C, B)
+    dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]   # (L, 1, B, F)
+    rows = idx.reshape(L, C, B).to(torch.int32)
+    if level_frac is not None:
+        keep = grid_ops.level_mask(spec, live, level_frac)[:, None, :] > 0
+        rows = torch.where(keep, rows, -1)
+    return rows.reshape(-1), (wp[..., None] * dy).reshape(L * C * B, F)
 
 
 def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tensor,
                         dcols: torch.Tensor, ddx: torch.Tensor, live: Sequence[int],
                         need_dcols: bool = True, need_x: bool = True,
-                        need_rows: bool = True,
+                        need_table: bool = True,
                         level_frac: Optional[torch.Tensor] = None,
                         shard: Optional[Tuple[int, int]] = None) -> BwdBwd:
     """Kernel GG: see ``grid_encode_bwd_bwd_plain``.  ``flat``, ``x``,
     ``dcols``, ``level_frac`` and ``shard`` as for ``grid_encode_bwd_input``;
-    ``ddx`` (B, D) float32."""
+    ``ddx`` (B, D) float32.  The kernel runs on ``gb_plan``'s items (GG's
+    chunks) and adds the table gradient itself, in fp32 with atomics (not
+    bit-reproducible, like GB's); d_dcols and d_x have the same bits from
+    launch to launch."""
     if x.device.type == "cpu":
         return grid_encode_bwd_bwd_plain(spec, flat, x, dcols, ddx, live, need_dcols,
-                                         need_x, need_rows, level_frac, shard)
+                                         need_x, need_table, level_frac, shard)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_bwd_bwd: unsupported device {x.device}")
     name = "grid_encode_bwd_bwd"
@@ -560,31 +611,31 @@ def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Te
     B, D = x.shape
     if ddx.shape != (B, D):
         raise ValueError(f"{name}: ddx must be ({B}, {D}), got {tuple(ddx.shape)}")
+    if B >= 2 ** 31:
+        raise ValueError(f"{name}: {B} samples exceed the plan's int32 sample indices")
     ddx = ddx.float().contiguous()
     require_cuda_tensors(name, x, ddx)
     level_consts = _consts(spec, live, x.device, shard)
+    items, groups = _gb_plan_on(spec, live, B, x.device, shard, gg_chunks(B))
     factors, hash_kind = _hash_args(spec)
-    F, C, L = spec.n_features_per_level, 1 << D, len(live)
-    dev = x.device
-    # under a mask the kernel writes nothing for a masked (sample, level):
-    # these fills stand (zero d_dcols and g, row -1, which RS skips)
-    fill = level_frac is not None
-    out = BwdBwd(
-        (torch.zeros if fill else torch.empty)((spec.n_levels * F, B), dtype=torch.float32,
-                                               device=dev) if need_dcols else None,
-        torch.empty((B, D), dtype=torch.float32, device=dev) if need_x else None,
-        (torch.full((L * C * B,), -1, dtype=torch.int32, device=dev) if fill else
-         torch.empty(L * C * B, dtype=torch.int32, device=dev)) if need_rows else None,
-        (torch.zeros if fill else torch.empty)((L * C * B, F), dtype=torch.float32,
-                                               device=dev) if need_rows else None)
+    F, L, dev = spec.n_features_per_level, spec.n_levels, x.device
+    # the kernel writes the live levels' rows of d_dcols only
+    d_dcols = ((torch.zeros if len(set(live)) < L else torch.empty)(
+        (L * F, B), dtype=torch.float32, device=dev) if need_dcols else None)
+    d_x = torch.empty((B, D), dtype=torch.float32, device=dev) if need_x else None
+    dx_part = torch.empty((L, B, D), dtype=torch.float32, device=dev) if need_x else None
+    grad = (torch.empty(flat.numel(), dtype=torch.float32, device=dev) if need_table
+            else None)
+    out = grad if grad is None or flat.dtype == torch.float32 else torch.empty_like(flat)
     if B == 0:
-        return out
+        return BwdBwd(d_dcols, d_x, None if grad is None else grad.zero_().to(flat.dtype))
     kernels().grid_encode_bwd_bwd(x, _x_row_stride(x), level_frac, flat, dcols, ddx,
-                                  level_consts, *out, D, F, dcols.stride(1), dcols.stride(0),
-                                  factors, hash_kind, _INTERP_CODE[spec.interpolation],
+                                  level_consts, items, groups, d_dcols, dx_part, d_x, grad,
+                                  out, D, F, dcols.stride(1), dcols.stride(0), factors,
+                                  hash_kind, _INTERP_CODE[spec.interpolation],
                                   shard is not None)
     grid_encode_bwd_bwd.launches += 1
-    return out
+    return BwdBwd(d_dcols, d_x, out)
 
 
 grid_encode_bwd_bwd.launches = 0

@@ -4,9 +4,12 @@ PyTorch counterpart of the row-scatter half of
 ``tcnn_tpu/ops/pallas/scatter.py``: RS replaces ``::_scatter_kernel``
 (``scatter_add_rows``, ``scatter_add_rows_flat``) and
 ``::_scatter_cols_kernel`` (``scatter_add_cols``), which all compute
-``zeros((n_rows, F)).at[idx].add(g)``.  Those names are kept here.  The
-grid's second order (``ops/grid_ops.py``) calls ``row_scatter_add``
-directly, with the table's dtype as ``out_dtype``.
+``zeros((n_rows, F)).at[idx].add(g)``.  Those names are kept here.  No
+path of the port calls them: the grid's second order adds its table
+gradient inside kernel GG (``csrc/grid_encode_bwd_bwd.cu``).  RS stays
+for callers of the JAX package's scatter functions; ``chip_smoke.py``
+holds it against its plain version and times it beside ``index_add_``
+on the layout GG's updates have (``tools/plain_path.py::gg_rows_and_g``).
 
 A CUDA tensor launches the kernel; a CPU tensor takes
 ``row_scatter_add_plain`` (``index_add_`` in fp32), which the CPU tests and

@@ -667,10 +667,9 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     Forward: kernel GB for dflat and kernel GI for dx, each only where
     asked.  Backward, from the cotangents (ct_dflat, ct_dx), every block
     JAX's autodiff gives:
-      * ct_dx through kernel GG (d dcols, d x) and kernel RS, the
-        scatter-add of GG's (rows, g): the table gradient of the input
-        gradient (the transpose of JAX's corner re-gather,
-        grid_ops.py:1110-1111), all through ``GridBwdBwdFunction``;
+      * ct_dx through kernel GG (d dcols, d x and the table gradient of
+        the input gradient, the transpose of JAX's corner re-gather,
+        grid_ops.py:1110-1111), through ``GridBwdBwdFunction``;
       * ct_dflat through kernel G with ct_dflat as the table (d dcols) and
         kernel GI with ct_dflat as the table (d x): ``_scatter_weighted_bwd``'s
         math (scatter.py:528-550).
@@ -682,7 +681,7 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
 
     ``torch.func``: ``jvp`` is the tangent of (dflat, dx) from those of
     (flat, x, dcols), the same blocks forward (JAX forms them by autodiff of
-    jnp code): t_dflat = GB(t_dcols) + RS of GG's (rows, g) at ddx = t_x;
+    jnp code): t_dflat = GB(t_dcols) + GG's d_flat at ddx = t_x;
     t_dx = GI(t_flat as the table) + GI(t_dcols) + GG's d_x at ddx = t_x,
     every term a kernel.  This is the grid's part of a Hessian by
     ``jacfwd(grad)``.  ``vmap``: a vmapped x or dcols folds into the batch
@@ -781,11 +780,11 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
 
 
 class GridBwdBwdFunction(torch.autograd.Function):
-    """Kernels GG and RS as one function of (flat, x, dcols, ddx):
-    ``(d_dcols, d_x, d_flat)``, the gradients of ⟨dx, ddx⟩ (dx the grid's
-    input gradient, kernel GI) in dcols, x and the table, each only where
-    asked (``grid_encode_bwd_bwd``; d_flat the scatter-add of GG's (rows, g)
-    by kernel RS).  The second order of ``GridEncodeBackwardFunction`` calls
+    """Kernel GG as a function of (flat, x, dcols, ddx): ``(d_dcols, d_x,
+    d_flat)``, the gradients of ⟨dx, ddx⟩ (dx the grid's input gradient,
+    kernel GI) in dcols, x and the table, each only where asked
+    (``grid_encode_bwd_bwd``, one launch: GG adds d_flat itself, on kernel
+    GB's work plan).  The second order of ``GridEncodeBackwardFunction`` calls
     its forward; forward mode calls it through ``apply`` (d_dcols at ddx =
     t_x is the grid's input tangent), so that ``vmap`` finds its rule: a
     vmapped x, dcols or ddx folds into the batch where d_flat is not asked
@@ -797,16 +796,12 @@ class GridBwdBwdFunction(torch.autograd.Function):
     def forward(flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table, frac,
                 shard=None):
         from .cuda.grid_encode import grid_encode_bwd_bwd
-        from .cuda.scatter import row_scatter_add
 
         if dcols is None:
             dcols = torch.zeros(1, device=x.device).expand(spec.n_output_dims, x.shape[0])
-        gg = grid_encode_bwd_bwd(spec, flat, x, dcols, ddx, live, need_dcols=need_dcols,
-                                 need_x=need_x, need_rows=need_table, level_frac=frac,
-                                 shard=shard)
-        n_rows = spec.n_entries // (shard[1] if shard else 1)
-        d_flat = row_scatter_add(gg.rows, gg.g, n_rows, flat.dtype) if need_table else None
-        return gg.d_dcols, gg.d_x, d_flat
+        return tuple(grid_encode_bwd_bwd(spec, flat, x, dcols, ddx, live, need_dcols=need_dcols,
+                                         need_x=need_x, need_table=need_table, level_frac=frac,
+                                         shard=shard))
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -9,7 +9,7 @@ sphere with the loss
     L = |f(x_surf)|^2  +  0.1 · (|∇x f(x_vol)| − 1)^2
 
 whose gradient in the parameters flows through ∇x f: the grid's and the
-MLP's second derivatives (kernels GI, GG and RS, and MB's differentiable
+MLP's second derivatives (kernels GI and GG, and MB's differentiable
 backward).  Smoothstep interpolation makes ∇x f continuous.  The model is
 built by ``create_from_config`` at the fp32 policy and trained through
 ``model.network`` and ``model.optimizer``, as the JAX sample does, one

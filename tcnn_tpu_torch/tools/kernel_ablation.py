@@ -17,8 +17,12 @@ CUDA graph of 30 calls:
     (40 -> 64 x 3 -> 3, AoS input), and in both dtypes at
     config_oneblob's (128 -> 128 x 5 -> 3, AoS input);
   * GB at the SDF step's shape (3-D, fp32 table, surface points) and at
-    config_btf's (4-D CoherentAdd, 2^19-row levels, bf16 table), and RS
-    on the eikonal step's (rows, g) from kernel GG;
+    config_btf's (4-D CoherentAdd, 2^19-row levels, bf16 table); GG at
+    the SDF step's shape also at 2^14 samples, unsharded and in shard mode
+    (shard 0 of 2), and the grid's second order as the eikonal step calls
+    it (``GridBwdBwdFunction.forward``: GG, or in a checkout before GG
+    added its table gradient itself, GG and RS); RS on GG's updates as
+    (rows, g) at the eikonal step's layout;
   * GB over no level (its zeroing and cast) and one level at a time;
   * the same kernels in ablated copies of the package: ``DIR/<name>``
     holds a copy of ``tcnn_tpu_torch`` with one source patch
@@ -31,12 +35,15 @@ CUDA graph of 30 calls:
 at ROOT (say, the parent commit unpacked by ``git archive`` into a
 directory ``.gitignore`` lists) with this file's timing code, in the same
 call, as the variant ``baseline``, and says which outputs of the
-deterministic kernels (G, GI, GG, M, MB's dW), and GB's on inputs whose
-sums are exact in any order, have the same bits in both.
+deterministic kernels (G, GI, GG's d_dcols and d_x, M, MB's dW), and
+GB's on inputs whose sums are exact in any order, have the same bits in
+both.
 ``--steps ROUNDS`` instead times whole steps of this checkout and of ROOT
 in turn, ROUNDS runs each (``compare_steps``): ``chip_smoke.py``'s
 config_hash step (on the device, eager, its parts alone, the loop) and
-its SDF eikonal step (on the device, eager).
+its SDF eikonal step (on the device, eager, its peak device memory
+above what it finds allocated, and what it holds when it calls the
+grid's second order and the peak inside that call).
 Every number is printed beside the card's name and power limit.  Needs
 one CUDA device; DIR defaults to ``build/ablations`` at the checkout's
 root.  ``--atomics`` instead counts, on the CPU, the global atomics one
@@ -319,6 +326,14 @@ ABLATIONS = {
                         "GB_WINDOW_BYTES = 110 * 1024"),
                        (_GB_PLAN, "GB_MAX_PARTS = 2", "GB_MAX_PARTS = 3"),
                        (_GB_PLAN, "GB_MIN_HITS = 256", "GB_MIN_HITS = 0")],
+    # GG's levels cut into about 32, 128 and 256 items in place of 64; GG
+    # with CTAs of 512 threads.
+    "gg_items_32": [(_GB_PLAN, "GG_ITEMS = 64", "GG_ITEMS = 32")],
+    "gg_items_128": [(_GB_PLAN, "GG_ITEMS = 64", "GG_ITEMS = 128")],
+    "gg_items_256": [(_GB_PLAN, "GG_ITEMS = 64", "GG_ITEMS = 256")],
+    "gg_threads_512": [("grid_encode_bwd_bwd.cu", "constexpr int kGgThreads = 256;",
+                        "constexpr int kGgThreads = 512;"),
+                       (_GB_PLAN, "GG_THREADS = 256", "GG_THREADS = 512")],
     # GB's direct path without its 16-byte atomics for dim-0 pairs.
     "gb_no_pair_atomics": [("grid_encode_bwd.cu", "if (o0 && o1 && r1 == r0 + 1 && (r0 & 1) == 0) {",
                             "if (false) {")],
@@ -433,8 +448,8 @@ def _bits(t: torch.Tensor) -> str:
 def time_kernels(config: str, full: bool) -> dict:
     """Times G, GB, GI, GG, RS, M and MB of the ``tcnn_tpu_torch`` on
     ``sys.path``; entries ``bits ...`` hold digests of the outputs of the
-    deterministic kernels (G, GI, GG, M, MB's dW) and of GB's on inputs
-    whose sums are exact."""
+    deterministic kernels (G, GI, GG's d_dcols and d_x, M, MB's dW) and of
+    GB's on inputs whose sums are exact."""
     from tcnn_tpu_torch import BF16_POLICY, create_from_config
     from tcnn_tpu_torch.common import Activation, HashType
     from tcnn_tpu_torch import Policy
@@ -443,6 +458,7 @@ def time_kernels(config: str, full: bool) -> dict:
     from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
                                                      grid_encode_bwd_input, grid_encode_fwd)
     from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add
+    from tcnn_tpu_torch.ops.grid_ops import GridBwdBwdFunction
     from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
 
     dev = torch.device("cuda")
@@ -492,8 +508,8 @@ def time_kernels(config: str, full: bool) -> dict:
                 out[f"bits GI {key}"] = _bits(grid_encode_bwd_input(hspec, htable, hx, hdc,
                                                                     hlive))
                 hgg = grid_encode_bwd_bwd(hspec, htable, hx, hdc, hdx, hlive)
-                out[f"bits GG {key}"] = _bits(torch.cat([hgg.d_dcols.reshape(-1), hgg.d_x.reshape(-1),
-                                                         hgg.g.reshape(-1)]))
+                out[f"bits GG d_dcols {key}"] = _bits(hgg.d_dcols)
+                out[f"bits GG d_x {key}"] = _bits(hgg.d_x)
         out["M"] = graph_ms(lambda: fused_mlp_fwd(ws, feats, net.activation,
                                                   net.output_activation, torch.bfloat16,
                                                   torch.float32, True, False))
@@ -523,7 +539,7 @@ def time_kernels(config: str, full: bool) -> dict:
                 out[f"check {kind}"] = fp32_check(ws_, x_, g_, soa)
 
         # GB at the SDF step (surface points, fp32) and at config_btf (bf16),
-        # RS on the eikonal step's (rows, g)
+        # GG and RS at the eikonal step's
         smodel = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
         sspec = smodel.network.encoding.spec
         slive = list(range(sspec.n_levels))
@@ -536,6 +552,17 @@ def time_kernels(config: str, full: bool) -> dict:
         ddx = torch.randn((BATCH, 3), generator=gen, device=dev)
         out["GI sdf"] = graph_ms(lambda: grid_encode_bwd_input(sspec, stable, xv, sdc, slive))
         out["GG sdf"] = graph_ms(lambda: grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive))
+        out["second order sdf"] = graph_ms(lambda: GridBwdBwdFunction.forward(
+            stable, xv, sdc, ddx, sspec, tuple(slive), True, True, True, None))
+        n14 = 1 << 14
+        out["GG sdf 2^14"] = graph_ms(lambda: grid_encode_bwd_bwd(
+            sspec, stable, xv[:n14], sdc[:, :n14], ddx[:n14], slive))
+        out["second order sdf 2^14"] = graph_ms(lambda: GridBwdBwdFunction.forward(
+            stable, xv[:n14], sdc[:, :n14], ddx[:n14], sspec, tuple(slive), True, True, True,
+            None))
+        half = stable[:sspec.n_params // 2].clone()   # shard 0's size (the bits are not read)
+        out["GG sdf 2^14 shard"] = graph_ms(lambda: grid_encode_bwd_bwd(
+            sspec, half, xv[:n14], sdc[:, :n14], ddx[:n14], slive, shard=(0, 2)))
         out["bits GI sdf"] = _bits(grid_encode_bwd_input(sspec, stable, xv, sdc, slive))
         # GI on a bf16 table and cotangent, and under a per-sample level mask
         hb, hdc = stable.to(torch.bfloat16), sdc.to(torch.bfloat16)
@@ -547,11 +574,10 @@ def time_kernels(config: str, full: bool) -> dict:
         out["bits GI sdf masked"] = _bits(grid_encode_bwd_input(sspec, stable, xv, sdc, slive,
                                                                 level_frac=frac))
         gg = grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive)
-        out["bits GG sdf"] = _bits(torch.cat([t.reshape(-1).float() for t in
-                                              (gg.d_dcols, gg.g) if t is not None]))
-        bb = grid_encode_bwd_bwd(sspec, stable, xv, sdc, ddx, slive, need_dcols=False,
-                                 need_x=False)
-        out["RS sdf"] = graph_ms(lambda: row_scatter_add(bb.rows, bb.g, sspec.n_entries))
+        out["bits GG d_dcols sdf"] = _bits(gg.d_dcols)
+        out["bits GG d_x sdf"] = _bits(gg.d_x)
+        rows, g = _gg_updates(sspec, stable, xv, sdc, ddx, slive)
+        out["RS sdf"] = graph_ms(lambda: row_scatter_add(rows, g, sspec.n_entries))
         btf = create_from_config(6, 3, str(Path(config).parent / "config_btf.json"),
                                  policy=BF16_POLICY)
         bspec = btf.network.encoding.nested[0].spec
@@ -577,6 +603,21 @@ def time_kernels(config: str, full: bool) -> dict:
                     f"{'hashed' if level.use_hash else 'dense'})"] = graph_ms(
                         lambda: grid_encode_bwd(spec, table, x, dfeats, [lv]))
     return out
+
+
+def _gg_updates(spec, table, x, dcols, ddx, live):
+    """GG's table-gradient updates as (rows, g), kernel RS's input at the
+    eikonal step's layout: ``plain_path.gg_rows_and_g``, or in a checkout
+    from before GG added them itself (``--baseline``), its kernel's own."""
+    try:
+        from tcnn_tpu_torch.tools.plain_path import gg_rows_and_g
+    except ImportError:
+        from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd_bwd
+
+        bb = grid_encode_bwd_bwd(spec, table, x, dcols, ddx, live, need_dcols=False,
+                                 need_x=False)
+        return bb.rows, bb.g
+    return gg_rows_and_g(spec, x, dcols, ddx, live)
 
 
 def fp32_check(ws, x, g, soa: bool) -> str:
@@ -777,8 +818,8 @@ def time_steps() -> dict:
     on ``sys.path``: config_hash's training step on the device and eager,
     its parts alone on the step's tensors (``slice_times``) and what the
     step holds beyond them, make_training_loop per step; the SDF eikonal
-    step on the device and eager.  Inputs from seed 0, as chip_smoke.py
-    draws them."""
+    step on the device and eager, and its peak memory.  Inputs from seed 0,
+    as chip_smoke.py draws them."""
     import importlib.util
 
     from tcnn_tpu_torch import BF16_POLICY, Policy, create_from_config
@@ -817,6 +858,38 @@ def time_steps() -> dict:
 
     out["sdf step"] = smoke.time_ms(step)
     out["sdf step device"] = smoke.graph_ms(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    out["sdf step peak MB"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    # where that peak lies: what the step holds when it calls the grid's
+    # second order (GridBwdBwdFunction.forward: GG, and RS where the
+    # checkout has it), and the peak inside that call
+    from tcnn_tpu_torch.ops.grid_ops import GridBwdBwdFunction
+
+    forward, seen = GridBwdBwdFunction.forward, {}
+
+    def traced(*args, **kw):
+        torch.cuda.synchronize()
+        seen["held"] = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        res = forward(*args, **kw)
+        torch.cuda.synchronize()
+        seen["peak"] = torch.cuda.max_memory_allocated() - base
+        return res
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    GridBwdBwdFunction.forward = staticmethod(traced)
+    try:
+        step()
+    finally:
+        GridBwdBwdFunction.forward = staticmethod(forward)
+    out["sdf step held at the second order MB"] = seen["held"] / 1e6
+    out["sdf step peak in the second order MB"] = seen["peak"] / 1e6
+    out["second order's own peak MB"] = (seen["peak"] - seen["held"]) / 1e6
     return out
 
 
@@ -832,7 +905,7 @@ def compare_steps(rounds: int, baseline: Path, smi: str) -> None:
     turn (``step_order``), each run in a process of its own, and the
     median of each number per side."""
     roots = {"tree": _PKG.parent, "baseline": baseline}
-    builds = {side: _run(root, "build") for side, root in roots.items()}
+    builds = {side: _run(root, "build", side) for side, root in roots.items()}
     failed = [side for side, proc in builds.items() if proc.wait() != 0]
     if failed:
         raise RuntimeError(f"steps: build of {', '.join(failed)} failed")
@@ -850,8 +923,10 @@ def compare_steps(rounds: int, baseline: Path, smi: str) -> None:
               flush=True)
     for k in runs["tree"][0]:
         med = {side: statistics.median(r[k] for r in runs[side]) for side in runs}
-        print(f"median of {rounds}: {k}: tree {med['tree']:.4f} ms, baseline "
-              f"{med['baseline']:.4f} ms ({med['tree'] / med['baseline'] - 1:+.2%})", flush=True)
+        unit = "MB" if k.startswith(("sdf step ", "second order")) and k.endswith(" MB") else "ms"
+        print(f"median of {rounds}: {k}: tree {med['tree']:.4f} {unit}, baseline "
+              f"{med['baseline']:.4f} {unit} ({med['tree'] / med['baseline'] - 1:+.2%})",
+              flush=True)
 
 
 def _copy(out_dir: Path, name: str, patches) -> Path:

@@ -19,8 +19,8 @@ Three jobs:
   * ``eikonal_sdf``: the SDF sample's model and loss
     (``samples/fit_sdf_eikonal.py``, fp32, its 3-D Smoothstep grid
     row-sharded) under ``HybridParallel``, each step through the grid's
-    second order in shard mode (G, GB, GI, GG and RS) and the collectives'
-    transposes.
+    second order in shard mode (G, GB, GI and GG, which adds the shard's
+    table gradient itself: no RS) and the collectives' transposes.
 
 Each rank draws the same global batches (``fit_btf.batch_sampler``, an
 ``ImageSampler`` of ``synthetic_image(1024, 1024)``, the SDF sample's
@@ -92,7 +92,7 @@ def _sampler(job, batch, device):
 
 def _eikonal_loss_and_grads(trainer):
     """The SDF sample's loss (surface term and 0.1 of the eikonal term) and
-    its gradients, through the grid's second order (GI, GG, RS)."""
+    its gradients, through the grid's second order (GI, GG)."""
     from ..samples.fit_sdf_eikonal import loss_and_grads
 
     return lambda xs, xv: loss_and_grads(trainer.model, xs, xv)

@@ -1,10 +1,13 @@
 """The plain path of a model: its forward and one training step's gradients
 through the plain PyTorch versions of kernels G, M, MB and GB, on the
 tensors the model holds, the SDF sample's eikonal step through those
-and the plain versions of GI, GG and RS (``plain_sdf_loss_and_grads``),
+and the plain versions of GI and GG (``plain_sdf_loss_and_grads``),
 and the NeRF sample's step, two nets and a per-sample level mask
-(``plain_nerf_loss_and_grads``).  ``gg_term_magnitudes`` gives the S of
-the sound bound on RS over kernel GG's output.
+(``plain_nerf_loss_and_grads``).  ``gg_rows_and_g`` (from the plain
+version of GG, ``ops/cuda/grid_encode.py``) gives kernel GG's
+table-gradient updates as (rows, g), the layout kernel RS is checked and
+timed on, and ``gg_table_scale`` the S of the sound bound on GG's table
+gradient (``gg_term_magnitudes`` per update, also RS's S over them).
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernel path
 (``model.trainer``, ``samples/fit_sdf_eikonal.py``,
 ``samples/fit_nerf_field.py``) against it on the
@@ -31,8 +34,9 @@ from ..common import Activation
 from ..ops.activations import activation_derivative
 from ..ops.cuda.fused_mlp import (fused_mlp_bwd_bwd_plain, fused_mlp_bwd_plain,
                                   fused_mlp_plain)
-from ..ops.cuda.grid_encode import (grid_encode_bwd_bwd_plain, grid_encode_bwd_input_plain,
-                                    grid_encode_bwd_plain, grid_encode_plain)
+from ..ops.cuda.grid_encode import (gg_rows_and_g, grid_encode_bwd_bwd_plain,
+                                    grid_encode_bwd_input_plain, grid_encode_bwd_plain,
+                                    grid_encode_plain)
 from ..ops.cuda.scatter import row_scatter_add_plain
 from ..ops import grid_ops
 from ..ops.grid_ops import live_levels
@@ -149,7 +153,7 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     alone feeding a fused MLP (``samples/fit_sdf_eikonal.py``).  Each
     kernel of the step is replaced by its plain version, in the order the
     kernel path runs them: the surface term through G, M, MB and GB; the
-    input gradient through G, MB and GI; its backward through GG, RS, MB's
+    input gradient through G, MB and GI; its backward through GG, MB's
     second order and GB.  With ``table_scale`` it also returns S, per
     table entry the sum of the magnitudes of the terms its gradient sums
     (the scale of that sum's rounding in another order).  ``mlp_bwd`` is
@@ -194,14 +198,14 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     with torch.enable_grad():
         eik = eikonal_loss(gx)
         (ddx,) = torch.autograd.grad(EIKONAL_WEIGHT * eik, gx)
-    # its backward: GG and RS (the table), MB's second order (the
-    # weights and the features), GB (the table again, unless the features'
-    # gradient vanishes: it does for ReLU layers, piecewise linear in x)
+    # its backward: GG (the table), MB's second order (the weights and the
+    # features), GB (the table again, unless the features' gradient
+    # vanishes: it does for ReLU layers, piecewise linear in x)
     bb = grid_encode_bwd_bwd_plain(spec, table, x_vol, dfv, ddx, live, need_x=False,
                                    level_frac=level_frac)
-    dtable = dtable + row_scatter_add_plain(bb.rows, bb.g, spec.n_entries)
-    if table_scale:
-        scale = scale + row_scatter_add_plain(bb.rows, bb.g.abs(), spec.n_entries)
+    dtable = dtable + bb.d_flat.float()
+    if table_scale:   # S over the terms of GG's updates (Σ|g| is not sound)
+        scale = scale + gg_table_scale(spec, x_vol, dfv, ddx, live, level_frac)
     d_fv, _, dws2 = fused_mlp_bwd_bwd_plain(ws, fv, ones, bb.d_dcols.to(dfv.dtype),
                                             [None] * len(ws), act, out_act, cdt, odt,
                                             True, False)
@@ -295,11 +299,11 @@ SUM_SLACK = 2.0 ** -16
 
 def gg_term_magnitudes(spec, x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
                        live: Sequence[int], level_frac=None, shard=None) -> torch.Tensor:
-    """(L·C·B, F), in GG's (live level, corner, sample) order: per corner
-    pair the sum of the magnitudes of the terms of GG's g, Σ_d |∂w_c/∂x_d
-    · ddx_d| · |dcols|.  Their scatter-add (plain RS) is the S of the sound
-    bound 2^-11·S on RS over kernel GG's output against plain RS over plain
-    GG's: Σ|g| is not sound where g's terms cancel."""
+    """(L·C·B, F), in ``gg_rows_and_g``'s order: per update the sum of the
+    magnitudes of the terms of its g, Σ_d |∂w_c/∂x_d · ddx_d| · |dcols|.
+    Their scatter-add at those rows (plain RS) is the S of the sound bound
+    2^-11·S on kernel GG's table gradient against the plain one, and on RS
+    over the updates: Σ|g| is not sound where g's terms cancel."""
     L, C, (B, _) = len(live), 1 << spec.n_dims, x.shape
     F = spec.n_features_per_level
     _, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1, level_frac=level_frac,
@@ -308,6 +312,18 @@ def gg_term_magnitudes(spec, x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Te
     rows = torch.tensor([l * F + f for l in live for f in range(F)], device=x.device)
     dy = dcols.float().abs()[rows].reshape(L, F, B).permute(0, 2, 1)[:, None]
     return (wp[..., None] * dy).reshape(L * C * B, F)
+
+
+def gg_table_scale(spec, x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
+                   live: Sequence[int], level_frac=None, shard=None) -> torch.Tensor:
+    """The flat S of kernel GG's table gradient (its shard's rows with
+    ``shard``): ``gg_term_magnitudes`` scattered at the rows of
+    ``gg_rows_and_g``.  GG's d_flat lies within 2^-11·S of the plain one
+    per entry, and is an exact 0 where S is."""
+    rows, _ = gg_rows_and_g(spec, x, dcols, ddx, live, level_frac, shard)
+    n_rows = spec.n_entries // (shard[1] if shard else 1)
+    return row_scatter_add_plain(
+        rows, gg_term_magnitudes(spec, x, dcols, ddx, live, level_frac, shard), n_rows)
 
 
 def _bf16_other(r: torch.Tensor, rounded: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""The on-chip accumulation of kernels GB and RS, emulated on the CPU.
+"""The on-chip accumulation of kernels GB, GG and RS, emulated on the CPU.
 
-Kernel GB sums each level's updates in shared-memory windows, following
-the work plan its wrapper builds (``ops/cuda/grid_encode.py::gb_plan``);
+Kernels GB and GG sum each level's updates in shared-memory windows,
+following the work plan GB's wrapper builds
+(``ops/cuda/grid_encode.py::gb_plan``; GG with its own chunks);
 kernel RS sums each chunk of updates in a window of the chunk's row range
 where that fits (``csrc/row_scatter.cu``).  The kernels run only on the
 card, but their plans and decisions are plain arithmetic: these tests
@@ -9,7 +10,9 @@ check that ``gb_plan`` covers every (live level, sample) once per part of
 its level and every row of a windowed level in exactly one part, at the
 repo's three grid geometries, and they replay both kernels' algorithms
 (window, skip of rows outside it, flush of the nonzero groups, direct
-path) in PyTorch: GB's against ``grid_encode_bwd_plain``, RS's against the
+path) in PyTorch: GB's against ``grid_encode_bwd_plain``, GG's against
+``grid_encode_bwd_bwd_plain``'s d_flat (within 2^-11 of S over the terms
+of its updates, ``tools/plain_path.py::gg_table_scale``), RS's against the
 JAX package's ``scatter_add_rows`` in interpret mode (tests/conftest.py).
 Tolerances: the fp32 sums run in another order, rtol 1e-5 and atol 1e-6
 (1e-4 for RS, tests/test_scatter.py's; at the SDF layout, whose level-0
@@ -30,6 +33,7 @@ from tcnn_tpu_torch.common import InterpolationType
 from tcnn_tpu_torch.ops import grid_ops
 from tcnn_tpu_torch.ops.cuda import grid_encode as ge
 from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+from tcnn_tpu_torch.tools import plain_path
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
@@ -178,6 +182,91 @@ def test_gb_windows_emulated_equal_plain(D, F, monkeypatch):
     assert kinds <= {0, 1, 2}
 
 
+def _emulate_gg(spec, x, dcols, ddx, live, frac=None, shard=None):
+    """Kernel GG's fused table gradient over ``gb_plan`` with GG's chunks,
+    in PyTorch: per item, the w'·dy of the corners of its samples that land
+    in its window (summed there, flushed by nonzero groups, one value a
+    group in the run-time-D instance that masks and shards take) or by
+    direct atomics; a masked (sample, level), another shard's corner and
+    w' = 0 add nothing.  Also checks that the CTAs which write d_dcols and
+    d_x's partials (direct items, and a windowed level's part at its first
+    row: level_params' held row less its row base) cover every (live level,
+    sample) once.  Returns the (rows, F) fp32 table gradient."""
+    F, B, C = spec.n_features_per_level, x.shape[0], 1 << spec.n_dims
+    lp = grid_ops.level_params(spec, live, shard).view(np.uint32).astype(np.int64)
+    idx, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1, level_frac=frac,
+                                                 shard=shard)
+    idx = idx.reshape(len(live), C, B)
+    wp = (dws * ddx[None]).sum(-1).reshape(len(live), C, B)
+    keep_all = (torch.ones(len(live), B, dtype=torch.bool) if frac is None
+                else grid_ops.level_mask(spec, live, frac) > 0)
+    wide = frac is not None or shard is not None
+    v = 1 if wide else 4 if F % 4 == 0 else 2 if F % 2 == 0 else 1
+    out = torch.zeros(spec.n_entries // (shard[1] if shard else 1), F)
+    owners = torch.zeros(len(live), B, dtype=torch.int64)
+    plan = ge.gb_plan(spec, live, B, shard, ge.gg_chunks(B))
+    for level, row_lo, n_rows, b0, b1 in plan.items.tolist():
+        li = live.index(level)
+        offset, first_row = int(lp[level, 2]), int(lp[level, 15])
+        if n_rows == 0 or row_lo == (first_row - offset) % 2 ** 32:
+            owners[li, b0:b1] += 1
+        rows = idx[li, :, b0:b1].reshape(-1)
+        w = wp[li, :, b0:b1].reshape(-1)
+        vals = w[:, None] * dcols[level * F:(level + 1) * F, b0:b1].t().repeat(C, 1)
+        keep = (rows >= 0) & (w != 0) & keep_all[li, b0:b1].repeat(C)
+        if n_rows == 0:
+            out.index_add_(0, rows[keep].long(), vals[keep])
+            continue
+        r = (rows.long() - offset - row_lo) % 2 ** 32
+        keep &= r < n_rows
+        groups = torch.zeros(n_rows, F).index_add_(0, r[keep], vals[keep]).reshape(-1, v)
+        nonzero = (groups != 0).any(1)
+        start = (offset + row_lo) % 2 ** 32
+        part = out[start:start + n_rows].reshape(-1, v)
+        part[nonzero] += groups[nonzero]
+    assert bool((owners == 1).all())
+    return out.reshape(-1)
+
+
+@pytest.mark.parametrize("case", ["unmasked", "masked", "shard 0", "shard 1"])
+@pytest.mark.parametrize("all_windows", [False, True])
+def test_gg_windows_emulated_equal_plain(case, all_windows, monkeypatch):
+    """GG's table gradient over its plan at the SDF layout (3-D Smoothstep,
+    8 levels of up to 32,768 rows, F = 2; B = 2^12 here), with the plan's
+    windows where the kernel takes them or (GB_MIN_HITS 0) on every level,
+    the 29,792- and 32,768-row levels then in two parts (a shard's halves
+    in one); unmasked, under a
+    per-sample mask and on each shard of two: against the plain d_flat per
+    entry within 2^-11·S, S over the updates' terms (``gg_table_scale``);
+    rows no update reaches stay exact zeros."""
+    spec = _spec("sdf")
+    if all_windows:
+        monkeypatch.setattr(ge, "GB_MIN_HITS", 0)
+    live = list(range(spec.n_levels))
+    B = 1 << 12
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand((B, 3), generator=gen) * 0.9 + 0.05
+    dcols = torch.randn((spec.n_output_dims, B), generator=gen)
+    ddx = torch.randn((B, 3), generator=gen)
+    frac = torch.rand(B, generator=gen) if case == "masked" else None
+    shard = (int(case[-1]), 2) if case.startswith("shard") else None
+    plan = ge.gb_plan(spec, live, B, shard, ge.gg_chunks(B))
+    parts = {}
+    for level, row_lo, n_rows, _, _ in plan.items.tolist():
+        parts.setdefault(level, set()).add((row_lo, n_rows))
+    assert any(n == 0 for p in parts.values() for _, n in p) != all_windows
+    # a shard's blocks (at most 16,384 rows) fit one window
+    assert any(len(p) == 2 for p in parts.values()) == (all_windows and shard is None)
+    table = torch.rand(spec.n_params // (2 if shard else 1), generator=gen) * 2 - 1
+    got = _emulate_gg(spec, x, dcols, ddx, live, frac, shard)
+    want = ge.grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, need_dcols=False,
+                                        need_x=False, level_frac=frac, shard=shard).d_flat
+    scale = plain_path.gg_table_scale(spec, x, dcols, ddx, live, frac, shard)
+    assert bool(((got - want).abs() <= 2.0 ** -11 * scale).all())
+    assert bool((got[scale == 0] == 0).all()) and bool((want[scale == 0] == 0).all())
+    assert bool((scale > 0).any())
+
+
 RS_CHUNK, RS_WINDOW_FLOATS = 8192, 96 * 1024 // 4   # csrc/row_scatter.cu
 
 
@@ -235,10 +324,10 @@ def test_rs_windows_emulated_equal_jax(f):
 
 
 def test_rs_windows_at_the_sdf_steps_layout():
-    """GG's level-major (rows, g) at the SDF grid (B = 2^12 here): with the
-    kernel's own chunk and window, the chunks of levels 0-4 (at most 9,264
-    rows) take the window, those of levels 5-7 the direct path, and the
-    result equals the plain scatter."""
+    """GG's updates as (rows, g), level-major, at the SDF grid (B = 2^12
+    here; ``plain_path.gg_rows_and_g``): with RS's own chunk and window,
+    the chunks of levels 0-4 (at most 9,264 rows) take the window, those of
+    levels 5-7 the direct path, and the result equals the plain scatter."""
     spec = _spec("sdf")
     live = list(range(spec.n_levels))
     B = 1 << 12
@@ -247,13 +336,16 @@ def test_rs_windows_at_the_sdf_steps_layout():
     table = torch.rand(spec.n_params, generator=gen) * 2 - 1
     dcols = torch.randn((spec.n_output_dims, B), generator=gen)
     ddx = torch.randn((B, 3), generator=gen)
-    bb = ge.grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, need_dcols=False,
-                                      need_x=False)
-    got, windowed = _emulate_rs(bb.rows, bb.g, spec.n_entries, chunk=B)
+    rows, g = plain_path.gg_rows_and_g(spec, x, dcols, ddx, live)
+    got, windowed = _emulate_rs(rows, g, spec.n_entries, chunk=B)
     C = 8
     assert windowed == sum(C for lv in spec.levels
                            if lv.size * 2 <= RS_WINDOW_FLOATS)
     assert windowed == 5 * C
-    want = torch.zeros(spec.n_entries, 2).index_add_(0, bb.rows.long(), bb.g)
-    scale = torch.zeros(spec.n_entries, 2).index_add_(0, bb.rows.long(), bb.g.abs())
+    want = torch.zeros(spec.n_entries, 2).index_add_(0, rows.long(), g)
+    scale = torch.zeros(spec.n_entries, 2).index_add_(0, rows.long(), g.abs())
     assert bool(((got - want).abs() <= 2.0 ** -11 * scale).all())
+    # and their scatter is GG's own table gradient, the plain GG's d_flat
+    d_flat = ge.grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, need_dcols=False,
+                                          need_x=False).d_flat
+    assert torch.equal(d_flat, want.reshape(-1))

@@ -346,7 +346,8 @@ def test_plain_sdf_step_equals_model_step_and_launch_counts(monkeypatch):
     step bit for bit on the CPU, where the model runs the same plain
     versions; and the model's step runs G, M and MB twice, GB once (the
     surface term: the first-order call's table gradient, which the step
-    would discard, is not computed), GI, GG and RS once each."""
+    would discard, is not computed), GI and GG once each, and RS never (GG
+    adds the table gradient itself)."""
     model = tcnn.create_from_config(3, 1, SDF_SMALL, policy=tcnn.Policy(), device="cpu")
     with torch.no_grad():
         model.network.encoding.grid.uniform_(-1, 1, generator=torch.Generator().manual_seed(13))
@@ -363,7 +364,7 @@ def test_plain_sdf_step_equals_model_step_and_launch_counts(monkeypatch):
     # differentiable backward
     assert calls == {"grid_encode_plain": 2, "fused_mlp_plain": 3, "fused_mlp_bwd_plain": 2,
                      "grid_encode_bwd_plain": 1, "grid_encode_bwd_input_plain": 1,
-                     "grid_encode_bwd_bwd_plain": 1, "row_scatter_add_plain": 1}
+                     "grid_encode_bwd_bwd_plain": 1, "row_scatter_add_plain": 0}
 
 
 @pytest.mark.parametrize("fracs", ["half", "spread"])
