@@ -103,6 +103,20 @@ and read just after:
     against the same training in this process, with the ranks' launches,
     step and collective times (one card shared by two processes: no
     scaling figure).
+  * slice 14, third derivatives and Queue 1 item 16: kernel GT (the grid's
+    third order) against its plain version at the SDF grid (fp32, 2^18
+    and 2^14, shard 0 of 2, a mask at 0.5); G's stochastic gather at the
+    Rng and stochastic config_hash geometry, and a loss on that grid's
+    table gradient differentiated in x; the curvature step (the eikonal
+    loss plus 1e-3 · mean |H v|², ``samples/fit_sdf_eikonal.curvature_loss``)
+    of the SDF sample's model, ReLU and Softplus, against
+    ``plain_path.plain_curvature_loss_and_grads`` with its launches, 200
+    steps of it at 2^14 (the main path of GT, with a loss floor from the
+    JAX package's run) and its times at 2^18; M and MB at 64 x 40 hidden
+    layers (beyond one launch); a config_hash fit fed by
+    ``utils.native_loader.PrefetchingSampler`` against the same fit on the
+    on-device sampler (PSNR by ``utils.metrics``); one eager eikonal step
+    under ``utils.profiling.trace``.
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -256,6 +270,22 @@ with TF32 off):
     MLP bound and its tangent, and jacrev, within 1e-4 of their largest
     magnitude (fp32 sums over corners, levels and samples in another
     order).
+
+  * slice 14: GT's d_dcols and d_x within 1e-5 of each one's largest
+    magnitude and bit for bit in a second launch, its table gradient per
+    entry within 2^-11·S over its updates' terms (``plain_path.
+    gt_table_scale``), as GG's; the stochastic gather at G's bounds (it
+    meets the plain version's bits: one corner at weight 1); the curvature
+    step's loss at 1e-4 relative and every gradient, the table's too,
+    within 1e-4 of its largest magnitude (the third order's per-entry term
+    magnitudes are not formed); the curvature fit's mean of the last 10
+    losses below ``CURVATURE_LOSS_FLOOR``; M at 64 x 40 bit for bit against
+    a chain of shallow launches, in fp32 also at the fp32 MLP bound, MB at
+    the fp32 bounds of MB 128 x 12, in bf16 bit for bit against launches
+    over runs of five layers (bf16 roundings of dz compound over 41 layers:
+    the plain version's dW lay 5 % apart in relative L2 norm at 33 layers
+    in the card tests); the prefetched fit's PSNR within
+    ``PREFETCH_PSNR_MARGIN`` of the on-device sampler's fit.
 
   * slice 12: each shard's G at the fp32 bound with the fp32 sum's own
     error (its partial features are fp32: |d| <= 1e-5·|ref| + (2^D +
@@ -680,12 +710,13 @@ def grid_bwd_case(spec, table, x, dc, label):
 def counters():
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
     from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
-                                                     grid_encode_bwd_input, grid_encode_fwd)
+                                                     grid_encode_bwd_input, grid_encode_fwd,
+                                                     grid_encode_third)
     from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add
 
     return {"G": grid_encode_fwd, "M": fused_mlp_fwd, "GB": grid_encode_bwd,
             "MB": fused_mlp_bwd, "GI": grid_encode_bwd_input, "GG": grid_encode_bwd_bwd,
-            "RS": row_scatter_add}
+            "RS": row_scatter_add, "GT": grid_encode_third}
 
 
 FIRST_ORDER = ("G", "M", "GB", "MB")
@@ -693,9 +724,9 @@ FIRST_ORDER = ("G", "M", "GB", "MB")
 
 def first_order_counts():
     """The counts of the first-order kernels, with a check that the
-    second-order kernels GI, GG and RS were not launched."""
+    second- and third-order kernels GI, GG, RS and GT were not launched."""
     c = counts()
-    check(all(c[k] == 0 for k in ("GI", "GG", "RS")),
+    check(all(c[k] == 0 for k in ("GI", "GG", "RS", "GT")),
           f"a first-order path launched a second-order kernel: {c}")
     return {k: c[k] for k in FIRST_ORDER}
 
@@ -904,6 +935,7 @@ KERNELS = {   # timing key: (report name, source)
     "GI": ("grid_encode_bwd_input", "tcnn_tpu_torch/csrc/grid_encode_bwd_input.cu"),
     "GG": ("grid_encode_bwd_bwd", "tcnn_tpu_torch/csrc/grid_encode_bwd_bwd.cu"),
     "RS": ("row_scatter", "tcnn_tpu_torch/csrc/row_scatter.cu"),
+    "GT": ("grid_encode_third", "tcnn_tpu_torch/csrc/grid_encode_third.cu"),
 }
 
 
@@ -1598,7 +1630,7 @@ def sdf_slice(gen, dev):
     # GB once: the first-order call's table gradient, which the step would
     # discard, is not computed (ops/grid_ops.py: _engine_will_use); no RS:
     # GG adds the table gradient of the input gradient itself
-    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0}
+    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0}
     check(step_launches == per_step, f"eikonal step launches {step_launches}, "
           f"expected {per_step}")
 
@@ -1606,7 +1638,8 @@ def sdf_slice(gen, dev):
     dx = net.input_gradient(xv, 0)
     torch.cuda.synchronize()
     ig_launches = counts()
-    check(ig_launches == {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0},
+    check(ig_launches == {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0,
+                          "GT": 0},
           f"input_gradient launches {ig_launches}: expected no GB (its table gradient "
           f"would be thrown away)")
     check(dx.shape == (B, D) and bool(torch.isfinite(dx).all()), "input_gradient output")
@@ -2587,7 +2620,7 @@ def bindings_slice(gen, dev):
     phase(f"slice 10: bindings NetworkWithInputEncoding at config_hash (fp32), B={B}: "
           f"forward, params.grad and the input gradient vs the plain path")
     launches, err = binding_first_order(m, x, target)
-    want = {"G": 1, "M": 1, "GB": 1, "MB": 1, "GI": 1, "GG": 0, "RS": 0}
+    want = {"G": 1, "M": 1, "GB": 1, "MB": 1, "GI": 1, "GG": 0, "RS": 0, "GT": 0}
     check(launches == want, f"binding first-order launches {launches}, expected {want}")
 
     phase(f"slice 10: the SDF sample's eikonal step through bindings "
@@ -2601,7 +2634,7 @@ def bindings_slice(gen, dev):
     (dydx,) = torch.autograd.grad(s(xg).sum(), xg)
     torch.cuda.synchronize()
     ig_launches = counts()
-    want = {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0}
+    want = {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0, "GT": 0}
     check(ig_launches == want, f"binding autograd.grad(y, x) launches {ig_launches}: "
           f"expected {want} (no GB: the table gradient would be thrown away)")
     check(dydx.shape == (B, 3) and bool(torch.isfinite(dydx).all()), "binding input gradient")
@@ -2610,7 +2643,7 @@ def bindings_slice(gen, dev):
     loss.backward()
     torch.cuda.synchronize()
     step_launches = counts()
-    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0}
+    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0}
     check(step_launches == per_step, f"binding eikonal step launches {step_launches}, "
           f"expected {per_step}")
     want_loss, want, scale = plain_sdf_loss_and_grads(
@@ -2666,7 +2699,7 @@ def bindings_slice(gen, dev):
         dumps = sorted(os.listdir(out_dir))
     n_dumps = len(out["psnr_at"])
     want = {"G": IMAGE_PT_STEPS + n_dumps, "M": IMAGE_PT_STEPS + n_dumps, "GB": IMAGE_PT_STEPS,
-            "MB": IMAGE_PT_STEPS, "GI": 0, "GG": 0, "RS": 0}
+            "MB": IMAGE_PT_STEPS, "GI": 0, "GG": 0, "RS": 0, "GT": 0}
     check(sample_launches == want, f"image sample (bindings) launches {sample_launches}, "
           f"expected {want}")
     check(bool(torch.isfinite(out["losses"]).all()), "non-finite loss in the bindings sample")
@@ -2873,7 +2906,7 @@ def check_eikonal_step(net, xs, xv, frac, what):
             hows.append(f"{n.split('.', 1)[1]} {e / want[n].abs().max().item():.3e}")
     print(f"{what}: loss {loss.item():.6f}, plain {want_loss.item():.6f}; gradients: "
           f"{', '.join(hows)} (weights 1e-4 of their max); launches {launches}")
-    expect = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0}
+    expect = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0}
     check(launches == expect, f"{what}: launches {launches}, expected {expect}")
     return launches
 
@@ -3180,7 +3213,8 @@ def torch_func_slice(gen, dev):
                           (params, x), (tp, tx))
     torch.cuda.synchronize()
     jvp_launches = counts()
-    check(jvp_launches == {"G": 2, "M": 1, "GB": 0, "MB": 0, "GI": 0, "GG": 1, "RS": 0},
+    check(jvp_launches == {"G": 2, "M": 1, "GB": 0, "MB": 0, "GI": 0, "GG": 1, "RS": 0,
+                           "GT": 0},
           f"jvp launches {jvp_launches}: expected G for the primal and the table tangent, "
           f"GG for the input tangent, M, and no backward kernel")
     y_p, t_p = torch.func.jvp(lambda p, v: plain_net(net, p, v), (params, x), (tp, tx))
@@ -3539,6 +3573,455 @@ def parallel_slice(gen, dev):
     return entries(t, items, path_launches, err, {"n_shards": n})
 
 
+# Slice 14: third derivatives (kernel GT), the stochastic gather, deep
+# FusedMLPs, and Queue 1 item 16 (metrics, profiling, the native loader).
+CURVATURE_STEPS = 200         # the curvature fit at the SDF sample's 2^14 points
+CURVATURE_BATCH_POW = 14
+# The JAX package's run of the same fit on the CPU (tests/curvature_fit_reference.py
+# 200 14 ReLU: the SDF sample's model and Adam, its loss plus 1e-3 · mean |H v|²)
+# read a first loss of 0.099803 and a mean of the last 10 of 0.030752; the
+# floor leaves 0.019 of margin (an untrained model reads about 0.0998).
+CURVATURE_LOSS_JAX = 0.030752
+CURVATURE_LOSS_FLOOR = 0.05
+CURVATURE_CHECK_POW = 14      # the step's gradients against the plain path
+DEEP_M_HIDDEN = 40            # FullyFusedMLP 64 x 40: two launches of M, MB in runs
+DEEP_M_BATCH = 1 << 16
+PREFETCH_STEPS = 200
+PREFETCH_PSNR_MARGIN = 2.0    # dB below the same run's on-device-sampler fit
+REPLACES_GT = ("none (jnp): autodiff of the backward of _grid_interpolate's custom VJP, "
+               "tcnn_tpu/ops/grid_ops.py:917-1122")
+
+
+def gt_flops(spec, batch):
+    """GT: per (sample, level) the positions and per-dim factors (4D); per
+    corner the prefix products of the (1, s, t, st) jets along β and v
+    (17D), u from them, the suffix products and ∇³w's e-th entry (33D),
+    then d dcols (2F), the row's dot with dcols (2F), the table update
+    u·dy and its add (2F)."""
+    D, C, F = spec.n_dims, 1 << spec.n_dims, spec.n_features_per_level
+    return batch * spec.n_levels * (4 * D + C * (50 * D + 6 * F))
+
+
+def check_third_order(spec, table, x, dcols, ddx, beta, live, frac=None, shard=None,
+                      label=""):
+    """Kernel GT against its plain version: d_dcols and d_x within 1e-5 of
+    each one's largest magnitude and bit for bit in a second launch (one
+    writer per (sample, level), the levels summed in one order), the table
+    gradient per entry within 2^-11·S (``plain_path.gt_table_scale``, S
+    over its updates' terms, as GG's) and an exact 0 where S is.  Returns
+    (max abs err of d_dcols and d_x, that of the table gradient)."""
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_third, grid_encode_third_plain
+    from tcnn_tpu_torch.tools.plain_path import gt_table_scale
+
+    kw = {"level_frac": frac, "shard": shard}
+    with torch.inference_mode():
+        got = grid_encode_third(spec, table, x, dcols, ddx, beta, live, **kw)
+        again = grid_encode_third(spec, table, x, dcols, ddx, beta, live, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got.d_dcols, again.d_dcols) and torch.equal(got.d_x, again.d_x),
+              f"GT {label}: d_dcols or d_x differ between two launches")
+        want = grid_encode_third_plain(spec, table, x, dcols, ddx, beta, live, **kw)
+        e = max(compare_rel(got.d_dcols, want.d_dcols, 1e-5, f"GT {label} d_dcols"),
+                compare_rel(got.d_x, want.d_x, 1e-5, f"GT {label} d_x"))
+        scale = gt_table_scale(spec, x, dcols, ddx, beta, live, frac, shard)
+        e_flat = compare_table_grad(got.d_flat, want.d_flat, scale, f"GT {label} table grad")
+        check(not bool(got.d_flat[scale == 0].any()),
+              f"GT {label}: table rows no update reaches are not zero")
+    print(f"GT {label}: max abs err d_dcols, d_x {e:.3e} (1e-5 of each max; bit for bit in a "
+          f"second launch), table gradient {e_flat:.3e} (2^-11·S over its updates' terms)")
+    return e, e_flat
+
+
+def curvature_check(gen, dev, act):
+    """One curvature step of the SDF sample's model (``act`` hidden layers)
+    at 2^CURVATURE_CHECK_POW points through the kernels against
+    ``plain_path.plain_curvature_loss_and_grads`` (autograd of the plain
+    forward): the loss at 1e-4 relative, every gradient, the table's too,
+    within 1e-4 of its largest magnitude (the third order's per-entry term
+    magnitudes are not formed; a sample whose ReLU switches near 0 moves a
+    gradient by 1/2^14 of one sample's share).  Returns the step's launches."""
+    from tcnn_tpu_torch import Policy, create_from_config
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.tools.plain_path import plain_curvature_loss_and_grads
+
+    cfg = {**sdf.CONFIG, "network": {**sdf.CONFIG["network"], "activation": act}}
+    net = create_from_config(3, 1, cfg, policy=Policy()).network
+    n = 1 << CURVATURE_CHECK_POW
+    xs, xv = sdf.sample_points(gen, n, dev)
+    v = sdf.sample_directions(gen, n, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, grads = sdf.curvature_loss_and_grads(net, xs, xv, v)
+    torch.cuda.synchronize()
+    launches = counts()
+    want_loss, want = plain_curvature_loss_and_grads(net, xs, xv, v)
+    check(abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item()),
+          f"curvature step ({act}): loss {loss.item()} vs plain {want_loss.item()}")
+    check(sorted(grads) == sorted(want), f"curvature step gradient names {sorted(grads)}")
+    hows = []
+    for name, g in grads.items():
+        e = compare_rel(g, want[name], 1e-4, f"curvature step ({act}) {name}")
+        hows.append(f"{name.split('.', 1)[1]} {e / want[name].abs().max().item():.3e}")
+    print(f"curvature step ({act}, 2^{CURVATURE_CHECK_POW}): loss {loss.item():.6f}, plain "
+          f"{want_loss.item():.6f}; gradients (of each max): {', '.join(hows)}; launches "
+          f"{launches}")
+    missing = [k for k in ("G", "M", "GB", "MB", "GI", "GG", "GT") if launches[k] == 0]
+    check(not missing and launches["RS"] == 0,
+          f"curvature step ({act}): kernels not launched {missing}, launches {launches}")
+    return launches
+
+
+def slice14(gen, dev, hash_times):
+    """Slice 14: kernel GT and G's stochastic gather against their plain
+    versions, the curvature step (the main path of GT) checked, timed and
+    fitted, M and MB beyond one launch's layers, a config_hash fit fed by
+    ``PrefetchingSampler``, and one eager eikonal step under
+    ``profiling.trace``.  Returns the report entries of GT and the
+    stochastic gather."""
+    import json
+    import re
+    import tempfile
+
+    from tcnn_tpu_torch import BF16_POLICY, Policy, create_from_config
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops import grid_ops
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_bwd_plain,
+                                                   fused_mlp_bwd_plain,
+                                                   fused_mlp_bwd_segmented, fused_mlp_fwd,
+                                                   fused_mlp_fwd_chained, fused_mlp_plain,
+                                                   m_runs, mb_plan)
+    from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_fwd, grid_encode_plain,
+                                                     grid_encode_third,
+                                                     grid_encode_third_plain)
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.utils import metrics, profiling
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+    from tcnn_tpu_torch.utils.native_loader import NativeImageSampler, PrefetchingSampler
+
+    t, err = {}, {}
+    model = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
+    net, opt = model.network, model.optimizer
+    spec = net.encoding.spec
+    live = list(range(spec.n_levels))
+    with torch.no_grad():
+        net.encoding.grid.uniform_(-1, 1, generator=gen)
+    table = net.encoding.grid.detach()
+    B, D = MAIN_BATCH, spec.n_dims
+    phase(f"slice 14: GT vs plain at the SDF grid (fp32, {spec.n_levels} levels x "
+          f"{spec.n_features_per_level}, {spec.levels[-1].size} rows), B={B} and 2^14, "
+          "shard 0 of 2 and a mask at 0.5")
+    x = torch.rand((B, D), generator=gen, device=dev) * 0.9 + 0.05
+    dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev)
+    ddx, beta = (torch.randn((B, D), generator=gen, device=dev) for _ in range(2))
+    n14 = 1 << 14
+    a14 = (x[:n14], dcols[:, :n14].contiguous(), ddx[:n14], beta[:n14])
+    err["GT sdf"] = max(check_third_order(spec, table, x, dcols, ddx, beta, live,
+                                          label="SDF 2^18"))
+    err["GT sdf 2^14"] = max(check_third_order(spec, table, *a14, live, label="SDF 2^14"))
+    shard = (0, 2)
+    perm = torch.from_numpy(grid_ops.block_cyclic_perm(spec, 2)).to(dev)
+    shard_table = table[perm].chunk(2)[0].clone()
+    err["GT sdf shard"] = max(check_third_order(spec, shard_table, *a14, live, shard=shard,
+                                                label="SDF 2^14, shard 0 of 2"))
+    half = torch.full((B,), 0.5, device=dev)
+    err["GT sdf masked"] = max(check_third_order(spec, table, x, dcols, ddx, beta, live, half,
+                                                 label="SDF 2^18, mask at 0.5"))
+
+    phase("slice 14: G's stochastic gather vs plain at the Rng and stochastic config_hash "
+          f"geometry, B={B}")
+    cfg = json.loads(re.sub(r"//[^\n]*", "", open(CONFIG).read()))
+    cfg["encoding"] = {**cfg["encoding"], "hash": "Rng", "stochastic_interpolation": True}
+    # Softplus: a ReLU MLP's input gradient does not depend on x, and the
+    # one-hot weights do not either, so the loss below would not depend on x
+    cfg["network"] = {**cfg["network"], "activation": "Softplus"}
+    st_model = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+    st_enc = st_model.network.encoding
+    st_spec = st_enc.spec
+    st_live = list(range(st_spec.n_levels))
+    with torch.no_grad():
+        st_enc.grid.uniform_(-1, 1, generator=gen)
+    xs2 = torch.rand((B, 2), generator=gen, device=dev)
+    e_sg = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        u = st_enc.grid.detach().to(dtype)
+        with torch.inference_mode():
+            got = grid_encode_fwd(st_spec, u, xs2, st_live, soa=True, stochastic=True)
+            torch.cuda.synchronize()
+            want = grid_encode_plain(st_spec, u, xs2, st_live, soa=True, stochastic=True)
+        e_sg = max(e_sg, compare(got, want, "grid-bf16" if dtype == torch.bfloat16
+                                 else "grid-f32")[0])
+        check(torch.equal(got, want), f"stochastic gather ({dtype}): not the plain bits")
+    err["G stochastic gather"] = e_sg
+    print(f"G's stochastic gather: max abs err {e_sg:.3e}, the plain version's bits in fp32 "
+          "and bf16 (one corner at weight 1)")
+    # its main path: a loss on the stochastic grid's table gradient, in x
+    torch.cuda.synchronize()
+    reset_counts()
+    xg = xs2.clone().requires_grad_()
+    (dt,) = torch.autograd.grad(st_model.network(xg).float().sum(), st_enc.grid,
+                                create_graph=True)
+    (dxg,) = torch.autograd.grad(dt.float().square().sum(), xg)
+    torch.cuda.synchronize()
+    st_launches = counts()
+    check(bool(torch.isfinite(dxg).all()), "stochastic cotangent: non-finite d x")
+    check(st_launches["G"] == 2, f"stochastic cotangent launches {st_launches}: expected G "
+          "twice (the forward and the stochastic gather)")
+    print(f"loss on the stochastic table gradient, d/dx at B={B}: launches {st_launches}")
+    with torch.inference_mode():
+        u = st_enc.grid.detach().to(torch.bfloat16)
+        sg_out = grid_encode_fwd(st_spec, u, xs2, st_live, soa=True, stochastic=True)
+        key = "G stochastic gather"
+        t[key] = graph_ms(lambda: grid_encode_fwd(st_spec, u, xs2, st_live, soa=True,
+                                                  stochastic=True))
+        t[key + " plain"] = eager_ms(lambda: grid_encode_plain(st_spec, u, xs2, st_live,
+                                                               soa=True, stochastic=True))
+    idx_st, ws_st = grid_ops.build_indices_weights(st_spec, xs2, st_live, scatter=True)
+    picks = ws_st.reshape(st_spec.n_levels, 4, B).argmax(dim=1)
+    picked = idx_st.reshape(st_spec.n_levels, 4, B).gather(1, picks[:, None]).flatten()
+    consts = st_spec.n_levels * grid_ops.LEVEL_FIELDS * 4
+    # bytes: x, the uniforms and the rows of the picked corners (one a (sample,
+    # level)); operations: positions and per-dim weights, the pick, and the
+    # picked corner's Rng hash
+    sg_bytes = (nbytes(xs2, sg_out) + st_spec.n_levels * B * 4 + consts
+                + int(picked.unique().numel()) * st_spec.n_features_per_level * 2)
+    sg_ops = B * st_spec.n_levels * 6 * 2 + rng_hash_ops(st_spec, xs2, picks)
+    t[key + " bound"] = bound_ms(sg_bytes, sg_ops, PEAK_FP32)
+    t[key + " bound by"] = bound_by(sg_bytes, sg_ops, PEAK_FP32)
+    print(f"{key}: {t[key]:.4f} ms on the device (plain {t[key + ' plain']:.4f} ms, bound "
+          f"{t[key + ' bound']:.4f} ms: {sg_bytes / 1e6:.2f} MB, {sg_ops / 1e9:.3f} G "
+          f"operations)")
+
+    phase(f"slice 14: the curvature step (eikonal + {sdf.CURVATURE_WEIGHT} · mean |H v|^2) of "
+          f"the SDF model, ReLU and Softplus, at 2^{CURVATURE_CHECK_POW} against the plain path")
+    step_launches = {act: curvature_check(gen, dev, act) for act in ("ReLU", "Softplus")}
+
+    phase(f"slice 14: {CURVATURE_STEPS} curvature steps at 2^{CURVATURE_BATCH_POW} "
+          "(ReLU, the SDF sample's model): the main path")
+    fit_model = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
+    fnet, fopt = fit_model.network, fit_model.optimizer
+    fstate = fopt.init(dict(fnet.named_parameters()), fnet.param_layout())
+    fgen = torch.Generator(dev).manual_seed(1)
+    nfit = 1 << CURVATURE_BATCH_POW
+    losses = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(CURVATURE_STEPS):
+        xs, xv = sdf.sample_points(fgen, nfit, dev)
+        v = sdf.sample_directions(fgen, nfit, dev)
+        loss, grads = sdf.curvature_loss_and_grads(fnet, xs, xv, v)
+        fopt.step(fstate, grads, dict(fnet.named_parameters()))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = counts()
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), "non-finite curvature fit loss")
+    first, last10 = float(losses[0]), float(losses[-10:].mean())
+    print(f"curvature fit: loss {first:.6f} -> {last10:.6f} (mean of the last 10; JAX "
+          f"{CURVATURE_LOSS_JAX}, floor {CURVATURE_LOSS_FLOOR}); {fit_s:.2f} s, "
+          f"{fit_s / CURVATURE_STEPS * 1e3:.3f} ms per eager step; launches {fit_launches}")
+    check(last10 < CURVATURE_LOSS_FLOOR,
+          f"curvature loss floor missed: {last10} >= {CURVATURE_LOSS_FLOOR}")
+    check(fit_launches["GT"] == CURVATURE_STEPS * step_launches["ReLU"]["GT"],
+          f"curvature fit GT launches {fit_launches['GT']}, expected "
+          f"{CURVATURE_STEPS} x {step_launches['ReLU']['GT']}")
+
+    phase(f"slice 14 times at B={B}: the curvature step (ReLU) in a CUDA graph and eager, "
+          "GT and its plain version")
+    xs, xv = sdf.sample_points(gen, B, dev)
+    v = sdf.sample_directions(gen, B, dev)
+    state = opt.init(dict(net.named_parameters()), net.param_layout())
+
+    def curvature_step():
+        _, g = sdf.curvature_loss_and_grads(net, xs, xv, v)
+        opt.step(state, g, dict(net.named_parameters()))
+
+    t["curvature step"] = time_ms(curvature_step, n=10)
+    t["curvature step device"] = graph_ms(curvature_step, n=5)
+    # The MLP's part (torch operations, no kernel): its second order as the
+    # eikonal step runs it, and the same with its graph kept and
+    # differentiated once more in the weights and the features, as the
+    # curvature step's third order runs it.
+    mlp = net.network
+    mws = [w.detach() for w in mlp.layers]
+    with torch.no_grad():
+        fv = grid_encode_fwd(spec, table, xv, live, soa=True)
+    ones = torch.ones((B, 1), device=dev)
+    ct_f = torch.randn(fv.shape, generator=gen, device=dev)
+    mlp_args = (mlp.activation, mlp.output_activation, torch.float32, torch.float32, True, False)
+
+    def mlp_second():
+        return fused_mlp_bwd_bwd_plain(mws, fv, ones, ct_f, [None] * len(mws), *mlp_args)
+
+    def mlp_third():
+        leaves = [w.clone().requires_grad_() for w in mws] + [fv.clone().requires_grad_()]
+        d_x, _, d_ws = fused_mlp_bwd_bwd_plain(leaves[:-1], leaves[-1], ones, ct_f,
+                                               [None] * len(mws), *mlp_args, create_graph=True)
+        outs = [o for o in (d_x, *d_ws) if o is not None and o.requires_grad]
+        return torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs],
+                                   allow_unused=True)
+
+    t["MLP second order"] = graph_ms(mlp_second)
+    t["MLP third order"] = graph_ms(mlp_third)
+    print(f"the MLP's part at B={B} (torch operations): its second order "
+          f"{t['MLP second order']:.4f} ms on the device; kept and differentiated once more "
+          f"{t['MLP third order']:.4f} ms")
+    calls = {"GT sdf": ((spec, table, x, dcols, ddx, beta, live), {}),
+             "GT sdf 2^14": ((spec, table, *a14, live), {}),
+             "GT sdf shard": ((spec, shard_table, *a14, live), {"shard": shard}),
+             "GT sdf masked": ((spec, table, x, dcols, ddx, beta, live), {"level_frac": half})}
+    outs = {}
+    with torch.inference_mode():
+        for k, (a, kw) in calls.items():
+            outs[k] = grid_encode_third(*a, **kw)
+            t[k] = graph_ms(lambda: grid_encode_third(*a, **kw))
+            t[k + " plain"] = eager_ms(lambda: grid_encode_third_plain(*a, **kw), n=2)
+    cst = spec.n_levels * grid_ops.LEVEL_FIELDS * 4
+    idx14, _ = grid_ops.build_indices_weights(spec, a14[0], live, shard=shard)
+    owned = float((idx14 >= 0).float().mean())   # the corners the shard holds
+    kept = float((torch.arange(spec.n_levels, device=dev).float()
+                  < 0.5 * spec.n_levels + 1e-3).float().mean())   # levels the mask keeps
+    # each input read once (x, ddx, β, dcols, the touched table rows), each
+    # output written once (d_dcols, d_x, the table gradient); gt_flops for the
+    # (sample, level, corner) work this run's data needs
+    b = {k: (nbytes(*a[2:6], *outs[k]) + touched_bytes(spec, a[2], 4, kw.get("shard")) + cst,
+             gt_flops(spec, a[2].shape[0]) * (owned if "shard" in kw else 1.0)
+             * (kept if "level_frac" in kw else 1.0)) for k, (a, kw) in calls.items()}
+    for k, (n_bytes, ops) in b.items():
+        t[k + " bound"] = bound_ms(n_bytes, ops, PEAK_FP32)
+        t[k + " bound by"] = bound_by(n_bytes, ops, PEAK_FP32)
+        print(f"{k}: {t[k]:.4f} ms on the device (plain {t[k + ' plain']:.4f} ms, bound "
+              f"{t[k + ' bound']:.4f} ms: {n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+              "operations on the fp32 units)")
+    per = step_launches["ReLU"]
+    print(f"curvature step at B={B} (ReLU): {t['curvature step']:.4f} ms eager with the "
+          f"host's work, {t['curvature step device']:.4f} ms of device work (idle share "
+          f"{1 - t['curvature step device'] / t['curvature step']:.3f}); launches per step "
+          + ", ".join(f"{k} {per[k]}" for k in ("G", "M", "GB", "MB", "GI", "GG", "GT"))
+          + f"; Softplus {step_launches['Softplus']}")
+
+    phase(f"slice 14: M and MB at 64 x {DEEP_M_HIDDEN} hidden layers, B={DEEP_M_BATCH}, "
+          "against the plain versions and a chain of shallow launches")
+    relu, none = Activation.RELU, Activation.NONE
+    dims = mlp_dims(32, 64, DEEP_M_HIDDEN)
+    ws = random_mlp(gen, dev, dims)
+    xm = torch.rand((32, DEEP_M_BATCH), generator=gen, device=dev) * 2 - 1
+    gm = torch.randn((DEEP_M_BATCH, 3), generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = f"64 x {DEEP_M_HIDDEN}, {str(dtype)[6:]}"
+        margs = (ws, xm.to(dtype), relu, none, dtype, torch.float32, True, False)
+        with torch.inference_mode():
+            m0 = fused_mlp_fwd.launches
+            y = fused_mlp_fwd(*margs)
+            torch.cuda.synchronize()
+            m_n, mb0 = fused_mlp_fwd.launches - m0, fused_mlp_bwd.launches
+            dws, dxm = fused_mlp_bwd(ws, xm.to(dtype), gm, relu, none, dtype, True, False)
+            torch.cuda.synchronize()
+            mb_n = fused_mlp_bwd.launches - mb0
+            runs = [(i, min(i + 5, len(ws))) for i in range(0, len(ws) - 6, 5)]
+            runs.append((runs[-1][1], len(ws)))
+            shallow = fused_mlp_fwd_chained(*margs, runs, fwd=fused_mlp_fwd)
+            want_y = fused_mlp_plain(*margs)
+            want_dws, want_dx = fused_mlp_bwd_plain(ws, xm.to(dtype), gm, relu, none, dtype,
+                                                    True, False)
+            dws_s, dx_s = fused_mlp_bwd_segmented(ws, xm.to(dtype), gm, relu, none, dtype,
+                                                  True, False, runs)
+        check(m_n == len(m_runs(len(ws))) == 2, f"M {key}: {m_n} launches, expected 2")
+        check(mb_n == len(mb_plan(ws, dtype, relu, none)) and mb_n >= 2,
+              f"MB {key}: {mb_n} launches")
+        check(torch.equal(y, shallow), f"M {key}: not the bits of a chain of shallow launches")
+        if dtype == torch.float32:
+            e_m = compare(y, want_y, "mlp-f32")[0]
+            e_mb = compare_mlp_grads([*dws, dxm], [*want_dws, want_dx], dtype, f"MB {key}")
+            how = "M within the fp32 MLP bound; MB every dW and dx within 1e-4 of its max"
+        else:   # bf16 roundings compound over 41 layers: the shallow runs' bits
+            e_m = (y - want_y).abs().max().item()
+            e_mb = max((a - b).abs().max().item() for a, b in zip([*dws, dxm],
+                                                                  [*want_dws, want_dx]))
+            rel = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                      for a, b in zip([*dws, dxm], [*want_dws, want_dx]))
+            check(torch.equal(dxm, dx_s) and all(torch.equal(a, b) for a, b in zip(dws, dws_s)),
+                  f"MB {key}: not the bits of launches over runs of five layers")
+            how = (f"M and MB bit for bit against launches over runs of five layers; against "
+                   f"plain M max abs err {e_m:.3e}, MB relative L2 error up to {rel:.3e} "
+                   f"(bf16 roundings compound over 41 layers)")
+        print(f"{key}: M {m_n} launches, bit for bit against {len(runs)} shallow launches, "
+              f"max abs err {e_m:.3e}; MB {mb_n} launches, max abs err {e_mb:.3e} ({how})")
+
+    phase(f"slice 14: config_hash fed by PrefetchingSampler (the native loader) from "
+          f"synthetic_image(1024, 1024), {PREFETCH_STEPS} training_steps at B={B}, against "
+          "the same fit on the on-device sampler")
+    image = synthetic_image(1024, 1024)
+    fits = {}
+    for source in ("on-device sampler", "PrefetchingSampler"):
+        hmodel = create_from_config(2, 3, CONFIG, policy=BF16_POLICY)
+        if source == "on-device sampler":
+            sampler = ImageSampler(image, seed=0)
+            batches = (sampler.sample_batch(B) for _ in range(PREFETCH_STEPS))
+            close = None
+        else:
+            pre = PrefetchingSampler(NativeImageSampler(image), B, seed=0, depth=2)
+            batches = (next(pre) for _ in range(PREFETCH_STEPS))
+            close = pre.close
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        step_losses = [hmodel.trainer.training_step(xb, yb) for xb, yb in batches]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = first_order_counts()
+        if close:
+            close()
+        with torch.inference_mode():
+            pred = hmodel.trainer.inference(ImageSampler(image, seed=0).full_grid_coords())
+        fits[source] = {"ms": sec / PREFETCH_STEPS * 1e3,
+                        "psnr": metrics.mse2psnr(metrics.mean_MSE(
+                            pred, torch.from_numpy(image).to(dev).reshape(-1, 3))),
+                        "loss": float(torch.stack(step_losses[-10:]).mean())}
+        check(launches == {"G": PREFETCH_STEPS, "M": PREFETCH_STEPS, "GB": PREFETCH_STEPS,
+                           "MB": PREFETCH_STEPS}, f"{source} fit launches {launches}")
+        print(f"{source}: {fits[source]['ms']:.4f} ms per eager training_step, PSNR "
+              f"{fits[source]['psnr']:.2f} dB (metrics.mean_MSE), loss of the last 10 "
+              f"{fits[source]['loss']:.6f}; launches {launches}")
+    floor = fits["on-device sampler"]["psnr"] - PREFETCH_PSNR_MARGIN
+    check(fits["PrefetchingSampler"]["psnr"] > floor,
+          f"PrefetchingSampler fit PSNR {fits['PrefetchingSampler']['psnr']:.2f} dB below "
+          f"the floor {floor:.2f} (the on-device sampler's fit less {PREFETCH_PSNR_MARGIN})")
+    print(f"make_training_loop's replayed step in this run: {hash_times['loop step']:.4f} ms")
+
+    phase(f"slice 14: one eager eikonal step at B={B} under profiling.trace")
+    sxs, sxv = sdf.sample_points(gen, B, dev)
+    sstate = opt.init(dict(net.named_parameters()), net.param_layout())
+    sdf.step(net, opt, sstate, sxs, sxv)   # warm
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.trace(trace_dir) as prof, profiling.Timer() as timer:
+            sdf.step(net, opt, sstate, sxs, sxv)
+        split = profiling.split(prof)
+        trace_mb = os.path.getsize(prof.trace_file) / 1e6
+    print(f"eikonal step under the profiler: {timer.seconds * 1e3:.3f} ms on the host clock; "
+          f"CUDA kernels {split['device_ms']:.4f} ms of device time "
+          f"({'not measured: no device activity recorded' if not split['device_ms'] else 'CUPTI'}), "
+          f"CPU ops' self time {split['cpu_ms']:.3f} ms; trace {trace_mb:.1f} MB")
+    for name, ms, n in split["top_cpu"]:
+        print(f"  CPU self time: {name} {ms:.4f} ms in {n} calls")
+    mem = profiling.device_memory_stats()
+    print(f"device_memory_stats: peak allocated {mem.get('allocated_bytes.all.peak', 0) / 1e6:.1f}"
+          " MB")
+
+    out = entries(t, [("GT sdf", "GT", REPLACES_GT)], {"GT": fit_launches["GT"]}, err,
+                  {"launches_per_step": per["GT"], "batch": B})
+    for key, extra in (("GT sdf 2^14", {"batch": n14}),
+                       ("GT sdf shard", {"batch": n14, "shard": [0, 2]}),
+                       ("GT sdf masked", {"batch": B, "level_frac": 0.5})):
+        out += entries(t, [(key, "GT", REPLACES_GT)], {"GT": fit_launches["GT"]}, err, extra)
+    out += entries(t, [("G stochastic gather", "G", REPLACES_G)], {"G": st_launches["G"]},
+                   err, {"path": "d/dx of a loss on the stochastic grid's table gradient: G "
+                                 "once forward, once gathering"})
+    return out
+
+
 def mb_determinism(gen, dev):
     """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
     1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
@@ -3599,7 +4082,7 @@ def main():
               + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)
               + rng_stochastic_slice(gen, dev, hash_times) + masked_sdf_slice(gen, dev)
               + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)
-              + parallel_slice(gen, dev)}
+              + parallel_slice(gen, dev) + slice14(gen, dev, hash_times)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

@@ -14,8 +14,8 @@ asks for the CPU.  This package imports neither jax nor ``tcnn_tpu``.
     bundle = tcnn.serving.export_inference(model.trainer)
 """
 
-from .common import (BF16_POLICY, DEFAULT_POLICY, Activation, GridType,
-                     HashType, InterpolationType, Policy, ReductionType)
+from .common import (BATCH_SIZE_GRANULARITY, BF16_POLICY, DEFAULT_POLICY, Activation,
+                     GridType, HashType, InterpolationType, Policy, ReductionType)
 from .config import (TrainableModel, create_encoding, create_from_config,
                      create_network, create_network_with_input_encoding,
                      load_config)
@@ -40,7 +40,7 @@ from .trainer import Trainer
 from .utils.jax_params import load_jax_flat_params, load_jax_opt_state, load_jax_params
 
 __all__ = [
-    "Activation", "Adam", "Average", "BF16_POLICY", "Batched", "Composite",
+    "Activation", "Adam", "Average", "BATCH_SIZE_GRANULARITY", "BF16_POLICY", "Batched", "Composite",
     "CompositeEncoding", "ConstantGradientLoss", "CrossEntropyLoss", "DEFAULT_POLICY",
     "EMA", "EmptyEncoding", "Encoding", "ExponentialDecay", "FrequencyEncoding",
     "FusedMLP", "GridEncoding", "GridType", "HashType", "IdentityEncoding",

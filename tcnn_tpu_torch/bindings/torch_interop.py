@@ -58,14 +58,14 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from ..common import DEFAULT_POLICY, resolve_device
+from ..common import BATCH_SIZE_GRANULARITY, DEFAULT_POLICY, resolve_device
 from ..config import create_encoding, create_network, create_network_with_input_encoding
 from ..module import Module
 from ..optimizers.base import jax_order
 
-# The original pads every batch up to batch_size_granularity (256) and
-# slices the result (modules.py:181-192), as the JAX bindings do.
-BATCH_GRANULARITY = 256
+# The original pads every batch up to batch_size_granularity and slices the
+# result (modules.py:181-192), as the JAX bindings do (their name for it).
+BATCH_GRANULARITY = BATCH_SIZE_GRANULARITY
 
 
 class _Leaf(NamedTuple):

@@ -12,6 +12,11 @@ import enum
 
 import torch
 
+# Batch-size granularity of the reference (common.h:235; the JAX package's
+# tcnn_tpu/common.py:25).  Not required: the kernels take ragged batches;
+# the torch bindings pad every batch to a multiple of it, as the original's.
+BATCH_SIZE_GRANULARITY = 256
+
 # Hash primes of the reference's grid hashes (common_device.h:646-664).
 PRIME_HASH_FACTORS = (
     1958374283, 2654435761, 805459861, 3674653429,

@@ -27,7 +27,8 @@ void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b,
                      const torch::Tensor& level_params, const torch::Tensor& out,
                      int64_t n_dims, int64_t n_features, int64_t out_stride_b,
                      int64_t out_stride_f, const std::vector<int64_t>& hash_factors,
-                     int64_t hash_kind, int64_t interp, bool sharded) {
+                     int64_t hash_kind, int64_t interp, bool sharded,
+                     const c10::optional<torch::Tensor>& u) {
   TORCH_CHECK(hash_factors.size() == 7, "grid_encode_fwd: seven hash factors");
   const c10::cuda::CUDAGuard guard(x.device());
   uint32_t factors[7];
@@ -38,7 +39,8 @@ void grid_encode_fwd(const torch::Tensor& x, int64_t x_stride_b,
       x.size(0),
       static_cast<int>(n_dims), static_cast<int>(level_params.size(0)),
       static_cast<int>(n_features), out_stride_b, out_stride_f, factors, static_cast<int>(hash_kind),
-      static_cast<int>(interp), sharded, c10::cuda::getCurrentCUDAStream()));
+      static_cast<int>(interp), sharded, optional_ptr<float>(u),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -168,6 +170,37 @@ void grid_encode_bwd_bwd(const torch::Tensor& x, int64_t x_stride_b,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void grid_encode_third(const torch::Tensor& x, int64_t x_stride_b,
+                       const c10::optional<torch::Tensor>& level_frac, const torch::Tensor& table,
+                       const torch::Tensor& dcols, const torch::Tensor& ddx,
+                       const torch::Tensor& ct_dx, const torch::Tensor& level_params,
+                       const c10::optional<torch::Tensor>& d_dcols,
+                       const c10::optional<torch::Tensor>& dx_part,
+                       const c10::optional<torch::Tensor>& d_x,
+                       const c10::optional<torch::Tensor>& grad,
+                       const c10::optional<torch::Tensor>& out, int64_t n_dims,
+                       int64_t n_features, int64_t dc_stride_b, int64_t dc_stride_f,
+                       const std::vector<int64_t>& hash_factors, int64_t hash_kind,
+                       int64_t interp, bool sharded) {
+  TORCH_CHECK(hash_factors.size() == 7, "grid_encode_third: seven hash factors");
+  const c10::cuda::CUDAGuard guard(x.device());
+  uint32_t factors[7];
+  for (int d = 0; d < 7; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  const bool has_out = out.has_value() && out->defined();
+  C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_third_launch(
+      x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), table.data_ptr(),
+      table.scalar_type() == at::kBFloat16, dcols.data_ptr(),
+      dcols.scalar_type() == at::kBFloat16, ddx.data_ptr<float>(), ct_dx.data_ptr<float>(),
+      level_params.data_ptr<int32_t>(), static_cast<int>(level_params.size(0)),
+      optional_ptr<float>(d_dcols), optional_ptr<float>(dx_part), optional_ptr<float>(d_x),
+      optional_ptr<float>(grad), has_out ? out->data_ptr() : nullptr,
+      has_out && out->scalar_type() == at::kBFloat16, has_out ? out->numel() : 0, x.size(0),
+      static_cast<int>(n_dims), static_cast<int>(n_features), dc_stride_b, dc_stride_f,
+      factors, static_cast<int>(hash_kind), static_cast<int>(interp), sharded,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void row_scatter(const torch::Tensor& idx, const torch::Tensor& g, int64_t g_stride_i,
                  int64_t g_stride_k, int64_t n_features, const torch::Tensor& acc,
                  const torch::Tensor& out, int64_t n_rows) {
@@ -198,6 +231,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("grid_encode_bwd_input", &grid_encode_bwd_input,
         "grid-encode input gradient (kernel GI)");
   m.def("grid_encode_bwd_bwd", &grid_encode_bwd_bwd, "grid-encode second order (kernel GG)");
+  m.def("grid_encode_third", &grid_encode_third, "grid-encode third order (kernel GT)");
   m.def("row_scatter", &row_scatter, "row scatter-add (kernel RS)");
   m.def("fused_mlp_bwd_smem_bytes", &fused_mlp_bwd_smem_bytes,
         "shared memory of one kernel-MB CTA");

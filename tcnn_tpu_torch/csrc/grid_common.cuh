@@ -1,9 +1,9 @@
 // Index and weight arithmetic shared by the grid kernels G
 // (grid_encode.cu, forward), GB (grid_encode_bwd.cu, backward), GI
-// (grid_encode_bwd_input.cu, the input gradient) and GG
-// (grid_encode_bwd_bwd.cu, second order), so that every backward reads and
-// scatters exactly the rows, with exactly the weights, that the forward
-// gathered from.
+// (grid_encode_bwd_input.cu, the input gradient), GG
+// (grid_encode_bwd_bwd.cu, second order) and GT (grid_encode_third.cu,
+// third order), so that every backward reads and scatters exactly the
+// rows, with exactly the weights, that the forward gathered from.
 //
 // Hazards handled here:
 //  * fused multiply-add: pos = x*scale + 0.5 must round twice, like the
@@ -571,6 +571,20 @@ cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ d
                     int64_t n) {
   const int64_t i = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
   if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+// d_x[i] = the live levels' partials at i summed in level order (i over
+// the B * D values): the fixed order that keeps d_x deterministic (kernels
+// GG and GT).
+__global__ void __launch_bounds__(kGridThreads)
+sum_levels_kernel(const float* __restrict__ part, const int32_t* __restrict__ level_params,
+                  int n_levels, int64_t n, float* __restrict__ out) {
+  const int64_t i = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.0f;
+  for (int l = 0; l < n_levels; ++l)
+    if (level_params[l * kLevelFields + 4]) s += part[int64_t(l) * n + i];
+  out[i] = s;
 }
 
 // Template dispatch over the runtime (D, F) of a launch: calls

@@ -58,6 +58,11 @@
 // that instance serves unsharded; the 1- to 4-D instances carry no code of
 // it (a test in their corner loops read 53 % slower at config_btf, PERF.md).
 //
+// The stochastic gather (u, the uniforms of stochastic interpolation) runs
+// the run-time-D instance too: each (sample, level) reads the one corner
+// that kernel GB scatters its gradient to, so its output is the derivative
+// of a loss on GB's table gradient in GB's cotangent.
+//
 // Coarse-to-fine (kMask, a separate instance: without a mask the code is
 // the unmasked design's, bit for bit and in time; one instance testing
 // the mask at run time read 5 % slower at the SDF shape, PERF.md): with
@@ -328,14 +333,18 @@ struct FwdLaunch {
 // sample on level blockIdx.y, its 2^D corners in a loop, each row in full
 // and loaded as it is used; F, the table's dtype and D at run time, one
 // instance.  The sum over the corners in order 0 .. 2^D-1 in fp32, as the
-// D <= 4 instances; in shard mode over the corners the shard holds.
+// D <= 4 instances; in shard mode over the corners the shard holds.  With
+// the uniforms u (n_levels, batch) of stochastic interpolation, the
+// stochastic gather: each (sample, level) reads its one corner
+// (WideCorners::stochastic_corner, GB's pick) at weight 1.
 __global__ void __launch_bounds__(kGridThreads)
 grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ level_frac,
                             const void* __restrict__ table, bool bf16,
                             const int32_t* __restrict__ level_params, int n_levels,
                             void* __restrict__ out, int64_t batch, int n_dims, int n_features,
                             int64_t x_stride_b, int64_t out_stride_b, int64_t out_stride_f,
-                            HashConsts hc, int interp, bool sharded) {
+                            HashConsts hc, int interp, bool sharded,
+                            const float* __restrict__ u) {
   const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
   const int level = blockIdx.y;
   if (b >= batch) return;
@@ -345,10 +354,12 @@ grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict
       (!level_frac || float(level) < level_threshold(level_frac[b], n_levels));
   if (live) {
     const WideCorners lc(lp, x + b * x_stride_b, n_dims, interp);
+    const int pick = u ? lc.stochastic_corner(u[int64_t(level) * batch + b]) : -1;
     for (int c = 0; c < (1 << n_dims); ++c) {
+      if (u && c != pick) continue;
       const uint32_t r = lc.row(c, hc);
       if (sharded && !shard_owns(lp, r)) continue;
-      const float w = lc.weight(c);
+      const float w = u ? 1.0f : lc.weight(c);
 #pragma unroll
       for (int f = 0; f < 8; ++f)
         if (f < n_features)
@@ -372,18 +383,18 @@ cudaError_t grid_encode_fwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
-    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded,
+    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded, const float* u,
     cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || n_levels > 65535 || interp < 0 || interp > 2 ||
       x_stride_b < n_dims || n_dims < 1 || n_dims > kMaxDims || n_features < 1 ||
-      n_features > 8)
+      n_features > 8 || (u && sharded))
     return cudaErrorInvalidValue;
   const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
-  if (sharded || wide_instance(n_dims, hash_kind)) {
+  if (sharded || u || wide_instance(n_dims, hash_kind)) {
     const dim3 grid(unsigned((batch + kGridThreads - 1) / kGridThreads), unsigned(n_levels));
     grid_encode_fwd_wide_kernel<<<grid, kGridThreads, 0, stream>>>(
         x, level_frac, table, table_bf16, level_params, n_levels, out, batch, n_dims,
-        n_features, x_stride_b, out_stride_b, out_stride_f, hc, interp, sharded);
+        n_features, x_stride_b, out_stride_b, out_stride_f, hc, interp, sharded, u);
     return cudaGetLastError();
   }
   if (table_bf16)

@@ -340,19 +340,6 @@ grid_encode_bwd_bwd_wide_kernel(GgParams a, int n_dims, int n_features) {
   }
 }
 
-// d_x[i] = the live levels' partials at i summed in level order (i over
-// the B * D values): the fixed order that keeps d_x deterministic.
-__global__ void __launch_bounds__(kGridThreads)
-sum_levels_kernel(const float* __restrict__ part, const int32_t* __restrict__ level_params,
-                  int n_levels, int64_t n, float* __restrict__ out) {
-  const int64_t i = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.0f;
-  for (int l = 0; l < n_levels; ++l)
-    if (level_params[l * kLevelFields + 4]) s += part[int64_t(l) * n + i];
-  out[i] = s;
-}
-
 template <typename Kernel, typename... Args>
 cudaError_t launch_group(Kernel kernel, int n_items, int smem, cudaStream_t stream,
                          Args... args) {

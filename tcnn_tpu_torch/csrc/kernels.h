@@ -32,11 +32,15 @@ namespace tcnn_tpu_torch {
 //   sharded      the table is one rank's block-cyclic shard (level_params
 //                holds its rows): corners outside it contribute nothing, and
 //                out holds float32 partial features
+//   u            (n_levels, batch) float32 uniforms of stochastic
+//                interpolation, or null: with them, sample b reads on level l
+//                its one corner (cell + 1 on dim d iff u[l, b] < w1_d) at
+//                weight 1, the corner kernel GB scatters to (not with sharded)
 cudaError_t grid_encode_fwd_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const int32_t* level_params, void* out, int64_t batch, int n_dims,
     int n_levels, int n_features, int64_t out_stride_b, int64_t out_stride_f,
-    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded,
+    const uint32_t hash_factors[7], int hash_kind, int interp, bool sharded, const float* u,
     cudaStream_t stream);
 
 // Kernel M: fused-MLP forward (csrc/fused_mlp.cu).
@@ -134,6 +138,28 @@ cudaError_t grid_encode_bwd_bwd_launch(
     bool out_bf16, int64_t n_params, int64_t batch, int n_dims, int n_features,
     int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind,
     int interp, bool sharded, cudaStream_t stream);
+
+// Kernel GT: grid-encode third order (csrc/grid_encode_third.cu), the
+// blocks of GG's backward that no other kernel computes, given ct_dx, the
+// cotangent of GG's d_x.
+//   x, level_frac, table, dcols and the rest: as for grid_encode_bwd_bwd_launch;
+//                a masked (sample, level) or a dead level adds nothing and
+//                writes 0 to d_dcols and its d_x partial
+//   ddx, ct_dx   (batch, n_dims) float32, contiguous: v and beta, u_c = beta^T
+//                (d2 w_c / dx2) v per corner
+//   d_dcols      (n_levels * n_features, batch) float32 SoA, or null:
+//                sum_c u_c table[row_c] (every level's rows written)
+//   dx_part, d_x as for grid_encode_bwd_bwd_launch: sum over levels and
+//                corners of (d3 w_c / dx3)[beta, v, .] <table[row_c], dcols>
+//   grad, out    table gradient u_c * dcols added onto row_c, as for
+//                grid_encode_bwd_bwd_launch, or both null
+cudaError_t grid_encode_third_launch(
+    const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
+    bool table_bf16, const void* dcols, bool dcols_bf16, const float* ddx, const float* ct_dx,
+    const int32_t* level_params, int n_levels, float* d_dcols, float* dx_part, float* d_x,
+    float* grad, void* out, bool out_bf16, int64_t n_params, int64_t batch, int n_dims,
+    int n_features, int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7],
+    int hash_kind, int interp, bool sharded, cudaStream_t stream);
 
 // Kernel RS: row scatter-add (csrc/row_scatter.cu).
 //   idx          (m) int32 rows; rows outside [0, n_rows) are skipped

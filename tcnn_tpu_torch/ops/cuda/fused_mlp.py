@@ -22,7 +22,7 @@ from ..activations import activation_derivative, apply_activation
 from . import kernels, require_cuda_tensors
 
 SUPPORTED_WIDTHS = (16, 32, 64, 128)
-MAX_LAYERS = 32   # csrc/mlp_common.cuh: kMaxLayers
+MAX_LAYERS = 32   # layers of one launch of M or MB (csrc/mlp_common.cuh: kMaxLayers)
 MAX_SMEM = 232448   # shared memory one CTA may use on sm_90
 
 
@@ -55,8 +55,8 @@ def _check_args(name: str, weights: Sequence[torch.Tensor], x: torch.Tensor,
     """What the kernels M and MB take; returns (D_in, D_out)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: compute dtype {compute_dtype} is not supported")
-    if not 2 <= len(weights) <= MAX_LAYERS:
-        raise ValueError(f"{name}: needs 2 to {MAX_LAYERS} layers, got {len(weights)}")
+    if len(weights) < 2:
+        raise ValueError(f"{name}: needs 2 layers or more, got {len(weights)}")
     w_in, *w_mid, w_out = weights
     d_in, width = w_in.shape
     if width not in SUPPORTED_WIDTHS:
@@ -75,7 +75,11 @@ def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
                   output_dtype: torch.dtype = torch.float32,
                   input_soa: bool = False,
                   output_soa: bool = False) -> torch.Tensor:
-    """The whole MLP in one kernel launch.
+    """The whole MLP in one kernel launch, or, beyond ``MAX_LAYERS``
+    layers (the layer pointers one launch takes), in a chain of launches
+    over runs of layers (``m_runs``): each inner run ends on the hidden
+    activation, written in the compute dtype, which is what one launch
+    holds between those layers, so a chain has one launch's bits.
 
     weights: [(D_in, W), (W, W) × (n_hidden − 1), (W, D_out)], W in
     {16, 32, 64, 128}, n_hidden ≥ 1.  x: (B, D_in), or (D_in, B) with
@@ -90,12 +94,51 @@ def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
     name = "fused_mlp_fwd"
     if output_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: output dtype {output_dtype} is not supported")
-    d_in, d_out = _check_args(name, weights, x, compute_dtype, input_soa)
+    _check_args(name, weights, x, compute_dtype, input_soa)
 
     x = x.to(compute_dtype).contiguous()
     ws = [w.to(compute_dtype).contiguous() for w in weights]
     require_cuda_tensors(name, x, *ws)
+    runs = m_runs(len(ws))
+    if len(runs) == 1:
+        return _fused_mlp_fwd_launch(ws, x, activation, output_activation, compute_dtype,
+                                     output_dtype, input_soa, output_soa)
+    return fused_mlp_fwd_chained(ws, x, activation, output_activation, compute_dtype,
+                                 output_dtype, input_soa, output_soa, runs)
 
+
+def m_runs(n_layers: int) -> List[Tuple[int, int]]:
+    """Kernel M's launches for ``n_layers`` layers: one, or the fewest runs
+    of at most ``MAX_LAYERS`` (``mb_segments``)."""
+    return mb_segments(n_layers, lambda a, b: b - a <= MAX_LAYERS)
+
+
+def fused_mlp_fwd_chained(weights: Sequence[torch.Tensor], x: torch.Tensor,
+                          activation: Activation, output_activation: Activation,
+                          compute_dtype: torch.dtype, output_dtype: torch.dtype,
+                          input_soa: bool, output_soa: bool,
+                          runs: Sequence[Tuple[int, int]], fwd=None) -> torch.Tensor:
+    """The MLP forward as one launch of M per run of layers (``m_runs``):
+    each run but the last has ``activation`` as its output activation and
+    the compute dtype as its output dtype, AoS, the next run's input.
+    ``fwd``: M's wrapper for one run (the CPU tests pass the plain
+    version)."""
+    fwd = fwd or _fused_mlp_fwd_launch
+    h, soa = x, input_soa
+    for a, b in runs:
+        last = b == len(weights)
+        h = fwd(list(weights[a:b]), h, activation, output_activation if last else activation,
+                compute_dtype, output_dtype if last else compute_dtype, soa,
+                output_soa and last)
+        soa = False
+    return h
+
+
+def _fused_mlp_fwd_launch(ws, x, activation, output_activation, compute_dtype, output_dtype,
+                          input_soa, output_soa):
+    """One launch of kernel M on x and weights already in the compute dtype,
+    contiguous (``fused_mlp_fwd`` converts them)."""
+    d_in, d_out = ws[0].shape[0], ws[-1].shape[1]
     B = x.shape[1] if input_soa else x.shape[0]
     y = torch.empty((d_out, B) if output_soa else (B, d_out),
                     dtype=output_dtype, device=x.device)
@@ -280,7 +323,7 @@ def mb_plan(weights: Sequence[torch.Tensor], compute_dtype: torch.dtype,
     act, out_act = acts.index(activation), acts.index(output_activation)
 
     def fits(a, b):
-        return kernels().fused_mlp_bwd_smem_bytes(
+        return b - a <= MAX_LAYERS and kernels().fused_mlp_bwd_smem_bytes(
             d_in if a == 0 else width, d_out if b == L else width, width, b - a, bf16, act,
             out_act if b == L else act) <= MAX_SMEM
 
@@ -295,7 +338,8 @@ def fused_mlp_bwd_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
                             ct_dws: Sequence[Optional[torch.Tensor]],
                             activation: Activation, output_activation: Activation,
                             compute_dtype: torch.dtype, output_dtype: torch.dtype,
-                            input_soa: bool = False, output_soa: bool = False):
+                            input_soa: bool = False, output_soa: bool = False,
+                            create_graph: bool = False):
     """The backward of the MLP backward: given the cotangents of its
     outputs (dx and each dW; None for none), the gradients of
     ⟨(dx, dW), (ct_dx, ct_dW)⟩ in x, g and the weights.  Autograd of the
@@ -305,11 +349,35 @@ def fused_mlp_bwd_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     ``torch.matmul`` outside any kernel.  ReLU's derivative is taken as a
     constant mask (``graph_in_x=False``), so the zero second derivative
     builds no products of zeros.  Returns (d_x, d_g, [d_W]), None where a
-    gradient is zero by construction."""
+    gradient is zero by construction.
+
+    ``create_graph``: the result keeps its graph in x, g, the weights and
+    the cotangents (the tensors that require a gradient are used as they
+    are, not detached), so that a third derivative differentiates it, as
+    JAX's autodiff of the XLA chain goes to any order
+    (``tcnn_tpu/models/networks/fused_mlp.py:97-121``).  Inside a
+    ``torch.func`` transform (``jacfwd`` of a second derivative) the same
+    products come from ``torch.func.vjp``, which composes with the
+    transform where ``torch.autograd.grad`` may not."""
+    if torch._C._are_functorch_transforms_active():
+        def first(xx, gg, *ws):
+            _, pull = torch.func.vjp(
+                lambda x_, *w_: fused_mlp_plain(w_, x_, activation, output_activation,
+                                                compute_dtype, output_dtype, input_soa,
+                                                output_soa, graph_in_x=False), xx, *ws)
+            return pull(gg.to(output_dtype))
+
+        outs, pull2 = torch.func.vjp(first, x, g, *weights)
+        d_x, d_g, *d_ws = pull2(tuple(torch.zeros_like(o) if c is None else c.to(o.dtype)
+                                      for o, c in zip(outs, (ct_dx, *ct_dws))))
+        return d_x, d_g, d_ws
+
+    def leaf(t):   # differentiable in t: t itself where it carries a graph
+        return t if create_graph and t.requires_grad else t.detach().requires_grad_()
+
     with torch.enable_grad():
-        xx = x.detach().requires_grad_()
-        gg = g.detach().requires_grad_()
-        ws = [w.detach().requires_grad_() for w in weights]
+        xx, gg = leaf(x), leaf(g)
+        ws = [leaf(w) for w in weights]
         y = fused_mlp_plain(ws, xx, activation, output_activation, compute_dtype,
                             output_dtype, input_soa, output_soa, graph_in_x=False)
         first = torch.autograd.grad(y, [xx, *ws], grad_outputs=gg.to(y.dtype),
@@ -320,7 +388,7 @@ def fused_mlp_bwd_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
             return None, None, [None] * len(ws)
         d_x, d_g, *d_ws = torch.autograd.grad(
             [f for f, _ in pairs], [xx, gg, *ws], grad_outputs=[c for _, c in pairs],
-            allow_unused=True)
+            allow_unused=True, create_graph=create_graph)
     return d_x, d_g, d_ws
 
 
@@ -428,8 +496,10 @@ class FusedMLPBackwardFunction(torch.autograd.Function):
     forward's own tensor, not a second copy).  Where x's gradient is zero
     by construction (a ReLU MLP's dx does not depend on x) it is returned
     as zeros, as JAX's VJP gives them, except into a grid encoding's
-    backward, which would launch kernels GB and GI to add nothing.  A
-    third derivative raises ``NotImplementedError`` (ROADMAP.md Queue 1).
+    backward, which would launch kernels GB and GI to add nothing.  Under
+    ``create_graph`` the backward keeps its graph
+    (``fused_mlp_bwd_bwd_plain(create_graph=True)``, torch operations), so
+    a third derivative differentiates it.
 
     ``torch.func``: ``jvp`` along (t_x, t_g, t_W) is MB on t_g (the
     backward is linear in g: a kernel) plus the gradient in (x, W) of
@@ -459,13 +529,11 @@ class FusedMLPBackwardFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_dx, *ct_dws):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "third derivatives of the fused MLP are not ported (ROADMAP.md Queue 1)")
         x, g, *weights = ctx.saved_tensors
         act, out_act, cdt, odt, soa_in, soa_out = ctx.args
         d_x, d_g, d_ws = fused_mlp_bwd_bwd_plain(weights, x, g, ct_dx, ct_dws, act,
-                                                 out_act, cdt, odt, soa_in, soa_out)
+                                                 out_act, cdt, odt, soa_in, soa_out,
+                                                 create_graph=torch.is_grad_enabled())
         if d_x is None and ctx.needs_input_grad[0] and not ctx.x_from_grid:
             d_x = torch.zeros_like(x)
         return (d_x, d_g.to(g.dtype) if d_g is not None else None,

@@ -1,7 +1,8 @@
 """Wrappers of kernels G and GB: grid-encode forward
 (``csrc/grid_encode.cu``) and backward (``csrc/grid_encode_bwd.cu``), and
-of kernels GI, the input gradient (``csrc/grid_encode_bwd_input.cu``), and
-GG, second order (``csrc/grid_encode_bwd_bwd.cu``).
+of kernels GI, the input gradient (``csrc/grid_encode_bwd_input.cu``), GG,
+second order (``csrc/grid_encode_bwd_bwd.cu``), and GT, third order
+(``csrc/grid_encode_third.cu``).
 
 G replaces ``tcnn_tpu/ops/pallas/grid_matmul.py::_gather_kernel`` and
 ``::_gather_kernel_xor`` (and the index build in front of them); GB
@@ -11,35 +12,37 @@ gradient of the levels the JAX package routes to its matmul kernels, and
 the same gradient of the levels it routes to its serial kernels.  Every
 level of every grid goes to G and GB: the JAX package's per-level routing
 (``grid_ops.py::_route_levels``, ``_serial_level_groups``) weighed TPU
-costs and is not carried over.  GI and GG have no TPU kernel: the JAX
-package forms both in jnp (``_finish_interp_bwd`` and autodiff of
-``_build_indices_weights``); GG adds its table gradient itself, on GB's
-work plan (``gb_plan``).  A CUDA tensor launches the kernel; a CPU
-tensor takes ``grid_encode_plain``, ``grid_encode_bwd_plain``,
-``grid_encode_bwd_input_plain`` or ``grid_encode_bwd_bwd_plain``, the same
+costs and is not carried over.  GI, GG and GT have no TPU kernel: the JAX
+package forms them in jnp (``_finish_interp_bwd`` and autodiff of
+``_build_indices_weights``, and of the backward of ``_grid_interpolate``);
+GG adds its table gradient itself, on GB's work plan (``gb_plan``).  A
+CUDA tensor launches the kernel; a CPU tensor takes ``grid_encode_plain``,
+``grid_encode_bwd_plain``, ``grid_encode_bwd_input_plain``,
+``grid_encode_bwd_bwd_plain`` or ``grid_encode_third_plain``, the same
 functions in plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold
-the kernels against.  All four take optional per-sample level fractions
+the kernels against.  All five take optional per-sample level fractions
 (``level_frac``, the coarse-to-fine mask of ``grid_ops.level_mask``), every
 hash type and 1 to 7 dims.  Rng grids (the pcg32 hash, each corner's in
 full) and 5 to 7 dims run one instance of each kernel with D at run time
 (csrc/grid_common.cuh: WideCorners).  Under stochastic interpolation GB scatters with
 JAX's ``ws_bwd`` (``grid_ops.build_indices_weights(scatter=True)``), from
 the uniforms of ``grid_ops.stochastic_uniforms``, in that instance too; G,
-GI and GG use the ordinary weights, as JAX's forward and input gradient
-do.
+GI, GG and GT use the ordinary weights, as JAX's forward and input
+gradient do, but for G's stochastic gather (``stochastic=True``), the
+transpose of GB's scatter there.
 
 Shard mode (``shard`` = (sid, n), ``grid_ops.sharded_tables``): the table
 is rank sid's block-cyclic shard of n, rows [sid·size/n, (sid+1)·size/n)
 of every level; each kernel computes every corner's row as before and
 takes only the corners whose rows the shard holds (``grid_ops.level_params``
 carries the shard's rows).  G adds no feature for another rank's corner,
-GB issues no atomic, GI adds no term to dx, GG adds nothing to any of its
-outputs, whose table gradient has the shard's rows.  Unsharded (None)
-every kernel runs as it did.  GB tests ``sharded`` at run time in its instances
-(only its direct atomics need the test: the plan's windows lie in the
-shard's block); G runs its run-time-D instance with the test, and GI and GG
-a shard copy of theirs, so that the 1- to 4-D instances of G, GI and GG
-keep their code and bits.
+GB issues no atomic, GI adds no term to dx, GG and GT add nothing to any
+of their outputs, whose table gradients have the shard's rows.  Unsharded
+(None) every kernel runs as it did.  GB tests ``sharded`` at run time in
+its instances (only its direct atomics need the test: the plan's windows
+lie in the shard's block); G and GT run their run-time-D instance with the
+test, and GI and GG a shard copy of theirs, so that the 1- to 4-D
+instances of G, GI and GG keep their code and bits.
 """
 
 from __future__ import annotations
@@ -61,19 +64,23 @@ def grid_encode_plain(spec: grid_ops.GridSpec, flat: torch.Tensor,
                       x: torch.Tensor, live: Sequence[int],
                       soa: bool = False,
                       level_frac: Optional[torch.Tensor] = None,
-                      shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                      shard: Optional[Tuple[int, int]] = None,
+                      stochastic: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (grid_ops.py:1198-1297 of the
     JAX package): corner indices and weights (times the per-sample level
     mask of ``level_frac``, as JAX multiplies them), weighted gather, zero
     rows for dead levels, cast to the table's dtype; with ``shard``, the
-    shard's fp32 partial features (cast after the sum over shards)."""
+    shard's fp32 partial features (cast after the sum over shards).
+    ``stochastic``: gather with the scatter weights of stochastic
+    interpolation (``build_indices_weights(scatter=True)``), each (level,
+    sample)'s one-hot corner: the transpose of GB's stochastic scatter."""
     F = spec.n_features_per_level
     B = x.shape[0]
     cols = torch.zeros((spec.n_levels * F, B), dtype=torch.float32,
                        device=x.device)
     if live:
         idx, ws = grid_ops.build_indices_weights(spec, x, live, level_frac=level_frac,
-                                                 shard=shard)
+                                                 shard=shard, scatter=stochastic)
         live_cols = grid_ops.interpolate_ref(flat, idx, ws, F)
         rows = torch.tensor([l * F + f for l in live for f in range(F)],
                             device=x.device)
@@ -165,7 +172,8 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
                     x: torch.Tensor, live: Sequence[int],
                     soa: bool = False,
                     level_frac: Optional[torch.Tensor] = None,
-                    shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                    shard: Optional[Tuple[int, int]] = None,
+                    stochastic: bool = False) -> torch.Tensor:
     """(B, L·F) features, or (L·F, B) with ``soa``, in ``flat``'s dtype
     (with ``shard``, float32 partial features: their sum over the shards is
     rounded once, after the reduce-scatter).
@@ -174,10 +182,18 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     (B, D) float32 with unit stride across D, any row stride;
     ``level_frac`` None or the (B,) float32 per-sample level fractions
     (``grid_ops.level_mask``): a masked (sample, level) is written as 0;
-    ``shard`` (sid, n) or None: see the module docstring.
+    ``shard`` (sid, n) or None: see the module docstring.  ``stochastic``
+    (a spec with stochastic interpolation): each (level, sample) reads its
+    one-hot corner alone, picked by the uniforms of
+    ``grid_ops.stochastic_uniforms`` as GB picks it (the derivative of a
+    loss on GB's table gradient in its cotangent); the run-time-D instance
+    takes the uniforms.
     """
+    if stochastic and not spec.stochastic_interpolation:
+        raise ValueError("grid_encode_fwd: stochastic gather of a grid without "
+                         "stochastic interpolation")
     if x.device.type == "cpu":
-        return grid_encode_plain(spec, flat, x, live, soa, level_frac, shard)
+        return grid_encode_plain(spec, flat, x, live, soa, level_frac, shard, stochastic)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode_fwd: unsupported device {x.device}")
     name = "grid_encode_fwd"
@@ -193,9 +209,11 @@ def grid_encode_fwd(spec: grid_ops.GridSpec, flat: torch.Tensor,
     if B == 0:
         return out
     stride_b, stride_f = (1, B) if soa else (L * F, 1)
+    u = grid_ops.stochastic_uniforms(L, B, x.device) if stochastic else None
     kernels().grid_encode_fwd(x, _x_row_stride(x), level_frac, flat, level_consts, out,
                               spec.n_dims, F, stride_b, stride_f, factors,
-                              hash_kind, _INTERP_CODE[spec.interpolation], shard is not None)
+                              hash_kind, _INTERP_CODE[spec.interpolation], shard is not None,
+                              u)
     grid_encode_fwd.launches += 1
     return out
 
@@ -639,3 +657,110 @@ def grid_encode_bwd_bwd(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Te
 
 
 grid_encode_bwd_bwd.launches = 0
+
+
+class Third(NamedTuple):
+    """The outputs of kernel GT (or its plain version); None where not asked for."""
+    d_dcols: Optional[torch.Tensor]   # (L·F, B) float32 SoA, zero rows for dead levels
+    d_x: Optional[torch.Tensor]       # (B, D) float32
+    d_flat: Optional[torch.Tensor]    # (n_entries·F,) table gradient, the table's dtype
+
+
+def grid_encode_third_plain(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tensor,
+                            dcols: torch.Tensor, ddx: torch.Tensor, ct_dx: torch.Tensor,
+                            live: Sequence[int], need_dcols: bool = True,
+                            need_x: bool = True, need_table: bool = True,
+                            level_frac: Optional[torch.Tensor] = None,
+                            shard: Optional[Tuple[int, int]] = None) -> Third:
+    """Plain PyTorch version of kernel GT: the blocks of GG's backward that
+    no other kernel computes, the terms through GG's d_x = Σ_c ∇²w_c v
+    ⟨T_c, δ⟩ (T the table, δ = ``dcols``, v = ``ddx``) given its cotangent
+    β = ``ct_dx`` (B, D).  With u_c = βᵀ ∇²w_c v per (level, corner, sample):
+      d_dcols[l·F+k, b] = Σ_c u_c · table[row_c, k];
+      d_x[b, e] = Σ_{l,c} ∇³w_c[β, v, e] · Σ_k table[row_c, k] · dcols[l·F+k, b];
+      d_flat[row_c·F + k] += u_c · dcols[l·F+k, b], summed in fp32
+      (``index_add_``) and cast once to ``flat``'s dtype.
+    ∇²w_c is symmetric, so GG's d_x at ddx = β is the v block, and GT has
+    none.  The weights' derivatives come from ``build_indices_weights``
+    (order 3: the third derivative of Smoothstep's f²(3 − 2f) is −12·scale³
+    per dim, Linear's 0).  A (sample, level) that ``level_frac`` masks, and
+    with ``shard`` another rank's corner, has zero weight derivatives and
+    contributes nothing."""
+    B, D = x.shape
+    F, C, L = spec.n_features_per_level, 1 << spec.n_dims, len(live)
+    dev = x.device
+    n_rows = spec.n_entries // (shard[1] if shard else 1)
+    d_dcols = (torch.zeros((spec.n_levels * F, B), dtype=torch.float32, device=dev)
+               if need_dcols else None)
+    d_x = torch.zeros((B, D), dtype=torch.float32, device=dev) if need_x else None
+    acc = torch.zeros((n_rows, F), dtype=torch.float32, device=dev) if need_table else None
+    if live and B:
+        idx, _, _, d2ws, *d3ws = grid_ops.build_indices_weights(
+            spec, x, live, order=3 if need_x else 2, level_frac=level_frac, shard=shard)
+        v, beta = ddx.float(), ct_dx.float()
+        u = torch.einsum("nbde,bd,be->nb", d2ws, beta, v).reshape(L, C, B)
+        dy = _live_dcols(spec, dcols, live).permute(0, 2, 1)[:, None]   # (L, 1, B, F)
+        if need_dcols or need_x:
+            feats = _corner_features(spec, flat, idx)                   # (L, C, B, F)
+        if need_dcols:
+            live_rows = torch.tensor([l * F + f for l in live for f in range(F)], device=dev)
+            dd = (u[..., None] * feats).sum(1)                          # (L, B, F)
+            d_dcols.index_copy_(0, live_rows, dd.permute(0, 2, 1).reshape(L * F, B))
+        if need_x:
+            val = (feats * dy).sum(-1)                                  # (L, C, B)
+            t3 = torch.einsum("nbdef,bd,be->nbf", d3ws[0], beta, v).reshape(L, C, B, D)
+            d_x = (t3 * val[..., None]).sum((0, 1))
+        if need_table:   # rows −1 (another shard's) add their u = 0 to row 0
+            acc.index_add_(0, idx.reshape(-1).clamp_min(0), (u[..., None] * dy).reshape(-1, F))
+    return Third(d_dcols, d_x, acc.reshape(-1).to(flat.dtype) if need_table else None)
+
+
+def grid_encode_third(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tensor,
+                      dcols: torch.Tensor, ddx: torch.Tensor, ct_dx: torch.Tensor,
+                      live: Sequence[int], need_dcols: bool = True, need_x: bool = True,
+                      need_table: bool = True, level_frac: Optional[torch.Tensor] = None,
+                      shard: Optional[Tuple[int, int]] = None) -> Third:
+    """Kernel GT (``csrc/grid_encode_third.cu``): see
+    ``grid_encode_third_plain``.  ``flat``, ``x``, ``dcols``, ``level_frac``
+    and ``shard`` as for ``grid_encode_bwd_bwd``; ``ddx`` and ``ct_dx``
+    (B, D) float32.  One thread per (sample, level), D and F at run time
+    (one instance); the table gradient in fp32 with atomics (not
+    bit-reproducible, like GB's and GG's), d_dcols and d_x with the same
+    bits from launch to launch (d_x: per-level partials summed in level
+    order)."""
+    if x.device.type == "cpu":
+        return grid_encode_third_plain(spec, flat, x, dcols, ddx, ct_dx, live, need_dcols,
+                                       need_x, need_table, level_frac, shard)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_third: unsupported device {x.device}")
+    name = "grid_encode_third"
+    _check_args(name, spec, flat, x, shard)
+    _check_dcols(name, spec, x, dcols)
+    _check_frac(name, x, level_frac)
+    B, D = x.shape
+    for what, t in (("ddx", ddx), ("ct_dx", ct_dx)):
+        if t.shape != (B, D):
+            raise ValueError(f"{name}: {what} must be ({B}, {D}), got {tuple(t.shape)}")
+    ddx, ct_dx = ddx.float().contiguous(), ct_dx.float().contiguous()
+    require_cuda_tensors(name, x, ddx, ct_dx)
+    level_consts = _consts(spec, live, x.device, shard)
+    factors, hash_kind = _hash_args(spec)
+    F, L, dev = spec.n_features_per_level, spec.n_levels, x.device
+    # the kernel writes every level's rows of d_dcols and d_x's partials
+    d_dcols = torch.empty((L * F, B), dtype=torch.float32, device=dev) if need_dcols else None
+    d_x = torch.empty((B, D), dtype=torch.float32, device=dev) if need_x else None
+    dx_part = torch.empty((L, B, D), dtype=torch.float32, device=dev) if need_x else None
+    grad = (torch.empty(flat.numel(), dtype=torch.float32, device=dev) if need_table
+            else None)
+    out = grad if grad is None or flat.dtype == torch.float32 else torch.empty_like(flat)
+    if B == 0:
+        return Third(d_dcols, d_x, None if grad is None else grad.zero_().to(flat.dtype))
+    kernels().grid_encode_third(x, _x_row_stride(x), level_frac, flat, dcols, ddx, ct_dx,
+                                level_consts, d_dcols, dx_part, d_x, grad, out, D, F,
+                                dcols.stride(1), dcols.stride(0), factors, hash_kind,
+                                _INTERP_CODE[spec.interpolation], shard is not None)
+    grid_encode_third.launches += 1
+    return Third(d_dcols, d_x, out)
+
+
+grid_encode_third.launches = 0

@@ -210,13 +210,13 @@ def _interp_weight(f: torch.Tensor, interp: InterpolationType) -> torch.Tensor:
 
 
 def _interp_derivatives(f: torch.Tensor, interp: InterpolationType):
-    """First and second derivative of ``_interp_weight`` in f: Linear 1
-    and 0, Smoothstep 6f(1 − f) and 6 − 12f, Nearest 0 and 0."""
+    """First, second and third derivative of ``_interp_weight`` in f:
+    Linear 1, 0 and 0, Smoothstep 6f(1 − f), 6 − 12f and −12, Nearest 0."""
     if interp == InterpolationType.LINEAR:
-        return torch.ones_like(f), torch.zeros_like(f)
+        return torch.ones_like(f), torch.zeros_like(f), torch.zeros_like(f)
     if interp == InterpolationType.SMOOTHSTEP:
-        return 6.0 * f * (1.0 - f), 6.0 - 12.0 * f
-    return torch.zeros_like(f), torch.zeros_like(f)
+        return 6.0 * f * (1.0 - f), 6.0 - 12.0 * f, torch.full_like(f, -12.0)
+    return torch.zeros_like(f), torch.zeros_like(f), torch.zeros_like(f)
 
 
 def live_levels(spec: GridSpec, max_level: Optional[int]) -> List[int]:
@@ -265,9 +265,10 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
       idx: (L, C·B) int64 whole-table rows (level offsets folded in),
            corner-major within a level.
       ws:  (L·C, B) float32 corner weights, row l·C + c.
-    With ``order`` 1 or 2 it also returns the weights' derivatives in x:
+    With ``order`` 1 to 3 it also returns the weights' derivatives in x:
       dws:  (L·C, B, D) ∂w/∂x_d;
-      d2ws: (L·C, B, D, D) ∂²w/∂x_d∂x_e (order 2).
+      d2ws: (L·C, B, D, D) ∂²w/∂x_d∂x_e (order 2);
+      d3ws: (L·C, B, D, D, D) ∂³w/∂x_d∂x_e∂x_f (order 3).
     They come from the closed-form per-dim derivatives (floor has zero
     derivative, so d fract/dx is the level's scale) by the product rule
     over the dims, as kernels GI and GG compute them, not from autograd;
@@ -302,7 +303,7 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
     scales = torch.tensor([lv.scale for lv in levels], dtype=torch.float32,
                           device=x.device).reshape(L, 1)
 
-    cells, w1s, dw1s, d2w1s = [], [], [], []
+    cells, w1s, dw1s, d2w1s, d3w1s = [], [], [], [], []
     for d in range(D):
         # Two roundings, like JAX's separate multiply and add: a fused
         # multiply-add would move samples near a cell border.
@@ -312,15 +313,16 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
         cells.append(cf.to(torch.int64) & _U32)
         w1s.append(_interp_weight(pos - cf, spec.interpolation))
         if order:
-            d1, d2 = _interp_derivatives(pos - cf, spec.interpolation)
+            d1, d2, d3 = _interp_derivatives(pos - cf, spec.interpolation)
             dw1s.append(d1 * scales)
             d2w1s.append(d2 * scales * scales)
+            d3w1s.append(d3 * scales * scales * scales)
 
     def factor(c, d):   # corner c's factor of dim d, (L, B)
         return w1s[d] if bits[c, d] else 1.0 - w1s[d]
 
     def dfactor(c, d, k):   # its k-th derivative in x_d
-        df = (dw1s, d2w1s)[k - 1][d]
+        df = (dw1s, d2w1s, d3w1s)[k - 1][d]
         return df if bits[c, d] else -df
 
     def product(c, derivs):   # Π_d of corner c's factors, dim d derived derivs[d] times
@@ -346,6 +348,13 @@ def build_indices_weights(spec: GridSpec, x: torch.Tensor,
             [torch.stack([torch.stack([product(c, [int(d == e) + int(d == f) for d in range(D)])
                                        for f in range(D)], -1) for e in range(D)], -2)
              for c in range(C)], dim=1).reshape(L * C, B, D, D))
+    if order >= 3:
+        def d3(c, e, f, g):
+            return product(c, [int(d == e) + int(d == f) + int(d == g) for d in range(D)])
+        out.append(torch.stack(
+            [torch.stack([torch.stack([torch.stack([d3(c, e, f, g) for g in range(D)], -1)
+                                       for f in range(D)], -2) for e in range(D)], -3)
+             for c in range(C)], dim=1).reshape(L * C, B, D, D, D))
     if mask is not None:
         out[1:] = [o * mask.reshape(L * C, B, *[1] * (o.ndim - 2)) for o in out[1:]]
 
@@ -673,11 +682,15 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
       * ct_dflat through kernel G with ct_dflat as the table (d dcols) and
         kernel GI with ct_dflat as the table (d x): ``_scatter_weighted_bwd``'s
         math (scatter.py:528-550).
-    dflat does not depend on the table.  Under a per-sample level mask
-    every kernel takes the fractions: a masked (sample, level) contributes
-    nothing.  A third derivative raises ``NotImplementedError`` (ROADMAP.md
-    Queue 1), and so does ct_dflat under stochastic interpolation, whose
-    dflat scatters with one-hot weights that kernel G does not gather with.
+    dflat does not depend on the table.  Under stochastic interpolation
+    dflat scatters with one-hot weights, comparisons of x: ct_dflat's d
+    dcols is its gather at each (level, sample)'s one corner (kernel G's
+    stochastic gather, ``StochasticGatherFunction``) and its d x is zero,
+    as JAX's ``ws_bwd`` gives.  Under a per-sample level mask every kernel
+    takes the fractions: a masked (sample, level) contributes nothing.
+    Under ``create_graph`` these launches go through the functions'
+    ``apply``, so a third derivative differentiates them
+    (``GridBwdBwdFunction``'s backward).
 
     ``torch.func``: ``jvp`` is the tangent of (dflat, dx) from those of
     (flat, x, dcols), the same blocks forward (JAX forms them by autodiff of
@@ -710,32 +723,27 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_dflat, ct_dx):
-        from .cuda.grid_encode import grid_encode_bwd_input, grid_encode_fwd
-
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "third derivatives of the grid encoding are not ported "
-                "(ROADMAP.md Queue 1)")
         flat, x, dcols, frac = ctx.saved_tensors
         spec, live, shard = ctx.spec, ctx.live, ctx.shard
         need_x, need_dcols = ctx.needs_input_grad[1:3]
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         d_flat = d_x = d_dcols = None
         if ct_dx is not None:
-            d_dcols, d_x, d_flat = GridBwdBwdFunction.forward(
-                flat, x, dcols, ct_dx, spec, live, need_dcols, need_x, need_table, frac, shard)
+            d_dcols, d_x, d_flat = _call(GridBwdBwdFunction, flat, x, dcols, ct_dx, spec, live,
+                                         need_dcols, need_x, need_table, frac, shard)
         if ct_dflat is not None:
-            if spec.stochastic_interpolation:
-                raise NotImplementedError(
-                    "the derivative of a stochastic-interpolation table gradient in its "
-                    "cotangent is not ported")
             u = _kernel_table(ct_dflat)
             if need_dcols:
-                du = grid_encode_fwd(spec, u, x, live, soa=True, level_frac=frac,
-                                     shard=shard).float()
+                if spec.stochastic_interpolation:
+                    du = _call(StochasticGatherFunction, u, x, spec, live, frac)
+                else:
+                    du = _call(GridEncodeFunction, u, x, spec, live, True, frac, shard).float()
                 d_dcols = du if d_dcols is None else d_dcols + du
-            if need_x:
-                du = grid_encode_bwd_input(spec, u, x, dcols, live, level_frac=frac, shard=shard)
+            # under stochastic interpolation dflat's weights are comparisons of
+            # x (JAX's ws_bwd): no term in x
+            if need_x and not spec.stochastic_interpolation:
+                du = _call(GridEncodeBackwardFunction, u, x, dcols, spec, live, False, True, frac,
+                           shard)[1]
                 d_x = du if d_x is None else d_x + du
         if d_dcols is not None:
             d_dcols = d_dcols.to(dcols.dtype)
@@ -779,18 +787,52 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
         return (None, func_rules.unfold(dx, n, 0)), (None, 0 if need_x else None)
 
 
+def _call(fn, *args):
+    """``fn.apply(*args)`` where a backward records its graph (a higher
+    derivative will differentiate it), else ``fn.forward(*args)``: the
+    kernels alone, no graph."""
+    return (fn.apply if torch.is_grad_enabled() else fn.forward)(*args)
+
+
+def _add(a, b):
+    return b if a is None else a if b is None else a + b
+
+
+def _zero_dcols(spec: GridSpec, x: torch.Tensor) -> torch.Tensor:
+    """An (L·F, B) dcols of zeros, for a GG or GT output that does not
+    depend on it (a view: nothing is allocated per sample)."""
+    return torch.zeros(1, device=x.device).expand(spec.n_output_dims, x.shape[0])
+
+
 class GridBwdBwdFunction(torch.autograd.Function):
     """Kernel GG as a function of (flat, x, dcols, ddx): ``(d_dcols, d_x,
     d_flat)``, the gradients of ⟨dx, ddx⟩ (dx the grid's input gradient,
     kernel GI) in dcols, x and the table, each only where asked
     (``grid_encode_bwd_bwd``, one launch: GG adds d_flat itself, on kernel
-    GB's work plan).  The second order of ``GridEncodeBackwardFunction`` calls
-    its forward; forward mode calls it through ``apply`` (d_dcols at ddx =
-    t_x is the grid's input tangent), so that ``vmap`` finds its rule: a
-    vmapped x, dcols or ddx folds into the batch where d_flat is not asked
-    for, else a launch per entry.  ``dcols`` None reads as zeros (d_dcols
-    does not depend on it).  Not differentiable: that would be a third
-    derivative (ROADMAP.md Queue 1)."""
+    GB's work plan).  The second order of ``GridEncodeBackwardFunction``
+    calls it (through ``apply`` under ``create_graph``); forward mode calls
+    it through ``apply`` (d_dcols at ddx = t_x is the grid's input tangent),
+    so that ``vmap`` finds its rule: a vmapped x, dcols or ddx folds into
+    the batch where d_flat is not asked for, else a launch per entry.
+    ``dcols`` None reads as zeros (d_dcols does not depend on it).
+
+    Third derivatives (JAX's autodiff of the jnp backward of
+    ``_grid_interpolate``, ``tcnn_tpu/ops/grid_ops.py:917-1122``): the
+    backward, from the cotangents (α, β, γ) of (d_dcols, d_x, d_flat), with
+    T the table, δ = dcols, v = ddx, is these launches, each where its
+    cotangent and input ask for it:
+      * T: GG's d_flat at (dcols α, ddx v) + GT's table block;
+      * dcols: GG's d_dcols at (table γ, ddx v) + GT's d_dcols;
+      * ddx: GI(T, α) + GG's d_x at (dcols δ, ddx β) + GI(γ, δ);
+      * x: GG's d_x at (dcols α, ddx v) and at (table γ, dcols δ, ddx v) +
+        GT's d_x;
+    GT (``GridThirdFunction``) at (T, δ, v, β): the terms in
+    u_c = βᵀ ∇²w_c v and ∇³w_c, which no other kernel computes.  ``jvp``
+    runs the same blocks with the tangents (t_T, t_x, t_δ, t_v) in place of
+    the cotangents: GG at (t_T, δ, v), (T, t_δ, v) and (T, δ, t_v), and GT
+    with β = t_x (∇³w is symmetric).  Under a per-sample mask every launch
+    takes the fractions; with ``shard`` every launch runs in shard mode.
+    Stochastic interpolation keeps forward mode refused, as in JAX."""
 
     @staticmethod
     def forward(flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table, frac,
@@ -798,24 +840,94 @@ class GridBwdBwdFunction(torch.autograd.Function):
         from .cuda.grid_encode import grid_encode_bwd_bwd
 
         if dcols is None:
-            dcols = torch.zeros(1, device=x.device).expand(spec.n_output_dims, x.shape[0])
+            dcols = _zero_dcols(spec, x)
         return tuple(grid_encode_bwd_bwd(spec, flat, x, dcols, ddx, live, need_dcols=need_dcols,
                                          need_x=need_x, need_table=need_table, level_frac=frac,
                                          shard=shard))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
+        flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table, frac, *shard = inputs
         ctx.set_materialize_grads(False)
+        ctx.spec, ctx.live, ctx.need = spec, live, (need_dcols, need_x, need_table)
+        ctx.shard = shard[0] if shard else None
+        ctx.save_for_backward(flat, x, dcols, ddx, frac)
+        ctx.save_for_forward(flat, x, dcols, ddx, frac)
 
     @staticmethod
-    def backward(ctx, *cts):
-        raise NotImplementedError(
-            "third derivatives of the grid encoding are not ported (ROADMAP.md Queue 1)")
+    def backward(ctx, ct_ddcols, ct_dx, ct_dflat):
+        flat, x, dcols, v, frac = ctx.saved_tensors
+        spec, live, shard = ctx.spec, ctx.live, ctx.shard
+        need_x, need_dcols, need_v = ctx.needs_input_grad[1:4]
+        need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
+        need_dcols = need_dcols and dcols is not None
+        if dcols is None:
+            dcols = _zero_dcols(spec, x)
+        g_flat = g_x = g_dcols = g_v = None
+        if ct_ddcols is not None:   # α: d_dcols = Σ_c w'_c T_c
+            a = ct_ddcols.float()
+            if need_table or need_x:
+                _, gx, gt = _call(GridBwdBwdFunction, flat, x, a, v, spec, live, False, need_x,
+                                  need_table, frac, shard)
+                g_flat, g_x = _add(g_flat, gt), _add(g_x, gx)
+            if need_v:
+                g_v = _add(g_v, _call(GridEncodeBackwardFunction, flat, x, a, spec, live, False,
+                                      True, frac, shard)[1])
+        if ct_dx is not None:       # β: d_x = Σ_c ∇²w_c v ⟨T_c, δ⟩
+            if need_table or need_dcols or need_x:
+                gd, gx, gt = _call(GridThirdFunction, flat, x, dcols, v, ct_dx, spec, live,
+                                   need_dcols, need_x, need_table, frac, shard)
+                g_flat, g_x, g_dcols = _add(g_flat, gt), _add(g_x, gx), _add(g_dcols, gd)
+            if need_v:
+                g_v = _add(g_v, _call(GridBwdBwdFunction, flat, x, dcols, ct_dx, spec, live,
+                                      False, True, False, frac, shard)[1])
+        if ct_dflat is not None:    # γ: d_flat[row_c] += w'_c δ
+            gam = _kernel_table(ct_dflat)
+            if need_dcols or need_x:
+                gd, gx, _ = _call(GridBwdBwdFunction, gam, x, dcols, v, spec, live, need_dcols,
+                                  need_x, False, frac, shard)
+                g_x, g_dcols = _add(g_x, gx), _add(g_dcols, gd)
+            if need_v:
+                g_v = _add(g_v, _call(GridEncodeBackwardFunction, gam, x, dcols, spec, live,
+                                      False, True, frac, shard)[1])
+        if g_dcols is not None:
+            g_dcols = g_dcols.to(dcols.dtype)
+        if g_flat is not None:
+            g_flat = g_flat.to(flat.dtype)
+        if g_v is not None:
+            g_v = g_v.to(v.dtype)
+        return g_flat, g_x, g_dcols, g_v, None, None, None, None, None, None, None
 
     @staticmethod
-    def jvp(ctx, *tangents):
-        raise NotImplementedError(
-            "third derivatives of the grid encoding are not ported (ROADMAP.md Queue 1)")
+    def jvp(ctx, t_flat, t_x, t_dcols, t_v, *_):
+        flat, x, dcols, v, frac = ctx.saved_tensors
+        spec, live = ctx.spec, ctx.live
+        need_dcols, need_x, need_table = ctx.need
+        _refuse_forward_mode(spec)
+        fn = GridBwdBwdFunction
+        out = [None, None, None]
+
+        def add(terms):
+            for i, t in enumerate(terms):
+                out[i] = _add(out[i], t)
+
+        if t_v is not None:
+            add(fn.apply(flat, x, dcols, t_v, spec, live, need_dcols, need_x, need_table, frac))
+        if t_flat is not None and (need_dcols or need_x):
+            add(fn.apply(_kernel_table(t_flat), x, dcols, v, spec, live, need_dcols, need_x,
+                         False, frac))
+        if t_dcols is not None and (need_x or need_table):
+            add(fn.apply(flat, x, t_dcols, v, spec, live, False, need_x, need_table, frac))
+        if t_x is not None:
+            d = dcols if dcols is not None else _zero_dcols(spec, x)
+            add(GridThirdFunction.apply(flat, x, d, v, t_x, spec, live, need_dcols, need_x,
+                                        need_table, frac))
+        shapes = ((spec.n_output_dims, x.shape[0]), x.shape, flat.shape)
+        dtypes = (torch.float32, torch.float32, flat.dtype)
+        return tuple(
+            None if not need else
+            (o if o is not None else torch.zeros(shape, device=x.device)).to(dt)
+            for o, need, shape, dt in zip(out, ctx.need, shapes, dtypes))
 
     @staticmethod
     def vmap(info, in_dims, flat, x, dcols, ddx, spec, live, need_dcols, need_x, need_table,
@@ -832,6 +944,94 @@ class GridBwdBwdFunction(torch.autograd.Function):
             fold(frac, in_dims[9], n, 0))
         return ((func_rules.unfold(d_dcols, n, 1), func_rules.unfold(d_x, n, 0), None),
                 (1 if need_dcols else None, 0 if need_x else None, None))
+
+
+def _refuse_fourth_order():
+    raise NotImplementedError(
+        "fourth derivatives of the grid encoding are not computed: kernel GT's own "
+        "derivative is not written (ROADMAP.md, Not queued)")
+
+
+class GridThirdFunction(torch.autograd.Function):
+    """Kernel GT as a function of (flat, x, dcols, ddx, ct_dx):
+    ``(d_dcols, d_x, d_flat)`` (``grid_encode_third``), the blocks of
+    ``GridBwdBwdFunction``'s backward in u_c = βᵀ ∇²w_c v and ∇³w_c (β =
+    ``ct_dx``, v = ``ddx``), each only where asked.  Its own derivative
+    would be a fourth derivative of the grid and raises.  ``vmap``: as
+    ``GridBwdBwdFunction``'s, a vmapped x, dcols, ddx or ct_dx folds into
+    the batch where d_flat is not asked for, else a launch per entry."""
+
+    @staticmethod
+    def forward(flat, x, dcols, ddx, ct_dx, spec, live, need_dcols, need_x, need_table, frac,
+                shard=None):
+        from .cuda.grid_encode import grid_encode_third
+
+        return tuple(grid_encode_third(spec, flat, x, dcols, ddx, ct_dx, live,
+                                       need_dcols=need_dcols, need_x=need_x,
+                                       need_table=need_table, level_frac=frac, shard=shard))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        _refuse_fourth_order()
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        _refuse_fourth_order()
+
+    @staticmethod
+    def vmap(info, in_dims, flat, x, dcols, ddx, ct_dx, spec, live, need_dcols, need_x,
+             need_table, frac, shard=None):
+        in_dims = in_dims[:11]
+        args = (flat, x, dcols, ddx, ct_dx, spec, live, need_dcols, need_x, need_table, frac)
+        if in_dims[0] is not None or need_table:
+            return func_rules.loop(GridThirdFunction, info, in_dims, args)
+        n = info.batch_size
+        fold = func_rules.fold
+        d_dcols, d_x, _ = GridThirdFunction.apply(
+            flat, fold(x, in_dims[1], n, 0), fold(dcols, in_dims[2], n, 1),
+            fold(ddx, in_dims[3], n, 0), fold(ct_dx, in_dims[4], n, 0), spec, live,
+            need_dcols, need_x, False, fold(frac, in_dims[10], n, 0))
+        return ((func_rules.unfold(d_dcols, n, 1), func_rules.unfold(d_x, n, 0), None),
+                (1 if need_dcols else None, 0 if need_x else None, None))
+
+
+class StochasticGatherFunction(torch.autograd.Function):
+    """The derivative of a loss on a stochastic-interpolation table
+    gradient (kernel GB's, which puts each (level, sample)'s cotangent on
+    one corner) in that cotangent: (L·F, B) fp32, the table-shaped
+    cotangent ``u`` gathered at each (level, sample)'s one-hot corner,
+    kernel G's run-time-D instance taking the uniforms
+    (``grid_encode_fwd(stochastic=True)``).  It is linear in ``u`` and its
+    transpose is GB's stochastic scatter (``GridEncodeBackwardFunction``,
+    so a higher derivative goes on through it); x gets none: JAX's
+    ``ws_bwd`` are comparisons (``tcnn_tpu/ops/grid_ops.py:523-535``)."""
+
+    @staticmethod
+    def forward(u, x, spec, live, frac):
+        from .cuda.grid_encode import grid_encode_fwd
+
+        return grid_encode_fwd(spec, u, x, live, soa=True, level_frac=frac,
+                               stochastic=True).float()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, x, spec, live, frac = inputs
+        ctx.set_materialize_grads(False)
+        ctx.spec, ctx.live = spec, live
+        ctx.save_for_backward(u, x, frac)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, x, frac = ctx.saved_tensors
+        du = None
+        if g is not None and ctx.needs_input_grad[0]:
+            du = _call(GridEncodeBackwardFunction, u, x, g, ctx.spec, ctx.live, True, False,
+                       frac)[0]
+        return du, None, None, None, None
 
 
 def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,

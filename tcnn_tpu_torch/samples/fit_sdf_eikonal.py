@@ -89,6 +89,40 @@ def loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor, aux: bool = F
     return (losses if aux else losses[0]), dict(zip(params, grads))
 
 
+# The curvature term's weight λ in L + λ · mean |H v|² (``curvature_loss``).
+CURVATURE_WEIGHT = 1e-3
+
+
+def sample_directions(gen: torch.Generator, batch: int, device) -> torch.Tensor:
+    """(B, 3) random unit directions, one per point."""
+    v = torch.randn((batch, 3), generator=gen, device=device)
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+
+def curvature_loss(f, x_surf: torch.Tensor, x_vol: torch.Tensor, v: torch.Tensor,
+                   weight: float = CURVATURE_WEIGHT) -> torch.Tensor:
+    """The eikonal loss plus a curvature regulariser, ``weight`` · mean
+    |H v|², H the Hessian of f in x at x_vol and v (B, 3) a direction per
+    point (as neural SDF fits penalise curvature): f(x)[:, 0] is the SDF.
+    H v is the gradient of ⟨∇x f, v⟩ in x, a second reverse pass, so the
+    loss's gradient in the parameters is a third derivative: kernel GT and
+    the MLP's third order on the card.  The graph is kept."""
+    surf_loss = torch.mean(f(x_surf)[:, 0] ** 2)
+    x_vol = x_vol.detach().requires_grad_()
+    (grad_x,) = torch.autograd.grad(f(x_vol)[:, 0].sum(), x_vol, create_graph=True)
+    (hv,) = torch.autograd.grad((grad_x * v).sum(), x_vol, create_graph=True)
+    return (surf_loss + EIKONAL_WEIGHT * eikonal_loss(grad_x)
+            + weight * torch.mean(torch.sum(hv * hv, dim=-1)))
+
+
+def curvature_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor, v: torch.Tensor):
+    """``curvature_loss`` of ``net`` and its gradients by parameter name."""
+    params = dict(net.named_parameters())
+    loss = curvature_loss(net, x_surf, x_vol, v)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
 def step(net, opt, opt_state, x_surf: torch.Tensor, x_vol: torch.Tensor):
     """One training step of ``net`` by ``opt`` (the JAX sample's ``step``),
     updating the parameters and ``opt_state`` in place.  Returns (loss,

@@ -26,7 +26,7 @@ neighbour, where it lies on a rounding boundary, explains.
 from __future__ import annotations
 
 from itertools import combinations
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -219,6 +219,38 @@ def plain_sdf_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
     return (loss, grads, scale) if table_scale else (loss, grads)
 
 
+def plain_curvature_loss_and_grads(net, x_surf: torch.Tensor, x_vol: torch.Tensor,
+                                   v: torch.Tensor, weight: Optional[float] = None
+                                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``samples.fit_sdf_eikonal.curvature_loss`` of ``net`` (a grid
+    alone feeding a fused MLP) and its gradients by parameter name, with
+    the model's forward written as the plain versions of G and M in torch
+    operations (``grid_encode_plain``, ``fused_mlp_plain``), which autograd
+    differentiates to the third order itself: no kernel's backward and no
+    plain version of GB, GI, GG, GT or MB takes part, so the kernels' third
+    order is held against an independent derivation."""
+    from ..samples.fit_sdf_eikonal import CURVATURE_WEIGHT, curvature_loss
+
+    enc, mlp, pol = net.encoding, net.network, net.policy
+    spec, cdt = enc.spec, pol.compute_dtype
+    live = live_levels(spec, enc.max_level)
+    names = [n for n, _ in net.named_parameters()]
+    params = [p.detach().requires_grad_() for _, p in net.named_parameters()]
+    by_name = dict(zip(names, params))
+    layers = [by_name[f"network.layers.{i}"] for i in range(len(mlp.layers))]
+
+    def f(x):
+        feats = grid_encode_plain(spec, by_name["encoding.grid"].to(cdt), x, live, soa=True)
+        return fused_mlp_plain(layers, feats.to(cdt), mlp.activation, mlp.output_activation, cdt,
+                               pol.output_dtype, input_soa=True).float()
+
+    with torch.enable_grad():
+        loss = curvature_loss(f, x_surf, x_vol, v,
+                              CURVATURE_WEIGHT if weight is None else weight)
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), dict(zip(names, grads))
+
+
 def plain_nerf_field_grads(density_net, color_net, x: torch.Tensor, d: torch.Tensor,
                            max_level_frac, loss_of) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The NeRF sample's field (``samples/fit_nerf_field.py::model_field``)
@@ -295,6 +327,29 @@ def plain_nerf_loss_and_grads(density_net, color_net, rays_o: torch.Tensor,
 # pre-activation lies this near a rounding midpoint may round either way
 # in two correct sums.
 SUM_SLACK = 2.0 ** -16
+
+
+def gt_table_scale(spec, x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,
+                   ct_dx: torch.Tensor, live: Sequence[int], level_frac=None,
+                   shard=None) -> torch.Tensor:
+    """The flat S of kernel GT's table gradient (its shard's rows with
+    ``shard``): per entry, over its updates u_c · dcols, the sum of the
+    magnitudes of their terms, Σ_{d,e} |β_d · ∂²w_c/∂x_d∂x_e · v_e| ·
+    |dcols| (β = ``ct_dx``, v = ``ddx``).  GT's d_flat lies within 2^-11·S
+    of the plain one per entry (fp32 atomics in any order), and is an exact
+    0 where S is."""
+    L, C, (B, _) = len(live), 1 << spec.n_dims, x.shape
+    F = spec.n_features_per_level
+    idx, _, _, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2,
+                                                     level_frac=level_frac, shard=shard)
+    u = torch.einsum("nbde,bd,be->nb", d2ws.abs(), ct_dx.float().abs(),
+                     ddx.float().abs()).reshape(L, C, B)
+    rows = torch.tensor([l * F + f for l in live for f in range(F)], device=x.device)
+    dy = dcols.float().abs()[rows].reshape(L, F, B).permute(0, 2, 1)[:, None]
+    n_rows = spec.n_entries // (shard[1] if shard else 1)
+    acc = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
+    acc.index_add_(0, idx.reshape(-1).clamp_min(0), (u[..., None] * dy).reshape(-1, F))
+    return acc.reshape(-1)
 
 
 def gg_term_magnitudes(spec, x: torch.Tensor, dcols: torch.Tensor, ddx: torch.Tensor,

@@ -161,7 +161,10 @@ def test_slice_inference_goes_through_both_kernels(cuda, policy):
 def test_cuda_input_gradient_and_second_order_raise_slice_3(cuda):
     """Input gradients and second derivatives run on the card since slice
     4, through kernels GI and GG (which adds the table gradient itself: no
-    RS); a third derivative raises."""
+    RS); since slice 14 the second order keeps its graph under
+    ``create_graph`` (a third derivative can follow): finite, and within
+    1e-4 of each largest magnitude of the plain path's (the model's copy on
+    the CPU)."""
     model = create_from_config(2, 3, "configs/config_hash.json")
     x = torch.rand((64, 2), device=cuda, requires_grad=True)
     counts = (grid_encode_bwd_input.launches, grid_encode_bwd_bwd.launches,
@@ -177,8 +180,19 @@ def test_cuda_input_gradient_and_second_order_raise_slice_3(cuda):
     # autograd.grad(..., params) then drops
     assert [a - b for a, b in zip(after, counts)] == [2, 1, 0]
     assert all(bool(torch.isfinite(g).all()) for g in grads)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.autograd.grad(gx.square().sum(), params, create_graph=True)
+    kept = torch.autograd.grad(gx.square().sum(), params, create_graph=True)
+    assert all(bool(torch.isfinite(g).all()) for g in kept)
+    # the plain path: the same model's copy on the CPU (the plain versions)
+    cpu = create_from_config(2, 3, "configs/config_hash.json", device="cpu")
+    with torch.no_grad():
+        for a, b in zip(cpu.network.parameters(), params):
+            a.copy_(b.cpu())
+    xc = x.detach().cpu().requires_grad_()
+    (gxc,) = torch.autograd.grad(cpu.network(xc).square().sum(), xc, create_graph=True)
+    want = torch.autograd.grad(gxc.square().sum(), list(cpu.network.parameters()),
+                               create_graph=True)
+    for a, b in zip(kept, want):
+        assert_rel_close(a.detach().cpu(), b.detach(), 1e-4)
 
 
 def grid_bwd_bound(spec, flat, x, dcols, live):
@@ -1869,3 +1883,166 @@ def test_torch_func_on_the_card_matches_the_cpu(cuda):
     assert_rel_close(jf.cpu(), jr.cpu(), 1e-4)
     vm = torch.func.vmap(card.network)(x.to(cuda).reshape(4, 1024, 2))
     assert_rel_close(vm.reshape(4096, 3).cpu(), cpu.network(x).detach(), 1e-5)
+
+
+# -- slice 14: third order (kernel GT), the stochastic gather, deep MLPs ------
+
+GT_SHAPES = [(d, f) for d in (1, 2, 3, 4) for f in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("d,f", GT_SHAPES, ids=lambda v: str(v))
+@pytest.mark.parametrize("mode", ["whole", "masked", "sharded"])
+def test_grid_encode_third_kernel_matches_plain(cuda, d, f, mode):
+    """Kernel GT against its plain version at every D 1-4 and F 1, 2, 4, 8,
+    Smoothstep (nonzero third derivatives), a dead level (``live`` without
+    the last), under a per-sample mask and in shard mode (shard 1 of 2):
+    d_dcols and d_x within 1e-5 of their largest magnitude and bit for bit
+    in a second launch, the table gradient per entry within 2^-11·S
+    (``gt_table_scale``) and an exact 0 where S is; bf16 tables and dcols
+    in the whole mode, within one bf16 ulp more."""
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_third, grid_encode_third_plain
+    from tcnn_tpu_torch.tools.plain_path import gt_table_scale
+
+    spec = grid_ops.make_grid_spec(d, 6, f, 12, 4, 1.5, hash_type=HashType.COHERENT_PRIME,
+                                   interpolation=InterpolationType.SMOOTHSTEP)
+    rng = np.random.default_rng(d * 10 + f)
+    B = 3001
+    shard = (1, 2) if mode == "sharded" else None
+    n = spec.n_params // (2 if shard else 1)
+    x = torch.from_numpy(rng.uniform(0.05, 0.95, (B, d)).astype(np.float32)).to(cuda)
+    frac = (torch.from_numpy(rng.uniform(0, 1, B).astype(np.float32)).to(cuda)
+            if mode == "masked" else None)
+    live = list(range(spec.n_levels - 1))
+    for dtype in ((torch.float32, torch.bfloat16) if mode == "whole" else (torch.float32,)):
+        flat = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dtype).to(cuda)
+        dcols = torch.from_numpy(rng.normal(size=(spec.n_output_dims, B)).astype(np.float32))
+        dcols = dcols.to(dtype).to(cuda)
+        v, beta = (torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(cuda)
+                   for _ in range(2))
+        args = (spec, flat, x, dcols, v, beta, live)
+        kw = {"level_frac": frac, "shard": shard}
+        before = grid_encode_third.launches
+        got = grid_encode_third(*args, **kw)
+        again = grid_encode_third(*args, **kw)
+        torch.cuda.synchronize()
+        assert grid_encode_third.launches - before == 2
+        want = grid_encode_third_plain(*args, **kw)
+        assert torch.equal(got.d_dcols, again.d_dcols) and torch.equal(got.d_x, again.d_x)
+        assert_rel_close(got.d_dcols, want.d_dcols, 1e-5)
+        assert float(got.d_dcols[(spec.n_levels - 1) * f:].abs().max()) == 0   # dead level
+        if d == 1 and mode == "masked" and float(want.d_x.abs().max()) == 0:
+            assert float(got.d_x.abs().max()) == 0
+        else:
+            assert_rel_close(got.d_x, want.d_x, 1e-5)
+        scale = gt_table_scale(spec, x, dcols, v, beta, live, frac, shard)
+        assert got.d_flat.dtype == want.d_flat.dtype == dtype
+        assert_scatter_close(got.d_flat, want.d_flat, scale)
+        assert bool((got.d_flat[scale == 0] == 0).all())
+        only = grid_encode_third(*args, need_dcols=False, need_table=False, **kw)
+        assert only.d_dcols is None and only.d_flat is None
+        assert torch.equal(only.d_x, got.d_x)
+
+
+def test_grid_stochastic_gather_matches_plain(cuda):
+    """Kernel G's stochastic gather (the run-time-D instance with the
+    uniforms of stochastic interpolation) against its plain version: each
+    (level, sample) reads its one-hot corner at weight 1, so both give the
+    same bits; a per-sample mask zeroes its pairs; the Rng hash and a
+    4-D grid take the same instance."""
+    rng = np.random.default_rng(41)
+    for d, htype in ((2, HashType.COHERENT_PRIME), (2, HashType.RNG), (4, HashType.PRIME)):
+        spec = grid_ops.make_grid_spec(d, 8, 2, 14, 16, 1.5, hash_type=htype,
+                                       stochastic_interpolation=True)
+        flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32)).to(cuda)
+        x = torch.from_numpy(rng.uniform(0, 1, (5000, d)).astype(np.float32)).to(cuda)
+        for frac in (None, torch.from_numpy(rng.uniform(0, 1, 5000).astype(np.float32)).to(cuda)):
+            live = list(range(spec.n_levels))
+            got = grid_encode_fwd(spec, flat, x, live, soa=True, level_frac=frac, stochastic=True)
+            torch.cuda.synchronize()
+            want = grid_encode_plain(spec, flat, x, live, soa=True, level_frac=frac,
+                                     stochastic=True)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_hidden", [32, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_kernels_beyond_one_launch(cuda, n_hidden, dtype):
+    """M and MB at 64 × 32 and 64 × 40 hidden layers (33 and 41 layers,
+    more than one launch takes): M as two launches, bit for bit against the
+    same MLP as a chain of shallow launches (each inner run ending on the
+    hidden activation in the compute dtype) and, in fp32, within the fp32
+    MLP bound of the plain version; MB over runs of at most 32 layers, at
+    the MB bounds of the plain version in fp32; in bf16 bit for bit against
+    the same backward as launches over runs of five layers
+    (``fused_mlp_bwd_segmented``), whose shallow runs the other tests hold
+    against the plain version: a dz that rounds to the other bf16
+    neighbour moves every layer below it, and over 33 layers (on an H100)
+    the plain version's dW lay 5 % apart from the kernel's in relative L2
+    norm where the gradients had shrunk to 1e-9."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd_segmented,
+                                                   fused_mlp_fwd_chained, m_runs, mb_plan)
+
+    dims = [(32, 64)] + [(64, 64)] * (n_hidden - 1) + [(64, 3)]
+    ws, x, g = mlp_inputs(cuda, dims, 4133, n_hidden, True)
+    xc = x.to(dtype)
+    relu, none = Activation.RELU, Activation.NONE
+    args = (ws, xc, relu, none, dtype, torch.float32, True, False)
+    before = fused_mlp_fwd.launches
+    got = fused_mlp_fwd(*args)
+    torch.cuda.synchronize()
+    assert fused_mlp_fwd.launches - before == len(m_runs(len(ws))) == 2
+    shallow = [(i, i + 5) for i in range(0, len(ws) - 6, 5)]
+    shallow.append((shallow[-1][1], len(ws)))   # runs of five layers, the last of 5 to 9
+    assert torch.equal(got, fused_mlp_fwd_chained(*args, shallow, fwd=fused_mlp_fwd))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, fused_mlp_plain(*args), rtol=1e-5, atol=1e-5)
+    runs = mb_plan(ws, dtype, relu, none)
+    assert all(b - a <= 32 for a, b in runs)
+    before = fused_mlp_bwd.launches
+    got_dws, got_dx = fused_mlp_bwd(ws, xc, g, relu, none, dtype, True, False)
+    torch.cuda.synchronize()
+    assert fused_mlp_bwd.launches - before == len(runs) >= 2
+    want_dws, want_dx = fused_mlp_bwd_plain(ws, xc, g, relu, none, dtype, True, False)
+    if dtype == torch.float32:
+        for a, b in zip(got_dws, want_dws):
+            assert float((a - b).abs().max()) <= mlp_bwd_tol(b, dtype)
+        assert_dx_close(got_dx, want_dx, ws, x, g, dtype, True)
+    else:   # bf16 roundings of dz compound over the layers: the shallow runs' bits
+        dws_s, dx_s = fused_mlp_bwd_segmented(ws, xc, g, relu, none, dtype, True, False, shallow)
+        assert torch.equal(got_dx, dx_s)
+        assert all(torch.equal(a, b) for a, b in zip(got_dws, dws_s))
+
+
+@pytest.mark.parametrize("act", ["ReLU", "Softplus"])
+def test_curvature_step_launches_gt_and_equals_the_plain_path(cuda, act):
+    """The SDF sample's model (fp32) with a curvature regulariser
+    (``fit_sdf_eikonal.curvature_loss``, a third derivative in the
+    parameters) at 2^12 points: launches of G, M, GB, MB, GI, GG and GT, and
+    the loss and gradients within 1e-4 of each largest magnitude of
+    ``plain_path.plain_curvature_loss_and_grads`` (autograd of the plain
+    forward)."""
+    from tcnn_tpu_torch import Policy
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_third
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.tools.plain_path import plain_curvature_loss_and_grads
+
+    cfg = {**sdf.CONFIG, "network": {**sdf.CONFIG["network"], "activation": act}}
+    model = create_from_config(3, 1, cfg, policy=Policy())
+    net = model.network
+    gen = torch.Generator(cuda).manual_seed(3)
+    with torch.no_grad():
+        net.encoding.grid.uniform_(-1e-2, 1e-2, generator=gen)
+    xs, xv = sdf.sample_points(gen, 1 << 12, cuda)
+    v = sdf.sample_directions(gen, 1 << 12, cuda)
+    kernels_ = (grid_encode_fwd, fused_mlp_fwd, grid_encode_bwd, fused_mlp_bwd,
+                grid_encode_bwd_input, grid_encode_bwd_bwd, grid_encode_third)
+    before = [k.launches for k in kernels_]
+    loss, grads = sdf.curvature_loss_and_grads(net, xs, xv, v)
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kernels_, before)]
+    assert all(n > 0 for n in launched), launched
+    want_loss, want = plain_curvature_loss_and_grads(net, xs, xv, v)
+    assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    for name, g in grads.items():
+        assert bool(torch.isfinite(g).all())
+        assert_rel_close(g, want[name], 1e-4)

@@ -192,14 +192,6 @@ def test_grid_table_cotangent_blocks_equal_jax():
     _assert_rel(got[1], want[1], 1e-5, "dw")
 
 
-def test_third_order_raises():
-    _, _, enc = _encodings(GRID_CASES[1])
-    x = torch.from_numpy(_coords(enc.spec, 16, 8)).requires_grad_()
-    (gx,) = torch.autograd.grad(enc(x).sum(), x, create_graph=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.autograd.grad((gx ** 2).sum(), enc.grid, create_graph=True)
-
-
 MLP_ACTS = [(Activation.RELU, Activation.NONE), (Activation.TANH, Activation.SIGMOID)]
 
 

@@ -195,6 +195,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "tcnn_tpu_torch.ops.cuda.fused_mlp, tcnn_tpu_torch.losses, "
             "tcnn_tpu_torch.optimizers, tcnn_tpu_torch.trainer, "
             "tcnn_tpu_torch.utils.image, tcnn_tpu_torch.utils.metrics, "
+            "tcnn_tpu_torch.utils.profiling, tcnn_tpu_torch.utils.native_loader, "
             "tcnn_tpu_torch.utils.jax_params, tcnn_tpu_torch.tools.kernel_ablation, "
             "tcnn_tpu_torch.models.encodings.basic, tcnn_tpu_torch.samples, "
             "tcnn_tpu_torch.samples.fit_btf, tcnn_tpu_torch.samples.fit_nerf_field, "
