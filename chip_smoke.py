@@ -104,15 +104,20 @@ and read just after:
     step and collective times (one card shared by two processes: no
     scaling figure).
   * slice 14, third derivatives and Queue 1 item 16: kernel GT (the grid's
-    third order) against its plain version at the SDF grid (fp32, 2^18
-    and 2^14, shard 0 of 2, a mask at 0.5); G's stochastic gather at the
+    third order, on GB's plan) against its plain version in each instance
+    family, with all outputs and with the curvature step's (no d_x): the
+    compile-time 3-D instance at the SDF grid (fp32, 2^18 and 2^14), the
+    4-D one at config_btf's CoherentAdd grid (bf16 table and cotangent,
+    2^14), the run-time-D instance at the SDF grid with the Rng hash, under
+    a mask at 0.5 and on shard 0 of 2; G's stochastic gather at the
     Rng and stochastic config_hash geometry, and a loss on that grid's
     table gradient differentiated in x; the curvature step (the eikonal
     loss plus 1e-3 · mean |H v|², ``samples/fit_sdf_eikonal.curvature_loss``)
     of the SDF sample's model, ReLU and Softplus, against
     ``plain_path.plain_curvature_loss_and_grads`` with its launches, 200
     steps of it at 2^14 (the main path of GT, with a loss floor from the
-    JAX package's run) and its times at 2^18; M and MB at 64 x 40 hidden
+    JAX package's run; one GT launch a step) and its times at 2^18 beside
+    the eikonal step's; M and MB at 64 x 40 hidden
     layers (beyond one launch); a config_hash fit fed by
     ``utils.native_loader.PrefetchingSampler`` against the same fit on the
     on-device sampler (PSNR by ``utils.metrics``); one eager eikonal step
@@ -272,9 +277,12 @@ with TF32 off):
     order).
 
   * slice 14: GT's d_dcols and d_x within 1e-5 of each one's largest
-    magnitude and bit for bit in a second launch, its table gradient per
+    magnitude and bit for bit in a second launch (bf16 tables and
+    cotangents are read as the plain version reads them), its table
+    gradient per
     entry within 2^-11·S over its updates' terms (``plain_path.
-    gt_table_scale``), as GG's; the stochastic gather at G's bounds (it
+    gt_table_scale``; one bf16 ulp more for a bf16 table), as GG's; the
+    stochastic gather at G's bounds (it
     meets the plain version's bits: one corner at weight 1); the curvature
     step's loss at 1e-4 relative and every gradient, the table's too,
     within 1e-4 of its largest magnitude (the third order's per-entry term
@@ -3109,7 +3117,8 @@ def rng_stochastic_slice(gen, dev, hash_times):
     launches = counts()
     # the loop's warm-up and captured steps (G, M, GB and MB twice), then the
     # forward (G and M), the input gradient (MB, GI) and its backward (GG;
-    # the features' second pass: MB, GB and GI once more)
+    # the features' second pass: MB and GB, and no GI: the parameters' pass
+    # uses no gradient in x)
     check(launches["G"] == launches["M"] == 3 and launches["GB"] >= 2 and launches["MB"] >= 3
           and launches["GI"] >= 1 and launches["GG"] == 1 and launches["RS"] == 0,
           f"launches {launches}")
@@ -3592,44 +3601,66 @@ REPLACES_GT = ("none (jnp): autodiff of the backward of _grid_interpolate's cust
                "tcnn_tpu/ops/grid_ops.py:917-1122")
 
 
-def gt_flops(spec, batch):
-    """GT: per (sample, level) the positions and per-dim factors (4D); per
-    corner the prefix products of the (1, s, t, st) jets along β and v
-    (17D), u from them, the suffix products and ∇³w's e-th entry (33D),
-    then d dcols (2F), the row's dot with dcols (2F), the table update
-    u·dy and its add (2F)."""
+def gt_flops(spec, batch, need_x=True):
+    """GT with d_dcols, the table gradient and (``need_x``) d_x, counted as
+    its 1- to 4-D instances do the work: per (sample, level) the positions
+    and per-dim factors and their derivatives (4D) and the (1, s, t, st)
+    jets along β and v of each dim's two factors (4 operations each, 8D;
+    with d_x those of the factors' derivatives too, 8D more); per corner
+    the prefix product of its D jets (D - 1 jet products of 14 operations),
+    d dcols (2F) and the table update u·dy and its add (2F); with d_x the
+    row's dot with dcols (2F), each prefix times a derivative's jet (D - 1
+    products), the suffix products (D - 2), the st coefficients of their
+    products (D - 1, 7 each) and d_x's sums (2D)."""
     D, C, F = spec.n_dims, 1 << spec.n_dims, spec.n_features_per_level
-    return batch * spec.n_levels * (4 * D + C * (50 * D + 6 * F))
+    per_level = 12 * D + (8 * D if need_x else 0)
+    corner = 14 * (D - 1) + 4 * F
+    if need_x:
+        corner += 2 * F + 14 * (D - 1) + 14 * max(D - 2, 0) + 7 * (D - 1) + 2 * D
+    return batch * spec.n_levels * (per_level + C * corner)
 
 
 def check_third_order(spec, table, x, dcols, ddx, beta, live, frac=None, shard=None,
                       label=""):
-    """Kernel GT against its plain version: d_dcols and d_x within 1e-5 of
-    each one's largest magnitude and bit for bit in a second launch (one
-    writer per (sample, level), the levels summed in one order), the table
-    gradient per entry within 2^-11·S (``plain_path.gt_table_scale``, S
-    over its updates' terms, as GG's) and an exact 0 where S is.  Returns
-    (max abs err of d_dcols and d_x, that of the table gradient)."""
+    """Kernel GT against its plain version, with all outputs and with the
+    curvature step's (d_dcols and the table gradient, no d_x): d_dcols and
+    d_x within 1e-5 of each one's largest magnitude and bit for bit in a
+    second launch (one writer per (sample, level), the levels summed in
+    one order), the table gradient per entry within 2^-11·S
+    (``plain_path.gt_table_scale``, S over its updates' terms, as GG's; one
+    bf16 ulp more for a bf16 table) and an exact 0 where S is.  Returns the
+    largest max abs err of the outputs of each set, by need_x: all outputs
+    (True) and the step's (False)."""
     from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_third, grid_encode_third_plain
     from tcnn_tpu_torch.tools.plain_path import gt_table_scale
 
     kw = {"level_frac": frac, "shard": shard}
-    with torch.inference_mode():
-        got = grid_encode_third(spec, table, x, dcols, ddx, beta, live, **kw)
-        again = grid_encode_third(spec, table, x, dcols, ddx, beta, live, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(got.d_dcols, again.d_dcols) and torch.equal(got.d_x, again.d_x),
-              f"GT {label}: d_dcols or d_x differ between two launches")
-        want = grid_encode_third_plain(spec, table, x, dcols, ddx, beta, live, **kw)
-        e = max(compare_rel(got.d_dcols, want.d_dcols, 1e-5, f"GT {label} d_dcols"),
-                compare_rel(got.d_x, want.d_x, 1e-5, f"GT {label} d_x"))
-        scale = gt_table_scale(spec, x, dcols, ddx, beta, live, frac, shard)
-        e_flat = compare_table_grad(got.d_flat, want.d_flat, scale, f"GT {label} table grad")
-        check(not bool(got.d_flat[scale == 0].any()),
-              f"GT {label}: table rows no update reaches are not zero")
-    print(f"GT {label}: max abs err d_dcols, d_x {e:.3e} (1e-5 of each max; bit for bit in a "
-          f"second launch), table gradient {e_flat:.3e} (2^-11·S over its updates' terms)")
-    return e, e_flat
+    scale = gt_table_scale(spec, x, dcols, ddx, beta, live, frac, shard)
+    worst = {}
+    for need_x, outputs in ((True, "all outputs"), (False, "the step's outputs")):
+        what = f"GT {label}, {outputs}"
+        with torch.inference_mode():
+            got = grid_encode_third(spec, table, x, dcols, ddx, beta, live, need_x=need_x, **kw)
+            again = grid_encode_third(spec, table, x, dcols, ddx, beta, live, need_x=need_x,
+                                      **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got.d_dcols, again.d_dcols)
+                  and (not need_x or torch.equal(got.d_x, again.d_x)),
+                  f"{what}: d_dcols or d_x differ between two launches")
+            check(need_x or got.d_x is None, f"{what}: d_x computed")
+            want = grid_encode_third_plain(spec, table, x, dcols, ddx, beta, live,
+                                           need_x=need_x, **kw)
+            e = compare_rel(got.d_dcols, want.d_dcols, 1e-5, f"{what} d_dcols")
+            if need_x:
+                e = max(e, compare_rel(got.d_x, want.d_x, 1e-5, f"{what} d_x"))
+            e_flat = compare_table_grad(got.d_flat, want.d_flat, scale, f"{what} table grad")
+            check(not bool(got.d_flat[scale == 0].any()),
+                  f"{what}: table rows no update reaches are not zero")
+        print(f"{what}: max abs err d_dcols{', d_x' if need_x else ''} {e:.3e} (1e-5 of each "
+              f"max; bit for bit in a second launch), table gradient {e_flat:.3e} (2^-11·S "
+              "over its updates' terms)")
+        worst[need_x] = max(e, e_flat)
+    return worst
 
 
 def curvature_check(gen, dev, act):
@@ -3707,25 +3738,43 @@ def slice14(gen, dev, hash_times):
         net.encoding.grid.uniform_(-1, 1, generator=gen)
     table = net.encoding.grid.detach()
     B, D = MAIN_BATCH, spec.n_dims
-    phase(f"slice 14: GT vs plain at the SDF grid (fp32, {spec.n_levels} levels x "
-          f"{spec.n_features_per_level}, {spec.levels[-1].size} rows), B={B} and 2^14, "
-          "shard 0 of 2 and a mask at 0.5")
+    phase(f"slice 14: GT vs plain in each instance family, all outputs and the curvature "
+          f"step's: the SDF grid (fp32, {spec.n_levels} levels x {spec.n_features_per_level}, "
+          f"{spec.levels[-1].size} rows) at B={B} and 2^14, config_btf's 4-D grid (bf16) at "
+          "2^14, the SDF grid with the Rng hash, a mask at 0.5 and shard 0 of 2")
     x = torch.rand((B, D), generator=gen, device=dev) * 0.9 + 0.05
     dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev)
     ddx, beta = (torch.randn((B, D), generator=gen, device=dev) for _ in range(2))
     n14 = 1 << 14
     a14 = (x[:n14], dcols[:, :n14].contiguous(), ddx[:n14], beta[:n14])
-    err["GT sdf"] = max(check_third_order(spec, table, x, dcols, ddx, beta, live,
-                                          label="SDF 2^18"))
-    err["GT sdf 2^14"] = max(check_third_order(spec, table, *a14, live, label="SDF 2^14"))
+    sdf_err = check_third_order(spec, table, x, dcols, ddx, beta, live, label="SDF 2^18")
+    err["GT sdf"], err["GT sdf step outputs"] = sdf_err[True], sdf_err[False]
+    # the other entries are timed with all outputs, so their errors are those
+    err["GT sdf 2^14"] = check_third_order(spec, table, *a14, live, label="SDF 2^14")[True]
+    btf_spec = create_from_config(6, 3, BTF_CONFIG, policy=BF16_POLICY).network.encoding \
+        .nested[0].spec
+    btf_table = (torch.rand(btf_spec.n_params, generator=gen, device=dev) * 2 - 1).to(
+        torch.bfloat16)
+    # a column slice of a (B, 6) input, read in place, as config_btf's grid reads it
+    btf_x = torch.rand((n14, 6), generator=gen, device=dev)[:, :btf_spec.n_dims]
+    btf_a = (btf_x, torch.randn((btf_spec.n_output_dims, n14), generator=gen, device=dev).to(
+        torch.bfloat16), *(torch.randn((n14, btf_spec.n_dims), generator=gen, device=dev)
+                           for _ in range(2)))
+    btf_live = list(range(btf_spec.n_levels))
+    err["GT config_btf"] = check_third_order(
+        btf_spec, btf_table, *btf_a, btf_live, label="config_btf 4-D CoherentAdd, bf16, 2^14")[True]
+    rng_spec = create_from_config(3, 1, {**sdf.CONFIG, "encoding": {
+        **sdf.CONFIG["encoding"], "hash": "Rng"}}, policy=Policy()).network.encoding.spec
+    err["GT sdf Rng"] = check_third_order(
+        rng_spec, table, *a14, live, label="SDF grid, Rng hash, 2^14 (run-time-D instance)")[True]
     shard = (0, 2)
     perm = torch.from_numpy(grid_ops.block_cyclic_perm(spec, 2)).to(dev)
     shard_table = table[perm].chunk(2)[0].clone()
-    err["GT sdf shard"] = max(check_third_order(spec, shard_table, *a14, live, shard=shard,
-                                                label="SDF 2^14, shard 0 of 2"))
+    err["GT sdf shard"] = check_third_order(spec, shard_table, *a14, live, shard=shard,
+                                            label="SDF 2^14, shard 0 of 2")[True]
     half = torch.full((B,), 0.5, device=dev)
-    err["GT sdf masked"] = max(check_third_order(spec, table, x, dcols, ddx, beta, live, half,
-                                                 label="SDF 2^18, mask at 0.5"))
+    err["GT sdf masked"] = check_third_order(spec, table, x, dcols, ddx, beta, live, half,
+                                             label="SDF 2^18, mask at 0.5")[True]
 
     phase("slice 14: G's stochastic gather vs plain at the Rng and stochastic config_hash "
           f"geometry, B={B}")
@@ -3794,6 +3843,8 @@ def slice14(gen, dev, hash_times):
     phase(f"slice 14: the curvature step (eikonal + {sdf.CURVATURE_WEIGHT} · mean |H v|^2) of "
           f"the SDF model, ReLU and Softplus, at 2^{CURVATURE_CHECK_POW} against the plain path")
     step_launches = {act: curvature_check(gen, dev, act) for act in ("ReLU", "Softplus")}
+    check(all(n["GT"] == 1 for n in step_launches.values()),
+          f"curvature step: GT launches {step_launches}, expected one a step")
 
     phase(f"slice 14: {CURVATURE_STEPS} curvature steps at 2^{CURVATURE_BATCH_POW} "
           "(ReLU, the SDF sample's model): the main path")
@@ -3839,6 +3890,13 @@ def slice14(gen, dev, hash_times):
 
     t["curvature step"] = time_ms(curvature_step, n=10)
     t["curvature step device"] = graph_ms(curvature_step, n=5)
+    estate = opt.init(dict(net.named_parameters()), net.param_layout())
+
+    def eikonal_step():
+        sdf.step(net, opt, estate, xs, xv)
+
+    t["eikonal step"] = time_ms(eikonal_step, n=10)
+    t["eikonal step device"] = graph_ms(eikonal_step, n=5)
     # The MLP's part (torch operations, no kernel): its second order as the
     # eikonal step runs it, and the same with its graph kept and
     # differentiated once more in the weights and the features, as the
@@ -3867,27 +3925,34 @@ def slice14(gen, dev, hash_times):
     print(f"the MLP's part at B={B} (torch operations): its second order "
           f"{t['MLP second order']:.4f} ms on the device; kept and differentiated once more "
           f"{t['MLP third order']:.4f} ms")
-    calls = {"GT sdf": ((spec, table, x, dcols, ddx, beta, live), {}),
+    sdf_args = (spec, table, x, dcols, ddx, beta, live)
+    calls = {"GT sdf": (sdf_args, {}),
+             "GT sdf step outputs": (sdf_args, {"need_x": False}),
              "GT sdf 2^14": ((spec, table, *a14, live), {}),
+             "GT config_btf": ((btf_spec, btf_table, *btf_a, btf_live), {}),
+             "GT sdf Rng": ((rng_spec, table, *a14, live), {}),
              "GT sdf shard": ((spec, shard_table, *a14, live), {"shard": shard}),
-             "GT sdf masked": ((spec, table, x, dcols, ddx, beta, live), {"level_frac": half})}
+             "GT sdf masked": (sdf_args, {"level_frac": half})}
     outs = {}
     with torch.inference_mode():
         for k, (a, kw) in calls.items():
-            outs[k] = grid_encode_third(*a, **kw)
+            outs[k] = [o for o in grid_encode_third(*a, **kw) if o is not None]
             t[k] = graph_ms(lambda: grid_encode_third(*a, **kw))
             t[k + " plain"] = eager_ms(lambda: grid_encode_third_plain(*a, **kw), n=2)
-    cst = spec.n_levels * grid_ops.LEVEL_FIELDS * 4
     idx14, _ = grid_ops.build_indices_weights(spec, a14[0], live, shard=shard)
     owned = float((idx14 >= 0).float().mean())   # the corners the shard holds
     kept = float((torch.arange(spec.n_levels, device=dev).float()
                   < 0.5 * spec.n_levels + 1e-3).float().mean())   # levels the mask keeps
     # each input read once (x, ddx, β, dcols, the touched table rows), each
-    # output written once (d_dcols, d_x, the table gradient); gt_flops for the
-    # (sample, level, corner) work this run's data needs
-    b = {k: (nbytes(*a[2:6], *outs[k]) + touched_bytes(spec, a[2], 4, kw.get("shard")) + cst,
-             gt_flops(spec, a[2].shape[0]) * (owned if "shard" in kw else 1.0)
-             * (kept if "level_frac" in kw else 1.0)) for k, (a, kw) in calls.items()}
+    # output asked for written once (d_dcols, d_x, the table gradient);
+    # gt_flops for the (sample, level, corner) work this run's data needs
+    b = {}
+    for k, (a, kw) in calls.items():
+        gspec, elem = a[0], a[1].element_size()
+        b[k] = (nbytes(*a[2:6], *outs[k]) + touched_bytes(gspec, a[2], elem, kw.get("shard"))
+                + gspec.n_levels * grid_ops.LEVEL_FIELDS * 4,
+                gt_flops(gspec, a[2].shape[0], kw.get("need_x", True))
+                * (owned if "shard" in kw else 1.0) * (kept if "level_frac" in kw else 1.0))
     for k, (n_bytes, ops) in b.items():
         t[k + " bound"] = bound_ms(n_bytes, ops, PEAK_FP32)
         t[k + " bound by"] = bound_by(n_bytes, ops, PEAK_FP32)
@@ -3900,6 +3965,8 @@ def slice14(gen, dev, hash_times):
           f"{1 - t['curvature step device'] / t['curvature step']:.3f}); launches per step "
           + ", ".join(f"{k} {per[k]}" for k in ("G", "M", "GB", "MB", "GI", "GG", "GT"))
           + f"; Softplus {step_launches['Softplus']}")
+    print(f"eikonal step at B={B} (ReLU, the same model): {t['eikonal step']:.4f} ms eager, "
+          f"{t['eikonal step device']:.4f} ms of device work")
 
     phase(f"slice 14: M and MB at 64 x {DEEP_M_HIDDEN} hidden layers, B={DEEP_M_BATCH}, "
           "against the plain versions and a chain of shallow launches")
@@ -4011,8 +4078,11 @@ def slice14(gen, dev, hash_times):
           " MB")
 
     out = entries(t, [("GT sdf", "GT", REPLACES_GT)], {"GT": fit_launches["GT"]}, err,
-                  {"launches_per_step": per["GT"], "batch": B})
-    for key, extra in (("GT sdf 2^14", {"batch": n14}),
+                  {"launches_per_step": per["GT"], "batch": B, "outputs": "all"})
+    for key, extra in (("GT sdf step outputs", {"batch": B, "outputs": "d_dcols, table"}),
+                       ("GT sdf 2^14", {"batch": n14}),
+                       ("GT config_btf", {"batch": n14, "dtype": "bfloat16"}),
+                       ("GT sdf Rng", {"batch": n14, "hash": "Rng"}),
                        ("GT sdf shard", {"batch": n14, "shard": [0, 2]}),
                        ("GT sdf masked", {"batch": B, "level_frac": 0.5})):
         out += entries(t, [(key, "GT", REPLACES_GT)], {"GT": fit_launches["GT"]}, err, extra)

@@ -174,6 +174,7 @@ void grid_encode_third(const torch::Tensor& x, int64_t x_stride_b,
                        const c10::optional<torch::Tensor>& level_frac, const torch::Tensor& table,
                        const torch::Tensor& dcols, const torch::Tensor& ddx,
                        const torch::Tensor& ct_dx, const torch::Tensor& level_params,
+                       const torch::Tensor& items, const std::vector<int64_t>& groups,
                        const c10::optional<torch::Tensor>& d_dcols,
                        const c10::optional<torch::Tensor>& dx_part,
                        const c10::optional<torch::Tensor>& d_x,
@@ -183,15 +184,18 @@ void grid_encode_third(const torch::Tensor& x, int64_t x_stride_b,
                        const std::vector<int64_t>& hash_factors, int64_t hash_kind,
                        int64_t interp, bool sharded) {
   TORCH_CHECK(hash_factors.size() == 7, "grid_encode_third: seven hash factors");
+  TORCH_CHECK(groups.size() % 4 == 0, "grid_encode_third: four fields per launch group");
   const c10::cuda::CUDAGuard guard(x.device());
   uint32_t factors[7];
   for (int d = 0; d < 7; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  const std::vector<int32_t> g(groups.begin(), groups.end());
   const bool has_out = out.has_value() && out->defined();
   C10_CUDA_CHECK(tcnn_tpu_torch::grid_encode_third_launch(
       x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), table.data_ptr(),
       table.scalar_type() == at::kBFloat16, dcols.data_ptr(),
       dcols.scalar_type() == at::kBFloat16, ddx.data_ptr<float>(), ct_dx.data_ptr<float>(),
       level_params.data_ptr<int32_t>(), static_cast<int>(level_params.size(0)),
+      items.data_ptr<int32_t>(), g.data(), static_cast<int>(g.size() / 4),
       optional_ptr<float>(d_dcols), optional_ptr<float>(dx_part), optional_ptr<float>(d_x),
       optional_ptr<float>(grad), has_out ? out->data_ptr() : nullptr,
       has_out && out->scalar_type() == at::kBFloat16, has_out ? out->numel() : 0, x.size(0),

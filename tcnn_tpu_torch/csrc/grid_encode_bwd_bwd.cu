@@ -26,9 +26,9 @@
 // the card at the SDF fit's 2^14 samples.
 //
 // Design: the work items of kernel GB's plan (ops/cuda/grid_encode.py::
-// gb_plan, with GG's own chunk sizes), all in one launch, one CTA per item
-// (level, rows [row_lo, row_lo + n_rows), samples [b0, b1)), one thread
-// per (sample, level) of the item.  The corner rows and weights come from
+// gb_plan, with GG's own chunk sizes; plan_items.cuh, shared with GT), all
+// in one launch, one CTA per item (level, rows [row_lo, row_lo + n_rows),
+// samples [b0, b1)), one thread per (sample, level) of the item.  The corner rows and weights come from
 // LevelCorners (grid_common.cuh), as in G, GB and GI; w'_c and the Hessian
 // of w_c times ddx from its dir_grad_hess, prefix and suffix products of
 // the per-dim factors, O(D) per corner.  A thread loads the table
@@ -69,23 +69,13 @@
 
 #include "grid_common.cuh"
 #include "kernels.h"
+#include "plan_items.cuh"
 #include "scatter_common.cuh"
 
 namespace tcnn_tpu_torch {
 namespace {
 
 constexpr int kGgThreads = 256;   // ops/cuda/grid_encode.py: GG_THREADS
-constexpr int kItemFields = 5;   // level, row_lo, n_rows (0: direct), b0, b1 (gb_plan)
-
-// Corners whose table rows a thread loads at once: a power of two, at least
-// 2 (scatter_pair's dim-0 pairs), at most 2^D, their rows in at most 16
-// floats where that allows (more would spill).
-template <int D, int F>
-__host__ __device__ constexpr int corner_group() {
-  int g = 16;
-  while (g > 2 && g * F > 16) g /= 2;
-  return g < (1 << D) ? g : (1 << D);
-}
 
 struct GgParams {
   const float* x;
@@ -104,69 +94,12 @@ struct GgParams {
   bool table_bf16, dcols_bf16;
 };
 
-// The item of this CTA and what the CTA computes of it.
-struct GgItem {
-  int level;
-  const int32_t* lp;
-  uint32_t row_lo, n_rows, offset;
-  int64_t b0, b1;
-  bool outputs;   // d_dcols and d_x's partials of the item's (sample, level)
-  bool window;    // the table gradient summed in shared memory
-
-  __device__ __forceinline__ explicit GgItem(const GgParams& a) {
-    const int32_t* it = a.items + int64_t(blockIdx.x) * kItemFields;
-    level = it[0];
-    row_lo = uint32_t(it[1]);
-    n_rows = uint32_t(it[2]);
-    b0 = it[3];
-    b1 = it[4];
-    lp = a.level_params + level * kLevelFields;
-    offset = uint32_t(lp[2]);
-    // the first part of a windowed level starts at the level's (the
-    // shard's block's) first row: held row lp[15] less the row base lp[2]
-    const bool first = n_rows == 0 || row_lo == uint32_t(lp[15]) - offset;
-    outputs = first && (a.d_dcols != nullptr || a.dx_part != nullptr);
-    window = n_rows != 0 && a.grad != nullptr;
-  }
-};
-
-// Adds the corner pair's updates w'_h * dy (h = 0, 1: corners c, c + 1) of
-// one sample to the table gradient: into the window, or by global atomics.
-template <int F>
-__device__ __forceinline__ void scatter_pair(const GgParams& a, const GgItem& it, float* win,
-                                             const uint32_t (&row)[2], const float (&wp)[2],
-                                             const float (&dy)[F]) {
-  if (it.window) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t r = row[h] - it.offset - it.row_lo;   // wraps above n_rows below row_lo
-      if (wp[h] == 0.0f || r >= it.n_rows) continue;
-#pragma unroll
-      for (int k = 0; k < F; ++k) window_add(win + r * F + k, __fmul_rn(wp[h], dy[k]));
-    }
-    return;
-  }
-  if constexpr (F == 2) {
-    if (row[1] == row[0] + 1 && (row[0] & 1) == 0) {   // one 16-byte atomic for the pair
-      if (wp[0] != 0.0f || wp[1] != 0.0f) {
-        const float v[4] = {__fmul_rn(wp[0], dy[0]), __fmul_rn(wp[0], dy[1]),
-                            __fmul_rn(wp[1], dy[0]), __fmul_rn(wp[1], dy[1])};
-        global_add<4>(a.grad + int64_t(row[0]) * 2, v);
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (wp[h] != 0.0f) add_row<F>(a.grad + int64_t(row[h]) * F, wp[h], dy);
-}
-
 template <int D, int F>
 __global__ void __launch_bounds__(kGgThreads)
 grid_encode_bwd_bwd_kernel(GgParams a) {
   extern __shared__ float win[];
   constexpr int C = 1 << D;
-  const GgItem it(a);
+  const PlanItem it(a);
   if (!it.outputs && a.grad == nullptr) return;
   if (it.window) {
     window_zero(win, int(it.n_rows) * F);
@@ -221,7 +154,8 @@ grid_encode_bwd_bwd_kernel(GgParams a) {
       if (a.grad != nullptr) {
 #pragma unroll
         for (int g = 0; g < G; g += 2)
-          scatter_pair<F>(a, it, win, {rows[c0 + g], rows[c0 + g + 1]}, {wp[g], wp[g + 1]}, dy);
+          scatter_pair<F>(a.grad, it, win, {rows[c0 + g], rows[c0 + g + 1]},
+                          {wp[g], wp[g + 1]}, dy);
       }
     }
     if (it.outputs) {
@@ -251,7 +185,7 @@ template <bool kShard>
 __global__ void __launch_bounds__(kGgThreads)
 grid_encode_bwd_bwd_wide_kernel(GgParams a, int n_dims, int n_features) {
   extern __shared__ float win[];
-  const GgItem it(a);
+  const PlanItem it(a);
   if (!it.outputs && a.grad == nullptr) return;
   const int C = 1 << n_dims, F = n_features;
   if (it.window) {
@@ -301,24 +235,7 @@ grid_encode_bwd_bwd_wide_kernel(GgParams a, int n_dims, int n_features) {
 #pragma unroll
           for (int k = 0; k < 8; ++k) dd[k] += wp * t[k];
         }
-        if (a.grad == nullptr || wp == 0.0f) continue;
-        if (it.window) {
-          const uint32_t r = row - it.offset - it.row_lo;   // wraps above n_rows below row_lo
-          if (r >= it.n_rows) continue;
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if (k < F) window_add(win + r * F + k, __fmul_rn(wp, dy[k]));
-        } else if (F % 2 == 0) {   // float2 atomics
-          float* p = a.grad + int64_t(row) * F;
-#pragma unroll
-          for (int k = 0; k < 8; k += 2)
-            if (k < F) global_add<2>(p + k, {__fmul_rn(wp, dy[k]), __fmul_rn(wp, dy[k + 1])});
-        } else {
-          float* p = a.grad + int64_t(row) * F;
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if (k < F) atomicAdd(p + k, __fmul_rn(wp, dy[k]));
-        }
+        if (a.grad != nullptr) scatter_one(a.grad, it, win, row, wp, dy, F);
       }
     }
     if (it.outputs) {
@@ -340,36 +257,9 @@ grid_encode_bwd_bwd_wide_kernel(GgParams a, int n_dims, int n_features) {
   }
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch_group(Kernel kernel, int n_items, int smem, cudaStream_t stream,
-                         Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<n_items, kGgThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-struct BwdBwdLaunch {
-  GgParams a;
-  const int32_t* groups;   // host: (first item, items, window bytes, parts) per launch
-  int n_groups;
-  cudaStream_t stream;
-
-  template <int D, int F>
-  cudaError_t run() const {
-    for (int i = 0; i < n_groups; ++i) {
-      const int32_t* g = groups + 4 * i;
-      GgParams p = a;
-      p.items = a.items + int64_t(g[0]) * kItemFields;
-      const cudaError_t err = launch_group(grid_encode_bwd_bwd_kernel<D, F>, g[1],
-                                           a.grad ? g[2] : 0, stream, p);
-      if (err != cudaSuccess) return err;
-    }
-    return cudaSuccess;
-  }
+template <int D, int F>
+struct GgInstance {
+  static auto kernel() { return grid_encode_bwd_bwd_kernel<D, F>; }
 };
 
 }  // namespace
@@ -382,16 +272,12 @@ cudaError_t grid_encode_bwd_bwd_launch(
     bool out_bf16, int64_t n_params, int64_t batch, int n_dims, int n_features,
     int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind,
     int interp, bool sharded, cudaStream_t stream) {
-  if (batch <= 0 || n_levels <= 0 || n_groups < 0 || interp < 0 || interp > 2 ||
-      x_stride_b < n_dims || (d_x == nullptr) != (dx_part == nullptr) ||
+  if (batch <= 0 || n_levels <= 0 || !groups_valid(groups, n_groups) || interp < 0 ||
+      interp > 2 || x_stride_b < n_dims || (d_x == nullptr) != (dx_part == nullptr) ||
       (grad == nullptr) != (out == nullptr) || (grad != nullptr && n_params <= 0) ||
       (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims || n_features < 1 ||
       n_features > 8)
     return cudaErrorInvalidValue;
-  for (int i = 0; i < n_groups; ++i)
-    if (groups[4 * i + 1] <= 0 || groups[4 * i + 2] < 0 ||
-        groups[4 * i + 2] > kWindowMaxBytes || groups[4 * i + 3] != 1)   // no clusters
-      return cudaErrorInvalidValue;
   const GgParams a{x, level_frac, table, dcols, ddx, level_params, items, d_dcols, dx_part,
                    grad, batch, x_stride_b, dc_stride_b, dc_stride_f,
                    make_hash_consts(hash_factors, hash_kind), n_levels, interp, table_bf16,
@@ -402,14 +288,10 @@ cudaError_t grid_encode_bwd_bwd_launch(
   if (sharded || wide_instance(n_dims, hash_kind) || level_frac != nullptr) {
     const auto kernel = sharded ? grid_encode_bwd_bwd_wide_kernel<true>
                                 : grid_encode_bwd_bwd_wide_kernel<false>;
-    for (int i = 0; i < n_groups && err == cudaSuccess; ++i) {
-      const int32_t* g = groups + 4 * i;
-      GgParams p = a;
-      p.items = a.items + int64_t(g[0]) * kItemFields;
-      err = launch_group(kernel, g[1], grad ? g[2] : 0, stream, p, n_dims, n_features);
-    }
+    err = launch_groups<kGgThreads>(kernel, a, groups, n_groups, stream, n_dims, n_features);
   } else {
-    err = dispatch_df(n_dims, n_features, BwdBwdLaunch{a, groups, n_groups, stream});
+    err = dispatch_df(n_dims, n_features,
+                      PlanLaunch<kGgThreads, GgParams, GgInstance>{a, groups, n_groups, stream});
   }
   if (err != cudaSuccess) return err;
   if (d_x != nullptr) {

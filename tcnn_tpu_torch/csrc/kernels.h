@@ -143,12 +143,15 @@ cudaError_t grid_encode_bwd_bwd_launch(
 // blocks of GG's backward that no other kernel computes, given ct_dx, the
 // cotangent of GG's d_x.
 //   x, level_frac, table, dcols and the rest: as for grid_encode_bwd_bwd_launch;
-//                a masked (sample, level) or a dead level adds nothing and
-//                writes 0 to d_dcols and its d_x partial
+//                a masked (sample, level) adds nothing and writes 0 to
+//                d_dcols and its d_x partial
 //   ddx, ct_dx   (batch, n_dims) float32, contiguous: v and beta, u_c = beta^T
 //                (d2 w_c / dx2) v per corner
+//   items, groups  as for grid_encode_bwd_bwd_launch (gb_plan's items, GG's
+//                chunks; parts 1)
 //   d_dcols      (n_levels * n_features, batch) float32 SoA, or null:
-//                sum_c u_c table[row_c] (every level's rows written)
+//                sum_c u_c table[row_c], written for the live levels only
+//                (the caller zeroes the others)
 //   dx_part, d_x as for grid_encode_bwd_bwd_launch: sum over levels and
 //                corners of (d3 w_c / dx3)[beta, v, .] <table[row_c], dcols>
 //   grad, out    table gradient u_c * dcols added onto row_c, as for
@@ -156,10 +159,11 @@ cudaError_t grid_encode_bwd_bwd_launch(
 cudaError_t grid_encode_third_launch(
     const float* x, int64_t x_stride_b, const float* level_frac, const void* table,
     bool table_bf16, const void* dcols, bool dcols_bf16, const float* ddx, const float* ct_dx,
-    const int32_t* level_params, int n_levels, float* d_dcols, float* dx_part, float* d_x,
-    float* grad, void* out, bool out_bf16, int64_t n_params, int64_t batch, int n_dims,
-    int n_features, int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7],
-    int hash_kind, int interp, bool sharded, cudaStream_t stream);
+    const int32_t* level_params, int n_levels, const int32_t* items, const int32_t* groups,
+    int n_groups, float* d_dcols, float* dx_part, float* d_x, float* grad, void* out,
+    bool out_bf16, int64_t n_params, int64_t batch, int n_dims, int n_features,
+    int64_t dc_stride_b, int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind,
+    int interp, bool sharded, cudaStream_t stream);
 
 // Kernel RS: row scatter-add (csrc/row_scatter.cu).
 //   idx          (m) int32 rows; rows outside [0, n_rows) are skipped

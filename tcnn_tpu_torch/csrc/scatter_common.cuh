@@ -1,5 +1,6 @@
 // On-chip accumulation shared by the scatter kernels RS (row_scatter.cu),
-// GB (grid_encode_bwd.cu) and GG (grid_encode_bwd_bwd.cu).
+// GB (grid_encode_bwd.cu), GG (grid_encode_bwd_bwd.cu) and GT
+// (grid_encode_third.cu).
 //
 // Both add many fp32 updates into rows of a table in device memory, and on
 // the coarse rows thousands of updates land on one address, where fp32

@@ -15,9 +15,9 @@ level of every grid goes to G and GB: the JAX package's per-level routing
 costs and is not carried over.  GI, GG and GT have no TPU kernel: the JAX
 package forms them in jnp (``_finish_interp_bwd`` and autodiff of
 ``_build_indices_weights``, and of the backward of ``_grid_interpolate``);
-GG adds its table gradient itself, on GB's work plan (``gb_plan``).  A
-CUDA tensor launches the kernel; a CPU tensor takes ``grid_encode_plain``,
-``grid_encode_bwd_plain``, ``grid_encode_bwd_input_plain``,
+GG and GT add their table gradients themselves, on GB's work plan
+(``gb_plan``).  A CUDA tensor launches the kernel; a CPU tensor takes
+``grid_encode_plain``, ``grid_encode_bwd_plain``, ``grid_encode_bwd_input_plain``,
 ``grid_encode_bwd_bwd_plain`` or ``grid_encode_third_plain``, the same
 functions in plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold
 the kernels against.  All five take optional per-sample level fractions
@@ -40,9 +40,9 @@ GB issues no atomic, GI adds no term to dx, GG and GT add nothing to any
 of their outputs, whose table gradients have the shard's rows.  Unsharded
 (None) every kernel runs as it did.  GB tests ``sharded`` at run time in
 its instances (only its direct atomics need the test: the plan's windows
-lie in the shard's block); G and GT run their run-time-D instance with the
-test, and GI and GG a shard copy of theirs, so that the 1- to 4-D
-instances of G, GI and GG keep their code and bits.
+lie in the shard's block); G runs its run-time-D instance with the test,
+and GI, GG and GT a shard copy of theirs, so that the 1- to 4-D instances
+of G, GI, GG and GT carry no code of it.
 """
 
 from __future__ import annotations
@@ -283,7 +283,10 @@ GB_CLUSTER_PARTS = False
 # item flushes its rows once: measured on an H100 (PERF.md), GG at the SDF
 # fit's 2^14 samples ran 5.6x faster with one sample a thread than with 16
 # (GB's chunks), and at 2^18 16% slower, where a coarse level's 1024
-# windows each flushed the same 64 rows.
+# windows each flushed the same 64 rows.  Kernel GT
+# (csrc/grid_encode_third.cu) runs on the same chunks: its CTA has GG's
+# shape and its work per corner is GG's with a few more products, so what
+# sized GG's items sizes its own (PERF.md records GT's times on them).
 GG_THREADS = 256
 GG_ITEMS = 64
 
@@ -723,9 +726,10 @@ def grid_encode_third(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tens
     """Kernel GT (``csrc/grid_encode_third.cu``): see
     ``grid_encode_third_plain``.  ``flat``, ``x``, ``dcols``, ``level_frac``
     and ``shard`` as for ``grid_encode_bwd_bwd``; ``ddx`` and ``ct_dx``
-    (B, D) float32.  One thread per (sample, level), D and F at run time
-    (one instance); the table gradient in fp32 with atomics (not
-    bit-reproducible, like GB's and GG's), d_dcols and d_x with the same
+    (B, D) float32.  The kernel runs on ``gb_plan``'s items with GG's
+    chunks, one (sample, level) a thread, and adds the table gradient
+    itself, in fp32 in shared-memory windows and with atomics (not
+    bit-reproducible, like GB's and GG's); d_dcols and d_x have the same
     bits from launch to launch (d_x: per-level partials summed in level
     order)."""
     if x.device.type == "cpu":
@@ -743,11 +747,15 @@ def grid_encode_third(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tens
             raise ValueError(f"{name}: {what} must be ({B}, {D}), got {tuple(t.shape)}")
     ddx, ct_dx = ddx.float().contiguous(), ct_dx.float().contiguous()
     require_cuda_tensors(name, x, ddx, ct_dx)
+    if B >= 2 ** 31:
+        raise ValueError(f"{name}: {B} samples exceed the plan's int32 sample indices")
     level_consts = _consts(spec, live, x.device, shard)
+    items, groups = _gb_plan_on(spec, live, B, x.device, shard, gg_chunks(B))
     factors, hash_kind = _hash_args(spec)
     F, L, dev = spec.n_features_per_level, spec.n_levels, x.device
-    # the kernel writes every level's rows of d_dcols and d_x's partials
-    d_dcols = torch.empty((L * F, B), dtype=torch.float32, device=dev) if need_dcols else None
+    # the kernel writes the live levels' rows of d_dcols only
+    d_dcols = ((torch.zeros if len(set(live)) < L else torch.empty)(
+        (L * F, B), dtype=torch.float32, device=dev) if need_dcols else None)
     d_x = torch.empty((B, D), dtype=torch.float32, device=dev) if need_x else None
     dx_part = torch.empty((L, B, D), dtype=torch.float32, device=dev) if need_x else None
     grad = (torch.empty(flat.numel(), dtype=torch.float32, device=dev) if need_table
@@ -756,9 +764,9 @@ def grid_encode_third(spec: grid_ops.GridSpec, flat: torch.Tensor, x: torch.Tens
     if B == 0:
         return Third(d_dcols, d_x, None if grad is None else grad.zero_().to(flat.dtype))
     kernels().grid_encode_third(x, _x_row_stride(x), level_frac, flat, dcols, ddx, ct_dx,
-                                level_consts, d_dcols, dx_part, d_x, grad, out, D, F,
-                                dcols.stride(1), dcols.stride(0), factors, hash_kind,
-                                _INTERP_CODE[spec.interpolation], shard is not None)
+                                level_consts, items, groups, d_dcols, dx_part, d_x, grad,
+                                out, D, F, dcols.stride(1), dcols.stride(0), factors,
+                                hash_kind, _INTERP_CODE[spec.interpolation], shard is not None)
     grid_encode_third.launches += 1
     return Third(d_dcols, d_x, out)
 

@@ -535,18 +535,21 @@ def sharded_tables(group, n_shards: int):
 
 
 def _engine_will_use(t: torch.Tensor) -> bool:
-    """Whether the backward pass now running uses a gradient for ``t``.
+    """Whether the backward pass now running uses a gradient for ``t``
+    (the table or x).
 
     ``ctx.needs_input_grad`` says only that ``t`` requires one: under
     ``torch.autograd.grad(y, x)`` (``Module.input_gradient``, the first
     derivative of an eikonal step) the table's gradient would be computed
-    and thrown away.  The engine knows which nodes it will run; PyTorch
-    exposes that only through the private
+    and thrown away, and under ``torch.autograd.grad(loss, params)`` (the
+    parameter pass of an eikonal or curvature step) x's.  The engine knows
+    which nodes it will run; PyTorch exposes that only through the private
     ``torch._C._will_engine_execute_node`` (the query behind
     ``torch.autograd.graph.register_multi_grad_hook``), pinned by
     ``tests/test_torch_second_order.py::test_engine_node_query_pinned``.
     It refuses a leaf under ``autograd.grad``, so ``grid_encode`` hands the
-    functions a view of the table, never the leaf itself."""
+    functions views of the table and of an x that requires a gradient,
+    never the leaves themselves."""
     if t.grad_fn is None:   # a leaf: cannot be asked, assume the gradient is used
         return True
     return torch._C._will_engine_execute_node(t.grad_fn)
@@ -628,7 +631,7 @@ class GridEncodeFunction(torch.autograd.Function):
         flat, x, frac = ctx.saved_tensors
         dcols = dout if ctx.soa else dout.t()
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
-        need_x = ctx.needs_input_grad[1]
+        need_x = ctx.needs_input_grad[1] and _engine_will_use(x)
         if torch.is_grad_enabled():
             dflat, dx = GridEncodeBackwardFunction.apply(flat, x, dcols, ctx.spec, ctx.live,
                                                          need_table, need_x, frac, ctx.shard)
@@ -725,7 +728,8 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     def backward(ctx, ct_dflat, ct_dx):
         flat, x, dcols, frac = ctx.saved_tensors
         spec, live, shard = ctx.spec, ctx.live, ctx.shard
-        need_x, need_dcols = ctx.needs_input_grad[1:3]
+        need_dcols = ctx.needs_input_grad[2]
+        need_x = ctx.needs_input_grad[1] and _engine_will_use(x)
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         d_flat = d_x = d_dcols = None
         if ct_dx is not None:
@@ -858,7 +862,8 @@ class GridBwdBwdFunction(torch.autograd.Function):
     def backward(ctx, ct_ddcols, ct_dx, ct_dflat):
         flat, x, dcols, v, frac = ctx.saved_tensors
         spec, live, shard = ctx.spec, ctx.live, ctx.shard
-        need_x, need_dcols, need_v = ctx.needs_input_grad[1:4]
+        need_dcols, need_v = ctx.needs_input_grad[2:4]
+        need_x = ctx.needs_input_grad[1] and _engine_will_use(x)
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         need_dcols = need_dcols and dcols is not None
         if dcols is None:
@@ -1081,6 +1086,8 @@ def grid_encode(spec: GridSpec, table: torch.Tensor, x: torch.Tensor,
                              f"for {x.shape[0]} samples")
         frac = frac.to(device=x.device, dtype=torch.float32).contiguous()
     live = tuple(live_levels(spec, max_level))
+    if x.requires_grad:   # a view the engine can be asked about (_engine_will_use)
+        x = x.view_as(x)
     if not sharded:
         return GridEncodeFunction.apply(flat, x, spec, live, soa, frac)
     if spec.stochastic_interpolation:

@@ -1,4 +1,4 @@
-"""Where the time of kernels G, GB, GI, GG, RS, M and MB goes, on the card.
+"""Where the time of kernels G, GB, GI, GG, GT, RS, M and MB goes, on the card.
 
     python3 -m tcnn_tpu_torch.tools.kernel_ablation [--out DIR] [--only PREFIX ...]
                                                    [--baseline ROOT]
@@ -22,7 +22,10 @@ CUDA graph of 30 calls:
     (shard 0 of 2), and the grid's second order as the eikonal step calls
     it (``GridBwdBwdFunction.forward``: GG, or in a checkout before GG
     added its table gradient itself, GG and RS); RS on GG's updates as
-    (rows, g) at the eikonal step's layout;
+    (rows, g) at the eikonal step's layout; GT at the SDF step's shape
+    with all outputs and with the curvature step's (d_dcols and the table
+    gradient, no d_x), at 2^14, under a mask at 0.5 and at 2^14 in shard
+    mode (shard 0 of 2);
   * GB over no level (its zeroing and cast) and one level at a time;
   * the same kernels in ablated copies of the package: ``DIR/<name>``
     holds a copy of ``tcnn_tpu_torch`` with one source patch
@@ -35,7 +38,7 @@ CUDA graph of 30 calls:
 at ROOT (say, the parent commit unpacked by ``git archive`` into a
 directory ``.gitignore`` lists) with this file's timing code, in the same
 call, as the variant ``baseline``, and says which outputs of the
-deterministic kernels (G, GI, GG's d_dcols and d_x, M, MB's dW), and
+deterministic kernels (G, GI, GG's and GT's d_dcols and d_x, M, MB's dW), and
 GB's on inputs whose sums are exact in any order, have the same bits in
 both.
 ``--steps ROUNDS`` instead times whole steps of this checkout and of ROOT
@@ -43,12 +46,18 @@ in turn, ROUNDS runs each (``compare_steps``): ``chip_smoke.py``'s
 config_hash step (on the device, eager, its parts alone, the loop) and
 its SDF eikonal step (on the device, eager, its peak device memory
 above what it finds allocated, and what it holds when it calls the
-grid's second order and the peak inside that call).
+grid's second order and the peak inside that call) and its curvature
+step (the eikonal loss plus 1e-3 · mean |H v|², on the device and eager),
+and the host's share of each step (``host_ms``: the wall time one call
+takes to return and to finish on the card, the card idle before it,
+median and least), each with the build time of both checkouts, and per
+number the rounds in which this checkout read lower.
 Every number is printed beside the card's name and power limit.  Needs
 one CUDA device; DIR defaults to ``build/ablations`` at the checkout's
 root.  ``--atomics`` instead counts, on the CPU, the global atomics one
-launch of GB and of RS issues at B = 2^18 on the inputs ``chip_smoke.py``
-times them on, in this design and in the one before it (``atomic_counts``);
+launch of GB, of RS and of GT issues at B = 2^18 on inputs drawn as
+``chip_smoke.py`` draws them, in this design and in the one before it
+(``atomic_counts``);
 ``--sectors`` the 32-byte table sectors one launch of G requests
 (``sector_counts``).
 """
@@ -446,17 +455,18 @@ def _bits(t: torch.Tensor) -> str:
 
 
 def time_kernels(config: str, full: bool) -> dict:
-    """Times G, GB, GI, GG, RS, M and MB of the ``tcnn_tpu_torch`` on
+    """Times G, GB, GI, GG, GT, RS, M and MB of the ``tcnn_tpu_torch`` on
     ``sys.path``; entries ``bits ...`` hold digests of the outputs of the
-    deterministic kernels (G, GI, GG's d_dcols and d_x, M, MB's dW) and of
-    GB's on inputs whose sums are exact."""
+    deterministic kernels (G, GI, GG's and GT's d_dcols and d_x, M, MB's
+    dW) and of GB's on inputs whose sums are exact."""
     from tcnn_tpu_torch import BF16_POLICY, create_from_config
     from tcnn_tpu_torch.common import Activation, HashType
     from tcnn_tpu_torch import Policy
     from tcnn_tpu_torch.ops import grid_ops
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
     from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
-                                                     grid_encode_bwd_input, grid_encode_fwd)
+                                                     grid_encode_bwd_input, grid_encode_fwd,
+                                                     grid_encode_third)
     from tcnn_tpu_torch.ops.cuda.scatter import row_scatter_add
     from tcnn_tpu_torch.ops.grid_ops import GridBwdBwdFunction
     from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
@@ -578,6 +588,21 @@ def time_kernels(config: str, full: bool) -> dict:
         out["bits GG d_x sdf"] = _bits(gg.d_x)
         rows, g = _gg_updates(sspec, stable, xv, sdc, ddx, slive)
         out["RS sdf"] = graph_ms(lambda: row_scatter_add(rows, g, sspec.n_entries))
+        # GT at the curvature step's shape (v, β ~ N(0, 1)): all outputs, the
+        # step's (no d_x), 2^14, a mask at 0.5 and shard 0 of 2 at 2^14
+        beta = torch.randn((BATCH, 3), generator=gen, device=dev)
+        gt_args = (sspec, stable, xv, sdc, ddx, beta, slive)
+        g14 = (xv[:n14], sdc[:, :n14], ddx[:n14], beta[:n14], slive)
+        mid = torch.full((BATCH,), 0.5, device=dev)
+        out["GT sdf"] = graph_ms(lambda: grid_encode_third(*gt_args))
+        out["GT sdf step outputs"] = graph_ms(lambda: grid_encode_third(*gt_args, need_x=False))
+        out["GT sdf 2^14"] = graph_ms(lambda: grid_encode_third(sspec, stable, *g14))
+        out["GT sdf masked"] = graph_ms(lambda: grid_encode_third(*gt_args, level_frac=mid))
+        out["GT sdf 2^14 shard"] = graph_ms(lambda: grid_encode_third(sspec, half, *g14,
+                                                                      shard=(0, 2)))
+        gt = grid_encode_third(*gt_args)
+        out["bits GT d_dcols sdf"] = _bits(gt.d_dcols)
+        out["bits GT d_x sdf"] = _bits(gt.d_x)
         btf = create_from_config(6, 3, str(Path(config).parent / "config_btf.json"),
                                  policy=BF16_POLICY)
         bspec = btf.network.encoding.nested[0].spec
@@ -651,12 +676,34 @@ def fp32_check(ws, x, g, soa: bool) -> str:
             f"{rows.numel()} of {a.shape[0]} ({explained} explained by a switched ReLU)")
 
 
+def _plan_atomics(plan, level: int, offset: int, rows, nonzero, F: int) -> int:
+    """Global atomics that the items of ``plan`` on ``level`` issue, given
+    the (C, B) table rows of its corners and where their updates are
+    nonzero: a window item one per row its samples' updates touch; a direct
+    item one per corner of nonzero update, one float4 for two dim-0
+    neighbours on rows r, r + 1 with r even (F = 2)."""
+    n = 0
+    for _, lo, n_rows, b0, b1 in plan.items[plan.items[:, 0] == level].tolist():
+        r, ok = rows[:, b0:b1] - offset, nonzero[:, b0:b1]
+        if n_rows:
+            ok = ok & (r >= lo) & (r < lo + n_rows)
+            n += int(torch.unique(r[ok]).numel())
+        elif F == 2:   # pairs of corners c, c + 1 (dim 0)
+            r0, r1 = r[0::2], r[1::2]
+            pair = (r1 == r0 + 1) & (r0 % 2 == 0) & (ok[0::2] | ok[1::2])
+            n += int(pair.sum()) + int((ok[0::2] & ~pair).sum()) + int((ok[1::2] & ~pair).sum())
+        else:
+            n += int(ok.sum())
+    return n
+
+
 def atomic_counts(batch: int = BATCH, seed: int = 0) -> dict:
     """Global atomics of one launch of GB (config_hash, the SDF step's
-    surface points, config_btf) and of RS (the eikonal step's (rows, g)),
-    counted from the kernels' code on inputs drawn as ``chip_smoke.py``
-    draws them: each a float2 (float4 at F = 4, scalar at F = 1, as
-    ``scatter_vec``) unless said otherwise.
+    surface points, config_btf), of RS (the eikonal step's (rows, g)) and
+    of GT (the SDF grid at the volume points, all outputs), counted from
+    the kernels' code on inputs drawn as ``chip_smoke.py`` draws them: each
+    a float2 (float4 at F = 4, scalar at F = 1, as ``scatter_vec``) unless
+    said otherwise.
 
       GB, the design before this one (one thread per sample and level):
         a level of at most 4096 values was summed per 4096-sample chunk in
@@ -667,10 +714,13 @@ def atomic_counts(batch: int = BATCH, seed: int = 0) -> dict:
         two dim-0 neighbours on rows r, r + 1 with r even (F = 2).
       RS before: one atomic per update; now: per chunk of 8192 updates
         (csrc/row_scatter.cu) one per distinct row where the chunk's row
-        range fits the 96 KB window, else one per update."""
+        range fits the 96 KB window, else one per update.
+      GT before (one thread per (sample, level) over a grid of levels): one
+        per corner of nonzero u; now on ``gb_plan`` with GG's chunks, as GB
+        now, for the corners of nonzero u."""
     import torch
 
-    from ..ops.cuda.grid_encode import gb_plan
+    from ..ops.cuda.grid_encode import gb_plan, gg_chunks
     from ..ops.grid_ops import build_indices_weights
     from .. import Policy, create_from_config
     from ..samples import fit_sdf_eikonal as sdf
@@ -701,18 +751,7 @@ def atomic_counts(batch: int = BATCH, seed: int = 0) -> dict:
                     before += F * int(torch.unique(rows[:, b0:b0 + 4096][live[:, b0:b0 + 4096]]).numel())
             else:
                 before += int(live.sum()) * max(1, F // 4 if F % 4 == 0 else F // 2 if F % 2 == 0 else F)
-            for _, lo, n, b0, b1 in plan.items[plan.items[:, 0] == li].tolist():
-                r, ok = rows[:, b0:b1] - lv.offset, live[:, b0:b1]
-                if n:
-                    ok = ok & (r >= lo) & (r < lo + n)
-                    after += int(torch.unique(r[ok]).numel())
-                elif F == 2:   # pairs of corners c, c + 1 (dim 0)
-                    r0, r1 = r[0::2], r[1::2]
-                    pair = (r1 == r0 + 1) & (r0 % 2 == 0) & (ok[0::2] | ok[1::2])
-                    after += int(pair.sum()) + int((ok[0::2] & ~pair).sum()) + int(
-                        (ok[1::2] & ~pair).sum())
-                else:
-                    after += int(ok.sum())
+            after += _plan_atomics(plan, li, lv.offset, rows, live, F)
             del idx, ws, rows, live
         out[f"GB {name}"] = (before, after)
     # RS on GG's level-major rows at the SDF grid (x_vol)
@@ -726,6 +765,19 @@ def atomic_counts(batch: int = BATCH, seed: int = 0) -> dict:
         span = int(r.max() - r.min() + 1)
         after += int(torch.unique(r).numel()) if span * 2 <= 96 * 1024 // 4 else r.numel()
     out["RS sdf"] = (rows.numel(), after)
+    # GT at the SDF grid on the volume points, v and β ~ N(0, 1)
+    C, F = 1 << spec.n_dims, spec.n_features_per_level
+    v, beta = (torch.randn((batch, spec.n_dims), generator=gen) for _ in range(2))
+    plan = gb_plan(spec, list(range(spec.n_levels)), batch, chunks=gg_chunks(batch))
+    before = after = 0
+    for li, lv in enumerate(spec.levels):
+        idx, _, _, d2ws = build_indices_weights(spec, xv, [li], order=2)
+        u = torch.einsum("nbde,bd,be->nb", d2ws, beta, v)
+        rows, nonzero = idx.reshape(C, batch), u != 0
+        before += int(nonzero.sum()) * max(1, F // 2 if F % 2 == 0 else F)
+        after += _plan_atomics(plan, li, lv.offset, rows, nonzero, F)
+        del idx, d2ws, u, rows, nonzero
+    out["GT sdf"] = (before, after)
     return out
 
 
@@ -812,13 +864,41 @@ def sector_counts(batch: int = BATCH, seed: int = 0) -> dict:
 STEP_PARTS = ("G", "M", "table copy", "loss", "MB", "GB", "Adam")   # chip_smoke.py's split
 
 
+def host_ms(fn, n=100, warmup=3) -> dict:
+    """The host's share of one call of fn(), each call started with the
+    card idle (the launch queue never fills, and no wait for the card is
+    counted unless fn() itself waits): the wall time until the call
+    returns, and the time from its start to the end of its device work
+    (CUDA events), the median and the least of each over n calls.  On a
+    host shared with other loads the least is the call's own cost and the
+    medians spread with the load (process CPU time, where the kernel counts
+    it in 10 ms ticks, is too coarse for one call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    wall, whole = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        w0 = time.perf_counter()
+        fn()
+        wall.append((time.perf_counter() - w0) * 1e3)
+        end.record()
+        end.synchronize()
+        whole.append(start.elapsed_time(end))
+    return {"host wall": statistics.median(wall), "host wall min": min(wall),
+            "eager min": min(whole)}
+
+
 def time_steps() -> dict:
     """The whole steps ``chip_smoke.py`` times, by its own timing code
     (loaded from the checkout this file lies in), of the ``tcnn_tpu_torch``
     on ``sys.path``: config_hash's training step on the device and eager,
     its parts alone on the step's tensors (``slice_times``) and what the
     step holds beyond them, make_training_loop per step; the SDF eikonal
-    step on the device and eager, and its peak memory.  Inputs from seed 0,
+    step and the curvature step on the device and eager, and the eikonal
+    step's peak memory; the host's share of the three steps (``host_ms``).  Inputs from seed 0,
     as chip_smoke.py draws them."""
     import importlib.util
 
@@ -845,6 +925,8 @@ def time_steps() -> dict:
     t = smoke.slice_times("config_hash", model, x, target, loop)
     out = {f"config_hash {k}": t[k] for k in ("step device", "step", "loop step") + STEP_PARTS}
     out["config_hash rest"] = t["step device"] - sum(t[k] for k in STEP_PARTS)
+    out.update({f"config_hash step {k}": v
+                for k, v in host_ms(lambda: model.trainer.training_step(x, target)).items()})
 
     sdf_model = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
     net, opt = sdf_model.network, sdf_model.optimizer
@@ -858,6 +940,17 @@ def time_steps() -> dict:
 
     out["sdf step"] = smoke.time_ms(step)
     out["sdf step device"] = smoke.graph_ms(step)
+    out.update({f"sdf step {k}": v for k, v in host_ms(step).items()})
+    v = sdf.sample_directions(gen, BATCH, dev)
+    curvature_state = opt.init(dict(net.named_parameters()), net.param_layout())
+
+    def curvature_step():
+        _, grads = sdf.curvature_loss_and_grads(net, xs, xv, v)
+        opt.step(curvature_state, grads, dict(net.named_parameters()))
+
+    out["curvature step"] = smoke.time_ms(curvature_step, n=10)
+    out["curvature step device"] = smoke.graph_ms(curvature_step, n=5)
+    out.update({f"curvature step {k}": v for k, v in host_ms(curvature_step, n=30).items()})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -924,8 +1017,10 @@ def compare_steps(rounds: int, baseline: Path, smi: str) -> None:
     for k in runs["tree"][0]:
         med = {side: statistics.median(r[k] for r in runs[side]) for side in runs}
         unit = "MB" if k.startswith(("sdf step ", "second order")) and k.endswith(" MB") else "ms"
+        rel = f"{med['tree'] / med['baseline'] - 1:+.2%}" if med["baseline"] else "n/a"
+        lower = sum(t[k] < b[k] for t, b in zip(runs["tree"], runs["baseline"]))
         print(f"median of {rounds}: {k}: tree {med['tree']:.4f} {unit}, baseline "
-              f"{med['baseline']:.4f} {unit} ({med['tree'] / med['baseline'] - 1:+.2%})",
+              f"{med['baseline']:.4f} {unit} ({rel}; tree lower in {lower} of {rounds} rounds)",
               flush=True)
 
 
@@ -979,7 +1074,7 @@ def main() -> None:
     parser.add_argument("--baseline", default=None,
                         help="a checkout whose tcnn_tpu_torch is timed as 'baseline'")
     parser.add_argument("--atomics", action="store_true",
-                        help="count GB's and RS's global atomics on the CPU and stop")
+                        help="count GB's, RS's and GT's global atomics on the CPU and stop")
     parser.add_argument("--sectors", action="store_true",
                         help="count G's table sectors on the CPU and stop")
     parser.add_argument("--steps", type=int, default=0, metavar="ROUNDS",

@@ -175,10 +175,10 @@ def test_cuda_input_gradient_and_second_order_raise_slice_3(cuda):
     torch.cuda.synchronize()
     after = (grid_encode_bwd_input.launches, grid_encode_bwd_bwd.launches,
              row_scatter_add.launches)
-    # GI twice: for gx, and in the second pass back through the features
-    # (the loss's output gradient 2y depends on x), whose x part
-    # autograd.grad(..., params) then drops
-    assert [a - b for a, b in zip(after, counts)] == [2, 1, 0]
+    # GI once, for gx: the second pass goes back through the features too
+    # (the loss's output gradient 2y depends on x), but autograd.grad(...,
+    # params) uses no x part there, and the grid's backward asks the engine
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 0]
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     kept = torch.autograd.grad(gx.square().sum(), params, create_graph=True)
     assert all(bool(torch.isfinite(g).all()) for g in kept)
@@ -1887,22 +1887,58 @@ def test_torch_func_on_the_card_matches_the_cpu(cuda):
 
 # -- slice 14: third order (kernel GT), the stochastic gather, deep MLPs ------
 
-GT_SHAPES = [(d, f) for d in (1, 2, 3, 4) for f in (1, 2, 4, 8)]
+GT_SHAPES = [(d, f) for d in (1, 2, 3, 4) for f in (1, 2, 3, 4, 8)]
+
+
+def _check_third(args, kw, dead_rows=0):
+    """Kernel GT at ``args`` (spec, flat, x, dcols, v, beta, live) and
+    ``kw`` against its plain version, with all outputs and with the
+    curvature step's (d_dcols and the table gradient, no d_x): d_dcols and
+    d_x within 1e-5 of their largest magnitude and bit for bit in a second
+    launch, the table gradient per entry within 2^-11·S (``gt_table_scale``)
+    and an exact 0 where S is; the last ``dead_rows`` rows of d_dcols (a
+    dead level's) exact zeros; d_x alone equal to d_x among all outputs."""
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_third, grid_encode_third_plain
+    from tcnn_tpu_torch.tools.plain_path import gt_table_scale
+
+    spec, flat, x, dcols, v, beta, live = args
+    scale = gt_table_scale(spec, x, dcols, v, beta, live, kw["level_frac"], kw["shard"])
+    for need_x in (True, False):
+        before = grid_encode_third.launches
+        got = grid_encode_third(*args, need_x=need_x, **kw)
+        again = grid_encode_third(*args, need_x=need_x, **kw)
+        torch.cuda.synchronize()
+        assert grid_encode_third.launches - before == 2
+        want = grid_encode_third_plain(*args, need_x=need_x, **kw)
+        assert torch.equal(got.d_dcols, again.d_dcols)
+        assert_rel_close(got.d_dcols, want.d_dcols, 1e-5)
+        if dead_rows:
+            assert float(got.d_dcols[-dead_rows:].abs().max()) == 0
+        if not need_x:
+            assert got.d_x is None
+        elif float(want.d_x.abs().max()) == 0:   # 1-D under a mask may have none
+            assert float(got.d_x.abs().max()) == 0
+        else:
+            assert torch.equal(got.d_x, again.d_x)
+            assert_rel_close(got.d_x, want.d_x, 1e-5)
+        assert got.d_flat.dtype == want.d_flat.dtype == flat.dtype
+        assert_scatter_close(got.d_flat, want.d_flat, scale)
+        assert bool((got.d_flat[scale == 0] == 0).all())
+        if need_x:
+            d_x = got.d_x
+    only = grid_encode_third(*args, need_dcols=False, need_table=False, **kw)
+    assert only.d_dcols is None and only.d_flat is None
+    assert torch.equal(only.d_x, d_x)
 
 
 @pytest.mark.parametrize("d,f", GT_SHAPES, ids=lambda v: str(v))
 @pytest.mark.parametrize("mode", ["whole", "masked", "sharded"])
 def test_grid_encode_third_kernel_matches_plain(cuda, d, f, mode):
-    """Kernel GT against its plain version at every D 1-4 and F 1, 2, 4, 8,
+    """Kernel GT against its plain version at every D 1-4 and F 1-4 and 8,
     Smoothstep (nonzero third derivatives), a dead level (``live`` without
-    the last), under a per-sample mask and in shard mode (shard 1 of 2):
-    d_dcols and d_x within 1e-5 of their largest magnitude and bit for bit
-    in a second launch, the table gradient per entry within 2^-11·S
-    (``gt_table_scale``) and an exact 0 where S is; bf16 tables and dcols
-    in the whole mode, within one bf16 ulp more."""
-    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_third, grid_encode_third_plain
-    from tcnn_tpu_torch.tools.plain_path import gt_table_scale
-
+    the last): unmasked in the 1- to 4-D instances, on fp32 and bf16 tables
+    and dcols (within one bf16 ulp more); under a per-sample mask and in
+    shard mode (shard 1 of 2) in the run-time-D instance (``_check_third``)."""
     spec = grid_ops.make_grid_spec(d, 6, f, 12, 4, 1.5, hash_type=HashType.COHERENT_PRIME,
                                    interpolation=InterpolationType.SMOOTHSTEP)
     rng = np.random.default_rng(d * 10 + f)
@@ -1919,28 +1955,29 @@ def test_grid_encode_third_kernel_matches_plain(cuda, d, f, mode):
         dcols = dcols.to(dtype).to(cuda)
         v, beta = (torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(cuda)
                    for _ in range(2))
-        args = (spec, flat, x, dcols, v, beta, live)
-        kw = {"level_frac": frac, "shard": shard}
-        before = grid_encode_third.launches
-        got = grid_encode_third(*args, **kw)
-        again = grid_encode_third(*args, **kw)
-        torch.cuda.synchronize()
-        assert grid_encode_third.launches - before == 2
-        want = grid_encode_third_plain(*args, **kw)
-        assert torch.equal(got.d_dcols, again.d_dcols) and torch.equal(got.d_x, again.d_x)
-        assert_rel_close(got.d_dcols, want.d_dcols, 1e-5)
-        assert float(got.d_dcols[(spec.n_levels - 1) * f:].abs().max()) == 0   # dead level
-        if d == 1 and mode == "masked" and float(want.d_x.abs().max()) == 0:
-            assert float(got.d_x.abs().max()) == 0
-        else:
-            assert_rel_close(got.d_x, want.d_x, 1e-5)
-        scale = gt_table_scale(spec, x, dcols, v, beta, live, frac, shard)
-        assert got.d_flat.dtype == want.d_flat.dtype == dtype
-        assert_scatter_close(got.d_flat, want.d_flat, scale)
-        assert bool((got.d_flat[scale == 0] == 0).all())
-        only = grid_encode_third(*args, need_dcols=False, need_table=False, **kw)
-        assert only.d_dcols is None and only.d_flat is None
-        assert torch.equal(only.d_x, got.d_x)
+        _check_third((spec, flat, x, dcols, v, beta, live), {"level_frac": frac, "shard": shard},
+                     dead_rows=f)
+
+
+@pytest.mark.parametrize("d,hash_type", [(2, HashType.RNG), (3, HashType.RNG),
+                                         (5, HashType.COHERENT_PRIME), (7, HashType.PRIME)],
+                         ids=lambda v: str(getattr(v, "value", v)))
+@pytest.mark.parametrize("f", [2, 3])
+def test_grid_encode_third_run_time_d_instance_matches_plain(cuda, d, hash_type, f):
+    """Kernel GT's run-time-D instance unmasked and unsharded: Rng grids and
+    5 to 7 dims, on GB's plan (windows and direct items), against its plain
+    version as ``_check_third`` holds it."""
+    spec = grid_ops.make_grid_spec(d, 5, f, 14, 4, 1.5, hash_type=hash_type,
+                                   interpolation=InterpolationType.SMOOTHSTEP)
+    rng = np.random.default_rng(d * 100 + f)
+    B = 4099
+    x = torch.from_numpy(rng.uniform(0.05, 0.95, (B, d)).astype(np.float32)).to(cuda)
+    flat = torch.from_numpy(rng.uniform(-1, 1, spec.n_params).astype(np.float32)).to(cuda)
+    dcols = torch.from_numpy(rng.normal(size=(spec.n_output_dims, B)).astype(np.float32))
+    v, beta = (torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(cuda)
+               for _ in range(2))
+    _check_third((spec, flat, x, dcols.to(cuda), v, beta, list(range(5))),
+                 {"level_frac": None, "shard": None})
 
 
 def test_grid_stochastic_gather_matches_plain(cuda):

@@ -1,18 +1,19 @@
-"""The on-chip accumulation of kernels GB, GG and RS, emulated on the CPU.
+"""The on-chip accumulation of kernels GB, GG, GT and RS, emulated on the CPU.
 
-Kernels GB and GG sum each level's updates in shared-memory windows,
+Kernels GB, GG and GT sum each level's updates in shared-memory windows,
 following the work plan GB's wrapper builds
-(``ops/cuda/grid_encode.py::gb_plan``; GG with its own chunks);
+(``ops/cuda/grid_encode.py::gb_plan``; GG and GT with GG's chunks);
 kernel RS sums each chunk of updates in a window of the chunk's row range
 where that fits (``csrc/row_scatter.cu``).  The kernels run only on the
 card, but their plans and decisions are plain arithmetic: these tests
 check that ``gb_plan`` covers every (live level, sample) once per part of
 its level and every row of a windowed level in exactly one part, at the
-repo's three grid geometries, and they replay both kernels' algorithms
+repo's three grid geometries, and they replay the kernels' algorithms
 (window, skip of rows outside it, flush of the nonzero groups, direct
-path) in PyTorch: GB's against ``grid_encode_bwd_plain``, GG's against
-``grid_encode_bwd_bwd_plain``'s d_flat (within 2^-11 of S over the terms
-of its updates, ``tools/plain_path.py::gg_table_scale``), RS's against the
+path) in PyTorch: GB's against ``grid_encode_bwd_plain``, GG's and GT's
+against ``grid_encode_bwd_bwd_plain``'s and ``grid_encode_third_plain``'s
+d_flat (within 2^-11 of S over the terms of its updates,
+``tools/plain_path.py::gg_table_scale``, ``gt_table_scale``), RS's against the
 JAX package's ``scatter_add_rows`` in interpret mode (tests/conftest.py).
 Tolerances: the fp32 sums run in another order, rtol 1e-5 and atol 1e-6
 (1e-4 for RS, tests/test_scatter.py's; at the SDF layout, whose level-0
@@ -182,22 +183,27 @@ def test_gb_windows_emulated_equal_plain(D, F, monkeypatch):
     assert kinds <= {0, 1, 2}
 
 
-def _emulate_gg(spec, x, dcols, ddx, live, frac=None, shard=None):
-    """Kernel GG's fused table gradient over ``gb_plan`` with GG's chunks,
-    in PyTorch: per item, the w'·dy of the corners of its samples that land
-    in its window (summed there, flushed by nonzero groups, one value a
-    group in the run-time-D instance that masks and shards take) or by
-    direct atomics; a masked (sample, level), another shard's corner and
-    w' = 0 add nothing.  Also checks that the CTAs which write d_dcols and
-    d_x's partials (direct items, and a windowed level's part at its first
-    row: level_params' held row less its row base) cover every (live level,
-    sample) once.  Returns the (rows, F) fp32 table gradient."""
+def _emulate_plan(spec, x, dcols, ddx, live, frac=None, shard=None, ct_dx=None):
+    """Kernel GG's fused table gradient (or, given ``ct_dx``, kernel GT's)
+    over ``gb_plan`` with GG's chunks, in PyTorch: per item, the w·dy of the
+    corners of its samples that land in its window (summed there, flushed by
+    nonzero groups, one value a group in the run-time-D instance that masks
+    and shards take) or by direct atomics, w = GG's w' = Σ_d ∂w_c/∂x_d ·
+    ddx_d or GT's u = βᵀ ∇²w_c ddx; a masked (sample, level), another
+    shard's corner and w = 0 add nothing.  Also checks that the CTAs which
+    write d_dcols and d_x's partials (direct items, and a windowed level's
+    part at its first row: level_params' held row less its row base) cover
+    every (live level, sample) once.  Returns the (rows, F) fp32 table
+    gradient."""
     F, B, C = spec.n_features_per_level, x.shape[0], 1 << spec.n_dims
     lp = grid_ops.level_params(spec, live, shard).view(np.uint32).astype(np.int64)
-    idx, _, dws = grid_ops.build_indices_weights(spec, x, live, order=1, level_frac=frac,
-                                                 shard=shard)
+    idx, _, dws, d2ws = grid_ops.build_indices_weights(spec, x, live, order=2, level_frac=frac,
+                                                       shard=shard)
     idx = idx.reshape(len(live), C, B)
-    wp = (dws * ddx[None]).sum(-1).reshape(len(live), C, B)
+    if ct_dx is None:
+        wp = (dws * ddx[None]).sum(-1).reshape(len(live), C, B)
+    else:
+        wp = torch.einsum("nbde,bd,be->nb", d2ws, ct_dx, ddx).reshape(len(live), C, B)
     keep_all = (torch.ones(len(live), B, dtype=torch.bool) if frac is None
                 else grid_ops.level_mask(spec, live, frac) > 0)
     wide = frac is not None or shard is not None
@@ -228,6 +234,45 @@ def _emulate_gg(spec, x, dcols, ddx, live, frac=None, shard=None):
     return out.reshape(-1)
 
 
+def _check_plan_windows(kernel, case, all_windows, monkeypatch):
+    """Kernel GG's or GT's (``kernel``) emulated table gradient at the SDF
+    layout against its plain version's d_flat, per entry within 2^-11·S, S
+    over the updates' terms (``gg_table_scale``, ``gt_table_scale``); rows
+    no update reaches are exact zeros."""
+    spec = _spec("sdf")
+    if all_windows:
+        monkeypatch.setattr(ge, "GB_MIN_HITS", 0)
+    live = list(range(spec.n_levels))
+    B = 1 << 12
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand((B, 3), generator=gen) * 0.9 + 0.05
+    dcols = torch.randn((spec.n_output_dims, B), generator=gen)
+    ddx = torch.randn((B, 3), generator=gen)
+    beta = torch.randn((B, 3), generator=gen)
+    frac = torch.rand(B, generator=gen) if case == "masked" else None
+    shard = (int(case[-1]), 2) if case.startswith("shard") else None
+    plan = ge.gb_plan(spec, live, B, shard, ge.gg_chunks(B))
+    parts = {}
+    for level, row_lo, n_rows, _, _ in plan.items.tolist():
+        parts.setdefault(level, set()).add((row_lo, n_rows))
+    assert any(n == 0 for p in parts.values() for _, n in p) != all_windows
+    # a shard's blocks (at most 16,384 rows) fit one window
+    assert any(len(p) == 2 for p in parts.values()) == (all_windows and shard is None)
+    table = torch.rand(spec.n_params // (2 if shard else 1), generator=gen) * 2 - 1
+    kw = {"need_dcols": False, "need_x": False, "level_frac": frac, "shard": shard}
+    if kernel == "GG":
+        got = _emulate_plan(spec, x, dcols, ddx, live, frac, shard)
+        want = ge.grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, **kw).d_flat
+        scale = plain_path.gg_table_scale(spec, x, dcols, ddx, live, frac, shard)
+    else:
+        got = _emulate_plan(spec, x, dcols, ddx, live, frac, shard, ct_dx=beta)
+        want = ge.grid_encode_third_plain(spec, table, x, dcols, ddx, beta, live, **kw).d_flat
+        scale = plain_path.gt_table_scale(spec, x, dcols, ddx, beta, live, frac, shard)
+    assert bool(((got - want).abs() <= 2.0 ** -11 * scale).all())
+    assert bool((got[scale == 0] == 0).all()) and bool((want[scale == 0] == 0).all())
+    assert bool((scale > 0).any())
+
+
 @pytest.mark.parametrize("case", ["unmasked", "masked", "shard 0", "shard 1"])
 @pytest.mark.parametrize("all_windows", [False, True])
 def test_gg_windows_emulated_equal_plain(case, all_windows, monkeypatch):
@@ -239,32 +284,17 @@ def test_gg_windows_emulated_equal_plain(case, all_windows, monkeypatch):
     per-sample mask and on each shard of two: against the plain d_flat per
     entry within 2^-11·S, S over the updates' terms (``gg_table_scale``);
     rows no update reaches stay exact zeros."""
-    spec = _spec("sdf")
-    if all_windows:
-        monkeypatch.setattr(ge, "GB_MIN_HITS", 0)
-    live = list(range(spec.n_levels))
-    B = 1 << 12
-    gen = torch.Generator().manual_seed(6)
-    x = torch.rand((B, 3), generator=gen) * 0.9 + 0.05
-    dcols = torch.randn((spec.n_output_dims, B), generator=gen)
-    ddx = torch.randn((B, 3), generator=gen)
-    frac = torch.rand(B, generator=gen) if case == "masked" else None
-    shard = (int(case[-1]), 2) if case.startswith("shard") else None
-    plan = ge.gb_plan(spec, live, B, shard, ge.gg_chunks(B))
-    parts = {}
-    for level, row_lo, n_rows, _, _ in plan.items.tolist():
-        parts.setdefault(level, set()).add((row_lo, n_rows))
-    assert any(n == 0 for p in parts.values() for _, n in p) != all_windows
-    # a shard's blocks (at most 16,384 rows) fit one window
-    assert any(len(p) == 2 for p in parts.values()) == (all_windows and shard is None)
-    table = torch.rand(spec.n_params // (2 if shard else 1), generator=gen) * 2 - 1
-    got = _emulate_gg(spec, x, dcols, ddx, live, frac, shard)
-    want = ge.grid_encode_bwd_bwd_plain(spec, table, x, dcols, ddx, live, need_dcols=False,
-                                        need_x=False, level_frac=frac, shard=shard).d_flat
-    scale = plain_path.gg_table_scale(spec, x, dcols, ddx, live, frac, shard)
-    assert bool(((got - want).abs() <= 2.0 ** -11 * scale).all())
-    assert bool((got[scale == 0] == 0).all()) and bool((want[scale == 0] == 0).all())
-    assert bool((scale > 0).any())
+    _check_plan_windows("GG", case, all_windows, monkeypatch)
+
+
+@pytest.mark.parametrize("case", ["unmasked", "masked", "shard 0", "shard 1"])
+@pytest.mark.parametrize("all_windows", [False, True])
+def test_gt_windows_emulated_equal_plain(case, all_windows, monkeypatch):
+    """GT's table gradient, u_c · dy with u_c = βᵀ ∇²w_c v, over the same
+    plan (GT runs on GG's chunks) at the same layout and cases: against
+    ``grid_encode_third_plain``'s d_flat per entry within 2^-11·S
+    (``gt_table_scale``); rows no update reaches stay exact zeros."""
+    _check_plan_windows("GT", case, all_windows, monkeypatch)
 
 
 RS_CHUNK, RS_WINDOW_FLOATS = 8192, 96 * 1024 // 4   # csrc/row_scatter.cu

@@ -412,10 +412,11 @@ def test_input_gradient_launches_no_table_gradient(monkeypatch):
 def test_engine_node_query_pinned(ask):
     """The private ``torch._C._will_engine_execute_node`` behind
     ``ops/grid_ops.py::_engine_will_use``: inside a backward it tells
-    whether the engine runs the table's node, for the table view that
-    ``grid_encode`` hands the autograd functions (a leaf cannot be asked
-    under ``autograd.grad``).  The table's gradient is computed exactly
-    when it is asked for, and then equals the plain one."""
+    whether the engine runs the table's node and x's, for the views of the
+    table and of x that ``grid_encode`` hands the autograd functions (a
+    leaf cannot be asked under ``autograd.grad``), the table asked first.
+    The table's gradient is computed exactly when it is asked for, and
+    then equals the plain one."""
     spec = tops.make_grid_spec(2, 3, 2, 8, 4, 1.5)
     gen = torch.Generator().manual_seed(18)
     leaf = torch.nn.Parameter(torch.rand(spec.n_params, generator=gen) * 2 - 1)
@@ -440,7 +441,7 @@ def test_engine_node_query_pinned(ask):
         else:
             y.backward(inputs=[x])
     used = ask not in ("x", "backward_x")
-    assert seen == [used]
+    assert seen == [used, ask in ("x", "both", "backward", "backward_x")]
     if used:
         want = tgrid.grid_encode_bwd_plain(spec, table.detach(), x.detach(),
                                            torch.ones((spec.n_output_dims, 64)),

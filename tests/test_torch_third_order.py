@@ -41,6 +41,7 @@ from tcnn_tpu_torch.common import Activation
 from tcnn_tpu_torch.ops import grid_ops as tops
 from tcnn_tpu_torch.ops.cuda import fused_mlp as tfused
 from tcnn_tpu_torch.ops.cuda import grid_encode as tgrid
+from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
 from tcnn_tpu_torch.utils.jax_params import load_jax_params
 
 GRID = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2, "log2_hashmap_size": 10,
@@ -123,6 +124,74 @@ def test_curvature_loss_parameter_gradients_equal_jax(otype, interp):
     assert set(names) == set(want)
     for n, g in zip(names, grads):
         _assert_rel(g, want[n], 1e-5 if n == "encoding.grid" else 1e-4, n)
+
+
+def _spy_input_gradients(monkeypatch):
+    """Records the ``need_x`` that kernels GT and GG are called with (their
+    plain versions on the CPU) and counts kernel GI's calls."""
+    seen = {"GT": [], "GG": [], "GI": 0}
+    for name, key in (("grid_encode_third", "GT"), ("grid_encode_bwd_bwd", "GG"),
+                      ("grid_encode_bwd_input", "GI")):
+        def spy(*a, _f=getattr(tgrid, name), _k=key, **k):
+            if _k == "GI":
+                seen["GI"] += 1
+            else:
+                seen[_k].append(k["need_x"])
+            return _f(*a, **k)
+        monkeypatch.setattr(tgrid, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("act", ["ReLU", "Softplus"])
+def test_parameter_passes_ask_for_no_input_gradient(act, monkeypatch):
+    """The parameter pass of the curvature step and of the eikonal step
+    (``samples/fit_sdf_eikonal.py``: ``autograd.grad(loss, params)``) uses
+    no gradient in x_vol, and the engine says so (``_engine_will_use`` on
+    the view of x that ``grid_encode`` hands the functions): GT and GG are
+    called with need_x False and GI is not called.  Asked for x's gradient
+    as well (``autograd.grad(loss, [x, *params])``), every GT and GG call
+    computes its d_x, and d loss / d x of the curvature step's loss in x
+    (the eikonal term plus mean |H v|², weight 1 so that the third order
+    counts) equals ``jax.grad``'s of the same loss within the MLP tolerance
+    of ``test_curvature_loss_parameter_gradients_equal_jax``, 1e-4 of its
+    largest magnitude (x's gradient sums the MLP's terms)."""
+    net_cfg = {**_net_cfg("FullyFusedMLP"), "activation": act}
+    jnet, params, net = _models({**GRID, "interpolation": "Smoothstep"}, net_cfg)
+    seen = _spy_input_gradients(monkeypatch)
+    spec = net.encoding.spec
+    x, xs = (torch.from_numpy(_coords(spec, 8, s)) for s in (7, 9))
+    v = np.random.default_rng(8).normal(size=(8, 3)).astype(np.float32)
+    vt = torch.from_numpy(v)
+    ps = list(net.parameters())
+    for step, loss_fn in (("curvature", lambda: sdf.curvature_loss(net, xs, x, vt)),
+                          ("eikonal", lambda: sdf.loss_fn(net, xs, x)[0])):
+        loss = loss_fn()
+        seen.update(GT=[], GG=[], GI=0)
+        torch.autograd.grad(loss, ps)
+        assert seen == {"GT": [False] if step == "curvature" else [],
+                        "GG": [False] * len(seen["GG"]), "GI": 0}, (step, seen)
+        assert seen["GG"], step
+
+    @jax.jit
+    def jax_dx(xx):
+        def loss(z):
+            def f(u):
+                return jnp.sum(jnet.apply(params, u)[:, 0])
+            gx = jax.grad(f)(z)
+            eik = jnp.mean((jnp.sqrt(jnp.sum(gx * gx, axis=-1) + 1e-12) - 1.0) ** 2)
+            hv = jax.grad(lambda w: jnp.sum(jax.grad(f)(w) * v))(z)
+            return sdf.EIKONAL_WEIGHT * eik + jnp.mean(jnp.sum(hv * hv, axis=-1))
+        return jax.grad(loss)(xx)
+
+    xt = x.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(net(xt)[:, 0].sum(), xt, create_graph=True)
+    (hv,) = torch.autograd.grad((gx * vt).sum(), xt, create_graph=True)
+    loss = sdf.EIKONAL_WEIGHT * sdf.eikonal_loss(gx) + torch.mean(torch.sum(hv * hv, dim=-1))
+    seen.update(GT=[], GG=[], GI=0)
+    dx = torch.autograd.grad(loss, [xt, *ps])[0]
+    assert seen["GT"] == [True] and seen["GG"] and all(seen["GG"]), seen
+    assert seen["GI"] == (1 if act == "Softplus" else 0), seen
+    _assert_rel(dx, jax_dx(jnp.asarray(x.numpy())), 1e-4, "d loss / d x")
 
 
 @pytest.mark.parametrize("otype", ["FullyFusedMLP", "MLP"])
