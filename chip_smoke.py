@@ -122,6 +122,24 @@ and read just after:
     ``utils.native_loader.PrefetchingSampler`` against the same fit on the
     on-device sampler (PSNR by ``utils.metrics``); one eager eikonal step
     under ``utils.profiling.trace``.
+  * slice 16, wide features: grids of more than 8 features a level (each
+    grid kernel's run-time-D instance takes them in groups of 8) and
+    FusedMLPs whose first layer does not fit one CTA's shared memory (that
+    layer alone through the streamed-layer instances of M and MB,
+    ``csrc/fused_mlp_wide.cu``; the other layers through M and MB).  G, GB,
+    GI, GG and GT at F = 16 (the wide SDF's grid: 3-D Smoothstep, 16 levels,
+    2^19-row tables, fp32) and F = 32 (the wide image's: config_hash's
+    geometry, bf16 table) against their plain versions at 2^16 and timed at
+    2^18; M and MB at 256 (fp32) and 512 (bf16) inputs, 128 x 2, and the
+    streamed-layer instances alone on their first layers; the wide SDF
+    (FullyFusedMLP 128 x 2, 256 inputs) through its eikonal step and, with
+    Softplus hidden layers, its curvature step at 2^18 against the plain
+    path, with their launches, device times and the profiler's split, and
+    200 eikonal steps at 2^14 (2^15-row tables, the size of the JAX
+    package's reference run) with a loss floor;
+    the wide image (512 inputs, BF16_POLICY) through one step's gradients
+    against the plain path and 100 steps of ``make_training_loop`` at 2^18
+    (the loss falls more than 10x).
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -295,6 +313,31 @@ with TF32 off):
     in the card tests); the prefetched fit's PSNR within
     ``PREFETCH_PSNR_MARGIN`` of the on-device sampler's fit.
 
+  * slice 16: the wide SDF's curvature step is checked with Softplus hidden
+    layers at the slice-14 bounds: with ReLU, a sample whose pre-activation
+    lies within fp32 rounding of 0 switches in one path and not the other,
+    and in the curvature term at 2^18 one such switch moved a table entry
+    by 0.604, 2.6 % of the largest (on an H100).
+  * slice 16: the wide SDF's eikonal step holds its table gradient within
+    1e-4 of its largest magnitude, as the curvature step does: 29 and 73
+    of its 74,607,488 entries lay beyond 2^-11·S in two runs on an H100.
+    It prints how many lie beyond that bound, and how many when the plain
+    step runs on kernel MB's dx (``kernel_dx_bwd``): the per-entry bound
+    holds where both paths share the grid's output gradient, and MB's dx,
+    within its own bound, may cancel to a few ulps of its terms in a
+    sample.
+  * slice 16: the grid kernels at F = 16 and 32 at the bounds above (G at
+    the grid bounds, GB and the table gradients of GG and GT per entry
+    within 2^-11·S, GI and GG's and GT's d_dcols and d_x within 1e-5 of
+    each one's largest magnitude and bit for bit in a second launch); M
+    and MB at the MLP bounds (dx rows of switched ReLUs aside in bf16), the
+    streamed-layer instances too (they sum over the input features in
+    chunks of 32, in another order than the plain version: n terms in two
+    orders differ by at most (n − 1)·2^-24·Σ|x·w|, the bound the fp32
+    tolerances stand in for), their dW bit for bit in a second launch; the wide SDF's steps at the eikonal
+    and curvature steps' bounds; the fit's mean of the last 10 losses below
+    ``WIDE_FIT_LOSS_FLOOR``; the wide image's step at the step bounds.
+
   * slice 12: each shard's G at the fp32 bound with the fp32 sum's own
     error (its partial features are fp32: |d| <= 1e-5·|ref| + (2^D +
     2D)·2^-24), GB, GI and GG at the grid bounds above; the shards' G
@@ -312,8 +355,9 @@ plain versions' BTF fit, 150 eager steps (the kernels' fit runs 200), 30
 to 45 s, the NeRF fit 4 to 5 s, the slice-9 phase about 15 s, the
 slice-10 phase (which prints its own time) about 8 s, slice 11 about
 three minutes (MB 128 x 12 in fp32 most of it); the whole 196.5 to 245 s
-with a 96 to 129 s build before slice 11 (H100 80GB HBM3, 700 W).  It prints its
-own time before the kernels' line.
+with a 96 to 129 s build before slice 11 (H100 80GB HBM3, 700 W); with
+slice 16, whose phase took 42.1 s, 400.3 s with a 127.6 s build.  It
+prints its own time before the kernels' line.
 """
 
 import json
@@ -570,10 +614,10 @@ def check_step_gradients(model, x, target, flips=False):
         feats = model.network.encoding(x).detach().requires_grad_()
         (got,) = torch.autograd.grad(model.loss(net(feats).float(), target), feats)
         _, rows, variants = compare_input_grad(
-            got, dfeats, [w.detach() for w in net.layers], p.feats, p.dy,
-            net.output_activation, what="step dx")
+            got.t() if p.soa else got, dfeats, [w.detach() for w in net.layers], p.feats,
+            p.dy, net.output_activation, soa_in=p.soa, what="step dx")
         dfeats = dfeats.clone()
-        dfeats[rows] = variants.to(dfeats.dtype)
+        (dfeats.t() if p.soa else dfeats)[rows] = variants.to(dfeats.dtype)
     want_grads = plain_grid_grads(model, x, dfeats, p.soa)
     want_grads.update({f"network.layers.{i}": d for i, d in enumerate(p.dws)})
     want_loss = p.loss
@@ -716,7 +760,8 @@ def grid_bwd_case(spec, table, x, dc, label):
 
 
 def counters():
-    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_fwd,
+                                                   fused_mlp_wide_bwd, fused_mlp_wide_fwd)
     from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
                                                      grid_encode_bwd_input, grid_encode_fwd,
                                                      grid_encode_third)
@@ -724,7 +769,8 @@ def counters():
 
     return {"G": grid_encode_fwd, "M": fused_mlp_fwd, "GB": grid_encode_bwd,
             "MB": fused_mlp_bwd, "GI": grid_encode_bwd_input, "GG": grid_encode_bwd_bwd,
-            "RS": row_scatter_add, "GT": grid_encode_third}
+            "RS": row_scatter_add, "GT": grid_encode_third, "MW": fused_mlp_wide_fwd,
+            "MBW": fused_mlp_wide_bwd}
 
 
 FIRST_ORDER = ("G", "M", "GB", "MB")
@@ -732,9 +778,10 @@ FIRST_ORDER = ("G", "M", "GB", "MB")
 
 def first_order_counts():
     """The counts of the first-order kernels, with a check that the
-    second- and third-order kernels GI, GG, RS and GT were not launched."""
+    second- and third-order kernels GI, GG, RS and GT, and the
+    streamed-layer instances of M and MB, were not launched."""
     c = counts()
-    check(all(c[k] == 0 for k in ("GI", "GG", "RS", "GT")),
+    check(all(c[k] == 0 for k in ("GI", "GG", "RS", "GT", "MW", "MBW")),
           f"a first-order path launched a second-order kernel: {c}")
     return {k: c[k] for k in FIRST_ORDER}
 
@@ -944,6 +991,8 @@ KERNELS = {   # timing key: (report name, source)
     "GG": ("grid_encode_bwd_bwd", "tcnn_tpu_torch/csrc/grid_encode_bwd_bwd.cu"),
     "RS": ("row_scatter", "tcnn_tpu_torch/csrc/row_scatter.cu"),
     "GT": ("grid_encode_third", "tcnn_tpu_torch/csrc/grid_encode_third.cu"),
+    "MW": ("fused_mlp_wide_fwd", "tcnn_tpu_torch/csrc/fused_mlp_wide.cu"),
+    "MBW": ("fused_mlp_wide_bwd", "tcnn_tpu_torch/csrc/fused_mlp_wide.cu"),
 }
 
 
@@ -1462,6 +1511,11 @@ def compare_rel(got, want, rel, what):
     return err
 
 
+def rel_err(got, want):
+    """Max abs error over want's largest magnitude (no bound)."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
 def compare_rel_sum(got, want, atol, what):
     """Max abs error of fp32 sums; raises where |d| > 1e-5·|want| + atol
     (``atol`` the fp32 sum's own error where its terms cancel)."""
@@ -1483,21 +1537,9 @@ def sdf_flip_explained_bwd(net, xs, xv, frac=None):
     switched fp32 ReLU explains (``compare_input_grad``) replaced by its
     flipped variant: a pre-activation may lie within fp32 rounding of 0,
     and the switch moves that sample's whole share of the table gradient."""
-    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
-                                                   fused_mlp_fwd)
-    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_fwd
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd_plain
 
-    enc, mlp = net.encoding, net.network
-    spec, ws = enc.spec, [w.detach() for w in mlp.layers]
-    args = (mlp.activation, mlp.output_activation, torch.float32)
-    live = list(range(spec.n_levels))
-    kernel_dx = []
-    with torch.no_grad():
-        for x, surface in ((xs, True), (xv, False)):
-            feats = grid_encode_fwd(spec, enc.grid.detach(), x, live, soa=True, level_frac=frac)
-            y = fused_mlp_fwd(ws, feats, *args, torch.float32, True, False)
-            dy = y * (2.0 / x.shape[0]) if surface else torch.ones_like(y)
-            kernel_dx.append(fused_mlp_bwd(ws, feats, dy, *args, True, False)[1])
+    kernel_dx = kernel_mlp_dx(net, xs, xv, frac)
 
     def bwd(weights, x, g, act, out_act, cdt, soa_in, soa_out):
         dws, dx = fused_mlp_bwd_plain(weights, x, g, act, out_act, cdt, soa_in, soa_out)
@@ -1507,6 +1549,43 @@ def sdf_flip_explained_bwd(net, xs, xv, frac=None):
         dx = dx.clone()
         dx.t()[rows] = variants.to(dx.dtype)
         return dws, dx
+
+    return bwd
+
+
+def kernel_mlp_dx(net, xs, xv, frac=None):
+    """Kernel MB's input gradients in the eikonal step's two MLP backwards
+    (the surface term, then x_vol), on the features G gives and the output
+    gradients the step takes (G, M and MB on the same x and per-sample level
+    fractions, as the step computes them)."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_fwd
+
+    enc, mlp = net.encoding, net.network
+    spec, ws = enc.spec, [w.detach() for w in mlp.layers]
+    args = (mlp.activation, mlp.output_activation, torch.float32)
+    live = list(range(spec.n_levels))
+    out = []
+    with torch.no_grad():
+        for x, surface in ((xs, True), (xv, False)):
+            feats = grid_encode_fwd(spec, enc.grid.detach(), x, live, soa=True, level_frac=frac)
+            y = fused_mlp_fwd(ws, feats, *args, torch.float32, True, False)
+            dy = y * (2.0 / x.shape[0]) if surface else torch.ones_like(y)
+            out.append(fused_mlp_bwd(ws, feats, dy, *args, True, False)[1])
+    return out
+
+
+def kernel_dx_bwd(net, xs, xv):
+    """MB's plain version for the plain eikonal step with kernel MB's dx
+    (``kernel_mlp_dx``), so that the plain step's grid kernels get the
+    kernel step's output gradient."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_bwd_plain
+
+    kernel_dx = kernel_mlp_dx(net, xs, xv)
+
+    def bwd(weights, x, g, act, out_act, cdt, soa_in, soa_out):
+        dws, _ = fused_mlp_bwd_plain(weights, x, g, act, out_act, cdt, soa_in, soa_out)
+        return dws, kernel_dx.pop(0)
 
     return bwd
 
@@ -1638,7 +1717,8 @@ def sdf_slice(gen, dev):
     # GB once: the first-order call's table gradient, which the step would
     # discard, is not computed (ops/grid_ops.py: _engine_will_use); no RS:
     # GG adds the table gradient of the input gradient itself
-    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0}
+    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0,
+                "MW": 0, "MBW": 0}
     check(step_launches == per_step, f"eikonal step launches {step_launches}, "
           f"expected {per_step}")
 
@@ -1647,7 +1727,7 @@ def sdf_slice(gen, dev):
     torch.cuda.synchronize()
     ig_launches = counts()
     check(ig_launches == {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0,
-                          "GT": 0},
+                          "GT": 0, "MW": 0, "MBW": 0},
           f"input_gradient launches {ig_launches}: expected no GB (its table gradient "
           f"would be thrown away)")
     check(dx.shape == (B, D) and bool(torch.isfinite(dx).all()), "input_gradient output")
@@ -2628,7 +2708,8 @@ def bindings_slice(gen, dev):
     phase(f"slice 10: bindings NetworkWithInputEncoding at config_hash (fp32), B={B}: "
           f"forward, params.grad and the input gradient vs the plain path")
     launches, err = binding_first_order(m, x, target)
-    want = {"G": 1, "M": 1, "GB": 1, "MB": 1, "GI": 1, "GG": 0, "RS": 0, "GT": 0}
+    want = {"G": 1, "M": 1, "GB": 1, "MB": 1, "GI": 1, "GG": 0, "RS": 0, "GT": 0, "MW": 0,
+            "MBW": 0}
     check(launches == want, f"binding first-order launches {launches}, expected {want}")
 
     phase(f"slice 10: the SDF sample's eikonal step through bindings "
@@ -2642,7 +2723,8 @@ def bindings_slice(gen, dev):
     (dydx,) = torch.autograd.grad(s(xg).sum(), xg)
     torch.cuda.synchronize()
     ig_launches = counts()
-    want = {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0, "GT": 0}
+    want = {"G": 1, "M": 1, "GB": 0, "MB": 1, "GI": 1, "GG": 0, "RS": 0, "GT": 0, "MW": 0,
+            "MBW": 0}
     check(ig_launches == want, f"binding autograd.grad(y, x) launches {ig_launches}: "
           f"expected {want} (no GB: the table gradient would be thrown away)")
     check(dydx.shape == (B, 3) and bool(torch.isfinite(dydx).all()), "binding input gradient")
@@ -2651,7 +2733,8 @@ def bindings_slice(gen, dev):
     loss.backward()
     torch.cuda.synchronize()
     step_launches = counts()
-    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0}
+    per_step = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0,
+                "MW": 0, "MBW": 0}
     check(step_launches == per_step, f"binding eikonal step launches {step_launches}, "
           f"expected {per_step}")
     want_loss, want, scale = plain_sdf_loss_and_grads(
@@ -2707,7 +2790,7 @@ def bindings_slice(gen, dev):
         dumps = sorted(os.listdir(out_dir))
     n_dumps = len(out["psnr_at"])
     want = {"G": IMAGE_PT_STEPS + n_dumps, "M": IMAGE_PT_STEPS + n_dumps, "GB": IMAGE_PT_STEPS,
-            "MB": IMAGE_PT_STEPS, "GI": 0, "GG": 0, "RS": 0, "GT": 0}
+            "MB": IMAGE_PT_STEPS, "GI": 0, "GG": 0, "RS": 0, "GT": 0, "MW": 0, "MBW": 0}
     check(sample_launches == want, f"image sample (bindings) launches {sample_launches}, "
           f"expected {want}")
     check(bool(torch.isfinite(out["losses"]).all()), "non-finite loss in the bindings sample")
@@ -2880,14 +2963,21 @@ def eikonal_grads(f, params, xs, xv):
     return loss.detach(), torch.autograd.grad(loss, params)
 
 
-def check_eikonal_step(net, xs, xv, frac, what):
+def check_eikonal_step(net, xs, xv, frac, what, expect=None, table_rel=None):
     """One eikonal step through the kernels (the main path: counts set to 0
     before it, read after) against the same step through the plain versions
     (``plain_sdf_loss_and_grads``, MB's rows that a switched ReLU explains
     substituted, as in slice 4): loss at 1e-4 relative, the table gradient
     per entry within 2^-11·S (GB's and GG's atomics), every weight gradient
-    within 1e-4 of its largest magnitude (fp32).  Returns the step's
-    launches."""
+    within 1e-4 of its largest magnitude (fp32).  ``table_rel``: the table
+    gradient within that share of its largest magnitude, as the curvature
+    step holds it (the entries beyond 2^-11·S are counted and printed), and
+    per entry within 2^-11·S against the plain step run on kernel MB's dx:
+    the per-entry bound holds where both paths share the grid's output
+    gradient, and MB's dx, within its own bound, cancels to a few ulps of
+    its terms in some samples.  ``expect``: the step's launches
+    (None: the shallow MLP's, one launch of M and MB each).  Returns the
+    step's launches."""
     from tcnn_tpu_torch.tools.plain_path import plain_sdf_loss_and_grads
 
     names = [n for n, _ in net.named_parameters()]
@@ -2905,7 +2995,20 @@ def check_eikonal_step(net, xs, xv, frac, what):
     check(sorted(want) == sorted(names), f"{what}: gradient names {sorted(want)}")
     hows = []
     for n, g in zip(names, grads):
-        if n == "encoding.grid":
+        if n == "encoding.grid" and table_rel:
+            e = compare_rel(g, want[n], table_rel, f"{what} {n}")
+            over = int(((g - want[n]).abs() > 2.0 ** -11 * scale).sum())
+            # the plain step again on kernel MB's dx: the grid's output
+            # gradient both paths then share
+            _, same_dx, same_scale = plain_sdf_loss_and_grads(
+                net, xs, xv, table_scale=True, mlp_bwd=kernel_dx_bwd(net, xs, xv),
+                level_frac=frac)
+            over_same = int(((g - same_dx[n]).abs() > 2.0 ** -11 * same_scale).sum())
+            check(over_same == 0, f"{what} {n}: {over_same} entries beyond 2^-11·S against "
+                  "the plain step on kernel MB's dx")
+            hows.append(f"table {e / want[n].abs().max().item():.3e} of its max ({over} of "
+                        f"{g.numel()} entries beyond 2^-11·S; {over_same} on kernel MB's dx)")
+        elif n == "encoding.grid":
             e = compare_table_grad(g, want[n], scale, f"{what} {n}")
             ratio = ((g - want[n]).abs() / (2.0 ** -11 * scale + 1e-30)).max().item()
             hows.append(f"table {ratio:.3e} of its bound 2^-11·S")
@@ -2914,7 +3017,8 @@ def check_eikonal_step(net, xs, xv, frac, what):
             hows.append(f"{n.split('.', 1)[1]} {e / want[n].abs().max().item():.3e}")
     print(f"{what}: loss {loss.item():.6f}, plain {want_loss.item():.6f}; gradients: "
           f"{', '.join(hows)} (weights 1e-4 of their max); launches {launches}")
-    expect = {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0}
+    expect = expect or {"G": 2, "M": 2, "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0,
+                        "MW": 0, "MBW": 0}
     check(launches == expect, f"{what}: launches {launches}, expected {expect}")
     return launches
 
@@ -3223,7 +3327,7 @@ def torch_func_slice(gen, dev):
     torch.cuda.synchronize()
     jvp_launches = counts()
     check(jvp_launches == {"G": 2, "M": 1, "GB": 0, "MB": 0, "GI": 0, "GG": 1, "RS": 0,
-                           "GT": 0},
+                           "GT": 0, "MW": 0, "MBW": 0},
           f"jvp launches {jvp_launches}: expected G for the primal and the table tangent, "
           f"GG for the input tangent, M, and no backward kernel")
     y_p, t_p = torch.func.jvp(lambda p, v: plain_net(net, p, v), (params, x), (tp, tx))
@@ -3663,23 +3767,93 @@ def check_third_order(spec, table, x, dcols, ddx, beta, live, frac=None, shard=N
     return worst
 
 
-def curvature_check(gen, dev, act):
-    """One curvature step of the SDF sample's model (``act`` hidden layers)
-    at 2^CURVATURE_CHECK_POW points through the kernels against
+def relu_switch_samples(net, x, near):
+    """Which of the points x (B, 3) put a hidden ReLU of ``net`` (a grid
+    feeding a fused MLP, fp32) near its switch: a pre-activation z with
+    |z| <= near · Σ|h·w| in the plain fp32 forward, where a sum in another
+    order (kernel M, the streamed layer) may land on the other side of 0.
+    Returns a (B,) bool mask."""
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_plain
+
+    enc, mlp = net.encoding, net.network
+    spec, ws = enc.spec, [w.detach().float() for w in mlp.layers]
+    with torch.no_grad():
+        h = grid_encode_plain(spec, enc.grid.detach().float(), x,
+                              list(range(spec.n_levels)), soa=True).float().t()
+        hit = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        for w in ws[:-1]:
+            z = h @ w
+            hit |= (z.abs() <= near * (h.abs() @ w.abs())).any(dim=1)
+            h = torch.relu(z)
+    return hit
+
+
+def redraw_relu_switches(net, gen, xs, xv, near, rounds=20):
+    """xs and xv with every point that ``relu_switch_samples`` flags drawn
+    again from the same distributions (``sample_points``), until none is
+    flagged.  Returns (xs, xv, points redrawn)."""
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+
+    xs, xv, redrawn = xs.clone(), xv.clone(), 0
+    for _ in range(rounds):
+        hs, hv = relu_switch_samples(net, xs, near), relu_switch_samples(net, xv, near)
+        if not bool(hs.any() or hv.any()):
+            return xs, xv, redrawn
+        redrawn += int(hs.sum()) + int(hv.sum())
+        ns, nv = sdf.sample_points(gen, xs.shape[0], xs.device)
+        xs[hs], xv[hv] = ns[hs], nv[hv]
+    check(False, f"points near a ReLU switch remain after {rounds} draws")
+
+
+def curvature_check(gen, dev, act, net=None, n_pow=CURVATURE_CHECK_POW, kernels=(),
+                    near=None):
+    """One curvature step of the SDF sample's model (``act`` hidden layers;
+    ``net``: another model) at 2^n_pow points through the kernels against
     ``plain_path.plain_curvature_loss_and_grads`` (autograd of the plain
     forward): the loss at 1e-4 relative, every gradient, the table's too,
     within 1e-4 of its largest magnitude (the third order's per-entry term
     magnitudes are not formed; a sample whose ReLU switches near 0 moves a
-    gradient by 1/2^14 of one sample's share).  Returns the step's launches."""
+    gradient by 1/2^14 of one sample's share).  ``near``: first the step as
+    drawn and, as a control, with as many points clear of a switch replaced
+    by copies of other clear points, their gradients' errors printed and
+    not held; then the points that ``relu_switch_samples`` flags at
+    ``near`` drawn again and the step held on those (ReLU: a switched
+    sample moves its whole share of the gradients, which at 2^18 points and
+    256 MLP inputs was beyond 1e-4 of the table gradient's largest entry).  Each of G, M, GB, MB, GI, GG and
+    GT, and of ``kernels``, must launch.  Returns the step's launches."""
     from tcnn_tpu_torch import Policy, create_from_config
     from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
     from tcnn_tpu_torch.tools.plain_path import plain_curvature_loss_and_grads
 
-    cfg = {**sdf.CONFIG, "network": {**sdf.CONFIG["network"], "activation": act}}
-    net = create_from_config(3, 1, cfg, policy=Policy()).network
-    n = 1 << CURVATURE_CHECK_POW
+    if net is None:
+        cfg = {**sdf.CONFIG, "network": {**sdf.CONFIG["network"], "activation": act}}
+        net = create_from_config(3, 1, cfg, policy=Policy()).network
+    n = 1 << n_pow
     xs, xv = sdf.sample_points(gen, n, dev)
     v = sdf.sample_directions(gen, n, dev)
+    note = ""
+    if near is not None:
+        def errors(ps, pv):
+            _, grads = sdf.curvature_loss_and_grads(net, ps, pv, v)
+            _, want = plain_curvature_loss_and_grads(net, ps, pv, v)
+            return ", ".join(f"{k.split('.', 1)[1]} {rel_err(g, want[k]):.3e}"
+                             for k, g in grads.items())
+
+        def swap_clear(x, hit):   # as many clear points as hit, copies of other clear ones
+            clear, k = (~hit).nonzero().flatten(), int(hit.sum())
+            perm = torch.randperm(clear.numel(), generator=gen, device=x.device)
+            x = x.clone()
+            x[clear[perm[:k]]] = x[clear[perm[k:2 * k]]]
+            return x
+
+        raw = errors(xs, xv)
+        hs, hv = relu_switch_samples(net, xs, near), relu_switch_samples(net, xv, near)
+        control = errors(swap_clear(xs, hs), swap_clear(xv, hv))
+        xs, xv, redrawn = redraw_relu_switches(net, gen, xs, xv, near)
+        note = (f"; not held: as first drawn {raw}; with {int(hs.sum()) + int(hv.sum())} "
+                f"points clear of a switch replaced by copies of other clear points "
+                f"(the control) {control}; held above: the points within {near:.3g}·Σ|h·w| "
+                f"of a ReLU switch drawn again ({redrawn} draws in all)")
     torch.cuda.synchronize()
     reset_counts()
     loss, grads = sdf.curvature_loss_and_grads(net, xs, xv, v)
@@ -3693,10 +3867,11 @@ def curvature_check(gen, dev, act):
     for name, g in grads.items():
         e = compare_rel(g, want[name], 1e-4, f"curvature step ({act}) {name}")
         hows.append(f"{name.split('.', 1)[1]} {e / want[name].abs().max().item():.3e}")
-    print(f"curvature step ({act}, 2^{CURVATURE_CHECK_POW}): loss {loss.item():.6f}, plain "
+    print(f"curvature step ({act}, 2^{n_pow}): loss {loss.item():.6f}, plain "
           f"{want_loss.item():.6f}; gradients (of each max): {', '.join(hows)}; launches "
-          f"{launches}")
-    missing = [k for k in ("G", "M", "GB", "MB", "GI", "GG", "GT") if launches[k] == 0]
+          f"{launches}{note}")
+    missing = [k for k in ("G", "M", "GB", "MB", "GI", "GG", "GT", *kernels)
+               if launches[k] == 0]
     check(not missing and launches["RS"] == 0,
           f"curvature step ({act}): kernels not launched {missing}, launches {launches}")
     return launches
@@ -3720,7 +3895,7 @@ def slice14(gen, dev, hash_times):
                                                    fused_mlp_bwd_plain,
                                                    fused_mlp_bwd_segmented, fused_mlp_fwd,
                                                    fused_mlp_fwd_chained, fused_mlp_plain,
-                                                   m_runs, mb_plan)
+                                                   mb_plan, plan_runs)
     from tcnn_tpu_torch.ops.cuda.grid_encode import (grid_encode_fwd, grid_encode_plain,
                                                      grid_encode_third,
                                                      grid_encode_third_plain)
@@ -3994,7 +4169,7 @@ def slice14(gen, dev, hash_times):
                                                     True, False)
             dws_s, dx_s = fused_mlp_bwd_segmented(ws, xm.to(dtype), gm, relu, none, dtype,
                                                   True, False, runs)
-        check(m_n == len(m_runs(len(ws))) == 2, f"M {key}: {m_n} launches, expected 2")
+        check(m_n == len(plan_runs(len(ws), lambda a, b: True)) == 2, f"M {key}: {m_n} launches, expected 2")
         check(mb_n == len(mb_plan(ws, dtype, relu, none)) and mb_n >= 2,
               f"MB {key}: {mb_n} launches")
         check(torch.equal(y, shallow), f"M {key}: not the bits of a chain of shallow launches")
@@ -4092,6 +4267,412 @@ def slice14(gen, dev, hash_times):
     return out
 
 
+WIDE_ROWS_POW = 19        # the wide SDF's tables: 2^19 rows a level, 74,607,488 parameters
+WIDE_KERNEL_POW = 16      # the grid kernels at F = 16 and 32 against their plain versions
+WIDE_STEP_POW = 18        # the wide SDF's eikonal and curvature steps against the plain path
+WIDE_RELU_NEAR = 2.0 ** -14   # 4x the worst-case fp32 error of 256 products, of Σ|h·w|
+WIDE_FIT_STEPS = 200
+WIDE_FIT_POW = 14
+# The fit's tables hold 2^15 rows a level (5,927,936 parameters), so that the
+# JAX package's run of the same fit runs on a CPU host at the same size
+# (tests/wide_sdf_fit_reference.py 200 14 15: the SDF sample's model and
+# Adam with the wide grid and network; first loss 0.091757, a mean of the
+# last 10 of 0.017524).  The floor is the SDF
+# sample's, 0.05: an untrained model reads about 0.09.
+WIDE_FIT_ROWS_POW = 15
+WIDE_FIT_LOSS_JAX = 0.017524
+WIDE_FIT_LOSS_FLOOR = 0.05
+WIDE_IMAGE_F = 32         # config_hash's grid at 32 features a level: 512 MLP inputs
+WIDE_IMAGE_STEPS = 100
+REPLACES_M = "tcnn_tpu/ops/pallas/fused_mlp.py:100 (_fwd_kernel)"
+
+
+def wide_sdf_config(log2_rows):
+    """The SDF sample's config with a 3-D grid of 16 levels x 16 features and
+    a FullyFusedMLP 128 x 2 (256 inputs; tests/wide_sdf_fit_reference.py's
+    ``wide_config``)."""
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+
+    return {**sdf.CONFIG,
+            "encoding": {**sdf.CONFIG["encoding"], "n_levels": 16, "n_features_per_level": 16,
+                         "log2_hashmap_size": log2_rows},
+            "network": {**sdf.CONFIG["network"], "n_neurons": 128, "n_hidden_layers": 2}}
+
+
+def wide_image_config():
+    """config_hash's grid geometry at ``WIDE_IMAGE_F`` features a level into a
+    FullyFusedMLP 128 x 2 (512 inputs)."""
+    import json
+    import re
+
+    cfg = json.loads(re.sub(r"//[^\n]*", "", open(CONFIG).read()))
+    cfg["encoding"] = {**cfg["encoding"], "n_features_per_level": WIDE_IMAGE_F}
+    cfg["network"] = {**cfg["network"], "n_neurons": 128, "n_hidden_layers": 2}
+    return cfg
+
+
+def gt_time(spec, table, x, dcols, ddx, beta, t, key):
+    """Kernel GT's device time with all outputs, its plain version's and its
+    bound (``gt_flops``; each input read once, each output written once)
+    into t."""
+    from tcnn_tpu_torch.ops import grid_ops
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_third, grid_encode_third_plain
+
+    live = list(range(spec.n_levels))
+    a = (spec, table, x, dcols, ddx, beta, live)
+    with torch.inference_mode():
+        outs = [o for o in grid_encode_third(*a) if o is not None]
+        t[key] = graph_ms(lambda: grid_encode_third(*a))
+        t[key + " plain"] = eager_ms(lambda: grid_encode_third_plain(*a), n=2)
+    n_bytes = (nbytes(x, dcols, ddx, beta, *outs)
+               + touched_bytes(spec, x, table.element_size())
+               + spec.n_levels * grid_ops.LEVEL_FIELDS * 4)
+    ops = gt_flops(spec, x.shape[0])
+    t[key + " bound"] = bound_ms(n_bytes, ops, PEAK_FP32)
+    t[key + " bound by"] = bound_by(n_bytes, ops, PEAK_FP32)
+    print(f"{key}: {t[key]:.4f} ms on the device (plain {t[key + ' plain']:.4f} ms, bound "
+          f"{t[key + ' bound']:.4f} ms: {n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations "
+          "on the fp32 units)")
+
+
+def mlp_width_limits():
+    """The widest input and output that one launch of kernel M and of kernel
+    MB takes, from the kernels' own shared-memory layouts
+    (``fused_mlp_fwd_smem_bytes``, ``fused_mlp_bwd_smem_bytes``): ReLU, SoA
+    input, three layers (one output) for the inputs, 32 inputs and three or
+    six layers for the outputs; the largest n such that every width up to
+    n fits.  Printed; returns nothing."""
+    from tcnn_tpu_torch.ops.cuda import fused_mlp as fm
+
+    k = fm.kernels()
+
+    def largest(fits, top=4096):
+        n = 0
+        while n < top and fits(n + 1):
+            n += 1
+        return n
+
+    for width in (64, 128):
+        for bf16 in (False, True):
+            m_in = largest(lambda d: k.fused_mlp_fwd_smem_bytes(d, 1, width, 3, bf16, True)
+                           <= fm.MAX_SMEM)
+            mb_in = largest(lambda d: k.fused_mlp_bwd_smem_bytes(d, 1, width, 3, bf16, 1, 0)
+                            <= fm.MAX_SMEM)
+            outs = [largest(lambda o: k.fused_mlp_fwd_smem_bytes(32, o, width, n, bf16, True)
+                            <= fm.MAX_SMEM and k.fused_mlp_bwd_smem_bytes(
+                                32, o, width, n, bf16, 1, 0) <= fm.MAX_SMEM)
+                    for n in (3, 6)]
+            print(f"one launch, width {width}, {'bf16' if bf16 else 'fp32'}: inputs up to "
+                  f"{m_in} (M) and {mb_in} (MB) at three layers; outputs up to {outs[0]} "
+                  f"(three layers) and {outs[1]} (six) for M and MB both")
+
+
+def wide_mlp_checks(gen, dev, d_in, d_out, dtype, tag, t, err):
+    """M and MB at d_in -> 128 x 2 -> d_out (B = 2^18, SoA input) against
+    their plain versions (``mlp_case``, ``mlp_bwd_case``), the runs they
+    take (``m_plan``, ``mb_plan``), the streamed-layer instances alone on
+    the first layer against theirs (y at the MLP bounds, dW and dx within
+    1e-4 or 2e-2 of each largest magnitude; dW bit for bit in a second
+    launch), and the times of all four beside their plain versions, their
+    bounds and the cuBLAS products of the same work."""
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
+                                                   fused_mlp_fwd, fused_mlp_plain,
+                                                   fused_mlp_wide_bwd, fused_mlp_wide_fwd,
+                                                   m_plan, mb_plan)
+
+    B, relu, none = MAIN_BATCH, Activation.RELU, Activation.NONE
+    dims = mlp_dims(d_in, 128, 2, d_out)
+    phase(f"slice 16: M and MB at {d_in} -> 128 x 2 -> {d_out} ({str(dtype)[6:]}) vs plain "
+          f"at B={B}, and their streamed-layer instances")
+    # 512 bf16 inputs: a hidden value may round to the other neighbour, as at
+    # config_oneblob's depth (rows that the plain version's rounding explains)
+    err[f"M {tag}"] = mlp_case(gen, dev, dims, B, dtype, rounding=True)
+    err[f"MB {tag}"] = mlp_bwd_case(gen, dev, dims, B, dtype, flips=True)
+    ws = random_mlp(gen, dev, dims)
+    wc = [w.to(dtype) for w in ws]
+    m_runs, mb_runs = m_plan(wc, dtype, True), mb_plan(wc, dtype, relu, none)
+    print(f"{tag}: kernel M's runs {m_runs}, MB's {mb_runs} (a run of one layer: the "
+          "streamed-layer instance)")
+    check(any(b - a == 1 for a, b in m_runs + mb_runs),
+          f"{tag}: no run of one layer in M's {m_runs} or MB's {mb_runs}")
+    x = (torch.rand((d_in, B), generator=gen, device=dev) * 2 - 1).to(dtype)
+    g = torch.randn((B, d_out), generator=gen, device=dev)
+    g1 = torch.randn((B, 128), generator=gen, device=dev)   # layer 0's output gradient
+    tol = "mlp-bf16" if dtype == torch.bfloat16 else "mlp-f32"
+    with torch.inference_mode():
+        w_args = (ws[0], x, relu, dtype, dtype, True, False)
+        got = fused_mlp_wide_fwd(*w_args)
+        torch.cuda.synchronize()
+        err[f"MW {tag}"] = compare(got.float(), fused_mlp_plain(
+            [ws[0]], x, relu, relu, dtype, dtype, True, False).float(), tol)[0]
+        wb_args = (ws[0], x, g1, relu, dtype, True, False, torch.float32)
+        dw, dx = fused_mlp_wide_bwd(*wb_args)
+        dw2, _ = fused_mlp_wide_bwd(*wb_args)
+        torch.cuda.synchronize()
+        check(torch.equal(dw, dw2), f"MBW {tag}: dW differs between two launches")
+        want_dws, want_dx = fused_mlp_bwd_plain([ws[0]], x, g1, relu, relu, dtype, True, False,
+                                                torch.float32)
+        err[f"MBW {tag}"] = compare_mlp_grads([dw, dx], [want_dws[0], want_dx], dtype,
+                                              f"MBW {tag}")
+    print(f"streamed layer {d_in} -> 128 ({str(dtype)[6:]}): M's max abs err "
+          f"{err[f'MW {tag}']:.3e}, MB's {err[f'MBW {tag}']:.3e} (dW and dx; dW bit for bit "
+          "in a second launch)")
+    hs = chain_activations(wc, x.t())
+    m_args = (ws, x, relu, none, dtype, torch.float32, True, False)
+    mb_args = (ws, x, g, relu, none, dtype, True, False)
+    w0 = wc[0]
+    with torch.inference_mode():
+        t[f"M {tag}"] = graph_ms(lambda: fused_mlp_fwd(*m_args))
+        t[f"M {tag} plain"] = eager_ms(lambda: fused_mlp_plain(*m_args))
+        t[f"M {tag} library"] = graph_ms(lambda: library_chain(wc, x.t()))
+        t[f"MB {tag}"] = graph_ms(lambda: fused_mlp_bwd(*mb_args))
+        t[f"MB {tag} plain"] = eager_ms(lambda: fused_mlp_bwd_plain(*mb_args))
+        t[f"MB {tag} library"] = graph_ms(lambda: library_bwd(wc, hs, g))
+        t[f"MW {tag}"] = graph_ms(lambda: fused_mlp_wide_fwd(*w_args))
+        t[f"MW {tag} plain"] = eager_ms(lambda: fused_mlp_plain([ws[0]], x, relu, relu, dtype,
+                                                                dtype, True, False))
+        t[f"MW {tag} library"] = graph_ms(lambda: torch.relu(x.t() @ w0))
+        t[f"MBW {tag}"] = graph_ms(lambda: fused_mlp_wide_bwd(*wb_args))
+        t[f"MBW {tag} plain"] = eager_ms(lambda: fused_mlp_bwd_plain(
+            [ws[0]], x, g1, relu, relu, dtype, True, False, torch.float32))
+        t[f"MBW {tag} library"] = graph_ms(lambda: library_bwd([w0], [x.t()], g1))
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    m_flops = 2 * B * sum(w.numel() for w in ws)
+    l_flops = 2 * B * ws[0].numel()
+    y_bytes, h1_bytes = B * d_out * 4, B * 128 * x.element_size()   # fp32 y; h1 in dtype
+    b = {f"M {tag}": (nbytes(x, *wc) + y_bytes, m_flops),
+         f"MB {tag}": (nbytes(x, g, *wc, x) + sum(w.numel() for w in ws) * 4, 3 * m_flops),
+         f"MW {tag}": (nbytes(x, w0) + h1_bytes, l_flops),
+         f"MBW {tag}": (nbytes(x, w0, g1, dx, dw), 3 * l_flops)}
+    for k, (n_bytes, flops) in b.items():
+        t[k + " bound"] = bound_ms(n_bytes, flops, peak)
+        t[k + " bound by"] = bound_by(n_bytes, flops, peak)
+        print(f"{k}: {t[k]:.4f} ms on the device (plain {t[k + ' plain']:.4f} ms, cuBLAS "
+              f"products {t[k + ' library']:.4f} ms, bound {t[k + ' bound']:.4f} ms: "
+              f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP on the {UNIT[peak]})")
+
+
+def top_device(prof, top):
+    """A finished ``profiling.trace``'s ``top`` CUDA kernels by device time,
+    as (name, ms, calls)."""
+    from torch.autograd import DeviceType
+
+    def us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    ev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=us,
+                reverse=True)
+    return [(e.key, us(e) / 1e3, e.count) for e in ev[:top]]
+
+
+def wide_features_slice(gen, dev):
+    """Slice 16: grids of more than 8 features a level and FusedMLPs with
+    wide inputs, which the card once refused.  G, GB, GI, GG and GT at
+    F = 16 (the wide SDF's grid, fp32) and F = 32 (the wide image's, bf16
+    table) against their plain versions, and their times; M and MB at 256
+    (fp32) and 512 (bf16) inputs with their streamed-layer instances; the
+    wide SDF (2^19-row tables, 256 MLP inputs, fp32) through its eikonal
+    step and curvature step (ReLU, on points clear of a switch, and
+    Softplus) at 2^18 against the plain path, with
+    their launches, device times and split, and a 200-step eikonal fit at
+    2^14 with a floor
+    from the JAX package's run of the same fit; the wide image (config_hash's
+    geometry at 32 features, 512 MLP inputs, BF16_POLICY) through one
+    step's gradients against the plain path and 100 steps of
+    ``make_training_loop`` at 2^18 (the loss falls more than 10x).
+    Returns the report entries of the new instances."""
+    from tcnn_tpu_torch import BF16_POLICY, Policy, create_from_config
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import m_plan, mb_plan
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.utils import profiling
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    t_phase = time.time()
+    err, t = {}, {}
+    sdf_model = create_from_config(3, 1, wide_sdf_config(WIDE_ROWS_POW), policy=Policy())
+    img_model = create_from_config(2, 3, wide_image_config(), policy=BF16_POLICY)
+    grids = (("F=16", sdf_model.network.encoding.spec, torch.float32),
+             ("F=32", img_model.network.encoding.spec, torch.bfloat16))
+    for tag, spec, dtype in grids:
+        D, F = spec.n_dims, spec.n_features_per_level
+        B = 1 << WIDE_KERNEL_POW
+        phase(f"slice 16: a {D}-D grid of {spec.n_levels} levels x {F} features "
+              f"({spec.n_params} parameters, {str(dtype)[6:]} table): G, GB, GI, GG and GT "
+              f"vs plain at B={B}")
+        live = list(range(spec.n_levels))
+        table = (torch.rand(spec.n_params, generator=gen, device=dev) * 2 - 1).to(dtype)
+        x = torch.rand((B, D), generator=gen, device=dev) * 0.9 + 0.05
+        dcols = torch.randn((spec.n_output_dims, B), generator=gen, device=dev).to(dtype)
+        ddx, beta = (torch.randn((B, D), generator=gen, device=dev) for _ in range(2))
+        e = grid_kernel_checks(spec, table, x, dcols, ddx, label=f"{D}-D {tag}")
+        err.update({f"{k} {tag}": e[k] for k in ("G", "GB", "GI", "GG")})
+        err[f"GT {tag}"] = max(check_third_order(spec, table, x, dcols, ddx, beta, live,
+                                                 label=f"{D}-D {tag}").values())
+        Bt = MAIN_BATCH
+        phase(f"slice 16: the {tag} grid kernels' times at B={Bt}")
+        xt = torch.rand((Bt, D), generator=gen, device=dev) * 0.9 + 0.05
+        dct = torch.randn((spec.n_output_dims, Bt), generator=gen, device=dev).to(dtype)
+        ddt, bet = (torch.randn((Bt, D), generator=gen, device=dev) for _ in range(2))
+        time_grid_kernels(spec, table, xt, dct, ddt, t, {f"{k} {tag}": k for k in
+                                                         ("G", "GB", "GI", "GG")},
+                          plain_calls=2)
+        gt_time(spec, table, xt, dct, ddt, bet, t, f"GT {tag}")
+    phase("slice 16: the widest MLP input and output one launch of M and MB takes")
+    mlp_width_limits()
+    wide_mlp_checks(gen, dev, 256, 1, torch.float32, "256 fp32", t, err)
+    wide_mlp_checks(gen, dev, 512, 3, torch.bfloat16, "512 bf16", t, err)
+
+    net = sdf_model.network
+    mlp = [w.detach() for w in net.network.layers]
+    n_fwd = len(m_plan(mlp, torch.float32, True))
+    check(m_plan(mlp, torch.float32, True) == [(0, 1), (1, 3)]
+          and mb_plan(mlp, torch.float32, net.network.activation,
+                      net.network.output_activation) == [(0, 3)],
+          "wide SDF: expected M's runs [(0, 1), (1, 3)] and MB's [(0, 3)]")
+    Bs = 1 << WIDE_STEP_POW
+    phase(f"slice 16: the wide SDF's eikonal step at B={Bs} vs the plain eikonal step "
+          "(the main path)")
+    xs, xv = sdf.sample_points(gen, Bs, dev)
+    # two forwards a step, each a streamed first layer and M over the rest;
+    # MB once for each (one launch: 256 inputs fit its fp32 layout)
+    eik = check_eikonal_step(net, xs, xv, None, "wide SDF eikonal step", expect={
+        "G": 2, "M": 2 * (n_fwd - 1), "MB": 2, "GB": 1, "GI": 1, "GG": 1, "RS": 0, "GT": 0,
+        "MW": 2, "MBW": 0}, table_rel=1e-4)
+    # ReLU (the sample's activation): a pre-activation within fp32 rounding
+    # of 0 may switch between the two paths, and in the curvature term such
+    # samples moved a table entry by 0.604, 2.6 % of the largest (on an
+    # H100): held on points drawn clear of the switches, first printed as
+    # drawn; then Softplus, which has no switch, on points as drawn
+    phase(f"slice 16: the wide SDF's curvature step (ReLU) at B={Bs} vs the plain path, "
+          f"on points clear of a ReLU switch by {WIDE_RELU_NEAR:.3g}·Σ|h·w|")
+    curv_relu = curvature_check(gen, dev, "ReLU", net=net, n_pow=WIDE_STEP_POW,
+                                kernels=("MW",), near=WIDE_RELU_NEAR)
+    phase(f"slice 16: the wide SDF's curvature step (Softplus) at B={Bs} vs the plain path")
+    cfg = wide_sdf_config(WIDE_ROWS_POW)
+    soft = create_from_config(3, 1, {**cfg, "network": {**cfg["network"],
+                                                        "activation": "Softplus"}},
+                              policy=Policy()).network
+    curv = curvature_check(gen, dev, "Softplus", net=soft, n_pow=WIDE_STEP_POW,
+                           kernels=("MW",))
+    del soft
+
+    phase(f"slice 16: the wide SDF's steps at B={Bs}: eager, on the device, and split")
+    opt = sdf_model.optimizer
+    v = sdf.sample_directions(gen, Bs, dev)
+    state = opt.init(dict(net.named_parameters()), net.param_layout())
+
+    def eikonal_step():
+        sdf.step(net, opt, state, xs, xv)
+
+    def curvature_step():
+        _, gr = sdf.curvature_loss_and_grads(net, xs, xv, v)
+        opt.step(state, gr, dict(net.named_parameters()))
+
+    for name, fn in (("eikonal", eikonal_step), ("curvature", curvature_step)):
+        t[f"wide {name} step"] = time_ms(fn, n=5)
+        t[f"wide {name} step device"] = graph_ms(fn, n=5)
+        fn()
+        torch.cuda.synchronize()
+        with profiling.trace() as prof:
+            fn()
+        split = profiling.split(prof)
+        print(f"wide SDF {name} step at B={Bs}: {t[f'wide {name} step']:.4f} ms eager with "
+              f"the host's work, {t[f'wide {name} step device']:.4f} ms of device work "
+              f"(idle share {1 - t[f'wide {name} step device'] / t[f'wide {name} step']:.3f});"
+              f" under the profiler, CUDA kernels {split['device_ms']:.4f} ms "
+              f"({'not measured: no device activity recorded' if not split['device_ms'] else 'CUPTI'})")
+        for kname, ms, n in top_device(prof, 8):
+            print(f"  device time: {kname[:90]} {ms:.4f} ms in {n} calls")
+
+    phase(f"slice 16: the wide SDF's fit, {WIDE_FIT_STEPS} steps at 2^{WIDE_FIT_POW} on "
+          f"2^{WIDE_FIT_ROWS_POW}-row tables through create_from_config (the main path)")
+    torch.cuda.synchronize()
+    reset_counts()
+    fit = sdf.main(["fit_sdf_eikonal", str(WIDE_FIT_STEPS), str(WIDE_FIT_POW)],
+                   config=wide_sdf_config(WIDE_FIT_ROWS_POW))
+    torch.cuda.synchronize()
+    fit_launches = counts()
+    losses = fit["losses"]
+    check(bool(torch.isfinite(losses).all()), "non-finite wide SDF fit loss")
+    first, last10 = float(losses[0]), float(losses[-10:].mean())
+    print(f"wide SDF fit: loss {first:.6f} -> {last10:.6f} (mean of the last 10; JAX "
+          f"{WIDE_FIT_LOSS_JAX}, floor {WIDE_FIT_LOSS_FLOOR}); sdf error "
+          f"{fit['sdf_error']:.4f}; {fit['seconds']:.2f} s; launches {fit_launches}")
+    check(last10 < WIDE_FIT_LOSS_FLOOR,
+          f"wide SDF loss floor missed: {last10} >= {WIDE_FIT_LOSS_FLOOR}")
+    check(fit_launches["MW"] == 2 * WIDE_FIT_STEPS + 1 and fit_launches["GG"] == WIDE_FIT_STEPS,
+          f"wide SDF fit launches {fit_launches}")
+
+    phase(f"slice 16: the wide image (BF16_POLICY): one step's gradients vs the plain path "
+          f"at B={MAIN_BATCH}, then {WIDE_IMAGE_STEPS} steps of make_training_loop")
+    x = torch.rand((MAIN_BATCH, 2), generator=gen, device=dev)
+    target = torch.rand((MAIN_BATCH, 3), generator=gen, device=dev)
+    check_step_gradients(img_model, x, target, flips=True)
+    imlp = [w.detach().to(torch.bfloat16) for w in img_model.network.network.layers]
+    check(m_plan(imlp, torch.bfloat16, True) == [(0, 3)]
+          and len(mb_plan(imlp, torch.bfloat16, img_model.network.network.activation,
+                          img_model.network.network.output_activation)) == 2,
+          "wide image: expected M in one launch and MB in two runs")
+    sampler = ImageSampler(synthetic_image(1024, 1024), seed=0)
+    loop = img_model.trainer.make_training_loop(lambda i: sampler.sample_batch(MAIN_BATCH),
+                                                WIDE_IMAGE_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    losses = loop()
+    torch.cuda.synchronize()
+    loop_s = time.time() - t0
+    img_launches = counts()   # the loop's eager warm-up step and its capture
+    losses = losses.cpu()
+    check(bool(torch.isfinite(losses).all()), "non-finite wide image loss")
+    first, last10 = float(losses[0]), float(losses[-10:].mean())
+    print(f"wide image: {WIDE_IMAGE_STEPS} steps in {loop_s:.2f} s (capture included); loss "
+          f"{first:.5f} -> {last10:.5f} (mean of the last 10), {first / last10:.1f}x; launches "
+          f"{img_launches}")
+    check(first > 10 * last10, f"wide image loss fell {first / last10:.2f}x, not 10x")
+    check(img_launches == {"G": 2, "M": 2, "GB": 2, "MB": 2, "GI": 0, "GG": 0, "RS": 0,
+                           "GT": 0, "MW": 2, "MBW": 2},
+          f"wide image loop launches {img_launches}: expected per step G, M, GB and MB, "
+          "MB's first run alone (MBW) and M's streamed layer at its boundary (MW)")
+    t["wide image loop step"] = loop_s / WIDE_IMAGE_STEPS * 1e3
+
+    # each entry's launches are its own model's main path: the wide SDF's
+    # steps and fit for F = 16 and 256 fp32 inputs, the wide image's loop
+    # for F = 32 and 512 bf16 inputs; 0 where that path launches no such
+    # kernel (checked against plain above, and timed, only)
+    sdf_path = {k: eik[k] + curv_relu[k] + curv[k] + fit_launches[k] for k in fit_launches}
+    paths = {"wide SDF": (sdf_path, "the wide SDF's eikonal and curvature steps and its fit"),
+             "wide image": (img_launches, "the wide image's make_training_loop")}
+    out = []
+    for tag, model, extra, ks in (
+            ("F=16", "wide SDF", {"grid": "wide SDF, 3-D, 16 x 16, fp32 table"},
+             (("G", REPLACES_G), ("GB", REPLACES_GB), ("GI", REPLACES_GI),
+              ("GG", REPLACES_GG), ("GT", REPLACES_GT))),
+            ("F=32", "wide image", {"grid": "wide image, 2-D, 16 x 32, bf16 table"},
+             (("G", REPLACES_G), ("GB", REPLACES_GB), ("GI", REPLACES_GI),
+              ("GG", REPLACES_GG), ("GT", REPLACES_GT))),
+            ("256 fp32", "wide SDF", {}, (("M", REPLACES_M), ("MB", REPLACES_MB),
+                                          ("MW", REPLACES_M), ("MBW", REPLACES_MB))),
+            ("512 bf16", "wide image", {}, (("M", REPLACES_M), ("MB", REPLACES_MB),
+                                            ("MW", REPLACES_M), ("MBW", REPLACES_MB)))):
+        launches, path = paths[model]
+        for k, r in ks:
+            note = path if launches[k] else (f"checked against plain and timed only: "
+                                             f"{path} launches no {k}")
+            out += entries(t, [(f"{k} {tag}", k, r)], launches, err,
+                           {**extra, "path": note, "batch": MAIN_BATCH})
+    want_sdf = ("G", "GB", "GI", "GG", "GT", "M", "MB", "MW")
+    want_img = ("G", "GB", "M", "MB", "MW", "MBW")
+    check(all(sdf_path[k] > 0 for k in want_sdf) and all(img_launches[k] > 0 for k in want_img),
+          f"slice 16: a kernel of a main path was not launched: wide SDF {sdf_path}, "
+          f"wide image {img_launches}")
+    print(f"slice 16: wide SDF eikonal step launches {eik}, curvature steps {curv_relu} "
+          f"(ReLU) and {curv} (Softplus), its path {sdf_path}; wide image loop "
+          f"{img_launches}; the phase took {time.time() - t_phase:.1f} s")
+    return out
+
+
 def mb_determinism(gen, dev):
     """Kernel MB twice on the same inputs at the SDF shape (16 -> 64 x 2 ->
     1, SoA input) and at config_btf's (40 -> 64 x 3 -> 3, AoS), B = 2^18,
@@ -4152,7 +4733,8 @@ def main():
               + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)
               + rng_stochastic_slice(gen, dev, hash_times) + masked_sdf_slice(gen, dev)
               + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)
-              + parallel_slice(gen, dev) + slice14(gen, dev, hash_times)}
+              + parallel_slice(gen, dev) + slice14(gen, dev, hash_times)
+              + wide_features_slice(gen, dev)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

@@ -225,6 +225,45 @@ int64_t fused_mlp_bwd_smem_bytes(int64_t d_in, int64_t d_out, int64_t width,
       static_cast<int>(out_act));
 }
 
+int64_t fused_mlp_fwd_smem_bytes(int64_t d_in, int64_t d_out, int64_t width,
+                                 int64_t n_layers, bool compute_bf16, bool soa_in) {
+  return tcnn_tpu_torch::fused_mlp_fwd_smem_bytes(
+      static_cast<int>(d_in), static_cast<int>(d_out), static_cast<int>(width),
+      static_cast<int>(n_layers), compute_bf16, soa_in);
+}
+
+void fused_mlp_wide_fwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_d,
+                        const torch::Tensor& w, const torch::Tensor& y, int64_t y_stride_b,
+                        int64_t y_stride_d, int64_t batch, int64_t act) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(tcnn_tpu_torch::fused_mlp_wide_fwd_launch(
+      x.data_ptr(), x_stride_b, x_stride_d, static_cast<int>(w.size(0)), w.data_ptr(),
+      static_cast<int>(w.size(1)), y.data_ptr(), y_stride_b, y_stride_d,
+      y.scalar_type() == at::kBFloat16, batch, x.scalar_type() == at::kBFloat16,
+      static_cast<int>(act), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void fused_mlp_wide_bwd(const torch::Tensor& x, int64_t x_stride_b, int64_t x_stride_d,
+                        const torch::Tensor& w, const torch::Tensor& g, int64_t g_stride_b,
+                        int64_t g_stride_d, const torch::Tensor& dx, int64_t dx_stride_b,
+                        int64_t dx_stride_d, const torch::Tensor& dw, int64_t batch,
+                        int64_t act) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  torch::Tensor partials;   // the CTAs' partial dW, sized by the launcher
+  C10_CUDA_CHECK(tcnn_tpu_torch::fused_mlp_wide_bwd_launch(
+      x.data_ptr(), x_stride_b, x_stride_d, static_cast<int>(w.size(0)), w.data_ptr(),
+      static_cast<int>(w.size(1)), g.data_ptr<float>(), g_stride_b, g_stride_d, dx.data_ptr(),
+      dx_stride_b, dx_stride_d, dx.scalar_type() == at::kBFloat16,
+      [&](int64_t n) {
+        partials = torch::empty({n}, dw.options());
+        return partials.data_ptr<float>();
+      },
+      dw.data_ptr<float>(), batch, x.scalar_type() == at::kBFloat16, static_cast<int>(act),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -239,4 +278,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("row_scatter", &row_scatter, "row scatter-add (kernel RS)");
   m.def("fused_mlp_bwd_smem_bytes", &fused_mlp_bwd_smem_bytes,
         "shared memory of one kernel-MB CTA");
+  m.def("fused_mlp_fwd_smem_bytes", &fused_mlp_fwd_smem_bytes,
+        "shared memory of one kernel-M CTA");
+  m.def("fused_mlp_wide_fwd", &fused_mlp_wide_fwd,
+        "fused-MLP forward of one layer streamed in chunks of its inputs (kernel M, wide)");
+  m.def("fused_mlp_wide_bwd", &fused_mlp_wide_bwd,
+        "fused-MLP backward of one layer streamed in chunks of its inputs (kernel MB, wide)");
 }

@@ -464,6 +464,12 @@ cudaError_t launch_f32(const MlpArgs& a, int width, cudaStream_t stream) {
 
 }  // namespace
 
+int fused_mlp_fwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,
+                             bool soa_in) {
+  return compute_bf16 ? bf16_fwd_layout(d_in, d_out, width, n_layers, soa_in).bytes
+                      : f32_fwd_layout(d_in, d_out, width, n_layers).bytes;
+}
+
 cudaError_t fused_mlp_fwd_launch(
     const void* x, int64_t x_stride_b, int64_t x_stride_d, int d_in,
     const void* const* weights, int n_layers, int width, int d_out, void* y,

@@ -757,17 +757,6 @@ fused_mlp_bwd_f32_kernel(BwdArgs a, F32BwdLayout s) {
   }
 }
 
-// dw[i] = Σ_c partials[c][i], summed in CTA order: deterministic.
-__global__ void __launch_bounds__(256)
-sum_partials_kernel(const float* __restrict__ partials, int n_parts, int64_t total,
-                    float* __restrict__ dw) {
-  const int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x;
-  if (i >= total) return;
-  float sum = 0.0f;
-  for (int c = 0; c < n_parts; ++c) sum += partials[c * total + i];
-  dw[i] = sum;
-}
-
 // The arguments of one shape, as far as the layouts need them.
 BwdArgs shape_args(int d_in, int d_out, int width, int n_layers, int act, int out_act) {
   BwdArgs a{};

@@ -245,6 +245,38 @@ __device__ __forceinline__ float load_any(const void* p, bool bf16, int64_t i) {
               : static_cast<const float*>(p)[i];
 }
 
+// Features [i, i + nf) of a table whose dtype is known only at run time, as
+// fp32, zeros past nf (nf <= 8): the run-time-D instances' loads of a group,
+// i = row·F + g0 with g0 a multiple of 8, four features a load (16 bytes
+// in fp32, 8 in bf16, aligned) where F is a multiple of 4, else one each.
+__device__ __forceinline__ void load_group(const void* table, bool bf16, int64_t i, int nf,
+                                           int F, float (&v)[8]) {
+  if (F % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < 8; q += 4) {
+      if (q >= nf) {
+        v[q] = v[q + 1] = v[q + 2] = v[q + 3] = 0.0f;
+      } else if (bf16) {
+        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
+            static_cast<const __nv_bfloat16*>(table) + i + q));
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[q + u] = __bfloat162float(e[u]);
+      } else {
+        const float4 raw = __ldg(reinterpret_cast<const float4*>(
+            static_cast<const float*>(table) + i + q));
+        v[q] = raw.x;
+        v[q + 1] = raw.y;
+        v[q + 2] = raw.z;
+        v[q + 3] = raw.w;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = k < nf ? load_any(table, bf16, i + k) : 0.0f;
+}
+
 // Corner c's interpolation weight from the per-dim weights w1: the
 // product over d of w1[d] or 1 - w1[d], in the order d = 0 .. D-1.
 template <int D>
@@ -561,9 +593,19 @@ struct WideCorners {
   }
 };
 
-// Whether a launch takes its kernel's run-time-D instance: 5 to 7 dims, or
-// an Rng grid (each corner's hash in full).
-inline bool wide_instance(int n_dims, int hash_kind) { return n_dims > 4 || hash_kind == 2; }
+// Features per group of the run-time-D instances: a (sample, level) of F
+// features runs its groups [g0, g0 + 8) one after another (where F > 8
+// each group recomputes the corners' rows and weights, which the loop over
+// up to 128 corners cannot keep in registers), so that a thread's sums over
+// the features stay in one thread and in one order.
+constexpr int kFeatureGroup = 8;
+
+// Whether a launch takes its kernel's run-time-D instance: 5 to 7 dims, an
+// Rng grid (each corner's hash in full), or more than 8 features a level
+// (the 1- to 4-D instances template F over 1 to 8).
+inline bool wide_instance(int n_dims, int hash_kind, int n_features) {
+  return n_dims > 4 || hash_kind == 2 || n_features > kFeatureGroup;
+}
 
 // dst = bf16(src), the one cast of an fp32 gradient buffer to a bf16 table.
 __global__ void __launch_bounds__(kGridThreads)

@@ -43,10 +43,11 @@
 // The index and weight arithmetic, and the hazards it handles, are in
 // grid_common.cuh, shared with the backward kernel GB.
 //
-// Rng grids (pcg32, not XOR-linear: each corner's hash in full) and 5 to 7
-// dims run one instance with D, F and the table's dtype at run time
-// (grid_encode_fwd_wide_kernel, WideCorners in grid_common.cuh); the
-// instances above carry no code of either.
+// Rng grids (pcg32, not XOR-linear: each corner's hash in full), 5 to 7
+// dims and more than 8 features a level run one instance with D, F and the
+// table's dtype at run time (grid_encode_fwd_wide_kernel, WideCorners in
+// grid_common.cuh; F > 8 in its kGroups copy, a group of 8 features per
+// blockIdx.z); the instances above carry no code of them.
 //
 // Shard mode (a sharded table: the shard's rows are in level_params,
 // grid_common.cuh) runs the run-time-D instance, with `sharded` a run-time
@@ -329,14 +330,20 @@ struct FwdLaunch {
   }
 };
 
-// Rng grids and 5 to 7 dims (WideCorners): thread (blockIdx.x, threadIdx.x) takes one
-// sample on level blockIdx.y, its 2^D corners in a loop, each row in full
-// and loaded as it is used; F, the table's dtype and D at run time, one
-// instance.  The sum over the corners in order 0 .. 2^D-1 in fp32, as the
-// D <= 4 instances; in shard mode over the corners the shard holds.  With
+// Rng grids, 5 to 7 dims and F > 8 (WideCorners): thread (blockIdx.x,
+// threadIdx.x) takes one sample on level blockIdx.y, its 2^D corners in a
+// loop, each row in full and loaded as it is used; F, the table's dtype and
+// D at run time, one instance per kGroups.  The sum over the corners in
+// order 0 .. 2^D-1 in fp32, as the D <= 4 instances; in shard mode over the
+// corners the shard holds.  With kGroups (F > 8) blockIdx.z is the group of
+// features [8z, 8z + 8), each group's sums those of a run of 8 features of
+// a row of F: a feature's sum is the same whatever group holds it (GB and GI
+// run every F in one instance; one for both here ran G's F <= 8 shapes in
+// shard mode 12 % slower on an H100, chip_smoke.py across two runs).  With
 // the uniforms u (n_levels, batch) of stochastic interpolation, the
 // stochastic gather: each (sample, level) reads its one corner
 // (WideCorners::stochastic_corner, GB's pick) at weight 1.
+template <bool kGroups>
 __global__ void __launch_bounds__(kGridThreads)
 grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ level_frac,
                             const void* __restrict__ table, bool bf16,
@@ -348,6 +355,9 @@ grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict
   const int64_t b = int64_t(blockIdx.x) * kGridThreads + threadIdx.x;
   const int level = blockIdx.y;
   if (b >= batch) return;
+  // this launch's features of the row: [g0, g0 + nf)
+  const int g0 = kGroups ? int(blockIdx.z) * kFeatureGroup : 0;
+  const int nf = kGroups ? min(kFeatureGroup, n_features - g0) : n_features;
   const int32_t* lp = level_params + level * kLevelFields;
   float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const bool live = lp[4] != 0 &&
@@ -360,16 +370,25 @@ grid_encode_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict
       const uint32_t r = lc.row(c, hc);
       if (sharded && !shard_owns(lp, r)) continue;
       const float w = u ? 1.0f : lc.weight(c);
+      const int64_t row = int64_t(r) * n_features + g0;
+      if constexpr (kGroups) {   // the group's features in loads of four
+        float v[8];
+        load_group(table, bf16, row, nf, n_features, v);
 #pragma unroll
-      for (int f = 0; f < 8; ++f)
-        if (f < n_features)
-          acc[f] = __fadd_rn(acc[f], __fmul_rn(w, load_any(table, bf16, int64_t(r) * n_features + f)));
+        for (int f = 0; f < 8; ++f)
+          if (f < nf) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[f]));
+      } else {
+#pragma unroll
+        for (int f = 0; f < 8; ++f)
+          if (f < nf)
+            acc[f] = __fadd_rn(acc[f], __fmul_rn(w, load_any(table, bf16, row + f)));
+      }
     }
   }
-  const int64_t o = b * out_stride_b + int64_t(level) * n_features * out_stride_f;
+  const int64_t o = b * out_stride_b + (int64_t(level) * n_features + g0) * out_stride_f;
 #pragma unroll
   for (int f = 0; f < 8; ++f) {
-    if (f >= n_features) break;
+    if (f >= nf) break;
     if (bf16 && !sharded)
       static_cast<__nv_bfloat16*>(out)[o + f * out_stride_f] = __float2bfloat16_rn(acc[f]);
     else
@@ -387,12 +406,15 @@ cudaError_t grid_encode_fwd_launch(
     cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || n_levels > 65535 || interp < 0 || interp > 2 ||
       x_stride_b < n_dims || n_dims < 1 || n_dims > kMaxDims || n_features < 1 ||
-      n_features > 8 || (u && sharded))
+      (u && sharded))
     return cudaErrorInvalidValue;
   const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
-  if (sharded || u || wide_instance(n_dims, hash_kind)) {
-    const dim3 grid(unsigned((batch + kGridThreads - 1) / kGridThreads), unsigned(n_levels));
-    grid_encode_fwd_wide_kernel<<<grid, kGridThreads, 0, stream>>>(
+  if (sharded || u || wide_instance(n_dims, hash_kind, n_features)) {
+    const auto kernel = n_features > kFeatureGroup ? grid_encode_fwd_wide_kernel<true>
+                                                   : grid_encode_fwd_wide_kernel<false>;
+    const dim3 grid(unsigned((batch + kGridThreads - 1) / kGridThreads), unsigned(n_levels),
+                    unsigned((n_features + kFeatureGroup - 1) / kFeatureGroup));
+    kernel<<<grid, kGridThreads, 0, stream>>>(
         x, level_frac, table, table_bf16, level_params, n_levels, out, batch, n_dims,
         n_features, x_stride_b, out_stride_b, out_stride_f, hc, interp, sharded, u);
     return cudaGetLastError();

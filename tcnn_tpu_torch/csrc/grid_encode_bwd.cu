@@ -73,9 +73,11 @@
 // (65,536 rows and more, about 8 updates per row) are all direct.
 //
 // Stochastic interpolation (grid.h:284-299; the JAX package's ws_bwd,
-// grid_ops.py:524-535), Rng grids and 5 to 7 dims run one instance with D
-// and F at run time (grid_encode_bwd_wide_kernel, WideCorners), on the same
-// plan of windows and direct items: with the uniforms u (n_levels, B), a
+// grid_ops.py:524-535), Rng grids, 5 to 7 dims and more than 8 features a
+// level run one instance with D and F at run time
+// (grid_encode_bwd_wide_kernel, WideCorners; features in groups of at
+// most 8), on the same plan of windows and direct items
+// (gb_plan sizes a window's rows by F): with the uniforms u (n_levels, B), a
 // sample puts its whole output gradient, weight 1, on the one corner that
 // is cell + 1 on dim d iff u[l, b] < w1_d.  The 1- to 4-D instances carry
 // no code of it.
@@ -283,7 +285,9 @@ cudaError_t launch_items(const BwdParams& a, int n_items, int smem, cudaStream_t
 // window item sums its rows in shared memory and flushes them with one
 // global atomic per value, a direct item adds one global atomic per corner
 // and feature; with the uniforms u (stochastic interpolation, null: none)
-// one corner at weight 1.
+// one corner at weight 1.  A sample's features in groups of at most 8, one
+// after another (one group where F <= 8), each group over every corner
+// again, a float4 atomic per four features where F is a multiple of 4.
 __global__ void __launch_bounds__(kBwdThreads)
 grid_encode_bwd_wide_kernel(BwdParams a, int n_dims, int n_features, bool dcols_bf16,
                             const float* __restrict__ u, int64_t batch) {
@@ -301,36 +305,52 @@ grid_encode_bwd_wide_kernel(BwdParams a, int n_dims, int n_features, bool dcols_
   for (int64_t b = it[3] + threadIdx.x; b < b1; b += kBwdThreads) {
     if (a.level_frac && !(float(level) < level_threshold(a.level_frac[b], a.n_levels)))
       continue;
-    float dy[8];
-#pragma unroll
-    for (int f = 0; f < 8; ++f)
-      dy[f] = f < n_features
-          ? load_any(a.dcols, dcols_bf16, b * a.dc_stride_b + int64_t(level * n_features + f) * a.dc_stride_f)
-          : 0.0f;
-    const WideCorners lc(lp, a.x + b * a.x_stride_b, n_dims, a.interp);
-    const int pick = u ? lc.stochastic_corner(u[int64_t(level) * batch + b]) : -1;
-    for (int c = 0; c < (1 << n_dims); ++c) {
-      const float w = pick < 0 ? lc.weight(c) : (c == pick ? 1.0f : 0.0f);
-      if (w == 0.0f) continue;
-      const uint32_t r = lc.row(c, a.hc);
-      if (a.sharded && !shard_owns(lp, r)) continue;
-      float* p;
-      if (n_rows) {
-        const uint32_t wr = r - offset - row_lo;   // wraps above n_rows below row_lo
-        if (wr >= n_rows) continue;
-        p = win + wr * n_features;
-      } else {
-        p = a.grad + int64_t(r) * n_features;
-      }
+    // features [g0, g0 + nf) of the row
+    for (int g0 = 0; g0 < n_features; g0 += kFeatureGroup) {
+      const int nf = min(kFeatureGroup, n_features - g0);
+      float dy[8];
 #pragma unroll
       for (int f = 0; f < 8; ++f)
-        if (f < n_features) atomicAdd(p + f, __fmul_rn(w, dy[f]));
+        dy[f] = f < nf ? load_any(a.dcols, dcols_bf16,
+                                  b * a.dc_stride_b +
+                                      (int64_t(level) * n_features + g0 + f) * a.dc_stride_f)
+                       : 0.0f;
+      const WideCorners lc(lp, a.x + b * a.x_stride_b, n_dims, a.interp);
+      const int pick = u ? lc.stochastic_corner(u[int64_t(level) * batch + b]) : -1;
+      for (int c = 0; c < (1 << n_dims); ++c) {
+        const float w = pick < 0 ? lc.weight(c) : (c == pick ? 1.0f : 0.0f);
+        if (w == 0.0f) continue;
+        const uint32_t r = lc.row(c, a.hc);
+        if (a.sharded && !shard_owns(lp, r)) continue;
+        float* p;
+        if (n_rows) {
+          const uint32_t wr = r - offset - row_lo;   // wraps above n_rows below row_lo
+          if (wr >= n_rows) continue;
+          p = win + wr * n_features + g0;
+        } else {
+          p = a.grad + int64_t(r) * n_features + g0;
+          if (n_features % 4 == 0) {   // a float4 per four features
+#pragma unroll
+            for (int f = 0; f < 8; f += 4)
+              if (f < nf)
+                global_add<4>(p + f, {__fmul_rn(w, dy[f]), __fmul_rn(w, dy[f + 1]),
+                                      __fmul_rn(w, dy[f + 2]), __fmul_rn(w, dy[f + 3])});
+            continue;
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 8; ++f)
+          if (f < nf) atomicAdd(p + f, __fmul_rn(w, dy[f]));
+      }
     }
   }
   if (n_rows) {
     __syncthreads();
-    window_flush<1>(win, int(n_rows) * n_features,
-                    a.grad + int64_t(uint32_t(offset + row_lo)) * n_features);
+    float* dst = a.grad + int64_t(uint32_t(offset + row_lo)) * n_features;
+    if (n_features % 4 == 0)   // float4 atomics where F allows
+      window_flush<4>(win, int(n_rows) * n_features, dst);
+    else
+      window_flush<1>(win, int(n_rows) * n_features, dst);
   }
 }
 
@@ -372,7 +392,7 @@ cudaError_t grid_encode_bwd_launch(
     cudaStream_t stream) {
   if (n_params <= 0 || n_groups < 0 || n_levels <= 0 || interp < 0 || interp > 2 ||
       x_stride_b < n_dims || (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims ||
-      n_features < 1 || n_features > 8)
+      n_features < 1)
     return cudaErrorInvalidValue;
   for (int i = 0; i < n_groups; ++i)
     if (groups[4 * i + 1] <= 0 || groups[4 * i + 2] < 0 || groups[4 * i + 2] > kWindowMaxBytes ||
@@ -384,7 +404,7 @@ cudaError_t grid_encode_bwd_launch(
 
   cudaError_t err = cudaMemsetAsync(grad, 0, size_t(n_params) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
-  if (wide_instance(n_dims, hash_kind) || u != nullptr) {
+  if (wide_instance(n_dims, hash_kind, n_features) || u != nullptr) {
     for (int i = 0; i < n_groups && err == cudaSuccess; ++i) {
       const int32_t* g = groups + 4 * i;
       if (g[3] != 1) return cudaErrorInvalidValue;   // no clusters
@@ -396,7 +416,7 @@ cudaError_t grid_encode_bwd_launch(
         if (err != cudaSuccess) return err;
       }
       grid_encode_bwd_wide_kernel<<<g[1], kBwdThreads, g[2], stream>>>(p, n_dims, n_features,
-                                                                       dcols_bf16, u, batch);
+                                                                      dcols_bf16, u, batch);
       err = cudaGetLastError();
     }
   } else {

@@ -53,10 +53,11 @@
 //  * Each output is computed only where its pointer is given (d_x only when
 //    x needs a gradient, the table gradient only when the table does).
 //
-// Rng grids, 5 to 7 dims, a per-sample level mask (level_frac, as in G, GB
-// and GI) and shard mode run one instance with D and F at run time
-// (grid_encode_bwd_bwd_wide_kernel, WideCorners) on the same plan; the 1-
-// to 4-D instances carry no code of them.  A (sample, level) the mask drops
+// Rng grids, 5 to 7 dims, more than 8 features a level (its kGroups
+// copies, the features in groups of 8 in one thread), a per-sample level
+// mask (level_frac, as in G, GB and GI) and shard mode run one instance with
+// D and F at run time (grid_encode_bwd_bwd_wide_kernel, WideCorners) on the
+// same plan; the 1- to 4-D instances carry no code of them.  A (sample, level) the mask drops
 // loads nothing and adds nothing: its d_dcols and d_x partial are written
 // as 0.  Shard mode (its kShard copy; grid_common.cuh, shard_owns): a
 // corner the shard does not hold loads nothing and adds nothing to any
@@ -177,11 +178,17 @@ grid_encode_bwd_bwd_kernel(GgParams a) {
   }
 }
 
-// Rng grids, 5 to 7 dims, a per-sample mask and (kShard) shard mode: one
-// instance with D, F and the dtypes at run time (WideCorners), the same
+// Rng grids, 5 to 7 dims, F > 8, a per-sample mask and (kShard) shard mode:
+// one instance with D, F and the dtypes at run time (WideCorners), the same
 // plan, outputs and orders; in direct items a float2 atomic per two
-// features where F is even, else one per feature.
-template <bool kShard>
+// features where F is even, else one per feature.  kGroups (F > 8): a
+// (sample, level)'s features in groups of 8, one after another, each group
+// over every corner again (its rows, w' and, for d_x, the Hessian times
+// ddx); d_x's partial sums the groups in order, in each the corners in
+// order, in one thread.  GB and GI run every F in one instance; one for
+// both here ran GG's F <= 8 shapes (masked, 7-D, Rng, sharded) 6 to 12 %
+// slower on an H100 (chip_smoke.py across two runs).
+template <bool kShard, bool kGroups>
 __global__ void __launch_bounds__(kGgThreads)
 grid_encode_bwd_bwd_wide_kernel(GgParams a, int n_dims, int n_features) {
   extern __shared__ float win[];
@@ -195,65 +202,77 @@ grid_encode_bwd_bwd_wide_kernel(GgParams a, int n_dims, int n_features) {
   for (int64_t b = it.b0 + threadIdx.x; b < it.b1; b += kGgThreads) {
     const bool live = !a.level_frac ||
                       float(it.level) < level_threshold(a.level_frac[b], a.n_levels);
-    float acc[kMaxDims], dd[8];
+    float acc[kMaxDims];
 #pragma unroll
     for (int d = 0; d < kMaxDims; ++d) acc[d] = 0.0f;
+    // features [g0, g0 + nf) of the row
+    for (int g0 = 0; g0 < (kGroups ? F : 1); g0 += kFeatureGroup) {
+      const int nf = kGroups ? min(kFeatureGroup, F - g0) : F;
+      float dd[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) dd[k] = 0.0f;
-    if (live) {   // masked: nothing loaded, nothing added, zero outputs below
-      float v[kMaxDims], dy[8];
+      for (int k = 0; k < 8; ++k) dd[k] = 0.0f;
+      if (live) {   // masked: nothing loaded, nothing added, zero outputs below
+        float v[kMaxDims], dy[8];
 #pragma unroll
-      for (int d = 0; d < kMaxDims; ++d) v[d] = d < n_dims ? a.ddx[b * n_dims + d] : 0.0f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        dy[k] = k < F ? load_any(a.dcols, a.dcols_bf16,
-                                 b * a.dc_stride_b + int64_t(it.level * F + k) * a.dc_stride_f)
-                      : 0.0f;
-      const WideCorners lc(it.lp, a.x + b * a.x_stride_b, n_dims, a.interp);
-      for (int c = 0; c < C; ++c) {
-        const uint32_t row = lc.row(c, a.hc);
-        if constexpr (kShard) {
-          if (!shard_owns(it.lp, row)) continue;
-        }
-        float t[8], wp;
-        if (it.outputs) {
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            t[k] = k < F ? load_any(a.table, a.table_bf16, int64_t(row) * F + k) : 0.0f;
-        }
-        if (it.outputs && a.dx_part != nullptr) {
-          float hv[kMaxDims], val = 0.0f;
-          wp = lc.dir_grad_hess(c, v, hv);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) val += t[k] * dy[k];
-#pragma unroll
-          for (int e = 0; e < kMaxDims; ++e) acc[e] += hv[e] * val;
-        } else {
-          wp = lc.dir_grad(c, v);
-        }
-        if (it.outputs) {
-#pragma unroll
-          for (int k = 0; k < 8; ++k) dd[k] += wp * t[k];
-        }
-        if (a.grad != nullptr) scatter_one(a.grad, it, win, row, wp, dy, F);
-      }
-    }
-    if (it.outputs) {
-      if (a.d_dcols != nullptr) {
+        for (int d = 0; d < kMaxDims; ++d) v[d] = d < n_dims ? a.ddx[b * n_dims + d] : 0.0f;
 #pragma unroll
         for (int k = 0; k < 8; ++k)
-          if (k < F) a.d_dcols[int64_t(it.level * F + k) * a.batch + b] = dd[k];
+          dy[k] = k < nf ? load_any(a.dcols, a.dcols_bf16,
+                                    b * a.dc_stride_b +
+                                        (int64_t(it.level) * F + g0 + k) * a.dc_stride_f)
+                         : 0.0f;
+        const WideCorners lc(it.lp, a.x + b * a.x_stride_b, n_dims, a.interp);
+        for (int c = 0; c < C; ++c) {
+          const uint32_t row = lc.row(c, a.hc);
+          if constexpr (kShard) {
+            if (!shard_owns(it.lp, row)) continue;
+          }
+          float t[8], wp;
+          if (it.outputs) {
+            if constexpr (kGroups) {   // the group's features in loads of four
+              load_group(a.table, a.table_bf16, int64_t(row) * F + g0, nf, F, t);
+            } else {
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+                t[k] = k < nf ? load_any(a.table, a.table_bf16, int64_t(row) * F + g0 + k)
+                              : 0.0f;
+            }
+          }
+          if (it.outputs && a.dx_part != nullptr) {
+            float hv[kMaxDims], val = 0.0f;
+            wp = lc.dir_grad_hess(c, v, hv);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) val += t[k] * dy[k];
+#pragma unroll
+            for (int e = 0; e < kMaxDims; ++e) acc[e] += hv[e] * val;
+          } else {
+            wp = lc.dir_grad(c, v);
+          }
+          if (it.outputs) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) dd[k] += wp * t[k];
+          }
+          if (a.grad != nullptr) scatter_one<kGroups>(a.grad, it, win, row, wp, dy, F, g0, nf);
+        }
       }
-      if (a.dx_part != nullptr) {
-        float* p = a.dx_part + (int64_t(it.level) * a.batch + b) * n_dims;
-        for (int d = 0; d < n_dims; ++d) p[d] = acc[d];
+      if (it.outputs && a.d_dcols != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k < nf) a.d_dcols[(int64_t(it.level) * F + g0 + k) * a.batch + b] = dd[k];
       }
+    }
+    if (it.outputs && a.dx_part != nullptr) {
+      float* p = a.dx_part + (int64_t(it.level) * a.batch + b) * n_dims;
+      for (int d = 0; d < n_dims; ++d) p[d] = acc[d];
     }
   }
   if (it.window) {
     __syncthreads();
-    window_flush<1>(win, int(it.n_rows) * F,
-                    a.grad + int64_t(uint32_t(it.offset + it.row_lo)) * F);
+    float* dst = a.grad + int64_t(uint32_t(it.offset + it.row_lo)) * F;
+    if (kGroups && F % 4 == 0)   // float4 atomics where F allows
+      window_flush<4>(win, int(it.n_rows) * F, dst);
+    else
+      window_flush<1>(win, int(it.n_rows) * F, dst);
   }
 }
 
@@ -275,8 +294,7 @@ cudaError_t grid_encode_bwd_bwd_launch(
   if (batch <= 0 || n_levels <= 0 || !groups_valid(groups, n_groups) || interp < 0 ||
       interp > 2 || x_stride_b < n_dims || (d_x == nullptr) != (dx_part == nullptr) ||
       (grad == nullptr) != (out == nullptr) || (grad != nullptr && n_params <= 0) ||
-      (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims || n_features < 1 ||
-      n_features > 8)
+      (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims || n_features < 1)
     return cudaErrorInvalidValue;
   const GgParams a{x, level_frac, table, dcols, ddx, level_params, items, d_dcols, dx_part,
                    grad, batch, x_stride_b, dc_stride_b, dc_stride_f,
@@ -285,9 +303,12 @@ cudaError_t grid_encode_bwd_bwd_launch(
   cudaError_t err = cudaSuccess;
   if (grad != nullptr) err = cudaMemsetAsync(grad, 0, size_t(n_params) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
-  if (sharded || wide_instance(n_dims, hash_kind) || level_frac != nullptr) {
-    const auto kernel = sharded ? grid_encode_bwd_bwd_wide_kernel<true>
-                                : grid_encode_bwd_bwd_wide_kernel<false>;
+  if (sharded || wide_instance(n_dims, hash_kind, n_features) || level_frac != nullptr) {
+    const bool grouped = n_features > kFeatureGroup;
+    const auto kernel = sharded ? (grouped ? grid_encode_bwd_bwd_wide_kernel<true, true>
+                                          : grid_encode_bwd_bwd_wide_kernel<true, false>)
+                                : (grouped ? grid_encode_bwd_bwd_wide_kernel<false, true>
+                                          : grid_encode_bwd_bwd_wide_kernel<false, false>);
     err = launch_groups<kGgThreads>(kernel, a, groups, n_groups, stream, n_dims, n_features);
   } else {
     err = dispatch_df(n_dims, n_features,

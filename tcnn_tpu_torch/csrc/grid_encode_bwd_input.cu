@@ -42,8 +42,10 @@
 // nothing, nor do the levels a sample's coarse-to-fine mask drops
 // (level_frac, as in kernels G and GB: grid_common.cuh's level_threshold;
 // null, no mask), tested at run time: a level the sample does not keep
-// loads nothing.  Rng grids and 5 to 7 dims run one instance with D at run
-// time (grid_encode_bwd_input_wide_kernel), each corner's row in full.
+// loads nothing.  Rng grids, 5 to 7 dims and more than 8 features a level
+// run one instance with D at run time (grid_encode_bwd_input_wide_kernel),
+// each corner's row in full; the features in
+// groups of 8 in one thread, so that dx stays deterministic with no atomics.
 // Shard mode (a sharded table: grid_common.cuh, shard_owns) runs that
 // instance's kShard copy, which adds no term for a corner the shard does
 // not hold; the 1- to 4-D instances, and the kShard = false copy, keep
@@ -122,9 +124,13 @@ grid_encode_bwd_input_kernel(const float* __restrict__ x, const float* __restric
   for (int d = 0; d < D; ++d) dx[b * D + d] = acc[d];
 }
 
-// Rng grids and 5 to 7 dims: one instance with D, F and the dtypes at run
-// time (WideCorners), the same sums in the same order, each corner's row
-// loaded as it is used.  kShard: a sharded table, only the corners it holds.
+// Rng grids, 5 to 7 dims and F > 8: one instance with D, F and the dtypes
+// at run time (WideCorners), the same sums in the same order, each corner's
+// row loaded as it is used.  kShard: a sharded table, only the corners it
+// holds.  A level's features in groups of at most 8, one after another
+// (one group where F <= 8), each group over every corner again, loaded four
+// features a load where F is a multiple of 4; dx sums the levels in order,
+// in each the groups in order, in each the corners in order.
 template <bool kShard>
 __global__ void __launch_bounds__(kGridThreads)
 grid_encode_bwd_input_wide_kernel(const float* __restrict__ x,
@@ -143,27 +149,33 @@ grid_encode_bwd_input_wide_kernel(const float* __restrict__ x,
   for (int level = 0; level < n_levels; ++level) {
     const int32_t* lp = level_params + level * kLevelFields;
     if (lp[4] == 0 || !(float(level) < thr)) continue;
-    const WideCorners lc(lp, x + b * x_stride_b, n_dims, interp);
-    float dy[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      dy[k] = k < n_features
-          ? load_any(dcols, dcols_bf16, b * dc_stride_b + int64_t(level * n_features + k) * dc_stride_f)
-          : 0.0f;
-    for (int c = 0; c < (1 << n_dims); ++c) {
-      const uint32_t r = lc.row(c, hc);
-      if constexpr (kShard) {
-        if (!shard_owns(lp, r)) continue;
-      }
-      const int64_t row = int64_t(r) * n_features;
-      float val = 0.0f;
+    // features [g0, g0 + nf) of the row
+    for (int g0 = 0; g0 < n_features; g0 += kFeatureGroup) {
+      const int nf = min(kFeatureGroup, n_features - g0);
+      const WideCorners lc(lp, x + b * x_stride_b, n_dims, interp);
+      float dy[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k)
-        if (k < n_features) val += load_any(table, table_bf16, row + k) * dy[k];
-      float g[kMaxDims];
-      lc.weight_grad(c, g);
+        dy[k] = k < nf ? load_any(dcols, dcols_bf16,
+                                  b * dc_stride_b +
+                                      (int64_t(level) * n_features + g0 + k) * dc_stride_f)
+                       : 0.0f;
+      for (int c = 0; c < (1 << n_dims); ++c) {
+        const uint32_t r = lc.row(c, hc);
+        if constexpr (kShard) {
+          if (!shard_owns(lp, r)) continue;
+        }
+        const int64_t row = int64_t(r) * n_features + g0;
+        float t[8], val = 0.0f;
+        load_group(table, table_bf16, row, nf, n_features, t);
 #pragma unroll
-      for (int d = 0; d < kMaxDims; ++d) acc[d] += g[d] * val;
+        for (int k = 0; k < 8; ++k)
+          if (k < nf) val += t[k] * dy[k];
+        float g[kMaxDims];
+        lc.weight_grad(c, g);
+#pragma unroll
+        for (int d = 0; d < kMaxDims; ++d) acc[d] += g[d] * val;
+      }
     }
   }
 #pragma unroll
@@ -216,10 +228,10 @@ cudaError_t grid_encode_bwd_input_launch(
     int64_t dc_stride_f, const uint32_t hash_factors[7], int hash_kind, int interp,
     bool sharded, cudaStream_t stream) {
   if (batch <= 0 || n_levels <= 0 || interp < 0 || interp > 2 || x_stride_b < n_dims ||
-      n_dims < 1 || n_dims > kMaxDims || n_features < 1 || n_features > 8)
+      n_dims < 1 || n_dims > kMaxDims || n_features < 1)
     return cudaErrorInvalidValue;
   const HashConsts hc = make_hash_consts(hash_factors, hash_kind);
-  if (sharded || wide_instance(n_dims, hash_kind)) {
+  if (sharded || wide_instance(n_dims, hash_kind, n_features)) {
     const auto kernel = sharded ? grid_encode_bwd_input_wide_kernel<true>
                                 : grid_encode_bwd_input_wide_kernel<false>;
     kernel<<<unsigned((batch + kGridThreads - 1) / kGridThreads), kGridThreads, 0, stream>>>(

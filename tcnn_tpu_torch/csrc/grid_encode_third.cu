@@ -56,10 +56,11 @@
 // in registers; each corner's prefix product gives u, and only where d_x
 // is asked for the suffix products and the d3 w entries are formed.
 //
-// Rng grids, 5 to 7 dims, a per-sample level mask (level_frac, as in G,
-// GB, GI and GG) and shard mode run one instance with D and F at run time
-// (grid_encode_third_wide_kernel, WideCorners) on the same plan; the 1- to
-// 4-D instances carry none of that code.  A masked (sample, level) loads
+// Rng grids, 5 to 7 dims, more than 8 features a level (its kGroups
+// copies, the features in groups of 8 in one thread), a per-sample level
+// mask (level_frac, as in G, GB, GI and GG) and shard mode run one instance
+// with D and F at run time (grid_encode_third_wide_kernel, WideCorners) on
+// the same plan; the 1- to 4-D instances carry none of that code.  A masked (sample, level) loads
 // nothing and adds nothing and writes zeros to d_dcols and its d_x
 // partial.  Shard mode (its kShard copy; shard_owns): a corner the shard
 // does not hold loads nothing and adds nothing to any output; the plan
@@ -233,10 +234,17 @@ grid_encode_third_kernel(GtParams a) {
   }
 }
 
-// Rng grids, 5 to 7 dims, a per-sample mask and (kShard) shard mode: one
-// instance with D, F and the dtypes at run time (WideCorners), the same
-// plan, outputs and orders; each corner's row and jets in full.
-template <bool kShard>
+// Rng grids, 5 to 7 dims, F > 8, a per-sample mask and (kShard) shard mode:
+// one instance with D, F and the dtypes at run time (WideCorners), the same
+// plan, outputs and orders; each corner's row and jets in full.  kGroups
+// (F > 8): a (sample, level)'s features in groups of 8, one after another,
+// each group over every corner again, loads and atomics of four features
+// where F allows; d_x's partial sums the groups in order, in each the
+// corners in order, in one thread.  GB and GI run every F in one
+// instance; one for both here ran GT's F <= 8 shapes (masked, sharded) 57
+// to 58 % slower on an H100 (its jets hold many registers;
+// tools/kernel_ablation.py --baseline in one run), Rng 29 %.
+template <bool kShard, bool kGroups>
 __global__ void __launch_bounds__(kGtThreads)
 grid_encode_third_wide_kernel(GtParams a, int n_dims, int n_features) {
   extern __shared__ float win[];
@@ -253,79 +261,91 @@ grid_encode_third_wide_kernel(GtParams a, int n_dims, int n_features) {
   for (int64_t b = it.b0 + threadIdx.x; b < it.b1; b += kGtThreads) {
     const bool live = !a.level_frac ||
                       float(it.level) < level_threshold(a.level_frac[b], a.n_levels);
-    float dd[8], acc[kMaxDims];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) dd[k] = 0.0f;
+    float acc[kMaxDims];
 #pragma unroll
     for (int d = 0; d < kMaxDims; ++d) acc[d] = 0.0f;
-    if (live) {   // masked: nothing loaded, nothing added, zero outputs below
-      float v[kMaxDims], be[kMaxDims], dy[8];
+    // features [g0, g0 + nf) of the row
+    for (int g0 = 0; g0 < (kGroups ? F : 1); g0 += kFeatureGroup) {
+      const int nf = kGroups ? min(kFeatureGroup, F - g0) : F;
+      float dd[8];
 #pragma unroll
-      for (int d = 0; d < kMaxDims; ++d) {
-        v[d] = d < D ? a.ddx[b * D + d] : 0.0f;
-        be[d] = d < D ? a.ct_dx[b * D + d] : 0.0f;
-      }
+      for (int k = 0; k < 8; ++k) dd[k] = 0.0f;
+      if (live) {   // masked: nothing loaded, nothing added, zero outputs below
+        float v[kMaxDims], be[kMaxDims], dy[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        dy[k] = k < F ? load_any(a.dcols, a.dcols_bf16,
-                                 b * a.dc_stride_b + int64_t(it.level * F + k) * a.dc_stride_f)
-                      : 0.0f;
-      const WideCorners lc(it.lp, a.x + b * a.x_stride_b, D, a.interp);
-      for (int c = 0; c < C; ++c) {
-        const uint32_t row = lc.row(c, a.hc);
-        if constexpr (kShard) {
-          if (!shard_owns(it.lp, row)) continue;
+        for (int d = 0; d < kMaxDims; ++d) {
+          v[d] = d < D ? a.ddx[b * D + d] : 0.0f;
+          be[d] = d < D ? a.ct_dx[b * D + d] : 0.0f;
         }
-        // pre[d]: the product of the factors of the dims below d
-        Jet pre[kMaxDims + 1];
-        pre[0] = {1.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int d = 0; d < kMaxDims; ++d)
-          pre[d + 1] = d < D ? jet_mul(pre[d], factor_jet(lc.factor(c, d), lc.dfactor(c, d),
-                                                          lc.d2factor(c, d), be[d], v[d]))
-                             : pre[d];
-        const float u = pre[kMaxDims].st;
-        float t[8];
-        if (it.outputs) {
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            t[k] = k < F ? load_any(a.table, a.table_bf16, int64_t(row) * F + k) : 0.0f;
-#pragma unroll
-          for (int k = 0; k < 8; ++k) dd[k] += u * t[k];
-        }
-        if (want_x) {
-          float val = 0.0f;
-#pragma unroll
-          for (int k = 0; k < 8; ++k) val += t[k] * dy[k];
-          Jet suf = {1.0f, 0.0f, 0.0f, 0.0f};   // the dims above e
-#pragma unroll
-          for (int e = kMaxDims - 1; e >= 0; --e) {
-            if (e >= D) continue;
-            const float f1 = lc.dfactor(c, e), f2 = lc.d2factor(c, e);
-            const float f3 = ((c >> e) & 1) ? d3w1 : -d3w1;
-            acc[e] += jet_st(jet_mul(pre[e], factor_jet(f1, f2, f3, be[e], v[e])), suf) * val;
-            suf = jet_mul(factor_jet(lc.factor(c, e), f1, f2, be[e], v[e]), suf);
-          }
-        }
-        if (a.grad != nullptr) scatter_one(a.grad, it, win, row, u, dy, F);
-      }
-    }
-    if (it.outputs) {
-      if (a.d_dcols != nullptr) {
 #pragma unroll
         for (int k = 0; k < 8; ++k)
-          if (k < F) a.d_dcols[int64_t(it.level * F + k) * a.batch + b] = dd[k];
+          dy[k] = k < nf ? load_any(a.dcols, a.dcols_bf16,
+                                    b * a.dc_stride_b +
+                                        (int64_t(it.level) * F + g0 + k) * a.dc_stride_f)
+                         : 0.0f;
+        const WideCorners lc(it.lp, a.x + b * a.x_stride_b, D, a.interp);
+        for (int c = 0; c < C; ++c) {
+          const uint32_t row = lc.row(c, a.hc);
+          if constexpr (kShard) {
+            if (!shard_owns(it.lp, row)) continue;
+          }
+          // pre[d]: the product of the factors of the dims below d
+          Jet pre[kMaxDims + 1];
+          pre[0] = {1.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int d = 0; d < kMaxDims; ++d)
+            pre[d + 1] = d < D ? jet_mul(pre[d], factor_jet(lc.factor(c, d), lc.dfactor(c, d),
+                                                            lc.d2factor(c, d), be[d], v[d]))
+                               : pre[d];
+          const float u = pre[kMaxDims].st;
+          float t[8];
+          if (it.outputs) {
+            if constexpr (kGroups) {   // the group's features in loads of four
+              load_group(a.table, a.table_bf16, int64_t(row) * F + g0, nf, F, t);
+            } else {
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+                t[k] = k < nf ? load_any(a.table, a.table_bf16, int64_t(row) * F + g0 + k)
+                              : 0.0f;
+            }
+#pragma unroll
+            for (int k = 0; k < 8; ++k) dd[k] += u * t[k];
+          }
+          if (want_x) {
+            float val = 0.0f;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) val += t[k] * dy[k];
+            Jet suf = {1.0f, 0.0f, 0.0f, 0.0f};   // the dims above e
+#pragma unroll
+            for (int e = kMaxDims - 1; e >= 0; --e) {
+              if (e >= D) continue;
+              const float f1 = lc.dfactor(c, e), f2 = lc.d2factor(c, e);
+              const float f3 = ((c >> e) & 1) ? d3w1 : -d3w1;
+              acc[e] += jet_st(jet_mul(pre[e], factor_jet(f1, f2, f3, be[e], v[e])), suf) * val;
+              suf = jet_mul(factor_jet(lc.factor(c, e), f1, f2, be[e], v[e]), suf);
+            }
+          }
+          if (a.grad != nullptr) scatter_one<kGroups>(a.grad, it, win, row, u, dy, F, g0, nf);
+        }
       }
-      if (want_x) {
-        float* p = a.dx_part + (int64_t(it.level) * a.batch + b) * D;
-        for (int d = 0; d < D; ++d) p[d] = acc[d];
+      if (it.outputs && a.d_dcols != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k < nf) a.d_dcols[(int64_t(it.level) * F + g0 + k) * a.batch + b] = dd[k];
       }
+    }
+    if (want_x) {
+      float* p = a.dx_part + (int64_t(it.level) * a.batch + b) * D;
+      for (int d = 0; d < D; ++d) p[d] = acc[d];
     }
   }
   if (it.window) {
     __syncthreads();
-    window_flush<1>(win, int(it.n_rows) * F,
-                    a.grad + int64_t(uint32_t(it.offset + it.row_lo)) * F);
+    float* dst = a.grad + int64_t(uint32_t(it.offset + it.row_lo)) * F;
+    if (kGroups && F % 4 == 0)   // float4 atomics where F allows
+      window_flush<4>(win, int(it.n_rows) * F, dst);
+    else
+      window_flush<1>(win, int(it.n_rows) * F, dst);
   }
 }
 
@@ -347,8 +367,7 @@ cudaError_t grid_encode_third_launch(
   if (batch <= 0 || n_levels <= 0 || !groups_valid(groups, n_groups) || interp < 0 ||
       interp > 2 || x_stride_b < n_dims || (d_x == nullptr) != (dx_part == nullptr) ||
       (grad == nullptr) != (out == nullptr) || (grad != nullptr && n_params <= 0) ||
-      (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims || n_features < 1 ||
-      n_features > 8)
+      (!out_bf16 && out != grad) || n_dims < 1 || n_dims > kMaxDims || n_features < 1)
     return cudaErrorInvalidValue;
   const GtParams a{x, level_frac, table, dcols, ddx, ct_dx, level_params, items, d_dcols,
                    dx_part, grad, batch, x_stride_b, dc_stride_b, dc_stride_f,
@@ -357,9 +376,12 @@ cudaError_t grid_encode_third_launch(
   cudaError_t err = cudaSuccess;
   if (grad != nullptr) err = cudaMemsetAsync(grad, 0, size_t(n_params) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
-  if (sharded || wide_instance(n_dims, hash_kind) || level_frac != nullptr) {
-    const auto kernel = sharded ? grid_encode_third_wide_kernel<true>
-                                : grid_encode_third_wide_kernel<false>;
+  if (sharded || wide_instance(n_dims, hash_kind, n_features) || level_frac != nullptr) {
+    const bool grouped = n_features > kFeatureGroup;
+    const auto kernel = sharded ? (grouped ? grid_encode_third_wide_kernel<true, true>
+                                          : grid_encode_third_wide_kernel<true, false>)
+                                : (grouped ? grid_encode_third_wide_kernel<false, true>
+                                          : grid_encode_third_wide_kernel<false, false>);
     err = launch_groups<kGtThreads>(kernel, a, groups, n_groups, stream, n_dims, n_features);
   } else {
     err = dispatch_df(n_dims, n_features,

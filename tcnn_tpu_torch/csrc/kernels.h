@@ -26,6 +26,8 @@ namespace tcnn_tpu_torch {
 //   out          element (b, l*F+f) at out[b*out_stride_b + (l*F+f)*out_stride_f],
 //                in the table's dtype
 //   n_dims       1 to 7 (5 to 7: the kernel's one run-time-D instance)
+//   n_features   1 or more (more than 8: the run-time-D instance, in groups of
+//                8 features; every grid kernel takes F so)
 //   hash_factors seven uint32 LCG factors (zero past n_dims); hash_kind: 0 the
 //                factors' XOR, 1 CoherentAdd (dim 0 added), 2 Rng (pcg32)
 //   interp       0 nearest, 1 linear, 2 smoothstep
@@ -178,5 +180,33 @@ cudaError_t row_scatter_launch(const int32_t* idx, const float* g, int64_t g_str
 // (more than 232,448 bytes: the shape does not fit).
 int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,
                              int act, int out_act);
+
+// The same for kernel M (soa_in: the input's layout, which the bf16
+// kernel's input slices follow).
+int fused_mlp_fwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,
+                             bool soa_in);
+
+// Kernels M and MB for one layer streamed through shared memory in chunks
+// of its input features, at any fan-in k (csrc/fused_mlp_wide.cu): the
+// layers whose weights and input tile do not fit M's and MB's layouts.
+//   x       element (b, i) at x[b*x_stride_b + i*x_stride_d], compute dtype, i < k
+//   w       (k, n) row-major, compute dtype, 1 <= n <= 128
+//   forward: y = act(x w), element (b, j) at y[b*y_stride_b + j*y_stride_d],
+//            float32 or bfloat16
+//   backward: g (b, j) at g[b*g_stride_b + j*g_stride_d] float32, the output
+//            gradient; dz = g * act'(x w) rounded to the compute dtype;
+//            dw = x^T dz (k, n) float32 (scratch sizes the CTAs' partials),
+//            dx = dz w^T in x's layout, float32 or bfloat16
+cudaError_t fused_mlp_wide_fwd_launch(const void* x, int64_t x_stride_b, int64_t x_stride_d,
+                                      int k, const void* w, int n, void* y, int64_t y_stride_b,
+                                      int64_t y_stride_d, bool y_bf16, int64_t batch,
+                                      bool compute_bf16, int act, cudaStream_t stream);
+cudaError_t fused_mlp_wide_bwd_launch(const void* x, int64_t x_stride_b, int64_t x_stride_d,
+                                      int k, const void* w, int n, const float* g,
+                                      int64_t g_stride_b, int64_t g_stride_d, void* dx,
+                                      int64_t dx_stride_b, int64_t dx_stride_d, bool dx_bf16,
+                                      const std::function<float*(int64_t)>& scratch, float* dw,
+                                      int64_t batch, bool compute_bf16, int act,
+                                      cudaStream_t stream);
 
 }  // namespace tcnn_tpu_torch

@@ -470,20 +470,32 @@ __device__ __forceinline__ void f32_product_tc(const float* __restrict__ A, int 
 // (f32_product_tc) where kTf32x3 and TC is even, else each sum in k order
 // by fmaf.  A feature-major (f32_ld(R) floats per feature, R rows), the
 // activation applied to each element read when kActA; B row-major, ldb
-// floats per row, a multiple of 4.
-template <int TC, bool kActA, bool kFast, int R = kRowsF32>
+// floats per row, a multiple of 4.  kAccumulate: acc += the sum (a product
+// over K in chunks, fused_mlp_wide.cu).
+template <int TC, bool kActA, bool kFast, int R = kRowsF32, bool kAccumulate = false>
 __device__ __forceinline__ void f32_product(const float* __restrict__ A, int act,
                                             const float* __restrict__ B, int ldb, int K,
                                             int c0, float (&acc)[4][TC]) {
   if constexpr (kTf32x3 && TC % 2 == 0) {
-    f32_product_tc<TC, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
+    if constexpr (kAccumulate) {
+      float part[4][TC];
+      f32_product_tc<TC, kActA, kFast, R>(A, act, B, ldb, K, c0, part);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] += part[i][j];
+    } else {
+      f32_product_tc<TC, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
+    }
     return;
   }
   const int r = 4 * f32_rg<R>(), c = c0 + TC * f32_cg<R>();
+  if constexpr (!kAccumulate) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+      for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+  }
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     float av[4], b[TC];
@@ -737,6 +749,19 @@ __device__ __forceinline__ void walk_tiles(int64_t n_tiles, int n_buf, T* const 
     }
     body(tile, in, first);
   }
+}
+
+// dw[i] = Σ_c partials[c][i], summed in CTA order: deterministic (kernel
+// MB's persistent CTAs each write their partial dW, fused_mlp_bwd.cu and
+// fused_mlp_wide.cu).
+__global__ void __launch_bounds__(256)
+sum_partials_kernel(const float* __restrict__ partials, int n_parts, int64_t total,
+                    float* __restrict__ dw) {
+  const int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= total) return;
+  float sum = 0.0f;
+  for (int c = 0; c < n_parts; ++c) sum += partials[c * total + i];
+  dw[i] = sum;
 }
 
 // Above 48 KB a kernel needs an explicit dynamic shared-memory budget.

@@ -104,30 +104,39 @@ __device__ __forceinline__ void scatter_pair(float* grad, const PlanItem& it, fl
     if (wp[h] != 0.0f) add_row<F>(grad + int64_t(row[h]) * F, wp[h], dy);
 }
 
-// The run-time-D instances' update of one corner, F features at run time:
-// into the window, or by global atomics, a float2 per two features where F
-// is even, else one per feature.
+// The run-time-D instances' update of one corner, features [g0, g0 + nf)
+// of a row of F (all F, or a group of at most 8 of them), at run time: into
+// the window, or by global atomics, a float4 per four features where F is
+// a multiple of 4 (nf is 4 or 8) in GG's and GT's kGroups copies (kQuads),
+// a float2 per two where F is even, else one per feature.
+template <bool kQuads>
 __device__ __forceinline__ void scatter_one(float* grad, const PlanItem& it, float* win,
                                             uint32_t row, float wp, const float (&dy)[8],
-                                            int F) {
+                                            int F, int g0, int nf) {
   if (wp == 0.0f) return;
   if (it.window) {
     const uint32_t r = row - it.offset - it.row_lo;   // wraps above n_rows below row_lo
     if (r >= it.n_rows) return;
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      if (k < F) window_add(win + r * F + k, __fmul_rn(wp, dy[k]));
+      if (k < nf) window_add(win + r * F + g0 + k, __fmul_rn(wp, dy[k]));
     return;
   }
-  float* p = grad + int64_t(row) * F;
-  if (F % 2 == 0) {
+  float* p = grad + int64_t(row) * F + g0;
+  if (kQuads && F % 4 == 0) {   // nf is 4 or 8 and p 16-byte aligned
+#pragma unroll
+    for (int k = 0; k < 8; k += 4)
+      if (k < nf)
+        global_add<4>(p + k, {__fmul_rn(wp, dy[k]), __fmul_rn(wp, dy[k + 1]),
+                              __fmul_rn(wp, dy[k + 2]), __fmul_rn(wp, dy[k + 3])});
+  } else if (F % 2 == 0) {   // nf is even and p 8-byte aligned: g0 is a multiple of 8
 #pragma unroll
     for (int k = 0; k < 8; k += 2)
-      if (k < F) global_add<2>(p + k, {__fmul_rn(wp, dy[k]), __fmul_rn(wp, dy[k + 1])});
+      if (k < nf) global_add<2>(p + k, {__fmul_rn(wp, dy[k]), __fmul_rn(wp, dy[k + 1])});
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      if (k < F) atomicAdd(p + k, __fmul_rn(wp, dy[k]));
+      if (k < nf) atomicAdd(p + k, __fmul_rn(wp, dy[k]));
   }
 }
 

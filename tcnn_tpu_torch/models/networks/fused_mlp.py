@@ -4,9 +4,12 @@ PyTorch counterpart of ``tcnn_tpu/models/networks/fused_mlp.py``.  On a
 CUDA device the whole forward is one launch of kernel M and the whole
 backward one launch of kernel MB (``ops/cuda/fused_mlp.py``,
 ``FusedMLPFunction``; its second and third order through
-``FusedMLPBackwardFunction``) at every batch size, and at any depth: a
-chain of launches over runs of layers beyond what one launch takes
-(``m_runs``, ``mb_plan``), as JAX caps only widths.  The JAX package's batch
+``FusedMLPBackwardFunction``) at every batch size, at any depth and at any
+input width: a chain of launches over runs of layers beyond what one launch
+takes (``m_plan``, ``mb_plan``; a first layer whose weights and input tile
+do not fit one CTA's shared memory runs alone through the instances of M
+and MB that stream it in chunks of its inputs, ``fused_mlp_wide_fwd`` and
+``fused_mlp_wide_bwd``), as JAX caps only widths.  The JAX package's batch
 threshold for its Pallas kernels was a TPU measurement and is not
 carried over.  With 0 hidden layers the network is the plain single
 matmul under autograd, as in the JAX package.  Widths are restricted to

@@ -21,7 +21,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("bindings.cpp", "grid_encode.cu", "grid_encode_bwd.cu",
            "grid_encode_bwd_input.cu", "grid_encode_bwd_bwd.cu", "grid_encode_third.cu",
-           "row_scatter.cu", "fused_mlp.cu", "fused_mlp_bwd.cu")
+           "row_scatter.cu", "fused_mlp.cu", "fused_mlp_bwd.cu", "fused_mlp_wide.cu")
 BUILD_DIR = _PKG.parent / "build" / "tcnn_tpu_torch_kernels"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 

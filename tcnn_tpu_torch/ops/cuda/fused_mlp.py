@@ -8,10 +8,20 @@ M replaces ``tcnn_tpu/ops/pallas/fused_mlp.py::_fwd_kernel``, MB
 ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``, the same functions in
 plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold the kernels
 against.
+
+M and MB hold all of a tile's layers in one CTA's shared memory.  Where a
+chain does not fit (a wide input: past about 207 inputs at width 128 in
+fp32 for M, 464 in bf16 for MB at three layers; or depth), the wrappers run
+it in runs of consecutive layers (``plan_runs``): runs of M or MB where they
+fit, and the first layer (or the last) alone where it does not, through
+the instances of M and MB that stream one layer through shared memory in
+chunks of its input features (``fused_mlp_wide_fwd``,
+``fused_mlp_wide_bwd``; ``csrc/fused_mlp_wide.cu``), at any fan-in.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -24,6 +34,7 @@ from . import kernels, require_cuda_tensors
 SUPPORTED_WIDTHS = (16, 32, 64, 128)
 MAX_LAYERS = 32   # layers of one launch of M or MB (csrc/mlp_common.cuh: kMaxLayers)
 MAX_SMEM = 232448   # shared memory one CTA may use on sm_90
+MAX_WIDE_COLUMNS = 128   # the streamed-layer instances' columns (fused_mlp_wide.cu: kMaxN)
 
 
 def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -77,7 +88,7 @@ def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
                   output_soa: bool = False) -> torch.Tensor:
     """The whole MLP in one kernel launch, or, beyond ``MAX_LAYERS``
     layers (the layer pointers one launch takes), in a chain of launches
-    over runs of layers (``m_runs``): each inner run ends on the hidden
+    over runs of layers (``m_plan``): each inner run ends on the hidden
     activation, written in the compute dtype, which is what one launch
     holds between those layers, so a chain has one launch's bits.
 
@@ -99,7 +110,7 @@ def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
     x = x.to(compute_dtype).contiguous()
     ws = [w.to(compute_dtype).contiguous() for w in weights]
     require_cuda_tensors(name, x, *ws)
-    runs = m_runs(len(ws))
+    runs = m_plan(ws, compute_dtype, input_soa)
     if len(runs) == 1:
         return _fused_mlp_fwd_launch(ws, x, activation, output_activation, compute_dtype,
                                      output_dtype, input_soa, output_soa)
@@ -107,10 +118,24 @@ def fused_mlp_fwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
                                  output_dtype, input_soa, output_soa, runs)
 
 
-def m_runs(n_layers: int) -> List[Tuple[int, int]]:
-    """Kernel M's launches for ``n_layers`` layers: one, or the fewest runs
-    of at most ``MAX_LAYERS`` (``mb_segments``)."""
-    return mb_segments(n_layers, lambda a, b: b - a <= MAX_LAYERS)
+def m_plan(weights: Sequence[torch.Tensor], compute_dtype: torch.dtype,
+           input_soa: bool) -> List[Tuple[int, int]]:
+    """Kernel M's launches for these layers (``plan_runs``), from the shared
+    memory one CTA of each run needs (the kernel's own layout): every
+    shape that one launch takes keeps it."""
+    return _m_plan(weights[0].shape[0], weights[0].shape[1], weights[-1].shape[1],
+                   len(weights), compute_dtype == torch.bfloat16, input_soa)
+
+
+@functools.lru_cache(maxsize=None)
+def _m_plan(d_in: int, width: int, d_out: int, n_layers: int, bf16: bool,
+            input_soa: bool) -> List[Tuple[int, int]]:
+    def fits(a, b):
+        return kernels().fused_mlp_fwd_smem_bytes(
+            d_in if a == 0 else width, d_out if b == n_layers else width, width, b - a, bf16,
+            input_soa and a == 0) <= MAX_SMEM
+
+    return plan_runs(n_layers, fits)
 
 
 def fused_mlp_fwd_chained(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -118,20 +143,28 @@ def fused_mlp_fwd_chained(weights: Sequence[torch.Tensor], x: torch.Tensor,
                           compute_dtype: torch.dtype, output_dtype: torch.dtype,
                           input_soa: bool, output_soa: bool,
                           runs: Sequence[Tuple[int, int]], fwd=None) -> torch.Tensor:
-    """The MLP forward as one launch of M per run of layers (``m_runs``):
+    """The MLP forward as one launch of M per run of layers (``m_plan``):
     each run but the last has ``activation`` as its output activation and
-    the compute dtype as its output dtype, AoS, the next run's input.
-    ``fwd``: M's wrapper for one run (the CPU tests pass the plain
-    version)."""
-    fwd = fwd or _fused_mlp_fwd_launch
+    the compute dtype as its output dtype, in ``_boundary_soa``'s layout,
+    the next run's input.  ``fwd``: M's wrapper for one run (the CPU tests
+    pass the plain version)."""
+    fwd = fwd or _chain_fwd
     h, soa = x, input_soa
     for a, b in runs:
         last = b == len(weights)
+        out_soa = output_soa if last else _boundary_soa(a, b, compute_dtype)
         h = fwd(list(weights[a:b]), h, activation, output_activation if last else activation,
-                compute_dtype, output_dtype if last else compute_dtype, soa,
-                output_soa and last)
-        soa = False
+                compute_dtype, output_dtype if last else compute_dtype, soa, out_soa)
+        soa = out_soa
     return h
+
+
+def _boundary_soa(a: int, b: int, compute_dtype: torch.dtype) -> bool:
+    """The layout of run [a, b)'s output where the next run takes it: AoS
+    (B, W), as one launch holds it, but feature-major after a streamed layer
+    in fp32, the layout whose tiles M and MB copy by cp.async in fp32 (an
+    AoS fp32 tile goes element by element)."""
+    return b - a == 1 and compute_dtype == torch.float32
 
 
 def _fused_mlp_fwd_launch(ws, x, activation, output_activation, compute_dtype, output_dtype,
@@ -156,6 +189,57 @@ def _fused_mlp_fwd_launch(ws, x, activation, output_activation, compute_dtype, o
 
 
 fused_mlp_fwd.launches = 0
+
+
+def _check_layer(name: str, w: torch.Tensor, x: torch.Tensor, compute_dtype: torch.dtype,
+                 input_soa: bool) -> Tuple[int, int]:
+    """What the streamed-layer instances take; returns (fan-in, fan-out)."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {compute_dtype} is not supported")
+    k, n = w.shape
+    if not 1 <= n <= MAX_WIDE_COLUMNS:
+        raise ValueError(f"{name}: {n} columns; the kernel takes 1 to {MAX_WIDE_COLUMNS}")
+    if x.ndim != 2 or x.shape[0 if input_soa else 1] != k:
+        raise ValueError(f"{name}: input {tuple(x.shape)} does not match the layer's "
+                         f"fan-in {k} (input_soa={input_soa})")
+    return k, n
+
+
+def fused_mlp_wide_fwd(w: torch.Tensor, x: torch.Tensor, activation: Activation,
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       output_dtype: torch.dtype = torch.float32, input_soa: bool = False,
+                       output_soa: bool = False) -> torch.Tensor:
+    """One layer y = act(x W) through kernel M's streamed-layer instance
+    (``csrc/fused_mlp_wide.cu``): x and W pass through shared memory in
+    chunks of input features, so any fan-in fits; W (K, N), N at most
+    ``MAX_WIDE_COLUMNS``.  Operands in the compute dtype, sums in fp32,
+    y in ``output_dtype``: ``fused_mlp_plain`` of one layer, which a CPU
+    tensor takes."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain([w], x, activation, activation, compute_dtype, output_dtype,
+                               input_soa, output_soa)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_wide_fwd: unsupported device {x.device}")
+    name = "fused_mlp_wide_fwd"
+    if output_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: output dtype {output_dtype} is not supported")
+    k, n = _check_layer(name, w, x, compute_dtype, input_soa)
+    x = x.to(compute_dtype).contiguous()
+    wc = w.to(compute_dtype).contiguous()
+    require_cuda_tensors(name, x, wc)
+    B = x.shape[1] if input_soa else x.shape[0]
+    y = torch.empty((n, B) if output_soa else (B, n), dtype=output_dtype, device=x.device)
+    if B == 0:
+        return y
+    xs_b, xs_d = (1, B) if input_soa else (k, 1)
+    ys_b, ys_d = (1, B) if output_soa else (n, 1)
+    kernels().fused_mlp_wide_fwd(x, xs_b, xs_d, wc, y, ys_b, ys_d, B,
+                                 list(Activation).index(activation))
+    fused_mlp_wide_fwd.launches += 1
+    return y
+
+
+fused_mlp_wide_fwd.launches = 0
 
 
 def fused_mlp_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -193,6 +277,38 @@ def fused_mlp_bwd_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     return dws, dx
 
 
+def plan_runs(n_layers: int, fits) -> List[Tuple[int, int]]:
+    """Runs of consecutive layers, one launch of M or MB each, for a chain
+    of ``n_layers`` layers: ``mb_segments``' runs of at most ``MAX_LAYERS``
+    where it finds some that ``fits(first, end)`` (``lambda a, b: True``
+    plans by depth alone), so that every shape the fused kernels take keeps
+    its launches; else the first layer, the last one or both alone (a run
+    of one layer: the streamed-layer instances, which take any fan-in) and
+    the layers between in ``mb_segments``' runs, or alone where one is
+    left.  Raises where none of these fit."""
+    def fits_one(a, b):   # one launch: at most MAX_LAYERS layers that fit
+        return b - a <= MAX_LAYERS and fits(a, b)
+
+    try:
+        return mb_segments(n_layers, fits_one)
+    except NotImplementedError:
+        pass
+    L = n_layers
+    for head, tail in ((1, 0), (0, 1), (1, 1)):
+        a, b = head, L - tail
+        if b - a < 2:
+            mid = [(a, b)] if b - a == 1 else []
+        else:
+            try:
+                mid = [(a + s, a + e)
+                       for s, e in mb_segments(b - a, lambda s, e: fits_one(a + s, a + e))]
+            except NotImplementedError:
+                continue
+        return [(0, 1)] * head + mid + [(L - 1, L)] * tail
+    raise NotImplementedError(
+        f"no runs of {n_layers} layers fit, with the first or last layer alone or not")
+
+
 def mb_segments(n_layers: int, fits) -> List[Tuple[int, int]]:
     """Kernel MB's launches for a chain of ``n_layers`` layers: the whole
     chain, where one launch takes it (``fits(0, n_layers)``), else the
@@ -214,30 +330,33 @@ def fused_mlp_bwd_segmented(weights: Sequence[torch.Tensor], x: torch.Tensor,
                             input_soa: bool, output_soa: bool,
                             segments: Sequence[Tuple[int, int]], fwd=None, bwd=None
                             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """The MLP backward as one launch of MB per run of layers
-    (``mb_segments``), for chains whose hidden activations of one tile do
-    not fit in an SM's shared memory: the activations at the runs'
-    boundaries are kept in device memory, as the CUDA original's backward
-    reads the forward's stored activations.  Kernel M computes them,
-    h_a = act(z_{a-1}) rounded to the compute dtype over layers [0, a) run
-    by run (M with ``activation`` as its output activation and the compute
-    dtype as its output dtype: the bits the fused chain holds).  Then MB
-    runs each run from the last: the run's input is h_a, its output
-    gradient the next run's dx in fp32, and its output activation
-    ``activation`` (``output_activation`` for the last run), so that its
-    first step, dz = g · act'(z) rounded, is the fused chain's own step at
-    that layer.  ``fwd``/``bwd``: M's and MB's wrappers (the CPU tests pass
+    """The MLP backward as one launch of MB per run of layers (``mb_plan``,
+    ``plan_runs``), for chains whose hidden activations or first layer of
+    one tile do not fit in an SM's shared memory: the activations at the
+    runs' boundaries are kept in device memory, as the CUDA original's
+    backward reads the forward's stored activations.  Kernel M computes
+    them, h_a = act(z_{a-1}) rounded to the compute dtype over layers
+    [0, a) run by run (M with ``activation`` as its output activation and
+    the compute dtype as its output dtype: the bits the fused chain holds;
+    a run of one layer through M's streamed-layer instance).  Then MB runs
+    each run from the last (a run of one layer through MB's streamed-layer
+    instance): the run's input is h_a, its output gradient the next run's
+    dx in fp32, and its output activation ``activation``
+    (``output_activation`` for the last run), so that its first step,
+    dz = g · act'(z) rounded, is the fused chain's own step at that layer.
+    ``fwd``/``bwd``: the forward and backward of a run (the CPU tests pass
     the plain versions)."""
-    fwd = fwd or fused_mlp_fwd
-    bwd = bwd or _fused_mlp_bwd_launch
+    fwd = fwd or _chain_fwd
+    bwd = bwd or _bwd_run
     L = len(weights)
     inputs = {0: (x, input_soa)}
     h, soa = x, input_soa
     for a, b in segments[:-1]:
+        out_soa = _boundary_soa(a, b, compute_dtype)
         h = fwd(list(weights[a:b]), h, activation, activation, compute_dtype, compute_dtype,
-                soa, False)
-        soa = False
-        inputs[b] = (h, False)
+                soa, out_soa)
+        soa = out_soa
+        inputs[b] = (h, soa)
     dws: List[Optional[torch.Tensor]] = [None] * L
     gseg, gsoa = g, output_soa
     for a, b in reversed(segments):
@@ -246,8 +365,82 @@ def fused_mlp_bwd_segmented(weights: Sequence[torch.Tensor], x: torch.Tensor,
                             output_activation if b == L else activation, compute_dtype, xsoa,
                             gsoa, dx_dtype=x.dtype if a == 0 else torch.float32)
         dws[a:b] = seg_dws
-        gsoa = False
+        gsoa = xsoa   # dx has the run's input's layout
     return dws, gseg
+
+
+def _chain_fwd(ws, x, activation, output_activation, compute_dtype, output_dtype, input_soa,
+               output_soa):
+    """The forward of a run of layers: M's streamed-layer instance for one
+    layer (``output_activation`` is its activation), else ``fused_mlp_fwd``
+    (one launch of M for a run that ``m_plan`` planned)."""
+    if len(ws) == 1:
+        return fused_mlp_wide_fwd(ws[0], x, output_activation, compute_dtype, output_dtype,
+                                  input_soa, output_soa)
+    return fused_mlp_fwd(ws, x, activation, output_activation, compute_dtype, output_dtype,
+                         input_soa, output_soa)
+
+
+def _bwd_run(weights, x, g, activation, output_activation, compute_dtype, input_soa,
+             output_soa, dx_dtype):
+    """The backward of one run of layers: MB's streamed-layer instance for
+    one layer (``output_activation`` is its activation), else one launch of
+    MB (the plain version for a CPU tensor)."""
+    if len(weights) == 1:
+        dw, dx = fused_mlp_wide_bwd(weights[0], x, g, output_activation, compute_dtype,
+                                    input_soa, output_soa, dx_dtype)
+        return [dw], dx
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_plain(weights, x, g, activation, output_activation, compute_dtype,
+                                   input_soa, output_soa, dx_dtype)
+    return _fused_mlp_bwd_launch(weights, x, g, activation, output_activation, compute_dtype,
+                                 input_soa, output_soa, dx_dtype)
+
+
+def fused_mlp_wide_bwd(w: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
+                       activation: Activation, compute_dtype: torch.dtype = torch.bfloat16,
+                       input_soa: bool = False, output_soa: bool = False,
+                       dx_dtype: Optional[torch.dtype] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of one layer y = act(x W) through kernel MB's
+    streamed-layer instance (``csrc/fused_mlp_wide.cu``), MB's step at a
+    layer: dz = g · act'(z) rounded to the compute dtype, dW = xᵀ dz and
+    dx = dz Wᵀ in fp32, x and W streamed through shared memory in chunks of
+    input features.  Returns (dW float32, dx in x's layout and dtype, or
+    ``dx_dtype``): ``fused_mlp_bwd_plain`` of one layer, which a CPU tensor
+    takes.  dW is deterministic (per-CTA partials summed in CTA order)."""
+    if x.device.type == "cpu":
+        dws, dx = fused_mlp_bwd_plain([w], x, g, activation, activation, compute_dtype,
+                                      input_soa, output_soa, dx_dtype)
+        return dws[0], dx
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_wide_bwd: unsupported device {x.device}")
+    name = "fused_mlp_wide_bwd"
+    dx_dtype = dx_dtype or x.dtype
+    if dx_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dx dtype {dx_dtype} is not supported")
+    k, n = _check_layer(name, w, x, compute_dtype, input_soa)
+    B = x.shape[1] if input_soa else x.shape[0]
+    if g.shape != ((n, B) if output_soa else (B, n)):
+        raise ValueError(f"{name}: output gradient {tuple(g.shape)} does not match "
+                         f"B={B}, N={n} (output_soa={output_soa})")
+    xc = x.to(compute_dtype).contiguous()
+    wc = w.to(compute_dtype).contiguous()
+    gf = g.float()
+    require_cuda_tensors(name, xc, wc, gf)
+    dw = torch.zeros((k, n), dtype=torch.float32, device=x.device)
+    dx = torch.empty((k, B) if input_soa else (B, k), dtype=dx_dtype, device=x.device)
+    if B == 0:
+        return dw, dx
+    xs_b, xs_d = (1, B) if input_soa else (k, 1)
+    gs_b, gs_d = (gf.stride(1), gf.stride(0)) if output_soa else gf.stride()
+    kernels().fused_mlp_wide_bwd(xc, xs_b, xs_d, wc, gf, gs_b, gs_d, dx, xs_b, xs_d, dw, B,
+                                 list(Activation).index(activation))
+    fused_mlp_wide_bwd.launches += 1
+    return dw, dx
+
+
+fused_mlp_wide_bwd.launches = 0
 
 
 def _fused_mlp_bwd_launch(weights, x, g, activation, output_activation, compute_dtype,
@@ -283,9 +476,12 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
     (B, D_out), or (D_out, B) with ``output_soa``, any strides.  Returns
     ([dW per layer] float32, dx in x's dtype and layout).  Where one CTA's
     share of the hidden activations exceeds an SM's shared memory (width
-    128 beyond about 10 hidden layers in bf16, 8 in fp32), the backward
-    runs as a few launches of MB over runs of layers, with kernel M
-    computing the activations at their boundaries
+    128 beyond about 10 hidden layers in bf16, 8 in fp32), or the first
+    layer's weights and input tile do (past about 464 inputs at width 128
+    in bf16, 288 in fp32, three layers), the backward runs as a few
+    launches over runs of layers (``mb_plan``), MB for runs of two layers
+    or more and its streamed-layer instance for the first (or last) layer
+    alone, with kernel M computing the activations at their boundaries
     (``fused_mlp_bwd_segmented``); every shape one launch takes keeps it.
     """
     if x.device.type == "cpu":
@@ -315,19 +511,23 @@ def fused_mlp_bwd(weights: Sequence[torch.Tensor], x: torch.Tensor,
 
 def mb_plan(weights: Sequence[torch.Tensor], compute_dtype: torch.dtype,
             activation: Activation, output_activation: Activation) -> List[Tuple[int, int]]:
-    """Kernel MB's launches for these layers (``mb_segments``), from the
+    """Kernel MB's launches for these layers (``plan_runs``), from the
     shared memory one CTA of each run needs (the kernel's own layout)."""
-    d_in, width, d_out = weights[0].shape[0], weights[0].shape[1], weights[-1].shape[1]
-    L, bf16 = len(weights), compute_dtype == torch.bfloat16
     acts = list(Activation)
-    act, out_act = acts.index(activation), acts.index(output_activation)
+    return _mb_plan(weights[0].shape[0], weights[0].shape[1], weights[-1].shape[1],
+                    len(weights), compute_dtype == torch.bfloat16, acts.index(activation),
+                    acts.index(output_activation))
 
+
+@functools.lru_cache(maxsize=None)
+def _mb_plan(d_in: int, width: int, d_out: int, L: int, bf16: bool, act: int,
+             out_act: int) -> List[Tuple[int, int]]:
     def fits(a, b):
-        return b - a <= MAX_LAYERS and kernels().fused_mlp_bwd_smem_bytes(
+        return kernels().fused_mlp_bwd_smem_bytes(
             d_in if a == 0 else width, d_out if b == L else width, width, b - a, bf16, act,
             out_act if b == L else act) <= MAX_SMEM
 
-    return mb_segments(L, fits)
+    return plan_runs(L, fits)
 
 
 fused_mlp_bwd.launches = 0

@@ -22,9 +22,13 @@ GG and GT add their table gradients themselves, on GB's work plan
 functions in plain PyTorch, which the CPU tests and ``chip_smoke.py`` hold
 the kernels against.  All five take optional per-sample level fractions
 (``level_frac``, the coarse-to-fine mask of ``grid_ops.level_mask``), every
-hash type and 1 to 7 dims.  Rng grids (the pcg32 hash, each corner's in
-full) and 5 to 7 dims run one instance of each kernel with D at run time
-(csrc/grid_common.cuh: WideCorners).  Under stochastic interpolation GB scatters with
+hash type, 1 to 7 dims and any number of features per level.  Rng grids
+(the pcg32 hash, each corner's in full), 5 to 7 dims and more than 8
+features per level run one instance of each kernel with D at run time
+(csrc/grid_common.cuh: WideCorners; F > 8 in groups of 8 features, each
+group over every corner again, so that GI's, GG's and GT's sums over the
+features stay in one thread, in one order); the 1- to 4-D instances
+template F over 1 to 8.  Under stochastic interpolation GB scatters with
 JAX's ``ws_bwd`` (``grid_ops.build_indices_weights(scatter=True)``), from
 the uniforms of ``grid_ops.stochastic_uniforms``, in that instance too; G,
 GI, GG and GT use the ordinary weights, as JAX's forward and input
@@ -134,9 +138,9 @@ def _check_args(name: str, spec: grid_ops.GridSpec, flat: torch.Tensor,
                 x: torch.Tensor, shard: Optional[Tuple[int, int]] = None) -> None:
     """What the grid kernels take; raises on anything else."""
     D, F = spec.n_dims, spec.n_features_per_level
-    if not 1 <= D <= grid_ops.MAX_DIMS or not 1 <= F <= 8:
-        raise ValueError(f"{name}: the kernel covers D <= {grid_ops.MAX_DIMS} and F <= 8, "
-                         f"got D={D}, F={F}")
+    if not 1 <= D <= grid_ops.MAX_DIMS or F < 1:
+        raise ValueError(f"{name}: the kernel covers 1 <= D <= {grid_ops.MAX_DIMS} and "
+                         f"F >= 1 (F > 8 in its run-time-D instance), got D={D}, F={F}")
     if x.dtype != torch.float32 or x.shape != (x.shape[0], D) or (
             D > 1 and x.stride(1) != 1):
         raise ValueError(f"{name}: x must be float32 (B, {D}) with unit stride "

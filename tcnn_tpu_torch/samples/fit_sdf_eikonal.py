@@ -140,11 +140,13 @@ def mean_sdf_error(net, device, n: int = EVAL_SAMPLES, seed: int = 7) -> float:
         return float(torch.mean(torch.abs(net(xs)[:, 0] - true_sdf(xs))))
 
 
-def main(argv, device=None) -> dict:
+def main(argv, device=None, config=None) -> dict:
+    """The fit; ``config``: the model's config in place of ``CONFIG``."""
     n_steps = int(argv[1]) if len(argv) > 1 else 500
     batch = 1 << (int(argv[2]) if len(argv) > 2 else 14)
 
-    model = tcnn.create_from_config(3, 1, CONFIG, policy=tcnn.Policy(), device=device)
+    model = tcnn.create_from_config(3, 1, config or CONFIG, policy=tcnn.Policy(),
+                                    device=device)
     net, opt = model.network, model.optimizer
     opt_state = opt.init(dict(net.named_parameters()), net.param_layout())
     device = next(net.parameters()).device

@@ -520,6 +520,33 @@ def time_kernels(config: str, full: bool) -> dict:
                 hgg = grid_encode_bwd_bwd(hspec, htable, hx, hdc, hdx, hlive)
                 out[f"bits GG d_dcols {key}"] = _bits(hgg.d_dcols)
                 out[f"bits GG d_x {key}"] = _bits(hgg.d_x)
+        # the run-time-D instances at the shapes they took before groups of
+        # features: the Rng hash, 5 dims, a per-sample mask, shard mode
+        for key, (d, ht, masked, shard) in {
+                "Rng 3-D": (3, HashType.RNG, False, None),
+                "CoherentPrime 5-D": (5, HashType.COHERENT_PRIME, False, None),
+                "CoherentPrime 3-D masked": (3, HashType.COHERENT_PRIME, True, None),
+                "CoherentPrime 3-D shard": (3, HashType.COHERENT_PRIME, False, (1, 2))}.items():
+            wspec = grid_ops.make_grid_spec(d, 6, 2, 12, 4, 2.0, hash_type=ht,
+                                            interpolation=grid_ops.InterpolationType.SMOOTHSTEP)
+            wlive = list(range(wspec.n_levels))
+            wx = torch.rand((1024, d), generator=gen, device=dev) * 0.9 + 0.05
+            wdc = torch.randn((12, 1024), generator=gen, device=dev)
+            wtable = torch.rand(wspec.n_params // (shard[1] if shard else 1), generator=gen,
+                                device=dev) * 2 - 1
+            wv, wb = (torch.randn((1024, d), generator=gen, device=dev) for _ in range(2))
+            kw = {"level_frac": torch.rand(1024, generator=gen, device=dev) if masked else None,
+                  "shard": shard}
+            if not masked:   # G and GI take a mask in their 1- to 4-D instances
+                out[f"bits G {key}"] = _bits(grid_encode_fwd(wspec, wtable, wx, wlive, **kw))
+                out[f"bits GI {key}"] = _bits(grid_encode_bwd_input(wspec, wtable, wx, wdc,
+                                                                    wlive, **kw))
+            wgg = grid_encode_bwd_bwd(wspec, wtable, wx, wdc, wv, wlive, **kw)
+            out[f"bits GG d_dcols {key}"] = _bits(wgg.d_dcols)
+            out[f"bits GG d_x {key}"] = _bits(wgg.d_x)
+            wgt = grid_encode_third(wspec, wtable, wx, wdc, wv, wb, wlive, **kw)
+            out[f"bits GT d_dcols {key}"] = _bits(wgt.d_dcols)
+            out[f"bits GT d_x {key}"] = _bits(wgt.d_x)
         out["M"] = graph_ms(lambda: fused_mlp_fwd(ws, feats, net.activation,
                                                   net.output_activation, torch.bfloat16,
                                                   torch.float32, True, False))

@@ -11,7 +11,8 @@ their largest magnitude: the same fp32 operations, sums in another order),
 and the port's ``serialize`` / ``deserialize`` round trip, through JSON,
 into a model of another seed, bit for bit.  The sample of the cross
 product is fixed (a seeded draw of 40 cases), so that every worker
-collects the same tests.
+collects the same tests; one case more puts a HashGrid of 16 features a
+level into a FullyFusedMLP 128 x 2 (256 inputs).
 """
 
 import itertools
@@ -31,6 +32,7 @@ from test_config_fuzz import ENCODINGS as JAX_FUZZ_ENCODINGS
 from test_config_fuzz import LOSSES, NETWORKS, OPTIMIZERS
 
 STOCHASTIC, RNG = len(JAX_FUZZ_ENCODINGS), len(JAX_FUZZ_ENCODINGS) + 1
+WIDE = RNG + 1
 ENCODINGS = JAX_FUZZ_ENCODINGS + [
     {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
      "log2_hashmap_size": 7, "base_resolution": 2, "per_level_scale": 2.0,
@@ -39,24 +41,33 @@ ENCODINGS = JAX_FUZZ_ENCODINGS + [
     # unrolled, about 10 s a hashed level here
     {"otype": "HashGrid", "n_levels": 3, "n_features_per_level": 2,
      "log2_hashmap_size": 5, "base_resolution": 2, "per_level_scale": 2.0, "hash": "Rng"},
+    # 16 features a level, 256 MLP inputs (on the card: the grid kernels'
+    # groups of 8 features, and M's and MB's streamed first layer)
+    {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 16,
+     "log2_hashmap_size": 5, "base_resolution": 2, "per_level_scale": 1.5},
 ]
+# the wide grid's network, outside the cross product's networks
+WIDE_NET = len(NETWORKS)
+ALL_NETWORKS = NETWORKS + [{"otype": "FullyFusedMLP", "n_neurons": 128, "n_hidden_layers": 2}]
 N_CASES = 40
 
 
 def _cases():
-    """39 cases drawn from the cross product without the Rng grid, and the
-    Rng grid into the first network, loss and optimizer wrapper."""
+    """39 cases drawn from the cross product without the Rng and the wide
+    grids, the Rng grid into the first network, loss and optimizer
+    wrapper, and the wide grid into a FullyFusedMLP 128 x 2 with the same."""
     rng = np.random.RandomState(4321)
-    combos = list(itertools.product([e for e in range(len(ENCODINGS)) if e != RNG],
+    combos = list(itertools.product([e for e in range(len(ENCODINGS)) if e not in (RNG, WIDE)],
                                     range(len(NETWORKS)), range(len(LOSSES)),
                                     range(len(OPTIMIZERS))))
     idx = rng.choice(len(combos), size=N_CASES - 1, replace=False)
-    return [combos[i] for i in sorted(idx)] + [(RNG, 0, 0, 0)]
+    return [combos[i] for i in sorted(idx)] + [(RNG, 0, 0, 0), (WIDE, WIDE_NET, 0, 0)]
 
 
 def test_the_sample_holds_the_new_grid_options():
     encs = [c[0] for c in _cases()]
-    assert STOCHASTIC in encs and RNG in encs and len(set(_cases())) == N_CASES
+    assert STOCHASTIC in encs and RNG in encs and WIDE in encs
+    assert len(set(_cases())) == N_CASES + 1
 
 
 def _np_tree(t):
@@ -66,7 +77,7 @@ def _np_tree(t):
 @pytest.mark.parametrize("ei,ni,li,oi", _cases())
 def test_random_config_equals_jax(ei, ni, li, oi):
     cfg = {"loss": {"otype": LOSSES[li]}, "optimizer": OPTIMIZERS[oi],
-           "encoding": ENCODINGS[ei], "network": NETWORKS[ni]}
+           "encoding": ENCODINGS[ei], "network": ALL_NETWORKS[ni]}
     n_in, n_out, b = 2, 3, 256
     jmodel = jtcnn.create_from_config(n_in, n_out, cfg)
     state = jmodel.trainer.initial_state()

@@ -21,6 +21,7 @@ import json
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from tcnn_tpu.ops import grid_ops as jops
 from tcnn_tpu_torch import common as tcommon
 from tcnn_tpu_torch.models.encodings import grid as tgrid
 from tcnn_tpu_torch.ops import grid_ops as tops
+from tcnn_tpu_torch.ops.cuda import grid_encode as tgrid_ops
 
 CONFIGS = sorted(Path(__file__).resolve().parents[1].glob("configs/*.json"))
 GRID_OTYPES = {"grid", "hashgrid", "densegrid", "tiledgrid"}
@@ -133,7 +135,12 @@ INDEX_CASES = [
     (1, 4, 8, 6, 8, 2.0, "Hash", "CoherentPrime", "Linear"),
     (2, 5, 3, 10, 4, 1.8, "Dense", "CoherentPrime", "Linear"),
     (3, 4, 1, 10, 3, 1.5, "Tiled", "CoherentPrime", "Smoothstep"),
+    # more than 8 features a level (on the card: the kernels' run-time-D
+    # instances, in groups of 8; F = 12 leaves a partial group)
+    (3, 4, 16, 10, 4, 1.5, "Hash", "CoherentPrime", "Smoothstep"),
+    (2, 5, 12, 9, 4, 1.6, "Hash", "CoherentAdd", "Linear"),
 ]
+WIDE_F_CASES = INDEX_CASES[-2:]
 
 
 def _case_specs(case):
@@ -185,6 +192,46 @@ def test_grid_encode_equals_jax_plain_path(case, dtype, soa, max_level):
                            torch.from_numpy(x), max_level=max_level, soa=soa)
     assert str(got.dtype) == f"torch.{dtype}"
     _assert_close(got.float().numpy(), np.asarray(want, np.float32), dtype)
+
+
+@pytest.mark.parametrize("case", WIDE_F_CASES, ids=lambda c: f"{c[0]}d-F{c[2]}")
+def test_grid_table_gradient_at_many_features_equals_jax(case):
+    """The table gradient (kernel GB's plain version on the CPU) of an fp32
+    grid at F = 16 and F = 12 against ``jax.vjp`` in the table of JAX's
+    plain path: fp32 sums of the same products in another order, per entry
+    within 2^-11·S, S = Σ|w·dy| over the entry's updates (n terms in two
+    orders differ by at most (n − 1)·2^-24·S; 2^-11 covers n up to 8192, as
+    ``chip_smoke.py`` holds kernel GB; a relative bound fails where the
+    terms cancel)."""
+    jspec, tspec = _case_specs(case)
+    rng = np.random.default_rng(11)
+    table = rng.uniform(-1, 1, tspec.n_params).astype(np.float32)
+    # under jax.jit XLA may fuse pos = x·scale + 0.5 into one rounding: the
+    # points keep 1e-3 of a cell from every level's cell borders
+    x = _coords(2048, tspec.n_dims, 12)
+    for lv in tspec.levels:
+        frac = x * np.float32(lv.scale) + np.float32(0.5)
+        frac -= np.floor(frac)
+        x = x[((frac > 1e-3) & (frac < 1 - 1e-3)).all(axis=1)]
+    x = x[:257]
+    assert len(x) == 257
+    dy = rng.normal(size=(257, tspec.n_levels * tspec.n_features_per_level)).astype(np.float32)
+
+    @jax.jit
+    def table_grad(t, xx, g):
+        _, vjp = jax.vjp(lambda t_: jops.grid_encode(jspec, t_, xx, fast_scatter=False), t)
+        return vjp(g)[0]
+
+    want = table_grad(jnp.asarray(table), jnp.asarray(x), jnp.asarray(dy))
+    tt = torch.from_numpy(table).requires_grad_()
+    y = tops.grid_encode(tspec, tt, torch.from_numpy(x))
+    (got,) = torch.autograd.grad(y, tt, torch.from_numpy(dy))
+    live = list(range(tspec.n_levels))
+    scale = tgrid_ops.grid_encode_bwd_plain(tspec, tt.detach(), torch.from_numpy(x),
+                                            torch.from_numpy(np.abs(dy).T.copy()), live)
+    want = np.asarray(want)
+    assert np.abs(want).max() > 1e-2
+    assert (np.abs(got.numpy() - want) <= 2.0 ** -11 * scale.numpy()).all()
 
 
 def test_table_size_is_checked():

@@ -10,6 +10,7 @@ same ones.  FusedMLP is held against the JAX package's Pallas kernel
     order, a rounding may fall to the other neighbour at every layer.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from tcnn_tpu.ops.pallas import fused_mlp as jfused
 from tcnn_tpu_torch import FusedMLP, MLP, create_network
 from tcnn_tpu_torch.common import BF16_POLICY, Activation
 from tcnn_tpu_torch.ops.activations import apply_activation
+from tcnn_tpu_torch.ops.cuda import fused_mlp as tfused
 from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_fwd
 from tcnn_tpu_torch.tools import kernel_ablation
 
@@ -167,3 +169,105 @@ def test_kernel_ablations_patch_the_current_sources(tmp_path, name):
     for fname, old, new in patches:
         text = (root / "tcnn_tpu_torch" / "csrc" / fname).read_text()
         assert old not in text or old in new, (name, fname)
+
+
+# -- wide inputs: the first layer alone, streamed in chunks of its inputs ------
+
+@pytest.mark.parametrize("d_in", [256, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_mlp_at_wide_inputs_equals_jax(d_in, dtype):
+    """A FullyFusedMLP 128 × 2 at 256 and 512 inputs (past kernel M's or
+    MB's shared memory on the card, where the first layer runs alone through
+    the streamed-layer instances; here the plain versions) against JAX at
+    every order the port computes: the forward against ``_jnp_mlp_ref``,
+    dW and dx (``FusedMLPBackwardFunction``, kernel MB's plain version)
+    against ``_fused_mlp_bwd_op``, and their gradients in x, g and W (the
+    second order) against its VJP.  fp32: 1e-5 of each largest magnitude
+    (1e-4 for the second order, autodiff of jnp matmuls on the JAX side);
+    bf16: the MLP tolerances above, 2e-2 of each largest magnitude for the
+    gradients (a dz may round to the other bf16 neighbour)."""
+    dims = [(d_in, 128), (128, 128), (128, 3)]
+    ws = _weights(dims, d_in)
+    rng = np.random.default_rng(d_in + 1)
+    B = 200
+    x = rng.uniform(-1, 1, (d_in, B)).astype(np.float32)   # SoA, the grid's layout
+    g = rng.normal(size=(B, 3)).astype(np.float32)
+    ct_dx = rng.normal(size=x.shape).astype(np.float32)
+    ct_ws = [rng.normal(size=d).astype(np.float32) for d in dims]
+    relu, none = jcommon.Activation.RELU, jcommon.Activation.NONE
+    jcdt, cdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jws = tuple(jnp.asarray(w) for w in ws)
+    want_y = jfused._jnp_mlp_ref(list(jws), jnp.asarray(x), relu, none, jcdt, jnp.float32,
+                                 True, False)
+
+    @jax.jit
+    def bwd_and_vjp(w, x_, g_, cts):
+        out, vjp = jax.vjp(lambda w_, xx, gg: jfused._fused_mlp_bwd_op(
+            w_, xx, gg, relu, none, jcdt, jnp.float32, True, False), w, x_, g_)
+        return out, vjp(cts)
+
+    (jdws, jdx), (w_want, x_want, g_want) = bwd_and_vjp(
+        jws, jnp.asarray(x), jnp.asarray(g),
+        (tuple(jnp.asarray(c) for c in ct_ws), jnp.asarray(ct_dx)))
+    tws = [torch.from_numpy(w) for w in ws]
+    y = fused_mlp_fwd(tws, torch.from_numpy(x), Activation.RELU, Activation.NONE, cdt,
+                      torch.float32, True, False)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL[dtype])
+    rel1, rel2 = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    wt = [w.clone().requires_grad_() for w in tws]
+    xt = torch.from_numpy(x).requires_grad_()
+    gt = torch.from_numpy(g).requires_grad_()
+    dx, *dws = tfused.FusedMLPBackwardFunction.apply(
+        xt, gt, Activation.RELU, Activation.NONE, cdt, torch.float32, True, False, *wt)
+    grads = torch.autograd.grad([dx, *dws], [xt, gt, *wt],
+                                grad_outputs=[torch.from_numpy(ct_dx)]
+                                + [torch.from_numpy(c) for c in ct_ws])
+    for what, got, want, rel in [("dx", dx, jdx, rel1)] + [
+            (f"dW{i}", a, b, rel1) for i, (a, b) in enumerate(zip(dws, jdws))] + [
+            ("d x", grads[0], x_want, rel2), ("d g", grads[1], g_want, rel2)] + [
+            (f"d W{i}", a, b, rel2) for i, (a, b) in enumerate(zip(grads[2:], w_want))]:
+        got, want = got.detach().float().numpy(), np.asarray(want, np.float32)
+        assert got.shape == want.shape and np.abs(want).max() > 0, what
+        assert np.abs(got - want).max() <= rel * np.abs(want).max(), what
+
+
+def test_plan_runs_put_a_wide_first_or_last_layer_alone():
+    """``plan_runs`` keeps ``mb_segments``' runs wherever some fit (every
+    shape the fused kernels took keeps its launches), and otherwise puts the
+    first layer, the last or both in runs of their own (the streamed-layer
+    instances), the layers between in runs of two or more, or alone where
+    one is left, each run of at most ``MAX_LAYERS`` layers."""
+    assert tfused.plan_runs(3, lambda a, b: True) == [(0, 3)]
+    assert tfused.plan_runs(13, lambda a, b: b - a <= 7) == [(0, 7), (7, 13)]
+    assert tfused.plan_runs(3, lambda a, b: a > 0) == [(0, 1), (1, 3)]
+    assert tfused.plan_runs(2, lambda a, b: False) == [(0, 1), (1, 2)]
+    assert tfused.plan_runs(4, lambda a, b: b < 4) == [(0, 3), (3, 4)]
+    assert tfused.plan_runs(5, lambda a, b: 0 < a and b < 5) == [(0, 1), (1, 4), (4, 5)]
+    assert tfused.plan_runs(14, lambda a, b: a > 0 and b - a <= 7) == [(0, 1), (1, 8), (8, 14)]
+    assert tfused.plan_runs(40, lambda a, b: a > 0) == [(0, 1), (1, 21), (21, 40)]
+    with pytest.raises(NotImplementedError):
+        tfused.plan_runs(4, lambda a, b: b - a < 2)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("runs", [[(0, 1), (1, 3)], [(0, 1), (1, 2), (2, 3)]], ids=str)
+def test_a_first_layer_alone_keeps_the_chains_bits(cdt, runs):
+    """The MLP at 512 inputs with its first layer in a run of its own (the
+    streamed-layer instances' plain versions: ``fused_mlp_wide_fwd`` and
+    ``_bwd`` take the CPU's) equals the whole chain bit for bit, forward
+    and backward: the run's output is the hidden activation in the compute
+    dtype, its dx the next run's input gradient in fp32, as one launch
+    holds them."""
+    dims = [(512, 64), (64, 64), (64, 3)]
+    ws = [torch.from_numpy(w) for w in _weights(dims, 9)]
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.uniform(-1, 1, (512, 150)).astype(np.float32)).to(cdt)
+    g = torch.from_numpy(rng.normal(size=(150, 3)).astype(np.float32))
+    args = (Activation.RELU, Activation.NONE, cdt)
+    want_y = tfused.fused_mlp_plain(ws, x, *args, torch.float32, True, False)
+    got_y = tfused.fused_mlp_fwd_chained(ws, x, *args, torch.float32, True, False, runs)
+    assert torch.equal(got_y, want_y)
+    want_dws, want_dx = tfused.fused_mlp_bwd_plain(ws, x, g, *args, True, False)
+    dws, dx = tfused.fused_mlp_bwd_segmented(ws, x, g, *args, True, False, runs)
+    assert torch.equal(dx, want_dx) and dx.dtype == x.dtype
+    assert all(torch.equal(a, b) for a, b in zip(dws, want_dws))

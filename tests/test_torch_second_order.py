@@ -50,7 +50,7 @@ from tcnn_tpu_torch.ops.cuda import fused_mlp as tfused
 from tcnn_tpu_torch.ops.cuda import grid_encode as tgrid
 from tcnn_tpu_torch.ops.cuda import scatter as tscatter
 from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
-from tcnn_tpu_torch.tools.plain_path import plain_sdf_loss_and_grads
+from tcnn_tpu_torch.tools.plain_path import gg_table_scale, plain_sdf_loss_and_grads
 from tcnn_tpu_torch.utils.jax_params import load_jax_params
 
 CONFIG_HASH = str(Path(__file__).resolve().parents[1] / "configs" / "config_hash.json")
@@ -61,6 +61,10 @@ GRID_CASES = [
     (3, 3, 2, 9, 4, 1.5, "Hash", "Smoothstep"),
     (3, 2, 4, 10, 4, 2.0, "Dense", "Linear"),
     (2, 4, 1, 10, 4, 1.5, "Dense", "Smoothstep"),
+    # more than 8 features a level (the kernels' run-time-D instances, in
+    # groups of 8; F = 12 leaves a partial group)
+    (3, 3, 16, 9, 4, 1.5, "Hash", "Smoothstep"),
+    (2, 3, 12, 8, 4, 1.5, "Hash", "Linear"),
 ]
 
 
@@ -160,7 +164,17 @@ def test_grid_backward_backward_input_equals_jax(case, route, monkeypatch):
         torch.from_numpy(x), torch.from_numpy(dL_dy), torch.from_numpy(dL_ddLdx))
     assert set(dparams) == {"grid"}
     _assert_rel(ddLdy, want[0], 1e-5, "ddLdy")
-    _assert_table_grad(dparams["grid"], want[1]["grid"])
+    if case[2] > 8:
+        # 16 features of a 3-D Smoothstep level cancel to an entry 400x
+        # below the sum of its terms' magnitudes S, where rtol 1e-4 is not
+        # sound: per entry within 2^-11·S (gg_table_scale; chip_smoke.py's
+        # bound for kernel GG)
+        scale = gg_table_scale(enc.spec, torch.from_numpy(x), torch.from_numpy(dL_dy.T.copy()),
+                               torch.from_numpy(dL_ddLdx), list(range(enc.spec.n_levels)))
+        err = np.abs(dparams["grid"].detach().numpy() - np.asarray(want[1]["grid"]))
+        assert (err <= 2.0 ** -11 * scale.numpy()).all()
+    else:
+        _assert_table_grad(dparams["grid"], want[1]["grid"])
     _assert_rel(dx, want[2], 1e-5, "dx")
 
 

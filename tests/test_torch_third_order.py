@@ -259,6 +259,9 @@ GT_CASES = [
     (3, 3, 2, 8, 4, 1.5, "Hash", "Linear"),
     (3, 2, 4, 10, 4, 2.0, "Dense", "Smoothstep"),
     (2, 4, 1, 10, 4, 1.5, "Dense", "Linear"),
+    # more than 8 features a level (F = 12: a partial group of 8)
+    (3, 3, 16, 9, 4, 1.5, "Hash", "Smoothstep"),
+    (2, 3, 12, 8, 4, 1.5, "Hash", "Linear"),
 ]
 
 
@@ -329,15 +332,15 @@ def test_stochastic_table_gradient_cotangent_equals_jax():
 
 def test_fused_mlp_run_planners_at_depth_40():
     """A FullyFusedMLP 16 × 40 hidden layers, 41 layers: kernel M takes it
-    in two launches of at most 32 layers (``m_runs``), and the chain of
+    in two launches of at most 32 layers (``plan_runs``), and the chain of
     runs, each inner run ending on the hidden activation in the compute
     dtype, has the whole chain's bits (plain versions, both dtypes); MB's
-    runs also keep within 32 layers (``mb_segments`` with ``mb_plan``'s
+    runs also keep within 32 layers (``mb_segments`` with ``plan_runs``'
     bound on a run's length)."""
-    assert tfused.m_runs(41) == [(0, 21), (21, 41)]
-    assert tfused.m_runs(32) == [(0, 32)]
-    assert tfused.m_runs(33) == [(0, 17), (17, 33)]
-    assert tfused.m_runs(70) == [(0, 24), (24, 47), (47, 70)]
+    assert tfused.plan_runs(41, lambda a, b: True) == [(0, 21), (21, 41)]
+    assert tfused.plan_runs(32, lambda a, b: True) == [(0, 32)]
+    assert tfused.plan_runs(33, lambda a, b: True) == [(0, 17), (17, 33)]
+    assert tfused.plan_runs(70, lambda a, b: True) == [(0, 24), (24, 47), (47, 70)]
     assert tfused.mb_segments(41, lambda a, b: b - a <= tfused.MAX_LAYERS) == [(0, 21), (21, 41)]
     rng = np.random.default_rng(8)
     dims = [(8, 16)] + [(16, 16)] * 39 + [(16, 2)]
@@ -349,6 +352,6 @@ def test_fused_mlp_run_planners_at_depth_40():
                                  .astype(np.float32)).to(cdt)
             args = (Activation.RELU, Activation.NONE, cdt, torch.float32, soa_in, soa_out)
             want = tfused.fused_mlp_plain(ws, x, *args)
-            got = tfused.fused_mlp_fwd_chained(ws, x, *args, tfused.m_runs(len(ws)),
+            got = tfused.fused_mlp_fwd_chained(ws, x, *args, tfused.plan_runs(len(ws), lambda a, b: True),
                                                fwd=tfused.fused_mlp_plain)
             torch.testing.assert_close(got, want, rtol=0, atol=0)
