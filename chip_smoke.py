@@ -140,6 +140,16 @@ and read just after:
     the wide image (512 inputs, BF16_POLICY) through one step's gradients
     against the plain path and 100 steps of ``make_training_loop`` at 2^18
     (the loss falls more than 10x).
+  * slice 17, wide outputs: the streamed-layer kernels MW and MBW,
+    redesigned on the tensor cores, take any number of output columns.
+    Both at a 128 -> 600 last layer (bf16 and fp32, 2^18) against their
+    plain versions, bit for bit across two launches, and timed beside their
+    bounds and the cuBLAS products; config_hash's grid into a FullyFusedMLP
+    128 x 2 with 600 outputs (past M's and MB's layouts: the last layer runs
+    alone), in both policies, through one step's gradients against the
+    plain path and 10 training steps at 2^16 (the loss falls; per step M
+    twice, MBW and MB once, and MW once in fp32, where M's layout cannot
+    hold the last layer).
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -384,6 +394,7 @@ BTF_REL_FLOOR = 0.35
 # FLOP/s, fp32 FLOP/s outside the tensor cores (the FMA units).
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 UNIT = {PEAK_BF16: "bf16 tensor cores", PEAK_FP32: "fp32 FMA"}
 
@@ -4377,9 +4388,9 @@ def wide_mlp_checks(gen, dev, d_in, d_out, dtype, tag, t, err):
     bounds and the cuBLAS products of the same work."""
     from tcnn_tpu_torch.common import Activation
     from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain,
-                                                   fused_mlp_fwd, fused_mlp_plain,
-                                                   fused_mlp_wide_bwd, fused_mlp_wide_fwd,
-                                                   m_plan, mb_plan)
+                                                   fused_mlp_bwd_segmented, fused_mlp_fwd,
+                                                   fused_mlp_plain, fused_mlp_wide_bwd,
+                                                   fused_mlp_wide_fwd, m_plan, mb_plan)
 
     B, relu, none = MAIN_BATCH, Activation.RELU, Activation.NONE
     dims = mlp_dims(d_in, 128, 2, d_out)
@@ -4408,16 +4419,31 @@ def wide_mlp_checks(gen, dev, d_in, d_out, dtype, tag, t, err):
             [ws[0]], x, relu, relu, dtype, dtype, True, False).float(), tol)[0]
         wb_args = (ws[0], x, g1, relu, dtype, True, False, torch.float32)
         dw, dx = fused_mlp_wide_bwd(*wb_args)
-        dw2, _ = fused_mlp_wide_bwd(*wb_args)
+        dw2, dx2 = fused_mlp_wide_bwd(*wb_args)
         torch.cuda.synchronize()
-        check(torch.equal(dw, dw2), f"MBW {tag}: dW differs between two launches")
+        check(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+              f"MBW {tag}: dW or dx differs between two launches")
         want_dws, want_dx = fused_mlp_bwd_plain([ws[0]], x, g1, relu, relu, dtype, True, False,
                                                 torch.float32)
-        err[f"MBW {tag}"] = compare_mlp_grads([dw, dx], [want_dws[0], want_dx], dtype,
-                                              f"MBW {tag}")
-    print(f"streamed layer {d_in} -> 128 ({str(dtype)[6:]}): M's max abs err "
-          f"{err[f'MW {tag}']:.3e}, MB's {err[f'MBW {tag}']:.3e} (dW and dx; dW bit for bit "
-          "in a second launch)")
+        if dtype == torch.bfloat16:
+            # MW's bf16 z is a tensor-core sum, in another order than the
+            # plain product's: a pre-activation within rounding of 0 may
+            # switch the layer's ReLU, which moves that sample's dx row (as
+            # at MB's hidden layers).  Such rows are held as MB's are, by
+            # compare_input_grad: the layer followed by an identity with no
+            # activation is the same backward (dz = bf16(g) · mask either
+            # way), and relu_flip_rows flips that mask.
+            eye = torch.eye(ws[0].shape[1], device=dev)
+            err[f"MBW {tag}"] = max(
+                compare_mlp_grads([dw], [want_dws[0]], dtype, f"MBW {tag} dW"),
+                compare_input_grad(dx, want_dx, [ws[0], eye], x, g1, none, soa_in=True,
+                                   what=f"MBW {tag} dx", dtype=dtype)[0])
+        else:
+            err[f"MBW {tag}"] = compare_mlp_grads([dw, dx], [want_dws[0], want_dx], dtype,
+                                                  f"MBW {tag}")
+    print(f"streamed layer {d_in} -> 128 ({str(dtype)[6:]}): MW's max abs err "
+          f"{err[f'MW {tag}']:.3e}, MBW's {err[f'MBW {tag}']:.3e} (dW and dx; both bit for "
+          "bit in a second launch)")
     hs = chain_activations(wc, x.t())
     m_args = (ws, x, relu, none, dtype, torch.float32, True, False)
     mb_args = (ws, x, g, relu, none, dtype, True, False)
@@ -4437,6 +4463,14 @@ def wide_mlp_checks(gen, dev, d_in, d_out, dtype, tag, t, err):
         t[f"MBW {tag} plain"] = eager_ms(lambda: fused_mlp_bwd_plain(
             [ws[0]], x, g1, relu, relu, dtype, True, False, torch.float32))
         t[f"MBW {tag} library"] = graph_ms(lambda: library_bwd([w0], [x.t()], g1))
+        if len(mb_runs) == 1:
+            # a finding, not a route: MB whole against the streamed first
+            # layer and MB over the rest (M at the boundary), which the
+            # planner does not take where the shape fits MB
+            t[f"MB {tag} streamed route"] = graph_ms(lambda: fused_mlp_bwd_segmented(
+                *mb_args, [(0, 1), (1, len(ws))]))
+            print(f"MB {tag}: {t[f'MB {tag}']:.4f} ms whole; {t[f'MB {tag} streamed route']:.4f} "
+                  "ms as MW, MBW on the first layer and M, MB over the rest")
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
     m_flops = 2 * B * sum(w.numel() for w in ws)
     l_flops = 2 * B * ws[0].numel()
@@ -4448,9 +4482,176 @@ def wide_mlp_checks(gen, dev, d_in, d_out, dtype, tag, t, err):
     for k, (n_bytes, flops) in b.items():
         t[k + " bound"] = bound_ms(n_bytes, flops, peak)
         t[k + " bound by"] = bound_by(n_bytes, flops, peak)
+        units = f"on the {UNIT[peak]}"
+        if k.startswith("MBW"):
+            units = wide_bwd_bound(t, k, n_bytes, l_flops, dtype)
         print(f"{k}: {t[k]:.4f} ms on the device (plain {t[k + ' plain']:.4f} ms, cuBLAS "
               f"products {t[k + ' library']:.4f} ms, bound {t[k + ' bound']:.4f} ms: "
-              f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP on the {UNIT[peak]})")
+              f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP {units})")
+
+
+def wide_bwd_bound(t, key, n_bytes, flops, dtype):
+    """Kernel MBW's bound into t: bytes over HBM, or its three products of
+    ``flops`` each on the units that run them (csrc/fused_mlp_wide.cu): the
+    bf16 tensor cores; in fp32 the forward's z on the FMA units and dx and
+    dW in 3xTF32, three TF32 products each, with the bound of all three on
+    the FMA units kept beside it (``bound fma``).  Returns the units' words."""
+    if dtype == torch.bfloat16:
+        ops_s, units = 3 * flops / PEAK_BF16, "on the bf16 tensor cores"
+    else:
+        ops_s = flops / PEAK_FP32 + 2 * 3 * flops / PEAK_TF32
+        t[key + " bound fma"] = bound_ms(n_bytes, 3 * flops, PEAK_FP32)
+        units = (f"(z on the fp32 FMA units, dx and dW as three TF32 products each; on the "
+                 f"FMA units alone {t[key + ' bound fma']:.4f} ms)")
+    t[key + " bound"] = max(n_bytes / PEAK_BYTES, ops_s) * 1e3
+    t[key + " bound by"] = "bytes" if n_bytes / PEAK_BYTES >= ops_s else "operations"
+    return units
+
+
+WIDE_OUT = 600             # a FullyFusedMLP output past M's and MB's layouts (at most 480)
+WIDE_OUT_STEP_POW = 16     # its model's training steps
+WIDE_OUT_STEPS = 10
+
+
+def wide_output_checks(gen, dev, dtype, tag, t, err):
+    """MW and MBW on a 128 -> ``WIDE_OUT`` last layer (B = 2^18, AoS input,
+    the layout of the hidden activation at a run boundary; no activation, y
+    in fp32, dx in fp32: the output layer as the model runs it) against
+    their plain versions (y at the MLP bounds, dW and dx within 1e-4 or 2e-2
+    of each largest magnitude, both bit for bit in a second launch), and
+    their times beside the plain versions, their bounds and the cuBLAS
+    products of the same work."""
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_bwd_plain, fused_mlp_plain,
+                                                   fused_mlp_wide_bwd, fused_mlp_wide_fwd)
+
+    B, none = MAIN_BATCH, Activation.NONE
+    phase(f"slice 17: MW and MBW at a 128 -> {WIDE_OUT} last layer ({str(dtype)[6:]}) vs plain "
+          f"at B={B}")
+    (w,) = random_mlp(gen, dev, [(128, WIDE_OUT)])
+    x = torch.rand((B, 128), generator=gen, device=dev).to(dtype)
+    g = torch.randn((B, WIDE_OUT), generator=gen, device=dev)
+    tol = "mlp-bf16" if dtype == torch.bfloat16 else "mlp-f32"
+    f_args = (w, x, none, dtype, torch.float32, False, False)
+    b_args = (w, x, g, none, dtype, False, False, torch.float32)
+    with torch.inference_mode():
+        y = fused_mlp_wide_fwd(*f_args)
+        dw, dx = fused_mlp_wide_bwd(*b_args)
+        dw2, dx2 = fused_mlp_wide_bwd(*b_args)
+        torch.cuda.synchronize()
+        check(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+              f"MBW {tag}: dW or dx differs between two launches")
+        err[f"MW {tag}"] = compare(y, fused_mlp_plain([w], x, none, none, dtype, torch.float32,
+                                                      False, False), tol)[0]
+        want_dws, want_dx = fused_mlp_bwd_plain([w], x, g, none, none, dtype, False, False,
+                                                torch.float32)
+        err[f"MBW {tag}"] = compare_mlp_grads([dw, dx], [want_dws[0], want_dx], dtype,
+                                              f"MBW {tag}")
+        wc = w.to(dtype)
+        t[f"MW {tag}"] = graph_ms(lambda: fused_mlp_wide_fwd(*f_args))
+        t[f"MW {tag} plain"] = eager_ms(lambda: fused_mlp_plain([w], x, none, none, dtype,
+                                                                torch.float32, False, False))
+        t[f"MW {tag} library"] = graph_ms(lambda: (x @ wc).float())   # y in fp32: and a cast
+        t[f"MBW {tag}"] = graph_ms(lambda: fused_mlp_wide_bwd(*b_args))
+        t[f"MBW {tag} plain"] = eager_ms(lambda: fused_mlp_bwd_plain(
+            [w], x, g, none, none, dtype, False, False, torch.float32))
+        t[f"MBW {tag} library"] = graph_ms(lambda: library_bwd([wc], [x], g))
+    print(f"{tag}: MW's max abs err {err[f'MW {tag}']:.3e}, MBW's {err[f'MBW {tag}']:.3e} (dW "
+          "and dx; both bit for bit in a second launch)")
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    flops = 2 * B * w.numel()
+    for k, n_bytes in ((f"MW {tag}", nbytes(x, wc, y)), (f"MBW {tag}", nbytes(x, wc, g, dx, dw))):
+        if k.startswith("MW"):
+            t[k + " bound"] = bound_ms(n_bytes, flops, peak)
+            t[k + " bound by"] = bound_by(n_bytes, flops, peak)
+            units = f"{flops / 1e9:.3f} GFLOP on the {UNIT[peak]}"
+        else:
+            units = f"{3 * flops / 1e9:.3f} GFLOP " + wide_bwd_bound(t, k, n_bytes, flops, dtype)
+        print(f"{k}: {t[k]:.4f} ms on the device (plain {t[k + ' plain']:.4f} ms, cuBLAS "
+              f"products {t[k + ' library']:.4f} ms, bound {t[k + ' bound']:.4f} ms: "
+              f"{n_bytes / 1e6:.2f} MB, {units})")
+
+
+def wide_output_config():
+    """config_hash's grid into a FullyFusedMLP 128 x 2 (its outputs are the
+    model's: ``WIDE_OUT``)."""
+    import json
+    import re
+
+    cfg = json.loads(re.sub(r"//[^\n]*", "", open(CONFIG).read()))
+    cfg["network"] = {**cfg["network"], "n_neurons": 128, "n_hidden_layers": 2}
+    return cfg
+
+
+def wide_output_slice(gen, dev):
+    """Slice 17: FusedMLPs with outputs wider than kernels M's and MB's
+    layouts, whose last layer runs alone through MW and MBW (redesigned on
+    the tensor cores, any number of columns).  MW and MBW on a 128 -> 600
+    layer in both dtypes against their plain versions, with their times
+    (``wide_output_checks``); then config_hash's grid into a FullyFusedMLP
+    128 x 2 with 600 outputs, in both policies: one step's gradients
+    against the plain path and ``WIDE_OUT_STEPS`` training steps at
+    2^``WIDE_OUT_STEP_POW`` on random targets (the loss falls), with their
+    launches (MW runs the last layer's forward in fp32; in bf16 M's layout
+    holds it).  Returns the report entries of MW and MBW at 600 columns."""
+    from tcnn_tpu_torch import BF16_POLICY, Policy, create_from_config
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import m_plan, mb_plan
+
+    t_phase = time.time()
+    err, t, paths = {}, {}, {}
+    for dtype, tag in ((torch.float32, f"{WIDE_OUT} fp32"), (torch.bfloat16, f"{WIDE_OUT} bf16")):
+        wide_output_checks(gen, dev, dtype, tag, t, err)
+    B = 1 << WIDE_OUT_STEP_POW
+    for policy, tag in ((Policy(), f"{WIDE_OUT} fp32"), (BF16_POLICY, f"{WIDE_OUT} bf16")):
+        cdt = policy.compute_dtype
+        phase(f"slice 17: config_hash's grid into a FullyFusedMLP 128 x 2 -> {WIDE_OUT} "
+              f"({str(cdt)[6:]}): a step's gradients vs the plain path, {WIDE_OUT_STEPS} "
+              f"training steps at B={B} (the main path)")
+        model = create_from_config(2, WIDE_OUT, wide_output_config(), policy=policy)
+        net = model.network.network
+        ws = [w.detach().to(cdt) for w in net.layers]
+        # the last layer fits MB's layout in neither dtype, M's in bf16 only
+        fp32 = cdt == torch.float32
+        runs = (m_plan(ws, cdt, True), mb_plan(ws, cdt, net.activation, net.output_activation))
+        check(runs == ([(0, 2), (2, 3)] if fp32 else [(0, 3)], [(0, 2), (2, 3)]),
+              f"{tag} model: expected its last layer alone in MB's runs (and in M's in fp32), "
+              f"got {runs}")
+        x = torch.rand((B, 2), generator=gen, device=dev)
+        target = torch.rand((B, WIDE_OUT), generator=gen, device=dev)
+        check_step_gradients(model, x, target, flips=cdt == torch.bfloat16)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        losses = [model.trainer.training_step(x, target) for _ in range(WIDE_OUT_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) / WIDE_OUT_STEPS * 1e3
+        launches = counts()
+        losses = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(losses).all()), f"{tag} model: non-finite loss")
+        print(f"{tag} model: loss {float(losses[0]):.6f} -> {float(losses[-1]):.6f} in "
+              f"{WIDE_OUT_STEPS} steps, {step_ms:.3f} ms a step eager (host clock); "
+              f"launches {launches}")
+        check(float(losses[-1]) < float(losses[0]), f"{tag} model: the loss did not fall")
+        n = WIDE_OUT_STEPS
+        want = {"G": n, "M": 2 * n, "GB": n, "MB": n, "GI": 0, "GG": 0, "RS": 0, "GT": 0,
+                "MW": n if fp32 else 0, "MBW": n}
+        check(launches == want, f"{tag} model launches {launches}: expected per step G, GB, M "
+              "twice (the forward's run and the backward's boundary), MBW and MB once, and MW "
+              "once in fp32")
+        paths[tag] = launches
+    check(all(sum(c[k] for c in paths.values()) >= 1 for k in ("MW", "MBW")),
+          f"slice 17: MW or MBW was not launched on the main path: {paths}")
+    out = []
+    for tag, launches in paths.items():
+        path = (f"{WIDE_OUT_STEPS} training steps of config_hash's grid into a FullyFusedMLP "
+                f"128 x 2 -> {WIDE_OUT} ({tag.split()[1]})")
+        for k, r in (("MW", REPLACES_M), ("MBW", REPLACES_MB)):
+            note = path if launches[k] else (f"checked against plain and timed only: M's layout "
+                                             f"holds the last layer there; {path} launches no {k}")
+            out += entries(t, [(f"{k} {tag}", k, r)], launches, err,
+                           {"path": note, "batch": MAIN_BATCH})
+    print(f"slice 17: the phase took {time.time() - t_phase:.1f} s")
+    return out
 
 
 def top_device(prof, top):
@@ -4734,7 +4935,7 @@ def main():
               + rng_stochastic_slice(gen, dev, hash_times) + masked_sdf_slice(gen, dev)
               + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)
               + parallel_slice(gen, dev) + slice14(gen, dev, hash_times)
-              + wide_features_slice(gen, dev)}
+              + wide_features_slice(gen, dev) + wide_output_slice(gen, dev)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

@@ -186,17 +186,19 @@ int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool 
 int fused_mlp_fwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,
                              bool soa_in);
 
-// Kernels M and MB for one layer streamed through shared memory in chunks
-// of its input features, at any fan-in k (csrc/fused_mlp_wide.cu): the
-// layers whose weights and input tile do not fit M's and MB's layouts.
-//   x       element (b, i) at x[b*x_stride_b + i*x_stride_d], compute dtype, i < k
-//   w       (k, n) row-major, compute dtype, 1 <= n <= 128
+// Kernels M and MB for one layer streamed through shared memory in stages
+// of its input features, at any fan-in k and fan-out n (kernels MW and MBW,
+// csrc/fused_mlp_wide.cu): the layers whose weights and input tile do not
+// fit M's and MB's layouts.
+//   x       element (b, i) at x[b*x_stride_b + i*x_stride_d], compute dtype,
+//           i < k, one of the two strides 1
+//   w       (k, n) row-major, compute dtype, n >= 1
 //   forward: y = act(x w), element (b, j) at y[b*y_stride_b + j*y_stride_d],
 //            float32 or bfloat16
 //   backward: g (b, j) at g[b*g_stride_b + j*g_stride_d] float32, the output
 //            gradient; dz = g * act'(x w) rounded to the compute dtype;
-//            dw = x^T dz (k, n) float32 (scratch sizes the CTAs' partials),
-//            dx = dz w^T in x's layout, float32 or bfloat16
+//            dw = x^T dz (k, n) float32, dx = dz w^T in x's layout, float32 or
+//            bfloat16 (scratch sizes dz and the batch ranges' partial dw)
 cudaError_t fused_mlp_wide_fwd_launch(const void* x, int64_t x_stride_b, int64_t x_stride_d,
                                       int k, const void* w, int n, void* y, int64_t y_stride_b,
                                       int64_t y_stride_d, bool y_bf16, int64_t batch,

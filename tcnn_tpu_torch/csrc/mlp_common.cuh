@@ -1,5 +1,6 @@
 // Helpers shared by the fused-MLP kernels M (fused_mlp.cu, forward) and
-// MB (fused_mlp_bwd.cu, backward): activations and their derivatives,
+// MB (fused_mlp_bwd.cu, backward), and their streamed-layer instances MW
+// and MBW (fused_mlp_wide.cu): activations and their derivatives,
 // bf16 mma.sync fragments and ldmatrix loads, cp.async, the staging of
 // weights and input tiles in shared memory, the fp32 register-tiled
 // products and weight gradient, and the occupancy of persistent kernels.
@@ -470,32 +471,20 @@ __device__ __forceinline__ void f32_product_tc(const float* __restrict__ A, int 
 // (f32_product_tc) where kTf32x3 and TC is even, else each sum in k order
 // by fmaf.  A feature-major (f32_ld(R) floats per feature, R rows), the
 // activation applied to each element read when kActA; B row-major, ldb
-// floats per row, a multiple of 4.  kAccumulate: acc += the sum (a product
-// over K in chunks, fused_mlp_wide.cu).
-template <int TC, bool kActA, bool kFast, int R = kRowsF32, bool kAccumulate = false>
+// floats per row, a multiple of 4.
+template <int TC, bool kActA, bool kFast, int R = kRowsF32>
 __device__ __forceinline__ void f32_product(const float* __restrict__ A, int act,
                                             const float* __restrict__ B, int ldb, int K,
                                             int c0, float (&acc)[4][TC]) {
   if constexpr (kTf32x3 && TC % 2 == 0) {
-    if constexpr (kAccumulate) {
-      float part[4][TC];
-      f32_product_tc<TC, kActA, kFast, R>(A, act, B, ldb, K, c0, part);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < TC; ++j) acc[i][j] += part[i][j];
-    } else {
-      f32_product_tc<TC, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
-    }
+    f32_product_tc<TC, kActA, kFast, R>(A, act, B, ldb, K, c0, acc);
     return;
   }
   const int r = 4 * f32_rg<R>(), c = c0 + TC * f32_cg<R>();
-  if constexpr (!kAccumulate) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
-  }
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     float av[4], b[TC];
@@ -751,9 +740,9 @@ __device__ __forceinline__ void walk_tiles(int64_t n_tiles, int n_buf, T* const 
   }
 }
 
-// dw[i] = Σ_c partials[c][i], summed in CTA order: deterministic (kernel
-// MB's persistent CTAs each write their partial dW, fused_mlp_bwd.cu and
-// fused_mlp_wide.cu).
+// dw[i] = Σ_c partials[c][i], summed in c's order: deterministic (kernel
+// MB's persistent CTAs each write their partial dW, fused_mlp_bwd.cu; MBW's
+// batch ranges theirs, fused_mlp_wide.cu).
 __global__ void __launch_bounds__(256)
 sum_partials_kernel(const float* __restrict__ partials, int n_parts, int64_t total,
                     float* __restrict__ dw) {

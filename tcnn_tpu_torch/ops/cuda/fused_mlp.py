@@ -11,12 +11,13 @@ against.
 
 M and MB hold all of a tile's layers in one CTA's shared memory.  Where a
 chain does not fit (a wide input: past about 207 inputs at width 128 in
-fp32 for M, 464 in bf16 for MB at three layers; or depth), the wrappers run
-it in runs of consecutive layers (``plan_runs``): runs of M or MB where they
-fit, and the first layer (or the last) alone where it does not, through
-the instances of M and MB that stream one layer through shared memory in
-chunks of its input features (``fused_mlp_wide_fwd``,
-``fused_mlp_wide_bwd``; ``csrc/fused_mlp_wide.cu``), at any fan-in.
+fp32 for M, 464 in bf16 for MB at three layers; a wide output: past 192 to
+480 at width 128; or depth), the wrappers run it in runs of consecutive
+layers (``plan_runs``): runs of M or MB where they fit, and the first layer
+(or the last) alone where it does not, through the instances of M and MB
+that stream one layer through shared memory in stages of its inputs
+(``fused_mlp_wide_fwd``, ``fused_mlp_wide_bwd``; ``csrc/fused_mlp_wide.cu``,
+kernels MW and MBW), at any fan-in and fan-out.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from . import kernels, require_cuda_tensors
 SUPPORTED_WIDTHS = (16, 32, 64, 128)
 MAX_LAYERS = 32   # layers of one launch of M or MB (csrc/mlp_common.cuh: kMaxLayers)
 MAX_SMEM = 232448   # shared memory one CTA may use on sm_90
-MAX_WIDE_COLUMNS = 128   # the streamed-layer instances' columns (fused_mlp_wide.cu: kMaxN)
 
 
 def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -196,9 +196,9 @@ def _check_layer(name: str, w: torch.Tensor, x: torch.Tensor, compute_dtype: tor
     """What the streamed-layer instances take; returns (fan-in, fan-out)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: compute dtype {compute_dtype} is not supported")
+    if w.ndim != 2 or 0 in w.shape:
+        raise ValueError(f"{name}: weights {tuple(w.shape)}; the kernel takes (K, N), K, N >= 1")
     k, n = w.shape
-    if not 1 <= n <= MAX_WIDE_COLUMNS:
-        raise ValueError(f"{name}: {n} columns; the kernel takes 1 to {MAX_WIDE_COLUMNS}")
     if x.ndim != 2 or x.shape[0 if input_soa else 1] != k:
         raise ValueError(f"{name}: input {tuple(x.shape)} does not match the layer's "
                          f"fan-in {k} (input_soa={input_soa})")
@@ -209,10 +209,11 @@ def fused_mlp_wide_fwd(w: torch.Tensor, x: torch.Tensor, activation: Activation,
                        compute_dtype: torch.dtype = torch.bfloat16,
                        output_dtype: torch.dtype = torch.float32, input_soa: bool = False,
                        output_soa: bool = False) -> torch.Tensor:
-    """One layer y = act(x W) through kernel M's streamed-layer instance
-    (``csrc/fused_mlp_wide.cu``): x and W pass through shared memory in
-    chunks of input features, so any fan-in fits; W (K, N), N at most
-    ``MAX_WIDE_COLUMNS``.  Operands in the compute dtype, sums in fp32,
+    """One layer y = act(x W) through kernel M's streamed-layer instance,
+    kernel MW (``csrc/fused_mlp_wide.cu``): x and W pass through shared
+    memory in stages of input features, so any fan-in fits, and the output
+    columns go in blocks, so any fan-out does; W (K, N).  Operands in the
+    compute dtype, sums in fp32 (bf16 on the tensor cores, fp32 in 3xTF32),
     y in ``output_dtype``: ``fused_mlp_plain`` of one layer, which a CPU
     tensor takes."""
     if x.device.type == "cpu":
@@ -283,7 +284,8 @@ def plan_runs(n_layers: int, fits) -> List[Tuple[int, int]]:
     where it finds some that ``fits(first, end)`` (``lambda a, b: True``
     plans by depth alone), so that every shape the fused kernels take keeps
     its launches; else the first layer, the last one or both alone (a run
-    of one layer: the streamed-layer instances, which take any fan-in) and
+    of one layer: the streamed-layer instances, which take any fan-in and
+    fan-out) and
     the layers between in ``mb_segments``' runs, or alone where one is
     left.  Raises where none of these fit."""
     def fits_one(a, b):   # one launch: at most MAX_LAYERS layers that fit
@@ -403,12 +405,13 @@ def fused_mlp_wide_bwd(w: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
                        dx_dtype: Optional[torch.dtype] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of one layer y = act(x W) through kernel MB's
-    streamed-layer instance (``csrc/fused_mlp_wide.cu``), MB's step at a
-    layer: dz = g · act'(z) rounded to the compute dtype, dW = xᵀ dz and
-    dx = dz Wᵀ in fp32, x and W streamed through shared memory in chunks of
-    input features.  Returns (dW float32, dx in x's layout and dtype, or
+    streamed-layer instance, kernel MBW (``csrc/fused_mlp_wide.cu``), MB's
+    step at a layer: dz = g · act'(z) rounded to the compute dtype, written
+    once, then dx = dz Wᵀ and dW = xᵀ dz in fp32, at any fan-in and
+    fan-out.  Returns (dW float32, dx in x's layout and dtype, or
     ``dx_dtype``): ``fused_mlp_bwd_plain`` of one layer, which a CPU tensor
-    takes.  dW is deterministic (per-CTA partials summed in CTA order)."""
+    takes.  dW and dx are deterministic (dW: partials over fixed ranges of
+    the batch, summed in range order)."""
     if x.device.type == "cpu":
         dws, dx = fused_mlp_bwd_plain([w], x, g, activation, activation, compute_dtype,
                                       input_soa, output_soa, dx_dtype)

@@ -1,4 +1,4 @@
-"""Where the time of kernels G, GB, GI, GG, GT, RS, M and MB goes, on the card.
+"""Where the time of kernels G, GB, GI, GG, GT, RS, M, MB, MW and MBW goes, on the card.
 
     python3 -m tcnn_tpu_torch.tools.kernel_ablation [--out DIR] [--only PREFIX ...]
                                                    [--baseline ROOT]
@@ -26,6 +26,11 @@ CUDA graph of 30 calls:
     with all outputs and with the curvature step's (d_dcols and the table
     gradient, no d_x), at 2^14, under a mask at 0.5 and at 2^14 in shard
     mode (shard 0 of 2);
+  * MW and MBW, the streamed-layer instances of M and MB, alone at the
+    wide image's first layer (512 -> 128, bf16), the wide SDF's (256 ->
+    128, fp32) and a 600-column last layer in both dtypes
+    (``time_wide_layers``), with each output's error against its plain
+    version;
   * GB over no level (its zeroing and cast) and one level at a time;
   * the same kernels in ablated copies of the package: ``DIR/<name>``
     holds a copy of ``tcnn_tpu_torch`` with one source patch
@@ -38,9 +43,9 @@ CUDA graph of 30 calls:
 at ROOT (say, the parent commit unpacked by ``git archive`` into a
 directory ``.gitignore`` lists) with this file's timing code, in the same
 call, as the variant ``baseline``, and says which outputs of the
-deterministic kernels (G, GI, GG's and GT's d_dcols and d_x, M, MB's dW), and
-GB's on inputs whose sums are exact in any order, have the same bits in
-both.
+deterministic kernels (G, GI, GG's and GT's d_dcols and d_x, M, MB's dW,
+MW's y, MBW's dW and dx), and GB's on inputs whose sums are exact in any
+order, have the same bits in both.
 ``--steps ROUNDS`` instead times whole steps of this checkout and of ROOT
 in turn, ROUNDS runs each (``compare_steps``): ``chip_smoke.py``'s
 config_hash step (on the device, eager, its parts alone, the loop) and
@@ -411,6 +416,21 @@ ABLATIONS = {
                         "constexpr int kRsPerThread = 32;")],
     "rs_chunk_32768": [("row_scatter.cu", "constexpr int kRsPerThread = 16;",
                         "constexpr int kRsPerThread = 64;")],
+    # MW and MBW in fp32 with the forward's z on the tensor cores in 3xTF32
+    # in place of register-blocked FMA (dx and dW stay in 3xTF32).
+    "wide_z_3xtf32": [("fused_mlp_wide.cu", "constexpr bool kFmaZ = true;",
+                       "constexpr bool kFmaZ = false;")],
+    # MBW in fp32 with dx and dW by register-blocked FMA in place of 3xTF32.
+    "wide_grads_fma": [("fused_mlp_wide.cu", "constexpr bool kFmaGrads = false;",
+                        "constexpr bool kFmaGrads = true;")],
+    # MW and MBW in bf16 with stages of 32 reduction elements, 4 in the
+    # ring, in place of 64 and 3 (fp32 keeps 32 and 3).
+    "wide_bf16_stages_32x4": [
+        ("fused_mlp_wide.cu", "return sizeof(T) == 2 ? 64 : 32;", "return 32;"),
+        ("fused_mlp_wide.cu", "constexpr int kStages = 3;",
+         "template <typename T>\nconstexpr int kStagesOf = sizeof(T) == 2 ? 4 : 3;"),
+        ("fused_mlp_wide.cu", "S = kStages,", "S = kStagesOf<T>,"),
+        ("fused_mlp_wide.cu", "constexpr int ring = kStages *", "constexpr int ring = kStagesOf<T> *")],
     # RS with a 200 KB window (one CTA per SM) in place of 96 KB.
     "rs_window_200k": [("row_scatter.cu", "constexpr int kRsWindowBytes = 96 * 1024;",
                         "constexpr int kRsWindowBytes = 200 * 1024;")],
@@ -455,7 +475,7 @@ def _bits(t: torch.Tensor) -> str:
 
 
 def time_kernels(config: str, full: bool) -> dict:
-    """Times G, GB, GI, GG, GT, RS, M and MB of the ``tcnn_tpu_torch`` on
+    """Times G, GB, GI, GG, GT, RS, M, MB, MW and MBW of the ``tcnn_tpu_torch`` on
     ``sys.path``; entries ``bits ...`` hold digests of the outputs of the
     deterministic kernels (G, GI, GG's and GT's d_dcols and d_x, M, MB's
     dW) and of GB's on inputs whose sums are exact."""
@@ -575,6 +595,8 @@ def time_kernels(config: str, full: bool) -> dict:
             if cdt == torch.float32 and label != "config_oneblob":
                 out[f"check {kind}"] = fp32_check(ws_, x_, g_, soa)
 
+        out.update(time_wide_layers(dev))
+
         # GB at the SDF step (surface points, fp32) and at config_btf (bf16),
         # GG and RS at the eikonal step's
         smodel = create_from_config(3, 1, sdf.CONFIG, policy=Policy())
@@ -654,6 +676,53 @@ def time_kernels(config: str, full: bool) -> dict:
                 out[f"GB level {lv} ({level.size} rows, "
                     f"{'hashed' if level.use_hash else 'dense'})"] = graph_ms(
                         lambda: grid_encode_bwd(spec, table, x, dfeats, [lv]))
+    return out
+
+
+# MW and MBW alone, one layer at 2^18 rows: (label, K, N, compute dtype,
+# feature-major input); the wide image's and the wide SDF's first layers and
+# a 600-column last layer (a layer M's and MB's layouts cannot hold).
+WIDE_LAYERS = (("512 bf16", 512, 128, torch.bfloat16, True),
+               ("256 fp32", 256, 128, torch.float32, True),
+               ("600 bf16", 128, 600, torch.bfloat16, False),
+               ("600 fp32", 128, 600, torch.float32, False))
+
+
+def time_wide_layers(dev) -> dict:
+    """MW and MBW (``fused_mlp_wide_fwd``, ``_bwd``: ReLU, y in the compute
+    dtype, dx in fp32, as ``chip_smoke.py`` times them) at ``WIDE_LAYERS``:
+    device ms, the bits of y, of MBW's dW and of its dx, and each one's max
+    abs error against its plain version.  A checkout whose streamed layers
+    take at most 128 columns (``MAX_WIDE_COLUMNS``) skips the 600-column
+    layers.  Its inputs come from a generator of their own, so that the
+    entries after it draw the same inputs in both checkouts."""
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops.cuda import fused_mlp as fm
+
+    relu, out = Activation.RELU, {}
+    gen = torch.Generator(dev).manual_seed(17)
+    for label, k, n, cdt, soa in WIDE_LAYERS:
+        if n > getattr(fm, "MAX_WIDE_COLUMNS", n):
+            continue
+        w = (torch.rand((k, n), generator=gen, device=dev) * 2 - 1) * (6.0 / (k + n)) ** 0.5
+        x = (torch.rand((k, BATCH) if soa else (BATCH, k), generator=gen, device=dev) * 2
+             - 1).to(cdt)
+        g = torch.randn((BATCH, n), generator=gen, device=dev)
+        fa = (w, x, relu, cdt, cdt, soa, False)
+        ba = (w, x, g, relu, cdt, soa, False, torch.float32)
+        y = fm.fused_mlp_wide_fwd(*fa)
+        dw, dx = fm.fused_mlp_wide_bwd(*ba)
+        want_y = fm.fused_mlp_plain([w], x, relu, relu, cdt, cdt, soa, False)
+        want_dws, want_dx = fm.fused_mlp_bwd_plain([w], x, g, relu, relu, cdt, soa, False,
+                                                   torch.float32)
+        out[f"MW {label}"] = graph_ms(lambda: fm.fused_mlp_wide_fwd(*fa))
+        out[f"MBW {label}"] = graph_ms(lambda: fm.fused_mlp_wide_bwd(*ba))
+        out[f"bits MW {label}"] = _bits(y)
+        out[f"bits MBW dW {label}"] = _bits(dw)
+        out[f"bits MBW dx {label}"] = _bits(dx)
+        out[f"err MW {label}"] = f"{(y.float() - want_y.float()).abs().max().item():.3e}"
+        out[f"err MBW {label}"] = (f"dW {(dw - want_dws[0]).abs().max().item():.3e}, dx "
+                                   f"{(dx - want_dx).abs().max().item():.3e}")
     return out
 
 
@@ -1162,9 +1231,9 @@ def main() -> None:
         if name == "baseline":
             for what, v in tree.items():
                 if what.startswith("bits "):
-                    print(f"tree vs baseline: {what[5:]}: "
-                          f"{'the same bits' if times.get(what) == v else 'different bits'}",
-                          flush=True)
+                    state = ("not in the baseline" if what not in times else
+                             "the same bits" if times[what] == v else "different bits")
+                    print(f"tree vs baseline: {what[5:]}: {state}", flush=True)
     if failed:
         raise RuntimeError(f"ablations failed: {', '.join(failed)}")
 

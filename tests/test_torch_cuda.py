@@ -2141,16 +2141,17 @@ def test_fused_mlp_kernels_at_wide_inputs(cuda, d_in, width, dtype):
 
 
 @pytest.mark.parametrize("d_in", [256, 1024])
-@pytest.mark.parametrize("n", [1, 3, 64, 128])
+@pytest.mark.parametrize("n", [1, 3, 64, 128, 129, 600])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("soa_in,soa_out", [(True, False), (False, True)])
 def test_streamed_layer_kernels_match_plain(cuda, d_in, n, dtype, soa_in, soa_out):
-    """The streamed-layer instances of M and MB alone, one layer (D_in, n)
-    with a Sigmoid (any activation: the last layer of a run takes the
-    output activation), both layouts, a ragged batch: y within the MLP
-    bound, dW within 1e-4 (fp32) or 2e-2 (bf16) of its largest magnitude,
-    dx at the MB bound (one layer: no ReLU upstream to switch), dW bit for
-    bit in a second launch."""
+    """The streamed-layer instances of M and MB (kernels MW and MBW) alone,
+    one layer (D_in, n) with a Sigmoid (any activation: the last layer of a
+    run takes the output activation), both layouts, a ragged batch, n = 129
+    and 600 ragged against a block of 128 columns: y within the MLP bound,
+    dW within 1e-4 (fp32) or 2e-2 (bf16) of its largest magnitude, dx at the
+    MB bound (one layer: no ReLU upstream to switch), dW and dx bit for bit
+    in a second launch."""
     from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_wide_bwd, fused_mlp_wide_fwd
 
     ws, x, g = mlp_inputs(cuda, [(d_in, n)], 4133, d_in + n, soa_in)
@@ -2172,6 +2173,47 @@ def test_streamed_layer_kernels_match_plain(cuda, d_in, n, dtype, soa_in, soa_ou
     assert float((dw - want_dws[0]).abs().max()) <= mlp_bwd_tol(want_dws[0], dtype)
     assert float((dx.float() - want_dx.float()).abs().max()) <= mlp_bwd_tol(want_dx.float(),
                                                                            dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_kernels_at_600_outputs(cuda, dtype):
+    """A FullyFusedMLP 32 -> 128 x 2 -> 600: its last layer fits MB's layout
+    in neither dtype and M's in fp32 only (``m_plan``, ``mb_plan``: the last
+    layer alone), so the forward launches M and MW (fp32) or M (bf16), the
+    backward M (the activation at the runs' boundary), MBW and MB; all
+    against their plain versions at ``check_m_and_mb``'s bounds, with a
+    ragged batch of 4133 rows."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import (fused_mlp_wide_bwd, fused_mlp_wide_fwd,
+                                                   m_plan, mb_plan)
+
+    dims = [(32, 128), (128, 128), (128, 600)]
+    shapes = [torch.empty(d) for d in dims]
+    fp32 = dtype == torch.float32
+    assert m_plan(shapes, dtype, True) == ([(0, 2), (2, 3)] if fp32 else [(0, 3)])
+    assert mb_plan(shapes, dtype, Activation.RELU, Activation.NONE) == [(0, 2), (2, 3)]
+    kernels_ = (fused_mlp_fwd, fused_mlp_wide_fwd, fused_mlp_bwd, fused_mlp_wide_bwd)
+    before = [k.launches for k in kernels_]
+    check_m_and_mb(cuda, dims, 4133, dtype, seed=600)
+    launched = [k.launches - b for k, b in zip(kernels_, before)]
+    # forward: M and MW (fp32) or M; backward: M for the boundary, MBW, then MB
+    assert launched == [2, int(fp32), 1, 1], launched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("soa_in", [True, False])
+def test_streamed_layer_backward_is_bit_identical_at_600_columns(cuda, dtype, soa_in):
+    """MBW twice on the same inputs, 128 -> 600 at B = 2^16 (ReLU): dW and dx
+    equal bit for bit (each dW range and dx element summed by one CTA in a
+    fixed order, the ranges' partials added in range order: no atomics)."""
+    from tcnn_tpu_torch.ops.cuda.fused_mlp import fused_mlp_wide_bwd
+
+    ws, x, g = mlp_inputs(cuda, [(128, 600)], 1 << 16, 17, soa_in)
+    args = (ws[0], x.to(dtype), g, Activation.RELU, dtype, soa_in, False)
+    first_dw, first_dx = fused_mlp_wide_bwd(*args)
+    again_dw, again_dx = fused_mlp_wide_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first_dw, again_dw) and torch.equal(first_dx, again_dx)
+    assert bool(torch.isfinite(first_dw).all()) and bool(torch.isfinite(first_dx.float()).all())
 
 
 def test_no_cuda_call_at_wide_shapes_reaches_a_plain_version(cuda, monkeypatch):

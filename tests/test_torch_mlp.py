@@ -242,6 +242,7 @@ def test_plan_runs_put_a_wide_first_or_last_layer_alone():
     assert tfused.plan_runs(3, lambda a, b: a > 0) == [(0, 1), (1, 3)]
     assert tfused.plan_runs(2, lambda a, b: False) == [(0, 1), (1, 2)]
     assert tfused.plan_runs(4, lambda a, b: b < 4) == [(0, 3), (3, 4)]
+    assert tfused.plan_runs(3, lambda a, b: b < 3) == [(0, 2), (2, 3)]   # a 600-wide output
     assert tfused.plan_runs(5, lambda a, b: 0 < a and b < 5) == [(0, 1), (1, 4), (4, 5)]
     assert tfused.plan_runs(14, lambda a, b: a > 0 and b - a <= 7) == [(0, 1), (1, 8), (8, 14)]
     assert tfused.plan_runs(40, lambda a, b: a > 0) == [(0, 1), (1, 21), (21, 40)]
@@ -271,3 +272,151 @@ def test_a_first_layer_alone_keeps_the_chains_bits(cdt, runs):
     dws, dx = tfused.fused_mlp_bwd_segmented(ws, x, g, *args, True, False, runs)
     assert torch.equal(dx, want_dx) and dx.dtype == x.dtype
     assert all(torch.equal(a, b) for a, b in zip(dws, want_dws))
+
+
+# -- wide outputs: the last layer alone, its columns in blocks (MW, MBW) -------
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_fused_mlp_with_600_outputs_equals_jax(policy):
+    """A FullyFusedMLP 32 -> 128 x 2 -> 600, wider than kernels M's and MB's
+    layouts hold (on the card its last layer runs alone through MW and MBW;
+    here the plain versions), against the JAX package's ``FusedMLP`` on its
+    Pallas kernels in interpret mode (``use_pallas=True``), which take any
+    output width: the forward at the MLP tolerances above, the weight and
+    input gradients of ⟨y, c⟩ (c ~ N(0, 1)) within 1e-5 (fp32) or 2e-2
+    (bf16) of each gradient's largest magnitude."""
+    from tcnn_tpu.models.networks.fused_mlp import FusedMLP as JFusedMLP
+    from tcnn_tpu_torch.common import DEFAULT_POLICY
+
+    dims = [(32, 128), (128, 128), (128, 600)]
+    ws = _weights(dims, 600)
+    rng = np.random.default_rng(601)
+    x = rng.uniform(-1, 1, (300, 32)).astype(np.float32)
+    ct = rng.normal(size=(300, 600)).astype(np.float32)
+    bf16 = policy == "bfloat16"
+    jnet = JFusedMLP(n_input_dims=32, n_output_dims=600, n_neurons=128, n_hidden_layers=2,
+                     policy=jcommon.BF16_POLICY if bf16 else jcommon.DEFAULT_POLICY,
+                     use_pallas=True)
+    params = {"layers": [jnp.asarray(w) for w in ws]}
+
+    @jax.jit
+    def fwd_and_grads(p, xx):
+        def loss(p_, x_):
+            return jnp.sum(jnet.apply(p_, x_).astype(jnp.float32) * ct)
+        return jnet.apply(p, xx), jax.grad(loss, argnums=(0, 1))(p, xx)
+
+    want_y, (want_p, want_x) = fwd_and_grads(params, jnp.asarray(x))
+    # a generator of its own: the weights are JAX's, and the global one stays as it was
+    net = FusedMLP(n_input_dims=32, n_output_dims=600, n_neurons=128, n_hidden_layers=2,
+                   policy=BF16_POLICY if bf16 else DEFAULT_POLICY,
+                   generator=torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        for p, w in zip(net.layers, ws):
+            p.copy_(torch.from_numpy(w))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = net(xt)
+    (y.float() * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(y.detach().float().numpy(), np.asarray(want_y, np.float32),
+                               **TOL[policy])
+    rel = 2e-2 if bf16 else 1e-5
+    for what, got, want in [("dx", xt.grad, want_x)] + [
+            (f"dW{i}", p.grad, w) for i, (p, w) in enumerate(zip(net.layers,
+                                                                 want_p["layers"]))]:
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        assert got.shape == want.shape and np.abs(want).max() > 0, what
+        assert np.abs(got - want).max() <= rel * np.abs(want).max(), what
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("runs", [[(0, 2), (2, 3)], [(0, 1), (1, 2), (2, 3)]], ids=str)
+def test_a_last_layer_alone_keeps_the_chains_bits(cdt, runs):
+    """The MLP 32 -> 128 x 2 -> 600 with its last layer in a run of its own
+    (``plan_runs``' tail, which MW and MBW take on the card), with the plain
+    versions passed as each run's forward and backward, equals the whole
+    chain bit for bit, forward and backward: the run before it ends on the
+    hidden activation in the compute dtype, and its dx is that run's output
+    gradient in fp32, as one launch holds them."""
+    dims = [(32, 128), (128, 128), (128, 600)]
+    ws = [torch.from_numpy(w) for w in _weights(dims, 11)]
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.uniform(-1, 1, (150, 32)).astype(np.float32)).to(cdt)
+    g = torch.from_numpy(rng.normal(size=(150, 600)).astype(np.float32))
+    args = (Activation.RELU, Activation.NONE, cdt)
+    plain_fwd, plain_bwd = tfused.fused_mlp_plain, tfused.fused_mlp_bwd_plain
+    want_y = tfused.fused_mlp_plain(ws, x, *args, torch.float32, False, False)
+    got_y = tfused.fused_mlp_fwd_chained(ws, x, *args, torch.float32, False, False, runs,
+                                         fwd=plain_fwd)
+    assert torch.equal(got_y, want_y)
+    want_dws, want_dx = tfused.fused_mlp_bwd_plain(ws, x, g, *args, False, False)
+    dws, dx = tfused.fused_mlp_bwd_segmented(ws, x, g, *args, False, False, runs,
+                                             fwd=plain_fwd, bwd=plain_bwd)
+    assert torch.equal(dx, want_dx) and dx.dtype == x.dtype
+    assert all(torch.equal(a, b) for a, b in zip(dws, want_dws))
+
+
+def _mbw_replay(w, x, g, cdt, soa_in, rows, bn=128):
+    """Kernel MBW's sums (``csrc/fused_mlp_wide.cu``) for a layer without an
+    activation, in PyTorch: z per block of ``bn`` columns, the sum over K in
+    stages of 64 (bf16) or 32 (fp32) inputs in order; dz = g rounded once
+    to the compute dtype, ``pad8(N)`` columns with zeros past N; dx = dz Wᵀ
+    per block of ``bn`` of its K columns, the sum over N in stages in order;
+    dW as each range of ``rows`` samples' partial (a sum over the range in
+    stages), the partials added in range order.  Returns (z, dW, dx)."""
+    bk = 64 if cdt == torch.bfloat16 else 32
+    K, N = w.shape
+    xs = (x.t() if soa_in else x).to(cdt).float()
+    B, ldz = xs.shape[0], -(-N // 8) * 8
+    wp = torch.zeros(K, ldz)
+    wp[:, :N] = w.to(cdt).float()
+    z = torch.zeros(B, ldz)
+    for n0 in range(0, ldz, bn):
+        for k0 in range(0, K, bk):
+            z[:, n0:n0 + bn] += xs[:, k0:k0 + bk] @ wp[k0:k0 + bk, n0:n0 + bn]
+    dz = torch.zeros(B, ldz)
+    dz[:, :N] = g.to(cdt).float()
+    dx = torch.zeros(B, K)
+    for k0 in range(0, K, bn):
+        for s0 in range(0, ldz, bk):
+            dx[:, k0:k0 + bn] += dz[:, s0:s0 + bk] @ wp[k0:k0 + bn, s0:s0 + bk].t()
+    dw = torch.zeros(K, N)
+    for r0 in range(0, B, rows):
+        part = torch.zeros(K, ldz)
+        for s0 in range(r0, min(B, r0 + rows), bk):
+            s1 = min(s0 + bk, r0 + rows, B)
+            part += xs[s0:s1].t() @ dz[s0:s1]
+        dw += part[:, :N]
+    return z[:, :N], dw, (dx.t() if soa_in else dx)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("soa_in", [True, False])
+@pytest.mark.parametrize("n,rows", [(129, 64), (600, 96), (600, 300)])
+def test_mbw_sums_emulated_equal_plain(cdt, soa_in, n, rows):
+    """MBW's sum structure replayed on the CPU (``_mbw_replay``: column
+    blocks, dz rounded once, the batch ranges' partial dW summed in range
+    order, dx over N in stages) against ``fused_mlp_bwd_plain`` of the layer
+    and its z against the plain product: each within the bound of two fp32
+    sums of the same n terms in two orders, 2(n - 1)·2^-24·Σ|terms| per
+    element (n = K for z, N for dx, B for dW).  N = 129 and 600 are ragged
+    against a block of 128; the ranges cut the batch of 300 unevenly."""
+    rng = np.random.default_rng(n + rows)
+    K, B = 96, 300
+    w = torch.from_numpy((rng.uniform(-1, 1, (K, n)) * np.sqrt(6 / (K + n))).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1, 1, (B, K)).astype(np.float32))
+    x = (x.t().contiguous() if soa_in else x).to(cdt)
+    g = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32))
+    z, dw, dx = _mbw_replay(w, x, g, cdt, soa_in, rows)
+    want_dws, want_dx = tfused.fused_mlp_bwd_plain([w], x, g, Activation.NONE, Activation.NONE,
+                                                   cdt, soa_in, False, torch.float32)
+    xs, wc = (x.t() if soa_in else x).float(), w.to(cdt).float()
+    dz = g.to(cdt).float()
+    u = 2.0 ** -24
+    for what, got, want, terms, count in (
+            ("z", z, xs @ wc, xs.abs() @ wc.abs(), K),
+            ("dx", dx.t() if soa_in else dx, (want_dx.t() if soa_in else want_dx).float(),
+             dz.abs() @ wc.abs().t(), n),
+            ("dW", dw, want_dws[0], xs.abs().t() @ dz.abs(), B)):
+        bound = 2 * (count - 1) * u * terms + 1e-30
+        assert got.shape == want.shape, what
+        assert bool(((got - want).abs() <= bound).all()), \
+            (what, float(((got - want).abs() / bound).max()))
