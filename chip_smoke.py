@@ -102,7 +102,19 @@ and read just after:
     sample's eikonal loss under ``HybridParallel`` (2^14, 5 steps), each
     against the same training in this process, with the ranks' launches,
     step and collective times (one card shared by two processes: no
-    scaling figure).
+    scaling figure); on the card ``make_training_loop`` refuses gloo in
+    each rank before a step (slice 18).
+  * slice 18, the parallel training loop: in a spawned process with a
+    one-rank NCCL group (one card holds one NCCL rank),
+    ``DataParallel.make_training_loop`` trains config_hash (BF16_POLICY,
+    2^18, 50 steps; the warm-up step eagerly, then a captured CUDA graph of
+    the step replayed), the main path, against ``Trainer.make_training_loop``
+    on the same batches in that process, with G, GB, M and MB's launches in
+    the warm-up and in each replay, and both loops' ms per step and idle
+    share; in the same group each collective the parallel steps use
+    (``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``),
+    which the port's wrappers skip at one rank, replayed from a CUDA graph
+    against eager calls, bit for bit.
   * slice 14, third derivatives and Queue 1 item 16: kernel GT (the grid's
     third order, on GB's plan) against its plain version in each instance
     family, with all outputs and with the curvature step's (no d_x): the
@@ -3673,6 +3685,10 @@ def parallel_slice(gen, dev):
         worst = max(ref["grad_rel"], key=ref["grad_rel"].get)
         check(ref["grad_rel"][worst] <= PARALLEL_GRAD_REL,
               f"{job}: first reduced gradients {ref['grad_rel']} from one process's")
+        if dev.type == "cuda":   # slice 18: no loop over gloo on the card
+            check(all("gloo" in (o["loop_refusal"] or "") for o in outs),
+                  f"{job}: make_training_loop over gloo on the card did not refuse: "
+                  f"{[o['loop_refusal'] for o in outs]}")
         lc = outs[0]["launches"]
         want_k = (("G", "GB", "M", "MB") if job != "eikonal_sdf"
                   else ("G", "GB", "GI", "GG", "M", "MB"))
@@ -3687,6 +3703,8 @@ def parallel_slice(gen, dev):
               f"single-process runs {ref['repeat_table_rel']:.3e}); shard of "
               f"{outs[0]['shard_numel']} table parameters; first reduced gradients rel L2 "
               f"at most {ref['grad_rel'][worst]:.3e} ({worst})")
+        print(f"{job}: make_training_loop over gloo on the card refused: "
+              f"{outs[0]['loop_refusal']!r}")
         print(f"{job}: per rank, median over steps 2-{steps}: step {step_ms} ms, of it in "
               f"collectives {coll_ms} ms (host clock, synchronised; one card shared by two "
               f"processes, gloo: no scaling figure); launches over {steps} steps {lc}")
@@ -3695,6 +3713,92 @@ def parallel_slice(gen, dev):
     path_launches = {"G": launches["hybrid_btf"]["G"], "GB": launches["hybrid_btf"]["GB"],
                      "GI": launches["eikonal_sdf"]["GI"], "GG": launches["eikonal_sdf"]["GG"]}
     return entries(t, items, path_launches, err, {"n_shards": n})
+
+
+NCCL_LOOP_STEPS = 50      # slice 18: the one-rank NCCL loop's steps per call
+NCCL_LOOP_ROUNDS = 3      # timed calls of each loop, in turns
+
+
+def parallel_loop_slice(dev, hash_entries):
+    """Slice 18, the parallel training loop, on the one card (NCCL refuses
+    two ranks on one device).  (a) In a spawned process with a one-rank
+    NCCL group (``file://`` rendezvous in a temporary directory):
+    ``DataParallel.make_training_loop`` trains config_hash (BF16_POLICY, B =
+    2^18, ``NCCL_LOOP_STEPS`` steps from the seeded image sampler), the main
+    path, against ``Trainer.make_training_loop`` on the same batches in the
+    same process: the first loss within ``PARALLEL_FIRST_RTOL``, every later
+    one within ``PARALLEL_LOSS_RTOL`` (GB's atomics rule out equal bits);
+    G, GB, M and MB once each in the warm-up step and once each in the
+    captured step, which every replay launches; both loops' ms per step
+    (host clock) and device ms per replayed step, so the idle share, and
+    the same steps' eager ms through ``make_training_step``.  At one
+    rank the step calls no collective (the port's wrappers skip a one-rank
+    group), so (b) in the same group captures each collective the steps use
+    (``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``)
+    in a CUDA graph, in ``collectives.CAPTURE_MODE``, and holds its replays
+    against eager calls, bit for bit.  (c), two gloo ranks on the card
+    refusing the loop, runs in ``parallel_slice``.  Returns the main path's
+    kernel entries: launches from this phase, the kernels' times, bounds and
+    errors from config_hash's phase of this run (the same shapes)."""
+    import tempfile
+
+    from tcnn_tpu_torch.tools import parallel_check
+
+    phase(f"slice 18: DataParallel.make_training_loop on a one-rank NCCL group, config_hash at "
+          f"B={MAIN_BATCH}, {NCCL_LOOP_STEPS} steps, against Trainer.make_training_loop")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, = parallel_check.run_ranks(1, parallel_check.nccl_loop_job,
+                                        {"steps": NCCL_LOOP_STEPS, "batch": MAIN_BATCH,
+                                         "rounds": NCCL_LOOP_ROUNDS},
+                                        timeout=600, tmp=tmp, backend="nccl")
+    check(res["backend"] == "nccl", f"the group's backend is {res['backend']}")
+    got = np.asarray(res["losses"]["parallel"])
+    want = np.asarray(res["losses"]["trainer"])
+    check(bool(np.isfinite(got).all()), "the parallel loop: non-finite loss")
+    rtol = np.full(NCCL_LOOP_STEPS, PARALLEL_LOSS_RTOL)
+    rtol[0] = PARALLEL_FIRST_RTOL
+    check(not (np.abs(got - want) > rtol * np.abs(want)).any(),
+          f"the parallel loop's losses {got.tolist()} vs the trainer's {want.tolist()}")
+    check(got[-1] < got[0], f"the parallel loop did not train: {got[0]} -> {got[-1]}")
+    for what in ("parallel", "trainer"):
+        for when in ("warm_up", "per_replay"):
+            c = res[when][what]
+            check({k: c[k] for k in FIRST_ORDER} == {"G": 1, "M": 1, "GB": 1, "MB": 1}
+                  and all(c[k] == 0 for k in c if k not in FIRST_ORDER),
+                  f"{what} loop, {when}: launches {c}, expected G, M, GB and MB once")
+    ms = {w: float(np.median(v)) for w, v in res["ms"].items()}
+    dev_ms = {w: float(np.median(v)) for w, v in res["device_ms"].items()}
+    print(f"losses {got[0]:.6f} -> {got[-1]:.6f} (Trainer.make_training_loop {want[0]:.6f} -> "
+          f"{want[-1]:.6f}, max rel diff {float(np.max(np.abs(got - want) / np.abs(want))):.3e})")
+    for w, label in (("parallel", "DataParallel.make_training_loop (one NCCL rank)"),
+                     ("trainer", "Trainer.make_training_loop")):
+        print(f"{label}: {ms[w]:.4f} ms per step with the host's work (calls of "
+              f"{NCCL_LOOP_STEPS} steps, median of {res['ms'][w]}), {dev_ms[w]:.4f} ms per "
+              f"replayed step on the device (idle share {1 - dev_ms[w] / ms[w]:.3f}); launches "
+              f"in the warm-up {res['warm_up'][w]}, in each replay {res['per_replay'][w]}")
+    eager_ms = float(np.median(res["eager_ms"]))
+    print(f"DataParallel.make_training_step (one NCCL rank, eager): {eager_ms:.4f} ms per step "
+          f"with the host's work (passes of {NCCL_LOOP_STEPS} steps, median of "
+          f"{res['eager_ms']}; idle share {1 - dev_ms['parallel'] / eager_ms:.3f} against the "
+          f"replayed step's device time)")
+    phase("slice 18: NCCL's collectives replayed from a CUDA graph against eager calls "
+          "(one rank)")
+    for name, diffs in res["collectives"].items():
+        check(diffs == [0.0, 0.0], f"{name}: replays differ from eager calls by {diffs}")
+        print(f"{name}: replayed equal to eager on two fills (max abs diff {diffs})")
+    print(f"slice 18: {time.time() - t0:.1f} s")
+    per_replay = res["per_replay"]["parallel"]
+    out = []
+    for e in hash_entries:
+        k = next((k for k in FIRST_ORDER if e["name"] == KERNELS[k][0]), None)
+        if k is not None:
+            entry = {key: v for key, v in e.items() if key != "launches_inference"}
+            entry.update(name=e["name"] + " (DataParallel loop, one NCCL rank)",
+                         launches=res["warm_up"]["parallel"][k] + per_replay[k],
+                         launches_per_replay=per_replay[k])
+            out.append(entry)
+    return out
 
 
 # Slice 14: third derivatives (kernel GT), the stochastic gather, deep
@@ -4934,7 +5038,8 @@ def main():
               + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)
               + rng_stochastic_slice(gen, dev, hash_times) + masked_sdf_slice(gen, dev)
               + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)
-              + parallel_slice(gen, dev) + slice14(gen, dev, hash_times)
+              + parallel_slice(gen, dev) + parallel_loop_slice(dev, hash_entries)
+              + slice14(gen, dev, hash_times)
               + wide_features_slice(gen, dev) + wide_output_slice(gen, dev)}
     torch_func_slice(gen, dev)
     image_sample_slice()

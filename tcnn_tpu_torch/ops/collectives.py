@@ -125,6 +125,31 @@ def all_reduce_mean_(tensors, group=None, scale: Optional[float] = None) -> None
         i += t.numel()
 
 
+# The capture mode of a CUDA graph that holds NCCL collectives.  NCCL's
+# watchdog thread queries the events of the warm-up step's collectives
+# while the step is being captured; under "global" capture that query, an
+# unsafe call from another thread, would invalidate the capture.
+# "thread_local" holds only the capturing thread to the capture's rules.
+CAPTURE_MODE = "thread_local"
+
+
+def check_capturable(groups, device) -> None:
+    """Raises unless the collectives of ``groups`` can be captured in a
+    CUDA graph on ``device``: on CUDA every group must be NCCL's (gloo's
+    collectives run on the host and cannot be captured).  Nothing is
+    captured on the CPU, and a process that joined no group calls no
+    collective."""
+    if torch.device(device).type != "cuda" or not dist.is_initialized():
+        return
+    for group in groups:
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            raise RuntimeError(
+                f"make_training_loop: the {backend} backend's collectives cannot be captured "
+                f"in a CUDA graph; on CUDA the loop needs an NCCL process group "
+                f"(make_training_step runs eager steps over {backend})")
+
+
 def broadcast_(tensors, src: int = 0, group=None) -> None:
     """In place: every tensor takes the value it has on global rank ``src``."""
     if world(group) == 1:

@@ -16,6 +16,17 @@ Run as a module for a self-contained training run:
         --device cpu --batch 4096 --n-model 2 --ckpt-dir run_ckpt
 
 A single process (no torchrun) trains alone, in no process group.
+
+Training runs one chunk of ``--chunk`` steps at a time through the parallel
+layer's ``make_training_loop``, as the JAX launcher runs its compiled
+``lax.scan`` of ``--chunk`` steps: each rank draws its step's global batch
+on its device from a generator seeded with the step and keeps its block;
+losses and checkpoints are read between chunks.  On cards (NCCL) the first
+chunk's first step is the warm-up and every later step replays one CUDA
+graph of the step, collectives included; on the CPU (gloo) the steps run
+eagerly.  ``--eager`` trains with ``make_training_step`` instead (one eager
+step per iteration), for comparison.  One card holds one NCCL rank: a run
+across ranks needs a card per rank.
 """
 
 from __future__ import annotations
@@ -98,6 +109,9 @@ def _main(argv=None) -> None:
     parser.add_argument("--init-method", type=str, default=None,
                         help="the process group's rendezvous (default env://, torchrun's; "
                              "file://PATH needs no port)")
+    parser.add_argument("--eager", action="store_true",
+                        help="eager steps (make_training_step) instead of the loop's "
+                             "captured ones")
     args = parser.parse_args(argv)
 
     initialize_distributed(args.init_method, device=args.device)
@@ -126,8 +140,8 @@ def _main(argv=None) -> None:
         dp.replicate(trainer)
     if rank == 0:
         extra = f" (hybrid: tables sharded {args.n_model}-way)" if hybrid else ""
-        print(f"mesh: {world} ranks on {device.type}{extra}", flush=True)
-    step = dp.make_training_step(trainer)
+        how = "eager steps" if args.eager else "make_training_loop"
+        print(f"mesh: {world} ranks on {device.type}{extra}; {how}", flush=True)
 
     mgr = None
     resume_step = 0
@@ -159,23 +173,43 @@ def _main(argv=None) -> None:
         t = torch.rand((args.batch, 3), generator=gen, device=device)
         return shard_host_local_batch(dp, x, t)
 
+    if args.eager:
+        step = dp.make_training_step(trainer)
+
+    def chunk(start, n):
+        """Steps start .. start + n - 1; their losses on the device."""
+        if args.eager:
+            return torch.stack([step(*batch(start + i)) for i in range(n)])
+        return dp.make_training_loop(trainer, lambda i: batch(start + i), n)()
+
     saving = mgr is not None and (hybrid or rank == 0)
-    t0 = time.perf_counter()
-    losses = []
-    for i in range(resume_step, args.steps):
-        losses.append(step(*batch(i)))
-        if (i + 1) % args.chunk == 0 or i + 1 == args.steps:
-            final = float(losses[-1])
-            if saving:
-                ckpt.save_step(mgr, trainer)
-            if mgr is not None:
-                barrier()
+    timed_from, t0 = resume_step, time.perf_counter()
+    for start in range(resume_step, args.steps, args.chunk):
+        n = min(args.chunk, args.steps - start)
+        losses = chunk(start, n).tolist()   # waits for the chunk
+        if rank == 0:
+            print(f"steps {start + 1}-{start + n}: losses {losses}", flush=True)
+        if saving:
+            ckpt.save_step(mgr, trainer)
+        if mgr is not None:
+            barrier()
+        if start == resume_step and start + n < args.steps:
+            # the first chunk holds the warm-up and the capture: time the rest
+            timed_from, t0 = start + n, time.perf_counter()
     dt = time.perf_counter() - t0
-    n = args.steps - resume_step
+    n = args.steps - timed_from
     if rank == 0 and n:
-        print(f"trained {n} steps of batch {args.batch} in {dt:.2f}s: "
-              f"{n * args.batch / dt:,.0f} samples/s, final loss {final:.5f}", flush=True)
+        sps = n * args.batch / dt
+        print(f"trained {args.steps - resume_step} steps of batch {args.batch}; the last {n} "
+              f"in {dt:.2f}s: {sps:,.0f} samples/s ({sps / world:,.0f}/rank), final loss "
+              f"{losses[-1]:.5f}", flush=True)
+    # A CUDA graph that holds NCCL collectives must go before its
+    # communicators: with the graphs alive, ranks hung at exit on 2 and 4
+    # cards after their last step.
+    trainer._graphs.clear()
     if dist.is_initialized():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
         dist.destroy_process_group()
 
 

@@ -12,9 +12,20 @@ averaged over the ranks' process group by one all-reduce per step.
     dp.replicate(model.trainer)                # rank 0's parameters everywhere
     step = dp.make_training_step(model.trainer)
     loss = step(dp.shard_batch(x), dp.shard_batch(y))
+    loop = dp.make_training_loop(model.trainer, sample_fn, n_steps)
+    losses = loop()           # sample_fn(i): this rank's block of step i
 
-The step runs eagerly.  Capturing it in a CUDA graph (NCCL collectives can
-be captured, gloo's cannot) is for later (ROADMAP.md).
+``make_training_step`` runs eagerly (over gloo or NCCL).
+``make_training_loop`` is the counterpart of the JAX launcher's compiled
+``lax.scan`` of ``step_shard_map``: on CUDA over NCCL its first call runs
+one step eagerly (the warm-up, which also creates the communicators) and
+captures the next, collectives included, in a CUDA graph that every later
+step replays; on the CPU (gloo) it runs the same steps eagerly.  Gloo's
+collectives cannot be captured, so a CUDA loop over gloo raises
+(``collectives.check_capturable``).  One card holds one NCCL rank: there
+the group has one rank and the step calls no collective, so the loop's
+collectives in a graph show only across cards (``chip_smoke.py`` captures
+each collective on its own at one rank).
 """
 
 from __future__ import annotations
@@ -60,6 +71,34 @@ def set_noise_stream(trainer, stream: int) -> None:
         trainer._noise_gen = None
 
 
+def counted_step(trainer, body, with_pdf: bool):
+    """``step(x, target[, pdf]) -> loss``: one eager step of ``body``,
+    counted in ``trainer.step``."""
+    def step(x, target, pdf=None):
+        if with_pdf and pdf is None:
+            raise ValueError("make_training_step(with_pdf=True): pass the pdf")
+        loss = body(x, target, pdf)
+        trainer.step += 1
+        return loss
+
+    return step
+
+
+def parallel_training_loop(layer, trainer, body, groups, sample_fn, n_steps: int):
+    """``Trainer.make_training_loop``'s loop over the step ``body`` of a
+    parallel ``layer`` whose collectives run on ``groups``: the graphs are
+    the trainer's (``Trainer._graphs``, which ``HybridParallel.shard_state``
+    and ``update_hyperparams`` clear), keyed by the layer and the batch's
+    shapes, and captured in ``collectives.CAPTURE_MODE``.  Each rank's
+    output perturbation draws its own noise stream (its global rank), and
+    its generator's state is registered with the graph."""
+    device = next(iter(trainer.params().values())).device
+    collectives.check_capturable(groups, device)
+    set_noise_stream(trainer, collectives.rank())
+    return lambda: trainer._run_loop(sample_fn, n_steps, body=body, key=(layer,),
+                                     capture_error_mode=collectives.CAPTURE_MODE)
+
+
 class DataParallel:
     """Pure data parallelism: the batch sharded over the group's ranks,
     parameters replicated, gradients averaged by an all-reduce."""
@@ -94,29 +133,45 @@ class DataParallel:
         trainer.step = int(step.item())
 
     # -- steps --------------------------------------------------------
-    def make_training_step(self, trainer, with_pdf: bool = False):
-        """``step(x, target[, pdf]) -> loss`` on this rank's batch block,
-        following JAX's ``_per_shard`` (``tcnn_tpu/parallel/mesh.py:121-137``):
+    def _step_body(self, trainer):
+        """``body(x, target, pdf=None) -> loss``: one step on this rank's
+        batch block, following JAX's ``_per_shard``
+        (``tcnn_tpu/parallel/mesh.py:121-137``):
         ``trainer.loss_value_and_grads`` on the local batch, one all-reduce
         of the loss and every gradient divided by the world size (equal
         blocks make it the global mean), then the replicated optimizer
-        step.  With output perturbation each rank draws its own noise: the
-        trainer's noise stream is the rank's global rank
-        (``Trainer.perturbation_noise``).  The loss returned is the mean
-        over the ranks."""
-        set_noise_stream(trainer, collectives.rank())
-
-        def step(x, target, pdf=None):
-            if with_pdf and pdf is None:
-                raise ValueError("make_training_step(with_pdf=True): pass the pdf")
+        step.  It does not count the step."""
+        def body(x, target, pdf=None):
             loss, grads = trainer.loss_value_and_grads(x, target, pdf)
             names = list(grads)
             collectives.all_reduce_mean_([loss] + [grads[n] for n in names], self.group)
             trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
-            trainer.step += 1
             return loss
 
-        return step
+        return body
+
+    def make_training_step(self, trainer, with_pdf: bool = False):
+        """``step(x, target[, pdf]) -> loss`` on this rank's batch block,
+        eagerly (``_step_body``).  With output perturbation each rank draws
+        its own noise: the trainer's noise stream is the rank's global rank
+        (``Trainer.perturbation_noise``).  The loss returned is the mean
+        over the ranks."""
+        set_noise_stream(trainer, collectives.rank())
+        return counted_step(trainer, self._step_body(trainer), with_pdf)
+
+    def make_training_loop(self, trainer, sample_fn, n_steps: int):
+        """``loop() -> losses``: ``n_steps`` steps per call, an (n_steps,)
+        tensor of the mean losses on the device; ``sample_fn(i)`` returns
+        this rank's (x, target) block of step i.  The shape of
+        ``Trainer.make_training_loop``: on CUDA over NCCL the first call's
+        warm-up step runs eagerly and every later step replays a CUDA
+        graph of the step; on the CPU the steps run eagerly.  Raises on a
+        CUDA device unless the group is NCCL's.  Clear ``trainer._graphs``
+        before ``destroy_process_group``: a graph that holds NCCL
+        collectives must go before its communicators
+        (``parallel/launch.py``)."""
+        return parallel_training_loop(self, trainer, self._step_body(trainer), [self.group],
+                                      sample_fn, n_steps)
 
     def make_inference(self, trainer):
         """``infer(x) -> y``: this rank's batch block through the trainer's

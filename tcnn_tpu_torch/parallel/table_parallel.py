@@ -20,10 +20,18 @@ form an (n_data, n_model) mesh, model axis innermost: rank = d·n_model + m.
     hp.shard_state(model.trainer)               # in place
     step = hp.make_training_step(model.trainer)
     loss = step(hp.shard_batch(x), hp.shard_batch(y))
+    loop = hp.make_training_loop(model.trainer, sample_fn, n_steps)
+    losses = loop()           # sample_fn(i): this rank's block of step i
     canonical = hp.gather_state(model.trainer)  # CPU tensors, canonical rows
 
 Each rank runs on one device; one card can hold several ranks (gloo), which
-shows correctness, not scaling.
+shows correctness, not scaling.  ``make_training_step`` runs eagerly;
+``make_training_loop`` captures the step in a CUDA graph on NCCL, as
+``DataParallel``'s does (``parallel/mesh.py``): the warm-up step runs the
+collectives of all three groups (the all-gather and reduce-scatter of the
+grids in shard mode on the model group, the two gradient all-reduces), so
+each communicator exists before the capture, and fills the grid kernels'
+per-shard caches of level constants and plans, which are host copies.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import collectives, grid_ops
-from .mesh import set_noise_stream, shard_batch_over
+from .mesh import counted_step, parallel_training_loop, set_noise_stream, shard_batch_over
 
 
 class HybridMesh(NamedTuple):
@@ -215,30 +223,42 @@ class HybridParallel:
         return full[..., torch.from_numpy(self._tables[name][2]).to(full.device)]
 
     # -- steps ----------------------------------------------------------
-    def make_training_step(self, trainer, with_pdf: bool = False):
-        """``step(x, target[, pdf]) -> loss`` on this rank's block of the
-        flat-sharded batch.  Gradients combine as JAX's
-        (``tcnn_tpu/parallel/table_parallel.py:253-273``):
+    def _step_body(self, trainer):
+        """``body(x, target, pdf=None) -> loss``: one step on this rank's
+        block of the flat-sharded batch, uncounted.  Gradients combine as
+        JAX's (``tcnn_tpu/parallel/table_parallel.py:253-273``):
           * replicated leaves: the mean over every rank;
           * sharded tables: the sum over the model group's local losses
             arrives through the all-gather's transpose, so the mean over
             the data group divided by n_model;
-          * the loss: the mean over every rank.
-        Each rank's output perturbation draws its own noise stream, its
-        global rank.  The step runs eagerly."""
-        set_noise_stream(trainer, collectives.rank())
-
-        def step(x, target, pdf=None):
-            if with_pdf and pdf is None:
-                raise ValueError("make_training_step(with_pdf=True): pass the pdf")
+          * the loss: the mean over every rank."""
+        def body(x, target, pdf=None):
             with self.sharded():
                 loss, grads = trainer.loss_value_and_grads(x, target, pdf)
             self.reduce_gradients(loss, grads)
             trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
-            trainer.step += 1
             return loss
 
-        return step
+        return body
+
+    def make_training_step(self, trainer, with_pdf: bool = False):
+        """``step(x, target[, pdf]) -> loss``, one eager step
+        (``_step_body``).  Each rank's output perturbation draws its own
+        noise stream, its global rank."""
+        set_noise_stream(trainer, collectives.rank())
+        return counted_step(trainer, self._step_body(trainer), with_pdf)
+
+    def make_training_loop(self, trainer, sample_fn, n_steps: int):
+        """``loop() -> losses`` of ``n_steps`` steps per call, as
+        ``DataParallel.make_training_loop``: ``sample_fn(i)`` returns this
+        rank's (x, target) block of step i; on CUDA over NCCL every step
+        after the first call's warm-up replays a CUDA graph of the step;
+        on the CPU the steps run eagerly.  Raises on a CUDA device unless
+        the mesh's groups are NCCL's."""
+        mesh = self.mesh
+        return parallel_training_loop(self, trainer, self._step_body(trainer),
+                                      [mesh.group, mesh.model_group, mesh.data_group],
+                                      sample_fn, n_steps)
 
     def sharded(self):
         """The ``grid_ops.sharded_tables`` context of this mesh's model

@@ -5,9 +5,15 @@
 ``compare`` runs them, and the same training twice in one process, and
 compares the losses, the tables and the trained models' predictions.
 ``run_ranks(world, train_job, args)`` spawns ``world`` ranks with
-``torch.multiprocessing`` (gloo, a ``file://`` rendezvous in a temporary
-directory), each on ``args["device"]``, and returns each rank's result.
-Three jobs:
+``torch.multiprocessing`` (gloo, or NCCL with ``backend="nccl"``; a
+``file://`` rendezvous in a temporary directory), each on
+``args["device"]``, and returns each rank's result.  On a card each rank
+of ``train_job`` first asks for ``make_training_loop``, which must refuse
+gloo, before it takes a step.  ``nccl_loop_job`` runs on a one-rank NCCL
+group (one card holds one NCCL rank): ``DataParallel.make_training_loop``
+against ``Trainer.make_training_loop``, and each collective the steps use
+replayed from a CUDA graph against an eager call (``chip_smoke.py``'s
+slice-18 phase).  Three jobs of ``train_job``:
 
   * ``hybrid_btf``: configs/config_btf.json at BF16_POLICY (a Composite of
     a 4-D CoherentAdd hash grid of 15,474,688 parameters and OneBlob,
@@ -194,6 +200,13 @@ def train_job(rank, world, args):
             dp.reduce_gradients(loss, grads)
             trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
             return loss
+    # a CUDA loop over gloo must refuse before it takes a step or a batch
+    refusal = None
+    if device.type == "cuda":
+        try:
+            dp.make_training_loop(trainer, None, args["steps"])
+        except RuntimeError as e:
+            refusal = str(e)
     first_grads = record_first_grads(trainer)
     sample = _sampler(job, args["batch"], device)
     spent = [0.0]
@@ -223,7 +236,151 @@ def train_job(rank, world, args):
         torch.save(grads, args["params_out"] + ".grads")
     return {"losses": [float(v) for v in losses], "step_ms": step_ms,
             "collective_ms": coll_ms, "launches": launches, "n_devices": dp.n_devices,
-            "shard_numel": trainer.params()[name].numel(), "round_trip": round_trip}
+            "shard_numel": trainer.params()[name].numel(), "round_trip": round_trip,
+            "loop_refusal": refusal}
+
+
+def _graph_of(trainer):
+    """The one CUDA graph of a trainer's loop."""
+    (cap,) = trainer._graphs.values()
+    return cap.graph
+
+
+def _loop_times(loop, n_steps, graph, rounds):
+    """(ms per step of ``loop()`` on the host clock, the device's ms per
+    step replaying ``graph`` back to back between CUDA events), each the
+    median of ``rounds``."""
+    host, device = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3 / n_steps)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_steps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end) / n_steps)
+    return float(np.median(host)), float(np.median(device))
+
+
+def _captured_collectives(device):
+    """Each collective of the parallel steps (``all_gather_into_tensor``,
+    ``reduce_scatter_tensor``, ``all_reduce``) on this group, eagerly and
+    replayed from a CUDA graph captured in ``collectives.CAPTURE_MODE``, on
+    two fills of the input: {name: [max abs difference per fill]}.  The
+    port's wrappers skip a one-rank group, so these call
+    ``torch.distributed`` itself, at the shapes of config_hash's step: its
+    gradients, the (2^18, 2) batch and a (32, 2^18) block of features."""
+    from ..ops.collectives import CAPTURE_MODE
+
+    n = dist.get_world_size()
+    gen = torch.Generator(device).manual_seed(SEED)
+    cases = {
+        "all_reduce": (torch.empty(1 << 20, device=device), lambda i: i.clone(),
+                       lambda i, o: (o.copy_(i), dist.all_reduce(o))),
+        "all_gather_into_tensor": (torch.empty((1 << 18, 2), device=device),
+                                   lambda i: i.new_empty((n * i.shape[0], 2)),
+                                   lambda i, o: dist.all_gather_into_tensor(o, i)),
+        "reduce_scatter_tensor": (torch.empty((n * 32, 1 << 18), device=device),
+                                  lambda i: i.new_empty((32, 1 << 18)),
+                                  lambda i, o: dist.reduce_scatter_tensor(o, i)),
+    }
+    out = {}
+    for name, (inp, make_out, call) in cases.items():
+        inp.normal_(generator=gen)
+        static = make_out(inp)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):   # warm-up: creates the communicator
+            call(inp, static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE):
+            call(inp, static)
+        diffs = []
+        for _ in range(2):
+            inp.normal_(generator=gen)
+            eager = make_out(inp)
+            call(inp, eager)
+            graph.replay()
+            torch.cuda.synchronize()
+            diffs.append(float((static - eager).abs().max()))
+        out[name] = diffs
+    return out
+
+
+def collectives_job(rank, world, args):
+    """``_captured_collectives`` on this rank's card."""
+    return _captured_collectives(torch.device("cuda", torch.cuda.current_device()))
+
+
+def nccl_loop_job(rank, world, args):
+    """On a one-rank NCCL group: ``DataParallel.make_training_loop``
+    training config_hash (BF16_POLICY) for ``args["steps"]`` steps of
+    ``args["batch"]`` from the seeded image sampler, and
+    ``Trainer.make_training_loop`` of the same model on the same batches
+    in this process: both loops' losses, each kernel's launches before the
+    capture (the warm-up step) and in the captured step (each replay
+    launches these), both loops' ms per step (host clock) and device ms
+    per replayed step over ``args["rounds"]`` more calls, in turns, and
+    the ms per step of ``DataParallel.make_training_step``'s eager steps on
+    the same batches (host clock, ``args["rounds"]`` passes); then
+    ``_captured_collectives``."""
+    from ..parallel import DataParallel
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    steps, counters = args["steps"], _counters()
+    sample = _sampler("dp_hash", args["batch"], device)
+    batches = [sample(i) for i in range(steps)]
+    at_capture = {}
+    capture_begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counting_capture_begin(graph, *a, **k):
+        at_capture.update({k_: fn.launches for k_, fn in counters.items()})
+        return capture_begin(graph, *a, **k)
+
+    loops, res = {}, {"losses": {}, "warm_up": {}, "per_replay": {}, "ms": {},
+                      "device_ms": {}}
+    torch.cuda.CUDAGraph.capture_begin = counting_capture_begin
+    try:
+        for what in ("parallel", "trainer"):
+            trainer = _model("dp_hash", device).trainer
+            if what == "parallel":
+                dp, dp_trainer = DataParallel(), trainer
+                dp.replicate(trainer)
+                loop = dp.make_training_loop(trainer, lambda i: batches[i], steps)
+            else:
+                loop = trainer.make_training_loop(lambda i: batches[i], steps)
+            for fn in counters.values():
+                fn.launches = 0
+            res["losses"][what] = loop().tolist()
+            after = {k: fn.launches for k, fn in counters.items()}
+            res["warm_up"][what] = dict(at_capture)
+            res["per_replay"][what] = {k: after[k] - at_capture[k] for k in after}
+            loops[what] = (loop, _graph_of(trainer))
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = capture_begin
+    for what in ("parallel", "trainer", "trainer", "parallel"):
+        loop, graph = loops[what]
+        ms, device_ms = _loop_times(loop, steps, graph, args["rounds"])
+        res["ms"].setdefault(what, []).append(ms)
+        res["device_ms"].setdefault(what, []).append(device_ms)
+    step = dp.make_training_step(dp_trainer)   # the same steps, eagerly
+    res["eager_ms"] = []
+    for _ in range(args["rounds"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, t in batches:
+            step(x, t)
+        torch.cuda.synchronize()
+        res["eager_ms"].append((time.perf_counter() - t0) * 1e3 / steps)
+    res["backend"] = dist.get_backend()
+    res["collectives"] = _captured_collectives(device)
+    return res
 
 
 def held_out(job, device):
@@ -253,8 +410,10 @@ def single_process(job, steps, batch, device):
     return losses, model, canonical_grads(None, first_grads)
 
 
-def _worker(rank, world, init, fn, args, out, timeout):
-    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world,
+def _worker(rank, world, init, fn, args, out, timeout, backend):
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank, world_size=world,
                             timeout=timedelta(seconds=timeout))
     try:
         res = fn(rank, world, args)
@@ -264,16 +423,17 @@ def _worker(rank, world, init, fn, args, out, timeout):
     dist.destroy_process_group()
 
 
-def run_ranks(world, fn, args, timeout=600, tmp=None):
+def run_ranks(world, fn, args, timeout=600, tmp=None, backend="gloo"):
     """``fn(rank, world, args)`` (a module-level function: the ranks import
-    it) in ``world`` spawned gloo ranks joined through a ``file://``
-    rendezvous in ``tmp`` (default a temporary directory); the ranks'
-    results.  A rank that raises, or outlives ``timeout`` seconds, fails
-    the run with its traceback."""
+    it) in ``world`` spawned ranks of a ``backend`` group (gloo, or NCCL
+    with rank r on card r) joined through a ``file://`` rendezvous in
+    ``tmp`` (default a temporary directory); the ranks' results.  A rank
+    that raises, or outlives ``timeout`` seconds, fails the run with its
+    traceback."""
     with tempfile.TemporaryDirectory(dir=tmp) as tmp:
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=_worker, args=(r, world, f"{tmp}/init", fn, args,
-                                                   f"{tmp}/out{r}.pkl", timeout))
+                                                   f"{tmp}/out{r}.pkl", timeout, backend))
                  for r in range(world)]
         for p in procs:
             p.start()

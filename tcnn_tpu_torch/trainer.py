@@ -128,27 +128,34 @@ class Trainer:
         return pred.detach()
 
     # -- multi-step loops (CUDA graph replay) ---------------------------
-    def _capture(self, x: torch.Tensor, target: torch.Tensor):
-        """Runs one real step eagerly on a side stream (the warm-up that
-        capture needs), then captures the next step into a CUDA graph that
-        reads the static ``x``/``target`` buffers.  Returns the captured
-        step and the loss of the eager one.  A failing capture raises: the
-        loop never goes on eagerly on the card."""
+    def _capture(self, x: torch.Tensor, target: torch.Tensor, body, capture_error_mode: str):
+        """Runs one real step of ``body`` eagerly on a side stream (the
+        warm-up that capture needs), then captures the next step into a
+        CUDA graph that reads the static ``x``/``target`` buffers.  Returns
+        the captured step and the loss of the eager one.  A failing capture
+        raises: the loop never goes on eagerly on the card."""
         static_x, static_t = x.clone(), target.clone()
         side = torch.cuda.Stream(device=x.device)
         side.wait_stream(torch.cuda.current_stream(x.device))
         with torch.cuda.stream(side):
-            warm_loss = self.training_step(static_x, static_t)
+            warm_loss = body(static_x, static_t)
+        self.step += 1
         torch.cuda.current_stream(x.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         if self.perturbation_sigma:
             graph.register_generator_state(self._noise_gen)
-        with torch.cuda.graph(graph):
-            loss = self._step_body(static_x, static_t)
+        with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+            loss = body(static_x, static_t)
         return _CapturedStep(graph, static_x, static_t, loss), warm_loss
 
     def _run_loop(self, batch_fn: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
-                  n_steps: int) -> torch.Tensor:
+                  n_steps: int, body=None, key: Tuple = (),
+                  capture_error_mode: str = "global") -> torch.Tensor:
+        """``n_steps`` steps of ``body(x, target) -> loss`` (default
+        ``_step_body``; the parallel layer's steps pass their own), which
+        must not count the step.  Graphs are cached in ``_graphs`` by the
+        batch's shapes, dtypes and device after ``key``."""
+        body = body or self._step_body
         x, target = batch_fn(0)
         if x.device.type == "cuda" and not self.optimizer.capturable:
             raise RuntimeError(f"make_training_loop: {self.optimizer.capture_error}")
@@ -158,12 +165,13 @@ class Trainer:
             for i in range(n_steps):
                 if i:
                     x, target = batch_fn(i)
-                losses[i] = self.training_step(x, target)
+                losses[i] = body(x, target)
+                self.step += 1
             return losses
-        key = (tuple(x.shape), x.dtype, tuple(target.shape), target.dtype, x.device)
+        key = key + (tuple(x.shape), x.dtype, tuple(target.shape), target.dtype, x.device)
         first = 0
         if key not in self._graphs:
-            self._graphs[key], warm_loss = self._capture(x, target)
+            self._graphs[key], warm_loss = self._capture(x, target, body, capture_error_mode)
             losses[0].copy_(warm_loss)
             first = 1
         cap = self._graphs[key]

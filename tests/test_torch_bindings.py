@@ -296,9 +296,19 @@ def test_unaligned_leaf_is_handed_over_as_a_copy():
     tm = tti.Network(3, 1, dict(NET_CFG, n_neurons=3, n_hidden_layers=1), device="cpu")
     leaves = tm._leaves   # (3, 3) at 0, (3, 1) at 9: the second is copied
     assert [leaf.copy for leaf in leaves] == [False, True]
-    x = torch.rand(8, 3)
+    # an explicit generator: a draw where the 3-wide ReLU layer is dead for
+    # every sample would leave both gradients zero
+    x = torch.rand(8, 3, generator=torch.Generator().manual_seed(0))
     tm(x).sum().backward()
-    assert float(tm.params.grad[9:].abs().max()) > 0
+    # the same network on independent copies of its weights, padded as
+    # the module pads the batch
+    own = {leaf.name: v.detach().clone().requires_grad_()
+           for leaf, v in zip(leaves, tm._split(tm.params))}
+    xp = torch.nn.functional.pad(x, [0, 0, 0, tti.BATCH_GRANULARITY - 8])
+    y = torch.func.functional_call(tm.native, own, (xp,))[:8]
+    want = torch.cat([g.reshape(-1) for g in torch.autograd.grad(y.sum(), list(own.values()))])
+    assert torch.equal(tm.params.grad, want)
+    assert float(want[:9].abs().max()) > 0 and float(want[9:].abs().max()) > 0
 
 
 def test_image_sample_runs_a_few_steps(tmp_path):

@@ -314,6 +314,47 @@ def test_graph_loop_equals_eager_steps(cuda):
     assert models[0].trainer.step == 12
 
 
+def test_parallel_loop_on_one_nccl_rank_matches_trainer_loop(cuda, tmp_path):
+    """``DataParallel.make_training_loop`` on a one-rank NCCL group (one
+    card holds one NCCL rank) against ``Trainer.make_training_loop`` on the
+    same batches: the first loss within 1e-5, later ones within 1e-2
+    (``chip_smoke.py``'s parallel tolerances; GB's atomics), G, GB, M and MB
+    once in the warm-up and once in the captured step; and each collective
+    of the steps replayed from a CUDA graph equal to an eager call."""
+    from tcnn_tpu_torch.tools import parallel_check
+
+    steps = 12
+    res, = parallel_check.run_ranks(1, parallel_check.nccl_loop_job,
+                                    {"steps": steps, "batch": 1 << 16, "rounds": 1},
+                                    timeout=300, tmp=tmp_path, backend="nccl")
+    got = np.asarray(res["losses"]["parallel"])
+    want = np.asarray(res["losses"]["trainer"])
+    rtol = np.full(steps, 1e-2)
+    rtol[0] = 1e-5
+    assert not (np.abs(got - want) > rtol * np.abs(want)).any(), (got, want)
+    for what in ("parallel", "trainer"):
+        for when in ("warm_up", "per_replay"):
+            c = res[when][what]
+            assert {k: c[k] for k in ("G", "GB", "M", "MB")} == dict.fromkeys(
+                ("G", "GB", "M", "MB"), 1), (what, when, c)
+    assert res["collectives"] == dict.fromkeys(
+        ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"), [0.0, 0.0])
+
+
+def test_parallel_loop_refuses_gloo_on_cuda(cuda, tmp_path):
+    """Two gloo ranks on the card: ``make_training_loop`` raises (gloo's
+    collectives cannot be captured), and the eager steps still train."""
+    from tcnn_tpu_torch.tools import parallel_check
+
+    outs = parallel_check.run_ranks(2, parallel_check.train_job,
+                                    {"job": "dp_hash", "device": "cuda", "steps": 2,
+                                     "batch": 1 << 14, "params_out": str(tmp_path / "p.pt")},
+                                    timeout=300, tmp=tmp_path)
+    for o in outs:
+        assert "gloo" in o["loop_refusal"] and "cannot be captured" in o["loop_refusal"]
+        assert len(o["losses"]) == 2 and np.isfinite(o["losses"]).all()
+
+
 # -- slice 3: the config_btf path ------------------------------------------
 
 BTF_CONFIG = "configs/config_btf.json"

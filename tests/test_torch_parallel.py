@@ -26,7 +26,9 @@ test_sharded_inference); the first reduced gradients per entry within
 1e-5 of each leaf's largest magnitude (one gradient, no optimizer).
 """
 
+import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -97,12 +99,42 @@ def batches(seed, n, batch, n_in=2):
              rng.uniform(0, 1, (batch, 3)).astype(np.float32)) for _ in range(n)]
 
 
-def jax_hybrid(cfg, n_data, n_model, bs, infer=None):
+def jax_scan(dp, sm_step, state, state_shardings, bs):
+    """The JAX launcher's compiled loop (``tcnn_tpu/parallel/launch.py:
+    165-175``) over the numpy batches ``bs``: ``lax.scan`` of the
+    ``shard_map`` step, each step's batch constrained to the batch
+    sharding, under ``jax.jit`` with the state's shardings.  Returns the
+    final state and the losses."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    xs = np.stack([x for x, _ in bs])
+    ts = np.stack([t for _, t in bs])
+
+    def loop(state, xs, ts):
+        def body(st, xt):
+            x = jax.lax.with_sharding_constraint(xt[0], dp.batch_sharding)
+            t = jax.lax.with_sharding_constraint(xt[1], dp.batch_sharding)
+            return sm_step(st, x, t)
+
+        return jax.lax.scan(body, state, (xs, ts))
+
+    replicated = NamedSharding(dp.mesh, P())
+    state, losses = jax.jit(loop, in_shardings=(state_shardings, None, None),
+                            out_shardings=(state_shardings, replicated))(state, xs, ts)
+    return state, [float(v) for v in np.asarray(losses)]
+
+
+def jax_hybrid(cfg, n_data, n_model, bs, infer=None, loop=False):
+    """The run's payload and JAX's reference; with ``loop``, also the port's
+    ``make_training_loop`` over the batches and JAX's scanned step."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
     n_in = bs[0][0].shape[1] if bs else 2
     model = jtcnn.create_from_config(n_in, 3, cfg)
     state0 = model.trainer.initial_state()
     run = {"config": cfg, "n_in": n_in, "n_model": n_model, "batches": bs, "infer": infer,
-           "params": _np_tree(state0.params), "opt_state": _np_tree(state0.opt_state)}
+           "params": _np_tree(state0.params), "opt_state": _np_tree(state0.opt_state),
+           "loop": loop}
     hp = HybridParallel(n_model=n_model, devices=jax.devices()[:n_data * n_model], model=model)
     state = hp.shard_state(state0)
     step = hp.make_training_step(model.trainer)
@@ -114,13 +146,21 @@ def jax_hybrid(cfg, n_data, n_model, bs, infer=None):
            "grads": jax_first_grads(model, state0.params, bs)}
     if infer is not None:
         ref["y"] = np.asarray(model.trainer.forward(state0, infer))
+    if loop:   # from a fresh initial state: the eager steps donated the old one's leaves
+        state0 = model.trainer.initial_state()
+        shardings = jax.tree_util.tree_map(lambda s: NamedSharding(hp.mesh, s),
+                                           hp.specs(state0), is_leaf=lambda v: isinstance(v, P))
+        state, ref["scan losses"] = jax_scan(hp, hp.step_shard_map(model.trainer)(state0),
+                                             hp.shard_state(state0), shardings, bs)
+        ref["scan gathered"] = hp.gather_state(state)
     return run, ref
 
 
-def jax_data_parallel(cfg, n, bs):
+def jax_data_parallel(cfg, n, bs, loop=False):
+    """As ``jax_hybrid``, for DataParallel over ``n`` devices."""
     model = jtcnn.create_from_config(2, 3, cfg)
     state0 = model.trainer.initial_state()
-    run = {"config": cfg, "n_in": 2, "batches": bs,
+    run = {"config": cfg, "n_in": 2, "batches": bs, "loop": loop,
            "params": _np_tree(state0.params), "opt_state": _np_tree(state0.opt_state)}
     dp = DataParallel(make_mesh(jax.devices()[:n]))
     step = dp.make_training_step(model.trainer)
@@ -129,8 +169,14 @@ def jax_data_parallel(cfg, n, bs):
     for x, t in bs:
         state, loss = step(state, dp.shard_batch(x), dp.shard_batch(t))
         losses.append(float(loss))
-    return run, {"losses": losses, "params": jax.device_get(state.params),
-                 "grads": jax_first_grads(model, state0.params, bs)}
+    ref = {"losses": losses, "params": jax.device_get(state.params),
+           "grads": jax_first_grads(model, state0.params, bs)}
+    if loop:
+        state, ref["scan losses"] = jax_scan(dp, dp.step_shard_map(model.trainer),
+                                             dp.replicate(model.trainer.initial_state()),
+                                             dp.replicated, bs)
+        ref["scan params"] = jax.device_get(state.params)
+    return run, ref
 
 
 @pytest.fixture(scope="module")
@@ -141,7 +187,8 @@ def four(tmp_path_factory):
             ("adam22", config(), (2, 2), 4, 2 * 64), ("adam14", config(), (1, 4), 4, 64),
             ("shampoo22", config(SHAMPOO), (2, 2), 3, 128),
             ("average22", config(AVERAGE), (2, 2), 3, 128)):
-        runs[name], refs[name] = jax_hybrid(cfg, *shape, batches(len(name) + b, n_steps, b))
+        runs[name], refs[name] = jax_hybrid(cfg, *shape, batches(len(name) + b, n_steps, b),
+                                            loop=name in LOOP_RUNS)
     runs["composite22"], refs["composite22"] = jax_hybrid(composite_config(), 2, 2,
                                                           batches(13, 3, 2 * 64, n_in=4))
     infer = np.random.default_rng(1).uniform(0, 1, (4 * 32, 2)).astype(np.float32)
@@ -155,7 +202,7 @@ def four(tmp_path_factory):
 @pytest.fixture(scope="module")
 def two(tmp_path_factory):
     """The 2-rank spawn (DataParallel, noise, checkpoints, guard)."""
-    dp_run, dp_ref = jax_data_parallel(config(), 2, batches(2, 3, 2 * 64))
+    dp_run, dp_ref = jax_data_parallel(config(), 2, batches(2, 3, 2 * 64), loop=True)
     noise_run, _ = jax_data_parallel(config(), 2, batches(7, 1, 2 * 64))
     guard_run, _ = jax_data_parallel(config(), 2, batches(9, 1, 2 * 64))
     guard_run["n_model"] = 2
@@ -168,6 +215,7 @@ def two(tmp_path_factory):
 
 
 GRID = "encoding.grid"
+LOOP_RUNS = ("adam22", "adam14", "dp2")   # runs that also train through make_training_loop
 
 
 @pytest.mark.parametrize("name", ["adam22", "adam14", "shampoo22", "average22"])
@@ -262,6 +310,46 @@ def test_first_reduced_gradients_match_jax(four, two, name):
                                        err_msg=k)
 
 
+@pytest.mark.parametrize("name", LOOP_RUNS)
+def test_training_loop_equals_eager_steps_bit_for_bit(four, two, name):
+    """On the CPU (gloo) ``make_training_loop`` runs the eager steps: N
+    steps of the loop give the losses, parameters, optimizer state and step
+    of N calls of ``make_training_step``, bit for bit."""
+    outs, _ = two if name == "dp2" else four
+    for o in outs:
+        assert o[name]["loop"]["losses"] == o[name]["losses"]
+        assert o[name]["loop"]["state equal"]
+
+
+@pytest.mark.parametrize("name", LOOP_RUNS)
+def test_training_loop_matches_jax_scanned_step(four, two, name):
+    """The loop's losses and trained parameters against JAX's
+    ``lax.scan`` of ``step_shard_map`` over the same batches (the JAX
+    launcher's loop), within the eager tests' tolerances: losses rtol 5e-4,
+    tables and weights rtol 5e-3, atol 1e-6."""
+    outs, refs = two if name == "dp2" else four
+    ref = refs[name]
+    for o in outs:
+        got = o[name]["loop"]
+        np.testing.assert_allclose(got["losses"], ref["scan losses"], rtol=5e-4)
+        want = (_named(ref["scan params"]) if name == "dp2"
+                else _named(ref["scan gathered"].params))
+        assert sorted(got["params"]) == sorted(want)
+        for k, w in want.items():
+            np.testing.assert_allclose(got["params"][k], w, rtol=5e-3, atol=1e-6, err_msg=k)
+
+
+def test_capture_check_refuses_gloo_on_cuda(two):
+    """``collectives.check_capturable``: a CUDA loop over gloo raises
+    (gloo's collectives cannot be captured in a CUDA graph); on the CPU
+    the loop runs eagerly over gloo."""
+    outs, _ = two
+    for o in outs:
+        assert "gloo" in o["capture check"]["cuda"]
+        assert "cannot be captured" in o["capture check"]["cuda"]
+        assert o["capture check"]["cpu"] is None
+
+
 def test_replicate_broadcasts_rank_zeros_state(two):
     """Ranks that start from different parameters, optimizer state and
     step all end with rank 0's (the JAX model's initial parameters)."""
@@ -314,11 +402,24 @@ def test_bad_mesh_raises(four):
         assert "n_model" in o["no n_model"]
 
 
+def _chunk_losses(out):
+    """{step: loss} from the launcher's "steps a-b: losses [...]" lines."""
+    got = {}
+    for line in out.splitlines():
+        if line.startswith("steps "):
+            span, values = line[len("steps "):].split(": losses ")
+            first = int(span.split("-")[0])
+            got.update({first + i: v for i, v in enumerate(json.loads(values))})
+    return got
+
+
 @pytest.mark.parametrize("n_model", [1, 2])
 def test_launcher_trains_two_cpu_ranks_and_resumes(tmp_path, n_model):
     """``python -m tcnn_tpu_torch.parallel.launch`` at 2 CPU ranks (gloo, a
-    file:// rendezvous): 4 steps with checkpoints every 2, then a second
-    run to 6 steps that resumes from step 4."""
+    file:// rendezvous): 6 steps through ``make_training_loop`` in chunks
+    of 2 with checkpoints every 2; then, with step 6's checkpoint removed,
+    a second run to 6 steps resumes from step 4 and gives steps 5 and 6
+    the first run's losses bit for bit."""
     ckpt = tmp_path / "ckpt"
 
     def launch(steps, tag):
@@ -335,11 +436,14 @@ def test_launcher_trains_two_cpu_ranks_and_resumes(tmp_path, n_model):
         assert all(p.returncode == 0 for p in procs), outs
         return outs[0]
 
-    first = launch(4, "a")
-    assert "trained 4 steps of batch 1024" in first
+    first = launch(6, "a")
+    assert "make_training_loop" in first and "trained 6 steps of batch 1024" in first
     files = sorted(p.name for p in (ckpt / "4").iterdir())
     assert files == (["state.rank0.pt", "state.rank1.pt"] if n_model == 2 else ["state.pt"])
+    shutil.rmtree(ckpt / "6")
     second = launch(6, "b")
     assert "resumed from step 4" in second and "trained 2 steps" in second
-    loss = float(second.rsplit("final loss ", 1)[1].split()[0])
-    assert np.isfinite(loss)
+    before, after = _chunk_losses(first), _chunk_losses(second)
+    assert sorted(before) == list(range(1, 7)) and sorted(after) == [5, 6]
+    assert all(np.isfinite(v) for v in before.values())
+    assert after == {5: before[5], 6: before[6]}

@@ -155,7 +155,34 @@ def _hybrid_run(run):
            "opt": {p: _np(t) for p, t in named_leaves(gathered["opt_state"])}}
     if run.get("infer") is not None:
         out["y"] = _np(hp.make_inference(trainer)(hp.shard_batch(torch.from_numpy(run["infer"]))))
+    if run.get("loop"):
+        loop_model = _model(run)
+        loop_hp = HybridParallel(hp.mesh, model=loop_model)
+        loop_hp.shard_state(loop_model.trainer)
+        out["loop"] = _loop_run(loop_hp, loop_model.trainer, run["batches"], trainer)
     return out
+
+
+def _loop_run(dp, trainer, batches, eager):
+    """``dp.make_training_loop`` over the batches on ``trainer``: its
+    losses, its parameters (tables gathered) and whether its parameters,
+    optimizer state and step equal those of ``eager``, the trainer that
+    took the same steps through ``make_training_step``."""
+    from tcnn_tpu_torch.optimizers.base import named_leaves
+
+    def sample(i):
+        x, t = batches[i]
+        return dp.shard_batch(torch.from_numpy(x)), dp.shard_batch(torch.from_numpy(t))
+
+    losses = dp.make_training_loop(trainer, sample, len(batches))()
+    mine = list(trainer.params().values()) + [t for _, t in named_leaves(trainer.opt_state)]
+    theirs = list(eager.params().values()) + [t for _, t in named_leaves(eager.opt_state)]
+    state_equal = trainer.step == eager.step and all(
+        torch.equal(a, b) for a, b in zip(mine, theirs))
+    params = (dp.gather_state(trainer)["params"] if hasattr(dp, "gather_state")
+              else trainer.params())
+    return {"losses": [float(v) for v in losses], "state equal": state_equal,
+            "params": {n: _np(p) for n, p in params.items()}}
 
 
 def _data_parallel_run(run):
@@ -170,9 +197,15 @@ def _data_parallel_run(run):
     first = record_first_grads(trainer)
     losses = [float(step(dp.shard_batch(torch.from_numpy(x)), dp.shard_batch(torch.from_numpy(t))))
               for x, t in run["batches"]]
-    return {"losses": losses, "n_devices": dp.n_devices,
-            "grads": {n: g.numpy() for n, g in canonical_grads(dp, first).items()},
-            "params": {n: _np(p) for n, p in trainer.params().items()}}
+    out = {"losses": losses, "n_devices": dp.n_devices,
+           "grads": {n: g.numpy() for n, g in canonical_grads(dp, first).items()},
+           "params": {n: _np(p) for n, p in trainer.params().items()}}
+    if run.get("loop"):
+        loop_model = _model(run)
+        loop_dp = DataParallel()
+        loop_dp.replicate(loop_model.trainer)
+        out["loop"] = _loop_run(loop_dp, loop_model.trainer, run["batches"], trainer)
+    return out
 
 
 def _replicate(rank, run):
@@ -279,6 +312,7 @@ def parallel_job(rank, world, payload):
     """HybridParallel runs, DataParallel runs, the noise streams and (with
     ``payload["guard"]``) checkpoints and the serialization guard, in the
     order given (every rank makes the same groups in the same order)."""
+    from tcnn_tpu_torch.ops import collectives
     from tcnn_tpu_torch.parallel import HybridParallel, make_hybrid_mesh
 
     res = {}
@@ -293,6 +327,9 @@ def parallel_job(rank, world, payload):
     if payload.get("guard") is not None:
         res["guard"] = _checkpoint_and_guard(rank, payload["guard"], payload["tmp"])
     res["bad mesh"] = _raises(lambda: make_hybrid_mesh(3), ValueError) if world % 3 else None
+    res["capture check"] = {
+        dev: _raises(lambda: collectives.check_capturable([dist.group.WORLD], torch.device(dev)),
+                     RuntimeError) for dev in ("cuda", "cpu")}
     res["no n_model"] = _raises(lambda: HybridParallel(), ValueError)
     return res
 
