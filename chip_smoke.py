@@ -162,6 +162,23 @@ and read just after:
     plain path and 10 training steps at 2^16 (the loss falls; per step M
     twice, MBW and MB once, and MW once in fp32, where M's layout cannot
     hold the last layer).
+  * slice 19, the deterministic table gradient (``TCNN_TPU_SCATTER=
+    sortseg``, ``ops/sort_scatter.py``: kernel SK, ``torch.sort``, kernel
+    SS): at config_hash's and config_btf's grids (2^18, bf16) SK against
+    its plain version bit for bit, SS against its plain version within
+    2^-23·(P + n·A) (P the largest |prefix sum| of the column, n and A the
+    row's run length and sum of magnitudes), bit for bit twice and on
+    small-integer values, the route against GB's plain version within
+    2^-11·S plus one bf16 ulp, and the times of SK, the sort, SS, the route,
+    GB and ``index_add_``; the main path, config_hash trained through
+    ``make_training_loop`` under ``sortseg`` twice from one seed (200 steps
+    at 2^18): every weight and loss bit-identical, SK and SS launched and
+    GB not; the same fit with GB twice (the weights that differ, a number);
+    the captured loop against the same 20 steps taken eagerly, bit for bit;
+    the step on the device under each route at config_hash and config_btf
+    with its peak memory; ``DataParallel.make_training_loop`` under
+    ``sortseg`` on a one-rank NCCL group (its capture takes the sort; its
+    losses and weights equal ``Trainer.make_training_loop``'s bit for bit).
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -806,11 +823,13 @@ def first_order_counts():
     c = counts()
     check(all(c[k] == 0 for k in ("GI", "GG", "RS", "GT", "MW", "MBW")),
           f"a first-order path launched a second-order kernel: {c}")
+    check(all(fn.launches == 0 for fn in sortseg_counters().values()),
+          "a path without TCNN_TPU_SCATTER=sortseg launched kernel SK or SS")
     return {k: c[k] for k in FIRST_ORDER}
 
 
 def reset_counts():
-    for fn in counters().values():
+    for fn in (*counters().values(), *sortseg_counters().values()):
         fn.launches = 0
 
 
@@ -5007,6 +5026,345 @@ def mb_determinism(gen, dev):
                   f"bit-identical across two launches")
 
 
+# Slice 19: the deterministic table gradient, TCNN_TPU_SCATTER=sortseg
+# (ops/sort_scatter.py; kernels SK and SS, csrc/sort_scatter.cu).
+SORTSEG_STEPS = FIT_STEPS       # the main path: 200 steps at 2^18, twice from one seed
+SORTSEG_REPLAY_STEPS = 20       # the captured loop against the same steps taken eagerly
+SORTSEG_DP_STEPS = 20           # DataParallel's loop on a one-rank NCCL group
+REPLACES_SORTSEG = ("none (XLA ops): tcnn_tpu/ops/sort_scatter.py:23 (sort_segment_scatter: "
+                    "jnp.argsort, cumsum, one scatter), the TCNN_TPU_SCATTER=sortseg branch of "
+                    "tcnn_tpu/ops/grid_ops.py:962-977")
+KERNELS["SK"] = ("sort_keys", "tcnn_tpu_torch/csrc/sort_scatter.cu")
+KERNELS["SS"] = ("segment_sum", "tcnn_tpu_torch/csrc/sort_scatter.cu")
+
+
+def sortseg_counters():
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import segment_sum, sort_keys
+
+    return {"SK": sort_keys, "SS": segment_sum}
+
+
+def all_counts():
+    return {**counts(), **{k: fn.launches for k, fn in sortseg_counters().items()}}
+
+
+def set_sortseg(on):
+    """Selects the route (read at each backward, fixed in a captured step)."""
+    if on:
+        os.environ["TCNN_TPU_SCATTER"] = "sortseg"
+    else:
+        os.environ.pop("TCNN_TPU_SCATTER", None)
+
+
+def peak_mb(fn):
+    """MB allocated by ``fn()`` above what was allocated before it, at its peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def ss_bound(keys, vals, n_rows):
+    """SS against its plain version, per row: 2^-23·(P + n·A), P the largest
+    |float64 prefix sum| of the row's column over the sorted values, n the
+    row's run length, A the sum of its values' magnitudes
+    (``ops/cuda/sort_scatter.py``)."""
+    order = torch.sort(keys, stable=True).indices
+    p = torch.stack([vals[order, k].double().cumsum(0).abs().max()
+                     for k in range(vals.shape[1])])
+    keep = (keys >= 0) & (keys < n_rows)
+    a = torch.zeros((n_rows, vals.shape[1]), dtype=torch.float64, device=vals.device)
+    a.index_add_(0, keys[keep].long(), vals[keep].double().abs())
+    n = torch.bincount(keys[keep].long(), minlength=n_rows)[:, None].double()
+    return 2.0 ** -23 * (p[None, :] + n * a)
+
+
+def sk_flops(spec, batch):
+    """SK per (sample, level): positions and per-dim weights (4D), corner
+    weights C(D − 1), the products w·dy (CF); the rows' integer work aside."""
+    D, C = spec.n_dims, 1 << spec.n_dims
+    return batch * spec.n_levels * (4 * D + C * (D - 1) + C * spec.n_features_per_level)
+
+
+def sortseg_kernel_checks(label, spec, table, xg, dcols, gen, t, err):
+    """Kernels SK and SS and the route at one shape (the grid's inputs as
+    the main path hands them): SK against its plain version bit for bit, SS
+    against its plain version within ``ss_bound``, bit for bit twice and on
+    small-integer values (every sum exact), the route against GB's plain
+    version (``compare_table_grad``) and bit for bit twice, GB twice
+    (entries that differ: a number, not a gate); times, bounds, the
+    library call (``index_add_``) and peak memory into ``t``."""
+    from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_plain
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import (segment_sum, segment_sum_plain,
+                                                      sort_keys, sort_keys_plain)
+    from tcnn_tpu_torch.ops.sort_scatter import grid_table_gradient
+
+    B, F, C = xg.shape[0], spec.n_features_per_level, 1 << spec.n_dims
+    live, n_rows = list(range(spec.n_levels)), spec.n_entries
+    phase(f"slice 19: SK, SS and the sortseg route vs plain, {label} (B={B}, {len(live)} levels, "
+          f"{C} corners, F={F}: {len(live) * C * B} updates), table {str(table.dtype)[6:]}")
+    with torch.inference_mode():
+        keys, vals = sort_keys(spec, xg, dcols, live)
+        torch.cuda.synchronize()
+        want_keys, want_vals = sort_keys_plain(spec, xg, dcols, live)
+        check(torch.equal(keys, want_keys) and torch.equal(vals, want_vals),
+              f"{label}: SK's keys or values differ from its plain version")
+        del want_keys, want_vals
+        sk, order = torch.sort(keys, stable=True)
+        got = segment_sum(sk, order, vals, n_rows)
+        again = segment_sum(sk, order, vals, n_rows)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{label}: SS differs between two launches")
+        d = (got - segment_sum_plain(sk, order, vals, n_rows)).abs()
+        bound = ss_bound(keys, vals, n_rows)
+        check(bool((d.double() <= bound).all()),
+              f"{label}: SS beyond 2^-23·(P + n·A) of its plain version, max abs err "
+              f"{d.max().item():.3e}")
+        err[f"SS {label}"] = d.max().item()
+        err[f"SK {label}"] = 0.0
+        ints = torch.randint(-2, 3, vals.shape, generator=gen, device=vals.device).float()
+        check(torch.equal(segment_sum(sk, order, ints, n_rows, table.dtype),
+                          segment_sum_plain(sk, order, ints, n_rows, table.dtype)),
+              f"{label}: SS on small integers (exact sums) differs from its plain version")
+        print(f"{label}: SK equal to its plain version bit for bit ({keys.numel()} keys and "
+              f"values); SS bit-identical in two launches, max abs err {err[f'SS {label}']:.3e} "
+              f"(bound 2^-23·(P + n·A), its largest {bound.max().item():.3e}), equal on "
+              f"small-integer values")
+        del d, bound, ints, again
+        route = grid_table_gradient(spec, table, xg, dcols, live)
+        check(torch.equal(route, grid_table_gradient(spec, table, xg, dcols, live)),
+              f"{label}: the route differs between two calls")
+        want = grid_encode_bwd_plain(spec, table, xg, dcols, live)
+        scale = grid_encode_bwd_plain(spec, table.float(), xg, dcols.float().abs(), live)
+        route_err = compare_table_grad(route, want, scale, f"{label} sortseg route")
+        gb_a = grid_encode_bwd(spec, table, xg, dcols, live)
+        gb_b = grid_encode_bwd(spec, table, xg, dcols, live)
+        t[f"GB twice {label}"] = int((gb_a != gb_b).sum())
+        print(f"{label}: the route against GB's plain version, max abs err {route_err:.3e} "
+              f"(2^-11·S{' + one bf16 ulp' if table.dtype == torch.bfloat16 else ''}), "
+              f"bit-identical in two calls; GB launched twice on the same inputs differs in "
+              f"{t[f'GB twice {label}']} of {gb_a.numel()} entries")
+        del route, want, scale, gb_a, gb_b
+
+    phase(f"slice 19: times at {label}, device time in a CUDA graph of {N_TIMED} calls; "
+          f"plain versions eager")
+    with torch.inference_mode():
+        t[f"SK {label}"] = graph_ms(lambda: sort_keys(spec, xg, dcols, live))
+        t[f"SK {label} plain"] = eager_ms(lambda: sort_keys_plain(spec, xg, dcols, live), n=3)
+        t[f"sort {label}"] = graph_ms(lambda: torch.sort(keys, stable=True))
+        t[f"SS {label}"] = graph_ms(lambda: segment_sum(sk, order, vals, n_rows, table.dtype))
+        t[f"SS {label} plain"] = eager_ms(
+            lambda: segment_sum_plain(sk, order, vals, n_rows, table.dtype), n=3)
+        t[f"SS {label} library"] = graph_ms(
+            lambda: torch.zeros((n_rows, F), device=vals.device).index_add_(0, keys, vals))
+        t[f"route {label}"] = graph_ms(lambda: grid_table_gradient(spec, table, xg, dcols, live))
+        t[f"GB {label}"] = graph_ms(lambda: grid_encode_bwd(spec, table, xg, dcols, live))
+        t[f"route {label} MB"] = peak_mb(lambda: grid_table_gradient(spec, table, xg, dcols,
+                                                                     live))
+        t[f"GB {label} MB"] = peak_mb(lambda: grid_encode_bwd(spec, table, xg, dcols, live))
+    m = keys.numel()
+    b = {f"SK {label}": (B * spec.n_dims * 4 + nbytes(dcols) + nbytes(keys, vals),
+                         sk_flops(spec, B), PEAK_FP32),
+         f"SS {label}": (nbytes(keys, order, vals) + n_rows * F * table.element_size(),
+                         m * F, PEAK_FP32)}
+    for k, (n_bytes, flops, peak) in b.items():
+        t[k + " bound"] = bound_ms(n_bytes, flops, peak)
+        t[k + " bound by"] = bound_by(n_bytes, flops, peak)
+    print(f"{label}: SK {t[f'SK {label}']:.4f} ms (plain {t[f'SK {label} plain']:.4f}, bound "
+          f"{t[f'SK {label} bound']:.4f}: {b[f'SK {label}'][0] / 1e6:.1f} MB); torch.sort "
+          f"{t[f'sort {label}']:.4f} ms; SS {t[f'SS {label}']:.4f} ms (plain "
+          f"{t[f'SS {label} plain']:.4f}, index_add_ {t[f'SS {label} library']:.4f}, bound "
+          f"{t[f'SS {label} bound']:.4f}: {b[f'SS {label}'][0] / 1e6:.1f} MB); the route "
+          f"{t[f'route {label}']:.4f} ms against GB's {t[f'GB {label}']:.4f} (the sort "
+          f"{t[f'sort {label}'] / t[f'route {label}']:.3f} of the route); peak memory of the "
+          f"route {t[f'route {label} MB']:.1f} MB, of GB {t[f'GB {label} MB']:.1f} MB")
+
+
+def sortseg_fit(image, steps, sortseg):
+    """config_hash (BF16_POLICY) from its seed, ``steps`` steps at B =
+    MAIN_BATCH of ``make_training_loop`` on the seeded image sampler, the
+    launch counts set to 0 just before and read just after; returns
+    (losses, the trained weights, the launches, the model, the sampler)."""
+    from tcnn_tpu_torch import BF16_POLICY, create_from_config
+    from tcnn_tpu_torch.utils.image import ImageSampler
+
+    set_sortseg(sortseg)
+    try:
+        fit = create_from_config(2, 3, CONFIG, policy=BF16_POLICY)
+        sampler = ImageSampler(image, seed=0)
+        loop = fit.trainer.make_training_loop(lambda i: sampler.sample_batch(MAIN_BATCH), steps)
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = loop()
+        torch.cuda.synchronize()
+        launches = all_counts()
+    finally:
+        set_sortseg(False)
+    return losses.cpu(), [p.detach().clone() for p in fit.trainer.params().values()], \
+        launches, fit, sampler
+
+
+def sortseg_slice(gen, dev):
+    """Slice 19, the deterministic table gradient (``TCNN_TPU_SCATTER=sortseg``,
+    ``ops/sort_scatter.py``): kernels SK and SS and the route at config_hash's
+    and config_btf's grids (2^18, bf16 tables and dcols as the main paths
+    hand them; ``sortseg_kernel_checks``); the main path, config_hash at full
+    width trained through ``make_training_loop`` under ``sortseg`` twice from
+    one seed (200 steps at 2^18): every weight and loss bit-identical, SK and
+    SS launched and GB not, the loss falling and a PSNR floor; the same fit
+    with GB twice (weights that differ: a number, not a gate); the captured
+    loop against the same steps taken eagerly, bit for bit; the step on the
+    device under each route at config_hash and config_btf, with its peak
+    memory; ``DataParallel.make_training_loop`` on a one-rank NCCL group
+    under ``sortseg`` (its capture takes the sort; SK and SS in the warm-up
+    and each replay; losses and weights equal to the trainer loop's, bit
+    for bit).  Returns the report entries of SK and SS."""
+    import tempfile
+
+    from tcnn_tpu_torch import BF16_POLICY, create_from_config
+    from tcnn_tpu_torch.tools import parallel_check
+    from tcnn_tpu_torch.tools.plain_path import grid_parts
+    from tcnn_tpu_torch.utils.image import synthetic_image
+    from tcnn_tpu_torch.utils.metrics import psnr
+
+    t_phase = time.time()
+    t, err, models = {}, {}, {}
+    for label, n_in, cfg in (("config_hash", 2, CONFIG), ("config_btf", 6, BTF_CONFIG)):
+        model = create_from_config(n_in, 3, cfg, policy=BF16_POLICY)
+        models[label] = model
+        x = torch.rand((MAIN_BATCH, n_in), generator=gen, device=dev)
+        (_, grid, xg, _), = grid_parts(model, x)
+        with torch.no_grad():
+            grid.grid.uniform_(-1, 1, generator=gen)
+        spec = grid.spec
+        dcols = torch.randn((spec.n_output_dims, MAIN_BATCH), generator=gen,
+                            device=dev).to(torch.bfloat16)
+        if label == "config_btf":   # the transpose of MB's AoS input gradient, read in place
+            dcols = dcols.t().contiguous().t()
+        sortseg_kernel_checks(label, spec, grid.grid.detach().to(torch.bfloat16), xg, dcols,
+                              gen, t, err)
+
+    phase(f"slice 19: the main path, config_hash (BF16_POLICY) through make_training_loop "
+          f"under TCNN_TPU_SCATTER=sortseg, {SORTSEG_STEPS} steps at B={MAIN_BATCH}, twice "
+          f"from one seed")
+    image = synthetic_image(1024, 1024)
+    losses, weights, launches, fit, sampler = sortseg_fit(image, SORTSEG_STEPS, True)
+    losses2, weights2, launches2, _, _ = sortseg_fit(image, SORTSEG_STEPS, True)
+    check(launches["SK"] >= 1 and launches["SS"] >= 1 and launches["GB"] == 0,
+          f"the sortseg fit's launches {launches}: expected SK and SS, and no GB")
+    check(launches == launches2, f"the two sortseg fits launched {launches} and {launches2}")
+    same = [torch.equal(a, b) for a, b in zip(weights, weights2)]
+    check(all(same) and torch.equal(losses, losses2),
+          f"two sortseg fits from one seed: weights equal {same}, losses equal "
+          f"{torch.equal(losses, losses2)}")
+    check(bool(torch.isfinite(losses).all()), "the sortseg fit: non-finite loss")
+    first, last10 = float(losses[0]), float(losses[-10:].mean())
+    fit_psnr = psnr(fit.trainer.inference(sampler.full_grid_coords()),
+                    sampler.image.reshape(-1, 3))
+    check(last10 < 0.2 * first and fit_psnr > 20.0,
+          f"the sortseg fit: loss {first} -> {last10}, PSNR {fit_psnr:.2f} dB")
+    print(f"two sortseg fits: every weight ({sum(w.numel() for w in weights)} values) and "
+          f"every loss bit-identical; loss {first:.4f} -> {last10:.4f} (mean of the last "
+          f"10); PSNR {fit_psnr:.2f} dB; launches {launches} (the warm-up step and the "
+          f"captured one)")
+    _, gb_weights, gb_launches, _, _ = sortseg_fit(image, SORTSEG_STEPS, False)
+    _, gb_weights2, _, _, _ = sortseg_fit(image, SORTSEG_STEPS, False)
+    check(gb_launches["GB"] >= 1 and gb_launches["SK"] == gb_launches["SS"] == 0,
+          f"the GB fit's launches {gb_launches}")
+    gb_diff = [int((a != b).sum()) for a, b in zip(gb_weights, gb_weights2)]
+    t["GB fit diff"] = gb_diff
+    print(f"two GB fits from one seed (the same {SORTSEG_STEPS} steps without sortseg): "
+          f"{sum(gb_diff)} of {sum(w.numel() for w in gb_weights)} weights differ, per "
+          f"parameter {gb_diff} (a number, not a gate)")
+
+    phase(f"slice 19: the captured loop against the same {SORTSEG_REPLAY_STEPS} steps taken "
+          f"eagerly, under sortseg")
+    from tcnn_tpu_torch.utils.image import ImageSampler
+
+    set_sortseg(True)
+    try:
+        runs = []
+        for captured in (True, False):
+            model = create_from_config(2, 3, CONFIG, policy=BF16_POLICY)
+            smp = ImageSampler(image, seed=1)
+            if captured:
+                ls = model.trainer.make_training_loop(lambda i: smp.sample_batch(MAIN_BATCH),
+                                                      SORTSEG_REPLAY_STEPS)()
+            else:
+                ls = torch.stack([model.trainer.training_step(*smp.sample_batch(MAIN_BATCH))
+                                  for _ in range(SORTSEG_REPLAY_STEPS)])
+            torch.cuda.synchronize()
+            runs.append((ls.cpu(), [p.detach().clone() for p in model.trainer.params().values()]))
+    finally:
+        set_sortseg(False)
+    same = [torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])]
+    check(all(same) and torch.equal(runs[0][0], runs[1][0]),
+          f"the captured loop against eager steps: weights equal {same}, losses equal "
+          f"{torch.equal(runs[0][0], runs[1][0])}")
+    print(f"the captured loop's {SORTSEG_REPLAY_STEPS} steps equal the eager steps bit for bit "
+          f"(losses and every weight)")
+
+    phase(f"slice 19: the training step on the device (a CUDA graph of {N_TIMED} steps) under "
+          f"each route, and its peak memory, B={MAIN_BATCH}")
+    for label, model in models.items():
+        n_in = 2 if label == "config_hash" else 6
+        x = torch.rand((MAIN_BATCH, n_in), generator=gen, device=dev)
+        target = torch.rand((MAIN_BATCH, 3), generator=gen, device=dev)
+        trainer = model.trainer
+        for route in ("GB", "sortseg"):
+            set_sortseg(route == "sortseg")
+            try:
+                t[f"step {label} {route}"] = graph_ms(lambda: trainer.training_step(x, target))
+                t[f"step {label} {route} MB"] = peak_mb(lambda: trainer.training_step(x, target))
+            finally:
+                set_sortseg(False)
+        print(f"{label}: the step {t[f'step {label} GB']:.4f} ms on the device with GB, "
+              f"{t[f'step {label} sortseg']:.4f} with the sortseg route "
+              f"(+{t[f'step {label} sortseg'] - t[f'step {label} GB']:.4f} ms); its peak "
+              f"memory {t[f'step {label} GB MB']:.1f} MB and "
+              f"{t[f'step {label} sortseg MB']:.1f} MB")
+
+    phase(f"slice 19: DataParallel.make_training_loop under sortseg on a one-rank NCCL group, "
+          f"config_hash, {SORTSEG_DP_STEPS} steps at B={MAIN_BATCH}")
+    with tempfile.TemporaryDirectory() as tmp:
+        res, = parallel_check.run_ranks(1, parallel_check.nccl_sortseg_job,
+                                        {"steps": SORTSEG_DP_STEPS, "batch": MAIN_BATCH},
+                                        timeout=600, tmp=tmp, backend="nccl")
+    check(res["backend"] == "nccl", f"the group's backend is {res['backend']}")
+    for what in ("parallel", "trainer"):
+        for when in ("warm_up", "per_replay"):
+            c = res[when][what]
+            check(c["SK"] == 1 and c["SS"] == 1 and c["GB"] == 0,
+                  f"{what} loop under sortseg, {when}: launches {c}, expected SK and SS once "
+                  f"and no GB")
+    got, want = res["losses"]["parallel"], res["losses"]["trainer"]
+    check(bool(np.isfinite(got).all()) and got[-1] < got[0],
+          f"the DataParallel loop under sortseg: losses {got}")
+    # at one rank the step calls no collective: the two loops run the same kernels
+    check(got == want and res["same_weights"],
+          f"the DataParallel loop under sortseg against Trainer.make_training_loop: losses "
+          f"{got} and {want}, weights equal {res['same_weights']}")
+    print(f"DataParallel loop under sortseg: captured, SK and SS once in the warm-up and in "
+          f"each replay, no GB; losses {got[0]:.6f} -> {got[-1]:.6f}, and the trained weights, "
+          f"equal to Trainer.make_training_loop's bit for bit")
+    reset_counts()
+    print(f"slice 19: the phase took {time.time() - t_phase:.1f} s")
+
+    out = []
+    path = (f"config_hash (BF16_POLICY) through make_training_loop under TCNN_TPU_SCATTER="
+            f"sortseg, {SORTSEG_STEPS} steps at B={MAIN_BATCH} (the warm-up step and the "
+            f"captured one)")
+    for k in ("SK", "SS"):
+        extra = {"path": path, "batch": MAIN_BATCH, "sort_ms": t["sort config_hash"],
+                 "route_ms": t["route config_hash"], "gb_ms": t["GB config_hash"],
+                 "config_btf_ms": t[f"{k} config_btf"],
+                 "config_btf_bound_ms": t[f"{k} config_btf bound"]}
+        out += entries(t, [(f"{k} config_hash", k, REPLACES_SORTSEG)], launches, err, extra)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -5040,7 +5398,8 @@ def main():
               + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)
               + parallel_slice(gen, dev) + parallel_loop_slice(dev, hash_entries)
               + slice14(gen, dev, hash_times)
-              + wide_features_slice(gen, dev) + wide_output_slice(gen, dev)}
+              + wide_features_slice(gen, dev) + wide_output_slice(gen, dev)
+              + sortseg_slice(gen, dev)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

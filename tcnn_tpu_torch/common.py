@@ -90,9 +90,23 @@ class Policy:
     compute_dtype: torch.dtype = torch.float32
     output_dtype: torch.dtype = torch.float32
 
+    def cast_to_compute(self, x) -> torch.Tensor:
+        """``x`` (a tensor, array or number) in ``compute_dtype``
+        (``tcnn_tpu/common.py:137``); a tensor keeps its device."""
+        return torch.as_tensor(x, dtype=self.compute_dtype)
+
+    def cast_to_output(self, x) -> torch.Tensor:
+        """``x`` in ``output_dtype`` (``tcnn_tpu/common.py:140``)."""
+        return torch.as_tensor(x, dtype=self.output_dtype)
+
 
 DEFAULT_POLICY = Policy()
 BF16_POLICY = Policy(compute_dtype=torch.bfloat16)
+
+
+def default_policy() -> Policy:
+    """The policy modules take when given none (``tcnn_tpu/common.py:150``)."""
+    return DEFAULT_POLICY
 
 
 def next_multiple(x: int, m: int) -> int:

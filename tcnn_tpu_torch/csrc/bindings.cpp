@@ -216,6 +216,42 @@ void row_scatter(const torch::Tensor& idx, const torch::Tensor& g, int64_t g_str
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void sort_keys(const torch::Tensor& x, int64_t x_stride_b,
+               const c10::optional<torch::Tensor>& level_frac, const torch::Tensor& dcols,
+               int64_t dc_stride_b, int64_t dc_stride_f, const torch::Tensor& level_params,
+               int64_t n_dims, int64_t n_features, const std::vector<int64_t>& hash_factors,
+               int64_t hash_kind, int64_t interp, bool sharded,
+               const c10::optional<torch::Tensor>& u, int64_t sentinel,
+               const torch::Tensor& keys, const torch::Tensor& vals) {
+  TORCH_CHECK(hash_factors.size() == 7, "sort_keys: seven hash factors");
+  const c10::cuda::CUDAGuard guard(x.device());
+  uint32_t factors[7];
+  for (int d = 0; d < 7; ++d) factors[d] = static_cast<uint32_t>(hash_factors[d]);
+  C10_CUDA_CHECK(tcnn_tpu_torch::sort_keys_launch(
+      x.data_ptr<float>(), x_stride_b, optional_ptr<float>(level_frac), dcols.data_ptr(),
+      dcols.scalar_type() == at::kBFloat16, dc_stride_b, dc_stride_f,
+      level_params.data_ptr<int32_t>(), static_cast<int>(level_params.size(0)), x.size(0),
+      static_cast<int>(n_dims), static_cast<int>(n_features), factors,
+      static_cast<int>(hash_kind), static_cast<int>(interp), sharded, optional_ptr<float>(u),
+      static_cast<int32_t>(sentinel), keys.data_ptr<int32_t>(), vals.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void segment_sum(const torch::Tensor& keys, const torch::Tensor& order, const torch::Tensor& vals,
+                 int64_t n_rows, const torch::Tensor& grad, const torch::Tensor& out) {
+  const c10::cuda::CUDAGuard guard(grad.device());
+  const int n_features = static_cast<int>(vals.size(1));
+  // the two passes' head and tail sums, in use until the launches have run
+  const torch::Tensor scratch = torch::empty(
+      {tcnn_tpu_torch::segment_sum_scratch_floats(keys.numel(), n_features)}, grad.options());
+  C10_CUDA_CHECK(tcnn_tpu_torch::segment_sum_launch(
+      keys.data_ptr<int32_t>(), order.data_ptr<int64_t>(), vals.data_ptr<float>(),
+      keys.numel(), n_features, n_rows, scratch.data_ptr<float>(), grad.data_ptr<float>(),
+      out.data_ptr(), out.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 int64_t fused_mlp_bwd_smem_bytes(int64_t d_in, int64_t d_out, int64_t width,
                                  int64_t n_layers, bool compute_bf16, int64_t act,
                                  int64_t out_act) {
@@ -276,6 +312,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("grid_encode_bwd_bwd", &grid_encode_bwd_bwd, "grid-encode second order (kernel GG)");
   m.def("grid_encode_third", &grid_encode_third, "grid-encode third order (kernel GT)");
   m.def("row_scatter", &row_scatter, "row scatter-add (kernel RS)");
+  m.def("sort_keys", &sort_keys, "grid table-gradient updates as sort keys and values (kernel SK)");
+  m.def("segment_sum", &segment_sum, "segment sums of sorted updates (kernel SS)");
   m.def("fused_mlp_bwd_smem_bytes", &fused_mlp_bwd_smem_bytes,
         "shared memory of one kernel-MB CTA");
   m.def("fused_mlp_fwd_smem_bytes", &fused_mlp_fwd_smem_bytes,

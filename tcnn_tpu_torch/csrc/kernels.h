@@ -176,6 +176,40 @@ cudaError_t row_scatter_launch(const int32_t* idx, const float* g, int64_t g_str
                                int64_t g_stride_k, int64_t m, int n_features, float* acc,
                                void* out, bool out_bf16, int64_t n_rows, cudaStream_t stream);
 
+// Kernel SK: the grid's table-gradient updates as sort keys and values
+// (csrc/sort_scatter.cu), the first step of the sort-and-segment-sum route.
+//   x, x_stride_b, level_frac, level_params, n_levels, hash_factors,
+//   hash_kind, interp, sharded: as for grid_encode_bwd_launch (dead levels
+//                have no updates)
+//   dcols        as for grid_encode_bwd_launch, float32 or bfloat16 (dcols_bf16)
+//   u            as for grid_encode_bwd_launch (not with sharded)
+//   keys         (M) int32, M = live levels x 2^n_dims x batch in (live level,
+//                corner, sample) order: the corner's table (or shard) row, or
+//                `sentinel` (n_rows) where the update adds nothing (a masked
+//                (sample, level), another rank's corner)
+//   vals         (M, n_features) float32: w * dy, the scatter weight (zero
+//                where the key is the sentinel) times the output gradient
+cudaError_t sort_keys_launch(const float* x, int64_t x_stride_b, const float* level_frac,
+                             const void* dcols, bool dcols_bf16, int64_t dc_stride_b,
+                             int64_t dc_stride_f, const int32_t* level_params, int n_levels,
+                             int64_t batch, int n_dims, int n_features,
+                             const uint32_t hash_factors[7], int hash_kind, int interp,
+                             bool sharded, const float* u, int32_t sentinel, int32_t* keys,
+                             float* vals, cudaStream_t stream);
+
+// Kernel SS: segment sums of sorted updates (csrc/sort_scatter.cu), no atomics.
+//   keys         (m) int32, sorted; keys outside [0, n_rows) are skipped
+//   order        (m) int64: sorted position i holds update order[i]
+//   vals         (m, n_features) float32, update-major
+//   scratch      segment_sum_scratch_floats(m, n_features) float32
+//   grad         (n_rows * n_features) float32: zeroed, then each row's sum of
+//                its run, in sorted order
+//   out          the result: bfloat16 (a cast of grad) or grad itself
+cudaError_t segment_sum_launch(const int32_t* keys, const int64_t* order, const float* vals,
+                               int64_t m, int n_features, int64_t n_rows, float* scratch,
+                               float* grad, void* out, bool out_bf16, cudaStream_t stream);
+int64_t segment_sum_scratch_floats(int64_t m, int n_features);
+
 // The shared memory of one kernel-MB CTA for a shape and the activations
 // (more than 232,448 bytes: the shape does not fit).
 int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,

@@ -61,9 +61,8 @@ class GridEncoding(Encoding):
         self.max_level: Optional[int] = None  # static level cutoff
         # Initialised on the CPU from the generator, so that a seed gives
         # the same table on every device.
-        table = torch.empty(self.spec.n_params, dtype=self.policy.param_dtype)
-        table.uniform_(-1e-4, 1e-4, generator=generator)
-        self.grid = nn.Parameter(table.to(resolve_device(device)))
+        table = grid_ops.init_grid_params(generator, self.spec, dtype=self.policy.param_dtype)
+        self.grid = nn.Parameter(table.reshape(-1).to(resolve_device(device)))
 
     def param_layout(self) -> Dict[str, str]:
         # The hash table is a "non-matrix" parameter: no L2, the
@@ -73,6 +72,23 @@ class GridEncoding(Encoding):
 
     def grid_specs(self, prefix: str = "") -> Dict[str, Any]:
         return {prefix + "grid": self.spec}
+
+    def n_params(self) -> int:
+        return self.spec.n_params
+
+    def level_params_offset(self, level: int) -> int:
+        """Where level ``level``'s parameters start in the flat table
+        (tiny-cuda-nn's API for reading one level; past the last level, the
+        table's size; ``tcnn_tpu/models/encodings/grid.py:93-96``)."""
+        if level >= self.spec.n_levels:
+            return self.spec.n_params
+        return self.spec.levels[level].offset * self.spec.n_features_per_level
+
+    def level_n_params(self, level: int) -> int:
+        return self.spec.levels[level].size * self.spec.n_features_per_level
+
+    def required_output_alignment(self) -> int:
+        return self.spec.n_features_per_level
 
     # SoA (feature-major) output is this encoding's native layout
     # (grid.h:1053-1055); FusedMLP consumes it directly.

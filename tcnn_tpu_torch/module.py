@@ -97,6 +97,10 @@ class Module(nn.Module):
 class Encoding(Module):
     """Input encoding base (≈ encoding.h:39-73)."""
 
+    def required_output_alignment(self) -> int:
+        """The multiple the output width must keep (``tcnn_tpu/module.py:158``)."""
+        return 1
+
 
 class Network(Module):
     """Network base (≈ network.h:40-57)."""

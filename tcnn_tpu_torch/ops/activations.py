@@ -73,3 +73,10 @@ def activation_derivative(x: torch.Tensor, act: Activation) -> torch.Tensor:
         return 1 - t * t
     raise ValueError(f"Unsupported activation: {act}")
 
+
+def is_invertible(act: Activation) -> bool:
+    """Whether act' can be computed from the output value alone
+    (``tcnn_tpu/ops/activations.py:77``; warp_activation_backward,
+    common_device.h:171-236)."""
+    return act in (Activation.NONE, Activation.RELU, Activation.LEAKY_RELU,
+                   Activation.EXPONENTIAL, Activation.SIGMOID, Activation.TANH)

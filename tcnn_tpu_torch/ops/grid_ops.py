@@ -198,6 +198,32 @@ def _corner_offsets(n_dims: int) -> np.ndarray:
     return out
 
 
+def level_indices(spec: GridSpec, level: LevelSpec, pos_grid: torch.Tensor) -> torch.Tensor:
+    """Table rows of integer grid coordinates on one level
+    (``tcnn_tpu/ops/grid_ops.py:220``): ``pos_grid`` (..., D) uint32 values
+    held in an integer tensor → (...,) int32 rows of the whole table (the
+    level's offset included), the hash or dense strides wrapping at 32
+    bits."""
+    coords = [pos_grid[..., d].to(torch.int64) & _U32 for d in range(spec.n_dims)]
+    if level.use_hash:
+        idx = _hash_coords(spec.hash_type, coords)
+    else:
+        idx = torch.zeros_like(coords[0])
+        for d in range(spec.n_dims):
+            if level.stride_mask[d]:
+                idx = (idx + _mul_u32(coords[d], level.strides[d])) & _U32
+    return (idx % level.size + level.offset).to(torch.int32)
+
+
+def init_grid_params(generator: Optional[torch.Generator], spec: GridSpec,
+                     scale: float = 1.0, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(n_entries, F) table drawn U(−1e-4·scale, 1e-4·scale) on the CPU from
+    ``generator`` (grid.h:1059-1062; ``tcnn_tpu/ops/grid_ops.py:1300``, which
+    takes a JAX key: the two draw other numbers from one seed)."""
+    table = torch.empty((spec.n_entries, spec.n_features_per_level), dtype=dtype)
+    return table.uniform_(-1e-4 * scale, 1e-4 * scale, generator=generator)
+
+
 def _interp_weight(f: torch.Tensor, interp: InterpolationType) -> torch.Tensor:
     """Cell-relative fraction → interpolation weight (common_device.h:801-811)."""
     if interp == InterpolationType.LINEAR:
@@ -574,6 +600,22 @@ def _kernel_table(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def _table_gradient(spec: GridSpec, flat: torch.Tensor, x: torch.Tensor, dcols: torch.Tensor,
+                    live, frac, shard, sortseg: bool) -> torch.Tensor:
+    """The first-order table gradient of both call sites
+    (``GridEncodeFunction.backward`` without a graph,
+    ``GridEncodeBackwardFunction.forward``): the ``sortseg`` route
+    (``ops/sort_scatter.py``, kernels SK and SS; the JAX package's branch at
+    ``tcnn_tpu/ops/grid_ops.py:962-977``) where ``sortseg``, else kernel GB."""
+    if sortseg:
+        from .sort_scatter import grid_table_gradient
+
+        return grid_table_gradient(spec, flat, x, dcols, live, level_frac=frac, shard=shard)
+    from .cuda.grid_encode import grid_encode_bwd
+
+    return grid_encode_bwd(spec, flat, x, dcols, live, level_frac=frac, shard=shard)
+
+
 class GridEncodeFunction(torch.autograd.Function):
     """The grid encoding with its gradients, the counterpart of
     ``_grid_interpolate``'s custom VJP (``tcnn_tpu/ops/grid_ops.py:917-1122``).
@@ -592,6 +634,16 @@ class GridEncodeFunction(torch.autograd.Function):
     (B,) level fractions go to every kernel, forward and backward).  Under
     ``create_graph`` the backward is ``GridEncodeBackwardFunction``, so the
     gradients can be differentiated once more.
+
+    ``TCNN_TPU_SCATTER=sortseg``, read at each backward as the JAX package
+    reads it, takes the table gradient through the sort-and-segment-sum
+    route (kernels SK and SS, ``ops/sort_scatter.py``), whose fp32 sums run
+    in a fixed order: the same inputs give the same bits, which GB's
+    atomics do not.  It covers what JAX's branch covers, this first-order
+    gradient; the table gradients of the second and third order (GG, GT)
+    and of forward mode (``jvp``) keep their kernels.  A step captured in a
+    CUDA graph (``Trainer.make_training_loop``) keeps the route it was
+    captured with.
 
     ``torch.func``: the transform, not a failed launch, picks the route.
     Forward mode (``jvp``) is what the JAX package computes in jnp, outside
@@ -624,7 +676,8 @@ class GridEncodeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
+        from .cuda.grid_encode import grid_encode_bwd_input
+        from .sort_scatter import sortseg_selected
 
         if dout is None:
             return None, None, None, None, None, None, None
@@ -632,12 +685,14 @@ class GridEncodeFunction(torch.autograd.Function):
         dcols = dout if ctx.soa else dout.t()
         need_table = ctx.needs_input_grad[0] and _engine_will_use(flat)
         need_x = ctx.needs_input_grad[1] and _engine_will_use(x)
+        sortseg = sortseg_selected()
         if torch.is_grad_enabled():
             dflat, dx = GridEncodeBackwardFunction.apply(flat, x, dcols, ctx.spec, ctx.live,
-                                                         need_table, need_x, frac, ctx.shard)
+                                                         need_table, need_x, frac, ctx.shard,
+                                                         sortseg)
         else:
-            dflat = (grid_encode_bwd(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac,
-                                     shard=ctx.shard) if need_table else None)
+            dflat = (_table_gradient(ctx.spec, flat, x, dcols, ctx.live, frac, ctx.shard,
+                                     sortseg) if need_table else None)
             dx = (grid_encode_bwd_input(ctx.spec, flat, x, dcols, ctx.live, level_frac=frac,
                                         shard=ctx.shard) if need_x else None)
         return dflat, dx, None, None, None, None, None
@@ -676,8 +731,11 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     ``(flat, x, dcols) → (dflat, dx)``: the reference bindings' two-Function
     pattern (SURVEY.md §3.4, modules.py:107-160).
 
-    Forward: kernel GB for dflat and kernel GI for dx, each only where
-    asked.  Backward, from the cotangents (ct_dflat, ct_dx), every block
+    Forward: kernel GB for dflat (the ``sortseg`` route, kernels SK and SS,
+    where ``sortseg``: ``GridEncodeFunction.backward`` passes it for the
+    first-order gradient; every other caller, a higher derivative or
+    ``jvp``, keeps GB) and kernel GI for dx, each only where asked.
+    Backward, from the cotangents (ct_dflat, ct_dx), every block
     JAX's autodiff gives:
       * ct_dx through kernel GG (d dcols, d x and the table gradient of
         the input gradient, the transpose of JAX's corner re-gather,
@@ -706,10 +764,11 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(flat, x, dcols, spec, live, need_table, need_x, frac, shard=None):
-        from .cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_input
+    def forward(flat, x, dcols, spec, live, need_table, need_x, frac, shard=None,
+                sortseg=False):
+        from .cuda.grid_encode import grid_encode_bwd_input
 
-        dflat = (grid_encode_bwd(spec, flat, x, dcols, live, level_frac=frac, shard=shard)
+        dflat = (_table_gradient(spec, flat, x, dcols, live, frac, shard, sortseg)
                  if need_table else None)
         dx = (grid_encode_bwd_input(spec, _kernel_table(flat), x, dcols, live, level_frac=frac,
                                     shard=shard) if need_x else None)
@@ -720,7 +779,7 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
         flat, x, dcols, spec, live, need_table, need_x, frac, *shard = inputs
         ctx.set_materialize_grads(False)
         ctx.spec, ctx.live, ctx.need = spec, live, (need_table, need_x)
-        ctx.shard = shard[0] if shard else None
+        ctx.shard = shard[0] if shard else None   # the route (shard[1:]) serves forward alone
         ctx.save_for_backward(flat, x, dcols, frac)
         ctx.save_for_forward(flat, x, dcols, frac)
 
@@ -751,7 +810,7 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
                 d_x = du if d_x is None else d_x + du
         if d_dcols is not None:
             d_dcols = d_dcols.to(dcols.dtype)
-        return d_flat, d_x, d_dcols, None, None, None, None, None, None
+        return d_flat, d_x, d_dcols, None, None, None, None, None, None, None
 
     @staticmethod
     def jvp(ctx, t_flat, t_x, t_dcols, *_):
@@ -779,11 +838,13 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
         return t_dflat, t_dx
 
     @staticmethod
-    def vmap(info, in_dims, flat, x, dcols, spec, live, need_table, need_x, frac, shard=None):
+    def vmap(info, in_dims, flat, x, dcols, spec, live, need_table, need_x, frac, shard=None,
+             sortseg=False):
         in_dims = in_dims[:8]
         args = (flat, x, dcols, spec, live, need_table, need_x, frac)
         if in_dims[0] is not None or need_table:
-            return func_rules.loop(GridEncodeBackwardFunction, info, in_dims, args)
+            return func_rules.loop(GridEncodeBackwardFunction, info, in_dims + (None, None),
+                                   args + (None, sortseg))
         n = info.batch_size
         _, dx = GridEncodeBackwardFunction.apply(
             flat, func_rules.fold(x, in_dims[1], n, 0), func_rules.fold(dcols, in_dims[2], n, 1),

@@ -6,7 +6,7 @@ losses and optimizers.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List
 
 
 class Registry:
@@ -31,6 +31,11 @@ class Registry:
                 f"Invalid {self.kind} name: {otype}. "
                 f"Known: {sorted(self._factories)}")
         return self._factories[key](*args, **kwargs)
+
+    def names(self) -> List[str]:
+        """The registered names, lower-cased and sorted
+        (``tcnn_tpu/registry.py:39``)."""
+        return sorted(self._factories)
 
 
 encodings = Registry("encoding")

@@ -13,7 +13,8 @@ gloo, before it takes a step.  ``nccl_loop_job`` runs on a one-rank NCCL
 group (one card holds one NCCL rank): ``DataParallel.make_training_loop``
 against ``Trainer.make_training_loop``, and each collective the steps use
 replayed from a CUDA graph against an eager call (``chip_smoke.py``'s
-slice-18 phase).  Three jobs of ``train_job``:
+slice-18 phase); ``nccl_sortseg_job`` runs the two loops under
+``TCNN_TPU_SCATTER=sortseg`` (slice 19).  Three jobs of ``train_job``:
 
   * ``hybrid_btf``: configs/config_btf.json at BF16_POLICY (a Composite of
     a 4-D CoherentAdd hash grid of 15,474,688 parameters and OneBlob,
@@ -109,10 +110,11 @@ def _counters():
     from ..ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
                                         grid_encode_bwd_input, grid_encode_fwd)
     from ..ops.cuda.scatter import row_scatter_add
+    from ..ops.cuda.sort_scatter import segment_sum, sort_keys
 
     return {"G": grid_encode_fwd, "GB": grid_encode_bwd, "GI": grid_encode_bwd_input,
             "GG": grid_encode_bwd_bwd, "RS": row_scatter_add, "M": fused_mlp_fwd,
-            "MB": fused_mlp_bwd}
+            "MB": fused_mlp_bwd, "SK": sort_keys, "SS": segment_sum}
 
 
 def _sync(device):
@@ -318,23 +320,17 @@ def collectives_job(rank, world, args):
     return _captured_collectives(torch.device("cuda", torch.cuda.current_device()))
 
 
-def nccl_loop_job(rank, world, args):
-    """On a one-rank NCCL group: ``DataParallel.make_training_loop``
-    training config_hash (BF16_POLICY) for ``args["steps"]`` steps of
-    ``args["batch"]`` from the seeded image sampler, and
-    ``Trainer.make_training_loop`` of the same model on the same batches
-    in this process: both loops' losses, each kernel's launches before the
-    capture (the warm-up step) and in the captured step (each replay
-    launches these), both loops' ms per step (host clock) and device ms
-    per replayed step over ``args["rounds"]`` more calls, in turns, and
-    the ms per step of ``DataParallel.make_training_step``'s eager steps on
-    the same batches (host clock, ``args["rounds"]`` passes); then
-    ``_captured_collectives``."""
+def _two_loops(batch, steps, device):
+    """``DataParallel.make_training_loop`` and ``Trainer.make_training_loop``
+    of config_hash (BF16_POLICY), each on a fresh model from one seed,
+    ``steps`` steps of the same ``batch``-sample batches, run once: the
+    losses, each kernel's launches before the capture (the warm-up step)
+    and in the captured step (each replay launches these), and the trained
+    weights; with the loops, the DataParallel layer and its trainer."""
     from ..parallel import DataParallel
 
-    device = torch.device("cuda", torch.cuda.current_device())
-    steps, counters = args["steps"], _counters()
-    sample = _sampler("dp_hash", args["batch"], device)
+    counters = _counters()
+    sample = _sampler("dp_hash", batch, device)
     batches = [sample(i) for i in range(steps)]
     at_capture = {}
     capture_begin = torch.cuda.CUDAGraph.capture_begin
@@ -344,7 +340,7 @@ def nccl_loop_job(rank, world, args):
         return capture_begin(graph, *a, **k)
 
     loops, res = {}, {"losses": {}, "warm_up": {}, "per_replay": {}, "ms": {},
-                      "device_ms": {}}
+                      "device_ms": {}, "weights": {}}
     torch.cuda.CUDAGraph.capture_begin = counting_capture_begin
     try:
         for what in ("parallel", "trainer"):
@@ -361,9 +357,47 @@ def nccl_loop_job(rank, world, args):
             after = {k: fn.launches for k, fn in counters.items()}
             res["warm_up"][what] = dict(at_capture)
             res["per_replay"][what] = {k: after[k] - at_capture[k] for k in after}
+            res["weights"][what] = [p.detach().clone() for p in trainer.params().values()]
             loops[what] = (loop, _graph_of(trainer))
     finally:
         torch.cuda.CUDAGraph.capture_begin = capture_begin
+    return res, loops, (dp, dp_trainer), batches
+
+
+def nccl_sortseg_job(rank, world, args):
+    """``_two_loops`` under ``TCNN_TPU_SCATTER=sortseg`` on a one-rank NCCL
+    group: the DataParallel loop's capture takes the route's sort (kernels
+    SK and SS in the warm-up and in each replay, no GB); the losses of both
+    loops, their launches, and whether their trained weights are equal bit
+    for bit."""
+    import os
+
+    os.environ["TCNN_TPU_SCATTER"] = "sortseg"
+    device = torch.device("cuda", torch.cuda.current_device())
+    res, _, _, _ = _two_loops(args["batch"], args["steps"], device)
+    weights = res.pop("weights")
+    res["same_weights"] = all(torch.equal(a, b)
+                              for a, b in zip(weights["parallel"], weights["trainer"]))
+    res["backend"] = dist.get_backend()
+    return res
+
+
+def nccl_loop_job(rank, world, args):
+    """On a one-rank NCCL group: ``DataParallel.make_training_loop``
+    training config_hash (BF16_POLICY) for ``args["steps"]`` steps of
+    ``args["batch"]`` from the seeded image sampler, and
+    ``Trainer.make_training_loop`` of the same model on the same batches
+    in this process: both loops' losses, each kernel's launches before the
+    capture (the warm-up step) and in the captured step (each replay
+    launches these), both loops' ms per step (host clock) and device ms
+    per replayed step over ``args["rounds"]`` more calls, in turns, and
+    the ms per step of ``DataParallel.make_training_step``'s eager steps on
+    the same batches (host clock, ``args["rounds"]`` passes); then
+    ``_captured_collectives``."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    steps = args["steps"]
+    res, loops, (dp, dp_trainer), batches = _two_loops(args["batch"], steps, device)
+    del res["weights"]
     for what in ("parallel", "trainer", "trainer", "parallel"):
         loop, graph = loops[what]
         ms, device_ms = _loop_times(loop, steps, graph, args["rounds"])

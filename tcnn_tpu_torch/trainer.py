@@ -197,7 +197,10 @@ class Trainer:
         graph (its warm-up is the loop's first step) and every other step
         replays it; with ``device="cpu"`` the steps run eagerly.  An
         optimizer whose step cannot be captured (Shampoo) raises on the
-        card.
+        card.  The captured step keeps the table-gradient route it was
+        captured with (``TCNN_TPU_SCATTER=sortseg`` or not,
+        ``ops/sort_scatter.py``): setting the variable later does not
+        change the replays.
         """
         return lambda: self._run_loop(sample_fn, n_steps)
 

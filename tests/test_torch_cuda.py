@@ -2313,3 +2313,163 @@ def test_no_cuda_call_at_wide_shapes_reaches_a_plain_version(cuda, monkeypatch):
         assert sum(k.launches for k in counters) > before + 1
         assert all(bool(torch.isfinite(t).all()) for t in (y, dx, *dws))
 
+
+
+# -- slice 19: the sortseg route, kernels SK and SS ---------------------------
+#
+# SK's keys and values equal its plain version bit for bit (the same corner
+# arithmetic, one product per value).  SS against its plain version (JAX's
+# cumulative-sum differences): per row within 2^-23·(P + n·A)
+# (``ops/cuda/sort_scatter.py``), and bit for bit where every sum is exact
+# (values that are small integers); SS twice on the same inputs, bit for
+# bit.  The route's table gradient against GB's plain version within 2^-11·S
+# (``chip_smoke.py``'s ``compare_table_grad``), plus one bf16 ulp.
+
+SORTSEG_CASES = [  # (id, make_grid_spec args, kwargs)
+    ("config_hash", (2, 16, 2, 15, 16, 1.5), {}),
+    ("coherent_add_4d", (4, 8, 2, 14, 4, 1.5), {"hash_type": HashType.COHERENT_ADD}),
+    ("dense_3d_f3", (3, 4, 3, 10, 4, 1.8), {"grid_type": GridType.DENSE}),
+    ("tiled_smoothstep", (2, 4, 1, 10, 3, 1.5),
+     {"grid_type": GridType.TILED, "interpolation": InterpolationType.SMOOTHSTEP}),
+    ("rng", (2, 6, 2, 12, 8, 1.5), {"hash_type": HashType.RNG}),
+    ("7d", (7, 2, 2, 12, 2, 1.5), {}),
+    ("f16", (3, 4, 16, 12, 4, 1.5), {}),
+    ("stochastic", (2, 8, 2, 12, 8, 1.5),
+     {"stochastic_interpolation": True, "interpolation": InterpolationType.SMOOTHSTEP}),
+]
+
+
+def _sortseg_inputs(cuda, case, dtype, masked, batch=4133, seed=19):
+    _, args, kw = case
+    spec = grid_ops.make_grid_spec(*args, **kw)
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x = torch.rand((batch, spec.n_dims), generator=gen, device=cuda) * 1.2 - 0.1
+    dcols = torch.randn((spec.n_output_dims, batch), generator=gen, device=cuda).to(dtype)
+    frac = torch.rand(batch, generator=gen, device=cuda) if masked else None
+    live = list(range(spec.n_levels - 1 if masked else spec.n_levels))
+    return spec, x, dcols, frac, live
+
+
+@pytest.mark.parametrize("case", SORTSEG_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True], ids=["all-levels", "masked"])
+def test_sort_keys_kernel_equals_plain_bit_for_bit(cuda, case, dtype, masked):
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import sort_keys, sort_keys_plain
+
+    spec, x, dcols, frac, live = _sortseg_inputs(cuda, case, dtype, masked)
+    if masked:   # the transpose of an AoS gradient, read in place
+        dcols = dcols.t().contiguous().t()
+    before = sort_keys.launches
+    keys, vals = sort_keys(spec, x, dcols, live, frac)
+    torch.cuda.synchronize()
+    assert sort_keys.launches == before + 1
+    want_keys, want_vals = sort_keys_plain(spec, x, dcols, live, frac)
+    assert keys.dtype == torch.int32 and vals.dtype == torch.float32
+    assert torch.equal(keys, want_keys) and torch.equal(vals, want_vals)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sort_keys_kernel_in_shard_mode_equals_plain(cuda, n):
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import sort_keys, sort_keys_plain
+
+    spec, x, dcols, frac, live = _sortseg_inputs(cuda, SORTSEG_CASES[1], torch.float32, True)
+    for sid in range(n):
+        keys, vals = sort_keys(spec, x, dcols, live, frac, shard=(sid, n))
+        want_keys, want_vals = sort_keys_plain(spec, x, dcols, live, frac, shard=(sid, n))
+        assert torch.equal(keys, want_keys) and torch.equal(vals, want_vals)
+
+
+def _ss_bound(keys, vals, n_rows):
+    """Per row 2^-23·(P + n·A) of the sorted updates (keys, vals)."""
+    order = torch.sort(keys, stable=True).indices
+    p = torch.stack([vals[order, k].double().cumsum(0).abs().max()
+                     for k in range(vals.shape[1])])
+    keep = (keys >= 0) & (keys < n_rows)
+    a = torch.zeros((n_rows, vals.shape[1]), dtype=torch.float64, device=vals.device)
+    a.index_add_(0, keys[keep].long(), vals[keep].double().abs())
+    n = torch.bincount(keys[keep].long(), minlength=n_rows)[:, None].double()
+    return 2.0 ** -23 * (p[None, :] + n * a)
+
+
+@pytest.mark.parametrize("f", [1, 2, 3, 8, 12])
+@pytest.mark.parametrize("pattern", ["random", "long runs", "one row", "sentinels"])
+def test_segment_sum_kernel_matches_plain(cuda, f, pattern):
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import segment_sum, segment_sum_plain
+
+    gen = torch.Generator(cuda).manual_seed(f)
+    m, n_rows = 100003, 5000
+    if pattern == "random":
+        keys = torch.randint(0, n_rows, (m,), generator=gen, device=cuda)
+    elif pattern == "long runs":   # a few rows of thousands of updates: many spans a run
+        keys = torch.randint(0, 7, (m,), generator=gen, device=cuda) * 700
+    elif pattern == "one row":
+        keys = torch.full((m,), 4321, device=cuda)
+    else:   # below 0 and past the last row: skipped
+        keys = torch.randint(-3, n_rows + 3, (m,), generator=gen, device=cuda)
+    keys = keys.to(torch.int32)
+    sk, order = torch.sort(keys, stable=True)
+    vals = torch.randn((m, f), generator=gen, device=cuda)
+    before = segment_sum.launches
+    got = segment_sum(sk, order, vals, n_rows)
+    again = segment_sum(sk, order, vals, n_rows)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 2
+    assert torch.equal(got, again)
+    want = segment_sum_plain(sk, order, vals, n_rows)
+    assert bool(((got - want).abs().double() <= _ss_bound(keys, vals, n_rows)).all())
+    # small integers: every sum exact, in any order
+    ints = torch.randint(-2, 3, (m, f), generator=gen, device=cuda).float()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = segment_sum(sk, order, ints, n_rows, out_dtype)
+        assert got.dtype == out_dtype
+        assert torch.equal(got, segment_sum_plain(sk, order, ints, n_rows, out_dtype))
+
+
+@pytest.mark.parametrize("case", SORTSEG_CASES[:2] + SORTSEG_CASES[-1:], ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sortseg_route_matches_gb_plain(cuda, case, dtype):
+    from tcnn_tpu_torch.ops.sort_scatter import grid_table_gradient
+
+    spec, x, dcols, frac, live = _sortseg_inputs(cuda, case, torch.float32, True,
+                                                 batch=1 << 16)
+    flat = torch.zeros(spec.n_params, device=cuda, dtype=dtype)
+    got = grid_table_gradient(spec, flat, x, dcols, live, frac)
+    again = grid_table_gradient(spec, flat, x, dcols, live, frac)
+    want = grid_encode_bwd_plain(spec, flat, x, dcols, live, level_frac=frac)
+    scale = grid_encode_bwd_plain(spec, flat.float(), x, dcols.abs(), live, level_frac=frac)
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 2.0 ** -11 * scale + (bf16_ulp(want) if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_sortseg_training_is_bit_reproducible_and_replays_the_eager_steps(cuda, monkeypatch):
+    """config_hash (BF16_POLICY) at 2^16 under TCNN_TPU_SCATTER=sortseg: two
+    runs of make_training_loop from one seed end with the same weights, bit
+    for bit, equal to the same steps taken eagerly; SK and SS launch, GB
+    does not."""
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import segment_sum, sort_keys
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    monkeypatch.setenv("TCNN_TPU_SCATTER", "sortseg")
+    image = synthetic_image(256, 256)
+
+    def run(loop):
+        model = create_from_config(2, 3, "configs/config_hash.json", policy=BF16_POLICY)
+        sampler = ImageSampler(image, seed=3)
+        if loop:
+            losses = model.trainer.make_training_loop(
+                lambda i: sampler.sample_batch(1 << 16), 12)()
+        else:
+            losses = torch.stack([model.trainer.training_step(*sampler.sample_batch(1 << 16))
+                                  for _ in range(12)])
+        torch.cuda.synchronize()
+        return losses, [p.detach().clone() for p in model.trainer.params().values()]
+
+    gb, sk, ss = grid_encode_bwd.launches, sort_keys.launches, segment_sum.launches
+    first, again, eager = run(True), run(True), run(False)
+    assert grid_encode_bwd.launches == gb
+    assert sort_keys.launches > sk and segment_sum.launches > ss
+    assert torch.equal(first[0], again[0]) and torch.equal(first[0], eager[0])
+    for a, b, c in zip(first[1], again[1], eager[1]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert float(first[0][-1]) < float(first[0][0])
