@@ -170,9 +170,12 @@ and read just after:
     row's run length and sum of magnitudes), bit for bit twice and on
     small-integer values, the route against GB's plain version within
     2^-11·S plus one bf16 ulp, and the times of SK, the sort, SS, the route,
-    GB and ``index_add_``; the main path, config_hash trained through
-    ``make_training_loop`` under ``sortseg`` twice from one seed (200 steps
-    at 2^18): every weight and loss bit-identical, SK and SS launched and
+    GB and ``index_add_`` (atomic, and under
+    ``torch.use_deterministic_algorithms(True)``, bit-identical twice: the
+    sort and SS as one call), SS's bound and its gather's sector floor;
+    the main path, config_hash trained through ``make_training_loop``
+    under ``sortseg`` twice from one seed (200 steps at 2^18): every
+    weight and loss bit-identical, SK and SS launched and
     GB not; the same fit with GB twice (the weights that differ, a number);
     the captured loop against the same 20 steps taken eagerly, bit for bit;
     the step on the device under each route at config_hash and config_btf
@@ -5094,12 +5097,16 @@ def sortseg_kernel_checks(label, spec, table, xg, dcols, gen, t, err):
     against its plain version within ``ss_bound``, bit for bit twice and on
     small-integer values (every sum exact), the route against GB's plain
     version (``compare_table_grad``) and bit for bit twice, GB twice
-    (entries that differ: a number, not a gate); times, bounds, the
-    library call (``index_add_``) and peak memory into ``t``."""
+    (entries that differ: a number, not a gate), the deterministic
+    ``index_add_`` bit for bit twice; times, bounds, SS's gather floor, the
+    library calls (``index_add_``, and under
+    ``torch.use_deterministic_algorithms(True)`` the yardstick of the sort
+    and SS together) and peak memory into ``t``."""
     from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd, grid_encode_bwd_plain
     from tcnn_tpu_torch.ops.cuda.sort_scatter import (segment_sum, segment_sum_plain,
                                                       sort_keys, sort_keys_plain)
     from tcnn_tpu_torch.ops.sort_scatter import grid_table_gradient
+    from tcnn_tpu_torch.tools.kernel_ablation import gather_floor_bytes, index_add_deterministic
 
     B, F, C = xg.shape[0], spec.n_features_per_level, 1 << spec.n_dims
     live, n_rows = list(range(spec.n_levels)), spec.n_entries
@@ -5159,6 +5166,16 @@ def sortseg_kernel_checks(label, spec, table, xg, dcols, gen, t, err):
             lambda: segment_sum_plain(sk, order, vals, n_rows, table.dtype), n=3)
         t[f"SS {label} library"] = graph_ms(
             lambda: torch.zeros((n_rows, F), device=vals.device).index_add_(0, keys, vals))
+        # the route after SK (the sort and SS) as one PyTorch call: index_add_
+        # under torch.use_deterministic_algorithms(True)
+        det_a = index_add_deterministic(keys, vals, n_rows)
+        det_b = index_add_deterministic(keys, vals, n_rows)
+        torch.cuda.synchronize()
+        check(torch.equal(det_a.view(torch.int32), det_b.view(torch.int32)),
+              f"{label}: the deterministic index_add_ differs between two calls")
+        t[f"SS {label} deterministic library"] = graph_ms(
+            lambda: index_add_deterministic(keys, vals, n_rows))
+        del det_a, det_b
         t[f"route {label}"] = graph_ms(lambda: grid_table_gradient(spec, table, xg, dcols, live))
         t[f"GB {label}"] = graph_ms(lambda: grid_encode_bwd(spec, table, xg, dcols, live))
         t[f"route {label} MB"] = peak_mb(lambda: grid_table_gradient(spec, table, xg, dcols,
@@ -5172,11 +5189,16 @@ def sortseg_kernel_checks(label, spec, table, xg, dcols, gen, t, err):
     for k, (n_bytes, flops, peak) in b.items():
         t[k + " bound"] = bound_ms(n_bytes, flops, peak)
         t[k + " bound by"] = bound_by(n_bytes, flops, peak)
+    floor = gather_floor_bytes(keys, order, vals, table.element_size(), n_rows)
+    t[f"SS {label} gather floor"] = bound_ms(floor, 0, PEAK_FP32)
     print(f"{label}: SK {t[f'SK {label}']:.4f} ms (plain {t[f'SK {label} plain']:.4f}, bound "
           f"{t[f'SK {label} bound']:.4f}: {b[f'SK {label}'][0] / 1e6:.1f} MB); torch.sort "
           f"{t[f'sort {label}']:.4f} ms; SS {t[f'SS {label}']:.4f} ms (plain "
           f"{t[f'SS {label} plain']:.4f}, index_add_ {t[f'SS {label} library']:.4f}, bound "
-          f"{t[f'SS {label} bound']:.4f}: {b[f'SS {label}'][0] / 1e6:.1f} MB); the route "
+          f"{t[f'SS {label} bound']:.4f}: {b[f'SS {label}'][0] / 1e6:.1f} MB; the gather's "
+          f"sector floor {t[f'SS {label} gather floor']:.4f}: {floor / 1e6:.1f} MB); the "
+          f"deterministic index_add_ (the sort and SS as one call, bit-identical twice, in "
+          f"a CUDA graph) {t[f'SS {label} deterministic library']:.4f} ms; the route "
           f"{t[f'route {label}']:.4f} ms against GB's {t[f'GB {label}']:.4f} (the sort "
           f"{t[f'sort {label}'] / t[f'route {label}']:.3f} of the route); peak memory of the "
           f"route {t[f'route {label} MB']:.1f} MB, of GB {t[f'GB {label} MB']:.1f} MB")
@@ -5361,6 +5383,13 @@ def sortseg_slice(gen, dev):
                  "route_ms": t["route config_hash"], "gb_ms": t["GB config_hash"],
                  "config_btf_ms": t[f"{k} config_btf"],
                  "config_btf_bound_ms": t[f"{k} config_btf bound"]}
+        if k == "SS":
+            extra.update({
+                lab + suffix: t[f"SS {cell} {what}"]
+                for cell, lab in (("config_hash", ""), ("config_btf", "config_btf_"))
+                for what, suffix in (("gather floor", "gather_floor_ms"),
+                                     ("deterministic library", "deterministic_library_ms"))})
+            extra["config_btf_library_ms"] = t["SS config_btf library"]
         out += entries(t, [(f"{k} config_hash", k, REPLACES_SORTSEG)], launches, err, extra)
     return out
 

@@ -239,16 +239,17 @@ void sort_keys(const torch::Tensor& x, int64_t x_stride_b,
 }
 
 void segment_sum(const torch::Tensor& keys, const torch::Tensor& order, const torch::Tensor& vals,
-                 int64_t n_rows, const torch::Tensor& grad, const torch::Tensor& out) {
-  const c10::cuda::CUDAGuard guard(grad.device());
+                 int64_t n_rows, const torch::Tensor& out) {
+  const c10::cuda::CUDAGuard guard(out.device());
   const int n_features = static_cast<int>(vals.size(1));
-  // the two passes' head and tail sums, in use until the launches have run
+  // the tiles' head and tail sums, in use until the launches have run
   const torch::Tensor scratch = torch::empty(
-      {tcnn_tpu_torch::segment_sum_scratch_floats(keys.numel(), n_features)}, grad.options());
+      {tcnn_tpu_torch::segment_sum_scratch_floats(keys.numel(), n_features)},
+      vals.options());
   C10_CUDA_CHECK(tcnn_tpu_torch::segment_sum_launch(
       keys.data_ptr<int32_t>(), order.data_ptr<int64_t>(), vals.data_ptr<float>(),
-      keys.numel(), n_features, n_rows, scratch.data_ptr<float>(), grad.data_ptr<float>(),
-      out.data_ptr(), out.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream()));
+      keys.numel(), n_features, n_rows, scratch.data_ptr<float>(), out.data_ptr(),
+      out.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -202,12 +202,12 @@ cudaError_t sort_keys_launch(const float* x, int64_t x_stride_b, const float* le
 //   order        (m) int64: sorted position i holds update order[i]
 //   vals         (m, n_features) float32, update-major
 //   scratch      segment_sum_scratch_floats(m, n_features) float32
-//   grad         (n_rows * n_features) float32: zeroed, then each row's sum of
-//                its run, in sorted order
-//   out          the result: bfloat16 (a cast of grad) or grad itself
+//   out          (n_rows * n_features), bfloat16 (out_bf16) or float32: zeroed,
+//                then each row the fp32 sum of its run, rounded once
+// keys, order, vals, scratch and out 16-byte aligned.
 cudaError_t segment_sum_launch(const int32_t* keys, const int64_t* order, const float* vals,
                                int64_t m, int n_features, int64_t n_rows, float* scratch,
-                               float* grad, void* out, bool out_bf16, cudaStream_t stream);
+                               void* out, bool out_bf16, cudaStream_t stream);
 int64_t segment_sum_scratch_floats(int64_t m, int n_features);
 
 // The shared memory of one kernel-MB CTA for a shape and the activations

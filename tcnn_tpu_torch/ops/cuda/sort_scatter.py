@@ -14,10 +14,11 @@ two kernels together around ``torch.sort``.
     another rank's shard holds) gets the key ``n_rows``, past the last row,
     and the value 0·dy.
   * SS (``segment_sum``): given the stably sorted keys and the sort's
-    permutation, each row's run of values summed in sorted order in fp32,
-    each touched row written once, cast once to the table's dtype; keys
-    outside [0, n_rows) are skipped.  No atomics: the same inputs give the
-    same bits.
+    permutation, each row's run of values summed in fp32 in an order fixed
+    by the sorted positions (a segmented sum over tiles of 2048 positions,
+    then the tiles a run covers in order), each touched row written once,
+    rounded once to the table's dtype; keys outside [0, n_rows) are
+    skipped.  No atomics: the same inputs give the same bits.
 
 A CUDA tensor launches the kernel; a CPU tensor takes ``sort_keys_plain``
 or ``segment_sum_plain``, the same functions in plain PyTorch, which the
@@ -29,8 +30,8 @@ cumulative sum over the sorted values, differences at the run ends, one
 sum's rounding: per row, 2^-23·(P + n·A), P the largest |prefix sum| of
 the row's column, n the row's run length and A the sum of its values'
 magnitudes (each prefix rounded once to fp32 costs at most half an ulp of
-P, the difference of two of them P; SS's own sum of n values at most
-(n − 1)/2 ulps of A).
+P, the difference of two of them P; SS's own sum of n values, in any
+order, at most (n − 1)/2 ulps of A).
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ from .. import grid_ops
 from . import kernels, require_cuda_tensors
 from .grid_encode import (_INTERP_CODE, _check_dcols, _check_frac, _check_shard, _consts,
                           _hash_args, _x_row_stride)
+
+# Kernel SS's tile: the sorted positions one CTA sums (csrc/sort_scatter.cu,
+# kSsTile = kSsThreads x kSsItems); runs that cross tiles go through its
+# second pass.
+SS_TILE = 256 * 8
 
 
 def n_table_rows(spec: grid_ops.GridSpec, shard: Optional[Tuple[int, int]] = None) -> int:
@@ -125,6 +131,13 @@ def sort_keys(spec: grid_ops.GridSpec, x: torch.Tensor, dcols: torch.Tensor,
 sort_keys.launches = 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (kernel SS loads 16-byte
+    vectors), copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def segment_sum_plain(sorted_keys: torch.Tensor, order: torch.Tensor, vals: torch.Tensor,
                       n_rows: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of kernel SS: JAX's segment sums
@@ -157,12 +170,12 @@ def segment_sum_plain(sorted_keys: torch.Tensor, order: torch.Tensor, vals: torc
 
 def segment_sum(sorted_keys: torch.Tensor, order: torch.Tensor, vals: torch.Tensor,
                 n_rows: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Kernel SS: the (n_rows, F) table, row r the sum of the values of the
-    run of key r, in sorted order, fp32, cast once to ``out_dtype``
-    (float32 or bfloat16); a row no key names is 0.  ``sorted_keys`` (M,)
-    int32, sorted (``torch.sort``); ``order`` (M,) int64, the sort's
-    indices, sorted position i holding update ``order[i]``; ``vals`` (M, F)
-    float32 in update order."""
+    """Kernel SS: the (n_rows, F) table, row r the fp32 sum of the values of
+    the run of key r, in an order fixed by the sorted positions, rounded
+    once to ``out_dtype`` (float32 or bfloat16); a row no key names is 0.
+    ``sorted_keys`` (M,) int32, sorted (``torch.sort``); ``order`` (M,)
+    int64, the sort's indices, sorted position i holding update
+    ``order[i]``; ``vals`` (M, F) float32 in update order."""
     if vals.device.type == "cpu":
         return segment_sum_plain(sorted_keys, order, vals, n_rows, out_dtype)
     if vals.device.type != "cuda":
@@ -177,12 +190,10 @@ def segment_sum(sorted_keys: torch.Tensor, order: torch.Tensor, vals: torch.Tens
                          f"{order.dtype} {tuple(order.shape)}, {vals.dtype} {tuple(vals.shape)}")
     if out_dtype not in (torch.float32, torch.bfloat16) or not 1 <= n_rows < 2 ** 31:
         raise ValueError(f"{name}: output {out_dtype} of {n_rows} rows not supported")
-    sorted_keys, order, vals = sorted_keys.contiguous(), order.contiguous(), vals.contiguous()
+    sorted_keys, order, vals = (_aligned(t) for t in (sorted_keys, order, vals))
     require_cuda_tensors(name, sorted_keys, order, vals)
-    F = vals.shape[1]
-    grad = torch.empty((n_rows, F), dtype=torch.float32, device=vals.device)
-    out = grad if out_dtype == torch.float32 else torch.empty_like(grad, dtype=out_dtype)
-    kernels().segment_sum(sorted_keys, order, vals, n_rows, grad, out)
+    out = torch.empty((n_rows, vals.shape[1]), dtype=out_dtype, device=vals.device)
+    kernels().segment_sum(sorted_keys, order, vals, n_rows, out)
     segment_sum.launches += 1
     return out
 

@@ -15,7 +15,8 @@ keys, a cumulative sum of the sorted values, differences at the run ends,
 one ``index_add_`` (``ops/cuda/sort_scatter.py::segment_sum_plain``).  On
 CUDA tensors it is ``torch.sort(idx, stable=True)`` (the counterpart of
 ``jnp.argsort``, an XLA op outside any kernel) and kernel SS, which sums
-each run in sorted order without atomics; there is no fallback.
+each run in an order fixed by the sorted positions, without atomics;
+there is no fallback.
 
 ``grid_table_gradient`` is the route of the grid's first-order table
 gradient under ``TCNN_TPU_SCATTER=sortseg``: kernel SK forms the updates

@@ -1,4 +1,4 @@
-"""Where the time of kernels G, GB, GI, GG, GT, RS, M, MB, MW and MBW goes, on the card.
+"""Where the time of kernels G, GB, GI, GG, GT, RS, M, MB, MW, MBW, SK and SS goes, on the card.
 
     python3 -m tcnn_tpu_torch.tools.kernel_ablation [--out DIR] [--only PREFIX ...]
                                                    [--baseline ROOT]
@@ -31,6 +31,10 @@ CUDA graph of 30 calls:
     128, fp32) and a 600-column last layer in both dtypes
     (``time_wide_layers``), with each output's error against its plain
     version;
+  * SK, ``torch.sort``, SS and the sortseg route at config_hash's and
+    config_btf's grids (bf16 tables, ``time_sortseg``), beside the atomic
+    ``index_add_`` of the same updates, the deterministic one (under
+    ``torch.use_deterministic_algorithms(True)``) and SS's gather floor;
   * GB over no level (its zeroing and cast) and one level at a time;
   * the same kernels in ablated copies of the package: ``DIR/<name>``
     holds a copy of ``tcnn_tpu_torch`` with one source patch
@@ -44,8 +48,10 @@ at ROOT (say, the parent commit unpacked by ``git archive`` into a
 directory ``.gitignore`` lists) with this file's timing code, in the same
 call, as the variant ``baseline``, and says which outputs of the
 deterministic kernels (G, GI, GG's and GT's d_dcols and d_x, M, MB's dW,
-MW's y, MBW's dW and dx), and GB's on inputs whose sums are exact in any
-order, have the same bits in both.
+MW's y, MBW's dW and dx, SK's keys and values, SS's table and the
+route's), and GB's on inputs whose sums are exact in any order, have the
+same bits in both (SS's and the route's differ from a checkout whose SS
+sums in another order).
 ``--steps ROUNDS`` instead times whole steps of this checkout and of ROOT
 in turn, ROUNDS runs each (``compare_steps``): ``chip_smoke.py``'s
 config_hash step (on the device, eager, its parts alone, the loop) and
@@ -664,6 +670,7 @@ def time_kernels(config: str, full: bool) -> dict:
         bdc = torch.randn((BATCH, 40), generator=gen, device=dev).to(torch.bfloat16)
         bdc = bdc[:, :bspec.n_output_dims].t()
         out["GB config_btf"] = graph_ms(lambda: grid_encode_bwd(bspec, btable, bx, bdc, blive))
+        out.update(time_sortseg(Path(config).parent))
         if full:
             for lv in blive:
                 level = bspec.levels[lv]
@@ -676,6 +683,79 @@ def time_kernels(config: str, full: bool) -> dict:
                 out[f"GB level {lv} ({level.size} rows, "
                     f"{'hashed' if level.use_hash else 'dense'})"] = graph_ms(
                         lambda: grid_encode_bwd(spec, table, x, dfeats, [lv]))
+    return out
+
+
+def index_add_deterministic(keys, vals, n_rows):
+    """The route's function as one PyTorch call: ``index_add_`` of the
+    updates into an (n_rows, F) fp32 zero table under
+    ``torch.use_deterministic_algorithms(True)``, which PyTorch documents
+    as deterministic on CUDA (SS's yardstick, never used by the port; a
+    CUDA graph captures it on the card's torch 2.11)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return torch.zeros((n_rows, vals.shape[1]), device=vals.device).index_add_(0, keys, vals)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def gather_floor_bytes(keys, order, vals, out_elem, n_rows):
+    """SS's floor if its gather came from device memory: the keys and the
+    permutation once, a 32-byte sector per value row read through the
+    permutation, the table written once."""
+    F = vals.shape[1]
+    sectors = -(-4 * F // 32)
+    return (keys.numel() * keys.element_size() + order.numel() * order.element_size()
+            + vals.shape[0] * 32 * sectors + n_rows * F * out_elem)
+
+
+def time_sortseg(config_dir: Path) -> dict:
+    """The sortseg route's kernels SK and SS, ``torch.sort`` and the route
+    (``grid_table_gradient``) at config_hash's and config_btf's grids (B =
+    2^18, bf16 table, bf16 output gradient as the main paths hand it:
+    config_btf's the transpose of an AoS array, its x a strided view),
+    beside the atomic ``index_add_`` of the same updates and the
+    deterministic one; the bits of SK's keys and values, of SS's table and
+    of the route's.  Its inputs come from a generator of their own."""
+    from tcnn_tpu_torch import BF16_POLICY, create_from_config
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import segment_sum, sort_keys
+    from tcnn_tpu_torch.ops.sort_scatter import grid_table_gradient
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(20)
+    out = {}
+    for label, n_in, cfg in (("config_hash", 2, "config_hash.json"),
+                             ("config_btf", 6, "config_btf.json")):
+        enc = create_from_config(n_in, 3, str(config_dir / cfg),
+                                 policy=BF16_POLICY).network.encoding
+        spec = (enc.nested[0] if hasattr(enc, "nested") else enc).spec
+        live, n_rows = list(range(spec.n_levels)), spec.n_entries
+        x = torch.rand((BATCH, n_in), generator=gen, device=dev)[:, :spec.n_dims]
+        dcols = torch.randn((spec.n_output_dims, BATCH), generator=gen,
+                            device=dev).to(torch.bfloat16)
+        if label == "config_btf":
+            dcols = dcols.t().contiguous().t()
+        table = torch.zeros(spec.n_params, dtype=torch.bfloat16, device=dev)
+        with torch.inference_mode():
+            keys, vals = sort_keys(spec, x, dcols, live)
+            sk, order = torch.sort(keys, stable=True)
+            out[f"SK {label}"] = graph_ms(lambda: sort_keys(spec, x, dcols, live))
+            out[f"sort {label}"] = graph_ms(lambda: torch.sort(keys, stable=True))
+            out[f"SS {label}"] = graph_ms(lambda: segment_sum(sk, order, vals, n_rows,
+                                                              torch.bfloat16))
+            out[f"route {label}"] = graph_ms(lambda: grid_table_gradient(spec, table, x, dcols,
+                                                                         live))
+            out[f"index_add_ {label}"] = graph_ms(lambda: torch.zeros(
+                (n_rows, vals.shape[1]), device=dev).index_add_(0, keys, vals))
+            out[f"index_add_ deterministic {label}"] = graph_ms(
+                lambda: index_add_deterministic(keys, vals, n_rows))
+            out[f"SS {label} gather floor"] = gather_floor_bytes(
+                keys, order, vals, 2, n_rows) / 3.35e12 * 1e3
+            out[f"bits SK {label}"] = _bits(keys) + _bits(vals)
+            out[f"bits SS {label}"] = _bits(segment_sum(sk, order, vals, n_rows, torch.bfloat16))
+            out[f"bits route {label}"] = _bits(grid_table_gradient(spec, table, x, dcols, live))
+        del keys, vals, sk, order
     return out
 
 

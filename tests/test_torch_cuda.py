@@ -67,6 +67,8 @@ from tcnn_tpu_torch.tools.plain_path import (gg_rows_and_g, gg_table_scale,
                                              plain_loss_and_grads, plain_sdf_loss_and_grads,
                                              relu_flip_rows)
 
+import sortseg_layouts
+
 pytestmark = pytest.mark.cuda
 
 
@@ -2423,6 +2425,75 @@ def test_segment_sum_kernel_matches_plain(cuda, f, pattern):
         got = segment_sum(sk, order, ints, n_rows, out_dtype)
         assert got.dtype == out_dtype
         assert torch.equal(got, segment_sum_plain(sk, order, ints, n_rows, out_dtype))
+
+
+@pytest.mark.parametrize("f", sortseg_layouts.FEATURES)
+@pytest.mark.parametrize("layout", sortseg_layouts.NAMES)
+def test_segment_sum_kernel_at_tile_edges(cuda, layout, f):
+    """SS on the key layouts at its tiles' edges (``tests/sortseg_layouts.py``):
+    within 2^-23·(P + n·A) of its plain version, bit-identical in two
+    launches, and equal to it on small-integer values, in both output
+    dtypes."""
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import SS_TILE, segment_sum, segment_sum_plain
+
+    n_rows = sortseg_layouts.N_ROWS
+    keys = torch.from_numpy(sortseg_layouts.layout(layout, SS_TILE)).to(cuda)
+    m = keys.shape[0]
+    sk, order = torch.sort(keys, stable=True)
+    gen = torch.Generator(cuda).manual_seed(f)
+    vals = torch.randn((m, f), generator=gen, device=cuda)
+    ints = torch.randint(-2, 3, (m, f), generator=gen, device=cuda).float()
+    bound = _ss_bound(keys, vals, n_rows)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = segment_sum.launches
+        got = segment_sum(sk, order, vals, n_rows, out_dtype)
+        again = segment_sum(sk, order, vals, n_rows, out_dtype)
+        torch.cuda.synchronize()
+        assert segment_sum.launches == before + 2
+        assert got.dtype == out_dtype and got.shape == (n_rows, f)
+        assert torch.equal(got.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32),
+                           again.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32))
+        want = segment_sum_plain(sk, order, vals, n_rows)
+        if out_dtype == torch.float32:
+            assert bool(((got - want).abs().double() <= bound).all())
+        else:   # one rounding of an fp32 sum within the bound
+            tol = bound + bf16_ulp(want).double()
+            assert bool(((got.float() - want).abs().double() <= tol).all())
+        exact = segment_sum(sk, order, ints, n_rows, out_dtype)
+        assert torch.equal(exact, segment_sum_plain(sk, order, ints, n_rows, out_dtype))
+    if layout == "all-sentinels":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("f", [1, 2, 3, 8])
+@pytest.mark.parametrize("masked", [False, True], ids=["all-levels", "masked"])
+def test_sort_keys_instances_equal_plain_bit_for_bit(cuda, d, f, masked):
+    """SK's 1- to 4-D instances (every D <= 4, F <= 8 grid of the prime
+    hashes) against its plain version bit for bit: hashed and dense levels,
+    CoherentAdd, Linear, Smoothstep and Nearest; fp32 SoA and bf16 AoS
+    output gradients; with the mask, a dead level between live ones (the
+    live levels' positions run past it)."""
+    from tcnn_tpu_torch.ops.cuda.sort_scatter import sort_keys, sort_keys_plain
+
+    for i, kw in enumerate(({}, {"hash_type": HashType.COHERENT_ADD},
+                            {"grid_type": GridType.DENSE,
+                             "interpolation": InterpolationType.SMOOTHSTEP},
+                            {"hash_type": HashType.REVERSED_PRIME,
+                             "interpolation": InterpolationType.NEAREST})):
+        case = (f"{d}-D", (d, 5, f, 12, 4, 1.5), kw)
+        dtype = torch.bfloat16 if masked else torch.float32
+        spec, x, dcols, frac, live = _sortseg_inputs(cuda, case, dtype, masked, seed=20 + i)
+        if masked:   # the transpose of an AoS gradient, read in place; a dead level inside
+            dcols = dcols.t().contiguous().t()
+            live = [lv for lv in live if lv != 2]
+        before = sort_keys.launches
+        keys, vals = sort_keys(spec, x, dcols, live, frac)
+        torch.cuda.synchronize()
+        assert sort_keys.launches == before + 1
+        want_keys, want_vals = sort_keys_plain(spec, x, dcols, live, frac)
+        assert torch.equal(keys, want_keys)
+        assert torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))
 
 
 @pytest.mark.parametrize("case", SORTSEG_CASES[:2] + SORTSEG_CASES[-1:], ids=lambda c: c[0])

@@ -21,6 +21,15 @@ Tolerances:
     differs in its last bits may round to the other neighbour).
   * the route against kernel GB's plain version (fp32 ``index_add_``, the
     same products in update order): per entry within 2^-19·(P + S).
+  * ``sort_segment_scatter`` on the key layouts at the edges of kernel SS's
+    tiles (``tests/sortseg_layouts.py``): per entry within 2^-19·(P + S)
+    of JAX's (JAX's cumsum as above, P over every update the port sums),
+    within 2^-23·(P + n·A) of the float64 sum, and equal to both on
+    small-integer values (every sum exact).  JAX gets the updates whose
+    keys are not below 0: its ``.at[]`` wraps such a key to the table's
+    end, where the port drops it (keys past the table both drop; they sort
+    after every row, so ``jnp.nonzero(..., size=n_rows)`` keeps each row's
+    run).
   * a small config_hash-structured model (4 levels, FullyFusedMLP 16 × 1,
     fp32) trained 3 steps under ``sortseg`` on both sides: each step's loss
     within rtol 1e-5, the gradients and the parameters after each step as
@@ -45,6 +54,7 @@ from tcnn_tpu_torch.ops.cuda import sort_scatter as tcss
 from tcnn_tpu_torch.ops.cuda.grid_encode import grid_encode_bwd_plain
 from tcnn_tpu_torch.utils.jax_params import load_jax_opt_state, load_jax_params
 
+import sortseg_layouts
 from test_torch_slice import flat_params
 
 EPS = 2.0 ** -23
@@ -126,6 +136,46 @@ def test_sort_segment_scatter_is_deterministic_and_drops_rows_outside_the_table(
     np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     assert tss.sort_segment_scatter(torch.from_numpy(idx), vals, 16,
                                     torch.bfloat16).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("f", sortseg_layouts.FEATURES)
+@pytest.mark.parametrize("layout", sortseg_layouts.NAMES)
+def test_sort_segment_scatter_at_tile_edges_equals_jax(layout, f):
+    """The layouts kernel SS meets at its tiles' edges, through the plain
+    route, against JAX's ``sort_segment_scatter``; bf16 output is the fp32
+    result rounded once."""
+    n_rows = sortseg_layouts.N_ROWS
+    idx = sortseg_layouts.layout(layout, tcss.SS_TILE)
+    rng = np.random.default_rng(f)
+    kept = idx >= 0
+    for vals in (rng.normal(size=(len(idx), f)).astype(np.float32),
+                 rng.integers(-2, 3, (len(idx), f)).astype(np.float32)):
+        want = np.asarray(jax_sort_segment_scatter(jnp.asarray(idx[kept]),
+                                                   jnp.asarray(vals[kept]), n_rows))
+        got = tss.sort_segment_scatter(torch.from_numpy(idx), torch.from_numpy(vals), n_rows)
+        assert got.dtype == torch.float32 and got.shape == (n_rows, f)
+        p, s, n = _terms(idx, vals, n_rows)
+        exact = _exact(idx, vals, n_rows)
+        assert (np.abs(got.numpy() - want) <= 2.0 ** -19 * (p[None, :] + s)).all()
+        assert (np.abs(got.numpy() - exact) <= EPS * (p[None, :] + n * s)).all()
+        if np.array_equal(vals, np.round(vals)):   # small integers: every sum exact
+            assert np.array_equal(got.numpy(), exact) and np.array_equal(want, exact)
+        bf16 = tss.sort_segment_scatter(torch.from_numpy(idx), torch.from_numpy(vals), n_rows,
+                                        torch.bfloat16)
+        assert torch.equal(bf16, got.to(torch.bfloat16))
+    if layout == "all-sentinels":
+        assert not got.any()
+
+
+def test_ss_tile_matches_the_kernel_source():
+    """``SS_TILE``, which the layouts are built around, is kernel SS's tile:
+    kSsThreads × kSsItems in ``csrc/sort_scatter.cu``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tcss.__file__).parents[2] / "csrc" / "sort_scatter.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (kSs\w+) = (\d+);", src)}
+    assert tcss.SS_TILE == consts["kSsThreads"] * consts["kSsItems"]
 
 
 # (name, make_grid_spec args, kwargs)
