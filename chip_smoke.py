@@ -25,10 +25,12 @@ and read just after:
     the plain eikonal step, and the sample's fit,
     ``samples/fit_sdf_eikonal.main``, 500 steps at 2^14 through
     ``create_from_config``, ``model.network`` and ``model.optimizer``: the
-    second-order main path, whose per-step launch counts of G, M, MB, GB,
-    GI and GG it checks (slice 4; GB once a step, and none in
-    ``Module.input_gradient``: a table gradient the engine would drop is
-    not computed; no RS: GG adds its table gradient itself).  Kernel RS,
+    second-order main path, whose launch counts of G, M, MB, GB, GI and GG
+    it checks (slice 4; since slice 21 the fit replays a captured step, so
+    the step's kernels launch in its eager warm-up and in the capture; GB
+    once a step, and none in ``Module.input_gradient``: a table gradient
+    the engine would drop is not computed; no RS: GG adds its table
+    gradient itself).  Kernel RS,
     which no path of the port calls, in a phase of its own: its entry
     points (``scatter_add_rows``, ``_flat``, ``_cols``) on GG's updates at
     the SDF layout as (rows, g) (``plain_path.gg_rows_and_g``), F in
@@ -42,8 +44,9 @@ and read just after:
     sample's 2^12 rays x 48 samples = 196,608 points; one training step's
     gradients of both nets against the plain path's; a step's launches (G
     1, M 2, GB 1, MB 2); the sample's fit, ``samples/fit_nerf_field.main``
-    at its defaults (400 steps, coarse-to-fine over the first 100), the
-    main path, with a PSNR floor; then the image sample,
+    at its defaults (400 steps, coarse-to-fine over the first 100; a
+    captured step replayed since slice 21), the main path, with a PSNR
+    floor; then the image sample,
     ``samples/mlp_learning_an_image.main``, 100 steps into a temporary
     directory;
   * save, load and serve (slice 9, config_hash at BF16_POLICY and
@@ -182,6 +185,21 @@ and read just after:
     with its peak memory; ``DataParallel.make_training_loop`` under
     ``sortseg`` on a one-rank NCCL group (its capture takes the sort; its
     losses and weights equal ``Trainer.make_training_loop``'s bit for bit).
+  * slice 21, the compiled single step (``compiled_step_slice``, last):
+    config_hash (BF16_POLICY, 2^18) through ``Trainer.make_training_step``,
+    20 steps under ``sortseg`` bit for bit equal to 20 eager
+    ``training_step``s from the same seed, then 20 steps without it, the
+    main path (G, M, GB, MB in the warm-up and the capture only; each
+    call's loss a tensor of its own), and Shampoo refusing; the SDF
+    sample's eikonal step at 2^14 and 2^18 and the NeRF step at the
+    sample's defaults captured through the trainer's capture helper, a
+    replayed step's loss and gradients against an eager step's from the
+    same weights (the NeRF step eager under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync); each
+    path's eager and replayed ms per step on the host clock (the least of
+    5 passes of 20 steps) and the replayed step's device ms; the SDF
+    sample's 500-step fit and the NeRF sample's fit, both replaying a
+    captured step, the main paths of their kernels' entries.
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -379,6 +397,16 @@ with TF32 off):
     tolerances stand in for), their dW bit for bit in a second launch; the wide SDF's steps at the eikonal
     and curvature steps' bounds; the fit's mean of the last 10 losses below
     ``WIDE_FIT_LOSS_FLOOR``; the wide image's step at the step bounds.
+
+  * slice 21: the compiled steps under ``sortseg`` bit for bit (losses and
+    weights); without it the losses as slice 18's loop (the first within
+    ``PARALLEL_FIRST_RTOL``, the rest ``PARALLEL_LOSS_RTOL``); a replayed
+    SDF step against an eager one at the eikonal step's bounds, a NeRF
+    step at the NeRF step's (loss 2e-2 relative, gradients 2e-2 of each
+    one's largest magnitude); the SDF fit's mean of the last 10 losses
+    within a factor ``SDF_FIT_LOSS_FACTOR`` of the CPU fit's 0.019 and its
+    error within ``SDF_FIT_ERROR_ATOL`` of 0.067; the NeRF fit's PSNR
+    within ``NERF_PSNR_ATOL`` of the eager fit's 37.03 dB.
 
   * slice 12: each shard's G at the fp32 bound with the fp32 sum's own
     error (its partial features are fp32: |d| <= 1e-5·|ref| + (2^D +
@@ -937,7 +965,8 @@ def slice_times(label, model, x, target, loop):
         t["M plain"] = eager_ms(lambda: fused_mlp_plain(*mlp_args))
         t["M library"] = graph_ms(lambda: library_chain(ws, f_in))
         t["request device"], t["request"] = graph_ms(request), time_ms(request)
-        t["table copy"] = graph_ms(lambda: grid.grid.detach().to(cdt))
+        if grid.grid.dtype != cdt:   # where the dtypes match the copy is no work
+            t["table copy"] = graph_ms(lambda: grid.grid.detach().to(cdt))
         t["other encodings"] = sum(graph_ms(lambda e=e, b=b, nd=nd: e(x[:, b:b + nd]))
                                    for e, (b, nd) in zip(getattr(enc, "nested", ()),
                                                          getattr(enc, "slices", ()))
@@ -1006,7 +1035,7 @@ def slice_times(label, model, x, target, loop):
     b["MB"] = (nbytes(feats, dy, *ws, dfeats) + sum(w.numel() for w in ws) * 4,
                3 * m_flops, mlp_peak)
     record_bounds(t, b, {"G": f" with {g_table_bytes / 1e6:.2f} MB of touched table rows"})
-    parts = {k: t[k] for k in ("G", "M", "table copy")}
+    parts = {k: t[k] for k in ("G", "M", "table copy") if k in t}
     if others:
         parts["other encodings"] = t["other encodings"]
     print(f"inference at B={MAIN_BATCH}: {t['request']:.4f} ms per request, "
@@ -1785,16 +1814,20 @@ def sdf_slice(gen, dev):
     fit = sdf.main(["fit_sdf_eikonal", str(SDF_FIT_STEPS), str(SDF_FIT_BATCH_POW)])
     torch.cuda.synchronize()
     fit_launches = counts()
-    expect = {k: v * SDF_FIT_STEPS for k, v in per_step.items()}
-    expect["G"] += 1   # the evaluation's request
+    # the step's kernels in the eager warm-up step and in the capture (the
+    # other steps replay the graph: no wrapper runs), then G and M for the
+    # evaluation's request
+    expect = {k: 2 * v for k, v in per_step.items()}
+    expect["G"] += 1
     expect["M"] += 1
     check(fit_launches == expect, f"SDF fit launches {fit_launches}, expected {expect}")
     losses = fit["losses"]
     check(bool(torch.isfinite(losses).all()), "non-finite SDF loss")
     last10 = float(losses[-10:].mean())
     print(f"fit: loss {float(losses[0]):.6f} -> {last10:.6f} (mean of the last 10), mean "
-          f"|sdf error| {fit['sdf_error']:.4f}, {fit['seconds']:.2f} s; launches {fit_launches} "
-          f"(per step {per_step}, and G and M once for the evaluation)")
+          f"|sdf error| {fit['sdf_error']:.4f}, {fit['seconds']:.2f} s (a captured step "
+          f"replayed); launches {fit_launches} (the step's {per_step} in the warm-up and in the "
+          f"capture, and G and M once for the evaluation)")
     check(last10 < SDF_LOSS_FLOOR, f"SDF loss floor missed: {last10} >= {SDF_LOSS_FLOOR}")
     check(fit["sdf_error"] < SDF_ERROR_FLOOR,
           f"SDF error floor missed: {fit['sdf_error']} >= {SDF_ERROR_FLOOR}")
@@ -2105,16 +2138,16 @@ def nerf_slice(gen, dev):
     fit = nf.main(["fit_nerf_field"])
     torch.cuda.synchronize()
     fit_launches = first_order_counts()
-    # each step G, GB once and M, MB twice; the evaluation render (one chunk
-    # of 2^14 rays) G once and M twice
-    want_launches = {"G": NERF_STEPS + 1, "M": 2 * NERF_STEPS + 2, "GB": NERF_STEPS,
-                     "MB": 2 * NERF_STEPS}
+    # the step (G, GB once, M, MB twice) in the eager warm-up and in the
+    # capture, the other steps replaying the graph; the evaluation render
+    # (one chunk of 2^14 rays) G once and M twice
+    want_launches = {"G": 2 + 1, "M": 4 + 2, "GB": 2, "MB": 4}
     check(fit_launches == want_launches, f"NeRF fit launches {fit_launches}, expected "
           f"{want_launches}")
     losses = fit["losses"]
     check(bool(torch.isfinite(losses).all()), "non-finite NeRF loss")
     print(f"fit: {NERF_STEPS} steps in {fit['seconds']:.2f} s ({fit['seconds'] / NERF_STEPS * 1e3:.3f} "
-          f"ms a step, eager); loss {float(losses[:10].mean()):.6f} (first 10) -> "
+          f"ms a step, a captured step replayed); loss {float(losses[:10].mean()):.6f} (first 10) -> "
           f"{float(losses[-10:].mean()):.6f} (last 10); eval PSNR {fit['psnr']:.2f} dB "
           f"(floor {NERF_PSNR_FLOOR:.2f}: the JAX sample's {NERF_PSNR_JAX} dB on the CPU, "
           f"fp32, less 3 dB); launches {fit_launches}")
@@ -2195,9 +2228,8 @@ def nerf_slice(gen, dev):
                                      jitter, 0.5), n=20)
     t_step_full = time_ms(lambda: nf.step(d_net, c_net, opt, opt_state, rays_o, rays_d,
                                           NERF_SAMPLES, jitter, 1.0), n=20)
-    # Not timed in a CUDA graph: autograd's backward of torch.cumprod (the
-    # render's transmittance) reads a value back from the device, which
-    # capture refuses; the eager step waits for the device there too.
+    # The step replayed from a CUDA graph is timed in slice 21
+    # (compiled_step_slice).
     kernels_ms = {f: t_g[f]["G"] + t_g[f]["GB"] + t_d["M"] + t_d["MB"] + t_c["M"] + t_c["MB"]
                   for f in fracs}
     print(f"NeRF step at B={B}, frac 1.0 (300 of the fit's 400 steps): {t_step_full:.4f} ms "
@@ -4928,7 +4960,9 @@ def wide_features_slice(gen, dev):
           f"{fit['sdf_error']:.4f}; {fit['seconds']:.2f} s; launches {fit_launches}")
     check(last10 < WIDE_FIT_LOSS_FLOOR,
           f"wide SDF loss floor missed: {last10} >= {WIDE_FIT_LOSS_FLOOR}")
-    check(fit_launches["MW"] == 2 * WIDE_FIT_STEPS + 1 and fit_launches["GG"] == WIDE_FIT_STEPS,
+    # the eager warm-up step and the capture, the other steps replayed; MW
+    # once more for the evaluation
+    check(fit_launches["MW"] == 2 * 2 + 1 and fit_launches["GG"] == 2,
           f"wide SDF fit launches {fit_launches}")
 
     phase(f"slice 16: the wide image (BF16_POLICY): one step's gradients vs the plain path "
@@ -5394,6 +5428,323 @@ def sortseg_slice(gen, dev):
     return out
 
 
+# Slice 21: the compiled single step (Trainer.make_training_step; the SDF and
+# NeRF samples replay a captured step as the JAX samples jit theirs).
+COMPILED_STEPS = 20          # steps through the compiled step, and as many eager ones
+COMPILED_REPS = 5            # timed passes of COMPILED_STEPS steps; the least is kept
+COMPILED_SDF_POWS = (14, 18)
+# The port's 500-step SDF fit at 2^14 on the CPU (the JAX sample's: loss
+# 0.017435, error 0.0675): the compiled fit ends within a factor 1.5 of the
+# loss and within 0.01 of the error.
+SDF_FIT_LOSS_REF, SDF_FIT_LOSS_FACTOR = 0.019, 1.5
+SDF_FIT_ERROR_REF, SDF_FIT_ERROR_ATOL = 0.067, 0.01
+# The fit with every step eager read 37.03 dB (H100 80GB HBM3, 700 W).
+NERF_PSNR_EAGER, NERF_PSNR_ATOL = 37.03, 1.0
+
+
+def host_step_ms(fn, n=COMPILED_STEPS, reps=COMPILED_REPS):
+    """Host-clock ms per step: n back-to-back calls of fn() (one step
+    each) from an idle card to the end of the last one's device work, the
+    least of reps passes (a pass's own cost on a shared host, as
+    ``tools/kernel_ablation.py``'s ``host_ms`` reads the least)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / n)
+    return best
+
+
+def replay_ms(graph, n=N_TIMED, reps=5):
+    """Device ms per replay of a captured step: n replays back to back
+    between CUDA events, the median of reps."""
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def step_times(label, t, eager, replayed, graph):
+    """The eager and replayed ms per step on the host clock and the
+    replayed step's device ms, into ``t`` under ``label``, printed."""
+    t[label] = {"eager": host_step_ms(eager), "replayed": host_step_ms(replayed),
+                "device": replay_ms(graph)}
+    r = t[label]
+    print(f"{label}: eager {r['eager']:.4f} ms per step on the host clock, replayed "
+          f"{r['replayed']:.4f} ({r['eager'] / r['replayed']:.2f}x), the replayed step on the "
+          f"device {r['device']:.4f} ms (idle share {1 - r['device'] / r['replayed']:.3f}; "
+          f"eager {1 - r['device'] / r['eager']:.3f})")
+
+
+def compiled_entries(entries, keep, launches, path):
+    """Report entries of a compiled path: each kernel's numbers from its
+    earlier phase in this run (the same shapes; ``keep`` selects the
+    entries by name), the launches from this phase's run of the path."""
+    out = []
+    for e in entries:
+        k = next((k for k, (name, _) in KERNELS.items() if e["name"].split(" (")[0] == name),
+                 None)
+        if k is not None and keep(e["name"]):
+            entry = {key: v for key, v in e.items()
+                     if key not in ("launches_inference", "launches_per_step", "phase_launches",
+                                    "path")}
+            entry.update(name=f"{e['name']} (slice 21: {path})", launches=launches[k],
+                         path=f"{path}: the warm-up step and the capture launch it, the "
+                              f"replays launch it from the graph")
+            out.append(entry)
+    return out
+
+
+def compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries):
+    """Slice 21, the compiled single step.  (a) config_hash (BF16_POLICY,
+    2^18) through ``Trainer.make_training_step``: under
+    ``TCNN_TPU_SCATTER=sortseg`` ``COMPILED_STEPS`` steps end with the same
+    weights and losses, bit for bit, as as many eager ``training_step``s
+    from the same seed; without it the same steps are the main path (G, M,
+    GB, MB launched in the warm-up and the capture only) and their losses
+    within ``PARALLEL_LOSS_RTOL`` of the eager ones'; each call's loss is
+    its own tensor; Shampoo refuses.  (b) The SDF sample's eikonal step at
+    2^14 and 2^18 captured through the trainer's capture helper: a replayed
+    step's loss and gradients against an eager step's from the same
+    weights at the eikonal step's bounds; then ``fit_sdf_eikonal.main``
+    (500 steps at 2^14), the main path, near the CPU fit's loss and error.
+    (c) The NeRF step at the sample's defaults: an eager step with no host
+    sync (``torch.cuda.set_sync_debug_mode("error")``) and its capture;
+    a replayed step's loss and gradients against an eager step's at the
+    NeRF step's bounds; ``fit_nerf_field.main``, the main path, within
+    ``NERF_PSNR_ATOL`` of the eager fit's PSNR.  Each path's eager and replayed ms
+    per step on the host clock and the replayed step's device ms.  Returns
+    the kernels' entries: launches from this phase's main paths, the rest
+    from the kernels' own phases of this run."""
+    import functools
+
+    from tcnn_tpu_torch import (BF16_POLICY, Policy, create_from_config, create_optimizer,
+                                load_config)
+    from tcnn_tpu_torch.samples import fit_nerf_field as nf
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+    from tcnn_tpu_torch.tools.plain_path import plain_sdf_loss_and_grads
+    from tcnn_tpu_torch.trainer import _capture_step
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    t_start = time.time()
+    t = {}
+    sampler = ImageSampler(synthetic_image(1024, 1024), seed=5)
+    batches = [sampler.sample_batch(MAIN_BATCH) for _ in range(COMPILED_STEPS)]
+
+    def hash_run(compiled):
+        model = create_from_config(2, 3, CONFIG, policy=BF16_POLICY, seed=21)
+        step = model.trainer.make_training_step() if compiled else model.trainer.training_step
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = [step(x, target) for x, target in batches]
+        torch.cuda.synchronize()
+        return (model, losses, all_counts(),
+                [p.detach().clone() for p in model.trainer.params().values()])
+
+    phase(f"slice 21: config_hash (BF16_POLICY) through Trainer.make_training_step under "
+          f"TCNN_TPU_SCATTER=sortseg, {COMPILED_STEPS} steps at B={MAIN_BATCH}, against as many "
+          f"eager training_steps from the same seed")
+    set_sortseg(True)
+    try:
+        _, want, _, want_w = hash_run(False)
+        model, got, launches, got_w = hash_run(True)
+    finally:
+        set_sortseg(False)
+    same_w = [torch.equal(a, b) for a, b in zip(got_w, want_w)]
+    check(torch.equal(torch.stack(got), torch.stack(want)) and all(same_w),
+          f"sortseg: the compiled steps' losses or weights differ from the eager steps' "
+          f"(weights equal per parameter: {same_w})")
+    check(launches["GB"] == 0 and all(launches[k] == 2 for k in ("G", "M", "MB", "SK", "SS")),
+          f"sortseg compiled steps: launches {launches}, expected G, M, MB, SK, SS twice (the "
+          f"warm-up and the capture) and no GB")
+    check(model.trainer.step == COMPILED_STEPS, f"step count {model.trainer.step}")
+    print(f"{COMPILED_STEPS} compiled steps equal {COMPILED_STEPS} eager ones bit for bit: "
+          f"every loss and every weight ({sum(w.numel() for w in got_w)} values); loss "
+          f"{float(got[0]):.6f} -> {float(got[-1]):.6f}; launches {launches}")
+
+    phase(f"slice 21: config_hash through Trainer.make_training_step, {COMPILED_STEPS} steps "
+          f"at B={MAIN_BATCH} (the main path), against as many eager steps")
+    _, want, _, _ = hash_run(False)
+    model, got, hash_launches, _ = hash_run(True)
+    got, want = torch.stack(got), torch.stack(want)
+    rtol = torch.full_like(want, PARALLEL_LOSS_RTOL)
+    rtol[0] = PARALLEL_FIRST_RTOL
+    check(bool(((got - want).abs() <= rtol * want.abs()).all()) and float(got[-1]) < float(got[0]),
+          f"compiled losses {got.tolist()} vs eager {want.tolist()}")
+    check(hash_launches["SK"] == hash_launches["SS"] == 0
+          and {k: hash_launches[k] for k in FIRST_ORDER} == {"G": 2, "M": 2, "GB": 2, "MB": 2}
+          and all(hash_launches[k] == 0 for k in ("GI", "GG", "RS", "GT", "MW", "MBW")),
+          f"compiled steps' launches {hash_launches}, expected G, M, GB and MB twice")
+    step = model.trainer.make_training_step()
+    (key, cap), = [(k, c) for k, c in model.trainer._graphs.items()
+                   if k[0] == "make_training_step"]
+    x, target = batches[0]
+    a = step(x, target)
+    a_copy = a.clone()
+    step(x, target)
+    check(a.data_ptr() != cap.outputs[0].data_ptr() and torch.equal(a, a_copy),
+          "a compiled step's loss aliases the graph's")
+    print(f"losses {float(got[0]):.6f} -> {float(got[-1]):.6f}, within "
+          f"{float(((got - want).abs() / want.abs()).max()):.3e} of the eager steps' (first "
+          f"rtol {PARALLEL_FIRST_RTOL}, the rest {PARALLEL_LOSS_RTOL}: GB's atomics); launches "
+          f"{hash_launches}; each call's loss a tensor of its own")
+    step_times(f"config_hash step at B={MAIN_BATCH}", t,
+               lambda: model.trainer.training_step(x, target), lambda: step(x, target), cap.graph)
+    shampoo = create_from_config(2, 3, {**load_config(CONFIG),
+                                        "optimizer": {"otype": "Shampoo", "learning_rate": 1e-2}},
+                                 policy=BF16_POLICY)
+    try:
+        shampoo.trainer.make_training_step()(x, target)
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    check(refusal is not None and shampoo.optimizer.capture_error in refusal
+          and shampoo.trainer.step == 0, f"Shampoo under make_training_step: {refusal}")
+    print(f"Shampoo under make_training_step refuses: {refusal}")
+
+    for pow_ in COMPILED_SDF_POWS:
+        B = 1 << pow_
+        phase(f"slice 21: the SDF sample's eikonal step at B=2^{pow_}, captured: a replayed "
+              f"step against an eager one from the same weights, and both steps' times")
+        m = create_from_config(3, 1, sdf.CONFIG, policy=Policy(), seed=21)
+        net, opt = m.network, m.optimizer
+        opt_state = opt.init(dict(net.named_parameters()), net.param_layout())
+        xs, xv = sdf.sample_points(gen, B, dev)
+        names = [n for n, _ in net.named_parameters()]
+
+        def grads_body(a, b):
+            (loss, sl, el), grads = sdf.loss_and_grads(net, a, b, aux=True)
+            return (loss, sl, el, *grads.values())
+
+        cap_g, _ = _capture_step(grads_body, (xs, xv))
+        replayed = cap_g(xs, xv)
+        eager = grads_body(xs, xv)
+        _, _, scale = plain_sdf_loss_and_grads(net, xs, xv, table_scale=True)
+        for i, what in enumerate(("loss", "surface", "eikonal")):
+            check(abs(replayed[i].item() - eager[i].item()) <= 1e-4 * abs(eager[i].item()),
+                  f"SDF 2^{pow_}: replayed {what} {replayed[i].item()} vs eager {eager[i].item()}")
+        hows = []
+        for n, g, w in zip(names, replayed[3:], eager[3:]):
+            if n == "encoding.grid":
+                e = compare_table_grad(g, w, scale, f"SDF 2^{pow_} replayed {n}")
+            else:
+                e = compare_rel(g, w, 1e-4, f"SDF 2^{pow_} replayed {n}")
+            hows.append(f"{n} {e:.3e}")
+        print(f"replayed against eager from the same weights: loss {replayed[0].item():.6f} "
+              f"(eager {eager[0].item():.6f}); gradients' max abs diff: {', '.join(hows)} "
+              f"(table 2^-11·S, weights 1e-4 of their max)")
+        cap, _ = _capture_step(functools.partial(sdf.step, net, opt, opt_state), (xs, xv))
+        step_times(f"SDF eikonal step at B=2^{pow_}", t,
+                   lambda: sdf.step(net, opt, opt_state, xs, xv), lambda: cap(xs, xv), cap.graph)
+
+    phase(f"slice 21: fit_sdf_eikonal.main, {SDF_FIT_STEPS} steps at 2^{SDF_FIT_BATCH_POW}, "
+          f"a captured step replayed (the main path)")
+    torch.cuda.synchronize()
+    reset_counts()
+    fit = sdf.main(["fit_sdf_eikonal", str(SDF_FIT_STEPS), str(SDF_FIT_BATCH_POW)])
+    torch.cuda.synchronize()
+    sdf_launches = counts()
+    want = {"G": 5, "M": 5, "MB": 4, "GB": 2, "GI": 2, "GG": 2, "RS": 0, "GT": 0, "MW": 0,
+            "MBW": 0}   # per step G, M, MB 2 and GB, GI, GG 1; twice; G and M for the evaluation
+    check(sdf_launches == want, f"SDF fit launches {sdf_launches}, expected {want}")
+    last10 = float(fit["losses"][-10:].mean())
+    check(bool(torch.isfinite(fit["losses"]).all())
+          and SDF_FIT_LOSS_REF / SDF_FIT_LOSS_FACTOR <= last10
+          <= SDF_FIT_LOSS_REF * SDF_FIT_LOSS_FACTOR
+          and abs(fit["sdf_error"] - SDF_FIT_ERROR_REF) <= SDF_FIT_ERROR_ATOL,
+          f"SDF fit: loss {last10}, sdf error {fit['sdf_error']}")
+    t["SDF fit s"] = fit["seconds"]
+    print(f"fit: loss {float(fit['losses'][0]):.6f} -> {last10:.6f} (mean of the last 10; "
+          f"the CPU fit's {SDF_FIT_LOSS_REF}, within a factor {SDF_FIT_LOSS_FACTOR}), mean |sdf error| "
+          f"{fit['sdf_error']:.4f} (the CPU fit's {SDF_FIT_ERROR_REF} ± {SDF_FIT_ERROR_ATOL}); "
+          f"{fit['seconds']:.3f} s, {fit['seconds'] / SDF_FIT_STEPS * 1e3:.4f} ms a step; "
+          f"launches {sdf_launches}")
+
+    phase(f"slice 21: the NeRF step at the sample's defaults ({NERF_RAYS} rays x "
+          f"{NERF_SAMPLES} samples, BF16_POLICY): an eager step with no host sync, its capture, "
+          f"a replayed step against an eager one from the same weights, both steps' times")
+    d_net, c_net = nf.build_model(BF16_POLICY, torch.Generator().manual_seed(0), dev)
+    opt = create_optimizer(nf.OPTIMIZER)
+    opt_state = opt.init(*nf.params_and_layout(d_net, c_net))
+    rays_o, rays_d = nf.sample_rays(gen, NERF_RAYS, dev)
+    jitter = torch.rand((NERF_RAYS, NERF_SAMPLES), generator=gen, device=dev)
+    inputs = (rays_o, rays_d, jitter, nf.per_sample_frac(0.5, NERF_BATCH, dev))
+
+    def nerf_step(o, d, j, frac):
+        return nf.step(d_net, c_net, opt, opt_state, o, d, NERF_SAMPLES, j, frac)
+
+    def nerf_grads(o, d, j, frac):
+        loss, grads = nf.loss_and_grads(d_net, c_net, o, d, NERF_SAMPLES, j, frac)
+        return (loss, *grads.values())
+
+    nerf_grads(*inputs)   # the level constants and the scene's tensors, cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nerf_grads(*inputs)   # raises on an operation that waits for the device
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cap_g, _ = _capture_step(nerf_grads, inputs)
+    replayed = cap_g(*inputs)
+    eager = nerf_grads(*inputs)
+    check(abs(replayed[0].item() - eager[0].item()) <= 2e-2 * abs(eager[0].item()),
+          f"NeRF: replayed loss {replayed[0].item()} vs eager {eager[0].item()}")
+    names = list(nf.params_and_layout(d_net, c_net)[0])
+    e = compare_mlp_grads(list(replayed[1:]), list(eager[1:]), torch.bfloat16,
+                          "NeRF replayed gradients")
+    print(f"an eager NeRF step ran under torch.cuda.set_sync_debug_mode('error'): no host sync; "
+          f"captured in 'global' mode; replayed against eager from the same weights: loss "
+          f"{replayed[0].item():.6f} (eager {eager[0].item():.6f}), gradients of {names} within "
+          f"{e:.3e} (2e-2 of each one's max)")
+    cap, _ = _capture_step(nerf_step, inputs)
+    step_times(f"NeRF step at B={NERF_BATCH}, frac 0.5", t, lambda: nerf_step(*inputs),
+               lambda: cap(*inputs), cap.graph)
+
+    phase(f"slice 21: fit_nerf_field.main at its defaults ({NERF_STEPS} steps), a captured "
+          f"step replayed (the main path)")
+    torch.cuda.synchronize()
+    reset_counts()
+    nfit = nf.main(["fit_nerf_field"])
+    torch.cuda.synchronize()
+    nerf_launches = first_order_counts()
+    check(nerf_launches == {"G": 3, "M": 6, "GB": 2, "MB": 4},
+          f"NeRF fit launches {nerf_launches}, expected the step in the warm-up and the "
+          f"capture and the evaluation (G 3, M 6, GB 2, MB 4)")
+    check(bool(torch.isfinite(nfit["losses"]).all())
+          and abs(nfit["psnr"] - NERF_PSNR_EAGER) <= NERF_PSNR_ATOL,
+          f"NeRF fit PSNR {nfit['psnr']:.2f} dB, the eager fit's {NERF_PSNR_EAGER} ± "
+          f"{NERF_PSNR_ATOL}")
+    t["NeRF fit s"] = nfit["seconds"]
+    print(f"fit: {NERF_STEPS} steps in {nfit['seconds']:.3f} s "
+          f"({nfit['seconds'] / NERF_STEPS * 1e3:.4f} ms a step); loss "
+          f"{float(nfit['losses'][:10].mean()):.6f} (first 10) -> "
+          f"{float(nfit['losses'][-10:].mean()):.6f} (last 10); eval PSNR {nfit['psnr']:.2f} dB "
+          f"(the eager fit's {NERF_PSNR_EAGER} ± {NERF_PSNR_ATOL}); launches {nerf_launches}")
+    print(f"slice 21: {time.time() - t_start:.1f} s; the SDF and NeRF phases' fits (slices 4, "
+          f"8 and 16) replay the same captured steps now")
+    return (compiled_entries(hash_entries, lambda n: " (" not in n, hash_launches,
+                             "config_hash make_training_step")
+            + compiled_entries(sdf_entries, lambda n: not n.startswith("row_scatter")
+                               and (n.endswith(" (sdf)") or n.endswith(" (sdf 2^14)")),
+                               sdf_launches,
+                               "fit_sdf_eikonal.main, 500 steps at 2^14")
+            + compiled_entries(nerf_entries, lambda n: True, nerf_launches,
+                               "fit_nerf_field.main"))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -5420,15 +5771,19 @@ def main():
     print(f"kernels built from tcnn_tpu_torch/csrc in {time.time() - t0:.1f} s")
 
     hash_entries, hash_times = config_hash_slices(gen, dev)
-    report = {"kernels": hash_entries + config_btf_slice(gen, dev)
-              + config_oneblob_slice(gen, dev) + sdf_slice(gen, dev) + nerf_slice(gen, dev)
+    btf_entries = config_btf_slice(gen, dev)
+    oneblob_entries = config_oneblob_slice(gen, dev)
+    sdf_entries = sdf_slice(gen, dev)
+    nerf_entries = nerf_slice(gen, dev)
+    report = {"kernels": hash_entries + btf_entries + oneblob_entries + sdf_entries + nerf_entries
               + save_load_serve_slice(gen, dev, hash_times) + bindings_slice(gen, dev)
               + rng_stochastic_slice(gen, dev, hash_times) + masked_sdf_slice(gen, dev)
               + wide_grid_slice(gen, dev) + deep_mlp_slice(gen, dev)
               + parallel_slice(gen, dev) + parallel_loop_slice(dev, hash_entries)
               + slice14(gen, dev, hash_times)
               + wide_features_slice(gen, dev) + wide_output_slice(gen, dev)
-              + sortseg_slice(gen, dev)}
+              + sortseg_slice(gen, dev)
+              + compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

@@ -12,15 +12,19 @@ whose gradient in the parameters flows through ∇x f: the grid's and the
 MLP's second derivatives (kernels GI and GG, and MB's differentiable
 backward).  Smoothstep interpolation makes ∇x f continuous.  The model is
 built by ``create_from_config`` at the fp32 policy and trained through
-``model.network`` and ``model.optimizer``, as the JAX sample does, one
-eager step at a time.  Surface and volume samples come from a
-``torch.Generator`` seeded with 1 on the device, the evaluation points
-from one seeded with 7; PyTorch draws other numbers than ``jax.random``,
+``model.network`` and ``model.optimizer``, as the JAX sample does.  The
+JAX sample jits its step; here, on the card, the first step runs eagerly
+(the warm-up that capture needs) and every later step replays one CUDA
+graph of the step, into whose static buffers each step's points are
+copied; on the CPU every step runs eagerly.  Surface and volume samples
+come from a ``torch.Generator`` seeded with 1 on the device, drawn outside
+the graph, the evaluation points from one seeded with 7; PyTorch draws other numbers than ``jax.random``,
 so the run follows the JAX sample in distribution, not sample by sample.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 from typing import Tuple
@@ -28,6 +32,7 @@ from typing import Tuple
 import torch
 
 import tcnn_tpu_torch as tcnn
+from tcnn_tpu_torch.trainer import _capture_step
 
 CONFIG = {
     "loss": {"otype": "L2"},              # unused: custom loss below
@@ -156,8 +161,16 @@ def main(argv, device=None, config=None) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
+    captured = None
     for i in range(n_steps):
-        loss, sl, el = step(net, opt, opt_state, *sample_points(gen, batch, device))
+        points = sample_points(gen, batch, device)
+        if device.type != "cuda":
+            loss, sl, el = step(net, opt, opt_state, *points)
+        elif captured is None:
+            captured, (loss, sl, el) = _capture_step(
+                functools.partial(step, net, opt, opt_state), points)
+        else:
+            loss, sl, el = captured(*points)
         losses.append(loss)
         if i % 50 == 0 or i == n_steps - 1:
             print(f"step {i}: loss={float(loss):.6f} "

@@ -305,8 +305,9 @@ def export_train_step(trainer, batch: int, path: Optional[str] = None, *,
 class TrainStep:
     """A loaded ``export_train_step`` artifact: ``step(state, x, target)
     -> (state, loss)``.  Each call loads ``state`` into its own trainer,
-    takes one step (on the card, the replay of a step captured on the
-    first call) and returns the trainer dict after it."""
+    takes one step through ``Trainer.make_training_step`` (on the card, the
+    replay of a step captured on the first call; JAX's
+    ``export_train_step`` jits ``step_fn``) and returns the trainer dict after it."""
 
     def __init__(self, meta: Dict[str, Any], device=None):
         from .config import create_from_config
@@ -321,6 +322,7 @@ class TrainStep:
         self.trainer = self.model.trainer
         self.trainer.perturbation_sigma = meta.get("perturbation_sigma")
         self.device = next(iter(self.trainer.params().values())).device
+        self._step = self.trainer.make_training_step()
 
     def __call__(self, state: Dict[str, Any], x, target):
         shapes = {"x": (x, self.meta["n_input_dims"]), "target": (target, self.meta["n_output_dims"])}
@@ -331,7 +333,7 @@ class TrainStep:
         x = torch.as_tensor(x).to(self.device, self._input_dtype)
         target = torch.as_tensor(target).to(self.device, self._input_dtype)
         self.trainer.deserialize(state)
-        loss = self.trainer.training_loop(x[None], target[None])[0]
+        loss = self._step(x, target)
         return self.trainer.serialize(), loss
 
 

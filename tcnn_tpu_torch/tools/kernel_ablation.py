@@ -1099,8 +1099,9 @@ def time_steps() -> dict:
                                           smoke.LOOP_STEPS)
     loop()   # captures the step, as chip_smoke.py's fit has before its timed calls
     t = smoke.slice_times("config_hash", model, x, target, loop)
-    out = {f"config_hash {k}": t[k] for k in ("step device", "step", "loop step") + STEP_PARTS}
-    out["config_hash rest"] = t["step device"] - sum(t[k] for k in STEP_PARTS)
+    parts = [k for k in STEP_PARTS if k in t]   # no table copy where the dtypes match
+    out = {f"config_hash {k}": t[k] for k in ["step device", "step", "loop step"] + parts}
+    out["config_hash rest"] = t["step device"] - sum(t[k] for k in parts)
     out.update({f"config_hash step {k}": v
                 for k, v in host_ms(lambda: model.trainer.training_step(x, target)).items()})
 

@@ -8,7 +8,10 @@ steps taken.
 
   * ``training_step`` is forward, loss, backward and optimizer step
     (trainer.py:142-164); it returns the loss as a device scalar and never
-    waits for the device.
+    waits for the device.  It runs eagerly.
+  * ``step_fn`` / ``make_training_step`` (trainer.py:166-197): the step's
+    uncounted eager body for callers that capture it themselves, and the
+    compiled step, which on the card replays a captured CUDA graph.
   * ``make_training_loop`` / ``training_loop`` are the counterparts of the
     JAX package's ``lax.scan`` loops: on the card they replay one captured
     CUDA graph per step (the reference's graph replay, trainer.h:176-183),
@@ -19,7 +22,7 @@ steps taken.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,10 +33,55 @@ from .optimizers import Optimizer
 
 
 class _CapturedStep:
-    """One training step captured in a CUDA graph, with its static buffers."""
+    """A step captured in a CUDA graph: the static buffers it reads
+    (``inputs``) and the tensors it writes (``outputs``), both overwritten
+    by each replay."""
 
-    def __init__(self, graph, x, target, loss):
-        self.graph, self.x, self.target, self.loss = graph, x, target, loss
+    def __init__(self, graph, inputs: Tuple[torch.Tensor, ...],
+                 outputs: Tuple[torch.Tensor, ...]):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+
+    def replay(self, *inputs: torch.Tensor) -> None:
+        """Copies ``inputs`` into the static buffers and replays the step."""
+        for static, t in zip(self.inputs, inputs, strict=True):
+            static.copy_(t)
+        self.graph.replay()
+
+    def __call__(self, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``replay``, then copies of the outputs, which the next replay
+        does not overwrite.  Does not wait for the device."""
+        self.replay(*inputs)
+        return tuple(o.clone() for o in self.outputs)
+
+
+def _as_tuple(out) -> Tuple[torch.Tensor, ...]:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def _capture_step(body: Callable[..., Any], inputs: Sequence[torch.Tensor],
+                  capture_error_mode: str = "global",
+                  generators: Sequence[torch.Generator] = ()):
+    """Captures ``body(*inputs)`` (a tensor or a tuple of tensors) in a
+    CUDA graph.  Runs one real step of ``body`` eagerly on a side stream
+    over static copies of ``inputs`` (the warm-up that capture needs), then
+    captures the next call over the same copies; the capture runs nothing.
+    ``generators`` (drawn from inside ``body``) are registered with the
+    graph, so each replay draws new numbers.  Returns the captured step and
+    the warm-up's outputs as a tuple.  A failing capture raises: no caller
+    goes on eagerly on the card."""
+    static = tuple(t.clone() for t in inputs)
+    device = static[0].device
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm = _as_tuple(body(*static))
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+        outputs = _as_tuple(body(*static))
+    return _CapturedStep(graph, static, outputs), warm
 
 
 class Trainer:
@@ -81,11 +129,19 @@ class Trainer:
         statistics, or replace this method to inject the same noise into
         both packages.
         """
+        u = torch.rand(shape, generator=self._noise_generator(device), device=device)
+        return torch.log(u) - torch.log1p(-u)
+
+    def _noise_generator(self, device) -> torch.Generator:
         if self._noise_gen is None:
             self._noise_gen = torch.Generator(device).manual_seed(
                 ((self.seed ^ 0x5eed) + self.noise_stream * 0x9E3779B97F4A7C15) % 2 ** 63)
-        u = torch.rand(shape, generator=self._noise_gen, device=device)
-        return torch.log(u) - torch.log1p(-u)
+        return self._noise_gen
+
+    def _capture_generators(self, device) -> Tuple[torch.Generator, ...]:
+        """The generators a captured step draws from (the output
+        perturbation's), to register with its graph."""
+        return (self._noise_generator(device),) if self.perturbation_sigma else ()
 
     def loss_value_and_grads(self, x: torch.Tensor, target: torch.Tensor,
                              pdf: Optional[torch.Tensor] = None):
@@ -109,10 +165,69 @@ class Trainer:
                       pdf: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One forward + loss + backward + optimizer step
         (≈ trainer.h:163-190).  Returns the loss as a 0-d tensor on the
-        model's device, without waiting for it."""
+        model's device, without waiting for it.  It runs eagerly, so that
+        it can itself be captured in a CUDA graph (a replay cannot be
+        nested in a capture); JAX's counterpart is jitted, and
+        ``make_training_step`` is the compiled form here."""
         loss = self._step_body(x, target, pdf)
         self.step += 1
         return loss
+
+    def step_fn(self, *, with_pdf: bool = False) -> Callable[..., torch.Tensor]:
+        """The step's eager body ``(x, target[, pdf]) -> loss``
+        (trainer.py:166-173): forward, loss, backward and optimizer step,
+        for callers that wrap the step in their own CUDA graph capture, as
+        JAX callers wrap ``step_fn`` in their own jit.  It does not count
+        the step: the caller adds one to ``step`` for each step it takes.
+        ``make_training_step`` is the compiled, counted step."""
+        if with_pdf:
+            return self._step_body
+        return lambda x, target: self._step_body(x, target)
+
+    def make_training_step(self, *, with_pdf: bool = False, **jax_options
+                           ) -> Callable[..., torch.Tensor]:
+        """The compiled step (trainer.py:175-197): ``step(x, target[, pdf])
+        -> loss``, each call one optimizer step, counted in ``step``.
+
+        On the card the first call for a given set of shapes, dtypes and
+        device runs the step eagerly (the warm-up) and captures the next
+        one in a CUDA graph; each later call copies the batch into the
+        graph's static buffers and replays it.  Each call returns a fresh
+        0-d loss tensor (not the graph's, which the next replay
+        overwrites) and does not wait for the device.  The graphs live in
+        ``_graphs``, which ``update_hyperparams`` and
+        ``HybridParallel.shard_state`` clear: the next call captures anew.
+        An optimizer whose step cannot be captured (Shampoo) raises on the
+        card; nothing goes on eagerly there.  With ``device="cpu"`` the
+        steps run eagerly.  JAX's ``in_shardings``, ``out_shardings`` and
+        ``donate_state`` have no counterpart here and raise ``TypeError``.
+        """
+        if jax_options:
+            raise TypeError(f"make_training_step: {sorted(jax_options)} are JAX's "
+                            f"jit options and have no counterpart in this package")
+        body = self.step_fn(with_pdf=with_pdf)
+
+        def run(batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+            device = batch[0].device
+            if device.type != "cuda":
+                loss = body(*batch)
+            else:
+                if not self.optimizer.capturable:
+                    raise RuntimeError(f"make_training_step: {self.optimizer.capture_error}")
+                key = ("make_training_step", device) + tuple(
+                    (tuple(t.shape), t.dtype) for t in batch)
+                cap = self._graphs.get(key)
+                if cap is None:
+                    self._graphs[key], (loss,) = _capture_step(
+                        body, batch, generators=self._capture_generators(device))
+                else:
+                    (loss,) = cap(*batch)
+            self.step += 1
+            return loss
+
+        if with_pdf:
+            return lambda x, target, pdf: run((x, target, pdf))
+        return lambda x, target: run((x, target))
 
     def training_step_external_dL_dy(self, x: torch.Tensor,
                                      dL_dy: torch.Tensor) -> torch.Tensor:
@@ -128,26 +243,6 @@ class Trainer:
         return pred.detach()
 
     # -- multi-step loops (CUDA graph replay) ---------------------------
-    def _capture(self, x: torch.Tensor, target: torch.Tensor, body, capture_error_mode: str):
-        """Runs one real step of ``body`` eagerly on a side stream (the
-        warm-up that capture needs), then captures the next step into a
-        CUDA graph that reads the static ``x``/``target`` buffers.  Returns
-        the captured step and the loss of the eager one.  A failing capture
-        raises: the loop never goes on eagerly on the card."""
-        static_x, static_t = x.clone(), target.clone()
-        side = torch.cuda.Stream(device=x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):
-            warm_loss = body(static_x, static_t)
-        self.step += 1
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        if self.perturbation_sigma:
-            graph.register_generator_state(self._noise_gen)
-        with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
-            loss = body(static_x, static_t)
-        return _CapturedStep(graph, static_x, static_t, loss), warm_loss
-
     def _run_loop(self, batch_fn: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
                   n_steps: int, body=None, key: Tuple = (),
                   capture_error_mode: str = "global") -> torch.Tensor:
@@ -171,17 +266,17 @@ class Trainer:
         key = key + (tuple(x.shape), x.dtype, tuple(target.shape), target.dtype, x.device)
         first = 0
         if key not in self._graphs:
-            self._graphs[key], warm_loss = self._capture(x, target, body, capture_error_mode)
+            self._graphs[key], (warm_loss,) = _capture_step(
+                body, (x, target), capture_error_mode, self._capture_generators(x.device))
             losses[0].copy_(warm_loss)
+            self.step += 1
             first = 1
         cap = self._graphs[key]
         for i in range(first, n_steps):
             if i:
                 x, target = batch_fn(i)
-            cap.x.copy_(x)
-            cap.target.copy_(target)
-            cap.graph.replay()
-            losses[i].copy_(cap.loss)
+            cap.replay(x, target)
+            losses[i].copy_(cap.outputs[0])
             self.step += 1
         return losses
 

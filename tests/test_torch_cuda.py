@@ -2544,3 +2544,125 @@ def test_sortseg_training_is_bit_reproducible_and_replays_the_eager_steps(cuda, 
     for a, b, c in zip(first[1], again[1], eager[1]):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert float(first[0][-1]) < float(first[0][0])
+
+
+# -- slice 21: the compiled single step ---------------------------------
+
+@pytest.mark.parametrize("with_pdf", [False, True], ids=["no-pdf", "pdf"])
+def test_compiled_step_replays_the_eager_steps_bit_for_bit_under_sortseg(cuda, monkeypatch,
+                                                                         with_pdf):
+    """config_hash (BF16_POLICY) at 2^16 under TCNN_TPU_SCATTER=sortseg: 12
+    calls of ``make_training_step`` end with the same losses and weights,
+    bit for bit, as 12 eager ``training_step``s from the same seed; G
+    launches in the warm-up step and the capture only; each call returns
+    a loss of its own; ``update_hyperparams`` drops the graph and the next
+    call captures anew."""
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    monkeypatch.setenv("TCNN_TPU_SCATTER", "sortseg")
+    sampler = ImageSampler(synthetic_image(256, 256), seed=3)
+    gen = torch.Generator("cuda").manual_seed(4)
+    batches = [(*sampler.sample_batch(1 << 16),
+                torch.rand((1 << 16, 3), generator=gen, device="cuda") + 0.5)
+               for _ in range(12)]
+    batches = [b if with_pdf else b[:2] for b in batches]
+
+    def run(compiled):
+        model = create_from_config(2, 3, "configs/config_hash.json", policy=BF16_POLICY, seed=5)
+        step = (model.trainer.make_training_step(with_pdf=with_pdf) if compiled
+                else model.trainer.training_step)
+        g0 = grid_encode_fwd.launches
+        losses = [step(*b) for b in batches]
+        torch.cuda.synchronize()
+        return (model, losses, grid_encode_fwd.launches - g0,
+                [p.detach().clone() for p in model.trainer.params().values()])
+
+    model, got, launched, got_w = run(True)
+    _, want, _, want_w = run(False)
+    assert launched == 2 and model.trainer.step == 12
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    assert all(torch.equal(a, b) for a, b in zip(got_w, want_w))
+    assert len({loss.data_ptr() for loss in got}) == len(got)
+    (cap,) = model.trainer._graphs.values()
+    assert all(loss.data_ptr() != cap.outputs[0].data_ptr() for loss in got)
+    model.trainer.update_hyperparams({"optimizer": {"learning_rate": 1e-3}})
+    assert not model.trainer._graphs
+    g0 = grid_encode_fwd.launches
+    assert bool(torch.isfinite(model.trainer.make_training_step(with_pdf=with_pdf)(*batches[0])))
+    assert grid_encode_fwd.launches - g0 == 2 and len(model.trainer._graphs) == 1
+
+
+def test_shampoo_compiled_step_refuses_capture_on_the_card(cuda):
+    model = create_from_config(2, 3, _hash_config(CARD_OPTIMIZERS["Shampoo"]),
+                               policy=BF16_POLICY)
+    x, t = _image_batches(1)[0]
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        model.trainer.make_training_step()(x, t)
+    assert model.trainer.step == 0 and not model.trainer._graphs
+
+
+def test_nerf_step_runs_with_no_host_sync_and_captures(cuda):
+    """The NeRF step (BF16_POLICY, 1024 rays x 48 samples, a level fraction
+    of 0.5 as a buffer) runs eagerly under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on an
+    operation that waits for the device, and captures; a replay of its
+    loss and gradients equals an eager call's from the same weights within
+    the NeRF step's bounds (loss 2e-2 relative, each gradient 2e-2 of its
+    largest magnitude: GB's atomics); the sample's fit replays (G, GB once
+    and M, MB twice in the warm-up and in the capture, then the
+    evaluation)."""
+    from tcnn_tpu_torch import create_optimizer
+    from tcnn_tpu_torch.samples import fit_nerf_field as nf
+    from tcnn_tpu_torch.trainer import _capture_step
+
+    gen = torch.Generator("cuda").manual_seed(6)
+    rays_o, rays_d = nf.sample_rays(gen, 1024, "cuda")
+    jitter = torch.rand((1024, 48), generator=gen, device="cuda")
+    inputs = (rays_o, rays_d, jitter, nf.per_sample_frac(0.5, 1024 * 48, "cuda"))
+    nets = nf.build_model(BF16_POLICY, torch.Generator().manual_seed(0), "cuda")
+    opt = create_optimizer(nf.OPTIMIZER)
+    opt_state = opt.init(*nf.params_and_layout(*nets))
+
+    def grads(o, d, j, frac):
+        loss, g = nf.loss_and_grads(*nets, o, d, 48, j, frac)
+        return (loss, *g.values())
+
+    def step(o, d, j, frac):
+        return nf.step(*nets, opt, opt_state, o, d, 48, j, frac)
+
+    grads(*inputs)   # caches the grid's constants and the scene's tensors
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(*inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager = grads(*inputs)
+    cap, _ = _capture_step(grads, inputs)
+    replayed = cap(*inputs)
+    assert abs(float(replayed[0]) - float(eager[0])) <= 2e-2 * abs(float(eager[0]))
+    for a, b in zip(replayed[1:], eager[1:]):
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+    step_cap, (warm,) = _capture_step(step, inputs)
+    (loss,) = step_cap(*inputs)
+    assert bool(torch.isfinite(warm)) and bool(torch.isfinite(loss))
+
+    counters = (grid_encode_fwd, grid_encode_bwd, fused_mlp_fwd, fused_mlp_bwd)
+    before = [c.launches for c in counters]
+    out = nf.main(["fit_nerf_field", "12", "10"])
+    assert bool(torch.isfinite(out["losses"]).all())
+    assert [c.launches - b for c, b in zip(counters, before)] == [3, 2, 6, 4]
+
+
+def test_sdf_sample_replays_a_captured_step(cuda):
+    """``fit_sdf_eikonal.main`` on the card: the step's kernels launch in the
+    warm-up step and the capture only (G, M, MB twice each, GB, GI, GG once
+    each, per step), G and M once more for the evaluation."""
+    from tcnn_tpu_torch.samples import fit_sdf_eikonal as sdf
+
+    counters = (grid_encode_fwd, fused_mlp_fwd, fused_mlp_bwd, grid_encode_bwd,
+                grid_encode_bwd_input, grid_encode_bwd_bwd)
+    before = [c.launches for c in counters]
+    out = sdf.main(["fit_sdf_eikonal", "12", "12"])
+    assert bool(torch.isfinite(out["losses"]).all()) and out["losses"].shape == (12,)
+    assert [c.launches - b for c, b in zip(counters, before)] == [5, 5, 4, 2, 2, 2]
