@@ -200,6 +200,23 @@ and read just after:
     5 passes of 20 steps) and the replayed step's device ms; the SDF
     sample's 500-step fit and the NeRF sample's fit, both replaying a
     captured step, the main paths of their kernels' entries.
+  * slice 22, the compiled requests and the parallel layers' compiled
+    entry points (``compiled_requests_slice``, last): ``Trainer.inference``
+    on config_hash (BF16_POLICY) at 2^10, 2^14 and 2^18 and on config_btf
+    at 2^18, a request run and captured and one replayed, both bit for bit
+    the eager module's, G and M launched by the first only, the main path
+    of the requests; each request's eager and compiled ms and the
+    replay's device ms; config_btf's graph pool; EMA(Adam): a request
+    replayed after 10 more eager steps against the eager module on the EMA
+    weights; ``forward`` and ``evaluate_loss``; in a spawned one-rank NCCL
+    process ``DataParallel`` and ``HybridParallel`` (n_model 1)
+    ``make_training_step`` under ``sortseg``, 20 steps bit for bit against
+    ``step_shard_map`` eager steps and ``Trainer.make_training_step``, their
+    ``make_inference`` against the eager module, and DataParallel's
+    compiled step without it (G, GB, M, MB in the warm-up and the capture
+    only), the main path of the parallel step, with the three steps'
+    times.  (Since slice 22 every earlier phase's first request of a shape
+    launches G and M twice, its warm-up and its capture.)
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -407,6 +424,11 @@ with TF32 off):
     within a factor ``SDF_FIT_LOSS_FACTOR`` of the CPU fit's 0.019 and its
     error within ``SDF_FIT_ERROR_ATOL`` of 0.067; the NeRF fit's PSNR
     within ``NERF_PSNR_ATOL`` of the eager fit's 37.03 dB.
+
+  * slice 22: requests, the layers' steps under ``sortseg`` and their
+    requests bit for bit; DataParallel's compiled steps without it as slice
+    18's loop (the first loss within ``PARALLEL_FIRST_RTOL``, the rest
+    ``PARALLEL_LOSS_RTOL`` of ``Trainer.make_training_step``'s).
 
   * slice 12: each shard's G at the fp32 bound with the fp32 sum's own
     error (its partial features are fp32: |d| <= 1e-5·|ref| + (2^D +
@@ -1143,11 +1165,13 @@ def config_hash_slices(gen, dev):
     reset_counts()
     answers = []
     for i, x in enumerate(xs):
+        # since slice 22 the first request of a shape runs once (the
+        # warm-up) and is captured: G and M twice a shape
         y = model.trainer.inference(x)
         torch.cuda.synchronize()
-        check(grid_encode_fwd.launches == i + 1 and fused_mlp_fwd.launches == i + 1,
+        check(grid_encode_fwd.launches == 2 * (i + 1) and fused_mlp_fwd.launches == 2 * (i + 1),
               f"request {i}: launch counts G={grid_encode_fwd.launches} "
-              f"M={fused_mlp_fwd.launches}, expected {i + 1} each")
+              f"M={fused_mlp_fwd.launches}, expected {2 * (i + 1)} each")
         answers.append(y)
     inf_launches = first_order_counts()
     for x, y in zip(xs, answers):
@@ -1167,8 +1191,8 @@ def config_hash_slices(gen, dev):
     g0, m0 = grid_encode_fwd.launches, fused_mlp_fwd.launches
     y = model32.trainer.inference(x)
     torch.cuda.synchronize()
-    check((grid_encode_fwd.launches - g0, fused_mlp_fwd.launches - m0) == (1, 1),
-          "fp32 request did not launch G and M once each")
+    check((grid_encode_fwd.launches - g0, fused_mlp_fwd.launches - m0) == (2, 2),
+          "fp32 request did not launch G and M twice each (the warm-up and the capture)")
     with torch.inference_mode():
         abs_err, _ = compare(y, plain_inference(model32, x), "mlp-f32")
     print(f"fp32 request B={x.shape[0]}: max abs err {abs_err:.3e} (rtol 1e-5, atol 1e-5)")
@@ -1361,8 +1385,9 @@ def config_btf_slice(gen, dev):
     y = btf.trainer.inference(x6)
     torch.cuda.synchronize()
     inf_launches = first_order_counts()
-    check(inf_launches == {"G": 1, "M": 1, "GB": 0, "MB": 0},
-          f"config_btf request launches {inf_launches}, expected G and M once")
+    check(inf_launches == {"G": 2, "M": 2, "GB": 0, "MB": 0},
+          f"config_btf request launches {inf_launches}, expected G and M twice (the warm-up "
+          f"and the capture)")
     check(y.shape == (MAIN_BATCH, 3) and y.dtype == torch.float32, f"answer {tuple(y.shape)}")
     with torch.inference_mode():
         abs_err, _ = compare(y, plain_inference(btf, x6), "model")
@@ -2268,8 +2293,9 @@ def image_sample_slice():
         launches = first_order_counts()
         dumps = sorted(os.listdir(out_dir))
     # the loop's eager warm-up step and its capture; three inferences of the
-    # whole 1024^2 image (steps 10, 100 and the end) in chunks of 2^18
-    want = {"G": 2 + 3 * 4, "M": 2 + 3 * 4, "GB": 2, "MB": 2}
+    # whole 1024^2 image (steps 10, 100 and the end) in chunks of 2^18, the
+    # first chunk's request run and captured, the other eleven replayed
+    want = {"G": 2 + 2, "M": 2 + 2, "GB": 2, "MB": 2}
     check(launches == want, f"image sample launches {launches}, expected {want}")
     check(bool(torch.isfinite(out["losses"]).all()), "non-finite image sample loss")
     check(len(dumps) == 2, f"image sample dumps {dumps}")
@@ -3739,10 +3765,12 @@ def parallel_slice(gen, dev):
         worst = max(ref["grad_rel"], key=ref["grad_rel"].get)
         check(ref["grad_rel"][worst] <= PARALLEL_GRAD_REL,
               f"{job}: first reduced gradients {ref['grad_rel']} from one process's")
-        if dev.type == "cuda":   # slice 18: no loop over gloo on the card
-            check(all("gloo" in (o["loop_refusal"] or "") for o in outs),
-                  f"{job}: make_training_loop over gloo on the card did not refuse: "
-                  f"{[o['loop_refusal'] for o in outs]}")
+        if dev.type == "cuda":   # slices 18 and 22: nothing captured over gloo on the card
+            for entry in ("loop", "step", "inference"):
+                got_r = [o["refusals"][entry] for o in outs]
+                check(all("gloo" in (r or "") and "cannot be captured" in r for r in got_r),
+                      f"{job}: the compiled {entry} over gloo on the card did not refuse: "
+                      f"{got_r}")
         lc = outs[0]["launches"]
         want_k = (("G", "GB", "M", "MB") if job != "eikonal_sdf"
                   else ("G", "GB", "GI", "GG", "M", "MB"))
@@ -3757,8 +3785,8 @@ def parallel_slice(gen, dev):
               f"single-process runs {ref['repeat_table_rel']:.3e}); shard of "
               f"{outs[0]['shard_numel']} table parameters; first reduced gradients rel L2 "
               f"at most {ref['grad_rel'][worst]:.3e} ({worst})")
-        print(f"{job}: make_training_loop over gloo on the card refused: "
-              f"{outs[0]['loop_refusal']!r}")
+        print(f"{job}: the compiled entry points over gloo on the card refused: "
+              f"{outs[0]['refusals']!r}")
         print(f"{job}: per rank, median over steps 2-{steps}: step {step_ms} ms, of it in "
               f"collectives {coll_ms} ms (host clock, synchronised; one card shared by two "
               f"processes, gloo: no scaling figure); launches over {steps} steps {lc}")
@@ -5489,7 +5517,7 @@ def step_times(label, t, eager, replayed, graph):
           f"eager {1 - r['device'] / r['eager']:.3f})")
 
 
-def compiled_entries(entries, keep, launches, path):
+def compiled_entries(entries, keep, launches, path, tag="slice 21", what="step"):
     """Report entries of a compiled path: each kernel's numbers from its
     earlier phase in this run (the same shapes; ``keep`` selects the
     entries by name), the launches from this phase's run of the path."""
@@ -5501,8 +5529,8 @@ def compiled_entries(entries, keep, launches, path):
             entry = {key: v for key, v in e.items()
                      if key not in ("launches_inference", "launches_per_step", "phase_launches",
                                     "path")}
-            entry.update(name=f"{e['name']} (slice 21: {path})", launches=launches[k],
-                         path=f"{path}: the warm-up step and the capture launch it, the "
+            entry.update(name=f"{e['name']} ({tag}: {path})", launches=launches[k],
+                         path=f"{path}: the warm-up {what} and the capture launch it, the "
                               f"replays launch it from the graph")
             out.append(entry)
     return out
@@ -5745,6 +5773,262 @@ def compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries):
                                "fit_nerf_field.main"))
 
 
+# Slice 22: the compiled requests (Trainer.inference, forward, evaluate_loss)
+# and the parallel layers' compiled steps and requests.
+REQUEST_POWS = (10, 14, 18)      # config_hash requests; config_btf's at 2^18
+EMA_REQUEST_STEPS = 10           # eager steps before the EMA request, and between two
+NCCL_COMPILED_STEPS = 20         # the one-rank NCCL job's steps
+NCCL_COMPILED_ROUNDS = 3         # its timed passes over them, in turns
+
+
+def pool_mb(pool):
+    """MB that the segments of the CUDA graph memory pool ``pool`` hold on
+    the card (``torch.cuda.memory_snapshot``), or None where the snapshot
+    names no segment's pool."""
+    segments = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool)) / 2 ** 20
+
+
+def check_request(label, trainer, x, want, t):
+    """Two calls of ``trainer.inference(x)`` (the first runs and captures
+    the request, the second replays it) against ``want``, the eager
+    module's answer, bit for bit; G and M launched twice by the first call
+    and not by the second; each answer an inference tensor of its own.
+    Then one request's time, the eager module's against the compiled
+    one's (``time_ms``: CUDA events around each call, so the host's work
+    counts), and the replay's device ms, into ``t[label]``.  Returns the
+    first call's launches."""
+    torch.cuda.synchronize()
+    reset_counts()
+    first = trainer.inference(x)
+    torch.cuda.synchronize()
+    at_capture = first_order_counts()
+    again = trainer.inference(x)
+    torch.cuda.synchronize()
+    check(first_order_counts() == at_capture == {"G": 2, "M": 2, "GB": 0, "MB": 0},
+          f"{label}: launches {at_capture} at the first request, {counts()} after the second; "
+          f"expected G and M twice (the warm-up and the capture), then none")
+    (cap,) = [c for k, c in trainer._graphs.items()
+              if k[0] == "inference" and k[3] == tuple(x.shape)]
+    check(torch.equal(first, want) and torch.equal(again, want),
+          f"{label}: compiled requests differ from the eager module (max abs diff "
+          f"{float((again.float() - want.float()).abs().max()):.3e})")
+    check(again.is_inference() and again.data_ptr() != cap.outputs[0].data_ptr()
+          and first.data_ptr() != again.data_ptr(),
+          f"{label}: a request returned the graph's buffer or a normal tensor")
+
+    def eager():
+        with torch.inference_mode():
+            return trainer.model.inference(x)
+
+    t[label] = {"eager": time_ms(eager), "compiled": time_ms(lambda: trainer.inference(x)),
+                "device": replay_ms(cap.graph)}
+    r = t[label]
+    print(f"{label}: bit for bit the eager module's; one request {r['eager']:.4f} ms eager, "
+          f"{r['compiled']:.4f} ms compiled ({r['eager'] / r['compiled']:.2f}x; CUDA events "
+          f"around each call, the host's work included), the replay on the device "
+          f"{r['device']:.4f} ms (idle share {1 - r['device'] / r['compiled']:.3f}); "
+          f"{x.shape[0] / r['compiled'] * 1e3:.4e} samples/s compiled")
+    return at_capture
+
+
+def compiled_requests_slice(gen, dev, hash_entries, btf_entries):
+    """Slice 22.  (a) ``Trainer.inference`` on config_hash (BF16_POLICY,
+    the table redrawn U(±1)) at 2^10, 2^14 and 2^18 rows and on config_btf
+    at 2^18 (``check_request``), the main path of the requests, with the
+    memory of config_btf's graph pool; (b) EMA(Adam) at config_hash: a
+    request after ``EMA_REQUEST_STEPS`` eager steps, then as many more
+    steps and a replayed request against the eager module on the EMA
+    weights, bit for bit (the graph computes the custom weights from the
+    live optimizer state); (c) ``forward`` and ``evaluate_loss`` against
+    the module and the loss, bit for bit; (d) in a spawned process on a
+    one-rank NCCL group (``parallel_check.nccl_compiled_job``),
+    DataParallel's and HybridParallel's (n_model 1) ``make_training_step``
+    under ``TCNN_TPU_SCATTER=sortseg`` against as many ``step_shard_map``
+    eager steps and ``Trainer.make_training_step`` steps, bit for bit, and
+    their ``make_inference`` against the eager module; without it the
+    main path of the parallel step (G, GB, M and MB in the warm-up and
+    the capture only) and the steps' times.  (Slice 12's gloo ranks
+    refuse each compiled entry point on the card: ``parallel_slice``.)
+    Returns the kernels' entries: launches from this phase's main paths,
+    the rest from the kernels' own phases of this run."""
+    import tempfile
+
+    from tcnn_tpu_torch import BF16_POLICY, create_from_config, load_config
+    from tcnn_tpu_torch.tools import parallel_check
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    t_start = time.time()
+    t = {}
+    phase(f"slice 22: Trainer.inference compiled, config_hash (BF16_POLICY) at 2^"
+          f"{', 2^'.join(map(str, REQUEST_POWS))} and config_btf at B={MAIN_BATCH}, against "
+          f"the eager module")
+    model = create_from_config(2, 3, CONFIG, policy=BF16_POLICY, seed=22)
+    with torch.no_grad():
+        model.network.encoding.grid.uniform_(-1, 1, generator=gen)
+    launches = {}
+    for pow_ in REQUEST_POWS:
+        x = torch.rand((1 << pow_, 2), generator=gen, device=dev)
+        with torch.inference_mode():
+            want = model.network.inference(x)
+        launches[pow_] = check_request(f"config_hash request at 2^{pow_}", model.trainer, x,
+                                       want, t)
+    btf = create_from_config(6, 3, BTF_CONFIG, policy=BF16_POLICY, seed=22)
+    x6 = torch.rand((MAIN_BATCH, 6), generator=gen, device=dev)
+    with torch.inference_mode():
+        want = btf.network.inference(x6)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    btf_launches = check_request(f"config_btf request at 2^{MAIN_BATCH.bit_length() - 1}",
+                                 btf.trainer, x6, want, t)
+    pool = pool_mb(btf.trainer._request_pool)
+    print(f"config_btf's request graph at B={MAIN_BATCH}: its memory pool holds "
+          f"{'not measured' if pool is None else f'{pool:.1f} MB'} (memory_snapshot); the "
+          f"card's reserved memory grew by "
+          f"{(torch.cuda.memory_reserved() - reserved) / 2 ** 20:.1f} MB over the first "
+          f"request and the timings")
+    t["btf pool MB"] = pool
+
+    phase(f"slice 22: EMA(Adam) at config_hash: a request after {EMA_REQUEST_STEPS} eager "
+          f"steps, {EMA_REQUEST_STEPS} more, and the replayed request against the eager EMA "
+          f"weights")
+    base = load_config(CONFIG)
+    ema = create_from_config(2, 3, {**base, "optimizer": {
+        "otype": "EMA", "decay": EMA_DECAY, "nested": base["optimizer"]}},
+        policy=BF16_POLICY, seed=22)
+    sampler = ImageSampler(synthetic_image(1024, 1024), seed=22)
+    x = torch.rand((MAIN_BATCH, 2), generator=gen, device=dev)
+
+    def eager_ema():
+        with torch.inference_mode():
+            return torch.func.functional_call(ema.network, ema.trainer.inference_params(), (x,))
+
+    for _ in range(EMA_REQUEST_STEPS):
+        ema.trainer.training_step(*sampler.sample_batch(MAIN_BATCH))
+    before = ema.trainer.inference(x)
+    check(torch.equal(before, eager_ema()), "EMA: the first request differs from the eager one")
+    for _ in range(EMA_REQUEST_STEPS):
+        ema.trainer.training_step(*sampler.sample_batch(MAIN_BATCH))
+    torch.cuda.synchronize()
+    reset_counts()
+    after = ema.trainer.inference(x)
+    torch.cuda.synchronize()
+    replay_launches = first_order_counts()
+    want = eager_ema()
+    with torch.inference_mode():
+        raw = ema.network.inference(x)
+    check(replay_launches == {"G": 0, "M": 0, "GB": 0, "MB": 0},
+          f"EMA: the second request launched {replay_launches}: it must replay")
+    check(torch.equal(after, want) and not torch.equal(after, before)
+          and not torch.equal(after, raw),
+          f"EMA: the replayed request after {EMA_REQUEST_STEPS} more steps is not the eager "
+          f"EMA weights' answer (or equals the earlier one or the raw weights')")
+    print(f"after {2 * EMA_REQUEST_STEPS} steps the replayed request equals the eager module "
+          f"on the EMA weights bit for bit, and differs from the request after "
+          f"{EMA_REQUEST_STEPS} (max abs {float((after - before).abs().max()):.3e}) and from the "
+          f"raw weights' answer (max abs {float((after - raw).abs().max()):.3e})")
+
+    phase("slice 22: Trainer.forward and evaluate_loss compiled, against the module and the "
+          "loss")
+    target = torch.rand((MAIN_BATCH, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        want = model.network(x)
+        want_loss = model.loss(want.float(), target)
+    reset_counts()
+    outs = [model.trainer.forward(x) for _ in range(2)]
+    loss = model.trainer.evaluate_loss(x, target)
+    torch.cuda.synchronize()
+    fwd_launches = first_order_counts()
+    check(fwd_launches == {"G": 2, "M": 2, "GB": 0, "MB": 0},
+          f"forward launches {fwd_launches}: expected G and M twice (one capture)")
+    check(all(torch.equal(o, want) and not o.is_inference() and not o.requires_grad
+              for o in outs) and torch.equal(loss, want_loss),
+          "forward or evaluate_loss differ from the module's")
+    def eager_forward():
+        with torch.no_grad():
+            return model.network(x)
+
+    t["forward"] = {"eager": time_ms(eager_forward),
+                    "compiled": time_ms(lambda: model.trainer.forward(x))}
+    print(f"forward twice and evaluate_loss: bit for bit the module's and the loss's; one "
+          f"forward at 2^18 {t['forward']['eager']:.4f} ms eager, "
+          f"{t['forward']['compiled']:.4f} ms compiled")
+
+    phase(f"slice 22: DataParallel and HybridParallel (n_model 1) make_training_step and "
+          f"make_inference on a one-rank NCCL group, config_hash at B={MAIN_BATCH}, "
+          f"{NCCL_COMPILED_STEPS} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        res, = parallel_check.run_ranks(1, parallel_check.nccl_compiled_job,
+                                        {"steps": NCCL_COMPILED_STEPS, "batch": MAIN_BATCH,
+                                         "rounds": NCCL_COMPILED_ROUNDS},
+                                        timeout=600, tmp=tmp, backend="nccl")
+    check(res["backend"] == "nccl", f"the group's backend is {res['backend']}")
+    sortseg_want = {"G": 2, "M": 2, "MB": 2, "SK": 2, "SS": 2}
+    for kind, r in res["sortseg"].items():
+        lc = r["launches"]
+        check(r["same_as_eager"] and r["same_as_trainer"],
+              f"{kind}: under sortseg the compiled steps differ from step_shard_map's eager "
+              f"steps ({r['same_as_eager']}) or Trainer.make_training_step's "
+              f"({r['same_as_trainer']})")
+        check(all(lc[k] == sortseg_want.get(k, 0) for k in lc)
+              and r["step"] == NCCL_COMPILED_STEPS and r["key_names_layer"],
+              f"{kind}: launches {lc}, step {r['step']}, key names the layer "
+              f"{r['key_names_layer']}; expected {sortseg_want} and no GB")
+        il = r["inference_launches"]
+        check(r["inference_equal"] and r["inference_is_inference"]
+              and il["capture"]["G"] == il["capture"]["M"] == 2
+              and not any(il["replay"].values()),
+              f"{kind} make_inference: equal {r['inference_equal']}, launches {il}")
+        print(f"{kind}: {NCCL_COMPILED_STEPS} compiled steps under sortseg equal as many "
+              f"step_shard_map eager steps and Trainer.make_training_step's, bit for bit (losses "
+              f"and weights); loss {r['losses'][0]:.6f} -> {r['losses'][-1]:.6f}; launches {lc}; "
+              f"make_inference's replay equals the eager module bit for bit (launches at "
+              f"capture G {il['capture']['G']}, M {il['capture']['M']}, none in the replay)")
+    main = res["main"]
+    got, want_l = np.asarray(main["losses"]), np.asarray(main["trainer_losses"])
+    rtol = np.full(NCCL_COMPILED_STEPS, PARALLEL_LOSS_RTOL)
+    rtol[0] = PARALLEL_FIRST_RTOL
+    lc = main["launches"]
+    check(bool(np.isfinite(got).all()) and got[-1] < got[0]
+          and not (np.abs(got - want_l) > rtol * np.abs(want_l)).any(),
+          f"DataParallel.make_training_step losses {got.tolist()} vs the trainer's "
+          f"{want_l.tolist()}")
+    check({k: lc[k] for k in FIRST_ORDER} == {"G": 2, "M": 2, "GB": 2, "MB": 2}
+          and all(lc[k] == 0 for k in lc if k not in FIRST_ORDER),
+          f"DataParallel.make_training_step launches {lc}: expected G, M, GB and MB twice")
+    ms = {w: min(v) for w, v in res["ms"].items()}
+    dms = res["device_ms"]
+    t["parallel step"] = {"ms": ms, "device_ms": dms}
+    print(f"DataParallel.make_training_step (the main path): loss {got[0]:.6f} -> "
+          f"{got[-1]:.6f}, within {float(np.max(np.abs(got - want_l) / np.abs(want_l))):.3e} of "
+          f"Trainer.make_training_step's; launches {lc}")
+    print(f"ms per step on the host clock (passes of {NCCL_COMPILED_STEPS} steps, the least of "
+          f"{NCCL_COMPILED_ROUNDS}, in turns): DataParallel.make_training_step "
+          f"{ms['parallel']:.4f}, Trainer.make_training_step {ms['trainer']:.4f}, "
+          f"step_shard_map eager {ms['eager']:.4f}; the replays on the device "
+          f"{dms['parallel']:.4f} and {dms['trainer']:.4f} ms (idle shares "
+          f"{1 - dms['parallel'] / ms['parallel']:.3f} and "
+          f"{1 - dms['trainer'] / ms['trainer']:.3f}); all turns {res['ms']}")
+    print(f"slice 22: {time.time() - t_start:.1f} s")
+    first_order = set(KERNELS[k][0] for k in FIRST_ORDER)
+    return (compiled_entries(hash_entries, lambda n: " (" not in n
+                             and n.split(" (")[0] in ("grid_encode_fwd", "fused_mlp_fwd"),
+                             launches[MAIN_BATCH.bit_length() - 1],
+                             f"Trainer.inference, config_hash at 2^{MAIN_BATCH.bit_length() - 1}",
+                             "slice 22", "request")
+            + compiled_entries(btf_entries, lambda n: n.endswith(" (config_btf)")
+                               and n.split(" (")[0] in ("grid_encode_fwd", "fused_mlp_fwd"),
+                               btf_launches,
+                               f"Trainer.inference, config_btf at 2^{MAIN_BATCH.bit_length() - 1}",
+                               "slice 22", "request")
+            + compiled_entries(hash_entries, lambda n: " (" not in n
+                               and n.split(" (")[0] in first_order, lc,
+                               "DataParallel.make_training_step, one NCCL rank", "slice 22"))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -5783,7 +6067,8 @@ def main():
               + slice14(gen, dev, hash_times)
               + wide_features_slice(gen, dev) + wide_output_slice(gen, dev)
               + sortseg_slice(gen, dev)
-              + compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries)}
+              + compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries)
+              + compiled_requests_slice(gen, dev, hash_entries, btf_entries)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

@@ -78,6 +78,14 @@ class MLP(Network):
             ws.append(nn.Parameter(w.to(device)))
         self.layers = nn.ParameterList(ws)
 
+    @property
+    def width(self) -> int:
+        return self.n_neurons
+
+    @property
+    def n_hidden_layers(self) -> int:
+        return self._n_hidden_layers
+
     def _layer_dims(self) -> List[tuple]:
         H, W = self._n_hidden_layers, self.n_neurons
         if H == 0:

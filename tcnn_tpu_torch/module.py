@@ -14,7 +14,7 @@ own second-order backward (kernels GI, GG and MB).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -101,6 +101,31 @@ class Encoding(Module):
         """The multiple the output width must keep (``tcnn_tpu/module.py:158``)."""
         return 1
 
+    def forward_padded(self, x: torch.Tensor, padded_width: int) -> torch.Tensor:
+        """The output with constant-1 columns appended up to ``padded_width``
+        (``apply_padded``, ``tcnn_tpu/module.py:161-169``; the reference pads
+        with 1, identity.h:63)."""
+        y = self(x)
+        pad = padded_width - y.shape[-1]
+        if pad < 0:
+            raise ValueError("padded width below encoding output width")
+        if pad == 0:
+            return y
+        return torch.cat([y, y.new_ones((y.shape[0], pad))], dim=-1)
+
 
 class Network(Module):
     """Network base (≈ network.h:40-57)."""
+
+    @property
+    def width(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def n_hidden_layers(self) -> int:
+        raise NotImplementedError
+
+    def layer_sizes(self) -> List[Tuple[int, ...]]:
+        """The shape of each weight matrix, in parameter order
+        (``tcnn_tpu/module.py:183-184``)."""
+        return [tuple(w.shape) for w in self.parameters()]

@@ -133,21 +133,23 @@ def all_reduce_mean_(tensors, group=None, scale: Optional[float] = None) -> None
 CAPTURE_MODE = "thread_local"
 
 
-def check_capturable(groups, device) -> None:
+def check_capturable(groups, device, entry: str = "make_training_loop",
+                     eager: str = "step_shard_map takes eager steps") -> None:
     """Raises unless the collectives of ``groups`` can be captured in a
     CUDA graph on ``device``: on CUDA every group must be NCCL's (gloo's
-    collectives run on the host and cannot be captured).  Nothing is
-    captured on the CPU, and a process that joined no group calls no
-    collective."""
+    collectives run on the host and cannot be captured).  The message
+    names the captured ``entry`` point that asks and ``eager``, what runs
+    eagerly instead.  Nothing is captured on the CPU, and a process that
+    joined no group calls no collective."""
     if torch.device(device).type != "cuda" or not dist.is_initialized():
         return
     for group in groups:
         backend = dist.get_backend(group)
         if backend != "nccl":
             raise RuntimeError(
-                f"make_training_loop: the {backend} backend's collectives cannot be captured "
-                f"in a CUDA graph; on CUDA the loop needs an NCCL process group "
-                f"(make_training_step runs eager steps over {backend})")
+                f"{entry}: the {backend} backend's collectives cannot be captured in a CUDA "
+                f"graph; on CUDA {entry} needs an NCCL process group ({eager} over "
+                f"{backend})")
 
 
 def broadcast_(tensors, src: int = 0, group=None) -> None:

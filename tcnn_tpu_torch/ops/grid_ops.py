@@ -508,6 +508,11 @@ _TABLE_SHARDING: contextvars.ContextVar[Optional[TableSharding]] = \
     contextvars.ContextVar("tcnn_torch_table_sharding", default=None)
 
 
+def table_sharding() -> Optional[TableSharding]:
+    """The ``sharded_tables`` context in force (None outside one)."""
+    return _TABLE_SHARDING.get()
+
+
 def shardable_levels(spec: GridSpec, n_shards: int) -> bool:
     """True iff every level's row count divides ``n_shards`` ways
     (``tcnn_tpu/ops/grid_ops.py:273``).  Hash and dense levels are 8-row

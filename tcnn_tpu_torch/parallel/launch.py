@@ -24,9 +24,11 @@ on its device from a generator seeded with the step and keeps its block;
 losses and checkpoints are read between chunks.  On cards (NCCL) the first
 chunk's first step is the warm-up and every later step replays one CUDA
 graph of the step, collectives included; on the CPU (gloo) the steps run
-eagerly.  ``--eager`` trains with ``make_training_step`` instead (one eager
-step per iteration), for comparison.  One card holds one NCCL rank: a run
-across ranks needs a card per rank.
+eagerly.  For comparison, ``--step`` trains through the compiled
+``make_training_step`` (one call a step, each replaying the captured step
+after the first), and ``--eager`` through ``step_shard_map`` (eager steps,
+counted here).  One card holds one NCCL rank: a run across ranks needs a
+card per rank.
 """
 
 from __future__ import annotations
@@ -109,9 +111,12 @@ def _main(argv=None) -> None:
     parser.add_argument("--init-method", type=str, default=None,
                         help="the process group's rendezvous (default env://, torchrun's; "
                              "file://PATH needs no port)")
-    parser.add_argument("--eager", action="store_true",
-                        help="eager steps (make_training_step) instead of the loop's "
-                             "captured ones")
+    how = parser.add_mutually_exclusive_group()
+    how.add_argument("--eager", action="store_true",
+                     help="eager steps (step_shard_map) instead of the loop's captured ones")
+    how.add_argument("--step", action="store_true",
+                     help="one call of the compiled make_training_step a step instead of "
+                          "the loop")
     args = parser.parse_args(argv)
 
     initialize_distributed(args.init_method, device=args.device)
@@ -140,7 +145,8 @@ def _main(argv=None) -> None:
         dp.replicate(trainer)
     if rank == 0:
         extra = f" (hybrid: tables sharded {args.n_model}-way)" if hybrid else ""
-        how = "eager steps" if args.eager else "make_training_loop"
+        how = ("eager steps (step_shard_map)" if args.eager
+               else "make_training_step" if args.step else "make_training_loop")
         print(f"mesh: {world} ranks on {device.type}{extra}; {how}", flush=True)
 
     mgr = None
@@ -174,11 +180,18 @@ def _main(argv=None) -> None:
         return shard_host_local_batch(dp, x, t)
 
     if args.eager:
+        body = dp.step_shard_map(trainer)
+
+        def step(x, t):
+            loss = body(x, t)
+            trainer.step += 1
+            return loss
+    elif args.step:
         step = dp.make_training_step(trainer)
 
     def chunk(start, n):
         """Steps start .. start + n - 1; their losses on the device."""
-        if args.eager:
+        if args.eager or args.step:
             return torch.stack([step(*batch(start + i)) for i in range(n)])
         return dp.make_training_loop(trainer, lambda i: batch(start + i), n)()
 
@@ -206,7 +219,7 @@ def _main(argv=None) -> None:
     # A CUDA graph that holds NCCL collectives must go before its
     # communicators: with the graphs alive, ranks hung at exit on 2 and 4
     # cards after their last step.
-    trainer._graphs.clear()
+    trainer.invalidate_jit_cache()
     if dist.is_initialized():
         if device.type == "cuda":
             torch.cuda.synchronize()

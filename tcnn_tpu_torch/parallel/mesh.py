@@ -14,18 +14,27 @@ averaged over the ranks' process group by one all-reduce per step.
     loss = step(dp.shard_batch(x), dp.shard_batch(y))
     loop = dp.make_training_loop(model.trainer, sample_fn, n_steps)
     losses = loop()           # sample_fn(i): this rank's block of step i
+    infer = dp.make_inference(model.trainer)
+    y = infer(dp.shard_batch(x))              # this rank's block of the answer
 
-``make_training_step`` runs eagerly (over gloo or NCCL).
-``make_training_loop`` is the counterpart of the JAX launcher's compiled
-``lax.scan`` of ``step_shard_map``: on CUDA over NCCL its first call runs
-one step eagerly (the warm-up, which also creates the communicators) and
-captures the next, collectives included, in a CUDA graph that every later
-step replays; on the CPU (gloo) it runs the same steps eagerly.  Gloo's
-collectives cannot be captured, so a CUDA loop over gloo raises
-(``collectives.check_capturable``).  One card holds one NCCL rank: there
-the group has one rank and the step calls no collective, so the loop's
-collectives in a graph show only across cards (``chip_smoke.py`` captures
-each collective on its own at one rank).
+``step_shard_map`` is the uncounted eager step, the counterpart of JAX's
+unjitted ``step_shard_map``.  The compiled entry points are the
+counterparts of JAX's jitted ones: ``make_training_step``,
+``make_training_loop`` (the JAX launcher's compiled ``lax.scan`` of
+``step_shard_map``) and ``make_inference``.  On CUDA over NCCL the first
+call for a batch's shapes runs the step or request eagerly (the warm-up,
+which also creates the communicators) and captures the next, collectives
+included, in a CUDA graph that every later call replays; on the CPU
+(gloo) the same steps and requests run eagerly.  Gloo's collectives
+cannot be captured, so on CUDA over gloo each compiled entry point raises
+before it runs anything (``collectives.check_capturable``); there
+``step_shard_map`` takes eager steps.  The graphs are the trainer's
+(``Trainer._graphs``), keyed by the layer and the entry point, so one
+trainer stepped through the layer and through ``Trainer.make_training_step``
+never replays the other's graph.  One card holds one NCCL rank: there the
+group has one rank and the step calls no collective, so the collectives in
+a graph show only across cards (``chip_smoke.py`` captures each collective
+on its own at one rank).
 """
 
 from __future__ import annotations
@@ -71,32 +80,55 @@ def set_noise_stream(trainer, stream: int) -> None:
         trainer._noise_gen = None
 
 
-def counted_step(trainer, body, with_pdf: bool):
-    """``step(x, target[, pdf]) -> loss``: one eager step of ``body``,
-    counted in ``trainer.step``."""
-    def step(x, target, pdf=None):
-        if with_pdf and pdf is None:
-            raise ValueError("make_training_step(with_pdf=True): pass the pdf")
-        loss = body(x, target, pdf)
-        trainer.step += 1
-        return loss
-
-    return step
-
-
-def parallel_training_loop(layer, trainer, body, groups, sample_fn, n_steps: int):
-    """``Trainer.make_training_loop``'s loop over the step ``body`` of a
-    parallel ``layer`` whose collectives run on ``groups``: the graphs are
-    the trainer's (``Trainer._graphs``, which ``HybridParallel.shard_state``
-    and ``update_hyperparams`` clear), keyed by the layer and the batch's
-    shapes, and captured in ``collectives.CAPTURE_MODE``.  Each rank's
-    output perturbation draws its own noise stream (its global rank), and
-    its generator's state is registered with the graph."""
+def captured_entry(trainer, groups, entry: str,
+                   eager: str = "step_shard_map takes eager steps") -> None:
+    """Refuses, before it runs anything, a captured ``entry`` point whose
+    ``groups``' collectives cannot be captured on the trainer's device
+    (``collectives.check_capturable``)."""
     device = next(iter(trainer.params().values())).device
-    collectives.check_capturable(groups, device)
-    set_noise_stream(trainer, collectives.rank())
+    collectives.check_capturable(groups, device, entry, eager)
+
+
+def parallel_training_step(layer, trainer, groups, with_pdf: bool):
+    """``make_training_step`` of a parallel ``layer`` whose collectives run
+    on ``groups``: ``Trainer._compiled_step`` over ``layer.step_shard_map``,
+    its graphs keyed by the layer and captured in
+    ``collectives.CAPTURE_MODE``, the rank's noise generator registered."""
+    captured_entry(trainer, groups, "make_training_step")
+    return trainer._compiled_step(layer.step_shard_map(trainer, with_pdf=with_pdf), (layer,),
+                                  with_pdf, collectives.CAPTURE_MODE)
+
+
+def parallel_training_loop(layer, trainer, groups, sample_fn, n_steps: int):
+    """``Trainer.make_training_loop``'s loop over ``layer.step_shard_map``:
+    the graphs are the trainer's, keyed by the layer and the batch's
+    shapes, and captured in ``collectives.CAPTURE_MODE``."""
+    captured_entry(trainer, groups, "make_training_loop")
+    body = layer.step_shard_map(trainer)
     return lambda: trainer._run_loop(sample_fn, n_steps, body=body, key=(layer,),
                                      capture_error_mode=collectives.CAPTURE_MODE)
+
+
+def parallel_inference(layer, trainer, groups, body, eager: str):
+    """``infer(x) -> y`` of a parallel ``layer``: ``body(x)`` as a request
+    (``Trainer._request``), its graphs keyed by the layer and captured in
+    ``collectives.CAPTURE_MODE``; an inference tensor."""
+    captured_entry(trainer, groups, "make_inference", eager)
+
+    def infer(x):
+        with torch.inference_mode():
+            return trainer._request(body, x, ("make_inference", layer),
+                                    collectives.CAPTURE_MODE)
+
+    return infer
+
+
+def refuse_use_shard_map(use_shard_map: bool) -> None:
+    """JAX's ``use_shard_map=False`` (a jit left to XLA's partitioner) has no
+    counterpart: every step and request here is per rank."""
+    if use_shard_map is not True:
+        raise TypeError("use_shard_map=False: JAX's plain-jit lowering has no counterpart in "
+                        "this package (every rank runs its own block)")
 
 
 class DataParallel:
@@ -133,14 +165,19 @@ class DataParallel:
         trainer.step = int(step.item())
 
     # -- steps --------------------------------------------------------
-    def _step_body(self, trainer):
-        """``body(x, target, pdf=None) -> loss``: one step on this rank's
-        batch block, following JAX's ``_per_shard``
-        (``tcnn_tpu/parallel/mesh.py:121-137``):
-        ``trainer.loss_value_and_grads`` on the local batch, one all-reduce
-        of the loss and every gradient divided by the world size (equal
-        blocks make it the global mean), then the replicated optimizer
-        step.  It does not count the step."""
+    def step_shard_map(self, trainer, with_pdf: bool = False):
+        """The uncounted eager step ``body(x, target[, pdf]) -> loss`` on
+        this rank's batch block, JAX's unjitted ``step_shard_map``
+        (``tcnn_tpu/parallel/mesh.py:112-147``), for callers that take
+        eager steps (and add one to ``trainer.step`` for each) or capture
+        it themselves: ``trainer.loss_value_and_grads`` on the local batch,
+        one all-reduce of the loss and every gradient divided by the world
+        size (equal blocks make it the global mean), then the replicated
+        optimizer step.  With output perturbation each rank draws its own
+        noise: the trainer's noise stream becomes the rank's global rank
+        (``Trainer.perturbation_noise``)."""
+        set_noise_stream(trainer, collectives.rank())
+
         def body(x, target, pdf=None):
             loss, grads = trainer.loss_value_and_grads(x, target, pdf)
             names = list(grads)
@@ -148,16 +185,24 @@ class DataParallel:
             trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
             return loss
 
-        return body
+        if with_pdf:
+            return body
+        return lambda x, target: body(x, target)
 
-    def make_training_step(self, trainer, with_pdf: bool = False):
-        """``step(x, target[, pdf]) -> loss`` on this rank's batch block,
-        eagerly (``_step_body``).  With output perturbation each rank draws
-        its own noise: the trainer's noise stream is the rank's global rank
-        (``Trainer.perturbation_noise``).  The loss returned is the mean
-        over the ranks."""
-        set_noise_stream(trainer, collectives.rank())
-        return counted_step(trainer, self._step_body(trainer), with_pdf)
+    def make_training_step(self, trainer, with_pdf: bool = False, use_shard_map: bool = True):
+        """The compiled step ``step(x, target[, pdf]) -> loss`` on this
+        rank's batch block, counted in ``trainer.step``; the loss returned
+        is the mean over the ranks (``tcnn_tpu/parallel/mesh.py:71-110``).
+        The shape of ``Trainer.make_training_step``: on CUDA over NCCL the
+        first call for a batch's shapes runs ``step_shard_map``'s step
+        eagerly and captures the next, the all-reduce included, and later
+        calls replay it; on the CPU the steps run eagerly.  On CUDA over
+        gloo it raises before any step; an optimizer whose step cannot be
+        captured (Shampoo: ``torch.linalg.eigh``) raises on the card at the
+        first call.  JAX's ``use_shard_map`` is accepted at its default
+        only."""
+        refuse_use_shard_map(use_shard_map)
+        return parallel_training_step(self, trainer, [self.group], with_pdf)
 
     def make_training_loop(self, trainer, sample_fn, n_steps: int):
         """``loop() -> losses``: ``n_steps`` steps per call, an (n_steps,)
@@ -165,15 +210,22 @@ class DataParallel:
         this rank's (x, target) block of step i.  The shape of
         ``Trainer.make_training_loop``: on CUDA over NCCL the first call's
         warm-up step runs eagerly and every later step replays a CUDA
-        graph of the step; on the CPU the steps run eagerly.  Raises on a
-        CUDA device unless the group is NCCL's.  Clear ``trainer._graphs``
-        before ``destroy_process_group``: a graph that holds NCCL
-        collectives must go before its communicators
-        (``parallel/launch.py``)."""
-        return parallel_training_loop(self, trainer, self._step_body(trainer), [self.group],
-                                      sample_fn, n_steps)
+        graph of the step; on the CPU the steps run eagerly.  On CUDA over
+        gloo it raises; Shampoo raises on the card.  Call
+        ``trainer.invalidate_jit_cache()`` before ``destroy_process_group``:
+        a graph that holds NCCL collectives must go before its
+        communicators (``parallel/launch.py``)."""
+        return parallel_training_loop(self, trainer, [self.group], sample_fn, n_steps)
 
-    def make_inference(self, trainer):
+    def make_inference(self, trainer, use_shard_map: bool = True):
         """``infer(x) -> y``: this rank's batch block through the trainer's
-        inference parameters; the blocks of all ranks are the global batch."""
-        return trainer.inference
+        inference parameters (``tcnn_tpu/parallel/mesh.py:149-164``); the
+        blocks of all ranks are the global batch.  On CUDA over NCCL a
+        request replays a CUDA graph per shape after its first call, as
+        ``Trainer.inference`` does; on the CPU it runs eagerly; on CUDA
+        over gloo it raises, as the layer's other compiled entry points do.
+        JAX's ``use_shard_map`` is accepted at its default only."""
+        refuse_use_shard_map(use_shard_map)
+        return parallel_inference(self, trainer, [self.group],
+                                  lambda x: trainer._inference_body(x),
+                                  "Trainer.inference serves a rank's block")

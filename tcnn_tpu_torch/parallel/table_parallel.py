@@ -22,16 +22,24 @@ form an (n_data, n_model) mesh, model axis innermost: rank = d·n_model + m.
     loss = step(hp.shard_batch(x), hp.shard_batch(y))
     loop = hp.make_training_loop(model.trainer, sample_fn, n_steps)
     losses = loop()           # sample_fn(i): this rank's block of step i
+    y = hp.make_inference(model.trainer)(hp.shard_batch(x))
     canonical = hp.gather_state(model.trainer)  # CPU tensors, canonical rows
 
 Each rank runs on one device; one card can hold several ranks (gloo), which
-shows correctness, not scaling.  ``make_training_step`` runs eagerly;
-``make_training_loop`` captures the step in a CUDA graph on NCCL, as
-``DataParallel``'s does (``parallel/mesh.py``): the warm-up step runs the
-collectives of all three groups (the all-gather and reduce-scatter of the
-grids in shard mode on the model group, the two gradient all-reduces), so
-each communicator exists before the capture, and fills the grid kernels'
-per-shard caches of level constants and plans, which are host copies.
+shows correctness, not scaling.  ``step_shard_map`` is the uncounted eager
+step.  ``make_training_step``, ``make_training_loop`` and
+``make_inference`` capture the step or the request in a CUDA graph on
+NCCL, as ``DataParallel``'s do (``parallel/mesh.py``), inside
+``sharded()``, so that the graph holds the grids' all-gather and
+reduce-scatter (``ops/collectives.py``); their graphs are keyed by the
+layer, so a graph captured unsharded is never replayed sharded.  The
+warm-up runs every collective that the capture then records (the
+all-gather and reduce-scatter of the grids in shard mode on the model
+group, the gradient all-reduces on the data group and the whole mesh; a
+one-rank group calls none), so each communicator exists before the
+capture, and fills the grid kernels' per-shard caches of level constants
+and plans, which are host copies.  On CUDA over gloo they raise before
+they run anything.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops import collectives, grid_ops
-from .mesh import counted_step, parallel_training_loop, set_noise_stream, shard_batch_over
+from .mesh import (parallel_inference, parallel_training_loop, parallel_training_step,
+                   set_noise_stream, shard_batch_over)
 
 
 class HybridMesh(NamedTuple):
@@ -191,7 +200,7 @@ class HybridParallel:
             fresh = trainer.optimizer.init(trainer.params(), trainer.model.param_layout())
             _copy_tree(fresh, sharded)
         trainer.opt_state = fresh
-        trainer._graphs.clear()
+        trainer.invalidate_jit_cache()
         trainer.shard_info = {"n_model": self.n_model, "rank": collectives.rank(),
                               "model_rank": self.mesh.model_index}
 
@@ -223,15 +232,23 @@ class HybridParallel:
         return full[..., torch.from_numpy(self._tables[name][2]).to(full.device)]
 
     # -- steps ----------------------------------------------------------
-    def _step_body(self, trainer):
-        """``body(x, target, pdf=None) -> loss``: one step on this rank's
-        block of the flat-sharded batch, uncounted.  Gradients combine as
-        JAX's (``tcnn_tpu/parallel/table_parallel.py:253-273``):
+    def step_shard_map(self, trainer, with_pdf: bool = False):
+        """The uncounted eager step ``body(x, target[, pdf]) -> loss`` on
+        this rank's block of the flat-sharded batch, JAX's unjitted
+        ``step_shard_map`` (``tcnn_tpu/parallel/table_parallel.py:
+        229-289``, which returns a factory of it per state structure; here
+        the step reads the trainer's state itself), for callers that take
+        eager steps (adding one to ``trainer.step`` for each) or capture it
+        themselves.  Gradients combine as JAX's (:253-273):
           * replicated leaves: the mean over every rank;
           * sharded tables: the sum over the model group's local losses
             arrives through the all-gather's transpose, so the mean over
             the data group divided by n_model;
-          * the loss: the mean over every rank."""
+          * the loss: the mean over every rank.
+        Each rank's output perturbation draws its own noise stream, its
+        global rank."""
+        set_noise_stream(trainer, collectives.rank())
+
         def body(x, target, pdf=None):
             with self.sharded():
                 loss, grads = trainer.loss_value_and_grads(x, target, pdf)
@@ -239,26 +256,33 @@ class HybridParallel:
             trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
             return loss
 
-        return body
+        if with_pdf:
+            return body
+        return lambda x, target: body(x, target)
+
+    def _groups(self):
+        mesh = self.mesh
+        return [mesh.group, mesh.model_group, mesh.data_group]
 
     def make_training_step(self, trainer, with_pdf: bool = False):
-        """``step(x, target[, pdf]) -> loss``, one eager step
-        (``_step_body``).  Each rank's output perturbation draws its own
-        noise stream, its global rank."""
-        set_noise_stream(trainer, collectives.rank())
-        return counted_step(trainer, self._step_body(trainer), with_pdf)
+        """The compiled step ``step(x, target[, pdf]) -> loss``, counted in
+        ``trainer.step`` (``tcnn_tpu/parallel/table_parallel.py:291-307``),
+        as ``DataParallel.make_training_step``: on CUDA over NCCL the first
+        call for a batch's shapes runs ``step_shard_map``'s step eagerly
+        and captures the next, and later calls replay it; on the CPU the
+        steps run eagerly.  On CUDA over gloo it raises before any step;
+        Shampoo (``torch.linalg.eigh`` cannot be captured) raises on the
+        card at the first call."""
+        return parallel_training_step(self, trainer, self._groups(), with_pdf)
 
     def make_training_loop(self, trainer, sample_fn, n_steps: int):
         """``loop() -> losses`` of ``n_steps`` steps per call, as
         ``DataParallel.make_training_loop``: ``sample_fn(i)`` returns this
         rank's (x, target) block of step i; on CUDA over NCCL every step
         after the first call's warm-up replays a CUDA graph of the step;
-        on the CPU the steps run eagerly.  Raises on a CUDA device unless
-        the mesh's groups are NCCL's."""
-        mesh = self.mesh
-        return parallel_training_loop(self, trainer, self._step_body(trainer),
-                                      [mesh.group, mesh.model_group, mesh.data_group],
-                                      sample_fn, n_steps)
+        on the CPU the steps run eagerly.  On CUDA over gloo it raises;
+        Shampoo raises on the card."""
+        return parallel_training_loop(self, trainer, self._groups(), sample_fn, n_steps)
 
     def sharded(self):
         """The ``grid_ops.sharded_tables`` context of this mesh's model
@@ -268,7 +292,7 @@ class HybridParallel:
     def reduce_gradients(self, loss: torch.Tensor, grads: Dict[str, torch.Tensor]) -> None:
         """In place: a rank's local loss and gradients (taken under
         ``sharded()``) become the step's, combined as in
-        ``make_training_step``; a custom loss's step (the eikonal loss, for
+        ``step_shard_map``; a custom loss's step (the eikonal loss, for
         one) calls it between its gradients and the optimizer."""
         shard = [g for n, g in grads.items() if n in self._tables]
         rep = [g for n, g in grads.items() if n not in self._tables]
@@ -278,13 +302,18 @@ class HybridParallel:
 
     def make_inference(self, trainer):
         """``infer(x) -> y``: this rank's block of a flat-sharded batch
-        through the table-sharded model (every rank of a model group calls
-        it together)."""
-        def infer(x):
+        through the table-sharded model with the trainer's inference
+        parameters (``tcnn_tpu/parallel/table_parallel.py:309-331``; every
+        rank of a model group calls it together).  On CUDA over NCCL a
+        request replays a CUDA graph per shape after its first call, the
+        model group's all-gather and reduce-scatter included; on the CPU it
+        runs eagerly; on CUDA over gloo it raises."""
+        def body(x):
             with self.sharded():
-                return trainer.inference(x)
+                return trainer._inference_body(x)
 
-        return infer
+        return parallel_inference(self, trainer, [self.mesh.model_group], body,
+                                  "the model's inference under sharded() runs eagerly")
 
 
 def _copy_tree(dst, src) -> None:

@@ -1,7 +1,8 @@
 """The launcher across cards: DataParallel and HybridParallel, captured and eager.
 
     python3 -m tcnn_tpu_torch.tools.multicard [--nproc 2 4] [--steps 400]
-        [--chunk 50] [--batch 262144] [--run-timeout 120] [--out DIR]
+        [--chunk 50] [--batch 262144] [--modes eager step loop]
+        [--run-timeout 120] [--out DIR]
 
 For each rank count N (at most the cards present): first each collective
 of the parallel steps (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
@@ -10,21 +11,25 @@ graph (``parallel_check.collectives_job``); then ``torchrun
 --nproc-per-node N -m tcnn_tpu_torch.parallel.launch`` (through ``python -m
 torch.distributed.run --standalone``: a rendezvous on this host) trains the
 launcher's model (``launch.LAUNCH_CONFIG``, BF16_POLICY) under
-DataParallel (``--n-model 1``) and HybridParallel (``--n-model 2``), each
-with ``--eager`` steps and through ``make_training_loop`` (a CUDA graph of
-the step, NCCL collectives included), on the same seeded global batches.
-Builds the kernels once first.  Prints one JSON line per check and run: the
-collectives' largest differences between replay and eager call; the rank
-count, the mode, the samples/s after the first chunk (which holds the
-warm-up and the capture), per card, and the losses of steps 1, 2 and the
-last; then per (N, n_model) the largest relative difference of the loop's
-losses from the eager steps'.  Fails if a check or a run fails or outlives
-``--run-timeout`` seconds (a collective that never completes inside a
-replayed graph is not caught by NCCL's watchdog), a loss is not finite, or
-the first loss of the loop and the eager steps differ by more than
-``FIRST_RTOL``.  Each run's whole output goes to ``--out``.  The loop runs
-of N ranks are skipped when the collectives of N ranks do not replay (within
-1e-3 of the eager calls, on inputs of unit scale).
+DataParallel (``--n-model 1``) and HybridParallel (``--n-model 2``) in
+each of ``--modes``: ``eager`` (``--eager``, ``step_shard_map``'s eager
+steps), ``step`` (``--step``, the compiled ``make_training_step``, one call
+a step) and ``loop`` (``make_training_loop``); the last two replay a CUDA
+graph of the step, NCCL collectives included.  All on the same seeded
+global batches.  Builds the kernels once first.  Prints one JSON line per
+check and run: the collectives' largest differences between replay and
+eager call; the rank count, the mode, the samples/s after the first chunk
+(which holds the warm-up and the capture), per card, and the losses of
+steps 1, 2 and the last; then per (N, n_model) and captured mode the
+largest relative difference of its losses from the eager steps' (and of
+the step's from the loop's).  Fails
+if a check or a run fails or outlives ``--run-timeout`` seconds (a
+collective that never completes inside a replayed graph is not caught by
+NCCL's watchdog), a loss is not finite, or the first loss of a captured
+mode and its reference differ by more than ``FIRST_RTOL``.  Each run's
+whole output goes to ``--out``.  The captured modes of N ranks are skipped
+when the collectives of N ranks do not replay (within 1e-3 of the eager
+calls, on inputs of unit scale).
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ import numpy as np
 # The same parameters and batch: the first step's mean loss differs only in
 # the order of fp32 sums (chip_smoke.py's PARALLEL_FIRST_RTOL).
 FIRST_RTOL = 1e-5
+# The launcher's modes: its flag for each (the loop is its default).
+MODES = {"eager": ["--eager"], "step": ["--step"], "loop": []}
 
 
 def parse(out: str):
@@ -77,6 +84,9 @@ def main(argv=None) -> None:
     parser.add_argument("--steps", type=int, default=400)
     parser.add_argument("--chunk", type=int, default=50)
     parser.add_argument("--batch", type=int, default=1 << 18)
+    parser.add_argument("--modes", nargs="+", choices=MODES, default=list(MODES),
+                        help="the launcher's training modes to run (eager is the yardstick "
+                             "of the others)")
     parser.add_argument("--run-timeout", type=float, default=120)
     parser.add_argument("--out", type=str, default="build/multicard")
     args = parser.parse_args(argv)
@@ -114,13 +124,13 @@ def main(argv=None) -> None:
             failed.append(f"n{n} collectives")
         for n_model in (1, 2):
             runs = {}
-            for mode in ("eager", "loop") if captured else ("eager",):
+            for mode in args.modes if captured else [m for m in args.modes if m == "eager"]:
                 name = f"n{n}_model{n_model}_{mode}"
                 cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                        "--nproc-per-node", str(n), "-m", "tcnn_tpu_torch.parallel.launch",
                        "--steps", str(args.steps), "--chunk", str(args.chunk),
                        "--batch", str(args.batch), "--n-model", str(n_model)]
-                cmd += ["--eager"] if mode == "eager" else []
+                cmd += MODES[mode]
                 log = out_dir / f"{name}.log"
                 rc = run_logged(cmd, log, args.run_timeout, cwd=root, env=env)
                 out = log.read_text()
@@ -136,16 +146,18 @@ def main(argv=None) -> None:
                                   "samples_per_s": sps, "samples_per_s_per_card": sps / n,
                                   "loss_1": losses[1], "loss_2": losses[2],
                                   f"loss_{args.steps}": losses[args.steps]}), flush=True)
-            if len(runs) == 2:
-                a = np.array([runs["loop"][i] for i in sorted(runs["loop"])])
-                b = np.array([runs["eager"][i] for i in sorted(runs["eager"])])
+            pairs = [(m, "eager") for m in runs if m != "eager" and "eager" in runs]
+            pairs += [("step", "loop")] if {"step", "loop"} <= set(runs) else []
+            for mode, ref in pairs:
+                a = np.array([runs[mode][i] for i in sorted(runs[mode])])
+                b = np.array([runs[ref][i] for i in sorted(runs[ref])])
                 rel = np.abs(a - b) / np.abs(b)
                 if rel[0] > FIRST_RTOL:
-                    failed.append(f"n{n}_model{n_model} first loss")
+                    failed.append(f"n{n}_model{n_model} {mode} first loss")
                 print(json.dumps({"ranks": n, "n_model": n_model,
-                                  "loop_vs_eager_first_rel": float(rel[0]),
-                                  "loop_vs_eager_max_rel": float(rel.max())}), flush=True)
-            elif "eager" not in runs and n_model == 1:
+                                  f"{mode}_vs_{ref}_first_rel": float(rel[0]),
+                                  f"{mode}_vs_{ref}_max_rel": float(rel.max())}), flush=True)
+            if "eager" in args.modes and "eager" not in runs and n_model == 1:
                 break   # NCCL's eager steps fail: nothing more to learn at n ranks
     if failed:
         sys.exit(f"multicard: failed {failed}")

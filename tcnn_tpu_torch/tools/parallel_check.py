@@ -8,13 +8,17 @@ compares the losses, the tables and the trained models' predictions.
 ``torch.multiprocessing`` (gloo, or NCCL with ``backend="nccl"``; a
 ``file://`` rendezvous in a temporary directory), each on
 ``args["device"]``, and returns each rank's result.  On a card each rank
-of ``train_job`` first asks for ``make_training_loop``, which must refuse
-gloo, before it takes a step.  ``nccl_loop_job`` runs on a one-rank NCCL
+of ``train_job`` first asks for the layer's compiled entry points
+(``make_training_loop``, ``make_training_step``, ``make_inference``),
+which must refuse gloo, before it takes a step; its steps are the layer's
+eager ``step_shard_map``.  ``nccl_loop_job`` runs on a one-rank NCCL
 group (one card holds one NCCL rank): ``DataParallel.make_training_loop``
 against ``Trainer.make_training_loop``, and each collective the steps use
 replayed from a CUDA graph against an eager call (``chip_smoke.py``'s
 slice-18 phase); ``nccl_sortseg_job`` runs the two loops under
-``TCNN_TPU_SCATTER=sortseg`` (slice 19).  Three jobs of ``train_job``:
+``TCNN_TPU_SCATTER=sortseg`` (slice 19); ``nccl_compiled_job`` holds the
+layers' compiled steps and requests against their eager ones (slice 22).
+Three jobs of ``train_job``:
 
   * ``hybrid_btf``: configs/config_btf.json at BF16_POLICY (a Composite of
     a 4-D CoherentAdd hash grid of 15,474,688 parameters and OneBlob,
@@ -171,10 +175,38 @@ def grad_rel(got, want) -> dict:
                 else float(torch.linalg.norm(got[n].float()))) for n in want}
 
 
+def eager_step(dp, trainer):
+    """``step(x, target) -> loss``: one eager step of the layer's
+    ``step_shard_map``, counted in ``trainer.step``."""
+    body = dp.step_shard_map(trainer)
+
+    def step(x, target):
+        loss = body(x, target)
+        trainer.step += 1
+        return loss
+
+    return step
+
+
+def refusals(dp, trainer, n_steps):
+    """{entry point: the message with which it refuses, or None}: the
+    layer's compiled entry points, asked for before any step."""
+    def refusal(make):
+        try:
+            make()
+        except RuntimeError as e:
+            return str(e)
+        return None
+
+    return {"loop": refusal(lambda: dp.make_training_loop(trainer, None, n_steps)),
+            "step": refusal(lambda: dp.make_training_step(trainer)),
+            "inference": refusal(lambda: dp.make_inference(trainer))}
+
+
 def train_job(rank, world, args):
     """One job's steps on this rank (``hybrid_btf`` and ``eikonal_sdf``
     under HybridParallel with n_model = world, ``dp_hash`` under
-    DataParallel)."""
+    DataParallel), eagerly through ``step_shard_map``."""
     from ..parallel import DataParallel, HybridParallel
 
     job, device = args["job"], torch.device(args["device"])
@@ -184,7 +216,6 @@ def train_job(rank, world, args):
     if job == "dp_hash":
         dp = DataParallel()
         dp.replicate(trainer)
-        step = dp.make_training_step(trainer)
         round_trip = None
     else:
         canonical = trainer.params()[name].detach().clone()
@@ -192,7 +223,9 @@ def train_job(rank, world, args):
         dp.shard_state(trainer)
         round_trip = bool(torch.equal(dp.gather_state(trainer)["params"][name],
                                       canonical.cpu()))
-        step = dp.make_training_step(trainer)
+    # on a card the compiled entry points must refuse gloo before a step or a batch
+    refused = refusals(dp, trainer, args["steps"]) if device.type == "cuda" else {}
+    step = eager_step(dp, trainer)
     if job == "eikonal_sdf":
         loss_and_grads = _eikonal_loss_and_grads(trainer)
 
@@ -202,13 +235,6 @@ def train_job(rank, world, args):
             dp.reduce_gradients(loss, grads)
             trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
             return loss
-    # a CUDA loop over gloo must refuse before it takes a step or a batch
-    refusal = None
-    if device.type == "cuda":
-        try:
-            dp.make_training_loop(trainer, None, args["steps"])
-        except RuntimeError as e:
-            refusal = str(e)
     first_grads = record_first_grads(trainer)
     sample = _sampler(job, args["batch"], device)
     spent = [0.0]
@@ -239,7 +265,7 @@ def train_job(rank, world, args):
     return {"losses": [float(v) for v in losses], "step_ms": step_ms,
             "collective_ms": coll_ms, "launches": launches, "n_devices": dp.n_devices,
             "shard_numel": trainer.params()[name].numel(), "round_trip": round_trip,
-            "loop_refusal": refusal}
+            "refusals": refused}
 
 
 def _graph_of(trainer):
@@ -391,7 +417,7 @@ def nccl_loop_job(rank, world, args):
     capture (the warm-up step) and in the captured step (each replay
     launches these), both loops' ms per step (host clock) and device ms
     per replayed step over ``args["rounds"]`` more calls, in turns, and
-    the ms per step of ``DataParallel.make_training_step``'s eager steps on
+    the ms per step of ``DataParallel.step_shard_map``'s eager steps on
     the same batches (host clock, ``args["rounds"]`` passes); then
     ``_captured_collectives``."""
     device = torch.device("cuda", torch.cuda.current_device())
@@ -403,7 +429,7 @@ def nccl_loop_job(rank, world, args):
         ms, device_ms = _loop_times(loop, steps, graph, args["rounds"])
         res["ms"].setdefault(what, []).append(ms)
         res["device_ms"].setdefault(what, []).append(device_ms)
-    step = dp.make_training_step(dp_trainer)   # the same steps, eagerly
+    step = eager_step(dp, dp_trainer)   # the same steps, eagerly
     res["eager_ms"] = []
     for _ in range(args["rounds"]):
         torch.cuda.synchronize()
@@ -414,6 +440,146 @@ def nccl_loop_job(rank, world, args):
         res["eager_ms"].append((time.perf_counter() - t0) * 1e3 / steps)
     res["backend"] = dist.get_backend()
     res["collectives"] = _captured_collectives(device)
+    return res
+
+
+def _least_ms(fn, rounds):
+    """The least host-clock ms of ``fn()`` over ``rounds`` calls, each from
+    an idle card to the end of its device work."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def _replay_ms(graph, n):
+    """The device's ms per replay of ``graph``, n replays back to back
+    between CUDA events."""
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def nccl_compiled_job(rank, world, args):
+    """The layers' compiled entry points on a one-rank NCCL group (slice
+    22): config_hash (BF16_POLICY), fresh models from one seed,
+    ``args["steps"]`` steps of ``args["batch"]`` samples from the seeded
+    image sampler.
+      * Under ``TCNN_TPU_SCATTER=sortseg`` (a deterministic table gradient),
+        for DataParallel and HybridParallel (n_model 1):
+        ``make_training_step`` against as many eager ``step_shard_map``
+        steps and against ``Trainer.make_training_step``: whether the
+        losses and the trained weights are equal bit for bit, the launches
+        of each run, the step count, whether the step's graph key names
+        the layer; then ``make_inference`` on ``held_out`` inputs, its
+        first call (warm-up and capture) and a replay against the model's
+        eager inference, bit for bit, with the launches of each.
+      * Without it (GB's atomics), the main path: DataParallel's
+        ``make_training_step``, its losses and launches beside
+        ``Trainer.make_training_step``'s losses; then the host-clock ms
+        per step of the compiled step, the eager ``step_shard_map`` steps
+        and ``Trainer.make_training_step`` (passes over the batches, the
+        least of ``args["rounds"]``, in turns), and the device ms per
+        replay of both captured steps.
+    ``args["device"]`` (default: the rank's card) lets it run on the CPU too."""
+    import contextlib
+    import os
+
+    from ..parallel import DataParallel, HybridParallel
+
+    device = torch.device(args.get("device", "cuda"))
+    counters = _counters()
+    sample = _sampler("dp_hash", args["batch"], device)
+    batches = [sample(i) for i in range(args["steps"])]
+    x = held_out("dp_hash", device)
+
+    def layer_of(kind, model):
+        if kind == "data":
+            layer = DataParallel()
+            layer.replicate(model.trainer)
+        else:
+            layer = HybridParallel(n_model=1, model=model)
+            layer.shard_state(model.trainer)
+        return layer
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def run(step, model):
+        for fn in counters.values():
+            fn.launches = 0
+        losses = torch.stack([step(*b) for b in batches])
+        torch.cuda.synchronize()
+        return {"losses": losses, "launches": counts(),
+                "weights": [p.detach().clone() for p in model.trainer.params().values()]}
+
+    def same(a, b):
+        return bool(torch.equal(a["losses"], b["losses"])) and all(
+            torch.equal(u, v) for u, v in zip(a["weights"], b["weights"]))
+
+    res = {"backend": dist.get_backend(), "sortseg": {}}
+    os.environ["TCNN_TPU_SCATTER"] = "sortseg"
+    try:
+        m = _model("dp_hash", device)
+        ref = run(m.trainer.make_training_step(), m)
+        for kind in ("data", "hybrid"):
+            m = _model("dp_hash", device)
+            layer = layer_of(kind, m)
+            compiled = run(layer.make_training_step(m.trainer), m)
+            keys = [k for k in m.trainer._graphs if k[0] == "make_training_step"]
+            e = _model("dp_hash", device)
+            eager = run(eager_step(layer_of(kind, e), e.trainer), e)
+            infer = layer.make_inference(m.trainer)
+            for fn in counters.values():
+                fn.launches = 0
+            first = infer(x)
+            torch.cuda.synchronize()
+            at_capture = counts()
+            again = infer(x)
+            torch.cuda.synchronize()
+            replay = {k: v - at_capture[k] for k, v in counts().items()}
+            with torch.inference_mode(), (layer.sharded() if kind == "hybrid"
+                                          else contextlib.nullcontext()):
+                want = m.trainer.model.inference(x)
+            res["sortseg"][kind] = {
+                "same_as_eager": same(compiled, eager), "same_as_trainer": same(compiled, ref),
+                "launches": compiled["launches"], "eager_launches": eager["launches"],
+                "trainer_launches": ref["launches"], "step": m.trainer.step,
+                "key_names_layer": len(keys) == 1 and keys[0][1] is layer,
+                "losses": compiled["losses"].tolist(),
+                "inference_equal": bool(torch.equal(first, want) and torch.equal(again, want)),
+                "inference_is_inference": bool(again.is_inference()),
+                "inference_launches": {"capture": at_capture, "replay": replay}}
+    finally:
+        del os.environ["TCNN_TPU_SCATTER"]
+
+    m = _model("dp_hash", device)
+    dp = layer_of("data", m)
+    step = dp.make_training_step(m.trainer)
+    main = run(step, m)
+    t = _model("dp_hash", device)
+    trainer_step = t.trainer.make_training_step()
+    res["main"] = {"losses": main["losses"].tolist(), "launches": main["launches"],
+                   "trainer_losses": run(trainer_step, t)["losses"].tolist()}
+    e = _model("dp_hash", device)
+    steps = {"parallel": step, "trainer": trainer_step,
+             "eager": eager_step(layer_of("data", e), e.trainer)}
+    res["ms"] = {}
+    for what in ("parallel", "trainer", "eager", "eager", "trainer", "parallel"):
+        ms = _least_ms(lambda: [steps[what](*b) for b in batches], args["rounds"])
+        res["ms"].setdefault(what, []).append(ms / len(batches))
+    res["device_ms"] = {what: _replay_ms(next(c.graph for k, c in model.trainer._graphs.items()
+                                              if k[0] == "make_training_step"), len(batches))
+                        for what, model in (("parallel", m), ("trainer", t))}
     return res
 
 

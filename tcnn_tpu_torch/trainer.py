@@ -16,6 +16,9 @@ steps taken.
     JAX package's ``lax.scan`` loops: on the card they replay one captured
     CUDA graph per step (the reference's graph replay, trainer.h:176-183),
     copying each batch into the graph's static input buffers first.
+  * ``inference`` and ``forward`` (trainer.py:287-299, jitted there) replay
+    a captured CUDA graph per request shape on the card.
+    ``invalidate_jit_cache`` drops every graph of the trainer.
   * ``serialize`` / ``deserialize`` write and read the JAX package's
     trainer dict (``utils/serialization.py``; trainer.h:275-315).
 """
@@ -29,6 +32,7 @@ import torch
 from .common import Policy
 from .losses import Loss
 from .module import Module
+from .ops import collectives, grid_ops
 from .optimizers import Optimizer
 
 
@@ -58,18 +62,28 @@ def _as_tuple(out) -> Tuple[torch.Tensor, ...]:
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
+def _captures(device) -> bool:
+    """Whether the compiled entry points replay CUDA graphs on ``device``
+    (the card) or run eagerly (the CPU)."""
+    return torch.device(device).type == "cuda"
+
+
 def _capture_step(body: Callable[..., Any], inputs: Sequence[torch.Tensor],
                   capture_error_mode: str = "global",
-                  generators: Sequence[torch.Generator] = ()):
+                  generators: Sequence[torch.Generator] = (), pool=None):
     """Captures ``body(*inputs)`` (a tensor or a tuple of tensors) in a
     CUDA graph.  Runs one real step of ``body`` eagerly on a side stream
     over static copies of ``inputs`` (the warm-up that capture needs), then
     captures the next call over the same copies; the capture runs nothing.
     ``generators`` (drawn from inside ``body``) are registered with the
-    graph, so each replay draws new numbers.  Returns the captured step and
-    the warm-up's outputs as a tuple.  A failing capture raises: no caller
-    goes on eagerly on the card."""
-    static = tuple(t.clone() for t in inputs)
+    graph, so each replay draws new numbers; ``pool`` is a memory pool
+    shared with other graphs (``torch.cuda.graph_pool_handle``).  The
+    static copies are ordinary tensors, also under ``inference_mode``, so
+    that a later call in another grad mode can fill them.  Returns the
+    captured step and the warm-up's outputs as a tuple.  A failing capture
+    raises: no caller goes on eagerly on the card."""
+    with torch.inference_mode(False):
+        static = tuple(t.clone() for t in inputs)
     device = static[0].device
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -79,7 +93,7 @@ def _capture_step(body: Callable[..., Any], inputs: Sequence[torch.Tensor],
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
-    with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=capture_error_mode):
         outputs = _as_tuple(body(*static))
     return _CapturedStep(graph, static, outputs), warm
 
@@ -104,6 +118,7 @@ class Trainer:
         self.opt_state = optimizer.init(self.params(), model.param_layout())
         self._noise_gen: Optional[torch.Generator] = None
         self._graphs: Dict[Tuple, _CapturedStep] = {}
+        self._request_pool = None   # the requests' graphs' shared memory pool
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The trained (fp32 master) parameters, by dotted name."""
@@ -195,39 +210,59 @@ class Trainer:
         graph's static buffers and replays it.  Each call returns a fresh
         0-d loss tensor (not the graph's, which the next replay
         overwrites) and does not wait for the device.  The graphs live in
-        ``_graphs``, which ``update_hyperparams`` and
-        ``HybridParallel.shard_state`` clear: the next call captures anew.
-        An optimizer whose step cannot be captured (Shampoo) raises on the
-        card; nothing goes on eagerly there.  With ``device="cpu"`` the
+        ``_graphs``, which ``invalidate_jit_cache`` clears: the next call
+        captures anew.  An optimizer whose step cannot be captured
+        (Shampoo: ``torch.linalg.eigh``) raises on the card; nothing goes
+        on eagerly there.  With ``device="cpu"`` the
         steps run eagerly.  JAX's ``in_shardings``, ``out_shardings`` and
         ``donate_state`` have no counterpart here and raise ``TypeError``.
         """
         if jax_options:
             raise TypeError(f"make_training_step: {sorted(jax_options)} are JAX's "
                             f"jit options and have no counterpart in this package")
-        body = self.step_fn(with_pdf=with_pdf)
+        return self._compiled_step(self.step_fn(with_pdf=with_pdf), (), with_pdf)
 
+    def _compiled_step(self, body, key: Tuple, with_pdf: bool,
+                       capture_error_mode: str = "global") -> Callable[..., torch.Tensor]:
+        """``step(x, target[, pdf]) -> loss``, each call one step of
+        ``body`` (uncounted), counted in ``step``: eager on the CPU; on the
+        card replayed from the graph kept under ``("make_training_step",)
+        + key``, the device and the batch's shapes and dtypes (``key``
+        names a parallel layer, so that its graphs, which hold its
+        collectives, are never this trainer's own)."""
         def run(batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
             device = batch[0].device
-            if device.type != "cuda":
+            if not _captures(device):
                 loss = body(*batch)
             else:
                 if not self.optimizer.capturable:
                     raise RuntimeError(f"make_training_step: {self.optimizer.capture_error}")
-                key = ("make_training_step", device) + tuple(
-                    (tuple(t.shape), t.dtype) for t in batch)
-                cap = self._graphs.get(key)
-                if cap is None:
-                    self._graphs[key], (loss,) = _capture_step(
-                        body, batch, generators=self._capture_generators(device))
-                else:
-                    (loss,) = cap(*batch)
+                (loss,) = self._replay(
+                    ("make_training_step",) + key + (device,)
+                    + tuple((tuple(t.shape), t.dtype) for t in batch),
+                    body, batch, capture_error_mode, self._capture_generators(device))
             self.step += 1
             return loss
 
         if with_pdf:
             return lambda x, target, pdf: run((x, target, pdf))
         return lambda x, target: run((x, target))
+
+    def _replay(self, key: Tuple, body, inputs: Sequence[torch.Tensor],
+                capture_error_mode: str = "global",
+                generators: Sequence[torch.Generator] = (), pool=None
+                ) -> Tuple[torch.Tensor, ...]:
+        """``body(*inputs)`` on the card, as a tuple: the first call for
+        ``key`` runs it eagerly (the warm-up, whose outputs it returns)
+        and captures it in a CUDA graph kept in ``_graphs``; later calls
+        replay the graph over ``inputs`` and return copies of its
+        outputs."""
+        cap = self._graphs.get(key)
+        if cap is None:
+            self._graphs[key], out = _capture_step(body, inputs, capture_error_mode,
+                                                   generators, pool)
+            return out
+        return cap(*inputs)
 
     def training_step_external_dL_dy(self, x: torch.Tensor,
                                      dL_dy: torch.Tensor) -> torch.Tensor:
@@ -252,10 +287,10 @@ class Trainer:
         batch's shapes, dtypes and device after ``key``."""
         body = body or self._step_body
         x, target = batch_fn(0)
-        if x.device.type == "cuda" and not self.optimizer.capturable:
+        if _captures(x.device) and not self.optimizer.capturable:
             raise RuntimeError(f"make_training_loop: {self.optimizer.capture_error}")
         losses = torch.empty(n_steps, dtype=torch.float32, device=x.device)
-        if x.device.type != "cuda":
+        if not _captures(x.device):
             # The caller asked for the CPU: the same steps, eagerly.
             for i in range(n_steps):
                 if i:
@@ -314,23 +349,68 @@ class Trainer:
         ones."""
         return self._custom_weights() or self.params()
 
-    def inference(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, n_input_dims) → (B, n_output_dims) in the policy's output
-        dtype, with the inference parameters, without gradient
-        bookkeeping."""
+    def _inference_body(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             cw = self._custom_weights()
             if cw is None:
                 return self.model.inference(x)
             return torch.func.functional_call(self.model, cw, (x,))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The model's output with the trained parameters."""
+    def _forward_body(self, x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
             return self.model(x)
 
+    def _request(self, body, x: torch.Tensor, key: Tuple,
+                 capture_error_mode: str = "global") -> torch.Tensor:
+        """``body(x)``, a request.  Eager on the CPU, and where the current
+        stream is capturing already: a replay cannot be nested in a
+        capture, so the outer graph records the body itself.  On the card
+        the first call for ``key`` and x's device, shape and dtype captures
+        the body; later calls copy x into the graph's input buffer and
+        replay it.  The requests' graphs share one memory pool: they never
+        run at once, and each call returns a fresh tensor, never a graph's
+        own output buffer."""
+        if not _captures(x.device) or torch.cuda.is_current_stream_capturing():
+            return body(x)
+        if self._request_pool is None:
+            self._request_pool = torch.cuda.graph_pool_handle()
+        (y,) = self._replay(key + (x.device, tuple(x.shape), x.dtype), body, (x,),
+                            capture_error_mode, pool=self._request_pool)
+        return y
+
+    def _trainer_request(self, entry: str, body, x: torch.Tensor) -> torch.Tensor:
+        """``_request`` of ``inference`` or ``forward``; the route, the grid
+        tables' sharding (``grid_ops.sharded_tables``), is part of the
+        key: a graph captured unsharded is never replayed sharded."""
+        sharding = grid_ops.table_sharding()
+        if sharding is None:
+            return self._request(body, x, (entry, None))
+        collectives.check_capturable([sharding.group], x.device, f"Trainer.{entry}",
+                                     "the model's own forward runs eagerly")
+        return self._request(body, x, (entry, sharding), collectives.CAPTURE_MODE)
+
+    def inference(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, n_input_dims) → (B, n_output_dims) in the policy's output
+        dtype, with the inference parameters, as an inference tensor: the
+        compiled request (trainer.py:287-293).  On the card the first call
+        for a given shape, dtype, device and route captures the request in
+        a CUDA graph and later calls replay it (``_request``).  The graph
+        reads the live parameters and optimizer state, and computes the
+        custom weights (EMA, Average) from that state, so training between
+        requests shows in the next one.  On the CPU it runs eagerly."""
+        with torch.inference_mode():
+            return self._trainer_request("inference", self._inference_body, x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The model's output with the trained parameters, without gradient
+        bookkeeping (no grad; trainer.py:295-299): compiled on the card as
+        ``inference`` is."""
+        with torch.no_grad():
+            return self._trainer_request("forward", self._forward_body, x)
+
     def evaluate_loss(self, x: torch.Tensor, target: torch.Tensor,
                       pdf: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The loss of ``forward``'s output (a compiled request on the card)."""
         return self.loss(self.forward(x).float(), target, pdf)
 
     # -- runtime hyperparameters ---------------------------------------
@@ -342,7 +422,20 @@ class Trainer:
             self.optimizer.update_hyperparams(cfg["optimizer"])
         if "loss" in cfg:
             self.loss.update_hyperparams(cfg["loss"])
+        self.invalidate_jit_cache()
+
+    def invalidate_jit_cache(self) -> None:
+        """Drops every CUDA graph captured for this trainer (trainer.py:
+        316-321 drops the jitted closures): its compiled steps, loops and
+        requests, and the parallel layer's.  The next call captures anew.
+        A graph holds the addresses of the parameters and the optimizer
+        state: whatever rebinds them calls this (``HybridParallel.
+        shard_state``); the in-place loads (``deserialize``,
+        ``restore_checkpoint``, ``import_params``) keep the graphs valid.
+        Call it before ``torch.distributed.destroy_process_group``: a graph
+        that holds NCCL collectives must go before its communicators."""
         self._graphs.clear()
+        self._request_pool = None
 
     # -- checkpointing ------------------------------------------------
     def serialize(self, serialize_optimizer: bool = True,

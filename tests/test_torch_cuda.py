@@ -159,14 +159,20 @@ def test_fused_mlp_kernel_matches_plain(cuda, width, dtype, soa_in, soa_out):
 
 @pytest.mark.parametrize("policy", [BF16_POLICY, DEFAULT_POLICY])
 def test_slice_inference_goes_through_both_kernels(cuda, policy):
+    """Since slice 22 the first request of a shape runs once (the warm-up)
+    and is captured, G and M twice; the next replays the graph."""
     model = create_from_config(2, 3, "configs/config_hash.json", policy=policy)
     x = torch.rand((3000, 2), generator=torch.Generator(cuda).manual_seed(0),
                    device=cuda)
     g0, m0 = grid_encode_fwd.launches, fused_mlp_fwd.launches
     y = model.trainer.inference(x)
     torch.cuda.synchronize()
-    assert (grid_encode_fwd.launches - g0, fused_mlp_fwd.launches - m0) == (1, 1)
+    assert (grid_encode_fwd.launches - g0, fused_mlp_fwd.launches - m0) == (2, 2)
     assert y.shape == (3000, 3) and bool(torch.isfinite(y).all())
+    again = model.trainer.inference(x)
+    torch.cuda.synchronize()
+    assert (grid_encode_fwd.launches - g0, fused_mlp_fwd.launches - m0) == (2, 2)
+    assert torch.equal(again, y)
 
 
 def test_cuda_input_gradient_and_second_order_raise_slice_3(cuda):
@@ -344,8 +350,10 @@ def test_parallel_loop_on_one_nccl_rank_matches_trainer_loop(cuda, tmp_path):
 
 
 def test_parallel_loop_refuses_gloo_on_cuda(cuda, tmp_path):
-    """Two gloo ranks on the card: ``make_training_loop`` raises (gloo's
-    collectives cannot be captured), and the eager steps still train."""
+    """Two gloo ranks on the card: ``make_training_loop``, and since slice
+    22 ``make_training_step`` and ``make_inference``, raise (gloo's
+    collectives cannot be captured), and ``step_shard_map``'s eager steps
+    still train."""
     from tcnn_tpu_torch.tools import parallel_check
 
     outs = parallel_check.run_ranks(2, parallel_check.train_job,
@@ -353,7 +361,10 @@ def test_parallel_loop_refuses_gloo_on_cuda(cuda, tmp_path):
                                      "batch": 1 << 14, "params_out": str(tmp_path / "p.pt")},
                                     timeout=300, tmp=tmp_path)
     for o in outs:
-        assert "gloo" in o["loop_refusal"] and "cannot be captured" in o["loop_refusal"]
+        for entry in ("loop", "step", "inference"):
+            msg = o["refusals"][entry]
+            assert "gloo" in msg and "cannot be captured" in msg, (entry, msg)
+        assert "step_shard_map" in o["refusals"]["step"]
         assert len(o["losses"]) == 2 and np.isfinite(o["losses"]).all()
 
 
@@ -2666,3 +2677,88 @@ def test_sdf_sample_replays_a_captured_step(cuda):
     out = sdf.main(["fit_sdf_eikonal", "12", "12"])
     assert bool(torch.isfinite(out["losses"]).all()) and out["losses"].shape == (12,)
     assert [c.launches - b for c, b in zip(counters, before)] == [5, 5, 4, 2, 2, 2]
+
+
+# -- slice 22: the compiled requests and the parallel layers' compiled entries
+
+@pytest.mark.parametrize("optimizer", ["Adam", "EMA"])
+def test_compiled_requests_equal_the_eager_module_bit_for_bit(cuda, optimizer):
+    """config_hash (BF16_POLICY): ``Trainer.inference`` and ``forward`` at
+    two shapes, before and after three eager training steps, equal the
+    eager module (on the EMA weights for EMA) bit for bit; the requests
+    after the steps replay (no kernel wrapper called); ``evaluate_loss``
+    equals the loss of the module's output; inside an outer capture the
+    request records its body, and the outer graph's replay gives the same
+    answer."""
+    from tcnn_tpu_torch import load_config
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    cfg = load_config(HASH_CONFIG)
+    if optimizer == "EMA":
+        cfg = {**cfg, "optimizer": {"otype": "EMA", "decay": 0.9, "nested": cfg["optimizer"]}}
+    model = create_from_config(2, 3, cfg, policy=BF16_POLICY, seed=3)
+    trainer = model.trainer
+    gen = torch.Generator(cuda).manual_seed(2)
+    xs = [torch.rand((b, 2), generator=gen, device=cuda) for b in (1000, 4133)]
+    sampler = ImageSampler(synthetic_image(256, 256), seed=3)
+
+    def eager(x):
+        with torch.inference_mode():
+            return torch.func.functional_call(model.network, trainer.inference_params(), (x,))
+
+    def raw(x):
+        with torch.no_grad():
+            return model.network(x)
+
+    for rnd in range(2):
+        if rnd:
+            for _ in range(3):
+                trainer.training_step(*sampler.sample_batch(1 << 14))
+        for x in xs:
+            before = grid_encode_fwd.launches, fused_mlp_fwd.launches
+            y, f = trainer.inference(x), trainer.forward(x)
+            launched = (grid_encode_fwd.launches - before[0], fused_mlp_fwd.launches - before[1])
+            assert launched == ((0, 0) if rnd else (4, 4)), (rnd, launched)
+            assert y.is_inference() and not f.is_inference() and not f.requires_grad
+            assert torch.equal(y, eager(x)) and torch.equal(f, raw(x)), (rnd, x.shape)
+            assert (optimizer == "EMA") != torch.equal(y, f)
+    target = torch.rand((1000, 3), generator=gen, device=cuda)
+    assert torch.equal(trainer.evaluate_loss(xs[0], target),
+                       model.loss(raw(xs[0]).float(), target))
+
+    x = xs[0]
+    with torch.inference_mode():
+        out = trainer.inference(x)   # a replay, outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = trainer.inference(x)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(y, out)
+
+
+def test_parallel_compiled_step_on_one_nccl_rank_replays_the_eager_steps(cuda, tmp_path):
+    """On a one-rank NCCL group (``parallel_check.nccl_compiled_job``):
+    under TCNN_TPU_SCATTER=sortseg, DataParallel's and HybridParallel's
+    (n_model 1) ``make_training_step`` give the losses and weights of as
+    many ``step_shard_map`` eager steps and of ``Trainer.make_training_step``,
+    bit for bit, launching the step's kernels in the warm-up and the
+    capture only, under a graph key that names the layer; their
+    ``make_inference`` replays equal the eager module bit for bit; without
+    sortseg G, GB, M and MB launch twice in 8 steps."""
+    from tcnn_tpu_torch.tools import parallel_check
+
+    res, = parallel_check.run_ranks(1, parallel_check.nccl_compiled_job,
+                                    {"steps": 8, "batch": 1 << 16, "rounds": 1},
+                                    timeout=300, tmp=tmp_path, backend="nccl")
+    assert res["backend"] == "nccl"
+    for kind, r in res["sortseg"].items():
+        assert r["same_as_eager"] and r["same_as_trainer"], kind
+        assert r["step"] == 8 and r["key_names_layer"], kind
+        want = {"G": 2, "M": 2, "MB": 2, "SK": 2, "SS": 2}
+        assert {k: v for k, v in r["launches"].items() if v} == want, (kind, r["launches"])
+        assert r["inference_equal"] and r["inference_is_inference"], kind
+        assert not any(r["inference_launches"]["replay"].values()), kind
+    lc = res["main"]["launches"]
+    assert {k: v for k, v in lc.items() if v} == {"G": 2, "GB": 2, "M": 2, "MB": 2}, lc
+    assert np.isfinite(res["main"]["losses"]).all()

@@ -14,8 +14,14 @@ DataParallel at 4 ranks; one spawn of 2 runs DataParallel at 2, the noise
 streams of output perturbation, a sharded checkpoint round trip (n_model
 2), the layout tag, the serialization guard and ``replicate`` from ranks
 that start apart.  Each run's first reduced gradients are compared with
-JAX's one-process gradients.  The launcher runs as a module in 2 CPU
-processes, with a resume.
+JAX's one-process gradients.  The runs at (2, 2), (1, 4) and DataParallel
+at 2 also train through ``make_training_loop`` and through eager
+``step_shard_map`` steps that the caller counts, against the
+``make_training_step`` steps (bit for bit: on the CPU every compiled entry
+point runs the eager steps) and JAX's ``lax.scan`` of its
+``step_shard_map``.  Each spawn also asks both layers' compiled entry
+points for a trainer on a card over gloo, which must refuse.  The
+launcher runs as a module in 2 CPU processes, with a resume.
 
 Tolerances: HybridParallel's losses rtol 5e-4 and its gathered tables rtol
 5e-3, atol 1e-6 (JAX's own test_loss_curve_matches_single_device: fp32
@@ -322,6 +328,37 @@ def test_training_loop_equals_eager_steps_bit_for_bit(four, two, name):
 
 
 @pytest.mark.parametrize("name", LOOP_RUNS)
+def test_step_shard_map_equals_make_training_step_bit_for_bit(four, two, name):
+    """``step_shard_map``'s eager body, each step counted by the caller
+    (the body leaves ``trainer.step`` alone), gives the losses,
+    parameters, optimizer state and step of ``make_training_step``'s
+    steps, bit for bit."""
+    outs, _ = two if name == "dp2" else four
+    for o in outs:
+        assert o[name]["shard_map"]["uncounted"]
+        assert o[name]["shard_map"]["losses"] == o[name]["losses"]
+        assert o[name]["shard_map"]["state equal"]
+
+
+@pytest.mark.parametrize("name", LOOP_RUNS)
+def test_step_shard_map_matches_jax_step_shard_map(four, two, name):
+    """The eager ``step_shard_map`` steps against JAX's ``step_shard_map``
+    over the same batches (scanned, as the JAX launcher runs it), within
+    the eager tests' tolerances: losses rtol 5e-4, tables and weights
+    rtol 5e-3, atol 1e-6."""
+    outs, refs = two if name == "dp2" else four
+    ref = refs[name]
+    for o in outs:
+        got = o[name]["shard_map"]
+        np.testing.assert_allclose(got["losses"], ref["scan losses"], rtol=5e-4)
+        want = (_named(ref["scan params"]) if name == "dp2"
+                else _named(ref["scan gathered"].params))
+        assert sorted(got["params"]) == sorted(want)
+        for k, w in want.items():
+            np.testing.assert_allclose(got["params"][k], w, rtol=5e-3, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("name", LOOP_RUNS)
 def test_training_loop_matches_jax_scanned_step(four, two, name):
     """The loop's losses and trained parameters against JAX's
     ``lax.scan`` of ``step_shard_map`` over the same batches (the JAX
@@ -342,12 +379,37 @@ def test_training_loop_matches_jax_scanned_step(four, two, name):
 def test_capture_check_refuses_gloo_on_cuda(two):
     """``collectives.check_capturable``: a CUDA loop over gloo raises
     (gloo's collectives cannot be captured in a CUDA graph); on the CPU
-    the loop runs eagerly over gloo."""
+    the loop runs eagerly over gloo.  Each layer's ``make_training_loop``,
+    ``make_training_step`` and ``make_inference`` for a trainer on a card
+    over gloo raise when they are asked for, before any step or batch,
+    and name themselves (the steps' message names ``step_shard_map`` for
+    eager steps)."""
     outs, _ = two
     for o in outs:
         assert "gloo" in o["capture check"]["cuda"]
         assert "cannot be captured" in o["capture check"]["cuda"]
         assert o["capture check"]["cpu"] is None
+        for layer, got in o["compiled on cuda"].items():
+            for entry, name in (("loop", "make_training_loop"), ("step", "make_training_step"),
+                                ("inference", "make_inference")):
+                msg = got[entry]
+                assert msg and msg.startswith(name + ":"), (layer, entry, msg)
+                assert "gloo" in msg and "cannot be captured" in msg, (layer, entry, msg)
+            assert "step_shard_map" in got["step"] and "step_shard_map" in got["loop"]
+
+
+@pytest.mark.parametrize("entry", ["make_training_step", "make_inference"])
+def test_use_shard_map_false_has_no_counterpart(entry):
+    """JAX's ``use_shard_map=False`` (a plain jit left to XLA's
+    partitioner) raises ``TypeError``; its default is accepted."""
+    import tcnn_tpu_torch as tcnn
+    from tcnn_tpu_torch.parallel import DataParallel as TorchDataParallel
+
+    trainer = tcnn.create_from_config(2, 3, config(), device="cpu").trainer
+    dp = TorchDataParallel()
+    with pytest.raises(TypeError, match="use_shard_map"):
+        getattr(dp, entry)(trainer, use_shard_map=False)
+    assert callable(getattr(dp, entry)(trainer, use_shard_map=True))
 
 
 def test_replicate_broadcasts_rank_zeros_state(two):

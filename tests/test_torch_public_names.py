@@ -2,7 +2,9 @@
 the CPU: ``GridEncoding``'s parameter accounting and output alignment,
 ``Encoding.required_output_alignment``, ``grid_ops.level_indices`` and
 ``init_grid_params``, ``activations.is_invertible``, ``Registry.names``,
-``Policy.cast_to_compute`` / ``cast_to_output`` and ``default_policy``.
+``Policy.cast_to_compute`` / ``cast_to_output`` and ``default_policy``,
+``Network.width``, ``n_hidden_layers`` and ``layer_sizes``, and
+``Encoding.forward_padded`` (JAX's ``apply_padded``).
 Integers and dtypes exact; ``init_grid_params`` draws from a torch
 generator, so its numbers differ from JAX's: shape, dtype, range and
 seeding are compared.
@@ -127,3 +129,66 @@ def test_policy_casts_equal_jax(policy):
                 np.testing.assert_array_equal(got.float().numpy(), want)
     assert tcommon.default_policy() is tcommon.DEFAULT_POLICY
     assert jcommon.default_policy() is jcommon.DEFAULT_POLICY
+
+
+NETWORKS = [{"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2},
+            {"otype": "CutlassMLP", "n_neurons": 16, "n_hidden_layers": 3},
+            {"otype": "MLP", "n_neurons": 32, "n_hidden_layers": 0}]
+
+
+@pytest.mark.parametrize("cfg", NETWORKS, ids=lambda c: f"{c['otype']}-{c['n_hidden_layers']}")
+def test_network_width_depth_and_layer_sizes_equal_jax(cfg):
+    """``Network.width``, ``n_hidden_layers`` and ``layer_sizes()``
+    (``tcnn_tpu/module.py:176-184``), exactly."""
+    want = jtcnn.create_network(cfg, 5, 3)
+    got = tcnn.create_network(cfg, 5, 3, device="cpu")
+    assert got.width == want.width == cfg["n_neurons"]
+    assert got.n_hidden_layers == want.n_hidden_layers == cfg["n_hidden_layers"]
+    assert got.layer_sizes() == want.layer_sizes(want.init(jax.random.key(0)))
+    assert len(got.layer_sizes()) == cfg["n_hidden_layers"] + 1
+
+
+ENCODINGS = [  # (n_dims, cfg)
+    (3, {"otype": "Identity"}),
+    (3, {"otype": "Frequency", "n_frequencies": 2}),
+    (3, {"otype": "TriangleWave", "n_frequencies": 3}),
+    (2, {"otype": "OneBlob", "n_bins": 4}),
+    (3, {"otype": "SphericalHarmonics", "degree": 3}),
+    (3, {"otype": "Empty"}),
+    (2, {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+         "log2_hashmap_size": 8, "base_resolution": 4, "per_level_scale": 1.5}),
+    (4, {"otype": "Composite", "nested": [
+        {"otype": "HashGrid", "n_dims_to_encode": 2, "n_levels": 2, "n_features_per_level": 2,
+         "log2_hashmap_size": 8, "base_resolution": 4},
+        {"otype": "OneBlob", "n_bins": 4}]}),
+]
+
+
+@pytest.mark.parametrize("n_dims,cfg", ENCODINGS, ids=[c["otype"] for _, c in ENCODINGS])
+def test_forward_padded_equals_jax_apply_padded(n_dims, cfg):
+    """``Encoding.forward_padded`` against JAX's ``apply_padded``
+    (``tcnn_tpu/module.py:161-169``; ``tests/test_encodings.py:194`` is
+    its own case): the same width, the output in place (rtol 1e-6, the
+    same float32 math) and constant-1 columns after it, exactly; a width
+    below the output's raises."""
+    from tcnn_tpu_torch.utils.jax_params import load_jax_params
+
+    jenc = jtcnn.create_encoding(n_dims, cfg)
+    params = jenc.init(jax.random.key(1))
+    enc = tcnn.create_encoding(n_dims, cfg, device="cpu")
+    if params:
+        load_jax_params(enc, jax.tree_util.tree_map(np.asarray, params))
+    x = np.random.default_rng(3).uniform(0, 1, (16, n_dims)).astype(np.float32)
+    n_out = enc.n_output_dims
+    assert n_out == jenc.n_output_dims
+    for width in (n_out, n_out + 5):
+        want = np.asarray(jenc.apply_padded(params, jnp.asarray(x), width))
+        got = enc.forward_padded(torch.from_numpy(x), width)
+        assert got.shape == want.shape == (16, width)
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        np.testing.assert_allclose(got[:, :n_out].detach().float().numpy(), want[:, :n_out],
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(got[:, n_out:].detach().float().numpy(), want[:, n_out:])
+        assert (want[:, n_out:] == 1).all()
+    with pytest.raises(ValueError, match="padded width"):
+        enc.forward_padded(torch.from_numpy(x), n_out - 1)

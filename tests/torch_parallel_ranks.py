@@ -14,6 +14,7 @@ the JAX package in their own process.
 from __future__ import annotations
 
 import math
+import types
 from pathlib import Path
 
 import numpy as np
@@ -156,10 +157,11 @@ def _hybrid_run(run):
     if run.get("infer") is not None:
         out["y"] = _np(hp.make_inference(trainer)(hp.shard_batch(torch.from_numpy(run["infer"]))))
     if run.get("loop"):
-        loop_model = _model(run)
-        loop_hp = HybridParallel(hp.mesh, model=loop_model)
-        loop_hp.shard_state(loop_model.trainer)
-        out["loop"] = _loop_run(loop_hp, loop_model.trainer, run["batches"], trainer)
+        for what, fn in (("loop", _loop_run), ("shard_map", _shard_map_run)):
+            other = _model(run)
+            other_hp = HybridParallel(hp.mesh, model=other)
+            other_hp.shard_state(other.trainer)
+            out[what] = fn(other_hp, other.trainer, run["batches"], trainer)
     return out
 
 
@@ -168,13 +170,32 @@ def _loop_run(dp, trainer, batches, eager):
     losses, its parameters (tables gathered) and whether its parameters,
     optimizer state and step equal those of ``eager``, the trainer that
     took the same steps through ``make_training_step``."""
-    from tcnn_tpu_torch.optimizers.base import named_leaves
-
     def sample(i):
         x, t = batches[i]
         return dp.shard_batch(torch.from_numpy(x)), dp.shard_batch(torch.from_numpy(t))
 
     losses = dp.make_training_loop(trainer, sample, len(batches))()
+    return _against(dp, trainer, losses, eager)
+
+
+def _shard_map_run(dp, trainer, batches, eager):
+    """``_loop_run`` for eager steps of ``dp.step_shard_map``, each counted
+    here; "uncounted": whether the step left ``trainer.step`` alone."""
+    body = dp.step_shard_map(trainer)
+    losses, uncounted = [], True
+    for x, t in batches:
+        before = trainer.step
+        losses.append(body(dp.shard_batch(torch.from_numpy(x)), dp.shard_batch(torch.from_numpy(t))))
+        uncounted &= trainer.step == before
+        trainer.step += 1
+    return dict(_against(dp, trainer, losses, eager), uncounted=uncounted)
+
+
+def _against(dp, trainer, losses, eager):
+    """The losses, the parameters (tables gathered) and whether the
+    parameters, optimizer state and step equal those of ``eager``."""
+    from tcnn_tpu_torch.optimizers.base import named_leaves
+
     mine = list(trainer.params().values()) + [t for _, t in named_leaves(trainer.opt_state)]
     theirs = list(eager.params().values()) + [t for _, t in named_leaves(eager.opt_state)]
     state_equal = trainer.step == eager.step and all(
@@ -201,10 +222,11 @@ def _data_parallel_run(run):
            "grads": {n: g.numpy() for n, g in canonical_grads(dp, first).items()},
            "params": {n: _np(p) for n, p in trainer.params().items()}}
     if run.get("loop"):
-        loop_model = _model(run)
-        loop_dp = DataParallel()
-        loop_dp.replicate(loop_model.trainer)
-        out["loop"] = _loop_run(loop_dp, loop_model.trainer, run["batches"], trainer)
+        for what, fn in (("loop", _loop_run), ("shard_map", _shard_map_run)):
+            other = _model(run)
+            other_dp = DataParallel()
+            other_dp.replicate(other.trainer)
+            out[what] = fn(other_dp, other.trainer, run["batches"], trainer)
     return out
 
 
@@ -330,8 +352,30 @@ def parallel_job(rank, world, payload):
     res["capture check"] = {
         dev: _raises(lambda: collectives.check_capturable([dist.group.WORLD], torch.device(dev)),
                      RuntimeError) for dev in ("cuda", "cpu")}
+    res["compiled on cuda"] = _compiled_on_cuda(world)
     res["no n_model"] = _raises(lambda: HybridParallel(), ValueError)
     return res
+
+
+class _CardTrainer:
+    """A trainer whose parameters say that they lie on a card: all that
+    the layers' compiled entry points read before they refuse gloo there.
+    Anything more they touch fails the test."""
+
+    def params(self):
+        return {"w": types.SimpleNamespace(device=torch.device("cuda", 0))}
+
+
+def _compiled_on_cuda(world):
+    """{layer: {entry point: the refusal}} of each layer's compiled entry
+    points for a trainer on a card over this gloo group, asked for before
+    any step or batch."""
+    from tcnn_tpu_torch.parallel import DataParallel, HybridParallel
+    from tcnn_tpu_torch.tools.parallel_check import refusals
+
+    return {name: refusals(layer, _CardTrainer(), 4)
+            for name, layer in (("data", DataParallel()),
+                                ("hybrid", HybridParallel(n_model=world)))}
 
 
 JOBS = {"encode": encode_job, "parallel": parallel_job}
