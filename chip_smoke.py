@@ -64,9 +64,9 @@ and read just after:
     Novograd, Average, Batched, Lookahead, ExponentialDecay, Composite and
     Shampoo at config_hash: one optimizer step on the card against the
     same step on the CPU, 20 replayed steps against 20 eager ones
-    (Shampoo: ``make_training_loop`` refuses, and whether
-    ``torch.linalg.eigh`` can be captured is tried in a process of its
-    own), and each optimizer step's time;
+    (Shampoo's too since slice 23, its roots refreshed by kernel SR at
+    t = 1, 10 and 20; at t = 10 against float64 roots), and each optimizer
+    step's time in a CUDA graph;
   * tiny-cuda-nn's torch modules (slice 10, ``bindings.torch_interop``,
     fp32): a ``NetworkWithInputEncoding`` at config_hash's full width,
     B = 2^18, its forward, ``params.grad`` and input gradient against the
@@ -190,7 +190,8 @@ and read just after:
     20 steps under ``sortseg`` bit for bit equal to 20 eager
     ``training_step``s from the same seed, then 20 steps without it, the
     main path (G, M, GB, MB in the warm-up and the capture only; each
-    call's loss a tensor of its own), and Shampoo refusing; the SDF
+    call's loss a tensor of its own), and Shampoo's compiled steps (slice
+    23) against eager ones under ``sortseg``, bit for bit; the SDF
     sample's eikonal step at 2^14 and 2^18 and the NeRF step at the
     sample's defaults captured through the trainer's capture helper, a
     replayed step's loss and gradients against an eager step's from the
@@ -217,6 +218,21 @@ and read just after:
     only), the main path of the parallel step, with the three steps'
     times.  (Since slice 22 every earlier phase's first request of a shape
     launches G and M twice, its warm-up and its capture.)
+  * slice 23, Shampoo in the compiled paths (``shampoo_slice``, last):
+    config_hash (BF16_POLICY, 2^18) with Shampoo through
+    ``make_training_loop`` under ``sortseg``, 250 steps, the main path of
+    kernel SR (launched in the warm-up and the capture, each replay
+    reading the step counter itself), against 250 eager steps bit for bit,
+    the roots changing at exactly t = 1, 10, ..., 90, 200; SR against
+    the float64 roots of the same float32 S within ``ROOT_TOL`` (32 ulps
+    of the root's largest entry) at config_hash's and config_oneblob's
+    preconditioners and n = 256, 512, 600, beside float32 eigh's error and
+    a control that must fail (SR stopped at half its sweeps), with its
+    sweeps and times beside the eigh yardstick; Shampoo's loop, compiled,
+    eager and optimizer-alone times at config_hash beside Adam's, and
+    config_oneblob's loop with each; DataParallel's and HybridParallel's
+    ``make_training_step`` with Shampoo on a one-rank NCCL group against
+    eager and trainer steps, bit for bit.
 It times the kernels, a request and a training step of both, the eikonal
 step (eager, and on the device from a captured CUDA graph) and its
 kernels, checks that two launches of kernel MB on the same inputs give
@@ -350,12 +366,11 @@ with TF32 off):
     leaf within rtol 1e-5 plus 1e-6 of its largest magnitude (fp32
     elementwise operations; the CPU tests' bound against JAX), Shampoo
     rtol 1e-4 plus 1e-5 (matrix products in fp32; the step compared is
-    t = 3, no refresh).  Shampoo's roots refreshed at t = 10 against
-    float64 roots of the same matrices within ``root_error_bound``: n·ε·‖S‖
-    of backward error in the eigensolver moves the root by at most
-    ¼·λ_min(S)^(−5/4) times it (float32 roots of cuSOLVER and LAPACK
-    differ by 1e-2 on these matrices).  Served requests against the plain
-    path: the whole-model bf16 tolerance.
+    t = 3, no refresh).  Shampoo's roots refreshed at t = 10 (kernel SR)
+    against the float64 roots of the same float32 S within ``ROOT_TOL``,
+    32 ulps of the root's largest entry (SR diagonalises in fp64 and
+    rounds once).  Served requests against the plain path: the
+    whole-model bf16 tolerance.
 
   * slice 11: the grid kernels at the bounds above (GI, GG's d_dcols and
     d_x within 1e-5 of each output's largest magnitude, GB and GG's table
@@ -882,7 +897,8 @@ def first_order_counts():
 
 
 def reset_counts():
-    for fn in (*counters().values(), *sortseg_counters().values()):
+    for fn in (*counters().values(), *sortseg_counters().values(),
+               *shampoo_counters().values()):
         fn.launches = 0
 
 
@@ -2582,23 +2598,10 @@ def save_load_serve_slice(gen, dev, t_hash):
         err = max(leaves_close(card.trainer.params(), cpu.trainer.params(), tol, name),
                   leaves_close(card.trainer.opt_state, cpu.trainer.opt_state, tol, name))
         line = f"{name}: one step on the card vs the CPU, max rel err {err:.2e} (rtol {tol[0]:g})"
-        if name == "Shampoo":
-            roots = shampoo_roots_against_f64(card, batches)
-            opt_t[name] = eager_ms(lambda: card.optimizer.step(
-                card.trainer.opt_state, grads, card.trainer.params()))
-            loop_model = create_from_config(2, 3, cfg, policy=BF16_POLICY)
-            try:
-                loop_model.trainer.make_training_loop(lambda i: batches[0], 2)()
-                refused = ""
-            except RuntimeError as e:
-                refused = str(e)
-            check("cannot be captured" in refused,
-                  f"Shampoo: make_training_loop did not refuse capture ({refused!r})")
-            print(f"{line}; roots refreshed at t = 10 against float64 roots of the same "
-                  f"matrices: largest error / bound {roots:.3e}; step {opt_t[name]:.4f} ms "
-                  f"eager; make_training_loop refuses: {refused!r}; eigh under capture: "
-                  f"{eigh_capture_outcome()}")
-            continue
+        if name == "Shampoo":   # kernel SR's roots at the refresh of t = 10
+            line += (f"; roots refreshed at t = 10 against float64 roots of the same "
+                     f"matrices: largest error {shampoo_roots_against_f64(card, batches):.3e} "
+                     f"of the root's largest entry (ROOT_TOL 32 ulps)")
         opt_t[name] = graph_ms(lambda: card.optimizer.step(
             card.trainer.opt_state, grads, card.trainer.params()))
         pair = [create_from_config(2, 3, cfg, policy=BF16_POLICY) for _ in range(2)]
@@ -2624,7 +2627,7 @@ def save_load_serve_slice(gen, dev, t_hash):
               + (f"; but for {len(odd)} lazy counter entries, each its own gradients' "
                  f"count: {odd}" if odd else "")
               + f"); step {opt_t[name]:.4f} ms on the device")
-    print("optimizer step alone at config_hash, device ms (Shampoo eager): "
+    print("optimizer step alone at config_hash, device ms: "
           + ", ".join(f"{k} {v:.4f}" for k, v in opt_t.items()))
 
     # The serving path's kernels: G and M as the bucket graphs launch them
@@ -2641,10 +2644,9 @@ def save_load_serve_slice(gen, dev, t_hash):
 
 def shampoo_roots_against_f64(model, batches):
     """Steps a Shampoo model on to t = 10, a root refresh, and holds each
-    refreshed root against the float64 root of the same matrix within
-    ``root_error_bound`` (float32 eigh's error, which is large where a
-    matrix spans 10^5 in eigenvalue); returns the largest error / bound."""
-    from tcnn_tpu_torch.optimizers.shampoo import inverse_4th_root_psd, root_error_bound
+    refreshed root against the float64 root of the same float32 S within
+    ``ROOT_TOL``; returns the largest ``root_error``."""
+    from tcnn_tpu_torch.tools.plain_path import ROOT_TOL, root_error
 
     opt = model.optimizer
     for xb, tb in batches[int(model.trainer.opt_state["step"]):10]:
@@ -2653,36 +2655,11 @@ def shampoo_roots_against_f64(model, batches):
     worst = 0.0
     for name, st in model.trainer.opt_state["mat"].items():
         for k in ("L", "R") if st else ():
-            want = inverse_4th_root_psd(st[k].double(), opt.identity_strength)
-            err = (st[k + "_root"].double() - want).abs().max().item()
-            bound = root_error_bound(st[k], opt.identity_strength)
-            check(err <= bound, f"Shampoo {name} {k}_root: error {err:.3e} beyond {bound:.3e}")
-            worst = max(worst, err / bound)
+            err = root_error(st[k + "_root"], st[k], opt.identity_strength)
+            check(err <= ROOT_TOL, f"Shampoo {name} {k}_root: error {err:.3e} beyond "
+                  f"{ROOT_TOL:.3e}")
+            worst = max(worst, err)
     return worst
-
-
-EIGH_CAPTURE = """
-import torch
-a = torch.eye(64, device="cuda") * 2
-torch.linalg.eigh(a)
-torch.cuda.synchronize()
-graph = torch.cuda.CUDAGraph()
-try:
-    with torch.cuda.graph(graph):
-        torch.linalg.eigh(a)
-    print("captured")
-except RuntimeError as e:
-    print("refused: " + str(e).splitlines()[0][:200])
-"""
-
-
-def eigh_capture_outcome():
-    """Whether torch.linalg.eigh of a 64 x 64 matrix can be captured in a
-    CUDA graph, tried in a process of its own (a failed capture may leave
-    its context unusable): the evidence for Shampoo's refusal."""
-    out = subprocess.run([sys.executable, "-c", EIGH_CAPTURE], capture_output=True,
-                         text=True, timeout=300)
-    return (out.stdout.strip() or f"exit {out.returncode}: {out.stderr.strip()[-200:]}")
 
 
 # -- slice 10: the tinycudann torch modules ---------------------------------
@@ -5110,7 +5087,8 @@ def sortseg_counters():
 
 
 def all_counts():
-    return {**counts(), **{k: fn.launches for k, fn in sortseg_counters().items()}}
+    return {**counts(), **{k: fn.launches for k, fn in (*sortseg_counters().items(),
+                                                          *shampoo_counters().items())}}
 
 
 def set_sortseg(on):
@@ -5544,7 +5522,8 @@ def compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries):
     from the same seed; without it the same steps are the main path (G, M,
     GB, MB launched in the warm-up and the capture only) and their losses
     within ``PARALLEL_LOSS_RTOL`` of the eager ones'; each call's loss is
-    its own tensor; Shampoo refuses.  (b) The SDF sample's eikonal step at
+    its own tensor; Shampoo (slice 23) under sortseg replays its eager
+    steps bit for bit.  (b) The SDF sample's eikonal step at
     2^14 and 2^18 captured through the trainer's capture helper: a replayed
     step's loss and gradients against an eager step's from the same
     weights at the eikonal step's bounds; then ``fit_sdf_eikonal.main``
@@ -5631,17 +5610,27 @@ def compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries):
           f"{hash_launches}; each call's loss a tensor of its own")
     step_times(f"config_hash step at B={MAIN_BATCH}", t,
                lambda: model.trainer.training_step(x, target), lambda: step(x, target), cap.graph)
-    shampoo = create_from_config(2, 3, {**load_config(CONFIG),
-                                        "optimizer": {"otype": "Shampoo", "learning_rate": 1e-2}},
-                                 policy=BF16_POLICY)
+    # Shampoo since slice 23: kernel SR reads the counter at each replay.
+    shampoo_cfg = {**load_config(CONFIG), "optimizer": SHAMPOO}
+    set_sortseg(True)
     try:
-        shampoo.trainer.make_training_step()(x, target)
-        refusal = None
-    except RuntimeError as e:
-        refusal = str(e)
-    check(refusal is not None and shampoo.optimizer.capture_error in refusal
-          and shampoo.trainer.step == 0, f"Shampoo under make_training_step: {refusal}")
-    print(f"Shampoo under make_training_step refuses: {refusal}")
+        runs = []
+        for compiled in (True, False):
+            sh = create_from_config(2, 3, shampoo_cfg, policy=BF16_POLICY, seed=21)
+            step_sh = sh.trainer.make_training_step() if compiled else sh.trainer.training_step
+            sr0 = shampoo_counters()["SR"].launches
+            ls = torch.stack([step_sh(*b) for b in batches[:SHAMPOO_STEP_STEPS]])
+            torch.cuda.synchronize()
+            runs.append((ls, shampoo_leaves(sh), shampoo_counters()["SR"].launches - sr0))
+    finally:
+        set_sortseg(False)
+    check(torch.equal(runs[0][0], runs[1][0])
+          and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+          and runs[0][2] == 2, f"Shampoo under make_training_step (sortseg): losses or "
+          f"leaves differ from eager steps', or SR launched {runs[0][2]} times (expected 2)")
+    print(f"Shampoo under make_training_step, sortseg: {SHAMPOO_STEP_STEPS} replayed steps "
+          f"(refreshes at t = 1 and 10) equal as many eager ones bit for bit, losses, weights "
+          f"and every state leaf; SR launched twice (warm-up, capture)")
 
     for pow_ in COMPILED_SDF_POWS:
         B = 1 << pow_
@@ -5771,6 +5760,313 @@ def compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries):
                                "fit_sdf_eikonal.main, 500 steps at 2^14")
             + compiled_entries(nerf_entries, lambda n: True, nerf_launches,
                                "fit_nerf_field.main"))
+
+
+# Slice 23: Shampoo in the compiled paths; kernel SR (csrc/shampoo_root.cu)
+# refreshes its roots on the device.
+SHAMPOO = {"otype": "Shampoo", "learning_rate": 1e-2}
+SHAMPOO_STEP_STEPS = 12        # slice 21's compiled Shampoo steps (refreshes at t = 1, 10)
+SHAMPOO_LOOP_STEPS = 250       # the captured loop against eager steps, t = 1 ... 250
+SHAMPOO_TIMED_STEPS = 200      # the timed loop calls
+ONEBLOB_TIMED_STEPS = 100      # config_oneblob's timed loop calls
+SR_ALONE = (256, 512, 600)     # the wide SDF's, the wide image's first and the 600-output layers
+SR_IDENTITY = 0.01
+SR_SPAN = 1e5                  # the spectrum of the random matrices, as a trained MLP's
+REPLACES_SR = ("none (XLA eigh): tcnn_tpu/optimizers/shampoo.py:43 (_inverse_4th_root_psd) "
+               "under the lax.cond of tcnn_tpu/optimizers/shampoo.py:166-176")
+KERNELS["SR"] = ("shampoo_root", "tcnn_tpu_torch/csrc/shampoo_root.cu")
+
+
+def shampoo_counters():
+    from tcnn_tpu_torch.ops.cuda.shampoo_root import shampoo_refresh_roots
+
+    return {"SR": shampoo_refresh_roots}
+
+
+def shampoo_leaves(model):
+    """Copies of the parameters and of every optimizer state leaf."""
+    from tcnn_tpu_torch.optimizers.base import tree_leaves
+
+    return ([p.detach().clone() for p in model.trainer.params().values()]
+            + [t.clone() for t in tree_leaves(model.trainer.opt_state)])
+
+
+def preconditioners(model):
+    """The model's Shampoo matrices (L and R of each weight matrix) and
+    their roots, in the order the optimizer hands them to SR."""
+    mats = [st for st in model.trainer.opt_state["mat"].values() if st]
+    return ([st[k] for st in mats for k in ("L", "R")],
+            [st[k + "_root"] for st in mats for k in ("L", "R")])
+
+
+def sr_case(label, mats, t, reps):
+    """Kernel SR on ``mats`` at a refresh step against the float64 roots
+    of the same float32 S (``root_error`` within ``ROOT_TOL``), beside the
+    plain version's error (float32 eigh on the card) and a control that
+    must fail (each matrix from n = 16 again, SR stopped at half its
+    sweeps); the times of one launch: refreshing (``reps`` back-to-back
+    launches; with one, the second launch, which also checks the bits), on
+    a step that is none, the plain version (eigh per matrix, eager) and
+    the library yardstick (``torch.linalg.eigh`` and the two products, per
+    matrix, eager); its bound from the function's work, not the sweeps
+    this run took; into ``t[label]``, printed."""
+    from tcnn_tpu_torch.ops.cuda import kernels
+    from tcnn_tpu_torch.ops.cuda.shampoo_root import shampoo_refresh_roots
+    from tcnn_tpu_torch.optimizers.shampoo import inverse_4th_root_psd
+    from tcnn_tpu_torch.tools.plain_path import ROOT_TOL, float64_root, root_error
+
+    dev = mats[0].device
+    refresh = torch.tensor(10, dtype=torch.int32, device=dev)
+    idle = torch.tensor(11, dtype=torch.int32, device=dev)
+    roots = [torch.zeros_like(a) for a in mats]
+    stats = torch.zeros((len(mats), 2), dtype=torch.int32, device=dev)
+    shampoo_refresh_roots(refresh, mats, roots, SR_IDENTITY, stats)
+    torch.cuda.synchronize()
+    sweeps, rotations = stats[:, 0].tolist(), stats[:, 1].tolist()
+    cap = kernels().shampoo_root_max_sweeps
+    check(max(sweeps) < cap, f"SR {label}: sweeps {sweeps} reached the cap {cap}")
+    errs, plain_errs, controls, abs_err = [], [], [], 0.0
+    for a, root, sw in zip(mats, roots, sweeps):
+        err = root_error(root, a, SR_IDENTITY)
+        check(bool(torch.isfinite(root).all()) and err <= ROOT_TOL,
+              f"SR {label} n={a.shape[0]}: root error {err:.3e} beyond ROOT_TOL {ROOT_TOL:.3e}")
+        errs.append(err)
+        abs_err = max(abs_err, float((root.cpu().double()
+                                      - float64_root(a, SR_IDENTITY)).abs().max()))
+        plain_errs.append(root_error(inverse_4th_root_psd(a, SR_IDENTITY), a, SR_IDENTITY))
+        if a.shape[0] >= 16:
+            early = torch.zeros_like(a)
+            shampoo_refresh_roots(refresh, [a], [early], SR_IDENTITY, max_sweeps=max(1, sw // 2))
+            controls.append(root_error(early, a, SR_IDENTITY))
+            check(controls[-1] > ROOT_TOL, f"SR {label} n={a.shape[0]}: stopped at {sw // 2} of "
+                  f"{sw} sweeps, its root error {controls[-1]:.3e} lies within ROOT_TOL")
+    again = [torch.zeros_like(a) for a in mats]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    shampoo_refresh_roots(refresh, mats, again, SR_IDENTITY)
+    end.record()
+    end.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(roots, again)), f"SR {label}: bits differ "
+          "between two launches")
+
+    def library():
+        for a in mats:
+            w, v = torch.linalg.eigh(0.5 * (a + a.t()) * (1 - SR_IDENTITY)
+                                     + SR_IDENTITY * torch.eye(a.shape[0], device=dev))
+            (v * w.clamp_min(1e-12) ** -0.25) @ v.t()
+
+    r = {"ms": (eager_ms(lambda: shampoo_refresh_roots(refresh, mats, again, SR_IDENTITY),
+                         n=reps) if reps > 1 else start.elapsed_time(end)),
+         "no_refresh_ms": graph_ms(lambda: shampoo_refresh_roots(idle, mats, again, SR_IDENTITY)),
+         "plain_ms": eager_ms(lambda: [inverse_4th_root_psd(a, SR_IDENTITY) for a in mats],
+                              n=reps),
+         "library_ms": eager_ms(library, n=reps)}
+    ns = [a.shape[0] for a in mats]
+    n_bytes = sum(2 * n * n * 4 for n in ns)   # each L read, each root written
+    # the function's work a matrix: an eigendecomposition with vectors about
+    # 9n³ (the symmetric QR algorithm, its rotations accumulated), the root's
+    # product 2n³
+    flops = sum(11 * n ** 3 for n in ns)
+    r.update(bound_ms=bound_ms(n_bytes, flops, PEAK_FP32),
+             bound_by=bound_by(n_bytes, flops, PEAK_FP32), max_abs_err=abs_err,
+             root_error=max(errs), plain_root_error=max(plain_errs),
+             control_root_error=min(controls) if controls else None, root_tol=ROOT_TOL,
+             sweeps=max(sweeps), rotations=sum(rotations), sizes=ns)
+    t[label] = r
+    ctrl = f"{min(controls):.3e}" if controls else "none (n < 16)"
+    print(f"SR {label} (n = {ns}): root error {max(errs):.3e} of the root's largest entry "
+          f"(ROOT_TOL {ROOT_TOL:.3e}; max abs {abs_err:.3e}); float32 eigh {min(plain_errs):.3e}"
+          f"-{max(plain_errs):.3e}; the control, half the sweeps, {ctrl} at least; sweeps "
+          f"{sweeps}, {sum(rotations)} rotations; {r['ms']:.4f} ms a refresh launch, "
+          f"{r['no_refresh_ms']:.4f} ms a launch on a step that is none; plain (eigh per "
+          f"matrix) {r['plain_ms']:.4f} ms, library (eigh and two products) "
+          f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms ({n_bytes / 1e6:.3f} MB, "
+          f"{flops / 1e9:.4f} GFLOP on the fp32 FMA units)")
+    return r
+
+
+def shampoo_slice(gen, dev):
+    """Slice 23, Shampoo in the compiled paths.  (a) The main path:
+    config_hash (BF16_POLICY, 2^18) with Shampoo under
+    ``TCNN_TPU_SCATTER=sortseg`` through ``make_training_loop``,
+    ``SHAMPOO_LOOP_STEPS`` steps, against as many eager ``training_step``s
+    from the same seed, bit for bit (losses, weights, every state leaf);
+    the roots, copied by ``sample_fn`` before each replay, change at
+    exactly the refresh steps t = 1, 10, ..., 90, 200.  (b) Kernel SR
+    against the float64 roots of the same float32 S within ``ROOT_TOL``,
+    with float32 eigh's error and a control beside it: config_hash's six
+    preconditioners from (a), config_oneblob's twelve, and random
+    matrices spanning 10^5 at n = 256, 512 and 600 alone; its times
+    (``sr_case``).  (c) The times of Shampoo at config_hash without
+    sortseg: the loop's ms per step over ``SHAMPOO_TIMED_STEPS`` steps,
+    samples/s and idle share (Adam's loop beside it), the compiled and
+    the eager step on the host clock, the optimizer step alone eager and
+    replayed; config_oneblob's loop with Shampoo and with Adam.  (d) In a
+    spawned one-rank NCCL process (``parallel_check.nccl_compiled_job``
+    with Shampoo), DataParallel's and HybridParallel's (n_model 1)
+    ``make_training_step`` under sortseg against ``step_shard_map`` eager
+    steps and ``Trainer.make_training_step``, bit for bit.  Returns SR's
+    report entry: launches from (a), times at config_hash's six roots, the
+    other shapes as extra fields."""
+    import tempfile
+
+    from tcnn_tpu_torch import BF16_POLICY, create_from_config, load_config
+    from tcnn_tpu_torch.optimizers.shampoo import refresh_due
+    from tcnn_tpu_torch.tools import parallel_check
+    from tcnn_tpu_torch.tools.plain_path import spanning_psd
+    from tcnn_tpu_torch.utils.image import ImageSampler, synthetic_image
+
+    t_start = time.time()
+    sr = {}
+    cfg = {**load_config(CONFIG), "optimizer": SHAMPOO}
+    image = synthetic_image(1024, 1024)
+    sampler = ImageSampler(image, seed=23)
+    batches = [sampler.sample_batch(MAIN_BATCH) for _ in range(SHAMPOO_LOOP_STEPS)]
+
+    phase(f"slice 23: config_hash (BF16_POLICY) with Shampoo through make_training_loop under "
+          f"TCNN_TPU_SCATTER=sortseg, {SHAMPOO_LOOP_STEPS} steps at B={MAIN_BATCH} (the main "
+          f"path), against as many eager training_steps from the same seed")
+    set_sortseg(True)
+    try:
+        model = create_from_config(2, 3, cfg, policy=BF16_POLICY, seed=23)
+        _, roots = preconditioners(model)
+        snaps = []
+
+        def sample(i):   # the roots after step i, copied before the replay of step i + 1
+            snaps.append(torch.cat([r.flatten() for r in roots]))
+            return batches[i]
+
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = model.trainer.make_training_loop(sample, SHAMPOO_LOOP_STEPS)()
+        snaps.append(torch.cat([r.flatten() for r in roots]))
+        torch.cuda.synchronize()
+        launches = all_counts()
+        eager = create_from_config(2, 3, cfg, policy=BF16_POLICY, seed=23)
+        want = torch.stack([eager.trainer.training_step(*b) for b in batches])
+        torch.cuda.synchronize()
+    finally:
+        set_sortseg(False)
+    got_leaves, want_leaves = shampoo_leaves(model), shampoo_leaves(eager)
+    same = [torch.equal(a, b) for a, b in zip(got_leaves, want_leaves)]
+    check(torch.equal(losses, want) and all(same),
+          f"the captured Shampoo loop against eager steps: losses equal "
+          f"{torch.equal(losses, want)}, leaves equal {same}")
+    changed = [i for i in range(1, len(snaps)) if not torch.equal(snaps[i], snaps[i - 1])]
+    due = [i for i in range(1, SHAMPOO_LOOP_STEPS + 1)
+           if bool(refresh_due(torch.tensor(i)))]
+    check(changed == due, f"the roots changed at t = {changed}, the refresh steps are {due}")
+    check(launches["SR"] == 2 and launches["GB"] == 0
+          and all(launches[k] == 2 for k in ("G", "M", "MB", "SK", "SS")),
+          f"the Shampoo loop's launches {launches}: expected SR, G, M, MB, SK and SS twice "
+          f"(the warm-up and the capture) and no GB")
+    check(bool(torch.isfinite(losses).all()) and float(losses[-10:].mean()) < float(losses[0]),
+          f"the Shampoo loop did not train: {float(losses[0])} -> {float(losses[-1])}")
+    print(f"{SHAMPOO_LOOP_STEPS} replayed steps equal {SHAMPOO_LOOP_STEPS} eager ones bit for "
+          f"bit: every loss, weight and state leaf ({sum(v.numel() for v in got_leaves)} "
+          f"values); loss {float(losses[0]):.6f} -> {float(losses[-10:].mean()):.6f} (mean of "
+          f"the last 10); the roots changed at t = {changed}, exactly the refresh steps; "
+          f"launches {launches}")
+
+    phase("slice 23: kernel SR against float64 roots, and its times: config_hash's and "
+          f"config_oneblob's preconditioners, n = {', '.join(map(str, SR_ALONE))} alone")
+    hash_mats = [m.clone() for m in preconditioners(model)[0]]
+    sr_case("config_hash", hash_mats, sr, 10)
+    oneblob = create_from_config(2, 3, {**load_config(ONEBLOB_CONFIG), "optimizer": SHAMPOO},
+                                 policy=BF16_POLICY, seed=23)
+    for b in batches[:10]:
+        oneblob.trainer.training_step(*b)
+    sr_case("config_oneblob", [m.clone() for m in preconditioners(oneblob)[0]], sr, 10)
+    for n in SR_ALONE:   # a cluster of 16 CTAs a matrix above n = 192
+        sr_case(f"n={n}", [spanning_psd(n, dev, SR_SPAN, SR_IDENTITY)], sr, 1)
+
+    phase(f"slice 23: Shampoo's times at config_hash, B={MAIN_BATCH}, the default route "
+          f"(GB), beside Adam's")
+    x, target = batches[0]
+    timed = {}
+    for name, ocfg in (("Shampoo", SHAMPOO), ("Adam", load_config(CONFIG)["optimizer"])):
+        m = create_from_config(2, 3, {**cfg, "optimizer": ocfg}, policy=BF16_POLICY, seed=23)
+        loop = m.trainer.make_training_loop(lambda i: batches[i], SHAMPOO_TIMED_STEPS)
+        loop()   # the capture, and t = 1 ... 200
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()   # t = 201 ... 400: refreshes at 400
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / SHAMPOO_TIMED_STEPS
+        (cap,) = [c for k, c in m.trainer._graphs.items() if k[0] != "make_training_step"]
+        device = replay_ms(cap.graph)
+        step = m.trainer.make_training_step()
+        r = {"loop_ms": host, "samples_per_s": MAIN_BATCH / host * 1e3, "device_ms": device,
+             "idle_share": 1 - device / host,
+             "compiled_step_ms": host_step_ms(lambda: step(x, target)),
+             "eager_step_ms": host_step_ms(lambda: m.trainer.training_step(x, target))}
+        _, grads = m.trainer.loss_value_and_grads(x, target)
+
+        def opt_step():
+            m.optimizer.step(m.trainer.opt_state, grads, m.trainer.params())
+
+        r["opt_eager_ms"], r["opt_replayed_ms"] = eager_ms(opt_step), graph_ms(opt_step)
+        timed[name] = r
+        print(f"{name} at config_hash: make_training_loop {host:.4f} ms per step on the host "
+              f"clock ({SHAMPOO_TIMED_STEPS} steps, t = 201-400), {r['samples_per_s']:.4e} "
+              f"samples/s, the replayed step {device:.4f} ms on the device (idle share "
+              f"{r['idle_share']:.3f}); make_training_step {r['compiled_step_ms']:.4f} ms, eager "
+              f"training_step {r['eager_step_ms']:.4f} ms a step (host clock, least of "
+              f"{COMPILED_REPS} passes of {COMPILED_STEPS}); the optimizer step alone "
+              f"{r['opt_eager_ms']:.4f} ms eager, {r['opt_replayed_ms']:.4f} ms replayed "
+              f"(device, steps past t = 400: no refresh among them but t = 600)")
+    ob = {}
+    ob_sampler = ImageSampler(image, seed=24)
+    for name, ocfg in (("Shampoo", SHAMPOO), ("Adam", load_config(ONEBLOB_CONFIG)["optimizer"])):
+        m = create_from_config(2, 3, {**load_config(ONEBLOB_CONFIG), "optimizer": ocfg},
+                               policy=BF16_POLICY, seed=23)
+        loop = m.trainer.make_training_loop(lambda i: ob_sampler.sample_batch(MAIN_BATCH),
+                                            ONEBLOB_TIMED_STEPS)
+        loop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ob_losses = loop()   # t = 101 ... 200: the refresh at 200
+        torch.cuda.synchronize()
+        ob[name] = (time.perf_counter() - t0) * 1e3 / ONEBLOB_TIMED_STEPS
+        check(bool(torch.isfinite(ob_losses).all()), f"config_oneblob {name}: non-finite loss")
+    print(f"config_oneblob make_training_loop at B={MAIN_BATCH}: Shampoo {ob['Shampoo']:.4f} ms "
+          f"per step, Adam {ob['Adam']:.4f} ms (calls of {ONEBLOB_TIMED_STEPS} steps, t = "
+          f"101-200, host clock)")
+
+    phase(f"slice 23: Shampoo under DataParallel and HybridParallel (n_model 1) "
+          f"make_training_step on a one-rank NCCL group, sortseg, {NCCL_COMPILED_STEPS} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        res, = parallel_check.run_ranks(1, parallel_check.nccl_compiled_job,
+                                        {"steps": NCCL_COMPILED_STEPS, "batch": MAIN_BATCH,
+                                         "rounds": 1, "optimizer": SHAMPOO, "main": False},
+                                        timeout=600, tmp=tmp, backend="nccl")
+    check(res["backend"] == "nccl", f"the group's backend is {res['backend']}")
+    for kind, r in res["sortseg"].items():
+        check(r["same_as_eager"] and r["same_as_trainer"] and r["step"] == NCCL_COMPILED_STEPS
+              and r["launches"]["SR"] == 2 and r["trainer_launches"]["SR"] == 2
+              and r["eager_launches"]["SR"] == NCCL_COMPILED_STEPS,
+              f"Shampoo under {kind}'s make_training_step: equal to step_shard_map's eager steps "
+              f"{r['same_as_eager']}, to Trainer.make_training_step's {r['same_as_trainer']}; "
+              f"launches {r['launches']}")
+        print(f"{kind}: {NCCL_COMPILED_STEPS} compiled Shampoo steps equal as many "
+              f"step_shard_map eager steps and Trainer.make_training_step's bit for bit (losses "
+              f"and weights); loss {r['losses'][0]:.6f} -> {r['losses'][-1]:.6f}; SR launched "
+              f"in the warm-up and the capture only")
+    reset_counts()
+    print(f"slice 23: {time.time() - t_start:.1f} s")
+    h = sr["config_hash"]
+    return [{"name": "shampoo_root (config_hash)", "route": "cuda", "source": KERNELS["SR"][1],
+             "replaces": REPLACES_SR, "launches": launches["SR"], "max_abs_err": h["max_abs_err"],
+             "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+             "path": f"config_hash (BF16_POLICY) with Shampoo through make_training_loop under "
+                     f"TCNN_TPU_SCATTER=sortseg, {SHAMPOO_LOOP_STEPS} steps at B={MAIN_BATCH}: "
+                     f"the warm-up step and the capture launch SR, each replay launches it "
+                     f"from the graph, and it refreshes at t = 1, 10, ..., 90, 200",
+             **{k: h[k] for k in ("no_refresh_ms", "sweeps", "rotations", "root_error",
+                                  "plain_root_error", "control_root_error", "root_tol", "sizes")},
+             "other_shapes": {k: v for k, v in sr.items() if k != "config_hash"},
+             "shampoo_config_hash": timed, "config_oneblob_loop_ms": ob}]
 
 
 # Slice 22: the compiled requests (Trainer.inference, forward, evaluate_loss)
@@ -6068,7 +6364,8 @@ def main():
               + wide_features_slice(gen, dev) + wide_output_slice(gen, dev)
               + sortseg_slice(gen, dev)
               + compiled_step_slice(gen, dev, hash_entries, sdf_entries, nerf_entries)
-              + compiled_requests_slice(gen, dev, hash_entries, btf_entries)}
+              + compiled_requests_slice(gen, dev, hash_entries, btf_entries)
+              + shampoo_slice(gen, dev)}
     torch_func_slice(gen, dev)
     image_sample_slice()
     mb_determinism(gen, dev)

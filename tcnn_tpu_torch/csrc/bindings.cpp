@@ -9,6 +9,7 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <vector>
 
@@ -253,6 +254,46 @@ void segment_sum(const torch::Tensor& keys, const torch::Tensor& order, const to
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Launches kernel SR on chunks of at most kShampooRootMaxMatrices matrices;
+// returns the number of launches.
+int64_t shampoo_root(const torch::Tensor& step, const std::vector<torch::Tensor>& mats,
+                     const std::vector<torch::Tensor>& roots, double identity,
+                     const torch::Tensor& stats, int64_t max_sweeps) {
+  const c10::cuda::CUDAGuard guard(step.device());
+  const int count = static_cast<int>(mats.size());
+  TORCH_CHECK(roots.size() == mats.size() && stats.size(0) == count,
+              "shampoo_root: as many roots and stats rows as matrices");
+  TORCH_CHECK(max_sweeps >= 1 && max_sweeps <= tcnn_tpu_torch::kShampooRootMaxSweeps,
+              "shampoo_root: max_sweeps 1 to ", tcnn_tpu_torch::kShampooRootMaxSweeps);
+  int64_t launches = 0;
+  for (int first = 0; first < count; first += tcnn_tpu_torch::kShampooRootMaxMatrices) {
+    const int chunk = std::min(count - first, tcnn_tpu_torch::kShampooRootMaxMatrices);
+    std::vector<const float*> mat_ptrs(chunk);
+    std::vector<float*> root_ptrs(chunk);
+    std::vector<int> sizes(chunk);
+    int64_t scratch_floats = 0;
+    for (int i = 0; i < chunk; ++i) {
+      const int64_t n = mats[first + i].size(0);
+      TORCH_CHECK(n >= 1 && n <= tcnn_tpu_torch::kShampooRootMaxN,
+                  "shampoo_root: a matrix of 1 to ", tcnn_tpu_torch::kShampooRootMaxN,
+                  " rows, got ", n);
+      mat_ptrs[i] = mats[first + i].data_ptr<float>();
+      root_ptrs[i] = roots[first + i].data_ptr<float>();
+      sizes[i] = static_cast<int>(n);
+      scratch_floats += tcnn_tpu_torch::shampoo_root_scratch_floats(sizes[i]);
+    }
+    // A and Vᵀ of each matrix and its pair buffer, in use until the launch has run
+    const torch::Tensor scratch = torch::empty({scratch_floats}, mats[first].options());
+    C10_CUDA_CHECK(tcnn_tpu_torch::shampoo_root_launch(
+        step.data_ptr<int32_t>(), mat_ptrs.data(), root_ptrs.data(), sizes.data(), chunk,
+        identity, scratch.data_ptr<float>(), stats.data_ptr<int32_t>() + 2 * first,
+        static_cast<int>(max_sweeps), c10::cuda::getCurrentCUDAStream()));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    ++launches;
+  }
+  return launches;
+}
+
 int64_t fused_mlp_bwd_smem_bytes(int64_t d_in, int64_t d_out, int64_t width,
                                  int64_t n_layers, bool compute_bf16, int64_t act,
                                  int64_t out_act) {
@@ -315,6 +356,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("row_scatter", &row_scatter, "row scatter-add (kernel RS)");
   m.def("sort_keys", &sort_keys, "grid table-gradient updates as sort keys and values (kernel SK)");
   m.def("segment_sum", &segment_sum, "segment sums of sorted updates (kernel SS)");
+  m.def("shampoo_root", &shampoo_root, "Shampoo's preconditioner roots on refresh steps (kernel SR)");
+  m.attr("shampoo_root_max_sweeps") = tcnn_tpu_torch::kShampooRootMaxSweeps;
   m.def("fused_mlp_bwd_smem_bytes", &fused_mlp_bwd_smem_bytes,
         "shared memory of one kernel-MB CTA");
   m.def("fused_mlp_fwd_smem_bytes", &fused_mlp_fwd_smem_bytes,

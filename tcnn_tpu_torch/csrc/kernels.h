@@ -210,6 +210,33 @@ cudaError_t segment_sum_launch(const int32_t* keys, const int64_t* order, const 
                                void* out, bool out_bf16, cudaStream_t stream);
 int64_t segment_sum_scratch_floats(int64_t m, int n_features);
 
+// Kernel SR: Shampoo's preconditioner roots (csrc/shampoo_root.cu), a
+// cluster of CTAs per matrix, at most kShampooRootMaxMatrices a launch.
+//   step         the optimizer's int32 step counter, read by the kernel: on a
+//                step that is no refresh step every CTA returns at once
+//   mats, roots  count (n, n) float32 row-major matrices L and their roots,
+//                1 <= n <= kShampooRootMaxN; root = (sym(L)·(1 − identity) +
+//                identity·I)^(−1/4), written over the old root
+//   scratch      the sum of shampoo_root_scratch_floats(n) over the matrices,
+//                16-byte aligned
+//   stats        (count, 2) int32: each refreshed matrix's sweeps and the
+//                rotations it applied (untouched on other steps)
+//   max_sweeps   the cap on Jacobi sweeps, 1 to kShampooRootMaxSweeps
+constexpr int kShampooRootMaxMatrices = 64;
+constexpr int kShampooRootMaxN = 4096;
+constexpr int kShampooRootMaxSweeps = 30;
+struct ShampooRootBatch {   // the kernel's table, passed by value
+  const float* mats[kShampooRootMaxMatrices];
+  float* roots[kShampooRootMaxMatrices];
+  float* scratch[kShampooRootMaxMatrices];
+  int n[kShampooRootMaxMatrices];
+};
+cudaError_t shampoo_root_launch(const int32_t* step, const float* const* mats,
+                                float* const* roots, const int* sizes, int count, double identity,
+                                float* scratch, int32_t* stats, int max_sweeps,
+                                cudaStream_t stream);
+int64_t shampoo_root_scratch_floats(int n);
+
 // The shared memory of one kernel-MB CTA for a shape and the activations
 // (more than 232,448 bytes: the shape does not fit).
 int fused_mlp_bwd_smem_bytes(int d_in, int d_out, int width, int n_layers, bool compute_bf16,

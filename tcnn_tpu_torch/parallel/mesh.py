@@ -197,10 +197,9 @@ class DataParallel:
         first call for a batch's shapes runs ``step_shard_map``'s step
         eagerly and captures the next, the all-reduce included, and later
         calls replay it; on the CPU the steps run eagerly.  On CUDA over
-        gloo it raises before any step; an optimizer whose step cannot be
-        captured (Shampoo: ``torch.linalg.eigh``) raises on the card at the
-        first call.  JAX's ``use_shard_map`` is accepted at its default
-        only."""
+        gloo it raises before any step.  Shampoo is captured too (kernel
+        SR: the ranks refresh the same all-reduced matrices, bit for bit).
+        JAX's ``use_shard_map`` is accepted at its default only."""
         refuse_use_shard_map(use_shard_map)
         return parallel_training_step(self, trainer, [self.group], with_pdf)
 
@@ -211,7 +210,7 @@ class DataParallel:
         ``Trainer.make_training_loop``: on CUDA over NCCL the first call's
         warm-up step runs eagerly and every later step replays a CUDA
         graph of the step; on the CPU the steps run eagerly.  On CUDA over
-        gloo it raises; Shampoo raises on the card.  Call
+        gloo it raises.  Call
         ``trainer.invalidate_jit_cache()`` before ``destroy_process_group``:
         a graph that holds NCCL collectives must go before its
         communicators (``parallel/launch.py``)."""

@@ -270,9 +270,8 @@ class HybridParallel:
         as ``DataParallel.make_training_step``: on CUDA over NCCL the first
         call for a batch's shapes runs ``step_shard_map``'s step eagerly
         and captures the next, and later calls replay it; on the CPU the
-        steps run eagerly.  On CUDA over gloo it raises before any step;
-        Shampoo (``torch.linalg.eigh`` cannot be captured) raises on the
-        card at the first call."""
+        steps run eagerly.  On CUDA over gloo it raises before any step.
+        Shampoo is captured too (kernel SR)."""
         return parallel_training_step(self, trainer, self._groups(), with_pdf)
 
     def make_training_loop(self, trainer, sample_fn, n_steps: int):
@@ -280,8 +279,7 @@ class HybridParallel:
         ``DataParallel.make_training_loop``: ``sample_fn(i)`` returns this
         rank's (x, target) block of step i; on CUDA over NCCL every step
         after the first call's warm-up replays a CUDA graph of the step;
-        on the CPU the steps run eagerly.  On CUDA over gloo it raises;
-        Shampoo raises on the card."""
+        on the CPU the steps run eagerly.  On CUDA over gloo it raises."""
         return parallel_training_loop(self, trainer, self._groups(), sample_fn, n_steps)
 
     def sharded(self):

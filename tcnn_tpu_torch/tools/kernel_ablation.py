@@ -1,4 +1,4 @@
-"""Where the time of kernels G, GB, GI, GG, GT, RS, M, MB, MW, MBW, SK and SS goes, on the card.
+"""Where the time of kernels G, GB, GI, GG, GT, RS, M, MB, MW, MBW, SK, SS and SR goes, on the card.
 
     python3 -m tcnn_tpu_torch.tools.kernel_ablation [--out DIR] [--only PREFIX ...]
                                                    [--baseline ROOT]
@@ -35,6 +35,9 @@ CUDA graph of 30 calls:
     config_btf's grids (bf16 tables, ``time_sortseg``), beside the atomic
     ``index_add_`` of the same updates, the deterministic one (under
     ``torch.use_deterministic_algorithms(True)``) and SS's gather floor;
+  * SR, Shampoo's root refresh, on one matrix at n = 64, 128 and 256
+    (``time_shampoo_root``) beside the eigh yardstick
+    (``torch.linalg.eigh`` and the two products, eager: it reads back);
   * GB over no level (its zeroing and cast) and one level at a time;
   * the same kernels in ablated copies of the package: ``DIR/<name>``
     holds a copy of ``tcnn_tpu_torch`` with one source patch
@@ -671,6 +674,7 @@ def time_kernels(config: str, full: bool) -> dict:
         bdc = bdc[:, :bspec.n_output_dims].t()
         out["GB config_btf"] = graph_ms(lambda: grid_encode_bwd(bspec, btable, bx, bdc, blive))
         out.update(time_sortseg(Path(config).parent))
+        out.update(time_shampoo_root(dev))
         if full:
             for lv in blive:
                 level = bspec.levels[lv]
@@ -756,6 +760,48 @@ def time_sortseg(config_dir: Path) -> dict:
             out[f"bits SS {label}"] = _bits(segment_sum(sk, order, vals, n_rows, torch.bfloat16))
             out[f"bits route {label}"] = _bits(grid_table_gradient(spec, table, x, dcols, live))
         del keys, vals, sk, order
+    return out
+
+
+SR_SIZES = (64, 128, 256)
+
+
+def time_shampoo_root(dev) -> dict:
+    """Kernel SR refreshing one root at ``SR_SIZES`` (``plain_path.
+    spanning_psd``, identity strength 0.01): device ms in a CUDA graph,
+    the eigh yardstick's ms (CUDA events around each eager call, median),
+    the root's bits and its sweeps.  A checkout without SR skips it."""
+    try:
+        from tcnn_tpu_torch.ops.cuda.shampoo_root import shampoo_refresh_roots
+        from tcnn_tpu_torch.tools.plain_path import spanning_psd
+    except ImportError:
+        return {}
+    out, s = {}, 0.01
+    step = torch.tensor(10, dtype=torch.int32, device=dev)
+    for n in SR_SIZES:
+        a = spanning_psd(n, dev, 1e5, s)
+        root = torch.empty_like(a)
+        stats = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+        shampoo_refresh_roots(step, [a], [root], s, stats)
+
+        def eigh():
+            v, u = torch.linalg.eigh(0.5 * (a + a.t()) * (1 - s)
+                                     + s * torch.eye(n, device=dev))
+            return (u * v.clamp_min(1e-12) ** -0.25) @ u.t()
+
+        times = []
+        for i in range(12):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            eigh()
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        out[f"SR n={n}"] = graph_ms(lambda: shampoo_refresh_roots(step, [a], [root], s), n=5)
+        out[f"eigh yardstick n={n}"] = statistics.median(times)
+        out[f"bits SR n={n}"] = _bits(root)
+        out[f"sweeps SR n={n}"] = int(stats[0, 0])
     return out
 
 

@@ -71,8 +71,10 @@ TABLES = {"hybrid_btf": "encoding.0.grid", "dp_hash": "encoding.grid",
           "eikonal_sdf": "encoding.grid"}
 
 
-def _model(job, device):
-    from .. import BF16_POLICY, Policy, create_from_config
+def _model(job, device, optimizer=None):
+    """The job's model from ``SEED``; ``optimizer`` (a config) in place of
+    the config's own."""
+    from .. import BF16_POLICY, Policy, create_from_config, load_config
     from ..samples import fit_sdf_eikonal
 
     root = Path(__file__).resolve().parents[2]
@@ -80,8 +82,10 @@ def _model(job, device):
         return create_from_config(3, 1, fit_sdf_eikonal.CONFIG, policy=Policy(), seed=SEED,
                                   device=device)
     n_in, cfg = (6, BTF_CONFIG) if job == "hybrid_btf" else (2, HASH_CONFIG)
-    return create_from_config(n_in, 3, str(root / cfg), policy=BF16_POLICY, seed=SEED,
-                              device=device)
+    cfg = load_config(str(root / cfg))
+    if optimizer is not None:
+        cfg = {**cfg, "optimizer": optimizer}
+    return create_from_config(n_in, 3, cfg, policy=BF16_POLICY, seed=SEED, device=device)
 
 
 def _sampler(job, batch, device):
@@ -114,11 +118,13 @@ def _counters():
     from ..ops.cuda.grid_encode import (grid_encode_bwd, grid_encode_bwd_bwd,
                                         grid_encode_bwd_input, grid_encode_fwd)
     from ..ops.cuda.scatter import row_scatter_add
+    from ..ops.cuda.shampoo_root import shampoo_refresh_roots
     from ..ops.cuda.sort_scatter import segment_sum, sort_keys
 
     return {"G": grid_encode_fwd, "GB": grid_encode_bwd, "GI": grid_encode_bwd_input,
             "GG": grid_encode_bwd_bwd, "RS": row_scatter_add, "M": fused_mlp_fwd,
-            "MB": fused_mlp_bwd, "SK": sort_keys, "SS": segment_sum}
+            "MB": fused_mlp_bwd, "SK": sort_keys, "SS": segment_sum,
+            "SR": shampoo_refresh_roots}
 
 
 def _sync(device):
@@ -490,13 +496,17 @@ def nccl_compiled_job(rank, world, args):
         and ``Trainer.make_training_step`` (passes over the batches, the
         least of ``args["rounds"]``, in turns), and the device ms per
         replay of both captured steps.
-    ``args["device"]`` (default: the rank's card) lets it run on the CPU too."""
+    ``args["optimizer"]`` (a config) replaces config_hash's optimizer in
+    every model (slice 23 takes Shampoo), and ``args["main"] = False``
+    leaves out the part without sortseg; ``args["device"]`` (default: the
+    rank's card) lets it run on the CPU too."""
     import contextlib
     import os
 
     from ..parallel import DataParallel, HybridParallel
 
     device = torch.device(args.get("device", "cuda"))
+    optimizer = args.get("optimizer")
     counters = _counters()
     sample = _sampler("dp_hash", args["batch"], device)
     batches = [sample(i) for i in range(args["steps"])]
@@ -529,14 +539,14 @@ def nccl_compiled_job(rank, world, args):
     res = {"backend": dist.get_backend(), "sortseg": {}}
     os.environ["TCNN_TPU_SCATTER"] = "sortseg"
     try:
-        m = _model("dp_hash", device)
+        m = _model("dp_hash", device, optimizer)
         ref = run(m.trainer.make_training_step(), m)
         for kind in ("data", "hybrid"):
-            m = _model("dp_hash", device)
+            m = _model("dp_hash", device, optimizer)
             layer = layer_of(kind, m)
             compiled = run(layer.make_training_step(m.trainer), m)
             keys = [k for k in m.trainer._graphs if k[0] == "make_training_step"]
-            e = _model("dp_hash", device)
+            e = _model("dp_hash", device, optimizer)
             eager = run(eager_step(layer_of(kind, e), e.trainer), e)
             infer = layer.make_inference(m.trainer)
             for fn in counters.values():
@@ -561,16 +571,18 @@ def nccl_compiled_job(rank, world, args):
                 "inference_launches": {"capture": at_capture, "replay": replay}}
     finally:
         del os.environ["TCNN_TPU_SCATTER"]
+    if not args.get("main", True):
+        return res
 
-    m = _model("dp_hash", device)
+    m = _model("dp_hash", device, optimizer)
     dp = layer_of("data", m)
     step = dp.make_training_step(m.trainer)
     main = run(step, m)
-    t = _model("dp_hash", device)
+    t = _model("dp_hash", device, optimizer)
     trainer_step = t.trainer.make_training_step()
     res["main"] = {"losses": main["losses"].tolist(), "launches": main["launches"],
                    "trainer_losses": run(trainer_step, t)["losses"].tolist()}
-    e = _model("dp_hash", device)
+    e = _model("dp_hash", device, optimizer)
     steps = {"parallel": step, "trainer": trainer_step,
              "eager": eager_step(layer_of("data", e), e.trainer)}
     res["ms"] = {}

@@ -21,6 +21,9 @@ fused-MLP input gradient differs from the plain one by a ReLU that lies
 within rounding of 0 and switched; ``rounding_flip_rows`` the rows of a
 deep bf16 MLP's output that a hidden value rounded to its other bf16
 neighbour, where it lies on a rounding boundary, explains.
+``spanning_psd`` draws the Shampoo preconditioners kernel SR is held
+against float64 roots on, ``float64_root`` is that reference and
+``root_error`` the error held to ``ROOT_TOL``.
 """
 
 from __future__ import annotations
@@ -510,3 +513,44 @@ def relu_flip_rows(weights: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Te
         for j, c in enumerate(variants[int(first[s])]):
             flipped[s, j] = near_val[s, c]
     return explained, chosen, flipped, near_val[:, 0]
+
+
+def spanning_psd(n: int, device, span: float = 1e5, identity: float = 0.01) -> torch.Tensor:
+    """A random symmetric positive semi-definite (n, n) float32 L, drawn
+    from a generator seeded by n, whose regularised S = L·(1 − s) + s·I
+    (s = ``identity``) has eigenvalues s to s·span, spaced geometrically:
+    a preconditioner's spread, as a trained MLP's spans 10^5."""
+    gen = torch.Generator().manual_seed(n)
+    q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, dtype=torch.float64))
+    w = identity * torch.logspace(0, torch.log10(torch.tensor(span)).item(), n,
+                                  dtype=torch.float64) - identity
+    return ((q * (w / (1 - identity))) @ q.t()).float().to(device)
+
+
+
+# Kernel SR's limit on ``root_error``: 32 fp32 ulps of the root's largest
+# entry.  SR diagonalises in fp64 and rounds the root once: under one ulp
+# on config_hash's and config_oneblob's trained preconditioners and
+# spanning_psd's at n = 256-600 in chip_smoke.py, where float32 eigh (the
+# plain version) reads up to 35,000 ulps and SR stopped at half its sweeps
+# 430 or more (PERF.md, slice 23).
+ROOT_TOL = 32 * torch.finfo(torch.float32).eps
+
+
+def float64_root(a: torch.Tensor, identity_strength: float) -> torch.Tensor:
+    """The float64 root, on the CPU, of the float32 S = sym(A)·(1 − s) +
+    s·I that JAX, the plain version and kernel SR all form (the same
+    float32 operations, so the same bits): eigh in float64."""
+    a = a.detach().cpu()
+    m = a.shape[-1]
+    sym = 0.5 * (a + a.t()) * (1.0 - identity_strength)
+    sym = sym + identity_strength * torch.eye(m, dtype=a.dtype)
+    w, v = torch.linalg.eigh(sym.double())
+    return (v * w.clamp_min(1e-12) ** -0.25) @ v.t()
+
+
+def root_error(root: torch.Tensor, a: torch.Tensor, identity_strength: float) -> float:
+    """The largest error of ``root`` against ``float64_root(a)``, over
+    that root's largest entry."""
+    want = float64_root(a, identity_strength)
+    return float((root.detach().cpu().double() - want).abs().max() / want.abs().max())

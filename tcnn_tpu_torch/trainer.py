@@ -211,9 +211,10 @@ class Trainer:
         0-d loss tensor (not the graph's, which the next replay
         overwrites) and does not wait for the device.  The graphs live in
         ``_graphs``, which ``invalidate_jit_cache`` clears: the next call
-        captures anew.  An optimizer whose step cannot be captured
-        (Shampoo: ``torch.linalg.eigh``) raises on the card; nothing goes
-        on eagerly there.  With ``device="cpu"`` the
+        captures anew.  Every optimizer of the package is captured, Shampoo
+        too (kernel SR refreshes its roots on the device); one whose
+        ``capturable`` is False raises on the card, and nothing goes on
+        eagerly there.  With ``device="cpu"`` the
         steps run eagerly.  JAX's ``in_shardings``, ``out_shardings`` and
         ``donate_state`` have no counterpart here and raise ``TypeError``.
         """
@@ -325,9 +326,10 @@ class Trainer:
         on the host).  Returns ``loop() -> losses``, an (n_steps,) tensor on
         the device.  On the card the first call captures a step in a CUDA
         graph (its warm-up is the loop's first step) and every other step
-        replays it; with ``device="cpu"`` the steps run eagerly.  An
-        optimizer whose step cannot be captured (Shampoo) raises on the
-        card.  The captured step keeps the table-gradient route it was
+        replays it; with ``device="cpu"`` the steps run eagerly.  A
+        replayed step reads its step counts from the device (Shampoo
+        refreshes its roots on the steps JAX does); an optimizer whose
+        ``capturable`` is False raises on the card.  The captured step keeps the table-gradient route it was
         captured with (``TCNN_TPU_SCATTER=sortseg`` or not,
         ``ops/sort_scatter.py``): setting the variable later does not
         change the replays.

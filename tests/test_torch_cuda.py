@@ -65,7 +65,7 @@ from tcnn_tpu_torch.ops.cuda.scatter import (row_scatter_add, row_scatter_add_pl
                                              scatter_add_cols)
 from tcnn_tpu_torch.tools.plain_path import (gg_rows_and_g, gg_table_scale,
                                              plain_loss_and_grads, plain_sdf_loss_and_grads,
-                                             relu_flip_rows)
+                                             relu_flip_rows, spanning_psd)
 
 import sortseg_layouts
 
@@ -1465,10 +1465,10 @@ def test_optimizer_step_on_the_card_matches_the_cpu(cuda, name):
     """One step with the same parameters, gradients and state (after two
     steps): counters equal, every float leaf within rtol 1e-5 plus 1e-6 of
     its largest magnitude (Shampoo 1e-4 plus 1e-5: fp32 matrix products).
-    Shampoo's roots, refreshed on the card at t = 10, against float64 roots
-    of the same matrices within ``root_error_bound``."""
+    Shampoo's roots, refreshed on the card at t = 10 by kernel SR, against
+    float64 roots of the same matrices within ``ROOT_TOL``."""
     from tcnn_tpu_torch.optimizers.base import named_leaves
-    from tcnn_tpu_torch.optimizers.shampoo import inverse_4th_root_psd, root_error_bound
+    from tcnn_tpu_torch.tools.plain_path import ROOT_TOL, root_error
 
     cfg = _hash_config(CARD_OPTIMIZERS[name])
     card = create_from_config(2, 3, cfg, policy=BF16_POLICY)
@@ -1499,12 +1499,11 @@ def test_optimizer_step_on_the_card_matches_the_cpu(cuda, name):
         assert int(card.trainer.opt_state["step"]) == 10
         for st in card.trainer.opt_state["mat"].values():
             for k in ("L", "R") if st else ():
-                want = inverse_4th_root_psd(st[k].double(), 0.01)
-                err = float((st[k + "_root"].double() - want).abs().max())
-                assert err <= root_error_bound(st[k], 0.01), (k, err)
+                err = root_error(st[k + "_root"], st[k], 0.01)
+                assert err <= ROOT_TOL, (k, err)
 
 
-@pytest.mark.parametrize("name", [n for n in CARD_OPTIMIZERS if n != "Shampoo"])
+@pytest.mark.parametrize("name", list(CARD_OPTIMIZERS))
 def test_optimizer_graph_loop_equals_eager_steps(cuda, name):
     """20 replayed steps against 20 eager ones cross every period and
     boundary of the configs above: the losses within 1e-3 relative (GB's
@@ -1528,13 +1527,42 @@ def test_optimizer_graph_loop_equals_eager_steps(cuda, name):
     assert not failed, (failed, odd)
 
 
-def test_shampoo_loop_refuses_capture_on_the_card(cuda):
+def _shampoo_runs(compiled, n_steps, batch=1 << 14):
+    """config_hash with Shampoo from one seed, ``n_steps`` steps on the
+    same batches through ``compiled`` ("loop": ``make_training_loop``,
+    "step": ``make_training_step``) or eagerly (None): the losses, every
+    parameter and state leaf, and kernel SR's launches."""
+    from tcnn_tpu_torch.ops.cuda.shampoo_root import shampoo_refresh_roots
+    from tcnn_tpu_torch.optimizers.base import tree_leaves
+
+    batches = _image_batches(n_steps, batch)
     model = create_from_config(2, 3, _hash_config(CARD_OPTIMIZERS["Shampoo"]),
-                               policy=BF16_POLICY)
-    x, t = _image_batches(1)[0]
-    with pytest.raises(RuntimeError, match="cannot be captured"):
-        model.trainer.make_training_loop(lambda i: (x, t), 2)()
-    assert bool(torch.isfinite(model.trainer.training_step(x, t)))
+                               policy=BF16_POLICY, seed=23)
+    sr = shampoo_refresh_roots.launches
+    if compiled == "loop":
+        losses = model.trainer.make_training_loop(lambda i: batches[i], n_steps)()
+    else:
+        step = model.trainer.make_training_step() if compiled else model.trainer.training_step
+        losses = torch.stack([step(x, t) for x, t in batches])
+    torch.cuda.synchronize()
+    assert model.trainer.step == n_steps
+    leaves = [p.detach().clone() for p in model.trainer.params().values()]
+    leaves += [t.clone() for t in tree_leaves(model.trainer.opt_state)]
+    return model, losses, leaves, shampoo_refresh_roots.launches - sr
+
+
+def test_shampoo_loop_refuses_capture_on_the_card(cuda, monkeypatch):
+    """Shampoo is captured since kernel SR: under TCNN_TPU_SCATTER=sortseg
+    25 steps of ``make_training_loop`` (refreshes at t = 1, 10 and 20,
+    read from the device counter by each replay) equal 25 eager steps bit
+    for bit, the losses, the weights and every state leaf; SR launches in
+    the warm-up step and the capture only."""
+    monkeypatch.setenv("TCNN_TPU_SCATTER", "sortseg")
+    _, got, got_leaves, launched = _shampoo_runs("loop", 25)
+    _, want, want_leaves, eager_launched = _shampoo_runs(None, 25)
+    assert launched == 2 and eager_launched == 25
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_leaves, want_leaves))
 
 
 def test_exported_train_step_replays_on_the_card(cuda):
@@ -2603,13 +2631,17 @@ def test_compiled_step_replays_the_eager_steps_bit_for_bit_under_sortseg(cuda, m
     assert grid_encode_fwd.launches - g0 == 2 and len(model.trainer._graphs) == 1
 
 
-def test_shampoo_compiled_step_refuses_capture_on_the_card(cuda):
-    model = create_from_config(2, 3, _hash_config(CARD_OPTIMIZERS["Shampoo"]),
-                               policy=BF16_POLICY)
-    x, t = _image_batches(1)[0]
-    with pytest.raises(RuntimeError, match="cannot be captured"):
-        model.trainer.make_training_step()(x, t)
-    assert model.trainer.step == 0 and not model.trainer._graphs
+def test_shampoo_compiled_step_refuses_capture_on_the_card(cuda, monkeypatch):
+    """Shampoo under ``make_training_step`` since kernel SR: under
+    TCNN_TPU_SCATTER=sortseg 12 calls (refreshes at t = 1 and 10) equal 12
+    eager steps bit for bit, from one graph, SR launched in the warm-up
+    and the capture only."""
+    monkeypatch.setenv("TCNN_TPU_SCATTER", "sortseg")
+    model, got, got_leaves, launched = _shampoo_runs("step", 12)
+    _, want, want_leaves, _ = _shampoo_runs(None, 12)
+    assert launched == 2 and len(model.trainer._graphs) == 1
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_leaves, want_leaves))
 
 
 def test_nerf_step_runs_with_no_host_sync_and_captures(cuda):
@@ -2762,3 +2794,154 @@ def test_parallel_compiled_step_on_one_nccl_rank_replays_the_eager_steps(cuda, t
     lc = res["main"]["launches"]
     assert {k: v for k, v in lc.items() if v} == {"G": 2, "GB": 2, "M": 2, "MB": 2}, lc
     assert np.isfinite(res["main"]["losses"]).all()
+
+
+# -- slice 23: kernel SR, Shampoo's preconditioner roots on the device --------
+
+SR_SIZES = (3, 16, 32, 64, 127, 128, 129, 256, 512, 600)
+SR_IDENTITY = 0.01
+
+
+def _sr(step, mats, roots, identity=SR_IDENTITY):
+    from tcnn_tpu_torch.ops.cuda.shampoo_root import shampoo_refresh_roots
+
+    stats = torch.zeros((len(mats), 2), dtype=torch.int32, device="cuda")
+    shampoo_refresh_roots(torch.tensor(step, dtype=torch.int32, device="cuda"), mats, roots,
+                          identity, stats)
+    torch.cuda.synchronize()
+    return stats.cpu()
+
+
+def _check_root(a, root, identity=SR_IDENTITY):
+    from tcnn_tpu_torch.tools.plain_path import ROOT_TOL, root_error
+
+    assert bool(torch.isfinite(root).all())
+    err = root_error(root, a, identity)
+    assert err <= ROOT_TOL, (a.shape[0], err)
+
+
+@pytest.mark.parametrize("n", SR_SIZES)
+def test_shampoo_root_kernel_matches_float64_roots(cuda, n):
+    """SR on a matrix whose spectrum spans 10^5, at sizes from config_hash's
+    R (3) to a 600-wide layer's and 127-129 on each side of a power of
+    two: the root within ``ROOT_TOL`` (32 ulps of its largest
+    entry) of the float64 root of the same float32 S, converged before
+    the sweep cap, one launch; a second launch writes the same bits.  The
+    control: from n = 16, the same launch stopped at half its sweeps lies
+    beyond ``ROOT_TOL``."""
+    from tcnn_tpu_torch.ops.cuda import kernels
+    from tcnn_tpu_torch.ops.cuda.shampoo_root import shampoo_refresh_roots
+    from tcnn_tpu_torch.tools.plain_path import ROOT_TOL, root_error
+
+    a = spanning_psd(n, "cuda")
+    root = torch.zeros_like(a)
+    before = shampoo_refresh_roots.launches
+    stats = _sr(10, [a], [root])
+    assert shampoo_refresh_roots.launches == before + 1
+    _check_root(a, root)
+    sweeps, rotations = stats[0].tolist()
+    assert 1 <= sweeps < kernels().shampoo_root_max_sweeps and (rotations > 0) == (n > 1), stats
+    again = torch.zeros_like(a)
+    _sr(10, [a], [again])
+    assert torch.equal(root, again)
+    if n >= 16:
+        early = torch.zeros_like(a)
+        shampoo_refresh_roots(torch.tensor(10, dtype=torch.int32, device="cuda"), [a], [early],
+                              SR_IDENTITY, max_sweeps=sweeps // 2)
+        assert root_error(early, a, SR_IDENTITY) > ROOT_TOL, (n, sweeps)
+
+
+def test_shampoo_root_kernel_takes_every_size_in_one_launch(cuda):
+    """Every size of ``SR_SIZES`` in one launch (a cluster of 16 CTAs a
+    matrix, as the largest n asks) equals each size's own launch (8 CTAs
+    below n = 193) bit for bit."""
+    mats = [spanning_psd(n, "cuda") for n in SR_SIZES]
+    roots = [torch.zeros_like(a) for a in mats]
+    _sr(200, mats, roots)
+    for a, root in zip(mats, roots):
+        alone = torch.zeros_like(a)
+        _sr(200, [a], [alone])
+        assert torch.equal(root, alone), a.shape[0]
+
+
+def test_shampoo_root_kernel_writes_only_on_refresh_steps(cuda):
+    """The counter is read from the device: on t = 2-9, 11-19, 99, 100,
+    101-199, 201 and 399 the roots and stats keep their bits; on t = 1, 10,
+    90, 200 and 400 every root is written, the same bits each time."""
+    mats = [spanning_psd(n, "cuda") for n in (3, 64, 256)]
+    fresh = [torch.zeros_like(a) for a in mats]
+    _sr(1, mats, fresh)
+    for t in (*range(2, 10), *range(11, 20), 99, 100, 101, 150, 199, 201, 399):
+        roots = [torch.full_like(a, 7.0) for a in mats]
+        stats = _sr(t, mats, roots)
+        assert all(bool((r == 7.0).all()) for r in roots) and not stats.any(), t
+    for t in (1, 10, 90, 200, 400):
+        roots = [torch.full_like(a, 7.0) for a in mats]
+        stats = _sr(t, mats, roots)
+        assert all(torch.equal(r, f) for r, f in zip(roots, fresh)) and stats[:, 0].min() > 0, t
+
+
+@pytest.mark.parametrize("identity", [SR_IDENTITY, 0.0])
+def test_shampoo_root_kernel_on_rank_one_matrices(cuda, identity):
+    """At t = 1 L = src·srcᵀ may have rank 1: with the identity strength
+    0.01 the root is within the bound; with none (S singular, eigenvalues
+    of rounding noise clamped to 1e-12) still finite, never NaN."""
+    rng = np.random.default_rng(5)
+    mats = []
+    for n in (3, 64, 128, 256):
+        v = rng.normal(size=(n, 1)).astype(np.float32)
+        mats.append(torch.from_numpy(v @ v.T).cuda())
+    roots = [torch.zeros_like(a) for a in mats]
+    _sr(1, mats, roots, identity)
+    for a, root in zip(mats, roots):
+        assert bool(torch.isfinite(root).all()), a.shape[0]
+        if identity:
+            _check_root(a, root, identity)
+
+
+def test_shampoo_step_reads_nothing_back(cuda):
+    """An eager Shampoo optimizer step, across the refresh at t = 10, under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on an
+    operation that waits for the device: the counter, the learning rate,
+    the decays and the norms stay on the card; and its roots at t = 10
+    against float64 roots."""
+    cfg = _hash_config({**CARD_OPTIMIZERS["Shampoo"], "relative_decay": 1e-4,
+                        "absolute_decay": 1e-6})
+    model = create_from_config(2, 3, cfg, policy=BF16_POLICY)
+    x, t = _image_batches(1)[0]
+    trainer = model.trainer
+    _, grads = trainer.loss_value_and_grads(x, t)
+    trainer.optimizer.step(trainer.opt_state, grads, trainer.params())   # builds, caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(9):
+            trainer.optimizer.step(trainer.opt_state, grads, trainer.params())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(trainer.opt_state["step"]) == 10
+    for st in trainer.opt_state["mat"].values():
+        for k in ("L", "R") if st else ():
+            _check_root(st[k], st[k + "_root"])
+        assert all(bool(torch.isfinite(v).all()) for v in st.values())
+
+
+def test_parallel_compiled_step_trains_shampoo_on_one_nccl_rank(cuda, tmp_path):
+    """Shampoo under DataParallel's and HybridParallel's (n_model 1)
+    ``make_training_step`` on a one-rank NCCL group, TCNN_TPU_SCATTER=
+    sortseg (``parallel_check.nccl_compiled_job`` with its optimizer): 12
+    steps equal as many ``step_shard_map`` eager steps and
+    ``Trainer.make_training_step``'s bit for bit; SR launched in the
+    warm-up and the capture only."""
+    from tcnn_tpu_torch.tools import parallel_check
+
+    res, = parallel_check.run_ranks(1, parallel_check.nccl_compiled_job,
+                                    {"steps": 12, "batch": 1 << 16, "rounds": 1,
+                                     "optimizer": CARD_OPTIMIZERS["Shampoo"], "main": False},
+                                    timeout=300, tmp=tmp_path, backend="nccl")
+    assert res["backend"] == "nccl" and "main" not in res
+    for kind, r in res["sortseg"].items():
+        assert r["same_as_eager"] and r["same_as_trainer"], kind
+        assert r["step"] == 12 and r["key_names_layer"], kind
+        assert r["launches"]["SR"] == 2 and r["trainer_launches"]["SR"] == 2, (kind, r)
+        assert r["eager_launches"]["SR"] == 12, (kind, r)

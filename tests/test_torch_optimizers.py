@@ -228,12 +228,91 @@ def test_composite_rejects_a_misaligned_boundary_and_orders_by_jax_leaves():
 
 
 def test_shampoo_refuses_capture_and_the_loop_says_why():
-    opt = tcnn.create_optimizer({"otype": "EMA", "nested": {"otype": "Shampoo"}})
-    assert not opt.capturable and "eigh" in opt.capture_error
+    """Since kernel SR refreshes Shampoo's roots on the device, every
+    optimizer of ``OPTIMIZERS`` is capturable, Shampoo under each wrapper
+    too; an optimizer that is not still passes its reason up through the
+    wrappers, where ``Trainer.make_training_loop`` and
+    ``make_training_step`` raise it on the card."""
+    assert all(tcnn.create_optimizer(c).capturable for c in OPTIMIZERS.values())
+    for wrapper in ("EMA", "Average", "Batched", "Lookahead", "ExponentialDecay"):
+        opt = tcnn.create_optimizer({"otype": wrapper, "nested": {"otype": "Shampoo"}})
+        assert opt.capturable and opt.capture_error == "", wrapper
     assert tcnn.create_optimizer({"otype": "Composite", "nested": [
-        {"otype": "Adam"}, {"otype": "Shampoo"}]}).capturable is False
-    assert all(tcnn.create_optimizer(c).capturable
-               for n, c in OPTIMIZERS.items() if n != "Shampoo")
+        {"otype": "Adam", "params": "other"}, {"otype": "Shampoo", "params": "matrix"}]}).capturable
+
+    class Uncapturable(tcnn.SGD):
+        capturable = False
+        capture_error = "this step reads the device"
+
+    opt = tcnn.optimizers.EMA(tcnn.optimizers.Composite([tcnn.Adam(), Uncapturable()],
+                                                        kinds_each=["other", "matrix"]))
+    assert not opt.capturable and opt.capture_error == "this step reads the device"
+
+
+def test_shampoo_refresh_due_equals_jax():
+    """The refresh predicate on a counter tensor equals JAX's under
+    ``jnp.uint32`` (``tcnn_tpu/optimizers/shampoo.py:140-141``) for t = 1
+    to 1000: t = 1, 10, 20, ..., 90, 200, 400, ..., and not t = 100."""
+    from tcnn_tpu_torch.optimizers.shampoo import refresh_due
+
+    t = np.arange(1, 1001)
+    tj = jnp.asarray(t, jnp.uint32)
+    interval = jnp.where(tj < 100, jnp.uint32(10), jnp.uint32(200))
+    want = np.asarray((tj == 1) | ((tj % interval) == 0))
+    got = refresh_due(torch.from_numpy(t.astype(np.int32))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert list(np.flatnonzero(got) + 1) == [1, *range(10, 100, 10), *range(200, 1001, 200)]
+
+
+def test_shampoo_loop_equals_jax_across_the_cadence_change(monkeypatch):
+    """210 steps of ``make_training_loop`` at ``_config``'s grid and narrow
+    MLP with Shampoo, the port's eager CPU steps (the plain refresh)
+    against JAX's jitted ``lax.scan``, on the same batches (JAX's own
+    draws from the loop's step keys), across the refreshes at t = 90 and
+    200 and the step t = 100 that JAX does not refresh at: the losses,
+    the parameters and every state leaf within the Shampoo tolerance.  At
+    a learning rate of 1e-3: at 1e-2 the fit feeds the two eigensolvers'
+    rounding back into its gradients and the runs part by 2e-3 of a loss
+    by t = 190.  The control: the port's run again with a refresh at
+    t = 100 too lies beyond the tolerance at this rate."""
+    steps, batch = 210, 64
+    cfg = _config({**OPTIMIZERS["Shampoo"], "learning_rate": 1e-3})
+    jmodel, state = _jax_start(cfg)
+
+    def sample(k):
+        x = jax.random.uniform(k, (batch, 2))
+        return x, jnp.stack([jnp.sin(6 * x[:, 0]), jnp.cos(5 * x[:, 1]), x[:, 0] * x[:, 1]], 1)
+
+    key = jax.random.key(3)
+    xs, ts = jax.jit(jax.vmap(lambda i: sample(jax.random.fold_in(key, i))))(jnp.arange(steps))
+    xs, ts = np.array(xs), np.array(ts)
+    model = tcnn.create_from_config(2, 3, cfg, device="cpu")
+    start = _np_tree(state.params)   # the loop donates the state's buffers
+    load_jax_params(model, start)
+    state, jlosses = jmodel.trainer.make_training_loop(sample, steps)(state, key)
+    losses = model.trainer.make_training_loop(
+        lambda i: (torch.from_numpy(xs[i]), torch.from_numpy(ts[i])), steps)()
+    _close(losses.numpy(), np.asarray(jlosses), "Shampoo", "losses")
+    assert int(model.trainer.opt_state["step"]) == steps
+    for n, want in flat_params(state.params).items():
+        _close(model.trainer.params()[n].detach().numpy(), want, "Shampoo", f"param {n}")
+    jleaves = jax.tree_util.tree_leaves(state.opt_state)
+    tleaves = list(named_leaves(model.trainer.opt_state))
+    assert len(jleaves) == len(tleaves)
+    for want, (path, got) in zip(jleaves, tleaves):
+        _close(got.numpy(), want, "Shampoo", f"state {path}")
+
+    from tcnn_tpu_torch.ops.cuda import shampoo_root
+    due = shampoo_root.refresh_due
+    monkeypatch.setattr(shampoo_root, "refresh_due", lambda t: due(t) | (t == 100))
+    wrong = tcnn.create_from_config(2, 3, cfg, device="cpu")
+    load_jax_params(wrong, start)
+    wrong.trainer.make_training_loop(
+        lambda i: (torch.from_numpy(xs[i]), torch.from_numpy(ts[i])), steps)()
+    rtol, scale = _tol("Shampoo")
+    assert not all(np.allclose(wrong.trainer.params()[n].detach().numpy(), want, rtol=rtol,
+                               atol=scale * float(np.abs(want).max()))
+                   for n, want in flat_params(state.params).items())
 
 
 def test_composite_with_an_empty_group_steps_like_jax():
